@@ -1,0 +1,2 @@
+"""The port's state-plane programs: the exchange-rank family
+(``flink_tpu_torch.stateplane.rank``)."""
