@@ -1,24 +1,44 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (flink_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--records N]
+    python3 chip_smoke.py [--records N] [--revenue-records N]
 
 Phases, each fatal on failure (no result line is printed then):
 
-1. build the exchange-rank kernel (flink_tpu_torch/csrc/rank.cu) with nvcc;
-2. hold it bit-identical to its plain PyTorch version on the card, over
-   random shapes (D 1..64, R 1..8, C up to 1<<20, with negative and
-   out-of-range lanes);
-3. time it at the shapes Nexmark Q5 gives it (R=8 shards, C=131072 lanes,
-   D=8), beside its plain version and its memory bound (bytes at
-   3.35 TB/s);
-4. run the exchange+scatter step on the card and on the CPU for Count
-   (exact) and float32 Sum (within a stated atomics-reordering bound);
+1. build both kernels from the checkout with nvcc, one process each, in
+   parallel: the exchange rank (flink_tpu_torch/csrc/rank.cu) and the
+   ordered fold (flink_tpu_torch/csrc/ordered_fold.cu);
+2. hold the rank kernel bit-identical to its plain PyTorch versions on the
+   card (rank_plain, exchange_rank_flat_plain) over 20 random shapes (D
+   1..64, R 1..8, C up to 1<<20, with negative and out-of-range lanes and
+   ranks past the bucket width), one launch per call;
+3. time the flat rank at the shapes Nexmark Q5 gives it (R=8 shards,
+   C=131072 lanes, D=8): per wrapper call by CUDA events, per launch by
+   torch.profiler, beside its plain version and its memory bound (12 B per
+   lane at 3.35 TB/s);
+4. run the exchange+scatter step on the card and on the CPU over Q5's
+   first 1<<20 bids (P=8, cap=1<<16, one slot per (auction, slice) as the
+   engine stages them) for Count, float32 Sum, and float32 Max/Min with
+   NaN, +0.0 and -0.0 in shared slots: every plane equal bit for bit.
+   Then hold the ordered fold alone against its plain version on the CPU
+   and time it at the fold's shapes in that step (Q5's key distribution),
+   and on Zipf(1.1) keys, beside index_add_ (not order-preserving); and
+   compare torch's own scatter_reduce_ amax/amin on the card with the CPU
+   on the NaN/±0 input (recorded, not gated);
 5. run Nexmark Q5 through the public API at parallelism.default=8 (100k
    auctions, 100k events/s of event time, 10 s / 2 s HOP, top-k 16,
    micro-batches of 1<<20 records) and check every fired window's winners
-   against a NumPy oracle computed here; the rank kernel's launch count
-   over that run must be > 0.
+   against a NumPy oracle computed here;
+6. run "Q5-revenue" the same way — the same bids, keyed by auction, HOP
+   10 s / 2 s, ``.sum("price")`` in float32, 10M bids — and check EVERY
+   fired (window, auction) sum bit for bit against a NumPy oracle that
+   sums each slice in stream order (np.add.at) and folds each window's
+   five slices left to right, as the engine merges them.
+
+The launch counts of both kernels are set to 0 just before each of phases
+5 and 6 and read just after; each phase fails if a kernel of its path did
+not launch (the rank in both; the ordered fold in phase 6, Count being an
+integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -38,6 +58,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 Q5_SHAPE = (8, 131072, 8)   # (R shards, C lanes per shard, D dests)
+Q5_WIDTH = 32768            # a bucket width Q5's batches stage at
+# Nexmark Q5 as bench.py runs it: auctions, events/s of event time, HOP
+# size and slide (ms), top-k
+AUCTIONS, RATE, SIZE, SLIDE, TOP_K = 100_000, 100_000, 10_000, 2_000, 16
 
 
 def card_line() -> str:
@@ -65,7 +89,53 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_rank_parity(torch, rank, rank_plain):
+def device_us_per_call(fn, iters: int, names) -> dict:
+    """Device time per call of ``fn`` spent in the kernels whose names
+    contain each of ``names``, by torch.profiler over ``iters`` calls; a
+    name the profiler did not see reads None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    tot = {n: None for n in names}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in ev.name:
+                tot[n] = (tot[n] or 0.0) + ev.time_range.elapsed_us() / iters
+    return tot
+
+
+def reset_counts():
+    from flink_tpu_torch.stateplane.fold import ordered_scatter_add
+    from flink_tpu_torch.stateplane.rank import rank
+
+    rank.launches = 0
+    ordered_scatter_add.launches = 0
+
+
+def read_counts() -> dict:
+    from flink_tpu_torch.stateplane.fold import ordered_scatter_add
+    from flink_tpu_torch.stateplane.rank import rank
+
+    return {"exchange_rank": rank.launches,
+            "ordered_fold": ordered_scatter_add.launches}
+
+
+def phase_rank_parity(torch):
+    from flink_tpu_torch.stateplane.rank import (
+        exchange_rank_flat,
+        exchange_rank_flat_plain,
+        rank,
+        rank_plain,
+    )
+
     rng = np.random.default_rng(2024)
     cases = [(1, 1, 1), (1, 1024, 1), (2, 1025, 7), (8, 131072, 8),
              (8, 1 << 20, 64), (3, 4097, 33)]
@@ -76,36 +146,113 @@ def phase_rank_parity(torch, rank, rank_plain):
     for R, C, D in cases:
         d = torch.from_numpy(rng.integers(-3, D + 4, size=(R, C))
                              .astype(np.int32)).cuda()
+        W = int(rng.integers(1, max(C // D, 1) + 2))
+        before = rank.launches
         got = rank(d, D)
+        got_flat = exchange_rank_flat(d, D, W)
+        if rank.launches != before + 2:
+            raise AssertionError(f"rank: {rank.launches - before} launches "
+                                 "for two calls")
         want = rank_plain(d, D)
+        want_flat = exchange_rank_flat_plain(d, D, W)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(
                 f"rank kernel != rank_plain at R={R} C={C} D={D}: "
                 f"{bad} lanes differ")
+        if not torch.equal(got_flat, want_flat):
+            bad = int((got_flat != want_flat).sum())
+            raise AssertionError(
+                f"flat rank != exchange_rank_flat_plain at R={R} C={C} "
+                f"D={D} W={W}: {bad} lanes differ")
         if R == 1:  # the [C] form too
             if not torch.equal(rank(d[0], D), want[0]):
                 raise AssertionError(f"1-D rank differs at C={C} D={D}")
-    print(f"phase 2: rank kernel bit-identical to rank_plain on "
-          f"{len(cases)} shapes (D 1..64, R 1..8, C up to {1 << 20})")
+        del want, want_flat
+    print(f"phase 2: rank kernel (int32 and flat int64) bit-identical to "
+          f"its plain versions on {len(cases)} shapes (D 1..64, R 1..8, C "
+          f"up to {1 << 20}); one launch per call")
 
 
-def phase_rank_timing(torch, rank, rank_plain):
+def phase_rank_timing(torch):
+    from flink_tpu_torch.stateplane.rank import (
+        exchange_rank_flat,
+        exchange_rank_flat_plain,
+    )
+
     R, C, D = Q5_SHAPE
+    W = Q5_WIDTH
     rng = np.random.default_rng(7)
     d = torch.from_numpy(rng.integers(0, D + 1, size=(R, C))
                          .astype(np.int32)).cuda()
-    err = (rank(d, D) - rank_plain(d, D)).abs().max().item()
-    ms = cuda_ms(lambda: rank(d, D), 200)
-    plain_ms = cuda_ms(lambda: rank_plain(d, D), 50)
-    nbytes = 2 * 4 * R * C          # each lane read once, written once
+    err = (exchange_rank_flat(d, D, W)
+           - exchange_rank_flat_plain(d, D, W)).abs().max().item()
+    ms = cuda_ms(lambda: exchange_rank_flat(d, D, W), 200)
+    plain_ms = cuda_ms(lambda: exchange_rank_flat_plain(d, D, W), 50)
+    dev = device_us_per_call(lambda: exchange_rank_flat(d, D, W), 50,
+                             ["rank_onepass"])["rank_onepass"]
+    # the same bytes moved by torch's own elementwise cast (read int32,
+    # write int64): what a memory-bound pass of this size takes here
+    cast = device_us_per_call(lambda: d.to(torch.int64), 50,
+                              ["elementwise"])["elementwise"]
+    nbytes = (4 + 8) * R * C      # each lane read once, its int64 written
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"phase 3: rank at R={R} C={C} D={D}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+
+    def ms_or_none(us):
+        return "not measured" if us is None else f"{us / 1e3:.4f} ms"
+
+    print(f"phase 3: flat rank at R={R} C={C} D={D} W={W}: wrapper call "
+          f"{ms:.4f} ms, kernel device time {ms_or_none(dev)}, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); torch's int32->int64 cast of "
+          f"the same lanes (same bytes) {ms_or_none(cast)} of device time")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "device_ms": None if dev is None else dev / 1e3,
+            "cast_device_ms": None if cast is None else cast / 1e3,
             "max_abs_err": float(err)}
+
+
+def _with_specials(rng, vals):
+    vals = vals.copy()
+    pick = rng.random(vals.shape)
+    vals[pick < 0.02] = np.nan
+    vals[(pick >= 0.02) & (pick < 0.2)] = 0.0
+    vals[(pick >= 0.2) & (pick < 0.4)] = -0.0
+    return vals
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def _q5_lanes(n: int, P: int):
+    """(shard, slot) of each of Q5's first n bids, as the engine stages
+    them: shards by key group, and per shard one slot (from 1; slot 0 is
+    the identity) for each (auction, slice) pair, in first-seen order."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.parallel.shuffle import shard_records
+
+    src = BidSource(total_records=n, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    b = src.poll_batch(n)
+    keys = np.asarray(b["auction"], dtype=np.int64)
+    pair = keys * (int(b.timestamps.max()) // SLIDE + 1) \
+        + b.timestamps // SLIDE
+    shards = shard_records(keys, P, 128)
+    span = int(pair.max()) + 1
+    u, first, inv = np.unique(shards * span + pair, return_index=True,
+                              return_inverse=True)
+    # number each shard's pairs 1, 2, ... in the order they first appear
+    rank_in_shard = np.empty(len(u), dtype=np.int64)
+    for p in range(P):
+        mine = np.nonzero(u // span == p)[0]
+        rank_in_shard[mine[np.argsort(first[mine], kind="stable")]] = \
+            np.arange(1, len(mine) + 1)
+    return shards, rank_in_shard[inv].astype(np.int32)
 
 
 def phase_exchange_scatter(torch):
@@ -113,68 +260,189 @@ def phase_exchange_scatter(torch):
     from flink_tpu_torch.parallel.mesh import make_mesh
     from flink_tpu_torch.parallel.shuffle import (
         build_exchange_scatter,
-        shard_records,
         stage_device_exchange,
     )
     from flink_tpu_torch.windowing.aggregates import (
         CountAggregate,
+        MaxAggregate,
+        MinAggregate,
         SumAggregate,
     )
 
-    P, cap, n = 8, 1 << 15, 1 << 20
+    P, cap, n = 8, 1 << 16, 1 << 20
+    shards, slots = _q5_lanes(n, P)
     rng = np.random.default_rng(3)
-    keys = rng.integers(0, 100_000, n).astype(np.int64)
-    shards = shard_records(keys, P, 128)
-    slots = rng.integers(1, cap, n).astype(np.int32)
     vals = rng.standard_normal(n).astype(np.float32)
+    special = _with_specials(rng, vals)
     report = {}
-    for name, agg in (("count", CountAggregate()),
-                      ("sum_f32", SumAggregate("v"))):
-        cols = [slots] + ([vals] if agg.input_leaves else [])
+    for name, agg, v in (("count", CountAggregate(), None),
+                         ("sum_f32", SumAggregate("v"), vals),
+                         ("max_f32", MaxAggregate("v"), special),
+                         ("min_f32", MinAggregate("v"), special)):
+        leaf = agg.leaves[0]
+        cols = [slots] + ([v] if agg.input_leaves else [])
         dst, staged, width = stage_device_exchange(
-            shards, P, cols, fills=[0] + [0.0] * len(agg.input_leaves))
+            shards, P, cols, fills=[0] + [leaf.identity] * len(
+                agg.input_leaves))
         outs = {}
         for dev in ("cpu", "cuda"):
             step = build_exchange_scatter(make_mesh(P, dev), agg)
-            leaf = agg.leaves[0]
             accs = (torch.full((P, cap), np.asarray(leaf.identity).item(),
                                dtype=torch_dtype(leaf.dtype), device=dev),)
             t = [torch.from_numpy(c).to(dev) for c in (dst, *staged)]
             accs = step(accs, t[0], t[1], tuple(t[2:]), width)
             outs[dev] = accs[0].cpu()
-        cpu, gpu = outs["cpu"], outs["cuda"]
-        if name == "count":
-            if not torch.equal(cpu, gpu):
-                raise AssertionError("exchange+scatter Count: card != CPU")
-            report[name] = {"exact": True}
-        else:
-            # CUDA index_add_ folds with atomics, in no fixed order: each
-            # slot's sum may differ from the CPU's stream-order fold by
-            # the reordering bound m * 2^-23 * sum|v| (m = its records)
-            abs_sum = torch.zeros(P * cap).index_add_(
-                0, _targets(torch, dst, staged[0], P, cap),
-                torch.from_numpy(np.abs(staged[1]))).view(P, cap)
-            m = torch.zeros(P * cap).index_add_(
-                0, _targets(torch, dst, staged[0], P, cap),
-                torch.ones(len(dst))).view(P, cap)
-            bound = m * 2.0 ** -23 * abs_sum
-            diff = (cpu - gpu).abs()
-            if bool((diff > bound).any()):
-                raise AssertionError("exchange+scatter Sum beyond the "
-                                     "atomics-reordering bound")
-            report[name] = {"exact": bool(torch.equal(cpu, gpu)),
-                            "max_abs_err": float(diff.max()),
-                            "slots_differing": int((diff > 0).sum())}
-    print("phase 4: exchange+scatter card vs CPU (n=1<<20, P=8, cap=1<<15):"
-          f" {json.dumps(report)}")
-    return report
+        differ = int((_bits(outs["cpu"]) != _bits(outs["cuda"])).sum())
+        report[name] = {"slots_differing": differ}
+        if differ:
+            raise AssertionError(f"exchange+scatter {name}: card != CPU in "
+                                 f"{differ} of {P * cap} slots")
+    print("phase 4: exchange+scatter card == CPU bit for bit over Q5's first"
+          f" 1<<20 bids (P=8, cap=1<<16): {json.dumps(report)}")
+    fold = phase_fold(torch, P, cap, shards, slots, vals, special)
+    return report, fold
 
 
-def _targets(torch, dst, slots, P, cap):
-    """Flat plane index each staged record lands on (its destination
-    shard's row), padded lanes to slot 0 of shard 0."""
-    d = np.where(dst < P, dst, 0).astype(np.int64)
-    return torch.from_numpy(d * cap + slots.astype(np.int64))
+def _received(torch, P, dst, slots, vals, width, cap):
+    """The (target, value) lanes the exchange step hands its fold: the
+    step's own rank, bucket scatter and transpose, on the card."""
+    from flink_tpu_torch.stateplane.rank import exchange_rank_flat
+
+    d = torch.from_numpy(dst).cuda()
+    C = d.numel() // P
+    W = int(width)
+    flat = exchange_rank_flat(d.view(P, C), P, W)
+
+    def exchange(col, fill):
+        buf = torch.full((P, P * W + 1), fill, dtype=col.dtype,
+                         device="cuda")
+        buf.scatter_(1, flat, col.view(P, C))
+        return (buf[:, :P * W].reshape(P, P, W).transpose(0, 1)
+                .reshape(P, P * W))
+
+    recv_s = exchange(torch.from_numpy(slots).cuda(), 0)
+    target = (recv_s.to(torch.int64) + torch.arange(
+        P, device="cuda", dtype=torch.int64)[:, None] * cap).reshape(-1)
+    v = exchange(torch.from_numpy(vals).cuda(), 0.0).reshape(-1)
+    return target, v
+
+
+def phase_fold(torch, P, cap, shards, slots, vals, special):
+    from flink_tpu_torch.parallel.shuffle import stage_device_exchange
+    from flink_tpu_torch.stateplane.fold import (
+        ordered_scatter_add,
+        ordered_scatter_add_plain,
+        ordered_scatter_reduce,
+        ordered_scatter_reduce_plain,
+    )
+
+    dst, (s_slots, s_vals), width = stage_device_exchange(
+        shards, P, [slots, vals], fills=[0, 0.0])
+    target, v = _received(torch, P, dst, s_slots, s_vals, width, cap)
+    n = target.numel()
+    zeros = torch.zeros(P * cap, device="cuda")
+    # the main path skips each shard plane's identity slot (stride cap)
+    got = ordered_scatter_add(zeros.clone(), target, v, cap)
+    want = ordered_scatter_add_plain(torch.zeros(P * cap), target.cpu(),
+                                     v.cpu())
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError("ordered fold != its plain version (CPU)")
+    err = float((got.cpu() - want).abs().max())
+    ms = cuda_ms(lambda: ordered_scatter_add(zeros.clone(), target, v, cap),
+                 50)
+    plain_ms = cuda_ms(lambda: ordered_scatter_add_plain(zeros.clone(),
+                                                         target, v), 50)
+    clone_ms = cuda_ms(lambda: zeros.clone(), 50)
+    real = target[target % cap != 0]   # lanes off the identity slots
+    distinct = int(torch.unique(real).numel())
+    longest = int(torch.bincount(real).max())
+    # each lane's int64 target and float32 value read once, each touched
+    # float32 accumulator read once and written once
+    nbytes = n * (8 + 4) + distinct * (4 + 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dev = device_us_per_call(
+        lambda: ordered_scatter_add(zeros.clone(), target, v, cap), 20,
+        ["gather_sorted", "fold_runs", "Sort"])
+
+    # Zipf(1.1) over 100k keys: one hot key makes one long run
+    rng = np.random.default_rng(11)
+    ranks = np.arange(1, 100_001, dtype=np.float64)
+    p = ranks ** -1.1
+    zkeys = rng.choice(100_000, size=n, p=p / p.sum())
+    z_target = torch.from_numpy(zkeys.astype(np.int64) + 1).cuda()
+    z_v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    z_zero = torch.zeros(100_001, device="cuda")
+    z_got = ordered_scatter_add(z_zero.clone(), z_target, z_v)
+    z_want = ordered_scatter_add_plain(torch.zeros(100_001), z_target.cpu(),
+                                       z_v.cpu())
+    if not torch.equal(_bits(z_got.cpu()), _bits(z_want)):
+        raise AssertionError("ordered fold != its plain version on Zipf keys")
+    z_ms = cuda_ms(lambda: ordered_scatter_add(z_zero.clone(), z_target,
+                                               z_v), 10)
+    z_index_add_ms = cuda_ms(lambda: z_zero.clone().index_add_(
+        0, z_target, z_v), 10)
+    z_longest = int(np.bincount(zkeys).max())
+
+    # float max/min: torch's scatter_reduce_ on the card vs the CPU, and
+    # the port's routed fold (the kernel's max/min modes) vs its plain one
+    sp_dst, (sp_slots, sp_vals), sp_w = stage_device_exchange(
+        shards, P, [slots, special], fills=[0, 0.0])
+    sp_t, sp_v = _received(torch, P, sp_dst, sp_slots, sp_vals, sp_w, cap)
+    torch_diff, port_diff = {}, {}
+    for reduce, ident in (("amax", -np.inf), ("amin", np.inf)):
+        acc = torch.full((P * cap,), float(ident))
+        on_card = acc.cuda().scatter_reduce_(0, sp_t, sp_v, reduce=reduce)
+        on_cpu = acc.clone().scatter_reduce_(0, sp_t.cpu(), sp_v.cpu(),
+                                             reduce=reduce)
+        torch_diff[reduce] = int((_bits(on_card.cpu()) != _bits(on_cpu))
+                                 .sum())
+        r = reduce[1:]
+        card = ordered_scatter_reduce(acc.cuda(), sp_t, sp_v, r)
+        plain = ordered_scatter_reduce_plain(acc.clone(), sp_t.cpu(),
+                                             sp_v.cpu(), r)
+        port_diff[r] = int((_bits(card.cpu()) != _bits(plain)).sum())
+    if any(port_diff.values()):
+        raise AssertionError(f"ordered fold max/min card != plain: "
+                             f"{port_diff}")
+    out = {"lanes": n, "distinct_targets": distinct, "longest_run": longest,
+           "ms": ms, "plain_ms": plain_ms, "clone_ms": clone_ms,
+           "bound_ms": bound_ms,
+           "device_us": dev, "max_abs_err": err,
+           "zipf": {"ms": z_ms, "index_add_ms": z_index_add_ms,
+                    "longest_run": z_longest, "lanes": n},
+           "torch_scatter_reduce_card_vs_cpu_slots_differing": torch_diff,
+           "port_max_min_card_vs_plain_slots_differing": port_diff}
+    print(f"phase 4b: ordered fold at the exchange's fold shapes ({n} lanes, "
+          f"{distinct} targets, longest run {longest}): {ms:.4f} ms per call "
+          f"(incl. a {clone_ms:.4f} ms plane clone), index_add_ (plain, not "
+          f"order-preserving) "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms; Zipf(1.1) over 100k "
+          f"keys: {z_ms:.4f} ms (longest run {z_longest}), index_add_ "
+          f"{z_index_add_ms:.4f} ms; bit-identical to the CPU fold in both")
+    print("fold " + json.dumps(out))
+    return out
+
+
+def _run_job(torch, build, device):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    env = StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8,
+        "execution.micro-batch.size": 1 << 20,
+        "execution.device": device,
+    }))
+    sink = CollectSink()
+    build(env).sink_to(sink)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = env.execute()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    lat = result.metrics.get("window_fire_latency_ms", {})
+    return sink, elapsed, counts, lat
 
 
 def q5_oracle(source_cls, total, num_auctions, rate, size_ms, slide_ms):
@@ -204,39 +472,22 @@ def q5_oracle(source_cls, total, num_auctions, rate, size_ms, slide_ms):
     return out
 
 
-def phase_q5(torch, records: int, device: str = "cuda"):
-    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+def phase_q5(torch, records: int):
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
-    from flink_tpu_torch.connectors.sinks import CollectSink
-    from flink_tpu_torch.stateplane.rank import rank
 
-    auctions, rate, size, slide, top_k = 100_000, 100_000, 10_000, 2_000, 16
-    env = StreamExecutionEnvironment(Configuration({
-        "parallelism.default": 8,
-        "execution.micro-batch.size": 1 << 20,
-        "execution.device": device,
-    }))
-    sink = CollectSink()
-    build_q5(env, BidSource(total_records=records, num_auctions=auctions,
-                            events_per_second_of_eventtime=rate),
-             size_ms=size, slide_ms=slide,
-             device_top_k=top_k).sink_to(sink)
-    rank.launches = 0
-    t0 = time.perf_counter()
-    result = env.execute("nexmark-q5")
-    if device == "cuda":
-        torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = rank.launches
+    sink, elapsed, counts, lat = _run_job(torch, lambda env: build_q5(
+        env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                       events_per_second_of_eventtime=RATE),
+        size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K), "cuda")
     batches = -(-records // (1 << 20))
-    if launches <= 0:
+    if counts["exchange_rank"] <= 0:
         raise AssertionError("Q5 ran without launching the rank kernel")
     got = {}
     for r in sink.rows():
         got.setdefault(r["window_end"], (r["count"], set()))[1].add(
             int(r["auction"]))
     t1 = time.perf_counter()
-    want = q5_oracle(BidSource, records, auctions, rate, size, slide)
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
     oracle_s = time.perf_counter() - t1
     if set(got) != set(want):
         raise AssertionError(f"Q5 fired {len(got)} windows, oracle "
@@ -244,27 +495,112 @@ def phase_q5(torch, records: int, device: str = "cuda"):
     for w, (best, winners) in want.items():
         g_best, g_winners = got[w]
         if g_best != best or not g_winners <= winners or \
-                len(g_winners) != min(len(winners), top_k):
+                len(g_winners) != min(len(winners), TOP_K):
             raise AssertionError(f"Q5 window {w}: got ({g_best}, "
                                  f"{sorted(g_winners)[:5]}...), oracle "
                                  f"({best}, {sorted(winners)[:5]}...)")
-    lat = result.metrics.get("window_fire_latency_ms", {})
     q5 = {"records": records, "elapsed_s": elapsed,
           "events_per_s": records / elapsed, "windows": len(got),
-          "batches": batches, "rank_launches": launches,
+          "batches": batches, "launches": counts,
           "fire_latency_ms": lat, "oracle_s": oracle_s}
     print(f"phase 5: Q5 P=8 {records} records in {elapsed:.3f} s = "
           f"{records / elapsed:.0f} events/s; {len(got)} windows match the "
-          f"oracle; rank launches {launches} over {batches} batches; "
-          f"fire latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
+          f"oracle; launches {counts} over {batches} batches; fire latency "
+          f"p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
     print("Q5 " + json.dumps(q5))
     return q5
+
+
+def build_revenue(env, source):
+    """Q5-revenue through the public API: float32 revenue per auction per
+    sliding window."""
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    return (env.from_source(source,
+                            WatermarkStrategy.for_bounded_out_of_orderness(0))
+            .key_by("auction")
+            .window(SlidingEventTimeWindows.of(SIZE, SLIDE))
+            .sum("price"))
+
+
+def revenue_oracle(source_cls, total, num_auctions, rate, size_ms,
+                   slide_ms):
+    """(sums [windows, auctions] float32, counts [windows, auctions]) by
+    NumPy, window e ending with slice e: per-slice sums by np.add.at in
+    stream order, then each window's slices folded left to right from 0."""
+    src = source_cls(total_records=total, num_auctions=num_auctions,
+                     events_per_second_of_eventtime=rate)
+    src.open()
+    k = size_ms // slide_ms
+    n_slices = ((total - 1) * 1000 // rate) // slide_ms + 1
+    sums = np.zeros((n_slices + 2 * (k - 1), num_auctions), np.float32)
+    counts = np.zeros((n_slices + 2 * (k - 1), num_auctions), np.int64)
+    flat_s, flat_c = sums.reshape(-1), counts.reshape(-1)
+    while (b := src.poll_batch(1 << 22)) is not None:
+        idx = ((b.timestamps // slide_ms) + (k - 1)) * num_auctions \
+            + b["auction"]
+        np.add.at(flat_s, idx, b["price"])
+        flat_c += np.bincount(idx, minlength=flat_c.size)
+    n_windows = n_slices + k - 1
+    win = np.zeros((n_windows, num_auctions), np.float32)
+    cnt = np.zeros((n_windows, num_auctions), np.int64)
+    for j in range(k):                 # ((0 + s0) + s1) + ... + s(k-1)
+        win = win + sums[j:j + n_windows]
+        cnt += counts[j:j + n_windows]
+    return win, cnt
+
+
+def phase_revenue(torch, records: int):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    sink, elapsed, counts, lat = _run_job(torch, lambda env: build_revenue(
+        env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                       events_per_second_of_eventtime=RATE)), "cuda")
+    for name in ("exchange_rank", "ordered_fold"):
+        if counts[name] <= 0:
+            raise AssertionError(f"Q5-revenue ran without launching {name}")
+    res = sink.result()
+    t1 = time.perf_counter()
+    want, cnt = revenue_oracle(BidSource, records, AUCTIONS, RATE, SIZE,
+                               SLIDE)
+    oracle_s = time.perf_counter() - t1
+    e = np.asarray(res["window_end"]) // SLIDE - 1
+    a = np.asarray(res["auction"]).astype(np.int64)
+    s = np.asarray(res["sum_price"], dtype=np.float32)
+    if e.min() < 0 or e.max() >= len(want):
+        raise AssertionError("Q5-revenue fired a window the oracle lacks")
+    pair = e * AUCTIONS + a
+    if len(np.unique(pair)) != len(pair):
+        raise AssertionError("Q5-revenue fired a (window, auction) twice")
+    present = cnt > 0
+    if len(pair) != int(present.sum()) or not present.reshape(-1)[pair].all():
+        raise AssertionError(f"Q5-revenue fired {len(pair)} rows, oracle "
+                             f"{int(present.sum())}")
+    bad = int((want[e, a].view(np.int32) != s.view(np.int32)).sum())
+    if bad:
+        raise AssertionError(f"Q5-revenue: {bad} of {len(s)} fired sums "
+                             "differ from the stream-order oracle")
+    windows = int(present.any(axis=1).sum())
+    rev = {"records": records, "elapsed_s": elapsed,
+           "events_per_s": records / elapsed, "windows": windows,
+           "rows": len(s), "rows_differing": bad, "launches": counts,
+           "fire_latency_ms": lat, "oracle_s": oracle_s}
+    print(f"phase 6: Q5-revenue P=8 {records} records in {elapsed:.3f} s = "
+          f"{records / elapsed:.0f} events/s; all {len(s)} fired (window, "
+          f"auction) sums over {windows} windows equal the stream-order "
+          f"oracle bit for bit; launches {counts}; fire latency p50 "
+          f"{lat.get('p50')} ms p99 {lat.get('p99')} ms")
+    print("revenue " + json.dumps(rev))
+    return rev
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
                     help="Q5 records (40M: the size of bench.py's run)")
+    ap.add_argument("--revenue-records", type=int, default=10_000_000,
+                    help="Q5-revenue records")
     args = ap.parse_args()
     import torch
 
@@ -273,41 +609,54 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     try:
-        from flink_tpu_torch.stateplane.rank import (
-            build_rank_kernel,
-            rank,
-            rank_plain,
-        )
+        from flink_tpu_torch.stateplane import cuda_build
     except ImportError as e:
         print(f"chip_smoke: the flink_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
         return 2
-    print(f"card: {card_line()}")
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _, log = build_rank_kernel()
-    print(f"phase 1: built rank kernel in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    logs = cuda_build.build_all()
+    print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "Compiling" in line:
+                print(f"  ptxas {src}: {line.strip()}")
 
-    phase_rank_parity(torch, rank, rank_plain)
-    timing = phase_rank_timing(torch, rank, rank_plain)
-    phase_exchange_scatter(torch)
+    phase_rank_parity(torch)
+    timing = phase_rank_timing(torch)
+    print("rank " + json.dumps(timing))
+    _, fold = phase_exchange_scatter(torch)
     q5 = phase_q5(torch, args.records)
+    rev = phase_revenue(torch, args.revenue_records)
 
     kernels = [{
         "name": "exchange_rank",
         "route": "cuda",
         "source": "flink_tpu_torch/csrc/rank.cu",
         "replaces": "flink_tpu/stateplane/rank.py:75",
-        "launches": q5["rank_launches"],
+        "launches": q5["launches"]["exchange_rank"]
+        + rev["launches"]["exchange_rank"],
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "ordered_fold",
+        "route": "cuda",
+        "source": "flink_tpu_torch/csrc/ordered_fold.cu",
+        "replaces": "flink_tpu/parallel/shuffle.py:396",
+        "launches": q5["launches"]["ordered_fold"]
+        + rev["launches"]["ordered_fold"],
+        "max_abs_err": fold["max_abs_err"],
+        "ms": fold["ms"],
+        "plain_ms": fold["plain_ms"],
+        "bound_ms": fold["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]

@@ -1,7 +1,7 @@
 """The DataStream fluent API (port of the Q5 surface of
-``flink_tpu/datastream/stream.py``): map, key_by, window, aggregate
-and sinks. Each method builds ``Transformation`` nodes that the
-executor turns into batched operators."""
+``flink_tpu/datastream/stream.py``): map, key_by, window, aggregate and
+its shorthands (sum, count, max, min, avg), and sinks. Each method builds
+``Transformation`` nodes that the executor turns into batched operators."""
 
 from __future__ import annotations
 
@@ -15,7 +15,14 @@ from flink_tpu_torch.runtime.operators import (
     SinkOperator,
     WindowAggOperator,
 )
-from flink_tpu_torch.windowing.aggregates import AggregateFunction
+from flink_tpu_torch.windowing.aggregates import (
+    AggregateFunction,
+    AvgAggregate,
+    CountAggregate,
+    MaxAggregate,
+    MinAggregate,
+    SumAggregate,
+)
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 
 if TYPE_CHECKING:
@@ -103,3 +110,19 @@ class WindowedStream:
             inputs=[self.keyed.transformation],
             keyed=True, key_field=key_field)
         return DataStream(env, t)
+
+    # SQL-ish shorthands
+    def sum(self, field: str) -> DataStream:
+        return self.aggregate(SumAggregate(field))
+
+    def count(self) -> DataStream:
+        return self.aggregate(CountAggregate())
+
+    def max(self, field: str) -> DataStream:
+        return self.aggregate(MaxAggregate(field))
+
+    def min(self, field: str) -> DataStream:
+        return self.aggregate(MinAggregate(field))
+
+    def avg(self, field: str) -> DataStream:
+        return self.aggregate(AvgAggregate(field))

@@ -5,18 +5,30 @@ Conventions kept from the reference: slot 0 is the identity slot (padded
 lanes point at it with identity values), and batch dimensions are padded to
 power-of-two buckets so the set of shapes stays small.
 
-The reduce maps are recast for torch: a scatter reduce becomes
-``index_add_`` (sum) or ``scatter_reduce_`` with ``amax``/``amin``; a merge
-across the slice axis becomes ``sum``/``amax``/``amin`` over that axis (the
-last dim of a gathered ``[..., k]`` slot matrix).
+The reduce maps are recast for torch. A scatter reduce of an integer
+leaf is ``index_add_`` (sum) or ``scatter_reduce_`` with ``amax``/``amin``:
+integer folds are exact in any order. A float leaf folds through
+``stateplane/fold.py`` (:func:`scatter_fold`), in stream order on the card
+as on the CPU, with the reference's NaN and signed-zero rules for max/min.
+A merge across the slice axis (the last dim of a gathered ``[..., k]``
+slot matrix) is, for sum, a left fold ``((0 + x0) + x1) + ...`` — the
+order XLA's CPU reduce takes, which ``torch.sum`` does not keep — and for
+float max/min a reduction over order keys.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from flink_tpu_torch.stateplane.fold import (
+    from_order_key,
+    order_key,
+    ordered_scatter_reduce,
+)
 
 
 def _scatter_add(acc: torch.Tensor, idx: torch.Tensor,
@@ -35,17 +47,50 @@ def _scatter_min(acc: torch.Tensor, idx: torch.Tensor,
 
 
 #: scatter reduce -> in-place fold ``(acc[flat], idx int64, v) -> acc``
+#: for integer leaves (exact in any order); see :func:`scatter_fold`
 SCATTER_METHOD: Dict[str, Callable] = {
     "sum": _scatter_add,
     "max": _scatter_max,
     "min": _scatter_min,
 }
 
+
+def scatter_fold(reduce: str, dtype: torch.dtype) -> Callable:
+    """The in-place fold ``(acc_flat, idx int64, v, identity_stride) ->
+    acc_flat`` of one leaf: float leaves keep the reference's order and
+    semantics through the ordered fold (its CUDA kernel on the card, which
+    skips the identity slot every ``identity_stride`` lanes of the plane);
+    integer leaves keep ``index_add_``/``scatter_reduce_``, whose atomics
+    cannot change an integer result."""
+    if not dtype.is_floating_point:
+        method = SCATTER_METHOD[reduce]
+        return lambda acc, idx, v, identity_stride=0: method(acc, idx, v)
+    return functools.partial(ordered_scatter_reduce, reduce=reduce)
+
+
+def _merge_sum(x: torch.Tensor) -> torch.Tensor:
+    # XLA's CPU reduce: start from 0, add the slices left to right
+    acc = x[..., 0] + 0
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _merge_extreme(x: torch.Tensor, reduce: str) -> torch.Tensor:
+    if not x.dtype.is_floating_point:
+        return torch.amax(x, dim=-1) if reduce == "max" \
+            else torch.amin(x, dim=-1)
+    k = order_key(x)
+    k = torch.amax(k, dim=-1) if reduce == "max" else torch.amin(k, dim=-1)
+    return from_order_key(k, x.dtype).masked_fill(
+        torch.isnan(x).any(dim=-1), float("nan"))
+
+
 #: merge across the slice axis (the last dim) of gathered partials
 MERGE_FN: Dict[str, Callable] = {
-    "sum": lambda x: torch.sum(x, dim=-1, dtype=x.dtype),
-    "max": lambda x: torch.amax(x, dim=-1),
-    "min": lambda x: torch.amin(x, dim=-1),
+    "sum": _merge_sum,
+    "max": lambda x: _merge_extreme(x, "max"),
+    "min": lambda x: _merge_extreme(x, "min"),
 }
 
 _MIN_BUCKET = 256

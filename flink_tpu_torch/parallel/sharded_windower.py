@@ -30,7 +30,7 @@ from flink_tpu_torch.core.records import (
 )
 from flink_tpu_torch.ops.segment_ops import (
     MERGE_FN,
-    SCATTER_METHOD,
+    scatter_fold,
     sticky_bucket,
     torch_dtype,
 )
@@ -356,10 +356,11 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
     - ``reset(accs, slots [P, F])``: set freed slots to identity.
     """
     leaves = agg.leaves
-    methods = tuple(SCATTER_METHOD[l.reduce] for l in leaves)
+    tdtypes = tuple(torch_dtype(l.dtype) for l in leaves)
+    methods = tuple(scatter_fold(l.reduce, td)
+                    for l, td in zip(leaves, tdtypes))
     merges = tuple(MERGE_FN[l.reduce] for l in leaves)
     idents = tuple(np.asarray(l.identity).item() for l in leaves)
-    tdtypes = tuple(torch_dtype(l.dtype) for l in leaves)
     finish = agg.finish
 
     def _flat_targets(slots: torch.Tensor, cap: int) -> torch.Tensor:
@@ -370,7 +371,8 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
                 ).reshape(-1)
 
     def scatter_step(accs, slots, values):
-        target = _flat_targets(slots, accs[0].shape[1])
+        cap = accs[0].shape[1]
+        target = _flat_targets(slots, cap)
         vals = iter(values)
         for a, m, l, td, ident in zip(accs, methods, leaves, tdtypes,
                                       idents):
@@ -381,7 +383,7 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
                 v.masked_fill_(slots == 0, ident)
             else:
                 v = next(vals)
-            m(a.view(-1), target, v.reshape(-1))
+            m(a.view(-1), target, v.reshape(-1), identity_stride=cap)
         return accs
 
     def fire_step(accs, slot_matrix):

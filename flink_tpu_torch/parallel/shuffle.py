@@ -11,7 +11,9 @@ received rows into the ``[P, capacity]`` accumulator planes, in place.
 
 Received lanes are ordered (source shard, rank); chunks partition the
 stream contiguously, so this is stream order per destination — the order
-the reference folds in.
+the reference folds in. Float leaves fold in that order on the card too
+(the ordered-fold kernel, ``stateplane/fold.py``); integer leaves keep
+``index_add_``, exact in any order.
 
 Not in this slice: the host-bucketing data plane (``shuffle.mode=host``),
 the repartition/combine collectives, and chaos injection.
@@ -25,8 +27,8 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.ops.segment_ops import (
-    SCATTER_METHOD,
     pad_bucket_size,
+    scatter_fold,
     torch_dtype,
 )
 from flink_tpu_torch.parallel.mesh import LogicalMesh
@@ -144,17 +146,19 @@ def build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
     updated IN PLACE — where the reference donated them to its jitted
     program — and returned."""
     leaves = agg.leaves
-    methods = tuple(SCATTER_METHOD[l.reduce] for l in leaves)
     tdtypes = tuple(torch_dtype(l.dtype) for l in leaves)
+    methods = tuple(scatter_fold(l.reduce, td)
+                    for l, td in zip(leaves, tdtypes))
     idents = tuple(np.asarray(l.identity).item() for l in leaves)
     P = int(mesh.size)
 
     def exchange_scatter(accs, dst, slots, values, bucket_width):
         W = int(bucket_width)
         C = dst.numel() // P
-        # rank within destination per source row -> flat bucket offset
-        # in [0, P*W], P*W being the sentinel of padded/overflow lanes
-        flat = exchange_rank_flat(dst.view(P, C), P, W).to(torch.int64)
+        # rank within destination per source row -> int64 flat bucket
+        # offset in [0, P*W], P*W being the sentinel of padded/overflow
+        # lanes (one kernel launch on the card)
+        flat = exchange_rank_flat(dst.view(P, C), P, W)
 
         def exchange(col: torch.Tensor, fill) -> torch.Tensor:
             # [P_src, C] lanes -> buckets [P_src, P_dst * W] (+1 sentinel
@@ -184,7 +188,7 @@ def build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
                 v.masked_fill_(recv_s == 0, ident)
             else:
                 v = exchange(next(vals), ident)
-            m(a.view(-1), target, v.reshape(-1))
+            m(a.view(-1), target, v.reshape(-1), identity_stride=cap)
         return accs
 
     return exchange_scatter

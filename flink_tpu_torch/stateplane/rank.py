@@ -14,76 +14,77 @@ stream order per destination (what keeps float folds in the reference's
 order).
 
 - :func:`rank_plain` is the one-hot-cumsum form of the reference's
-  ``xla_rank`` in torch — the CPU path and the kernel's parity oracle.
-- :func:`rank` is the wrapper: a CPU tensor goes to :func:`rank_plain`; a
-  CUDA tensor goes to the hand-written counting-sort kernel
-  (``flink_tpu_torch/csrc/rank.cu``, built with ``nvcc`` for ``sm_90a`` at
-  first use) or raises. There is no fallback between the two.
+  ``xla_rank`` in torch, and :func:`exchange_rank_flat_plain` the
+  reference's ``exchange_rank_flat`` on top of it — the CPU path and the
+  kernel's parity oracles.
+- :func:`rank` and :func:`exchange_rank_flat` are the wrappers: a CPU
+  tensor goes to the plain version; a CUDA tensor goes to the one-pass
+  counting-sort kernel (``flink_tpu_torch/csrc/rank.cu``, built with
+  ``nvcc`` for ``sm_90a`` at first use) or raises. There is no fallback
+  between the two. Both launch the same kernel once per call; the flat
+  form writes its int64 offsets directly.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "rank.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "csrc", "build")
-_SO = os.path.join(_BUILD_DIR, "librank.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from flink_tpu_torch.stateplane import cuda_build
 
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_SOURCE = "rank.cu"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("the exchange-rank CUDA kernel needs nvcc "
-                       "(not on PATH, not in /usr/local/cuda/bin)")
+def _declare(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    lib.rank_max_dests.restype = c.c_int
+    lib.rank_max_dests.argtypes = []
+    lib.rank_max_lanes.restype = c.c_int64
+    lib.rank_max_lanes.argtypes = []
+    lib.rank_status_elems.restype = c.c_int64
+    lib.rank_status_elems.argtypes = [c.c_int64, c.c_int64, c.c_int32]
+    lib.rank_launch.restype = c.c_int
+    lib.rank_launch.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
+                                c.c_int64, c.c_int64, c.c_int32, c.c_int64,
+                                c.c_uint32, c.c_int32, c.c_int32,
+                                c.c_void_p]
+
+
+cuda_build.register(_SOURCE, _declare)
 
 
 def build_rank_kernel() -> Tuple[ctypes.CDLL, str]:
     """Build (if its source-hash stamp is stale) and load the kernel
     library. Returns ``(library, compiler log)``; the log is empty when the
     cached build was current. Raises when the build fails."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib, ""
-        from flink_tpu_torch.native import build_cached
+    return cuda_build.load(_SOURCE)
 
-        nvcc = _nvcc()
-        version = subprocess.run([nvcc, "--version"], capture_output=True,
-                                 text=True, timeout=60).stdout
-        ok, log = build_cached(
-            _SRC, _SO, lambda tmp: [nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-            provenance=f"{version};{' '.join(NVCC_FLAGS)}", timeout=600)
-        if not ok:
-            raise RuntimeError(f"nvcc failed to build {_SRC}:\n{log}")
-        lib = ctypes.CDLL(_SO)
-        c = ctypes
-        lib.rank_max_dests.restype = c.c_int
-        lib.rank_max_dests.argtypes = []
-        lib.rank_scratch_elems.restype = c.c_int64
-        lib.rank_scratch_elems.argtypes = [c.c_int64, c.c_int64, c.c_int32]
-        lib.rank_launch.restype = c.c_int
-        lib.rank_launch.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
-                                    c.c_int64, c.c_int64, c.c_int32,
-                                    c.c_int32, c.c_void_p]
-        _lib = lib
-        return lib, log
+
+class _StatusBuffer:
+    """The look-back status words of one (device, stream): zeroed once
+    when (re)allocated, then tagged per call by a new epoch."""
+
+    def __init__(self) -> None:
+        self.words = None
+        self.epoch = 0
+
+    def claim(self, n: int, device: torch.device) -> Tuple[torch.Tensor, int]:
+        if self.words is None or self.words.numel() < n \
+                or self.epoch >= 0xFFFFFFFF:
+            # stream-ordered: a kernel still reading the old buffer runs
+            # before this memset on the same stream
+            self.words = torch.zeros(max(n, 1), dtype=torch.int64,
+                                     device=device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.words, self.epoch
+
+
+_status_lock = threading.Lock()
+_status: Dict[Tuple[int, int], _StatusBuffer] = {}
 
 
 def rank_plain(d: torch.Tensor, num_dests: int) -> torch.Tensor:
@@ -98,12 +99,20 @@ def rank_plain(d: torch.Tensor, num_dests: int) -> torch.Tensor:
     return torch.gather(before, -1, bucket).squeeze(-1)
 
 
-def rank(d: torch.Tensor, num_dests: int) -> torch.Tensor:
-    """Rank within destination: :func:`rank_plain` for a CPU tensor, the
-    CUDA kernel for a CUDA tensor. ``rank.launches`` counts the kernel's
-    launches (one per call that reaches the card)."""
-    if d.device.type == "cpu":
-        return rank_plain(d, num_dests)
+def exchange_rank_flat_plain(d: torch.Tensor, num_dests: int,
+                             width: int) -> torch.Tensor:
+    """The reference's ``exchange_rank_flat`` on :func:`rank_plain`, as
+    int64: ``d * width + rank`` where ``d < num_dests`` and the rank fits
+    the bucket, else the sentinel ``num_dests * width``."""
+    r = rank_plain(d, num_dests)
+    ok = (d < num_dests) & (r < width)
+    d64 = d.to(torch.int64)
+    return torch.where(ok, d64 * int(width) + r,
+                       torch.full_like(d64, int(num_dests) * int(width)))
+
+
+def _launch(d: torch.Tensor, num_dests: int, width: int,
+            flat: bool) -> torch.Tensor:
     if d.device.type != "cuda":
         raise ValueError(f"rank: unsupported device {d.device}")
     if d.dtype != torch.int32:
@@ -113,26 +122,46 @@ def rank(d: torch.Tensor, num_dests: int) -> torch.Tensor:
     if not d.is_contiguous():
         raise ValueError("rank: d must be contiguous")
     lib, _ = build_rank_kernel()
-    D = int(num_dests)
-    if not 1 <= D <= lib.rank_max_dests():
+    D, max_dests = int(num_dests), lib.rank_max_dests()
+    if not 1 <= D <= max_dests:
         raise ValueError(
-            f"rank: {D} destinations; the kernel's shared-memory histogram "
-            f"holds 1..{lib.rank_max_dests()}")
+            f"rank: {D} destinations; the kernel's shared-memory counts "
+            f"hold 1..{max_dests}")
     R, C = (1, d.shape[0]) if d.dim() == 1 else d.shape
     if R > 65535:
         raise ValueError(f"rank: {R} rows; the kernel takes at most 65535")
-    out = torch.empty_like(d)
+    if C > lib.rank_max_lanes():
+        raise ValueError(f"rank: {C} lanes per row; the kernel's status "
+                         f"words hold at most {lib.rank_max_lanes()}")
+    if flat and int(width) < 1:
+        raise ValueError(f"exchange_rank_flat: width {width} < 1")
+    out = torch.empty(d.shape, dtype=torch.int64 if flat else torch.int32,
+                      device=d.device)
     if d.numel() == 0:
         return out
-    scratch = torch.empty(lib.rank_scratch_elems(R, C, D),
-                          dtype=torch.int32, device=d.device)
+    dev = d.device.index if d.device.index is not None \
+        else torch.cuda.current_device()
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = lib.rank_launch(d.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                         R, C, D, d.device.index or 0, stream)
+    with _status_lock:
+        buf = _status.setdefault((dev, stream), _StatusBuffer())
+        words, epoch = buf.claim(lib.rank_status_elems(R, C, D), d.device)
+    rc = lib.rank_launch(d.data_ptr(), out.data_ptr(), words.data_ptr(),
+                         R, C, D, int(width) if flat else 0, epoch,
+                         1 if flat else 0, dev, stream)
     if rc != 0:
         raise RuntimeError(f"rank kernel launch failed: cudaError_t {rc}")
     rank.launches += 1
     return out
+
+
+def rank(d: torch.Tensor, num_dests: int) -> torch.Tensor:
+    """Rank within destination: :func:`rank_plain` for a CPU tensor, the
+    CUDA kernel for a CUDA tensor. ``rank.launches`` counts the kernel's
+    launches (one per call that reaches the card, whichever of ``rank``
+    and :func:`exchange_rank_flat` made it)."""
+    if d.device.type == "cpu":
+        return rank_plain(d, num_dests)
+    return _launch(d, num_dests, 0, flat=False)
 
 
 rank.launches = 0
@@ -140,10 +169,10 @@ rank.launches = 0
 
 def exchange_rank_flat(d: torch.Tensor, num_dests: int,
                        width: int) -> torch.Tensor:
-    """Destination indices -> flat bucket offsets, same contract as the
-    reference: ``d * width + rank`` for in-range lanes whose rank fits the
-    bucket, else the sentinel ``num_dests * width``."""
-    r = rank(d, num_dests)
-    ok = (d < num_dests) & (r < width)
-    return torch.where(ok, d * int(width) + r,
-                       torch.full_like(d, int(num_dests) * int(width)))
+    """Destination indices -> int64 flat bucket offsets, same contract as
+    the reference: ``d * width + rank`` where ``d < num_dests`` and the
+    rank fits the bucket, else the sentinel ``num_dests * width``. One
+    kernel launch on a CUDA tensor."""
+    if d.device.type == "cpu":
+        return exchange_rank_flat_plain(d, num_dests, width)
+    return _launch(d, num_dests, width, flat=True)

@@ -7,10 +7,10 @@ planes are compared, then the reference's planes are carried into the port
 with ``from_jax_planes`` and both engines go on from there.
 
 Tolerance: none — fired rows (keys, window bounds, results, row order) are
-equal. Count is integer; the float32 Sum uses integer-valued inputs, so
-every fold and slice merge is exact whatever order XLA's and torch's
-reductions take (the ingest fold order itself is pinned by
-test_torch_shuffle.py with non-integer values).
+equal. Count is integer; the float32 Sum and Avg run twice: on
+integer-valued inputs, where every fold is exact in any order, and on
+non-integer values of wide range, where the ingest folds and the slice
+merges must take the reference's order to give its bits.
 """
 
 import numpy as np
@@ -39,12 +39,18 @@ from flink_tpu_torch.windowing.fire_projectors import TopKFireProjector as TTopK
 P = 8
 
 
-def _steps(seed, n_steps=6, per_step=3000, num_keys=2000, span=700):
+def _steps(seed, n_steps=6, per_step=3000, num_keys=2000, span=700,
+           wide=False):
     rng = np.random.default_rng(seed)
     out = []
     for s in range(n_steps):
         keys = rng.integers(0, num_keys, per_step).astype(np.int64)
-        vals = rng.integers(0, 1000, per_step).astype(np.float32)
+        if wide:  # non-integer values of wide range: order shows
+            vals = (rng.standard_normal(per_step)
+                    * np.exp(rng.uniform(-8, 8, per_step))
+                    ).astype(np.float32)
+        else:
+            vals = rng.integers(0, 1000, per_step).astype(np.float32)
         ts = rng.integers(s * span, s * span + span,
                           per_step).astype(np.int64)
         out.append((keys, vals, ts, s * span - 1))
@@ -71,17 +77,23 @@ def _planes(jengine):
 
 CASES = {
     "sliding_count": (lambda m: m.SlidingEventTimeWindows.of(1000, 250),
-                      lambda a: a.CountAggregate(), False),
-    "tumbling_sum": (lambda m: m.TumblingEventTimeWindows.of(500),
-                     lambda a: a.SumAggregate("v"), False),
+                      lambda a: a.CountAggregate(), False, False),
     "sliding_sum_topk": (lambda m: m.SlidingEventTimeWindows.of(1000, 500),
-                         lambda a: a.SumAggregate("v"), True),
+                         lambda a: a.SumAggregate("v"), True, False),
+    "tumbling_sum": (lambda m: m.TumblingEventTimeWindows.of(500),
+                     lambda a: a.SumAggregate("v"), False, False),
+    "tumbling_sum_wide": (lambda m: m.TumblingEventTimeWindows.of(500),
+                          lambda a: a.SumAggregate("v"), False, True),
+    "sliding_sum_wide": (lambda m: m.SlidingEventTimeWindows.of(1000, 200),
+                         lambda a: a.SumAggregate("v"), False, True),
+    "sliding_avg_wide": (lambda m: m.SlidingEventTimeWindows.of(1000, 200),
+                         lambda a: a.AvgAggregate("v"), False, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fired_rows_equal_reference(eight_device_mesh, case):
-    assigner, agg, topk = CASES[case]
+    assigner, agg, topk, wide = CASES[case]
     jeng = JEngine(assigner(jasg), agg(jagg), eight_device_mesh,
                    capacity_per_shard=1024, max_parallelism=128,
                    fire_projector=JTopK("sum_v" if "sum" in case
@@ -93,7 +105,8 @@ def test_fired_rows_equal_reference(eight_device_mesh, case):
                                         else "count", k=8)
                    if topk else None)
     fired_j, fired_t = [], []
-    for i, (keys, vals, ts, wm) in enumerate(_steps(sorted(CASES).index(case))):
+    steps = _steps(list(CASES).index(case), wide=wide)
+    for i, (keys, vals, ts, wm) in enumerate(steps):
         jeng.process_batch(_batch(JBatch, keys, vals, ts))
         teng.process_batch(_batch(TBatch, keys, vals, ts))
         if i == 0:
