@@ -18,13 +18,23 @@ Phases, each fatal on failure (no result line is printed then):
    lane at 3.35 TB/s);
 4. run the exchange+scatter step on the card and on the CPU over Q5's
    first 1<<20 bids (P=8, cap=1<<16, one slot per (auction, slice) as the
-   engine stages them) for Count, float32 Sum, and float32 Max/Min with
-   NaN, +0.0 and -0.0 in shared slots: every plane equal bit for bit.
-   Then hold the ordered fold alone against its plain version on the CPU
-   and time it at the fold's shapes in that step (Q5's key distribution),
-   and on Zipf(1.1) keys, beside index_add_ (not order-preserving); and
-   compare torch's own scatter_reduce_ amax/amin on the card with the CPU
-   on the NaN/±0 input (recorded, not gated);
+   engine stages them) for Count, float32 Sum over values with NaN
+   payloads and +inf/-inf lanes (so that the CPU's NaN bits are checked),
+   and float32 Max/Min with NaN, +0.0 and -0.0 in shared slots: every
+   plane equal bit for bit; then fire the Sum plane (its NaN payloads
+   and infinities included) over windows of 5 slices, Q5-revenue's, on the
+   card and on the CPU: every merged sum equal bit for bit. Then (4b)
+   hold the ordered fold's grouping
+   (group_planes) against a stable sort on the CPU and its fold against
+   its plain version on the CPU, bit for bit, at four shapes: the fold's
+   shapes in that step (Q5's keys), Zipf(1.1) over 100k keys in float32
+   and in float64 (one plane of 100001 slots, three radix passes, long
+   runs), and the step's shapes with planes of 1<<17 slots (three
+   passes); time each (wrapper call, device us per stage, the plain
+   version, torch.sort(stable=True) alone on the int64 flat targets, and
+   index_add_), beside the bytes bound and the dependent-add chain bound
+   at the card's top SM clock; and compare torch's own scatter_reduce_
+   amax/amin on the card with the CPU (recorded, not gated);
 5. run Nexmark Q5 through the public API at parallelism.default=8 (100k
    auctions, 100k events/s of event time, 10 s / 2 s HOP, top-k 16,
    micro-batches of 1<<20 records) and check every fired window's winners
@@ -113,19 +123,19 @@ def device_us_per_call(fn, iters: int, names) -> dict:
 
 
 def reset_counts():
-    from flink_tpu_torch.stateplane.fold import ordered_scatter_add
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
     from flink_tpu_torch.stateplane.rank import rank
 
     rank.launches = 0
-    ordered_scatter_add.launches = 0
+    ordered_fold_planes.launches = 0
 
 
 def read_counts() -> dict:
-    from flink_tpu_torch.stateplane.fold import ordered_scatter_add
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
     from flink_tpu_torch.stateplane.rank import rank
 
     return {"exchange_rank": rank.launches,
-            "ordered_fold": ordered_scatter_add.launches}
+            "ordered_fold": ordered_fold_planes.launches}
 
 
 def phase_rank_parity(torch):
@@ -222,6 +232,21 @@ def _with_specials(rng, vals):
     return vals
 
 
+def _sum_specials(rng, vals):
+    """float32 values with NaN payloads (signalling, quiet, negative) and
+    +inf / -inf lanes, so that some slots meet inf - inf: the cases where
+    the CPU's NaN bits differ from a plain card add."""
+    vals = vals.copy()
+    bits = vals.view(np.int32)
+    pick = rng.random(vals.shape)
+    for j, b in enumerate((0x7FA00001, 0x7FC0000A, -0x003FFFFB)):
+        sel = (pick >= 0.001 * j) & (pick < 0.001 * (j + 1))
+        bits[sel] = b + rng.integers(0, 1 << 12, int(sel.sum()))
+    vals[(pick >= 0.003) & (pick < 0.013)] = np.inf
+    vals[(pick >= 0.013) & (pick < 0.023)] = -np.inf
+    return vals
+
+
 def _bits(t):
     import torch
 
@@ -258,6 +283,7 @@ def _q5_lanes(n: int, P: int):
 def phase_exchange_scatter(torch):
     from flink_tpu_torch.ops.segment_ops import torch_dtype
     from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import build_mesh_steps
     from flink_tpu_torch.parallel.shuffle import (
         build_exchange_scatter,
         stage_device_exchange,
@@ -274,9 +300,10 @@ def phase_exchange_scatter(torch):
     rng = np.random.default_rng(3)
     vals = rng.standard_normal(n).astype(np.float32)
     special = _with_specials(rng, vals)
+    sum_special = _sum_specials(rng, vals)
     report = {}
     for name, agg, v in (("count", CountAggregate(), None),
-                         ("sum_f32", SumAggregate("v"), vals),
+                         ("sum_f32", SumAggregate("v"), sum_special),
                          ("max_f32", MaxAggregate("v"), special),
                          ("min_f32", MinAggregate("v"), special)):
         leaf = agg.leaves[0]
@@ -294,18 +321,36 @@ def phase_exchange_scatter(torch):
             outs[dev] = accs[0].cpu()
         differ = int((_bits(outs["cpu"]) != _bits(outs["cuda"])).sum())
         report[name] = {"slots_differing": differ}
+        if name == "sum_f32":
+            report[name]["nan_slots"] = int(torch.isnan(outs["cpu"]).sum())
+            sum_plane = outs["cpu"]
         if differ:
             raise AssertionError(f"exchange+scatter {name}: card != CPU in "
                                  f"{differ} of {P * cap} slots")
+    # the fire's slice merge of those sums, windows of 5 slices
+    sm = torch.from_numpy(rng.integers(0, cap, (P, 4096, SIZE // SLIDE))
+                          .astype(np.int32))
+    fired = {}
+    for dev in ("cpu", "cuda"):
+        fire = build_mesh_steps(make_mesh(P, dev), SumAggregate("v"))[1]
+        fired[dev] = fire((sum_plane.to(dev),), sm.to(dev))["sum_v"].cpu()
+    differ = int((_bits(fired["cpu"]) != _bits(fired["cuda"])).sum())
+    report["fire_sum_k5"] = {"rows_differing": differ,
+                             "nan_rows": int(torch.isnan(fired["cpu"]).sum())}
+    if differ:
+        raise AssertionError(f"fire merge of float32 sums: card != CPU in "
+                             f"{differ} of {fired['cpu'].numel()} rows")
     print("phase 4: exchange+scatter card == CPU bit for bit over Q5's first"
-          f" 1<<20 bids (P=8, cap=1<<16): {json.dumps(report)}")
+          f" 1<<20 bids (P=8, cap=1<<16; Sum with NaN payloads and +-inf), "
+          f"and its fire over windows of 5 slices: {json.dumps(report)}")
     fold = phase_fold(torch, P, cap, shards, slots, vals, special)
     return report, fold
 
 
-def _received(torch, P, dst, slots, vals, width, cap):
-    """The (target, value) lanes the exchange step hands its fold: the
-    step's own rank, bucket scatter and transpose, on the card."""
+def _received(torch, P, dst, slots, vals, width):
+    """The (slots [P, L] int32, values [P, L]) the exchange step hands its
+    fold: the step's own rank, bucket scatter and transpose, on the
+    card."""
     from flink_tpu_torch.stateplane.rank import exchange_rank_flat
 
     d = torch.from_numpy(dst).cuda()
@@ -320,105 +365,188 @@ def _received(torch, P, dst, slots, vals, width, cap):
         return (buf[:, :P * W].reshape(P, P, W).transpose(0, 1)
                 .reshape(P, P * W))
 
-    recv_s = exchange(torch.from_numpy(slots).cuda(), 0)
-    target = (recv_s.to(torch.int64) + torch.arange(
+    return (exchange(torch.from_numpy(slots).cuda(), 0),
+            exchange(torch.from_numpy(vals).cuda(), 0.0))
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+FADD_CYCLES = 4   # dependent FP32/FP64 add latency assumed for the chain
+
+
+def fold_case(torch, name, acc, slots, v, clock_hz, stages=True):
+    """Hold the fold's grouping and its fold on the card against their
+    plain versions on the CPU (bit for bit), and time them: the wrapper
+    call, device µs per stage, torch.sort(stable=True) alone on the
+    int64 flat targets p * cap + slot (the stage a sort-based grouping runs),
+    the plain version and index_add_ on the card, and both bounds."""
+    from flink_tpu_torch.stateplane.fold import (
+        group_planes,
+        group_planes_plain,
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
+    )
+
+    P, cap = acc.shape
+    got_g = group_planes(slots, v, cap)
+    want_g = group_planes_plain(slots.cpu(), v.cpu(), cap)
+    for p, ((gk, gv), (wk, wv)) in enumerate(zip(got_g, want_g)):
+        if not (torch.equal(gk.cpu(), wk)
+                and torch.equal(_bits(gv.cpu()), _bits(wv))):
+            raise AssertionError(f"{name}: grouping != stable sort, plane "
+                                 f"{p}")
+    del got_g
+    got = ordered_fold_planes(acc.clone(), slots, v, "sum")
+    want = ordered_fold_planes_plain(acc.cpu(), slots.cpu(), v.cpu(), "sum")
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        bad = int((_bits(got.cpu()) != _bits(want)).sum())
+        raise AssertionError(f"{name}: ordered fold != its plain version "
+                             f"in {bad} slots")
+    err = float((got.cpu() - want).abs().nan_to_num().max())
+    kept = [wk for wk, _ in want_g]
+    real = sum(int(k.numel()) for k in kept)
+    touched = sum(int(torch.unique(k).numel()) for k in kept)
+    longest = max(int(torch.bincount(k.to(torch.int64)).max())
+                  if k.numel() else 0
+                  for k in kept)
+    eb = v.element_size()
+    nbytes = 4 * slots.numel() + eb * real + 2 * eb * touched
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = longest * FADD_CYCLES / clock_hz * 1e3
+    target = (slots.to(torch.int64) + torch.arange(
         P, device="cuda", dtype=torch.int64)[:, None] * cap).reshape(-1)
-    v = exchange(torch.from_numpy(vals).cuda(), 0.0).reshape(-1)
-    return target, v
+    flat_v = v.reshape(-1)
+    work = acc.clone()
+    ms = cuda_ms(lambda: ordered_fold_planes(work, slots, v, "sum"), 20)
+    sort_ms = cuda_ms(lambda: torch.sort(target, stable=True), 20)
+    plain_ms = cuda_ms(lambda: ordered_fold_planes_plain(work, slots, v,
+                                                         "sum"), 20)
+    flat_acc = work.view(-1)
+    index_add_ms = cuda_ms(lambda: flat_acc.index_add_(0, target, flat_v),
+                           20)
+    dev = device_us_per_call(
+        lambda: ordered_fold_planes(work, slots, v, "sum"), 10,
+        ["Memset", "histogram", "sort_pass", "fold_runs", "fold_long"]) \
+        if stages else None
+    # the hot run's measured pace, when the long-run stage was timed
+    cycles_per_add = (dev["fold_long"] * 1e-6 * clock_hz / longest
+                      if dev and dev.get("fold_long") and longest >= 1024
+                      else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        ordered_fold_planes(work, slots, v, "sum")
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    out = {"planes": P, "cap": cap, "lanes": slots.numel(),
+           "real_lanes": real, "targets": touched, "longest_run": longest,
+           "dtype": str(v.dtype).replace("torch.", ""),
+           "ms": ms, "torch_sort_stable_ms": sort_ms, "plain_ms": plain_ms,
+           "index_add_ms": index_add_ms, "device_us": dev,
+           "host_enqueue_ms": host_ms, "long_run_cycles_per_add":
+               cycles_per_add,
+           "bytes_bound_ms": bytes_ms, "chain_bound_ms": chain_ms,
+           "bound_ms": max(bytes_ms, chain_ms),
+           "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+           "max_abs_err": err}
+    print(f"phase 4b {name}: P={P} cap={cap} {slots.numel()} lanes ({real} "
+          f"kept, {touched} targets, longest run {longest}, "
+          f"{out['dtype']}): grouping and fold bit-identical to their "
+          f"plain versions; wrapper {ms:.4f} ms, torch.sort(stable) of the "
+          f"flat targets alone {sort_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ (not order-preserving) {index_add_ms:.4f} ms; "
+          f"bound {out['bound_ms']:.5f} ms (bytes {bytes_ms:.5f}, chain "
+          f"{chain_ms:.5f} at {clock_hz / 1e6:.0f} MHz, {FADD_CYCLES} "
+          f"cycles an add); device us per stage {dev}; host enqueue "
+          f"{host_ms:.4f} ms per call; long run at {cycles_per_add} "
+          "cycles per add")
+    return out
 
 
 def phase_fold(torch, P, cap, shards, slots, vals, special):
     from flink_tpu_torch.parallel.shuffle import stage_device_exchange
     from flink_tpu_torch.stateplane.fold import (
-        ordered_scatter_add,
-        ordered_scatter_add_plain,
-        ordered_scatter_reduce,
-        ordered_scatter_reduce_plain,
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
     )
 
+    clock = sm_clock_hz()
     dst, (s_slots, s_vals), width = stage_device_exchange(
         shards, P, [slots, vals], fills=[0, 0.0])
-    target, v = _received(torch, P, dst, s_slots, s_vals, width, cap)
-    n = target.numel()
-    zeros = torch.zeros(P * cap, device="cuda")
-    # the main path skips each shard plane's identity slot (stride cap)
-    got = ordered_scatter_add(zeros.clone(), target, v, cap)
-    want = ordered_scatter_add_plain(torch.zeros(P * cap), target.cpu(),
-                                     v.cpu())
-    if not torch.equal(_bits(got.cpu()), _bits(want)):
-        raise AssertionError("ordered fold != its plain version (CPU)")
-    err = float((got.cpu() - want).abs().max())
-    ms = cuda_ms(lambda: ordered_scatter_add(zeros.clone(), target, v, cap),
-                 50)
-    plain_ms = cuda_ms(lambda: ordered_scatter_add_plain(zeros.clone(),
-                                                         target, v), 50)
-    clone_ms = cuda_ms(lambda: zeros.clone(), 50)
-    real = target[target % cap != 0]   # lanes off the identity slots
-    distinct = int(torch.unique(real).numel())
-    longest = int(torch.bincount(real).max())
-    # each lane's int64 target and float32 value read once, each touched
-    # float32 accumulator read once and written once
-    nbytes = n * (8 + 4) + distinct * (4 + 4)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    dev = device_us_per_call(
-        lambda: ordered_scatter_add(zeros.clone(), target, v, cap), 20,
-        ["gather_sorted", "fold_runs", "Sort"])
+    recv_s, v = _received(torch, P, dst, s_slots, s_vals, width)
+    cases = {"q5": fold_case(torch, "q5", torch.zeros(P, cap,
+                                                       device="cuda"),
+                             recv_s, v, clock)}
 
-    # Zipf(1.1) over 100k keys: one hot key makes one long run
+    # Zipf(1.1) over 100k keys, one plane of cap 100001 (3 radix passes):
+    # the hot key makes one long run
+    n = recv_s.numel()
     rng = np.random.default_rng(11)
-    ranks = np.arange(1, 100_001, dtype=np.float64)
-    p = ranks ** -1.1
+    p = np.arange(1, 100_001, dtype=np.float64) ** -1.1
     zkeys = rng.choice(100_000, size=n, p=p / p.sum())
-    z_target = torch.from_numpy(zkeys.astype(np.int64) + 1).cuda()
-    z_v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
-    z_zero = torch.zeros(100_001, device="cuda")
-    z_got = ordered_scatter_add(z_zero.clone(), z_target, z_v)
-    z_want = ordered_scatter_add_plain(torch.zeros(100_001), z_target.cpu(),
-                                       z_v.cpu())
-    if not torch.equal(_bits(z_got.cpu()), _bits(z_want)):
-        raise AssertionError("ordered fold != its plain version on Zipf keys")
-    z_ms = cuda_ms(lambda: ordered_scatter_add(z_zero.clone(), z_target,
-                                               z_v), 10)
-    z_index_add_ms = cuda_ms(lambda: z_zero.clone().index_add_(
-        0, z_target, z_v), 10)
-    z_longest = int(np.bincount(zkeys).max())
+    z_slots = torch.from_numpy((zkeys + 1).astype(np.int32)).cuda()[None]
+    for dt, name in ((np.float32, "zipf_f32"), (np.float64, "zipf_f64")):
+        z_v = torch.from_numpy(rng.standard_normal(n).astype(dt)).cuda()
+        cases[name] = fold_case(
+            torch, name, torch.zeros(1, 100_001, dtype=z_v.dtype,
+                                     device="cuda"), z_slots, z_v[None],
+            clock)
+
+    # the exchange's shapes with planes of 1<<17 slots (3 passes)
+    w_slots = torch.from_numpy(np.where(
+        rng.random(recv_s.shape) < 0.5, 0,
+        rng.integers(1, 1 << 17, recv_s.shape)).astype(np.int32)).cuda()
+    w_v = torch.from_numpy(rng.standard_normal(recv_s.shape)
+                           .astype(np.float32)).cuda()
+    w_v[w_slots == 0] = 0.0
+    cases["cap_1<<17"] = fold_case(
+        torch, "cap_1<<17", torch.zeros(P, 1 << 17, device="cuda"),
+        w_slots, w_v, clock, stages=False)
 
     # float max/min: torch's scatter_reduce_ on the card vs the CPU, and
-    # the port's routed fold (the kernel's max/min modes) vs its plain one
+    # the port's fold (the kernel's max/min modes) vs its plain one
     sp_dst, (sp_slots, sp_vals), sp_w = stage_device_exchange(
         shards, P, [slots, special], fills=[0, 0.0])
-    sp_t, sp_v = _received(torch, P, sp_dst, sp_slots, sp_vals, sp_w, cap)
+    sp_s, sp_v = _received(torch, P, sp_dst, sp_slots, sp_vals, sp_w)
+    sp_t = (sp_s.to(torch.int64) + torch.arange(
+        P, device="cuda", dtype=torch.int64)[:, None] * cap).reshape(-1)
     torch_diff, port_diff = {}, {}
     for reduce, ident in (("amax", -np.inf), ("amin", np.inf)):
-        acc = torch.full((P * cap,), float(ident))
-        on_card = acc.cuda().scatter_reduce_(0, sp_t, sp_v, reduce=reduce)
-        on_cpu = acc.clone().scatter_reduce_(0, sp_t.cpu(), sp_v.cpu(),
-                                             reduce=reduce)
+        acc = torch.full((P, cap), float(ident))
+        on_card = acc.cuda().view(-1).scatter_reduce_(
+            0, sp_t, sp_v.reshape(-1), reduce=reduce)
+        on_cpu = acc.clone().view(-1).scatter_reduce_(
+            0, sp_t.cpu(), sp_v.reshape(-1).cpu(), reduce=reduce)
         torch_diff[reduce] = int((_bits(on_card.cpu()) != _bits(on_cpu))
                                  .sum())
         r = reduce[1:]
-        card = ordered_scatter_reduce(acc.cuda(), sp_t, sp_v, r)
-        plain = ordered_scatter_reduce_plain(acc.clone(), sp_t.cpu(),
-                                             sp_v.cpu(), r)
+        # the exchange's padding lanes carry the identity (slot 0)
+        v_r = sp_v.masked_fill(sp_s == 0, float(ident))
+        card = ordered_fold_planes(acc.cuda(), sp_s, v_r, r)
+        plain = ordered_fold_planes_plain(acc.clone(), sp_s.cpu(),
+                                          v_r.cpu(), r)
         port_diff[r] = int((_bits(card.cpu()) != _bits(plain)).sum())
     if any(port_diff.values()):
         raise AssertionError(f"ordered fold max/min card != plain: "
                              f"{port_diff}")
-    out = {"lanes": n, "distinct_targets": distinct, "longest_run": longest,
-           "ms": ms, "plain_ms": plain_ms, "clone_ms": clone_ms,
-           "bound_ms": bound_ms,
-           "device_us": dev, "max_abs_err": err,
-           "zipf": {"ms": z_ms, "index_add_ms": z_index_add_ms,
-                    "longest_run": z_longest, "lanes": n},
+    q5 = cases["q5"]
+    out = {"cases": cases, "sm_clock_max_hz": clock,
+           "fadd_cycles_assumed": FADD_CYCLES,
+           "ms": q5["ms"], "plain_ms": q5["plain_ms"],
+           "bound_ms": q5["bound_ms"], "bound_by": q5["bound_by"],
+           "max_abs_err": q5["max_abs_err"],
            "torch_scatter_reduce_card_vs_cpu_slots_differing": torch_diff,
            "port_max_min_card_vs_plain_slots_differing": port_diff}
-    print(f"phase 4b: ordered fold at the exchange's fold shapes ({n} lanes, "
-          f"{distinct} targets, longest run {longest}): {ms:.4f} ms per call "
-          f"(incl. a {clone_ms:.4f} ms plane clone), index_add_ (plain, not "
-          f"order-preserving) "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms; Zipf(1.1) over 100k "
-          f"keys: {z_ms:.4f} ms (longest run {z_longest}), index_add_ "
-          f"{z_index_add_ms:.4f} ms; bit-identical to the CPU fold in both")
+    print(f"phase 4b: max/min card == plain ({port_diff}); torch's own "
+          f"scatter_reduce_ card vs CPU differs in {torch_diff} slots "
+          "(recorded, not gated)")
     print("fold " + json.dumps(out))
     return out
 
@@ -657,7 +785,7 @@ def main() -> int:
         "ms": fold["ms"],
         "plain_ms": fold["plain_ms"],
         "bound_ms": fold["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": fold["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

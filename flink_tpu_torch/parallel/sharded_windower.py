@@ -30,6 +30,7 @@ from flink_tpu_torch.core.records import (
 )
 from flink_tpu_torch.ops.segment_ops import (
     MERGE_FN,
+    fold_slots,
     scatter_fold,
     sticky_bucket,
     torch_dtype,
@@ -363,19 +364,11 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
     idents = tuple(np.asarray(l.identity).item() for l in leaves)
     finish = agg.finish
 
-    def _flat_targets(slots: torch.Tensor, cap: int) -> torch.Tensor:
-        P = slots.shape[0]
-        return (slots.to(torch.int64)
-                + torch.arange(P, device=slots.device,
-                               dtype=torch.int64)[:, None] * cap
-                ).reshape(-1)
-
     def scatter_step(accs, slots, values):
-        cap = accs[0].shape[1]
-        target = _flat_targets(slots, cap)
         vals = iter(values)
-        for a, m, l, td, ident in zip(accs, methods, leaves, tdtypes,
-                                      idents):
+        for a, m, idx, l, td, ident in zip(accs, methods,
+                                           fold_slots(slots, tdtypes),
+                                           leaves, tdtypes, idents):
             if l.const is not None:
                 # padded lanes target identity slot 0 — keep it pure
                 v = torch.full(slots.shape, l.const, dtype=td,
@@ -383,7 +376,7 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
                 v.masked_fill_(slots == 0, ident)
             else:
                 v = next(vals)
-            m(a.view(-1), target, v.reshape(-1), identity_stride=cap)
+            m(a, idx, v)
         return accs
 
     def fire_step(accs, slot_matrix):

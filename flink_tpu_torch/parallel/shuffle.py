@@ -13,7 +13,7 @@ Received lanes are ordered (source shard, rank); chunks partition the
 stream contiguously, so this is stream order per destination — the order
 the reference folds in. Float leaves fold in that order on the card too
 (the ordered-fold kernel, ``stateplane/fold.py``); integer leaves keep
-``index_add_``, exact in any order.
+``scatter_add_``, exact in any order.
 
 Not in this slice: the host-bucketing data plane (``shuffle.mode=host``),
 the repartition/combine collectives, and chaos injection.
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.ops.segment_ops import (
+    fold_slots,
     pad_bucket_size,
     scatter_fold,
     torch_dtype,
@@ -170,16 +171,13 @@ def build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
             return (buf[:, :P * W].reshape(P, P, W).transpose(0, 1)
                     .reshape(P, P * W))
 
+        # [P_dst, P_src * W] int32 slots: shard p folds row p into plane
+        # p, as the reference's per-shard a.at[0, recv_s]
         recv_s = exchange(slots, 0)
-        cap = accs[0].shape[1]
-        # shard p's slot s is element p * cap + s of the flattened plane
-        target = (recv_s.to(torch.int64)
-                  + torch.arange(P, device=recv_s.device,
-                                 dtype=torch.int64)[:, None] * cap
-                  ).reshape(-1)
         vals = iter(values)
-        for a, m, l, td, ident in zip(accs, methods, leaves, tdtypes,
-                                      idents):
+        for a, m, idx, l, td, ident in zip(accs, methods,
+                                           fold_slots(recv_s, tdtypes),
+                                           leaves, tdtypes, idents):
             if not valued and l.const is not None:
                 # lanes that received no record hold slot 0 (the
                 # reserved identity slot) — keep it pure
@@ -188,7 +186,7 @@ def build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
                 v.masked_fill_(recv_s == 0, ident)
             else:
                 v = exchange(next(vals), ident)
-            m(a.view(-1), target, v.reshape(-1), identity_stride=cap)
+            m(a, idx, v)
         return accs
 
     return exchange_scatter

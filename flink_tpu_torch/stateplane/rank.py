@@ -65,26 +65,45 @@ def build_rank_kernel() -> Tuple[ctypes.CDLL, str]:
 
 class _StatusBuffer:
     """The look-back status words of one (device, stream): zeroed once
-    when (re)allocated, then tagged per call by a new epoch."""
+    when (re)allocated, then tagged per launch by a new epoch."""
 
     def __init__(self) -> None:
         self.words = None
         self.epoch = 0
 
-    def claim(self, n: int, device: torch.device) -> Tuple[torch.Tensor, int]:
+    def claim(self, n: int, device: torch.device,
+              epochs: int = 1) -> Tuple[torch.Tensor, int]:
+        """``n`` words and the first of ``epochs`` fresh epochs, one for
+        each launch that will use them."""
         if self.words is None or self.words.numel() < n \
-                or self.epoch >= 0xFFFFFFFF:
+                or self.epoch + epochs > 0xFFFFFFFF:
             # stream-ordered: a kernel still reading the old buffer runs
             # before this memset on the same stream
             self.words = torch.zeros(max(n, 1), dtype=torch.int64,
                                      device=device)
             self.epoch = 0
-        self.epoch += 1
-        return self.words, self.epoch
+        first = self.epoch + 1
+        self.epoch += epochs
+        return self.words, first
 
 
 _status_lock = threading.Lock()
 _status: Dict[Tuple[int, int], _StatusBuffer] = {}
+
+
+def claim_status(device: torch.device, n: int, epochs: int = 1
+                 ) -> Tuple[int, int, torch.Tensor, int]:
+    """The look-back status words of ``device``'s current stream, shared
+    by the port's kernels (launches on one stream run in order, and every
+    launch gets epochs of its own): ``(device index, stream handle, at
+    least n words, the first of ``epochs`` fresh epochs)``."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with _status_lock:
+        buf = _status.setdefault((dev, stream), _StatusBuffer())
+        words, epoch = buf.claim(n, device, epochs)
+    return dev, stream, words, epoch
 
 
 def rank_plain(d: torch.Tensor, num_dests: int) -> torch.Tensor:
@@ -139,12 +158,8 @@ def _launch(d: torch.Tensor, num_dests: int, width: int,
                       device=d.device)
     if d.numel() == 0:
         return out
-    dev = d.device.index if d.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    with _status_lock:
-        buf = _status.setdefault((dev, stream), _StatusBuffer())
-        words, epoch = buf.claim(lib.rank_status_elems(R, C, D), d.device)
+    dev, stream, words, epoch = claim_status(
+        d.device, lib.rank_status_elems(R, C, D))
     rc = lib.rank_launch(d.data_ptr(), out.data_ptr(), words.data_ptr(),
                          R, C, D, int(width) if flat else 0, epoch,
                          1 if flat else 0, dev, stream)

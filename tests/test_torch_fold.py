@@ -7,12 +7,18 @@
 - the fused exchange+scatter at P = 8 against the reference's on the
   8-virtual-device mesh, with non-integer float values;
 - the plain flat exchange rank against the reference's
-  ``exchange_rank_flat``.
+  ``exchange_rank_flat``;
+- the NaN bits of float sums (an ``inf - inf``, NaN payloads, a NaN in the
+  accumulator) in the ingest scatter against ``.at[].add`` and in the
+  slice merge against ``jnp.sum`` and the reference's fire step (float32
+  and float64 Sum and Avg, every window of 1 to 27 slices) — the bits the
+  card's kernel and merge are held to;
+- the plane-layout fold's plain version against the reference's
+  per-shard ``a.at[0, recv_s]``, padding lanes included.
 
 Inputs come from numpy seeds: standard normals scaled by exp(U(-8, 8)), so
 the float sums depend on their order. Tolerance: none — results are
-compared on their raw bits (NaN included: both sides write the canonical
-quiet NaN).
+compared on their raw bits, NaN payloads included.
 """
 
 import numpy as np
@@ -26,15 +32,15 @@ from flink_tpu.parallel.sharded_windower import (
 from flink_tpu.stateplane.rank import exchange_rank_flat as jax_flat
 from flink_tpu.windowing import aggregates as jagg
 from flink_tpu_torch.convert import from_jax_planes
+from flink_tpu_torch.ops.segment_ops import MERGE_FN
 from flink_tpu_torch.parallel import shuffle as tshuffle
 from flink_tpu_torch.parallel.mesh import make_mesh
 from flink_tpu_torch.parallel.sharded_windower import (
     build_mesh_steps as tbuild_mesh_steps,
 )
 from flink_tpu_torch.stateplane.fold import (
-    ordered_scatter_add,
+    ordered_fold_planes,
     ordered_scatter_add_plain,
-    ordered_scatter_reduce,
     ordered_scatter_reduce_plain,
 )
 from flink_tpu_torch.stateplane.rank import exchange_rank_flat_plain
@@ -56,6 +62,20 @@ def _with_specials(rng, vals):
     vals[pick < 0.02] = np.nan
     vals[(pick >= 0.02) & (pick < 0.2)] = 0.0
     vals[(pick >= 0.2) & (pick < 0.4)] = -0.0
+    return vals
+
+
+def _sum_specials(rng, vals):
+    """Sprinkle NaN payloads (signalling, quiet, negative), +inf and -inf
+    over float32 values (sum cases: some slots meet inf - inf)."""
+    vals = vals.copy()
+    bits = vals.view(np.int32)
+    pick = rng.random(vals.shape)
+    for j, b in enumerate((0x7FA00001, 0x7FC0000A, -0x003FFFFB)):
+        sel = (pick >= 0.01 * j) & (pick < 0.01 * (j + 1))
+        bits[sel] = b + rng.integers(0, 1 << 12, int(sel.sum()))
+    vals[(pick >= 0.03) & (pick < 0.06)] = np.inf
+    vals[(pick >= 0.06) & (pick < 0.09)] = -np.inf
     return vals
 
 
@@ -131,27 +151,32 @@ def test_cpu_ordered_fold_matches_scatter(reduce):
                                        torch.from_numpy(v), reduce)
     _bits_equal(got.numpy(), want)
     assert got[0].item() == ident
-    # the wrapper takes the plain version for a CPU tensor
-    before = ordered_scatter_add.launches
-    wrapped = ordered_scatter_reduce(torch.from_numpy(acc.copy()),
-                                     torch.from_numpy(target),
-                                     torch.from_numpy(v), reduce)
-    assert torch.equal(wrapped.view(torch.int32), got.view(torch.int32))
-    assert ordered_scatter_add.launches == before
+    # the wrapper, as one plane, takes the plain version for a CPU tensor
+    before = ordered_fold_planes.launches
+    wrapped = ordered_fold_planes(torch.from_numpy(acc.copy())[None],
+                                  torch.from_numpy(target.astype(np.int32))
+                                  [None], torch.from_numpy(v)[None], reduce)
+    assert torch.equal(wrapped[0].view(torch.int32), got.view(torch.int32))
+    assert ordered_fold_planes.launches == before
 
 
 def test_cpu_ordered_scatter_add_is_index_add():
+    """On the CPU the plane fold of a sum is index_add_, plane by plane."""
     rng = np.random.default_rng(4)
-    target = torch.from_numpy(rng.integers(0, 64, 5000).astype(np.int64))
-    v = torch.from_numpy(_wide(rng, 5000))
-    want = ordered_scatter_add_plain(torch.zeros(64), target, v)
-    got = ordered_scatter_add(torch.zeros(64), target, v)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    target = torch.from_numpy(rng.integers(0, 64, (3, 5000)).astype(np.int32))
+    v = torch.from_numpy(_wide(rng, (3, 5000)))
+    got = ordered_fold_planes(torch.zeros(3, 64), target, v, "sum")
+    for p in range(3):
+        want = ordered_scatter_add_plain(torch.zeros(64),
+                                         target[p].to(torch.int64), v[p])
+        assert torch.equal(got[p].view(torch.int32), want.view(torch.int32))
 
 
 EXCHANGE_AGGS = {
     "sum_f32": (lambda: jagg.SumAggregate("v"),
                 lambda: tagg.SumAggregate("v")),
+    "sum_f32_nan": (lambda: jagg.SumAggregate("v"),
+                    lambda: tagg.SumAggregate("v")),
     "avg_f32": (lambda: jagg.AvgAggregate("v"),
                 lambda: tagg.AvgAggregate("v")),
     "max_f32": (lambda: jagg.MaxAggregate("v"),
@@ -189,6 +214,8 @@ def test_exchange_scatter_float_bit_identical(eight_device_mesh, kind):
         vals = _wide(rng, n)
         if kind in ("max_f32", "min_f32"):
             vals = _with_specials(rng, vals)
+        if kind == "sum_f32_nan":
+            vals = _sum_specials(rng, vals)
         dst, staged, width = jshuffle.stage_device_exchange(
             shards, P, [slots, vals], fills=[0, jax_agg.leaves[0].identity])
         put = _sharded(eight_device_mesh, (dst, *staged))
@@ -277,3 +304,218 @@ def test_revenue_job_shorthands_bit_identical(shorthand):
         w = np.array([r[c] for r in want], dtype=np.float64)
         np.testing.assert_array_equal(g.view(np.int64), w.view(np.int64),
                                       err_msg=c)
+
+
+# --------------------------------------------------- NaN bits of float sums
+
+_PATTERNS = {
+    np.float32: dict(
+        zero=0, one=0x3F800000, two=0x40000000, inf=0x7F800000,
+        ninf=0xFF800000, snan=0x7FA00001, snan_q=0x7FE00001,
+        qa=0x7FC0000A, qb=0x7FC0000B, q3=0x7FC00003, nneg=0xFFC00005,
+        default=0xFFC00000),
+    np.float64: dict(
+        zero=0, one=0x3FF0000000000000, two=0x4000000000000000,
+        inf=0x7FF0000000000000, ninf=0xFFF0000000000000,
+        snan=0x7FF4000000000001, snan_q=0x7FFC000000000001,
+        qa=0x7FF800000000000A, qb=0x7FF800000000000B,
+        q3=0x7FF8000000000003, nneg=0xFFF8000000000005,
+        default=0xFFF8000000000000),
+}
+_UINT = {np.float32: np.uint32, np.float64: np.uint64}
+
+#: (starting value, values in order, scatter result, merge result). The
+#: scatter (lane order) takes the LAST NaN lane quieted, else the start's
+#: NaN quieted, else the default NaN of an inf - inf; the merge (XLA's
+#: reduce of the slice axis) keeps the NaN that came first.
+NAN_CASES = {
+    "inf_minus_inf": ("zero", ["inf", "ninf"], "default", "default"),
+    "signalling_nan_quieted": ("zero", ["snan"], "snan_q", "snan_q"),
+    "later_nan_lane": ("zero", ["qa", "qb"], "qb", "qa"),
+    "nan_lane_after_nan_start": ("qa", ["qb"], "qb", "qa"),
+    "nan_start_survives": ("snan", ["one", "two"], "snan_q", "snan_q"),
+    "negative_nan_kept": ("zero", ["nneg"], "nneg", "nneg"),
+    "nan_lane_after_inf_minus_inf": ("zero", ["inf", "ninf", "q3"], "q3",
+                                     "default"),
+    "inf_minus_inf_after_nan": ("zero", ["q3", "inf", "ninf"], "q3", "q3"),
+}
+
+
+def _pattern(dtype, names):
+    return np.array([_PATTERNS[dtype][n] for n in names],
+                    dtype=_UINT[dtype]).view(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(NAN_CASES))
+def test_sum_nan_bits_match_scatter(case, dtype):
+    """The ingest fold of a float sum gives .at[].add's NaN bits: plane 1's
+    slot 3 takes the case's values, interleaved with lanes bound for
+    other slots and a padding lane at slot 0."""
+    import jax
+    import jax.numpy as jnp
+
+    start, lanes, want, _ = NAN_CASES[case]
+    P, cap, L = 2, 8, 3 * len(lanes) + 2
+    acc = np.zeros((P, cap), dtype)
+    acc[1, 3] = _pattern(dtype, [start])[0]
+    slots = np.full((P, L), 5, np.int32)
+    vals = np.ones((P, L), dtype)
+    slots[1, 1::3][:len(lanes)] = 3
+    vals[1, 1::3][:len(lanes)] = _pattern(dtype, lanes)
+    slots[0, -1], vals[0, -1] = 0, 0
+    with jax.enable_x64(dtype == np.float64):
+        ref = np.stack([np.asarray(jnp.asarray(acc[p:p + 1])
+                                   .at[0, slots[p]].add(vals[p]))[0]
+                        for p in range(P)])
+    got = ordered_fold_planes(torch.from_numpy(acc.copy()),
+                              torch.from_numpy(slots), torch.from_numpy(vals),
+                              "sum").numpy()
+    u = _UINT[dtype]
+    assert ref.view(u)[1, 3] == _pattern(dtype, [want]).view(u)[0]
+    np.testing.assert_array_equal(got.view(u), ref.view(u))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(NAN_CASES))
+def test_sum_nan_bits_match_jnp_sum(case, dtype):
+    """The slice merge of a float sum gives jnp.sum's NaN bits over the
+    slice axis: the case's values are one row of k slices."""
+    import jax
+    import jax.numpy as jnp
+
+    start, lanes, _, want = NAN_CASES[case]
+    row = np.repeat(_pattern(dtype, [start] + lanes)[None], 3, axis=0)
+    with jax.enable_x64(dtype == np.float64):
+        ref = np.asarray(jnp.sum(jnp.asarray(row), axis=-1))
+    got = MERGE_FN["sum"](torch.from_numpy(row)).numpy()
+    u = _UINT[dtype]
+    assert ref.view(u)[0] == _pattern(dtype, [want]).view(u)[0]
+    np.testing.assert_array_equal(got.view(u), ref.view(u))
+
+
+FIRE_SUMS = {
+    "sum_f32": (lambda: jagg.SumAggregate("v"),
+                lambda: tagg.SumAggregate("v"), np.float32),
+    "sum_f64": (lambda: jagg.SumAggregate("v", dtype=np.float64),
+                lambda: tagg.SumAggregate("v", dtype=np.float64), np.float64),
+    "avg_f32": (lambda: jagg.AvgAggregate("v"),
+                lambda: tagg.AvgAggregate("v"), np.float32),
+}
+
+
+def _nan_specials(rng, shape, dtype):
+    """Wide values of ``dtype`` with NaN payloads (signalling, quiet,
+    negative), +-inf and -0.0 sprinkled in."""
+    vals = _wide(rng, shape).astype(dtype)
+    bits = vals.view(_UINT[dtype])
+    pick = rng.random(shape)
+    for j, name in enumerate(("snan", "qa", "nneg")):
+        sel = (pick >= 0.01 * j) & (pick < 0.01 * (j + 1))
+        bits[sel] = _pattern(dtype, [name]).view(_UINT[dtype])[0] \
+            + rng.integers(0, 1 << 12, int(sel.sum())).astype(_UINT[dtype])
+    vals[(pick >= 0.03) & (pick < 0.06)] = np.inf
+    vals[(pick >= 0.06) & (pick < 0.09)] = -np.inf
+    vals[(pick >= 0.09) & (pick < 0.14)] = -0.0
+    return vals
+
+
+#: (kind, k) whose reference fire keeps the earliest NaN in every row, as
+#: the port does (measured): there rows with two or more NaN slices are
+#: compared too
+_FIRST_NAN_EVERYWHERE = {("sum_f32", 1), ("sum_f32", 2), ("sum_f32", 4),
+                         ("sum_f32", 16)}
+
+
+def _fire_nan_case(mesh, kind, k):
+    """A fire of ``kind`` over k slices of planes full of NaN payloads,
+    +-inf and -0.0, the reference's against the port's, bit for bit in
+    every row whose result its data determine — a row where no add of the
+    left fold meets two NaNs — and in every row where the reference keeps
+    the earliest NaN throughout (:data:`_FIRST_NAN_EVERYWHERE`). Any other
+    row is NaN in both: which of two NaNs an add keeps depends on the
+    row's place in the reference's compiled loops (ROADMAP Queue C item
+    6)."""
+    import jax
+
+    jmake, tmake, dtype = FIRE_SUMS[kind]
+    rng = np.random.default_rng(300 + k)
+    cap, W = 512, 512
+    plane = _nan_specials(rng, (P, cap), dtype)
+    plane[:, 0] = 0.0
+    sm = rng.integers(0, cap, (P, W, k)).astype(np.int32)
+    planes = [plane]
+    if kind == "avg_f32":
+        planes.append(rng.integers(0, 9, (P, cap)).astype(np.float32))
+    with jax.enable_x64(dtype == np.float64):
+        jfire = jbuild_mesh_steps(mesh, jmake())[1]
+        jout = jfire(tuple(_sharded(mesh, planes)), _sharded(mesh, sm))
+        jout = {n: np.asarray(a) for n, a in jout.items()}
+    tfire = tbuild_mesh_steps(make_mesh(P, "cpu"), tmake())[1]
+    tout = tfire(from_jax_planes(planes, "cpu"), torch.from_numpy(sm))
+    assert sorted(jout) == sorted(tout)
+    x = plane[np.arange(P)[:, None, None], sm]
+    acc, two = np.zeros((P, W), dtype), np.zeros((P, W), bool)
+    with np.errstate(invalid="ignore"):
+        for j in range(k):
+            two |= np.isnan(acc) & np.isnan(x[..., j])
+            acc = acc + x[..., j]
+    rows = ~two | ((kind, k) in _FIRST_NAN_EVERYWHERE)
+    assert (rows & np.isnan(acc)).any()
+    u = _UINT[dtype]
+    for name in jout:
+        got, want = tout[name].numpy(), jout[name]
+        np.testing.assert_array_equal(got.view(u)[rows], want.view(u)[rows],
+                                      err_msg=name)
+        assert np.isnan(got[two]).all() and np.isnan(want[two]).all()
+
+
+@pytest.mark.parametrize("k", range(1, 28))
+def test_fire_merge_nan_bits_match_reference(eight_device_mesh, k):
+    """The fire step's float32 Sum merge against the reference's: one slice
+    is passed through as it is (a signalling NaN stays signalling, -0.0
+    stays -0.0); more slices give the earliest NaN slice quieted, or the
+    default NaN of an inf - inf met first (k = 5 is Q5-revenue's HOP
+    10 s / 2 s)."""
+    _fire_nan_case(eight_device_mesh, "sum_f32", k)
+
+
+@pytest.mark.parametrize("k", range(1, 28))
+@pytest.mark.parametrize("kind", ["sum_f64", "avg_f32"])
+def test_fire_merge_nan_bits_match_reference_by_aggregate(
+        eight_device_mesh, kind, k):
+    """As above for float64 Sum and for Avg (a NaN sum divided by the
+    count keeps its payload)."""
+    _fire_nan_case(eight_device_mesh, kind, k)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "max", "min"])
+def test_fold_planes_plain_matches_reference_per_plane(reduce):
+    """ordered_fold_planes (its plain version, on the CPU) against the
+    reference's per-shard fold a.at[0, recv_s] on an exchange's received
+    lanes: each plane's padding lanes at slot 0 with the identity, hot
+    slots, and NaN payloads and +-inf for the sum."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng({"sum": 31, "max": 32, "min": 33}[reduce])
+    cap, L = 1024, 4096
+    ident = np.float32({"sum": 0.0, "max": -np.inf, "min": np.inf}[reduce])
+    slots = np.where(rng.random((P, L)) < 0.3, rng.integers(1, 6, (P, L)),
+                     rng.integers(1, cap, (P, L))).astype(np.int32)
+    slots[:, L // 2:][rng.random((P, L - L // 2)) < 0.5] = 0   # padding
+    vals = _wide(rng, (P, L))
+    vals = _sum_specials(rng, vals) if reduce == "sum" \
+        else _with_specials(rng, vals)
+    vals[slots == 0] = ident
+    acc = _wide(rng, (P, cap))
+    acc[:, 0] = ident
+    op = {"sum": "add"}.get(reduce, reduce)
+    ref = np.stack([np.asarray(getattr(jnp.asarray(acc[p:p + 1])
+                                       .at[0, slots[p]], op)(vals[p]))[0]
+                    for p in range(P)])
+    got = ordered_fold_planes(torch.from_numpy(acc.copy()),
+                              torch.from_numpy(slots), torch.from_numpy(vals),
+                              reduce)
+    _bits_equal(got.numpy(), ref)
