@@ -43,12 +43,27 @@ Phases, each fatal on failure (no result line is printed then):
    10 s / 2 s, ``.sum("price")`` in float32, 10M bids — and check EVERY
    fired (window, auction) sum bit for bit against a NumPy oracle that
    sums each slice in stream order (np.add.at) and folds each window's
-   five slices left to right, as the engine merges them.
+   five slices left to right, as the engine merges them;
+7. run Q5 as phase 5 at parallelism.default=1 with bench.py's settings
+   (the single-device slot table: capacity 1<<22, the slot layout,
+   dispatch-ahead 8, micro-batches of 1<<20, 40M bids): every window's
+   winners against the oracle, and the number of windows with more tied
+   winners than k (the device top-k decides which of those survive);
+8. run Q5-revenue as phase 6 at parallelism 1 (10M bids): every fired sum
+   equal to the oracle; then time one call of the ordered fold at that
+   engine's shape — one plane of 1<<22 slots, 1<<20 lanes of Q5's first
+   bids — against its plain version and its bytes bound;
+9. a forced-eviction run: a float32 Sum over Q5's first 3M bids with the
+   values of phase 4 (NaN payloads, +inf and -inf), HOP 10 s / 2 s, on the
+   single-device engine with a device budget of 1<<17 slots (far below
+   its live rows, so slices spill to the host and reload), on the card
+   and on the CPU: every fired batch equal bit for bit, and the spill
+   counters equal.
 
 The launch counts of both kernels are set to 0 just before each of phases
-5 and 6 and read just after; each phase fails if a kernel of its path did
-not launch (the rank in both; the ordered fold in phase 6, Count being an
-integer fold).
+5 to 8 and read just after; each phase fails if a kernel of its path did
+not launch (the rank at parallelism 8; the ordered fold in phases 6 and
+8, Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -551,14 +566,16 @@ def phase_fold(torch, P, cap, shards, slots, vals, special):
     return out
 
 
-def _run_job(torch, build, device):
+def _run_job(torch, build, device, parallelism=8):
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.q5_profile import P1_SETTINGS
     from flink_tpu_torch.connectors.sinks import CollectSink
 
     env = StreamExecutionEnvironment(Configuration({
-        "parallelism.default": 8,
+        "parallelism.default": parallelism,
         "execution.micro-batch.size": 1 << 20,
         "execution.device": device,
+        **(P1_SETTINGS if parallelism == 1 else {}),
     }))
     sink = CollectSink()
     build(env).sink_to(sink)
@@ -600,15 +617,17 @@ def q5_oracle(source_cls, total, num_auctions, rate, size_ms, slide_ms):
     return out
 
 
-def phase_q5(torch, records: int):
+def phase_q5(torch, records: int, parallelism: int = 8):
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
 
+    phase = 5 if parallelism == 8 else 7
     sink, elapsed, counts, lat = _run_job(torch, lambda env: build_q5(
         env, BidSource(total_records=records, num_auctions=AUCTIONS,
                        events_per_second_of_eventtime=RATE),
-        size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K), "cuda")
+        size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K), "cuda",
+        parallelism)
     batches = -(-records // (1 << 20))
-    if counts["exchange_rank"] <= 0:
+    if parallelism > 1 and counts["exchange_rank"] <= 0:
         raise AssertionError("Q5 ran without launching the rank kernel")
     got = {}
     for r in sink.rows():
@@ -627,15 +646,19 @@ def phase_q5(torch, records: int):
             raise AssertionError(f"Q5 window {w}: got ({g_best}, "
                                  f"{sorted(g_winners)[:5]}...), oracle "
                                  f"({best}, {sorted(winners)[:5]}...)")
-    q5 = {"records": records, "elapsed_s": elapsed,
-          "events_per_s": records / elapsed, "windows": len(got),
+    # windows where the top-k chose among more tied winners than k
+    over_k = sum(len(winners) > TOP_K for _, winners in want.values())
+    q5 = {"parallelism": parallelism, "records": records,
+          "elapsed_s": elapsed, "events_per_s": records / elapsed,
+          "windows": len(got), "windows_with_more_ties_than_k": over_k,
           "batches": batches, "launches": counts,
           "fire_latency_ms": lat, "oracle_s": oracle_s}
-    print(f"phase 5: Q5 P=8 {records} records in {elapsed:.3f} s = "
-          f"{records / elapsed:.0f} events/s; {len(got)} windows match the "
-          f"oracle; launches {counts} over {batches} batches; fire latency "
-          f"p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
-    print("Q5 " + json.dumps(q5))
+    print(f"phase {phase}: Q5 P={parallelism} {records} records in "
+          f"{elapsed:.3f} s = {records / elapsed:.0f} events/s; {len(got)} "
+          f"windows match the oracle ({over_k} with more tied winners than "
+          f"k={TOP_K}); launches {counts} over {batches} batches; fire "
+          f"latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
+    print(f"Q5 P={parallelism} " + json.dumps(q5))
     return q5
 
 
@@ -679,13 +702,17 @@ def revenue_oracle(source_cls, total, num_auctions, rate, size_ms,
     return win, cnt
 
 
-def phase_revenue(torch, records: int):
+def phase_revenue(torch, records: int, parallelism: int = 8):
     from flink_tpu_torch.benchmarks.nexmark import BidSource
 
+    phase = 6 if parallelism == 8 else 8
     sink, elapsed, counts, lat = _run_job(torch, lambda env: build_revenue(
         env, BidSource(total_records=records, num_auctions=AUCTIONS,
-                       events_per_second_of_eventtime=RATE)), "cuda")
-    for name in ("exchange_rank", "ordered_fold"):
+                       events_per_second_of_eventtime=RATE)), "cuda",
+        parallelism)
+    path = ("exchange_rank", "ordered_fold") if parallelism > 1 \
+        else ("ordered_fold",)
+    for name in path:
         if counts[name] <= 0:
             raise AssertionError(f"Q5-revenue ran without launching {name}")
     res = sink.result()
@@ -710,17 +737,132 @@ def phase_revenue(torch, records: int):
         raise AssertionError(f"Q5-revenue: {bad} of {len(s)} fired sums "
                              "differ from the stream-order oracle")
     windows = int(present.any(axis=1).sum())
-    rev = {"records": records, "elapsed_s": elapsed,
-           "events_per_s": records / elapsed, "windows": windows,
-           "rows": len(s), "rows_differing": bad, "launches": counts,
-           "fire_latency_ms": lat, "oracle_s": oracle_s}
-    print(f"phase 6: Q5-revenue P=8 {records} records in {elapsed:.3f} s = "
-          f"{records / elapsed:.0f} events/s; all {len(s)} fired (window, "
-          f"auction) sums over {windows} windows equal the stream-order "
-          f"oracle bit for bit; launches {counts}; fire latency p50 "
-          f"{lat.get('p50')} ms p99 {lat.get('p99')} ms")
-    print("revenue " + json.dumps(rev))
+    rev = {"parallelism": parallelism, "records": records,
+           "elapsed_s": elapsed, "events_per_s": records / elapsed,
+           "windows": windows, "rows": len(s), "rows_differing": bad,
+           "launches": counts, "fire_latency_ms": lat, "oracle_s": oracle_s}
+    print(f"phase {phase}: Q5-revenue P={parallelism} {records} records in "
+          f"{elapsed:.3f} s = {records / elapsed:.0f} events/s; all {len(s)} "
+          f"fired (window, auction) sums over {windows} windows equal the "
+          f"stream-order oracle bit for bit; launches {counts}; fire "
+          f"latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
+    print(f"revenue P={parallelism} " + json.dumps(rev))
     return rev
+
+
+def phase_fold_p1(torch):
+    """One timed call of the ordered fold at the single-device engine's
+    shape: a [1, 1<<22] float32 plane, 1<<20 lanes of Q5's first bids
+    (one slot per (auction, slice) in first-seen order, prices as values),
+    against its plain version on the same inputs; bound by the bytes it
+    must move (4 B a lane of slots, 4 B a lane of values, a read and a
+    write of each touched slot)."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.stateplane.fold import (
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
+    )
+
+    n, cap = 1 << 20, 1 << 22
+    _, slots = _q5_lanes(n, 1)
+    src = BidSource(total_records=n, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    price = np.asarray(src.poll_batch(n)["price"], dtype=np.float32)
+    s = torch.from_numpy(slots).cuda()[None]
+    v = torch.from_numpy(price).cuda()[None]
+    acc = torch.zeros(1, cap, device="cuda")
+    got = ordered_fold_planes(acc.clone(), s, v, "sum")
+    want = ordered_fold_planes_plain(acc.cpu(), s.cpu(), v.cpu(), "sum")
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError("ordered fold at [1, 1<<22] != its plain "
+                             "version")
+    touched = int(torch.unique(s).numel())
+    nbytes = 8 * n + 8 * touched
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    work = acc.clone()
+    ms = cuda_ms(lambda: ordered_fold_planes(work, s, v, "sum"), 20)
+    plain_ms = cuda_ms(lambda: ordered_fold_planes_plain(work, s, v, "sum"),
+                       20)
+    out = {"planes": 1, "cap": cap, "lanes": n, "targets": touched,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "max_abs_err": 0.0}
+    print(f"phase 8: ordered fold at [1, 1<<22] with {n} lanes ({touched} "
+          f"targets): bit-identical to its plain version; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bytes bound {bound_ms:.5f} ms")
+    print("fold P=1 " + json.dumps(out))
+    return out
+
+
+def _spill_run(torch, device, bids, budget):
+    """Fired batches and spill counters of a float32 Sum over ``bids`` on
+    the single-device engine with a device budget of ``budget`` slots, and
+    the most slices its spill tier held."""
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.windowing.windower import SliceSharedWindower
+
+    w = SliceSharedWindower(
+        SlidingEventTimeWindows.of(SIZE, SLIDE), SumAggregate("v"),
+        capacity=budget, spill={"device": device, "max_device_slots": budget})
+    fired, peak = [], 0
+    for keys, vals, ts in bids:
+        w.process_batch(RecordBatch.from_pydict(
+            {KEY_ID_FIELD: keys, "v": vals}, timestamps=ts))
+        peak = max(peak, len(w.table.spill))
+        fired.extend(w.on_watermark(int(ts.max()) - 1))
+    fired.extend(w.on_watermark(1 << 62))
+    return fired, w.spill_counters(), peak
+
+
+def phase_spill(torch, records: int = 3_000_000, budget: int = 1 << 17):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    rng = np.random.default_rng(3)
+    bids = []
+    while (b := src.poll_batch(1 << 18)) is not None:
+        vals = _sum_specials(rng, rng.standard_normal(len(b))
+                             .astype(np.float32))
+        bids.append((np.asarray(b["auction"], dtype=np.int64), vals,
+                     np.asarray(b.timestamps, dtype=np.int64)))
+    t0 = time.perf_counter()
+    card, card_counters, peak = _spill_run(torch, "cuda", bids, budget)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu, cpu_counters, _ = _spill_run(torch, "cpu", bids, budget)
+    if peak == 0:
+        raise AssertionError("forced-eviction run: nothing spilled")
+    if len(card) != len(cpu):
+        raise AssertionError(f"forced-eviction run: {len(card)} fired "
+                             f"batches on the card, {len(cpu)} on the CPU")
+    rows = nan_rows = 0
+    for g, w in zip(card, cpu):
+        for name in w.columns:
+            gc, wc = np.asarray(g[name]), np.asarray(w[name])
+            if gc.dtype.kind == "f":
+                nan_rows += int(np.isnan(wc).sum())
+                gc, wc = gc.view(np.int32), wc.view(np.int32)
+            if gc.dtype != wc.dtype or not np.array_equal(gc, wc):
+                raise AssertionError(f"forced-eviction run: column {name} "
+                                     "differs between the card and the CPU")
+        rows += len(w)
+    if card_counters != cpu_counters:
+        raise AssertionError(f"spill counters differ: card {card_counters},"
+                             f" CPU {cpu_counters}")
+    out = {"records": records, "max_device_slots": budget,
+           "fired_batches": len(card), "rows": rows, "nan_rows": nan_rows,
+           "peak_spilled_slices": peak, "spill_counters": card_counters,
+           "card_s": card_s}
+    print(f"phase 9: forced eviction (budget {budget} slots, up to {peak} "
+          f"slices spilled): {len(card)} fired batches, {rows} rows "
+          f"({nan_rows} NaN) equal on the card and the CPU bit for bit; "
+          f"spill counters equal")
+    print("spill " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -760,14 +902,18 @@ def main() -> int:
     _, fold = phase_exchange_scatter(torch)
     q5 = phase_q5(torch, args.records)
     rev = phase_revenue(torch, args.revenue_records)
+    q5_p1 = phase_q5(torch, args.records, parallelism=1)
+    rev_p1 = phase_revenue(torch, args.revenue_records, parallelism=1)
+    phase_fold_p1(torch)
+    phase_spill(torch)
+    runs = (q5, rev, q5_p1, rev_p1)
 
     kernels = [{
         "name": "exchange_rank",
         "route": "cuda",
         "source": "flink_tpu_torch/csrc/rank.cu",
         "replaces": "flink_tpu/stateplane/rank.py:75",
-        "launches": q5["launches"]["exchange_rank"]
-        + rev["launches"]["exchange_rank"],
+        "launches": sum(r["launches"]["exchange_rank"] for r in runs),
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -779,8 +925,7 @@ def main() -> int:
         "route": "cuda",
         "source": "flink_tpu_torch/csrc/ordered_fold.cu",
         "replaces": "flink_tpu/parallel/shuffle.py:396",
-        "launches": q5["launches"]["ordered_fold"]
-        + rev["launches"]["ordered_fold"],
+        "launches": sum(r["launches"]["ordered_fold"] for r in runs),
         "max_abs_err": fold["max_abs_err"],
         "ms": fold["ms"],
         "plain_ms": fold["plain_ms"],

@@ -1,16 +1,22 @@
-"""Where Q5's time goes on the port: a breakdown of one Nexmark Q5 run at
-parallelism 8 on the card.
+"""Where Q5's time goes on the port: a breakdown of one Nexmark Q5 run on
+the card.
 
     python3 -m flink_tpu_torch.benchmarks.q5_profile [--records N]
+        [--parallelism 8|1]
 
 Runs the job chip_smoke.py runs (100k auctions, 100k events/s of event
 time, 10 s / 2 s HOP, top-k 16, micro-batches of 1<<20) twice: once plain
 for the wall time, once under ``torch.profiler`` with host wall-clock
-accumulators wrapped around the engine's stages (source, slot lookup,
-staging, exchange+scatter dispatch, fence waits, fires, frees). Prints one
-JSON line: wall time and events/s of the plain run, host seconds per stage
-and device kernel time by kernel of the profiled run, and the device's busy
-and idle share of that run's wall time.
+accumulators wrapped around the engine's stages. At parallelism 8 (the
+mesh engine): source, slot lookup, staging, exchange+scatter dispatch,
+fence waits, fires, frees. At parallelism 1 (the single-device slot
+table, with bench.py's settings: capacity 1<<22, the slot layout,
+dispatch-ahead 8): source, slot lookup, the scatter's padding and
+dispatch, H2D copies, fence waits, the fire's slot matrix, the fire
+dispatch and harvest, frees. Prints one JSON line: wall time, events/s
+and fire latency of the plain run, host seconds per stage and device
+kernel time by kernel of the profiled run, and the device's busy and idle
+share of that run's wall time.
 """
 
 from __future__ import annotations
@@ -33,15 +39,24 @@ def _timed(acc, key, fn):
     return wrapper
 
 
-def run_q5(records: int):
+#: bench.py's settings of the parallelism-1 run (on an accelerator)
+P1_SETTINGS = {
+    "state.slot-table.capacity": 1 << 22,
+    "state.window-layout": "slots",
+    "execution.pipeline.max-dispatch-batches": 8,
+}
+
+
+def run_q5(records: int, parallelism: int = 8):
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
 
     env = StreamExecutionEnvironment(Configuration({
-        "parallelism.default": 8,
+        "parallelism.default": parallelism,
         "execution.micro-batch.size": 1 << 20,
         "execution.device": "cuda",
+        **(P1_SETTINGS if parallelism == 1 else {}),
     }))
     sink = CollectSink()
     build_q5(env, BidSource(total_records=records, num_auctions=100_000,
@@ -55,22 +70,12 @@ def run_q5(records: int):
     return time.perf_counter() - t0, result
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--records", type=int, default=40_000_000)
-    args = ap.parse_args()
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _mesh_patches(acc):
+    """(object, attribute, stage) wrapped at parallelism 8, and the undo."""
     from flink_tpu_torch.benchmarks import nexmark
     from flink_tpu_torch.parallel import sharded_windower as sw
     from flink_tpu_torch.state import slot_table
 
-    wall, result = run_q5(args.records)
-    plain = {"wall_s": wall, "events_per_s": args.records / wall,
-             "fire_latency_ms": result.metrics.get("window_fire_latency_ms")}
-
-    acc = defaultdict(float)
     E = sw.MeshWindowEngine
     patches = [
         (nexmark.BidSource, "poll_batch", "source.poll"),
@@ -83,9 +88,6 @@ def main() -> None:
         (E, "on_watermark", "engine.on_watermark (fires + frees)"),
         (E, "_free_slices", "fire.free_slices"),
     ]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, key in patches:
-        setattr(obj, name, _timed(acc, key, getattr(obj, name)))
     orig_init = E.__init__
 
     def init(self, *a, **k):
@@ -95,12 +97,60 @@ def main() -> None:
             self._exchange_scatter_step)
 
     E.__init__ = init
+    return patches, lambda: setattr(E, "__init__", orig_init)
+
+
+def _single_device_patches(acc):
+    """(object, attribute, stage) wrapped at parallelism 1, and the
+    undo."""
+    from flink_tpu_torch.benchmarks import nexmark
+    from flink_tpu_torch.runtime import pending
+    from flink_tpu_torch.state import slot_table
+    from flink_tpu_torch.windowing import windower
+
+    W, T = windower.SliceSharedWindower, slot_table.SlotTable
+    return [
+        (nexmark.BidSource, "poll_batch", "source.poll"),
+        (W, "process_batch", "engine.process_batch (all ingest)"),
+        (slot_table.NativeSlotIndex, "lookup_or_insert",
+         "ingest.slot_lookup"),
+        (T, "scatter", "ingest.scatter (pad + dispatch)"),
+        (T, "_to_device", "h2d copies (ingest + fire + free)"),
+        (pending.Fence, "block_until_ready",
+         "fence waits (dispatch bound + fire harvest)"),
+        (W, "on_watermark", "engine.on_watermark (fires + frees)"),
+        (T, "build_slice_matrix", "fire.slice_matrix (host grouping)"),
+        (T, "fire_projected_async", "fire.dispatch"),
+        (pending.PendingFire, "harvest", "fire.harvest"),
+        (T, "free_namespaces", "fire.free_slices"),
+    ], lambda: None
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--records", type=int, default=40_000_000)
+    ap.add_argument("--parallelism", type=int, default=8,
+                    help="8: the mesh engine; 1: the single-device engine")
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wall, result = run_q5(args.records, args.parallelism)
+    plain = {"wall_s": wall, "events_per_s": args.records / wall,
+             "fire_latency_ms": result.metrics.get("window_fire_latency_ms")}
+
+    acc = defaultdict(float)
+    patches, undo = (_single_device_patches if args.parallelism == 1
+                     else _mesh_patches)(acc)
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, key in patches:
+        setattr(obj, name, _timed(acc, key, getattr(obj, name)))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            pwall, _ = run_q5(args.records)
+            pwall, _ = run_q5(args.records, args.parallelism)
     finally:
-        E.__init__ = orig_init
+        undo()
         for obj, name, fn in saved:
             setattr(obj, name, fn)
 
@@ -121,6 +171,7 @@ def main() -> None:
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "records": args.records,
+        "parallelism": args.parallelism,
         "plain_run": plain,
         "profiled_wall_s": pwall,
         "host_s": dict(sorted(acc.items())),

@@ -24,6 +24,7 @@ from flink_tpu_torch.core.config import (
     CoreOptions,
     DeploymentOptions,
     ExecutionOptions,
+    StateOptions,
 )
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
@@ -85,7 +86,16 @@ class LocalExecutor:
                         max_dispatch_ahead=cfg.get(
                             BatchOptions.MAX_DISPATCH_AHEAD),
                         shuffle_mode=cfg.get(DeploymentOptions.SHUFFLE_MODE),
-                        device=cfg.get(ExecutionOptions.DEVICE)))
+                        device=cfg.get(ExecutionOptions.DEVICE),
+                        window_layout=cfg.get(StateOptions.WINDOW_LAYOUT),
+                        state_backend=cfg.get(StateOptions.BACKEND),
+                        spill={
+                            "max_device_slots": cfg.get(
+                                StateOptions.MAX_DEVICE_SLOTS),
+                            "spill_dir": cfg.get(StateOptions.SPILL_DIR),
+                            "spill_host_max_bytes": cfg.get(
+                                StateOptions.SPILL_HOST_MAX_BYTES),
+                        }))
             for t in graph.nodes:
                 n = nodes[t.uid]
                 for child_t in graph.children(t):

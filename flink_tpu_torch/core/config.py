@@ -1,7 +1,8 @@
 """Typed configuration (port of ``flink_tpu/core/config.py``).
 
-Only the options the Q5 mesh path reads are carried, under the reference's
-keys and defaults, plus the port's own ``execution.device``.
+Only the options the Q5 path reads (parallelism 8 and 1) are carried,
+under the reference's keys and defaults, plus the port's own
+``execution.device``.
 """
 
 from __future__ import annotations
@@ -101,3 +102,30 @@ class StateOptions:
         "state.slot-table.capacity", default=1 << 20, type=int,
         description="Slot capacity per key-group shard of the keyed "
         "window state (grows by doubling).")
+    MAX_DEVICE_SLOTS = ConfigOption(
+        "state.slot-table.max-device-slots", default=0, type=int,
+        description="Device-resident slot budget per keyed state (device "
+        "memory bound). 0 = unbounded (grow by doubling). When the budget "
+        "is reached, cold namespaces spill to host memory and reload "
+        "transparently on access. Parallelism 1 only in this port (the "
+        "mesh engine's spill tier is not ported).")
+    WINDOW_LAYOUT = ConfigOption(
+        "state.window-layout", default="auto", type=str,
+        description="Keyed window state layout at parallelism 1: 'slots' "
+        "((key, slice) slot table — the general engine), 'panes' (not "
+        "ported yet), or 'auto' (resolves to 'slots').")
+    SPILL_DIR = ConfigOption(
+        "state.spill.dir", default=None, type=str,
+        description="Filesystem tier for spilled state (a local path or "
+        "file://; other schemes are not ported). None = spill stays in "
+        "host memory.")
+    SPILL_HOST_MAX_BYTES = ConfigOption(
+        "state.spill.host-max-bytes", default=0, type=int,
+        description="Host-memory budget for spilled namespaces before they "
+        "overflow to state.spill.dir. 0 = unbounded host tier.")
+    BACKEND = ConfigOption(
+        "state.backend", default="tpu-slot-table", type=str,
+        description="Keyed-state backend: 'tpu-slot-table' keeps the "
+        "accumulators on execution.device (the card), with the spill "
+        "tier beyond it. The reference's placement backends (host-heap, "
+        "third-party placements) are not ported.")

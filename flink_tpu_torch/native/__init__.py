@@ -165,6 +165,8 @@ def _declare_slotmap(lib) -> None:
     lib.sm_erase.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
     lib.sm_lookup.restype = None
     lib.sm_lookup.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
+    lib.sm_group_rows.restype = i64
+    lib.sm_group_rows.argtypes = [P(i64), i64, P(i64), P(i32)]
 
 
 def _declare_datagen(lib) -> None:
@@ -186,3 +188,30 @@ def load_datagen() -> Optional[ctypes.CDLL]:
     """The native bid generator (native/datagen.cpp), or None."""
     return _load_once("datagen", "datagen.cpp", "_datagen.so",
                       _declare_datagen)
+
+
+def group_matrix(keys, slots, sidx, n_slices: int):
+    """(distinct keys in first-seen order, ``[K, n_slices]`` int32 slot
+    matrix) by the native hash grouping (``sm_group_rows``): row r holds
+    key r's slot in each slice, 0 (the identity slot) where it has none.
+    A fire's row order is this order, and top-k ties are broken by row,
+    so the fire needs it exactly: raises when the library is missing."""
+    import numpy as np
+
+    lib = load_slotmap()
+    if lib is None:
+        raise RuntimeError("the native slotmap library (native/slotmap.cpp) "
+                           "did not build; the window fire's key grouping "
+                           "needs it")
+    n = len(keys)
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    out_keys = np.empty(n, dtype=np.int64)
+    row_of = np.empty(n, dtype=np.int32)
+    c = ctypes
+    rows = lib.sm_group_rows(
+        keys.ctypes.data_as(c.POINTER(c.c_int64)), n,
+        out_keys.ctypes.data_as(c.POINTER(c.c_int64)),
+        row_of.ctypes.data_as(c.POINTER(c.c_int32)))
+    matrix = np.zeros((rows, n_slices), dtype=np.int32)
+    matrix[row_of, np.asarray(sidx)] = slots
+    return out_keys[:rows], matrix

@@ -86,35 +86,105 @@ def fold_slots(slots: torch.Tensor,
     return tuple(out)
 
 
+def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` with the NaN an x86 add gives: a's NaN quieted, else b's,
+    else the default NaN of an ``inf - inf``. The card's adds give another
+    NaN, so the rule is applied on every device."""
+    s = a + b
+    return torch.where(torch.isnan(s), torch.where(
+        torch.isnan(a), nan_bits(a, True),
+        torch.where(torch.isnan(b), nan_bits(b, True), nan_bits(s, False))),
+        s)
+
+
+def _fold_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., m, c]`` added along axis -2 from 0, left to right, for
+    each of the c columns at once: ``[..., c]``."""
+    acc = torch.zeros_like(x[..., 0, :])
+    for j in range(x.shape[-2]):
+        acc = _add(acc, x[..., j, :])
+    return acc
+
+
+def _lanes(x: torch.Tensor, lanes: int, width: int) -> torch.Tensor:
+    """The vectorised form of XLA's CPU reduce over the last dim: ``lanes``
+    accumulators from 0, lane i adding slices i, i + lanes, ... of the
+    first ``lanes * (k // lanes)``; the accumulators taken as vectors of
+    ``width`` and added vector by vector, left to right; that vector
+    halved (lane i + lane i + width/2, ..., then i + i+1); the last
+    ``k % lanes`` slices added to it left to right."""
+    k = x.shape[-1]
+    m = k // lanes * lanes
+    acc = _fold_rows(x[..., :m].unflatten(-1, (m // lanes, lanes)))
+    vec = acc[..., :width]
+    for j in range(width, lanes, width):
+        vec = _add(vec, acc[..., j:j + width])
+    w = width
+    while w > 1:
+        w //= 2
+        vec = _add(vec[..., :w], vec[..., w:2 * w])
+    acc = vec[..., 0]
+    for j in range(m, k):
+        acc = _add(acc, x[..., j])
+    return acc
+
+
 def _merge_sum(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU reduce of the slice axis: one slice is returned as it is;
-    k > 1 slices are added left to right from 0 (the reference's fire does
-    so up to k = 27: ROADMAP Queue C item 7). A NaN sum takes the NaN
-    that came first — the earliest NaN slice, quieted, or the default NaN
-    of an inf - inf met before any — as ``jnp.sum`` and the reference's
-    fire programs give it (where one add meets two NaNs, some of the
-    fire's compiled loops keep the later one: ROADMAP Queue C item 6). The
-    card's adds give another NaN, so the rule is applied on every
-    device."""
+    """The order in which XLA's CPU reduce adds the slice axis (the last
+    dim) of a fire. The reference's fire takes it from its CPU backend,
+    whose loop follows the host's vector width (256 bits: 8 float32 or 4
+    float64 lanes a vector), so the port emulates the order that backend
+    takes on an AVX host, measured by ``tests/reference_fire_order.py``
+    over float32 and float64 Sum and float32 Avg, in the single-device
+    and the mesh fire:
+
+    - k = 1: the slice as it is (a signalling NaN stays signalling, -0.0
+      stays -0.0);
+    - 2 <= k <= 27: left to right from 0, ``((0 + x0) + x1) + ...``;
+    - 28 <= k <= 32 (:func:`_lanes`): 8 lanes in one float32 vector of 8,
+      or in two float64 vectors of 4; float64 at k = 32: 16 lanes in four
+      vectors of 4;
+    - k > 32: the slices cut into chunks (:func:`_chunk_sizes`), each
+      chunk added left to right from 0, then the chunk sums left to right
+      from 0.
+
+    That is the reference's sum bit for bit at every k measured, 1 to 300
+    (ROADMAP Queue C item 7). A NaN sum takes the NaN of the add where it
+    first appeared, the earlier operand's when both are NaN (where one add
+    meets two NaNs the reference's compiled loops keep either: Queue C
+    item 6). Integer sums are exact in any order."""
     k = x.shape[-1]
     if k == 1:
         return x[..., 0].clone()
-    acc = x[..., 0] + 0
     if not x.dtype.is_floating_point:
-        for j in range(1, k):
-            acc = acc + x[..., j]
-        return acc
-    first = torch.where(torch.isnan(acc), nan_bits(x[..., 0], True),
-                        nan_bits(acc, False))
-    seen = torch.isnan(acc)
-    for j in range(1, k):
-        xj = x[..., j]
-        acc = acc + xj
-        became = torch.isnan(acc) & ~seen
-        first = torch.where(became & torch.isnan(xj), nan_bits(xj, True),
-                            first)
-        seen |= became
-    return torch.where(seen, first, acc)
+        return x.sum(dim=-1, dtype=x.dtype)
+    if k <= 27:
+        return _fold_rows(x.unsqueeze(-1))[..., 0]
+    if k <= 32:
+        width = 32 // x.element_size()
+        lanes = 16 if (width, k) == (4, 32) else 8
+        return _lanes(x, lanes, width)
+    # chunk j's slices as row j of an [n, 32] index, padded with column
+    # k, a +0.0: a sum from +0.0 is never -0.0, so the pads leave it as
+    # it is, NaN bits included
+    sizes = _chunk_sizes(k)
+    idx = torch.full((len(sizes), 32), k, dtype=torch.int64)
+    start = 0
+    for j, size in enumerate(sizes):
+        idx[j, :size] = torch.arange(start, start + size)
+        start += size
+    xp = torch.nn.functional.pad(x, (0, 1))
+    chunks = _fold_rows(xp[..., idx.to(x.device)].transpose(-1, -2))
+    return _fold_rows(chunks.unsqueeze(-1))[..., 0]
+
+
+def _chunk_sizes(k: int) -> list:
+    """How XLA's CPU reduce cuts k > 32 slices: n = ceil(k / 32) chunks,
+    the middle n - 2 of 32 slices, the first and the last halving the
+    r = k - 32 (n - 2) others (the first taking the odd one)."""
+    n = -(-k // 32)
+    r = k - 32 * (n - 2)
+    return [-(-r // 2)] + [32] * (n - 2) + [r // 2]
 
 
 def _merge_extreme(x: torch.Tensor, reduce: str) -> torch.Tensor:
@@ -134,7 +204,35 @@ MERGE_FN: Dict[str, Callable] = {
     "min": lambda x: _merge_extreme(x, "min"),
 }
 
+#: host-side elementwise combine of two partial-aggregate arrays (the
+#: spill tier merges spilled slice values into device-fired results on
+#: the host)
+HOST_COMBINE: Dict[str, Callable] = {
+    "sum": np.add,
+    "max": np.maximum,
+    "min": np.minimum,
+}
+
 _MIN_BUCKET = 256
+
+
+def pad_i32(a: np.ndarray, size: int, fill: int = 0) -> np.ndarray:
+    """Pad an int index array up to ``size`` with ``fill`` (slot 0)."""
+    a = np.asarray(a, dtype=np.int32)
+    if len(a) == size:
+        return a
+    out = np.full(size, fill, dtype=np.int32)
+    out[: len(a)] = a
+    return out
+
+
+def pad_values(a: np.ndarray, size: int, fill) -> np.ndarray:
+    a = np.asarray(a)
+    if len(a) == size:
+        return a
+    out = np.full((size,) + a.shape[1:], fill, dtype=a.dtype)
+    out[: len(a)] = a
+    return out
 
 
 def pad_bucket_size(n: int, minimum: int = _MIN_BUCKET) -> int:

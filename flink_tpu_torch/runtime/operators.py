@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -57,7 +57,9 @@ class OperatorContext:
     def __init__(self, parallelism: int = 1, max_parallelism: int = 128,
                  async_fires: bool = False, max_dispatch_ahead: int = 4,
                  shuffle_mode: str = "device", device=None,
-                 operator_index: int = 0):
+                 operator_index: int = 0, window_layout: str = "auto",
+                 state_backend: str = "tpu-slot-table",
+                 spill: Optional[dict] = None):
         self.operator_index = operator_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -71,6 +73,12 @@ class OperatorContext:
         #: execution.device — resolved (and refused without a card) when
         #: a device-backed operator opens
         self.device = device
+        #: state.window-layout and state.backend (parallelism 1)
+        self.window_layout = window_layout
+        self.state_backend = state_backend
+        #: the spill tier's options (state.slot-table.max-device-slots,
+        #: state.spill.dir, state.spill.host-max-bytes)
+        self.spill = dict(spill or {})
 
 
 class MapOperator(Operator):
@@ -99,7 +107,9 @@ class KeyByOperator(Operator):
 
 
 class WindowAggOperator(Operator):
-    """keyBy -> window -> aggregate on the mesh window engine."""
+    """keyBy -> window -> aggregate: at parallelism 1 on the single-device
+    slot table (``SliceSharedWindower``), above it on the mesh window
+    engine."""
 
     name = "window_agg"
 
@@ -129,27 +139,62 @@ class WindowAggOperator(Operator):
         self._max_dispatch_ahead = 4
 
     def open(self, ctx):
-        if ctx.parallelism <= 1:
-            raise NotImplementedError(
-                "parallelism 1 runs the single-device SliceSharedWindower "
-                "engine, which is not ported to flink_tpu_torch yet "
-                "(ROADMAP.md, Queue A item 3); set parallelism.default > 1 "
-                "for the mesh window engine")
-        from flink_tpu_torch.parallel.mesh import make_mesh
-        from flink_tpu_torch.parallel.sharded_windower import (
-            MeshWindowEngine,
-        )
+        if ctx.parallelism > 1:
+            if ctx.state_backend != "tpu-slot-table":
+                raise ValueError(
+                    f"state.backend={ctx.state_backend!r} is not supported "
+                    "at operator parallelism > 1: mesh-sharded state is "
+                    "placed by the device mesh itself")
+            from flink_tpu_torch.parallel.mesh import make_mesh
+            from flink_tpu_torch.parallel.sharded_windower import (
+                MeshWindowEngine,
+            )
 
-        self.windower = MeshWindowEngine(
-            self.assigner, self.agg, make_mesh(ctx.parallelism, ctx.device),
-            capacity_per_shard=self.capacity,
-            max_parallelism=ctx.max_parallelism,
-            allowed_lateness=self.allowed_lateness,
-            fire_projector=self.fire_projector,
-            max_dispatch_ahead=ctx.max_dispatch_ahead,
-            shuffle_mode=ctx.shuffle_mode)
+            self.windower = MeshWindowEngine(
+                self.assigner, self.agg,
+                make_mesh(ctx.parallelism, ctx.device),
+                capacity_per_shard=self.capacity,
+                max_parallelism=ctx.max_parallelism,
+                allowed_lateness=self.allowed_lateness,
+                fire_projector=self.fire_projector,
+                max_device_slots=ctx.spill.get("max_device_slots", 0),
+                max_dispatch_ahead=ctx.max_dispatch_ahead,
+                shuffle_mode=ctx.shuffle_mode)
+        else:
+            self.windower = self._open_single_device(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
+
+    def _open_single_device(self, ctx):
+        """Parallelism 1: state.window-layout 'auto' and 'slots' run the
+        slot table (the reference's 'auto' resolves to it too)."""
+        from flink_tpu_torch.windowing.windower import SliceSharedWindower
+
+        if ctx.window_layout == "panes":
+            raise NotImplementedError(
+                "state.window-layout=panes (PaneWindower) is not ported to "
+                "flink_tpu_torch yet (ROADMAP.md, Queue A item 6); use "
+                "'slots' or 'auto'")
+        if ctx.window_layout not in ("auto", "slots"):
+            raise ValueError(f"state.window-layout must be 'auto', 'slots' "
+                             f"or 'panes', got {ctx.window_layout!r}")
+        if ctx.state_backend != "tpu-slot-table":
+            raise NotImplementedError(
+                f"state.backend={ctx.state_backend!r}: placement backends "
+                "are not ported to flink_tpu_torch yet (ROADMAP.md, Queue A "
+                "item 11); the default 'tpu-slot-table' keeps the state on "
+                "execution.device")
+        return SliceSharedWindower(
+            self.assigner, self.agg, capacity=self.capacity,
+            max_parallelism=ctx.max_parallelism,
+            allowed_lateness=self.allowed_lateness,
+            spill={**ctx.spill, "device": ctx.device},
+            fire_projector=self.fire_projector)
+
+    def spill_counters(self) -> Optional[Dict[str, int]]:
+        """The engine's spill traffic counters (None when it has none)."""
+        fn = getattr(self.windower, "spill_counters", None)
+        return fn() if fn is not None else None
 
     def process_batch(self, batch, input_index=0):
         keys = batch[self.key_field]

@@ -21,11 +21,13 @@ import torch
 class Fence:
     """Proof that the device finished everything enqueued before it: a
     CUDA event recorded on the current stream (None on the CPU, where
-    every program ran before it returned)."""
+    every program ran before it returned). ``value``: the small device
+    read the fence was enqueued behind, if any."""
 
-    __slots__ = ("event",)
+    __slots__ = ("event", "value")
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, value=None):
+        self.value = value
         self.event = None
         if device.type == "cuda":
             self.event = torch.cuda.Event()

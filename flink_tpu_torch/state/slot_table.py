@@ -1,23 +1,47 @@
-"""Host half of the keyed state table: ``(key_id, namespace) -> slot``
-(port of the slot-index part of ``flink_tpu/state/slot_table.py``).
+"""Keyed state tables (port of ``flink_tpu/state/slot_table.py``).
 
-The accumulators themselves live on the device in the engines' ``[P,
-capacity]`` planes; each shard keeps one index here. Slot 0 is reserved as
-the identity slot (padding target). Capacity grows by doubling and is
-signalled through ``on_grow(old, new)`` so the owner widens its planes in
-lockstep. The namespace doubles as the slice end, and a namespace ->
-slots registry makes slice expiry O(freed).
+- The index, ``(key_id, namespace) -> slot``, lives on the host
+  (``HostSlotIndex``, or ``NativeSlotIndex`` over ``native/slotmap.cpp``).
+  Slot 0 is reserved as the identity slot (padding target). Capacity grows
+  by doubling and is signalled through ``on_grow(old, new)`` so the owner
+  widens its accumulators in lockstep. The namespace doubles as the slice
+  end, and a namespace -> slots registry makes slice expiry O(freed). The
+  mesh engine keeps one index per shard beside its ``[P, capacity]``
+  planes.
+- ``SlotTable`` is the single-device engine's table: one index plus flat
+  ``[capacity]`` accumulators on the device, one per aggregate leaf,
+  updated by the programs of ``stateplane/families.py``. With
+  ``max_device_slots`` the device table is a bounded cache over a host
+  (then local-filesystem) ``SpillTier``: the least recently touched
+  namespaces are evicted wholesale (one gather + one reset) and reload on
+  the next access (one put).
 
-Not in this slice: ``SlotTable`` (the single-device engine's table) and
-``SpillTier`` — see ROADMAP.md, Queue A.
+Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
+item (Queue A): the paged spill layout (item 7), a ``state.spill.dir``
+with a scheme other than a local path (item 8), snapshots and restore
+(item 8), and point queries (item 12).
 """
 
 from __future__ import annotations
 
 import ctypes as _ct
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from flink_tpu_torch.core.device import resolve_device
+from flink_tpu_torch.native import group_matrix
+from flink_tpu_torch.ops.segment_ops import (
+    HOST_COMBINE,
+    pad_i32,
+    pad_values,
+    sticky_bucket,
+)
+from flink_tpu_torch.runtime.pending import Fence, PendingFire
+from flink_tpu_torch.stateplane.families import flat_fence
+from flink_tpu_torch.windowing.aggregates import AggregateFunction
 
 
 def unique_pairs(
@@ -75,6 +99,29 @@ class _NamespaceRegistry:
         if not freed:
             return None
         return np.concatenate(freed)
+
+    def _registry_remove_slots(self, slots: np.ndarray,
+                               namespaces: np.ndarray) -> None:
+        """Remove individual slots from their namespaces' chunk lists
+        (frees by slot, not by whole namespace)."""
+        uniq, counts = np.unique(namespaces, return_counts=True)
+        for ns, freed_here in zip(uniq.tolist(), counts.tolist()):
+            chunks = self._ns_slots.get(int(ns))
+            if not chunks:
+                continue
+            merged = np.concatenate(chunks) if len(chunks) > 1 \
+                else chunks[0]
+            if len(merged) <= freed_here:
+                self._ns_slots.pop(int(ns), None)
+                continue
+            kept = merged[~np.isin(merged, slots)]
+            if len(kept):
+                self._ns_slots[int(ns)] = [kept]
+            else:
+                self._ns_slots.pop(int(ns), None)
+
+    def used_slots(self) -> np.ndarray:
+        return np.nonzero(self.slot_used)[0]
 
 
 class HostSlotIndex(_NamespaceRegistry):
@@ -173,6 +220,25 @@ class HostSlotIndex(_NamespaceRegistry):
         self._free.extend(slots.tolist())
         return slots
 
+    def free_slots(self, slots: np.ndarray) -> None:
+        """Release individual slots (by (key, ns) entry)."""
+        slots = np.asarray(slots, dtype=np.int32)
+        if not len(slots):
+            return
+        nss = self.slot_ns[slots]
+        self._registry_remove_slots(slots, nss)
+        for k, v in zip(self.slot_key[slots].tolist(), nss.tolist()):
+            self._index.pop((int(k), int(v)), None)
+        self.slot_used[slots] = False
+        self._free.extend(slots.tolist())
+
+    def free_headroom(self) -> int:
+        """Slots still allocatable (incl. future growth). Slot 0 reserved."""
+        if self.growable:
+            limit = self.max_capacity if self.max_capacity else (1 << 60)
+        else:
+            limit = self.capacity
+        return limit - 1 - self.num_used
 
 
 _I64P = _ct.POINTER(_ct.c_int64)
@@ -286,6 +352,29 @@ class NativeSlotIndex(_NamespaceRegistry):
             out.ctypes.data_as(_I32P))
         return out[:n]
 
+    def free_slots(self, slots: np.ndarray) -> None:
+        """Release individual slots (by (key, ns) entry) via the native
+        erase."""
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        if not len(slots):
+            return
+        nss = np.ascontiguousarray(self.slot_ns[slots])
+        self._registry_remove_slots(slots, nss)
+        keys = np.ascontiguousarray(self.slot_key[slots])
+        out = np.empty(len(slots), dtype=np.int32)
+        self._lib.sm_erase(
+            self._h, len(slots),
+            keys.ctypes.data_as(_I64P), nss.ctypes.data_as(_I64P),
+            out.ctypes.data_as(_I32P))
+
+    def free_headroom(self) -> int:
+        """Slots still allocatable (incl. future growth). Slot 0 reserved."""
+        if self.growable:
+            limit = self.max_capacity if self.max_capacity else (1 << 28)
+        else:
+            limit = self.capacity
+        return limit - 1 - self.num_used
+
 
 def make_slot_index(capacity: int, on_grow=None, growable: bool = True,
                     full_hint: str = "raise state.slot-table.capacity",
@@ -296,3 +385,597 @@ def make_slot_index(capacity: int, on_grow=None, growable: bool = True,
     cls = NativeSlotIndex if load_slotmap() is not None else HostSlotIndex
     return cls(capacity, on_grow=on_grow, growable=growable,
                full_hint=full_hint, max_capacity=max_capacity)
+
+
+def _not_ported(feature: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to flink_tpu_torch yet (ROADMAP.md, "
+        f"Queue A item {item})")
+
+
+#: the reference's spill traffic counters (its paged layout's; the
+#: namespace layout reports them as zeros)
+SPILL_COUNTER_NAMES = ("pages_evicted", "pages_reloaded", "rows_evicted",
+                       "rows_reloaded", "rows_split_on_reload",
+                       "rows_compacted")
+
+
+class SpillTier:
+    """State beyond the device: whole namespaces evicted from the device
+    table, in host memory and, once ``host_max_bytes`` is exceeded, as
+    ``.npz`` files under ``spill_dir`` (a local path or ``file://``). The
+    unit of movement is a namespace (a window slice), so a reload is one
+    batched put."""
+
+    def __init__(self, spill_dir: Optional[str] = None,
+                 host_max_bytes: int = 0):
+        if spill_dir and "://" in spill_dir:
+            scheme, path = spill_dir.split("://", 1)
+            if scheme != "file":
+                raise _not_ported(
+                    f"state.spill.dir with the {scheme!r} scheme", 8)
+            spill_dir = path
+        self.spill_dir = spill_dir
+        self.host_max_bytes = host_max_bytes
+        self._host: Dict[int, Dict[str, np.ndarray]] = {}
+        self._host_bytes = 0
+        self._fs: Dict[int, str] = {}  # ns -> file path
+        #: spilled namespaces whose rows were dirty when they left the
+        #: device (restored to the dirty bitmap on reload)
+        self._dirty: set = set()
+        self._seq = 0
+
+    def __len__(self) -> int:
+        return len(self._host) + len(self._fs)
+
+    def __contains__(self, ns: int) -> bool:
+        return ns in self._host or ns in self._fs
+
+    @property
+    def namespaces(self) -> List[int]:
+        return list(self._host) + list(self._fs)
+
+    @staticmethod
+    def _entry_bytes(entry: Dict[str, np.ndarray]) -> int:
+        return sum(a.nbytes for a in entry.values())
+
+    def put(self, ns: int, entry: Dict[str, np.ndarray],
+            dirty: bool) -> None:
+        assert ns not in self, f"namespace {ns} spilled twice"
+        self._host[ns] = entry
+        self._host_bytes += self._entry_bytes(entry)
+        if dirty:
+            self._dirty.add(ns)
+        self._maybe_overflow_to_fs()
+
+    def _maybe_overflow_to_fs(self) -> None:
+        if not self.spill_dir or self.host_max_bytes <= 0:
+            return
+        os.makedirs(self.spill_dir, exist_ok=True)
+        while self._host_bytes > self.host_max_bytes and self._host:
+            ns, entry = next(iter(self._host.items()))
+            self._seq += 1
+            path = os.path.join(self.spill_dir, f"ns-{ns}-{self._seq}.npz")
+            with open(path, "wb") as f:
+                np.savez(f, **entry)
+            self._fs[ns] = path
+            self._host_bytes -= self._entry_bytes(entry)
+            del self._host[ns]
+
+    @staticmethod
+    def _load(path: str) -> Dict[str, np.ndarray]:
+        with np.load(path) as loaded:
+            return {k: loaded[k] for k in loaded.files}
+
+    def pop(self, ns: int) -> Optional[Dict[str, np.ndarray]]:
+        """Remove and return a spilled namespace (reload or free)."""
+        entry = self._host.pop(ns, None)
+        if entry is not None:
+            self._host_bytes -= self._entry_bytes(entry)
+        elif ns in self._fs:
+            path = self._fs.pop(ns)
+            entry = self._load(path)
+            os.remove(path)
+        was_dirty = ns in self._dirty
+        self._dirty.discard(ns)
+        if entry is not None:
+            entry["__was_dirty__"] = np.asarray(was_dirty)
+        return entry
+
+    def peek(self, ns: int) -> Optional[Dict[str, np.ndarray]]:
+        """Read a spilled namespace without removing it."""
+        entry = self._host.get(ns)
+        if entry is not None:
+            return entry
+        if ns in self._fs:
+            return self._load(self._fs[ns])
+        return None
+
+    def drop(self, ns: int) -> None:
+        """Discard a spilled namespace (its windows fired)."""
+        self.pop(ns)
+
+
+class SlotTable:
+    """Single-device keyed windowed state: a host index plus flat device
+    accumulators on ``device`` (``None``: ``execution.device``'s default,
+    the card, raising without one)."""
+
+    def __init__(
+        self,
+        agg: AggregateFunction,
+        capacity: int = 1 << 16,
+        max_parallelism: int = 128,
+        device=None,
+        max_device_slots: int = 0,
+        spill_dir: Optional[str] = None,
+        spill_host_max_bytes: int = 0,
+        spill_layout: str = "namespaces",
+    ) -> None:
+        if spill_layout == "pages":
+            raise _not_ported("spill_layout='pages' (sessions)", 7)
+        if spill_layout != "namespaces":
+            raise ValueError(
+                f"spill_layout must be 'namespaces' or 'pages', got "
+                f"{spill_layout!r}")
+        self.agg = agg
+        self.max_parallelism = max_parallelism
+        self.device = resolve_device(device)
+        self.max_device_slots = int(max_device_slots or 0)
+        if self.max_device_slots:
+            capacity = min(capacity, self.max_device_slots)
+        self.spill = SpillTier(spill_dir, spill_host_max_bytes)
+        self._ns_touch: Dict[int, int] = {}
+        self._touch_clock = 0
+        self.index = make_slot_index(
+            capacity, on_grow=self._grow_device,
+            max_capacity=self.max_device_slots,
+            full_hint=("state spills to host beyond "
+                       "state.slot-table.max-device-slots"
+                       if self.max_device_slots
+                       else "raise state.slot-table.capacity"))
+        self.accs: Tuple[torch.Tensor, ...] = agg.init_accumulators(
+            self.index.capacity, self.device)
+        # sticky buckets: nearby smaller batches reuse a padded size
+        # (padded lanes hit identity slot 0; at most 4x padding)
+        self._fire_bucket = 0
+        self._scatter_bucket = 0
+        self._reset_bucket = 0
+        self._gather_bucket = 0
+        #: slots touched since the last snapshot (the incremental-snapshot
+        #: record; snapshots come with ROADMAP Queue A item 8)
+        self._dirty = np.zeros(self.index.capacity, dtype=bool)
+
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        # from pageable memory the copy has staged `host` when it returns
+        return torch.from_numpy(np.ascontiguousarray(host)).to(
+            self.device, non_blocking=True)
+
+    # ------------------------------------------------------------------ info
+
+    @property
+    def capacity(self) -> int:
+        return self.index.capacity
+
+    @property
+    def num_used(self) -> int:
+        return self.index.num_used
+
+    @property
+    def namespaces(self) -> List[int]:
+        """All live namespaces — device-resident AND spilled."""
+        return self.index.namespaces + self.spill.namespaces
+
+    def spill_counters(self) -> Dict[str, int]:
+        """Paged spill traffic counters: zeros in the namespace layout."""
+        return {name: 0 for name in SPILL_COUNTER_NAMES}
+
+    # ------------------------------------------------------------- main path
+
+    def lookup_or_insert(self, key_ids: np.ndarray, namespaces: np.ndarray,
+                         _pairs=None) -> np.ndarray:
+        if self.max_device_slots:
+            # ``_pairs``: upsert()'s unique (key, ns) pairs, not recomputed
+            if _pairs is None:
+                uk, un, _ = unique_pairs(
+                    np.asarray(key_ids, dtype=np.int64),
+                    np.asarray(namespaces, dtype=np.int64))
+            else:
+                uk, un = _pairs
+            touched = np.unique(un)
+            self.ensure_resident(touched.tolist())
+            self._touch(touched.tolist())
+            # lookup_or_insert allocates as it goes, so running out MID
+            # batch would leave the index and the registry inconsistent:
+            # make room up front for the pairs that are really new (a
+            # read-only probe, only when len(uk) might not fit)
+            if self.index.free_headroom() < len(uk):
+                needed = int((self.index.lookup(uk, un) < 0).sum())
+                if needed:
+                    self._make_headroom(needed,
+                                        protect=set(touched.tolist()))
+        return self.index.lookup_or_insert(key_ids, namespaces)
+
+    def _make_headroom(self, needed: int, protect: set) -> None:
+        while self.index.free_headroom() < needed:
+            self._evict_cold(protect=protect)
+
+    def upsert(self, key_ids: np.ndarray, namespaces: np.ndarray,
+               values: Tuple[np.ndarray, ...],
+               valued: bool = False) -> None:
+        """Spill-safe accumulate: when one batch's (key, ns) pairs exceed
+        half the device budget, it is folded in namespace groups so that
+        only one group must be resident at a time (one namespace whose
+        keys alone exceed the budget fails loudly). ``valued``: locally
+        pre-aggregated input, one value per leaf per row."""
+        emit = self.scatter_valued if valued else self.scatter
+        namespaces = np.asarray(namespaces, dtype=np.int64)
+        if self.max_device_slots:
+            pair_k, pair_ns, _ = unique_pairs(
+                np.asarray(key_ids, dtype=np.int64), namespaces)
+            uniq_ns, counts = np.unique(pair_ns, return_counts=True)
+            budget = max(self.max_device_slots // 2, 1024)
+            if len(uniq_ns) > 1 and len(pair_ns) > budget:
+                groups: List[List[int]] = []
+                cur: List[int] = []
+                cur_n = 0
+                for ns, c in zip(uniq_ns.tolist(), counts.tolist()):
+                    if cur and cur_n + c > budget:
+                        groups.append(cur)
+                        cur, cur_n = [], 0
+                    cur.append(ns)
+                    cur_n += c
+                groups.append(cur)
+                for g in groups:
+                    mask = np.isin(namespaces, g)
+                    pmask = np.isin(pair_ns, g)
+                    slots = self.lookup_or_insert(
+                        key_ids[mask], namespaces[mask],
+                        _pairs=(pair_k[pmask], pair_ns[pmask]))
+                    emit(slots, tuple(np.asarray(v)[mask] for v in values))
+                return
+            slots = self.lookup_or_insert(key_ids, namespaces,
+                                          _pairs=(pair_k, pair_ns))
+            emit(slots, values)
+            return
+        emit(self.lookup_or_insert(key_ids, namespaces), values)
+
+    def upsert_valued(self, key_ids: np.ndarray, namespaces: np.ndarray,
+                      values: Tuple[np.ndarray, ...]) -> None:
+        """upsert() of locally pre-aggregated rows (the valued fold)."""
+        self.upsert(key_ids, namespaces, values, valued=True)
+
+    # ------------------------------------------------------------ spill tier
+
+    def _touch(self, namespaces: List[int]) -> None:
+        self._touch_clock += 1
+        clock = self._touch_clock
+        for ns in namespaces:
+            self._ns_touch[int(ns)] = clock
+
+    def ensure_resident(self, namespaces: List[int]) -> None:
+        """Reload the spilled namespaces among ``namespaces`` — all of them
+        in one insert and one put."""
+        if not self.max_device_slots or len(self.spill) == 0:
+            return
+        todo = [int(ns) for ns in namespaces if int(ns) in self.spill]
+        if not todo:
+            return
+        protect = set(int(n) for n in namespaces)
+        key_chunks: List[np.ndarray] = []
+        ns_chunks: List[np.ndarray] = []
+        dirty_chunks: List[np.ndarray] = []
+        leaf_chunks: List[List[np.ndarray]] = [[] for _ in self.agg.leaves]
+        for ns in todo:
+            entry = self.spill.pop(ns)
+            m = len(entry["key_id"])
+            if m == 0:
+                continue
+            key_chunks.append(np.asarray(entry["key_id"], dtype=np.int64))
+            ns_chunks.append(np.full(m, ns, dtype=np.int64))
+            dirty_chunks.append(np.full(
+                m, bool(entry.get("__was_dirty__", False)), dtype=bool))
+            for i, l in enumerate(self.agg.leaves):
+                leaf_chunks[i].append(
+                    np.asarray(entry[f"leaf_{i}"], dtype=l.dtype))
+        if not key_chunks:
+            return
+        key_ids = np.concatenate(key_chunks)
+        nss = np.concatenate(ns_chunks)
+        was_dirty = np.concatenate(dirty_chunks)
+        n = len(key_ids)
+        self._make_headroom(n, protect=protect)
+        slots = self.index.lookup_or_insert(key_ids, nss)
+        size = sticky_bucket(n, self._scatter_bucket)
+        self._scatter_bucket = size
+        vals = tuple(
+            self._to_device(pad_values(np.concatenate(leaf_chunks[i]), size,
+                                       l.identity))
+            for i, l in enumerate(self.agg.leaves))
+        self.accs = self.agg._put_jit(
+            self.accs, self._to_device(pad_i32(slots, size, fill=0)), vals)
+        # reloaded rows keep their dirtiness: rows dirty at spill time
+        # have not been in a snapshot since
+        self._dirty[slots] = was_dirty
+        self._touch(todo)
+
+    def _evict_cold(self, protect: set) -> None:
+        """Evict the least recently touched namespaces to the spill tier
+        until an eighth of the device table (at least 1024 slots) is free —
+        one gather and one reset for the whole cohort."""
+        target_free = max(self.index.capacity // 8, 1024)
+        candidates = sorted(
+            (ns for ns in self.index.namespaces if int(ns) not in protect),
+            key=lambda ns: self._ns_touch.get(int(ns), 0))
+        if not candidates:
+            raise SlotTableFullError(
+                "device slot budget exhausted and every namespace in the "
+                "current batch is protected — raise "
+                "state.slot-table.max-device-slots or reduce batch size")
+        chosen: List[Tuple[int, np.ndarray]] = []
+        freed = 0
+        for ns in candidates:
+            if freed >= target_free:
+                break
+            slots = self.index.slots_for_namespace(int(ns))
+            chosen.append((int(ns), slots))
+            freed += len(slots)
+        empty = [ns for ns, s in chosen if len(s) == 0]
+        if empty:
+            self.index.free_namespaces(empty)
+        chosen = [(ns, s) for ns, s in chosen if len(s) > 0]
+        if not chosen:
+            return
+        all_slots = np.concatenate([s for _, s in chosen])
+        n = len(all_slots)
+        size = sticky_bucket(n, self._gather_bucket)
+        self._gather_bucket = size
+        gathered = self.agg._gather_jit(
+            self.accs, self._to_device(pad_i32(all_slots, size, fill=0)))
+        leaves_host = [g[:n].cpu().numpy() for g in gathered]
+        off = 0
+        for ns, slots in chosen:
+            m = len(slots)
+            entry = {
+                "key_id": np.asarray(self.index.slot_key[slots]),
+                **{f"leaf_{i}": leaves_host[i][off:off + m]
+                   for i in range(len(leaves_host))},
+            }
+            self.spill.put(ns, entry, dirty=bool(self._dirty[slots].any()))
+            off += m
+            self._ns_touch.pop(ns, None)
+        # the device slots go (index entries, values back to identity);
+        # not a logical free: the rows live on in the spill tier
+        self.index.free_namespaces([ns for ns, _ in chosen])
+        self._dirty[all_slots] = False
+        rsize = sticky_bucket(n, self._reset_bucket)
+        self._reset_bucket = rsize
+        self.accs = self.agg._reset_jit(
+            self.accs, self._to_device(pad_i32(all_slots, rsize, fill=0)))
+
+    def _grow_device(self, old: int, new: int) -> None:
+        self.accs = tuple(
+            torch.cat([a, torch.full((new - old,),
+                                     np.asarray(leaf.identity).item(),
+                                     dtype=a.dtype, device=a.device)])
+            for a, leaf in zip(self.accs, self.agg.leaves))
+        self._dirty = np.concatenate(
+            [self._dirty, np.zeros(new - old, dtype=bool)])
+
+    # ----------------------------------------------------------------- ingest
+
+    def scatter(self, slots: np.ndarray,
+                values: Tuple[np.ndarray, ...]) -> None:
+        """Fold a batch: one value array per input leaf."""
+        n = len(slots)
+        if n == 0:
+            return
+        self._dirty[slots] = True
+        size = sticky_bucket(n, self._scatter_bucket)
+        self._scatter_bucket = size
+        padded = self.agg.pad_input_values(values, size)
+        self.accs = self.agg._scatter_jit(
+            self.accs, self._to_device(pad_i32(slots, size, fill=0)),
+            tuple(self._to_device(v) for v in padded))
+
+    def scatter_valued(self, slots: np.ndarray,
+                       values: Tuple[np.ndarray, ...]) -> None:
+        """Merge pre-aggregated partials: every leaf valued, each folded
+        by its own reduce; pad lanes carry the identity into slot 0."""
+        n = len(slots)
+        if n == 0:
+            return
+        self._dirty[slots] = True
+        size = sticky_bucket(n, self._scatter_bucket)
+        self._scatter_bucket = size
+        padded = tuple(
+            self._to_device(pad_values(np.asarray(v, dtype=l.dtype), size,
+                                       l.identity))
+            for v, l in zip(values, self.agg.leaves))
+        self.accs = self.agg._scatter_valued_jit(
+            self.accs, self._to_device(pad_i32(slots, size, fill=0)), padded)
+
+    def make_fence(self) -> Fence:
+        """A completion marker enqueued after everything dispatched so far
+        (the task loop's bound on how far it runs ahead of the device)."""
+        return flat_fence(self.agg.leaves[0].dtype.str)(self.accs[0])
+
+    # ------------------------------------------------------------- fire path
+
+    def slots_for_namespace(self, ns: int) -> np.ndarray:
+        return self.index.slots_for_namespace(ns)
+
+    def keys_of_slots(self, slots: np.ndarray) -> np.ndarray:
+        return self.index.slot_key[slots]
+
+    def _pad_fire_matrix(self, slot_matrix: np.ndarray) -> torch.Tensor:
+        """Sticky-bucket zero padding of a fire's slot matrix, on the
+        device."""
+        w, k = slot_matrix.shape
+        wp = sticky_bucket(w, self._fire_bucket, minimum=64)
+        self._fire_bucket = wp
+        padded = np.zeros((wp, k), dtype=np.int32)
+        padded[:w] = slot_matrix
+        return self._to_device(padded)
+
+    def fire(self, slot_matrix: np.ndarray) -> Dict[str, np.ndarray]:
+        """Merge and finish a ``[w, k]`` matrix of slice slots (missing
+        slices at slot 0): host result columns."""
+        w, _ = slot_matrix.shape
+        if w == 0:
+            return {name: np.empty(0) for name in self.agg.output_names}
+        out = self.agg._fire_jit(self.accs,
+                                 self._pad_fire_matrix(slot_matrix))
+        return {name: col[:w].cpu().numpy() for name, col in out.items()}
+
+    def fire_projected(self, slot_matrix: np.ndarray, keys: np.ndarray,
+                       projector) -> Tuple[np.ndarray,
+                                           Dict[str, np.ndarray]]:
+        """Fire with the projector on the device: merge, finish and
+        project in one program; only its rows reach the host."""
+        w, _ = slot_matrix.shape
+        if w == 0:
+            return np.empty(0, dtype=np.int64), {
+                name: np.empty(0) for name in self.agg.output_names}
+        pidx, pcols, pvalid = self.agg._fire_project_jit(projector)(
+            self.accs, self._pad_fire_matrix(slot_matrix), w)
+        sel = pvalid.cpu().numpy()
+        return (keys[pidx.cpu().numpy()[sel]],
+                {name: c.cpu().numpy()[sel] for name, c in pcols.items()})
+
+    def fire_async(self, slot_matrix: np.ndarray, keys: np.ndarray):
+        """Dispatch a fire; the PendingFire's harvest yields (keys, result
+        columns)."""
+        w, _ = slot_matrix.shape
+        if w == 0:
+            return None
+        out = self.agg._fire_jit(self.accs,
+                                 self._pad_fire_matrix(slot_matrix))
+        names = list(out.keys())
+
+        def build(host: List[np.ndarray]):
+            return keys, {name: col[:w] for name, col in zip(names, host)}
+
+        return PendingFire([out[n] for n in names], build)
+
+    def fire_projected_async(self, slot_matrix: np.ndarray,
+                             keys: np.ndarray, projector):
+        """fire_projected() with the host read deferred to the harvest."""
+        w, _ = slot_matrix.shape
+        if w == 0:
+            return None
+        pidx, pcols, pvalid = self.agg._fire_project_jit(projector)(
+            self.accs, self._pad_fire_matrix(slot_matrix), w)
+        names = list(pcols.keys())
+
+        def build(host: List[np.ndarray]):
+            sel = host[1]
+            return (keys[host[0][sel]],
+                    {name: col[sel] for name, col in zip(names, host[2:])})
+
+        return PendingFire([pidx, pvalid] + [pcols[n] for n in names], build)
+
+    def build_slice_matrix(self, slice_ends: List[int]
+                           ) -> Tuple[Optional[np.ndarray],
+                                      Optional[np.ndarray]]:
+        """(keys, ``[num_keys, k]`` slot matrix) for the resident slices of
+        a window, keys in first-seen order (missing cells at slot 0)."""
+        per_slice = [(i, self.index.slots_for_namespace(se))
+                     for i, se in enumerate(slice_ends)]
+        per_slice = [(i, s) for i, s in per_slice if len(s) > 0]
+        if not per_slice:
+            return None, None
+        all_slots = np.concatenate([s for _, s in per_slice])
+        all_sidx = np.concatenate(
+            [np.full(len(s), i, dtype=np.int32) for i, s in per_slice])
+        return group_matrix(self.index.slot_key[all_slots],
+                            all_slots.astype(np.int32), all_sidx,
+                            len(slice_ends))
+
+    def fire_hybrid(self, slice_ends: List[int]
+                    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A window fire over spilled slices: resident slices merge on the
+        device, spilled ones on the host, and finish runs on the host over
+        the union (keys ascending). The device budget does not depend on
+        the window's slice count."""
+        resident = [se for se in slice_ends if int(se) not in self.spill]
+        spilled = [se for se in slice_ends if int(se) in self.spill]
+        key_chunks: List[np.ndarray] = []
+        leaf_chunks: List[List[np.ndarray]] = [[] for _ in self.agg.leaves]
+        keys, matrix = self.build_slice_matrix(resident)
+        if keys is not None:
+            wp = sticky_bucket(len(keys), self._fire_bucket, minimum=64)
+            self._fire_bucket = wp
+            padded = np.zeros((wp, matrix.shape[1]), dtype=np.int32)
+            padded[:len(keys)] = matrix
+            merged = self.agg._merge_jit(self.accs, self._to_device(padded))
+            key_chunks.append(keys)
+            for i, m in enumerate(merged):
+                leaf_chunks[i].append(m[:len(keys)].cpu().numpy())
+        for se in spilled:
+            entry = self.spill.peek(int(se))
+            if entry is None or len(entry["key_id"]) == 0:
+                continue
+            key_chunks.append(np.asarray(entry["key_id"], dtype=np.int64))
+            for i, l in enumerate(self.agg.leaves):
+                leaf_chunks[i].append(
+                    np.asarray(entry[f"leaf_{i}"], dtype=l.dtype))
+        if not key_chunks:
+            return np.empty(0, dtype=np.int64), {}
+        uniq, inv = np.unique(np.concatenate(key_chunks), return_inverse=True)
+        out_leaves = []
+        for i, l in enumerate(self.agg.leaves):
+            acc = np.full(len(uniq), l.identity, dtype=l.dtype)
+            with np.errstate(invalid="ignore", over="ignore"):
+                HOST_COMBINE[l.reduce].at(acc, inv,
+                                          np.concatenate(leaf_chunks[i]))
+            out_leaves.append(torch.from_numpy(acc))
+        finished = self.agg.finish(tuple(out_leaves))
+        return uniq, {name: col.numpy() for name, col in finished.items()}
+
+    # ------------------------------------------------------------------ frees
+
+    def free_slots(self, slots: np.ndarray) -> None:
+        """Release individual (key, ns) entries."""
+        slots = np.asarray(slots, dtype=np.int32)
+        if not len(slots):
+            return
+        self.index.free_slots(slots)
+        self._reset(slots)
+
+    def free_namespaces(self, namespaces: List[int]) -> None:
+        """Release all slots of the given namespaces (windows fired)."""
+        slots = self.index.free_namespaces(namespaces)
+        for ns in namespaces:
+            if int(ns) in self.spill:
+                self.spill.drop(int(ns))
+            self._ns_touch.pop(int(ns), None)
+        if slots is not None:
+            self._reset(slots)
+
+    def _reset(self, slots: np.ndarray) -> None:
+        self._dirty[slots] = False
+        size = sticky_bucket(len(slots), self._reset_bucket)
+        self._reset_bucket = size
+        self.accs = self.agg._reset_jit(
+            self.accs, self._to_device(pad_i32(slots, size, fill=0)))
+
+    # ------------------------------------------------------ not in this slice
+
+    def snapshot(self, reset_dirty: bool = True):
+        raise _not_ported("SlotTable.snapshot", 8)
+
+    def snapshot_delta(self):
+        raise _not_ported("SlotTable.snapshot_delta", 8)
+
+    def restore(self, snap, key_group_filter=None):
+        raise _not_ported("SlotTable.restore", 8)
+
+    def query(self, key_id: int, namespace: Optional[int] = None):
+        raise _not_ported("SlotTable.query", 12)
+
+    def query_batch_pairs(self, key_ids, namespaces):
+        raise _not_ported("SlotTable.query_batch_pairs", 12)
+
+    def query_windows(self, key_id: int, assigner):
+        raise _not_ported("SlotTable.query_windows", 12)

@@ -5,19 +5,27 @@ An aggregate declares its accumulator as a tuple of *leaves* — flat device
 planes, one per accumulator component — each with a scatter-reduce kind.
 ``add`` over a micro-batch is one in-place scatter per leaf, ``merge``
 across window slices a gather + reduce over the slice axis, and
-``finish`` maps merged leaves to result columns with torch ops.
+``finish`` maps merged leaves to result columns with torch ops. The
+single-device engine's programs (``stateplane/families.py``) are reached
+through the ``_*_jit`` hooks, under the reference's names.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from flink_tpu_torch.core.records import RecordBatch
-from flink_tpu_torch.ops.segment_ops import SCATTER_METHOD, identity_for
+from flink_tpu_torch.ops.segment_ops import (
+    SCATTER_METHOD,
+    identity_for,
+    pad_values,
+    torch_dtype,
+)
+from flink_tpu_torch.stateplane import families as _families
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +61,16 @@ class AggregateFunction:
     #: names of the emitted result columns
     output_names: Tuple[str, ...] = ("result",)
 
+    def cache_key(self) -> tuple:
+        """Identity of the programs this aggregate needs: two aggregates
+        with equal keys share them. Includes every primitive instance
+        attribute, so that a parameter ``finish`` reads is part of it."""
+        params = tuple(
+            (k, v) for k, v in sorted(vars(self).items())
+            if isinstance(v, (str, int, float, bool, bytes, tuple)))
+        return (type(self).__module__, type(self).__qualname__,
+                self.leaves, self.output_names, params)
+
     def map_input(self, batch: RecordBatch) -> Tuple[np.ndarray, ...]:
         """One value array per *input* leaf (host)."""
         raise NotImplementedError
@@ -66,6 +84,67 @@ class AggregateFunction:
     def input_leaves(self) -> Tuple[AccLeaf, ...]:
         """Leaves that take a per-record host value array."""
         return tuple(l for l in self.leaves if l.const is None)
+
+    def init_accumulators(self, capacity: int, device
+                          ) -> Tuple[torch.Tensor, ...]:
+        """One flat ``[capacity]`` identity-filled tensor per leaf."""
+        return tuple(
+            torch.full((capacity,), np.asarray(leaf.identity).item(),
+                       dtype=torch_dtype(leaf.dtype), device=device)
+            for leaf in self.leaves)
+
+    def map_input_valued(self, batch: RecordBatch) -> Tuple[np.ndarray, ...]:
+        """One value array per leaf with const leaves materialized (local
+        pre-aggregation folds every leaf from explicit values)."""
+        vit = iter(self.map_input(batch))
+        out = []
+        for leaf in self.leaves:
+            if leaf.const is not None:
+                out.append(np.full(len(batch), leaf.const, dtype=leaf.dtype))
+            else:
+                out.append(np.asarray(next(vit), dtype=leaf.dtype))
+        return tuple(out)
+
+    def pad_input_values(self, values: Sequence[np.ndarray], size: int
+                         ) -> Tuple[np.ndarray, ...]:
+        """Pad the value arrays of the input leaves to ``size`` with each
+        leaf's identity (const leaves are broadcast on the device)."""
+        return tuple(
+            pad_values(np.asarray(v, dtype=l.dtype), size, l.identity)
+            for v, l in zip(values, self.input_leaves))
+
+    # -- the single-device engine's programs (stateplane/families.py) -------
+
+    @property
+    def _scatter_jit(self):
+        return _families.flat_scatter_combine(self.leaves)
+
+    @property
+    def _scatter_valued_jit(self):
+        return _families.flat_scatter_valued(self.leaves)
+
+    @property
+    def _fire_jit(self):
+        return _families.flat_segment_fire(self)
+
+    def _fire_project_jit(self, projector):
+        return _families.flat_segment_fire_projected(self, projector)
+
+    @property
+    def _merge_jit(self):
+        return _families.flat_segment_merge(self.leaves)
+
+    @property
+    def _gather_jit(self):
+        return _families.flat_gather(self.leaves)
+
+    @property
+    def _put_jit(self):
+        return _families.flat_put(self.leaves)
+
+    @property
+    def _reset_jit(self):
+        return _families.flat_reset(self.leaves)
 
 
 class SumAggregate(AggregateFunction):

@@ -325,3 +325,115 @@ def test_q5_revenue_on_card_equals_cpu_run():
         np.testing.assert_array_equal(on_card[c], on_cpu[c])
     np.testing.assert_array_equal(on_card["sum_price"].view(np.int32),
                                   on_cpu["sum_price"].view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["q5", "revenue"])
+def test_parallelism_one_on_card_equals_cpu_run(job):
+    """Q5 (device top-k 16) and Q5-revenue at parallelism 1, bench.py's
+    slot layout: the card's sink rows equal the CPU run's, in order and
+    bit for bit; the float Sum folds through the ordered fold."""
+    _need_card()
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def run(device):
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 1 << 14,
+            "parallelism.default": 1, "execution.device": device,
+            "state.window-layout": "slots"}))
+        sink = CollectSink()
+        src = BidSource(total_records=150_000, num_auctions=3_000,
+                        events_per_second_of_eventtime=20_000)
+        if job == "q5":
+            build_q5(env, src, device_top_k=16).sink_to(sink)
+        else:
+            (env.from_source(src,
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .key_by("auction")
+             .window(SlidingEventTimeWindows.of(10_000, 2_000))
+             .sum("price").sink_to(sink))
+        env.execute()
+        return [{k: np.asarray(v).tobytes() for k, v in r.items()}
+                for r in sink.rows()]
+
+    before = ordered_fold_planes.launches
+    on_card = run("cuda")
+    if job == "revenue":
+        assert ordered_fold_planes.launches > before
+    assert on_card and on_card == run("cpu")
+
+
+@pytest.mark.cuda
+def test_slot_table_under_eviction_on_card_equals_cpu():
+    """A float32 Sum table with NaN payloads and +-inf over a device
+    budget of 1024 slots: spills, reloads, device and hybrid fires on the
+    card equal the CPU's bit for bit."""
+    _need_card()
+    from flink_tpu_torch.state.slot_table import SlotTable
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+
+    rng = np.random.default_rng(21)
+    tables = {d: SlotTable(SumAggregate("v"), capacity=1024,
+                           max_device_slots=1024, device=d)
+              for d in ("cuda", "cpu")}
+    keys = np.arange(1, 401, dtype=np.int64)
+    for ns in (2, 4, 6, 8, 10, 2):
+        vals = _special_values(rng, 400, torch.float32).numpy()
+        for t in tables.values():
+            t.upsert(keys, np.full(400, ns, np.int64), (vals,))
+    card, cpu = tables["cuda"], tables["cpu"]
+    assert len(card.spill) > 0
+    assert sorted(card.spill.namespaces) == sorted(cpu.spill.namespaces)
+    resident = sorted(int(n) for n in card.index.namespaces)
+    gk, gm = card.build_slice_matrix(resident)
+    wk, wm = cpu.build_slice_matrix(resident)
+    np.testing.assert_array_equal(gk, wk)
+    got, want = card.fire(gm), cpu.fire(wm)
+    assert np.array_equal(got["sum_v"].view(np.int32),
+                          want["sum_v"].view(np.int32))
+    gk, got = card.fire_hybrid([2, 4, 6, 8, 10])
+    wk, want = cpu.fire_hybrid([2, 4, 6, 8, 10])
+    np.testing.assert_array_equal(gk, wk)
+    assert np.array_equal(got["sum_v"].view(np.int32),
+                          want["sum_v"].view(np.int32))
+    assert card.spill_counters() == cpu.spill_counters()
+
+
+@pytest.mark.cuda
+def test_merge_sum_past_27_slices_card_equals_cpu():
+    """The vector-lane and chunked orders of the slice merge past 27
+    slices on the card equal the CPU's."""
+    _need_card()
+    from flink_tpu_torch.ops.segment_ops import MERGE_FN
+
+    rng = np.random.default_rng(15)
+    for dtype in (torch.float32, torch.float64):
+        for k in (28, 31, 32, 33, 47, 64, 80, 129):
+            x = _special_values(rng, 4096 * k, dtype).view(4096, k)
+            want = MERGE_FN["sum"](x)
+            got = MERGE_FN["sum"](x.cuda())
+            assert torch.equal(_bits(got.cpu()), _bits(want)), (dtype, k)
+
+
+@pytest.mark.cuda
+def test_top_k_project_on_card_equals_cpu():
+    """The device top-k keeps lax.top_k's order on the card: ties lowest
+    index first, integer and float scores."""
+    _need_card()
+    from flink_tpu_torch.windowing.fire_projectors import TopKFireProjector
+
+    rng = np.random.default_rng(16)
+    n = 100_000
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    for score in (torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)),
+                  _special_values(rng, n, torch.float32)):
+        for desc in (True, False):
+            p = TopKFireProjector("s", k=16, descending=desc)
+            want = p.project({"s": score}, valid)[0]
+            got = p.project({"s": score.cuda()}, valid.cuda())[0]
+            assert torch.equal(got.cpu(), want), (score.dtype, desc)

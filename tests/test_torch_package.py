@@ -17,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "flink_tpu"}
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, flink_tpu_torch, flink_tpu_torch.cluster."
             "local_executor, flink_tpu_torch.benchmarks.nexmark, "
-            "flink_tpu_torch.convert\n"
+            "flink_tpu_torch.convert, flink_tpu_torch.windowing.windower, "
+            "flink_tpu_torch.state.slot_table\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)")
@@ -88,3 +89,25 @@ def test_job_on_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         env.execute()
 
+
+
+def test_parallelism_one_on_default_device_raises_without_a_card():
+    """The single-device engine takes execution.device too: its default,
+    the card, raises here; nothing continues on the CPU by itself."""
+    import torch
+
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.state.slot_table import SlotTable
+    from flink_tpu_torch.windowing.aggregates import CountAggregate
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default resolves")
+    env = StreamExecutionEnvironment(Configuration(
+        {"parallelism.default": 1}))
+    build_q5(env, BidSource(total_records=1000)).sink_to(CollectSink())
+    with pytest.raises(RuntimeError, match="cuda"):
+        env.execute()
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlotTable(CountAggregate())
