@@ -20,8 +20,8 @@ Phases, each fatal on failure (no result line is printed then):
    first 1<<20 bids (P=8, cap=1<<16, one slot per (auction, slice) as the
    engine stages them) for Count, float32 Sum over values with NaN
    payloads and +inf/-inf lanes (so that the CPU's NaN bits are checked),
-   and float32 Max/Min with NaN, +0.0 and -0.0 in shared slots: every
-   plane equal bit for bit; then fire the Sum plane (its NaN payloads
+   and float32 Max/Min with NaN payloads (signalling, quiet, negative),
+   +0.0 and -0.0 in shared slots: every plane equal bit for bit; then fire the Sum plane (its NaN payloads
    and infinities included) over windows of 5 slices, Q5-revenue's, on the
    card and on the CPU: every merged sum equal bit for bit. Then (4b)
    hold the ordered fold's grouping
@@ -33,8 +33,11 @@ Phases, each fatal on failure (no result line is printed then):
    passes); time each (wrapper call, device us per stage, the plain
    version, torch.sort(stable=True) alone on the int64 flat targets, and
    index_add_), beside the bytes bound and the dependent-add chain bound
-   at the card's top SM clock; and compare torch's own scatter_reduce_
-   amax/amin on the card with the CPU (recorded, not gated);
+   at the card's top SM clock; hold the fold's max/min modes on the card
+   against their plain version on the CPU over the NaN-payload lanes
+   (0 slots differing) and time them; and compare torch's own
+   scatter_reduce_ amax/amin on the card with the CPU (recorded, not
+   gated);
 5. run Nexmark Q5 through the public API at parallelism.default=8 (100k
    auctions, 100k events/s of event time, 10 s / 2 s HOP, top-k 16,
    micro-batches of 1<<20 records) and check every fired window's winners
@@ -58,12 +61,25 @@ Phases, each fatal on failure (no result line is printed then):
    single-device engine with a device budget of 1<<17 slots (far below
    its live rows, so slices spill to the host and reload), on the card
    and on the CPU: every fired batch equal bit for bit, and the spill
-   counters equal.
+   counters equal;
+10. run Q5 as phase 7 in the pane layout (state.window-layout=panes,
+    latency.pane-preagg on: the delta fire), 40M bids: every window's
+    winners against the oracle; print the ring's rows R and the pane
+    state's bytes on the card;
+11. run Q5-revenue in the pane layout: over the first 2M bids the card's
+    sink rows equal, in order and bit for bit, the same job through the
+    port on the CPU; over 10M bids every (window, auction) with bids fires
+    once and no other, and every sum is within 2 (n - 1) 2^-24 of the
+    stream-order oracle's relative to it (n: the row's bids; prices are
+    positive, so that bounds any two orders of the adds: pre-aggregation
+    folds a window's partial in record order, not slice by slice); then
+    time one call of the ordered fold at the run's [1, R*C] shape with the
+    lanes of its largest combined scatter, against its plain version.
 
 The launch counts of both kernels are set to 0 just before each of phases
-5 to 8 and read just after; each phase fails if a kernel of its path did
-not launch (the rank at parallelism 8; the ordered fold in phases 6 and
-8, Count being an integer fold).
+5 to 8, 10 and 11 and read just after; each phase fails if a kernel of its
+path did not launch (the rank at parallelism 8; the ordered fold in phases
+6, 8 and 11, Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -239,11 +255,17 @@ def phase_rank_timing(torch):
 
 
 def _with_specials(rng, vals):
+    """float32 values with NaN payloads (signalling, quiet, negative) and
+    signed zeros: the max/min cases."""
     vals = vals.copy()
     pick = rng.random(vals.shape)
-    vals[pick < 0.02] = np.nan
     vals[(pick >= 0.02) & (pick < 0.2)] = 0.0
     vals[(pick >= 0.2) & (pick < 0.4)] = -0.0
+    bits = vals.view(np.int32)
+    for j, b in enumerate((0x7FA00001, 0x7FC0000A, -0x003FFFFB,
+                           -0x005FFFF0)):
+        sel = (pick >= 0.005 * j) & (pick < 0.005 * (j + 1))
+        bits[sel] = b + rng.integers(0, 1 << 12, int(sel.sum()))
     return vals
 
 
@@ -532,7 +554,7 @@ def phase_fold(torch, P, cap, shards, slots, vals, special):
     sp_s, sp_v = _received(torch, P, sp_dst, sp_slots, sp_vals, sp_w)
     sp_t = (sp_s.to(torch.int64) + torch.arange(
         P, device="cuda", dtype=torch.int64)[:, None] * cap).reshape(-1)
-    torch_diff, port_diff = {}, {}
+    torch_diff, port_diff, minmax_ms = {}, {}, {}
     for reduce, ident in (("amax", -np.inf), ("amin", np.inf)):
         acc = torch.full((P, cap), float(ident))
         on_card = acc.cuda().view(-1).scatter_reduce_(
@@ -548,9 +570,13 @@ def phase_fold(torch, P, cap, shards, slots, vals, special):
         plain = ordered_fold_planes_plain(acc.clone(), sp_s.cpu(),
                                           v_r.cpu(), r)
         port_diff[r] = int((_bits(card.cpu()) != _bits(plain)).sum())
+        work = acc.cuda()
+        minmax_ms[r] = cuda_ms(
+            lambda: ordered_fold_planes(work, sp_s, v_r, r), 20)
     if any(port_diff.values()):
         raise AssertionError(f"ordered fold max/min card != plain: "
                              f"{port_diff}")
+    nan_lanes = int(torch.isnan(sp_v).sum())
     q5 = cases["q5"]
     out = {"cases": cases, "sm_clock_max_hz": clock,
            "fadd_cycles_assumed": FADD_CYCLES,
@@ -558,15 +584,18 @@ def phase_fold(torch, P, cap, shards, slots, vals, special):
            "bound_ms": q5["bound_ms"], "bound_by": q5["bound_by"],
            "max_abs_err": q5["max_abs_err"],
            "torch_scatter_reduce_card_vs_cpu_slots_differing": torch_diff,
-           "port_max_min_card_vs_plain_slots_differing": port_diff}
-    print(f"phase 4b: max/min card == plain ({port_diff}); torch's own "
+           "port_max_min_card_vs_plain_slots_differing": port_diff,
+           "max_min_ms": minmax_ms, "max_min_nan_lanes": nan_lanes}
+    print(f"phase 4b: max/min over {sp_v.numel()} lanes ({nan_lanes} NaN "
+          f"payloads) card == plain ({port_diff}); {minmax_ms} ms a call "
+          f"(sum at the same shapes {q5['ms']:.4f} ms); torch's own "
           f"scatter_reduce_ card vs CPU differs in {torch_diff} slots "
           "(recorded, not gated)")
     print("fold " + json.dumps(out))
     return out
 
 
-def _run_job(torch, build, device, parallelism=8):
+def _run_job(torch, build, device, parallelism=8, layout="slots"):
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.q5_profile import P1_SETTINGS
     from flink_tpu_torch.connectors.sinks import CollectSink
@@ -576,6 +605,7 @@ def _run_job(torch, build, device, parallelism=8):
         "execution.micro-batch.size": 1 << 20,
         "execution.device": device,
         **(P1_SETTINGS if parallelism == 1 else {}),
+        **({"state.window-layout": layout} if parallelism == 1 else {}),
     }))
     sink = CollectSink()
     build(env).sink_to(sink)
@@ -617,15 +647,52 @@ def q5_oracle(source_cls, total, num_auctions, rate, size_ms, slide_ms):
     return out
 
 
-def phase_q5(torch, records: int, parallelism: int = 8):
+class PaneTables:
+    """Records the pane tables a run opens, and the lanes of the largest
+    scatter each folds (flat index and values, on the host)."""
+
+    def __init__(self):
+        from flink_tpu_torch.state.pane_table import PaneTable
+
+        self.cls, self.tables, self.largest = PaneTable, [], None
+        self._init, self._scatter = PaneTable.__init__, PaneTable.scatter_flat
+        rec = self
+
+        def init(table, *a, **k):
+            rec._init(table, *a, **k)
+            rec.tables.append(table)
+
+        def scatter(table, flat, values, valued=False):
+            if rec.largest is None or len(flat) > len(rec.largest[0]):
+                rec.largest = (np.asarray(flat).copy(),
+                               tuple(np.asarray(v).copy() for v in values))
+            return rec._scatter(table, flat, values, valued)
+
+        PaneTable.__init__, PaneTable.scatter_flat = init, scatter
+
+    def close(self):
+        self.cls.__init__, self.cls.scatter_flat = self._init, self._scatter
+
+    def state(self) -> dict:
+        t = self.tables[-1]
+        return {"ring_rows": t.R, "capacity": t.capacity,
+                "used_cols": t.used_cols, "state_bytes": t.device_bytes}
+
+
+def phase_q5(torch, records: int, parallelism: int = 8, layout="slots"):
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
 
-    phase = 5 if parallelism == 8 else 7
-    sink, elapsed, counts, lat = _run_job(torch, lambda env: build_q5(
-        env, BidSource(total_records=records, num_auctions=AUCTIONS,
-                       events_per_second_of_eventtime=RATE),
-        size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K), "cuda",
-        parallelism)
+    phase = 5 if parallelism == 8 else 7 if layout == "slots" else 10
+    panes = PaneTables() if layout == "panes" else None
+    try:
+        sink, elapsed, counts, lat = _run_job(torch, lambda env: build_q5(
+            env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                           events_per_second_of_eventtime=RATE),
+            size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K), "cuda",
+            parallelism, layout)
+    finally:
+        if panes is not None:
+            panes.close()
     batches = -(-records // (1 << 20))
     if parallelism > 1 and counts["exchange_rank"] <= 0:
         raise AssertionError("Q5 ran without launching the rank kernel")
@@ -648,17 +715,21 @@ def phase_q5(torch, records: int, parallelism: int = 8):
                                  f"({best}, {sorted(winners)[:5]}...)")
     # windows where the top-k chose among more tied winners than k
     over_k = sum(len(winners) > TOP_K for _, winners in want.values())
-    q5 = {"parallelism": parallelism, "records": records,
+    q5 = {"parallelism": parallelism, "layout": layout, "records": records,
           "elapsed_s": elapsed, "events_per_s": records / elapsed,
           "windows": len(got), "windows_with_more_ties_than_k": over_k,
           "batches": batches, "launches": counts,
           "fire_latency_ms": lat, "oracle_s": oracle_s}
-    print(f"phase {phase}: Q5 P={parallelism} {records} records in "
-          f"{elapsed:.3f} s = {records / elapsed:.0f} events/s; {len(got)} "
-          f"windows match the oracle ({over_k} with more tied winners than "
-          f"k={TOP_K}); launches {counts} over {batches} batches; fire "
-          f"latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
-    print(f"Q5 P={parallelism} " + json.dumps(q5))
+    if panes is not None:
+        q5["pane_state"] = panes.state()
+    print(f"phase {phase}: Q5 P={parallelism} ({layout}) {records} records "
+          f"in {elapsed:.3f} s = {records / elapsed:.0f} events/s; "
+          f"{len(got)} windows match the oracle ({over_k} with more tied "
+          f"winners than k={TOP_K}); launches {counts} over {batches} "
+          f"batches; fire latency p50 {lat.get('p50')} ms p99 "
+          f"{lat.get('p99')} ms" + (f"; pane state {q5['pane_state']}"
+                                    if panes is not None else ""))
+    print(f"Q5 P={parallelism} {layout} " + json.dumps(q5))
     return q5
 
 
@@ -794,6 +865,122 @@ def phase_fold_p1(torch):
     return out
 
 
+def _revenue_rows(torch, records, device):
+    """The sink rows of Q5-revenue in the pane layout on ``device``."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    sink, elapsed, counts, _ = _run_job(torch, lambda env: build_revenue(
+        env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                       events_per_second_of_eventtime=RATE)), device, 1,
+        "panes")
+    return sink, elapsed, counts
+
+
+def phase_revenue_panes(torch, records: int, equal_records: int = 2_000_000):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.stateplane.fold import (
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
+    )
+
+    # (a) the card equals the CPU, rows in order, bit for bit
+    card, _, _ = _revenue_rows(torch, equal_records, "cuda")
+    cpu, cpu_s, _ = _revenue_rows(torch, equal_records, "cpu")
+    card_rows, cpu_rows = card.result(), cpu.result()
+    if sorted(card_rows.names()) != sorted(cpu_rows.names()):
+        raise AssertionError("Q5-revenue panes: card and CPU columns differ")
+    n_equal = len(cpu_rows)
+    for name in cpu_rows.names():
+        g, w = np.asarray(card_rows[name]), np.asarray(cpu_rows[name])
+        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            raise AssertionError(f"Q5-revenue panes: column {name} of the "
+                                 f"card's {len(g)} rows != the CPU's "
+                                 f"{len(w)}")
+
+    # (b) the main run: rows against the oracle
+    panes = PaneTables()
+    try:
+        sink, elapsed, counts, lat = _run_job(torch, lambda env: build_revenue(
+            env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                           events_per_second_of_eventtime=RATE)), "cuda", 1,
+            "panes")
+    finally:
+        panes.close()
+    if counts["ordered_fold"] <= 0:
+        raise AssertionError("Q5-revenue panes ran without the ordered fold")
+    res = sink.result()
+    want, cnt = revenue_oracle(BidSource, records, AUCTIONS, RATE, SIZE,
+                               SLIDE)
+    e = np.asarray(res["window_end"]) // SLIDE - 1
+    a = np.asarray(res["auction"]).astype(np.int64)
+    s = np.asarray(res["sum_price"], dtype=np.float32)
+    pair = e * AUCTIONS + a
+    present = cnt > 0
+    if e.min() < 0 or e.max() >= len(want) or \
+            len(np.unique(pair)) != len(pair) or \
+            len(pair) != int(present.sum()) or \
+            not present.reshape(-1)[pair].all():
+        raise AssertionError(f"Q5-revenue panes fired {len(pair)} rows, the "
+                             f"oracle's windows hold {int(present.sum())}")
+    w, n = want[e, a].astype(np.float64), cnt[e, a]
+    if (w <= 0).any():
+        raise AssertionError("Q5-revenue panes: a non-positive oracle sum")
+    rel = np.abs(s.astype(np.float64) - w) / w
+    bound = 2.0 * np.maximum(n - 1, 0) * 2.0 ** -24
+    over = int((rel > bound).sum())
+    if over:
+        raise AssertionError(f"Q5-revenue panes: {over} sums beyond "
+                             "2 (n - 1) 2^-24 of the oracle's")
+    differ = int((want[e, a].view(np.int32) != s.view(np.int32)).sum())
+
+    # (d) one timed fold at the run's [1, R*C] shape
+    table = panes.tables[-1]
+    flat, values = panes.largest
+    R, C = table.R, table.capacity
+    slots = torch.from_numpy(flat.astype(np.int32)).cuda()[None]
+    vals = torch.from_numpy(values[0].astype(np.float32)).cuda()[None]
+    acc = torch.zeros(1, R * C, device="cuda")
+    got = ordered_fold_planes(acc.clone(), slots, vals, "sum")
+    ref = ordered_fold_planes_plain(acc.cpu(), slots.cpu(), vals.cpu(),
+                                    "sum")
+    if not torch.equal(_bits(got.cpu()), _bits(ref)):
+        raise AssertionError("ordered fold at [1, R*C] != its plain version")
+    del got, ref
+    real = int((slots != 0).sum())
+    touched = int(torch.unique(slots[slots != 0]).numel())
+    nbytes = 4 * slots.numel() + 4 * real + 8 * touched
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    work = acc.clone()
+    ms = cuda_ms(lambda: ordered_fold_planes(work, slots, vals, "sum"), 20)
+    plain_ms = cuda_ms(lambda: ordered_fold_planes_plain(work, slots, vals,
+                                                         "sum"), 20)
+    fold = {"planes": 1, "width": R * C, "ring_rows": R, "capacity": C,
+            "lanes": slots.numel(), "real_lanes": real, "targets": touched,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "max_abs_err": 0.0}
+    del work, acc
+    out = {"parallelism": 1, "layout": "panes", "records": records,
+           "elapsed_s": elapsed, "events_per_s": records / elapsed,
+           "rows": len(s), "rows_bitwise_differing_from_slot_order": differ,
+           "max_rel_err": float(rel.max()), "launches": counts,
+           "fire_latency_ms": lat, "pane_state": panes.state(),
+           "card_equals_cpu_rows": n_equal, "cpu_s": cpu_s,
+           "fold_at_ring_shape": fold}
+    print(f"phase 11: Q5-revenue P=1 (panes) — first {equal_records} bids: "
+          f"all {n_equal} rows equal on the card and the CPU in order, bit "
+          f"for bit; {records} bids in {elapsed:.3f} s = "
+          f"{records / elapsed:.0f} events/s, {len(s)} rows fired as the "
+          f"oracle's, every sum within 2 (n - 1) 2^-24 of it (max rel "
+          f"{rel.max():.3g}; {differ} differ from the slot-order sum in "
+          f"bits); launches {counts}; fire latency p50 {lat.get('p50')} ms "
+          f"p99 {lat.get('p99')} ms; pane state {panes.state()}; ordered "
+          f"fold at [1, {R}*{C}] with {slots.numel()} lanes ({touched} "
+          f"targets): {ms:.4f} ms, plain {plain_ms:.4f} ms, bytes bound "
+          f"{bound_ms:.5f} ms")
+    print("revenue P=1 panes " + json.dumps(out))
+    return out
+
+
 def _spill_run(torch, device, bids, budget):
     """Fired batches and spill counters of a float32 Sum over ``bids`` on
     the single-device engine with a device budget of ``budget`` slots, and
@@ -906,7 +1093,9 @@ def main() -> int:
     rev_p1 = phase_revenue(torch, args.revenue_records, parallelism=1)
     phase_fold_p1(torch)
     phase_spill(torch)
-    runs = (q5, rev, q5_p1, rev_p1)
+    q5_panes = phase_q5(torch, args.records, parallelism=1, layout="panes")
+    rev_panes = phase_revenue_panes(torch, args.revenue_records)
+    runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes)
 
     kernels = [{
         "name": "exchange_rank",

@@ -2,7 +2,7 @@
 the card.
 
     python3 -m flink_tpu_torch.benchmarks.q5_profile [--records N]
-        [--parallelism 8|1]
+        [--parallelism 8|1] [--layout slots|panes]
 
 Runs the job chip_smoke.py runs (100k auctions, 100k events/s of event
 time, 10 s / 2 s HOP, top-k 16, micro-batches of 1<<20) twice: once plain
@@ -13,7 +13,12 @@ fence waits, fires, frees. At parallelism 1 (the single-device slot
 table, with bench.py's settings: capacity 1<<22, the slot layout,
 dispatch-ahead 8): source, slot lookup, the scatter's padding and
 dispatch, H2D copies, fence waits, the fire's slot matrix, the fire
-dispatch and harvest, frees. Prints one JSON line: wall time, events/s
+dispatch and harvest, frees. With ``--layout panes`` (parallelism 1, the
+pane layout with pre-aggregation, the other layout bench.py measures):
+source, the fused native ingest, the window-partial lanes
+(``window_flat``), the combined scatter, the partial rebuilds
+(``rebuild_window_partials``), H2D copies, fence waits, the fire dispatch
+and harvest, frees. Prints one JSON line: wall time, events/s
 and fire latency of the plain run, host seconds per stage and device
 kernel time by kernel of the profiled run, and the device's busy and idle
 share of that run's wall time.
@@ -47,7 +52,7 @@ P1_SETTINGS = {
 }
 
 
-def run_q5(records: int, parallelism: int = 8):
+def run_q5(records: int, parallelism: int = 8, layout: str = "slots"):
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
@@ -57,6 +62,7 @@ def run_q5(records: int, parallelism: int = 8):
         "execution.micro-batch.size": 1 << 20,
         "execution.device": "cuda",
         **(P1_SETTINGS if parallelism == 1 else {}),
+        **({"state.window-layout": layout} if parallelism == 1 else {}),
     }))
     sink = CollectSink()
     build_q5(env, BidSource(total_records=records, num_auctions=100_000,
@@ -126,29 +132,61 @@ def _single_device_patches(acc):
     ], lambda: None
 
 
+def _pane_patches(acc):
+    """(object, attribute, stage) wrapped at parallelism 1 in the pane
+    layout, and the undo."""
+    from flink_tpu_torch.benchmarks import nexmark
+    from flink_tpu_torch.runtime import pending
+    from flink_tpu_torch.state import pane_table, slot_table
+    from flink_tpu_torch.windowing import windower
+
+    W, T = windower.PaneWindower, pane_table.PaneTable
+    return [
+        (nexmark.BidSource, "poll_batch", "source.poll"),
+        (W, "process_batch", "engine.process_batch (all ingest)"),
+        (slot_table.NativeSlotIndex, "pane_ingest",
+         "ingest.fused_native_ingest"),
+        (T, "window_flat", "ingest.window_flat (partial lanes, host)"),
+        (T, "scatter_combined", "ingest.scatter_combined (concat + dispatch)"),
+        (T, "rebuild_window_partials", "ingest.rebuild_window_partials"),
+        (T, "_to_device", "h2d copies (ingest + fire + free)"),
+        (pending.Fence, "block_until_ready",
+         "fence waits (dispatch bound + fire harvest)"),
+        (W, "on_watermark", "engine.on_watermark (fires + frees)"),
+        (T, "fire_partial_async", "fire.dispatch (delta)"),
+        (T, "fire_window_async", "fire.dispatch (full window)"),
+        (pending.PendingFire, "harvest", "fire.harvest"),
+        (T, "free_slices", "fire.free_slices"),
+    ], lambda: None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000)
     ap.add_argument("--parallelism", type=int, default=8,
                     help="8: the mesh engine; 1: the single-device engine")
+    ap.add_argument("--layout", choices=("slots", "panes"), default="slots",
+                    help="state.window-layout at parallelism 1")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    wall, result = run_q5(args.records, args.parallelism)
+    layout = args.layout if args.parallelism == 1 else None
+    wall, result = run_q5(args.records, args.parallelism, layout)
     plain = {"wall_s": wall, "events_per_s": args.records / wall,
              "fire_latency_ms": result.metrics.get("window_fire_latency_ms")}
 
     acc = defaultdict(float)
-    patches, undo = (_single_device_patches if args.parallelism == 1
-                     else _mesh_patches)(acc)
+    patches, undo = (_mesh_patches if layout is None
+                     else _pane_patches if layout == "panes"
+                     else _single_device_patches)(acc)
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, key in patches:
         setattr(obj, name, _timed(acc, key, getattr(obj, name)))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            pwall, _ = run_q5(args.records, args.parallelism)
+            pwall, _ = run_q5(args.records, args.parallelism, layout)
     finally:
         undo()
         for obj, name, fn in saved:
@@ -172,6 +210,7 @@ def main() -> None:
         "card": torch.cuda.get_device_name(0),
         "records": args.records,
         "parallelism": args.parallelism,
+        "layout": layout,
         "plain_run": plain,
         "profiled_wall_s": pwall,
         "host_s": dict(sorted(acc.items())),

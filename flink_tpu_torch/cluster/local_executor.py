@@ -6,7 +6,9 @@ micro-batches, each batch is pushed depth-first through the operator DAG,
 watermarks are min-merged per operator input. Window fires dispatched
 asynchronously are harvested once their results land; until then the
 operator's output watermark is held back, so a watermark never overtakes
-the results it covers.
+the results it covers. With ``latency.fire-deadline-ms`` a source batch is
+split against the budget at the measured per-record rate, with watermarks
+and harvests between the splits (``_emit_deadline_split``).
 
 Not in this slice: source pump threads (sources are polled inline),
 checkpoints and restore, control requests, autoscale, metrics registry,
@@ -18,12 +20,15 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from flink_tpu_torch.core.config import (
     BatchOptions,
     Configuration,
     CoreOptions,
     DeploymentOptions,
     ExecutionOptions,
+    LatencyOptions,
     StateOptions,
 )
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
@@ -95,7 +100,8 @@ class LocalExecutor:
                             "spill_dir": cfg.get(StateOptions.SPILL_DIR),
                             "spill_host_max_bytes": cfg.get(
                                 StateOptions.SPILL_HOST_MAX_BYTES),
-                        }))
+                        },
+                        pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG)))
             for t in graph.nodes:
                 n = nodes[t.uid]
                 for child_t in graph.children(t):
@@ -107,6 +113,10 @@ class LocalExecutor:
                 t.source.open(0, 1)
                 generators[t.uid] = t.watermark_strategy.create()
 
+            #: fire-deadline splitting (latency.fire-deadline-ms), sized by
+            #: an EMA of the records/s through the dataflow
+            self._fire_deadline_ms = cfg.get(LatencyOptions.FIRE_DEADLINE_MS)
+            self._deadline_rate = 0.0
             t0 = time.perf_counter()
             total_records = 0
             active = {t.uid for t, _ in sources}
@@ -126,9 +136,12 @@ class LocalExecutor:
                     batch = t.watermark_strategy.assign_timestamps(batch)
                     wm = generators[t.uid].on_batch(batch)
                     total_records += len(batch)
-                    self._emit_batch(node, batch)
-                    if wm is not None:
-                        self._emit_watermark(node, wm)
+                    if self._fire_deadline_ms > 0:
+                        self._emit_deadline_split(node, batch, nodes, wm)
+                    else:
+                        self._emit_batch(node, batch)
+                        if wm is not None:
+                            self._emit_watermark(node, wm)
             self._drain_pending(nodes, wait=True)
             for t in graph.nodes:
                 node = nodes[t.uid]
@@ -168,6 +181,53 @@ class LocalExecutor:
                 "count": len(fire_latencies),
             }
         return JobExecutionResult(job_name, metrics)
+
+    # --------------------------------------------- fire-deadline splitting
+
+    def _deadline_observe(self, n: int, dt: float) -> None:
+        """Fold one emitted chunk into the per-record rate EMA."""
+        if dt <= 1e-6 or n <= 0:
+            return
+        inst = n / dt
+        self._deadline_rate = inst if self._deadline_rate <= 0 else (
+            0.7 * self._deadline_rate + 0.3 * inst)
+
+    def _emit_deadline_split(self, node: _Node, batch, nodes,
+                             wm: Optional[int]) -> None:
+        """Split one source batch so each push fits latency.fire-deadline-ms
+        at the measured rate, advancing the watermark between the splits
+        and harvesting landed fires. After chunk i the watermark is
+        ``min(final, min timestamp of the remaining records - 1)``: no
+        remaining record is late against it and no window fires before
+        its last record arrived, so the rows and their order are the
+        unsplit run's."""
+        n = len(batch)
+        rate = self._deadline_rate
+        chunk = n if rate <= 0 else max(
+            int(rate * self._fire_deadline_ms / 1000.0), 256)
+        if chunk >= n:
+            t0 = time.perf_counter()
+            self._emit_batch(node, batch)
+            self._deadline_observe(n, time.perf_counter() - t0)
+            if wm is not None:
+                self._emit_watermark(node, wm)
+            return
+        suffix_min = None
+        if wm is not None and batch.has_timestamps:
+            ts = np.asarray(batch.timestamps)
+            suffix_min = np.minimum.accumulate(ts[::-1])[::-1]
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            t0 = time.perf_counter()
+            self._emit_batch(node, batch.slice(a, b))
+            self._deadline_observe(b - a, time.perf_counter() - t0)
+            if b < n:
+                if suffix_min is not None:
+                    self._emit_watermark(
+                        node, min(int(wm), int(suffix_min[b]) - 1))
+                self._drain_pending(nodes)
+        if wm is not None:
+            self._emit_watermark(node, wm)
 
     # ------------------------------------------------------------- plumbing
 

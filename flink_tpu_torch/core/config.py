@@ -112,8 +112,12 @@ class StateOptions:
     WINDOW_LAYOUT = ConfigOption(
         "state.window-layout", default="auto", type=str,
         description="Keyed window state layout at parallelism 1: 'slots' "
-        "((key, slice) slot table — the general engine), 'panes' (not "
-        "ported yet), or 'auto' (resolves to 'slots').")
+        "((key, slice) slot table — the general engine, with the spill "
+        "tier), 'panes' (ring of slices x stable key columns, dense on the "
+        "device: fires are device reductions with no per-fire slot matrix; "
+        "aligned windows without a spill tier, "
+        "flink_tpu_torch/state/pane_table.py), or 'auto' (resolves to "
+        "'slots', as in the reference).")
     SPILL_DIR = ConfigOption(
         "state.spill.dir", default=None, type=str,
         description="Filesystem tier for spilled state (a local path or "
@@ -129,3 +133,25 @@ class StateOptions:
         "accumulators on execution.device (the card), with the spill "
         "tier beyond it. The reference's placement backends (host-heap, "
         "third-party placements) are not ported.")
+
+
+class LatencyOptions:
+    """The fire-latency tier: a watermark fire costs a bounded delta, not a
+    full-window harvest, and never queues behind a whole ingest batch."""
+
+    FIRE_DEADLINE_MS = ConfigOption(
+        "latency.fire-deadline-ms", default=0, type=int,
+        description="Fire-latency budget in wall-clock ms. When > 0 the "
+        "task loop splits each ingest micro-batch against this budget "
+        "using the measured per-record rate, advancing the watermark and "
+        "harvesting landed async fires between the splits (the output is "
+        "the unsplit run's). 0 (default) = whole batches.")
+    PANE_PREAGG = ConfigOption(
+        "latency.pane-preagg", default=True, type=bool,
+        description="Incremental pane pre-aggregation for "
+        "state.window-layout=panes: per-window running partials combined "
+        "at absorb, so a fire gathers ONE partial ring row instead of "
+        "merging the window's k slice rows (the full-window harvest, "
+        "which stays the fallback and is the path for false). Float sums "
+        "fold in record order rather than per-slice order, so float32 "
+        "results can differ from the full harvest in the last ulp.")

@@ -10,8 +10,12 @@
 //     acc[p, s] = op(... op(op(acc[p, s], v[p, i1]), v[p, i2]) ..., v[p, ik])
 // over the lanes i1 < i2 < ... < ik of plane p whose slot is s.
 //
-// op: 0 sum; 1 max and 2 min with XLA's semantics — NaN propagates (written
-// as the canonical quiet NaN) and -0.0 < +0.0. A sum that comes out NaN gets
+// op: 0 sum; 1 max and 2 min with XLA's x86 semantics — -0.0 < +0.0, and a
+// NaN propagates with its bits: of a slot's sequence (its starting value,
+// then its lanes in order) max keeps the first negative NaN, else the last
+// NaN; min the first positive NaN, else the last NaN. That selection is
+// associative, so the fold applies it as it goes (`combine`), at no extra
+// pass. A sum that comes out NaN gets
 // the CPU's NaN bits, which the card's FADD (canonical NaN) does not give:
 // the run's LAST NaN lane, quieted; else the starting accumulator, quieted,
 // if it was NaN; else the x86 default NaN 0xffc00000 (float64
@@ -146,12 +150,6 @@ __device__ __forceinline__ long long order_key(double x) {
   const long long b = __double_as_longlong(x);
   return b ^ ((b >> 63) & 0x7fffffffffffffffll);
 }
-__device__ __forceinline__ float canonical_nan(float) {
-  return __int_as_float(0x7fc00000);
-}
-__device__ __forceinline__ double canonical_nan(double) {
-  return __longlong_as_double(0x7ff8000000000000ll);
-}
 __device__ __forceinline__ float quieted(float x) {
   return __int_as_float(__float_as_int(x) | 0x00400000);
 }
@@ -165,10 +163,16 @@ __device__ __forceinline__ double default_nan(double) {
   return __longlong_as_double((long long)0xfff8000000000000ull);
 }
 
+// Max/min keep x86's NaN (see the header): a NaN accumulator whose sign
+// ranks first (negative for max, positive for min) stays; else a NaN lane
+// replaces the accumulator; else a NaN accumulator stays.
 template <int kOp, typename T>
 __device__ __forceinline__ T combine(T a, T x) {
   if (kOp == 0) return a + x;
-  if (a != a || x != x) return canonical_nan(a);
+  if (a != a || x != x) {
+    const bool first = a != a && (order_key(a) < 0) == (kOp == 1);
+    return !first && x != x ? x : a;
+  }
   const bool take = kOp == 1 ? order_key(x) > order_key(a)
                              : order_key(x) < order_key(a);
   return take ? x : a;

@@ -167,6 +167,12 @@ def _declare_slotmap(lib) -> None:
     lib.sm_lookup.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
     lib.sm_group_rows.restype = i64
     lib.sm_group_rows.argtypes = [P(i64), i64, P(i64), P(i32)]
+    lib.sm_pane_ingest.restype = i32
+    lib.sm_pane_ingest.argtypes = [vp, i64, P(i64), P(i64), i64, i64, i64,
+                                   P(i32), P(u8), P(i32), P(i64), P(i64),
+                                   P(i64)]
+    lib.sm_flat_fuse.restype = None
+    lib.sm_flat_fuse.argtypes = [i64, P(i32), P(i32), P(i64), i64, P(i32)]
 
 
 def _declare_datagen(lib) -> None:

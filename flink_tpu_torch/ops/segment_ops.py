@@ -12,10 +12,12 @@ integer folds are exact in any order. A float leaf folds through
 ``stateplane/fold.py`` (:func:`scatter_fold`), in stream order on the card
 as on the CPU, with the reference's NaN bits for sums and its NaN and
 signed-zero rules for max/min. A merge across the slice axis (the last
-dim of a gathered ``[..., k]`` slot matrix) is, for sum, a left fold
-``((0 + x0) + x1) + ...`` — the order XLA's CPU reduce takes, which
-``torch.sum`` does not keep — and for float max/min a reduction over
-order keys.
+dim of a gathered ``[..., k]`` slot matrix, :data:`MERGE_FN`; or the
+leading dim of a pane ring's ``[k, C]`` rows, :data:`MERGE_ROWS_FN` and
+:data:`FOLD_ROWS_FN`) is, for sum, the order XLA's CPU reduce takes — a
+left fold ``((0 + x0) + x1) + ...`` for few slices, vector lanes and
+chunks for more, none of which ``torch.sum`` keeps — and for float
+max/min a reduction over order keys with x86's NaN rule.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from flink_tpu_torch.stateplane.fold import (
     from_order_key,
     nan_bits,
+    nan_priority,
     order_key,
     ordered_fold_planes,
 )
@@ -129,41 +132,49 @@ def _lanes(x: torch.Tensor, lanes: int, width: int) -> torch.Tensor:
     return acc
 
 
-def _merge_sum(x: torch.Tensor) -> torch.Tensor:
+def _lane_shape(x: torch.Tensor, k: int) -> Tuple[int, int]:
+    """(lanes, vector width) of XLA's vectorised reduce of k <= 32 slices
+    on a 256-bit host: 8 lanes, in one float32 vector or two float64
+    vectors; float64 at k = 32: 16 lanes in four vectors."""
+    width = 32 // x.element_size()
+    return (16 if (width, k) == (4, 32) else 8), width
+
+
+def _merge_sum(x: torch.Tensor, lanes_from: int = 28) -> torch.Tensor:
     """The order in which XLA's CPU reduce adds the slice axis (the last
     dim) of a fire. The reference's fire takes it from its CPU backend,
     whose loop follows the host's vector width (256 bits: 8 float32 or 4
     float64 lanes a vector), so the port emulates the order that backend
     takes on an AVX host, measured by ``tests/reference_fire_order.py``
-    over float32 and float64 Sum and float32 Avg, in the single-device
-    and the mesh fire:
+    over float32 and float64 Sum and float32 Avg, in the single-device,
+    the mesh and the pane fire:
 
     - k = 1: the slice as it is (a signalling NaN stays signalling, -0.0
       stays -0.0);
-    - 2 <= k <= 27: left to right from 0, ``((0 + x0) + x1) + ...``;
-    - 28 <= k <= 32 (:func:`_lanes`): 8 lanes in one float32 vector of 8,
-      or in two float64 vectors of 4; float64 at k = 32: 16 lanes in four
-      vectors of 4;
+    - 2 <= k < ``lanes_from``: left to right from 0, ``((0 + x0) + x1) +
+      ...``; ``lanes_from`` is 28 in the slot fires (a reduce of the last
+      axis), 25 in the pane fire (a reduce of the leading axis, with the
+      columns as the vector axis), and 33 — a left fold to 32 — in the pane
+      table's window-partial fold;
+    - ``lanes_from`` <= k <= 32 (:func:`_lanes`, :func:`_lane_shape`);
     - k > 32: the slices cut into chunks (:func:`_chunk_sizes`), each
       chunk added left to right from 0, then the chunk sums left to right
       from 0.
 
     That is the reference's sum bit for bit at every k measured, 1 to 300
-    (ROADMAP Queue C item 7). A NaN sum takes the NaN of the add where it
-    first appeared, the earlier operand's when both are NaN (where one add
-    meets two NaNs the reference's compiled loops keep either: Queue C
-    item 6). Integer sums are exact in any order."""
+    (ROADMAP Queue C items 7 and 9). A NaN sum takes the NaN of the add
+    where it first appeared, the earlier operand's when both are NaN
+    (where one add meets two NaNs the reference's compiled loops keep
+    either: Queue C item 6). Integer sums are exact in any order."""
     k = x.shape[-1]
     if k == 1:
         return x[..., 0].clone()
     if not x.dtype.is_floating_point:
         return x.sum(dim=-1, dtype=x.dtype)
-    if k <= 27:
+    if k < lanes_from and k <= 32:
         return _fold_rows(x.unsqueeze(-1))[..., 0]
     if k <= 32:
-        width = 32 // x.element_size()
-        lanes = 16 if (width, k) == (4, 32) else 8
-        return _lanes(x, lanes, width)
+        return _lanes(x, *_lane_shape(x, k))
     # chunk j's slices as row j of an [n, 32] index, padded with column
     # k, a +0.0: a sum from +0.0 is never -0.0, so the pads leave it as
     # it is, NaN bits included
@@ -188,20 +199,101 @@ def _chunk_sizes(k: int) -> list:
 
 
 def _merge_extreme(x: torch.Tensor, reduce: str) -> torch.Tensor:
+    """Max/min over the last dim as XLA's x86 reduce gives them: -0.0
+    below +0.0, and where the slices hold a NaN its bits — for max the
+    first negative NaN, else the last NaN; for min the first positive NaN,
+    else the last NaN (the ingest fold's rule, ``nan_priority``), the
+    slices met left to right (the fires meet 23 to 32 slices in another
+    order: :func:`_extreme_order`)."""
+    red = torch.amax if reduce == "max" else torch.amin
     if not x.dtype.is_floating_point:
-        return torch.amax(x, dim=-1) if reduce == "max" \
-            else torch.amin(x, dim=-1)
-    k = order_key(x)
-    k = torch.amax(k, dim=-1) if reduce == "max" else torch.amin(k, dim=-1)
-    return from_order_key(k, x.dtype).masked_fill(
-        torch.isnan(x).any(dim=-1), float("nan"))
+        return red(x, dim=-1)
+    out = from_order_key(red(order_key(x), dim=-1), x.dtype)
+    nan = torch.isnan(x)
+    if not nan.any():
+        return out
+    k = x.shape[-1]
+    pos = torch.arange(k, device=x.device)
+    first = torch.where(nan_priority(x, reduce), pos, k).amin(dim=-1)
+    last = torch.where(nan, pos, -1).amax(dim=-1)
+    keep = torch.where(first < k, first, last)
+    picked = x.gather(-1, keep.clamp(min=0).unsqueeze(-1)).squeeze(-1)
+    return torch.where(keep >= 0, picked, out)
 
 
-#: merge across the slice axis (the last dim) of gathered partials
+def _extreme_order(k: int, width: int, lanes_from: int):
+    """The order in which a fire's max/min — XLA's CPU reduce of k slices —
+    meets them, where it is not 0, 1, ..., k - 1 (None): from
+    ``lanes_from`` to 32 slices the reduce runs in vector lanes (ROADMAP
+    Queue C items 8 and 9, measured by ``tests/reference_fire_order.py``).
+    ``lanes_from`` is 25 in the slot layout's fires (a reduce of the last
+    axis) and 23 in the pane fire (the leading axis of ``[k, C]``);
+    ``width``: lanes of one 256-bit vector, 8 for float32, 4 for float64.
+    Lane i of the accumulators takes slices i, i + lanes, ...; the x86 NaN
+    rule is associative, so the reduce keeps the NaN that the sequential
+    rule keeps over the slices in the returned order."""
+    if not lanes_from <= k <= 32:
+        return None
+    if k == 23:
+        # the pane fire: 4 lanes over slices 0-15, then 16-19 as one
+        # vector, then 20-22 one by one
+        pos = [0, 1, 2, 3] if width == 8 else [0, 2, 1, 3]
+        return [r for p in pos for r in range(p, 16, 4)] + \
+            [16 + p for p in pos] + [20, 21, 22]
+    lanes = 16 if (width, k) == (4, 32) else 8
+    m = k // lanes * lanes
+    if width == 8:   # one vector, halved once, then in order
+        lane_order = [0, 4, 1, 5, 2, 6, 3, 7]
+    else:            # vectors of 4 added left to right, then halved
+        lane_order = [p + 4 * j for p in (0, 2, 1, 3)
+                      for j in range(lanes // 4)]
+    return [r for lane in lane_order for r in range(lane, m, lanes)] + \
+        list(range(m, k))
+
+
+def _merge_fire_extreme(x: torch.Tensor, reduce: str,
+                        lanes_from: int = 25) -> torch.Tensor:
+    """A fire's max/min over the last dim of ``x [..., k]``."""
+    order = _extreme_order(x.shape[-1], 32 // x.element_size(), lanes_from) \
+        if x.dtype.is_floating_point else None
+    if order is not None:
+        x = x[..., order]
+    return _merge_extreme(x, reduce)
+
+
+#: merge across the slice axis (the last dim) of gathered partials — the
+#: slot layout's fires. The orders follow XLA's CPU vector width (256
+#: bits): a host with other vectors orders the reference's reduce
+#: otherwise.
 MERGE_FN: Dict[str, Callable] = {
     "sum": _merge_sum,
-    "max": lambda x: _merge_extreme(x, "max"),
-    "min": lambda x: _merge_extreme(x, "min"),
+    "max": functools.partial(_merge_fire_extreme, reduce="max"),
+    "min": functools.partial(_merge_fire_extreme, reduce="min"),
+}
+
+
+def _rows(merge: Callable, **kw) -> Callable:
+    return lambda a: merge(a.movedim(0, -1), **kw)
+
+
+#: merge across the LEADING axis of a pane ring's gathered rows ``[k, C]``
+#: (the pane fire, ``fire_rows``): XLA's CPU reduce takes the vector
+#: lanes form from k = 25 there for sums, and meets 23 to 32 rows out of
+#: order for max/min (ROADMAP Queue C item 9). The emulation follows XLA's
+#: CPU vector width (256 bits): a host with other vectors orders the
+#: reference's reduce otherwise.
+MERGE_ROWS_FN: Dict[str, Callable] = {
+    "sum": _rows(_merge_sum, lanes_from=25),
+    "max": _rows(_merge_fire_extreme, reduce="max", lanes_from=23),
+    "min": _rows(_merge_fire_extreme, reduce="min", lanes_from=23),
+}
+
+#: the same merge as the pane table's window-partial fold (``fold_rows``)
+#: compiles it: a left fold up to 32 rows, chunks past it
+FOLD_ROWS_FN: Dict[str, Callable] = {
+    "sum": _rows(_merge_sum, lanes_from=33),
+    "max": _rows(_merge_extreme, reduce="max"),
+    "min": _rows(_merge_extreme, reduce="min"),
 }
 
 #: host-side elementwise combine of two partial-aggregate arrays (the

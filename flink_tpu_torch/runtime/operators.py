@@ -59,7 +59,7 @@ class OperatorContext:
                  shuffle_mode: str = "device", device=None,
                  operator_index: int = 0, window_layout: str = "auto",
                  state_backend: str = "tpu-slot-table",
-                 spill: Optional[dict] = None):
+                 spill: Optional[dict] = None, pane_preagg: bool = True):
         self.operator_index = operator_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -79,6 +79,9 @@ class OperatorContext:
         #: the spill tier's options (state.slot-table.max-device-slots,
         #: state.spill.dir, state.spill.host-max-bytes)
         self.spill = dict(spill or {})
+        #: latency.pane-preagg: per-window running partials in the pane
+        #: layout
+        self.pane_preagg = pane_preagg
 
 
 class MapOperator(Operator):
@@ -167,17 +170,32 @@ class WindowAggOperator(Operator):
 
     def _open_single_device(self, ctx):
         """Parallelism 1: state.window-layout 'auto' and 'slots' run the
-        slot table (the reference's 'auto' resolves to it too)."""
-        from flink_tpu_torch.windowing.windower import SliceSharedWindower
+        slot table (the reference's 'auto' resolves to it too), 'panes'
+        the pane layout, for aligned windows without a spill tier."""
+        from flink_tpu_torch.windowing.windower import (
+            PaneWindower,
+            SliceSharedWindower,
+        )
 
-        if ctx.window_layout == "panes":
-            raise NotImplementedError(
-                "state.window-layout=panes (PaneWindower) is not ported to "
-                "flink_tpu_torch yet (ROADMAP.md, Queue A item 6); use "
-                "'slots' or 'auto'")
-        if ctx.window_layout not in ("auto", "slots"):
+        if ctx.window_layout not in ("auto", "slots", "panes"):
             raise ValueError(f"state.window-layout must be 'auto', 'slots' "
                              f"or 'panes', got {ctx.window_layout!r}")
+        if ctx.window_layout == "panes":
+            if any(ctx.spill.values()):
+                raise ValueError(
+                    "state.window-layout=panes has no spill tier — use "
+                    "'slots' (or 'auto') with state.spill.* options")
+            if ctx.state_backend != "tpu-slot-table":
+                raise ValueError(
+                    "state.window-layout=panes supports only the default "
+                    "placement; state.backend placements use the slot "
+                    "layout")
+            return PaneWindower(
+                self.assigner, self.agg, capacity=self.capacity,
+                max_parallelism=ctx.max_parallelism,
+                allowed_lateness=self.allowed_lateness,
+                fire_projector=self.fire_projector,
+                preagg=ctx.pane_preagg, device=ctx.device)
         if ctx.state_backend != "tpu-slot-table":
             raise NotImplementedError(
                 f"state.backend={ctx.state_backend!r}: placement backends "

@@ -326,6 +326,60 @@ class NativeSlotIndex(_NamespaceRegistry):
                 reg.setdefault(ns, []).append(chunk)
         return out
 
+    def pane_ingest(self, key_ids: np.ndarray, timestamps: np.ndarray,
+                    offset: int, width: int, max_uniq: int = 4096):
+        """The pane table's fused ingest (``sm_pane_ingest``): one native
+        sweep gives each record's slice end (by its timestamp), its key's
+        column (namespace 0: a pane column is keyed by key alone) and the
+        batch's distinct slice ends in FIRST-SEEN order with the inverse.
+        Returns ``(cols, sinv, uniq, max_col)``, or None when the batch has
+        more than ``max_uniq`` distinct slice ends (the caller takes the
+        NumPy path)."""
+        keys = np.ascontiguousarray(key_ids, dtype=np.int64)
+        ts = np.ascontiguousarray(timestamps, dtype=np.int64)
+        n = len(keys)
+        cols = np.empty(n, dtype=np.int32)
+        is_new = np.empty(n, dtype=np.uint8)
+        sinv = np.empty(n, dtype=np.int32)
+        uniq = np.empty(max_uniq, dtype=np.int64)
+        out_k = _ct.c_int64()
+        out_max_col = _ct.c_int64()
+        old_cap = self.capacity
+        rc = self._lib.sm_pane_ingest(
+            self._h, n, keys.ctypes.data_as(_I64P), ts.ctypes.data_as(_I64P),
+            int(offset), int(width), int(max_uniq),
+            cols.ctypes.data_as(_I32P), is_new.ctypes.data_as(_U8P),
+            sinv.ctypes.data_as(_I32P), uniq.ctypes.data_as(_I64P),
+            _ct.byref(out_k), _ct.byref(out_max_col))
+        if rc == -2:
+            return None
+        if rc < 0:
+            raise SlotTableFullError(
+                f"slot table full (capacity={self.capacity}) and not "
+                f"growable; {self.full_hint}")
+        if rc > 0:
+            self._wrap_views()
+            if self.on_grow is not None:
+                self.on_grow(old_cap, self.capacity)
+        new_mask = is_new.view(bool)
+        if new_mask.any():
+            # every pane-table entry lives in namespace 0
+            self._ns_slots.setdefault(0, []).append(cols[new_mask])
+        return cols, sinv, uniq[:out_k.value], int(out_max_col.value)
+
+    def flat_fuse(self, cols: np.ndarray, sinv: np.ndarray,
+                  rowmap: np.ndarray, capacity: int) -> np.ndarray:
+        """``flat[i] = rowmap[sinv[i]] * capacity + cols[i]`` as int32, in
+        one native pass (``sm_flat_fuse``)."""
+        n = len(cols)
+        out = np.empty(n, dtype=np.int32)
+        rowmap = np.ascontiguousarray(rowmap, dtype=np.int64)
+        self._lib.sm_flat_fuse(
+            n, cols.ctypes.data_as(_I32P), sinv.ctypes.data_as(_I32P),
+            rowmap.ctypes.data_as(_I64P), int(capacity),
+            out.ctypes.data_as(_I32P))
+        return out
+
     def lookup(self, key_ids: np.ndarray,
                namespaces: np.ndarray) -> np.ndarray:
         """Read-only probe via the native table: -1 where absent."""

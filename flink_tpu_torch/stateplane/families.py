@@ -18,8 +18,10 @@ Builders are keyed, as the reference's are, on what they compute —
 reduce kinds, identities, dtypes, the aggregate's ``cache_key`` — and
 kept in one table, so two tables with the same layout share a program.
 
-Not in this slice: ``flat_merge_pairs`` (sessions), ``flat_scatter_signed``
-(retractions) and the pane programs (ROADMAP.md, Queue A).
+The pane layout's programs are ``stateplane/pane.py``'s (the
+``delta-harvest`` kind of this table), with :func:`pane_fence` here. Not
+in this slice: ``flat_merge_pairs`` (sessions) and
+``flat_scatter_signed`` (retractions) (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -256,3 +258,14 @@ def flat_fence(dtype_str: str):
 
 def _fence(a):
     return Fence(a.device, a[:1].clone())
+
+
+def pane_fence(dtype_str: str):
+    """``a [R, C] -> Fence`` holding ``a[:1, :1]``: the pane table's
+    dispatch-depth fence."""
+    return _get_or_build("snapshot-lift", ("pane-fence", dtype_str),
+                         lambda: _pane_fence)
+
+
+def _pane_fence(a):
+    return Fence(a.device, a[:1, :1].clone())

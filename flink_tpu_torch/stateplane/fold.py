@@ -7,9 +7,10 @@ result. torch's CPU ``index_add_`` adds in the same order, with the same
 NaN bits (a later NaN lane replaces an earlier NaN, the starting value's
 NaN survives lanes that are not NaN, an ``inf - inf`` gives the x86
 default NaN ``0xffc00000``); torch's CUDA ``index_add_`` does not keep the
-order (atomics). The reference's float max/min propagate NaN and order
--0.0 below +0.0; torch's ``scatter_reduce_("amax"/"amin")`` keeps whichever
-signed zero came first.
+order (atomics). The reference's float max/min order -0.0 below +0.0 and
+pass a NaN's bits through by x86's rule (:func:`ordered_scatter_reduce_plain`);
+torch's ``scatter_reduce_("amax"/"amin")`` keeps whichever signed zero came
+first.
 
 - :func:`ordered_fold_planes` is the entry in the callers' own layout:
   ``acc [P, cap]``, ``slots`` int32 ``[P, L]``, ``values [P, L]``. Slot 0 of
@@ -109,21 +110,46 @@ def ordered_scatter_add_plain(acc_flat: torch.Tensor, target: torch.Tensor,
     return acc_flat.index_add_(0, target, v)
 
 
+def nan_priority(x: torch.Tensor, reduce: str) -> torch.Tensor:
+    """The NaNs of x that an x86 max (min) keeps once met: the negative
+    (positive) ones. See :func:`ordered_scatter_reduce_plain`."""
+    neg = x.view(_INT_OF[x.dtype]) < 0
+    return torch.isnan(x) & (neg if reduce == "max" else ~neg)
+
+
 def ordered_scatter_reduce_plain(acc_flat: torch.Tensor,
                                  target: torch.Tensor, v: torch.Tensor,
                                  reduce: str) -> torch.Tensor:
-    """Plain version of :func:`ordered_scatter_reduce` (any device, exact
-    for max/min on any device, stream-ordered for sum on the CPU)."""
+    """Plain version of the ordered fold (any device for max/min,
+    stream-ordered for sum on the CPU). Max/min order -0.0 below +0.0, and
+    where a slot's sequence — its starting value, then its lanes in order
+    — holds a NaN, they leave XLA's x86 NaN with its bits: for max the
+    first negative NaN, else the last NaN; for min the first positive NaN,
+    else the last NaN (:func:`nan_priority`)."""
     if reduce == "sum":
         return ordered_scatter_add_plain(acc_flat, target, v)
-    nan = torch.isnan(acc_flat) | torch.zeros(
-        acc_flat.shape, dtype=torch.int32, device=acc_flat.device
-    ).index_add_(0, target, torch.isnan(v).to(torch.int32)).bool()
     keys = order_key(acc_flat).clone()
     keys.scatter_reduce_(0, target, order_key(v),
                          reduce="amax" if reduce == "max" else "amin")
-    acc_flat.copy_(from_order_key(keys, acc_flat.dtype))
-    return acc_flat.masked_fill_(nan, float("nan"))
+    out = from_order_key(keys, acc_flat.dtype)
+    nan_v = torch.isnan(v)
+    if nan_v.any() or torch.isnan(acc_flat).any():
+        # per slot the position of the NaN kept: the start is -1, the lanes
+        # 0 .. n - 1; n stands for "no priority NaN", -2 for "no NaN"
+        n = v.numel()
+        pos = torch.arange(n, device=v.device)
+        pri = nan_priority(v, reduce)
+        first = torch.full(acc_flat.shape, n, dtype=torch.int64,
+                           device=v.device)
+        first.scatter_reduce_(0, target[pri], pos[pri], reduce="amin")
+        first.masked_fill_(nan_priority(acc_flat, reduce), -1)
+        last = torch.full_like(first, -2).masked_fill_(
+            torch.isnan(acc_flat), -1)
+        last.scatter_reduce_(0, target[nan_v], pos[nan_v], reduce="amax")
+        keep = torch.where(first < n, first, last)
+        out = torch.where(keep >= 0, v[keep.clamp(min=0)],
+                          torch.where(keep == -1, acc_flat, out))
+    return acc_flat.copy_(out)
 
 
 def ordered_fold_planes_plain(acc: torch.Tensor, slots: torch.Tensor,

@@ -13,7 +13,7 @@ through the ``_*_jit`` hooks, under the reference's names.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -213,3 +213,37 @@ class AvgAggregate(AggregateFunction):
     def finish(self, merged):
         s, c = merged
         return {self.output_names[0]: s / torch.clamp(c, min=1.0)}
+
+
+class MultiAggregate(AggregateFunction):
+    """Several aggregates over the same key and window in one state table:
+    one scatter pass, one presence plane, several result columns."""
+
+    def __init__(self, aggs: Sequence[AggregateFunction]):
+        self.aggs = list(aggs)
+        leaves: List[AccLeaf] = []
+        outs: List[str] = []
+        self._spans = []
+        for i, a in enumerate(self.aggs):
+            start = len(leaves)
+            leaves.extend(AccLeaf(f"a{i}_{l.name}", l.dtype, l.reduce, l.const)
+                          for l in a.leaves)
+            self._spans.append((start, len(leaves)))
+            outs.extend(a.output_names)
+        self.leaves = tuple(leaves)
+        self.output_names = tuple(outs)
+
+    def cache_key(self):
+        return ("multi", tuple(a.cache_key() for a in self.aggs))
+
+    def map_input(self, batch):
+        vals: List[np.ndarray] = []
+        for a in self.aggs:
+            vals.extend(a.map_input(batch))
+        return tuple(vals)
+
+    def finish(self, merged):
+        out: Dict[str, torch.Tensor] = {}
+        for a, (s, e) in zip(self.aggs, self._spans):
+            out.update(a.finish(tuple(merged[s:e])))
+        return out

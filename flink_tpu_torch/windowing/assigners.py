@@ -1,5 +1,6 @@
 """Window assigners built around slices (port of
-``flink_tpu/windowing/assigners.py``: tumbling and sliding event time).
+``flink_tpu/windowing/assigners.py``: tumbling, sliding and cumulative
+event time).
 
 Each record is assigned to exactly ONE slice (one vectorized arithmetic op
 over the timestamp column); a window is merged from its slices at fire
@@ -24,6 +25,10 @@ class WindowAssigner:
     slide: int           # distance between consecutive window ends (ms)
     slice_width: int     # width of one slice (ms)
     offset: int = 0
+
+    @property
+    def slices_per_window(self) -> int:
+        return self.size // self.slice_width
 
     def assign_slice_ends(self, timestamps: np.ndarray) -> np.ndarray:
         """Each record -> exclusive end of its slice. Vectorized."""
@@ -106,3 +111,33 @@ class SlidingEventTimeWindows(WindowAssigner):
     def of(size_ms: int, slide_ms: int,
            offset_ms: int = 0) -> "SlidingEventTimeWindows":
         return SlidingEventTimeWindows(size_ms, slide_ms, offset_ms)
+
+
+class CumulativeEventTimeWindows(WindowAssigner):
+    """CUMULATE windows: [s, s + step), [s, s + 2 step) ... [s, s +
+    max_size), one slice per step."""
+
+    def __init__(self, max_size_ms: int, step_ms: int, offset_ms: int = 0):
+        super().__init__(size=max_size_ms, slide=step_ms,
+                         slice_width=step_ms, offset=offset_ms)
+
+    def _span_start_end(self, end):
+        """The first slice end of the cumulate span holding slice end(s)
+        ``end``."""
+        return end - (end - self.offset - self.slice_width) % self.size
+
+    def window_ends_for_slice(self, slice_end: int) -> List[int]:
+        span_end = self._span_start_end(slice_end) + self.size \
+            - self.slice_width
+        return list(range(slice_end, span_end + 1, self.slide))
+
+    def slice_ends_for_window(self, window_end: int) -> List[int]:
+        return list(range(self._span_start_end(window_end), window_end + 1,
+                          self.slice_width))
+
+    def window_start(self, window_end: int) -> int:
+        return self._span_start_end(window_end) - self.slice_width
+
+    def last_window_ends(self, slice_ends: np.ndarray) -> np.ndarray:
+        se = np.asarray(slice_ends, dtype=np.int64)
+        return self._span_start_end(se) + self.size - self.slice_width

@@ -6,8 +6,9 @@ watermark advance. Pure host metadata — the engines own the state planes.
 A window first fires when the watermark passes its end; its slices are
 retained for ``allowed_lateness`` more event-time ms, and a late record
 landing in a retained slice re-schedules the windows it contributes to.
-Records whose slices are past retention are dropped. The snapshot and
-restore methods belong to the checkpoint slice.
+Records whose slices are past retention are dropped. ``snapshot`` and
+``restore`` carry the metadata in the reference's format, so a snapshot
+moves between the two packages.
 """
 
 from __future__ import annotations
@@ -100,3 +101,34 @@ class SliceBookkeeper:
                 del self._slice_last_window[se]
                 out.append(se)
         return out
+
+    def pending_windows(self) -> Set[int]:
+        """Window ends scheduled to fire (a read-only view of the live set,
+        late re-registrations included) — the windows the pane layout keeps
+        a running partial row for. Callers that need an order sort it."""
+        return self._pending_set
+
+    def snapshot(self) -> Dict[str, object]:
+        return {
+            "pending": sorted(self._pending),
+            "slice_last_window": dict(self._slice_last_window),
+            "watermark": self.watermark,
+            "max_fired_end": self.max_fired_end,
+            "late_records_dropped": self.late_records_dropped,
+        }
+
+    def restore(self, snap: Dict[str, object]) -> None:
+        # empty sub-structures may be pruned by a checkpoint codec
+        self._pending = list(snap.get("pending", []))
+        heapq.heapify(self._pending)
+        self._pending_set = set(self._pending)
+        self._slice_last_window = dict(snap.get("slice_last_window", {}))
+        self._cleanup = [
+            (last - 1 + self.allowed_lateness, se)
+            for se, last in self._slice_last_window.items()
+        ]
+        heapq.heapify(self._cleanup)
+        self.watermark = snap.get("watermark", snap.get("max_fired_end",
+                                                        _NEG_INF))
+        self.max_fired_end = snap.get("max_fired_end", _NEG_INF)
+        self.late_records_dropped = snap.get("late_records_dropped", 0)

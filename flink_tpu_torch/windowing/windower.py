@@ -12,14 +12,15 @@ A ``WindowAssigner`` maps timestamps to slices and windows to slices; a
   whose last window fired.
 
 Window lifecycle metadata lives in ``SliceBookkeeper`` (shared with the
-mesh engine). Not in this slice: ``PaneWindower`` and the fused ingest
-of its table (the pane layout, ROADMAP.md Queue A item 6),
-``compose_windows`` and the point queries (item 12), snapshots (item 8).
+mesh engine). ``PaneWindower`` runs the same contract over the pane layout
+(``state/pane_table.py``). Not in this slice: ``compose_windows`` and the
+point queries (ROADMAP.md Queue A item 12), the slot table's snapshots
+(item 8).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -85,6 +86,21 @@ class SliceSharedWindower:
     def process_batch(self, batch: RecordBatch) -> None:
         if len(batch) == 0:
             return
+        fused = getattr(self.table, "ingest_indices", None)
+        if fused is not None:
+            out = fused(batch.key_ids, batch.timestamps,
+                        self.assigner.offset, self.assigner.slice_width)
+            if out is not None:
+                flat, uniq, sinv = out
+                self._register_fused(uniq, sinv)
+                if is_partial_batch(batch):
+                    self.table.scatter_flat(
+                        flat, partial_leaf_values(batch, self.agg),
+                        valued=True)
+                else:
+                    self.table.scatter_flat(flat,
+                                            self.agg.map_input(batch))
+                return
         slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
         live = self.book.live_mask(slice_ends)
         if live is not None:
@@ -92,16 +108,34 @@ class SliceSharedWindower:
             batch = batch.filter(live)
             if len(batch) == 0:
                 return
-        # one O(n) pass finds the distinct slice ends for the bookkeeper
-        uniq, _ = self.assigner.slice_plan(slice_ends)
-        self.book.register_slices(slice_ends, uniq=uniq)
+        # one O(n) pass finds the distinct slice ends and the inverse, for
+        # the bookkeeper and a table that takes the plan
+        plan = self.assigner.slice_plan(slice_ends)
+        self.book.register_slices(slice_ends, uniq=plan[0])
+        kw = {"slice_plan": plan} \
+            if getattr(self.table, "accepts_slice_plan", False) else {}
         if is_partial_batch(batch):
             # locally pre-aggregated rows: fold explicit per-leaf partials
             self.table.upsert_valued(batch.key_ids, slice_ends,
-                                     partial_leaf_values(batch, self.agg))
+                                     partial_leaf_values(batch, self.agg),
+                                     **kw)
         else:
             self.table.upsert(batch.key_ids, slice_ends,
-                              self.agg.map_input(batch))
+                              self.agg.map_input(batch), **kw)
+
+    def _register_fused(self, uniq: np.ndarray, sinv: np.ndarray) -> None:
+        """Bookkeeping of the fused ingest. Late records are not filtered
+        out of its scatter: they land in slices whose every window is past
+        retention, which no fire reads and the next watermark frees, so
+        the results and the late-drop count match the filtering path."""
+        book = self.book
+        if book.watermark > -(1 << 61):
+            last = self.assigner.last_window_ends(uniq)
+            late = last - 1 + book.allowed_lateness <= book.watermark
+            if late.any():
+                book.late_records_dropped += int(
+                    np.bincount(sinv, minlength=len(uniq))[late].sum())
+        book.register_slices(uniq, uniq=uniq)
 
     # ----------------------------------------------------------------- fire
 
@@ -194,3 +228,144 @@ class SliceSharedWindower:
                     self.table.fire_async(matrix, keys), window_end)
             results = self.table.fire(matrix)
         return self._columns(window_end, keys, results)
+
+    # ------------------------------------------------------------- snapshot
+
+    def snapshot(self, mode: str = "full") -> Dict[str, object]:
+        """mode: "full" (a new incremental base), "delta" (dirty rows
+        only), "savepoint" (full, keeping the dirty tracking)."""
+        if mode == "delta":
+            table = self.table.snapshot_delta()
+        else:
+            table = self.table.snapshot(reset_dirty=(mode != "savepoint"))
+        return {"table": table, **self.book.snapshot()}
+
+    def restore(self, snap: Dict[str, object], key_group_filter=None) -> None:
+        self.table.restore(snap["table"], key_group_filter=key_group_filter)
+        self.book.restore(snap)
+
+
+class PaneWindower(SliceSharedWindower):
+    """SliceSharedWindower over the pane layout (``state/pane_table.py``):
+    the same contract, but a fire is a device reduction over ring rows —
+    no host-built slot matrix, no per-fire host->device transfer but the
+    row ids — and freeing a slice is one row reset.
+
+    With ``preagg`` (the default, ``latency.pane-preagg``) each pending
+    window also keeps a RUNNING PARTIAL row, combined at absorb: a record
+    scatters into its pane AND into every pending window that has a
+    partial row, in one flat-index scatter, and the window's fire gathers
+    that ONE row. Windows without a partial row — and every window with
+    ``preagg`` off — take the full-window harvest over their slices'
+    rows. Partials are derived state: snapshots carry the panes, and
+    restore, compaction and late re-registrations refold them. Float sums
+    fold in record order rather than slice by slice, so they can differ
+    from the full harvest in the last bits (Count, Min, Max and
+    integer-valued sums are exact). Tumbling windows (one slice) keep no
+    partials: the partial would duplicate the pane.
+    """
+
+    def __init__(
+        self,
+        assigner: WindowAssigner,
+        agg: AggregateFunction,
+        capacity: int = 1 << 16,
+        max_parallelism: int = 128,
+        allowed_lateness: int = 0,
+        fire_projector=None,
+        preagg: bool = True,
+        device=None,
+    ) -> None:
+        from flink_tpu_torch.state.pane_table import PaneTable
+
+        self.assigner = assigner
+        self.agg = agg
+        self._preagg = bool(preagg) and assigner.slices_per_window > 1
+        self.table = PaneTable(
+            agg, capacity=capacity, max_parallelism=max_parallelism,
+            fire_projector=fire_projector, device=device,
+            slices_for_window=(assigner.slice_ends_for_window
+                               if self._preagg else None))
+        self.book = SliceBookkeeper(assigner, allowed_lateness)
+        self.fire_projector = fire_projector
+
+    def spill_counters(self):
+        return None
+
+    # --------------------------------------------------------------- ingest
+
+    def process_batch(self, batch: RecordBatch) -> None:
+        if not self._preagg:
+            return super().process_batch(batch)
+        if len(batch) == 0:
+            return
+        table = self.table
+        flat = uniq = sinv = None
+        out = table.ingest_indices(batch.key_ids, batch.timestamps,
+                                   self.assigner.offset,
+                                   self.assigner.slice_width)
+        if out is not None:
+            flat, uniq, sinv = out
+            self._register_fused(uniq, sinv)
+        else:
+            slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
+            live = self.book.live_mask(slice_ends)
+            if live is not None:
+                slice_ends = slice_ends[live]
+                batch = batch.filter(live)
+                if len(batch) == 0:
+                    return
+            plan = self.assigner.slice_plan(slice_ends)
+            self.book.register_slices(slice_ends, uniq=plan[0])
+            uniq, sinv = plan
+            flat = table._flat_indices(batch.key_ids, slice_ends, plan)
+        # combine-on-absorb: records fold into their pending windows'
+        # partial rows in the SAME scatter; windows without a row (new,
+        # late re-registered, restored) are refolded from the panes after
+        pending = self.book.pending_windows()
+        wins = [[w for w in self.assigner.window_ends_for_slice(int(se))
+                 if w in pending and table.has_window_partial(w)]
+                for se in uniq.tolist()]
+        win = table.window_flat(flat % np.int32(table.capacity), sinv, wins)
+        if is_partial_batch(batch):
+            table.scatter_combined(flat, win,
+                                   partial_leaf_values(batch, self.agg),
+                                   valued=True)
+        else:
+            table.scatter_combined(flat, win, self.agg.map_input(batch))
+        table.rebuild_window_partials(pending)
+
+    # ----------------------------------------------------------------- fire
+
+    def _fire_window(self, window_end: int, async_ok: bool = False):
+        if self._preagg and self.table.has_window_partial(window_end):
+            # the delta harvest: ONE ring row
+            if async_ok:
+                return self._wrap_pending(
+                    self.table.fire_partial_async(window_end), window_end)
+            return self._assemble(window_end,
+                                  *self.table.fire_partial(window_end))
+        # the full-window harvest (preagg off, or no partial row)
+        slice_ends = [int(se) for se in
+                      self.assigner.slice_ends_for_window(window_end)]
+        if async_ok:
+            return self._wrap_pending(
+                self.table.fire_window_async(slice_ends), window_end)
+        return self._assemble(window_end,
+                              *self.table.fire_window(slice_ends))
+
+    def _assemble(self, window_end: int, keys, results):
+        if len(keys) == 0:
+            return None
+        return self._columns(window_end, keys, results)
+
+    # ------------------------------------------------------------- snapshot
+
+    def restore(self, snap, key_group_filter=None) -> None:
+        if self._preagg:
+            # partial rows are derived: drop stale ones, land the panes,
+            # then refold the pending windows' partials
+            self.table.clear_window_rows()
+        super().restore(snap, key_group_filter=key_group_filter)
+        if self._preagg:
+            self.table.rebuild_window_partials(self.book.pending_windows())

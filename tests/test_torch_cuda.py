@@ -437,3 +437,149 @@ def test_top_k_project_on_card_equals_cpu():
             want = p.project({"s": score}, valid)[0]
             got = p.project({"s": score.cuda()}, valid.cuda())[0]
             assert torch.equal(got.cpu(), want), (score.dtype, desc)
+
+
+def _payload_specials(rng, shape, dtype):
+    """NaN payloads (signalling, quiet, negative), +-1, +-0 and +-inf."""
+    bits = {torch.float32: np.array(
+        [0x7FA00001, 0x7FC00002, 0xFFC00003, 0xFFA00004, 0x3F800000,
+         0xBF800000, 0, 0x80000000, 0x7F800000, 0xFF800000], np.uint32),
+        torch.float64: np.array(
+        [0x7FF4000000000001, 0x7FF8000000000002, 0xFFF8000000000003,
+         0xFFF4000000000004, 0x3FF0000000000000, 0xBFF0000000000000, 0,
+         0x8000000000000000, 0x7FF0000000000000, 0xFFF0000000000000],
+        np.uint64)}[dtype]
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return torch.from_numpy(rng.choice(bits, shape).view(np_dt))
+
+
+@pytest.mark.cuda
+def test_max_min_nan_payloads_card_equal_cpu():
+    """The ordered fold's max/min modes keep the CPU's NaN payloads on the
+    card (first priority-signed NaN, else the last NaN, starting values
+    included), and the fires' max/min merges — the slot fires' last axis
+    and the pane fire's leading axis, with the slices met in vector lanes
+    from 23 to 32 — give the CPU's bits."""
+    _need_card()
+    from flink_tpu_torch.ops.segment_ops import MERGE_FN, MERGE_ROWS_FN
+    from flink_tpu_torch.stateplane.fold import (
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
+    )
+
+    rng = np.random.default_rng(25)
+    for dtype in (torch.float32, torch.float64):
+        for reduce in ("max", "min"):
+            for cap, n in ((64, 1 << 16), (1 << 17, 1 << 18)):
+                acc = _payload_specials(rng, (2, cap), dtype)
+                acc[:, 0] = float("-inf" if reduce == "max" else "inf")
+                slots = torch.from_numpy(rng.integers(
+                    0, cap, (2, n)).astype(np.int32))
+                v = _payload_specials(rng, (2, n), dtype)
+                v[slots == 0] = acc[0, 0]
+                want = ordered_fold_planes_plain(acc.clone(), slots, v,
+                                                 reduce)
+                got = ordered_fold_planes(acc.cuda(), slots.cuda(),
+                                          v.cuda(), reduce)
+                assert torch.equal(_bits(got.cpu()), _bits(want)), \
+                    (dtype, reduce, cap)
+            for k in (1, 5, 22, 23, 24, 25, 28, 32, 33):
+                x = _payload_specials(rng, (1024, k), dtype)
+                for fn, arg in ((MERGE_FN[reduce], x),
+                                (MERGE_ROWS_FN[reduce], x.T.contiguous())):
+                    assert torch.equal(_bits(fn(arg.cuda()).cpu()),
+                                       _bits(fn(arg))), (dtype, reduce, k)
+
+
+@pytest.mark.cuda
+def test_pane_programs_on_card_equal_cpu():
+    """The pane programs on the card — the combined scatter of a float32
+    Sum with NaN payloads and +-inf through the ordered fold on the
+    [1, R*C] view, the fire and the window-partial fold — equal the
+    CPU's bit for bit, and the scatter launches the kernel."""
+    _need_card()
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.stateplane.pane import pane_programs
+    from flink_tpu_torch.windowing.aggregates import (
+        CountAggregate,
+        MinAggregate,
+        MultiAggregate,
+        SumAggregate,
+    )
+
+    rng = np.random.default_rng(26)
+    agg = MultiAggregate([SumAggregate("v", output="s"),
+                          CountAggregate(output="n"),
+                          MinAggregate("v", output="lo")])
+    prog = pane_programs(agg)
+    R, C, n = 16, 1 << 14, 1 << 18
+    flat = torch.from_numpy((rng.integers(1, R, n) * C
+                             + rng.integers(1, C, n)).astype(np.int32))
+    flat[torch.from_numpy(rng.random(n) < 0.1)] = 0
+    v = _special_values(rng, n, torch.float32)
+    v[flat == 0] = 0.0
+    vmin = v.clone()
+    vmin[flat == 0] = float("inf")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        accs = tuple(torch.full((R, C), float(i), dtype=dt, device=dev)
+                     for i, dt in ((0.0, torch.float32), (0, torch.int32),
+                                   (float("inf"), torch.float32))) + (
+            torch.zeros((R, C), dtype=torch.int8, device=dev),)
+        before = ordered_fold_planes.launches
+        accs = prog[0](accs, flat.to(dev), (v.to(dev), vmin.to(dev)))
+        if dev == "cuda":
+            assert ordered_fold_planes.launches == before + 2
+        rows = torch.tensor([3, 0, 7, 1, 9], dtype=torch.int32, device=dev)
+        cols, valid = prog[2](accs, rows, C)
+        accs = prog[5](accs, 2, rows, C)
+        out[dev] = [a.cpu() for a in accs] + [valid.cpu()] + [
+            cols[k].cpu() for k in sorted(cols)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        if got.dtype.is_floating_point:
+            got, want = _bits(got), _bits(want)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preagg", [True, False])
+@pytest.mark.parametrize("job", ["q5", "revenue"])
+def test_panes_on_card_equal_cpu_run(job, preagg):
+    """Q5 (device top-k 16) and Q5-revenue at parallelism 1 in the pane
+    layout, with and without pre-aggregation: the card's sink rows equal
+    the CPU run's, in order and bit for bit."""
+    _need_card()
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def run(device):
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 1 << 14,
+            "parallelism.default": 1, "execution.device": device,
+            "state.window-layout": "panes",
+            "state.slot-table.capacity": 1 << 14,
+            "latency.pane-preagg": preagg}))
+        sink = CollectSink()
+        src = BidSource(total_records=150_000, num_auctions=3_000,
+                        events_per_second_of_eventtime=20_000)
+        if job == "q5":
+            build_q5(env, src, device_top_k=16).sink_to(sink)
+        else:
+            (env.from_source(src,
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .key_by("auction")
+             .window(SlidingEventTimeWindows.of(10_000, 2_000))
+             .sum("price").sink_to(sink))
+        env.execute()
+        return [{k: np.asarray(v).tobytes() for k, v in r.items()}
+                for r in sink.rows()]
+
+    before = ordered_fold_planes.launches
+    on_card = run("cuda")
+    if job == "revenue":
+        assert ordered_fold_planes.launches > before
+    assert on_card and on_card == run("cpu")

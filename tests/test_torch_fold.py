@@ -14,7 +14,11 @@
   and float64 Sum and Avg, every window of 1 to 27 slices) — the bits the
   card's kernel and merge are held to;
 - the plane-layout fold's plain version against the reference's
-  per-shard ``a.at[0, recv_s]``, padding lanes included.
+  per-shard ``a.at[0, recv_s]``, padding lanes included;
+- NaN payloads through float Max/Min (signalling, quiet and negative
+  NaNs, +-0, +-inf): the ordered fold's plain version against
+  ``.at[].max/min``, starting values included, and the merges' rule over a
+  sequence of slices against ``jnp.max/min``.
 
 Inputs come from numpy seeds: standard normals scaled by exp(U(-8, 8)), so
 the float sums depend on their order. Tolerance: none — results are
@@ -519,3 +523,96 @@ def test_fold_planes_plain_matches_reference_per_plane(reduce):
                               torch.from_numpy(slots), torch.from_numpy(vals),
                               reduce)
     _bits_equal(got.numpy(), ref)
+
+
+# ------------------------------------------- NaN payloads through max/min
+
+#: signalling, quiet and negative NaN payloads, +-1, +-0 and +-inf
+_NAN_SPECIALS = {
+    np.float32: np.array([0x7FA00001, 0x7FC00002, 0xFFC00003, 0xFFA00004,
+                          0x7FB00005, 0xFFE00006, 0x3F800000, 0xBF800000,
+                          0x0, 0x80000000, 0x7F800000, 0xFF800000],
+                         np.uint32),
+    np.float64: np.array([0x7FF4000000000001, 0x7FF8000000000002,
+                          0xFFF8000000000003, 0xFFF4000000000004,
+                          0x7FF6000000000005, 0xFFFC000000000006,
+                          0x3FF0000000000000, 0xBFF0000000000000, 0x0,
+                          0x8000000000000000, 0x7FF0000000000000,
+                          0xFFF0000000000000], np.uint64),
+}
+
+
+def _specials(rng, shape, dtype):
+    return rng.choice(_NAN_SPECIALS[dtype], shape).view(dtype)
+
+
+def _bits64(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    u = {4: np.uint32, 8: np.uint64}[got.dtype.itemsize]
+    np.testing.assert_array_equal(got.view(u), want.view(u))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_max_min_nan_payloads_match_scatter(reduce, dtype):
+    """The ordered fold's plain version (the card kernel's oracle) keeps
+    the NaN that XLA's ``.at[].max/min`` keeps on an x86 host, payload and
+    all: of a slot's sequence (its starting value, then its lanes in
+    order) max keeps the first negative NaN, else the last NaN; min the
+    first positive NaN, else the last NaN; -0.0 < +0.0 otherwise. Slots
+    start from NaN payloads too."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng({"max": 41, "min": 42}[reduce]
+                                + (dtype == np.float64))
+    cap, L = 96, 6000
+    acc = _specials(rng, cap, dtype)
+    slots = np.where(rng.random(L) < 0.5, rng.integers(1, 8, L),
+                     rng.integers(1, cap, L)).astype(np.int32)
+    vals = _specials(rng, L, dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(getattr(jnp.asarray(acc).at[slots], reduce)(
+            jnp.asarray(vals)))
+    got = ordered_scatter_reduce_plain(
+        torch.from_numpy(acc.copy()), torch.from_numpy(slots).long(),
+        torch.from_numpy(vals), reduce)
+    _bits64(got.numpy(), want)
+    # the plane entry (slot 0 of each plane is the identity, dropped)
+    planes = np.stack([acc, _specials(rng, cap, dtype)])
+    planes[:, 0] = -np.inf if reduce == "max" else np.inf
+    ps = np.stack([slots, rng.integers(0, cap, L).astype(np.int32)])
+    pv = np.stack([vals, _specials(rng, L, dtype)])
+    pv[ps == 0] = planes[0, 0]
+    with jax.enable_x64(dtype == np.float64):
+        want = np.stack([np.asarray(getattr(jnp.asarray(planes[p]).at[ps[p]],
+                                            reduce)(jnp.asarray(pv[p])))
+                         for p in range(2)])
+    got = ordered_fold_planes(torch.from_numpy(planes.copy()),
+                              torch.from_numpy(ps), torch.from_numpy(pv),
+                              reduce)
+    _bits64(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_merge_max_min_nan_payloads_match_jnp(reduce, dtype):
+    """The merges' max/min rule over a sequence of slices (``_merge_extreme``,
+    which MERGE_FN applies to the slices in the order the fire meets them)
+    against jnp.max/jnp.min on the CPU, for 1 to 39 slices of NaN
+    payloads, signed zeros and infinities: the same NaN bits by the x86
+    rule."""
+    import jax
+    import jax.numpy as jnp
+
+    from flink_tpu_torch.ops.segment_ops import _merge_extreme
+
+    rng = np.random.default_rng({"max": 51, "min": 52}[reduce]
+                                + (dtype == np.float64))
+    red = jnp.max if reduce == "max" else jnp.min
+    for k in range(1, 40):
+        x = _specials(rng, (257, k), dtype)
+        with jax.enable_x64(dtype == np.float64):
+            want = np.asarray(red(jnp.asarray(x), axis=-1))
+        _bits64(_merge_extreme(torch.from_numpy(x), reduce).numpy(), want)

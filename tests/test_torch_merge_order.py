@@ -6,9 +6,17 @@ XLA's CPU reduce adds the slice axis in vector lanes and chunks, not left
 to right; ``_merge_sum`` emulates the order ``tests/reference_fire_order.py``
 measured (ROADMAP Queue C item 7).
 
+The pane layout's two merges of a window's ring rows — a reduce over the
+LEADING axis of ``[k, C]`` — against the reference's ``pane_programs``:
+``fire_rows`` (vector lanes from 25 rows for sums, and for max/min a NaN
+kept in another order at 23 to 32 rows) and ``fold_rows`` (a left fold to
+32 rows, chunks past it), at every k ``--program pane`` measured (ROADMAP
+Queue C item 9).
+
 Inputs: finite float values of wide dynamic range from numpy seeds, so
-that any other order of the adds shows in the last bits. Tolerance: none
-— sums are compared on their raw bits.
+that any other order of the adds shows in the last bits; for max/min NaN
+payloads, signed zeros and infinities. Tolerance: none — results are
+compared on their raw bits.
 """
 
 import numpy as np
@@ -19,6 +27,7 @@ from flink_tpu.parallel.sharded_windower import (
     build_mesh_steps as jbuild_mesh_steps,
 )
 from flink_tpu.stateplane.families import flat_segment_fire as jfire_flat
+from flink_tpu.stateplane.pane import pane_programs as jpane_programs
 from flink_tpu.windowing import aggregates as jagg
 from flink_tpu_torch.convert import from_jax_planes
 from flink_tpu_torch.parallel.mesh import make_mesh
@@ -26,6 +35,7 @@ from flink_tpu_torch.parallel.sharded_windower import (
     build_mesh_steps as tbuild_mesh_steps,
 )
 from flink_tpu_torch.stateplane.families import flat_segment_fire
+from flink_tpu_torch.stateplane.pane import pane_programs
 from flink_tpu_torch.windowing import aggregates as tagg
 
 P, CAP, ROWS = 8, 256, 64
@@ -116,3 +126,161 @@ def test_mesh_fire_sum_order_matches_reference(eight_device_mesh, kind, k):
     assert sorted(got) == sorted(want)
     for name in want:
         _bits_equal(got[name].numpy(), want[name])
+
+
+# ----------------------------------------------- slot fires' max / min
+
+EXTREME_KINDS = {
+    f"{r}_{d}": (lambda r=r, dt=dt: getattr(jagg, f"{r.title()}Aggregate")(
+        "v", dtype=dt),
+        lambda r=r, dt=dt: getattr(tagg, f"{r.title()}Aggregate")(
+            "v", dtype=dt), dt)
+    for r in ("max", "min")
+    for d, dt in (("f32", np.float32), ("f64", np.float64))
+}
+_SPECIAL = {
+    np.float32: np.array([0x7FA00001, 0x7FC00002, 0xFFC00003, 0xFFA00004,
+                          0x3F800000, 0xBF800000, 0, 0x80000000,
+                          0x7F800000, 0xFF800000], np.uint32),
+    np.float64: np.array([0x7FF4000000000001, 0x7FF8000000000002,
+                          0xFFF8000000000003, 0xFFF4000000000004,
+                          0x3FF0000000000000, 0xBFF0000000000000, 0,
+                          0x8000000000000000, 0x7FF0000000000000,
+                          0xFFF0000000000000], np.uint64),
+}
+
+
+
+#: around the slices met in vector lanes (25-32), then past them
+EXTREME_KS = list(range(16, 41)) + [64, 65, 100]
+
+
+def _extreme_inputs(kind, k):
+    dtype = EXTREME_KINDS[kind][2]
+    rng = np.random.default_rng(3000 * len(kind) + k)
+    plane = rng.choice(_SPECIAL[dtype], (P, CAP)).view(dtype)
+    ident = EXTREME_KINDS[kind][0]().leaves[0].identity
+    plane[:, 0] = ident
+    return [plane], rng.integers(0, CAP, (P, ROWS, k)).astype(np.int32)
+
+
+@pytest.mark.parametrize("k", EXTREME_KS)
+@pytest.mark.parametrize("kind", sorted(EXTREME_KINDS))
+def test_slot_fires_max_min_nan_order_matches_reference(
+        eight_device_mesh, kind, k):
+    """Max/min of the slot layout's two fires — single-device and mesh —
+    over slices of NaN payloads, signed zeros and infinities: the NaN the
+    reference keeps, the slices met in vector lanes from 25 to 32."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from flink_tpu.parallel.mesh import KEY_AXIS
+
+    jmake, tmake, dtype = EXTREME_KINDS[kind]
+    planes, sm = _extreme_inputs(kind, k)
+    flat = (sm + (np.arange(P, dtype=np.int32) * CAP)[:, None, None]
+            ).reshape(-1, k)
+    put = NamedSharding(eight_device_mesh, PartitionSpec(KEY_AXIS))
+    with jax.enable_x64(dtype == np.float64):
+        single = jfire_flat(jmake())(
+            tuple(jax.numpy.asarray(p.reshape(-1)) for p in planes),
+            jax.numpy.asarray(flat))
+        single = {n: np.asarray(a) for n, a in single.items()}
+        mesh = jbuild_mesh_steps(eight_device_mesh, jmake())[1](
+            tuple(jax.device_put(p, put) for p in planes),
+            jax.device_put(sm, put))
+        mesh = {n: np.asarray(a) for n, a in mesh.items()}
+    got = flat_segment_fire(tmake())(
+        tuple(torch.from_numpy(p.reshape(-1)) for p in planes),
+        torch.from_numpy(flat))
+    for name in single:
+        _bits_equal(got[name].numpy(), single[name])
+    got = tbuild_mesh_steps(make_mesh(P, "cpu"), tmake())[1](
+        from_jax_planes(planes, "cpu"), torch.from_numpy(sm))
+    for name in mesh:
+        _bits_equal(got[name].numpy(), mesh[name])
+
+
+# ------------------------------------------------------------ pane merges
+
+#: every k to 64, then a sample to 300
+PANE_KS = list(range(1, 65)) + [65, 80, 96, 97, 100, 128, 129, 160, 200,
+                                255, 256, 257, 300]
+#: max/min: around the rows met out of order (23-32), without k = 23,
+#: whose order stays open (Queue C item 9)
+PANE_EXTREME_KS = [k for k in range(16, 41) if k != 23] + [64, 65, 100]
+PANE_COLS = 64
+
+def _pane_case(kinds, kind, k):
+    """Leaf planes ``[k + 1, PANE_COLS]`` (row 0 the identity row) and the
+    window's k rows in a seeded order."""
+    dtype = kinds[kind][2]
+    rng = np.random.default_rng(7000 * len(kind) + k)
+    if kind in EXTREME_KINDS:
+        planes = [rng.choice(_SPECIAL[dtype], (k + 1, PANE_COLS))
+                  .view(dtype)]
+    else:
+        planes = [(rng.standard_normal((k + 1, PANE_COLS))
+                   * np.exp(rng.uniform(-8, 8, (k + 1, PANE_COLS))))
+                  .astype(dtype)]
+        if kind == "avg_f32":
+            planes.append(rng.integers(0, 9, (k + 1, PANE_COLS))
+                          .astype(np.float32))
+    rows = rng.permutation(np.arange(1, k + 1)).astype(np.int32)
+    return planes, rows
+
+
+def _pane_both(kinds, kind, k, program):
+    """The reference's and the port's result of one pane program: the
+    fire's finished columns, or the fold's partial row of every leaf."""
+    import jax
+
+    jmake, tmake, dtype = kinds[kind]
+    planes, rows = _pane_case(kinds, kind, k)
+    present = np.ones((k + 1, PANE_COLS), np.int8)
+    with jax.enable_x64(dtype == np.float64):
+        jprog = jpane_programs(jmake())
+        accs = tuple(jax.numpy.asarray(p) for p in planes) + (
+            jax.numpy.asarray(present),)
+        if program == "fire_rows":
+            want = jprog[2](accs, jax.numpy.asarray(rows), PANE_COLS)[0]
+            want = {n: np.asarray(a) for n, a in want.items()}
+        else:
+            out = jprog[5](accs, 0, jax.numpy.asarray(rows))
+            want = {f"leaf_{i}": np.asarray(a[0])
+                    for i, a in enumerate(out[:len(planes)])}
+    tprog = pane_programs(tmake())
+    accs = tuple(torch.from_numpy(p.copy()) for p in planes) + (
+        torch.from_numpy(present),)
+    if program == "fire_rows":
+        got = tprog[2](accs, torch.from_numpy(rows), PANE_COLS)[0]
+        got = {n: a.numpy() for n, a in got.items()}
+    else:
+        out = tprog[5](accs, 0, torch.from_numpy(rows), PANE_COLS)
+        got = {f"leaf_{i}": a[0].numpy()
+               for i, a in enumerate(out[:len(planes)])}
+    return got, want
+
+
+@pytest.mark.parametrize("k", PANE_KS)
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("program", ["fire_rows", "fold_rows"])
+def test_pane_sum_order_matches_reference(program, kind, k):
+    """The pane fire's and the window-partial fold's float sums of k ring
+    rows: MERGE_ROWS_FN / FOLD_ROWS_FN against pane_programs."""
+    got, want = _pane_both(KINDS, kind, k, program)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        _bits_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize("k", PANE_EXTREME_KS)
+@pytest.mark.parametrize("kind", sorted(EXTREME_KINDS))
+@pytest.mark.parametrize("program", ["fire_rows", "fold_rows"])
+def test_pane_max_min_nan_order_matches_reference(program, kind, k):
+    """Max/min over k ring rows of NaN payloads, signed zeros and
+    infinities: which NaN survives, by the x86 rule over the rows in the
+    order the reference's reduce meets them."""
+    got, want = _pane_both(EXTREME_KINDS, kind, k, program)
+    for name in want:
+        _bits_equal(got[name], want[name])

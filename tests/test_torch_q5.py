@@ -2,9 +2,11 @@
 reference's run of the same job and against the oracle: at parallelism 8
 (the mesh engine; the configuration tests/test_mesh_public_api.py pins
 for the reference) and at parallelism 1 (the single-device slot table,
-as bench.py runs Q5), where the sink rows must equal the reference's in
-their order — the top-k's ties included — for Q5 and for Q5-revenue
-(float32 ``.sum("price")``).
+as bench.py runs Q5, and the pane layout, bench.py's other layout, with
+and without pre-aggregation), where the sink rows must equal the
+reference's in their order — the top-k's ties included — for Q5 and for
+Q5-revenue (float32 ``.sum("price")``); a run split against
+``latency.fire-deadline-ms`` gives the unsplit run's rows.
 
 Tolerance: none — counts are integers, float sums are compared on their
 raw bits; rows must be equal.
@@ -112,12 +114,13 @@ def test_bid_source_matches_reference_stream():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("state.window-layout", "panes", "Queue A item 6"),
+    ("state.spill.dir", "s3://bucket/spill", "Queue A item 8"),
     ("state.backend", "host-heap", "Queue A item 11"),
 ])
 def test_parallelism_one_is_not_ported_yet(key, value, item):
     """What parallelism 1 does not run yet raises, naming its ROADMAP
-    item: the pane layout and the placement backends."""
+    item: a spill directory on a remote filesystem and the placement
+    backends."""
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
@@ -255,6 +258,70 @@ def test_parallelism_one_top_k_breaks_ties_as_the_reference():
     got = _winners(rows["flink_tpu_torch"])
     assert any(len(got[w][1]) == 2 < len(ties)
                for w, (_, ties) in oracle.items())
+
+
+PANES = {"state.window-layout": "panes",
+         "state.slot-table.capacity": 1 << 14}
+
+
+@pytest.mark.parametrize("preagg", [True, False])
+@pytest.mark.parametrize("job", [16, "revenue"])
+def test_parallelism_one_panes_rows_equal_reference_in_order(job, preagg):
+    """The pane layout (state.window-layout=panes) with the delta fire
+    (latency.pane-preagg on) and with the full-window harvest: Q5 with the
+    device top-k and Q5-revenue give the reference's sink rows in order,
+    float32 sums bit for bit, and Q5 the oracle's winners."""
+    extra = {**PANES, "latency.pane-preagg": preagg}
+    rows, result = _run_p1("flink_tpu_torch", job,
+                           {**extra, "execution.device": "cpu"})
+    assert result.metrics["records_emitted_by_sources"] == TOTAL
+    want = _run_p1("flink_tpu", job, extra)[0]
+    assert rows
+    _same_rows(rows, want)
+    if job != "revenue":
+        src = _oracle_source()
+        oracle = oracle_q5(zip(src["auction"].tolist(),
+                               src.timestamps.tolist()), 10_000, 2_000)
+        got = _winners(rows)
+        assert set(got) == set(oracle)
+        for w, (best, winners) in got.items():
+            assert best == oracle[w][0] and winners <= oracle[w][1]
+
+
+@pytest.mark.parametrize("layout", ["panes", "slots"])
+def test_deadline_split_rows_equal_unsplit(layout, monkeypatch):
+    """latency.fire-deadline-ms splits each source batch at the measured
+    rate, with watermarks min(final, suffix-min - 1) and harvests between
+    the splits: the sink rows and their order are the unsplit run's."""
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+
+    extra = {**PANES, "state.window-layout": layout,
+             "execution.device": "cpu"}
+    whole = _run_p1("flink_tpu_torch", "revenue", extra)[0]
+    emits = []
+    orig = LocalExecutor._emit_batch
+
+    def counting(self, node, batch):
+        emits.append(len(batch))
+        return orig(self, node, batch)
+
+    monkeypatch.setattr(LocalExecutor, "_emit_batch", counting)
+    split = _run_p1("flink_tpu_torch", "revenue",
+                    {**extra, "latency.fire-deadline-ms": 2})[0]
+    assert len(emits) > -(-TOTAL // (1 << 14))   # it did split
+    _same_rows(split, whole)
+
+
+def test_deadline_rate_ema_settles():
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+
+    ex = LocalExecutor()
+    ex._fire_deadline_ms = 10
+    ex._deadline_rate = 0.0
+    ex._deadline_observe(1000, 0.01)
+    assert ex._deadline_rate == pytest.approx(100_000)
+    ex._deadline_observe(1000, 0.02)
+    assert 50_000 < ex._deadline_rate < 100_000
 
 
 def _oracle_source():
