@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (flink_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--records N] [--revenue-records N]
+        [--session-records N]
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -74,12 +75,32 @@ Phases, each fatal on failure (no result line is printed then):
     positive, so that bounds any two orders of the adds: pre-aggregation
     folds a window's partial in record order, not slice by slice); then
     time one call of the ordered fold at the run's [1, R*C] shape with the
-    lanes of its largest combined scatter, against its plain version.
+    lanes of its largest combined scatter, against its plain version;
+12. run BASELINE row 5 through the public API at parallelism 1 (sessions
+    with a 2 s gap over DataGenSource's 12M records and 10M keys, float32
+    ``.sum("value")``, micro-batches of 1<<16, a 1<<19-row device budget:
+    the paged spill tier evicts and reloads), not cut: (a) the sessions'
+    (key, start, end) multiset equals a NumPy oracle's exactly and every
+    sum is within 2 (n - 1) 2^-24 of its stream-order float32 sum; 0 late
+    records; the native session plane ran; print events/s, fire latency,
+    the spill counters and the state's bytes on the card; (b) the same job
+    over the first 2M records on the card and on the CPU: rows equal in
+    order, bit for bit, spill counters equal; (c) a float32 Max over phase
+    4's NaN payloads and signed zeros, 1M records over 100k keys with
+    timestamps moved back by up to 3 s so that sessions merge, under a
+    1<<15-row budget, card == CPU likewise; (d) one flat_merge_pairs call
+    at row 5's [1<<19] table with the lanes of (c)'s largest merge group
+    (row 5's own stream, in order, merges nothing), and one ordered fold
+    at row 5's ingest shape ([1, 1<<19], the lanes of the last full
+    batch that (b)'s card run folded, equal bit for bit to its plain version on
+    the CPU):
+    for each, wrapper and device ms, its plain version, its bytes bound
+    (real lanes only: padded lanes are the program's own).
 
 The launch counts of both kernels are set to 0 just before each of phases
-5 to 8, 10 and 11 and read just after; each phase fails if a kernel of its
-path did not launch (the rank at parallelism 8; the ordered fold in phases
-6, 8 and 11, Count being an integer fold).
+5 to 8, 10, 11 and 12(a) and read just after; each phase fails if a kernel
+of its path did not launch (the rank at parallelism 8; the ordered fold in
+phases 6, 8, 11 and 12, Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -1052,12 +1073,338 @@ def phase_spill(torch, records: int = 3_000_000, budget: int = 1 << 17):
     return out
 
 
+def session_oracle(records: int, batch: int):
+    """Row 5's sessions by NumPy over the same stream: records sorted by
+    (key, timestamp), stable; a new session where the key changes, where
+    the gap to the key's previous record is above 2,000 ms, and where it
+    is exactly 2,000 ms and the watermark had passed the session's end
+    before the record arrived (a later micro-batch, whose predecessor
+    ended at the record's own millisecond). Returns ``(keys, starts, ends,
+    float32 stream-order sums, record counts)``, sorted by key and
+    start."""
+    from flink_tpu_torch.benchmarks.session_profile import ROW5_GAP, \
+        row5_source
+
+    src = row5_source(records)
+    src.open()
+    parts = []
+    while (b := src.poll_batch(1 << 22)) is not None:
+        parts.append((np.asarray(b["key"], np.int64),
+                      np.asarray(b["value"], np.float32),
+                      np.asarray(b.timestamps, np.int64)))
+    keys, vals, ts = (np.concatenate(c) for c in zip(*parts))
+    order = np.lexsort((ts, keys))
+    k, t, v = keys[order], ts[order], vals[order]
+    bq = order // batch
+    batch_max = ts[np.minimum((np.arange(bq.max() + 1) + 1) * batch,
+                              records) - 1]
+    new = np.ones(len(k), dtype=bool)
+    same = k[1:] == k[:-1]
+    diff = t[1:] - t[:-1]
+    prev_max = batch_max[np.maximum(bq[1:] - 1, 0)]
+    closed = (diff == ROW5_GAP) & (bq[1:] > bq[:-1]) & (prev_max == t[1:])
+    new[1:] = ~same | (diff > ROW5_GAP) | closed
+    first = np.nonzero(new)[0]
+    n = np.diff(np.append(first, len(k)))
+    sums = np.zeros(len(first), np.float32)
+    for j in range(int(n.max())):   # stream order, in float32
+        live = n > j
+        sums[live] += v[first[live] + j]
+    return k[first], t[first], t[first + n - 1] + ROW5_GAP, sums, n
+
+
+def _jittered_specials(base_cls, jitter: int):
+    """A DataGenSource whose timestamps move back by up to ``jitter`` ms and
+    whose values carry phase 4's max/min specials (NaN payloads, signed
+    zeros), both fixed by the record indices: out of order, so sessions
+    merge."""
+    from flink_tpu_torch.connectors.sources import _splitmix64
+
+    class Jittered(base_cls):
+        def _generate(self, idx):
+            b = super()._generate(idx)
+            late = (_splitmix64(idx, 99) % np.uint64(jitter)).astype(np.int64)
+            vals = _with_specials(np.random.default_rng(int(idx[0])),
+                                  np.asarray(b["value"], np.float32))
+            return b.with_column("value", vals).with_timestamps(
+                b.timestamps - late)
+
+    return Jittered
+
+
+def _rows_equal(what, got, want):
+    """Sink rows equal in order, every column bit for bit."""
+    g, w = got.result(), want.result()
+    if len(g) != len(w) or sorted(g.names()) != sorted(w.names()):
+        raise AssertionError(f"{what}: {len(g)} rows on the card, {len(w)} "
+                             "on the CPU")
+    for name in w.names():
+        a, b = np.asarray(g[name]), np.asarray(w[name])
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{what}: column {name} differs between "
+                                 "the card and the CPU")
+    return len(w)
+
+
+def merge_plain(torch, acc, dst, src):
+    """flat_merge_pairs' plain version on one float32 leaf: the moved
+    values gathered first, folded by the ordered fold's plain version
+    (``index_add_``: on the card its atomics give other bits), the sources
+    reset."""
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes_plain
+
+    idx = src.to(torch.int64)
+    moved = acc[idx]
+    ordered_fold_planes_plain(acc.view(1, -1), dst.view(1, -1),
+                              moved.view(1, -1), "sum")
+    return acc.index_fill_(0, idx, 0.0)
+
+
+def fold_at_ingest(torch, seen):
+    """One timed ordered fold at row 5's ingest shape, on the inputs that
+    the card's session run gave its last ingest fold with the most real
+    lanes (``seen``: acc, slots, values, reduce): equal bit for bit to its plain
+    version on the CPU (on the card the plain version's ``index_add_``
+    atomics give other bits), then the wrapper's host ms, the device ms by
+    CUDA events, the plain version's ms and the bytes bound (4 B of slot
+    and 4 B of value per real lane, a read and a write of each touched
+    slot; the lanes at slot 0 are padding)."""
+    from flink_tpu_torch.stateplane.fold import (
+        ordered_fold_planes,
+        ordered_fold_planes_plain,
+    )
+
+    if not seen:
+        raise AssertionError("phase 12(d): the session run made no ingest "
+                             "fold to time")
+    acc, s, v, reduce = seen["acc"], seen["slots"], seen["values"], \
+        seen["reduce"]
+    got = ordered_fold_planes(acc.clone(), s, v, reduce)
+    want = ordered_fold_planes_plain(acc.cpu(), s.cpu(), v.cpu(), reduce)
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError("phase 12(d): the ordered fold at the ingest "
+                             "shape != its plain version")
+    real = s[s != 0]
+    n, touched = int(real.numel()), int(torch.unique(real).numel())
+    bound_ms = (8 * n + 8 * touched) / HBM_BYTES_PER_S * 1e3
+    work = acc.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        ordered_fold_planes(work, s, v, reduce)
+    wrapper_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: ordered_fold_planes(work, s, v, reduce), 50)
+    plain_ms = cuda_ms(
+        lambda: ordered_fold_planes_plain(work, s, v, reduce), 50)
+    return {"planes": int(s.shape[0]), "cap": int(acc.shape[1]),
+            "lanes": int(s.shape[1]), "real_lanes": n, "targets": touched,
+            "wrapper_ms": wrapper_ms, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": 0.0}
+
+
+def phase_sessions(torch, records: int, equal_records: int = 2_000_000,
+                   merge_records: int = 1_000_000):
+    """Phase 12: BASELINE row 5 (sessions, 10M keys, the paged spill tier)
+    through the public API at parallelism 1."""
+    import flink_tpu_torch.native as native
+    from flink_tpu_torch.benchmarks.session_profile import (
+        ROW5_KEYS,
+        ROW5_SETTINGS,
+        row5_source,
+        run_sessions,
+    )
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.ops.segment_ops import pad_bucket_size
+    from flink_tpu_torch.stateplane.families import flat_merge_pairs
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+
+    # (a) the full run, against the NumPy oracle
+    fallbacks = native.native_fallbacks()
+    reset_counts()
+    sink, wall, result, eng = run_sessions(row5_source(records))
+    counts = read_counts()
+    if counts["ordered_fold"] <= 0:
+        raise AssertionError("phase 12: the session run made no ordered-fold "
+                             "launch")
+    native_plane = (type(eng.meta).__name__ == "NativeSessionIntervalSet"
+                    and eng.meta.native_sweep_s > 0
+                    and native.native_fallbacks() == fallbacks)
+    if not native_plane:
+        raise AssertionError("phase 12: the native session plane did not run")
+    spill = eng.spill_counters()
+    if eng.late_records_dropped:
+        raise AssertionError(f"phase 12: {eng.late_records_dropped} late "
+                             "records dropped from a stream in order")
+    if spill["rows_evicted"] <= 0 or spill["rows_reloaded"] <= 0:
+        raise AssertionError(f"phase 12: the paged tier did not evict and "
+                             f"reload ({spill})")
+    lat = result.metrics.get("window_fire_latency_ms", {})
+    state_bytes = sum(a.numel() * a.element_size() for a in eng.table.accs)
+    res = sink.result()
+    got_k = np.asarray(res["key"], np.int64)
+    got_s = np.asarray(res["window_start"], np.int64)
+    got_e = np.asarray(res["window_end"], np.int64)
+    got_v = np.asarray(res["sum_value"], np.float32)
+    o = np.lexsort((got_s, got_k))
+    got_k, got_s, got_e, got_v = got_k[o], got_s[o], got_e[o], got_v[o]
+    t0 = time.perf_counter()
+    wk, ws, we, wv, wn = session_oracle(
+        records, ROW5_SETTINGS["execution.micro-batch.size"])
+    oracle_s = time.perf_counter() - t0
+    if not (np.array_equal(got_k, wk) and np.array_equal(got_s, ws)
+            and np.array_equal(got_e, we)):
+        raise AssertionError(f"phase 12: {len(got_k)} session rows, the "
+                             f"oracle's {len(wk)}: the (key, start, end) "
+                             "multisets differ")
+    rel = np.abs(got_v.astype(np.float64) - wv) / np.maximum(
+        np.abs(wv.astype(np.float64)), np.finfo(np.float32).tiny)
+    bound = 2.0 * (wn - 1) * 2.0 ** -24
+    over = int((rel > bound).sum())
+    if over:
+        raise AssertionError(f"phase 12: {over} session sums beyond "
+                             "2 (n - 1) 2^-24 of the oracle's")
+    differ = int((got_v.view(np.int32) != wv.view(np.int32)).sum())
+
+    # (b) the card against the CPU over the first 2M records; the card's
+    # run keeps the inputs of its last ingest fold with the most real
+    # (non-padding) lanes — a full batch, mid-stream, the table full — for
+    # (d)
+    import flink_tpu_torch.stateplane.fold as fold_mod
+
+    launch, seen = fold_mod._launch, {}
+
+    def capture(acc, slots, values, reduce, cap, fold):
+        real = int((slots != 0).sum()) if fold else -1
+        if fold and real >= seen.get("real", 0):
+            seen.update(real=real, acc=acc.clone(), slots=slots.clone(),
+                        values=values.clone(), reduce=reduce)
+        return launch(acc, slots, values, reduce, cap, fold)
+
+    fold_mod._launch = capture
+    try:
+        card, _, _, ceng = run_sessions(row5_source(equal_records))
+    finally:
+        fold_mod._launch = launch
+    cpu, cpu_s, _, peng = run_sessions(row5_source(equal_records), "cpu")
+    n_equal = _rows_equal("phase 12(b)", card, cpu)
+    if ceng.spill_counters() != peng.spill_counters():
+        raise AssertionError(f"phase 12(b): spill counters differ: card "
+                             f"{ceng.spill_counters()}, CPU "
+                             f"{peng.spill_counters()}")
+
+    # (c) float32 Max over NaN payloads and signed zeros, out of order so
+    # that sessions merge, under a budget of 1<<15 rows
+    merge_settings = {"execution.micro-batch.size": 1 << 13,
+                      "state.slot-table.capacity": 1 << 15,
+                      "state.slot-table.max-device-slots": 1 << 15}
+    src_cls = _jittered_specials(DataGenSource, 3_000)
+    reset_counts()
+    mcard, _, _, meng = run_sessions(
+        src_cls(merge_records, 100_000, 400_000, seed=3), "cuda",
+        merge_settings, agg="max", out_of_orderness=3_000)
+    mcounts = read_counts()
+    mcpu, _, _, mpeng = run_sessions(
+        src_cls(merge_records, 100_000, 400_000, seed=3), "cpu",
+        merge_settings, agg="max", out_of_orderness=3_000)
+    m_equal = _rows_equal("phase 12(c)", mcard, mcpu)
+    if meng.spill_counters() != mpeng.spill_counters() \
+            or meng.merge_groups != mpeng.merge_groups:
+        raise AssertionError("phase 12(c): spill counters or merges differ")
+    if meng.merge_groups <= 0 or meng.spill_counters()["rows_evicted"] <= 0:
+        raise AssertionError("phase 12(c): no merge or no eviction")
+
+    # (d) one flat_merge_pairs at the largest merge group's lanes, on row
+    # 5's table ([1<<19] float32); run (a) merges nothing (its timestamps
+    # rise with the record index), so the group is run (c)'s
+    cap = ROW5_SETTINGS["state.slot-table.capacity"]
+    pairs = meng.merge_pairs_max
+    size = pad_bucket_size(pairs)
+    rng = np.random.default_rng(12)
+    perm = rng.permutation(np.arange(1, cap))
+    dst = np.zeros(size, np.int32)
+    src = np.zeros(size, np.int32)
+    dst[:pairs] = rng.choice(perm[:max(pairs // 2, 1)], pairs)
+    src[:pairs] = perm[cap // 2:cap // 2 + pairs]
+    d, s_ = torch.from_numpy(dst).cuda(), torch.from_numpy(src).cuda()
+    acc0 = torch.from_numpy(rng.random(cap).astype(np.float32)).cuda()
+    acc0[0] = 0.0
+    prog = flat_merge_pairs(SumAggregate("value").leaves)
+    got = prog((acc0.clone(),), d, s_)[0]
+    want = prog((acc0.cpu(),), d.cpu(), s_.cpu())[0]
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError("phase 12(d): flat_merge_pairs on the card != "
+                             "the CPU")
+    work = acc0.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        prog((work,), d, s_)
+    wrapper_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: prog((work,), d, s_), 50)
+    plain_ms = cuda_ms(lambda: merge_plain(torch, work, d, s_), 50)
+    touched = len(np.unique(dst[:pairs]))
+    # per real pair: its dst and src, the moved value read and the source
+    # reset; per dst slot a read and a write (padded lanes are the
+    # program's own padding, not work)
+    nbytes = 16 * pairs + 8 * touched
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    merge = {"table": cap, "pairs": pairs, "lanes": size,
+             "dst_targets": touched, "wrapper_ms": wrapper_ms, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": "bytes"}
+    ingest = fold_at_ingest(torch, seen)
+
+    out = {"records": records, "keys": ROW5_KEYS, "elapsed_s": wall,
+           "events_per_s": records / wall, "fire_latency_ms": lat,
+           "spill_counters": spill,
+           "late_records_dropped": eng.late_records_dropped,
+           "state_bytes": state_bytes, "native_plane": native_plane,
+           "native_sweep_s": eng.meta.native_sweep_s,
+           "merge_groups": eng.merge_groups, "launches": counts,
+           "sessions": len(wk), "sums_bitwise_differing": differ,
+           "max_rel_err": float(rel.max()), "oracle_s": oracle_s,
+           "card_equals_cpu_rows": n_equal, "cpu_s": cpu_s,
+           "card_equals_cpu_max_rows": m_equal,
+           "max_job": {"records": merge_records, "keys": 100_000,
+                       "merge_groups": meng.merge_groups,
+                       "merge_pairs_max": pairs,
+                       "spill_counters": meng.spill_counters(),
+                       "launches": mcounts},
+           "merge_timing": merge, "ingest_fold_timing": ingest}
+    print(f"phase 12: BASELINE row 5 sessions P=1, {records} records over "
+          f"{ROW5_KEYS} keys in {wall:.3f} s = {records / wall:.0f} events/s; fire "
+          f"latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms; "
+          f"{len(wk)} sessions equal to the oracle's (key, start, end) and "
+          f"every sum within 2 (n - 1) 2^-24 ({differ} differ in bits); "
+          f"spill {spill}; late records dropped "
+          f"{eng.late_records_dropped}; state {state_bytes} B on the card; "
+          f"native plane ran ({eng.meta.native_sweep_s:.3f} s in sweeps); "
+          f"launches {counts}; (b) first {equal_records} records: "
+          f"{n_equal} rows equal on the card and the CPU, spill counters "
+          f"equal; (c) Max with NaN payloads, out of order: {m_equal} rows "
+          f"equal, {meng.merge_groups} merge groups (largest {pairs} "
+          f"pairs); (d) flat_merge_pairs at [{cap}] with {size} lanes: "
+          f"wrapper {wrapper_ms:.4f} ms, device {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bytes bound {bound_ms:.5f} ms; the ingest "
+          f"fold at [1, {cap}] with {ingest['lanes']} lanes "
+          f"({ingest['real_lanes']} real, {ingest['targets']} targets): "
+          f"wrapper {ingest['wrapper_ms']:.4f} ms, device "
+          f"{ingest['ms']:.4f} ms, plain {ingest['plain_ms']:.4f} ms, bytes "
+          f"bound {ingest['bound_ms']:.5f} ms")
+    print("sessions " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
                     help="Q5 records (40M: the size of bench.py's run)")
     ap.add_argument("--revenue-records", type=int, default=10_000_000,
                     help="Q5-revenue records")
+    ap.add_argument("--session-records", type=int, default=12_000_000,
+                    help="BASELINE row 5 session records (12M: its size)")
     args = ap.parse_args()
     import torch
 
@@ -1095,7 +1442,8 @@ def main() -> int:
     phase_spill(torch)
     q5_panes = phase_q5(torch, args.records, parallelism=1, layout="panes")
     rev_panes = phase_revenue_panes(torch, args.revenue_records)
-    runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes)
+    sessions = phase_sessions(torch, args.session_records)
+    runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions)
 
     kernels = [{
         "name": "exchange_rank",

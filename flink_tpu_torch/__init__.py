@@ -8,10 +8,12 @@ an explicit device: entry points take a ``device`` (or read
 ``"cuda"``. A host without CUDA raises on that default — the port never
 drops to the CPU by itself; callers (the tests) ask for ``"cpu"``.
 
-This slice carries the Nexmark Q5 mesh path: ``keyBy -> window ->
-aggregate`` at ``parallelism.default > 1`` on a logical P-shard mesh on
-one device, with the exchange rank as a hand-written CUDA kernel
-(``csrc/rank.cu``). The package imports neither ``jax`` nor anything of
+The port carries the Nexmark Q5 path — ``keyBy -> window -> aggregate``
+at ``parallelism.default > 1`` on a logical P-shard mesh on one device
+(the exchange rank as the hand-written CUDA kernel ``csrc/rank.cu``) and
+at parallelism 1 in the slot and pane layouts — and session windows at
+parallelism 1 over the paged spill tier; float folds run in stream order
+through the hand-written ``csrc/ordered_fold.cu``. The package imports neither ``jax`` nor anything of
 ``flink_tpu`` (importing ``flink_tpu`` loads jax).
 """
 

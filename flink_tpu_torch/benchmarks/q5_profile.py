@@ -169,7 +169,6 @@ def main() -> None:
                     help="state.window-layout at parallelism 1")
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     layout = args.layout if args.parallelism == 1 else None
     wall, result = run_q5(args.records, args.parallelism, layout)
@@ -180,20 +179,32 @@ def main() -> None:
     patches, undo = (_mesh_patches if layout is None
                      else _pane_patches if layout == "panes"
                      else _single_device_patches)(acc)
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, key in patches:
-        setattr(obj, name, _timed(acc, key, getattr(obj, name)))
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            pwall, _ = run_q5(args.records, args.parallelism, layout)
+        (pwall, _), host_s, prof = profile_patched(
+            patches, lambda: run_q5(args.records, args.parallelism, layout),
+            acc)
     finally:
         undo()
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
 
-    # device activity only (kernels and copies as the device ran them):
-    # the host-side aten:: ops that launched them carry the same time
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "records": args.records,
+        "parallelism": args.parallelism,
+        "layout": layout,
+        "plain_run": plain,
+        "profiled_wall_s": pwall,
+        "host_s": host_s,
+        **device_summary(prof, pwall),
+    }))
+
+
+def device_summary(prof, wall_s: float) -> dict:
+    """The device's busy and idle share of ``wall_s`` and its largest
+    items, from a torch.profiler trace: device activity only (kernels and
+    copies as the device ran them; the host-side aten:: ops that launched
+    them carry the same time)."""
+    import torch
+
     kernels = defaultdict(lambda: {"device_ms": 0.0, "calls": 0})
     busy_us = 0.0
     for ev in prof.events():
@@ -206,19 +217,31 @@ def main() -> None:
         busy_us += us
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
                [:12])
-    print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
-        "records": args.records,
-        "parallelism": args.parallelism,
-        "layout": layout,
-        "plain_run": plain,
-        "profiled_wall_s": pwall,
-        "host_s": dict(sorted(acc.items())),
-        "device_busy_s": busy_us / 1e6,
-        "device_busy_share": busy_us / 1e6 / pwall,
-        "device_idle_share": 1 - busy_us / 1e6 / pwall,
-        "top_device_ops": top,
-    }))
+    return {"device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "device_idle_share": 1 - busy_us / 1e6 / wall_s,
+            "top_device_ops": top}
+
+
+def profile_patched(patches, run, acc=None):
+    """``run()`` under torch.profiler with each ``(object, attribute,
+    stage)`` of ``patches`` wrapped in a host wall-clock accumulator
+    (``acc``, restored after). Returns ``(run's result, host s per stage,
+    prof)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acc = defaultdict(float) if acc is None else acc
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, key in patches:
+        setattr(obj, name, _timed(acc, key, getattr(obj, name)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return out, dict(sorted(acc.items())), prof
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Sources (port of ``flink_tpu/connectors/sources.py``: the base class
-and the counter-based hash the synthetic generators derive their records
-from)."""
+"""Sources (port of ``flink_tpu/connectors/sources.py``: the base class,
+the counter-based hash the synthetic generators derive their records from,
+and ``DataGenSource``)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,65 @@ def _splitmix64(idx: np.ndarray, salt: int) -> np.ndarray:
         z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
         z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
         return z ^ (z >> np.uint64(31))
+
+
+class DataGenSource(Source):
+    """Deterministic synthetic events (keys, float32 values, event time),
+    the reference's datagen generator: a record's content is a pure
+    function of its GLOBAL index (counter-based hashing), so re-reads,
+    re-batching and parallel splits observe the same stream — bit for bit
+    the reference's, key skew included."""
+
+    def __init__(self, total_records: int, num_keys: int,
+                 events_per_second_of_eventtime: int = 10000,
+                 key_field: str = "key", value_field: str = "value",
+                 seed: int = 7, start_ts: int = 0, skew: float = 0.0):
+        self.total = int(total_records)
+        self.num_keys = int(num_keys)
+        self.rate = int(events_per_second_of_eventtime)
+        self.key_field = key_field
+        self.value_field = value_field
+        self.seed = seed
+        self.start_ts = start_ts
+        self.skew = skew
+        self._emitted = 0  # within this subtask's range
+        self._start = 0
+        self._end = self.total
+
+    def open(self, subtask_index=0, parallelism=1):
+        # a contiguous split of the global index space; the position resets
+        # so that a re-executed graph generates the same stream
+        per = -(-self.total // max(parallelism, 1))
+        self._start = min(subtask_index * per, self.total)
+        self._end = min(self._start + per, self.total)
+        self._emitted = 0
+
+    def _generate(self, idx: np.ndarray) -> RecordBatch:
+        u_key = _splitmix64(idx, self.seed * 2 + 1)
+        if self.skew > 0.0:
+            # zipf-ish skew by an inverse power transform of the uniform
+            # hash
+            u = (u_key >> np.uint64(11)).astype(np.float64) / (1 << 53)
+            raw = np.maximum(
+                1.0, np.power(np.maximum(u, 1e-12), -1.0 / self.skew))
+            raw = np.minimum(raw, 1e18)
+            keys = raw.astype(np.int64) % self.num_keys
+        else:
+            keys = (u_key % np.uint64(self.num_keys)).astype(np.int64)
+        u_val = _splitmix64(idx, self.seed * 2 + 2)
+        values = ((u_val >> np.uint64(11)).astype(np.float64)
+                  / (1 << 53)).astype(np.float32)
+        # event time advances with the GLOBAL index
+        ts = self.start_ts + (idx * 1000) // max(self.rate, 1)
+        return RecordBatch.from_pydict(
+            {self.key_field: keys, self.value_field: values}, timestamps=ts)
+
+    def poll_batch(self, max_records):
+        own = self._end - self._start
+        if self._emitted >= own:
+            return None
+        n = min(max_records, own - self._emitted)
+        idx = np.arange(self._start + self._emitted,
+                        self._start + self._emitted + n, dtype=np.int64)
+        self._emitted += n
+        return self._generate(idx)

@@ -1,6 +1,7 @@
-"""The DataStream fluent API (port of the Q5 surface of
-``flink_tpu/datastream/stream.py``): map, key_by, window, aggregate and
-its shorthands (sum, count, max, min, avg), and sinks. Each method builds
+"""The DataStream fluent API (port of the Q5 and session surface of
+``flink_tpu/datastream/stream.py``): map, key_by, window — aligned or
+merging (sessions) —, aggregate and its shorthands (sum, count, max, min,
+avg), and sinks. Each method builds
 ``Transformation`` nodes that the executor turns into batched operators."""
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from flink_tpu_torch.graph.transformations import Transformation
 from flink_tpu_torch.runtime.operators import (
     KeyByOperator,
     MapOperator,
+    SessionWindowAggOperator,
     SinkOperator,
     WindowAggOperator,
 )
@@ -101,12 +103,23 @@ class WindowedStream:
         key_field = self.keyed.key_field
         assigner = self.assigner
         lateness = self._allowed_lateness
+        if getattr(assigner, "is_merging", False):
+            if fire_projector is not None:
+                raise ValueError(
+                    "fire_projector is not supported for merging (session) "
+                    "windows yet — a session fire emits one row per "
+                    "(key, merged window), not one batch per aligned window")
+            gap = assigner.gap
+            factory = lambda: SessionWindowAggOperator(  # noqa: E731
+                gap, agg, key_field, capacity=capacity,
+                allowed_lateness=lateness)
+        else:
+            factory = lambda: WindowAggOperator(  # noqa: E731
+                assigner, agg, key_field, capacity=capacity,
+                allowed_lateness=lateness, fire_projector=fire_projector)
         t = Transformation(
             name=name or f"window_agg({type(agg).__name__})",
-            kind="one_input",
-            operator_factory=lambda: WindowAggOperator(
-                assigner, agg, key_field, capacity=capacity,
-                allowed_lateness=lateness, fire_projector=fire_projector),
+            kind="one_input", operator_factory=factory,
             inputs=[self.keyed.transformation],
             keyed=True, key_field=key_field)
         return DataStream(env, t)

@@ -165,6 +165,8 @@ def _declare_slotmap(lib) -> None:
     lib.sm_erase.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
     lib.sm_lookup.restype = None
     lib.sm_lookup.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
+    lib.sm_verify.restype = None
+    lib.sm_verify.argtypes = [vp, i64, P(i64), P(i64), P(i32), P(i32)]
     lib.sm_group_rows.restype = i64
     lib.sm_group_rows.argtypes = [P(i64), i64, P(i64), P(i32)]
     lib.sm_pane_ingest.restype = i32
@@ -184,10 +186,116 @@ def _declare_datagen(lib) -> None:
                               P(i64), P(i64), P(c.c_float), P(i64)]
 
 
+def _declare_sessions(lib) -> None:
+    c = ctypes
+    i64, i32, u8, vp = c.c_int64, c.c_int32, c.c_uint8, c.c_void_p
+    P = c.POINTER
+    lib.sx_create.restype = vp
+    lib.sx_create.argtypes = [i64, i64]
+    lib.sx_destroy.restype = None
+    lib.sx_destroy.argtypes = [vp]
+    lib.sx_capacity.restype = i64
+    lib.sx_capacity.argtypes = [vp]
+    lib.sx_used.restype = i64
+    lib.sx_used.argtypes = [vp]
+    for name in ("sx_keys", "sx_starts", "sx_ends", "sx_sids"):
+        getattr(lib, name).restype = P(i64)
+        getattr(lib, name).argtypes = [vp]
+    lib.sx_dslots.restype = P(i32)
+    lib.sx_dslots.argtypes = [vp]
+    lib.sx_used_mask.restype = P(u8)
+    lib.sx_used_mask.argtypes = [vp]
+    lib.sx_lookup.restype = None
+    lib.sx_lookup.argtypes = [vp, i64, P(i64), P(i32)]
+    lib.sx_insert.restype = i32
+    lib.sx_insert.argtypes = [vp, i64, P(i64), P(i32)]
+    lib.sx_erase_rows.restype = None
+    lib.sx_erase_rows.argtypes = [vp, i64, P(i32)]
+    lib.sx_lookup1.restype = i32
+    lib.sx_lookup1.argtypes = [vp, i64]
+    lib.sx_insert1.restype = i32
+    lib.sx_insert1.argtypes = [vp, i64]
+    lib.sx_erase1.restype = None
+    lib.sx_erase1.argtypes = [vp, i32]
+    lib.sx_multi_add.restype = None
+    lib.sx_multi_add.argtypes = [vp, i64]
+    lib.sx_multi_remove.restype = None
+    lib.sx_multi_remove.argtypes = [vp, i64]
+    lib.sx_multi_count.restype = i64
+    lib.sx_multi_count.argtypes = [vp]
+    lib.sx_absorb.restype = i64
+    lib.sx_absorb.argtypes = [vp, i64, P(i64), P(i64),  # n, keys, ts
+                              i64, i64, i64, i64,  # gap, late, mfw, sid
+                              P(i64), P(i64),      # order, rec_to_sess
+                              P(i64), P(i64), P(i64), P(i64),  # k/s/e/sid
+                              P(i32), P(i32), P(u8),  # slot/row/flags
+                              P(i64)]              # out n_fast
+    lib.sx_fold.restype = None
+    lib.sx_fold.argtypes = [vp, i64, P(i64), P(i64), P(i32)]
+    lib.sx_fold_rows.restype = None
+    lib.sx_fold_rows.argtypes = [vp, i64, P(i32), P(i64), P(i32)]
+    lib.sx_push_chunk.restype = None
+    lib.sx_push_chunk.argtypes = [vp, i64, P(i64), P(i64), P(i64)]
+    lib.sx_min_pending.restype = i64
+    lib.sx_min_pending.argtypes = [vp]
+    lib.sx_pop.restype = i64
+    lib.sx_pop.argtypes = [vp, i64, P(i64)]
+    lib.sx_pop_fetch.restype = None
+    lib.sx_pop_fetch.argtypes = [vp, P(i64), P(i64), P(i64), P(i64), P(i32)]
+    lib.sx_pop_fetch_rest.restype = None
+    lib.sx_pop_fetch_rest.argtypes = [vp, P(i64), P(i64), P(i64)]
+    # the mesh session engine's sweeps (ROADMAP Queue A item 7b): declared
+    # with the rest of the library, called by nothing yet
+    lib.sx_shard_group.restype = i64
+    lib.sx_shard_group.argtypes = [i64, P(i64), P(i64), P(u8), P(i32),
+                                   P(i32), i64, i64, i64, i64,
+                                   P(i64), P(i64), P(i64),
+                                   P(i64), P(i64), P(u8), P(i32), P(i32)]
+    lib.sx_route.restype = None
+    lib.sx_route.argtypes = [i64, i64, P(i64), P(i64), i64, P(i64),
+                             P(i32), P(i64), P(i32), P(i64)]
+    lib.sx_rec_shard_max.restype = i64
+    lib.sx_rec_shard_max.argtypes = [i64, P(i64), i64, i64, i64, i64]
+
+
 def load_slotmap() -> Optional[ctypes.CDLL]:
     """The native key->slot index (native/slotmap.cpp), or None."""
     return _load_once("slotmap", "slotmap.cpp", "_slotmap.so",
                       _declare_slotmap)
+
+
+def load_sessions() -> Optional[ctypes.CDLL]:
+    """The native session-metadata plane (native/sessions.cpp), or None:
+    sessionize, absorb and fire-candidate upkeep in one C sweep per batch
+    (``windowing/session_native.py``)."""
+    return _load_once("sessions", "sessions.cpp", "_sessions.so",
+                      _declare_sessions)
+
+
+#: degradations from a wanted native plane to its Python counterpart
+#: (a build or load failure): 0 on a healthy host
+_fallbacks = 0
+_fallback_reasons: set = set()
+
+
+def note_fallback(reason: str) -> None:
+    """Record one native -> Python degradation LOUDLY: a warning per
+    distinct reason and a bump of :func:`native_fallbacks` (a silent
+    fallback would hide a host-path slowdown behind a green suite)."""
+    global _fallbacks
+    _fallbacks += 1
+    if reason not in _fallback_reasons:
+        _fallback_reasons.add(reason)
+        import warnings
+
+        warnings.warn(f"flink_tpu_torch native plane degraded to its "
+                      f"Python fallback: {reason}", RuntimeWarning,
+                      stacklevel=3)
+
+
+def native_fallbacks() -> int:
+    """Native -> Python degradations in this process."""
+    return _fallbacks
 
 
 def load_datagen() -> Optional[ctypes.CDLL]:

@@ -100,28 +100,40 @@ def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         s)
 
 
-def _fold_rows(x: torch.Tensor) -> torch.Tensor:
+def _fold_rows(x: torch.Tensor, new_first: bool = False) -> torch.Tensor:
     """``x [..., m, c]`` added along axis -2 from 0, left to right, for
-    each of the c columns at once: ``[..., c]``."""
+    each of the c columns at once: ``[..., c]``. ``new_first``: each add
+    takes the row as its first operand (``x_j + acc``): the same finite
+    sum, but where both are NaN the row's NaN, the LATER one, is kept."""
     acc = torch.zeros_like(x[..., 0, :])
     for j in range(x.shape[-2]):
-        acc = _add(acc, x[..., j, :])
+        acc = _add(x[..., j, :], acc) if new_first else \
+            _add(acc, x[..., j, :])
     return acc
 
 
-def _lanes(x: torch.Tensor, lanes: int, width: int) -> torch.Tensor:
+def _lanes(x: torch.Tensor, lanes: int, width: int,
+           pane: bool = False) -> torch.Tensor:
     """The vectorised form of XLA's CPU reduce over the last dim: ``lanes``
     accumulators from 0, lane i adding slices i, i + lanes, ... of the
     first ``lanes * (k // lanes)``; the accumulators taken as vectors of
     ``width`` and added vector by vector, left to right; that vector
     halved (lane i + lane i + width/2, ..., then i + i+1); the last
-    ``k % lanes`` slices added to it left to right."""
+    ``k % lanes`` slices added to it left to right.
+
+    ``pane``: the operand order of the pane fire, which shows only in which
+    of two NaNs a sum keeps (``tests/reference_fire_order.py --program
+    pane``, 4,096 and 7 columns): float64 adds each further vector as the
+    FIRST operand, and float32 at 32 rows adds each row of a lane as the
+    first operand (:func:`_fold_rows`'s ``new_first``)."""
     k = x.shape[-1]
     m = k // lanes * lanes
-    acc = _fold_rows(x[..., :m].unflatten(-1, (m // lanes, lanes)))
+    acc = _fold_rows(x[..., :m].unflatten(-1, (m // lanes, lanes)),
+                     new_first=pane and (width, k) == (8, 32))
     vec = acc[..., :width]
     for j in range(width, lanes, width):
-        vec = _add(vec, acc[..., j:j + width])
+        vec = _add(acc[..., j:j + width], vec) if pane and width == 4 \
+            else _add(vec, acc[..., j:j + width])
     w = width
     while w > 1:
         w //= 2
@@ -140,7 +152,8 @@ def _lane_shape(x: torch.Tensor, k: int) -> Tuple[int, int]:
     return (16 if (width, k) == (4, 32) else 8), width
 
 
-def _merge_sum(x: torch.Tensor, lanes_from: int = 28) -> torch.Tensor:
+def _merge_sum(x: torch.Tensor, lanes_from: int = 28,
+               pane: bool = False) -> torch.Tensor:
     """The order in which XLA's CPU reduce adds the slice axis (the last
     dim) of a fire. The reference's fire takes it from its CPU backend,
     whose loop follows the host's vector width (256 bits: 8 float32 or 4
@@ -165,7 +178,9 @@ def _merge_sum(x: torch.Tensor, lanes_from: int = 28) -> torch.Tensor:
     (ROADMAP Queue C items 7 and 9). A NaN sum takes the NaN of the add
     where it first appeared, the earlier operand's when both are NaN
     (where one add meets two NaNs the reference's compiled loops keep
-    either: Queue C item 6). Integer sums are exact in any order."""
+    either: Queue C item 6) — ``pane``: the pane fire's operand order in
+    the lanes form (:func:`_lanes`). Integer sums are exact in any
+    order."""
     k = x.shape[-1]
     if k == 1:
         return x[..., 0].clone()
@@ -174,7 +189,7 @@ def _merge_sum(x: torch.Tensor, lanes_from: int = 28) -> torch.Tensor:
     if k < lanes_from and k <= 32:
         return _fold_rows(x.unsqueeze(-1))[..., 0]
     if k <= 32:
-        return _lanes(x, *_lane_shape(x, k))
+        return _lanes(x, *_lane_shape(x, k), pane=pane)
     # chunk j's slices as row j of an [n, 32] index, padded with column
     # k, a +0.0: a sum from +0.0 is never -0.0, so the pads leave it as
     # it is, NaN bits included
@@ -198,13 +213,16 @@ def _chunk_sizes(k: int) -> list:
     return [-(-r // 2)] + [32] * (n - 2) + [r // 2]
 
 
-def _merge_extreme(x: torch.Tensor, reduce: str) -> torch.Tensor:
+def _merge_extreme(x: torch.Tensor, reduce: str,
+                   last: bool = True) -> torch.Tensor:
     """Max/min over the last dim as XLA's x86 reduce gives them: -0.0
     below +0.0, and where the slices hold a NaN its bits — for max the
     first negative NaN, else the last NaN; for min the first positive NaN,
     else the last NaN (the ingest fold's rule, ``nan_priority``), the
     slices met left to right (the fires meet 23 to 32 slices in another
-    order: :func:`_extreme_order`)."""
+    order: :func:`_extreme_order`). ``last=False`` keeps the FIRST NaN
+    where no NaN of the priority sign is met (how the pane fire joins two
+    partials at 23 rows: :func:`_merge_pane_extreme_23`)."""
     red = torch.amax if reduce == "max" else torch.amin
     if not x.dtype.is_floating_point:
         return red(x, dim=-1)
@@ -215,8 +233,10 @@ def _merge_extreme(x: torch.Tensor, reduce: str) -> torch.Tensor:
     k = x.shape[-1]
     pos = torch.arange(k, device=x.device)
     first = torch.where(nan_priority(x, reduce), pos, k).amin(dim=-1)
-    last = torch.where(nan, pos, -1).amax(dim=-1)
-    keep = torch.where(first < k, first, last)
+    other = (torch.where(nan, pos, -1).amax(dim=-1) if last else
+             torch.where(nan, pos, k).amin(dim=-1).masked_fill_(
+                 ~nan.any(dim=-1), -1))
+    keep = torch.where(first < k, first, other)
     picked = x.gather(-1, keep.clamp(min=0).unsqueeze(-1)).squeeze(-1)
     return torch.where(keep >= 0, picked, out)
 
@@ -227,19 +247,14 @@ def _extreme_order(k: int, width: int, lanes_from: int):
     ``lanes_from`` to 32 slices the reduce runs in vector lanes (ROADMAP
     Queue C items 8 and 9, measured by ``tests/reference_fire_order.py``).
     ``lanes_from`` is 25 in the slot layout's fires (a reduce of the last
-    axis) and 23 in the pane fire (the leading axis of ``[k, C]``);
+    axis) and 23 in the pane fire (the leading axis of ``[k, C]``, which
+    meets 23 rows in a tree of its own: :func:`_merge_pane_extreme_23`);
     ``width``: lanes of one 256-bit vector, 8 for float32, 4 for float64.
     Lane i of the accumulators takes slices i, i + lanes, ...; the x86 NaN
     rule is associative, so the reduce keeps the NaN that the sequential
     rule keeps over the slices in the returned order."""
     if not lanes_from <= k <= 32:
         return None
-    if k == 23:
-        # the pane fire: 4 lanes over slices 0-15, then 16-19 as one
-        # vector, then 20-22 one by one
-        pos = [0, 1, 2, 3] if width == 8 else [0, 2, 1, 3]
-        return [r for p in pos for r in range(p, 16, 4)] + \
-            [16 + p for p in pos] + [20, 21, 22]
     lanes = 16 if (width, k) == (4, 32) else 8
     m = k // lanes * lanes
     if width == 8:   # one vector, halved once, then in order
@@ -251,9 +266,33 @@ def _extreme_order(k: int, width: int, lanes_from: int):
         list(range(m, k))
 
 
+def _merge_pane_extreme_23(x: torch.Tensor, reduce: str) -> torch.Tensor:
+    """The pane fire's max/min over 23 rows (the last dim of ``x``), a
+    tree measured by ``tests/reference_fire_order.py --program pane`` from
+    pairs of NaNs of the priority sign (which one is met first) and of
+    the other sign (which one is met last): rows 0-15 in four lanes
+    (float32 lanes 0, 1, 2, 3 in turn; float64 0, 2, 1, 3), rows 16-18
+    on their own (float64: 16, 18, 17), the two partials joined keeping
+    the first NaN of either kind — rows 0-15 before 16-18 —, then rows
+    19-22 one by one."""
+    pos = [0, 1, 2, 3] if x.element_size() == 4 else [0, 2, 1, 3]
+    head = _merge_extreme(x[..., [r for p in pos for r in range(p, 16, 4)]],
+                          reduce)
+    mid = _merge_extreme(x[..., [16, 17, 18] if x.element_size() == 4
+                            else [16, 18, 17]], reduce)
+    joined = _merge_extreme(torch.stack([head, mid], dim=-1), reduce,
+                            last=False)
+    return _merge_extreme(torch.cat([joined.unsqueeze(-1), x[..., 19:23]],
+                                    dim=-1), reduce)
+
+
 def _merge_fire_extreme(x: torch.Tensor, reduce: str,
                         lanes_from: int = 25) -> torch.Tensor:
-    """A fire's max/min over the last dim of ``x [..., k]``."""
+    """A fire's max/min over the last dim of ``x [..., k]``; the pane fire
+    (``lanes_from`` 23) meets 23 rows in :func:`_merge_pane_extreme_23`'s
+    tree."""
+    if (lanes_from, x.shape[-1]) == (23, 23) and x.dtype.is_floating_point:
+        return _merge_pane_extreme_23(x, reduce)
     order = _extreme_order(x.shape[-1], 32 // x.element_size(), lanes_from) \
         if x.dtype.is_floating_point else None
     if order is not None:
@@ -283,7 +322,7 @@ def _rows(merge: Callable, **kw) -> Callable:
 #: CPU vector width (256 bits): a host with other vectors orders the
 #: reference's reduce otherwise.
 MERGE_ROWS_FN: Dict[str, Callable] = {
-    "sum": _rows(_merge_sum, lanes_from=25),
+    "sum": _rows(_merge_sum, lanes_from=25, pane=True),
     "max": _rows(_merge_fire_extreme, reduce="max", lanes_from=23),
     "min": _rows(_merge_fire_extreme, reduce="min", lanes_from=23),
 }

@@ -1,6 +1,6 @@
-"""Stream operators (port of the Q5 operators of
-``flink_tpu/runtime/operators.py``): map, keyBy, the sink, and the keyed
-window aggregation.
+"""Stream operators (port of the Q5 and session operators of
+``flink_tpu/runtime/operators.py``): map, keyBy, the sink, the keyed
+window aggregation and the keyed session-window aggregation.
 
 An operator processes one ``RecordBatch`` per call and reacts to watermark
 advances; all operators are single-owner (called from one task loop).
@@ -286,6 +286,45 @@ class WindowAggOperator(Operator):
     def dispose(self):
         self._pending.clear()
         self._fences.clear()
+
+
+class SessionWindowAggOperator(WindowAggOperator):
+    """Merging session windows (``windowing/sessions.py``): the key
+    reattachment, fire latency and async-fire plumbing of
+    WindowAggOperator over a ``SessionWindower`` on ``ctx.device``, at
+    parallelism 1. The mesh session engine is not ported: above
+    parallelism 1 it raises, never running parallelism 1 instead."""
+
+    name = "session_window_agg"
+
+    def __init__(self, gap: int, agg: AggregateFunction, key_field: str,
+                 capacity: int = 1 << 16, allowed_lateness: int = 0):
+        super().__init__(assigner=None, agg=agg, key_field=key_field,
+                         capacity=capacity,
+                         allowed_lateness=allowed_lateness)
+        self.gap = gap
+
+    def open(self, ctx):
+        from flink_tpu_torch.windowing.sessions import SessionWindower
+
+        if ctx.parallelism > 1:
+            raise NotImplementedError(
+                f"session windows at parallelism {ctx.parallelism} run on "
+                "the mesh session engine, which is not ported to "
+                "flink_tpu_torch yet (ROADMAP.md, Queue A item 7b); use "
+                "parallelism 1")
+        if ctx.state_backend != "tpu-slot-table":
+            raise NotImplementedError(
+                f"state.backend={ctx.state_backend!r}: placement backends "
+                "are not ported to flink_tpu_torch yet (ROADMAP.md, Queue A "
+                "item 11)")
+        self.windower = SessionWindower(
+            self.gap, self.agg, capacity=self.capacity,
+            max_parallelism=ctx.max_parallelism,
+            allowed_lateness=self.allowed_lateness,
+            spill={**ctx.spill, "device": ctx.device})
+        self._async_fires = bool(ctx.async_fires)
+        self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
 
 
 class SinkOperator(Operator):

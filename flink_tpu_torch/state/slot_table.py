@@ -12,14 +12,17 @@
   ``[capacity]`` accumulators on the device, one per aggregate leaf,
   updated by the programs of ``stateplane/families.py``. With
   ``max_device_slots`` the device table is a bounded cache over a host
-  (then local-filesystem) ``SpillTier``: the least recently touched
-  namespaces are evicted wholesale (one gather + one reset) and reload on
-  the next access (one put).
+  (then local-filesystem) ``SpillTier``. In the namespace layout the
+  least recently touched namespaces are evicted wholesale (one gather +
+  one reset) and reload on the next access (one put). In the paged layout
+  (``spill_layout="pages"``, the session tables: one row per namespace)
+  the coldest rows move as one page per eviction and reload row by row
+  (``state/paged_spill.py``).
 
 Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
-item (Queue A): the paged spill layout (item 7), a ``state.spill.dir``
-with a scheme other than a local path (item 8), snapshots and restore
-(item 8), and point queries (item 12).
+item (Queue A): a ``state.spill.dir`` with a scheme other than a local
+path (item 8), snapshots and restore (item 8), and point queries (item
+12).
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ from flink_tpu_torch.ops.segment_ops import (
     sticky_bucket,
 )
 from flink_tpu_torch.runtime.pending import Fence, PendingFire
+from flink_tpu_torch.state.paged_spill import (
+    PagedSpillMap,
+    drop_spilled_sessions,
+    reload_rows_for,
+    spill_page,
+)
 from flink_tpu_torch.stateplane.families import flat_fence
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 
@@ -69,11 +78,55 @@ class SlotTableFullError(RuntimeError):
     """Slot budget exhausted."""
 
 
-class _NamespaceRegistry:
-    """namespace -> slots registry shared by both index implementations."""
+def verify_slot_hints(index, key_ids: np.ndarray, namespaces: np.ndarray,
+                      hints: np.ndarray) -> np.ndarray:
+    """Resolve folded device-slot hints against the index's OWN metadata
+    views: a hint is taken iff the index maps exactly that (key, ns) pair
+    at that slot now. Returns int32 slots, -1 where the hint is absent or
+    stale (callers probe those). A stale fold costs a probe, never a wrong
+    row: the views are the table's contents."""
+    native = getattr(index, "verify_hints", None)
+    if native is not None:
+        return native(key_ids, namespaces, hints)
+    hints = np.asarray(hints, dtype=np.int32)
+    out = np.full(len(hints), -1, dtype=np.int32)
+    hv = hints >= 0
+    if not hv.any():
+        return out
+    hs = hints[hv]
+    cap = index.capacity
+    safe = np.minimum(hs, cap - 1)
+    ok = ((hs < cap)
+          & index.slot_used[safe]
+          & (index.slot_key[safe]
+             == np.asarray(key_ids, dtype=np.int64)[hv])
+          & (index.slot_ns[safe]
+             == np.asarray(namespaces, dtype=np.int64)[hv]))
+    out[hv] = np.where(ok, hs, np.int32(-1))
+    return out
 
-    def _init_registry(self) -> None:
+
+def resolve_slot_hints(index, key_ids: np.ndarray, namespaces: np.ndarray,
+                       hints: np.ndarray) -> np.ndarray:
+    """Verify the hints, hash-probe the rest: -1 where the index does not
+    hold the pair."""
+    pre = verify_slot_hints(index, key_ids, namespaces, hints)
+    probe = pre < 0
+    if probe.any():
+        pre[probe] = index.lookup(
+            np.asarray(key_ids)[probe], np.asarray(namespaces)[probe])
+    return pre
+
+
+class _NamespaceRegistry:
+    """namespace -> slots registry shared by both index implementations.
+    ``track=False``: the owner frees by SLOT and never asks for a
+    namespace's slots (the session table: one row per namespace, millions
+    of them), so the registry is not kept."""
+
+    def _init_registry(self, track: bool = True) -> None:
         self._ns_slots: Dict[int, List[np.ndarray]] = {}
+        self._track_ns = track
 
     @property
     def namespaces(self) -> List[int]:
@@ -104,6 +157,8 @@ class _NamespaceRegistry:
                                namespaces: np.ndarray) -> None:
         """Remove individual slots from their namespaces' chunk lists
         (frees by slot, not by whole namespace)."""
+        if not self._track_ns:
+            return
         uniq, counts = np.unique(namespaces, return_counts=True)
         for ns, freed_here in zip(uniq.tolist(), counts.tolist()):
             chunks = self._ns_slots.get(int(ns))
@@ -131,7 +186,8 @@ class HostSlotIndex(_NamespaceRegistry):
                  on_grow: Optional[Callable[[int, int], None]] = None,
                  growable: bool = True,
                  full_hint: str = "raise state.slot-table.capacity",
-                 max_capacity: int = 0) -> None:
+                 max_capacity: int = 0,
+                 track_namespaces: bool = True) -> None:
         self.capacity = max(int(capacity), 1024)
         self.on_grow = on_grow
         self.growable = growable
@@ -142,7 +198,7 @@ class HostSlotIndex(_NamespaceRegistry):
         self.slot_ns = np.zeros(self.capacity, dtype=np.int64)
         self.slot_used = np.zeros(self.capacity, dtype=bool)
         self._free: List[int] = list(range(self.capacity - 1, 0, -1))
-        self._init_registry()
+        self._init_registry(track_namespaces)
 
     @property
     def num_used(self) -> int:
@@ -168,7 +224,7 @@ class HostSlotIndex(_NamespaceRegistry):
                 self.slot_used[slot] = True
                 new_by_ns.setdefault(pair[1], []).append(slot)
             uslots[j] = slot
-        for ns, slots in new_by_ns.items():
+        for ns, slots in (new_by_ns.items() if self._track_ns else ()):
             self._ns_slots.setdefault(ns, []).append(
                 np.asarray(slots, dtype=np.int32))
         return uslots[inverse]
@@ -220,14 +276,18 @@ class HostSlotIndex(_NamespaceRegistry):
         self._free.extend(slots.tolist())
         return slots
 
-    def free_slots(self, slots: np.ndarray) -> None:
-        """Release individual slots (by (key, ns) entry)."""
+    def free_slots(self, slots: np.ndarray, keys=None, nss=None) -> None:
+        """Release individual slots (by (key, ns) entry); ``keys``/``nss``:
+        the slots' pairs where the caller holds them."""
         slots = np.asarray(slots, dtype=np.int32)
         if not len(slots):
             return
-        nss = self.slot_ns[slots]
+        if nss is None:
+            nss = self.slot_ns[slots]
         self._registry_remove_slots(slots, nss)
-        for k, v in zip(self.slot_key[slots].tolist(), nss.tolist()):
+        if keys is None:
+            keys = self.slot_key[slots]
+        for k, v in zip(np.asarray(keys).tolist(), np.asarray(nss).tolist()):
             self._index.pop((int(k), int(v)), None)
         self.slot_used[slots] = False
         self._free.extend(slots.tolist())
@@ -254,7 +314,8 @@ class NativeSlotIndex(_NamespaceRegistry):
                  on_grow: Optional[Callable[[int, int], None]] = None,
                  growable: bool = True,
                  full_hint: str = "raise state.slot-table.capacity",
-                 max_capacity: int = 0) -> None:
+                 max_capacity: int = 0,
+                 track_namespaces: bool = True) -> None:
         from flink_tpu_torch.native import load_slotmap
 
         self._lib = load_slotmap()
@@ -269,7 +330,7 @@ class NativeSlotIndex(_NamespaceRegistry):
             else self.capacity
         self._h = self._lib.sm_create(self.capacity, max_cap)
         self._wrap_views()
-        self._init_registry()
+        self._init_registry(track_namespaces)
 
     def _wrap_views(self) -> None:
         cap = int(self._lib.sm_capacity(self._h))
@@ -312,7 +373,7 @@ class NativeSlotIndex(_NamespaceRegistry):
             if self.on_grow is not None:
                 self.on_grow(old_cap, self.capacity)
         new_mask = is_new.view(bool)
-        if new_mask.any():
+        if new_mask.any() and self._track_ns:
             new_slots = out[new_mask]
             new_ns = nss[new_mask]
             order = np.argsort(new_ns, kind="stable")
@@ -392,6 +453,21 @@ class NativeSlotIndex(_NamespaceRegistry):
                             out.ctypes.data_as(_I32P))
         return out
 
+    def verify_hints(self, key_ids: np.ndarray, namespaces: np.ndarray,
+                     hints: np.ndarray) -> np.ndarray:
+        """Native :func:`verify_slot_hints` (``sm_verify``): one pass over
+        the table's own metadata."""
+        keys = np.ascontiguousarray(key_ids, dtype=np.int64)
+        nss = np.ascontiguousarray(namespaces, dtype=np.int64)
+        hints = np.ascontiguousarray(hints, dtype=np.int32)
+        out = np.empty(len(keys), dtype=np.int32)
+        self._lib.sm_verify(self._h, len(keys),
+                            keys.ctypes.data_as(_I64P),
+                            nss.ctypes.data_as(_I64P),
+                            hints.ctypes.data_as(_I32P),
+                            out.ctypes.data_as(_I32P))
+        return out
+
     def free_namespaces(self, namespaces: List[int]) -> Optional[np.ndarray]:
         drained = self._registry_drain(namespaces)
         if drained is None:
@@ -406,15 +482,20 @@ class NativeSlotIndex(_NamespaceRegistry):
             out.ctypes.data_as(_I32P))
         return out[:n]
 
-    def free_slots(self, slots: np.ndarray) -> None:
+    def free_slots(self, slots: np.ndarray, keys=None, nss=None) -> None:
         """Release individual slots (by (key, ns) entry) via the native
-        erase."""
+        erase; ``keys``/``nss``: the slots' pairs where the caller holds
+        them."""
         slots = np.ascontiguousarray(slots, dtype=np.int32)
         if not len(slots):
             return
-        nss = np.ascontiguousarray(self.slot_ns[slots])
+        if nss is None:
+            nss = self.slot_ns[slots]
+        nss = np.ascontiguousarray(nss, dtype=np.int64)
         self._registry_remove_slots(slots, nss)
-        keys = np.ascontiguousarray(self.slot_key[slots])
+        if keys is None:
+            keys = self.slot_key[slots]
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
         out = np.empty(len(slots), dtype=np.int32)
         self._lib.sm_erase(
             self._h, len(slots),
@@ -432,26 +513,20 @@ class NativeSlotIndex(_NamespaceRegistry):
 
 def make_slot_index(capacity: int, on_grow=None, growable: bool = True,
                     full_hint: str = "raise state.slot-table.capacity",
-                    max_capacity: int = 0):
+                    max_capacity: int = 0, track_namespaces: bool = True):
     """Native index when the C++ library builds, else pure Python."""
     from flink_tpu_torch.native import load_slotmap
 
     cls = NativeSlotIndex if load_slotmap() is not None else HostSlotIndex
     return cls(capacity, on_grow=on_grow, growable=growable,
-               full_hint=full_hint, max_capacity=max_capacity)
+               full_hint=full_hint, max_capacity=max_capacity,
+               track_namespaces=track_namespaces)
 
 
 def _not_ported(feature: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to flink_tpu_torch yet (ROADMAP.md, "
         f"Queue A item {item})")
-
-
-#: the reference's spill traffic counters (its paged layout's; the
-#: namespace layout reports them as zeros)
-SPILL_COUNTER_NAMES = ("pages_evicted", "pages_reloaded", "rows_evicted",
-                       "rows_reloaded", "rows_split_on_reload",
-                       "rows_compacted")
 
 
 class SpillTier:
@@ -549,11 +624,30 @@ class SpillTier:
         """Discard a spilled namespace (its windows fired)."""
         self.pop(ns)
 
+    def discard(self, ns: int) -> None:
+        """Delete a spilled entry WITHOUT loading it: a file of the
+        filesystem tier is unlinked, never read (the reap of dead
+        pages)."""
+        entry = self._host.pop(ns, None)
+        if entry is not None:
+            self._host_bytes -= self._entry_bytes(entry)
+        elif ns in self._fs:
+            os.remove(self._fs.pop(ns))
+        self._dirty.discard(ns)
+
 
 class SlotTable:
     """Single-device keyed windowed state: a host index plus flat device
     accumulators on ``device`` (``None``: ``execution.device``'s default,
-    the card, raising without one)."""
+    the card, raising without one).
+
+    ``spill_layout`` with a ``max_device_slots`` budget: ``"namespaces"``
+    moves whole namespaces (window slices: few and large); ``"pages"``
+    moves eviction cohorts of rows (sessions: one row per namespace,
+    millions of them) and REQUIRES single-row namespaces, since a cohort
+    would otherwise split a namespace across the device/page boundary.
+    ``track_namespaces=False`` drops the namespace -> slots registry for an
+    owner that frees by slot (``free_rows``, ``free_index_only_slots``)."""
 
     def __init__(
         self,
@@ -565,10 +659,9 @@ class SlotTable:
         spill_dir: Optional[str] = None,
         spill_host_max_bytes: int = 0,
         spill_layout: str = "namespaces",
+        track_namespaces: bool = True,
     ) -> None:
-        if spill_layout == "pages":
-            raise _not_ported("spill_layout='pages' (sessions)", 7)
-        if spill_layout != "namespaces":
+        if spill_layout not in ("namespaces", "pages"):
             raise ValueError(
                 f"spill_layout must be 'namespaces' or 'pages', got "
                 f"{spill_layout!r}")
@@ -581,13 +674,23 @@ class SlotTable:
         self.spill = SpillTier(spill_dir, spill_host_max_bytes)
         self._ns_touch: Dict[int, int] = {}
         self._touch_clock = 0
+        self.spill_layout = spill_layout
+        self._paged = spill_layout == "pages" and self.max_device_slots > 0
+        if self._paged:
+            #: membership map, tombstones and counters of the paged layout
+            self._pmap = PagedSpillMap()
         self.index = make_slot_index(
             capacity, on_grow=self._grow_device,
             max_capacity=self.max_device_slots,
+            track_namespaces=track_namespaces,
             full_hint=("state spills to host beyond "
                        "state.slot-table.max-device-slots"
                        if self.max_device_slots
                        else "raise state.slot-table.capacity"))
+        if self._paged:
+            # sized after the index, which clamps capacity up (>= 1024):
+            # the touch clock covers every slot
+            self._slot_touch = np.zeros(self.index.capacity, dtype=np.int64)
         self.accs: Tuple[torch.Tensor, ...] = agg.init_accumulators(
             self.index.capacity, self.device)
         # sticky buckets: nearby smaller batches reuse a padded size
@@ -618,16 +721,32 @@ class SlotTable:
     @property
     def namespaces(self) -> List[int]:
         """All live namespaces — device-resident AND spilled."""
-        return self.index.namespaces + self.spill.namespaces
+        if self.index._track_ns:
+            resident = self.index.namespaces
+        else:  # registry-free: from the used slots' metadata
+            used = self.index.used_slots()
+            resident = np.unique(self.index.slot_ns[used]).tolist()
+        if self._paged:
+            return resident + self._pmap.live_ns().tolist()
+        return resident + self.spill.namespaces
 
     def spill_counters(self) -> Dict[str, int]:
-        """Paged spill traffic counters: zeros in the namespace layout."""
-        return {name: 0 for name in SPILL_COUNTER_NAMES}
+        """Paged spill traffic counters (zeros when not paged)."""
+        if self._paged:
+            return self._pmap.counters()
+        return PagedSpillMap.zero_counters()
 
     # ------------------------------------------------------------- main path
 
     def lookup_or_insert(self, key_ids: np.ndarray, namespaces: np.ndarray,
-                         _pairs=None) -> np.ndarray:
+                         _pairs=None, hints=None) -> np.ndarray:
+        """(key, ns) -> slot, allocating missing slots; with a budget,
+        spilled state reloads first and cold state makes room. ``hints``
+        (paged layout): folded device slots from the session-metadata
+        plane, aligned with ``key_ids``, which must then be unique pairs."""
+        if self._paged:
+            return self._lookup_or_insert_paged(key_ids, namespaces,
+                                                _pairs, hints)
         if self.max_device_slots:
             # ``_pairs``: upsert()'s unique (key, ns) pairs, not recomputed
             if _pairs is None:
@@ -653,6 +772,114 @@ class SlotTable:
     def _make_headroom(self, needed: int, protect: set) -> None:
         while self.index.free_headroom() < needed:
             self._evict_cold(protect=protect)
+
+    # --------------------------------------------------- paged spill layout
+
+    def _lookup_or_insert_paged(self, key_ids, namespaces,
+                                _pairs=None, hints=None) -> np.ndarray:
+        """The slot-clock lookup: this batch's resident rows take a fresh
+        clock (protecting them from the eviction the batch itself
+        triggers), missing pairs reload from their pages, then the index
+        inserts. Verified ``hints`` skip the hash probe; only the misses
+        insert, which leaves the index as the full lookup_or_insert
+        would (hits never allocate)."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        namespaces = np.asarray(namespaces, dtype=np.int64)
+        self._touch_clock += 1
+        clock = self._touch_clock
+        if hints is not None:
+            uk, un = key_ids, namespaces
+            pre = resolve_slot_hints(self.index, uk, un, hints)
+        else:
+            if _pairs is None:
+                uk, un, _ = unique_pairs(key_ids, namespaces)
+            else:
+                uk, un = _pairs
+            pre = self.index.lookup(uk, un)
+        hit = pre >= 0
+        self._slot_touch[pre[hit]] = clock
+        missing = ~hit
+        if missing.any() and len(self._pmap.sp_ns):
+            self._reload_pages_for(un[missing], clock)
+            # re-probe: reloaded rows are resident now (fresh sessions
+            # stay missing)
+            pre = self.index.lookup(uk, un)
+            missing = pre < 0
+        needed = int(missing.sum())
+        if needed and self.index.free_headroom() < needed:
+            self._make_headroom_paged(needed)
+        if hints is not None:
+            slots = pre.astype(np.int32, copy=True)
+            if missing.any():
+                slots[missing] = self.index.lookup_or_insert(
+                    uk[missing], un[missing])
+        else:
+            slots = self.index.lookup_or_insert(key_ids, namespaces)
+        self._slot_touch[slots] = clock
+        return slots
+
+    def _reload_pages_for(self, nss: np.ndarray, clock: int) -> None:
+        """Reload the requested rows from their pages (one put); the
+        pages' other rows stay as lazy tombstones."""
+        rl = reload_rows_for(self.spill, self._pmap, nss,
+                             [l.dtype for l in self.agg.leaves])
+        if rl is None:
+            return
+        keys, rns, dirty, vals = rl
+        n = len(keys)
+        if self.index.free_headroom() < n:
+            self._make_headroom_paged(n)
+        slots = self.index.lookup_or_insert(keys, rns)
+        self._put(slots, vals)
+        # reloaded rows keep their dirtiness and take the current clock
+        self._dirty[slots] = dirty
+        self._slot_touch[slots] = clock
+
+    def _make_headroom_paged(self, needed: int) -> None:
+        while self.index.free_headroom() < needed:
+            self._evict_cold_paged()
+
+    def _drop_spilled_sessions(self, nss: np.ndarray) -> None:
+        """Tombstone freed sessions that were spilled; dead pages are
+        reaped, mostly dead ones compacted."""
+        if self._paged:
+            drop_spilled_sessions(self.spill, self._pmap,
+                                  np.asarray(nss, dtype=np.int64))
+
+    def _evict_cold_paged(self) -> None:
+        """Evict the coldest slots (touched before the current clock) as
+        ONE page: one gather, one reset and one spill entry, however many
+        sessions the cohort spans."""
+        used = self.index.used_slots()
+        evictable = used[self._slot_touch[used] < self._touch_clock]
+        if len(evictable) == 0:
+            raise SlotTableFullError(
+                "device slot budget exhausted and every resident row was "
+                "touched by the current batch — raise "
+                "state.slot-table.max-device-slots or reduce batch size")
+        target = min(max(self.index.capacity // 8, 1024), len(evictable))
+        if target < len(evictable):
+            sel = np.argpartition(self._slot_touch[evictable],
+                                  target - 1)[:target]
+            chosen = evictable[sel]
+        else:
+            chosen = evictable
+        chosen = np.asarray(chosen, dtype=np.int32)
+        n = len(chosen)
+        size = sticky_bucket(n, self._gather_bucket)
+        self._gather_bucket = size
+        gathered = self.agg._gather_jit(
+            self.accs, self._to_device(pad_i32(chosen, size, fill=0)))
+        entry = {
+            "key_id": np.asarray(self.index.slot_key[chosen]),
+            "ns": np.asarray(self.index.slot_ns[chosen]),
+            "dirty": self._dirty[chosen].copy(),
+            **{f"leaf_{i}": g[:n].cpu().numpy()
+               for i, g in enumerate(gathered)},
+        }
+        spill_page(self.spill, self._pmap, entry)
+        self.index.free_slots(chosen)
+        self._reset(chosen)
 
     def upsert(self, key_ids: np.ndarray, namespaces: np.ndarray,
                values: Tuple[np.ndarray, ...],
@@ -737,21 +964,24 @@ class SlotTable:
         key_ids = np.concatenate(key_chunks)
         nss = np.concatenate(ns_chunks)
         was_dirty = np.concatenate(dirty_chunks)
-        n = len(key_ids)
-        self._make_headroom(n, protect=protect)
+        self._make_headroom(len(key_ids), protect=protect)
         slots = self.index.lookup_or_insert(key_ids, nss)
-        size = sticky_bucket(n, self._scatter_bucket)
-        self._scatter_bucket = size
-        vals = tuple(
-            self._to_device(pad_values(np.concatenate(leaf_chunks[i]), size,
-                                       l.identity))
-            for i, l in enumerate(self.agg.leaves))
-        self.accs = self.agg._put_jit(
-            self.accs, self._to_device(pad_i32(slots, size, fill=0)), vals)
+        self._put(slots, [np.concatenate(c) for c in leaf_chunks])
         # reloaded rows keep their dirtiness: rows dirty at spill time
         # have not been in a snapshot since
         self._dirty[slots] = was_dirty
         self._touch(todo)
+
+    def _put(self, slots: np.ndarray, values) -> None:
+        """Place reloaded rows back on the device: one ``flat_put``."""
+        size = sticky_bucket(len(slots), self._scatter_bucket)
+        self._scatter_bucket = size
+        vals = tuple(
+            self._to_device(pad_values(np.asarray(v, dtype=l.dtype), size,
+                                       l.identity))
+            for v, l in zip(values, self.agg.leaves))
+        self.accs = self.agg._put_jit(
+            self.accs, self._to_device(pad_i32(slots, size, fill=0)), vals)
 
     def _evict_cold(self, protect: set) -> None:
         """Evict the least recently touched namespaces to the spill tier
@@ -815,6 +1045,9 @@ class SlotTable:
             for a, leaf in zip(self.accs, self.agg.leaves))
         self._dirty = np.concatenate(
             [self._dirty, np.zeros(new - old, dtype=bool)])
+        if self._paged:
+            self._slot_touch = np.concatenate(
+                [self._slot_touch, np.zeros(new - old, dtype=np.int64)])
 
     # ----------------------------------------------------------------- ingest
 
@@ -989,6 +1222,27 @@ class SlotTable:
 
     # ------------------------------------------------------------------ frees
 
+    def mark_dirty(self, slots: np.ndarray) -> None:
+        """For programs that change ``accs`` outside the table (session
+        merges): the rows changed since the last snapshot."""
+        self._dirty[slots] = True
+
+    def free_index_only_slots(self, slots: np.ndarray) -> None:
+        """Release the index entries of rows whose device values the
+        caller's program already reset (the sources of a session merge).
+        The reference also records their namespaces as tombstones for
+        incremental snapshots (ROADMAP Queue A item 8)."""
+        slots = np.asarray(slots, dtype=np.int32)
+        self.index.free_slots(slots)
+        self._dirty[slots] = False
+
+    def free_rows(self, slots: np.ndarray, namespaces) -> None:
+        """Free fired sessions by slot (the caller resolved the rows this
+        batch, so no registry walk): index entries, spilled copies, and the
+        device values reset — queued behind the fire on the same stream."""
+        self._drop_spilled_sessions(namespaces)
+        self.free_slots(slots)
+
     def free_slots(self, slots: np.ndarray) -> None:
         """Release individual (key, ns) entries."""
         slots = np.asarray(slots, dtype=np.int32)
@@ -1000,10 +1254,13 @@ class SlotTable:
     def free_namespaces(self, namespaces: List[int]) -> None:
         """Release all slots of the given namespaces (windows fired)."""
         slots = self.index.free_namespaces(namespaces)
-        for ns in namespaces:
-            if int(ns) in self.spill:
-                self.spill.drop(int(ns))
-            self._ns_touch.pop(int(ns), None)
+        if self._paged:
+            self._drop_spilled_sessions(namespaces)
+        else:
+            for ns in namespaces:
+                if int(ns) in self.spill:
+                    self.spill.drop(int(ns))
+                self._ns_touch.pop(int(ns), None)
         if slots is not None:
             self._reset(slots)
 

@@ -20,8 +20,8 @@ kept in one table, so two tables with the same layout share a program.
 
 The pane layout's programs are ``stateplane/pane.py``'s (the
 ``delta-harvest`` kind of this table), with :func:`pane_fence` here. Not
-in this slice: ``flat_merge_pairs`` (sessions) and
-``flat_scatter_signed`` (retractions) (ROADMAP.md, Queue A).
+in this slice: ``flat_scatter_signed`` (retractions, ROADMAP.md Queue A
+item 11).
 """
 
 from __future__ import annotations
@@ -185,6 +185,34 @@ def _build_segment_merge(leaves):
 
     def merge(accs, slot_matrix):
         return _merged(accs, merges, slot_matrix)
+
+    return merge
+
+
+def flat_merge_pairs(leaves):
+    """``(accs, dst int32 [n], src int32 [n]) -> accs``: the session merge,
+    ``acc[dst] op= acc[src]`` then ``acc[src] = identity``, in place. Every
+    lane's ``acc[src]`` is read before any write; the adds into one ``dst``
+    (duplicates allowed) run in lane order — through the ordered fold for
+    float leaves (the kernel on the card), ``scatter_add_``/
+    ``scatter_reduce_`` for integer ones. Padded lanes have ``src == dst ==
+    0``: the reserved slot ends as the identity."""
+    key = ("merge-pairs", _layout(leaves))
+    return _get_or_build("segment-reduce", key,
+                         lambda: _build_merge_pairs(leaves))
+
+
+def _build_merge_pairs(leaves):
+    tds, folds = _folds(leaves)
+    idents = _idents(leaves)
+
+    def merge(accs, dst, src):
+        idx = src.to(torch.int64)
+        moved = [a[idx] for a in accs]
+        _fold_flat(accs, leaves, tds, folds, dst, moved)
+        for a, i in zip(accs, idents):
+            a.index_fill_(0, idx, i)
+        return accs
 
     return merge
 

@@ -1,2 +1,3 @@
-"""Windowing: slice-based assigners, lifecycle bookkeeping, aggregates and
-fire projectors."""
+"""Windowing: slice-based and session assigners, lifecycle bookkeeping,
+aggregates, fire projectors, and the session engine with its metadata
+planes."""

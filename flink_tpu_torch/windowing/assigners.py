@@ -1,6 +1,6 @@
 """Window assigners built around slices (port of
 ``flink_tpu/windowing/assigners.py``: tumbling, sliding and cumulative
-event time).
+event time, and event-time sessions).
 
 Each record is assigned to exactly ONE slice (one vectorized arithmetic op
 over the timestamp column); a window is merged from its slices at fire
@@ -141,3 +141,19 @@ class CumulativeEventTimeWindows(WindowAssigner):
     def last_window_ends(self, slice_ends: np.ndarray) -> np.ndarray:
         se = np.asarray(slice_ends, dtype=np.int64)
         return self._span_start_end(se) + self.size - self.slice_width
+
+
+@dataclasses.dataclass(frozen=True)
+class EventTimeSessionWindows:
+    """Session windows with a gap: a merging assigner. Sessions merge on
+    host metadata over device accumulators (``windowing/sessions.py``)."""
+
+    gap: int
+
+    @staticmethod
+    def with_gap(gap_ms: int) -> "EventTimeSessionWindows":
+        return EventTimeSessionWindows(gap=gap_ms)
+
+    @property
+    def is_merging(self) -> bool:
+        return True

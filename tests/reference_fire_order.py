@@ -279,18 +279,21 @@ def pane_nan_order(kind, k, cols):
     return out
 
 
-def extreme_order(kind, k, program):
+def extreme_order(kind, k, program, priority=True):
     """The order in which the reference's max/min fire meets k slices,
-    read off pairs: two NaNs of the priority sign (negative for max,
-    positive for min) at positions i < j, ones elsewhere; the rule keeps
-    the first of them met, so ranking the positions by pairs won gives
-    the order (``mixed``: pairs where neither or a mix won). ``program``:
+    read off pairs: two NaNs at positions i < j, ones elsewhere. Of the
+    priority sign (negative for max, positive for min) the rule keeps
+    the first NaN met, so ranking the positions by pairs won gives the
+    order; of the other sign (``priority=False``) it keeps the last met,
+    so the positions ranked by pairs LOST give it (``mixed``: pairs
+    where neither or a mix won). The two orders differ where the reduce
+    joins partials in a tree (the pane fire at 23 rows). ``program``:
     ``pane`` (``fire_rows`` over ``[k, 16]`` rows) or ``single``
     (``flat_segment_fire`` over a ``[64, k]`` slot matrix)."""
     make, dtype = PANE_KINDS[kind]
     u = _U[np.dtype(dtype).itemsize]
     base = np.array([np.nan], dtype).view(u)[0]
-    if kind.startswith("max"):
+    if kind.startswith("max") == priority:
         base = base | (u(1) << u(8 * np.dtype(dtype).itemsize - 1))
     wins, mixed = [0] * k, 0
     fire_flat = flat_segment_fire(make())
@@ -317,16 +320,18 @@ def extreme_order(kind, k, program):
                 wins[j] += 1
             else:
                 mixed += 1
-    return sorted(range(k), key=lambda r: -wins[r]), mixed
+    sign = -1 if priority else 1
+    return sorted(range(k), key=lambda r: sign * wins[r]), mixed
 
 
 def pane_main(args):
     """Per kind, k and column count: columns of the fire and of the
     window-partial fold that differ from the left fold and from the port
     (one count per seed); for sums the positions where a later NaN wins,
-    for max/min the order in which the pane fire and the single-device
-    slot fire meet the slices, with the pairs that fit no order
-    (``--no-nan`` skips both)."""
+    for max/min the orders in which the pane fire and the single-device
+    slot fire meet the slices — read off NaNs of the priority sign
+    (``first``) and of the other sign (``last``) — with the pairs that
+    fit no order (``--no-nan`` skips both)."""
     ks = list(range(args.kmin, args.kmax + 1)) + [
         int(k) for k in args.ks.split(",") if k]
     for kind in args.kinds.split(","):
@@ -340,8 +345,10 @@ def pane_main(args):
                 if args.no_nan:
                     pass
                 elif kind.startswith(("max", "min")):
-                    later = {prog: extreme_order(kind, k, prog)
-                             for prog in ("pane", "single")}
+                    later = {f"{prog} {which}": extreme_order(
+                        kind, k, prog, priority=which == "first")
+                        for prog in ("pane", "single")
+                        for which in ("first", "last")}
                 else:
                     later = {n: {j: sorted(v) for j, v in o.items()} or "-"
                              for n, o in pane_nan_order(kind, k,

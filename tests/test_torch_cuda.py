@@ -583,3 +583,90 @@ def test_panes_on_card_equal_cpu_run(job, preagg):
     if job == "revenue":
         assert ordered_fold_planes.launches > before
     assert on_card and on_card == run("cpu")
+
+
+@pytest.mark.cuda
+def test_flat_merge_pairs_on_card_equals_cpu():
+    """The session merge on the card (the ordered fold for float leaves,
+    one launch per float leaf) against the CPU: duplicate destinations,
+    padded 0/0 lanes, NaN payloads, +-inf and signed zeros; every plane
+    bit for bit apart from the reserved slot 0, which both leave at the
+    identity."""
+    _need_card()
+    from flink_tpu_torch.stateplane.families import flat_merge_pairs
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.windowing import aggregates as tagg
+
+    rng = np.random.default_rng(21)
+    cap, pairs, size = 1 << 19, 30_000, 32_768
+    for agg in (tagg.CountAggregate(), tagg.SumAggregate("v"),
+                tagg.SumAggregate("v", dtype=np.float64),
+                tagg.MaxAggregate("v"), tagg.MinAggregate("v"),
+                tagg.AvgAggregate("v")):
+        planes = []
+        for leaf in agg.leaves:
+            if np.dtype(leaf.dtype).kind == "f":
+                p = _special_values(rng, cap, torch.float64 if np.dtype(
+                    leaf.dtype).itemsize == 8 else torch.float32)
+                if leaf.reduce != "sum":
+                    p[torch.from_numpy(rng.random(cap) < 0.2)] = 0.0
+                    p[torch.from_numpy(rng.random(cap) < 0.2)] = -0.0
+            else:
+                p = torch.from_numpy(rng.integers(0, 1000, cap)
+                                     .astype(leaf.dtype))
+            p[0] = float(leaf.identity)
+            planes.append(p)
+        perm = rng.permutation(np.arange(1, cap))
+        dst = np.zeros(size, np.int32)
+        src = np.zeros(size, np.int32)
+        dst[:pairs] = rng.choice(perm[:pairs // 5], pairs)
+        src[:pairs] = perm[cap // 2:cap // 2 + pairs]
+        prog = flat_merge_pairs(agg.leaves)
+        want = prog(tuple(p.clone() for p in planes), torch.from_numpy(dst),
+                    torch.from_numpy(src))
+        before = ordered_fold_planes.launches
+        got = prog(tuple(p.cuda() for p in planes),
+                   torch.from_numpy(dst).cuda(), torch.from_numpy(src).cuda())
+        torch.cuda.synchronize()
+        floats = sum(np.dtype(l.dtype).kind == "f" for l in agg.leaves)
+        assert ordered_fold_planes.launches == before + floats
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g.cpu()) if g.is_floating_point()
+                               else g.cpu(),
+                               _bits(w) if w.is_floating_point() else w), \
+                type(agg).__name__
+
+
+@pytest.mark.cuda
+def test_session_job_on_card_equals_cpu_run():
+    """A float32 Sum session job through the public API under a device
+    budget (the paged tier evicts and reloads): the card's sink rows equal
+    the CPU's, in order and bit for bit, with equal spill counters."""
+    _need_card()
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+
+    def run(device):
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 1 << 13,
+            "state.slot-table.capacity": 1 << 15,
+            "state.slot-table.max-device-slots": 1 << 15,
+            "execution.device": device}))
+        sink = CollectSink()
+        (env.from_source(DataGenSource(400_000, 200_000, 400_000, seed=3),
+                         WatermarkStrategy.for_bounded_out_of_orderness(0))
+            .key_by("key").window(EventTimeSessionWindows.with_gap(2_000))
+            .sum("value").sink_to(sink))
+        env.execute()
+        return sink.result()
+
+    got, want = run("cuda"), run("cpu")
+    assert len(got) == len(want) > 0
+    for name in want.names():
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        np.testing.assert_array_equal(a, b, err_msg=name)

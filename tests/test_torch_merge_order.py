@@ -206,9 +206,9 @@ def test_slot_fires_max_min_nan_order_matches_reference(
 #: every k to 64, then a sample to 300
 PANE_KS = list(range(1, 65)) + [65, 80, 96, 97, 100, 128, 129, 160, 200,
                                 255, 256, 257, 300]
-#: max/min: around the rows met out of order (23-32), without k = 23,
-#: whose order stays open (Queue C item 9)
-PANE_EXTREME_KS = [k for k in range(16, 41) if k != 23] + [64, 65, 100]
+#: max/min: around the rows met out of order (23-32; 23 in a tree of its
+#: own, ``segment_ops._merge_pane_extreme_23``)
+PANE_EXTREME_KS = list(range(16, 41)) + [64, 65, 100]
 PANE_COLS = 64
 
 def _pane_case(kinds, kind, k):
@@ -284,3 +284,73 @@ def test_pane_max_min_nan_order_matches_reference(program, kind, k):
     got, want = _pane_both(EXTREME_KINDS, kind, k, program)
     for name in want:
         _bits_equal(got[name], want[name])
+
+
+# ------------------------------------------- which NaN a pane fire keeps
+
+def _pane_nan_pairs(kind, k, cols=None):
+    """Leaf planes ``[k + 1, n]`` holding in column c the c-th pair i < j
+    of the window's k rows: quiet NaNs with payloads i + 1 and j + 1 in
+    rows i + 1 and j + 1, ones elsewhere (Avg: counts of one); ``cols``
+    repeats ONE pair (i, j) = cols[1:] over ``cols[0]`` columns."""
+    dtype = KINDS[kind][2]
+    u = {4: np.uint32, 8: np.uint64}[np.dtype(dtype).itemsize]
+    quiet = np.array([np.nan], dtype).view(u)[0]
+    pairs = ([cols[1:]] * cols[0] if cols is not None else
+             [(i, j) for j in range(1, k) for i in range(j)])
+    plane = np.ones((k + 1, len(pairs)), dtype)
+    for c, (i, j) in enumerate(pairs):
+        plane[i + 1, c] = np.asarray(quiet + u(i + 1)).view(dtype)
+        plane[j + 1, c] = np.asarray(quiet + u(j + 1)).view(dtype)
+    planes = [plane] + ([np.ones(plane.shape, np.float32)]
+                        if kind == "avg_f32" else [])
+    return planes, np.arange(1, k + 1, dtype=np.int32)
+
+
+def _pane_fire_both(kind, planes, rows):
+    """The reference's and the port's fire_rows of ``planes`` over
+    ``rows``: one finished column each."""
+    import jax
+
+    jmake, tmake, dtype = KINDS[kind]
+    R, C = planes[0].shape
+    present = np.ones((R, C), np.int8)
+    with jax.enable_x64(dtype == np.float64):
+        accs = tuple(jax.numpy.asarray(p) for p in planes) + (
+            jax.numpy.asarray(present),)
+        want = jpane_programs(jmake())[2](accs, jax.numpy.asarray(rows), C)[0]
+        want = np.asarray(next(iter(want.values())))
+    accs = tuple(torch.from_numpy(p.copy()) for p in planes) + (
+        torch.from_numpy(present),)
+    got = pane_programs(tmake())[2](accs, torch.from_numpy(rows), C)[0]
+    return next(iter(got.values())).numpy(), want
+
+
+@pytest.mark.parametrize("k", list(range(22, 35)))
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_pane_sum_nan_pair_choice_matches_reference(kind, k):
+    """Which of two NaN rows the pane fire's sum keeps, every pair of the
+    window's rows at once (one pair a column): in the lanes form the
+    reference keeps the LATER one where float64 joins two vectors and
+    where float32 adds a lane's rows at 32 rows (``_lanes``'s ``pane``;
+    ROADMAP Queue C item 2)."""
+    got, want = _pane_fire_both(kind, *_pane_nan_pairs(kind, k))
+    _bits_equal(got, want)
+
+
+def test_pane_sum_f32_nan_choice_at_24_rows_follows_column_count():
+    """Not a function of the data: over 24 rows of float32 Sum the
+    reference's fire keeps the later of two NaNs in rows 8-15 when the
+    ring has 7 columns, and the earlier with 64 or more — the same pair,
+    the same values. The port keeps the earlier (the left fold) at every
+    width, so it matches the reference from 64 columns (recorded in
+    ROADMAP Queue C item 2 as item 3 is)."""
+    got7, want7 = _pane_fire_both("sum_f32",
+                                  *_pane_nan_pairs("sum_f32", 24, (7, 0, 8)))
+    got64, want64 = _pane_fire_both(
+        "sum_f32", *_pane_nan_pairs("sum_f32", 24, (64, 0, 8)))
+    payload = {int(v) & 0xFF for v in want7.view(np.uint32)}
+    assert payload == {9}, "7 columns: the reference keeps row 8's NaN"
+    assert {int(v) & 0xFF for v in want64.view(np.uint32)} == {1}
+    assert {int(v) & 0xFF for v in got7.view(np.uint32)} == {1}
+    _bits_equal(got64, want64)
