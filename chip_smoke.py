@@ -97,10 +97,31 @@ Phases, each fatal on failure (no result line is printed then):
     for each, wrapper and device ms, its plain version, its bytes bound
     (real lanes only: padded lanes are the program's own).
 
+13. run BASELINE row 5 on the mesh session engine at parallelism 8: (a)
+    the reference's mesh-sessions shape (``tools/bench_mesh_sessions.py``
+    as ``tools/bench_suite.py:247-265`` runs it: 4M records, keys uniform
+    over 10M from ``default_rng(3)``, 400k events/s of event time, batches
+    of 1<<16, float32 Sum of ones, gap 2,000 ms, 1<<16 rows a shard, a
+    25 ms fire deadline) through ``flink_tpu_torch/benchmarks/
+    mesh_sessions.py``: every fired (key, start, end, sum) equal to a
+    NumPy oracle that places each ingest split's watermark; rows evicted
+    and reloaded both > 0; events/s, fire p50/p99, the spill counters and
+    the page-rewrite amplification printed; (b) row 5's job
+    (``DataGenSource``) at ``parallelism.default: 8`` through
+    ``env.execute()`` over its first 2M records under 1<<16 rows a shard,
+    on the card and on the CPU: rows equal in order, bit for bit, spill
+    counters equal; (c) phase 12(c)'s out-of-order float32 Max job at P=8
+    under 1<<12 rows a shard, card == CPU likewise, with merge groups,
+    evictions and ordered-fold launches inside the merges; (d) the mesh
+    merge step alone at (c)'s largest group, float32 Sum and Max: card ==
+    CPU, wrapper ms, device ms (torch.profiler), its plain version's ms and
+    the bytes bound (16 B a real pair, 8 B a destination, 3.35 TB/s).
+
 The launch counts of both kernels are set to 0 just before each of phases
-5 to 8, 10, 11 and 12(a) and read just after; each phase fails if a kernel
-of its path did not launch (the rank at parallelism 8; the ordered fold in
-phases 6, 8, 11 and 12, Count being an integer fold).
+5 to 8, 10, 11, 12(a), 13(a), 13(b) and 13(c) and read just after; each
+phase fails if a kernel of its path did not launch (the rank at
+parallelism 8; the ordered fold in phases 6, 8, 11, 12 and 13, Count
+being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -1073,17 +1094,59 @@ def phase_spill(torch, records: int = 3_000_000, budget: int = 1 << 17):
     return out
 
 
-def session_oracle(records: int, batch: int):
-    """Row 5's sessions by NumPy over the same stream: records sorted by
+def sessions_of_stream(keys, vals, ts, split_of, wm_before):
+    """Sessions by NumPy over a stream in arrival order: records sorted by
     (key, timestamp), stable; a new session where the key changes, where
     the gap to the key's previous record is above 2,000 ms, and where it
-    is exactly 2,000 ms and the watermark had passed the session's end
-    before the record arrived (a later micro-batch, whose predecessor
-    ended at the record's own millisecond). Returns ``(keys, starts, ends,
-    float32 stream-order sums, record counts)``, sorted by key and
-    start."""
-    from flink_tpu_torch.benchmarks.session_profile import ROW5_GAP, \
-        row5_source
+    is exactly 2,000 ms and the previous session had fired before the
+    record arrived: the record lies in a later ingest split than its
+    predecessor and the watermark before its split (``wm_before[split]``)
+    reached the session's last millisecond (``t - 1``). ``split_of[i]``:
+    the ingest split of record i. Returns ``(keys, starts, ends, float32
+    stream-order sums, record counts)``, sorted by key and start."""
+    from flink_tpu_torch.benchmarks.session_profile import ROW5_GAP
+
+    order = np.lexsort((ts, keys))
+    k, t, v = keys[order], ts[order], vals[order]
+    sq = split_of[order]
+    new = np.ones(len(k), dtype=bool)
+    same = k[1:] == k[:-1]
+    diff = t[1:] - t[:-1]
+    closed = ((diff == ROW5_GAP) & (sq[1:] > sq[:-1])
+              & (wm_before[sq[1:]] >= t[1:] - 1))
+    new[1:] = ~same | (diff > ROW5_GAP) | closed
+    first = np.nonzero(new)[0]
+    n = np.diff(np.append(first, len(k)))
+    sums = np.zeros(len(first), np.float32)
+    for j in range(int(n.max())):   # stream order, in float32
+        live = n > j
+        sums[live] += v[first[live] + j]
+    return k[first], t[first], t[first + n - 1] + ROW5_GAP, sums, n
+
+
+def mesh_oracle(records: int, split_starts):
+    """Phase 13(a)'s sessions by NumPy: the stream of
+    ``benchmarks/mesh_sessions.py`` over ``records`` records, sums of
+    ones, each record in the ingest split that the loop's
+    ``split_starts`` (the first record of each split) place it in, the
+    watermark before a split that of the record before it."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+
+    starts = np.asarray(split_starts)
+    keys, ts = (np.concatenate(c) for c in zip(*ms.stream_batches(records)))
+    split_of = np.searchsorted(starts, np.arange(records), side="right") - 1
+    wm_before = np.where(starts > 0, ts[np.maximum(starts - 1, 0)],
+                         np.iinfo(np.int64).min // 2)
+    return sessions_of_stream(keys, np.ones(records, np.float32), ts,
+                              split_of, wm_before)
+
+
+def session_oracle(records: int, batch: int):
+    """Row 5's sessions by NumPy over the same stream, fed to the executor
+    in micro-batches of ``batch``: the watermark before a batch is the
+    previous batch's largest timestamp less 1 (bounded out-of-orderness
+    0)."""
+    from flink_tpu_torch.benchmarks.session_profile import row5_source
 
     src = row5_source(records)
     src.open()
@@ -1093,24 +1156,12 @@ def session_oracle(records: int, batch: int):
                       np.asarray(b["value"], np.float32),
                       np.asarray(b.timestamps, np.int64)))
     keys, vals, ts = (np.concatenate(c) for c in zip(*parts))
-    order = np.lexsort((ts, keys))
-    k, t, v = keys[order], ts[order], vals[order]
-    bq = order // batch
-    batch_max = ts[np.minimum((np.arange(bq.max() + 1) + 1) * batch,
-                              records) - 1]
-    new = np.ones(len(k), dtype=bool)
-    same = k[1:] == k[:-1]
-    diff = t[1:] - t[:-1]
-    prev_max = batch_max[np.maximum(bq[1:] - 1, 0)]
-    closed = (diff == ROW5_GAP) & (bq[1:] > bq[:-1]) & (prev_max == t[1:])
-    new[1:] = ~same | (diff > ROW5_GAP) | closed
-    first = np.nonzero(new)[0]
-    n = np.diff(np.append(first, len(k)))
-    sums = np.zeros(len(first), np.float32)
-    for j in range(int(n.max())):   # stream order, in float32
-        live = n > j
-        sums[live] += v[first[live] + j]
-    return k[first], t[first], t[first + n - 1] + ROW5_GAP, sums, n
+    split_of = np.arange(records) // batch
+    last = ts[np.minimum((np.arange(split_of[-1] + 1)) * batch,
+                         records) - 1]
+    wm_before = np.where(np.arange(len(last)) > 0, last - 1,
+                         np.iinfo(np.int64).min // 2)
+    return sessions_of_stream(keys, vals, ts, split_of, wm_before)
 
 
 def _jittered_specials(base_cls, jitter: int):
@@ -1397,6 +1448,236 @@ def phase_sessions(torch, records: int, equal_records: int = 2_000_000,
     return out
 
 
+def mesh_merge_timing(torch, captured, reduce):
+    """Phase 13(d): the mesh merge step alone at (c)'s largest merge group
+    (its [P, M] blocks on (c)'s [P, cap] planes) for one float32 leaf of
+    ``reduce``: the card equal to the CPU bit for bit, then the wrapper's
+    host ms, the device ms by torch.profiler, the plain version's ms on
+    the card (a gather, the ordered fold's plain version — ``index_add_``
+    for sums, ``scatter_reduce_`` with the NaN rule for max —, a reset)
+    and the bytes bound: 16 B per real pair (its dst and src, the moved
+    value read, the source reset) plus 8 B per destination slot (a read
+    and a write) at 3.35 TB/s."""
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import (
+        build_session_merge_step,
+    )
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes_plain
+    from flink_tpu_torch.windowing import aggregates as tagg
+
+    agg = tagg.SumAggregate("value") if reduce == "sum" \
+        else tagg.MaxAggregate("value")
+    acc, d, s_ = captured["acc"], captured["dst"], captured["src"]
+    P = int(acc.shape[0])
+    if reduce == "sum":   # (c) is a Max job: Sum folds finite values
+        rng = np.random.default_rng(13)
+        acc = torch.from_numpy(rng.standard_normal(tuple(acc.shape))
+                               .astype(np.float32)).cuda()
+        acc[:, 0] = 0.0
+    step = build_session_merge_step(make_mesh(P, "cuda"), agg)
+    got = step((acc.clone(),), d, s_)[0]
+    want = build_session_merge_step(make_mesh(P, "cpu"), agg)(
+        (acc.cpu(),), d.cpu(), s_.cpu())[0]
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError(f"phase 13(d): the mesh merge step ({reduce}) "
+                             "on the card != the CPU")
+    work = acc.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step((work,), d, s_)
+    wrapper_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    ms = device_us_per_call(lambda: step((work,), d, s_), 50, [""])[""]
+    ms = None if ms is None else ms / 1e3
+    event_ms = cuda_ms(lambda: step((work,), d, s_), 50)
+
+    def plain():
+        idx = s_.to(torch.int64)
+        moved = torch.gather(work, 1, idx)
+        ordered_fold_planes_plain(work, d, moved, reduce)
+        work.scatter_(1, idx, float(agg.leaves[0].identity))
+
+    plain_ms = cuda_ms(plain, 50)
+    real = s_ != 0
+    pairs = int(real.sum())
+    dests = sum(int(torch.unique(d[p][real[p]]).numel()) for p in range(P))
+    bound_ms = (16 * pairs + 8 * dests) / HBM_BYTES_PER_S * 1e3
+    return {"reduce": reduce, "planes": P, "cap": int(acc.shape[1]),
+            "lanes": int(d.shape[1]), "real_pairs": pairs,
+            "dst_targets": dests, "wrapper_ms": wrapper_ms,
+            "device_ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def phase_mesh_sessions(torch, equal_records: int = 2_000_000,
+                        merge_records: int = 1_000_000):
+    """Phase 13: BASELINE row 5 on the mesh session engine at P=8."""
+    import flink_tpu_torch.native as native
+    import flink_tpu_torch.parallel.sharded_sessions as ss
+    import flink_tpu_torch.stateplane.fold as fold_mod
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+    from flink_tpu_torch.benchmarks.session_profile import (
+        row5_source,
+        run_sessions,
+    )
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.core.records import KEY_ID_FIELD
+
+    # (a) the reference's mesh-sessions shape through the benchmark loop,
+    # every fired session against the NumPy oracle; never cut
+    records = ms.RECORDS
+    ms.load_libraries("cuda")
+    fallbacks = native.native_fallbacks()
+    reset_counts()
+    r = ms.run(records, "cuda", collect=True)
+    counts = read_counts()
+    eng = r.pop("engine")
+    batches, starts = r.pop("batches"), r.pop("split_starts")
+    if counts["exchange_rank"] <= 0 or counts["ordered_fold"] <= 0:
+        raise AssertionError(f"phase 13(a): a kernel did not launch "
+                             f"({counts})")
+    if not (type(eng.meta).__name__ == "NativeSessionIntervalSet"
+            and native.native_fallbacks() == fallbacks):
+        raise AssertionError("phase 13(a): the native session plane did "
+                             "not run")
+    spill = r["spill"]
+    if spill["rows_evicted"] <= 0 or spill["rows_reloaded"] <= 0:
+        raise AssertionError(f"phase 13(a): the paged tier did not evict "
+                             f"and reload ({spill})")
+    if eng.late_records_dropped:
+        raise AssertionError("phase 13(a): late records dropped from a "
+                             "stream in order")
+    got_k = np.concatenate([np.asarray(b[KEY_ID_FIELD], np.int64)
+                            for b in batches])
+    got_s = np.concatenate([np.asarray(b["window_start"], np.int64)
+                            for b in batches])
+    got_e = np.concatenate([np.asarray(b["window_end"], np.int64)
+                            for b in batches])
+    got_v = np.concatenate([np.asarray(b["sum_v"], np.float32)
+                            for b in batches])
+    o = np.lexsort((got_s, got_k))
+    got_k, got_s, got_e, got_v = got_k[o], got_s[o], got_e[o], got_v[o]
+    t0 = time.perf_counter()
+    wk, ws, we, wv, wn = mesh_oracle(records, starts)
+    oracle_s = time.perf_counter() - t0
+    if not (np.array_equal(got_k, wk) and np.array_equal(got_s, ws)
+            and np.array_equal(got_e, we)
+            and got_v.tobytes() == wv.tobytes()):
+        raise AssertionError(f"phase 13(a): {len(got_k)} sessions fired, the "
+                             f"oracle's {len(wk)}: (key, start, end, sum) "
+                             "differ")
+
+    # (b) row 5's job at P=8 through env.execute, card against CPU, a
+    # 1<<16-row budget per shard (eviction starts), deadline off
+    p8 = {"parallelism.default": 8, "state.slot-table.capacity": 1 << 16,
+          "state.slot-table.max-device-slots": 1 << 16}
+    reset_counts()
+    card, card_s, _, ceng = run_sessions(row5_source(equal_records), "cuda",
+                                         p8)
+    b_counts = read_counts()
+    cpu, cpu_s, _, peng = run_sessions(row5_source(equal_records), "cpu", p8)
+    n_equal = _rows_equal("phase 13(b)", card, cpu)
+    if ceng.spill_counters() != peng.spill_counters():
+        raise AssertionError(f"phase 13(b): spill counters differ: card "
+                             f"{ceng.spill_counters()}, CPU "
+                             f"{peng.spill_counters()}")
+    if ceng.spill_counters()["rows_evicted"] <= 0:
+        raise AssertionError("phase 13(b): no eviction")
+
+    # (c) phase 12(c)'s out-of-order float32 Max with NaN payloads and
+    # signed zeros at P=8 under 1<<12 rows a shard; the merges' ordered-
+    # fold launches are counted and the largest merge group kept for (d)
+    merge_settings = {"parallelism.default": 8,
+                      "execution.micro-batch.size": 1 << 13,
+                      "state.slot-table.capacity": 1 << 12,
+                      "state.slot-table.max-device-slots": 1 << 12}
+    build, merge = ss.build_session_merge_step, {"launches": 0, "real": -1}
+
+    def counted_build(mesh, agg):
+        step = build(mesh, agg)
+        if mesh.device.type != "cuda":
+            return step
+
+        def counted(accs, dst, src):
+            real = int((src != 0).sum())
+            if real > merge["real"]:
+                merge.update(real=real, acc=accs[0].clone(),
+                             dst=dst.clone(), src=src.clone())
+            before = fold_mod.ordered_fold_planes.launches
+            out = step(accs, dst, src)
+            merge["launches"] += (fold_mod.ordered_fold_planes.launches
+                                  - before)
+            return out
+        return counted
+
+    src_cls = _jittered_specials(DataGenSource, 3_000)
+    ss.build_session_merge_step = counted_build
+    try:
+        reset_counts()
+        mcard, _, _, meng = run_sessions(
+            src_cls(merge_records, 100_000, 400_000, seed=3), "cuda",
+            merge_settings, agg="max", out_of_orderness=3_000)
+        c_counts = read_counts()
+    finally:
+        ss.build_session_merge_step = build
+    mcpu, _, _, mpeng = run_sessions(
+        src_cls(merge_records, 100_000, 400_000, seed=3), "cpu",
+        merge_settings, agg="max", out_of_orderness=3_000)
+    m_equal = _rows_equal("phase 13(c)", mcard, mcpu)
+    if meng.spill_counters() != mpeng.spill_counters() \
+            or meng.merge_groups != mpeng.merge_groups:
+        raise AssertionError("phase 13(c): spill counters or merges differ")
+    if meng.merge_groups <= 0 or meng.spill_counters()["rows_evicted"] <= 0 \
+            or merge["launches"] <= 0:
+        raise AssertionError(f"phase 13(c): no merge, no eviction or no "
+                             f"ordered fold in merges ({merge['launches']})")
+
+    # (d) the mesh merge step alone at (c)'s largest group
+    timing = [mesh_merge_timing(torch, merge, red) for red in ("sum", "max")]
+
+    for what, c in (("13(b)", b_counts), ("13(c)", c_counts)):
+        if c["exchange_rank"] <= 0 or c["ordered_fold"] <= 0:
+            raise AssertionError(f"phase {what}: a kernel did not launch "
+                                 f"({c})")
+    launches = {k: counts[k] + b_counts[k] + c_counts[k] for k in counts}
+    lat = r["fire_latency_ms"]
+    out = {"records": records, "events_per_s": r["events_per_s"],
+           "wall_s": r["wall_s"], "fire_latency_ms": lat, "spill": spill,
+           "rewrite_amplification": r["rewrite_amplification"],
+           "breakdown": r["breakdown"], "sessions": len(wk),
+           "oracle_s": oracle_s, "launches_a": counts,
+           "launches": launches,
+           "card_equals_cpu_rows": n_equal, "b_card_s": card_s,
+           "b_cpu_s": cpu_s, "b_spill": ceng.spill_counters(),
+           "card_equals_cpu_max_rows": m_equal,
+           "max_job": {"records": merge_records,
+                       "merge_groups": meng.merge_groups,
+                       "merge_pairs_max": meng.merge_pairs_max,
+                       "merge_fold_launches": merge["launches"],
+                       "spill": meng.spill_counters()},
+           "merge_timing": timing}
+    print(f"phase 13: BASELINE row 5 on the mesh engine P=8, {records} "
+          f"records: {r['events_per_s']:.0f} events/s, fire p50 "
+          f"{lat['p50']:.2f} ms p99 {lat['p99']:.2f} ms ({lat['count']} "
+          f"fires); {len(wk)} sessions equal to the oracle (key, start, "
+          f"end, sum bits); spill {spill}; amplification "
+          f"{r['rewrite_amplification']:.4f}; launches {counts}; (b) first "
+          f"{equal_records} records at P=8 through env.execute: {n_equal} "
+          f"rows equal on the card and the CPU, spill counters equal "
+          f"({ceng.spill_counters()}); (c) Max with NaN payloads, out of "
+          f"order, P=8: {m_equal} rows equal, {meng.merge_groups} merge "
+          f"groups (largest {meng.merge_pairs_max} pairs a shard), "
+          f"{merge['launches']} ordered-fold launches in merges; (d) "
+          + "; ".join(f"{t['reduce']}: wrapper {t['wrapper_ms']:.4f} ms, "
+                      f"device {t['device_ms']} ms, events "
+                      f"{t['event_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                      f"ms, bound {t['bound_ms']:.7f} ms"
+                      for t in timing))
+    print("mesh_sessions " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -1443,7 +1724,9 @@ def main() -> int:
     q5_panes = phase_q5(torch, args.records, parallelism=1, layout="panes")
     rev_panes = phase_revenue_panes(torch, args.revenue_records)
     sessions = phase_sessions(torch, args.session_records)
-    runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions)
+    mesh_sessions = phase_mesh_sessions(torch)
+    runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
+            mesh_sessions)
 
     kernels = [{
         "name": "exchange_rank",

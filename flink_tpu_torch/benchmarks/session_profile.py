@@ -1,6 +1,7 @@
 """BASELINE row 5 on the port, and where its time goes on the card.
 
     python3 -m flink_tpu_torch.benchmarks.session_profile [--records N]
+        [--parallelism 1|8]
 
 Row 5 is "Session-window clickstream, 10M distinct keys"
 (``BASELINE.json`` ``configs[4]``) as ``tools/bench_suite.py:198-245`` runs
@@ -20,6 +21,15 @@ fire dispatch, the frees) and the harvests. Prints one JSON line: wall
 time, events/s and fire latency of the plain run, the spill counters,
 host seconds per stage and the device's busy and idle share with its
 largest items.
+
+With ``--parallelism 8`` it profiles the mesh session engine the same way
+at the reference's mesh-sessions shape (``benchmarks/mesh_sessions.py``,
+4M records by default: P=8, 1<<16 rows a shard, a 25 ms fire deadline):
+the native absorb, the shard grouping, the slot resolution with the
+evictions and the page reloads inside it, the merge groups, the record
+routing and staging, H2D copies, fence waits, the fires (the native pop,
+the hybrid fire with its reads of paged-out sessions, the frees) and the
+harvests.
 """
 
 from __future__ import annotations
@@ -127,9 +137,67 @@ def _session_patches():
     ]
 
 
+def _mesh_patches():
+    """(object, attribute, stage) wrapped in the profiled mesh run."""
+    from flink_tpu_torch.parallel import sharded_sessions as ss
+    from flink_tpu_torch.parallel import sharded_windower as sw
+    from flink_tpu_torch.runtime import pending
+    from flink_tpu_torch.state.slot_table import NativeSlotIndex as I
+    from flink_tpu_torch.windowing.session_native import (
+        NativeSessionIntervalSet as M,
+    )
+
+    E = ss.MeshSessionEngine
+    return [
+        (E, "process_batch", "engine.process_batch (all ingest)"),
+        (E, "_drain_deferred_sweeps", "ingest.deferred page sweeps"),
+        (M, "absorb_batch_ex", "ingest.native_absorb"),
+        (E, "_run_merge_group", "ingest.merge_groups"),
+        (M, "shard_group", "ingest.shard_group (native)"),
+        (E, "_resolve_slots_paged", "state.resolve (ingest + merges)"),
+        (E, "_evict_cohorts", "state.resolve > evict (gather, D2H, page)"),
+        (sw, "reload_rows_for", "state.resolve > page reads (reloads)"),
+        (M, "route_records", "ingest.route_records (native)"),
+        (ss, "stage_device_exchange", "ingest.stage"),
+        (E, "_to_device", "h2d copies (all)"),
+        (E, "_await_dispatch_slot", "ingest.fence_wait"),
+        (E, "on_watermark", "engine.on_watermark (fires + frees)"),
+        (M, "pop_fired_ex", "fire.native_pop"),
+        (E, "_fire_sessions_hybrid", "fire.hybrid (resolve, cold, dispatch)"),
+        (ss, "reload_rows_for", "fire.hybrid > paged-out reads"),
+        (I, "free_slots", "index frees (fires, merges, evictions)"),
+        (pending.PendingFire, "harvest", "fire.harvest"),
+    ]
+
+
+def profile_mesh(records: int) -> dict:
+    """The mesh run: a plain pass of ``mesh_sessions.run`` for the wall
+    time, then a profiled one."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+    from flink_tpu_torch.benchmarks.q5_profile import (
+        device_summary,
+        profile_patched,
+    )
+
+    ms.load_libraries("cuda")
+    plain = ms.run(records, "cuda")
+    plain.pop("engine")
+
+    def profiled():
+        r = ms.run(records, "cuda")
+        r.pop("engine")
+        return r
+
+    prof_run, host_s, prof = profile_patched(_mesh_patches(), profiled)
+    return {"plain_run": plain, "profiled_wall_s": prof_run["wall_s"],
+            "profiled_events_per_s": prof_run["events_per_s"],
+            "host_s": host_s, **device_summary(prof, prof_run["wall_s"])}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--records", type=int, default=ROW5_RECORDS)
+    ap.add_argument("--records", type=int, default=None)
+    ap.add_argument("--parallelism", type=int, choices=(1, 8), default=1)
     args = ap.parse_args()
     import torch
 
@@ -138,6 +206,15 @@ def main() -> None:
         profile_patched,
     )
 
+    if args.parallelism == 8:
+        from flink_tpu_torch.benchmarks.mesh_sessions import RECORDS
+
+        records = args.records or RECORDS
+        print(json.dumps({"card": torch.cuda.get_device_name(0),
+                          "records": records, "parallelism": 8,
+                          **profile_mesh(records)}))
+        return
+    args.records = args.records or ROW5_RECORDS
     _, wall, result, eng = run_sessions(row5_source(args.records))
     plain = {"wall_s": wall, "events_per_s": args.records / wall,
              "fire_latency_ms": result.metrics.get("window_fire_latency_ms"),

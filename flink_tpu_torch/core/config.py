@@ -107,8 +107,9 @@ class StateOptions:
         description="Device-resident slot budget per keyed state (device "
         "memory bound). 0 = unbounded (grow by doubling). When the budget "
         "is reached, cold namespaces spill to host memory and reload "
-        "transparently on access. Parallelism 1 only in this port (the "
-        "mesh engine's spill tier is not ported).")
+        "transparently on access. Above parallelism 1 it is per shard of "
+        "the logical mesh for session jobs (the mesh paged tier); the mesh "
+        "window engine raises for it (ROADMAP item 7c).")
     WINDOW_LAYOUT = ConfigOption(
         "state.window-layout", default="auto", type=str,
         description="Keyed window state layout at parallelism 1: 'slots' "

@@ -289,11 +289,12 @@ class WindowAggOperator(Operator):
 
 
 class SessionWindowAggOperator(WindowAggOperator):
-    """Merging session windows (``windowing/sessions.py``): the key
-    reattachment, fire latency and async-fire plumbing of
-    WindowAggOperator over a ``SessionWindower`` on ``ctx.device``, at
-    parallelism 1. The mesh session engine is not ported: above
-    parallelism 1 it raises, never running parallelism 1 instead."""
+    """Merging session windows: the key reattachment, fire latency and
+    async-fire plumbing of WindowAggOperator over a ``SessionWindower``
+    (``windowing/sessions.py``) at parallelism 1, and above it over the
+    mesh session engine (``parallel/sharded_sessions.py``) on a logical
+    mesh of ``parallelism`` shards on ``ctx.device`` — never parallelism 1
+    instead."""
 
     name = "session_window_agg"
 
@@ -305,26 +306,51 @@ class SessionWindowAggOperator(WindowAggOperator):
         self.gap = gap
 
     def open(self, ctx):
-        from flink_tpu_torch.windowing.sessions import SessionWindower
-
         if ctx.parallelism > 1:
-            raise NotImplementedError(
-                f"session windows at parallelism {ctx.parallelism} run on "
-                "the mesh session engine, which is not ported to "
-                "flink_tpu_torch yet (ROADMAP.md, Queue A item 7b); use "
-                "parallelism 1")
-        if ctx.state_backend != "tpu-slot-table":
-            raise NotImplementedError(
-                f"state.backend={ctx.state_backend!r}: placement backends "
-                "are not ported to flink_tpu_torch yet (ROADMAP.md, Queue A "
-                "item 11)")
-        self.windower = SessionWindower(
-            self.gap, self.agg, capacity=self.capacity,
-            max_parallelism=ctx.max_parallelism,
-            allowed_lateness=self.allowed_lateness,
-            spill={**ctx.spill, "device": ctx.device})
+            self.windower = self._open_mesh(ctx)
+        else:
+            from flink_tpu_torch.windowing.sessions import SessionWindower
+
+            if ctx.state_backend != "tpu-slot-table":
+                raise NotImplementedError(
+                    f"state.backend={ctx.state_backend!r}: placement "
+                    "backends are not ported to flink_tpu_torch yet "
+                    "(ROADMAP.md, Queue A item 11)")
+            self.windower = SessionWindower(
+                self.gap, self.agg, capacity=self.capacity,
+                max_parallelism=ctx.max_parallelism,
+                allowed_lateness=self.allowed_lateness,
+                spill={**ctx.spill, "device": ctx.device})
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
+
+    def _open_mesh(self, ctx):
+        """The mesh session engine. ``state.slot-table.capacity`` and
+        ``state.slot-table.max-device-slots`` are PER SHARD here (the
+        reference's budget is per device; on the logical mesh every shard
+        has its own, as ``tools/bench_mesh_sessions.py`` passes it); a
+        budget selects the paged spill tier. Dispatch-ahead follows
+        ``execution.pipeline.max-dispatch-batches``."""
+        if ctx.state_backend != "tpu-slot-table":
+            raise ValueError(
+                f"state.backend={ctx.state_backend!r} is not supported at "
+                "operator parallelism > 1: mesh-sharded state is placed "
+                "by the device mesh itself")
+        from flink_tpu_torch.parallel.mesh import make_mesh
+        from flink_tpu_torch.parallel.sharded_sessions import (
+            MeshSessionEngine,
+        )
+
+        return MeshSessionEngine(
+            self.gap, self.agg, make_mesh(ctx.parallelism, ctx.device),
+            capacity_per_shard=self.capacity,
+            max_parallelism=ctx.max_parallelism,
+            allowed_lateness=self.allowed_lateness,
+            max_device_slots=ctx.spill.get("max_device_slots", 0),
+            spill_dir=ctx.spill.get("spill_dir"),
+            spill_host_max_bytes=ctx.spill.get("spill_host_max_bytes", 0),
+            max_dispatch_ahead=ctx.max_dispatch_ahead,
+            shuffle_mode=ctx.shuffle_mode)
 
 
 class SinkOperator(Operator):

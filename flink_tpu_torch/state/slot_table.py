@@ -107,11 +107,14 @@ def verify_slot_hints(index, key_ids: np.ndarray, namespaces: np.ndarray,
 
 
 def resolve_slot_hints(index, key_ids: np.ndarray, namespaces: np.ndarray,
-                       hints: np.ndarray) -> np.ndarray:
+                       hints: np.ndarray, skip=None) -> np.ndarray:
     """Verify the hints, hash-probe the rest: -1 where the index does not
-    hold the pair."""
+    hold the pair. ``skip``: rows the caller KNOWS are absent (fresh
+    session ids) keep -1 without the probe."""
     pre = verify_slot_hints(index, key_ids, namespaces, hints)
     probe = pre < 0
+    if skip is not None:
+        probe &= ~skip
     if probe.any():
         pre[probe] = index.lookup(
             np.asarray(key_ids)[probe], np.asarray(namespaces)[probe])

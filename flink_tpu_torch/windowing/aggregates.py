@@ -26,6 +26,7 @@ from flink_tpu_torch.ops.segment_ops import (
     torch_dtype,
 )
 from flink_tpu_torch.stateplane import families as _families
+from flink_tpu_torch.stateplane.fold import nan_bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +213,16 @@ class AvgAggregate(AggregateFunction):
 
     def finish(self, merged):
         s, c = merged
-        return {self.output_names[0]: s / torch.clamp(c, min=1.0)}
+        c = torch.clamp(c, min=1.0)
+        # the CPU's (x86) NaN rule, the reference's bits, which the card's
+        # divide (its canonical NaN) does not keep: a NaN operand comes
+        # out quieted, the dividend's first; an invalid divide (inf/inf)
+        # gives the default NaN
+        q = s / c
+        q = torch.where(torch.isnan(q), nan_bits(q, quiet=False), q)
+        q = torch.where(torch.isnan(c), nan_bits(c, quiet=True), q)
+        return {self.output_names[0]: torch.where(
+            torch.isnan(s), nan_bits(s, quiet=True), q)}
 
 
 class MultiAggregate(AggregateFunction):

@@ -1,7 +1,7 @@
 """Host-side session interval metadata (port of
 ``flink_tpu/windowing/session_meta.py``, host code with the same
-behaviour), shared by the single-device session engine and, once ported,
-the mesh-sharded one (ROADMAP.md Queue A item 7b).
+behaviour), shared by the single-device session engine and the
+mesh-sharded one (``parallel/sharded_sessions.py``).
 
 reference: MergingWindowSet + WindowOperator.java:159-162 — merge *metadata*
 (tiny per-key interval lists) lives apart from merged *state* (accumulator
@@ -701,8 +701,39 @@ class SessionIntervalSet:
             "max_fired_watermark": self.max_fired_watermark,
         }
 
-    # Restore, partial-failover merges and snapshot filters belong to
-    # checkpoints and failure domains (ROADMAP.md Queue A item 8).
+    def restore(self, snap: Dict[str, object]) -> None:
+        """Rebuild the interval set from :meth:`snapshot` — how an engine
+        hands a native plane's live sessions to this plane after a
+        ``NativePlaneError``. Restoring a subset of key groups, partial-
+        failover merges and snapshot filters belong to checkpoints and
+        failure domains (ROADMAP.md Queue A item 8)."""
+        self._reset_store()
+        self._fire_chunks = []
+        self._fire_buf = ([], [], [])
+        self._min_pending_end = 1 << 62
+        sk, ss, se, ssid = [], [], [], []
+        for k, ivs in snap.get("sessions", {}).items():
+            kept = [tuple(iv) for iv in ivs]
+            if len(kept) == 1:
+                s, e, sid = kept[0]
+                sk.append(int(k))
+                ss.append(int(s))
+                se.append(int(e))
+                ssid.append(int(sid))
+            else:
+                self._multi[int(k)] = sorted(kept)
+                for start, end, sid in kept:
+                    self._push_fire(end, int(k), sid)
+        if sk:
+            keys = np.asarray(sk, dtype=np.int64)
+            slots = self._idx.lookup_or_insert(keys, keys)
+            self._s_start[slots] = ss
+            self._s_end[slots] = se
+            self._s_sid[slots] = ssid
+            self._push_fires(np.asarray(se, dtype=np.int64), keys,
+                             np.asarray(ssid, dtype=np.int64))
+        self._next_sid = snap.get("next_sid", 1)
+        self.max_fired_watermark = snap.get("max_fired_watermark", _NEG_INF)
 
 
 def make_session_meta(gap: int,

@@ -27,9 +27,10 @@ One C sweep per batch replaces the numpy hot loop of
 The pure-Python plane remains the bit-identical fallback where the
 library does not build; :func:`flink_tpu_torch.windowing.session_meta.
 make_session_meta` selects per engine, the way ``make_slot_index`` does
-for the state plane. The mesh engine's sweeps (``shard_group``,
-``rec_shard_max``, ``route_records``) come with it (ROADMAP.md Queue A
-item 7b).
+for the state plane. The mesh session engine's host-prep sweeps
+(``shard_group``, ``rec_shard_max``, ``route_records``) are one C pass
+each here; on the Python plane the engine takes their NumPy equivalents
+(``parallel/sharded_sessions.py``).
 """
 
 from __future__ import annotations
@@ -423,6 +424,88 @@ class NativeSessionIntervalSet(SessionIntervalSet):
 
     def _rest_single_lookup(self, key: int) -> int:
         return int(self._lib.sx_lookup1(self._store._h, int(key)))
+
+    # ------------------------------------------- host-prep sweep helpers
+
+    def shard_group(self, res: AbsorbResult, P: int, maxp: int,
+                    key_group_range) -> Tuple:
+        """Per-session shard assignment and stable grouping of the LIVE
+        sessions by shard, gathering every resolve column in ONE C pass
+        (``sx_shard_group``; the key-group formula of ``keygroups.py``).
+        Returns ``(sess_shard, counts, sorted_idx, key_sorted,
+        sid_sorted, fresh_sorted, hint_sorted, row_sorted)``; the sorted
+        arrays slice contiguously per shard."""
+        m = len(res.sess_key)
+        kg_first, kg_last = (key_group_range
+                             if key_group_range is not None else (-1, -1))
+        shard = np.empty(m, dtype=np.int64)
+        counts = np.empty(int(P), dtype=np.int64)
+        sorted_idx = np.empty(m, dtype=np.int64)
+        key_s = np.empty(m, dtype=np.int64)
+        sid_s = np.empty(m, dtype=np.int64)
+        fresh_s = np.empty(m, dtype=np.uint8)
+        hint_s = np.empty(m, dtype=np.int32)
+        row_s = np.empty(m, dtype=np.int32)
+        t0 = time.perf_counter()
+        nl = int(self._lib.sx_shard_group(
+            m, _i64p(res.sess_key), _i64p(res.sess_sid),
+            res.fresh.view(np.uint8).ctypes.data_as(_U8P),
+            _i32p(res.slot_hint), _i32p(res.meta_row),
+            int(P), int(maxp), int(kg_first), int(kg_last),
+            _i64p(shard), _i64p(counts), _i64p(sorted_idx),
+            _i64p(key_s), _i64p(sid_s),
+            fresh_s.ctypes.data_as(_U8P), _i32p(hint_s), _i32p(row_s)))
+        self.native_sweep_s += time.perf_counter() - t0
+        if nl < 0:
+            raise ValueError(
+                "session key routed outside the engine's key-group "
+                "range — upstream routing bug")
+        return (shard, counts, sorted_idx[:nl], key_s[:nl], sid_s[:nl],
+                fresh_s[:nl].view(bool), hint_s[:nl], row_s[:nl])
+
+    def rec_shard_max(self, keys: np.ndarray, P: int, maxp: int,
+                      key_group_range) -> int:
+        """The largest per-shard record count of a batch in one C pass
+        (``sx_rec_shard_max``): the cheap first check of the engine's
+        batch split."""
+        kg_first, kg_last = (key_group_range
+                             if key_group_range is not None else (-1, -1))
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
+        t0 = time.perf_counter()
+        mx = int(self._lib.sx_rec_shard_max(
+            len(keys), _i64p(keys), int(P), int(maxp),
+            int(kg_first), int(kg_last)))
+        self.native_sweep_s += time.perf_counter() - t0
+        if mx < 0:
+            raise ValueError(
+                "record key routed outside the engine's key-group "
+                "range — upstream routing bug")
+        return mx
+
+    def route_records(self, n: int, order: np.ndarray,
+                      rec_to_sess: np.ndarray, m: int,
+                      sorted_idx: np.ndarray, slot_sorted: np.ndarray,
+                      sess_shard: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Record routing in one C pass (``sx_route``):
+        ``rec[order[i]] = per_session[rec_to_sess[i]]`` for the slot and
+        shard columns, the resolved slots arriving as the (sorted_idx,
+        slot_sorted) pairs of the per-shard resolve; sessions without a
+        resolved slot (stale on arrival) route their records to slot 0."""
+        rec_slots = np.empty(n, dtype=np.int32)
+        rec_shards = np.empty(n, dtype=np.int64)
+        order = np.ascontiguousarray(order, dtype=np.int64)
+        rec_to_sess = np.ascontiguousarray(rec_to_sess, dtype=np.int64)
+        sorted_idx = np.ascontiguousarray(sorted_idx, dtype=np.int64)
+        slot_sorted = np.ascontiguousarray(slot_sorted, dtype=np.int32)
+        sess_shard = np.ascontiguousarray(sess_shard, dtype=np.int64)
+        t0 = time.perf_counter()
+        self._lib.sx_route(
+            int(n), int(m), _i64p(order), _i64p(rec_to_sess),
+            len(sorted_idx), _i64p(sorted_idx), _i32p(slot_sorted),
+            _i64p(sess_shard), _i32p(rec_slots), _i64p(rec_shards))
+        self.native_sweep_s += time.perf_counter() - t0
+        return rec_slots, rec_shards
 
     def _rest_single_free(self, slot: int) -> int:
         dslot = int(self._store.dslot[slot])

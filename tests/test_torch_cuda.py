@@ -670,3 +670,157 @@ def test_session_job_on_card_equals_cpu_run():
         if a.dtype.kind == "f":
             a, b = a.view(np.uint32), b.view(np.uint32)
         np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _mesh_planes(rng, agg, P, cap):
+    """One ``[P, cap]`` plane per leaf on the CPU: specials for floats
+    (signed zeros too for max/min), integers otherwise; slot 0 the
+    identity."""
+    planes = []
+    for leaf in agg.leaves:
+        if np.dtype(leaf.dtype).kind == "f":
+            td = (torch.float64 if np.dtype(leaf.dtype).itemsize == 8
+                  else torch.float32)
+            p = _special_values(rng, P * cap, td).view(P, cap)
+            if leaf.reduce != "sum":
+                p[torch.from_numpy(rng.random((P, cap)) < 0.2)] = 0.0
+                p[torch.from_numpy(rng.random((P, cap)) < 0.2)] = -0.0
+        else:
+            p = torch.from_numpy(rng.integers(0, 1000, (P, cap))
+                                 .astype(leaf.dtype))
+        p[:, 0] = float(leaf.identity)
+        planes.append(p)
+    return planes
+
+
+def _planes_equal(got, want, what):
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.equal(_bits(g) if g.is_floating_point() else g,
+                           _bits(w) if w.is_floating_point() else w), what
+
+
+@pytest.mark.cuda
+def test_session_merge_step_on_card_equals_cpu():
+    """The mesh session merge on the card (the ordered fold on the
+    [P, cap] planes for float leaves, one launch per float leaf) against
+    the CPU: [8, M] blocks with repeated destinations, shards with few or
+    no pairs, padded 0/0 lanes, NaN payloads, +-inf and signed zeros;
+    every plane bit for bit."""
+    _need_card()
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import (
+        build_session_merge_step,
+    )
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.windowing import aggregates as tagg
+
+    rng = np.random.default_rng(22)
+    P, cap, M = 8, 1 << 16, 8192
+    for agg in (tagg.CountAggregate(), tagg.SumAggregate("v"),
+                tagg.SumAggregate("v", dtype=np.float64),
+                tagg.MaxAggregate("v"), tagg.MinAggregate("v"),
+                tagg.AvgAggregate("v")):
+        planes = _mesh_planes(rng, agg, P, cap)
+        dst = np.zeros((P, M), np.int32)
+        src = np.zeros((P, M), np.int32)
+        for p in range(P):
+            n = M if p == 0 else int(rng.integers(0, M))
+            perm = rng.permutation(np.arange(1, cap))
+            dst[p, :n] = rng.choice(perm[: max(n // 5, 1)], n)
+            src[p, :n] = perm[cap // 2: cap // 2 + n]
+        want = build_session_merge_step(make_mesh(P, "cpu"), agg)(
+            tuple(p.clone() for p in planes), torch.from_numpy(dst),
+            torch.from_numpy(src))
+        before = ordered_fold_planes.launches
+        got = build_session_merge_step(make_mesh(P, "cuda"), agg)(
+            tuple(p.cuda() for p in planes), torch.from_numpy(dst).cuda(),
+            torch.from_numpy(src).cuda())
+        torch.cuda.synchronize()
+        floats = sum(np.dtype(l.dtype).kind == "f" for l in agg.leaves)
+        assert ordered_fold_planes.launches == before + floats
+        _planes_equal(got, want, type(agg).__name__)
+
+
+@pytest.mark.cuda
+def test_delta_fire_step_on_card_equals_cpu():
+    """The delta fire on the card against the CPU: fired columns and the
+    planes after the reset, bit for bit, padded lanes at slot 0."""
+    _need_card()
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import (
+        build_delta_fire_step,
+    )
+    from flink_tpu_torch.windowing import aggregates as tagg
+
+    rng = np.random.default_rng(23)
+    P, cap, W = 8, 1 << 16, 4096
+    for agg in (tagg.CountAggregate(), tagg.SumAggregate("v"),
+                tagg.MaxAggregate("v"), tagg.AvgAggregate("v")):
+        planes = _mesh_planes(rng, agg, P, cap)
+        sm = np.zeros((P, W, 1), np.int32)
+        rs = np.zeros((P, W), np.int32)
+        for p in range(P):
+            n = int(rng.integers(0, W))
+            sm[p, :n, 0] = rs[p, :n] = rng.permutation(
+                np.arange(1, cap))[:n]
+        w_accs, w_out = build_delta_fire_step(make_mesh(P, "cpu"), agg)(
+            tuple(p.clone() for p in planes), torch.from_numpy(sm),
+            torch.from_numpy(rs))
+        g_accs, g_out = build_delta_fire_step(make_mesh(P, "cuda"), agg)(
+            tuple(p.cuda() for p in planes), torch.from_numpy(sm).cuda(),
+            torch.from_numpy(rs).cuda())
+        torch.cuda.synchronize()
+        _planes_equal(g_accs, w_accs, type(agg).__name__)
+        assert sorted(g_out) == sorted(w_out)
+        _planes_equal([g_out[n] for n in sorted(w_out)],
+                      [w_out[n] for n in sorted(w_out)], type(agg).__name__)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["sum", "max"])
+def test_mesh_session_job_on_card_equals_cpu_run(agg):
+    """A session job at parallelism 8 through the public API under a
+    1<<10-row budget per shard (the mesh paged tier evicts and reloads):
+    the card's sink rows equal the CPU's, in order and bit for bit, with
+    equal spill counters and merge groups. ``max``: out-of-order records
+    with NaN payloads and signed zeros, so sessions merge."""
+    _need_card()
+    from flink_tpu_torch.benchmarks.session_profile import run_sessions
+    from flink_tpu_torch.connectors.sources import DataGenSource, _splitmix64
+
+    settings = {"parallelism.default": 8,
+                "execution.micro-batch.size": 1 << 12,
+                "state.slot-table.capacity": 1 << 10,
+                "state.slot-table.max-device-slots": 1 << 10}
+    src_cls = DataGenSource
+    kw = {}
+    if agg == "max":
+        class Jittered(DataGenSource):
+            def _generate(self, idx):
+                b = super()._generate(idx)
+                late = (_splitmix64(idx, 99) % np.uint64(3000)).astype(
+                    np.int64)
+                vals = _special_values(np.random.default_rng(int(idx[0])),
+                                       len(idx), torch.float32).numpy()
+                vals[np.random.default_rng(int(idx[0]) + 1)
+                     .random(len(idx)) < 0.2] = -0.0
+                return b.with_column("value", vals).with_timestamps(
+                    b.timestamps - late)
+
+        src_cls, kw = Jittered, {"agg": "max", "out_of_orderness": 3000}
+    runs = [run_sessions(src_cls(300_000, 30_000, 400_000, seed=3), dev,
+                         settings, **kw) for dev in ("cuda", "cpu")]
+    (got, _, _, geng), (want, _, _, weng) = runs
+    g, w = got.result(), want.result()
+    assert len(g) == len(w) > 0
+    for name in w.names():
+        a, b = np.asarray(g[name]), np.asarray(w[name])
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert geng.spill_counters() == weng.spill_counters()
+    assert geng.spill_counters()["rows_evicted"] > 0
+    assert geng.merge_groups == weng.merge_groups
+    if agg == "max":
+        assert geng.merge_groups > 0

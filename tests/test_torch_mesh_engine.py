@@ -144,7 +144,7 @@ def test_mesh_steps_match_reference(eight_device_mesh):
         slots = rng.integers(0, cap, (P, B)).astype(np.int32)
         vals = rng.integers(-50, 50, (P, B)).astype(leaf.dtype)
         js, jf, jr = jbuild_mesh_steps(eight_device_mesh, jagg_)[:3]
-        ts, tf, tr = tbuild_mesh_steps(make_mesh(P, "cpu"), tagg_)
+        ts, tf, tr = tbuild_mesh_steps(make_mesh(P, "cpu"), tagg_)[:3]
         inputs = (vals,) if tagg_.input_leaves else ()
         jaccs = js((jax.device_put(plane, sh),), jax.device_put(slots, sh),
                    tuple(jax.device_put(v, sh) for v in inputs))

@@ -535,9 +535,14 @@ def test_session_api_with_string_keys():
 
 
 def test_session_job_above_parallelism_one_raises():
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    """Above parallelism 1 a session job runs on the mesh session engine
+    (``tests/test_torch_mesh_sessions.py``), never at parallelism 1
+    instead: an option that engine does not port yet raises naming its
+    ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="item 12"):
         _row5_job("port", 10_000, 100, 1 << 12, 1 << 11,
-                  {"execution.device": "cpu", "parallelism.default": 2})
+                  {"execution.device": "cpu", "parallelism.default": 2,
+                   "shuffle.mode": "host"})
 
 
 def test_session_job_on_the_default_device_raises_without_a_card():
