@@ -116,12 +116,47 @@ Phases, each fatal on failure (no result line is printed then):
     merge step alone at (c)'s largest group, float32 Sum and Max: card ==
     CPU, wrapper ms, device ms (torch.profiler), its plain version's ms and
     the bytes bound (16 B a real pair, 8 B a destination, 3.35 TB/s).
+14. checkpoints and restore: (a) Q5 at P=8 through ``env.execute()`` at
+    phase 5's size (40M bids, micro-batches of 1<<20) with
+    ``state.checkpoints.dir`` in a temporary directory, a checkpoint every
+    8 source batches, incremental with a full one every 2nd: a map in
+    front of the keyBy raises after ~60 % of the stream; a fresh
+    environment with the same graph (a benign map of the same name)
+    restores from the root with ``restore_from=`` and runs to the end; the
+    union of both sinks equals phase 5's oracle in every window, and the
+    rank kernel launched in both runs (Count has no float leaf: no
+    ordered fold); (b) the mesh session engine at phase 13(a)'s shape
+    (4M records, batches of 1<<16, 1<<16 rows a shard, dispatch-ahead 2,
+    async fires, each batch's watermark its last timestamp: the deadline
+    split off) through the port's ``run_crash_restore_verify`` with
+    ``tools/chaos_smoke.py``'s fault plan spread over the run (a
+    dispatch-fence crash, a page reload broken past its retries, a
+    post-dispatch exchange crash, a torn checkpoint) and the port's
+    ``SessionWindower`` on the card as the oracle: no divergence, 3
+    crashes and 3 restores, at least one corrupt checkpoint skipped, every
+    planned point injected, every committed (key, start, end, sum) equal
+    bit for bit to phase 13(a)'s NumPy oracle, the restores through the
+    page tier, both kernels launched; (c) card == CPU for snapshots:
+    Q5-revenue at P=1 in slots under a 1<<17-slot budget (3M bids),
+    Q5-revenue in the pane layout (2M bids; the full-window harvest, since
+    a restore refolds pre-aggregated partials slice by slice, which moves
+    float sums by an ulp against an uninterrupted run's record-order
+    partials), row 5 at P=1 and row 5 at P=8
+    (their first 1M records) run with checkpoints on the card and on the
+    CPU: every checkpoint equal array by array, bit for bit; then the CPU
+    restores the card's middle checkpoint and finishes, and every row it
+    fires equals the card's; (d) on the card, a P=8 mesh-sessions
+    snapshot (1M records of 13(a)'s stream) restores into the P=1
+    ``SessionWindower`` mid-stream and a P=1 snapshot into the P=8
+    engine: each finished run equals the uninterrupted one, bit for bit.
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_checkpoints(torch)'`` runs phase 14 alone.
 
 The launch counts of both kernels are set to 0 just before each of phases
-5 to 8, 10, 11, 12(a), 13(a), 13(b) and 13(c) and read just after; each
-phase fails if a kernel of its path did not launch (the rank at
-parallelism 8; the ordered fold in phases 6, 8, 11, 12 and 13, Count
-being an integer fold).
+5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b)
+and read just after; each phase fails if a kernel of its path did not
+launch (the rank at parallelism 8; the ordered fold in phases 6, 8, 11,
+12, 13 and 14(b), Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -133,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1678,6 +1714,571 @@ def phase_mesh_sessions(torch, equal_records: int = 2_000_000,
     return out
 
 
+# ------------------------------------------------------- phase 14: restore
+
+def _snap_diffs(got, want, path=""):
+    """Paths where two checkpoint state dicts differ (arrays by dtype and
+    bytes, other values by ==)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "/"]
+        return [d for k in want
+                for d in _snap_diffs(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, np.ndarray):
+        ok = (isinstance(got, np.ndarray) and got.dtype == want.dtype
+              and got.shape == want.shape
+              and got.tobytes() == want.tobytes())
+        return [] if ok else [path]
+    return [] if got == want else [path]
+
+
+def _keyed_rows(batches, key, value):
+    """{(key, window_start, window_end): value bits} of fired batches."""
+    out = {}
+    for b in batches:
+        k = np.asarray(b[key], np.int64).tolist()
+        st = np.asarray(b["window_start"], np.int64).tolist()
+        en = np.asarray(b["window_end"], np.int64).tolist()
+        v = np.asarray(b[value])
+        bits = v.view(np.uint32 if v.itemsize == 4 else np.uint64).tolist()
+        out.update(zip(zip(k, st, en), bits))
+    return out
+
+
+class FailingMap:
+    """Lets records through until more than ``fail_after`` have passed,
+    then raises (a task failure in front of the keyBy)."""
+
+    def __init__(self, fail_after: int):
+        self.seen = 0
+        self.fail_after = fail_after
+
+    def __call__(self, batch):
+        self.seen += len(batch)
+        if self.seen > self.fail_after:
+            raise RuntimeError("injected failure")
+        return batch
+
+
+def _q5_with_map(env, records, fn):
+    """Q5 as ``build_q5`` builds it, with a map named ``failmap`` between
+    the source and the keyBy."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, _window_argmax
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.aggregates import CountAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.windowing.fire_projectors import TopKFireProjector
+
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    return (env.from_source(src,
+                            WatermarkStrategy.for_bounded_out_of_orderness(0))
+            .map(fn, name="failmap")
+            .key_by("auction")
+            .window(SlidingEventTimeWindows.of(SIZE, SLIDE))
+            .aggregate(CountAggregate(),
+                       fire_projector=TopKFireProjector("count", k=TOP_K))
+            .map(_window_argmax("count"), name="hot_items_argmax"))
+
+
+def _job(torch, build, device, settings, sink, restore_from=None):
+    """``build(env)``'s job into ``sink`` through ``env.execute`` on
+    ``device``: (result, wall s). A job that raises propagates; the rows
+    that reached ``sink`` before stay there."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+
+    env = StreamExecutionEnvironment(Configuration(
+        {**settings, "execution.device": device}))
+    build(env).sink_to(sink)
+    t0 = time.perf_counter()
+    result = env.execute("ckpt", restore_from=restore_from)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def _ckpt_list(ckpts) -> str:
+    return ", ".join(f"chk-{x['id']}{' delta' if x['incremental'] else ''}"
+                     f" {x['bytes']} B in {x['write_ms']:.1f} ms"
+                     for x in ckpts)
+
+
+def ckpt_q5_crash(torch, records: int, tmp: str,
+                  device: str = "cuda") -> dict:
+    """14(a): Q5 at P=8 crashes at ~60 % of the stream and a fresh job
+    resumes from the checkpoint root; the union of both sinks against
+    phase 5's oracle in every window."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.checkpoint.storage import (
+        read_checkpoint_chain,
+        read_manifest,
+        resolve_snapshot_dir,
+    )
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    root = f"{tmp}/q5"
+    settings = {
+        "parallelism.default": 8, "execution.micro-batch.size": 1 << 20,
+        "state.checkpoints.dir": root,
+        "state.checkpoints.num-retained": 1000,
+        "execution.checkpointing.every-n-source-batches": 8,
+        "execution.checkpointing.incremental": True,
+        "execution.checkpointing.incremental.full-every": 2}
+    failing = FailingMap(int(records * 0.6))
+    crashed = CollectSink()
+    env = StreamExecutionEnvironment(Configuration(
+        {**settings, "execution.device": device}))
+    _q5_with_map(env, records, failing).sink_to(crashed)
+    # the executor itself (what env.execute runs), so the crashed run's
+    # checkpoint list (id, kind, bytes, write ms) outlives its failure
+    executor = LocalExecutor(env.config)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        executor.run(env.get_stream_graph(), job_name="ckpt")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 14(a): the failing map did not fail")
+    crash_s = time.perf_counter() - t0
+    crash_counts = read_counts()
+    crash_ckpts = executor.checkpoints
+    snap_dir = resolve_snapshot_dir(root)
+    restored_id = read_manifest(snap_dir)["checkpoint_id"]
+    pos = next(v["source"]["emitted"]
+               for v in read_checkpoint_chain(snap_dir).values()
+               if "source" in v)
+    restored = CollectSink()
+    reset_counts()
+    result, restore_run_s = _job(
+        torch, lambda env: _q5_with_map(env, records, lambda b: b), device,
+        settings, restored, restore_from=root)
+    counts = read_counts()
+    for what, c in (("crashed", crash_counts), ("restored", counts)):
+        if device == "cuda" and c["exchange_rank"] <= 0:
+            raise AssertionError(f"phase 14(a): the {what} run did not "
+                                 f"launch the rank kernel ({c})")
+    got = {}
+    for sink in (crashed, restored):   # the restored run's rows win
+        per = {}
+        for r in sink.rows():
+            per.setdefault(r["window_end"], (r["count"], set()))[1].add(
+                int(r["auction"]))
+        got.update(per)
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    if set(got) != set(want):
+        raise AssertionError(f"phase 14(a): {len(got)} windows, the oracle "
+                             f"{len(want)}")
+    for w, (best, winners) in want.items():
+        g_best, g_winners = got[w]
+        if g_best != best or not g_winners <= winners or \
+                len(g_winners) != min(len(winners), TOP_K):
+            raise AssertionError(f"phase 14(a): window {w} differs from "
+                                 "the oracle")
+    kinds = {c["incremental"] for c in crash_ckpts}
+    if kinds != {False, True}:
+        raise AssertionError("phase 14(a): the crashed run did not write "
+                             f"full and delta checkpoints ({crash_ckpts})")
+    return {"records": records, "crashed_run_checkpoints": crash_ckpts,
+            "restored_run_checkpoints": result.metrics["checkpoints"],
+            "restored_checkpoint": restored_id, "restored_position": pos,
+            "crashed_at": failing.seen,
+            "records_replayed": failing.seen - pos,
+            "restore_ms": result.metrics["restore_ms"],
+            "crashed_run_s": crash_s,
+            "crashed_events_per_s": failing.seen / crash_s,
+            "restored_run_s": restore_run_s,
+            "restored_events_per_s": (records - pos) / restore_run_s,
+            "windows": len(want), "launches_crashed": crash_counts,
+            "launches": counts}
+
+
+def _chaos_plan(chaos):
+    """``tools/chaos_smoke.py``'s plan with its hits spread over phase
+    14(b)'s run (one dispatch fence and one post-dispatch exchange point
+    per batch, page reads from the 10th batch on, one torn-point hit per
+    checkpoint)."""
+    R = chaos.FaultRule
+    return chaos.FaultPlan(rules=[
+        R(pattern="mesh.dispatch_fence", nth=CHAOS_FENCE_NTH),
+        R(pattern="spill.page_reload", nth=CHAOS_RELOAD_NTH),
+        R(pattern="shuffle.device_exchange", nth=CHAOS_EXCHANGE_NTH),
+        R(pattern="checkpoint.write.torn", nth=2, kind="drop"),
+    ])
+
+
+# phase 14(b)'s schedule over its 62 batches, a checkpoint after every
+# 12th (the run is deterministic: a CPU run of this phase gave these
+# places): the fence crash in batch 15 (restore to 12); a page reload
+# crash two batches later (a restored engine holds every row in pages, so
+# it reads pages fast: batch 14); the second checkpoint written (batch 24)
+# torn; the exchange crash at the run's 38th batch, batch 31 of the third
+# incarnation, which restores past the torn checkpoint to 12
+CHAOS_CHECKPOINT_EVERY = 12
+CHAOS_FENCE_NTH = 16
+CHAOS_RELOAD_NTH = 400
+CHAOS_EXCHANGE_NTH = 38
+
+
+def ckpt_mesh_chaos(torch, tmp: str, records: int, device: str = "cuda"):
+    """14(b): crash-restore-verify of the mesh session engine at the
+    mesh-sessions shape."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+    from flink_tpu_torch.chaos import injection as chaos
+    from flink_tpu_torch.chaos import harness
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.sessions import SessionWindower
+
+    steps, starts, produced = [], [], 0
+    for keys, ts in ms.stream_batches(records):
+        starts.append(produced)
+        produced += len(keys)
+        steps.append((keys, np.ones(len(keys), np.float32), ts,
+                      int(ts[-1])))
+    restores = []
+
+    class Engine(MeshSessionEngine):
+        def _paged_restore_rows(self, key_ids, namespaces, leaves):
+            super()._paged_restore_rows(key_ids, namespaces, leaves)
+            restores.append({
+                "rows": len(key_ids),
+                "pages": sum(len(sp) for sp in self.spills),
+                "resident_rows": sum(i.num_used for i in self.indexes)})
+
+    mesh = make_mesh(ms.PARALLELISM, device)
+    oracle_counts = {}
+
+    def make_engine():
+        if not oracle_counts:
+            # the harness builds its first engine once the fault-free
+            # oracle has run: from here on the counts are the engine's own
+            oracle_counts.update(read_counts())
+            reset_counts()
+        return Engine(ms.GAP_MS, SumAggregate("v"), mesh,
+                      capacity_per_shard=ms.BUDGET_PER_SHARD,
+                      max_device_slots=ms.BUDGET_PER_SHARD)
+
+    def make_oracle():
+        return SessionWindower(ms.GAP_MS, SumAggregate("v"),
+                               capacity=1 << 20, spill={"device": device})
+
+    reset_counts()
+    t0 = time.perf_counter()
+    report = harness.run_crash_restore_verify(
+        make_engine, make_oracle, steps, _chaos_plan(chaos), seed=7,
+        ckpt_root=f"{tmp}/chaos", checkpoint_every=CHAOS_CHECKPOINT_EVERY,
+        async_fires=True, check=False)
+    wall = time.perf_counter() - t0
+    committed = report.committed
+    counts = read_counts()
+    if report.diverged:
+        raise AssertionError("phase 14(b): committed output diverged from "
+                             f"the oracle: {report.divergences[:5]}")
+    want_points = {"mesh.dispatch_fence", "spill.page_reload",
+                   "shuffle.device_exchange", "checkpoint.write.torn"}
+    if (report.crashes != 3 or report.restores != 3
+            or report.corrupt_checkpoints_skipped < 1
+            or set(report.faults_injected) != want_points
+            or report.checkpoints_written < 4):
+        raise AssertionError(f"phase 14(b): schedule missed: "
+                             f"{report.signature()}, skipped "
+                             f"{report.corrupt_checkpoints_skipped}")
+    if device == "cuda" and (counts["exchange_rank"] <= 0
+                             or counts["ordered_fold"] <= 0):
+        raise AssertionError(f"phase 14(b): a kernel did not launch in the "
+                             f"mesh engine ({counts})")
+    if not restores or any(r["rows"] <= r["resident_rows"] for r in restores):
+        raise AssertionError("phase 14(b): a restore did not go through "
+                             f"the page tier ({restores})")
+    keys = np.fromiter((k[0] for k in committed), np.int64, len(committed))
+    st = np.fromiter((k[1] for k in committed), np.int64, len(committed))
+    en = np.fromiter((k[2] for k in committed), np.int64, len(committed))
+    sums = np.fromiter((f["sum_v"] for f in committed.values()),
+                       np.float64, len(committed)).astype(np.float32)
+    o = np.lexsort((st, keys))
+    wk, ws, we, wv, _ = mesh_oracle(records, starts)
+    if not (np.array_equal(keys[o], wk) and np.array_equal(st[o], ws)
+            and np.array_equal(en[o], we)
+            and sums[o].tobytes() == wv.tobytes()):
+        raise AssertionError(f"phase 14(b): {len(committed)} committed "
+                             f"sessions, the oracle's {len(wk)}: (key, "
+                             "start, end, sum) differ")
+    wms = sorted(report.checkpoint_write_ms)
+    return {"records": records, "steps": len(steps),
+            "signature": report.signature(),
+            "corrupt_checkpoints_skipped": report.corrupt_checkpoints_skipped,
+            "retries": report.retries, "points_hit": report.points_hit,
+            "checkpoint_bytes": report.checkpoint_bytes,
+            "checkpoint_write_ms_p50": wms[len(wms) // 2],
+            "checkpoint_write_ms_max": wms[-1],
+            "restore_ms": report.restore_ms,
+            "events_replayed": report.events_replayed,
+            "paged_restores": restores, "sessions": len(committed),
+            "wall_s": wall, "launches": counts,
+            "oracle_launches": oracle_counts}
+
+
+def _revenue_build(records):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    return lambda env: build_revenue(env, BidSource(
+        total_records=records, num_auctions=AUCTIONS,
+        events_per_second_of_eventtime=RATE))
+
+
+def _row5_build(records):
+    from flink_tpu_torch.benchmarks.session_profile import (
+        ROW5_GAP,
+        row5_source,
+    )
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+
+    return lambda env: (
+        env.from_source(row5_source(records),
+                        WatermarkStrategy.for_bounded_out_of_orderness(0))
+        .key_by("key").window(EventTimeSessionWindows.with_gap(ROW5_GAP))
+        .sum("value"))
+
+
+def ckpt_card_equals_cpu(torch, tmp: str, name, build, settings, key,
+                         value, device: str = "cuda",
+                         restore_on_card: bool = False) -> dict:
+    """14(c) for one job: the card's checkpoints equal the CPU's, and the
+    CPU restoring the card's middle checkpoint fires the card's rows:
+    those of the uninterrupted card run, or with ``restore_on_card`` (a
+    job whose restore refolds its float partials, so its rows after a
+    restore differ in the last bits from an uninterrupted run) all rows
+    of the card restoring the same checkpoint."""
+    from flink_tpu_torch.checkpoint.storage import read_checkpoint_chain
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    t0 = time.perf_counter()
+    sinks, ids = {}, {}
+    for dev, tag in ((device, "card"), ("cpu", "cpu")):
+        root = f"{tmp}/{name}-{tag}"
+        sinks[tag] = CollectSink()
+        _job(torch, build, dev, {
+            **settings, "state.checkpoints.dir": root,
+            "state.checkpoints.num-retained": 1000}, sinks[tag])
+        ids[tag] = sorted(int(d[4:]) for d in os.listdir(root)
+                          if d.startswith("chk-"))
+    if ids["card"] != ids["cpu"] or len(ids["card"]) < 2:
+        raise AssertionError(f"phase 14(c) {name}: checkpoints "
+                             f"{ids['card']} on the card, {ids['cpu']} on "
+                             "the CPU")
+    for cid in ids["card"]:
+        card = read_checkpoint_chain(f"{tmp}/{name}-card/chk-{cid}")
+        cpu = read_checkpoint_chain(f"{tmp}/{name}-cpu/chk-{cid}")
+        diffs = _snap_diffs(card, cpu)
+        if diffs:
+            raise AssertionError(f"phase 14(c) {name}: checkpoint {cid} "
+                                 f"differs card vs CPU at {diffs[:5]}")
+    mid = ids["card"][len(ids["card"]) // 2]
+    restored = CollectSink()
+    _job(torch, build, "cpu", settings, restored,
+         restore_from=f"{tmp}/{name}-card/chk-{mid}")
+    got = _keyed_rows(restored.batches, key, value)
+    if restore_on_card:
+        card_restored = CollectSink()
+        _job(torch, build, device, settings, card_restored,
+             restore_from=f"{tmp}/{name}-card/chk-{mid}")
+        card_rows = _keyed_rows(card_restored.batches, key, value)
+        bad = len(set(got) ^ set(card_rows))
+    else:
+        card_rows = _keyed_rows(sinks["card"].batches, key, value)
+        bad = 0
+    bad += sum(card_rows.get(k) != v for k, v in got.items())
+    if not got or bad:
+        raise AssertionError(f"phase 14(c) {name}: {bad} of {len(got)} rows "
+                             "fired after the CPU restore differ from the "
+                             "card's")
+    size = sum(e.stat().st_size
+               for e in os.scandir(f"{tmp}/{name}-card/chk-{mid}"))
+    return {"job": name, "checkpoints": len(ids["card"]),
+            "restored": mid, "restored_bytes": size,
+            "rows_after_restore": len(got),
+            "against": "card restore" if restore_on_card else "card run",
+            "wall_s": time.perf_counter() - t0}
+
+
+def ckpt_mutual(torch, records: int, device: str = "cuda") -> dict:
+    """14(d): a P=8 mesh-sessions snapshot restored into the P=1
+    SessionWindower mid-stream, and a P=1 snapshot into the P=8 engine,
+    on the card; each finished run equals the uninterrupted one."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+    from flink_tpu_torch.core.records import (
+        KEY_ID_FIELD,
+        TIMESTAMP_FIELD,
+        RecordBatch,
+    )
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.sessions import SessionWindower
+
+    steps = list(ms.stream_batches(records))
+    cut = len(steps) // 2
+
+    def make(p):
+        if p == 8:
+            return MeshSessionEngine(
+                ms.GAP_MS, SumAggregate("v"), make_mesh(8, device),
+                capacity_per_shard=ms.BUDGET_PER_SHARD,
+                max_device_slots=ms.BUDGET_PER_SHARD)
+        return SessionWindower(ms.GAP_MS, SumAggregate("v"),
+                               capacity=1 << 19,
+                               spill={"device": device,
+                                      "max_device_slots": 1 << 19})
+
+    def feed(eng, part):
+        out = []
+        for keys, ts in part:
+            eng.process_batch(RecordBatch({
+                KEY_ID_FIELD: keys, "v": np.ones(len(keys), np.float32),
+                TIMESTAMP_FIELD: ts}))
+            out.extend(eng.on_watermark(int(ts[-1])))
+        return out
+
+    full, rows = {}, {}
+    for p in (1, 8):
+        eng = make(p)
+        feed(eng, steps[:cut])
+        rest = feed(eng, steps[cut:]) + eng.on_watermark(1 << 60)
+        full[p] = _keyed_rows(rest, KEY_ID_FIELD, "sum_v")
+    if full[1] != full[8]:
+        raise AssertionError("phase 14(d): P=1 and P=8 differ uninterrupted")
+    for src, dst in ((8, 1), (1, 8)):
+        eng = make(src)
+        feed(eng, steps[:cut])
+        t0 = time.perf_counter()
+        snap = eng.snapshot()
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        other = make(dst)
+        t0 = time.perf_counter()
+        other.restore(snap)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got = _keyed_rows(feed(other, steps[cut:])
+                          + other.on_watermark(1 << 60), KEY_ID_FIELD,
+                          "sum_v")
+        if got != full[dst]:
+            bad = sum(full[dst].get(k) != v for k, v in got.items())
+            raise AssertionError(f"phase 14(d): P={src} -> P={dst} differs "
+                                 f"({len(got)} rows, {bad} unequal, "
+                                 f"{len(full[dst])} expected)")
+        rows[f"{src}->{dst}"] = {"rows": len(got),
+                                 "snapshot_rows": len(snap["table"][
+                                     "key_id"]),
+                                 "snapshot_ms": snap_ms,
+                                 "restore_ms": restore_ms}
+    return rows
+
+
+def phase_checkpoints(torch, q5_records: int = 40_000_000,
+                      phase5=None, device: str = "cuda") -> dict:
+    """Phase 14: checkpoints, restore and crash-restore-verify on
+    ``device`` (``"cpu"`` rehearses it on a host without a card; 14(c)
+    then compares the CPU with itself)."""
+    import tempfile
+
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+
+    ms.load_libraries(device)
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as tmp:
+        a = ckpt_q5_crash(torch, q5_records, tmp, device)
+        # the fault schedule (CHAOS_*) is placed for 13(a)'s 4M records
+        b = ckpt_mesh_chaos(torch, tmp, ms.RECORDS, device)
+        c = [
+            ckpt_card_equals_cpu(
+                torch, tmp, "revenue_slots_spill", _revenue_build(3_000_000),
+                {"execution.micro-batch.size": 1 << 18,
+                 "state.window-layout": "slots",
+                 "state.slot-table.capacity": 1 << 17,
+                 "state.slot-table.max-device-slots": 1 << 17,
+                 "execution.checkpointing.every-n-source-batches": 3},
+                "auction", "sum_price", device),
+            # pre-aggregated partials (the default, as phases 10 and 11)
+            ckpt_card_equals_cpu(
+                torch, tmp, "revenue_panes", _revenue_build(2_000_000),
+                {"execution.micro-batch.size": 1 << 18,
+                 "state.window-layout": "panes",
+                 "state.slot-table.capacity": 1 << 17,
+                 "execution.checkpointing.every-n-source-batches": 2},
+                "auction", "sum_price", device, restore_on_card=True),
+            ckpt_card_equals_cpu(
+                torch, tmp, "revenue_panes_full_harvest",
+                _revenue_build(2_000_000),
+                {"execution.micro-batch.size": 1 << 18,
+                 "state.window-layout": "panes", "latency.pane-preagg": False,
+                 "state.slot-table.capacity": 1 << 17,
+                 "execution.checkpointing.every-n-source-batches": 2},
+                "auction", "sum_price", device),
+            ckpt_card_equals_cpu(
+                torch, tmp, "row5_p1", _row5_build(1_000_000),
+                {"execution.micro-batch.size": 1 << 16,
+                 "state.slot-table.capacity": 1 << 19,
+                 "state.slot-table.max-device-slots": 1 << 19,
+                 "execution.checkpointing.every-n-source-batches": 5},
+                "key", "sum_value", device),
+            ckpt_card_equals_cpu(
+                torch, tmp, "row5_p8", _row5_build(1_000_000),
+                {"parallelism.default": 8,
+                 "execution.micro-batch.size": 1 << 16,
+                 "state.slot-table.capacity": 1 << 16,
+                 "state.slot-table.max-device-slots": 1 << 16,
+                 "execution.checkpointing.every-n-source-batches": 5},
+                "key", "sum_value", device),
+        ]
+        d = ckpt_mutual(torch, 1_000_000, device)
+    launches = {k: a["launches_crashed"][k] + a["launches"][k]
+                + b["launches"][k] for k in a["launches"]}
+    out = {"q5_crash": a, "mesh_chaos": b, "card_equals_cpu": c,
+           "mutual": d, "launches": launches,
+           "phase5_events_per_s": (phase5 or {}).get("events_per_s")}
+    print(f"phase 14(a): Q5 P=8 {a['records']} bids: crashed at record "
+          f"{a['crashed_at']} ({a['crashed_events_per_s']:.0f} events/s) "
+          "after checkpoints " + _ckpt_list(a["crashed_run_checkpoints"])
+          + "; the restored run wrote "
+          + _ckpt_list(a["restored_run_checkpoints"])
+          + f"; restored chk-{a['restored_checkpoint']} at record "
+          f"{a['restored_position']} in {a['restore_ms']:.1f} ms, "
+          f"{a['records_replayed']} records replayed, the rest at "
+          f"{a['restored_events_per_s']:.0f} events/s (phase 5: "
+          f"{out['phase5_events_per_s']}); {a['windows']} windows equal "
+          f"the oracle; launches crashed {a['launches_crashed']} restored "
+          f"{a['launches']}")
+    print(f"phase 14(b): mesh sessions P=8 {b['records']} records, "
+          f"{b['steps']} batches: {b['signature']['crashes']} crashes, "
+          f"{b['signature']['restores']} restores, "
+          f"{b['corrupt_checkpoints_skipped']} corrupt checkpoint(s) "
+          f"skipped, {b['signature']['checkpoints_written']} checkpoints "
+          f"(bytes {b['checkpoint_bytes']}), write ms p50 "
+          f"{b['checkpoint_write_ms_p50']:.1f} max "
+          f"{b['checkpoint_write_ms_max']:.1f}, restore ms "
+          f"{[round(x, 1) for x in b['restore_ms']]}, "
+          f"{b['events_replayed']} records replayed, paged restores "
+          f"{b['paged_restores']}; {b['sessions']} committed sessions equal "
+          f"the NumPy oracle; {b['wall_s']:.1f} s; launches in the mesh "
+          f"engine {b['launches']} (the fault-free oracle "
+          f"{b['oracle_launches']})")
+    print("phase 14(c): card == CPU checkpoints: " + "; ".join(
+        f"{x['job']}: {x['checkpoints']} checkpoints equal, CPU restore of "
+        f"chk-{x['restored']} ({x['restored_bytes']} B) fired "
+        f"{x['rows_after_restore']} rows equal to the {x['against']}'s "
+        f"({x['wall_s']:.1f} s)" for x in c))
+    print("phase 14(d): " + "; ".join(
+        f"P={k}: {v['snapshot_rows']} rows restored in "
+        f"{v['restore_ms']:.1f} ms (snapshot {v['snapshot_ms']:.1f} ms), "
+        f"{v['rows']} sessions equal" for k, v in d.items()))
+    print("checkpoints " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -1725,8 +2326,9 @@ def main() -> int:
     rev_panes = phase_revenue_panes(torch, args.revenue_records)
     sessions = phase_sessions(torch, args.session_records)
     mesh_sessions = phase_mesh_sessions(torch)
+    checkpoints = phase_checkpoints(torch, args.records, phase5=q5)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
-            mesh_sessions)
+            mesh_sessions, checkpoints)
 
     kernels = [{
         "name": "exchange_rank",

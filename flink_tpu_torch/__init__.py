@@ -12,8 +12,11 @@ The port carries the Nexmark Q5 path — ``keyBy -> window -> aggregate``
 at ``parallelism.default > 1`` on a logical P-shard mesh on one device
 (the exchange rank as the hand-written CUDA kernel ``csrc/rank.cu``) and
 at parallelism 1 in the slot and pane layouts — and session windows at
-parallelism 1 over the paged spill tier; float folds run in stream order
-through the hand-written ``csrc/ordered_fold.cu``. The package imports neither ``jax`` nor anything of
+parallelism 1 and above over the paged spill tier; float folds run in
+stream order through the hand-written ``csrc/ordered_fold.cu``. Every
+engine checkpoints and restores in the reference's on-disk format
+(``checkpoint/``), and ``chaos/`` holds the fault points and the
+crash-restore-verify harness. The package imports neither ``jax`` nor anything of
 ``flink_tpu`` (importing ``flink_tpu`` loads jax).
 """
 

@@ -99,6 +99,12 @@ class BidSource(Source):
         ts = (idx * 1000) // max(self.rate, 1)
         return auctions, bidders, prices, ts
 
+    def snapshot_position(self):
+        return {"emitted": self._emitted}
+
+    def restore_position(self, pos):
+        self._emitted = pos["emitted"]
+
 
 def _window_argmax(field: str):
     """Per-window arg-max over one fired window's batch."""

@@ -10,20 +10,33 @@ the results it covers. With ``latency.fire-deadline-ms`` a source batch is
 split against the budget at the measured per-record rate, with watermarks
 and harvests between the splits (``_emit_deadline_split``).
 
+Checkpoints: with ``state.checkpoints.dir`` and an every-n-batches or
+interval trigger the loop cuts a checkpoint between source batches — in-
+flight fires drained first, then every operator's state (full, or a delta
+under ``execution.checkpointing.incremental``) and every source's consumed
+position written through ``CheckpointStorage``, then retention.
+``run(restore_from=...)`` restores the operators and source positions of
+the newest checkpoint under a root (or of one snapshot directory) before
+the first batch. The ``task.batch`` fault point sits where every operator
+takes a batch.
+
 Not in this slice: source pump threads (sources are polled inline),
-checkpoints and restore, control requests, autoscale, metrics registry,
-tracing, chaos — see ROADMAP.md.
+control requests and stop-with-savepoint, restart strategies, autoscale,
+the metrics registry and tracing — see ROADMAP.md (items 8b and 12).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.core.config import (
     BatchOptions,
+    CheckpointOptions,
     Configuration,
     CoreOptions,
     DeploymentOptions,
@@ -64,14 +77,31 @@ class LocalExecutor:
     def __init__(self, config: Optional[Configuration] = None):
         self.config = config or Configuration()
 
-    def run(self, graph: StreamGraph, job_name: str = "job"):
+    def run(self, graph: StreamGraph, job_name: str = "job",
+            restore_from: Optional[str] = None,
+            restore_mode: str = "no-claim"):
         """Execute the graph to completion; returns a JobExecutionResult
-        with throughput and fire-latency metrics."""
+        with throughput, fire-latency and checkpoint metrics.
+        ``restore_from``: a checkpoint root (its newest checkpoint) or one
+        snapshot directory; ``restore_mode``: "no-claim" or "claim"."""
         from flink_tpu_torch.datastream.environment import JobExecutionResult
 
         cfg = self.config
         batch_size = cfg.get(BatchOptions.BATCH_SIZE)
         default_par = cfg.get(CoreOptions.DEFAULT_PARALLELISM)
+        self._chaos_job = job_name
+        ckpt_interval = cfg.get(CheckpointOptions.INTERVAL_MS)
+        ckpt_every_n = cfg.get(CheckpointOptions.EVERY_N_BATCHES)
+        ckpt_dir = cfg.get(StateOptions.CHECKPOINT_DIR)
+        storage = None
+        if ckpt_dir and (ckpt_interval or ckpt_every_n):
+            from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+
+            storage = CheckpointStorage(
+                ckpt_dir, compress=cfg.get(CheckpointOptions.COMPRESSION))
+        #: per checkpoint written: id, incremental, bytes, write ms
+        self.checkpoints: List[Dict[str, Any]] = []
+        self.restore_ms = 0.0
         nodes: Dict[int, _Node] = {}
         sources = [(t, None) for t in graph.sources]
         try:
@@ -113,6 +143,24 @@ class LocalExecutor:
                 t.source.open(0, 1)
                 generators[t.uid] = t.watermark_strategy.create()
 
+            checkpoint_count = 0
+            claimed = None
+            # a delta may build on the restored checkpoint only when it is
+            # the job's OWN chk-<id> (a savepoint inside the root is not:
+            # its id would alias a sibling checkpoint)
+            last_written_id = None
+            if restore_from is not None:
+                checkpoint_count, claimed, last_written_id = self._restore(
+                    graph, nodes, restore_from, restore_mode, ckpt_dir,
+                    storage)
+            source_positions: Dict[int, Any] = {
+                t.uid: t.source.snapshot_position() for t, _ in sources}
+            batches_since_ckpt = 0
+            last_ckpt = time.time() * 1000
+            incremental = cfg.get(CheckpointOptions.INCREMENTAL)
+            full_every = max(cfg.get(CheckpointOptions.FULL_EVERY), 1)
+            since_full = 0
+
             #: fire-deadline splitting (latency.fire-deadline-ms), sized by
             #: an EMA of the records/s through the dataflow
             self._fire_deadline_ms = cfg.get(LatencyOptions.FIRE_DEADLINE_MS)
@@ -135,6 +183,8 @@ class LocalExecutor:
                         continue
                     batch = t.watermark_strategy.assign_timestamps(batch)
                     wm = generators[t.uid].on_batch(batch)
+                    source_positions[t.uid] = t.source.snapshot_position()
+                    batches_since_ckpt += 1
                     total_records += len(batch)
                     if self._fire_deadline_ms > 0:
                         self._emit_deadline_split(node, batch, nodes, wm)
@@ -142,6 +192,27 @@ class LocalExecutor:
                         self._emit_batch(node, batch)
                         if wm is not None:
                             self._emit_watermark(node, wm)
+                if storage is None:
+                    continue
+                if ckpt_every_n:
+                    due = batches_since_ckpt >= ckpt_every_n
+                else:
+                    due = time.time() * 1000 - last_ckpt >= ckpt_interval
+                if not due:
+                    continue
+                checkpoint_count += 1
+                use_delta = (incremental and last_written_id is not None
+                             and since_full < full_every)
+                new_dir = self._write_checkpoint(
+                    graph, nodes, storage, checkpoint_count, job_name,
+                    source_positions, use_delta, last_written_id)
+                last_written_id = checkpoint_count
+                since_full = since_full + 1 if use_delta else 1
+                if claimed is not None:
+                    claimed.on_checkpoint_complete(new_dir)
+                storage.retain(cfg.get(StateOptions.NUM_RETAINED))
+                last_ckpt = time.time() * 1000
+                batches_since_ckpt = 0
             self._drain_pending(nodes, wait=True)
             for t in graph.nodes:
                 node = nodes[t.uid]
@@ -172,6 +243,9 @@ class LocalExecutor:
                     "records_out": n.records_out}
                 for uid, n in nodes.items()},
         }
+        if self.checkpoints or restore_from is not None:
+            metrics["checkpoints"] = list(self.checkpoints)
+            metrics["restore_ms"] = self.restore_ms
         if fire_latencies:
             fire_latencies.sort()
             metrics["window_fire_latency_ms"] = {
@@ -181,6 +255,112 @@ class LocalExecutor:
                 "count": len(fire_latencies),
             }
         return JobExecutionResult(job_name, metrics)
+
+    # ---------------------------------------------------------- checkpoints
+
+    def _restore(self, graph, nodes, restore_from, restore_mode, ckpt_dir,
+                 storage):
+        """Restore every operator and source position from ``restore_from``;
+        returns (the id new checkpoints count on from, the claim tracker,
+        the id a delta may build on or None)."""
+        from flink_tpu_torch.checkpoint.savepoint import prepare_restore
+        from flink_tpu_torch.checkpoint.storage import (
+            read_checkpoint_chain,
+            read_manifest,
+        )
+
+        t0 = time.perf_counter()
+        snap_dir, claimed = prepare_restore(restore_from, restore_mode,
+                                            own_checkpoint_root=ckpt_dir)
+        states = read_checkpoint_chain(snap_dir)
+        self._restore_all(graph, nodes, states)
+        self.restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_id = int(read_manifest(snap_dir)["checkpoint_id"])
+        restored_in_root = bool(ckpt_dir) and (
+            os.path.dirname(os.path.abspath(snap_dir))
+            == os.path.abspath(ckpt_dir)) and (
+            os.path.basename(snap_dir) == f"chk-{restored_id}")
+        count = restored_id
+        if storage is not None:
+            # the root may hold higher-numbered checkpoints of an abandoned
+            # timeline: ids stay monotonic, so new checkpoints supersede
+            # them instead of being retained away
+            count = max(count, storage.latest_checkpoint_id() or 0)
+        base = (restored_id if storage is not None and restored_in_root
+                else None)
+        return count, claimed, base
+
+    def _write_checkpoint(self, graph, nodes, storage, checkpoint_id: int,
+                          job_name: str, source_positions, use_delta: bool,
+                          base_id: Optional[int]) -> str:
+        # in-flight fire results reach their sinks before the cut: the
+        # bookkeeper already marked those windows fired
+        self._drain_pending(nodes, wait=True)
+        t0 = time.perf_counter()
+        snap = self.snapshot_all(graph, nodes, source_positions,
+                                 delta=use_delta)
+        extra = ({"incremental": True, "base": base_id}
+                 if use_delta else None)
+        new_dir = storage.write_checkpoint(checkpoint_id, job_name, snap,
+                                           extra=extra)
+        self.checkpoints.append({
+            "id": checkpoint_id,
+            "incremental": bool(use_delta),
+            "bytes": sum(e.stat().st_size for e in os.scandir(new_dir)
+                         if e.is_file()),
+            "write_ms": (time.perf_counter() - t0) * 1e3,
+        })
+        return new_dir
+
+    @staticmethod
+    def snapshot_all(graph: StreamGraph, nodes: Dict[int, _Node],
+                     source_positions: Optional[Dict[int, Any]] = None,
+                     delta: bool = False,
+                     savepoint: bool = False) -> Dict[str, Any]:
+        """Every stateful operator's state and every source's position,
+        keyed by ``graph.stable_id``."""
+        snap: Dict[str, Any] = {}
+        for uid, node in nodes.items():
+            t = node.transformation
+            op = node.operator
+            if op is None:
+                # the CONSUMED prefix: the cut is the batch boundary
+                if source_positions is not None and uid in source_positions:
+                    state = {"source": source_positions[uid]}
+                else:
+                    state = {"source": t.source.snapshot_position()}
+            elif delta and hasattr(op, "snapshot_state_delta"):
+                state = op.snapshot_state_delta()
+            elif savepoint and hasattr(op, "snapshot_state_savepoint"):
+                state = op.snapshot_state_savepoint()
+            else:
+                state = op.snapshot_state()
+            if state:
+                snap[graph.stable_id(t)] = state
+        return snap
+
+    @staticmethod
+    def _restore_all(graph: StreamGraph, nodes: Dict[int, _Node],
+                     states: Dict[str, Any]) -> None:
+        consumed = set()
+        for uid, node in nodes.items():
+            t = node.transformation
+            sid = graph.stable_id(t)
+            state = states.get(sid)
+            if state is None:
+                continue
+            consumed.add(sid)
+            if node.operator is None:
+                t.source.restore_position(state["source"])
+            else:
+                node.operator.restore_state(state)
+        leftover = set(states) - consumed
+        if leftover:
+            # silently dropping state would undercount aggregates after a
+            # graph edit: fail like the reference
+            raise RuntimeError(
+                "checkpoint contains state for operators not present in the "
+                f"graph (graph changed since snapshot?): {sorted(leftover)}")
 
     # --------------------------------------------- fire-deadline splitting
 
@@ -240,6 +420,10 @@ class LocalExecutor:
             self._process_watermark(child, wm, idx)
 
     def _process(self, node: _Node, batch, input_idx: int) -> None:
+        # chaos: a task crash mid-batch — surfaces through the normal
+        # failure path (the job fails; a restore resumes it)
+        chaos.fault_point("task.batch", op=node.transformation.name,
+                          job=getattr(self, "_chaos_job", None))
         node.records_in += len(batch)
         for out in node.operator.process_batch(batch, input_idx):
             self._forward(node, out)

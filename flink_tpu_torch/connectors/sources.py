@@ -4,7 +4,7 @@ and ``DataGenSource``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -24,6 +24,13 @@ class Source:
         raise NotImplementedError
 
     def close(self) -> None:
+        pass
+
+    def snapshot_position(self) -> Dict[str, Any]:
+        """The consumed prefix, for a checkpoint's manifest."""
+        return {}
+
+    def restore_position(self, pos: Dict[str, Any]) -> None:
         pass
 
 
@@ -100,3 +107,10 @@ class DataGenSource(Source):
                         self._start + self._emitted + n, dtype=np.int64)
         self._emitted += n
         return self._generate(idx)
+
+    def snapshot_position(self):
+        # the next record index: a replay regenerates the same records
+        return {"emitted": self._emitted}
+
+    def restore_position(self, pos):
+        self._emitted = pos["emitted"]

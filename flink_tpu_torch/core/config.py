@@ -1,8 +1,7 @@
 """Typed configuration (port of ``flink_tpu/core/config.py``).
 
-Only the options the Q5 path reads (parallelism 8 and 1) are carried,
-under the reference's keys and defaults, plus the port's own
-``execution.device``.
+Only the options the ported paths read are carried, under the reference's
+keys and defaults, plus the port's own ``execution.device``.
 """
 
 from __future__ import annotations
@@ -128,6 +127,15 @@ class StateOptions:
         "state.spill.host-max-bytes", default=0, type=int,
         description="Host-memory budget for spilled namespaces before they "
         "overflow to state.spill.dir. 0 = unbounded host tier.")
+    CHECKPOINT_DIR = ConfigOption(
+        "state.checkpoints.dir", default=None, type=str,
+        description="Directory for checkpoint snapshots.")
+    NUM_RETAINED = ConfigOption(
+        "state.checkpoints.num-retained", default=3, type=int,
+        description="Completed checkpoints to keep on disk (the "
+        "reference's state.checkpoints.num-retained). Retention anchors "
+        "on the newest checkpoints that pass CRC verification and keeps "
+        "every incremental base they need.")
     BACKEND = ConfigOption(
         "state.backend", default="tpu-slot-table", type=str,
         description="Keyed-state backend: 'tpu-slot-table' keeps the "
@@ -156,3 +164,26 @@ class LatencyOptions:
         "which stays the fallback and is the path for false). Float sums "
         "fold in record order rather than per-slice order, so float32 "
         "results can differ from the full harvest in the last ulp.")
+
+
+class CheckpointOptions:
+    INTERVAL_MS = ConfigOption(
+        "execution.checkpointing.interval-ms", default=0, type=int,
+        description="Checkpoint interval; 0 disables periodic checkpoints.")
+    EVERY_N_BATCHES = ConfigOption(
+        "execution.checkpointing.every-n-source-batches", default=0, type=int,
+        description="Deterministic trigger: checkpoint every N source "
+        "batches (tests/benchmarks; 0 = use the time interval).")
+    COMPRESSION = ConfigOption(
+        "execution.checkpointing.compression", default=True, type=bool,
+        description="Compress snapshot arrays (zlib inside .npz).")
+    INCREMENTAL = ConfigOption(
+        "execution.checkpointing.incremental", default=False, type=bool,
+        description="Write delta checkpoints (dirty rows + tombstones) "
+        "between periodic full snapshots.")
+    FULL_EVERY = ConfigOption(
+        "execution.checkpointing.incremental.full-every", default=10,
+        type=int,
+        description="Consolidate: every Nth checkpoint is a full snapshot, "
+        "bounding restore-chain length.")
+

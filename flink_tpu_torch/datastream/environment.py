@@ -53,12 +53,29 @@ class StreamExecutionEnvironment:
             raise RuntimeError("no sinks defined — nothing to execute")
         return StreamGraph(self._sinks)
 
-    def execute(self, job_name: str = "job") -> "JobExecutionResult":
-        """Run the pipeline to completion on the local executor."""
+    def execute(self, job_name: str = "job",
+                restore_from: Optional[str] = None,
+                restore_mode: str = "no-claim") -> "JobExecutionResult":
+        """Run the pipeline to completion on the local executor.
+        ``restore_from`` points at a checkpoint root (its newest complete
+        checkpoint wins) or directly at a savepoint / single checkpoint
+        directory; ``restore_mode`` is "no-claim" (default: the artifact
+        stays user-owned and untouched) or "claim" (the job deletes it
+        once a newer checkpoint subsumes it). Without ``restore_from`` the
+        ``FLINK_TPU_RESTORE_FROM`` / ``FLINK_TPU_RESTORE_MODE`` environment
+        variables are honored, as in the reference."""
+        import os
+
         from flink_tpu_torch.cluster.local_executor import LocalExecutor
 
+        if restore_from is None:
+            restore_from = os.environ.get("FLINK_TPU_RESTORE_FROM") or None
+            restore_mode = os.environ.get("FLINK_TPU_RESTORE_MODE",
+                                          restore_mode)
         graph = self.get_stream_graph()
-        result = LocalExecutor(self.config).run(graph, job_name=job_name)
+        result = LocalExecutor(self.config).run(
+            graph, job_name=job_name, restore_from=restore_from,
+            restore_mode=restore_mode)
         self._sinks = []
         self.last_execution_result = result
         return result

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 _ids = itertools.count(1)
@@ -61,6 +62,15 @@ class StreamGraph:
     @property
     def sources(self) -> List[Transformation]:
         return [t for t in self.nodes if t.kind == "source"]
+
+    def stable_id(self, t: Transformation) -> str:
+        """Process-independent operator identity for checkpoints:
+        topological position + sanitized name — the key of the
+        operator's state in a checkpoint, the reference's string exactly.
+        Used as a filename component, so path-hostile characters are
+        replaced."""
+        safe = re.sub(r"[^A-Za-z0-9_.()-]", "_", t.name)
+        return f"{self.nodes.index(t)}:{safe}"
 
     def children(self, t: Transformation) -> List[Transformation]:
         return self.downstream.get(t.uid, [])

@@ -19,12 +19,16 @@ on the whole mesh at once:
   dispatched asynchronously when the caller asks;
 - spill: with a per-shard budget the paged tier of
   ``MeshPagedSpillSupport`` evicts cohorts and reloads rows; fires of
-  paged-out sessions read their values straight from the pages.
+  paged-out sessions read their values straight from the pages;
+- snapshot and restore: ``SessionWindower``'s logical format (the rows of
+  every shard and page plus the interval lists), re-sharded by key group
+  on restore, so mesh and single-device snapshots restore into each
+  other. Merged and fired sessions leave delta tombstones.
 
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
 ``spill_layout="namespaces"`` (item 7c); hot-key salting, the read
 replica, point queries, host shuffle mode, the two-level exchange and
-managed memory (item 12); snapshots and restore (item 8).
+managed memory (item 12).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
     TIMESTAMP_FIELD,
@@ -50,13 +55,12 @@ from flink_tpu_torch.parallel.sharded_windower import (
     MeshPagedSpillSupport,
     build_delta_fire_step,
     build_mesh_steps,
-    harvest_to_host,
 )
 from flink_tpu_torch.parallel.shuffle import (
     build_exchange_scatter,
     stage_device_exchange,
 )
-from flink_tpu_torch.runtime.pending import PendingFire
+from flink_tpu_torch.runtime.pending import PendingFire, harvest_to_host
 from flink_tpu_torch.state.paged_spill import reload_rows_for, sorted_match
 from flink_tpu_torch.state.slot_table import (
     _not_ported,
@@ -197,13 +201,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         #: session-interval metadata: the native C sweep when it builds,
         #: else the Python plane (bit-identical fires)
         self.meta = make_session_meta(self.gap, self.allowed_lateness)
-        #: rows changed since they were last written to a page (a page
-        #: row carries it back on reload)
-        self._dirty = np.zeros((self.P, self.capacity), dtype=bool)
+        self._init_tracking()
         self._merge_bucket = 0
         self._fire_bucket = 0
         self._reset_bucket = 0
-        self._gather_bucket = 0
         #: merge groups run, and the pairs of the largest (one shard)
         self.merge_groups = 0
         self.merge_pairs_max = 0
@@ -221,15 +222,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             self.mesh, self.agg)
 
     def _shard_index_grew(self, new_capacity: int) -> None:
-        """Widen the planes (``MeshSpillSupport``), the dirty bits and,
-        when paged, the page state."""
-        old = self.capacity
+        """Widen the planes and dirty bits (``MeshSpillSupport``) and, when
+        paged, the page state."""
         super()._shard_index_grew(new_capacity)
-        if self.capacity == old:
-            return
-        dirty = np.zeros((self.P, new_capacity), dtype=bool)
-        dirty[:, :old] = self._dirty
-        self._dirty = dirty
         if self._paged:
             self._paged_grow(new_capacity)
 
@@ -372,6 +367,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         cols = [self._to_device(c) for c in (dst, *staged)]
         self.accs = self._exchange_scatter_step(
             self.accs, cols[0], cols[1], tuple(cols[2:]), width)
+        # chaos: "crash mid-batch after the fused dispatch" — the scatter
+        # is queued on the device, the host dies before the fence
+        chaos.fault_point("shuffle.device_exchange", records=n)
         self._push_dispatch_fence()
 
     def _run_merge_group(self, g: MergeGroup) -> None:
@@ -431,8 +429,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 self.meta.note_slots(np.concatenate(fk),
                                      np.concatenate(fs),
                                      np.concatenate(fl))
-        # the absorbed rows' slots are in hand (the src half of each
-        # shard's lookup): free them by slot
+        # delta snapshots drop the absorbed rows (tombstones); their slots
+        # are in hand (the src half of each shard's lookup): free by slot
+        self._freed_ns.append(np.asarray(g.absorbed_sids, dtype=np.int64))
         for p, (_, s_slots) in per_shard.items():
             src_sids = pairs[p][1][len(s_slots):]
             if self._paged:
@@ -473,6 +472,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
     def _fire_sessions(self, keys, starts, ends, sids,
                        async_ok: bool = False,
                        slot_hint=None) -> List[object]:
+        chaos.fault_point("mesh.session_fire", sessions=len(keys))
         k_arr = np.asarray(keys, dtype=np.int64)
         sid_arr = np.asarray(sids, dtype=np.int64)
         st_arr = np.asarray(starts, dtype=np.int64)
@@ -504,6 +504,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         # deferred host read never races the reset
         self.accs, fire_out = self._delta_fire_step(
             self.accs, self._to_device(sm), self._to_device(rb))
+        self._freed_ns.append(sid_arr)
         for p, slots in enumerate(per_shard_slots):
             if len(slots):
                 self._dirty[p, slots] = False
@@ -539,6 +540,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         tombstones the page rows; no device traffic for them."""
         leaves = self.agg.leaves
         n = len(k_arr)
+        self._freed_ns.append(sid_arr)
         leaf_dtypes = [l.dtype for l in leaves]
         res_pos: List[np.ndarray] = []   # positions fired on the device
         res_slots: List[np.ndarray] = []
@@ -668,6 +670,21 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         py.late_records_dropped = self.meta.late_records_dropped
         py.native_sweep_s = self.meta.native_sweep_s
         self.meta = py
+
+    # ------------------------------------------------------------- snapshot
+
+    def snapshot(self, mode: str = "full") -> Dict[str, object]:
+        """``SessionWindower.snapshot``'s logical format — restorable across
+        engines and mesh sizes (re-sharded by key group)."""
+        return {"table": self._snapshot_table(mode), **self.meta.snapshot()}
+
+    def restore(self, snap: Dict[str, object],
+                key_group_filter=None) -> None:
+        """Restore, re-sharding by key group: single-device
+        ``SessionWindower`` snapshots and mesh snapshots of any size."""
+        self._restore_table(snap.get("table", {}), key_group_filter)
+        self.meta.restore(snap, key_group_filter=key_group_filter,
+                          max_parallelism=self.max_parallelism)
 
     # ---------------------------------------------------- not in this slice
 

@@ -21,11 +21,21 @@ resets are shard-local.
 - :func:`build_mesh_steps` (scatter, fire, reset, gather, put) and
   :func:`build_delta_fire_step` (fire and reset in one call).
 
+Both engines snapshot in the single-device engines' logical format (rows
+of every shard and every spilled row, key-group indexed), write deltas of
+the rows dirtied since the last snapshot plus freed-namespace tombstones,
+and restore by routing each row to the shard its key's ingest uses — so a
+P=8 snapshot restores at P=1 and the other way round. The reference's
+fault points sit at its sites: ``mesh.dispatch_fence``,
+``shuffle.device_exchange`` (after the fused dispatch) and
+``mesh.window_fire``.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
 where a user would select it: the window engine's device budget and the
-namespace spill layout (item 7c), host shuffle mode, the two-level
-exchange, managed memory, the watchdog and the read replica (item 12),
-snapshots, restore and reshard (item 8).
+namespace spill layout (item 7c; with it the namespace layout's spill
+restore, ``_spill_restore_rows``), shard-granular snapshots and restore
+(item 8b), host shuffle mode, the two-level exchange, managed memory, the
+watchdog, the read replica, reshard and rebalance (item 12).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
     TIMESTAMP_FIELD,
@@ -56,13 +67,20 @@ from flink_tpu_torch.parallel.shuffle import (
     shard_records,
     stage_device_exchange,
 )
-from flink_tpu_torch.runtime.pending import Fence, PendingFire
+from flink_tpu_torch.runtime.pending import (
+    Fence,
+    PendingFire,
+    harvest_to_host,
+)
+from flink_tpu_torch.state.keygroups import assign_key_groups
 from flink_tpu_torch.state.paged_spill import (
     PagedSpillMap,
     drop_spilled_sessions,
     reload_rows_for,
+    restore_into_pages,
     run_deferred_sweeps,
     spill_page,
+    spilled_rows,
 )
 from flink_tpu_torch.state.slot_table import (
     SlotTableFullError,
@@ -80,34 +98,14 @@ from flink_tpu_torch.windowing.windower import (
 )
 
 
-def harvest_to_host(tensors) -> List[np.ndarray]:
-    """Host copies of ``tensors`` through ONE device-to-host copy: their
-    bytes are concatenated on the device (widest dtype first, so every
-    part stays aligned) and split again on the host. CPU tensors come
-    back as their arrays."""
-    tensors = list(tensors)
-    if not tensors or tensors[0].device.type == "cpu":
-        return [t.numpy() for t in tensors]
-    order = sorted(range(len(tensors)),
-                   key=lambda i: -tensors[i].element_size())
-    flat = torch.cat([tensors[i].contiguous().view(-1).view(torch.uint8)
-                      for i in order]).cpu()
-    out: List[Optional[np.ndarray]] = [None] * len(tensors)
-    off = 0
-    for i in order:
-        t = tensors[i]
-        nb = t.numel() * t.element_size()
-        out[i] = flat[off:off + nb].view(t.dtype).view(t.shape).numpy()
-        off += nb
-    return out
-
-
 class MeshSpillSupport:
     """What both mesh engines share: key-group routing, host-to-device
-    staging, the dispatch-ahead pipeline and one spill tier per shard.
-    Hosts provide ``P``, ``device``, ``max_parallelism``,
-    ``key_group_range``, ``agg``, ``accs``, ``capacity`` and
-    ``max_dispatch_ahead``."""
+    staging, the dispatch-ahead pipeline, one spill tier per shard, and
+    the logical snapshot, delta and restore of the ``[P, capacity]``
+    planes. Hosts provide ``P``, ``device``, ``max_parallelism``,
+    ``key_group_range``, ``agg``, ``accs``, ``capacity``,
+    ``max_dispatch_ahead``, ``indexes`` and the ``_gather_step`` and
+    ``_put_step`` programs, and call :meth:`_init_tracking`."""
 
     max_device_slots: int = 0
 
@@ -125,7 +123,8 @@ class MeshSpillSupport:
 
     def _shard_index_grew(self, new_capacity: int) -> None:
         """One shard's index outgrew the plane width: widen every plane
-        (the other shards' indexes address a prefix)."""
+        and the dirty bits (the other shards' indexes address a
+        prefix)."""
         if new_capacity <= self.capacity:
             return
         old = self.capacity
@@ -138,6 +137,18 @@ class MeshSpillSupport:
             g[:, :old] = a
             grown.append(g)
         self.accs = tuple(grown)
+        dirty = np.zeros((self.P, new_capacity), dtype=bool)
+        dirty[:, :old] = self._dirty
+        self._dirty = dirty
+
+    def _init_tracking(self) -> None:
+        #: [P, capacity] rows changed since the last snapshot (a page row
+        #: carries its bit back on reload), and the namespaces freed since
+        #: (delta tombstones)
+        self._dirty = np.zeros((self.P, self.capacity), dtype=bool)
+        self._freed_ns: List[np.ndarray] = []
+        self._gather_bucket = 0
+        self._restore_bucket = 0
 
     def _init_spill(self, spill_dir: Optional[str],
                     spill_host_max_bytes: int) -> None:
@@ -186,15 +197,195 @@ class MeshSpillSupport:
         self.pipeline_wait_s += time.perf_counter() - t0
 
     def _push_dispatch_fence(self) -> None:
+        # chaos: a fence failure mid-dispatch-ahead — the batch's device
+        # work is enqueued but its completion proof is lost: the engine
+        # dies here with up to `depth` batches in flight
+        chaos.fault_point("mesh.dispatch_fence",
+                          in_flight=len(self._dispatch_fences))
         self._dispatch_fences.append(self.make_fence())
 
     @property
     def _spill_active(self) -> bool:
         return self.max_device_slots > 0
 
+    def _pmap_of(self, p: int) -> Optional[PagedSpillMap]:
+        """Shard ``p``'s page map (None: the namespace layout)."""
+        return None
+
     def spill_counters(self) -> Dict[str, int]:
         """Spill traffic summed over shards (zeros when unbudgeted)."""
         return PagedSpillMap.zero_counters()
+
+    # ------------------------------------------------------ snapshot/restore
+
+    def _snapshot_table(self, mode: str) -> Dict[str, np.ndarray]:
+        """The logical table: every shard's used rows (in shard order), then
+        every spilled row. mode "delta": dirty rows and tombstones only;
+        "savepoint" keeps the dirty tracking. The planes are read with ONE
+        synchronous copy queued behind everything dispatched so far."""
+        if mode == "delta":
+            return self._snapshot_delta()
+        accs_host = harvest_to_host(self.accs)
+        parts = []
+        for p in range(self.P):
+            idx = self.indexes[p]
+            used = idx.used_slots()
+            key_ids = idx.slot_key[used]
+            parts.append({
+                "key_id": key_ids,
+                "namespace": idx.slot_ns[used],
+                "key_group": assign_key_groups(key_ids,
+                                               self.max_parallelism),
+                **{f"leaf_{i}": accs_host[i][p][used]
+                   for i in range(len(self.accs))},
+            })
+        parts.extend(self._spill_snapshot_parts())
+        merged = {k: np.concatenate([pt[k] for pt in parts])
+                  for k in parts[0]}
+        if mode != "savepoint":
+            self._clear_tracking()
+        return merged
+
+    def _clear_tracking(self) -> None:
+        self._dirty[:] = False
+        self._freed_ns.clear()
+        if self._spill_active:
+            for sp in self.spills:
+                sp.clear_dirty()
+
+    def _snapshot_delta(self) -> Dict[str, np.ndarray]:
+        """Dirty rows gathered off the planes in ONE ``[P, G]`` gather and
+        one device-to-host copy, plus the freed-namespace tombstones (the
+        format of ``SlotTable.snapshot_delta``)."""
+        per_shard = []
+        g_max = 0
+        for p in range(self.P):
+            used = self.indexes[p].slot_used
+            dirty = np.nonzero(self._dirty[p][:len(used)]
+                               & used)[0].astype(np.int32)
+            per_shard.append(dirty)
+            g_max = max(g_max, len(dirty))
+        freed = (np.unique(np.concatenate(self._freed_ns))
+                 if self._freed_ns else np.empty(0, dtype=np.int64))
+        if g_max == 0:
+            out = {
+                "__delta__": np.asarray(True),
+                "key_id": np.empty(0, dtype=np.int64),
+                "namespace": np.empty(0, dtype=np.int64),
+                "key_group": np.empty(0, dtype=np.int32),
+                "freed_namespaces": freed,
+                **{f"leaf_{i}": np.empty(0, dtype=l.dtype)
+                   for i, l in enumerate(self.agg.leaves)},
+            }
+        else:
+            G = sticky_bucket(g_max, self._gather_bucket)
+            self._gather_bucket = G
+            block = np.zeros((self.P, G), dtype=np.int32)
+            for p, dirty in enumerate(per_shard):
+                block[p, :len(dirty)] = dirty
+            leaves_host = harvest_to_host(
+                self._gather_step(self.accs, self._to_device(block)))
+            key_cols, ns_cols = [], []
+            leaf_cols = [[] for _ in leaves_host]
+            for p, dirty in enumerate(per_shard):
+                m = len(dirty)
+                if m == 0:
+                    continue
+                idx = self.indexes[p]
+                key_cols.append(idx.slot_key[dirty])
+                ns_cols.append(idx.slot_ns[dirty])
+                for i, lh in enumerate(leaves_host):
+                    leaf_cols[i].append(lh[p][:m])
+            key_ids = np.concatenate(key_cols)
+            out = {
+                "__delta__": np.asarray(True),
+                "key_id": key_ids,
+                "namespace": np.concatenate(ns_cols),
+                "key_group": assign_key_groups(key_ids,
+                                               self.max_parallelism),
+                "freed_namespaces": freed,
+                **{f"leaf_{i}": np.concatenate(cols)
+                   for i, cols in enumerate(leaf_cols)},
+            }
+        self._spill_delta_append(out)
+        self._dirty[:] = False
+        self._freed_ns.clear()
+        return out
+
+    def _spill_snapshot_parts(self) -> List[Dict[str, np.ndarray]]:
+        """Logical rows of every shard's spill tier (``spilled_rows``)."""
+        return [self._spill_part(p, dirty_only=False)
+                for p in range(self.P)] if self._spill_active else []
+
+    def _spill_part(self, p: int, dirty_only: bool) -> Dict[str, np.ndarray]:
+        keys, nss, leaves = spilled_rows(self.spills[p], self._pmap_of(p),
+                                         self.agg.leaves,
+                                         dirty_only=dirty_only)
+        key_ids = np.concatenate([np.empty(0, np.int64), *keys])
+        return {"key_id": key_ids,
+                "namespace": np.concatenate([np.empty(0, np.int64), *nss]),
+                "key_group": assign_key_groups(key_ids, self.max_parallelism),
+                **{f"leaf_{i}": np.concatenate([np.empty(0, l.dtype),
+                                                *leaves[i]])
+                   for i, l in enumerate(self.agg.leaves)}}
+
+    def _spill_delta_append(self, out: Dict[str, np.ndarray]) -> None:
+        """Append the spilled-but-dirty rows to a delta snapshot and clear
+        the tiers' dirtiness."""
+        if not self._spill_active:
+            return
+        for p in range(self.P):
+            part = self._spill_part(p, dirty_only=True)
+            for k, v in part.items():
+                out[k] = np.concatenate([out[k], v])
+            self.spills[p].clear_dirty()
+
+    def _restore_table(self, table: Dict[str, np.ndarray],
+                       key_group_filter=None) -> None:
+        """Restore logical rows, re-sharded by key group: each row goes to
+        the shard its key's ingest routes to (any snapshot restores at any
+        P). With a budget the rows land in the page tier; otherwise every
+        shard's rows go onto the planes in ONE ``[P, B]`` put (the index
+        allocates from slot 1, so slot 0 is never written with state)."""
+        key_ids = np.asarray(table.get("key_id", []), dtype=np.int64)
+        namespaces = np.asarray(table.get("namespace", []), dtype=np.int64)
+        leaves = [np.asarray(table[f"leaf_{i}"]) if len(key_ids) else None
+                  for i in range(len(self.agg.leaves))]
+        if key_group_filter is not None and len(key_ids):
+            groups = assign_key_groups(key_ids, self.max_parallelism)
+            keep = np.isin(groups, np.asarray(sorted(key_group_filter)))
+            key_ids, namespaces = key_ids[keep], namespaces[keep]
+            leaves = [v[keep] for v in leaves]
+        if self._spill_active and len(key_ids):
+            # a budget means the paged tier: the namespace layout on the
+            # mesh (item 7c) cannot be constructed in the port
+            self._paged_restore_rows(key_ids, namespaces, leaves)
+        elif len(key_ids):
+            shards = self._route(key_ids)
+            # inserts first: growth must settle before the put is staged
+            per_shard: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+            for p in range(self.P):
+                sel = np.nonzero(shards == p)[0]
+                if len(sel):
+                    per_shard[p] = (sel, self.indexes[p].lookup_or_insert(
+                        key_ids[sel], namespaces[sel]))
+            B = sticky_bucket(max(len(sel) for sel, _ in
+                                  per_shard.values()),
+                              self._restore_bucket)
+            self._restore_bucket = B
+            slot_block = np.zeros((self.P, B), dtype=np.int32)
+            val_blocks = [np.full((self.P, B), l.identity, dtype=l.dtype)
+                          for l in self.agg.leaves]
+            for p, (sel, slots) in per_shard.items():
+                n = len(sel)
+                slot_block[p, :n] = slots
+                for vb, vals in zip(val_blocks, leaves):
+                    vb[p, :n] = vals[sel]
+            self.accs = self._put_step(
+                self.accs, self._to_device(slot_block),
+                tuple(self._to_device(v) for v in val_blocks))
+        # restored state IS the new incremental base
+        self._clear_tracking()
 
     # ------------------------------------------------ not in this slice
 
@@ -204,14 +395,15 @@ class MeshSpillSupport:
     def arm_replica(self, plane=None):
         raise _not_ported("the serving read replica", 12)
 
-    def snapshot(self, mode: str = "full"):
-        raise _not_ported("mesh engine snapshots", 8)
-
-    def restore(self, snap, key_group_filter=None):
-        raise _not_ported("mesh engine restore", 8)
-
     def reshard(self, new_shards: int, devices=None):
         raise _not_ported("live reshard", 12)
+
+    def snapshot_sharded(self, mode: str = "full"):
+        raise _not_ported("shard-granular snapshots", "8b")
+
+    def restore_key_groups(self, snap, groups):
+        raise _not_ported("shard-granular restore (restore_key_groups)",
+                          "8b")
 
     def reassign_key_groups(self, assignment):
         raise _not_ported("hot key-group rebalance", 12)
@@ -241,6 +433,9 @@ class MeshPagedSpillSupport(MeshSpillSupport):
             pm.defer_sweeps = True
         #: [P, capacity] per-slot touch clocks
         self._slot_touch = np.zeros((self.P, self.capacity), dtype=np.int64)
+
+    def _pmap_of(self, p: int) -> PagedSpillMap:
+        return self._pmaps[p]
 
     def _drain_deferred_sweeps(self) -> None:
         """Run the page sweeps queued by fire-path extractions (called at
@@ -433,8 +628,28 @@ class MeshPagedSpillSupport(MeshSpillSupport):
             self.indexes[p].free_slots(slots)
             self._dirty[p, slots] = False
 
-    def _paged_restore_rows(self, key_ids, namespaces, leaves) -> None:
-        raise _not_ported("restoring rows into the mesh page tier", 8)
+    def _paged_restore_rows(self, key_ids: np.ndarray,
+                            namespaces: np.ndarray,
+                            leaves: List[np.ndarray]) -> None:
+        """Paged restore: each shard's rows land in its page tier as
+        page-sized entries and reload lazily by page (stale pages of a
+        shard without rows are cleared)."""
+        shards = self._route(key_ids)
+        for p in range(self.P):
+            mask = shards == p
+            if not mask.any():
+                if len(self._pmaps[p]):
+                    restore_into_pages(
+                        self.spills[p], self._pmaps[p],
+                        np.empty(0, dtype=np.int64),
+                        np.empty(0, dtype=np.int64),
+                        [np.empty(0, dtype=l.dtype)
+                         for l in self.agg.leaves], 1024)
+                continue
+            restore_into_pages(
+                self.spills[p], self._pmaps[p], key_ids[mask],
+                namespaces[mask], [l[mask] for l in leaves],
+                page_rows=max(self.indexes[p].capacity // 8, 1024))
 
 
 class MeshWindowEngine(MeshSpillSupport):
@@ -491,12 +706,13 @@ class MeshWindowEngine(MeshSpillSupport):
                        dtype=torch_dtype(leaf.dtype), device=self.device)
             for leaf in agg.leaves)
         # the [P, B] scatter step serves host shuffle mode (not ported)
-        _, self._fire_step, self._reset_step, _, _ = build_mesh_steps(
-            mesh, agg)
+        (_, self._fire_step, self._reset_step, self._gather_step,
+         self._put_step) = build_mesh_steps(mesh, agg)
         self._exchange_scatter_step = build_exchange_scatter(mesh, agg)
         # window lifecycle metadata is global across shards
         self.book = SliceBookkeeper(assigner, allowed_lateness)
         self._init_pipeline(max_dispatch_ahead)
+        self._init_tracking()
         self._fire_bucket = 0
         self._reset_bucket = 0
 
@@ -536,8 +752,10 @@ class MeshWindowEngine(MeshSpillSupport):
             a, b = int(offsets[p]), int(offsets[p + 1])
             if a == b:
                 continue
-            slots_sorted[a:b] = self.indexes[p].lookup_or_insert(
-                s_keys[a:b], s_ns[a:b])
+            slots = self.indexes[p].lookup_or_insert(s_keys[a:b],
+                                                     s_ns[a:b])
+            slots_sorted[a:b] = slots
+            self._dirty[p, slots] = True
         rec_slots = np.empty(n, dtype=np.int32)
         rec_slots[order] = slots_sorted
         # claim a dispatch slot BEFORE rewriting the pooled buffers
@@ -553,6 +771,9 @@ class MeshWindowEngine(MeshSpillSupport):
         cols = [self._to_device(c) for c in (dst, *staged)]
         self.accs = self._exchange_scatter_step(
             self.accs, cols[0], cols[1], tuple(cols[2:]), width)
+        # chaos: "crash mid-batch after the fused dispatch" — the scatter
+        # is queued on the device, the host dies before the fence
+        chaos.fault_point("shuffle.device_exchange", records=n)
         self._push_dispatch_fence()
 
     # ----------------------------------------------------------------- fire
@@ -577,6 +798,7 @@ class MeshWindowEngine(MeshSpillSupport):
         return out
 
     def _fire_window(self, window_end: int, async_ok: bool = False):
+        chaos.fault_point("mesh.window_fire", window_end=window_end)
         slice_ends = self.assigner.slice_ends_for_window(window_end)
         k = len(slice_ends)
         per_shard_mats: List[np.ndarray] = []
@@ -645,10 +867,12 @@ class MeshWindowEngine(MeshSpillSupport):
     def _free_slices(self, ends: List[int]) -> None:
         f_max = 0
         freed: List[Optional[np.ndarray]] = []
+        self._freed_ns.append(np.asarray(list(ends), dtype=np.int64))
         for p in range(self.P):
             slots = self.indexes[p].free_namespaces(ends)
             freed.append(slots)
             if slots is not None:
+                self._dirty[p, slots] = False
                 f_max = max(f_max, len(slots))
         if f_max == 0:
             return
@@ -659,6 +883,22 @@ class MeshWindowEngine(MeshSpillSupport):
             if slots is not None:
                 block[p, : len(slots)] = slots
         self.accs = self._reset_step(self.accs, self._to_device(block))
+
+    # ------------------------------------------------------------- snapshot
+
+    def snapshot(self, mode: str = "full") -> Dict[str, object]:
+        """Logical snapshot merged over shards, re-shardable by key group —
+        the format of ``SliceSharedWindower.snapshot``, so mesh and
+        single-device checkpoints restore into each other. mode: "full",
+        "delta" or "savepoint"."""
+        return {"table": self._snapshot_table(mode), **self.book.snapshot()}
+
+    def restore(self, snap: Dict[str, object],
+                key_group_filter=None) -> None:
+        """Restore, re-sharding by key group (works across mesh sizes);
+        ``key_group_filter`` keeps only the rows of those key groups."""
+        self._restore_table(snap["table"], key_group_filter)
+        self.book.restore(snap)
 
 
 def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):

@@ -15,8 +15,11 @@ the reference folds in. Float leaves fold in that order on the card too
 (the ordered-fold kernel, ``stateplane/fold.py``); integer leaves keep
 ``scatter_add_``, exact in any order.
 
-Not in this slice: the host-bucketing data plane (``shuffle.mode=host``),
-the repartition/combine collectives, and chaos injection.
+The chaos payload point ``shuffle.device_exchange`` (drop or duplicate one
+shard's records) sits in :func:`stage_device_exchange`, as in the
+reference. Not in this slice: the host-bucketing data plane
+(``shuffle.mode=host``) with its ``shuffle.bucket_*`` points, and the
+repartition/combine collectives.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.ops.segment_ops import (
     fold_slots,
     pad_bucket_size,
@@ -104,10 +108,34 @@ def stage_device_exchange(
 
     Returns ``(dst, staged_columns, bucket_width)``; ``bucket_width`` is
     the ``pad_bucket_size`` tier of the batch's densest (source chunk,
-    destination) pair count, capped at ``C``."""
+    destination) pair count, capped at ``C``.
+
+    The chaos payload point ``shuffle.device_exchange`` models a lossy
+    exchange: drop re-routes one shard's records to the padding
+    destination (they vanish before the exchange), duplicate replays
+    them. Raise and delay fire at the engines' post-dispatch site."""
     shard_of_record = np.asarray(shard_of_record)
     n = len(shard_of_record)
     columns = [np.asarray(c) for c in columns]
+    if chaos.armed():
+        mutations: Dict[int, str] = {}
+        present = np.unique(shard_of_record) if n else ()
+        for p in present:
+            rule = chaos.payload_action(
+                "shuffle.device_exchange",
+                kinds=("drop", "duplicate", "delay"), shard=int(p))
+            if rule is not None and rule.kind in ("drop", "duplicate"):
+                mutations[int(p)] = rule.kind
+        for p, kind in mutations.items():
+            sel = shard_of_record == p
+            if kind == "drop":
+                shard_of_record = np.where(sel, num_shards,
+                                           shard_of_record)
+            else:  # duplicate: replay the shard's records
+                shard_of_record = np.concatenate(
+                    [shard_of_record, shard_of_record[sel]])
+                columns = [np.concatenate([c, c[sel]]) for c in columns]
+                n = len(shard_of_record)
     C = exchange_chunk_size(n, num_shards, min_bucket)
     N = num_shards * C
     dst = (pool.get((N,), np.int32, num_shards, tag=("xchg", "dst"))

@@ -5,6 +5,8 @@ window aggregation and the keyed session-window aggregation.
 An operator processes one ``RecordBatch`` per call and reacts to watermark
 advances; all operators are single-owner (called from one task loop).
 User functions are vectorized: a map takes and returns a RecordBatch.
+Stateful operators snapshot into (and restore from) the reference's
+checkpoint state dicts.
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ class Operator:
 
     def poll_pending_output(self, wait: bool = False) -> List[RecordBatch]:
         return []
+
+    # checkpointing
+    def snapshot_state(self) -> Optional[Dict[str, Any]]:
+        return None
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        pass
 
 
 class OperatorContext:
@@ -287,6 +296,46 @@ class WindowAggOperator(Operator):
         self._pending.clear()
         self._fences.clear()
 
+    # ---------------------------------------------------------- checkpoints
+
+    def _check_no_pending(self) -> None:
+        # the executor drains (and forwards) in-flight fires before a
+        # snapshot: dropping them here would lose windows the bookkeeper
+        # already marked fired
+        if self._pending:
+            raise RuntimeError(
+                "snapshot with in-flight async fires; the executor must "
+                "drain pending outputs (poll_pending_output(wait=True)) "
+                "before snapshotting")
+
+    def _state(self, mode: str) -> Dict[str, Any]:
+        self._check_no_pending()
+        return {
+            "windower": self.windower.snapshot(mode=mode),
+            "key_values": dict(self._key_values),
+            "keys_hashed": self._keys_hashed,
+        }
+
+    def snapshot_state(self):
+        return self._state("full")
+
+    def snapshot_state_delta(self):
+        """Incremental: the keyed table ships only dirty rows and
+        tombstones; the host metadata is small and written full."""
+        return self._state("delta")
+
+    def snapshot_state_savepoint(self):
+        """Full state that keeps the incremental dirty tracking: a
+        savepoint must not change what the next delta contains."""
+        return self._state("savepoint")
+
+    def restore_state(self, state, key_group_filter=None):
+        self.windower.restore(state["windower"],
+                              key_group_filter=key_group_filter)
+        # empty sub-dicts are pruned by the checkpoint codec
+        self._key_values = dict(state.get("key_values", {}))
+        self._keys_hashed = state.get("keys_hashed", False)
+
 
 class SessionWindowAggOperator(WindowAggOperator):
     """Merging session windows: the key reattachment, fire latency and
@@ -367,6 +416,16 @@ class SinkOperator(Operator):
     def process_batch(self, batch, input_index=0):
         self.sink.write(batch)
         return []
+
+    def snapshot_state(self):
+        # sinks with writer state take part in checkpoints
+        snap = getattr(self.sink, "snapshot_state", None)
+        return snap() if snap else None
+
+    def restore_state(self, state, key_group_filter=None):
+        restore = getattr(self.sink, "restore_state", None)
+        if restore:
+            restore(state)
 
     def close(self):
         self.sink.close()

@@ -17,6 +17,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from flink_tpu_torch.chaos import injection as chaos
+
 
 class Fence:
     """Proof that the device finished everything enqueued before it: a
@@ -61,6 +63,31 @@ class PendingFire:
 
     def harvest(self) -> Optional[object]:
         """Wait for the copies (if still in flight) and build the result."""
+        # chaos: a harvest failure — the fire was dispatched but its
+        # device-to-host results never land
+        chaos.fault_point("harvest.pending_fire", arrays=len(self.host))
         if self.fence is not None:
             self.fence.block_until_ready()
         return self.build([h.numpy() for h in self.host])
+
+
+def harvest_to_host(tensors) -> List[np.ndarray]:
+    """Host copies of ``tensors`` through ONE device-to-host copy: their
+    bytes are concatenated on the device (widest dtype first, so every
+    part stays aligned) and split again on the host. CPU tensors come
+    back as their arrays."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type == "cpu":
+        return [t.numpy() for t in tensors]
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    flat = torch.cat([tensors[i].contiguous().view(-1).view(torch.uint8)
+                      for i in order]).cpu()
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    off = 0
+    for i in order:
+        t = tensors[i]
+        nb = t.numel() * t.element_size()
+        out[i] = flat[off:off + nb].view(t.dtype).view(t.shape).numpy()
+        off += nb
+    return out

@@ -22,9 +22,12 @@ This module owns the host bookkeeping of a paged table:
   split on reload, rows compacted).
 
 The device moves (gather and reset on eviction, put on reload) stay with
-the owning table (``state/slot_table.py``). The reference's fault points
-(``chaos.injection``) and ``restore_into_pages`` belong to checkpoints and
-failure domains (ROADMAP.md Queue A item 8) and are not carried.
+the owning table (``state/slot_table.py``). ``restore_into_pages`` packs a
+restored snapshot into pages, so a snapshot larger than the device budget
+restores with bounded device memory. The reference's fault points sit at
+its sites: ``spill.page_compact`` (a recoverable fault defers the
+compaction) and ``spill.page_reload`` (retried in place through
+``chaos.run_recoverable``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from flink_tpu_torch.chaos import injection as chaos
 
 COUNTER_NAMES = ("pages_evicted", "pages_reloaded", "rows_evicted",
                  "rows_reloaded", "rows_split_on_reload", "rows_compacted")
@@ -279,6 +284,21 @@ def _sweep_pages(spill, pmap: PagedSpillMap, pages: Sequence[int]) -> None:
 def _compact_page(spill, pmap: PagedSpillMap, page: int) -> None:
     """Rewrite one page with only its live rows; remaps its membership
     entries to the fresh page in place."""
+    if chaos.armed():
+        # a failed compaction is SAFE to skip: tombstones stay valid and
+        # the page re-qualifies next sweep (a lost compaction costs
+        # space, never correctness). Only a recoverable injected fault
+        # defers; a hard one crashes here, BEFORE the pop, so no page is
+        # half-moved.
+        try:
+            chaos.fault_point("spill.page_compact", page=page)
+        except chaos.InjectedFault as f:
+            if f.recoverable:
+                c = chaos.controller()
+                if c is not None:
+                    c.note_recovery()
+                return
+            raise
     entry = spill.pop(page)
     pmap.page_rows.pop(page, None)
     pmap.page_live.pop(page, None)
@@ -311,6 +331,20 @@ def _compact_page(spill, pmap: PagedSpillMap, page: int) -> None:
     pmap.page_rows[new_page] = n
     pmap.page_live[new_page] = n
     pmap.rows_compacted += n
+
+
+def _peek_page(spill, page: int):
+    """One page read on the reload path. Under chaos, a transient
+    injected reload failure retries with backoff in place; a persistent
+    one propagates as the engine crash it would be."""
+    if not chaos.armed():
+        return spill.peek(page)
+
+    def attempt():
+        chaos.fault_point("spill.page_reload", page=page)
+        return spill.peek(page)
+
+    return chaos.run_recoverable("spill.page_reload", attempt)
 
 
 def read_spilled_rows(spill, pmap: Optional[PagedSpillMap], paged: bool,
@@ -347,6 +381,44 @@ def read_spilled_rows(spill, pmap: Optional[PagedSpillMap], paged: bool,
                 on_row(tag, entry, int(pos[0]))
 
 
+def spilled_rows(spill, pmap: Optional[PagedSpillMap], leaves,
+                 dirty_only: bool = False
+                 ) -> Tuple[List[np.ndarray], List[np.ndarray],
+                            List[List[np.ndarray]]]:
+    """The spill tier's part of a snapshot: (key_id chunks, namespace
+    chunks, per-leaf chunks), one chunk per entry in the tier's order, for
+    the caller to concatenate after its device rows. A paged entry carries
+    its own ``ns`` column and only rows still mapped to the page are state
+    (lazy tombstones); ``dirty_only`` (a delta) keeps the dirty entries'
+    dirty AND live rows — a tombstoned row is resident again (its device
+    copy travels) or freed. The ONE copy for ``SlotTable`` and the mesh
+    engines (one call per shard)."""
+    key_chunks: List[np.ndarray] = []
+    ns_chunks: List[np.ndarray] = []
+    leaf_chunks: List[List[np.ndarray]] = [[] for _ in leaves]
+    names = spill.dirty_namespaces() if dirty_only else spill.namespaces
+    for pid_or_ns in names:
+        entry = spill.peek(int(pid_or_ns))
+        if entry is None:
+            continue
+        keys = np.asarray(entry["key_id"], dtype=np.int64)
+        if "ns" in entry:
+            rns = np.asarray(entry["ns"], dtype=np.int64)
+            sel = pmap.live_row_mask(int(pid_or_ns), rns)
+            if dirty_only:
+                sel &= np.asarray(entry["dirty"], dtype=bool)
+            keys, rns = keys[sel], rns[sel]
+        else:
+            sel = slice(None)
+            rns = np.full(len(keys), int(pid_or_ns), dtype=np.int64)
+        key_chunks.append(keys)
+        ns_chunks.append(rns)
+        for i, l in enumerate(leaves):
+            leaf_chunks[i].append(
+                np.asarray(entry[f"leaf_{i}"], dtype=l.dtype)[sel])
+    return key_chunks, ns_chunks, leaf_chunks
+
+
 def reload_rows_for(spill, pmap: PagedSpillMap, nss: np.ndarray,
                     leaf_dtypes: Sequence) -> Optional[
                         Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -379,7 +451,7 @@ def reload_rows_for(spill, pmap: PagedSpillMap, nss: np.ndarray,
     pages_read = 0
     for a, b in zip(starts.tolist(), ends.tolist()):
         page = int(hit_pages[a])
-        entry = spill.peek(page)
+        entry = _peek_page(spill, page)
         if entry is None:
             continue
         pages_read += 1
@@ -437,3 +509,46 @@ def run_deferred_sweeps(spill, pmap: PagedSpillMap) -> int:
     pmap.deferred_pages.clear()
     _sweep_pages(spill, pmap, pages)
     return len(pages)
+
+
+def restore_into_pages(spill, pmap: PagedSpillMap, key_ids: np.ndarray,
+                       namespaces: np.ndarray, leaves: List[np.ndarray],
+                       page_rows: int,
+                       dirty: Optional[np.ndarray] = None,
+                       append: bool = False) -> None:
+    """Pack restored logical rows into page-sized spill entries (sorted by
+    ns, never splitting one namespace across pages): a snapshot far larger
+    than the device budget restores with bounded device memory and reloads
+    lazily by page. Clears any stale pages first (re-restore).
+
+    ``dirty``: optional per-row dirtiness carried into the pages; a
+    checkpoint restore passes None (restored state is the new incremental
+    base). ``append=True`` keeps the tier's existing pages (the caller
+    guarantees the appended namespaces are not mapped yet)."""
+    if not append:
+        if len(pmap.sp_ns):
+            for page in np.unique(pmap.sp_page).tolist():
+                spill.discard(int(page))
+        pmap.clear()
+    order = np.argsort(namespaces, kind="stable")
+    s_ns = namespaces[order]
+    s_keys = key_ids[order]
+    s_leaves = [l[order] for l in leaves]
+    s_dirty = (np.asarray(dirty, dtype=bool)[order]
+               if dirty is not None else None)
+    total = len(s_ns)
+    a = 0
+    while a < total:
+        b = min(a + page_rows, total)
+        while b < total and s_ns[b] == s_ns[b - 1]:
+            b += 1
+        entry = {"key_id": s_keys[a:b], "ns": s_ns[a:b],
+                 "dirty": (s_dirty[a:b] if s_dirty is not None
+                           else np.zeros(b - a, dtype=bool)),
+                 **{f"leaf_{i}": s_leaves[i][a:b]
+                    for i in range(len(s_leaves))}}
+        spill_page(spill, pmap, entry, count=False)
+        a = b
+    if not append:
+        # pages were appended in ascending-ns order: the map is sorted
+        pmap.sorted = True

@@ -19,10 +19,14 @@
   the coldest rows move as one page per eviction and reload row by row
   (``state/paged_spill.py``).
 
+Snapshots are logical (key_id, namespace, key_group, leaf columns, device
+rows and spilled rows alike), so a restore re-shards by key group; a delta
+snapshot carries the rows dirtied since the last snapshot plus tombstones
+of the freed namespaces and pairs (the reference's format).
+
 Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
 item (Queue A): a ``state.spill.dir`` with a scheme other than a local
-path (item 8), snapshots and restore (item 8), and point queries (item
-12).
+path (item 8b) and point queries (item 12).
 """
 
 from __future__ import annotations
@@ -42,15 +46,53 @@ from flink_tpu_torch.ops.segment_ops import (
     pad_values,
     sticky_bucket,
 )
-from flink_tpu_torch.runtime.pending import Fence, PendingFire
+from flink_tpu_torch.runtime.pending import (
+    Fence,
+    PendingFire,
+    harvest_to_host,
+)
+from flink_tpu_torch.state.keygroups import assign_key_groups
 from flink_tpu_torch.state.paged_spill import (
     PagedSpillMap,
     drop_spilled_sessions,
     reload_rows_for,
+    restore_into_pages,
     spill_page,
+    spilled_rows,
 )
 from flink_tpu_torch.stateplane.families import flat_fence
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
+
+
+def _coerce_snapshot_leaf(
+        arr: np.ndarray, want: np.dtype) -> Optional[np.ndarray]:
+    """Cast a snapshot leaf to the aggregate's dtype iff value-preserving;
+    None when the cast would lose values (integer targets get an exact
+    range and integrality check, float targets a NaN-tolerant
+    roundtrip)."""
+    if np.issubdtype(want, np.integer):
+        info = np.iinfo(want)
+        if np.issubdtype(arr.dtype, np.floating):
+            if not np.all(np.isfinite(arr)):
+                return None
+            if not np.all(np.trunc(arr) == arr):
+                return None
+            # +-2**(bits-1) are exact in float64: `arr <= info.max` would
+            # round the bound up and let 2**63 wrap
+            lo, hi = float(info.min), float(info.max + 1)
+            if not np.all((arr >= lo) & (arr < hi)):
+                return None
+        else:
+            if int(arr.min()) < info.min or int(arr.max()) > info.max:
+                return None
+        return arr.astype(want)
+    with np.errstate(over="ignore", invalid="ignore"):
+        cast = arr.astype(want)
+        equal_nan = np.issubdtype(arr.dtype, np.inexact)
+        back = cast.astype(arr.dtype)
+        ok = (np.array_equal(back, arr, equal_nan=True) if equal_nan
+              else np.array_equal(back, arr))
+        return cast if ok else None
 
 
 def unique_pairs(
@@ -526,7 +568,7 @@ def make_slot_index(capacity: int, on_grow=None, growable: bool = True,
                track_namespaces=track_namespaces)
 
 
-def _not_ported(feature: str, item: int) -> NotImplementedError:
+def _not_ported(feature: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to flink_tpu_torch yet (ROADMAP.md, "
         f"Queue A item {item})")
@@ -545,7 +587,7 @@ class SpillTier:
             scheme, path = spill_dir.split("://", 1)
             if scheme != "file":
                 raise _not_ported(
-                    f"state.spill.dir with the {scheme!r} scheme", 8)
+                    f"state.spill.dir with the {scheme!r} scheme", "8b")
             spill_dir = path
         self.spill_dir = spill_dir
         self.host_max_bytes = host_max_bytes
@@ -638,6 +680,12 @@ class SpillTier:
             os.remove(self._fs.pop(ns))
         self._dirty.discard(ns)
 
+    def dirty_namespaces(self) -> List[int]:
+        return list(self._dirty)
+
+    def clear_dirty(self) -> None:
+        self._dirty.clear()
+
 
 class SlotTable:
     """Single-device keyed windowed state: a host index plus flat device
@@ -679,9 +727,8 @@ class SlotTable:
         self._touch_clock = 0
         self.spill_layout = spill_layout
         self._paged = spill_layout == "pages" and self.max_device_slots > 0
-        if self._paged:
-            #: membership map, tombstones and counters of the paged layout
-            self._pmap = PagedSpillMap()
+        #: membership map, tombstones and counters of the paged layout
+        self._pmap = PagedSpillMap() if self._paged else None
         self.index = make_slot_index(
             capacity, on_grow=self._grow_device,
             max_capacity=self.max_device_slots,
@@ -703,8 +750,11 @@ class SlotTable:
         self._reset_bucket = 0
         self._gather_bucket = 0
         #: slots touched since the last snapshot (the incremental-snapshot
-        #: record; snapshots come with ROADMAP Queue A item 8)
+        #: record) and the tombstones of what was freed since: whole
+        #: namespaces, and (key, ns) pairs freed one by one
         self._dirty = np.zeros(self.index.capacity, dtype=bool)
+        self._freed_ns: List[int] = []
+        self._freed_pairs: List[Tuple[np.ndarray, np.ndarray]] = []
 
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
         # from pageable memory the copy has staged `host` when it returns
@@ -1230,33 +1280,46 @@ class SlotTable:
         merges): the rows changed since the last snapshot."""
         self._dirty[slots] = True
 
-    def free_index_only_slots(self, slots: np.ndarray) -> None:
+    def free_index_only_slots(self, slots: np.ndarray, namespaces) -> None:
         """Release the index entries of rows whose device values the
-        caller's program already reset (the sources of a session merge).
-        The reference also records their namespaces as tombstones for
-        incremental snapshots (ROADMAP Queue A item 8)."""
+        caller's program already reset (the sources of a session merge),
+        recording their namespaces as tombstones for incremental
+        snapshots."""
         slots = np.asarray(slots, dtype=np.int32)
+        self._freed_ns.extend(np.asarray(namespaces,
+                                         dtype=np.int64).tolist())
         self.index.free_slots(slots)
         self._dirty[slots] = False
 
     def free_rows(self, slots: np.ndarray, namespaces) -> None:
         """Free fired sessions by slot (the caller resolved the rows this
-        batch, so no registry walk): index entries, spilled copies, and the
-        device values reset — queued behind the fire on the same stream."""
-        self._drop_spilled_sessions(namespaces)
-        self.free_slots(slots)
-
-    def free_slots(self, slots: np.ndarray) -> None:
-        """Release individual (key, ns) entries."""
+        batch, so no registry walk): namespace tombstones, index entries,
+        spilled copies, and the device values reset — queued behind the
+        fire on the same stream."""
         slots = np.asarray(slots, dtype=np.int32)
         if not len(slots):
             return
+        nss = np.asarray(namespaces, dtype=np.int64)
+        self._freed_ns.extend(nss.tolist())
+        self._drop_spilled_sessions(nss)
+        self.index.free_slots(slots)
+        self._reset(slots)
+
+    def free_slots(self, slots: np.ndarray) -> None:
+        """Release individual (key, ns) entries, recording entry-granular
+        tombstones so an incremental chain does not resurrect them."""
+        slots = np.asarray(slots, dtype=np.int32)
+        if not len(slots):
+            return
+        self._freed_pairs.append((self.index.slot_key[slots].copy(),
+                                  self.index.slot_ns[slots].copy()))
         self.index.free_slots(slots)
         self._reset(slots)
 
     def free_namespaces(self, namespaces: List[int]) -> None:
         """Release all slots of the given namespaces (windows fired)."""
         slots = self.index.free_namespaces(namespaces)
+        self._freed_ns.extend(int(n) for n in namespaces)
         if self._paged:
             self._drop_spilled_sessions(namespaces)
         else:
@@ -1274,16 +1337,147 @@ class SlotTable:
         self.accs = self.agg._reset_jit(
             self.accs, self._to_device(pad_i32(slots, size, fill=0)))
 
+    # ------------------------------------------------------ snapshot/restore
+
+    def snapshot(self, reset_dirty: bool = True) -> Dict[str, np.ndarray]:
+        """State as host arrays, filtered to used slots, plus every spilled
+        row. Logical (key, ns, key_group, leaf values): slot numbers are not
+        part of the format, so a restore re-shards by key group. With
+        ``reset_dirty`` the snapshot establishes a new incremental base;
+        savepoints pass False so the next delta keeps its contents."""
+        used = self.index.used_slots()
+        # ONE synchronous copy, queued behind every dispatched program
+        accs_host = harvest_to_host(self.accs)
+        # spilled namespaces are part of the logical state (chunks first,
+        # ONE concatenate)
+        keys, nss, leaves = spilled_rows(self.spill, self._pmap,
+                                         self.agg.leaves)
+        out = {"key_id": np.concatenate([self.index.slot_key[used], *keys]),
+               "namespace": np.concatenate([self.index.slot_ns[used], *nss])}
+        for i, a in enumerate(accs_host):
+            out[f"leaf_{i}"] = np.concatenate([a[used], *leaves[i]])
+        out["key_group"] = assign_key_groups(out["key_id"],
+                                             self.max_parallelism)
+        if reset_dirty:
+            self._clear_tracking()
+        return out
+
+    def _clear_tracking(self) -> None:
+        self._dirty[:] = False
+        self._freed_ns.clear()
+        self._freed_pairs.clear()
+        self.spill.clear_dirty()
+
+    def snapshot_delta(self) -> Dict[str, np.ndarray]:
+        """Incremental snapshot: only the rows dirtied since the last
+        snapshot (one gather off the device) plus the tombstones of what
+        was freed since. A restore applies it on top of the last full
+        snapshot."""
+        dirty_used = np.nonzero(self._dirty & self.index.slot_used)[0] \
+            .astype(np.int32)
+        freed = np.asarray(sorted(set(self._freed_ns)), dtype=np.int64)
+        n = len(dirty_used)
+        if n:
+            size = sticky_bucket(n, self._gather_bucket)
+            self._gather_bucket = size
+            gathered = self.agg._gather_jit(
+                self.accs,
+                self._to_device(pad_i32(dirty_used, size, fill=0)))
+            leaves = [g[:n] for g in harvest_to_host(gathered)]
+        else:
+            leaves = [np.empty(0, dtype=l.dtype) for l in self.agg.leaves]
+        # spilled-but-dirty namespaces travel too (paged layout: only the
+        # dirty ROWS of a dirty page — pages are immutable once spilled,
+        # so the per-row dirty column captured at eviction stays right)
+        keys, nss, sleaves = spilled_rows(self.spill, self._pmap,
+                                          self.agg.leaves, dirty_only=True)
+        key_ids = np.concatenate([self.index.slot_key[dirty_used], *keys])
+        namespaces = np.concatenate([self.index.slot_ns[dirty_used], *nss])
+        leaves = [np.concatenate([leaves[i], *sleaves[i]])
+                  for i in range(len(leaves))]
+        if self._freed_pairs:
+            tomb_k = np.concatenate([p[0] for p in self._freed_pairs])
+            tomb_n = np.concatenate([p[1] for p in self._freed_pairs])
+        else:
+            tomb_k = np.empty(0, dtype=np.int64)
+            tomb_n = np.empty(0, dtype=np.int64)
+        out = {
+            "__delta__": np.asarray(True),
+            "key_id": key_ids,
+            "namespace": namespaces,
+            "key_group": assign_key_groups(key_ids, self.max_parallelism),
+            "freed_namespaces": freed,
+            "tombstone_key_id": tomb_k,
+            "tombstone_namespace": tomb_n,
+            **{f"leaf_{i}": leaves[i] for i in range(len(leaves))},
+        }
+        self._clear_tracking()
+        return out
+
+    def restore(self, snap: Dict[str, np.ndarray],
+                key_group_filter=None) -> None:
+        """Load a logical snapshot, optionally keeping only the key groups
+        in ``key_group_filter``. With a device budget the rows land in the
+        spill tier (pages, or one entry per namespace) and reload lazily;
+        otherwise they are put on the device in one ``flat_put`` — never
+        at slot 0."""
+        key_ids = np.asarray(snap["key_id"], dtype=np.int64)
+        namespaces = np.asarray(snap["namespace"], dtype=np.int64)
+        groups = np.asarray(snap["key_group"], dtype=np.int32)
+        # arrays read from an .npz are read-only: copies, in the
+        # aggregate's dtypes (a value-preserving cast counts as
+        # compatible; anything lossy fails precisely)
+        leaves = [np.array(snap[f"leaf_{i}"])
+                  for i in range(len(self.agg.leaves))]
+        for i, (arr, leaf) in enumerate(zip(leaves, self.agg.leaves)):
+            want = np.dtype(leaf.dtype)
+            if len(arr) and arr.dtype != want:
+                cast = _coerce_snapshot_leaf(arr, want)
+                if cast is None:
+                    raise RuntimeError(
+                        f"state schema incompatible: snapshot leaf_{i} has "
+                        f"dtype {arr.dtype}, the aggregate expects {want} "
+                        "and the values do not survive the cast — migrate "
+                        "the snapshot (checkpoint.storage."
+                        "register_migration) or restore with the original "
+                        "aggregate types")
+                leaves[i] = cast
+        if key_group_filter is not None:
+            mask = np.isin(groups, np.asarray(sorted(key_group_filter)))
+            key_ids, namespaces = key_ids[mask], namespaces[mask]
+            leaves = [l[mask] for l in leaves]
+        if self.max_device_slots and self._paged and len(key_ids):
+            # rows land in page-sized entries (ns column per row) and
+            # reload lazily by page
+            restore_into_pages(
+                self.spill, self._pmap, key_ids, namespaces, leaves,
+                page_rows=max(self.index.capacity // 8, 1024))
+        elif self.max_device_slots and len(key_ids):
+            # namespace layout: one spill entry per namespace, reloaded on
+            # first access
+            order = np.argsort(namespaces, kind="stable")
+            s_ns = namespaces[order]
+            s_keys = key_ids[order]
+            s_leaves = [l[order] for l in leaves]
+            bounds = np.nonzero(np.diff(s_ns))[0] + 1
+            starts = np.concatenate(([0], bounds))
+            ends = np.concatenate((bounds, [len(s_ns)]))
+            for a, b in zip(starts.tolist(), ends.tolist()):
+                ns = int(s_ns[a])
+                entry = {"key_id": s_keys[a:b],
+                         **{f"leaf_{i}": s_leaves[i][a:b]
+                            for i in range(len(s_leaves))}}
+                if ns in self.spill:
+                    self.spill.drop(ns)
+                self.spill.put(ns, entry, dirty=False)
+        elif len(key_ids):
+            # the index allocates from slot 1: slot 0 is never written
+            slots = self.lookup_or_insert(key_ids, namespaces)
+            self._put(slots, leaves)
+        # restored state IS the new incremental base
+        self._clear_tracking()
+
     # ------------------------------------------------------ not in this slice
-
-    def snapshot(self, reset_dirty: bool = True):
-        raise _not_ported("SlotTable.snapshot", 8)
-
-    def snapshot_delta(self):
-        raise _not_ported("SlotTable.snapshot_delta", 8)
-
-    def restore(self, snap, key_group_filter=None):
-        raise _not_ported("SlotTable.restore", 8)
 
     def query(self, key_id: int, namespace: Optional[int] = None):
         raise _not_ported("SlotTable.query", 12)

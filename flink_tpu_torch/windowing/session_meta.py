@@ -701,12 +701,34 @@ class SessionIntervalSet:
             "max_fired_watermark": self.max_fired_watermark,
         }
 
-    def restore(self, snap: Dict[str, object]) -> None:
-        """Rebuild the interval set from :meth:`snapshot` — how an engine
-        hands a native plane's live sessions to this plane after a
-        ``NativePlaneError``. Restoring a subset of key groups, partial-
-        failover merges and snapshot filters belong to checkpoints and
-        failure domains (ROADMAP.md Queue A item 8)."""
+    @staticmethod
+    def filter_snapshot(snap: Dict[str, object], groups,
+                        max_parallelism: int = 128) -> Dict[str, object]:
+        """A metadata snapshot restricted to the key groups ``groups``;
+        the scalar fields ride along whole."""
+        from flink_tpu_torch.state.keygroups import assign_key_groups
+
+        sessions = snap.get("sessions", {})
+        if sessions:
+            keys = np.asarray([int(k) for k in sessions], dtype=np.int64)
+            kg = assign_key_groups(keys, max_parallelism)
+            keep = np.isin(kg, np.asarray(sorted(groups), dtype=np.int64))
+            sessions = {int(k): list(sessions[k])
+                        for k, ok in zip(sessions, keep) if ok}
+        return {
+            "sessions": sessions,
+            "next_sid": snap.get("next_sid", 1),
+            "max_fired_watermark": snap.get("max_fired_watermark",
+                                            _NEG_INF),
+        }
+
+    def restore(self, snap: Dict[str, object],
+                key_group_filter=None, max_parallelism: int = 128) -> None:
+        """Rebuild the interval set from :meth:`snapshot` (a checkpoint's,
+        or a native plane's live sessions handed over after a
+        ``NativePlaneError``), keeping only the keys in the key groups
+        ``key_group_filter`` when given. Partial-failover merges
+        (``drop_key_groups``, ``merge_restore``) are ROADMAP item 8b."""
         self._reset_store()
         self._fire_chunks = []
         self._fire_buf = ([], [], [])
@@ -714,6 +736,13 @@ class SessionIntervalSet:
         sk, ss, se, ssid = [], [], [], []
         for k, ivs in snap.get("sessions", {}).items():
             kept = [tuple(iv) for iv in ivs]
+            if key_group_filter is not None:
+                from flink_tpu_torch.state.keygroups import assign_key_groups
+
+                g = int(assign_key_groups(np.array([k]),
+                                          max_parallelism)[0])
+                if g not in key_group_filter:
+                    continue
             if len(kept) == 1:
                 s, e, sid = kept[0]
                 sk.append(int(k))

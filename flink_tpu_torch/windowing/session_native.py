@@ -511,3 +511,15 @@ class NativeSessionIntervalSet(SessionIntervalSet):
         dslot = int(self._store.dslot[slot])
         self._lib.sx_erase1(self._store._h, slot)
         return dslot
+
+    # --------------------------------------------------------- snapshot
+
+    def restore(self, snap, key_group_filter=None,
+                max_parallelism: int = 128) -> None:
+        super().restore(snap, key_group_filter=key_group_filter,
+                        max_parallelism=max_parallelism)
+        # the base restore writes multi-interval lists into the dict
+        # directly: re-sync the native membership set (the store itself
+        # was rebuilt by _reset_store, so the singles side is exact)
+        for k in self._multi:
+            self._lib.sx_multi_add(self._store._h, int(k))

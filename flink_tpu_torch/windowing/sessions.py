@@ -16,15 +16,18 @@ STATE on the device.
 
 A session [start, end) fires when watermark >= end - 1, with end = last
 event + gap. With a device budget the table takes the paged spill layout
-(eviction cohorts, ``state/paged_spill.py``) and frees by slot.
+(eviction cohorts, ``state/paged_spill.py``) and frees by slot. A snapshot
+is the table's logical rows plus the metadata's interval lists (the
+reference's format); merged and fired sessions leave tombstones for
+incremental snapshots.
 
-Not in this slice: the point queries (ROADMAP.md Queue A item 12) and
-snapshots (item 8), each raising ``NotImplementedError``.
+Not in this slice: the point queries (ROADMAP.md Queue A item 12),
+raising ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -170,7 +173,7 @@ class SessionWindower:
         table.accs = self._merge(
             table.accs, table._to_device(pad_i32(dst_slots, size, fill=0)),
             table._to_device(pad_i32(src_slots, size, fill=0)))
-        self.table.free_index_only_slots(src_slots)
+        self.table.free_index_only_slots(src_slots, g.absorbed_sids)
 
     # ----------------------------------------------------------------- fire
 
@@ -232,6 +235,24 @@ class SessionWindower:
             out.append(RecordBatch(cols))
         return out
 
+    # ------------------------------------------------------------- snapshot
+
+    def snapshot(self, mode: str = "full") -> Dict[str, object]:
+        """mode: "full" (a new incremental base), "delta" (dirty rows and
+        tombstones), "savepoint" (full, keeping the dirty tracking)."""
+        if mode == "delta":
+            table = self.table.snapshot_delta()
+        else:
+            table = self.table.snapshot(reset_dirty=(mode != "savepoint"))
+        return {"table": table, **self.meta.snapshot()}
+
+    def restore(self, snap: Dict[str, object], key_group_filter=None) -> None:
+        if "table" in snap:
+            self.table.restore(snap["table"],
+                               key_group_filter=key_group_filter)
+        self.meta.restore(snap, key_group_filter=key_group_filter,
+                          max_parallelism=self.table.max_parallelism)
+
     # ---------------------------------------------------- not in this slice
 
     def query_sessions_batch(self, key_ids):
@@ -240,8 +261,3 @@ class SessionWindower:
     def query_sessions(self, key_id: int):
         raise _not_ported("SessionWindower.query_sessions", 12)
 
-    def snapshot(self, mode: str = "full"):
-        raise _not_ported("SessionWindower.snapshot", 8)
-
-    def restore(self, snap, key_group_filter=None) -> None:
-        raise _not_ported("SessionWindower.restore", 8)

@@ -13,9 +13,10 @@ A ``WindowAssigner`` maps timestamps to slices and windows to slices; a
 
 Window lifecycle metadata lives in ``SliceBookkeeper`` (shared with the
 mesh engine). ``PaneWindower`` runs the same contract over the pane layout
-(``state/pane_table.py``). Not in this slice: ``compose_windows`` and the
-point queries (ROADMAP.md Queue A item 12), the slot table's snapshots
-(item 8).
+(``state/pane_table.py``). ``snapshot``/``restore`` carry the table's
+logical rows and the bookkeeping in the reference's format. Not in this
+slice: ``compose_windows`` and the point queries (ROADMAP.md Queue A item
+12).
 """
 
 from __future__ import annotations

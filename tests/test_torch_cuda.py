@@ -824,3 +824,103 @@ def test_mesh_session_job_on_card_equals_cpu_run(agg):
     assert geng.merge_groups == weng.merge_groups
     if agg == "max":
         assert geng.merge_groups > 0
+
+
+def _engine(kind, device):
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.windowing.sessions import SessionWindower
+    from flink_tpu_torch.windowing.windower import (
+        PaneWindower,
+        SliceSharedWindower,
+    )
+
+    agg = SumAggregate("v")
+    asg = SlidingEventTimeWindows.of(3000, 1000)
+    if kind == "slots_spill":
+        return SliceSharedWindower(asg, agg, capacity=1024, spill={
+            "device": device, "max_device_slots": 1024})
+    if kind == "mesh_window":
+        return MeshWindowEngine(asg, agg, make_mesh(8, device),
+                                capacity_per_shard=1024)
+    if kind == "panes_preagg":
+        return PaneWindower(asg, agg, capacity=1024, device=device)
+    if kind == "sessions_paged":
+        return SessionWindower(100, agg, capacity=1 << 12, spill={
+            "device": device, "max_device_slots": 2048})
+    return MeshSessionEngine(100, agg, make_mesh(8, device),
+                             capacity_per_shard=1 << 14,
+                             max_device_slots=1024)
+
+
+def _feed(eng, steps):
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+
+    out = []
+    for keys, vals, ts, wm in steps:
+        eng.process_batch(RecordBatch.from_pydict(
+            {KEY_ID_FIELD: keys, "v": vals}, timestamps=ts))
+        for b in eng.on_watermark(int(wm)):
+            out.append(b.harvest() if hasattr(b, "harvest") else b)
+    return out
+
+
+def _snap_equal(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _snap_equal(got[k], w)
+        elif isinstance(w, np.ndarray):
+            assert got[k].dtype == w.dtype and \
+                got[k].tobytes() == w.tobytes(), k
+        else:
+            assert got[k] == w, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slots_spill", "panes_preagg",
+                                  "mesh_window", "sessions_paged",
+                                  "mesh_sessions"])
+def test_snapshots_and_restore_on_card_equal_cpu(kind):
+    """Full and delta snapshots after the same batches equal on the card
+    and the CPU, bit for bit; the card's snapshot restored on the CPU and
+    the CPU's on the card continue with the same fires."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    steps = []
+    for s in range(10):
+        k = rng.integers(0, 6000 if "session" in kind else 400,
+                         1500).astype(np.int64)
+        v = rng.standard_normal(1500).astype(np.float32)
+        ts = (rng.integers(s * 80, s * 80 + 60, 1500) if "session" in kind
+              else rng.integers(s * 1000 - 500, s * 1000 + 1000, 1500))
+        steps.append((k, v, np.maximum(ts, 0).astype(np.int64),
+                      (s - 1) * 80 if "session" in kind else s * 1000 - 1))
+    card, cpu = _engine(kind, "cuda"), _engine(kind, "cpu")
+    for eng in (card, cpu):
+        _feed(eng, steps[:4])
+    _snap_equal(card.snapshot(), cpu.snapshot())
+    for eng in (card, cpu):
+        _feed(eng, steps[4:6])
+    snaps = {"cuda": card.snapshot(mode="delta"),
+             "cpu": cpu.snapshot(mode="delta")}
+    _snap_equal(snaps["cuda"], snaps["cpu"])
+    full = {"cuda": card.snapshot(), "cpu": cpu.snapshot()}
+    outs = {}
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        eng = _engine(kind, dst)
+        eng.restore(full[src])
+        outs[dst] = _feed(eng, steps[6:]) + list(eng.on_watermark(1 << 60))
+    rows = []
+    for batches in outs.values():
+        cols = {}
+        for b in batches:
+            for name in b.names():
+                cols.setdefault(name, []).append(np.asarray(b[name]))
+        rows.append({n: np.concatenate(c) for n, c in cols.items()})
+    assert len(rows[0]["__key_id__"]) > 0
+    for name, col in rows[1].items():
+        assert rows[0][name].tobytes() == col.tobytes(), name

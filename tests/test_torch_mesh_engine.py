@@ -172,6 +172,7 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="shuffle.mode"):
         TEngine(asg, agg, mesh, shuffle_mode="host")
     eng = TEngine(asg, agg, mesh)
-    for call in (eng.snapshot, lambda: eng.reshard(4)):
+    for call in (lambda: eng.reassign_key_groups({}),
+                 lambda: eng.reshard(4)):
         with pytest.raises(NotImplementedError):
             call()

@@ -1,8 +1,8 @@
 """The port's paged spill layout (``flink_tpu_torch/state/paged_spill.py``
 and ``SlotTable(spill_layout="pages")``) against the reference's
 (``flink_tpu/state/paged_spill.py``): the counterparts of
-``tests/test_paged_spill.py``'s tests that take no snapshot (snapshots are
-ROADMAP Queue A item 8).
+``tests/test_paged_spill.py``'s tests that take no snapshot (the snapshot
+and restore tests are in ``tests/test_torch_restore.py``).
 
 Each test drives the same operations, made from numpy seeds, through both
 tables on the CPU and compares what they hold: every live (key, sid) row,

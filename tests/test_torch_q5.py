@@ -114,7 +114,7 @@ def test_bid_source_matches_reference_stream():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("state.spill.dir", "s3://bucket/spill", "Queue A item 8"),
+    ("state.spill.dir", "s3://bucket/spill", "Queue A item 8b"),
     ("state.backend", "host-heap", "Queue A item 11"),
 ])
 def test_parallelism_one_is_not_ported_yet(key, value, item):

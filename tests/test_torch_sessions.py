@@ -9,7 +9,7 @@ dispatch) against the reference on the CPU.
   destinations and padded lanes.
 - ``SessionWindower``: the counterparts of ``tests/test_sessions.py``'s
   basics, oracle, out-of-order, late-drop and public-API tests (its
-  snapshot tests belong to ROADMAP Queue A item 8), each run through both
+  snapshot tests are in ``tests/test_torch_restore.py``), each run through both
   packages with every fired batch equal in order and bit for bit, and
   held to a brute-force oracle where the reference's test is.
 - BASELINE row 5's job (``tools/bench_suite.py:198-245``) through the
@@ -569,5 +569,9 @@ def test_queries_and_snapshots_name_their_items():
     w = SessionWindower(10, tagg.CountAggregate(), spill={"device": "cpu"})
     with pytest.raises(NotImplementedError, match="item 12"):
         w.query_sessions(1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        w.snapshot()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        w.query_sessions_batch([1])
+    # snapshots are ported (item 8a): the table and the interval lists
+    snap = w.snapshot()
+    assert set(snap) == {"table", "sessions", "next_sid",
+                         "max_fired_watermark"}

@@ -444,8 +444,8 @@ def test_growth_and_const_leaf_keep_slot0_identity():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda t: t.snapshot(), "item 8"),
-    (lambda t: t.restore({}), "item 8"),
+    (lambda t: t.query_batch_pairs([1], [1]), "item 12"),
+    (lambda t: t.query_windows(1, None), "item 12"),
     (lambda t: t.query(1), "item 12"),
 ])
 def test_unported_parts_raise_naming_their_item(call, item):
@@ -457,7 +457,7 @@ def test_unported_parts_raise_naming_their_item(call, item):
                   spill_layout="pages")._paged
     with pytest.raises(ValueError, match="spill_layout"):
         TTable(tagg.SumAggregate("v"), device="cpu", spill_layout="rows")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         TTable(tagg.SumAggregate("v"), device="cpu", max_device_slots=1024,
                spill_dir="s3://bucket/spill")
 
