@@ -151,12 +151,37 @@ Phases, each fatal on failure (no result line is printed then):
     engine: each finished run equals the uninterrupted one, bit for bit.
     ``python3 -c 'import torch, chip_smoke;
     chip_smoke.phase_checkpoints(torch)'`` runs phase 14 alone.
+15. streaming joins: (a) the Q8 shape of ``tools/bench_joins.py``
+    (100k sellers, band [0, 10 s], 200k events/s of event time per side,
+    4M records in batches of 1<<15 alternating sides, 1<<18 slots a shard
+    a side, P=8) through ``flink_tpu_torch/benchmarks/joins.py`` on the
+    card, then the same stream through the same engine with
+    ``backend="host"``: every emitted batch equal in order, bit for bit
+    (compared by a digest of each batch's names, dtypes and bytes);
+    events/s, emit latency p50/p99 and matches printed; (b) the 10M-key
+    shape (band +-2 s, 400k events/s, 1<<16 slots and device budget a
+    shard a side) likewise, with rows evicted and cold rows served from
+    the pages both > 0; (c) the interval engine (forced eviction) and the
+    temporal engine at ``tools/join_smoke.py``'s shape on the card and on
+    the CPU: every batch, every snapshot, the spill counters, the
+    late-row count and every value plane outside slot 0 equal; (d)
+    ``KeyedStream.interval_join().between()`` through ``env.execute``
+    at ``parallelism.default=8`` with ``join.mode=device`` (two sources of 500k rows over 200k keys, band
+    +-1 s, a checkpoint every 16 source batches): its rows equal
+    ``join.mode=host``'s as a multiset, its batches and every checkpoint
+    equal the CPU's; (e) Nexmark Q7 at BASELINE row 3's settings (10M
+    bids, 2 s windows, micro-batches of 1<<16, capacity 1<<20, P=1):
+    every window's (max_price, winners) equal to ``oracle_q7``, the max
+    still float32; events/s and window-fire latency printed.
+    ``python3 -c 'import torch, chip_smoke; chip_smoke.phase_joins(torch)'``
+    runs phase 15 alone.
 
 The launch counts of both kernels are set to 0 just before each of phases
-5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b)
-and read just after; each phase fails if a kernel of its path did not
-launch (the rank at parallelism 8; the ordered fold in phases 6, 8, 11,
-12, 13 and 14(b), Count being an integer fold).
+5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
+15(a), 15(b), the card run of 15(d) and 15(e), and read just after; each
+phase fails if a kernel of its path did not launch (the rank at
+parallelism 8; the ordered fold in phases 6, 8, 11, 12, 13, 14(b) and
+15(e), Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -2279,6 +2304,371 @@ def phase_checkpoints(torch, q5_records: int = 40_000_000,
     return out
 
 
+
+# ---------------------------------------------------------------- phase 15
+
+#: tools/join_smoke.py's shape: keys, records a batch, slots (and device
+#: budget) a shard a side, interval band (ms), watermark lag (ms), steps
+JS_KEYS, JS_BATCH, JS_BUDGET, JS_BAND, JS_LAG, JS_STEPS = \
+    40_000, 2048, 512, 2500, 3000, 8
+
+
+def join_bench(torch, shape: str, records: int, device: str) -> dict:
+    """15(a)/(b): ``benchmarks/joins.py``'s shape on ``device`` and its
+    replay through the same engine with ``backend="host"``: every emitted
+    batch equal (by digest of names, dtypes and bytes), in order."""
+    from flink_tpu_torch.benchmarks import joins
+
+    reset_counts()
+    r = joins.run_shape(shape, records, device, check=True)
+    r["launches"] = read_counts()
+    tag = "15(a)" if shape == "q8" else "15(b)"
+    if not r["equal_to_host_backend"]:
+        raise AssertionError(
+            f"phase {tag}: {shape} differs from the host backend at batch "
+            f"{r['first_divergent_batch']} of {r['batches_compared']} "
+            f"(spill {r['spill']} vs {r['host_backend']['spill']})")
+    if not r["matches"] or not r["batches_compared"]:
+        raise AssertionError(f"phase {tag}: {shape} emitted no match")
+    if device == "cuda" and r["launches"]["exchange_rank"] == 0:
+        raise AssertionError(f"phase {tag}: the rank kernel never launched")
+    if shape == "10m" and (r["spill"]["rows_evicted"] == 0
+                           or r["spill"]["cold_rows_served"] == 0):
+        raise AssertionError(f"phase 15(b): the page tier was not used "
+                             f"({r['spill']})")
+    return r
+
+
+def _js_batch(rng, t, name):
+    from flink_tpu_torch.core.records import (
+        KEY_ID_FIELD,
+        TIMESTAMP_FIELD,
+        RecordBatch,
+    )
+
+    keys = rng.integers(0, JS_KEYS, JS_BATCH).astype(np.int64)
+    ts = t + np.arange(JS_BATCH, dtype=np.int64) // 4
+    return RecordBatch({KEY_ID_FIELD: keys,
+                        name: rng.random(JS_BATCH).astype(np.float32),
+                        TIMESTAMP_FIELD: ts}), int(ts[-1]) + 1
+
+
+def _js_run(kind: str, device: str, extra=None):
+    """One engine at join_smoke's shape (P=8, 512 slots a shard a side,
+    the band reaching into the pages): its batches, a snapshot after
+    every step, the engine. ``extra(rng, batch)``, where given, returns
+    each interval-join batch with more columns."""
+    from flink_tpu_torch.joins import (
+        MeshIntervalJoinEngine,
+        MeshTemporalJoinEngine,
+    )
+
+    kw = dict(num_shards=8, device=device, capacity_per_shard=JS_BUDGET,
+              max_device_slots=JS_BUDGET)
+    out, snaps, t = [], [], 0
+    if kind == "interval":
+        eng = MeshIntervalJoinEngine(-JS_BAND, JS_BAND, **kw)
+        rng = np.random.default_rng(23)
+        for _ in range(JS_STEPS):
+            for side, name in ((0, "v"), (1, "w")):
+                b, t = _js_batch(rng, t, name)
+                if extra is not None:
+                    b = extra(rng, b)
+                out += eng.process_batch(b, side)
+            eng.on_watermark(t - JS_LAG)
+            snaps.append(eng.snapshot())
+    else:
+        eng = MeshTemporalJoinEngine(**kw)
+        rng = np.random.default_rng(29)
+        for _ in range(JS_STEPS):
+            b, _ = _js_batch(rng, t, "rate")
+            out += eng.process_batch(b, 1)
+            b, t = _js_batch(rng, t, "v")
+            out += eng.process_batch(b, 0)
+            out += eng.on_watermark(t - JS_LAG)
+            snaps.append(eng.snapshot())
+        out += eng.on_watermark(1 << 40)
+    return out, snaps, eng
+
+
+def join_smoke_card_equals_cpu(torch, device: str) -> dict:
+    """15(c): both engines at join_smoke's shape on the card and on the
+    CPU: every batch, every snapshot, the late-row count and every value
+    plane outside the scratch slot 0 equal."""
+    from flink_tpu_torch.benchmarks.joins import digest
+
+    out = {}
+    for kind in ("interval", "temporal"):
+        card, card_snaps, ce = _js_run(kind, device)
+        cpu, cpu_snaps, pe = _js_run(kind, "cpu")
+        if [digest(b) for b in card] != [digest(b) for b in cpu]:
+            raise AssertionError(f"phase 15(c): {kind} batches differ card "
+                                 "vs CPU")
+        for i, (a, b) in enumerate(zip(card_snaps, cpu_snaps)):
+            diffs = _snap_diffs(a, b)
+            if diffs:
+                raise AssertionError(f"phase 15(c): {kind} snapshot {i} "
+                                     f"differs card vs CPU at {diffs[:5]}")
+        for side in (0, 1):
+            for a, b in zip(ce._planes[side] or (), pe._planes[side] or ()):
+                if a.shape != b.shape or a[:, 1:].cpu().numpy().tobytes() \
+                        != b[:, 1:].numpy().tobytes():
+                    raise AssertionError(f"phase 15(c): {kind} side {side} "
+                                         "plane differs card vs CPU outside "
+                                         "slot 0")
+        sc = ce.spill_counters()
+        if sc != pe.spill_counters() or not card:
+            raise AssertionError(f"phase 15(c): {kind} spill counters "
+                                 f"{sc} vs {pe.spill_counters()}")
+        if kind == "interval" and (sc["rows_evicted"] == 0
+                                   or sc["cold_rows_served"] == 0):
+            raise AssertionError(f"phase 15(c): spill not engaged ({sc})")
+        late = getattr(ce, "late_left_dropped", 0)
+        if late != getattr(pe, "late_left_dropped", 0):
+            raise AssertionError("phase 15(c): late_left_dropped differs")
+        out[kind] = {"batches": len(card),
+                     "matches": sum(len(b) for b in card),
+                     "snapshots": len(card_snaps), "spill": sc,
+                     "late_left_dropped": late}
+    return out
+
+
+def _join_side_source(seed: int, col: str, rows: int, keys: int,
+                      rate: int):
+    """One input of 15(d): ``rows`` records over ``keys`` keys at
+    ``rate`` events/s of event time, made from ``seed``; its position is
+    the rows emitted."""
+    from flink_tpu_torch.connectors.sources import Source
+    from flink_tpu_torch.core.records import RecordBatch
+
+    class JoinSideSource(Source):
+        def __init__(self):
+            rng = np.random.default_rng(seed)
+            self.keys = rng.integers(0, keys, rows).astype(np.int64)
+            self.vals = rng.random(rows).astype(np.float32)
+            self.ts = (np.arange(rows, dtype=np.int64) * 1000) // rate
+            self.done = 0
+
+        def poll_batch(self, max_records):
+            if self.done >= rows:
+                return None
+            a, b = self.done, min(self.done + max_records, rows)
+            self.done = b
+            return RecordBatch.from_pydict(
+                {"k": self.keys[a:b], col: self.vals[a:b]},
+                timestamps=self.ts[a:b])
+
+        def snapshot_position(self):
+            return {"done": self.done}
+
+        def restore_position(self, pos):
+            self.done = pos["done"]
+
+    return JoinSideSource()
+
+
+JOIN_API_ROWS, JOIN_API_KEYS, JOIN_API_RATE, JOIN_API_BAND = \
+    500_000, 200_000, 100_000, 1_000
+
+
+def _interval_api_job(env):
+    left = env.add_source(_join_side_source(
+        1, "price", JOIN_API_ROWS, JOIN_API_KEYS, JOIN_API_RATE)).key_by("k")
+    right = env.add_source(_join_side_source(
+        2, "rate", JOIN_API_ROWS, JOIN_API_KEYS, JOIN_API_RATE)).key_by("k")
+    return left.interval_join(right).between(-JOIN_API_BAND, JOIN_API_BAND)
+
+
+def _pair_counts(batches):
+    """Multiset of whole output rows (floats by their bits)."""
+    import collections
+
+    rows = collections.Counter()
+    for b in batches:
+        names = sorted(b.names())
+        cols = [np.asarray(b[n]) for n in names]
+        cols = [c.view(np.uint32) if c.dtype == np.float32 else c
+                for c in cols]
+        rows.update(zip(*[c.tolist() for c in cols]))
+    return rows
+
+
+def join_public_api(torch, tmp: str, device: str) -> dict:
+    """15(d): the interval join through ``env.execute`` at
+    ``parallelism.default=8`` with ``join.mode=device``: its rows equal
+    ``join.mode=host``'s, its checkpoints on the card equal the CPU's."""
+    from flink_tpu_torch.benchmarks.joins import digest
+    from flink_tpu_torch.checkpoint.storage import read_checkpoint_chain
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    base = {"parallelism.default": 8, "execution.micro-batch.size": 1 << 15,
+            "state.slot-table.capacity": 1 << 16,
+            "execution.checkpointing.every-n-source-batches": 16,
+            "state.checkpoints.num-retained": 1000}
+    sinks, results, walls = {}, {}, {}
+    for tag, dev, mode in (("card", device, "device"),
+                           ("cpu", "cpu", "device"),
+                           ("host", "cpu", "host")):
+        sinks[tag] = CollectSink()
+        if tag == "card":
+            reset_counts()
+        results[tag], walls[tag] = _job(
+            torch, _interval_api_job, dev,
+            {**base, "join.mode": mode,
+             "state.checkpoints.dir": f"{tmp}/join-{tag}"}, sinks[tag])
+        if tag == "card":
+            launches = read_counts()
+    card_rows = _pair_counts(sinks["card"].batches)
+    if not card_rows or card_rows != _pair_counts(sinks["host"].batches):
+        raise AssertionError("phase 15(d): join.mode=device rows differ "
+                             "from join.mode=host's")
+    if [digest(b) for b in sinks["card"].batches] != \
+            [digest(b) for b in sinks["cpu"].batches]:
+        raise AssertionError("phase 15(d): card batches differ from the "
+                             "CPU's")
+    ids = sorted(int(d[4:]) for d in os.listdir(f"{tmp}/join-card")
+                 if d.startswith("chk-"))
+    if not ids:
+        raise AssertionError("phase 15(d): no checkpoint written")
+    for cid in ids:
+        diffs = _snap_diffs(
+            read_checkpoint_chain(f"{tmp}/join-card/chk-{cid}"),
+            read_checkpoint_chain(f"{tmp}/join-cpu/chk-{cid}"))
+        if diffs:
+            raise AssertionError(f"phase 15(d): checkpoint {cid} differs "
+                                 f"card vs CPU at {diffs[:5]}")
+    if device == "cuda" and launches["exchange_rank"] == 0:
+        raise AssertionError("phase 15(d): the rank kernel never launched")
+    return {"rows": sum(card_rows.values()), "checkpoints": len(ids),
+            "checkpoint_bytes": [c["bytes"] for c in
+                                 results["card"].metrics["checkpoints"]],
+            "events_per_s": 2 * JOIN_API_ROWS / walls["card"],
+            "host_mode_events_per_s": 2 * JOIN_API_ROWS / walls["host"],
+            "launches": launches}
+
+
+def join_q7(torch, records: int, device: str) -> dict:
+    """15(e): Nexmark Q7 at BASELINE row 3's settings
+    (``tools/bench_suite.py:103-135``: 10k auctions, 100k events/s of
+    event time, 2 s tumbling windows, micro-batches of 1<<16, state
+    capacity 1<<20, P=1): every window's (max_price, winners) against
+    ``oracle_q7``."""
+    import collections
+
+    from flink_tpu_torch.benchmarks.nexmark import (
+        BidSource,
+        build_q7,
+        oracle_q7,
+    )
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    size = 2_000
+
+    def source():
+        return BidSource(total_records=records, num_auctions=10_000,
+                         events_per_second_of_eventtime=100_000)
+
+    sink = CollectSink()
+    reset_counts()
+    result, wall = _job(torch, lambda env: build_q7(env, source(), size),
+                        device, {"execution.micro-batch.size": 1 << 16,
+                                 "state.slot-table.capacity": 1 << 20},
+                        sink)
+    launches = read_counts()
+    src = source()
+    src.open()
+    parts = []
+    while True:
+        b = src.poll_batch(1 << 20)
+        if b is None:
+            break
+        parts.append(b)
+    from flink_tpu_torch.core.records import RecordBatch, TIMESTAMP_FIELD
+
+    bids = RecordBatch.concat(parts)
+    want = oracle_q7(zip(bids["auction"].tolist(), bids["bidder"].tolist(),
+                         bids["price"].tolist(),
+                         bids[TIMESTAMP_FIELD].tolist()), size)
+    got = collections.defaultdict(list)
+    res = sink.result()
+    if res["max_price"].dtype != np.float32:
+        raise AssertionError("phase 15(e): max_price widened to "
+                             f"{res['max_price'].dtype}")
+    for w, a, bd, p, mx in zip(res["window_end"].tolist(),
+                               res["auction"].tolist(),
+                               res["bidder"].tolist(),
+                               res["price"].tolist(),
+                               res["max_price"].tolist()):
+        got[w].append((a, bd, p, mx))
+    bad = [w for w, (mx, winners) in want.items()
+           if {r[2] for r in got.get(w, ())} != {mx}
+           or {r[3] for r in got.get(w, ())} != {mx}
+           or sorted((r[0], r[1]) for r in got[w]) != sorted(winners)]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"phase 15(e): {len(bad)} of {len(want)} "
+                             f"windows differ from oracle_q7 (first "
+                             f"{sorted(bad)[:3]}), {len(set(got) ^ set(want))}"
+                             " windows fired on one side only")
+    if device == "cuda" and launches["ordered_fold"] == 0:
+        raise AssertionError("phase 15(e): the ordered fold never launched "
+                             "(the float32 window max)")
+    return {"records": records, "windows": len(want), "rows": len(res),
+            "events_per_s": records / wall, "wall_s": wall,
+            "window_fire_latency_ms": result.metrics.get(
+                "window_fire_latency_ms"),
+            "launches": launches}
+
+
+def phase_joins(torch, records: int = 4_000_000,
+                q7_records: int = 10_000_000, device: str = "cuda") -> dict:
+    """Phase 15: streaming joins on ``device`` (``"cpu"`` rehearses it on
+    a host without a card; (c) and (d) then compare the CPU with
+    itself)."""
+    import tempfile
+
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        # both kernels (15(e)'s float max folds through the ordered fold)
+        # are built before any timed run when the phase runs alone
+        cuda_build.build_all()
+    a = join_bench(torch, "q8", records, device)
+    b = join_bench(torch, "10m", records, device)
+    c = join_smoke_card_equals_cpu(torch, device)
+    with tempfile.TemporaryDirectory(prefix="join-") as tmp:
+        d = join_public_api(torch, tmp, device)
+    e = join_q7(torch, q7_records, device)
+    launches = {k: sum(x["launches"][k] for x in (a, b, d, e))
+                for k in a["launches"]}
+    for tag, r in (("15(a) Q8 shape", a), ("15(b) 10M-key shape", b)):
+        lat = r["emit_latency_ms"]
+        print(f"phase {tag}: {r['events']} records at "
+              f"{r['events_per_s']:.0f} events/s, emit latency p50 "
+              f"{lat['p50']:.2f} p99 {lat['p99']:.2f} ms over "
+              f"{lat['count']} batches, {r['matches']} matches in "
+              f"{r['batches_compared']} batches equal to the host backend's "
+              f"(which ran {r['host_backend']['events_per_s']:.0f} events/s)"
+              f", spill {r['spill']}, launches {r['launches']}")
+    print("phase 15(c): card == CPU at join_smoke's shape: " + "; ".join(
+        f"{k}: {v['batches']} batches ({v['matches']} matches), "
+        f"{v['snapshots']} snapshots, late {v['late_left_dropped']}, "
+        f"spill {v['spill']}" for k, v in c.items()))
+    print(f"phase 15(d): public interval join P=8: {d['rows']} rows equal "
+          f"to join.mode=host's, {d['checkpoints']} checkpoints equal card "
+          f"vs CPU (bytes {d['checkpoint_bytes']}), "
+          f"{d['events_per_s']:.0f} events/s (host mode "
+          f"{d['host_mode_events_per_s']:.0f}), launches {d['launches']}")
+    lat = e["window_fire_latency_ms"] or {}
+    print(f"phase 15(e): Q7 {e['records']} bids: {e['windows']} windows "
+          f"equal oracle_q7 ({e['rows']} rows), {e['events_per_s']:.0f} "
+          f"events/s, window fire p50 {lat.get('p50')} p99 {lat.get('p99')}"
+          f" ms, launches {e['launches']}")
+    out = {"q8": a, "thrash_10m": b, "join_smoke": c, "public_api": d,
+           "q7": e, "launches": launches}
+    print("joins " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -2287,6 +2677,11 @@ def main() -> int:
                     help="Q5-revenue records")
     ap.add_argument("--session-records", type=int, default=12_000_000,
                     help="BASELINE row 5 session records (12M: its size)")
+    ap.add_argument("--join-records", type=int, default=4_000_000,
+                    help="records of each join shape of phase 15 (4M: "
+                    "tools/bench_joins.py's size)")
+    ap.add_argument("--q7-records", type=int, default=10_000_000,
+                    help="Q7 bids (10M: BASELINE row 3's size)")
     args = ap.parse_args()
     import torch
 
@@ -2327,8 +2722,9 @@ def main() -> int:
     sessions = phase_sessions(torch, args.session_records)
     mesh_sessions = phase_mesh_sessions(torch)
     checkpoints = phase_checkpoints(torch, args.records, phase5=q5)
+    joins = phase_joins(torch, args.join_records, args.q7_records)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
-            mesh_sessions, checkpoints)
+            mesh_sessions, checkpoints, joins)
 
     kernels = [{
         "name": "exchange_rank",

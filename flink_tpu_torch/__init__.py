@@ -13,7 +13,11 @@ at ``parallelism.default > 1`` on a logical P-shard mesh on one device
 (the exchange rank as the hand-written CUDA kernel ``csrc/rank.cu``) and
 at parallelism 1 in the slot and pane layouts — and session windows at
 parallelism 1 and above over the paged spill tier; float folds run in
-stream order through the hand-written ``csrc/ordered_fold.cu``. Every
+stream order through the hand-written ``csrc/ordered_fold.cu``. Streaming
+joins run on the host operators or, with ``join.mode=device``, on the
+device interval and temporal join engines of ``joins/``; Nexmark Q7 runs
+through the host window join, its float32 window max on the ordered
+fold. Every
 engine checkpoints and restores in the reference's on-disk format
 (``checkpoint/``), and ``chaos/`` holds the fault points and the
 crash-restore-verify harness. The package imports neither ``jax`` nor anything of

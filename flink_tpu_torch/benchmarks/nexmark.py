@@ -1,8 +1,13 @@
-"""Nexmark Q5 (port of the Q5 part of ``flink_tpu/benchmarks/nexmark.py``).
+"""Nexmark Q5 and Q7 (port of the Q5 and Q7 part of
+``flink_tpu/benchmarks/nexmark.py``).
 
 Q5 (hot items): which auctions received the most bids in the last sliding
 window? HOP count per auction + per-window arg-max. A fired batch holds
 one whole window, so the arg-max is one vectorized pass over it.
+
+Q7 (highest bid): the bids whose price equals their tumbling window's
+maximum price: a window max joined back to the bids on the price, per
+window (a diamond: one source feeds both inputs of the window join).
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ import numpy as np
 from flink_tpu_torch.connectors.sources import Source, _splitmix64
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
-from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+from flink_tpu_torch.windowing.assigners import (
+    SlidingEventTimeWindows,
+    TumblingEventTimeWindows,
+)
 
 
 class BidSource(Source):
@@ -140,6 +148,44 @@ def build_q5(env, source: BidSource, size_ms: int = 10_000,
         .aggregate(CountAggregate(), fire_projector=projector)
         .map(_window_argmax("count"), name="hot_items_argmax")
     )
+
+
+def build_q7(env, source: BidSource, size_ms: int = 10_000):
+    """Q7 highest bid -> the bid rows achieving the per-window max price.
+    The window max stays float32 (its bits are the join key's), and the
+    join keys on the float price against ``max_price``."""
+    bids = env.from_source(
+        source, WatermarkStrategy.for_bounded_out_of_orderness(0))
+    bids = bids.map(lambda b: b.with_column(
+        "g", np.zeros(len(b), dtype=np.int64)), name="const_key")
+    maxes = (
+        bids.key_by("g")
+        .window(TumblingEventTimeWindows.of(size_ms))
+        .max("price")
+        .map(lambda b: b.drop("g"), name="drop_g")
+    )
+    return (
+        bids.join(maxes).where("price").equal_to("max_price")
+        .window(TumblingEventTimeWindows.of(size_ms))
+        .apply(name="q7_join")
+    )
+
+
+def oracle_q7(bids, size_ms):
+    """bids: iterable of (auction, bidder, price, ts). Returns
+    {window_end: (max_price, [(auction, bidder)])} — plain Python, for
+    tests."""
+    import collections
+
+    per_w = collections.defaultdict(list)
+    for auction, bidder, price, ts in bids:
+        w = ts - (ts % size_ms) + size_ms
+        per_w[w].append((auction, bidder, price))
+    out = {}
+    for w, rows in per_w.items():
+        mx = max(r[2] for r in rows)
+        out[w] = (mx, [(a, b) for a, b, p in rows if p == mx])
+    return out
 
 
 def oracle_q5(bids, size_ms, slide_ms):

@@ -3,7 +3,9 @@
 
 One thread owns the whole dataflow: sources are polled round-robin into
 micro-batches, each batch is pushed depth-first through the operator DAG,
-watermarks are min-merged per operator input. Window fires dispatched
+watermarks are min-merged per operator input (a two-input operator, a
+join, sees the smaller of its inputs' watermarks; one upstream may feed
+several children, as Q7's source feeds both sides of its join). Window fires dispatched
 asynchronously are harvested once their results land; until then the
 operator's output watermark is held back, so a watermark never overtakes
 the results it covers. With ``latency.fire-deadline-ms`` a source batch is

@@ -94,6 +94,17 @@ class DeploymentOptions:
         "(default) ranks, exchanges and scatters the records on the "
         "device (flink_tpu_torch/parallel/shuffle.py). 'host' is not "
         "ported yet.")
+    JOIN_MODE = ConfigOption(
+        "join.mode", default="host", type=str,
+        description="Execution plane for the DataStream interval join "
+        "(KeyedStream.interval_join().between(), INNER): 'host' "
+        "(default) buffers sides as columnar batches in host numpy "
+        "(runtime/join_operators.py); 'device' runs the join over dual "
+        "keyed row tables on the logical mesh of execution.device: both "
+        "inputs ride the device exchange co-partitioned by key group, and "
+        "a banded probe program gathers each batch's candidates "
+        "(flink_tpu_torch/joins/). A failure on the device path fails the "
+        "job; it never continues on the host operator.")
 
 
 class StateOptions:

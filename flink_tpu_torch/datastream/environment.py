@@ -34,6 +34,17 @@ class StreamExecutionEnvironment:
     def state_slot_capacity(self) -> int:
         return self.config.get(StateOptions.SLOT_CAPACITY)
 
+    @property
+    def state_spill_options(self) -> dict:
+        """The spill tier's options handed to keyed-state operators."""
+        return {
+            "max_device_slots": self.config.get(
+                StateOptions.MAX_DEVICE_SLOTS),
+            "spill_dir": self.config.get(StateOptions.SPILL_DIR),
+            "spill_host_max_bytes": self.config.get(
+                StateOptions.SPILL_HOST_MAX_BYTES),
+        }
+
     def add_source(self, source, watermark_strategy: Optional[
             WatermarkStrategy] = None, name: Optional[str] = None):
         from flink_tpu_torch.datastream.stream import DataStream

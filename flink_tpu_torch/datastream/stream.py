@@ -1,13 +1,16 @@
-"""The DataStream fluent API (port of the Q5 and session surface of
+"""The DataStream fluent API (port of the Q5, session and join surface of
 ``flink_tpu/datastream/stream.py``): map, key_by, window — aligned or
 merging (sessions) —, aggregate and its shorthands (sum, count, max, min,
-avg), and sinks. Each method builds
-``Transformation`` nodes that the executor turns into batched operators."""
+avg), the window join (``join().where().equal_to().window().apply()``),
+the interval join (``interval_join().between()``) and sinks. Each method
+builds ``Transformation`` nodes that the executor turns into batched
+operators."""
 
 from __future__ import annotations
 
 from typing import TYPE_CHECKING, Callable, Optional
 
+from flink_tpu_torch.core.config import DeploymentOptions
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.graph.transformations import Transformation
 from flink_tpu_torch.runtime.operators import (
@@ -54,6 +57,11 @@ class DataStream:
         return DataStream(self.env, self._one_input(
             name, lambda: MapOperator(fn)))
 
+    def join(self, other: "DataStream") -> "JoinedStreams":
+        """Window equi-join builder:
+        ``a.join(b).where(f).equal_to(g).window(assigner).apply()``."""
+        return JoinedStreams(self, other)
+
     def key_by(self, key_field: str) -> "KeyedStream":
         t = self._one_input(f"key_by({key_field})",
                             lambda: KeyByOperator(key_field),
@@ -82,6 +90,97 @@ class KeyedStream(DataStream):
 
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
+
+    def interval_join(self, other: "KeyedStream") -> "IntervalJoinBuilder":
+        """Keyed interval join with ``other`` (INNER)."""
+        return IntervalJoinBuilder(self, other)
+
+
+class JoinedStreams:
+    def __init__(self, left: DataStream, right: DataStream):
+        self.left = left
+        self.right = right
+        self.left_key: Optional[str] = None
+        self.right_key: Optional[str] = None
+
+    def where(self, left_key: str) -> "JoinedStreams":
+        self.left_key = left_key
+        return self
+
+    def equal_to(self, right_key: str) -> "JoinedStreams":
+        self.right_key = right_key
+        return self
+
+    def window(self, assigner: WindowAssigner) -> "WindowedJoin":
+        if self.left_key is None or self.right_key is None:
+            raise ValueError(
+                "call .where(left_key).equal_to(right_key) before .window()")
+        return WindowedJoin(self, assigner)
+
+
+class WindowedJoin:
+    def __init__(self, joined: JoinedStreams, assigner: WindowAssigner):
+        self.joined = joined
+        self.assigner = assigner
+
+    def apply(self, suffixes=("_l", "_r"), name: str = "window_join"
+              ) -> DataStream:
+        from flink_tpu_torch.runtime.join_operators import WindowJoinOperator
+
+        j = self.joined
+        left_keyed = j.left.key_by(j.left_key).transformation
+        right_keyed = j.right.key_by(j.right_key).transformation
+        assigner = self.assigner
+        key_fields = (j.left_key, j.right_key)
+        t = Transformation(
+            name=name, kind="two_input",
+            operator_factory=lambda: WindowJoinOperator(
+                assigner, suffixes, key_fields=key_fields),
+            inputs=[left_keyed, right_keyed], keyed=True)
+        return DataStream(j.left.env, t)
+
+
+class IntervalJoinBuilder:
+    def __init__(self, left: KeyedStream, right: KeyedStream):
+        self.left = left
+        self.right = right
+
+    def between(self, lower_ms: int, upper_ms: int,
+                suffixes=("_l", "_r")) -> DataStream:
+        """``join.mode=device`` runs the join on the device row tables of
+        a logical mesh of the operator's parallelism
+        (``DeviceIntervalJoinOperator``); ``host`` (the default) on the
+        host operator."""
+        env = self.left.env
+        mode = env.config.get(DeploymentOptions.JOIN_MODE)
+        if mode == "device":
+            from flink_tpu_torch.joins.operators import (
+                DeviceIntervalJoinOperator,
+            )
+
+            capacity = env.state_slot_capacity
+            spill = env.state_spill_options
+            factory = lambda: DeviceIntervalJoinOperator(  # noqa: E731
+                lower_ms, upper_ms, suffixes, capacity=capacity,
+                max_device_slots=spill["max_device_slots"],
+                spill_dir=spill["spill_dir"],
+                spill_host_max_bytes=spill["spill_host_max_bytes"])
+        elif mode == "host":
+            from flink_tpu_torch.runtime.join_operators import (
+                IntervalJoinOperator,
+            )
+
+            factory = lambda: IntervalJoinOperator(  # noqa: E731
+                lower_ms, upper_ms, suffixes)
+        else:
+            raise ValueError(
+                f"join.mode must be 'host' or 'device', got {mode!r}")
+        t = Transformation(
+            name="interval_join", kind="two_input",
+            operator_factory=factory,
+            inputs=[self.left.transformation, self.right.transformation],
+            keyed=True)
+        return DataStream(env, t)
 
 
 class WindowedStream:

@@ -15,7 +15,7 @@ _ids = itertools.count(1)
 @dataclasses.dataclass
 class Transformation:
     name: str
-    kind: str  # 'source' | 'one_input' | 'sink'
+    kind: str  # 'source' | 'one_input' | 'two_input' | 'sink'
     operator_factory: Optional[Callable[[], Any]] = None
     inputs: List["Transformation"] = dataclasses.field(default_factory=list)
     #: None = unset -> the executor applies `parallelism.default` to keyed

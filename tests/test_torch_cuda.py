@@ -6,9 +6,10 @@ GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the rank and Count are integers, bit-identical; Q5's rows are
-counts, equal; the ordered fold, its grouping, the slice merge and the
-float32 Sum job are compared on their raw bits against the CPU (NaN
-payloads included).
+counts, equal; the join engines' batches, snapshots and planes are
+compared byte for byte; the ordered fold, its grouping, the slice merge
+and the float32 Sum job are compared on their raw bits against the CPU
+(NaN payloads included).
 """
 
 import numpy as np
@@ -924,3 +925,64 @@ def test_snapshots_and_restore_on_card_equal_cpu(kind):
     assert len(rows[0]["__key_id__"]) > 0
     for name, col in rows[1].items():
         assert rows[0][name].tobytes() == col.tobytes(), name
+
+
+# ------------------------------------------------------------------ joins
+
+def _mixed_columns(rng, b):
+    """int32 and bool columns beside the float32 one on the planes, and
+    an int64 one on the host shadow."""
+    n = len(b)
+    return b.with_column("i", rng.integers(-9, 9, n).astype(np.int32)) \
+        .with_column("f", rng.random(n) < 0.5) \
+        .with_column("id", rng.integers(0, 1 << 62, n))
+
+
+def _join_smoke_run(kind, device):
+    """One join engine at tools/join_smoke.py's shape, as
+    ``chip_smoke.py`` phase 15(c) runs it; "mixed" is the interval
+    engine with :func:`_mixed_columns` under the same forced eviction."""
+    import chip_smoke
+
+    if kind == "mixed":
+        return chip_smoke._js_run("interval", device, extra=_mixed_columns)
+    return chip_smoke._js_run(kind, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["interval", "temporal", "mixed"])
+def test_join_engines_on_card_equal_cpu(kind):
+    """Both join engines at join_smoke's shape (the interval engine also
+    with int32, bool and int64 columns beside the float32 one): every
+    emitted batch (in order, bit for bit), every snapshot, every value
+    plane outside slot 0, the spill counters and the late-row count equal
+    card vs CPU; the interval join's band reaches
+    into the page tier, and its ingest launched the rank kernel."""
+    _need_card()
+    from flink_tpu_torch.stateplane.rank import rank
+
+    before = rank.launches
+    card, card_snaps, ce = _join_smoke_run(kind, "cuda")
+    launched = rank.launches - before
+    cpu, cpu_snaps, pe = _join_smoke_run(kind, "cpu")
+    assert len(card) == len(cpu) and sum(len(b) for b in card) > 0
+    for a, b in zip(card, cpu):
+        assert sorted(a.names()) == sorted(b.names())
+        for n in a.names():
+            x, y = np.asarray(a[n]), np.asarray(b[n])
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), n
+    for a, b in zip(card_snaps, cpu_snaps):
+        _snap_equal(a, b)
+    # every value plane equal outside the scratch slot 0
+    for side in (0, 1):
+        for a, b in zip(ce._planes[side] or (), pe._planes[side] or ()):
+            assert a.shape == b.shape
+            assert a[:, 1:].cpu().numpy().tobytes() == \
+                b[:, 1:].numpy().tobytes()
+    assert ce.spill_counters() == pe.spill_counters()
+    assert launched > 0
+    if kind != "temporal":
+        sc = ce.spill_counters()
+        assert sc["rows_evicted"] > 0 and sc["cold_rows_served"] > 0
+    else:
+        assert ce.late_left_dropped == pe.late_left_dropped
