@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (flink_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--records N] [--revenue-records N]
-        [--session-records N]
+        [--session-records N] [--join-records N] [--q7-records N]
+        [--cep-records N]
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -175,13 +176,41 @@ Phases, each fatal on failure (no result line is printed then):
     still float32; events/s and window-fire latency printed.
     ``python3 -c 'import torch, chip_smoke; chip_smoke.phase_joins(torch)'``
     runs phase 15 alone.
+16. CEP: (a) the ``cep_patterns_10m_keys`` row of ``tools/bench_cep.py``
+    (a 2-stage within-2 s sequence over 10M keys at 400k events/s of
+    event time, 4M records in batches of 1<<15, P=8, 1<<14 slots a shard
+    against ~260k live partials, spill to a temp dir) through
+    ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<19
+    records equal, batch for batch (by digest), to the same engine with
+    ``backend="host"``; every match of the 4M records equal, as a sorted
+    multiset, to a NumPy oracle written here; rows evicted and reloaded
+    > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
+    the host backend's events/s, and the NFA advance per fire (calls,
+    synchronised wall ms p50/p99, and on one fire's inputs captured
+    mid-run its CUDA-event ms, device ms and device kernels per call,
+    card == CPU on them); (b) ``tools/cep_smoke.py``'s shapes (P=8, 256
+    slots a shard: the 3-stage within-50 sequence under both skips, the
+    always-alive pattern over 20k keys with spill), the consecutive
+    ``times(2, 3)`` loop and the two widest layouts (Q=29 with R=7 and
+    R=29) on the card and the CPU: every batch, the spill counters,
+    ``query_match_batch``, every plane outside slot 0 and the snapshot
+    equal; (c) a snapshot of (a)'s engine mid-stream on the card restored
+    into fresh engines on the card and on the CPU, both continuations
+    equal to the uninterrupted run (snapshot bytes, restore ms); (d) a
+    ``Transformation`` whose factory is ``MeshCepOperator`` through
+    ``env.execute`` at ``parallelism.default=8`` with a checkpoint every
+    2 source batches: rows equal, in order, to
+    ``CEP.pattern(keyed, p).select()``'s (the host operator).
+    ``python3 -c 'import torch, chip_smoke; chip_smoke.phase_cep(torch)'``
+    runs phase 16 alone.
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
-15(a), 15(b), the card run of 15(d) and 15(e), and read just after; each
-phase fails if a kernel of its path did not launch (the rank at
-parallelism 8; the ordered fold in phases 6, 8, 11, 12, 13, 14(b) and
-15(e), Count being an integer fold).
+15(a), 15(b), the card run of 15(d) and 15(e), 16(a), each card run of
+16(b) and the card run of 16(d), and read just after; each phase fails if
+a kernel of its path did not launch (the rank at parallelism 8; the
+ordered fold in phases 6, 8, 11, 12, 13, 14(b) and 15(e), Count being an
+integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -2669,6 +2698,451 @@ def phase_joins(torch, records: int = 4_000_000,
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: tools/cep_smoke.py's shape: steps of BATCH records, dense and churn key
+#: spaces, slots a shard
+CS_STEPS, CS_BATCH, CS_DENSE, CS_CHURN, CS_BUDGET = 12, 256, 40, 20_000, 256
+
+
+def _cep_patterns():
+    """16(b)'s patterns, by name: tools/cep_smoke.py's 3-stage within-50
+    sequence under both skips and its always-alive churn pattern, the
+    ``times(2, 3).consecutive()`` loop of tests/test_mesh_cep.py:121 and
+    the two widest layouts (Q=29 with R=7 and with R=29)."""
+    from flink_tpu_torch.cep.pattern import AfterMatchSkipStrategy as S
+    from flink_tpu_torch.cep.pattern import Pattern
+
+    def v(b):
+        return np.asarray(b["v"])
+
+    def seq3(skip):
+        return (Pattern.begin("a", skip=skip).where(lambda b: v(b) % 3 == 0)
+                .next("b").where(lambda b: v(b) % 3 == 1)
+                .next("c").where(lambda b: v(b) % 3 == 2).within(50))
+
+    return {
+        "seq3_skip_past": seq3(S.SKIP_PAST_LAST_EVENT),
+        "seq3_no_skip": seq3(S.NO_SKIP),
+        "churn": (Pattern.begin("a", skip=S.SKIP_PAST_LAST_EVENT)
+                  .next("b").where(lambda b: v(b) == 7)),
+        "times_loop": (Pattern.begin("a", skip=S.NO_SKIP)
+                       .where(lambda b: v(b) < 5).times(2, 3).consecutive()
+                       .next("end").where(lambda b: v(b) >= 7).within(60)),
+        "wide_q29_r7": (Pattern.begin("a", skip=S.NO_SKIP)
+                        .where(lambda b: v(b) % 3 == 0)
+                        .times(1, 3).consecutive()
+                        .next("b").where(lambda b: v(b) % 3 == 1)
+                        .times(1, 3).consecutive()
+                        .next("c").where(lambda b: v(b) % 3 == 2)
+                        .times(1, 2).consecutive().within(100)),
+        "wide_q29_r29": (Pattern.begin("a", skip=S.NO_SKIP)
+                         .where(lambda b: v(b) < 8)
+                         .times(1, 30).consecutive()),
+    }
+
+
+def _cs_steps(seed: int, n_keys: int):
+    """tools/cep_smoke.py's stream: (keys, values, timestamps, watermark)."""
+    rng = np.random.default_rng(seed)
+    ts, out = 0, []
+    for _ in range(CS_STEPS):
+        keys = rng.integers(0, n_keys, size=CS_BATCH).astype(np.int64)
+        vals = rng.integers(0, 9, size=CS_BATCH).astype(np.int64)
+        tss = ts + np.sort(rng.integers(0, 30, size=CS_BATCH)).astype(
+            np.int64)
+        ts += 25
+        out.append((keys, vals, tss, ts - 5))
+    return out
+
+
+def _cep_smoke_run(case: str, device: str):
+    """One engine at tools/cep_smoke.py's shape (P=8, 256 slots a shard;
+    the churn case over 20k keys with a spill dir): its batches, its
+    snapshot after the last step and the engine."""
+    import tempfile
+
+    from flink_tpu_torch.cep.mesh_engine import MeshCepEngine
+    from flink_tpu_torch.core.records import RecordBatch
+
+    churn = case == "churn"
+    stream = _cs_steps(7 if case.startswith("seq3") else 11,
+                       CS_CHURN if churn else CS_DENSE)
+    out = []
+    with tempfile.TemporaryDirectory(prefix="cep-smoke-") as td:
+        eng = MeshCepEngine(_cep_patterns()[case], key_field="k",
+                            num_shards=8, device=device,
+                            capacity_per_shard=CS_BUDGET,
+                            spill_dir=td if churn else None)
+        for keys, vals, tss, wm in stream:
+            out += eng.process_batch(RecordBatch.from_pydict(
+                {"k": keys, "v": vals, "__key_id__": keys}, timestamps=tss))
+            out += eng.on_watermark(wm)
+        snap = eng.snapshot()
+    return out, snap, eng
+
+
+def cep_card_equals_cpu(torch, device: str) -> dict:
+    """16(b): every case of :func:`_cep_patterns` on the card and on the
+    CPU: every emitted batch in order, the spill counters,
+    ``query_match_batch`` over the dense keys, every plane outside slot 0
+    and the snapshot equal."""
+    from flink_tpu_torch.benchmarks.joins import digest
+
+    out = {}
+    for case in _cep_patterns():
+        reset_counts()
+        card, card_snap, ce = _cep_smoke_run(case, device)
+        launches = read_counts()
+        cpu, cpu_snap, pe = _cep_smoke_run(case, "cpu")
+        if [digest(b) for b in card] != [digest(b) for b in cpu]:
+            raise AssertionError(f"phase 16(b) {case}: batches differ card "
+                                 "vs CPU")
+        if not card:
+            raise AssertionError(f"phase 16(b) {case}: no match")
+        diffs = _snap_diffs(card_snap, cpu_snap)
+        if diffs:
+            raise AssertionError(f"phase 16(b) {case}: snapshot differs at "
+                                 f"{diffs[:5]}")
+        for what, a_pl, b_pl in (("state", ce._planes, pe._planes),
+                                 ("pending", ce._pend, pe._pend),
+                                 ("match", ce._match_planes,
+                                  pe._match_planes)):
+            for a, b in zip(a_pl, b_pl):
+                if a.shape != b.shape or a[:, 1:].cpu().numpy().tobytes() \
+                        != b[:, 1:].numpy().tobytes():
+                    raise AssertionError(f"phase 16(b) {case}: a {what} "
+                                         "plane differs outside slot 0")
+        q = np.arange(CS_DENSE, dtype=np.int64)
+        if ce.query_match_batch(q) != pe.query_match_batch(q):
+            raise AssertionError(f"phase 16(b) {case}: query_match_batch "
+                                 "differs")
+        sc = ce.spill_counters()
+        if sc != pe.spill_counters():
+            raise AssertionError(f"phase 16(b) {case}: spill counters {sc} "
+                                 f"vs {pe.spill_counters()}")
+        if case == "churn" and (sc["rows_evicted"] == 0
+                                or sc["rows_reloaded"] == 0):
+            raise AssertionError(f"phase 16(b): churn did not spill ({sc})")
+        if device == "cuda" and launches["exchange_rank"] == 0:
+            raise AssertionError(f"phase 16(b) {case}: the rank kernel "
+                                 "never launched")
+        lay = ce._layout
+        out[case] = {"batches": len(card),
+                     "matches": sum(len(b) for b in card),
+                     "Q": lay.n_states, "R": lay.ring, "spill": sc,
+                     "launches": launches}
+    return out
+
+
+def cep_oracle(records: int):
+    """Every match of the bench row's stream, as a sorted list of
+    ``(key, start_ts, end_ts)``: per key in stream order, consecutive
+    events ``e_i, e_{i+1}`` with ``v_i % 3 == 0``, ``v_{i+1} % 3 == 1``
+    and ``ts_{i+1} - ts_i <= WITHIN_MS`` (no two overlap under
+    SKIP_PAST_LAST_EVENT: no event matches both stages)."""
+    from flink_tpu_torch.benchmarks import cep
+
+    parts = list(cep.stream(records))
+    keys = np.concatenate([p[0] for p in parts])
+    vals = np.concatenate([p[1] for p in parts])
+    ts = np.concatenate([p[2] for p in parts])
+    o = np.argsort(keys, kind="stable")
+    k, v, t = keys[o], vals[o], ts[o]
+    hit = ((k[1:] == k[:-1]) & (v[:-1] % 3 == 0) & (v[1:] % 3 == 1)
+           & (t[1:] - t[:-1] <= cep.WITHIN_MS))
+    i = np.nonzero(hit)[0]
+    return sorted(zip(k[i].tolist(), t[i].tolist(), t[i + 1].tolist()))
+
+
+def device_profile_per_call(fn, iters: int) -> dict:
+    """Device time and device kernels per call of ``fn`` by torch.profiler
+    over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_ms": sum(ev.time_range.elapsed_us() for ev in evs)
+            / 1e3 / iters if evs else None,
+            "kernels": len(evs) / iters if evs else None}
+
+
+def cep_bench(torch, records: int, device: str) -> dict:
+    """16(a): ``benchmarks/cep.py``'s row on ``device``, every match of
+    the run against :func:`cep_oracle`, the advance timed per fire in the
+    run (wall ms, synchronised) and alone on one fire's inputs captured
+    mid-run (CUDA events, device ms and kernels per call by
+    torch.profiler, card == CPU on them); then the row's check against
+    the host backend."""
+    from flink_tpu_torch.benchmarks import cep
+    from flink_tpu_torch.cep import kernels
+
+    plain = kernels.cep_advance
+    adv_ms, captured = [], {}
+    # a fire a third into the run: steady state, spill engaged
+    capture_at = records // cep.BATCH // 3
+
+    def timed(planes, pending, slots, idx, wok, nev, tables, steps=None):
+        if len(adv_ms) == capture_at:
+            captured.update(
+                planes=[x.clone() for x in planes],
+                pending=[x.clone() for x in pending], slots=slots.clone(),
+                idx=idx.clone(), wok=wok.clone(), nev=nev.clone(),
+                tables=tables, steps=steps)
+        t0 = time.perf_counter()
+        out = plain(planes, pending, slots, idx, wok, nev, tables,
+                    steps=steps)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        adv_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    got: list = []
+    kernels.cep_advance = timed
+    try:
+        reset_counts()
+        r = cep.run(records, device, matches_out=got, host_records=0)
+    finally:
+        kernels.cep_advance = plain
+    r["check"] = cep.check(records, device)
+    r["launches"] = read_counts()
+    if not r["check"]["equal_to_host_backend"]:
+        raise AssertionError(
+            f"phase 16(a): differs from the host backend at batch "
+            f"{r['check']['first_divergent_batch']} of "
+            f"{r['check']['batches_compared']}")
+    want = cep_oracle(records)
+    if sorted(got) != want or not want:
+        raise AssertionError(f"phase 16(a): {len(got)} matches, the oracle "
+                             f"{len(want)}; {len(set(got) ^ set(want))} "
+                             "differ")
+    sp = r["spill"]
+    if sp["rows_evicted"] == 0 or sp["rows_reloaded"] == 0:
+        raise AssertionError(f"phase 16(a): the page tier was not used ({sp})")
+    if device == "cuda" and r["rank_launches"] != r["batches"]:
+        raise AssertionError(
+            f"phase 16(a): {r['rank_launches']} rank launches for "
+            f"{r['batches']} ingest batches (one each expected)")
+    srt = sorted(adv_ms)
+    r["advance"] = {"calls": len(adv_ms),
+                    "wall_ms_p50": srt[len(srt) // 2],
+                    "wall_ms_p99": srt[min(len(srt) - 1,
+                                           int(0.99 * len(srt)))],
+                    "wall_s": sum(adv_ms) / 1e3}
+    c = captured
+    P, K, E = c["idx"].shape
+    r["advance"]["captured"] = {"P": P, "K": K, "E": E, "steps": c["steps"],
+                                "lanes": int((c["slots"] != 0).sum())}
+
+    def call(dev):
+        planes = [x.clone().to(dev) for x in c["planes"]]
+        m, a = plain(planes, [x.to(dev) for x in c["pending"]],
+                     c["slots"].to(dev), c["idx"].to(dev), c["wok"].to(dev),
+                     c["nev"].to(dev), kernels.AdvanceTables.build(
+                         c["tables"].layout, torch.device(dev)),
+                     steps=c["steps"])
+        return [m, a, *planes]
+
+    cpu = [x.numpy() for x in call("cpu")]
+    if device == "cuda":
+        card = [x.cpu().numpy() for x in call("cuda")]
+        if any(x.tobytes() != y.tobytes() for x, y in zip(card, cpu)):
+            raise AssertionError("phase 16(a): the captured advance on the "
+                                 "card differs from the CPU")
+        args = ([x.clone() for x in c["planes"]], c["pending"], c["slots"],
+                c["idx"], c["wok"], c["nev"], c["tables"])
+
+        def fn():
+            plain(*args, steps=c["steps"])
+
+        r["advance"]["captured"].update(
+            ms=cuda_ms(fn, 50), **device_profile_per_call(fn, 20))
+    return r
+
+
+def cep_checkpoint(torch, device: str, records: int = 1 << 19,
+                   at: int = 11) -> dict:
+    """16(c): the bench row's engine (P=8, 1<<14 slots a shard, spill to a
+    temp dir) over ``records``: a snapshot on ``device`` after batch
+    ``at``, restored into a fresh engine on ``device`` and into one on the
+    CPU; both continuations equal the uninterrupted run's batches."""
+    import pickle
+    import tempfile
+
+    from flink_tpu_torch.benchmarks import cep
+    from flink_tpu_torch.benchmarks.joins import digest
+    from flink_tpu_torch.core.records import (
+        KEY_ID_FIELD,
+        TIMESTAMP_FIELD,
+        RecordBatch,
+    )
+
+    def feed(eng, part, sink):
+        for keys, vals, ts in part:
+            eng.process_batch(RecordBatch({KEY_ID_FIELD: keys, "v": vals,
+                                           TIMESTAMP_FIELD: ts}))
+            sink += [digest(b) for b in
+                     eng.on_watermark(int(ts[-1]) + 1 - cep.WM_LAG_MS)]
+
+    batches = list(cep.stream(records))
+    with tempfile.TemporaryDirectory(prefix="cep-ckpt-") as td:
+        whole: list = []
+        eng = cep.make_engine(device, spill_dir=f"{td}/a")
+        feed(eng, batches[:at + 1], whole)
+        snap = eng.snapshot()
+        cut = len(whole)
+        feed(eng, batches[at + 1:], whole)
+        out = {"snapshot_bytes": len(pickle.dumps(snap)),
+               "spill_at_snapshot": snap["spill"], "restore_ms": {}}
+        for dev in dict.fromkeys((device, "cpu")):
+            e2 = cep.make_engine(dev, spill_dir=f"{td}/{dev}")
+            t0 = time.perf_counter()
+            e2.restore(snap)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out["restore_ms"][dev] = (time.perf_counter() - t0) * 1e3
+            cont: list = []
+            feed(e2, batches[at + 1:], cont)
+            if cont != whole[cut:] or not cont:
+                raise AssertionError(f"phase 16(c): the run restored on "
+                                     f"{dev} differs from the uninterrupted"
+                                     " one")
+    out["batches_after_restore"] = len(whole) - cut
+    return out
+
+
+def _cep_source(records: int):
+    """The bench row's stream as a source (key column ``k``), its
+    position the batches emitted."""
+    from flink_tpu_torch.benchmarks import cep
+    from flink_tpu_torch.connectors.sources import CollectionSource
+    from flink_tpu_torch.core.records import RecordBatch
+
+    return CollectionSource([RecordBatch.from_pydict(
+        {"k": keys, "v": vals}, timestamps=ts)
+        for keys, vals, ts in cep.stream(records)])
+
+
+def cep_public_api(torch, tmp: str, device: str,
+                   records: int = 1 << 17) -> dict:
+    """16(d): a ``Transformation`` whose factory is ``MeshCepOperator`` (as
+    ``flink_tpu/table/planner.py:377-381`` builds one) through
+    ``env.execute`` at ``parallelism.default=8`` with a checkpoint every 2
+    source batches: its rows equal, in order, those of the same job
+    through ``CEP.pattern(keyed, p).select()`` (the host operator)."""
+    from flink_tpu_torch.benchmarks import cep
+    from flink_tpu_torch.benchmarks.joins import digest
+    from flink_tpu_torch.cep import CEP, MeshCepOperator
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.datastream.stream import DataStream
+    from flink_tpu_torch.graph.transformations import Transformation
+
+    def build(device_op):
+        def job(env):
+            keyed = env.from_source(_cep_source(records)).key_by("k")
+            if not device_op:
+                return CEP.pattern(keyed, cep.pattern()).select()
+            return DataStream(env, Transformation(
+                name="match_recognize", kind="one_input",
+                operator_factory=lambda: MeshCepOperator(
+                    cep.pattern(), key_field="k", capacity=cep.BUDGET),
+                inputs=[keyed.transformation], keyed=True, key_field="k"))
+        return job
+
+    base = {"parallelism.default": 8, "execution.micro-batch.size": 1 << 15,
+            "execution.checkpointing.every-n-source-batches": 2,
+            "state.checkpoints.num-retained": 1000}
+    sinks, results, walls = {}, {}, {}
+    for tag, dev, device_op in (("device", device, True),
+                                ("host", "cpu", False)):
+        sinks[tag] = CollectSink()
+        if tag == "device":
+            reset_counts()
+        results[tag], walls[tag] = _job(
+            torch, build(device_op), dev,
+            {**base, "state.checkpoints.dir": f"{tmp}/cep-{tag}"},
+            sinks[tag])
+        if tag == "device":
+            launches = read_counts()
+    got = [digest(b) for b in sinks["device"].batches]
+    if not got or got != [digest(b) for b in sinks["host"].batches]:
+        raise AssertionError("phase 16(d): MeshCepOperator's rows differ "
+                             "from CEP.pattern().select()'s")
+    ckpts = results["device"].metrics["checkpoints"]
+    if not ckpts:
+        raise AssertionError("phase 16(d): no checkpoint written")
+    if device == "cuda" and launches["exchange_rank"] == 0:
+        raise AssertionError("phase 16(d): the rank kernel never launched")
+    return {"records": records,
+            "rows": sum(len(b) for b in sinks["device"].batches),
+            "checkpoints": len(ckpts),
+            "checkpoint_bytes": [x["bytes"] for x in ckpts],
+            "events_per_s": records / walls["device"],
+            "host_operator_events_per_s": records / walls["host"],
+            "launches": launches}
+
+
+def phase_cep(torch, records: int = 4_000_000, device: str = "cuda") -> dict:
+    """Phase 16: CEP on ``device`` (``"cpu"`` rehearses it on a host
+    without a card; (b) and (c) then compare the CPU with itself)."""
+    import tempfile
+
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    t0 = time.perf_counter()
+    a = cep_bench(torch, records, device)
+    b = cep_card_equals_cpu(torch, device)
+    c = cep_checkpoint(torch, device)
+    with tempfile.TemporaryDirectory(prefix="cep-") as tmp:
+        d = cep_public_api(torch, tmp, device)
+    launches = {k: a["launches"][k] + d["launches"][k]
+                + sum(v["launches"][k] for v in b.values())
+                for k in a["launches"]}
+    lat, adv = a["emit_latency_ms"], a["advance"]
+    where = card_line() if device == "cuda" else "cpu"
+    print(f"phase 16(a) cep_patterns_10m_keys ({where}): "
+          f"{a['events']} records at {a['events_per_s']:.0f} events/s, emit "
+          f"latency p50 {lat['p50']:.2f} p99 {lat['p99']:.2f} ms over "
+          f"{lat['count']} fires, {a['matches']} matches equal to the NumPy "
+          f"oracle, first {a['check']['records']} records in "
+          f"{a['check']['batches_compared']} batches equal to the host "
+          f"backend ({a['check']['host_backend']['events_per_s']:.0f} "
+          f"events/s), "
+          f"spill {a['spill']}, {a['rank_launches']} rank launches for "
+          f"{a['batches']} ingest batches (launches with the check's run "
+          f"{a['launches']})")
+    print(f"phase 16(a) advance: {adv['calls']} calls, wall p50 "
+          f"{adv['wall_ms_p50']:.3f} p99 {adv['wall_ms_p99']:.3f} ms "
+          f"(synchronised), {adv['wall_s']:.3f} s of {a['wall_s']:.3f} s; "
+          f"captured fire {adv['captured']}")
+    print("phase 16(b): card == CPU at cep_smoke's shapes: " + "; ".join(
+        f"{k} (Q={v['Q']}, R={v['R']}): {v['batches']} batches "
+        f"({v['matches']} matches), spill rows evicted "
+        f"{v['spill']['rows_evicted']}" for k, v in b.items()))
+    print(f"phase 16(c): snapshot of {c['snapshot_bytes']} B (spill "
+          f"{c['spill_at_snapshot']}), restore ms {c['restore_ms']}, "
+          f"{c['batches_after_restore']} batches after it equal the "
+          f"uninterrupted run on {sorted(c['restore_ms'])}")
+    print(f"phase 16(d): MeshCepOperator P=8 through env.execute: "
+          f"{d['rows']} rows equal to CEP.pattern().select()'s, "
+          f"{d['checkpoints']} checkpoints (bytes {d['checkpoint_bytes']}), "
+          f"{d['events_per_s']:.0f} events/s (host operator "
+          f"{d['host_operator_events_per_s']:.0f}), launches {d['launches']}")
+    out = {"bench": a, "cep_smoke": b, "checkpoint": c, "public_api": d,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    print("cep " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -2682,6 +3156,9 @@ def main() -> int:
                     "tools/bench_joins.py's size)")
     ap.add_argument("--q7-records", type=int, default=10_000_000,
                     help="Q7 bids (10M: BASELINE row 3's size)")
+    ap.add_argument("--cep-records", type=int, default=4_000_000,
+                    help="records of phase 16's CEP row (4M: "
+                    "tools/bench_cep.py's size)")
     args = ap.parse_args()
     import torch
 
@@ -2723,8 +3200,9 @@ def main() -> int:
     mesh_sessions = phase_mesh_sessions(torch)
     checkpoints = phase_checkpoints(torch, args.records, phase5=q5)
     joins = phase_joins(torch, args.join_records, args.q7_records)
+    cep = phase_cep(torch, args.cep_records)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
-            mesh_sessions, checkpoints, joins)
+            mesh_sessions, checkpoints, joins, cep)
 
     kernels = [{
         "name": "exchange_rank",

@@ -17,7 +17,10 @@ stream order through the hand-written ``csrc/ordered_fold.cu``. Streaming
 joins run on the host operators or, with ``join.mode=device``, on the
 device interval and temporal join engines of ``joins/``; Nexmark Q7 runs
 through the host window join, its float32 window max on the ordered
-fold. Every
+fold. CEP
+(``cep/``) runs ``CEP.pattern(keyed, p).select()`` on the host NFA, as the
+reference plans it, and the bounded-partial pattern class on the device
+NFA engine (``MeshCepEngine``, ``MeshCepOperator``). Every
 engine checkpoints and restores in the reference's on-disk format
 (``checkpoint/``), and ``chaos/`` holds the fault points and the
 crash-restore-verify harness. The package imports neither ``jax`` nor anything of

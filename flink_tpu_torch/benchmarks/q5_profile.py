@@ -202,13 +202,16 @@ def device_summary(prof, wall_s: float) -> dict:
     """The device's busy and idle share of ``wall_s`` and its largest
     items, from a torch.profiler trace: device activity only (kernels and
     copies as the device ran them; the host-side aten:: ops that launched
-    them carry the same time)."""
+    them carry the same time; a ``record_function`` range mirrored onto
+    the device timeline is a span over its kernels, not work, and is
+    left out)."""
     import torch
 
     kernels = defaultdict(lambda: {"device_ms": 0.0, "calls": 0})
     busy_us = 0.0
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False):
             continue
         us = ev.time_range.elapsed_us()
         k = kernels[ev.name[:120]]

@@ -1,10 +1,10 @@
 """Sources (port of ``flink_tpu/connectors/sources.py``: the base class,
-the counter-based hash the synthetic generators derive their records from,
-and ``DataGenSource``)."""
+the in-memory ``CollectionSource``, the counter-based hash the synthetic
+generators derive their records from, and ``DataGenSource``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -32,6 +32,39 @@ class Source:
 
     def restore_position(self, pos: Dict[str, Any]) -> None:
         pass
+
+
+class CollectionSource(Source):
+    """In-memory batches (tests, examples), like the reference's
+    fromCollection/fromData."""
+
+    def __init__(self, batches: Sequence[RecordBatch]):
+        self.batches = list(batches)
+        self._i = 0
+
+    @staticmethod
+    def of_rows(rows: Iterable[dict],
+                batch_size: int = 8192) -> "CollectionSource":
+        rows = list(rows)
+        return CollectionSource([RecordBatch.from_rows(rows[i:i + batch_size])
+                                 for i in range(0, len(rows), batch_size)])
+
+    def open(self, subtask_index: int = 0, parallelism: int = 1) -> None:
+        # each execution re-reads the collection from the start; a restore
+        # positions it after open
+        self._i = 0
+
+    def poll_batch(self, max_records):
+        if self._i >= len(self.batches):
+            return None
+        self._i += 1
+        return self.batches[self._i - 1]
+
+    def snapshot_position(self):
+        return {"i": self._i}
+
+    def restore_position(self, pos):
+        self._i = pos["i"]
 
 
 def _splitmix64(idx: np.ndarray, salt: int) -> np.ndarray:

@@ -59,6 +59,20 @@ class StreamExecutionEnvironment:
     def from_source(self, source, watermark_strategy=None, name=None):
         return self.add_source(source, watermark_strategy, name)
 
+    def from_collection(self, rows, timestamp_field: Optional[str] = None,
+                        watermark_strategy: Optional[
+                            WatermarkStrategy] = None):
+        """A source of ``rows`` (dicts) in micro-batches of the configured
+        size; ``timestamp_field`` names their event-time column."""
+        from flink_tpu_torch.connectors.sources import CollectionSource
+
+        src = CollectionSource.of_rows(rows, batch_size=self.batch_size)
+        ws = (watermark_strategy
+              or WatermarkStrategy.for_monotonous_timestamps())
+        if timestamp_field is not None:
+            ws = ws.with_timestamp_field(timestamp_field)
+        return self.add_source(src, ws, name="collection")
+
     def get_stream_graph(self) -> StreamGraph:
         if not self._sinks:
             raise RuntimeError("no sinks defined — nothing to execute")

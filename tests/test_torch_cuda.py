@@ -6,8 +6,8 @@ GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the rank and Count are integers, bit-identical; Q5's rows are
-counts, equal; the join engines' batches, snapshots and planes are
-compared byte for byte; the ordered fold, its grouping, the slice merge
+counts, equal; the join and CEP engines' batches, snapshots and planes
+(and the CEP advance's and prune's outputs) are compared byte for byte; the ordered fold, its grouping, the slice merge
 and the float32 Sum job are compared on their raw bits against the CPU
 (NaN payloads included).
 """
@@ -986,3 +986,94 @@ def test_join_engines_on_card_equal_cpu(kind):
         assert sc["rows_evicted"] > 0 and sc["cold_rows_served"] > 0
     else:
         assert ce.late_left_dropped == pe.late_left_dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["seq3_skip_past", "seq3_no_skip", "churn",
+                                  "times_loop", "wide_q29_r7",
+                                  "wide_q29_r29"])
+def test_cep_engine_on_card_equals_cpu(case):
+    """``chip_smoke.py`` 16(b)'s cases (P=8, 256 slots a shard; the
+    churn case spills): every emitted batch, the snapshot,
+    every plane outside slot 0, the spill counters and the match store's
+    answers equal card vs CPU; the ingest launched the rank kernel."""
+    _need_card()
+    import chip_smoke
+    from flink_tpu_torch.stateplane.rank import rank
+
+    before = rank.launches
+    card, card_snap, ce = chip_smoke._cep_smoke_run(case, "cuda")
+    assert rank.launches - before == chip_smoke.CS_STEPS
+    cpu, cpu_snap, pe = chip_smoke._cep_smoke_run(case, "cpu")
+    assert len(card) == len(cpu) and sum(len(b) for b in card) > 0
+    for a, b in zip(card, cpu):
+        assert sorted(a.names()) == sorted(b.names())
+        for n in a.names():
+            x, y = np.asarray(a[n]), np.asarray(b[n])
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), n
+    _snap_equal(card_snap, cpu_snap)
+    for a_pl, b_pl in ((ce._planes, pe._planes), (ce._pend, pe._pend),
+                       (ce._match_planes, pe._match_planes)):
+        for a, b in zip(a_pl, b_pl):
+            assert a.shape == b.shape
+            assert a[:, 1:].cpu().numpy().tobytes() == \
+                b[:, 1:].numpy().tobytes()
+    assert ce.spill_counters() == pe.spill_counters()
+    q = np.arange(40, dtype=np.int64)
+    assert ce.query_match_batch(q) == pe.query_match_batch(q)
+    if case == "churn":
+        assert ce.spill_counters()["rows_evicted"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times,within", [([(1, 1), (1, 1)], 2000),
+                                          ([(1, 3), (1, 3), (1, 2)], 100),
+                                          ([(1, 30)], None)])
+def test_cep_advance_and_prune_on_card_equal_cpu(times, within):
+    """One ``cep_advance`` and one ``cep_prune`` on random planes (unique
+    non-zero slots plus padded lanes on slot 0): every plane, match mask
+    and final alive mask equal card vs CPU, bit for bit."""
+    _need_card()
+    from flink_tpu_torch.cep import kernels
+    from flink_tpu_torch.cep.pattern import AfterMatchSkipStrategy, Pattern
+
+    p = None
+    for i, (lo, hi) in enumerate(times):
+        p = (Pattern.begin("s0", skip=AfterMatchSkipStrategy.NO_SKIP)
+             if p is None else p.next(f"s{i}"))
+        p = p.where(lambda b, i=i: np.asarray(b["v"]) % len(times) == i)
+        if hi > 1:
+            p = p.times(lo, hi).consecutive()
+    lay = kernels.compile_device_pattern(p.within(within) if within else p)
+    rng = np.random.default_rng(lay.n_states)
+    P, C, PB, K, E = 8, 1 << 14, 1 << 12, 4096, 16
+    planes = [rng.integers(0, 1 << lay.n_states, (P, C)).astype(np.int32)]
+    planes += [rng.integers(0, 1 << 31, (P, C)).astype(np.int32)
+               for _ in range(lay.ring)]
+    pending = [rng.integers(0, 1 << lay.n_stages, (P, PB)).astype(np.int32),
+               rng.integers(1, 1 << 31, (P, PB)).astype(np.int32)]
+    slots = np.zeros((P, K), dtype=np.int32)
+    nev = np.zeros((P, K), dtype=np.int32)
+    for p_ in range(P):
+        L = int(rng.integers(K // 2, K + 1))
+        slots[p_, :L] = rng.permutation(np.arange(1, C))[:L]
+        nev[p_, :L] = rng.integers(1, E + 1, L)
+    idx = np.where(np.arange(E) < nev[..., None],
+                   rng.integers(1, PB, (P, K, E)), 0).astype(np.int32)
+    wok = rng.integers(0, 1 << max(lay.ring, 1), (P, K, E)).astype(np.int32)
+    keep = np.where(slots != 0, rng.integers(-(1 << 31), 1 << 31, (P, K)),
+                    -1).astype(np.int32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = [torch.from_numpy(a.copy()).to(dev) for a in planes]
+        m, a = kernels.cep_advance(
+            t, [torch.from_numpy(x).to(dev) for x in pending],
+            torch.from_numpy(slots).to(dev), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(wok).to(dev), torch.from_numpy(nev).to(dev),
+            kernels.AdvanceTables.build(lay, torch.device(dev)))
+        kernels.cep_prune(t[0], torch.from_numpy(slots).to(dev),
+                          torch.from_numpy(keep).to(dev))
+        outs.append([x.cpu().numpy() for x in (m, a, *t)])
+    for x, y in zip(*outs):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+    assert outs[1][0].any()
