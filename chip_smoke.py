@@ -203,14 +203,42 @@ Phases, each fatal on failure (no result line is printed then):
     ``CEP.pattern(keyed, p).select()``'s (the host operator).
     ``python3 -c 'import torch, chip_smoke; chip_smoke.phase_cep(torch)'``
     runs phase 16 alone.
+9(b), 17. the mesh window engine under a device budget, batch mode and
+    BASELINE row 1 (run after phase 16): (9b) phase 9's stream (Q5's first
+    3M bids in batches of 1<<18, phase 4's float32 specials, HOP 10 s /
+    2 s) with each bid's event time moved back by up to 4 s (seeded) and
+    each batch's watermark 4 s behind its newest bid, so slices already
+    spilled are touched again, through ``MeshWindowEngine`` at P=8 under
+    1<<14 rows a shard on the card and on the CPU: every fired batch and
+    the spill counters equal bit for bit, rows evicted and reloaded > 0,
+    at least one hybrid fire; (17a) Q5 at P=8 through ``env.execute()`` at
+    phase 5's size (40M bids, micro-batches of 1<<20) under
+    ``state.slot-table.max-device-slots`` 1<<16 a shard: every window's
+    winners equal ``q5_oracle``, rows evicted > 0; events/s, fire p50/p99,
+    the spill counters, hybrid fires and the state's bytes on the card
+    printed; (17b) phase 13(c)'s out-of-order float32 Max job (its first
+    250k records, batches of 1<<13, watermark 3 s behind) on
+    ``MeshSessionEngine(spill_layout="namespaces")`` at P=8 under 1<<11
+    rows a shard (1<<10 raises ``SlotTableFullError``: one batch's
+    sessions are protected), card == CPU bit for bit, rows evicted > 0;
+    (17c) ``flink_tpu_torch/benchmarks/wordcount.py`` at 200,000 lines on
+    the card (P=1; ``.sum("one")`` keeps a float32 leaf, so the ordered
+    fold launches), per-word totals equal to the oracle, words/s and fire
+    latency printed; (17d) ROADMAP Queue C item 11's job in batch mode at
+    P=8 on the card and the CPU: rows equal, key 0 window 0 = 44.0.
+    ``python3 -c 'import torch, chip_smoke; chip_smoke.phase_slice11(torch)'``
+    runs them alone (each also as ``phase_mesh_spill``,
+    ``phase_mesh_budget_q5``, ``phase_mesh_sessions_ns``,
+    ``phase_wordcount`` and ``phase_batch_mode``).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
 15(a), 15(b), the card run of 15(d) and 15(e), 16(a), each card run of
-16(b) and the card run of 16(d), and read just after; each phase fails if
-a kernel of its path did not launch (the rank at parallelism 8; the
-ordered fold in phases 6, 8, 11, 12, 13, 14(b) and 15(e), Count being an
-integer fold).
+16(b), the card run of 16(d), the card runs of 9(b), 17(a), 17(b), 17(c)
+and 17(d), and read just after; each phase fails if a kernel of its path
+did not launch (the rank at parallelism 8; the ordered fold in phases 6,
+8, 9(b), 11, 12, 13, 14(b), 15(e), 17(b) and 17(c) — row 1's `.sum` keeps
+a float32 leaf —, Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -3143,6 +3171,316 @@ def phase_cep(torch, records: int = 4_000_000, device: str = "cuda") -> dict:
     return out
 
 
+# --------------------------------------- phases 9(b) and 17: slice 11
+
+class EngineRecorder:
+    """Keeps every engine of class ``cls`` built while it is open (a job
+    run through ``env.execute()`` hides its operators' engines)."""
+
+    def __init__(self, cls):
+        self.cls, self.engines, self._init = cls, [], cls.__init__
+        rec = self
+
+        def init(eng, *a, **k):
+            rec._init(eng, *a, **k)
+            rec.engines.append(eng)
+
+        cls.__init__ = init
+
+    def close(self):
+        self.cls.__init__ = self._init
+
+
+def _mesh_spill_run(torch, device, bids, budget, lag):
+    """Fired batches, spill counters and hybrid fires of a float32 Sum over
+    ``bids`` on ``MeshWindowEngine`` at P=8 under ``budget`` rows a shard,
+    each batch's watermark ``lag`` ms behind its newest bid."""
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    eng = MeshWindowEngine(SlidingEventTimeWindows.of(SIZE, SLIDE),
+                           SumAggregate("v"), make_mesh(8, device),
+                           capacity_per_shard=budget,
+                           max_device_slots=budget)
+    fired = []
+    for keys, vals, ts in bids:
+        eng.process_batch(RecordBatch.from_pydict(
+            {KEY_ID_FIELD: keys, "v": vals}, timestamps=ts))
+        fired.extend(eng.on_watermark(int(ts.max()) - 1 - lag))
+    fired.extend(eng.on_watermark(1 << 62))
+    return fired, eng.spill_counters(), eng.hybrid_fires
+
+
+def _batches_equal(what, got, want):
+    """Fired batches equal in order, every column bit for bit; rows."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} fired batches on the "
+                             f"card, {len(want)} on the CPU")
+    rows = 0
+    for g, w in zip(got, want):
+        for name in w.columns:
+            a, b = np.asarray(g[name]), np.asarray(w[name])
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{what}: column {name} differs "
+                                     "between the card and the CPU")
+        rows += len(w)
+    return rows
+
+
+def phase_mesh_spill(torch, records: int = 3_000_000,
+                     budget: int = 1 << 14, lag: int = 4_000):
+    """Phase 9(b): phase 9's stream on the mesh window engine at P=8 under
+    a per-shard budget, card == CPU bit for bit."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    rng = np.random.default_rng(3)
+    bids = []
+    while (b := src.poll_batch(1 << 18)) is not None:
+        vals = _sum_specials(rng, rng.standard_normal(len(b))
+                             .astype(np.float32))
+        # each bid's event time moves back by up to `lag` ms: bids of
+        # slices already spilled arrive again, so the tier reloads
+        ts = (np.asarray(b.timestamps, dtype=np.int64)
+              - rng.integers(0, lag, len(b)))
+        bids.append((np.asarray(b["auction"], dtype=np.int64), vals, ts))
+    reset_counts()
+    t0 = time.perf_counter()
+    card, card_counters, card_hybrid = _mesh_spill_run(torch, "cuda", bids,
+                                                       budget, lag)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu, cpu_counters, cpu_hybrid = _mesh_spill_run(torch, "cpu", bids,
+                                                    budget, lag)
+    cpu_s = time.perf_counter() - t0
+    rows = _batches_equal("phase 9(b)", card, cpu)
+    if card_counters != cpu_counters or card_hybrid != cpu_hybrid:
+        raise AssertionError(f"phase 9(b): spill counters differ: card "
+                             f"{card_counters} ({card_hybrid} hybrid), CPU "
+                             f"{cpu_counters} ({cpu_hybrid} hybrid)")
+    if card_counters["rows_evicted"] <= 0 or \
+            card_counters["rows_reloaded"] <= 0 or card_hybrid <= 0:
+        raise AssertionError(f"phase 9(b): no eviction, reload or hybrid "
+                             f"fire ({card_counters}, {card_hybrid})")
+    if counts["exchange_rank"] <= 0 or counts["ordered_fold"] <= 0:
+        raise AssertionError(f"phase 9(b): a kernel did not launch "
+                             f"({counts})")
+    out = {"records": records, "max_device_slots_per_shard": budget,
+           "lag_ms": lag, "fired_batches": len(card), "rows": rows,
+           "spill_counters": card_counters, "hybrid_fires": card_hybrid,
+           "card_s": card_s, "cpu_s": cpu_s, "launches": counts}
+    print(f"phase 9(b): forced eviction on the mesh engine at P=8 "
+          f"({budget} rows a shard): {len(card)} fired batches, {rows} "
+          f"rows equal on the card and the CPU bit for bit; spill counters "
+          f"equal ({card_counters}); {card_hybrid} hybrid fires; launches "
+          f"{counts}")
+    print("mesh_spill " + json.dumps(out))
+    return out
+
+
+def phase_mesh_budget_q5(torch, records: int = 40_000_000,
+                         budget: int = 1 << 16):
+    """Phase 17(a): Q5 at P=8 through ``env.execute()`` under
+    ``state.slot-table.max-device-slots`` a shard, against its oracle."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+
+    env = StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8, "execution.micro-batch.size": 1 << 20,
+        "execution.device": "cuda",
+        "state.slot-table.max-device-slots": budget}))
+    sink = CollectSink()
+    build_q5(env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                            events_per_second_of_eventtime=RATE),
+             size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K).sink_to(sink)
+    rec = EngineRecorder(MeshWindowEngine)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        result = env.execute("q5-budget")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        rec.close()
+    eng = rec.engines[0]
+    spill = eng.spill_counters()
+    if counts["exchange_rank"] <= 0:
+        raise AssertionError("phase 17(a): the rank kernel did not launch")
+    if spill["rows_evicted"] <= 0:
+        raise AssertionError(f"phase 17(a): no eviction ({spill})")
+    got = {}
+    for r in sink.rows():
+        got.setdefault(r["window_end"], (r["count"], set()))[1].add(
+            int(r["auction"]))
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    if set(got) != set(want):
+        raise AssertionError(f"phase 17(a): {len(got)} windows, oracle "
+                             f"{len(want)}")
+    for w, (best, winners) in want.items():
+        g_best, g_winners = got[w]
+        if g_best != best or not g_winners <= winners or \
+                len(g_winners) != min(len(winners), TOP_K):
+            raise AssertionError(f"phase 17(a): window {w} differs from "
+                                 "the oracle")
+    lat = result.metrics.get("window_fire_latency_ms", {})
+    state_bytes = sum(a.numel() * a.element_size() for a in eng.accs)
+    out = {"records": records, "max_device_slots_per_shard": budget,
+           "elapsed_s": elapsed, "events_per_s": records / elapsed,
+           "windows": len(got), "fire_latency_ms": lat,
+           "spill_counters": spill, "hybrid_fires": eng.hybrid_fires,
+           "state_bytes_on_card": state_bytes,
+           "capacity_per_shard": eng.capacity, "launches": counts}
+    print(f"phase 17(a): Q5 P=8 under {budget} rows a shard, {records} "
+          f"records in {elapsed:.3f} s = {records / elapsed:.0f} events/s; "
+          f"{len(got)} windows match the oracle; fire latency p50 "
+          f"{lat.get('p50')} ms p99 {lat.get('p99')} ms; spill {spill}; "
+          f"{eng.hybrid_fires} hybrid fires; state {state_bytes} B on the "
+          f"card; launches {counts}")
+    print("q5_budget " + json.dumps(out))
+    return out
+
+
+def _ns_sessions_run(torch, device, records, budget):
+    """Phase 13(c)'s out-of-order float32 Max job on
+    ``MeshSessionEngine(spill_layout="namespaces")`` at P=8: each batch's
+    watermark 3,000 ms behind its newest record, as the executor's
+    bounded-out-of-orderness strategy places it."""
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.runtime.operators import KeyByOperator
+    from flink_tpu_torch.windowing.aggregates import MaxAggregate
+
+    src = _jittered_specials(DataGenSource, 3_000)(records, 100_000,
+                                                   400_000, seed=3)
+    src.open()
+    eng = MeshSessionEngine(2_000, MaxAggregate("value"), make_mesh(8, device),
+                            capacity_per_shard=budget,
+                            max_device_slots=budget,
+                            spill_layout="namespaces")
+    key_by, fired = KeyByOperator("key"), []
+    while (b := src.poll_batch(1 << 13)) is not None:
+        b = key_by.process_batch(b)[0]
+        eng.process_batch(b)
+        fired.extend(eng.on_watermark(int(b.timestamps.max()) - 3_001))
+    fired.extend(eng.on_watermark(1 << 62))
+    return fired, eng
+
+
+def phase_mesh_sessions_ns(torch, records: int = 250_000,
+                           budget: int = 1 << 11):
+    """Phase 17(b): the namespace spill layout of the mesh session engine,
+    card == CPU bit for bit."""
+    reset_counts()
+    t0 = time.perf_counter()
+    card, ceng = _ns_sessions_run(torch, "cuda", records, budget)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    cpu, peng = _ns_sessions_run(torch, "cpu", records, budget)
+    rows = _batches_equal("phase 17(b)", card, cpu)
+    spill = ceng.spill_counters()
+    if spill != peng.spill_counters() or \
+            ceng.merge_groups != peng.merge_groups:
+        raise AssertionError(f"phase 17(b): spill counters or merges "
+                             f"differ: card {spill}, CPU "
+                             f"{peng.spill_counters()}")
+    if spill["rows_evicted"] <= 0:
+        raise AssertionError(f"phase 17(b): no eviction ({spill})")
+    if counts["exchange_rank"] <= 0 or counts["ordered_fold"] <= 0:
+        raise AssertionError(f"phase 17(b): a kernel did not launch "
+                             f"({counts})")
+    out = {"records": records, "max_device_slots_per_shard": budget,
+           "rows": rows, "spill_counters": spill,
+           "merge_groups": ceng.merge_groups, "card_s": card_s,
+           "events_per_s": records / card_s, "launches": counts}
+    print(f"phase 17(b): namespace-layout sessions at P=8 ({budget} rows a "
+          f"shard), {records} records: {rows} rows equal on the card and "
+          f"the CPU bit for bit; {ceng.merge_groups} merge groups; spill "
+          f"{spill}; launches {counts}")
+    print("mesh_sessions_ns " + json.dumps(out))
+    return out
+
+
+def phase_wordcount(torch, lines: int = 200_000):
+    """Phase 17(c): BASELINE row 1 on the card."""
+    from flink_tpu_torch.benchmarks import wordcount
+
+    reset_counts()
+    out = wordcount.run(lines, "cuda")
+    out["launches"] = read_counts()
+    if not out["oracle_ok"]:
+        raise AssertionError(f"phase 17(c): counts {out['counts']} differ "
+                             "from the oracle")
+    if out["launches"]["ordered_fold"] <= 0:
+        raise AssertionError("phase 17(c): the ordered fold did not launch")
+    print(f"phase 17(c): BASELINE row 1 (socket WordCount, {lines} lines, "
+          f"5 s processing-time windows): {out['value']:.0f} words/s; "
+          f"per-word totals equal the oracle over {out['windows']} "
+          f"windows; fire latency {out['fire_latency_ms']}; launches "
+          f"{out['launches']} (P=1: no exchange; `.sum` keeps a float32 "
+          f"leaf, folded by the ordered fold)")
+    print("wordcount " + json.dumps(out))
+    return out
+
+
+def phase_batch_mode(torch):
+    """Phase 17(d): ROADMAP Queue C item 11's job in batch mode, card ==
+    CPU, key 0 window 0 = 44.0."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+
+    rows = ([{"key": i % 2, "value": 1.0, "ts": 100 * i} for i in range(8)]
+            + [{"key": 0, "value": 1.0, "ts": 5000}]
+            + [{"key": 0, "value": 10.0, "ts": 150}] * 4)
+    sinks, counts = {}, None
+    for device in ("cuda", "cpu"):
+        reset_counts()
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 9,
+            "execution.runtime-mode": "batch",
+            "parallelism.default": 8, "execution.device": device}))
+        sinks[device] = CollectSink()
+        env.from_collection(rows, timestamp_field="ts",
+                            watermark_strategy=WatermarkStrategy
+                            .for_bounded_out_of_orderness(0)) \
+            .key_by("key").window(TumblingEventTimeWindows.of(1000)) \
+            .sum("value").sink_to(sinks[device])
+        env.execute("batch")
+        counts = counts or read_counts()
+    n = _rows_equal("phase 17(d)", sinks["cuda"], sinks["cpu"])
+    k0 = [r["sum_value"] for r in sinks["cuda"].rows()
+          if r["key"] == 0 and r["window_start"] == 0]
+    if k0 != [44.0]:
+        raise AssertionError(f"phase 17(d): key 0, window 0 = {k0}")
+    if counts["exchange_rank"] <= 0:
+        raise AssertionError("phase 17(d): the rank kernel did not launch")
+    print(f"phase 17(d): batch mode at P=8, {n} rows equal on the card and "
+          f"the CPU; key 0, window 0 = 44.0; launches {counts}")
+    return {"rows": n, "launches": counts}
+
+
+def phase_slice11(torch) -> dict:
+    """Phases 9(b) and 17(a)-(d)."""
+    return {"mesh_spill": phase_mesh_spill(torch),
+            "q5_budget": phase_mesh_budget_q5(torch),
+            "mesh_sessions_ns": phase_mesh_sessions_ns(torch),
+            "wordcount": phase_wordcount(torch),
+            "batch_mode": phase_batch_mode(torch)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -3201,8 +3539,10 @@ def main() -> int:
     checkpoints = phase_checkpoints(torch, args.records, phase5=q5)
     joins = phase_joins(torch, args.join_records, args.q7_records)
     cep = phase_cep(torch, args.cep_records)
+    slice11 = phase_slice11(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
-            mesh_sessions, checkpoints, joins, cep)
+            mesh_sessions, checkpoints, joins, cep,
+            *slice11.values())
 
     kernels = [{
         "name": "exchange_rank",

@@ -23,7 +23,11 @@ reference plans it, and the bounded-partial pattern class on the device
 NFA engine (``MeshCepEngine``, ``MeshCepOperator``). Every
 engine checkpoints and restores in the reference's on-disk format
 (``checkpoint/``), and ``chaos/`` holds the fault points and the
-crash-restore-verify harness. The package imports neither ``jax`` nor anything of
+crash-restore-verify harness. The mesh window engine runs under a per-shard
+device budget (the namespace spill layout, hybrid fires), batch mode fires
+every window once at the end of input, and the DataStream surface carries
+BASELINE row 1 (socket WordCount over processing-time windows,
+``benchmarks/wordcount.py``). The package imports neither ``jax`` nor anything of
 ``flink_tpu`` (importing ``flink_tpu`` loads jax).
 """
 

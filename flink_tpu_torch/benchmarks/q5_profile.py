@@ -3,13 +3,16 @@ the card.
 
     python3 -m flink_tpu_torch.benchmarks.q5_profile [--records N]
         [--parallelism 8|1] [--layout slots|panes]
+        [--max-device-slots N]
 
 Runs the job chip_smoke.py runs (100k auctions, 100k events/s of event
 time, 10 s / 2 s HOP, top-k 16, micro-batches of 1<<20) twice: once plain
 for the wall time, once under ``torch.profiler`` with host wall-clock
 accumulators wrapped around the engine's stages. At parallelism 8 (the
 mesh engine): source, slot lookup, staging, exchange+scatter dispatch,
-fence waits, fires, frees. At parallelism 1 (the single-device slot
+fence waits, fires, frees; with ``--max-device-slots`` (a per-shard
+budget, ``state.slot-table.max-device-slots``) also the namespace-group
+splits' planning, reloads, evictions and hybrid fires. At parallelism 1 (the single-device slot
 table, with bench.py's settings: capacity 1<<22, the slot layout,
 dispatch-ahead 8): source, slot lookup, the scatter's padding and
 dispatch, H2D copies, fence waits, the fire's slot matrix, the fire
@@ -52,7 +55,8 @@ P1_SETTINGS = {
 }
 
 
-def run_q5(records: int, parallelism: int = 8, layout: str = "slots"):
+def run_q5(records: int, parallelism: int = 8, layout: str = "slots",
+           max_device_slots: int = 0):
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
@@ -63,6 +67,8 @@ def run_q5(records: int, parallelism: int = 8, layout: str = "slots"):
         "execution.device": "cuda",
         **(P1_SETTINGS if parallelism == 1 else {}),
         **({"state.window-layout": layout} if parallelism == 1 else {}),
+        **({"state.slot-table.max-device-slots": max_device_slots}
+           if max_device_slots else {}),
     }))
     sink = CollectSink()
     build_q5(env, BidSource(total_records=records, num_auctions=100_000,
@@ -93,6 +99,10 @@ def _mesh_patches(acc):
         (E, "_await_dispatch_slot", "ingest.fence_wait"),
         (E, "on_watermark", "engine.on_watermark (fires + frees)"),
         (E, "_free_slices", "fire.free_slices"),
+        (E, "_ns_group_plan", "ingest.ns_group_plan (budget)"),
+        (E, "_ensure_resident", "ingest.reloads (budget)"),
+        (E, "_evict_cold", "evictions (gather, D2H, spill; budget)"),
+        (E, "_fire_window_hybrid", "fire.hybrid (budget)"),
     ]
     orig_init = E.__init__
 
@@ -167,11 +177,15 @@ def main() -> None:
                     help="8: the mesh engine; 1: the single-device engine")
     ap.add_argument("--layout", choices=("slots", "panes"), default="slots",
                     help="state.window-layout at parallelism 1")
+    ap.add_argument("--max-device-slots", type=int, default=0,
+                    help="state.slot-table.max-device-slots (per shard at "
+                    "parallelism 8); 0: no budget")
     args = ap.parse_args()
     import torch
 
     layout = args.layout if args.parallelism == 1 else None
-    wall, result = run_q5(args.records, args.parallelism, layout)
+    budget = args.max_device_slots
+    wall, result = run_q5(args.records, args.parallelism, layout, budget)
     plain = {"wall_s": wall, "events_per_s": args.records / wall,
              "fire_latency_ms": result.metrics.get("window_fire_latency_ms")}
 
@@ -181,7 +195,8 @@ def main() -> None:
                      else _single_device_patches)(acc)
     try:
         (pwall, _), host_s, prof = profile_patched(
-            patches, lambda: run_q5(args.records, args.parallelism, layout),
+            patches, lambda: run_q5(args.records, args.parallelism, layout,
+                                    budget),
             acc)
     finally:
         undo()
@@ -191,6 +206,7 @@ def main() -> None:
         "records": args.records,
         "parallelism": args.parallelism,
         "layout": layout,
+        "max_device_slots": budget,
         "plain_run": plain,
         "profiled_wall_s": pwall,
         "host_s": host_s,

@@ -10,7 +10,16 @@ asynchronously are harvested once their results land; until then the
 operator's output watermark is held back, so a watermark never overtakes
 the results it covers. With ``latency.fire-deadline-ms`` a source batch is
 split against the budget at the measured per-record rate, with watermarks
-and harvests between the splits (``_emit_deadline_split``).
+and harvests between the splits (``_emit_deadline_split``). With
+``execution.micro-batch.latency-target-ms`` the batch size follows the
+measured throughput (``runtime/debloater.py``). Operators with
+processing-time windows get a wall-clock tick every loop iteration.
+
+``execution.runtime-mode=batch`` rejects unbounded sources at submit and
+emits no intermediate watermark and no deadline split: every window fires
+once, on the MAX_WATERMARK at source exhaustion. A reference key the port
+does not read raises at submit when set to a value the port cannot honour
+(``core/config.py`` ``check_unread_keys``).
 
 Checkpoints: with ``state.checkpoints.dir`` and an every-n-batches or
 interval trigger the loop cuts a checkpoint between source batches — in-
@@ -24,7 +33,8 @@ takes a batch.
 
 Not in this slice: source pump threads (sources are polled inline),
 control requests and stop-with-savepoint, restart strategies, autoscale,
-the metrics registry and tracing — see ROADMAP.md (items 8b and 12).
+managed memory, the metrics registry and tracing — see ROADMAP.md (items
+8b and 12).
 """
 
 from __future__ import annotations
@@ -42,9 +52,11 @@ from flink_tpu_torch.core.config import (
     Configuration,
     CoreOptions,
     DeploymentOptions,
+    ExecutionModeOptions,
     ExecutionOptions,
     LatencyOptions,
     StateOptions,
+    check_unread_keys,
 )
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
@@ -89,7 +101,20 @@ class LocalExecutor:
         from flink_tpu_torch.datastream.environment import JobExecutionResult
 
         cfg = self.config
+        # a reference key set to a value the port cannot honour fails the
+        # submit, naming its ROADMAP item
+        check_unread_keys(cfg)
         batch_size = cfg.get(BatchOptions.BATCH_SIZE)
+        # batch mode: no intermediate watermark, so every window fires
+        # exactly once, on the MAX_WATERMARK at source exhaustion
+        batch_mode = cfg.get(ExecutionModeOptions.RUNTIME_MODE) == "batch"
+        if batch_mode:
+            for t in graph.sources:
+                if not getattr(t.source, "bounded", True):
+                    raise RuntimeError(
+                        "execution.runtime-mode=batch requires bounded "
+                        f"sources; {t.name!r} is unbounded (reference: "
+                        "batch mode rejects unbounded sources)")
         default_par = cfg.get(CoreOptions.DEFAULT_PARALLELISM)
         self._chaos_job = job_name
         ckpt_interval = cfg.get(CheckpointOptions.INTERVAL_MS)
@@ -167,11 +192,35 @@ class LocalExecutor:
             #: an EMA of the records/s through the dataflow
             self._fire_deadline_ms = cfg.get(LatencyOptions.FIRE_DEADLINE_MS)
             self._deadline_rate = 0.0
+            debloater = None
+            latency_target = cfg.get(BatchOptions.LATENCY_TARGET_MS)
+            if latency_target > 0:
+                from flink_tpu_torch.runtime.debloater import (
+                    BatchSizeController,
+                )
+
+                debloater = BatchSizeController(
+                    initial=batch_size,
+                    min_size=cfg.get(BatchOptions.MIN_BATCH_SIZE),
+                    max_size=batch_size,
+                    target_latency_ms=latency_target)
+                batch_size = debloater.size
+            # wall-clock tick targets (processing-time windows)
+            pt_nodes = [n for n in nodes.values()
+                        if n.operator is not None
+                        and getattr(n.operator, "uses_processing_time",
+                                    False)]
             t0 = time.perf_counter()
             total_records = 0
             active = {t.uid for t, _ in sources}
             while active:
                 self._drain_pending(nodes)
+                if pt_nodes:
+                    now_ms = int(time.time() * 1000)
+                    for n in pt_nodes:
+                        for out in n.operator.on_processing_time(now_ms):
+                            self._forward(n, out)
+                progressed = False
                 for t, node in sources:
                     if t.uid not in active:
                         continue
@@ -183,17 +232,25 @@ class LocalExecutor:
                         continue
                     if len(batch) == 0:
                         continue
+                    progressed = True
                     batch = t.watermark_strategy.assign_timestamps(batch)
                     wm = generators[t.uid].on_batch(batch)
                     source_positions[t.uid] = t.source.snapshot_position()
                     batches_since_ckpt += 1
                     total_records += len(batch)
-                    if self._fire_deadline_ms > 0:
+                    tb = time.perf_counter() if debloater else 0.0
+                    if self._fire_deadline_ms > 0 and not batch_mode:
                         self._emit_deadline_split(node, batch, nodes, wm)
                     else:
                         self._emit_batch(node, batch)
-                        if wm is not None:
+                        if wm is not None and not batch_mode:
                             self._emit_watermark(node, wm)
+                    if debloater is not None:
+                        batch_size = debloater.observe(
+                            len(batch), time.perf_counter() - tb)
+                if not progressed and active:
+                    # an idle source (a socket without data): do not spin
+                    time.sleep(0.001)
                 if storage is None:
                     continue
                 if ckpt_every_n:

@@ -1,13 +1,17 @@
-"""Sinks (port of the base sink and ``CollectSink`` of
-``flink_tpu/connectors/sinks.py``)."""
+"""Sinks (port of ``flink_tpu/connectors/sinks.py``: the base sink,
+``DiscardingSink``, ``CollectSink``, ``PrintSink`` and
+``JsonLinesFileSink``). ``BinaryFileSink`` needs the columnar serializer
+and is ROADMAP Queue A item 8b."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+from flink_tpu_torch.core.annotations import public
 from flink_tpu_torch.core.records import RecordBatch
 
 
+@public
 class Sink:
     def open(self, subtask_index: int = 0) -> None:
         pass
@@ -19,6 +23,15 @@ class Sink:
         pass
 
 
+@public
+class DiscardingSink(Sink):
+    """Swallows output."""
+
+    def write(self, batch: RecordBatch) -> None:
+        pass
+
+
+@public
 class CollectSink(Sink):
     """Collects all batches in memory (tests / execute_and_collect)."""
 
@@ -33,3 +46,62 @@ class CollectSink(Sink):
 
     def rows(self):
         return self.result().to_rows()
+
+
+@public
+class PrintSink(Sink):
+    def __init__(self, label: str = "",
+                 max_rows_per_batch: Optional[int] = 20):
+        self.label = label
+        self.max_rows = max_rows_per_batch
+
+    def write(self, batch):
+        rows = batch.to_rows()
+        shown = rows if self.max_rows is None else rows[: self.max_rows]
+        for r in shown:
+            print(f"{self.label}> {r}")
+        if self.max_rows is not None and len(rows) > self.max_rows:
+            print(f"{self.label}> ... {len(rows) - self.max_rows} more")
+
+
+@public
+class JsonLinesFileSink(Sink):
+    """Append rows as JSON lines to a local file (``file://`` or a bare
+    path). Append mode survives job restarts: downstream consumers dedupe
+    on key columns (at-least-once, no two-phase commit)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh = None
+
+    def open(self, subtask_index: int = 0) -> None:
+        from flink_tpu_torch.core.fs import get_filesystem
+
+        fs, local = get_filesystem(self.path)
+        self._fh = fs.open(local, "ab")
+
+    def write(self, batch: RecordBatch) -> None:
+        import json
+
+        for row in batch.to_rows():
+            self._fh.write((json.dumps(row, default=str) + "\n").encode())
+        self._fh.flush()
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    @staticmethod
+    def read_rows(path: str):
+        import io
+        import json
+
+        from flink_tpu_torch.core.fs import get_filesystem
+
+        fs, local = get_filesystem(path)
+        if not fs.exists(local):
+            return []
+        with fs.open(local, "rb") as fh:
+            text = io.TextIOWrapper(fh, encoding="utf-8")
+            return [json.loads(line) for line in text if line.strip()]

@@ -1,18 +1,25 @@
 """Sources (port of ``flink_tpu/connectors/sources.py``: the base class,
 the in-memory ``CollectionSource``, the counter-based hash the synthetic
-generators derive their records from, and ``DataGenSource``)."""
+generators derive their records from, ``DataGenSource`` and the line
+socket ``SocketSource``). Every source says whether it is ``bounded``:
+batch mode (``execution.runtime-mode=batch``) rejects an unbounded one.
+``BinaryFileSource`` needs the columnar serializer (ROADMAP item 8b)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Sequence
+import socket as _socket
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from flink_tpu_torch.core.annotations import public
 from flink_tpu_torch.core.records import RecordBatch
 
 
+@public
 class Source:
-    """A bounded batch source."""
+    """A bounded or unbounded batch source."""
 
     bounded: bool = True
 
@@ -147,3 +154,57 @@ class DataGenSource(Source):
 
     def restore_position(self, pos):
         self._emitted = pos["emitted"]
+
+
+class SocketSource(Source):
+    """Line-oriented TCP socket source (the WordCount baseline's source).
+    Each line becomes one record in column ``field``; timestamps are the
+    arrival time unless a later operator assigns event time. A poll with
+    no complete line returns an empty batch; the server's close ends the
+    stream once every complete line has been returned."""
+
+    bounded = False
+
+    def __init__(self, host: str, port: int, field: str = "line",
+                 connect_timeout: float = 10.0):
+        self.host = host
+        self.port = port
+        self.field = field
+        self.connect_timeout = connect_timeout
+        self._sock: Optional[_socket.socket] = None
+        self._buf = b""
+        self._eof = False
+
+    def open(self, subtask_index=0, parallelism=1):
+        self._sock = _socket.create_connection(
+            (self.host, self.port), timeout=self.connect_timeout)
+        self._sock.settimeout(0.05)
+
+    def poll_batch(self, max_records):
+        # after the server's close the buffered lines still drain (the
+        # reference returns None at once and drops them: ROADMAP Queue C
+        # R3)
+        if self._eof and b"\n" not in self._buf:
+            return None
+        lines: List[str] = []
+        if not self._eof:
+            try:
+                data = self._sock.recv(1 << 16)
+                if not data:
+                    self._eof = True
+                self._buf += data
+            except (TimeoutError, _socket.timeout):
+                pass
+        while b"\n" in self._buf and len(lines) < max_records:
+            line, self._buf = self._buf.split(b"\n", 1)
+            lines.append(line.decode("utf-8", errors="replace"))
+        if not lines:
+            return None if self._eof else RecordBatch({})
+        now = int(time.time() * 1000)
+        return RecordBatch.from_pydict(
+            {self.field: np.array(lines, dtype=object)},
+            timestamps=np.full(len(lines), now, dtype=np.int64))
+
+    def close(self):
+        if self._sock is not None:
+            self._sock.close()

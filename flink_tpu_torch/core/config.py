@@ -1,7 +1,11 @@
 """Typed configuration (port of ``flink_tpu/core/config.py``).
 
-Only the options the ported paths read are carried, under the reference's
-keys and defaults, plus the port's own ``execution.device``.
+The options the ported paths read are carried under the reference's keys
+and defaults, plus the port's own ``execution.device``. Reference keys the
+port does not read are listed in ``UNREAD_KEYS`` with the values the port
+already behaves as: ``check_unread_keys`` (called at ``execute()``)
+raises for any other value, naming the ROADMAP item, so no such key is
+ignored without a word.
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ class Configuration:
         self._data[key] = value
         return self
 
+    def keys(self):
+        """The keys set on this configuration."""
+        return list(self._data)
+
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Configuration({self._data!r})"
 
@@ -79,12 +87,40 @@ class BatchOptions:
         "execution.pipeline.max-dispatch-batches", default=4, type=int,
         description="How many batches of device work the task loop may "
         "dispatch ahead of completion (per-batch fences).")
+    LATENCY_TARGET_MS = ConfigOption(
+        "execution.micro-batch.latency-target-ms", default=0, type=int,
+        description="Adaptive batch sizing (runtime/debloater.py): hold "
+        "each batch's processing time to a fraction of this budget by "
+        "resizing the micro-batch from the measured throughput, between "
+        "execution.micro-batch.min-size and execution.micro-batch.size. "
+        "0 (default) = fixed batches.")
+    MIN_BATCH_SIZE = ConfigOption(
+        "execution.micro-batch.min-size", default=256, type=int,
+        description="Lower bound for adaptive batch sizing.")
+    IN_FLIGHT_BATCHES = ConfigOption(
+        "execution.pipeline.in-flight-batches", default=0, type=int,
+        description="Prefetch depth of the reference's source pump "
+        "threads. The port polls its sources synchronously in the task "
+        "loop, which is the reference's behaviour for values <= 0; those "
+        "are the values it accepts (default 0; the reference's default "
+        "is 2). A positive value raises at execute(): the pump threads "
+        "are ROADMAP Queue A item 12.")
     ASYNC_FIRES = ConfigOption(
         "execution.window.async-fires", default=True, type=bool,
         description="Dispatch window fires asynchronously: the fire "
         "program and its device->host copies run while the loop keeps "
         "ingesting; results and the covering watermark are forwarded "
         "once they land.")
+
+
+class ExecutionModeOptions:
+    RUNTIME_MODE = ConfigOption(
+        "execution.runtime-mode", default="streaming", type=str,
+        description="'streaming' (default) or 'batch'. Batch mode requires "
+        "bounded sources (an unbounded one is rejected at submit), emits "
+        "no intermediate watermark and no fire-deadline split: every "
+        "window fires once, at the end of input, when the source's "
+        "MAX_WATERMARK arrives.")
 
 
 class DeploymentOptions:
@@ -94,6 +130,11 @@ class DeploymentOptions:
         "(default) ranks, exchanges and scatters the records on the "
         "device (flink_tpu_torch/parallel/shuffle.py). 'host' is not "
         "ported yet.")
+    SHUFFLE_HOSTS = ConfigOption(
+        "shuffle.hosts", default=0, type=int,
+        description="Hosts the key-group mesh spans (the reference's "
+        "two-level exchange). The port runs one flat logical mesh on one "
+        "device; a value > 0 raises at execute() (ROADMAP item 12).")
     JOIN_MODE = ConfigOption(
         "join.mode", default="host", type=str,
         description="Execution plane for the DataStream interval join "
@@ -118,8 +159,8 @@ class StateOptions:
         "memory bound). 0 = unbounded (grow by doubling). When the budget "
         "is reached, cold namespaces spill to host memory and reload "
         "transparently on access. Above parallelism 1 it is per shard of "
-        "the logical mesh for session jobs (the mesh paged tier); the mesh "
-        "window engine raises for it (ROADMAP item 7c).")
+        "the logical mesh: the window engine spills whole namespaces "
+        "(window slices), the session engine pages of rows.")
     WINDOW_LAYOUT = ConfigOption(
         "state.window-layout", default="auto", type=str,
         description="Keyed window state layout at parallelism 1: 'slots' "
@@ -153,6 +194,22 @@ class StateOptions:
         "accumulators on execution.device (the card), with the spill "
         "tier beyond it. The reference's placement backends (host-heap, "
         "third-party placements) are not ported.")
+
+
+class MemoryOptions:
+    DEVICE_MEMORY_BUDGET = ConfigOption(
+        "memory.device.size", default=0, type=int,
+        description="The reference's managed device-memory budget in "
+        "bytes. Not ported: a value > 0 raises at execute() (ROADMAP "
+        "item 12); bound the state with "
+        "state.slot-table.max-device-slots instead.")
+
+
+class AutoscaleOptions:
+    ENABLED = ConfigOption(
+        "autoscale.enabled", default=False, type=bool,
+        description="The reference's live rescaling of mesh operators. "
+        "Not ported: true raises at execute() (ROADMAP item 12).")
 
 
 class LatencyOptions:
@@ -198,3 +255,46 @@ class CheckpointOptions:
         description="Consolidate: every Nth checkpoint is a full snapshot, "
         "bounding restore-chain length.")
 
+
+
+#: Reference keys the port does not read, each with the values the port
+#: already behaves as and the ROADMAP item that would honour the rest.
+#: ``check_unread_keys`` raises at execute() for any other value, so no
+#: such key is dropped without a word.
+UNREAD_KEYS = (
+    (MemoryOptions.DEVICE_MEMORY_BUDGET, lambda v: v <= 0,
+     "managed device memory", 12),
+    (AutoscaleOptions.ENABLED, lambda v: not v, "live autoscaling", 12),
+    (DeploymentOptions.SHUFFLE_HOSTS, lambda v: v <= 0,
+     "the two-level exchange", 12),
+    (BatchOptions.IN_FLIGHT_BATCHES, lambda v: v <= 0,
+     "the source pump threads (the port polls synchronously, as the "
+     "reference does for values <= 0)", 12),
+    (ConfigOption("execution.stage-parallelism", default=0, type=int),
+     lambda v: v <= 0, "the stage executor", 12),
+    (ConfigOption("watchdog.enabled", default=False, type=bool),
+     lambda v: not v, "the device watchdog", "8b"),
+)
+
+#: ``stateplane.backend.<family>`` picks the reference's Pallas or XLA
+#: program per family; the port has one route per tensor device.
+STATEPLANE_BACKEND_PREFIX = "stateplane.backend."
+
+
+def check_unread_keys(config: Configuration) -> None:
+    """Raise ``NotImplementedError`` for every reference key in ``config``
+    set to a value the port cannot honour, naming its ROADMAP item."""
+    for key in config.keys():
+        if key.startswith(STATEPLANE_BACKEND_PREFIX):
+            raise NotImplementedError(
+                f"{key}: the port has one route per tensor device (the "
+                "hand-written kernel on the card, its plain PyTorch "
+                "version on the CPU), so the reference's per-family "
+                "Pallas/XLA switch is rejected (ROADMAP.md, Queue A item "
+                "12 and Queue B)")
+    for option, honoured, feature, item in UNREAD_KEYS:
+        if option.key in config.keys() and not honoured(config.get(option)):
+            raise NotImplementedError(
+                f"{option.key}={config.get(option)!r}: {feature} is not "
+                f"ported to flink_tpu_torch yet (ROADMAP.md, Queue A item "
+                f"{item})")

@@ -8,23 +8,51 @@ selects the device of the keyed state (default ``"cuda"``).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
+from flink_tpu_torch.core.annotations import public
 from flink_tpu_torch.core.config import (
     BatchOptions,
+    CheckpointOptions,
     Configuration,
+    CoreOptions,
     StateOptions,
 )
+from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 
 
+@public
 class StreamExecutionEnvironment:
     def __init__(self, config: Optional[Configuration] = None):
         self.config = config or Configuration()
         self._sinks: List[Transformation] = []
         #: JobExecutionResult of the most recent execute()
         self.last_execution_result = None
+
+    @staticmethod
+    def get_execution_environment(
+        config: Optional[Configuration] = None,
+    ) -> "StreamExecutionEnvironment":
+        return StreamExecutionEnvironment(config)
+
+    @property
+    def parallelism(self) -> int:
+        return self.config.get(CoreOptions.DEFAULT_PARALLELISM)
+
+    def set_parallelism(self, p: int) -> "StreamExecutionEnvironment":
+        self.config.set(CoreOptions.DEFAULT_PARALLELISM, p)
+        return self
+
+    @property
+    def max_parallelism(self) -> int:
+        return self.config.get(CoreOptions.MAX_PARALLELISM)
+
+    def enable_checkpointing(self, interval_ms: int
+                             ) -> "StreamExecutionEnvironment":
+        self.config.set(CheckpointOptions.INTERVAL_MS, interval_ms)
+        return self
 
     @property
     def batch_size(self) -> int:
@@ -73,6 +101,15 @@ class StreamExecutionEnvironment:
             ws = ws.with_timestamp_field(timestamp_field)
         return self.add_source(src, ws, name="collection")
 
+    def from_batches(self, batches: Sequence[RecordBatch],
+                     watermark_strategy: Optional[
+                         WatermarkStrategy] = None):
+        """A source of the given batches, one per poll."""
+        from flink_tpu_torch.connectors.sources import CollectionSource
+
+        return self.add_source(CollectionSource(list(batches)),
+                               watermark_strategy, name="batches")
+
     def get_stream_graph(self) -> StreamGraph:
         if not self._sinks:
             raise RuntimeError("no sinks defined — nothing to execute")
@@ -106,6 +143,7 @@ class StreamExecutionEnvironment:
         return result
 
 
+@public
 class JobExecutionResult:
     def __init__(self, job_name: str, metrics: dict):
         self.job_name = job_name

@@ -1,23 +1,32 @@
-"""The DataStream fluent API (port of the Q5, session and join surface of
-``flink_tpu/datastream/stream.py``): map, key_by, window — aligned or
-merging (sessions) —, aggregate and its shorthands (sum, count, max, min,
-avg), the window join (``join().where().equal_to().window().apply()``),
-the interval join (``interval_join().between()``) and sinks. Each method
-builds ``Transformation`` nodes that the executor turns into batched
-operators."""
+"""The DataStream fluent API (port of ``flink_tpu/datastream/stream.py``):
+map, filter, flat_map, union, key_by, window — aligned (event or
+processing time) or merging (sessions) —, aggregate and its shorthands
+(sum, count, max, min, avg, aggregate_all), the window join
+(``join().where().equal_to().window().apply()``), the interval join
+(``interval_join().between()``), sinks, ``print`` and
+``execute_and_collect``. Each method builds ``Transformation`` nodes that
+the executor turns into batched operators. User functions are vectorized:
+a map takes and returns a RecordBatch, a filter returns a mask, a flat_map
+a list of batches."""
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Optional
+from typing import TYPE_CHECKING, Callable, List, Optional, Sequence
 
+import numpy as np
+
+from flink_tpu_torch.core.annotations import public
 from flink_tpu_torch.core.config import DeploymentOptions
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.graph.transformations import Transformation
 from flink_tpu_torch.runtime.operators import (
+    FilterOperator,
+    FlatMapOperator,
     KeyByOperator,
     MapOperator,
     SessionWindowAggOperator,
     SinkOperator,
+    UnionOperator,
     WindowAggOperator,
 )
 from flink_tpu_torch.windowing.aggregates import (
@@ -26,6 +35,7 @@ from flink_tpu_torch.windowing.aggregates import (
     CountAggregate,
     MaxAggregate,
     MinAggregate,
+    MultiAggregate,
     SumAggregate,
 )
 from flink_tpu_torch.windowing.assigners import WindowAssigner
@@ -34,6 +44,7 @@ if TYPE_CHECKING:
     from flink_tpu_torch.connectors.sinks import Sink
 
 
+@public
 class DataStream:
     def __init__(self, env, transformation: Transformation):
         self.env = env
@@ -57,6 +68,25 @@ class DataStream:
         return DataStream(self.env, self._one_input(
             name, lambda: MapOperator(fn)))
 
+    def filter(self, predicate: Callable[[RecordBatch], np.ndarray],
+               name: str = "filter") -> "DataStream":
+        return DataStream(self.env, self._one_input(
+            name, lambda: FilterOperator(predicate)))
+
+    def flat_map(self, fn: Callable[[RecordBatch], List[RecordBatch]],
+                 name: str = "flat_map") -> "DataStream":
+        return DataStream(self.env, self._one_input(
+            name, lambda: FlatMapOperator(fn)))
+
+    def union(self, *others: "DataStream") -> "DataStream":
+        """Merge streams; the watermark is the minimum over the inputs.
+        Timed and untimed inputs may mix when nothing downstream uses
+        event time."""
+        t = Transformation(
+            name="union", kind="union", operator_factory=UnionOperator,
+            inputs=[self.transformation] + [o.transformation for o in others])
+        return DataStream(self.env, t)
+
     def join(self, other: "DataStream") -> "JoinedStreams":
         """Window equi-join builder:
         ``a.join(b).where(f).equal_to(g).window(assigner).apply()``."""
@@ -75,6 +105,21 @@ class DataStream:
         self.env._sinks.append(t)
         return DataStreamSink(self.env, t, sink)
 
+    def print(self, label: str = "") -> "DataStreamSink":
+        from flink_tpu_torch.connectors.sinks import PrintSink
+
+        return self.sink_to(PrintSink(label), name="print")
+
+    def execute_and_collect(self) -> RecordBatch:
+        """Attach a collect sink, run the job, return its rows as one
+        batch."""
+        from flink_tpu_torch.connectors.sinks import CollectSink
+
+        sink = CollectSink()
+        self.sink_to(sink, name="collect")
+        self.env.execute()
+        return sink.result()
+
 
 class DataStreamSink:
     def __init__(self, env, transformation, sink):
@@ -83,6 +128,7 @@ class DataStreamSink:
         self.sink = sink
 
 
+@public
 class KeyedStream(DataStream):
     def __init__(self, env, transformation, key_field: str):
         super().__init__(env, transformation)
@@ -183,6 +229,7 @@ class IntervalJoinBuilder:
         return DataStream(env, t)
 
 
+@public
 class WindowedStream:
     def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
         self.keyed = keyed
@@ -238,3 +285,6 @@ class WindowedStream:
 
     def avg(self, field: str) -> DataStream:
         return self.aggregate(AvgAggregate(field))
+
+    def aggregate_all(self, aggs: Sequence[AggregateFunction]) -> DataStream:
+        return self.aggregate(MultiAggregate(aggs))

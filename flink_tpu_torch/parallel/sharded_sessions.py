@@ -19,16 +19,18 @@ on the whole mesh at once:
   dispatched asynchronously when the caller asks;
 - spill: with a per-shard budget the paged tier of
   ``MeshPagedSpillSupport`` evicts cohorts and reloads rows; fires of
-  paged-out sessions read their values straight from the pages;
+  paged-out sessions read their values straight from the pages. The
+  explicit ``spill_layout="namespaces"`` keeps the namespace registry and
+  evicts, reloads and drops whole sessions (``MeshSpillSupport``'s
+  namespace layout), reloading them before a merge or a fire;
 - snapshot and restore: ``SessionWindower``'s logical format (the rows of
   every shard and page plus the interval lists), re-sharded by key group
   on restore, so mesh and single-device snapshots restore into each
   other. Merged and fired sessions leave delta tombstones.
 
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-``spill_layout="namespaces"`` (item 7c); hot-key salting, the read
-replica, point queries, host shuffle mode, the two-level exchange and
-managed memory (item 12).
+hot-key salting, the read replica, point queries, host shuffle mode, the
+two-level exchange and managed memory (item 12).
 """
 
 from __future__ import annotations
@@ -142,9 +144,6 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             raise ValueError(
                 f"spill_layout must be 'namespaces' or 'pages', got "
                 f"{spill_layout!r}")
-        if spill_layout == "namespaces":
-            raise _not_ported("the mesh session engine's "
-                              "spill_layout='namespaces'", "7c")
         if shuffle_mode not in ("host", "device"):
             raise ValueError(
                 f"shuffle_mode must be 'host' or 'device', got "
@@ -163,6 +162,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         #: batches of device work in flight while the host preps the next
         self.max_dispatch_ahead = max(int(max_dispatch_ahead or 1), 1)
         self.spill_layout = spill_layout
+        #: the namespace registry is kept only for the explicit
+        #: "namespaces" layout (per-namespace eviction and frees); the
+        #: paged layout frees by slot and runs registry-free
+        self._track_ns = spill_layout == "namespaces"
         self.key_group_range = key_group_range
         self.max_device_slots = int(max_device_slots or 0)
         self.capacity = max(int(capacity_per_shard), 1024)
@@ -181,7 +184,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 self.capacity, growable=True,
                 on_grow=lambda old, new: self._shard_index_grew(new),
                 max_capacity=self.max_device_slots,
-                track_namespaces=False,
+                track_namespaces=self._track_ns,
                 full_hint=("state spills to host beyond "
                            "state.slot-table.max-device-slots"
                            if self.max_device_slots
@@ -189,7 +192,8 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             for _ in range(self.P)
         ]
         self._init_spill(spill_dir, spill_host_max_bytes)
-        self._paged = self.max_device_slots > 0
+        self._paged = (spill_layout == "pages"
+                       and self.max_device_slots > 0)
         if self._paged:
             self._init_paged()
         self.accs: Tuple[torch.Tensor, ...] = tuple(
@@ -215,7 +219,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
 
     def _build_steps(self) -> None:
         (_, _, self._reset_step, self._gather_step,
-         self._put_step) = build_mesh_steps(self.mesh, self.agg)
+         self._put_step, _) = build_mesh_steps(self.mesh, self.agg)
         self._merge_step = build_session_merge_step(self.mesh, self.agg)
         self._delta_fire_step = build_delta_fire_step(self.mesh, self.agg)
         self._exchange_scatter_step = build_exchange_scatter(
@@ -335,7 +339,16 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             self.meta.note_slots(key_sorted, sid_sorted, slot_sorted,
                                  rows=row_sorted)
         else:
+            if self._spill_active:
+                # the namespace layout: reload this batch's spilled
+                # sessions, refresh their recency, and make room
+                touched = {p: np.unique(sid_sorted[a:b])
+                           for p, (a, b) in shard_slices.items()}
+                self._ensure_resident(touched)
+                for p, sids in touched.items():
+                    self._touch(p, sids.tolist())
             for p, (a, b) in shard_slices.items():
+                self._reserve(p, key_sorted[a:b], sid_sorted[a:b])
                 slots = self.indexes[p].lookup_or_insert(
                     key_sorted[a:b], sid_sorted[a:b])
                 slot_sorted[a:b] = slots
@@ -390,8 +403,17 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         if self._paged:
             resolved = self._resolve_slots_paged(pairs)
         else:
-            resolved = {p: self.indexes[p].lookup_or_insert(keys2, sids2)
-                        for p, (keys2, sids2) in pairs.items()}
+            if self._spill_active:
+                # both sides of every pair resident together
+                touched = {p: np.unique(sids2)
+                           for p, (_, sids2) in pairs.items()}
+                self._ensure_resident(touched)
+                for p, sids in touched.items():
+                    self._touch(p, sids.tolist())
+            resolved = {}
+            for p, (keys2, sids2) in pairs.items():
+                self._reserve(p, keys2, sids2)
+                resolved[p] = self.indexes[p].lookup_or_insert(keys2, sids2)
         m_max = 0
         per_shard: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         for p in pairs:
@@ -432,6 +454,11 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         # delta snapshots drop the absorbed rows (tombstones); their slots
         # are in hand (the src half of each shard's lookup): free by slot
         self._freed_ns.append(np.asarray(g.absorbed_sids, dtype=np.int64))
+        if self._track_ns:
+            self._drop_spilled(g.absorbed_sids)
+            for p in range(self.P):
+                self.indexes[p].free_namespaces(g.absorbed_sids)
+            return
         for p, (_, s_slots) in per_shard.items():
             src_sids = pairs[p][1][len(s_slots):]
             if self._paged:
@@ -484,6 +511,14 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             return self._fire_sessions_hybrid(
                 k_arr, st_arr, en_arr, sid_arr, per_shard_sel, async_ok,
                 slot_hint)
+        if self._spill_active:
+            # the namespace layout: the fired sessions resident first
+            touched = {p: np.unique(sid_arr[sel])
+                       for p, sel in enumerate(per_shard_sel) if len(sel)}
+            self._ensure_resident(touched)
+            for p in touched:
+                sel = per_shard_sel[p]
+                self._reserve(p, k_arr[sel], sid_arr[sel])
         w_max = 0
         per_shard_slots: List[np.ndarray] = []
         for p, sel in enumerate(per_shard_sel):
@@ -508,6 +543,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         for p, slots in enumerate(per_shard_slots):
             if len(slots):
                 self._dirty[p, slots] = False
+            if self._track_ns:
+                self.indexes[p].free_namespaces(
+                    [int(sid_arr[i]) for i in per_shard_sel[p]])
+            elif len(slots):
                 self.indexes[p].free_slots(slots)
         # the output batch in shard order
         out_idx = np.concatenate([s for s in per_shard_sel if len(s)])

@@ -1,7 +1,7 @@
 """Mesh-sharded keyed state (port of
 ``flink_tpu/parallel/sharded_windower.py``: the window engine reduced to
-the Q5 path, and the per-shard spill tier the mesh session engine runs
-on).
+the Q5 path with its device budget, and the per-shard spill tiers the
+mesh engines run on).
 
 State lives in ``[P, capacity]`` planes on the mesh's device, one per
 accumulator leaf, dim 0 being the key-group shard. Records are routed to
@@ -12,13 +12,19 @@ reset to identity. Every key's slices live on one shard, so fires and
 resets are shard-local.
 
 - :class:`MeshSpillSupport`: the routing, the dispatch-ahead pipeline and
-  the per-shard spill tiers both mesh engines share.
+  the per-shard spill tiers both mesh engines share, with the namespace
+  spill layout: under a per-shard row budget the least recently touched
+  namespaces (window slices) of a shard leave in ONE ``[P, G]`` gather,
+  ONE device-to-host copy and ONE ``[P, R]`` reset, and reload on access
+  in ONE ``[P, B]`` put for all shards. A window with a spilled slice
+  fires hybrid: resident slices merge on the device, spilled ones are
+  combined on the host.
 - :class:`MeshPagedSpillSupport`: the paged (cohort) spill tier of the
   session engine (``parallel/sharded_sessions.py``): per shard the
   coldest rows leave as one page (``state/paged_spill.py``), every
   shard's cohort in ONE ``[P, G]`` gather, ONE device-to-host copy and
   ONE reset; reloads of all shards land in ONE ``[P, B]`` put.
-- :func:`build_mesh_steps` (scatter, fire, reset, gather, put) and
+- :func:`build_mesh_steps` (scatter, fire, reset, gather, put, merge) and
   :func:`build_delta_fire_step` (fire and reset in one call).
 
 Both engines snapshot in the single-device engines' logical format (rows
@@ -31,11 +37,10 @@ fault points sit at its sites: ``mesh.dispatch_fence``,
 ``mesh.window_fire``.
 
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
-where a user would select it: the window engine's device budget and the
-namespace spill layout (item 7c; with it the namespace layout's spill
-restore, ``_spill_restore_rows``), shard-granular snapshots and restore
-(item 8b), host shuffle mode, the two-level exchange, managed memory, the
-watchdog, the read replica, reshard and rebalance (item 12).
+where a user would select it: shard-granular snapshots and restore and the
+device watchdog (item 8b); host shuffle mode, the two-level exchange,
+managed memory, the read replica, reshard and rebalance, point queries
+over spilled state and ``enforce_resident_budget`` (item 12).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from flink_tpu_torch.core.records import (
     RecordBatch,
 )
 from flink_tpu_torch.ops.segment_ops import (
+    HOST_COMBINE,
     MERGE_FN,
     fold_slots,
     scatter_fold,
@@ -88,6 +94,7 @@ from flink_tpu_torch.state.slot_table import (
     _not_ported,
     make_slot_index,
     resolve_slot_hints,
+    unique_pairs,
 )
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.assigners import WindowAssigner
@@ -108,6 +115,8 @@ class MeshSpillSupport:
     ``_put_step`` programs, and call :meth:`_init_tracking`."""
 
     max_device_slots: int = 0
+    #: the paged (cohort) layout is on; the namespace layout otherwise
+    _paged: bool = False
 
     def _route(self, key_ids) -> np.ndarray:
         """key id -> owning shard (the contiguous key-group formula)."""
@@ -161,8 +170,13 @@ class MeshSpillSupport:
                 if spill_host_max_bytes else 0)
             for p in range(self.P)
         ]
+        #: per shard, namespace -> touch clock (the namespace layout's LRU)
+        self._ns_touch: List[Dict[int, int]] = [{} for _ in range(self.P)]
         self._touch_clock = 0
         self._reload_bucket = 0
+        #: the namespace layout's spill traffic (the paged layout counts
+        #: on its PagedSpillMaps)
+        self._ns_counters = PagedSpillMap.zero_counters()
         self._init_pipeline(self.max_dispatch_ahead)
 
     # ------------------------------------------------ host/device pipelining
@@ -213,8 +227,208 @@ class MeshSpillSupport:
         return None
 
     def spill_counters(self) -> Dict[str, int]:
-        """Spill traffic summed over shards (zeros when unbudgeted)."""
-        return PagedSpillMap.zero_counters()
+        """Spill traffic summed over shards (zeros when unbudgeted; the
+        paged layout adds its maps' counters)."""
+        out = PagedSpillMap.zero_counters()
+        for k, v in getattr(self, "_ns_counters", {}).items():
+            out[k] += v
+        return out
+
+    # --------------------------------------- the namespace spill layout
+
+    def _any_spilled(self, slice_ends) -> bool:
+        return self._spill_active and any(
+            int(se) in self.spills[p]
+            for p in range(self.P) for se in slice_ends)
+
+    def _touch(self, p: int, namespaces) -> None:
+        self._touch_clock += 1
+        clock = self._touch_clock
+        touch = self._ns_touch[p]
+        for ns in namespaces:
+            touch[int(ns)] = clock
+
+    def _make_headroom(self, p: int, needed: int, protect: set) -> None:
+        while self.indexes[p].free_headroom() < needed:
+            self._evict_cold(p, protect)
+
+    def _reserve(self, p: int, keys: np.ndarray, nss: np.ndarray) -> None:
+        """Make room on shard ``p`` for the NEW (key, ns) pairs among
+        (keys, nss): one over-counting headroom check when there is room;
+        otherwise a read-only probe counts the misses and cold namespaces
+        leave, the namespaces of this batch protected."""
+        if not self._spill_active:
+            return
+        uk, un, _ = unique_pairs(np.asarray(keys, dtype=np.int64),
+                                 np.asarray(nss, dtype=np.int64))
+        if self.indexes[p].free_headroom() >= len(uk):
+            return
+        needed = int((self.indexes[p].lookup(uk, un) < 0).sum())
+        if needed:
+            self._make_headroom(
+                p, needed, protect={int(x) for x in np.unique(un)})
+
+    def _evict_cold(self, p: int, protect: set) -> None:
+        """Move shard ``p``'s least recently touched namespaces to its
+        spill tier until an eighth of the shard (at least 1024 rows) is
+        free: ONE ``[P, G]`` gather, ONE device-to-host copy and ONE
+        ``[P, R]`` reset (the other shards' lanes pad at slot 0). The
+        order is ``sorted(namespaces, key=touch)`` — stable over the
+        registry's insertion order, as the reference's."""
+        idx = self.indexes[p]
+        target_free = max(idx.capacity // 8, 1024)
+        touch = self._ns_touch[p]
+        candidates = sorted(
+            (ns for ns in idx.namespaces if int(ns) not in protect),
+            key=lambda ns: touch.get(int(ns), 0))
+        if not candidates:
+            raise SlotTableFullError(
+                f"shard {p}: device slot budget exhausted and every "
+                "namespace in the current batch is protected — raise "
+                "state.slot-table.max-device-slots or reduce batch size")
+        chosen: List[Tuple[int, np.ndarray]] = []
+        freed = 0
+        for ns in candidates:
+            if freed >= target_free:
+                break
+            slots = idx.slots_for_namespace(int(ns))
+            chosen.append((int(ns), slots))
+            freed += len(slots)
+        empty = [ns for ns, s in chosen if len(s) == 0]
+        if empty:
+            idx.free_namespaces(empty)
+        chosen = [(ns, s) for ns, s in chosen if len(s) > 0]
+        if not chosen:
+            return
+        all_slots = np.concatenate([s for _, s in chosen])
+        n = len(all_slots)
+        G = sticky_bucket(n, self._gather_bucket)
+        self._gather_bucket = G
+        block = np.zeros((self.P, G), dtype=np.int32)
+        block[p, :n] = all_slots
+        leaves_host = [g[p][:n] for g in harvest_to_host(
+            self._gather_step(self.accs, self._to_device(block)))]
+        off = 0
+        for ns, slots in chosen:
+            m = len(slots)
+            entry = {
+                "key_id": np.asarray(idx.slot_key[slots]),
+                **{f"leaf_{i}": leaves_host[i][off:off + m]
+                   for i in range(len(leaves_host))},
+            }
+            self.spills[p].put(ns, entry,
+                               dirty=bool(self._dirty[p, slots].any()))
+            off += m
+            touch.pop(ns, None)
+        self._ns_counters["pages_evicted"] += len(chosen)
+        self._ns_counters["rows_evicted"] += n
+        idx.free_namespaces([ns for ns, _ in chosen])
+        self._dirty[p, all_slots] = False
+        R = sticky_bucket(n, self._reset_bucket)
+        self._reset_bucket = R
+        rb = np.zeros((self.P, R), dtype=np.int32)
+        rb[p, :n] = all_slots
+        self.accs = self._reset_step(self.accs, self._to_device(rb))
+
+    def _ensure_resident(self, per_shard: Dict[int, np.ndarray]) -> None:
+        """Reload the spilled namespaces among each shard's touched set:
+        headroom first for every shard, then ONE ``[P, B]`` put for all
+        shards' rows. Reloaded rows keep the dirtiness they left with
+        (``__was_dirty__``: not in any snapshot since)."""
+        if not self._spill_active:
+            return
+        entries: Dict[int, List[Tuple[int, Dict[str, np.ndarray]]]] = {}
+        rows: Dict[int, int] = {}
+        for p, nss in per_shard.items():
+            sp = self.spills[p]
+            if len(sp) == 0:
+                continue
+            es = []
+            for ns in nss:
+                ns = int(ns)
+                if ns in sp:
+                    e = sp.pop(ns)
+                    if e is not None and len(e["key_id"]):
+                        es.append((ns, e))
+            if es:
+                entries[p] = es
+                rows[p] = sum(len(e["key_id"]) for _, e in es)
+        if not entries:
+            return
+        self._ns_counters["pages_reloaded"] += sum(
+            len(es) for es in entries.values())
+        self._ns_counters["rows_reloaded"] += sum(rows.values())
+        for p, need in rows.items():
+            self._make_headroom(
+                p, need, protect={int(n) for n in per_shard[p]})
+        B = sticky_bucket(max(rows.values()), self._reload_bucket)
+        self._reload_bucket = B
+        slot_block = np.zeros((self.P, B), dtype=np.int32)
+        val_blocks = [np.full((self.P, B), l.identity, dtype=l.dtype)
+                      for l in self.agg.leaves]
+        for p, es in entries.items():
+            keys = np.concatenate([
+                np.asarray(e["key_id"], dtype=np.int64) for _, e in es])
+            nss = np.concatenate([
+                np.full(len(e["key_id"]), ns, dtype=np.int64)
+                for ns, e in es])
+            n = len(keys)
+            slots = self.indexes[p].lookup_or_insert(keys, nss)
+            slot_block[p, :n] = slots
+            for i, l in enumerate(self.agg.leaves):
+                np.concatenate(
+                    [np.asarray(e[f"leaf_{i}"], dtype=l.dtype)
+                     for _, e in es],
+                    out=val_blocks[i][p, :n])
+            self._dirty[p, slots] = np.concatenate([
+                np.full(len(e["key_id"]),
+                        bool(e.get("__was_dirty__", False)), dtype=bool)
+                for _, e in es])
+            self._touch(p, [ns for ns, _ in es])
+        self.accs = self._put_step(
+            self.accs, self._to_device(slot_block),
+            tuple(self._to_device(v) for v in val_blocks))
+
+    def _drop_spilled(self, ends) -> None:
+        """Discard spilled namespaces (fired and expired, or merged away)
+        and their touch clocks."""
+        if not self._spill_active:
+            return
+        for p in range(self.P):
+            sp, touch = self.spills[p], self._ns_touch[p]
+            for e in ends:
+                if int(e) in sp:
+                    sp.drop(int(e))
+                touch.pop(int(e), None)
+
+    def _spill_restore_rows(self, key_ids: np.ndarray,
+                            namespaces: np.ndarray,
+                            leaves: List[np.ndarray]) -> None:
+        """Restore under a budget: each shard's rows land in its spill
+        tier, one entry per namespace, and reload on first access — a
+        snapshot larger than the device budget restores with bounded
+        device memory."""
+        shards = self._route(key_ids)
+        for p in range(self.P):
+            mask = shards == p
+            if not mask.any():
+                continue
+            ns_p = namespaces[mask]
+            order = np.argsort(ns_p, kind="stable")
+            s_ns, s_keys = ns_p[order], key_ids[mask][order]
+            s_leaves = [l[mask][order] for l in leaves]
+            bounds = np.nonzero(np.diff(s_ns))[0] + 1
+            starts = np.concatenate(([0], bounds))
+            ends = np.concatenate((bounds, [len(s_ns)]))
+            sp = self.spills[p]
+            for a, b in zip(starts.tolist(), ends.tolist()):
+                ns = int(s_ns[a])
+                entry = {"key_id": s_keys[a:b],
+                         **{f"leaf_{i}": s_leaves[i][a:b]
+                            for i in range(len(s_leaves))}}
+                if ns in sp:
+                    sp.drop(ns)
+                sp.put(ns, entry, dirty=False)
 
     # ------------------------------------------------------ snapshot/restore
 
@@ -249,9 +463,8 @@ class MeshSpillSupport:
     def _clear_tracking(self) -> None:
         self._dirty[:] = False
         self._freed_ns.clear()
-        if self._spill_active:
-            for sp in self.spills:
-                sp.clear_dirty()
+        for sp in self.spills:
+            sp.clear_dirty()
 
     def _snapshot_delta(self) -> Dict[str, np.ndarray]:
         """Dirty rows gathered off the planes in ONE ``[P, G]`` gather and
@@ -344,7 +557,8 @@ class MeshSpillSupport:
                        key_group_filter=None) -> None:
         """Restore logical rows, re-sharded by key group: each row goes to
         the shard its key's ingest routes to (any snapshot restores at any
-        P). With a budget the rows land in the page tier; otherwise every
+        P). With a budget the rows land in the spill tier (pages, or one
+        entry per namespace) and reload on access; otherwise every
         shard's rows go onto the planes in ONE ``[P, B]`` put (the index
         allocates from slot 1, so slot 0 is never written with state)."""
         key_ids = np.asarray(table.get("key_id", []), dtype=np.int64)
@@ -357,9 +571,10 @@ class MeshSpillSupport:
             key_ids, namespaces = key_ids[keep], namespaces[keep]
             leaves = [v[keep] for v in leaves]
         if self._spill_active and len(key_ids):
-            # a budget means the paged tier: the namespace layout on the
-            # mesh (item 7c) cannot be constructed in the port
-            self._paged_restore_rows(key_ids, namespaces, leaves)
+            if self._paged:
+                self._paged_restore_rows(key_ids, namespaces, leaves)
+            else:
+                self._spill_restore_rows(key_ids, namespaces, leaves)
         elif len(key_ids):
             shards = self._route(key_ids)
             # inserts first: growth must settle before the put is staged
@@ -390,7 +605,7 @@ class MeshSpillSupport:
     # ------------------------------------------------ not in this slice
 
     def attach_watchdog(self, wd) -> None:
-        raise _not_ported("the device watchdog", 12)
+        raise _not_ported("the device watchdog", "8b")
 
     def arm_replica(self, plane=None):
         raise _not_ported("the serving read replica", 12)
@@ -434,8 +649,8 @@ class MeshPagedSpillSupport(MeshSpillSupport):
         #: [P, capacity] per-slot touch clocks
         self._slot_touch = np.zeros((self.P, self.capacity), dtype=np.int64)
 
-    def _pmap_of(self, p: int) -> PagedSpillMap:
-        return self._pmaps[p]
+    def _pmap_of(self, p: int) -> Optional[PagedSpillMap]:
+        return self._pmaps[p] if self._paged else None
 
     def _drain_deferred_sweeps(self) -> None:
         """Run the page sweeps queued by fire-path extractions (called at
@@ -667,14 +882,13 @@ class MeshWindowEngine(MeshSpillSupport):
         allowed_lateness: int = 0,
         fire_projector=None,
         max_device_slots: int = 0,
+        spill_dir: Optional[str] = None,
+        spill_host_max_bytes: int = 0,
         key_group_range: Optional[Tuple[int, int]] = None,
         max_dispatch_ahead: int = 2,
         shuffle_mode: str = "device",
         host_topology=None,
     ) -> None:
-        if max_device_slots:
-            raise _not_ported("the mesh window engine's spill tier "
-                              "(state.slot-table.max-device-slots)", "7c")
         if shuffle_mode != "device":
             raise _not_ported(f"shuffle.mode={shuffle_mode!r}", 12)
         if host_topology is not None:
@@ -686,7 +900,15 @@ class MeshWindowEngine(MeshSpillSupport):
         self.device = mesh.device
         self.fire_projector = fire_projector
         self.key_group_range = key_group_range
+        self.max_dispatch_ahead = max(int(max_dispatch_ahead or 1), 1)
+        #: per-SHARD row budget (state.slot-table.max-device-slots):
+        #: beyond it the coldest namespaces (window slices) spill to the
+        #: shard's host tier and reload on access
+        self.max_device_slots = int(max_device_slots or 0)
         self.capacity = max(int(capacity_per_shard), 1024)
+        if self.max_device_slots:
+            self.max_device_slots = max(self.max_device_slots, 1024)
+            self.capacity = min(self.capacity, self.max_device_slots)
         self.max_parallelism = max_parallelism
         self.allowed_lateness = allowed_lateness
         if max_parallelism < self.P:
@@ -697,9 +919,15 @@ class MeshWindowEngine(MeshSpillSupport):
         self.indexes = [
             make_slot_index(
                 self.capacity, growable=True,
-                on_grow=lambda old, new: self._shard_index_grew(new))
+                on_grow=lambda old, new: self._shard_index_grew(new),
+                max_capacity=self.max_device_slots,
+                full_hint=("state spills to host beyond "
+                           "state.slot-table.max-device-slots"
+                           if self.max_device_slots
+                           else "raise state.slot-table.capacity"))
             for _ in range(self.P)
         ]
+        self._init_spill(spill_dir, spill_host_max_bytes)
         self.accs: Tuple[torch.Tensor, ...] = tuple(
             torch.full((self.P, self.capacity),
                        np.asarray(leaf.identity).item(),
@@ -707,22 +935,71 @@ class MeshWindowEngine(MeshSpillSupport):
             for leaf in agg.leaves)
         # the [P, B] scatter step serves host shuffle mode (not ported)
         (_, self._fire_step, self._reset_step, self._gather_step,
-         self._put_step) = build_mesh_steps(mesh, agg)
+         self._put_step, self._merge_step) = build_mesh_steps(mesh, agg)
         self._exchange_scatter_step = build_exchange_scatter(mesh, agg)
         # window lifecycle metadata is global across shards
         self.book = SliceBookkeeper(assigner, allowed_lateness)
-        self._init_pipeline(max_dispatch_ahead)
         self._init_tracking()
         self._fire_bucket = 0
         self._reset_bucket = 0
+        #: fires that merged spilled slices on the host
+        self.hybrid_fires = 0
 
     # --------------------------------------------------------------- ingest
+
+    def _ns_group_plan(self, key_ids: np.ndarray,
+                       slice_ends: np.ndarray) -> Optional[List[List[int]]]:
+        """When one batch's namespaces need more rows than half the
+        per-shard budget, groups of namespaces (in ascending order) each
+        within it, so one group at a time is resident; None when no
+        split is needed. A namespace costs, on its worst shard, its
+        resident rows plus its spilled rows plus this batch's pairs of
+        it."""
+        pk, pns, _ = unique_pairs(
+            np.asarray(key_ids, dtype=np.int64),
+            np.asarray(slice_ends, dtype=np.int64))
+        uniq_ns = np.unique(pns)
+        if len(uniq_ns) <= 1:
+            return None
+        budget = max(self.max_device_slots // 2, 1024)
+        pshards = self._route(pk)
+        costs: Dict[int, int] = {}
+        for ns in uniq_ns.tolist():
+            ns = int(ns)
+            per_shard_new = np.bincount(pshards[pns == ns],
+                                        minlength=self.P)
+            costs[ns] = max(
+                len(self.indexes[p].slots_for_namespace(ns))
+                + self.spills[p].rows(ns) + int(per_shard_new[p])
+                for p in range(self.P))
+        if sum(costs.values()) <= budget:
+            return None
+        groups: List[List[int]] = []
+        cur: List[int] = []
+        cur_cost = 0
+        for ns in sorted(costs):
+            c = costs[ns]
+            if cur and cur_cost + c > budget:
+                groups.append(cur)
+                cur, cur_cost = [], 0
+            cur.append(ns)
+            cur_cost += c
+        groups.append(cur)
+        return groups if len(groups) > 1 else None
 
     def process_batch(self, batch: RecordBatch) -> None:
         if len(batch) == 0:
             return
         key_ids = batch.key_ids
         slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
+        if self._spill_active and len(batch) > 1:
+            groups = self._ns_group_plan(key_ids, slice_ends)
+            if groups is not None:
+                for g in groups:
+                    mask = np.isin(slice_ends, np.asarray(g))
+                    if mask.any():
+                        self.process_batch(batch.filter(mask))
+                return
         live = self.book.live_mask(slice_ends)
         if live is not None:
             key_ids, slice_ends = key_ids[live], slice_ends[live]
@@ -747,11 +1024,21 @@ class MeshWindowEngine(MeshSpillSupport):
         np.cumsum(counts, out=offsets[1:])
         s_keys = key_ids[order]
         s_ns = slice_ends[order]
+        if self._spill_active:
+            # reload this batch's spilled namespaces (all shards in one
+            # put), then refresh their recency
+            touched = {
+                p: np.unique(s_ns[offsets[p]:offsets[p + 1]])
+                for p in range(self.P) if counts[p]}
+            self._ensure_resident(touched)
+            for p, nss in touched.items():
+                self._touch(p, nss.tolist())
         slots_sorted = np.empty(n, dtype=np.int32)
         for p in range(self.P):
             a, b = int(offsets[p]), int(offsets[p + 1])
             if a == b:
                 continue
+            self._reserve(p, s_keys[a:b], s_ns[a:b])
             slots = self.indexes[p].lookup_or_insert(s_keys[a:b],
                                                      s_ns[a:b])
             slots_sorted[a:b] = slots
@@ -800,36 +1087,13 @@ class MeshWindowEngine(MeshSpillSupport):
     def _fire_window(self, window_end: int, async_ok: bool = False):
         chaos.fault_point("mesh.window_fire", window_end=window_end)
         slice_ends = self.assigner.slice_ends_for_window(window_end)
-        k = len(slice_ends)
-        per_shard_mats: List[np.ndarray] = []
-        per_shard_keys: List[np.ndarray] = []
-        w_max = 0
-        for p in range(self.P):
-            idx = self.indexes[p]
-            chunks = [(i, idx.slots_for_namespace(se))
-                      for i, se in enumerate(slice_ends)]
-            chunks = [(i, s) for i, s in chunks if len(s) > 0]
-            if not chunks:
-                per_shard_mats.append(np.zeros((0, k), dtype=np.int32))
-                per_shard_keys.append(np.empty(0, dtype=np.int64))
-                continue
-            all_slots = np.concatenate([s for _, s in chunks])
-            all_sidx = np.concatenate(
-                [np.full(len(s), i, dtype=np.int32) for i, s in chunks])
-            keys, inv = np.unique(idx.slot_key[all_slots],
-                                  return_inverse=True)
-            mat = np.zeros((len(keys), k), dtype=np.int32)
-            mat[inv, all_sidx] = all_slots
-            per_shard_mats.append(mat)
-            per_shard_keys.append(keys)
-            w_max = max(w_max, len(keys))
-        if w_max == 0:
+        if self._any_spilled(slice_ends):
+            # resident slices merge on the device, spilled ones on the
+            # host: synchronous, the merged values are on the host already
+            return self._fire_window_hybrid(window_end, slice_ends)
+        per_shard_keys, sm = self._slice_matrices(slice_ends)
+        if sm is None:
             return None
-        W = sticky_bucket(w_max, self._fire_bucket, minimum=64)
-        self._fire_bucket = W
-        sm = np.zeros((self.P, W, k), dtype=np.int32)
-        for p, mat in enumerate(per_shard_mats):
-            sm[p, : len(mat)] = mat
         fire_out = self._fire_step(self.accs, self._to_device(sm))
         names = sorted(fire_out.keys())
         projector = self.fire_projector
@@ -864,10 +1128,116 @@ class MeshWindowEngine(MeshSpillSupport):
         pending = PendingFire([fire_out[n] for n in names], build)
         return pending if async_ok else pending.harvest()
 
+    def _slice_matrices(self, slice_ends
+                        ) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+        """Per shard, the keys with a RESIDENT row in any of the window's
+        slices (ascending) and the ``[P, W, k]`` slot matrix over them
+        (slot 0 where a key has no row in a slice; None when no shard has
+        a row)."""
+        k = len(slice_ends)
+        per_shard_mats: List[np.ndarray] = []
+        per_shard_keys: List[np.ndarray] = []
+        w_max = 0
+        for p in range(self.P):
+            idx = self.indexes[p]
+            chunks = [(i, idx.slots_for_namespace(int(se)))
+                      for i, se in enumerate(slice_ends)]
+            chunks = [(i, s) for i, s in chunks if len(s) > 0]
+            if not chunks:
+                per_shard_mats.append(np.zeros((0, k), dtype=np.int32))
+                per_shard_keys.append(np.empty(0, dtype=np.int64))
+                continue
+            all_slots = np.concatenate([s for _, s in chunks])
+            all_sidx = np.concatenate(
+                [np.full(len(s), i, dtype=np.int32) for i, s in chunks])
+            keys, inv = np.unique(idx.slot_key[all_slots],
+                                  return_inverse=True)
+            mat = np.zeros((len(keys), k), dtype=np.int32)
+            mat[inv, all_sidx] = all_slots
+            per_shard_mats.append(mat)
+            per_shard_keys.append(keys)
+            w_max = max(w_max, len(keys))
+        if w_max == 0:
+            return per_shard_keys, None
+        W = sticky_bucket(w_max, self._fire_bucket, minimum=64)
+        self._fire_bucket = W
+        sm = np.zeros((self.P, W, k), dtype=np.int32)
+        for p, mat in enumerate(per_shard_mats):
+            sm[p, : len(mat)] = mat
+        return per_shard_keys, sm
+
+    def _fire_window_hybrid(self, window_end: int,
+                            slice_ends) -> Optional[RecordBatch]:
+        """A window with spilled slices: the resident slices merge on the
+        device (the raw merge step, no finish: a left fold over the k
+        slices), then every chunk — the device-merged keys shard by
+        shard, then each shard's spilled slices in slice order — is
+        combined on the host with NumPy's ``ufunc.at`` in chunk order,
+        and finished there."""
+        self.hybrid_fires += 1
+        leaves = self.agg.leaves
+        key_chunks: List[np.ndarray] = []
+        leaf_chunks: List[List[np.ndarray]] = [[] for _ in leaves]
+        per_shard_keys, sm = self._slice_matrices(slice_ends)
+        if sm is not None:
+            merged_host = harvest_to_host(
+                self._merge_step(self.accs, self._to_device(sm)))
+            for p in range(self.P):
+                m = len(per_shard_keys[p])
+                if m == 0:
+                    continue
+                key_chunks.append(per_shard_keys[p])
+                for i in range(len(leaves)):
+                    leaf_chunks[i].append(merged_host[i][p][:m])
+        for p in range(self.P):
+            sp = self.spills[p]
+            for se in slice_ends:
+                entry = sp.peek(int(se))
+                if entry is None or len(entry["key_id"]) == 0:
+                    continue
+                key_chunks.append(
+                    np.asarray(entry["key_id"], dtype=np.int64))
+                for i, l in enumerate(leaves):
+                    leaf_chunks[i].append(
+                        np.asarray(entry[f"leaf_{i}"], dtype=l.dtype))
+        if not key_chunks:
+            return None
+        uniq, inv = np.unique(np.concatenate(key_chunks),
+                              return_inverse=True)
+        out_leaves = []
+        # inf + -inf is NaN in any order: no warning for the data's specials
+        with np.errstate(invalid="ignore", over="ignore"):
+            for i, l in enumerate(leaves):
+                acc = np.full(len(uniq), l.identity, dtype=l.dtype)
+                HOST_COMBINE[l.reduce].at(acc, inv,
+                                          np.concatenate(leaf_chunks[i]))
+                out_leaves.append(acc)
+        finished = self.agg.finish(
+            tuple(torch.from_numpy(a) for a in out_leaves))
+        merged_cols = {name: np.asarray(col)
+                       for name, col in finished.items()}
+        keys = uniq
+        if self.fire_projector is not None:
+            keys, merged_cols = self.fire_projector.project_host(
+                keys, merged_cols)
+        m = len(keys)
+        if m == 0:
+            return None
+        cols = {
+            KEY_ID_FIELD: keys,
+            WINDOW_START_FIELD: np.full(
+                m, self.assigner.window_start(window_end), dtype=np.int64),
+            WINDOW_END_FIELD: np.full(m, window_end, dtype=np.int64),
+            TIMESTAMP_FIELD: np.full(m, window_end - 1, dtype=np.int64),
+        }
+        cols.update(merged_cols)
+        return RecordBatch(cols)
+
     def _free_slices(self, ends: List[int]) -> None:
         f_max = 0
         freed: List[Optional[np.ndarray]] = []
         self._freed_ns.append(np.asarray(list(ends), dtype=np.int64))
+        self._drop_spilled(ends)
         for p in range(self.P):
             slots = self.indexes[p].free_namespaces(ends)
             freed.append(slots)
@@ -902,7 +1272,7 @@ class MeshWindowEngine(MeshSpillSupport):
 
 
 def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
-    """(scatter, fire, reset, gather, put) steps over ``[P, capacity]``
+    """(scatter, fire, reset, gather, put, merge) steps over ``[P, capacity]``
     planes. The planes are updated IN PLACE where the reference donated
     them.
 
@@ -917,6 +1287,9 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
     - ``put(accs, slots [P, B], values)``: overwrite the slots with one
       ``[P, B]`` block per leaf (the reload); padded lanes target slot 0
       with the identity.
+    - ``merge(accs, slot_matrix [P, W, k]) -> per-leaf [P, W]``: fire
+      without the finish — the raw merged accumulators a hybrid fire
+      combines with spilled slices on the host.
     """
     leaves = agg.leaves
     tdtypes = tuple(torch_dtype(l.dtype) for l in leaves)
@@ -941,12 +1314,14 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
             m(a, idx, v)
         return accs
 
-    def fire_step(accs, slot_matrix):
+    def merge_step(accs, slot_matrix):
         P, W, k = slot_matrix.shape
         idx = slot_matrix.reshape(P, W * k).to(torch.int64)
-        merged = tuple(m(torch.gather(a, 1, idx).view(P, W, k))
-                       for a, m in zip(accs, merges))
-        return finish(merged)
+        return tuple(m(torch.gather(a, 1, idx).view(P, W, k))
+                     for a, m in zip(accs, merges))
+
+    def fire_step(accs, slot_matrix):
+        return finish(merge_step(accs, slot_matrix))
 
     def reset_step(accs, slots):
         idx = slots.to(torch.int64)
@@ -964,7 +1339,8 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
             a.scatter_(1, idx, v)
         return accs
 
-    return scatter_step, fire_step, reset_step, gather_step, put_step
+    return (scatter_step, fire_step, reset_step, gather_step, put_step,
+            merge_step)
 
 
 def build_delta_fire_step(mesh: LogicalMesh, agg: AggregateFunction):

@@ -1,6 +1,8 @@
-"""Stream operators (port of the Q5 and session operators of
-``flink_tpu/runtime/operators.py``): map, keyBy, the sink, the keyed
-window aggregation and the keyed session-window aggregation.
+"""Stream operators (port of ``flink_tpu/runtime/operators.py``): map,
+filter, flat_map, union, keyBy, the sink, the keyed window aggregation
+(event time, or processing time: records stamped with their arrival time,
+windows fired by the executor's wall-clock ticks) and the keyed
+session-window aggregation.
 
 An operator processes one ``RecordBatch`` per call and reacts to watermark
 advances; all operators are single-owner (called from one task loop).
@@ -18,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+from flink_tpu_torch.runtime.elements import MAX_WATERMARK
 from flink_tpu_torch.runtime.pending import PendingFire
 from flink_tpu_torch.state.keygroups import hash_keys_to_i64
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
@@ -104,6 +107,39 @@ class MapOperator(Operator):
         return [out] if out is not None and len(out) else []
 
 
+class FilterOperator(Operator):
+    name = "filter"
+
+    def __init__(self, predicate: Callable[[RecordBatch], np.ndarray]):
+        self.predicate = predicate
+
+    def process_batch(self, batch, input_index=0):
+        mask = np.asarray(self.predicate(batch), dtype=bool)
+        out = batch.filter(mask)
+        return [out] if len(out) else []
+
+
+class FlatMapOperator(Operator):
+    name = "flat_map"
+
+    def __init__(self, fn: Callable[[RecordBatch], List[RecordBatch]]):
+        self.fn = fn
+
+    def process_batch(self, batch, input_index=0):
+        return [b for b in self.fn(batch) if b is not None and len(b)]
+
+
+class UnionOperator(Operator):
+    """Pass-through merge of several inputs; the watermark is the minimum
+    over the inputs (the executor's valve). Timed and untimed inputs may
+    mix: nothing checks event time until a window does."""
+
+    name = "union"
+
+    def process_batch(self, batch, input_index=0):
+        return [batch]
+
+
 class KeyByOperator(Operator):
     """Attaches the int64 key identity column (``__key_id__``); routing by
     key group happens in the keyed engine's exchange."""
@@ -134,6 +170,11 @@ class WindowAggOperator(Operator):
         self.capacity = capacity
         self.allowed_lateness = allowed_lateness
         self.fire_projector = fire_projector
+        #: processing-time assigner: records are stamped with their
+        #: wall-clock arrival time and fires come from the executor's
+        #: ticks (on_processing_time)
+        self.uses_processing_time = bool(
+            getattr(assigner, "is_processing_time", False))
         self.windower = None
         #: key_id -> original key value, for non-integer keys
         self._key_values: Dict[int, Any] = {}
@@ -170,6 +211,9 @@ class WindowAggOperator(Operator):
                 allowed_lateness=self.allowed_lateness,
                 fire_projector=self.fire_projector,
                 max_device_slots=ctx.spill.get("max_device_slots", 0),
+                spill_dir=ctx.spill.get("spill_dir"),
+                spill_host_max_bytes=ctx.spill.get(
+                    "spill_host_max_bytes", 0),
                 max_dispatch_ahead=ctx.max_dispatch_ahead,
                 shuffle_mode=ctx.shuffle_mode)
         else:
@@ -231,10 +275,17 @@ class WindowAggOperator(Operator):
             uniq, first = np.unique(batch.key_ids, return_index=True)
             for i, j in zip(uniq.tolist(), first.tolist()):
                 self._key_values.setdefault(i, keys[j])
-        if not batch.has_timestamps:
+        if self.uses_processing_time:
+            # arrival time IS the record time in the processing-time
+            # domain: a whole micro-batch arrives at one instant
+            now = int(time.time() * 1000)
+            batch = batch.with_timestamps(
+                np.full(len(batch), now, dtype=np.int64))
+        elif not batch.has_timestamps:
             raise RuntimeError(
                 f"event-time window {self.name!r} received records without "
-                "timestamps — assign a WatermarkStrategy / timestamp_field")
+                "timestamps — assign a WatermarkStrategy / timestamp_field "
+                "on every input (or use a processing-time window)")
         self.windower.process_batch(batch)
         if self._async_fires:
             self._fences.append(self.windower.make_fence())
@@ -243,6 +294,10 @@ class WindowAggOperator(Operator):
         return []
 
     def process_watermark(self, watermark, input_index=0):
+        if self.uses_processing_time and watermark < MAX_WATERMARK:
+            # event-time watermarks do not drive processing-time windows;
+            # only the end-of-input MAX flushes what remains
+            return []
         t0 = time.perf_counter()
         fired = self.windower.on_watermark(watermark,
                                            async_ok=self._async_fires)
@@ -282,6 +337,13 @@ class WindowAggOperator(Operator):
         if batch is None or len(batch) == 0:
             return []
         return [self._reattach_keys(batch)]
+
+    def on_processing_time(self, now_ms: int) -> List[RecordBatch]:
+        """The executor's wall-clock tick (processing-time windows only):
+        window [start, end) is complete once the clock passes its end.
+        Fired synchronously."""
+        return [self._reattach_keys(b)
+                for b in self.windower.on_watermark(now_ms - 1)]
 
     def _reattach_keys(self, batch: RecordBatch) -> RecordBatch:
         kid = batch.key_ids

@@ -38,6 +38,11 @@ class MonotonousTimestamps(BoundedOutOfOrdernessWatermarks):
         super().__init__(0)
 
 
+class _NoWatermarks(WatermarkGenerator):
+    def on_batch(self, batch: RecordBatch) -> Optional[int]:
+        return None
+
+
 @dataclasses.dataclass
 class WatermarkStrategy:
     """Factory + timestamp assignment."""
@@ -52,6 +57,12 @@ class WatermarkStrategy:
     @staticmethod
     def for_monotonous_timestamps() -> "WatermarkStrategy":
         return WatermarkStrategy(MonotonousTimestamps)
+
+    @staticmethod
+    def no_watermarks() -> "WatermarkStrategy":
+        """No watermark ever (processing-time jobs): only the end of input
+        advances event time."""
+        return WatermarkStrategy(_NoWatermarks)
 
     def with_timestamp_field(self, field: str) -> "WatermarkStrategy":
         return dataclasses.replace(self, timestamp_field=field)

@@ -597,6 +597,8 @@ class SpillTier:
         #: spilled namespaces whose rows were dirty when they left the
         #: device (restored to the dirty bitmap on reload)
         self._dirty: set = set()
+        #: rows of each spilled namespace (a read that never loads a file)
+        self._rows: Dict[int, int] = {}
         self._seq = 0
 
     def __len__(self) -> int:
@@ -618,9 +620,14 @@ class SpillTier:
         assert ns not in self, f"namespace {ns} spilled twice"
         self._host[ns] = entry
         self._host_bytes += self._entry_bytes(entry)
+        self._rows[ns] = len(entry["key_id"])
         if dirty:
             self._dirty.add(ns)
         self._maybe_overflow_to_fs()
+
+    def rows(self, ns: int) -> int:
+        """Row count of a spilled namespace (0 if absent)."""
+        return self._rows.get(ns, 0)
 
     def _maybe_overflow_to_fs(self) -> None:
         if not self.spill_dir or self.host_max_bytes <= 0:
@@ -652,6 +659,7 @@ class SpillTier:
             os.remove(path)
         was_dirty = ns in self._dirty
         self._dirty.discard(ns)
+        self._rows.pop(ns, None)
         if entry is not None:
             entry["__was_dirty__"] = np.asarray(was_dirty)
         return entry
@@ -679,6 +687,7 @@ class SpillTier:
         elif ns in self._fs:
             os.remove(self._fs.pop(ns))
         self._dirty.discard(ns)
+        self._rows.pop(ns, None)
 
     def dirty_namespaces(self) -> List[int]:
         return list(self._dirty)

@@ -1,6 +1,7 @@
 """Window assigners built around slices (port of
 ``flink_tpu/windowing/assigners.py``: tumbling, sliding and cumulative
-event time, and event-time sessions).
+event time, tumbling and sliding processing time, and event-time
+sessions).
 
 Each record is assigned to exactly ONE slice (one vectorized arithmetic op
 over the timestamp column); a window is merged from its slices at fire
@@ -15,6 +16,8 @@ import math
 from typing import List
 
 import numpy as np
+
+from flink_tpu_torch.core.annotations import public, public_evolving
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +90,7 @@ def _align_up(t: int, step: int, offset: int = 0) -> int:
     return t if r == 0 else t + (step - r)
 
 
+@public
 class TumblingEventTimeWindows(WindowAssigner):
     """One slice per window, fire = emit slice."""
 
@@ -99,6 +103,7 @@ class TumblingEventTimeWindows(WindowAssigner):
         return TumblingEventTimeWindows(size_ms, offset_ms)
 
 
+@public
 class SlidingEventTimeWindows(WindowAssigner):
     """HOP windows with slice sharing: slice width = gcd(size, slide)."""
 
@@ -113,6 +118,33 @@ class SlidingEventTimeWindows(WindowAssigner):
         return SlidingEventTimeWindows(size_ms, slide_ms, offset_ms)
 
 
+@public_evolving
+class TumblingProcessingTimeWindows(TumblingEventTimeWindows):
+    """Windows over WALL-CLOCK arrival time: records are assigned by the
+    time they reach the operator, fires are driven by the executor's
+    processing-time ticks, not by watermarks."""
+
+    is_processing_time = True
+
+    @staticmethod
+    def of(size_ms: int, offset_ms: int = 0
+           ) -> "TumblingProcessingTimeWindows":
+        return TumblingProcessingTimeWindows(size_ms, offset_ms)
+
+
+@public_evolving
+class SlidingProcessingTimeWindows(SlidingEventTimeWindows):
+    """HOP over arrival time, slice-shared like the event-time form."""
+
+    is_processing_time = True
+
+    @staticmethod
+    def of(size_ms: int, slide_ms: int, offset_ms: int = 0
+           ) -> "SlidingProcessingTimeWindows":
+        return SlidingProcessingTimeWindows(size_ms, slide_ms, offset_ms)
+
+
+@public
 class CumulativeEventTimeWindows(WindowAssigner):
     """CUMULATE windows: [s, s + step), [s, s + 2 step) ... [s, s +
     max_size), one slice per step."""
@@ -143,6 +175,7 @@ class CumulativeEventTimeWindows(WindowAssigner):
         return self._span_start_end(se) + self.size - self.slice_width
 
 
+@public
 @dataclasses.dataclass(frozen=True)
 class EventTimeSessionWindows:
     """Session windows with a gap: a merging assigner. Sessions merge on

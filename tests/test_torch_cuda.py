@@ -1077,3 +1077,142 @@ def test_cep_advance_and_prune_on_card_equal_cpu(times, within):
     for x, y in zip(*outs):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
     assert outs[1][0].any()
+
+
+# ----------------------------------- slice 11: the budgeted mesh engines
+
+def _budget_steps(seed, n_steps=6, per_step=5000, num_keys=4000,
+                  span=6000):
+    """``tests/test_torch_mesh_spill.py``'s stream: ~2.5k live rows a shard
+    against 1024, float32 values with NaN payloads and infinities."""
+    rng = np.random.default_rng(seed)
+    specials = np.array([0x7fa00001, 0x7fc00002, 0xffc00003, 0x7f800000,
+                         0xff800000, 0x80000000], np.uint32).view(np.float32)
+    steps = []
+    for s in range(n_steps):
+        keys = rng.integers(0, num_keys, per_step).astype(np.int64)
+        vals = rng.random(per_step).astype(np.float32)
+        sp = rng.random(per_step) < 0.02
+        vals[sp] = rng.choice(specials, int(sp.sum()))
+        ts = rng.integers(s * 1000, s * 1000 + span,
+                          per_step).astype(np.int64)
+        steps.append((keys, vals, ts, s * 1000))
+    steps.append((np.array([0], np.int64), np.array([0.0], np.float32),
+                  np.array([n_steps * 1000 + span + 5000], np.int64),
+                  10 ** 9))
+    return steps
+
+
+def _batches_bytes_equal(got, want):
+    assert len(got) == len(want) and want
+    for g, w in zip(got, want):
+        assert sorted(g.names()) == sorted(w.names())
+        for name in w.names():
+            a, b = np.asarray(g[name]), np.asarray(w[name])
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["sum", "count"])
+def test_budgeted_mesh_window_engine_on_card_equals_cpu(agg):
+    """``MeshWindowEngine`` under 1024 rows a shard: every fired batch
+    (hybrid fires included), the spill counters and the snapshot equal
+    the CPU run's, byte for byte; the rank kernel (and, for the float
+    Sum, the ordered fold) launched."""
+    _need_card()
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.stateplane.rank import rank
+    from flink_tpu_torch.windowing.aggregates import (
+        CountAggregate,
+        SumAggregate,
+    )
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def engine(device):
+        return MeshWindowEngine(
+            SlidingEventTimeWindows.of(2000, 1000),
+            SumAggregate("v") if agg == "sum" else CountAggregate(),
+            make_mesh(8, device), capacity_per_shard=1 << 14,
+            max_device_slots=1024)
+
+    steps = _budget_steps(4)
+    r0, f0 = rank.launches, ordered_fold_planes.launches
+    card = engine("cuda")
+    got = _feed(card, steps[:4])
+    snap_card = card.snapshot()
+    got += _feed(card, steps[4:])
+    assert rank.launches > r0
+    assert (ordered_fold_planes.launches > f0) == (agg == "sum")
+    cpu = engine("cpu")
+    want = _feed(cpu, steps[:4])
+    snap_cpu = cpu.snapshot()
+    want += _feed(cpu, steps[4:])
+    _batches_bytes_equal(got, want)
+    _snap_equal(snap_card, snap_cpu)
+    assert card.spill_counters() == cpu.spill_counters()
+    assert card.spill_counters()["rows_reloaded"] > 0
+    assert card.hybrid_fires == cpu.hybrid_fires > 0
+
+
+@pytest.mark.cuda
+def test_namespace_layout_mesh_sessions_on_card_equal_cpu():
+    _need_card()
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.windowing.aggregates import MaxAggregate
+
+    rng = np.random.default_rng(23)
+    steps = []
+    for s in range(6):
+        keys = rng.integers(0, 8000, 5000).astype(np.int64)
+        vals = rng.standard_normal(5000).astype(np.float32)
+        ts = rng.integers(s * 150, s * 150 + 400, 5000).astype(np.int64)
+        steps.append((keys, vals, ts, s * 150 - 300))
+    steps.append((np.array([1], np.int64), np.array([0.0], np.float32),
+                  np.array([50_000], np.int64), 10 ** 9))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = MeshSessionEngine(100, MaxAggregate("v"), make_mesh(8, device),
+                                capacity_per_shard=1 << 14,
+                                max_device_slots=1024,
+                                spill_layout="namespaces")
+        runs[device] = (_feed(eng, steps), eng)
+    _batches_bytes_equal(runs["cuda"][0], runs["cpu"][0])
+    c, p = runs["cuda"][1], runs["cpu"][1]
+    assert c.spill_counters() == p.spill_counters()
+    assert c.spill_counters()["rows_evicted"] > 0 and c.merge_groups > 0
+
+
+@pytest.mark.cuda
+def test_batch_mode_and_row1_on_card():
+    """Queue C item 11's job in batch mode on the card (44.0, as on the
+    CPU), and BASELINE row 1 at 20,000 lines (the oracle holds)."""
+    _need_card()
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks import wordcount
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+
+    rows = ([{"key": i % 2, "value": 1.0, "ts": 100 * i} for i in range(8)]
+            + [{"key": 0, "value": 1.0, "ts": 5000}]
+            + [{"key": 0, "value": 10.0, "ts": 150}] * 4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 9, "execution.device": device,
+            "execution.runtime-mode": "batch", "parallelism.default": 8}))
+        sink = CollectSink()
+        env.from_collection(rows, timestamp_field="ts",
+                            watermark_strategy=WatermarkStrategy
+                            .for_bounded_out_of_orderness(0)) \
+            .key_by("key").window(TumblingEventTimeWindows.of(1000)) \
+            .sum("value").sink_to(sink)
+        env.execute("batch")
+        out[device] = sink.rows()
+    assert out["cuda"] == out["cpu"]
+    assert [r["sum_value"] for r in out["cuda"]
+            if r["key"] == 0 and r["window_start"] == 0] == [44.0]
+    assert wordcount.run(20_000, "cuda")["oracle_ok"]

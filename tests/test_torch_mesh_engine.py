@@ -167,8 +167,8 @@ def test_mesh_steps_match_reference(eight_device_mesh):
 def test_unported_features_raise():
     asg, agg = tasg.TumblingEventTimeWindows.of(100), tagg.CountAggregate()
     mesh = make_mesh(P, "cpu")
-    with pytest.raises(NotImplementedError, match="spill"):
-        TEngine(asg, agg, mesh, max_device_slots=4096)
+    with pytest.raises(NotImplementedError, match="two-level"):
+        TEngine(asg, agg, mesh, host_topology=object())
     with pytest.raises(NotImplementedError, match="shuffle.mode"):
         TEngine(asg, agg, mesh, shuffle_mode="host")
     eng = TEngine(asg, agg, mesh)

@@ -726,7 +726,7 @@ def _item(exc) -> str:
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"spill_layout": "namespaces", "max_device_slots": 1024}, "7c"),
+    ({"spill_layout": "namespaces", "shuffle_mode": "host"}, "12"),
     ({"shuffle_mode": "host"}, "12"),
     ({"host_topology": object()}, "12"),
     ({"memory": object()}, "12"),
@@ -743,7 +743,7 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
     (lambda e: e.query_sessions(1), "12"),
     (lambda e: e.query_batch([1]), "12"),
     (lambda e: e.arm_replica(), "12"),
-    (lambda e: e.attach_watchdog(None), "12"),
+    (lambda e: e.attach_watchdog(None), "8b"),
     (lambda e: e.snapshot_sharded(), "8b"),
     (lambda e: e.restore_key_groups({}, [0]), "8b"),
     (lambda e: e.reshard(4), "12"),
