@@ -230,15 +230,47 @@ Phases, each fatal on failure (no result line is printed then):
     runs them alone (each also as ``phase_mesh_spill``,
     ``phase_mesh_budget_q5``, ``phase_mesh_sessions_ns``,
     ``phase_wordcount`` and ``phase_batch_mode``).
+18. shard-granular failure domains (after phase 17): (18a) BASELINE row 7
+    (``tools/bench_suite.py:332-370``, ``tools/chaos_smoke.py:40-125``) at
+    its own size through ``flink_tpu_torch/benchmarks/shard_loss.py``:
+    1,000,000 keys, 8 steps of 125,000 records, the session engine at P=4
+    with 1<<14 rows a shard, ``device.lost`` at the 15th probe of shard 1,
+    seed 7, a checkpoint every 2 steps, against ``SessionWindower``: no
+    divergence, one shard lost, one unit restored, 0 < records replayed
+    <= events/4, rows evicted > 0; the recovery ms and its parts, the
+    survivors' rows moved, events/s and the launches before and after the
+    loss printed; (18b) Q5-revenue at P=8 (10M bids in steps of 1<<20, HOP
+    10 s / 2 s, float32 Sum of the price) through
+    ``run_shard_loss_verify``, shard 3 lost at step 5's watermark (after
+    the second checkpoint), against ``SliceSharedWindower``: the same
+    gates with events/8 (no eviction gate: the engine has no budget), the
+    rank kernel launched at D=8 before the loss and at D=7 after it, the
+    ordered fold launched; (18c) card == CPU bit for bit (the committed
+    windows, the report's signature, the final engine snapshot) for (a)
+    at 60,000 keys and for (b)'s job over its first 2M bids in steps of
+    1<<18 with a live reshard 8 -> 5 -> 8 (``run_crash_restore_verify``'s
+    ``rescales``) in place of the loss; (18d) Q5 at P=8 through
+    ``env.execute()`` over 3M bids with ``watchdog.enabled``: the rows
+    equal the job without it and sections were timed; with ``device.lost``
+    armed, ``execute()`` raises ``ShardFailedError`` naming shard 5; (18e)
+    the engines of 15(a) (the Q8 join shape, after 1<<19 records) and
+    16(a) (the CEP row, after 8 batches) mid-run, on the card and on the
+    CPU: every shard unit restored into a fresh engine with its key-group
+    filter and merged equals the merge of the units, whose union is the
+    snapshot; card == CPU. ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_shard_loss(torch)'`` runs phase 18 alone.
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
 15(a), 15(b), the card run of 15(d) and 15(e), 16(a), each card run of
 16(b), the card run of 16(d), the card runs of 9(b), 17(a), 17(b), 17(c)
-and 17(d), and read just after; each phase fails if a kernel of its path
-did not launch (the rank at parallelism 8; the ordered fold in phases 6,
-8, 9(b), 11, 12, 13, 14(b), 15(e), 17(b) and 17(c) — row 1's `.sum` keeps
-a float32 leaf —, Count being an integer fold).
+and 17(d), 18(a) and 18(b) (from the harness's first engine on: the
+oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
+18(e)'s card engines, and read just after; each phase fails if a kernel of
+its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
+before the loss and at D=7 after it —; the ordered fold in phases 6, 8,
+9(b), 11, 12, 13, 14(b), 15(e), 17(b), 17(c), 18(a), 18(b) and 18(c) —
+row 1's `.sum` keeps a float32 leaf —, Count being an integer fold).
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -3481,6 +3513,326 @@ def phase_slice11(torch) -> dict:
             "batch_mode": phase_batch_mode(torch)}
 
 
+# ------------------------------------------------------------ phase 18
+
+
+def _gate(where: str, failures) -> None:
+    if failures:
+        raise AssertionError(f"{where}: " + "; ".join(failures))
+
+
+def _print_loss(tag: str, row: dict) -> None:
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in
+                      row["recovery_parts_ms"].items())
+    print(f"{tag}: {row['events']:,} events over {row['shards']} shards, "
+          f"shard {row['dead']} lost at P={row['P_at_loss']} -> "
+          f"P={row['P_after_loss']}: recovery "
+          f"{row['shard_loss_recovery_ms']:.2f} ms ({parts}); "
+          f"{row['survivor_rows']:,} survivor rows moved "
+          f"({row['survivor_rows_resident']:,} resident, "
+          f"{row['survivor_rows_spilled']:,} to pages); "
+          f"{row['records_replayed']:,} records replayed (bound "
+          f"{row['events'] // row['shards']:,}); {row['windows']:,} "
+          f"committed windows equal the oracle; "
+          f"{row['events_per_s']:,.0f} events/s over the chaotic run; "
+          f"launches before the loss {row['launches_before_loss']}, "
+          f"after {row['launches_after_loss']}")
+
+
+def shard_loss_row7(torch) -> dict:
+    """18(a): BASELINE row 7 at its own size on the card."""
+    from flink_tpu_torch.benchmarks import shard_loss as sl
+
+    row = sl.run("row7", "cuda")["row"]
+    fails = list(row["failures"])
+    if row["launches"]["exchange_rank"] <= 0 or \
+            row["launches"]["ordered_fold"] <= 0:
+        fails.append(f"a kernel did not launch ({row['launches']})")
+    if row["launches_after_loss"]["exchange_rank"] <= 0:
+        fails.append("the rank kernel did not launch after the loss")
+    _gate("phase 18(a)", fails)
+    _print_loss("phase 18(a)", row)
+    print("shard_loss_row7 " + json.dumps(row))
+    return row
+
+
+def shard_loss_q5rev(torch) -> dict:
+    """18(b): Q5-revenue at P=8 through run_shard_loss_verify on the card;
+    the rank kernel launches at D=8 before the loss and at D=7 after it."""
+    from flink_tpu_torch.benchmarks import shard_loss as sl
+
+    row = sl.run("q5rev", "cuda")["row"]
+    fails = list(row["failures"])
+    if (row["P_at_loss"], row["P_after_loss"]) != (8, 7):
+        fails.append(f"mesh {row['P_at_loss']} -> {row['P_after_loss']}")
+    if not row["launches_before_loss"]["exchange_rank"] or \
+            row["launches_after_loss"]["exchange_rank"] <= 0:
+        fails.append("the rank kernel did not launch at D=8 and at D=7 "
+                     f"({row['launches_before_loss']}, "
+                     f"{row['launches_after_loss']})")
+    if row["launches"]["ordered_fold"] <= 0:
+        fails.append("the ordered fold did not launch")
+    _gate("phase 18(b)", fails)
+    _print_loss("phase 18(b)", row)
+    print("shard_loss_q5rev " + json.dumps(row))
+    return row
+
+
+def _reshard_run(device: str, steps, schedule) -> dict:
+    """(b)'s job with live reshards in place of the loss, through
+    run_crash_restore_verify with an empty fault plan."""
+    import tempfile
+
+    from flink_tpu_torch.benchmarks import shard_loss as sl
+    from flink_tpu_torch.chaos.harness import run_crash_restore_verify
+    from flink_tpu_torch.chaos.injection import FaultPlan
+
+    make_engine, make_oracle = sl.q5rev_makers(device)
+    seen = {}
+    with tempfile.TemporaryDirectory(prefix="reshard-") as tmp:
+        rep = run_crash_restore_verify(
+            sl.watched(make_engine, seen), make_oracle, steps,
+            FaultPlan(rules=[]), seed=sl.SEED,
+            ckpt_root=os.path.join(tmp, "ckpt"), checkpoint_every=2,
+            rescales=schedule)
+    return {"report": rep, "engine": seen["engine"],
+            "launches": sl.launches()}
+
+
+def shard_loss_card_equals_cpu(torch, row7_keys: int = 60_000,
+                               reshard_records: int = 2_000_000) -> dict:
+    """18(c): (a)'s scenario at ``row7_keys`` keys, and (b)'s job over its
+    first ``reshard_records`` bids in steps of 1<<18 with a live reshard
+    8 -> 5 -> 8 in place of the loss, on the card and on the CPU: the
+    committed windows, the report's signature and the final engine
+    snapshot equal bit for bit."""
+    from flink_tpu_torch.benchmarks import shard_loss as sl
+
+    out = {}
+    loss = {}
+    for device in ("cuda", "cpu"):
+        r = sl.run("row7", device, keys=row7_keys)
+        _gate(f"phase 18(c) row 7 on {device}", r["row"]["failures"])
+        loss[device] = r
+    fails = []
+    for what, got, want in (
+            ("signature", loss["cuda"]["report"].signature(),
+             loss["cpu"]["report"].signature()),
+            ("committed windows", loss["cuda"]["report"].committed,
+             loss["cpu"]["report"].committed)):
+        if got != want:
+            fails.append(f"row 7: {what} differ")
+    diffs = _snap_diffs(loss["cuda"]["engine"].snapshot("savepoint"),
+                        loss["cpu"]["engine"].snapshot("savepoint"))
+    if diffs:
+        fails.append(f"row 7: final snapshots differ at {diffs[:5]}")
+    out["row7"] = {"keys": row7_keys,
+                   "windows": loss["cuda"]["report"].windows,
+                   "signature": loss["cuda"]["report"].signature(),
+                   "launches": loss["cuda"]["row"]["launches"]}
+    steps = sl.q5rev_steps(reshard_records, step=1 << 18)
+    schedule = {3: 5, 6: 8}
+    rs = {d: _reshard_run(d, steps, schedule) for d in ("cuda", "cpu")}
+    for what, got, want in (
+            ("signature", rs["cuda"]["report"].signature(),
+             rs["cpu"]["report"].signature()),
+            ("committed windows", rs["cuda"]["report"].committed,
+             rs["cpu"]["report"].committed)):
+        if got != want:
+            fails.append(f"reshard: {what} differ")
+    diffs = _snap_diffs(rs["cuda"]["engine"].snapshot("savepoint"),
+                        rs["cpu"]["engine"].snapshot("savepoint"))
+    if diffs:
+        fails.append(f"reshard: final snapshots differ at {diffs[:5]}")
+    rep = rs["cuda"]["report"]
+    if rep.live_handoffs != 2 or rep.diverged:
+        fails.append(f"reshard: {rep.live_handoffs} handoffs, diverged "
+                     f"{rep.diverged}")
+    if rs["cuda"]["launches"]["exchange_rank"] <= 0 or \
+            rs["cuda"]["launches"]["ordered_fold"] <= 0:
+        fails.append(f"reshard: a kernel did not launch "
+                     f"({rs['cuda']['launches']})")
+    _gate("phase 18(c)", fails)
+    out["reshard"] = {"records": reshard_records, "schedule": schedule,
+                      "windows": rep.windows,
+                      "signature": rep.signature(),
+                      "last_reshard": rs["cuda"]["engine"].last_reshard,
+                      "launches": rs["cuda"]["launches"]}
+    launches = {k: out["row7"]["launches"][k] + out["reshard"]["launches"][k]
+                for k in out["reshard"]["launches"]}
+    print(f"phase 18(c): card == CPU bit for bit — row 7 at "
+          f"{row7_keys:,} keys ({out['row7']['windows']:,} committed "
+          f"windows, signature and final snapshot equal) and Q5-revenue "
+          f"over {reshard_records:,} bids with a live reshard 8 -> 5 -> 8 "
+          f"({rep.windows:,} windows, equal to the oracle; last reshard "
+          f"{out['reshard']['last_reshard']}); launches {launches}")
+    out["launches"] = launches
+    return out
+
+
+def watchdog_executor(torch, records: int = 3_000_000) -> dict:
+    """18(d): Q5 at P=8 through env.execute() with watchdog.enabled: the
+    rows equal the same job without it and sections were timed; with
+    device.lost armed, execute() raises ShardFailedError naming the
+    shard."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.chaos import injection as chaos
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watchdog import ShardFailedError
+
+    def job(extra):
+        env = StreamExecutionEnvironment(Configuration({
+            "parallelism.default": 8, "execution.micro-batch.size": 1 << 20,
+            "execution.device": "cuda", **extra}))
+        sink = CollectSink()
+        build_q5(env, BidSource(total_records=records,
+                                num_auctions=AUCTIONS,
+                                events_per_second_of_eventtime=RATE)
+                 ).sink_to(sink)
+        result = env.execute()
+        torch.cuda.synchronize()
+        return sink.rows(), result
+
+    plain, _ = job({})
+    reset_counts()
+    rows, result = job({"watchdog.enabled": True})
+    counts = read_counts()
+    wd = result.metrics["watchdog"]
+    fails = []
+    if rows != plain:
+        fails.append("rows differ from the job without the watchdog")
+    if wd["sections_timed"] <= 0 or wd["declared_dead"] != 0:
+        fails.append(f"watchdog counters {wd}")
+    if counts["exchange_rank"] <= 0:
+        fails.append("the rank kernel did not launch")
+    plan = chaos.FaultPlan(rules=[chaos.FaultRule(
+        pattern="device.lost", nth=2, where={"shard": 5})])
+    raised = None
+    with chaos.chaos_active(plan, 7):
+        try:
+            job({"watchdog.enabled": True})
+        except ShardFailedError as e:
+            raised = e
+    if raised is None or raised.shard != 5 or "shard 5" not in str(raised):
+        fails.append(f"device.lost did not leave execute() naming shard 5 "
+                     f"({raised!r})")
+    _gate("phase 18(d)", fails)
+    print(f"phase 18(d): Q5 at P=8 with watchdog.enabled over {records:,} "
+          f"bids: {len(rows):,} rows equal the job without it; watchdog "
+          f"{wd}; with device.lost armed execute() raised "
+          f"ShardFailedError: {raised}; launches {counts}")
+    return {"rows": len(rows), "watchdog": wd, "launches": counts}
+
+
+def _units_check(eng, fresh) -> tuple:
+    """Each unit restored into ``fresh()`` with its key-group filter and
+    merged, against the merge of the units themselves: (merged state,
+    differing paths)."""
+    units = eng.snapshot_sharded()
+    restored = []
+    for (g0, g1), unit in units.items():
+        f = fresh()
+        f.restore(unit, key_group_filter=range(g0, g1 + 1))
+        restored.append(f.snapshot_sharded()[(g0, g1)])
+    whole = eng.merge_unit_snapshots(list(units.values()))
+    return whole, _snap_diffs(eng.merge_unit_snapshots(restored), whole)
+
+
+def units_joins_cep(torch, join_records: int = 1 << 19,
+                    cep_batches: int = 8) -> dict:
+    """18(e): the engines of 15(a) (the Q8 join shape) and 16(a) (the CEP
+    row) mid-run — after ``join_records`` records and ``cep_batches``
+    batches — on the card and on the CPU: every shard unit restored into a
+    fresh engine with its key-group filter and merged equals the merge of
+    the units, and the union equals the full snapshot; card == CPU."""
+    from flink_tpu_torch.benchmarks import cep as cb
+    from flink_tpu_torch.benchmarks import joins as jb
+    from flink_tpu_torch.core.records import (
+        KEY_ID_FIELD,
+        TIMESTAMP_FIELD,
+        RecordBatch,
+    )
+
+    s = jb.SHAPES["q8"]
+    got, fails, counts = {}, [], None
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            reset_counts()
+        je = jb.make_engine("q8", device)
+        jb.drive(je, join_records, s["num_keys"], s["rate"], s["band_ms"],
+                 s["seed"])
+        ce = cb.make_engine(device)
+        for i, (keys, vals, ts) in enumerate(cb.stream(1 << 30)):
+            if i == cep_batches:
+                break
+            ce.process_batch(RecordBatch({
+                KEY_ID_FIELD: keys, "v": vals, TIMESTAMP_FIELD: ts}))
+            ce.on_watermark(int(ts[-1]) + 1 - cb.WM_LAG_MS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        jw, jd = _units_check(je, lambda: jb.make_engine("q8", device))
+        cw, cd = _units_check(ce, lambda: cb.make_engine(device))
+        full = je.snapshot()
+        for side in ("left", "right"):
+            if _snap_diffs(jw[side]["table"], full[side]["table"]):
+                fails.append(f"join units on {device}: the {side} union "
+                             "differs from the snapshot")
+        # the CEP merge orders state rows by key, pending rows by
+        # sequence and matches by rid
+        full = ce.snapshot()
+        for name, by in (("state", "key_id"), ("pending", "seq"),
+                         ("matches", "rid")):
+            order = np.argsort(np.asarray(full[name][by]), kind="stable")
+            if _snap_diffs(cw[name], {col: np.asarray(v)[order]
+                                      for col, v in full[name].items()}):
+                fails.append(f"CEP units on {device}: the {name} union "
+                             "differs from the snapshot")
+        if cw["key_values"] != full["key_values"]:
+            fails.append(f"CEP units on {device}: the key values' union "
+                         "differs from the snapshot")
+        if jd or cd:
+            fails.append(f"units on {device}: restored merges differ at "
+                         f"{(jd + cd)[:5]}")
+        got[device] = (jw, cw)
+    for name, i in (("join", 0), ("cep", 1)):
+        d = _snap_diffs(got["cuda"][i], got["cpu"][i])
+        if d:
+            fails.append(f"{name} units: card != CPU at {d[:5]}")
+    if counts["exchange_rank"] <= 0:
+        fails.append("the rank kernel did not launch")
+    _gate("phase 18(e)", fails)
+    jn = sum(len(got["cuda"][0][s_]["table"].get("key_id", ()))
+             for s_ in ("left", "right"))
+    cn = len(got["cuda"][1]["state"]["key_id"])
+    print(f"phase 18(e): join (Q8 shape, {join_records:,} records, "
+          f"{jn:,} rows) and CEP ({cep_batches} batches, {cn:,} state "
+          f"rows) shard units restored with key_group_filter and merged "
+          f"equal the full snapshot, card == CPU bit for bit; launches "
+          f"{counts}")
+    return {"join_rows": jn, "cep_state_rows": cn, "launches": counts}
+
+
+def phase_shard_loss(torch) -> dict:
+    """Phase 18: shard-granular failure domains, (a)-(e)."""
+    from flink_tpu_torch.stateplane import cuda_build
+
+    cuda_build.build_all()
+    t0 = time.perf_counter()
+    parts = {"row7": shard_loss_row7(torch),
+             "q5rev": shard_loss_q5rev(torch),
+             "card_equals_cpu": shard_loss_card_equals_cpu(torch),
+             "watchdog": watchdog_executor(torch),
+             "units": units_joins_cep(torch)}
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("exchange_rank", "ordered_fold")}
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return {**parts, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -3498,6 +3850,7 @@ def main() -> int:
                     help="records of phase 16's CEP row (4M: "
                     "tools/bench_cep.py's size)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3540,9 +3893,10 @@ def main() -> int:
     joins = phase_joins(torch, args.join_records, args.q7_records)
     cep = phase_cep(torch, args.cep_records)
     slice11 = phase_slice11(torch)
+    shard_loss = phase_shard_loss(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values())
+            *slice11.values(), shard_loss)
 
     kernels = [{
         "name": "exchange_rank",
@@ -3569,6 +3923,8 @@ def main() -> int:
         "bound_by": fold["bound_by"],
         "library_ms": None,
     }]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,12 +36,13 @@ Documented deviations from the oracle, none visible in emitted rows:
   their next event reloads them (the oracle deletes idle NFAs at every
   watermark).
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-shard-granular snapshots (``snapshot_sharded``, ``merge_unit_snapshots``,
-``restore(key_group_filter=)``) and the device watchdog (item 8b);
-``shuffle_mode="host"`` on the device backend, the matched-pattern
-replica (``arm_match_replica``), live ``reshard`` and the metric group
-(item 12). The reference's flight-recorder spans are not carried: the
+Shard-granular units (``snapshot_sharded``, ``merge_unit_snapshots``,
+``restore(key_group_filter=)``) and the device watchdog's hooks are as in
+the mesh window engines. Not ported, each raising
+``NotImplementedError`` naming its ROADMAP item: ``shuffle_mode="host"``
+on the device backend, the matched-pattern replica
+(``arm_match_replica``), live ``reshard`` and the metric group (item
+12). The reference's flight-recorder spans are not carried: the
 port's profile wraps the engine's methods in host timers instead
 (``benchmarks/cep.py --profile``).
 """
@@ -69,7 +70,11 @@ from flink_tpu_torch.parallel.shuffle import (
     stage_device_exchange,
 )
 from flink_tpu_torch.runtime.pending import Fence, harvest_to_host
-from flink_tpu_torch.state.keygroups import assign_key_groups
+from flink_tpu_torch.runtime.watchdog import WatchdogHooks
+from flink_tpu_torch.state.keygroups import (
+    assign_key_groups,
+    shard_key_group_ranges,
+)
 from flink_tpu_torch.state.paged_spill import (
     PagedSpillMap,
     reload_rows_for,
@@ -157,7 +162,7 @@ class _CepShard:
         self.p_vals = {n: np.zeros(0, dtype=dt) for n, dt in schema}
 
 
-class MeshCepEngine:
+class MeshCepEngine(WatchdogHooks):
     """Keyed CEP over device-resident NFA state planes.
 
     ``backend="device"`` requires the pattern to compile to a
@@ -284,31 +289,25 @@ class MeshCepEngine:
     def _drain_fences(self) -> None:
         if self.backend != "device":
             return
-        while self._fences:
-            self._fences.pop(0).block_until_ready()
+        with self._wd_section("fence_drain"):
+            while self._fences:
+                self._fences.pop(0).block_until_ready()
 
     def _push_fence(self) -> None:
-        self._fences.append(Fence(self.device))
+        with self._wd_section("dispatch_fence"):
+            self._fences.append(Fence(self.device))
         # one staging generation may be in flight; the next must wait
         if len(self._fences) > 1:
-            self._fences.pop(0).block_until_ready()
+            with self._wd_section("fence_drain"):
+                self._fences.pop(0).block_until_ready()
 
     # -------------------------------------------------------- not ported
-
-    def attach_watchdog(self, wd) -> None:
-        raise _not_ported("the device watchdog", "8b")
 
     def register_metrics(self, group) -> None:
         raise _not_ported("the cep metric group", 12)
 
     def arm_match_replica(self, serving: bool = False):
         raise _not_ported("the matched-pattern read replica", 12)
-
-    def snapshot_sharded(self, mode: str = "full"):
-        raise _not_ported("shard-granular snapshots", "8b")
-
-    def merge_unit_snapshots(self, units):
-        raise _not_ported("shard-granular snapshots", "8b")
 
     def reshard(self, new_shards: int, devices=None):
         raise _not_ported("live reshard", 12)
@@ -466,6 +465,7 @@ class MeshCepEngine:
     def on_watermark(self, watermark: int, input_index: int = 0
                      ) -> List[RecordBatch]:
         watermark = int(watermark)
+        self._wd_boundary()
         if self.backend == "host":
             out = self._op.process_watermark(watermark)
             self.matches_emitted += sum(len(b) for b in out)
@@ -559,7 +559,8 @@ class MeshCepEngine:
             matches_d, alive_d = kernels.cep_advance(
                 self._planes, self._pend, dev[0], dev[1], dev[2], dev[3],
                 self._tables, steps=e_max)
-            host_m, host_alive = harvest_to_host([matches_d, alive_d])
+            host_m, host_alive = self._harvest_get([matches_d, alive_d],
+                                                   "cep_fire_harvest")
             # decode in the oracle's GLOBAL emission order: keys in
             # pending-dict insertion order, each key's due matches
             # grouped, event order within key
@@ -767,8 +768,8 @@ class MeshCepEngine:
         block = np.zeros((self.P, G), dtype=np.int32)
         for p, slots in evict.items():
             block[p, :len(slots)] = slots
-        host = harvest_to_host(kernels.cep_gather(
-            self._planes, self._to_device(block)))
+        host = self._harvest_get(kernels.cep_gather(
+            self._planes, self._to_device(block)), "evict_harvest")
         for p, slots in evict.items():
             sh = self._st[p]
             m = len(slots)
@@ -917,8 +918,8 @@ class MeshCepEngine:
             for j, s in enumerate(slots):
                 block[p, j] = s
                 at[(p, s)] = j
-        vals = harvest_to_host(kernels.cep_gather(
-            self._match_planes, self._to_device(block)))
+        vals = self._harvest_get(kernels.cep_gather(
+            self._match_planes, self._to_device(block)), "match_harvest")
         for qi, kid in enumerate(key_ids.tolist()):
             got = []
             for ri, s in want.get(int(kid), ()):
@@ -1005,7 +1006,7 @@ class MeshCepEngine:
             }
         self._drain_fences()
         R = self._layout.ring
-        host = harvest_to_host(self._planes)
+        host = self._harvest_get(self._planes, "snapshot_harvest")
         schema = self._schema or []
         st_cols: Dict[str, list] = {
             "key_id": [], "alive": [], "ring_seq": [], "ts_hist": []}
@@ -1128,8 +1129,9 @@ class MeshCepEngine:
 
     def restore(self, snap: Dict[str, object],
                 key_group_filter=None) -> None:
-        if key_group_filter is not None:
-            raise _not_ported("restore(key_group_filter=...)", "8b")
+        """Restore the state rows, pending events, match store and key
+        bookkeeping, re-sharded by key group; ``key_group_filter`` keeps
+        only the keys of those groups (a shard unit's range)."""
         if snap.get("mode", "device") != self.backend:
             raise RuntimeError(
                 f"cep snapshot mode {snap.get('mode')!r} != engine "
@@ -1161,8 +1163,21 @@ class MeshCepEngine:
         self._clock = max(int(snap.get("clock", 1)), 1)
 
         def _table(name: str) -> Dict[str, np.ndarray]:
-            return {k: np.asarray(v) for k, v in
-                    (snap.get(name) or {"key_id": np.zeros(0)}).items()}
+            table = {k: np.asarray(v) for k, v in
+                     (snap.get(name) or {"key_id": np.zeros(0)}).items()}
+            if key_group_filter is None or not len(table["key_id"]):
+                return table
+            kg = np.asarray(table["key_group"], dtype=np.int64)
+            keep = np.isin(kg, np.asarray(sorted(
+                int(g) for g in key_group_filter)))
+            return {k: v[keep] for k, v in table.items()}
+
+        def _key_in_filter(keys: np.ndarray) -> np.ndarray:
+            if key_group_filter is None:
+                return np.ones(len(keys), dtype=bool)
+            kg = assign_key_groups(keys, self.max_parallelism)
+            return np.isin(kg, np.asarray(sorted(
+                int(g) for g in key_group_filter)))
 
         # ---- NFA state rows in snapshot order: the first capacity-1 rows
         # per shard stay resident, the rest re-home as page cohorts
@@ -1283,15 +1298,123 @@ class MeshCepEngine:
         ko = snap.get("key_order") or {}
         ko_keys = np.asarray(ko.get("key", ()), dtype=np.int64)
         ko_vals = np.asarray(ko.get("order", ()), dtype=np.int64)
-        pairs = sorted(zip(ko_vals.tolist(), ko_keys.tolist()))
-        self._key_order = {int(k): int(o) for o, k in pairs}
+        if len(ko_keys):
+            keep = _key_in_filter(ko_keys)
+            pairs = sorted(zip(ko_vals[keep].tolist(),
+                               ko_keys[keep].tolist()))
+            self._key_order = {int(k): int(o) for o, k in pairs}
+        else:
+            self._key_order = {}
         kv = dict(snap.get("key_values") or {})
+        if kv and key_group_filter is not None:
+            kvk = np.asarray(list(kv.keys()), dtype=np.int64)
+            keep = _key_in_filter(kvk)
+            kv = {int(k): kv[int(k)]
+                  for k, ok in zip(kvk.tolist(), keep) if ok}
         self._key_values = {int(k): v for k, v in kv.items()}
         sc = snap.get("spill") or {}
         pm = self._st[0].pmap
         for name, v in sc.items():
             if hasattr(pm, name):
                 setattr(pm, name, getattr(pm, name) + int(v))
+
+    # ---------------------------------------------- shard-granular units
+
+    def shard_key_groups(self) -> List[Tuple[int, int]]:
+        return shard_key_group_ranges(self.P, self.max_parallelism,
+                                      self.key_group_range)
+
+    def snapshot_sharded(self, mode: str = "full"
+                         ) -> Dict[Tuple[int, int], Dict[str, object]]:
+        """One independently restorable unit per shard's key-group range:
+        the three tables split by ``key_group``, the order and value maps
+        by the key's group, the scalars replicated. The union of the units
+        is ``snapshot()``."""
+        snap = self.snapshot(mode)
+        units: Dict[Tuple[int, int], Dict[str, object]] = {}
+        scalars = {k: v for k, v in snap.items()
+                   if k not in ("state", "pending", "matches",
+                                "key_order", "key_values")}
+        ko = snap["key_order"]
+        ko_kg = assign_key_groups(np.asarray(ko["key"], dtype=np.int64),
+                                  self.max_parallelism)
+        kv_keys = np.asarray(list(snap["key_values"].keys()),
+                             dtype=np.int64)
+        kv_kg = assign_key_groups(kv_keys, self.max_parallelism)
+        for g0, g1 in self.shard_key_groups():
+            unit = dict(scalars)
+            for name in ("state", "pending", "matches"):
+                table = snap[name]
+                kg = np.asarray(table["key_group"], dtype=np.int64)
+                mask = (kg >= g0) & (kg <= g1)
+                unit[name] = {k: np.asarray(v)[mask]
+                              for k, v in table.items()}
+            m = (ko_kg >= g0) & (ko_kg <= g1)
+            unit["key_order"] = {"key": np.asarray(ko["key"])[m],
+                                 "order": np.asarray(ko["order"])[m]}
+            mv = (kv_kg >= g0) & (kv_kg <= g1)
+            unit["key_values"] = {
+                int(k): snap["key_values"][int(k)]
+                for k, ok in zip(kv_keys.tolist(), mv) if ok}
+            units[(int(g0), int(g1))] = unit
+        return units
+
+    def merge_unit_snapshots(self, units: List[Dict[str, object]]
+                             ) -> Dict[str, object]:
+        """Reassemble one snapshot from shard units: tables in their
+        snapshot order (state by key, pending by sequence, matches by
+        rid), the key order by its order value, scalars by max."""
+        if not units:
+            return {"kind": "cep", "mode": "device"}
+        merged: Dict[str, object] = {
+            "kind": "cep", "mode": "device",
+            "layout_key": units[0].get("layout_key"),
+            "schema": next((u["schema"] for u in units
+                            if u.get("schema")), []),
+            "last_wm": max((u.get("last_wm") for u in units
+                            if u.get("last_wm") is not None),
+                           default=None),
+            "next_seq": max(int(u.get("next_seq", 1)) for u in units),
+            "next_rid": max(int(u.get("next_rid", 1)) for u in units),
+            "order_seq": max(int(u.get("order_seq", 0)) for u in units),
+            "clock": max(int(u.get("clock", 1)) for u in units),
+        }
+        # counters and spill totals are one engine's, replicated per unit:
+        # the element-wise max reassembles them, never doubles
+        for field in ("counters", "spill"):
+            acc: Dict[str, int] = {}
+            for u in units:
+                for k, v in (u.get(field) or {}).items():
+                    acc[k] = max(acc.get(k, 0), int(v))
+            merged[field] = acc
+        sort_by = {"state": "key_id", "pending": "seq", "matches": "rid"}
+        for name, by in sort_by.items():
+            tables = [u.get(name) for u in units]
+            tables = [t for t in tables if t is not None
+                      and len(np.asarray(t.get("key_id", ())))]
+            if not tables:
+                merged[name] = {"key_id": np.zeros(0, dtype=np.int64)}
+                continue
+            cols = sorted(set().union(*(set(t) for t in tables)))
+            table = {k: np.concatenate([np.asarray(t[k]) for t in tables])
+                     for k in cols}
+            order = np.argsort(table[by], kind="stable")
+            merged[name] = {k: v[order] for k, v in table.items()}
+        ko_pairs = []
+        kv: Dict[int, Any] = {}
+        for u in units:
+            ko = u.get("key_order") or {}
+            ko_pairs.extend(zip(
+                np.asarray(ko.get("order", ()), dtype=np.int64).tolist(),
+                np.asarray(ko.get("key", ()), dtype=np.int64).tolist()))
+            kv.update(u.get("key_values") or {})
+        ko_pairs.sort()
+        merged["key_order"] = {
+            "key": np.asarray([k for _o, k in ko_pairs], dtype=np.int64),
+            "order": np.asarray([o for o, _k in ko_pairs],
+                                dtype=np.int64)}
+        merged["key_values"] = kv
+        return merged
 
     # ------------------------------------------------------------ counters
 

@@ -74,6 +74,9 @@ class MeshCepOperator(Operator):
             self.engine = MeshCepEngine(
                 self.pattern, num_shards=1, backend="host",
                 shuffle_mode="host", **kwargs)
+        wd = getattr(ctx, "watchdog", None)
+        if wd is not None:
+            self.engine.attach_watchdog(wd)
 
     def process_batch(self, batch, input_index=0) -> List[RecordBatch]:
         return self.engine.process_batch(batch, input_index)

@@ -31,10 +31,15 @@ the newest checkpoint under a root (or of one snapshot directory) before
 the first batch. The ``task.batch`` fault point sits where every operator
 takes a batch.
 
+``watchdog.enabled`` builds one device watchdog per job and attaches it to
+every mesh engine; a shard it declares dead raises ``ShardFailedError``
+out of ``execute()``, and ``result.metrics["watchdog"]`` holds its
+counters.
+
 Not in this slice: source pump threads (sources are polled inline),
-control requests and stop-with-savepoint, restart strategies, autoscale,
-managed memory, the metrics registry and tracing — see ROADMAP.md (items
-8b and 12).
+control requests and stop-with-savepoint (item 8b), restart strategies,
+autoscale, managed memory, the metrics registry and tracing — see
+ROADMAP.md (item 12).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from flink_tpu_torch.core.config import (
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
 from flink_tpu_torch.runtime.operators import Operator, OperatorContext
+from flink_tpu_torch.runtime.watchdog import watchdog_from_config
 from flink_tpu_torch.runtime.watermarks import WatermarkValve
 
 
@@ -129,6 +135,11 @@ class LocalExecutor:
         #: per checkpoint written: id, incremental, bytes, write ms
         self.checkpoints: List[Dict[str, Any]] = []
         self.restore_ms = 0.0
+        # the device watchdog (watchdog.enabled): one per job, attached to
+        # every mesh engine through the operator context; a
+        # ShardFailedError it raises leaves execute() (the shard-granular
+        # recovery protocol is chaos.harness.run_shard_loss_verify)
+        watchdog = watchdog_from_config(cfg, default_par)
         nodes: Dict[int, _Node] = {}
         sources = [(t, None) for t in graph.sources]
         try:
@@ -158,7 +169,8 @@ class LocalExecutor:
                             "spill_host_max_bytes": cfg.get(
                                 StateOptions.SPILL_HOST_MAX_BYTES),
                         },
-                        pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG)))
+                        pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG),
+                        watchdog=watchdog))
             for t in graph.nodes:
                 n = nodes[t.uid]
                 for child_t in graph.children(t):
@@ -302,6 +314,9 @@ class LocalExecutor:
                     "records_out": n.records_out}
                 for uid, n in nodes.items()},
         }
+        if watchdog is not None:
+            # the numbers the reference's job.<name>.watchdog gauges read
+            metrics["watchdog"] = watchdog.counters()
         if self.checkpoints or restore_from is not None:
             metrics["checkpoints"] = list(self.checkpoints)
             metrics["restore_ms"] = self.restore_ms

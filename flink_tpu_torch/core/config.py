@@ -257,6 +257,27 @@ class CheckpointOptions:
 
 
 
+class WatchdogOptions:
+    """The device watchdog (``runtime/watchdog.py``): deadline-tracked
+    device interactions on the mesh engines and shard quarantine."""
+
+    ENABLED = ConfigOption(
+        "watchdog.enabled", default=False, type=bool,
+        description="Wrap the mesh engines' synchronising device "
+        "interactions (fence waits, harvests) in deadline-tracked "
+        "sections; a shard past its miss budget, or one the device.lost "
+        "fault point kills, is declared dead at the next batch boundary "
+        "(ShardFailedError leaves execute()).")
+    DEADLINE_MS = ConfigOption(
+        "watchdog.deadline-ms", default=0, type=int,
+        description="A device interaction slower than this records a "
+        "deadline miss against its shard(s); 0 tracks heartbeats only.")
+    MAX_MISSES = ConfigOption(
+        "watchdog.max-misses", default=3, type=int,
+        description="Consecutive deadline misses a shard survives before "
+        "it is declared dead.")
+
+
 #: Reference keys the port does not read, each with the values the port
 #: already behaves as and the ROADMAP item that would honour the rest.
 #: ``check_unread_keys`` raises at execute() for any other value, so no
@@ -272,8 +293,6 @@ UNREAD_KEYS = (
      "reference does for values <= 0)", 12),
     (ConfigOption("execution.stage-parallelism", default=0, type=int),
      lambda v: v <= 0, "the stage executor", 12),
-    (ConfigOption("watchdog.enabled", default=False, type=bool),
-     lambda v: not v, "the device watchdog", "8b"),
 )
 
 #: ``stateplane.backend.<family>`` picks the reference's Pallas or XLA

@@ -26,10 +26,10 @@ equal it bit for bit.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
 the two-level exchange and ``shuffle_mode="host"``, the side replicas and
-``query_side_batch``, and live ``reshard`` (item 12); shard-granular
-snapshots (``snapshot_sharded``, ``merge_unit_snapshots``,
-``restore(key_group_filter=)``) and the device watchdog (item 8b). The
-reference's flight-recorder spans are not carried: the port's profiles
+``query_side_batch``, and live ``reshard`` (item 12). Shard-granular
+units (``snapshot_sharded``, ``merge_unit_snapshots``,
+``restore(key_group_filter=)``) and the device watchdog's hooks are as in
+the mesh window engines. The reference's flight-recorder spans are not carried: the port's profiles
 wrap the engine's methods in host timers instead
 (``benchmarks/joins.py --profile``).
 """
@@ -62,6 +62,11 @@ from flink_tpu_torch.parallel.shuffle import (
     stage_device_exchange,
 )
 from flink_tpu_torch.runtime.pending import Fence, harvest_to_host
+from flink_tpu_torch.runtime.watchdog import WatchdogHooks
+from flink_tpu_torch.state.keygroups import (
+    assign_key_groups,
+    shard_key_group_ranges,
+)
 from flink_tpu_torch.state.paged_spill import restore_into_pages
 from flink_tpu_torch.state.slot_table import _not_ported
 
@@ -85,7 +90,7 @@ def _suffixed_names(left_names: Sequence[str],
     return lmap, rmap
 
 
-class JoinEngineBase:
+class JoinEngineBase(WatchdogHooks):
     """Shared machinery of the two-input engines: the dual side tables,
     the staging, eviction, probing and checkpoints."""
 
@@ -158,17 +163,8 @@ class JoinEngineBase:
 
     # -------------------------------------------------------- not ported
 
-    def attach_watchdog(self, wd) -> None:
-        raise _not_ported("the device watchdog", "8b")
-
     def exchange2_traffic(self) -> Dict[str, int]:
         raise _not_ported("the two-level exchange (shuffle.hosts)", 12)
-
-    def snapshot_sharded(self, mode: str = "full"):
-        raise _not_ported("shard-granular snapshots", "8b")
-
-    def merge_unit_snapshots(self, units):
-        raise _not_ported("shard-granular snapshots", "8b")
 
     def reshard(self, new_shards: int, devices=None):
         raise _not_ported("live reshard", 12)
@@ -191,14 +187,17 @@ class JoinEngineBase:
     def _drain_fences(self) -> None:
         if self.backend != "device":
             return
-        while self._fences:
-            self._fences.pop(0).block_until_ready()
+        with self._wd_section("fence_drain"):
+            while self._fences:
+                self._fences.pop(0).block_until_ready()
 
     def _push_fence(self) -> None:
-        self._fences.append(Fence(self.device))
+        with self._wd_section("dispatch_fence"):
+            self._fences.append(Fence(self.device))
         # one staging generation may be in flight; the next must wait
         if len(self._fences) > 1:
-            self._fences.pop(0).block_until_ready()
+            with self._wd_section("fence_drain"):
+                self._fences.pop(0).block_until_ready()
 
     def _ensure_side(self, side_idx: int, batch: RecordBatch
                      ) -> JoinSideTable:
@@ -389,8 +388,9 @@ class JoinEngineBase:
         block = np.zeros((self.P, G), dtype=np.int32)
         for p, slots in per_shard_slots.items():
             block[p, :len(slots)] = slots
-        host = harvest_to_host(kernels.join_gather(self._planes[side_idx],
-                                           self._to_device(block)))
+        host = self._harvest_get(
+            kernels.join_gather(self._planes[side_idx],
+                                self._to_device(block)), "evict_harvest")
         return {p: [h[p][:len(slots)] for h in host]
                 for p, slots in per_shard_slots.items()}
 
@@ -513,7 +513,7 @@ class JoinEngineBase:
         outs = kernels.banded_probe(
             self._planes[store_idx], self._to_device(mirror),
             self._to_device(lo_b), self._to_device(cnt_b), W)
-        return harvest_to_host(outs)
+        return self._harvest_get(outs, "join_probe_harvest")
 
     # ------------------------------------------------------ match assembly
 
@@ -568,7 +568,8 @@ class JoinEngineBase:
         if side is None:
             return {"table": {}, "schema": []}
         if self.backend == "device" and side.device_cols:
-            host = harvest_to_host(self._planes[side_idx])
+            host = self._harvest_get(self._planes[side_idx],
+                                     "snapshot_harvest")
             device_values = [
                 {i: host[j][p]
                  for j, i in enumerate(side.device_cols)}
@@ -602,8 +603,9 @@ class JoinEngineBase:
 
     def restore(self, snap: Dict[str, object],
                 key_group_filter=None) -> None:
-        if key_group_filter is not None:
-            raise _not_ported("restore(key_group_filter=)", "8b")
+        """Restore both side tables, re-sharded by key group;
+        ``key_group_filter`` keeps only the rows of those key groups (a
+        shard unit's range)."""
         for side_idx, name in ((0, "left"), (1, "right")):
             s = snap.get(name) or {}
             table = s.get("table") or {}
@@ -614,13 +616,13 @@ class JoinEngineBase:
             if not schema:
                 continue
             self._init_side(side_idx, schema)
-            self._restore_rows(side_idx, table)
+            self._restore_rows(side_idx, table, key_group_filter)
         self._next_rid = max(int(snap.get("next_rid", 1)),
                              self._next_rid)
         self._restore_meta(snap)
 
-    def _restore_rows(self, side_idx: int,
-                      table: Dict[str, object]) -> None:
+    def _restore_rows(self, side_idx: int, table: Dict[str, object],
+                      key_group_filter=None) -> None:
         side = self.sides[side_idx]
         keys = np.asarray(table.get("key_id", ()), dtype=np.int64)
         if not len(keys):
@@ -633,6 +635,17 @@ class JoinEngineBase:
         leaves = [np.asarray(table[f"leaf_{i}"],
                              dtype=side.schema[i][1])
                   for i in range(len(side.schema))]
+        if key_group_filter is not None:
+            kg = table.get("key_group")
+            kg = (np.asarray(kg, dtype=np.int64) if kg is not None
+                  else assign_key_groups(keys, self.max_parallelism))
+            keep = np.isin(kg, np.asarray(sorted(
+                int(g) for g in key_group_filter)))
+            keys, rids, ts, dirty = (keys[keep], rids[keep], ts[keep],
+                                     dirty[keep])
+            leaves = [lv[keep] for lv in leaves]
+            if not len(keys):
+                return
         self._next_rid = max(self._next_rid, int(rids.max()) + 1)
         shards = self._shards_of(keys)
         if not side.spill_active:
@@ -690,6 +703,73 @@ class JoinEngineBase:
                              self._to_device(slot_block),
                              [self._to_device(v) for v in val_blocks])
 
+    # ---------------------------------------------- shard-granular units
+
+    def shard_key_groups(self) -> List[Tuple[int, int]]:
+        return shard_key_group_ranges(self.P, self.max_parallelism,
+                                      self.key_group_range)
+
+    def snapshot_sharded(self, mode: str = "full"
+                         ) -> Dict[Tuple[int, int], Dict[str, object]]:
+        """One independently restorable unit per shard's key-group range:
+        both sides' rows split by their ``key_group`` column, the scalar
+        metadata replicated. The union of the units is ``snapshot()``."""
+        snap = self.snapshot(mode)
+        units: Dict[Tuple[int, int], Dict[str, object]] = {}
+        for g0, g1 in self.shard_key_groups():
+            unit = {"kind": snap["kind"],
+                    "next_rid": snap["next_rid"],
+                    **{k: v for k, v in snap.items()
+                       if k not in ("kind", "left", "right",
+                                    "next_rid")}}
+            for name in ("left", "right"):
+                s = snap[name]
+                table = s.get("table") or {}
+                kg = np.asarray(table.get("key_group", ()), dtype=np.int64)
+                if len(kg):
+                    mask = (kg >= g0) & (kg <= g1)
+                    unit[name] = {
+                        "table": {k: np.asarray(v)[mask]
+                                  for k, v in table.items()},
+                        "schema": s.get("schema", []),
+                    }
+                else:
+                    unit[name] = {"table": dict(table),
+                                  "schema": s.get("schema", [])}
+            units[(int(g0), int(g1))] = unit
+        return units
+
+    def merge_unit_snapshots(self, units: List[Dict[str, object]]
+                             ) -> Dict[str, object]:
+        """Reassemble one snapshot from shard units (rows in rid order)."""
+        merged: Dict[str, object] = {
+            "kind": self.kind,
+            "next_rid": max((int(u.get("next_rid", 1)) for u in units),
+                            default=1),
+            **self._merge_meta_units(units),
+        }
+        for name in ("left", "right"):
+            tables = [u.get(name, {}).get("table") or {} for u in units]
+            tables = [t for t in tables
+                      if t and len(np.asarray(t.get("key_id", ())))]
+            schema = next((u[name]["schema"] for u in units
+                           if u.get(name, {}).get("schema")), [])
+            if not tables:
+                merged[name] = {"table": {}, "schema": schema}
+                continue
+            cols = sorted(set().union(*(set(t) for t in tables)))
+            table = {k: np.concatenate([np.asarray(t[k]) for t in tables])
+                     for k in cols}
+            order = np.argsort(table["namespace"], kind="stable")
+            merged[name] = {
+                "table": {k: v[order] for k, v in table.items()},
+                "schema": schema,
+            }
+        return merged
+
+    def _merge_meta_units(self, units) -> Dict[str, object]:
+        return {}
+
     # ------------------------------------------------------------ counters
 
     def spill_counters(self) -> Dict[str, int]:
@@ -735,6 +815,7 @@ class MeshIntervalJoinEngine(JoinEngineBase):
                       input_index: int = 0) -> List[RecordBatch]:
         if len(batch) == 0:
             return []
+        self._wd_boundary()
         side_idx = int(input_index)
         side = self._ensure_side(side_idx, batch)
         self._check_schema(side, batch, side_idx)
@@ -770,6 +851,7 @@ class MeshIntervalJoinEngine(JoinEngineBase):
         """Prune expired rows: a left row at t is dead once the watermark
         passes ``t + upper``; a right row at t once it passes ``t -
         lower``."""
+        self._wd_boundary()
         if self.sides[0] is not None:
             self.sides[0].prune(int(watermark) - self.upper)
         if self.sides[1] is not None:
@@ -777,6 +859,9 @@ class MeshIntervalJoinEngine(JoinEngineBase):
         return []
 
     def _meta_snapshot(self) -> Dict[str, object]:
+        return {"lower": self.lower, "upper": self.upper}
+
+    def _merge_meta_units(self, units) -> Dict[str, object]:
         return {"lower": self.lower, "upper": self.upper}
 
 
@@ -797,6 +882,7 @@ class MeshTemporalJoinEngine(JoinEngineBase):
                       input_index: int = 0) -> List[RecordBatch]:
         if len(batch) == 0:
             return []
+        self._wd_boundary()
         if int(input_index) == 0:
             late = np.asarray(batch.timestamps,
                               dtype=np.int64) <= self._emitted_wm
@@ -824,6 +910,7 @@ class MeshTemporalJoinEngine(JoinEngineBase):
         return np.maximum(pos, 0), ok.astype(np.int64)
 
     def on_watermark(self, watermark: int) -> List[RecordBatch]:
+        self._wd_boundary()
         watermark = int(watermark)
         out: List[RecordBatch] = []
         if self._pending:
@@ -906,3 +993,36 @@ class MeshTemporalJoinEngine(JoinEngineBase):
         self._pending = (
             [RecordBatch({k: np.asarray(v) for k, v in pend.items()})]
             if pend else [])
+
+    def _merge_meta_units(self, units) -> Dict[str, object]:
+        pend_tabs = [u.get("pending") for u in units if u.get("pending")]
+        pending = None
+        if pend_tabs:
+            pending = {k: np.concatenate([np.asarray(t[k])
+                                          for t in pend_tabs])
+                       for k in pend_tabs[0]}
+        return {
+            # the OLDEST unit's horizon: its range replays from its
+            # position and must not be judged late
+            "emitted_wm": min((int(u.get("emitted_wm", _NEG))
+                               for u in units), default=_NEG),
+            "late_left_dropped": max(
+                (int(u.get("late_left_dropped", 0)) for u in units),
+                default=0),
+            "pending": pending,
+        }
+
+    def snapshot_sharded(self, mode: str = "full"):
+        units = super().snapshot_sharded(mode)
+        # the pending left rows split by key group like table rows: each
+        # unit replays only its own range
+        for (g0, g1), unit in units.items():
+            pend = unit.get("pending")
+            if not pend:
+                continue
+            kid = np.asarray(pend[KEY_ID_FIELD], dtype=np.int64)
+            kg = assign_key_groups(kid, self.max_parallelism)
+            mask = (kg >= g0) & (kg <= g1)
+            unit["pending"] = {k: np.asarray(v)[mask]
+                               for k, v in pend.items()}
+        return units

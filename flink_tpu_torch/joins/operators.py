@@ -66,6 +66,11 @@ class _DeviceJoinOperator(Operator):
         return _engine_kwargs(ctx, self._capacity, self._max_device_slots,
                               self._spill_dir, self._spill_host_max_bytes)
 
+    def _attach_watchdog(self, ctx) -> None:
+        wd = getattr(ctx, "watchdog", None)
+        if wd is not None:
+            self.engine.attach_watchdog(wd)
+
     def process_batch(self, batch, input_index=0) -> List[RecordBatch]:
         return self.engine.process_batch(batch, input_index)
 
@@ -105,6 +110,7 @@ class DeviceIntervalJoinOperator(_DeviceJoinOperator):
         self.engine = MeshIntervalJoinEngine(
             self.lower, self.upper, suffixes=self.suffixes,
             **self._kwargs(ctx))
+        self._attach_watchdog(ctx)
 
 
 class DeviceTemporalJoinOperator(_DeviceJoinOperator):
@@ -115,6 +121,7 @@ class DeviceTemporalJoinOperator(_DeviceJoinOperator):
     def open(self, ctx) -> None:
         self.engine = MeshTemporalJoinEngine(suffixes=self.suffixes,
                                              **self._kwargs(ctx))
+        self._attach_watchdog(ctx)
 
     @property
     def late_left_dropped(self) -> int:

@@ -28,6 +28,11 @@ on the whole mesh at once:
   on restore, so mesh and single-device snapshots restore into each
   other. Merged and fired sessions leave delta tombstones.
 
+- failure domains: ``MeshSpillSupport``'s reshard, shard loss, unit
+  snapshots and watchdog hooks, with the session metadata dropped and
+  merged per key group (``SessionIntervalSet.drop_key_groups`` and
+  ``merge_restore``).
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
 hot-key salting, the read replica, point queries, host shuffle mode, the
 two-level exchange and managed memory (item 12).
@@ -62,11 +67,10 @@ from flink_tpu_torch.parallel.shuffle import (
     build_exchange_scatter,
     stage_device_exchange,
 )
-from flink_tpu_torch.runtime.pending import PendingFire, harvest_to_host
+from flink_tpu_torch.runtime.pending import PendingFire
 from flink_tpu_torch.state.paged_spill import reload_rows_for, sorted_match
 from flink_tpu_torch.state.slot_table import (
     _not_ported,
-    make_slot_index,
     resolve_slot_hints,
 )
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
@@ -179,28 +183,13 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 f"max_parallelism {max_parallelism} < mesh size {self.P}")
         # growable per-shard indexes, registry-free (the engine frees by
         # slot); the planes stay uniform [P, cap] sized to the largest
-        self.indexes = [
-            make_slot_index(
-                self.capacity, growable=True,
-                on_grow=lambda old, new: self._shard_index_grew(new),
-                max_capacity=self.max_device_slots,
-                track_namespaces=self._track_ns,
-                full_hint=("state spills to host beyond "
-                           "state.slot-table.max-device-slots"
-                           if self.max_device_slots
-                           else "raise state.slot-table.capacity"))
-            for _ in range(self.P)
-        ]
+        self.indexes = self._make_shard_indexes()
         self._init_spill(spill_dir, spill_host_max_bytes)
         self._paged = (spill_layout == "pages"
                        and self.max_device_slots > 0)
         if self._paged:
             self._init_paged()
-        self.accs: Tuple[torch.Tensor, ...] = tuple(
-            torch.full((self.P, self.capacity),
-                       np.asarray(leaf.identity).item(),
-                       dtype=torch_dtype(leaf.dtype), device=self.device)
-            for leaf in agg.leaves)
+        self.accs: Tuple[torch.Tensor, ...] = self._fresh_planes()
         self._build_steps()
         #: session-interval metadata: the native C sweep when it builds,
         #: else the Python plane (bit-identical fires)
@@ -238,6 +227,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         n = len(batch)
         if n == 0:
             return
+        # batch boundary: the engine is consistent at a known source
+        # position — the one point the watchdog may declare a shard dead
+        self._wd_boundary()
         if self._paged:
             # page sweeps queued by fire-path extractions run here
             self._drain_deferred_sweeps()
@@ -264,8 +256,8 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                     if int(per_shard.max()) > budget:
                         half = np.zeros(n, dtype=bool)
                         half[: n // 2] = True
-                        self.process_batch(batch.filter(half))
-                        self.process_batch(batch.filter(~half))
+                        self._ingest_subbatch(batch.filter(half))
+                        self._ingest_subbatch(batch.filter(~half))
                         return
 
         try:
@@ -471,6 +463,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
 
     def on_watermark(self, watermark: int,
                      async_ok: bool = False) -> List[object]:
+        self._wd_boundary()
         pop = self.meta.pop_fired_ex(watermark)
         keys, starts, ends, sids = pop.keys, pop.starts, pop.ends, pop.sids
         hint = pop.slot_hint
@@ -682,13 +675,13 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         arrays = [fire_out[nm] for nm in names] if fire_out else []
         return self._deliver(arrays, build, async_ok)
 
-    @staticmethod
-    def _deliver(arrays, build, async_ok: bool) -> List[object]:
+    def _deliver(self, arrays, build, async_ok: bool) -> List[object]:
         """A PendingFire (its host copies in flight) or, synchronously,
-        the built batch from ONE device-to-host copy."""
+        the built batch from ONE device-to-host copy (a watchdog section
+        either way)."""
         if async_ok:
-            return [PendingFire(arrays, build)]
-        return [build(harvest_to_host(arrays))]
+            return [PendingFire(arrays, build, watchdog=self._watchdog)]
+        return [build(self._harvest_get(arrays))]
 
     # -------------------------------------------- native-plane degradation
 
@@ -724,6 +717,37 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         self._restore_table(snap.get("table", {}), key_group_filter)
         self.meta.restore(snap, key_group_filter=key_group_filter,
                           max_parallelism=self.max_parallelism)
+
+    # ------------------------------------------------ partial-failover hooks
+
+    def _drop_meta_key_groups(self, groups) -> None:
+        # a lost shard's session intervals die with its state rows; the
+        # checkpoint unit (restore_key_groups) brings both back
+        self.meta.drop_key_groups(groups, self.max_parallelism)
+
+    def _merge_restored_meta(self, snap, groups) -> None:
+        self.meta.merge_restore(snap, groups, self.max_parallelism)
+
+    def _filter_meta_snapshot(self, snap, groups):
+        return SessionIntervalSet.filter_snapshot(snap, groups,
+                                                  self.max_parallelism)
+
+    def _merge_meta_snapshots(self, units):
+        _NEG = -(1 << 62)
+        sessions: Dict[int, list] = {}
+        for u in units:
+            for k, ivs in u.get("sessions", {}).items():
+                sessions[int(k)] = list(ivs)  # the ranges are disjoint
+        return {
+            "sessions": sessions,
+            "next_sid": max((int(u.get("next_sid", 1)) for u in units),
+                            default=1),
+            # the OLDEST unit's staleness horizon: its range's records
+            # replay from its position and must not be judged stale
+            "max_fired_watermark": min(
+                (u.get("max_fired_watermark", _NEG) for u in units),
+                default=_NEG),
+        }
 
     # ---------------------------------------------------- not in this slice
 

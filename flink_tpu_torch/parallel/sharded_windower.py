@@ -36,11 +36,19 @@ fault points sit at its sites: ``mesh.dispatch_fence``,
 ``shuffle.device_exchange`` (after the fused dispatch) and
 ``mesh.window_fire``.
 
+Failure domains finer than the job: ``reshard`` rebuilds the planes and
+everything sized by P at a new shard count and lands every row on its new
+owner; ``lose_shard(s)`` evacuates the survivors onto ``P - k`` shards,
+``restore_key_groups`` lands one checkpoint unit's range, and
+``snapshot_sharded`` / ``merge_unit_snapshots`` split and join the
+snapshot by the shards' key-group ranges (``checkpoint/sharded.py``). An
+attached ``runtime/watchdog.py`` watchdog times the synchronising device
+interactions and probes shard health at batch boundaries.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
-where a user would select it: shard-granular snapshots and restore and the
-device watchdog (item 8b); host shuffle mode, the two-level exchange,
-managed memory, the read replica, reshard and rebalance, point queries
-over spilled state and ``enforce_resident_budget`` (item 12).
+where a user would select it: host shuffle mode, the two-level exchange,
+managed memory, the read replica, rebalance, point queries over spilled
+state and ``enforce_resident_budget`` (item 12).
 """
 
 from __future__ import annotations
@@ -78,7 +86,11 @@ from flink_tpu_torch.runtime.pending import (
     PendingFire,
     harvest_to_host,
 )
-from flink_tpu_torch.state.keygroups import assign_key_groups
+from flink_tpu_torch.runtime.watchdog import WatchdogHooks
+from flink_tpu_torch.state.keygroups import (
+    assign_key_groups,
+    shard_key_group_ranges,
+)
 from flink_tpu_torch.state.paged_spill import (
     PagedSpillMap,
     drop_spilled_sessions,
@@ -105,7 +117,7 @@ from flink_tpu_torch.windowing.windower import (
 )
 
 
-class MeshSpillSupport:
+class MeshSpillSupport(WatchdogHooks):
     """What both mesh engines share: key-group routing, host-to-device
     staging, the dispatch-ahead pipeline, one spill tier per shard, and
     the logical snapshot, delta and restore of the ``[P, capacity]``
@@ -157,12 +169,16 @@ class MeshSpillSupport:
         self._dirty = np.zeros((self.P, self.capacity), dtype=bool)
         self._freed_ns: List[np.ndarray] = []
         self._gather_bucket = 0
-        self._restore_bucket = 0
 
     def _init_spill(self, spill_dir: Optional[str],
                     spill_host_max_bytes: int) -> None:
+        #: kept for the mesh rebuild (reshard, shard loss): the new tiers
+        #: are made from the same configuration
+        self._spill_dir = spill_dir
+        self._spill_host_max_bytes = spill_host_max_bytes
         #: one spill tier per shard: spilled rows are shard-local like
-        #: the device rows
+        #: the device rows (keys move between shards only through a
+        #: rebuild of the mesh)
         self.spills = [
             SpillTier(
                 f"{spill_dir.rstrip('/')}/shard-{p}" if spill_dir else None,
@@ -175,8 +191,10 @@ class MeshSpillSupport:
         self._touch_clock = 0
         self._reload_bucket = 0
         #: the namespace layout's spill traffic (the paged layout counts
-        #: on its PagedSpillMaps)
-        self._ns_counters = PagedSpillMap.zero_counters()
+        #: on its PagedSpillMaps); a job-lifetime counter, so a rebuild of
+        #: the mesh keeps it
+        if not hasattr(self, "_ns_counters"):
+            self._ns_counters = PagedSpillMap.zero_counters()
         self._init_pipeline(self.max_dispatch_ahead)
 
     # ------------------------------------------------ host/device pipelining
@@ -206,8 +224,9 @@ class MeshSpillSupport:
         if len(self._dispatch_fences) < self._pipeline_depth:
             return
         t0 = time.perf_counter()
-        while len(self._dispatch_fences) >= self._pipeline_depth:
-            self._dispatch_fences.popleft().block_until_ready()
+        with self._wd_section("fence_drain"):
+            while len(self._dispatch_fences) >= self._pipeline_depth:
+                self._dispatch_fences.popleft().block_until_ready()
         self.pipeline_wait_s += time.perf_counter() - t0
 
     def _push_dispatch_fence(self) -> None:
@@ -216,7 +235,38 @@ class MeshSpillSupport:
         # dies here with up to `depth` batches in flight
         chaos.fault_point("mesh.dispatch_fence",
                           in_flight=len(self._dispatch_fences))
-        self._dispatch_fences.append(self.make_fence())
+        with self._wd_section("dispatch_fence"):
+            self._dispatch_fences.append(self.make_fence())
+
+    def _quiesce(self) -> None:
+        """Land every dispatched batch: the planes and the staging pool
+        are about to be replaced, and in-flight work references both."""
+        with self._wd_section("fence_drain"):
+            while self._dispatch_fences:
+                self._dispatch_fences.popleft().block_until_ready()
+
+    # ------------------------------------------------------------- watchdog
+
+    #: each shard's ORIGINAL logical index (the watchdog's identities: on
+    #: one card two losses must not collapse into one); None: ``range(P)``
+    _shard_id_list: Optional[List[int]] = None
+
+    def _shard_ids(self) -> List[int]:
+        return (list(self._shard_id_list) if self._shard_id_list is not None
+                else list(range(self.P)))
+
+    def _ingest_subbatch(self, batch) -> None:
+        """Ingest one split of a batch with the watchdog detached: a
+        shard declared dead between splits would leave the batch half
+        absorbed on the survivors. The probe stays at the outer batch's
+        boundary."""
+        wd = self._watchdog
+        self._watchdog = None
+        try:
+            self.process_batch(batch)
+        finally:
+            self._watchdog = wd
+
 
     @property
     def _spill_active(self) -> bool:
@@ -306,8 +356,9 @@ class MeshSpillSupport:
         self._gather_bucket = G
         block = np.zeros((self.P, G), dtype=np.int32)
         block[p, :n] = all_slots
-        leaves_host = [g[p][:n] for g in harvest_to_host(
-            self._gather_step(self.accs, self._to_device(block)))]
+        leaves_host = [g[p][:n] for g in self._harvest_get(
+            self._gather_step(self.accs, self._to_device(block)),
+            "evict_harvest")]
         off = 0
         for ns, slots in chosen:
             m = len(slots)
@@ -584,41 +635,585 @@ class MeshSpillSupport:
                 if len(sel):
                     per_shard[p] = (sel, self.indexes[p].lookup_or_insert(
                         key_ids[sel], namespaces[sel]))
-            B = sticky_bucket(max(len(sel) for sel, _ in
-                                  per_shard.values()),
-                              self._restore_bucket)
-            self._restore_bucket = B
-            slot_block = np.zeros((self.P, B), dtype=np.int32)
-            val_blocks = [np.full((self.P, B), l.identity, dtype=l.dtype)
-                          for l in self.agg.leaves]
-            for p, (sel, slots) in per_shard.items():
-                n = len(sel)
-                slot_block[p, :n] = slots
-                for vb, vals in zip(val_blocks, leaves):
-                    vb[p, :n] = vals[sel]
-            self.accs = self._put_step(
-                self.accs, self._to_device(slot_block),
-                tuple(self._to_device(v) for v in val_blocks))
+            self._land_resident(per_shard, leaves)
         # restored state IS the new incremental base
         self._clear_tracking()
 
-    # ------------------------------------------------ not in this slice
+    # ------------------------------------------------ live rescale (reshard)
 
-    def attach_watchdog(self, wd) -> None:
-        raise _not_ported("the device watchdog", "8b")
+    #: live rescales completed since construction
+    reshards_completed: int = 0
+    #: report of the most recent reshard (None until the first)
+    last_reshard: Optional[Dict[str, object]] = None
+    #: report of the most recent shard loss (None until the first)
+    last_shard_loss: Optional[Dict[str, object]] = None
+
+    def _make_shard_indexes(self) -> List:
+        """Fresh per-shard host indexes at the CURRENT ``P`` and
+        capacity (construction and the mesh rebuild)."""
+        return [
+            make_slot_index(
+                self.capacity, growable=True,
+                on_grow=lambda old, new: self._shard_index_grew(new),
+                max_capacity=self.max_device_slots,
+                track_namespaces=getattr(self, "_track_ns", True),
+                full_hint=("state spills to host beyond "
+                           "state.slot-table.max-device-slots"
+                           if self.max_device_slots
+                           else "raise state.slot-table.capacity"))
+            for _ in range(self.P)
+        ]
+
+    def _fresh_planes(self) -> Tuple[torch.Tensor, ...]:
+        """``[P, capacity]`` identity planes, one per accumulator leaf."""
+        return tuple(
+            torch.full((self.P, self.capacity),
+                       np.asarray(leaf.identity).item(),
+                       dtype=torch_dtype(leaf.dtype), device=self.device)
+            for leaf in self.agg.leaves)
+
+    def reshard(self, new_shards: int, devices=None) -> Dict[str, object]:
+        """LIVE key-group migration to ``new_shards`` logical shards: the
+        dispatch fences drain, every logical row (resident and spilled)
+        lifts off the planes with its dirtiness and recency, the
+        ``[new_shards, capacity]`` planes and everything sized by P are
+        rebuilt, and the rows land on their new owners — resident rows in
+        ONE put, cold rows in the new shards' spill tiers. Window and
+        session metadata is global host state and never moves; the next
+        delta checkpoint is what it would have been without the move.
+
+        Callers must have harvested in-flight async fires first. Not
+        exception-atomic: a failure mid-handoff (an injected
+        ``rescale.handoff`` fault) leaves the engine unusable, and the
+        failover path is a checkpoint restore. ``devices``: the
+        reference's device list has no counterpart on one card; only
+        None is accepted."""
+        if devices is not None:
+            raise ValueError(
+                "devices=: the logical shards of one card have no device "
+                "list (LogicalMesh)")
+        new_shards = int(new_shards)
+        if new_shards < 1:
+            raise ValueError(f"new_shards must be >= 1, got {new_shards}")
+        if new_shards == self.P:
+            return {"from": self.P, "to": self.P, "rows_moved": 0,
+                    "resident_rows": 0, "spilled_rows": 0,
+                    "seconds": 0.0, "noop": True}
+        if self.max_parallelism < new_shards:
+            raise ValueError(
+                f"cannot reshard to {new_shards} shards: max_parallelism "
+                f"{self.max_parallelism} bounds the shard count (the "
+                "key-group space cannot be split finer)")
+        if self.key_group_range is not None:
+            first, last = self.key_group_range
+            span = int(last) - int(first) + 1
+            if span < new_shards:
+                raise ValueError(
+                    f"cannot reshard to {new_shards} shards: this engine "
+                    f"owns only {span} key groups "
+                    f"[{int(first)}, {int(last)}]")
+        t0 = time.perf_counter()
+        self._quiesce()
+        chaos.fault_point("rescale.handoff", stage="drain",
+                          from_shards=self.P, to_shards=new_shards)
+        rows = self._collect_handoff()
+        old_p = self.P
+        self._shard_id_list = None
+        self._rebuild_mesh_plane(new_shards)
+        # the hardest crash point: old state lifted, new planes empty
+        chaos.fault_point("rescale.handoff", stage="commit",
+                          from_shards=old_p, to_shards=new_shards)
+        resident_rows, spilled_rows = self._redistribute_handoff(rows)
+        if self._watchdog is not None:
+            self._watchdog.rebind(self.P, self._shard_ids())
+        self.reshards_completed += 1
+        self.last_reshard = {
+            "from": old_p, "to": new_shards,
+            "rows_moved": int(len(rows["key_id"])),
+            "resident_rows": resident_rows,
+            "spilled_rows": spilled_rows,
+            "seconds": time.perf_counter() - t0,
+        }
+        return self.last_reshard
+
+    def _collect_handoff(self, skip_shards=()) -> Dict[str, np.ndarray]:
+        """Lift every logical row off the current mesh: key, namespace and
+        leaf columns plus what restore does not need — per-row dirtiness
+        (delta snapshots), recency clocks (who stays resident on a scale-
+        down) and residency. ``skip_shards``: shards whose state must NOT
+        be read (a lost shard: its range restores from its unit)."""
+        leaves = self.agg.leaves
+        paged = self._paged
+        accs_host = harvest_to_host(self.accs)  # ONE device-to-host copy
+        keys: List[np.ndarray] = []
+        nss: List[np.ndarray] = []
+        dirty: List[np.ndarray] = []
+        touch: List[np.ndarray] = []
+        resident: List[np.ndarray] = []
+        leaf_cols: List[List[np.ndarray]] = [[] for _ in leaves]
+        skip = set(skip_shards)
+        for p in range(self.P):
+            if p in skip:
+                continue
+            idx = self.indexes[p]
+            used = idx.used_slots()
+            if len(used):
+                u_ns = np.asarray(idx.slot_ns[used], dtype=np.int64)
+                keys.append(np.asarray(idx.slot_key[used], dtype=np.int64))
+                nss.append(u_ns)
+                dirty.append(np.asarray(self._dirty[p][used], dtype=bool))
+                if paged:
+                    touch.append(self._slot_touch[p][used].copy())
+                else:
+                    nt = self._ns_touch[p]
+                    touch.append(np.asarray(
+                        [nt.get(int(x), 0) for x in u_ns], dtype=np.int64))
+                resident.append(np.ones(len(used), dtype=bool))
+                for i in range(len(leaves)):
+                    leaf_cols[i].append(accs_host[i][p][used])
+            sp = self.spills[p]
+            if len(sp) == 0:
+                continue
+            dirty_set = set(sp.dirty_namespaces())
+            pmap = self._pmaps[p] if paged else None
+            for ns in sp.namespaces:
+                entry = sp.peek(int(ns))
+                if entry is None:
+                    continue
+                ekeys = np.asarray(entry["key_id"], dtype=np.int64)
+                if "ns" in entry:  # a page: per-row ns and tombstones
+                    rns = np.asarray(entry["ns"], dtype=np.int64)
+                    alive = pmap.live_row_mask(int(ns), rns)
+                    if not alive.any():
+                        continue
+                    ekeys, rns = ekeys[alive], rns[alive]
+                    # only rows no snapshot shipped since their eviction
+                    # are still dirty (the tier flag gates, the per-row
+                    # column refines)
+                    row_dirty = (
+                        np.asarray(entry["dirty"], dtype=bool)[alive]
+                        if int(ns) in dirty_set
+                        else np.zeros(len(ekeys), dtype=bool))
+                    sel = alive
+                else:
+                    rns = np.full(len(ekeys), int(ns), dtype=np.int64)
+                    row_dirty = np.full(len(ekeys), int(ns) in dirty_set,
+                                        dtype=bool)
+                    sel = slice(None)
+                if len(ekeys) == 0:
+                    continue
+                keys.append(ekeys)
+                nss.append(rns)
+                dirty.append(row_dirty)
+                touch.append(np.zeros(len(ekeys), dtype=np.int64))
+                resident.append(np.zeros(len(ekeys), dtype=bool))
+                for i, l in enumerate(leaves):
+                    leaf_cols[i].append(
+                        np.asarray(entry[f"leaf_{i}"], dtype=l.dtype)[sel])
+        if not keys:
+            return {
+                "key_id": np.empty(0, dtype=np.int64),
+                "namespace": np.empty(0, dtype=np.int64),
+                "dirty": np.empty(0, dtype=bool),
+                "touch": np.empty(0, dtype=np.int64),
+                "resident": np.empty(0, dtype=bool),
+                **{f"leaf_{i}": np.empty(0, dtype=l.dtype)
+                   for i, l in enumerate(leaves)},
+            }
+        return {
+            "key_id": np.concatenate(keys),
+            "namespace": np.concatenate(nss),
+            "dirty": np.concatenate(dirty),
+            "touch": np.concatenate(touch),
+            "resident": np.concatenate(resident),
+            **{f"leaf_{i}": np.concatenate(leaf_cols[i])
+               for i in range(len(leaves))},
+        }
+
+    def _rebuild_mesh_plane(self, new_shards: int) -> None:
+        """Re-point the engine at fresh ``[new_shards, capacity]`` planes
+        and EVERYTHING sized by P: the logical mesh, the per-shard indexes
+        and spill tiers (page maps and slot touch clocks), the staging
+        pool and its fences, the step closures (the exchange+scatter
+        captures P), the dirty bits and the sticky buckets. A stale one
+        would route rows into the wrong plane without an error.
+        Job-lifetime state survives: the recency clock, the spill
+        counters and the delta tombstones."""
+        self.mesh = LogicalMesh(int(new_shards), self.device)
+        self.P = int(new_shards)
+        clock = self._touch_clock
+        # the old tiers' file-backed entries would be orphaned on disk
+        # (the collect only peeks): reclaim them before the rebuild
+        for sp in self.spills:
+            for ns in list(sp.namespaces):
+                sp.discard(int(ns))
+        if self._paged:
+            # the outgoing maps' lifetime counters join the engine-held
+            # ones spill_counters() also sums
+            for pm in self._pmaps:
+                for k, v in pm.counters().items():
+                    self._ns_counters[k] += v
+        self.accs = ()  # the old planes go before the new ones come
+        self.indexes = self._make_shard_indexes()
+        self._init_spill(self._spill_dir, self._spill_host_max_bytes)
+        self._touch_clock = clock
+        if self._paged:
+            self._init_paged()
+        self.accs = self._fresh_planes()
+        self._build_steps()
+        self._dirty = np.zeros((self.P, self.capacity), dtype=bool)
+        self._gather_bucket = 0
+        self._reset_bucket = 0
+        self._fire_bucket = 0
+        self._merge_bucket = 0
+
+    def _land_resident(self, per_shard: Dict[int, Tuple[np.ndarray,
+                                                        np.ndarray]],
+                       leaves: List[np.ndarray]) -> None:
+        """ONE ``[P, B]`` put of every shard's rows: ``per_shard`` maps a
+        shard to (row positions into ``leaves``, their resolved slots)."""
+        B = sticky_bucket(max(len(sel) for sel, _ in per_shard.values()),
+                          self._reload_bucket)
+        self._reload_bucket = B
+        slot_block = np.zeros((self.P, B), dtype=np.int32)
+        val_blocks = [np.full((self.P, B), l.identity, dtype=l.dtype)
+                      for l in self.agg.leaves]
+        for p, (sel, slots) in per_shard.items():
+            m = len(sel)
+            slot_block[p, :m] = slots
+            for vb, vals in zip(val_blocks, leaves):
+                vb[p, :m] = vals[sel]
+        self.accs = self._put_step(
+            self.accs, self._to_device(slot_block),
+            tuple(self._to_device(v) for v in val_blocks))
+
+    def _redistribute_handoff(
+            self, rows: Dict[str, np.ndarray]) -> Tuple[int, int]:
+        """Land the collected rows on their new owners (the key-group
+        routing). Returns (resident_rows, spilled_rows). Under a device
+        budget previously resident rows stay resident while they fit; on
+        a scale-down the hottest (by carried recency) win and the overflow
+        lands in the new shard's spill tier — per NAMESPACE in the
+        namespace layout (its eviction unit), per ROW in the paged one.
+        Rows land through a put, never a fold, with their dirtiness."""
+        leaves = self.agg.leaves
+        keys = rows["key_id"]
+        nss = rows["namespace"]
+        if len(keys) == 0:
+            return 0, 0
+        paged = self._paged
+        shards = self._route(keys)
+        stay = rows["resident"].copy()
+        if self._spill_active:
+            # slot 0 is the reserved identity row
+            budget = self.max_device_slots - 1
+            if paged:
+                for p in range(self.P):
+                    sel = np.nonzero(stay & (shards == p))[0]
+                    if len(sel) > budget:
+                        order = np.argsort(rows["touch"][sel],
+                                           kind="stable")
+                        stay[sel[order[: len(sel) - budget]]] = False
+            else:
+                for p in range(self.P):
+                    sel = np.nonzero(shards == p)[0]
+                    if not len(sel):
+                        continue
+                    uniq, inv = np.unique(nss[sel], return_inverse=True)
+                    grp_res = np.zeros(len(uniq), dtype=bool)
+                    np.logical_or.at(grp_res, inv, rows["resident"][sel])
+                    grp_touch = np.zeros(len(uniq), dtype=np.int64)
+                    np.maximum.at(grp_touch, inv, rows["touch"][sel])
+                    grp_rows = np.bincount(inv, minlength=len(uniq))
+                    stay_grp = np.zeros(len(uniq), dtype=bool)
+                    free = budget
+                    cand = np.nonzero(grp_res)[0]
+                    for g in cand[np.argsort(-grp_touch[cand],
+                                             kind="stable")].tolist():
+                        if grp_rows[g] <= free:
+                            stay_grp[g] = True
+                            free -= int(grp_rows[g])
+                    stay[sel] = stay_grp[inv]
+        leaf_vals = [rows[f"leaf_{i}"] for i in range(len(leaves))]
+        # resident rows: every slot resolved FIRST (inserts may grow the
+        # planes), then all shards' values in ONE put
+        per_shard: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for p in range(self.P):
+            sel = np.nonzero(stay & (shards == p))[0]
+            if len(sel):
+                per_shard[p] = (sel, self.indexes[p].lookup_or_insert(
+                    keys[sel], nss[sel]))
+        if per_shard:
+            for p, (sel, slots) in per_shard.items():
+                self._dirty[p, slots] = rows["dirty"][sel]
+                if paged:
+                    self._slot_touch[p][slots] = rows["touch"][sel]
+                elif self._spill_active:
+                    self._touch(p, np.unique(nss[sel]).tolist())
+            self._land_resident(per_shard, leaf_vals)
+        # cold rows re-home in the new shards' spill tiers, dirtiness kept
+        cold_total = 0
+        cold = ~stay
+        if cold.any():
+            for p in range(self.P):
+                sel = np.nonzero(cold & (shards == p))[0]
+                if not len(sel):
+                    continue
+                cold_total += len(sel)
+                c_keys, c_nss = keys[sel], nss[sel]
+                c_dirty = rows["dirty"][sel]
+                c_leaves = [v[sel] for v in leaf_vals]
+                if paged:
+                    restore_into_pages(
+                        self.spills[p], self._pmaps[p], c_keys, c_nss,
+                        c_leaves,
+                        page_rows=max(self.indexes[p].capacity // 8, 1024),
+                        dirty=c_dirty)
+                else:
+                    order = np.argsort(c_nss, kind="stable")
+                    s_ns, s_keys = c_nss[order], c_keys[order]
+                    s_dirty = c_dirty[order]
+                    s_leaves = [l[order] for l in c_leaves]
+                    bounds = np.nonzero(np.diff(s_ns))[0] + 1
+                    starts = np.concatenate(([0], bounds))
+                    stops = np.concatenate((bounds, [len(s_ns)]))
+                    sp = self.spills[p]
+                    for a, b in zip(starts.tolist(), stops.tolist()):
+                        entry = {"key_id": s_keys[a:b],
+                                 **{f"leaf_{i}": s_leaves[i][a:b]
+                                    for i in range(len(leaves))}}
+                        sp.put(int(s_ns[a]), entry,
+                               dirty=bool(s_dirty[a:b].any()))
+        return int(stay.sum()), cold_total
+
+    # ---------------------------------------------- partial failover (shard)
+
+    def shard_key_groups(self) -> List[Tuple[int, int]]:
+        """GLOBAL ``(first, last)`` inclusive key groups per shard — the
+        unit of failure and recovery, and the split shard-granular
+        checkpoints key their units by (the inverse of ``_route``)."""
+        return shard_key_group_ranges(self.P, self.max_parallelism,
+                                      self.key_group_range)
+
+    def shard_key_group_runs(self) -> List[Tuple[int, int, int]]:
+        """GLOBAL ``(first, last, shard)`` maximal same-shard runs in
+        key-group order: one run per shard (the contiguous layout; a
+        rebalanced assignment is ROADMAP item 12)."""
+        return [(g0, g1, p) for p, (g0, g1)
+                in enumerate(self.shard_key_groups())]
+
+    def lose_shard(self, dead: int) -> Tuple[int, int]:
+        """Simulated loss of shard ``dead``: its plane rows, spill tier
+        and key-range metadata are gone wholesale. The survivors' fences
+        land, their rows lift intact (dirtiness and recency kept — the
+        reshard machinery), the mesh rebuilds over ``P - 1`` shards, and
+        the survivors' rows land on their new owners. Returns the dead
+        shard's (first, last) key groups: the caller restores that range
+        from its checkpoint unit (:meth:`restore_key_groups`) and replays
+        only that range's records from the unit's source position."""
+        return self.lose_shards([dead])
+
+    def lose_shards(self, dead) -> Tuple[int, int]:
+        """Loss of a CONTIGUOUS set of shards in one evacuation (their
+        merged key-group span is one range, so the bounded replay is one
+        contiguous range). Not exception-atomic: a failure mid-evacuation
+        falls back to a whole-job restore."""
+        dead_set = sorted({int(d) for d in dead})
+        if not dead_set:
+            raise ValueError("no shards to lose")
+        for d in dead_set:
+            if not (0 <= d < self.P):
+                raise ValueError(f"no shard {d} on a {self.P}-shard mesh")
+        if dead_set != list(range(dead_set[0], dead_set[-1] + 1)):
+            raise ValueError(
+                f"dead shards must be contiguous, got {dead_set}")
+        if len(dead_set) >= self.P:
+            raise ValueError(
+                "cannot partially fail over the whole mesh — whole-job "
+                "restore applies")
+        t0 = time.perf_counter()
+        ranges = self.shard_key_groups()
+        dead_range = (int(ranges[dead_set[0]][0]),
+                      int(ranges[dead_set[-1]][1]))
+        # quiesce the survivors: every dispatched batch lands before the
+        # planes are torn down (the dead shards' rows are never read)
+        self._quiesce()
+        rows = self._collect_handoff(skip_shards=set(dead_set))
+        t1 = time.perf_counter()
+        ids = self._shard_ids()
+        old_p = self.P
+        self._shard_id_list = [s for i, s in enumerate(ids)
+                               if i not in dead_set]
+        self._rebuild_mesh_plane(old_p - len(dead_set))
+        t2 = time.perf_counter()
+        resident_rows, spilled_rows = self._redistribute_handoff(rows)
+        # the dead ranges' host metadata dies with their shards (the
+        # session engine's intervals; the window engines' book is global)
+        self._drop_meta_key_groups(range(dead_range[0], dead_range[1] + 1))
+        if self._watchdog is not None:
+            # survivors renumber 0..P-k-1 and keep their identities; the
+            # dead ones stay in the quarantine history
+            self._watchdog.rebind(self.P, self._shard_ids())
+        t3 = time.perf_counter()
+        self.last_shard_loss = {
+            "dead_shard": dead_set[0], "dead_shards": dead_set,
+            "dead_ids": [ids[d] for d in dead_set],
+            "from": old_p, "to": self.P,
+            "key_groups": dead_range,
+            "survivor_rows": int(len(rows["key_id"])),
+            "resident_rows": resident_rows,
+            "spilled_rows": spilled_rows,
+            "evacuate_seconds": t1 - t0,
+            "rebuild_seconds": t2 - t1,
+            "land_seconds": t3 - t2,
+            "seconds": t3 - t0,
+        }
+        return dead_range
+
+    def restore_key_groups(self, snap: Dict[str, object], groups) -> int:
+        """Partial restore INTO a live engine: land only ``groups``' rows
+        (survivors untouched) and merge the unit's metadata (the engine
+        hook rolls the watermark and staleness guards back to the
+        checkpoint, so the range's replayed records are accepted).
+        Restored rows are CLEAN — they are in the checkpoint; survivors
+        keep their dirtiness. Returns rows restored."""
+        table = snap.get("table", {}) or {}
+        key_ids = np.asarray(table.get("key_id", []), dtype=np.int64)
+        gset = np.asarray(sorted(int(g) for g in groups), dtype=np.int64)
+        n_restored = 0
+        if len(key_ids):
+            kg = table.get("key_group")
+            kg = (np.asarray(kg, dtype=np.int64) if kg is not None
+                  else assign_key_groups(key_ids, self.max_parallelism))
+            keep = np.isin(kg, gset)
+            key_ids = key_ids[keep]
+            namespaces = np.asarray(table["namespace"],
+                                    dtype=np.int64)[keep]
+            leaves = [np.asarray(table[f"leaf_{i}"])[keep]
+                      for i in range(len(self.agg.leaves))]
+            n_restored = int(len(key_ids))
+        if n_restored:
+            shards = self._route(key_ids)
+            if self._paged:
+                for p in range(self.P):
+                    mask = shards == p
+                    if not mask.any():
+                        continue
+                    # APPEND: the survivors' pages stay intact; the
+                    # restored namespaces were never in the surviving tiers
+                    restore_into_pages(
+                        self.spills[p], self._pmaps[p], key_ids[mask],
+                        namespaces[mask], [l[mask] for l in leaves],
+                        page_rows=max(self.indexes[p].capacity // 8, 1024),
+                        append=True)
+            else:
+                # resident: all slots resolved first (growth settles),
+                # then ONE put for all shards
+                per_shard: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+                for p in range(self.P):
+                    mask = shards == p
+                    if not mask.any():
+                        continue
+                    if self._spill_active:
+                        self._reserve(p, key_ids[mask], namespaces[mask])
+                    slots = self.indexes[p].lookup_or_insert(
+                        key_ids[mask], namespaces[mask])
+                    per_shard[p] = (np.nonzero(mask)[0], slots)
+                for p, (sel, slots) in per_shard.items():
+                    self._dirty[p, slots] = False
+                    if self._spill_active:
+                        self._touch(p, np.unique(namespaces[sel]).tolist())
+                self._land_resident(per_shard, leaves)
+        self._merge_restored_meta(snap, groups)
+        return n_restored
+
+    # engine hooks (the window engine: its global book; the session
+    # engine: per-key interval metadata) ----------------------------------
+
+    def _drop_meta_key_groups(self, groups) -> None:
+        """Discard the host metadata owned by ``groups`` (no-op for an
+        engine whose lifecycle metadata carries no per-key state)."""
+
+    def _merge_restored_meta(self, snap: Dict[str, object],
+                             groups) -> None:
+        """Fold a checkpoint unit's metadata for ``groups`` into the live
+        engine (partial failover)."""
+
+    def _filter_meta_snapshot(self, snap: Dict[str, object],
+                              groups) -> Dict[str, object]:
+        """The non-table part of ``snap`` restricted to ``groups`` — by
+        default global metadata replicates whole into every unit."""
+        return {k: v for k, v in snap.items() if k != "table"}
+
+    def _merge_meta_snapshots(self, units: List[Dict[str, object]]
+                              ) -> Dict[str, object]:
+        """Merge units' metadata for a whole-job restore assembled from
+        (possibly different-age) shard units."""
+        raise NotImplementedError
+
+    #: delta and tombstone fields that replicate whole into every unit:
+    #: another range's tombstones are a no-op on a unit's base, and each
+    #: unit stays independently restorable
+    _UNIT_PASSTHROUGH = ("__delta__", "freed_namespaces",
+                         "tombstone_key_id", "tombstone_namespace")
+
+    def snapshot_sharded(self, mode: str = "full"
+                         ) -> Dict[Tuple[int, int], Dict[str, object]]:
+        """One independently restorable unit per shard: the logical
+        snapshot split by the shards' key-group ranges (rows by their
+        ``key_group`` column), plus each unit's slice of the metadata.
+        The union of the units is exactly ``snapshot(mode)``."""
+        snap = self.snapshot(mode)
+        table = snap.get("table", {}) or {}
+        kg = np.asarray(table.get("key_group", ()), dtype=np.int64)
+        units: Dict[Tuple[int, int], Dict[str, object]] = {}
+        for g0, g1, _p in self.shard_key_group_runs():
+            if len(kg):
+                mask = (kg >= g0) & (kg <= g1)
+                unit_table = {
+                    k: (v if k in self._UNIT_PASSTHROUGH
+                        else np.asarray(v)[mask])
+                    for k, v in table.items()
+                }
+            else:
+                unit_table = dict(table)
+            units[(int(g0), int(g1))] = {
+                "table": unit_table,
+                **self._filter_meta_snapshot(
+                    snap, range(int(g0), int(g1) + 1)),
+            }
+        return units
+
+    def merge_unit_snapshots(self, units: List[Dict[str, object]]
+                             ) -> Dict[str, object]:
+        """Reassemble one engine snapshot from shard units (a whole-job
+        restore; units may come from DIFFERENT checkpoints when a torn
+        unit fell back — the caller replays each range from its own
+        unit's source position)."""
+        tables = [u.get("table", {}) or {} for u in units]
+        tables = [t for t in tables if t]
+        merged: Dict[str, object] = {}
+        if tables:
+            cols = set().union(*(set(t) for t in tables))
+            for k in sorted(cols):
+                parts = [np.asarray(t[k]) for t in tables if k in t]
+                if k == "__delta__":
+                    merged[k] = np.asarray(True)
+                elif k == "freed_namespaces":
+                    merged[k] = (np.unique(np.concatenate(parts))
+                                 if parts else np.empty(0, dtype=np.int64))
+                else:
+                    # the tombstone columns are row-PAIRED: plain
+                    # concatenation keeps the pairs (duplicates apply
+                    # idempotently)
+                    merged[k] = (np.concatenate(parts) if parts
+                                 else np.empty(0, dtype=np.int64))
+        return {"table": merged, **self._merge_meta_snapshots(units)}
+
+    # ------------------------------------------------ not in this slice
 
     def arm_replica(self, plane=None):
         raise _not_ported("the serving read replica", 12)
-
-    def reshard(self, new_shards: int, devices=None):
-        raise _not_ported("live reshard", 12)
-
-    def snapshot_sharded(self, mode: str = "full"):
-        raise _not_ported("shard-granular snapshots", "8b")
-
-    def restore_key_groups(self, snap, groups):
-        raise _not_ported("shard-granular restore (restore_key_groups)",
-                          "8b")
 
     def reassign_key_groups(self, assignment):
         raise _not_ported("hot key-group rebalance", 12)
@@ -811,8 +1406,9 @@ class MeshPagedSpillSupport(MeshSpillSupport):
         block = np.zeros((self.P, G), dtype=np.int32)
         for p, chosen in cohorts.items():
             block[p, : len(chosen)] = chosen
-        gathered = harvest_to_host(
-            self._gather_step(self.accs, self._to_device(block)))
+        gathered = self._harvest_get(
+            self._gather_step(self.accs, self._to_device(block)),
+            "evict_harvest")
         for p, chosen in cohorts.items():
             idx = self.indexes[p]
             n = len(chosen)
@@ -916,27 +1512,10 @@ class MeshWindowEngine(MeshSpillSupport):
                 f"max_parallelism {max_parallelism} < mesh size {self.P}")
         # growable per-shard host indexes; the planes stay uniform
         # [P, cap] sized to the LARGEST shard index
-        self.indexes = [
-            make_slot_index(
-                self.capacity, growable=True,
-                on_grow=lambda old, new: self._shard_index_grew(new),
-                max_capacity=self.max_device_slots,
-                full_hint=("state spills to host beyond "
-                           "state.slot-table.max-device-slots"
-                           if self.max_device_slots
-                           else "raise state.slot-table.capacity"))
-            for _ in range(self.P)
-        ]
+        self.indexes = self._make_shard_indexes()
         self._init_spill(spill_dir, spill_host_max_bytes)
-        self.accs: Tuple[torch.Tensor, ...] = tuple(
-            torch.full((self.P, self.capacity),
-                       np.asarray(leaf.identity).item(),
-                       dtype=torch_dtype(leaf.dtype), device=self.device)
-            for leaf in agg.leaves)
-        # the [P, B] scatter step serves host shuffle mode (not ported)
-        (_, self._fire_step, self._reset_step, self._gather_step,
-         self._put_step, self._merge_step) = build_mesh_steps(mesh, agg)
-        self._exchange_scatter_step = build_exchange_scatter(mesh, agg)
+        self.accs: Tuple[torch.Tensor, ...] = self._fresh_planes()
+        self._build_steps()
         # window lifecycle metadata is global across shards
         self.book = SliceBookkeeper(assigner, allowed_lateness)
         self._init_tracking()
@@ -944,6 +1523,17 @@ class MeshWindowEngine(MeshSpillSupport):
         self._reset_bucket = 0
         #: fires that merged spilled slices on the host
         self.hybrid_fires = 0
+        #: window end -> key groups: a window the book merge re-opened
+        #: after it fired for everyone fires again for those groups only
+        self._refire_groups: Dict[int, set] = {}
+
+    def _build_steps(self) -> None:
+        # the [P, B] scatter step serves host shuffle mode (not ported)
+        (_, self._fire_step, self._reset_step, self._gather_step,
+         self._put_step, self._merge_step) = build_mesh_steps(self.mesh,
+                                                              self.agg)
+        self._exchange_scatter_step = build_exchange_scatter(self.mesh,
+                                                             self.agg)
 
     # --------------------------------------------------------------- ingest
 
@@ -990,6 +1580,9 @@ class MeshWindowEngine(MeshSpillSupport):
     def process_batch(self, batch: RecordBatch) -> None:
         if len(batch) == 0:
             return
+        # batch boundary: the engine is consistent at a known source
+        # position — the one point the watchdog may declare a shard dead
+        self._wd_boundary()
         key_ids = batch.key_ids
         slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
         if self._spill_active and len(batch) > 1:
@@ -998,7 +1591,7 @@ class MeshWindowEngine(MeshSpillSupport):
                 for g in groups:
                     mask = np.isin(slice_ends, np.asarray(g))
                     if mask.any():
-                        self.process_batch(batch.filter(mask))
+                        self._ingest_subbatch(batch.filter(mask))
                 return
         live = self.book.live_mask(slice_ends)
         if live is not None:
@@ -1067,12 +1660,16 @@ class MeshWindowEngine(MeshSpillSupport):
 
     def on_watermark(self, watermark: int,
                      async_ok: bool = False) -> List[object]:
+        self._wd_boundary()
         out: List[object] = []
         while True:
             w_end = self.book.next_window(watermark)
             if w_end is None:
                 break
             batch = self._fire_window(w_end, async_ok=async_ok)
+            groups = self._refire_groups.pop(w_end, None)
+            if batch is not None and groups is not None:
+                batch = self._keep_groups(batch, groups)
             if batch is not None:
                 out.append(batch)
             self.book.mark_fired(w_end)
@@ -1125,7 +1722,8 @@ class MeshWindowEngine(MeshSpillSupport):
             cols.update(merged)
             return RecordBatch(cols)
 
-        pending = PendingFire([fire_out[n] for n in names], build)
+        pending = PendingFire([fire_out[n] for n in names], build,
+                              watchdog=self._watchdog)
         return pending if async_ok else pending.harvest()
 
     def _slice_matrices(self, slice_ends
@@ -1180,7 +1778,7 @@ class MeshWindowEngine(MeshSpillSupport):
         leaf_chunks: List[List[np.ndarray]] = [[] for _ in leaves]
         per_shard_keys, sm = self._slice_matrices(slice_ends)
         if sm is not None:
-            merged_host = harvest_to_host(
+            merged_host = self._harvest_get(
                 self._merge_step(self.accs, self._to_device(sm)))
             for p in range(self.P):
                 m = len(per_shard_keys[p])
@@ -1269,6 +1867,65 @@ class MeshWindowEngine(MeshSpillSupport):
         ``key_group_filter`` keeps only the rows of those key groups."""
         self._restore_table(snap["table"], key_group_filter)
         self.book.restore(snap)
+        self._refire_groups = {}
+
+    # ------------------------------------------------ partial-failover hooks
+
+    def _merge_restored_meta(self, snap, groups) -> None:
+        # window lifecycle metadata is global: the book merge re-opens
+        # the windows the restored range must fire again during replay.
+        # A re-opened window that already fired fired for the survivors
+        # too; with sliding windows its slices are shared with later
+        # windows and still live on them, so a second fire would emit a
+        # partial sum over the slices left. It fires again for the
+        # restored groups only (the reference fires it for every key:
+        # ROADMAP.md Queue C R5).
+        fired = self.book.max_fired_end
+        self.book.merge_restore(snap)
+        refire = dict(self._refire_groups)
+        for w in self.book.pending_windows():
+            if w <= fired:
+                refire.setdefault(w, set()).update(int(g) for g in groups)
+        self._refire_groups = refire
+
+    def _keep_groups(self, fired, groups):
+        """A fired batch (or a PendingFire) cut to the keys of ``groups``."""
+        gset = np.asarray(sorted(groups), dtype=np.int64)
+
+        def keep(batch):
+            if batch is None:
+                return None
+            kg = assign_key_groups(batch.key_ids, self.max_parallelism)
+            return batch.filter(np.isin(kg, gset))
+
+        if isinstance(fired, PendingFire):
+            fired.build = (lambda host, build=fired.build:
+                           keep(build(host)))
+            return fired
+        return keep(fired)
+
+    def _merge_meta_snapshots(self, units):
+        _NEG = -(1 << 62)
+        pending = sorted({int(w) for u in units
+                          for w in u.get("pending", ())})
+        slw: Dict[int, int] = {}
+        for u in units:
+            slw.update(dict(u.get("slice_last_window", {})))
+        return {
+            "pending": pending,
+            "slice_last_window": slw,
+            # the OLDEST unit decides: its range's records replay from
+            # its position and must pass the late-record guard exactly
+            # as they first did
+            "watermark": min((u.get("watermark", _NEG) for u in units),
+                             default=_NEG),
+            "max_fired_end": min(
+                (u.get("max_fired_end", _NEG) for u in units),
+                default=_NEG),
+            "late_records_dropped": max(
+                (u.get("late_records_dropped", 0) for u in units),
+                default=0),
+        }
 
 
 def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):

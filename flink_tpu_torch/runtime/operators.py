@@ -71,7 +71,8 @@ class OperatorContext:
                  shuffle_mode: str = "device", device=None,
                  operator_index: int = 0, window_layout: str = "auto",
                  state_backend: str = "tpu-slot-table",
-                 spill: Optional[dict] = None, pane_preagg: bool = True):
+                 spill: Optional[dict] = None, pane_preagg: bool = True,
+                 watchdog=None):
         self.operator_index = operator_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -94,6 +95,9 @@ class OperatorContext:
         #: latency.pane-preagg: per-window running partials in the pane
         #: layout
         self.pane_preagg = pane_preagg
+        #: the job's DeviceWatchdog (watchdog.enabled), attached to every
+        #: mesh engine the operators open; None when disabled
+        self.watchdog = watchdog
 
 
 class MapOperator(Operator):
@@ -218,8 +222,16 @@ class WindowAggOperator(Operator):
                 shuffle_mode=ctx.shuffle_mode)
         else:
             self.windower = self._open_single_device(ctx)
+        self._attach_watchdog(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
+
+    def _attach_watchdog(self, ctx) -> None:
+        """watchdog.enabled: the job's watchdog times the mesh engine's
+        device sections and probes its shards at batch boundaries."""
+        wd = getattr(ctx, "watchdog", None)
+        if wd is not None and hasattr(self.windower, "attach_watchdog"):
+            self.windower.attach_watchdog(wd)
 
     def _open_single_device(self, ctx):
         """Parallelism 1: state.window-layout 'auto' and 'slots' run the
@@ -432,6 +444,7 @@ class SessionWindowAggOperator(WindowAggOperator):
                 max_parallelism=ctx.max_parallelism,
                 allowed_lateness=self.allowed_lateness,
                 spill={**ctx.spill, "device": ctx.device})
+        self._attach_watchdog(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
 

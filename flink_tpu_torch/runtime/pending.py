@@ -20,6 +20,21 @@ import torch
 from flink_tpu_torch.chaos import injection as chaos
 
 
+class _NullSection:
+    """The section of an engine with no watchdog: times nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+NULL_SECTION = _NullSection()
+
+
 class Fence:
     """Proof that the device finished everything enqueued before it: a
     CUDA event recorded on the current stream (None on the CPU, where
@@ -48,12 +63,17 @@ class PendingFire:
     tensors (in flight) plus a host-side finisher that assembles the result
     batch once the bytes land."""
 
-    __slots__ = ("host", "fence", "build", "dispatched_at")
+    __slots__ = ("host", "fence", "build", "dispatched_at", "watchdog")
 
     def __init__(self, tensors: Sequence[torch.Tensor],
-                 build: Callable[[List[np.ndarray]], object]):
+                 build: Callable[[List[np.ndarray]], object],
+                 watchdog=None):
         self.dispatched_at = time.perf_counter()
         self.build = build
+        #: an optional DeviceWatchdog: the wait for the copies is a
+        #: deadline-tracked section (a fire whose copies never land is a
+        #: dead device)
+        self.watchdog = watchdog
         # from a CUDA tensor, non_blocking=True copies into pinned memory
         self.host = [t.to("cpu", non_blocking=True) for t in tensors]
         self.fence = Fence(tensors[0].device) if tensors else None
@@ -67,7 +87,9 @@ class PendingFire:
         # device-to-host results never land
         chaos.fault_point("harvest.pending_fire", arrays=len(self.host))
         if self.fence is not None:
-            self.fence.block_until_ready()
+            with (self.watchdog.section("pending_harvest")
+                  if self.watchdog is not None else NULL_SECTION):
+                self.fence.block_until_ready()
         return self.build([h.numpy() for h in self.host])
 
 

@@ -8,6 +8,8 @@ they decide which shard owns a key).
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 
 
@@ -64,3 +66,20 @@ def key_group_to_operator_index(
     """group -> owning shard: ``group * parallelism // max_parallelism``."""
     g = np.asarray(key_groups, dtype=np.int64)
     return (g * parallelism // max_parallelism).astype(np.int32)
+
+
+def shard_key_group_ranges(parallelism: int, max_parallelism: int,
+                           key_group_range=None) -> List[Tuple[int, int]]:
+    """GLOBAL ``(first, last)`` inclusive key groups owned by each of the
+    ``parallelism`` mesh shards — the exact inverse of
+    ``parallel.shuffle.shard_records``' routing (with the local-space remap
+    of a sub-range engine): the split shard-granular checkpoints key their
+    units by. Shard p owns ``[ceil(p*span/P), ((p+1)*span - 1) // P]``."""
+    if key_group_range is None:
+        first, span = 0, int(max_parallelism)
+    else:
+        first = int(key_group_range[0])
+        span = int(key_group_range[1]) - first + 1
+    P = int(parallelism)
+    return [(first + (p * span + P - 1) // P,
+             first + ((p + 1) * span - 1) // P) for p in range(P)]

@@ -117,6 +117,51 @@ class SliceBookkeeper:
             "late_records_dropped": self.late_records_dropped,
         }
 
+    def merge_restore(self, snap: Dict[str, object]) -> None:
+        """Partial-failover merge: fold a CHECKPOINT-time book into the
+        LIVE book so a lost shard's key groups can replay their range.
+
+        - registered slices: the UNION — slices the survivors created
+          after the checkpoint stay tracked; slices the checkpoint knew
+          that already expired here register again (their replayed fire
+          emits only the restored range's keys).
+        - pending windows: the UNION of the live and the checkpoint's
+          pending, plus every window of a registered slice still able to
+          fire at the CHECKPOINT watermark — a window fired between the
+          checkpoint and the failure fires again during replay (its
+          restored-range rows were rolled back) and emits nothing for the
+          survivors (their slots were freed at the first fire).
+        - watermark: the CHECKPOINT's, so replayed records pass the
+          late-record guard exactly as they first did.
+        """
+        self._slice_last_window.update(
+            dict(snap.get("slice_last_window", {})))
+        self._cleanup = [
+            (last - 1 + self.allowed_lateness, se)
+            for se, last in self._slice_last_window.items()
+        ]
+        heapq.heapify(self._cleanup)
+        ckpt_wm = snap.get("watermark", snap.get("max_fired_end",
+                                                 _NEG_INF))
+        lateness = self.allowed_lateness
+        for w in snap.get("pending", []):
+            if w not in self._pending_set:
+                self._pending_set.add(w)
+                heapq.heappush(self._pending, w)
+        # windows fired AFTER the checkpoint are pending in neither book,
+        # but their slices are registered: schedule every window still
+        # fireable at the checkpoint watermark
+        for se in self._slice_last_window:
+            for w in self.assigner.window_ends_for_slice(se):
+                if (w - 1 + lateness > ckpt_wm
+                        and w not in self._pending_set):
+                    self._pending_set.add(w)
+                    heapq.heappush(self._pending, w)
+        self.watermark = ckpt_wm
+        self.max_fired_end = min(
+            self.max_fired_end,
+            int(snap.get("max_fired_end", _NEG_INF)))
+
     def restore(self, snap: Dict[str, object]) -> None:
         # empty sub-structures may be pruned by a checkpoint codec
         self._pending = list(snap.get("pending", []))

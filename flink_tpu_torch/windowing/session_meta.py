@@ -701,6 +701,72 @@ class SessionIntervalSet:
             "max_fired_watermark": self.max_fired_watermark,
         }
 
+    # ------------------------------------------------- partial failover
+
+    def _forget_multi_key(self, key: int) -> None:
+        """Remove a key's multi-interval entry (the native plane also
+        un-mirrors its membership set)."""
+        self._multi.pop(key, None)
+
+    def drop_key_groups(self, groups, max_parallelism: int = 128) -> int:
+        """Remove every session whose key falls in ``groups`` — a lost
+        shard's metadata dies with its device state. The fire candidates
+        of the dropped sessions become stale and are skipped by pop
+        validation (as merged or extended sessions already are). Returns
+        sessions dropped."""
+        from flink_tpu_torch.state.keygroups import assign_key_groups
+
+        gset = np.asarray(sorted(groups), dtype=np.int64)
+        dropped = 0
+        used = self._idx.used_slots()
+        if len(used):
+            keys = np.asarray(self._idx.slot_key[used], dtype=np.int64)
+            hit = np.isin(assign_key_groups(keys, max_parallelism), gset)
+            if hit.any():
+                self._idx.free_slots(used[hit].astype(np.int32),
+                                     keys=keys[hit], nss=keys[hit])
+                dropped += int(hit.sum())
+        if self._multi:
+            mkeys = np.asarray(list(self._multi), dtype=np.int64)
+            mhit = np.isin(assign_key_groups(mkeys, max_parallelism), gset)
+            for k in mkeys[mhit].tolist():
+                dropped += len(self._multi[int(k)])
+                self._forget_multi_key(int(k))
+        return dropped
+
+    def merge_restore(self, snap: Dict[str, object], key_group_filter,
+                      max_parallelism: int = 128) -> int:
+        """Partial-failover merge: fold a checkpoint's sessions of the key
+        groups ``key_group_filter`` into the LIVE set (the survivors' keys
+        never fall in them). ``next_sid`` takes the max (sids stay
+        globally unique); ``max_fired_watermark`` rolls back to the
+        checkpoint's so the replayed range's records are not judged stale
+        — it advances again as replay feeds the original watermarks.
+        Returns sessions restored."""
+        from flink_tpu_torch.state.keygroups import assign_key_groups
+
+        sessions = snap.get("sessions", {})
+        restored = 0
+        if sessions:
+            keys = np.asarray([int(k) for k in sessions], dtype=np.int64)
+            keep = np.isin(
+                assign_key_groups(keys, max_parallelism),
+                np.asarray(sorted(key_group_filter), dtype=np.int64))
+            for k, ok in zip(sessions, keep):
+                if not ok:
+                    continue
+                kept = [tuple(iv) for iv in sessions[k]]
+                self._store_intervals(int(k), kept)
+                restored += len(kept)
+                for start, end, sid in kept:
+                    self._push_fire(int(end), int(k), int(sid))
+        self._drain_fire_buf()
+        self._next_sid = max(self._next_sid, int(snap.get("next_sid", 1)))
+        self.max_fired_watermark = min(
+            self.max_fired_watermark,
+            snap.get("max_fired_watermark", _NEG_INF))
+        return restored
+
     @staticmethod
     def filter_snapshot(snap: Dict[str, object], groups,
                         max_parallelism: int = 128) -> Dict[str, object]:
@@ -727,8 +793,7 @@ class SessionIntervalSet:
         """Rebuild the interval set from :meth:`snapshot` (a checkpoint's,
         or a native plane's live sessions handed over after a
         ``NativePlaneError``), keeping only the keys in the key groups
-        ``key_group_filter`` when given. Partial-failover merges
-        (``drop_key_groups``, ``merge_restore``) are ROADMAP item 8b."""
+        ``key_group_filter`` when given."""
         self._reset_store()
         self._fire_chunks = []
         self._fire_buf = ([], [], [])

@@ -427,6 +427,12 @@ class NativeSessionIntervalSet(SessionIntervalSet):
 
     # ------------------------------------------- host-prep sweep helpers
 
+    def _forget_multi_key(self, key: int) -> None:
+        # keep the native multi-membership set mirrored (the sweep
+        # classifies against it) — see drop_key_groups
+        self._multi.pop(key, None)
+        self._lib.sx_multi_remove(self._store._h, int(key))
+
     def shard_group(self, res: AbsorbResult, P: int, maxp: int,
                     key_group_range) -> Tuple:
         """Per-session shard assignment and stable grouping of the LIVE

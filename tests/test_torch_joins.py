@@ -600,10 +600,6 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
     (lambda e: e.arm_side_replica(0), "12"),
     (lambda e: e.query_side_batch(0, [1]), "12"),
     (lambda e: e.exchange2_traffic(), "12"),
-    (lambda e: e.snapshot_sharded(), "8b"),
-    (lambda e: e.merge_unit_snapshots([]), "8b"),
-    (lambda e: e.restore(e.snapshot(), key_group_filter=range(4)), "8b"),
-    (lambda e: e.attach_watchdog(object()), "8b"),
 ])
 def test_unported_features_raise_naming_their_item(call, item):
     eng = port(MeshIntervalJoinEngine, -1, 1)

@@ -421,10 +421,6 @@ def _item(exc) -> str:
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.snapshot_sharded(), "8b"),
-    (lambda e: e.merge_unit_snapshots([]), "8b"),
-    (lambda e: e.restore(e.snapshot(), key_group_filter=range(4)), "8b"),
-    (lambda e: e.attach_watchdog(object()), "8b"),
     (lambda e: e.reshard(2), "12"),
     (lambda e: e.arm_match_replica(), "12"),
     (lambda e: e.register_metrics(object()), "12"),

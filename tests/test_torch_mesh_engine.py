@@ -173,6 +173,6 @@ def test_unported_features_raise():
         TEngine(asg, agg, mesh, shuffle_mode="host")
     eng = TEngine(asg, agg, mesh)
     for call in (lambda: eng.reassign_key_groups({}),
-                 lambda: eng.reshard(4)):
+                 lambda: eng.arm_replica()):
         with pytest.raises(NotImplementedError):
             call()

@@ -743,10 +743,7 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
     (lambda e: e.query_sessions(1), "12"),
     (lambda e: e.query_batch([1]), "12"),
     (lambda e: e.arm_replica(), "12"),
-    (lambda e: e.attach_watchdog(None), "8b"),
-    (lambda e: e.snapshot_sharded(), "8b"),
-    (lambda e: e.restore_key_groups({}, [0]), "8b"),
-    (lambda e: e.reshard(4), "12"),
+    (lambda e: e.reassign_key_groups(None), "12"),
 ])
 def test_unported_calls_raise_naming_their_item(call, item):
     eng = MeshSessionEngine(50, tagg.SumAggregate("v"), make_mesh(P, "cpu"),

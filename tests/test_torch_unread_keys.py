@@ -43,7 +43,6 @@ CASES = {
     "shuffle.hosts": ([1, 2], [0]),
     "execution.pipeline.in-flight-batches": ([1, 2], [0, -1]),
     "execution.stage-parallelism": ([2, 4], [0]),
-    "watchdog.enabled": ([True], [False]),
 }
 
 
