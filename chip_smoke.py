@@ -143,7 +143,10 @@ Phases, each fatal on failure (no result line is printed then):
     a restore refolds pre-aggregated partials slice by slice, which moves
     float sums by an ulp against an uninterrupted run's record-order
     partials), row 5 at P=1 and row 5 at P=8
-    (their first 1M records) run with checkpoints on the card and on the
+    (their first 500k records under 1<<18 rows and 1<<15 rows a shard, a
+    checkpoint every 3 batches: cut from 1M records under 1<<19 and 1<<16
+    when phase 19 came, to keep the script inside its time) run with
+    checkpoints on the card and on the
     CPU: every checkpoint equal array by array, bit for bit; then the CPU
     restores the card's middle checkpoint and finishes, and every row it
     fires equals the card's; (d) on the card, a P=8 mesh-sessions
@@ -259,6 +262,39 @@ Phases, each fatal on failure (no result line is printed then):
     filter and merged equals the merge of the units, whose union is the
     snapshot; card == CPU. ``python3 -c 'import torch, chip_smoke;
     chip_smoke.phase_shard_loss(torch)'`` runs phase 18 alone.
+19. process functions and durability (after phase 18): (19a) the
+    ``CountWithTimeout`` job of Flink's Process Function documentation
+    (``flink_tpu_torch/benchmarks/process_timeout.py``) over
+    ``DataGenSource(4M records, 10M keys, 20k events/s of event time,
+    seed 7)`` in batches of 1<<16 at P=1, its count and lastModified in
+    int64 ``DeviceValueState``s on the card (~3.30M keys, 1<<22 slots),
+    each batch's states written with one put whose duplicate keys the
+    newest lane wins: the card's rows equal the same job on the CPU and a
+    NumPy oracle in emission order, and so does the async variant
+    (``ctx.async_state``); events/s, fire p50/p99, timers registered and
+    fired, and the host seconds of the timer heap and the state ops
+    printed; (19b) the changelog backend (``checkpoint/changelog.py``) on
+    the card over Q5-revenue's first 2M bids (float32 Sum of the price
+    per auction and 2 s slice, batches of 1<<16, a checkpoint every 4, a
+    materialization every 8, namespaces past the 10 s window freed): the
+    newest checkpoint and one before the last materialization restored
+    into fresh backends equal the live table at their cut and the CPU's,
+    bit for bit; a checkpoint truncated past its offset is refused; the
+    ordered fold launched; checkpoint, materialize and restore ms printed;
+    (19c) phase 5's Q5 at P=8 over 10M bids into a ``BinaryFileSink``,
+    stopped by a ``SavepointRequest(stop=True)`` served after batch 5 and
+    resumed from the savepoint: both files read back through
+    ``BinaryFileSource`` equal an uninterrupted run's windows (k of the
+    tied winners where more than k tie, as phase 5), the drained stop
+    fires every window up to the cut, and the rank kernel launched
+    before the stop and after the resume; (19d)
+    ``tools/bench_async_state.py``'s shape on a ``DeviceValueState``
+    (2,000 rounds x 16 ops x 64 keys), sync and async, card == CPU, and
+    200,000 puts into 1,000 slots equal to NumPy's ``a[s] = x`` on the
+    card. ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_process(torch)'`` runs phase 19 alone
+    (``phase_process(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -266,11 +302,15 @@ The launch counts of both kernels are set to 0 just before each of phases
 16(b), the card run of 16(d), the card runs of 9(b), 17(a), 17(b), 17(c)
 and 17(d), 18(a) and 18(b) (from the harness's first engine on: the
 oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
-18(e)'s card engines, and read just after; each phase fails if a kernel of
+18(e)'s card engines, 19(a), 19(b)'s card run and each card run of
+19(c), and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
-before the loss and at D=7 after it —; the ordered fold in phases 6, 8,
-9(b), 11, 12, 13, 14(b), 15(e), 17(b), 17(c), 18(a), 18(b) and 18(c) —
-row 1's `.sum` keeps a float32 leaf —, Count being an integer fold).
+before the loss and at D=7 after it, in 19(c) before the stop and after
+the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
+15(e), 17(b), 17(c), 18(a), 18(b), 18(c) and 19(b) — row 1's `.sum`
+keeps a float32 leaf —, Count being an integer fold). 19(a) and 19(d)
+run no kernel of the two: the device value state's gather and its
+stream-ordered put are torch ops.
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -2332,20 +2372,24 @@ def phase_checkpoints(torch, q5_records: int = 40_000_000,
                  "state.slot-table.capacity": 1 << 17,
                  "execution.checkpointing.every-n-source-batches": 2},
                 "auction", "sum_price", device),
+            # cut from 1M records under 1<<19 (P=1) and 1<<16 a shard
+            # (P=8) with a checkpoint every 5 batches when phase 19 came:
+            # half the records under half the budgets, so the paged tier
+            # still evicts
             ckpt_card_equals_cpu(
-                torch, tmp, "row5_p1", _row5_build(1_000_000),
+                torch, tmp, "row5_p1", _row5_build(500_000),
                 {"execution.micro-batch.size": 1 << 16,
-                 "state.slot-table.capacity": 1 << 19,
-                 "state.slot-table.max-device-slots": 1 << 19,
-                 "execution.checkpointing.every-n-source-batches": 5},
+                 "state.slot-table.capacity": 1 << 18,
+                 "state.slot-table.max-device-slots": 1 << 18,
+                 "execution.checkpointing.every-n-source-batches": 3},
                 "key", "sum_value", device),
             ckpt_card_equals_cpu(
-                torch, tmp, "row5_p8", _row5_build(1_000_000),
+                torch, tmp, "row5_p8", _row5_build(500_000),
                 {"parallelism.default": 8,
                  "execution.micro-batch.size": 1 << 16,
-                 "state.slot-table.capacity": 1 << 16,
-                 "state.slot-table.max-device-slots": 1 << 16,
-                 "execution.checkpointing.every-n-source-batches": 5},
+                 "state.slot-table.capacity": 1 << 15,
+                 "state.slot-table.max-device-slots": 1 << 15,
+                 "execution.checkpointing.every-n-source-batches": 3},
                 "key", "sum_value", device),
         ]
         d = ckpt_mutual(torch, 1_000_000, device)
@@ -3832,6 +3876,436 @@ def phase_shard_loss(torch) -> dict:
     return {**parts, "launches": launches,
             "seconds": time.perf_counter() - t0}
 
+# ------------------------------------------------------------- phase 19
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def process_job(torch, device: str = "cuda", shape=None) -> dict:
+    """19(a): the CountWithTimeout job (benchmarks/process_timeout.py) at
+    its full shape on the card, the same job on the CPU and the async
+    variant on the card: rows equal in emission order, and equal to the
+    NumPy oracle; the two device states on the card."""
+    from flink_tpu_torch.benchmarks import process_timeout as pt
+
+    shape = shape or {k: pt.SHAPE[k] for k in ("records", "keys", "batch")}
+    reset_counts()
+    card = pt.run(device, **shape)
+    _sync(torch, device)
+    counts = read_counts()
+    fails = []
+    states = card["fn"].states
+    if not all(st._dvals.device.type == device for st in states):
+        fails.append(f"the device states are not on {device}")
+    state_bytes = sum(st._dvals.numel() * st._dvals.element_size()
+                      for st in states)
+    asy = pt.run(device, use_async=True, **shape)
+    cpu = pt.run("cpu", **shape)
+    t0 = time.perf_counter()
+    want = pt.oracle(**shape)
+    oracle_s = time.perf_counter() - t0
+    for name, out in (("card", card), ("card async", asy), ("CPU", cpu)):
+        if not pt.rows_equal(out["rows"], want):
+            fails.append(f"the {name} run's rows differ from the oracle")
+    _gate("phase 19(a)", fails)
+    row = {**pt.summary(card), "async": pt.summary(asy),
+           "cpu": pt.summary(cpu), "state_bytes": state_bytes,
+           "capacity": int(states[0]._dvals.numel()), "oracle_s": oracle_s,
+           "launches": counts}
+    print(f"phase 19(a): CountWithTimeout over {row['records']:,} records, "
+          f"{row['rows']:,} rows equal to the CPU's and the oracle's in "
+          f"emission order (async too); {row['events_per_s']:,.0f} events/s "
+          f"(async {row['async']['events_per_s']:,.0f}, CPU "
+          f"{row['cpu']['events_per_s']:,.0f}); fire p50 "
+          f"{row['fire_p50_ms']:.2f} ms p99 {row['fire_p99_ms']:.2f} ms over "
+          f"{row['fires']} fires; timers registered "
+          f"{row['timers_registered']:,}, fired {row['timers_fired']:,}; "
+          f"host s: timer heap {row['heap_s']:.3f}, state ops "
+          f"{row['state_s']:.3f}; states {state_bytes:,} B on the card at "
+          f"{row['capacity']:,} slots")
+    print("process_timeout " + json.dumps(row))
+    return row
+
+
+def _revenue_changelog(device: str, tmp: str, bids: int) -> dict:
+    """19(b)'s run on ``device``: Q5-revenue's bids folded by a
+    ChangelogKeyedBackend (float32 Sum of the price per auction and 2 s
+    slice), a checkpoint every 4 batches, a materialization every 8,
+    namespaces older than the watermark's 10 s window freed."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.checkpoint.changelog import ChangelogKeyedBackend
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+
+    log_dir = os.path.join(tmp, f"changelog-{device}")
+    b = ChangelogKeyedBackend(SumAggregate("price"), log_dir,
+                              capacity=1 << 20, device=device)
+    src = BidSource(total_records=bids, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    ckpts, live, ck_ms, mat = [], set(), [], []
+    n = 0
+    while (batch := src.poll_batch(1 << 16)) is not None:
+        n += 1
+        ns = batch.timestamps // SLIDE
+        b.scatter(batch["auction"].astype(np.int64), ns.astype(np.int64),
+                  (batch["price"],))
+        live.update(np.unique(ns).tolist())
+        wm = int(batch.timestamps.max()) - 1
+        old = sorted(x for x in live if (x + 1) * SLIDE + SIZE <= wm)
+        if old:
+            b.free_namespaces(old)
+            live.difference_update(old)
+        if n % 8 == 0:
+            t0 = time.perf_counter()
+            m = b.materialize()
+            mat.append({"seq": m["changelog_seq"],
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "bytes": os.path.getsize(os.path.join(
+                            log_dir,
+                            f"materialized-{m['changelog_seq']}.npz"))})
+        if n % 4 == 0:
+            t0 = time.perf_counter()
+            ck = b.checkpoint()
+            ck_ms.append((time.perf_counter() - t0) * 1e3)
+            ckpts.append((ck, _rows_by_key(
+                b.table.snapshot(reset_dirty=False))))
+    b.close()
+    return {"log_dir": log_dir, "ckpts": ckpts, "ck_ms": ck_ms, "mat": mat,
+            "batches": n}
+
+
+def _rows_by_key(snap: dict) -> dict:
+    """A SlotTable snapshot's columns in (namespace, key) order: a restore
+    lands rows in other slots than the live table, whose frees left
+    holes."""
+    order = np.lexsort((snap["key_id"], snap["namespace"]))
+    return {k: np.asarray(v)[order] for k, v in snap.items()}
+
+
+def changelog_backend(torch, tmp: str, bids: int = 2_000_000,
+                      device: str = "cuda") -> dict:
+    """19(b): the changelog backend on the card against the CPU: the
+    newest checkpoint and one before the last materialization restored
+    into fresh backends, each snapshot equal bit for bit to the live
+    table's at its cut and to the CPU's; a checkpoint truncated past its
+    offset fails loudly; the ordered fold launched."""
+    from flink_tpu_torch.checkpoint.changelog import ChangelogKeyedBackend
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+
+    reset_counts()
+    card = _revenue_changelog(device, tmp, bids)
+    _sync(torch, device)
+    counts = read_counts()
+    cpu = _revenue_changelog("cpu", os.path.join(tmp, "cpu"), bids)
+    fails = []
+    last_mat = card["mat"][-1]["seq"]
+    picks = {"newest": len(card["ckpts"]) - 1,
+             "before_last_materialization": max(
+                 i for i, (ck, _) in enumerate(card["ckpts"])
+                 if ck["changelog_seq"] < last_mat)}
+    restore = {}
+    for name, i in picks.items():
+        for run, dev in ((card, device), (cpu, "cpu")):
+            ck, live = run["ckpts"][i]
+            fresh = ChangelogKeyedBackend(SumAggregate("price"),
+                                          run["log_dir"], capacity=1 << 20,
+                                          device=dev)
+            fresh.restore(ck)
+            got = _rows_by_key(fresh.table.snapshot(reset_dirty=False))
+            if run is card:
+                _sync(torch, dev)
+                restore[name] = dict(fresh.restore_ms)
+            fresh.close()
+            d = _snap_diffs(got, live)
+            if d:
+                fails.append(f"{name} on {dev}: the restore differs "
+                             f"from the live table at {d[:5]}")
+        d = _snap_diffs(card["ckpts"][i][1], cpu["ckpts"][i][1])
+        if d:
+            fails.append(f"{name}: card != CPU at {d[:5]}")
+    early = card["ckpts"][picks["before_last_materialization"]][0]
+    fresh = ChangelogKeyedBackend(SumAggregate("price"), card["log_dir"],
+                                  capacity=1 << 20, device=device)
+    fresh.truncate_subsumed(last_mat)
+    try:
+        fresh.restore(early)
+        fails.append("a checkpoint truncated past its offset restored")
+    except RuntimeError as e:
+        if "not restorable" not in str(e):
+            raise
+    fresh.close()
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        fails.append("the ordered fold did not launch")
+    _gate("phase 19(b)", fails)
+    rows = len(card["ckpts"][-1][1]["key_id"])
+    row = {"bids": bids, "batches": card["batches"],
+           "checkpoints": len(card["ckpts"]),
+           "checkpoint_ms": card["ck_ms"],
+           "materializations": card["mat"], "restore_ms": restore,
+           "rows_at_newest": rows, "launches": counts}
+    ck_ms = ", ".join("%.3f" % x for x in card["ck_ms"])
+    mats = ", ".join("%.1f / %d" % (m["ms"], m["bytes"]) for m in card["mat"])
+    print(f"phase 19(b): changelog backend over {bids:,} bids "
+          f"({card['batches']} batches, {len(card['ckpts'])} checkpoints, "
+          f"{len(card['mat'])} materializations): checkpoint ms (offset "
+          f"only) {ck_ms}; materialize ms / bytes {mats}; restore ms "
+          f"{restore}; {rows:,} rows at the newest cut equal the live table "
+          f"and the CPU bit for bit; a truncated checkpoint refused; "
+          f"launches {counts}")
+    print("changelog " + json.dumps(row))
+    return row
+
+
+def _stop_after(records, control=None, request=None, after=0):
+    """A BidSource that queues a control request as it hands out batch
+    ``after``: the executor serves it once that batch went through the
+    job."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    class Queueing(BidSource):
+        polled = 0
+
+        def poll_batch(self, n):
+            b = super().poll_batch(n)
+            self.polled += 1
+            if control is not None and self.polled == after:
+                control.put(request)
+            return b
+
+    return Queueing(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+
+
+def _q5_binary(torch, source, path, restore_from=None, control=None,
+               device="cuda", batch=1 << 20):
+    """Phase 5's Q5 at P=8 into a BinaryFileSink; returns the result and
+    the launches."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import build_q5
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+    from flink_tpu_torch.connectors.sinks import BinaryFileSink
+
+    env = StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8, "execution.micro-batch.size": batch,
+        "execution.device": device}))
+    build_q5(env, source, size_ms=SIZE, slide_ms=SLIDE,
+             device_top_k=TOP_K).sink_to(BinaryFileSink(path))
+    reset_counts()
+    t0 = time.perf_counter()
+    result = LocalExecutor(env.config).run(
+        env.get_stream_graph(), "q5-binary", restore_from=restore_from,
+        control_queue=control)
+    _sync(torch, device)
+    return result, read_counts(), time.perf_counter() - t0
+
+
+def _read_windows(*paths) -> dict:
+    """{window_end: (count, set of auctions)} read back through
+    BinaryFileSource."""
+    from flink_tpu_torch.connectors.sources import BinaryFileSource
+
+    out = {}
+    for path in paths:
+        src = BinaryFileSource(path)
+        src.open()
+        while (b := src.poll_batch(1 << 20)) is not None:
+            for we, c, a in zip(b["window_end"].tolist(), b["count"].tolist(),
+                                b["auction"].tolist()):
+                if we in out and out[we][0] != c:
+                    raise AssertionError(f"window {we} fired twice")
+                out.setdefault(we, (c, set()))[1].add(a)
+        src.close()
+    return out
+
+
+def stop_with_savepoint(torch, tmp: str, records: int = 10_000_000,
+                        after: int = 5, device: str = "cuda",
+                        batch: int = 1 << 20) -> dict:
+    """19(c): Q5 at P=8 into a BinaryFileSink, stopped with a savepoint
+    after batch ``after`` and resumed from it to the end; both files read
+    back through BinaryFileSource equal an uninterrupted run's windows
+    (where a window's tied winners fit in k; beyond, both are k of them,
+    as phase 5 checks); with drain=True every window up to the cut fires
+    at the stop; the rank kernel launched before the stop and after the
+    resume."""
+    import queue
+
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.cluster.local_executor import SavepointRequest
+
+    fails = []
+    kw = {"device": device, "batch": batch}
+    clean_path = os.path.join(tmp, "q5-clean.ftb")
+    _, _, clean_s = _q5_binary(torch, _stop_after(records), clean_path,
+                               **kw)
+    clean = _read_windows(clean_path)
+    parts, launches, secs = {}, {}, {}
+    for drain in (False, True):
+        tag = "drain" if drain else "stop"
+        control = queue.Queue()
+        sp = os.path.join(tmp, f"q5-sp-{tag}")
+        req = SavepointRequest(sp, stop=True, drain=drain)
+        p1 = os.path.join(tmp, f"q5-{tag}-1.ftb")
+        result, before, secs[tag] = _q5_binary(
+            torch, _stop_after(records, control, req, after), p1,
+            control=control, **kw)
+        path = req.wait(timeout=60)
+        if result.metrics.get("savepoint") != path:
+            fails.append(f"{tag}: the job did not stop at the savepoint")
+        launches[tag] = {"before_stop": before}
+        parts[tag] = [_read_windows(p1)]
+        if not drain:
+            p2 = os.path.join(tmp, "q5-stop-2.ftb")
+            _, resumed, secs["resume"] = _q5_binary(
+                torch, _stop_after(records), p2, restore_from=path, **kw)
+            launches[tag]["after_resume"] = resumed
+            parts[tag].append(_read_windows(p2))
+    first, second = parts["stop"]
+    if set(first) & set(second):
+        fails.append("a window fired before the stop and after the resume")
+    union = {**first, **second}
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    tied = 0
+    for w, (best, winners) in want.items():
+        for name, got in (("stop + resume", union), ("uninterrupted", clean)):
+            if w not in got:
+                fails.append(f"{name}: window {w} missing")
+                continue
+            c, ws = got[w]
+            if c != best or not ws <= winners or \
+                    len(ws) != min(len(winners), TOP_K):
+                fails.append(f"{name}: window {w} ({c}, {sorted(ws)[:3]})")
+        if len(winners) <= TOP_K:
+            if union.get(w) != clean.get(w):
+                fails.append(f"window {w}: stop + resume != uninterrupted")
+        else:
+            tied += 1
+    if set(union) != set(clean):
+        fails.append(f"stop + resume fired {len(union)} windows, the "
+                     f"uninterrupted run {len(clean)}")
+    drained = parts["drain"][0]
+    cut_ts = after * batch * 1000 // RATE   # the first timestamp not read
+    for w in clean:
+        if w - SIZE < cut_ts and w not in drained:
+            fails.append(f"drain: window {w} (starts before the cut) did "
+                         "not fire at the stop")
+        if w <= cut_ts and drained.get(w) != clean[w] and \
+                len(want[w][1]) <= TOP_K:
+            fails.append(f"drain: window {w} differs from the "
+                         "uninterrupted run")
+    for tag, d in launches.items():
+        for when, c in d.items():
+            if device == "cuda" and c["exchange_rank"] <= 0:
+                fails.append(f"{tag}: the rank kernel did not launch "
+                             f"{when.replace('_', ' ')}")
+    _gate("phase 19(c)", fails)
+    row = {"records": records, "stop_after_batch": after,
+           "windows": len(clean), "before_stop": len(first),
+           "after_resume": len(second), "drained": len(drained),
+           "windows_with_more_ties_than_k": tied, "seconds": secs,
+           "launches": {
+               k: sum(c[k] for d in launches.values() for c in d.values())
+               for k in ("exchange_rank", "ordered_fold")},
+           "launches_by_run": launches}
+    print(f"phase 19(c): Q5 P=8 over {records:,} bids into a BinaryFileSink, "
+          f"stopped with a savepoint after batch {after} ({len(first):,} "
+          f"windows) and resumed ({len(second):,}): read back through "
+          f"BinaryFileSource they equal the uninterrupted run's "
+          f"{len(clean):,} windows ({tied} with more tied winners than k: "
+          f"k of them each); drain fired {len(drained):,} windows at the "
+          f"stop; launches {launches}; s {secs} (uninterrupted "
+          f"{clean_s:.2f})")
+    print("stop_with_savepoint " + json.dumps(row))
+    return row
+
+
+def async_waves(torch, device: str = "cuda", rounds: int = 2000) -> dict:
+    """19(d): tools/bench_async_state.py's shape on a DeviceValueState
+    (2,000 rounds x 16 ops x 64 keys, capacity 1<<16), sync and async, on
+    the card and the CPU: the same reads, final state and kernel calls;
+    and 200,000 puts into 1,000 slots equal to NumPy's a[s] = x on the
+    card."""
+    from flink_tpu_torch.benchmarks import async_state as bench
+    from flink_tpu_torch.state.async_state import put_last_wins
+
+    fails, rows = [], {}
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        for mode in ("sync", "async"):
+            rows[(label, mode)] = bench.run(dev, mode, rounds)
+    ref = rows[("cpu", "sync")]
+    for key, r in rows.items():
+        if r["digest"] != ref["digest"] or not np.array_equal(
+                r["final"].view(np.uint64), ref["final"].view(np.uint64)):
+            fails.append(f"{key}: reads or final state differ")
+    for mode in ("sync", "async"):
+        if rows[("card", mode)]["kernel_calls"] != \
+                rows[("cpu", mode)]["kernel_calls"]:
+            fails.append(f"{mode}: kernel calls differ")
+    rng = np.random.default_rng(11)
+    s = rng.integers(0, 1000, 200_000)
+    x = rng.normal(size=200_000).astype(np.float32)
+    want = np.zeros(1000, dtype=np.float32)
+    want[s] = x
+    t = torch.zeros(1000, dtype=torch.float32, device=device)
+    st, xt = torch.from_numpy(s).to(device), torch.from_numpy(x).to(device)
+    put_last_wins(t, st, xt)
+    if not np.array_equal(t.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32)):
+        fails.append("the card's put with duplicates is not a[s] = x")
+    put_ms = (cuda_ms(lambda: put_last_wins(t, st, xt), 50)
+              if device == "cuda" else None)
+    _gate("phase 19(d)", fails)
+    row = {f"{label}_{m}": {k: v for k, v in r.items() if k != "final"}
+           for (label, m), r in rows.items()}
+    row["put_200k_into_1000_ms"] = put_ms
+    row["launches"] = {"exchange_rank": 0, "ordered_fold": 0}
+    print(f"phase 19(d): async waves on a DeviceValueState: card sync "
+          f"{row['card_sync']['ops_per_s']:,.0f} ops/s, async "
+          f"{row['card_async']['ops_per_s']:,.0f} ops/s "
+          f"({row['card_async']['kernel_calls']} calls; CPU "
+          f"{row['cpu_sync']['ops_per_s']:,.0f} / "
+          f"{row['cpu_async']['ops_per_s']:,.0f}); reads, final state and "
+          f"calls card == CPU; 200,000 puts into 1,000 slots == a[s] = x bit "
+          f"for bit on the card ({put_ms} ms a call)")
+    print("async_waves " + json.dumps(row))
+    return row
+
+
+def phase_process(torch, device: str = "cuda", small: bool = False) -> dict:
+    """Phase 19: process functions with device state, the changelog
+    backend, stop-with-savepoint with the binary file sink, async waves.
+    ``device="cpu", small=True`` rehearses it at a cut size without a
+    card (the card-vs-CPU checks then compare the CPU with itself)."""
+    import tempfile
+
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    cut = ({"process": {"shape": {"records": 200_000, "keys": 200_000,
+                                  "batch": 1 << 14}},
+            "changelog": {"bids": 600_000},
+            "stop": {"records": 600_000, "batch": 1 << 16},
+            "async": {"rounds": 100}} if small else
+           {"process": {}, "changelog": {}, "stop": {}, "async": {}})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        parts = {"process": process_job(torch, device, **cut["process"]),
+                 "changelog": changelog_backend(torch, tmp, device=device,
+                                                **cut["changelog"]),
+                 "stop_with_savepoint": stop_with_savepoint(
+                     torch, tmp, device=device, **cut["stop"]),
+                 "async": async_waves(torch, device, **cut["async"])}
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("exchange_rank", "ordered_fold")}
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return {**parts, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3894,9 +4368,10 @@ def main() -> int:
     cep = phase_cep(torch, args.cep_records)
     slice11 = phase_slice11(torch)
     shard_loss = phase_shard_loss(torch)
+    process = phase_process(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values(), shard_loss)
+            *slice11.values(), shard_loss, process)
 
     kernels = [{
         "name": "exchange_rank",

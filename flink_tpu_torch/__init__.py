@@ -27,13 +27,45 @@ crash-restore-verify harness. The mesh window engine runs under a per-shard
 device budget (the namespace spill layout, hybrid fires), batch mode fires
 every window once at the end of input, and the DataStream surface carries
 BASELINE row 1 (socket WordCount over processing-time windows,
-``benchmarks/wordcount.py``). The package imports neither ``jax`` nor anything of
+``benchmarks/wordcount.py``). Process functions carry keyed state (host
+states with TTL, and ``DeviceValueState`` on the operator's device),
+timers, side outputs, ``connect``/``broadcast`` and async I/O; the
+changelog backend, the columnar serializers with the binary file sink
+and source, and stop-with-savepoint carry the rest of durability. The package imports neither ``jax`` nor anything of
 ``flink_tpu`` (importing ``flink_tpu`` loads jax).
 """
 
 from flink_tpu_torch.core.config import ConfigOption, Configuration
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.datastream.environment import StreamExecutionEnvironment
+from flink_tpu_torch.datastream.stream import AsyncDataStream
+from flink_tpu_torch.runtime.process import (
+    BroadcastProcessFunction,
+    CoProcessFunction,
+    KeyedProcessFunction,
+    OutputTag,
+    ProcessFunction,
+)
+from flink_tpu_torch.state.keyed_state import (
+    ListStateDescriptor,
+    MapStateDescriptor,
+    ReducingStateDescriptor,
+    ValueStateDescriptor,
+)
 
-__all__ = ["ConfigOption", "Configuration", "RecordBatch",
-           "StreamExecutionEnvironment"]
+__all__ = [
+    "AsyncDataStream",
+    "BroadcastProcessFunction",
+    "ConfigOption",
+    "Configuration",
+    "CoProcessFunction",
+    "KeyedProcessFunction",
+    "ListStateDescriptor",
+    "MapStateDescriptor",
+    "OutputTag",
+    "ProcessFunction",
+    "RecordBatch",
+    "ReducingStateDescriptor",
+    "StreamExecutionEnvironment",
+    "ValueStateDescriptor",
+]

@@ -36,15 +36,31 @@ every mesh engine; a shard it declares dead raises ``ShardFailedError``
 out of ``execute()``, and ``result.metrics["watchdog"]`` holds its
 counters.
 
+Side outputs: a ``TaggedBatch`` goes only to the children on an edge with
+its tag (``Transformation.side_tag``); a main output skips side edges.
+
+Control requests: ``run(control_queue=...)`` serves ``SavepointRequest``s
+between source batches. In-flight fires are drained and every operator's
+state and source position is written with ``write_savepoint``; with
+``stop=True`` the sources are stopped and closed and the job ends without
+firing what is open (the operators are disposed: those windows resume
+from the savepoint), and with ``drain=True`` as well every source first
+advances to ``MAX_WATERMARK`` so every window and timer fires before the
+snapshot. ``result.metrics["savepoint"]`` names a stop's savepoint. A
+state query or rescale request fails its future (item 12); requests
+still queued when the job ends fail too.
+
 Not in this slice: source pump threads (sources are polled inline),
-control requests and stop-with-savepoint (item 8b), restart strategies,
-autoscale, managed memory, the metrics registry and tracing — see
-ROADMAP.md (item 12).
+state queries and rescale requests, restart strategies, autoscale,
+managed memory, the metrics registry and tracing — see ROADMAP.md
+(item 12).
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -66,6 +82,7 @@ from flink_tpu_torch.core.config import (
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
 from flink_tpu_torch.runtime.operators import Operator, OperatorContext
+from flink_tpu_torch.runtime.process import TaggedBatch
 from flink_tpu_torch.runtime.watchdog import watchdog_from_config
 from flink_tpu_torch.runtime.watermarks import WatermarkValve
 
@@ -87,6 +104,71 @@ class _Node:
         self.held_wm: Optional[int] = None
 
 
+class _ControlRequest:
+    """Completion plumbing shared by the task loop's control requests: the
+    loop completes one with ``finish(result, error)``, the client blocks
+    in ``wait``."""
+
+    timeout_message = "control request not served"
+
+    def __init__(self):
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self._done = threading.Event()
+
+    def finish(self, result, error=None) -> None:
+        self.result = result
+        self.error = error
+        self._done.set()
+
+    def wait(self, timeout: Optional[float] = None):
+        if not self._done.wait(timeout):
+            raise TimeoutError(self.timeout_message)
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+class StateQueryRequest(_ControlRequest):
+    """A point lookup of an operator's state (served by the reference;
+    refused here, item 12)."""
+
+    timeout_message = "state query not served"
+
+    def __init__(self, operator_name: str, key, namespace=None):
+        super().__init__()
+        self.operator_name = operator_name
+        self.key = key
+        self.namespace = namespace
+
+
+class RescaleRequest(_ControlRequest):
+    """A live rescale of the job's mesh engine (served by the reference;
+    refused here, item 12)."""
+
+    timeout_message = "rescale not served"
+
+    def __init__(self, new_shards: int):
+        super().__init__()
+        self.new_shards = int(new_shards)
+
+
+class SavepointRequest(_ControlRequest):
+    """A savepoint, or with ``stop`` a stop-with-savepoint (``drain``:
+    fire everything first), served between source batches."""
+
+    def __init__(self, path: str, stop: bool = False, drain: bool = False):
+        super().__init__()
+        self.path = path
+        self.stop = stop
+        self.drain = drain
+        self.timeout_message = f"savepoint {path!r} not completed"
+
+    @property
+    def result_path(self) -> Optional[str]:
+        return self.result
+
+
 def _quantile_sorted(data: List[float], q: float) -> float:
     if not data:
         return 0.0
@@ -99,11 +181,14 @@ class LocalExecutor:
 
     def run(self, graph: StreamGraph, job_name: str = "job",
             restore_from: Optional[str] = None,
-            restore_mode: str = "no-claim"):
+            restore_mode: str = "no-claim",
+            control_queue: Optional["queue.Queue"] = None):
         """Execute the graph to completion; returns a JobExecutionResult
         with throughput, fire-latency and checkpoint metrics.
         ``restore_from``: a checkpoint root (its newest checkpoint) or one
-        snapshot directory; ``restore_mode``: "no-claim" or "claim"."""
+        snapshot directory; ``restore_mode``: "no-claim" or "claim";
+        ``control_queue``: a queue of ``SavepointRequest``s served between
+        source batches."""
         from flink_tpu_torch.datastream.environment import JobExecutionResult
 
         cfg = self.config
@@ -224,6 +309,8 @@ class LocalExecutor:
                                     False)]
             t0 = time.perf_counter()
             total_records = 0
+            savepoint_path = None
+            suppress_final_drain = False
             active = {t.uid for t, _ in sources}
             while active:
                 self._drain_pending(nodes)
@@ -263,33 +350,51 @@ class LocalExecutor:
                 if not progressed and active:
                     # an idle source (a socket without data): do not spin
                     time.sleep(0.001)
-                if storage is None:
-                    continue
-                if ckpt_every_n:
-                    due = batches_since_ckpt >= ckpt_every_n
-                else:
-                    due = time.time() * 1000 - last_ckpt >= ckpt_interval
-                if not due:
-                    continue
-                checkpoint_count += 1
-                use_delta = (incremental and last_written_id is not None
-                             and since_full < full_every)
-                new_dir = self._write_checkpoint(
-                    graph, nodes, storage, checkpoint_count, job_name,
-                    source_positions, use_delta, last_written_id)
-                last_written_id = checkpoint_count
-                since_full = since_full + 1 if use_delta else 1
-                if claimed is not None:
-                    claimed.on_checkpoint_complete(new_dir)
-                storage.retain(cfg.get(StateOptions.NUM_RETAINED))
-                last_ckpt = time.time() * 1000
-                batches_since_ckpt = 0
+                if storage is not None:
+                    if ckpt_every_n:
+                        due = batches_since_ckpt >= ckpt_every_n
+                    else:
+                        due = (time.time() * 1000 - last_ckpt
+                               >= ckpt_interval)
+                    if due:
+                        checkpoint_count += 1
+                        use_delta = (incremental
+                                     and last_written_id is not None
+                                     and since_full < full_every)
+                        new_dir = self._write_checkpoint(
+                            graph, nodes, storage, checkpoint_count,
+                            job_name, source_positions, use_delta,
+                            last_written_id)
+                        last_written_id = checkpoint_count
+                        since_full = since_full + 1 if use_delta else 1
+                        if claimed is not None:
+                            claimed.on_checkpoint_complete(new_dir)
+                        storage.retain(cfg.get(StateOptions.NUM_RETAINED))
+                        last_ckpt = time.time() * 1000
+                        batches_since_ckpt = 0
+                if control_queue is not None:
+                    stopped = self._serve_control(
+                        control_queue, graph, nodes, sources, active,
+                        job_name, checkpoint_count, source_positions)
+                    if stopped is not None:
+                        savepoint_path = stopped.result_path
+                        suppress_final_drain = not stopped.drain
+                        break
             self._drain_pending(nodes, wait=True)
-            for t in graph.nodes:
-                node = nodes[t.uid]
-                if node.operator is not None:
-                    for out in node.operator.close():
-                        self._forward(node, out)
+            if suppress_final_drain:
+                # a stop without drain: the savepoint holds what is open;
+                # release without emitting
+                for node in nodes.values():
+                    if node.operator is not None:
+                        node.operator.dispose()
+            else:
+                for t in graph.nodes:
+                    node = nodes[t.uid]
+                    if node.operator is not None:
+                        for out in node.operator.close():
+                            self._forward(node, out)
+            self._fail_pending_controls(
+                control_queue, f"job {job_name!r} already terminated")
         except BaseException:
             # failure path: release resources without emitting
             for t, _ in sources:
@@ -297,6 +402,8 @@ class LocalExecutor:
             for node in nodes.values():
                 if node.operator is not None:
                     node.operator.dispose()
+            self._fail_pending_controls(
+                control_queue, f"job {job_name!r} terminated abnormally")
             raise
 
         elapsed = time.perf_counter() - t0
@@ -317,6 +424,8 @@ class LocalExecutor:
         if watchdog is not None:
             # the numbers the reference's job.<name>.watchdog gauges read
             metrics["watchdog"] = watchdog.counters()
+        if savepoint_path is not None:
+            metrics["savepoint"] = savepoint_path
         if self.checkpoints or restore_from is not None:
             metrics["checkpoints"] = list(self.checkpoints)
             metrics["restore_ms"] = self.restore_ms
@@ -329,6 +438,75 @@ class LocalExecutor:
                 "count": len(fire_latencies),
             }
         return JobExecutionResult(job_name, metrics)
+
+    # -------------------------------------------------------------- control
+
+    def _serve_control(self, control_queue, graph, nodes, sources, active,
+                       job_name: str, checkpoint_id: int,
+                       source_positions) -> Optional[SavepointRequest]:
+        """Serve the requests queued at this batch boundary; returns the
+        savepoint request that stops the job, else None."""
+        from flink_tpu_torch.checkpoint.savepoint import (
+            check_savepoint_target,
+            write_savepoint,
+        )
+
+        def stop_sources():
+            for t, _ in sources:
+                if t.uid in active:
+                    t.source.close()
+            active.clear()
+
+        # at most the requests already queued: a client re-submitting
+        # must not starve the data path
+        for _ in range(max(control_queue.qsize(), 1)):
+            try:
+                req = control_queue.get_nowait()
+            except queue.Empty:
+                return None
+            if not isinstance(req, SavepointRequest):
+                req.finish(None, NotImplementedError(
+                    f"{type(req).__name__}: state queries and live rescale "
+                    "are not ported to flink_tpu_torch yet (ROADMAP.md, "
+                    "Queue A item 12); the port serves SavepointRequest"))
+                continue
+            try:
+                # a bad target fails before anything irreversible: the job
+                # keeps running
+                check_savepoint_target(req.path)
+                if req.stop and req.drain:
+                    # fire every window and timer before the snapshot
+                    for t, node in sources:
+                        if t.uid in active:
+                            self._emit_watermark(node, MAX_WATERMARK)
+                    stop_sources()
+                self._drain_pending(nodes, wait=True)
+                snap = self.snapshot_all(graph, nodes, source_positions,
+                                         savepoint=True)
+                path = write_savepoint(req.path, job_name, snap,
+                                       checkpoint_id=checkpoint_id)
+                if req.stop and not req.drain:
+                    stop_sources()
+                req.finish(path)
+            except Exception as e:  # reported to the requester
+                req.finish(None, e)
+                continue
+            if req.stop:
+                return req
+        return None
+
+    @staticmethod
+    def _fail_pending_controls(control_queue, reason: str) -> None:
+        """Complete the requests still queued so that no client blocks on
+        a job that has ended."""
+        if control_queue is None:
+            return
+        while True:
+            try:
+                req = control_queue.get_nowait()
+            except queue.Empty:
+                return
+            req.finish(None, RuntimeError(reason))
 
     # ---------------------------------------------------------- checkpoints
 
@@ -486,8 +664,13 @@ class LocalExecutor:
     # ------------------------------------------------------------- plumbing
 
     def _emit_batch(self, node: _Node, batch) -> None:
+        """Route an output: a TaggedBatch only to the side edges with its
+        tag, a main output only to the other edges."""
+        tag = batch.tag.name if isinstance(batch, TaggedBatch) else None
+        payload = batch.batch if tag is not None else batch
         for child, idx in zip(node.children, node.child_input_idx):
-            self._process(child, batch, idx)
+            if child.transformation.side_tag == tag:
+                self._process(child, payload, idx)
 
     def _emit_watermark(self, node: _Node, wm: int) -> None:
         for child, idx in zip(node.children, node.child_input_idx):
@@ -542,5 +725,6 @@ class LocalExecutor:
                 return
 
     def _forward(self, node: _Node, batch) -> None:
-        node.records_out += len(batch)
+        node.records_out += len(batch.batch if isinstance(batch, TaggedBatch)
+                                else batch)
         self._emit_batch(node, batch)

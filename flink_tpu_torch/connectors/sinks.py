@@ -1,7 +1,6 @@
 """Sinks (port of ``flink_tpu/connectors/sinks.py``: the base sink,
-``DiscardingSink``, ``CollectSink``, ``PrintSink`` and
-``JsonLinesFileSink``). ``BinaryFileSink`` needs the columnar serializer
-and is ROADMAP Queue A item 8b."""
+``DiscardingSink``, ``CollectSink``, ``PrintSink``, ``JsonLinesFileSink``
+and ``BinaryFileSink``), over the filesystems of ``core/fs.py``."""
 
 from __future__ import annotations
 
@@ -105,3 +104,46 @@ class JsonLinesFileSink(Sink):
         with fs.open(local, "rb") as fh:
             text = io.TextIOWrapper(fh, encoding="utf-8")
             return [json.loads(line) for line in text if line.strip()]
+
+
+@public
+class BinaryFileSink(Sink):
+    """Length-prefixed batches in the columnar wire format of
+    ``core/serializers.py`` ``RowBatchSerializer``. The file starts with
+    the magic ``FTFS`` and the serializer snapshot (JSON), so a reader
+    restores the exact row type, and resolves compatibility, from the file
+    alone. The bytes are the reference's."""
+
+    MAGIC = b"FTFS"
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh = None
+        self._ser = None
+
+    def open(self, subtask_index: int = 0) -> None:
+        from flink_tpu_torch.core.fs import get_filesystem
+
+        fs, local = get_filesystem(self.path)
+        self._fh = fs.open(local, "wb")
+
+    def write(self, batch: RecordBatch) -> None:
+        import json
+        import struct
+
+        if self._fh is None:
+            self.open()
+        if self._ser is None:
+            from flink_tpu_torch.core.types import RowTypeInfo
+
+            self._ser = RowTypeInfo.from_batch(batch).create_serializer()
+            header = json.dumps(self._ser.snapshot().to_json()).encode()
+            self._fh.write(self.MAGIC + struct.pack("<I", len(header))
+                           + header)
+        payload = self._ser.serialize(batch)
+        self._fh.write(struct.pack("<Q", len(payload)) + payload)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

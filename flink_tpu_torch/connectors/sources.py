@@ -1,9 +1,9 @@
 """Sources (port of ``flink_tpu/connectors/sources.py``: the base class,
 the in-memory ``CollectionSource``, the counter-based hash the synthetic
-generators derive their records from, ``DataGenSource`` and the line
-socket ``SocketSource``). Every source says whether it is ``bounded``:
-batch mode (``execution.runtime-mode=batch``) rejects an unbounded one.
-``BinaryFileSource`` needs the columnar serializer (ROADMAP item 8b)."""
+generators derive their records from, ``DataGenSource``, the line
+socket ``SocketSource`` and ``BinaryFileSource``). Every source says
+whether it is ``bounded``: batch mode (``execution.runtime-mode=batch``)
+rejects an unbounded one."""
 
 from __future__ import annotations
 
@@ -208,3 +208,80 @@ class SocketSource(Source):
     def close(self):
         if self._sock is not None:
             self._sock.close()
+
+
+@public
+class BinaryFileSource(Source):
+    """Reads a file written by ``BinaryFileSink``. The serializer snapshot
+    in its header restores the writer's row type; given a ``row_type``,
+    compatibility is resolved first and batches are migrated when the
+    schema evolved (an incompatible schema raises ``ValueError``)."""
+
+    def __init__(self, path: str, row_type=None):
+        self.path = path
+        self.row_type = row_type
+        self._fh = None
+        self._ser = None
+        self._snap = None
+        self._migrating = False
+        self._pos = 0
+
+    def open(self, subtask_index: int = 0, parallelism: int = 1) -> None:
+        import json
+        import struct
+
+        from flink_tpu_torch.core.fs import get_filesystem
+        from flink_tpu_torch.core.serializers import (
+            Compatibility,
+            SerializerSnapshot,
+        )
+
+        fs, local = get_filesystem(self.path)
+        self._fh = fs.open(local, "rb")
+        if self._fh.read(4) != b"FTFS":
+            raise ValueError(f"{self.path}: not a binary batch file")
+        (hlen,) = struct.unpack("<I", self._fh.read(4))
+        self._snap = SerializerSnapshot.from_json(
+            json.loads(self._fh.read(hlen).decode()))
+        if self.row_type is not None:
+            new_ser = self.row_type.create_serializer()
+            compat = self._snap.resolve_compatibility(new_ser)
+            if compat is Compatibility.INCOMPATIBLE:
+                raise ValueError(
+                    f"{self.path}: written schema is incompatible with the "
+                    f"requested row type")
+            self._ser = new_ser
+            self._migrating = (
+                compat is Compatibility.COMPATIBLE_AFTER_MIGRATION)
+        else:
+            self._ser = self._snap.restore_serializer()
+        if self._pos:
+            self._fh.seek(self._pos)
+
+    def poll_batch(self, max_records):
+        import struct
+
+        head = self._fh.read(8)
+        if len(head) < 8:
+            return None
+        (plen,) = struct.unpack("<Q", head)
+        payload = self._fh.read(plen)
+        self._pos = self._fh.tell()
+        if self._migrating:
+            return self._ser.migrate(payload, self._snap)
+        return self._ser.deserialize(payload)
+
+    def close(self):
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def snapshot_position(self):
+        return {"pos": self._pos}
+
+    def restore_position(self, pos):
+        self._pos = pos["pos"]
+        # restored after open: seek the live handle (position 0 means
+        # never polled; the handle already sits past the header)
+        if self._fh is not None and self._pos:
+            self._fh.seek(self._pos)

@@ -1,10 +1,12 @@
 """Carry state across from the JAX engine: a ``MeshWindowEngine``'s
 ``[P, capacity]`` accumulator planes (read back from ``flink_tpu`` as
-numpy arrays) become the port's planes on a given device."""
+numpy arrays) become the port's planes on a given device, and a process
+operator's snapshot (timers and keyed state) becomes the port's with its
+device value states as tensors on a given device."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Any, Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,3 +27,37 @@ def from_jax_planes(planes: Sequence[np.ndarray],
                              f"shape {a.shape}")
         out.append(torch.from_numpy(a.copy()).to(dev))
     return tuple(out)
+
+
+def from_jax_keyed_state(snapshot: Dict[str, Any], device: DeviceLike = None,
+                         device_states: Iterable[str] = ()
+                         ) -> Dict[str, Any]:
+    """A reference ``ProcessOperator.snapshot_state()`` (its timers and
+    ``keyed_state``, arrays read as numpy) as the port's: the values of
+    the states named in ``device_states`` (the operator's
+    ``DeviceValueStateDescriptor`` states) become 1-D tensors on
+    ``device`` (default: ``execution.device``, i.e. the card), which the
+    port's ``ProcessOperator.restore_state`` lands without a host copy;
+    every other array is copied as numpy."""
+    dev = resolve_device(device)
+    on_device = set(device_states)
+    out = {k: v for k, v in snapshot.items() if k != "keyed_state"}
+    ks = snapshot.get("keyed_state")
+    if ks is not None:
+        states = {}
+        for name, st in ks["states"].items():
+            st = dict(st)
+            if name in on_device:
+                st["values"] = torch.from_numpy(
+                    np.array(st["values"], copy=True)).to(dev)
+            elif "values" in st:
+                st["values"] = np.array(st["values"], copy=True)
+            states[name] = st
+        missing = on_device - set(states)
+        if missing:
+            raise KeyError(f"no state named {sorted(missing)} in the "
+                           f"snapshot (has {sorted(states)})")
+        out["keyed_state"] = {"keys": np.array(ks["keys"], copy=True),
+                              "slots": np.array(ks["slots"], copy=True),
+                              "states": states}
+    return out

@@ -1,8 +1,8 @@
 """Type information — column types (port of ``flink_tpu/core/types.py``).
 
 A type is (logical kind, numpy dtype); a row type is an ordered mapping of
-field name -> column type. The serializer factories of the reference
-module belong to the checkpoint slice and are not carried here.
+field name -> column type; each creates its column serializer
+(``core/serializers.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,15 @@ class TypeInformation:
 
     kind: str  # 'numeric' | 'string' | 'object'
     dtype: Optional[str] = None  # numpy dtype str for 'numeric'
+
+    def create_serializer(self):
+        from flink_tpu_torch.core import serializers as ser
+
+        if self.kind == "numeric":
+            return ser.NumericArraySerializer(np.dtype(self.dtype))
+        if self.kind == "string":
+            return ser.StringArraySerializer()
+        return ser.PickleArraySerializer()
 
     @staticmethod
     def of(value: Any) -> "TypeInformation":
@@ -91,6 +100,11 @@ class RowTypeInfo:
 
     def field_type(self, name: str) -> TypeInformation:
         return self.types[self.names.index(name)]
+
+    def create_serializer(self):
+        from flink_tpu_torch.core.serializers import RowBatchSerializer
+
+        return RowBatchSerializer(self)
 
     def to_config(self) -> Dict[str, Any]:
         return {"names": list(self.names),

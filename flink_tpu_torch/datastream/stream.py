@@ -3,7 +3,10 @@ map, filter, flat_map, union, key_by, window — aligned (event or
 processing time) or merging (sessions) —, aggregate and its shorthands
 (sum, count, max, min, avg, aggregate_all), the window join
 (``join().where().equal_to().window().apply()``), the interval join
-(``interval_join().between()``), sinks, ``print`` and
+(``interval_join().between()``), process functions (``process``,
+``KeyedStream.process``, ``get_side_output``, ``connect`` with
+``ConnectedStreams``, ``broadcast`` with ``BroadcastConnectedStream``),
+async I/O (``AsyncDataStream``), sinks, ``print`` and
 ``execute_and_collect``. Each method builds ``Transformation`` nodes that
 the executor turns into batched operators. User functions are vectorized:
 a map takes and returns a RecordBatch, a filter returns a mask, a flat_map
@@ -15,7 +18,7 @@ from typing import TYPE_CHECKING, Callable, List, Optional, Sequence
 
 import numpy as np
 
-from flink_tpu_torch.core.annotations import public
+from flink_tpu_torch.core.annotations import public, public_evolving
 from flink_tpu_torch.core.config import DeploymentOptions
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.graph.transformations import Transformation
@@ -92,6 +95,38 @@ class DataStream:
         ``a.join(b).where(f).equal_to(g).window(assigner).apply()``."""
         return JoinedStreams(self, other)
 
+    def process(self, fn, name: str = "process") -> "DataStream":
+        """Low-level processing with timers and side outputs
+        (``ProcessOperator``)."""
+        from flink_tpu_torch.runtime.process import ProcessOperator
+
+        return DataStream(self.env, self._one_input(
+            name, lambda: ProcessOperator(fn)))
+
+    def get_side_output(self, tag) -> "DataStream":
+        """The batches this stream's operator emitted under ``tag`` (an
+        ``OutputTag`` or its name)."""
+        from flink_tpu_torch.runtime.process import (
+            OutputTag,
+            SideOutputSelectOperator,
+        )
+
+        if isinstance(tag, str):
+            tag = OutputTag(tag)
+        return DataStream(self.env, self._one_input(
+            f"side_output({tag.name})",
+            lambda: SideOutputSelectOperator(tag), side_tag=tag.name))
+
+    def connect(self, other) -> "ConnectedStreams":
+        """Two inputs into one co-process operator;
+        ``BroadcastConnectedStream`` when ``other`` is ``.broadcast()``."""
+        if isinstance(other, BroadcastStream):
+            return BroadcastConnectedStream(self, other)
+        return ConnectedStreams(self, other)
+
+    def broadcast(self) -> "BroadcastStream":
+        return BroadcastStream(self)
+
     def key_by(self, key_field: str) -> "KeyedStream":
         t = self._one_input(f"key_by({key_field})",
                             lambda: KeyByOperator(key_field),
@@ -140,6 +175,114 @@ class KeyedStream(DataStream):
     def interval_join(self, other: "KeyedStream") -> "IntervalJoinBuilder":
         """Keyed interval join with ``other`` (INNER)."""
         return IntervalJoinBuilder(self, other)
+
+    def process(self, fn, name: str = "keyed_process") -> DataStream:
+        """A keyed process function: per-key state (on the operator's
+        ``execution.device`` for ``DeviceValueStateDescriptor`` states)
+        and timers."""
+        from flink_tpu_torch.runtime.process import ProcessOperator
+
+        capacity = self.env.state_slot_capacity
+        return DataStream(self.env, self._one_input(
+            name, lambda: ProcessOperator(fn, keyed=True,
+                                          state_capacity=capacity),
+            keyed=True, key_field=self.key_field))
+
+
+class ConnectedStreams:
+    """Two streams into one two-input operator."""
+
+    def __init__(self, first: DataStream, second: DataStream):
+        self.first = first
+        self.second = second
+        self._keyed = False
+
+    def key_by(self, first_key: str, second_key: str) -> "ConnectedStreams":
+        c = ConnectedStreams(self.first.key_by(first_key),
+                             self.second.key_by(second_key))
+        c._keyed = True
+        return c
+
+    def process(self, fn, name: str = "co_process") -> DataStream:
+        from flink_tpu_torch.runtime.process import CoProcessOperator
+
+        keyed = self._keyed
+        t = Transformation(
+            name=name, kind="two_input",
+            operator_factory=lambda: CoProcessOperator(fn, keyed=keyed),
+            inputs=[self.first.transformation, self.second.transformation],
+            keyed=keyed)
+        return DataStream(self.first.env, t)
+
+    def map(self, fn1, fn2, name: str = "co_map") -> DataStream:
+        """``fn1`` on the first input's batches, ``fn2`` on the second's."""
+        from flink_tpu_torch.runtime.process import CoProcessFunction
+
+        class _CoMap(CoProcessFunction):
+            def process_batch1(self, batch, ctx):
+                ctx.collect(fn1(batch))
+
+            def process_batch2(self, batch, ctx):
+                ctx.collect(fn2(batch))
+
+        return self.process(_CoMap(), name=name)
+
+
+class BroadcastStream:
+    """Marker wrapper produced by ``DataStream.broadcast()``."""
+
+    def __init__(self, stream: DataStream):
+        self.stream = stream
+
+
+class BroadcastConnectedStream:
+    """A data stream with a broadcast side: every instance of the
+    operator sees every broadcast batch (input 1)."""
+
+    def __init__(self, data: DataStream, broadcast: BroadcastStream):
+        self.data = data
+        self.broadcast = broadcast
+
+    def process(self, fn, name: str = "broadcast_process") -> DataStream:
+        from flink_tpu_torch.runtime.process import BroadcastProcessOperator
+
+        keyed = isinstance(self.data, KeyedStream)
+        bt = Transformation(
+            name="broadcast", kind="one_input", operator_factory=UnionOperator,
+            inputs=[self.broadcast.stream.transformation], broadcast=True)
+        t = Transformation(
+            name=name, kind="two_input",
+            operator_factory=lambda: BroadcastProcessOperator(fn, keyed=keyed),
+            inputs=[self.data.transformation, bt], keyed=keyed)
+        return DataStream(self.data.env, t)
+
+
+@public_evolving
+class AsyncDataStream:
+    """Async I/O over a stream (``AsyncWaitOperator``): ordered or
+    unordered results, a capacity of batches in flight, a timeout."""
+
+    @staticmethod
+    def _wait(stream: DataStream, fn, ordered: bool, timeout_ms, capacity,
+              name: str) -> DataStream:
+        from flink_tpu_torch.runtime.async_operator import AsyncWaitOperator
+
+        return DataStream(stream.env, stream._one_input(
+            name, lambda: AsyncWaitOperator(
+                fn, ordered=ordered, capacity=capacity,
+                timeout_ms=timeout_ms)))
+
+    @staticmethod
+    def ordered_wait(stream: DataStream, fn, timeout_ms: int = None,
+                     capacity: int = 8) -> DataStream:
+        return AsyncDataStream._wait(stream, fn, True, timeout_ms, capacity,
+                                     "async_wait_ordered")
+
+    @staticmethod
+    def unordered_wait(stream: DataStream, fn, timeout_ms: int = None,
+                       capacity: int = 8) -> DataStream:
+        return AsyncDataStream._wait(stream, fn, False, timeout_ms, capacity,
+                                     "async_wait_unordered")
 
 
 class JoinedStreams:

@@ -26,6 +26,11 @@ class Transformation:
     #: keyed-exchange marker: records are routed by key group after this
     keyed: bool = False
     key_field: Optional[str] = None
+    #: side-output edge: this node consumes only TaggedBatches with this
+    #: tag (OutputTag, DataStream.get_side_output)
+    side_tag: Optional[str] = None
+    #: broadcast edge: every parallel instance sees every record
+    broadcast: bool = False
     uid: int = dataclasses.field(default_factory=lambda: next(_ids))
 
     def __hash__(self):

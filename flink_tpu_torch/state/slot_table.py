@@ -24,21 +24,21 @@ rows and spilled rows alike), so a restore re-shards by key group; a delta
 snapshot carries the rows dirtied since the last snapshot plus tombstones
 of the freed namespaces and pairs (the reference's format).
 
-Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
-item (Queue A): a ``state.spill.dir`` with a scheme other than a local
-path (item 8b) and point queries (item 12).
+Not in this slice, raising ``NotImplementedError`` naming its ROADMAP
+item (Queue A): point queries (item 12).
 """
 
 from __future__ import annotations
 
 import ctypes as _ct
-import os
+import io
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from flink_tpu_torch.core.device import resolve_device
+from flink_tpu_torch.core.fs import get_filesystem
 from flink_tpu_torch.native import group_matrix
 from flink_tpu_torch.ops.segment_ops import (
     HOST_COMBINE,
@@ -577,18 +577,12 @@ def _not_ported(feature: str, item) -> NotImplementedError:
 class SpillTier:
     """State beyond the device: whole namespaces evicted from the device
     table, in host memory and, once ``host_max_bytes`` is exceeded, as
-    ``.npz`` files under ``spill_dir`` (a local path or ``file://``). The
+    ``.npz`` files under ``spill_dir`` (any ``core/fs.py`` scheme). The
     unit of movement is a namespace (a window slice), so a reload is one
     batched put."""
 
     def __init__(self, spill_dir: Optional[str] = None,
                  host_max_bytes: int = 0):
-        if spill_dir and "://" in spill_dir:
-            scheme, path = spill_dir.split("://", 1)
-            if scheme != "file":
-                raise _not_ported(
-                    f"state.spill.dir with the {scheme!r} scheme", "8b")
-            spill_dir = path
         self.spill_dir = spill_dir
         self.host_max_bytes = host_max_bytes
         self._host: Dict[int, Dict[str, np.ndarray]] = {}
@@ -632,21 +626,32 @@ class SpillTier:
     def _maybe_overflow_to_fs(self) -> None:
         if not self.spill_dir or self.host_max_bytes <= 0:
             return
-        os.makedirs(self.spill_dir, exist_ok=True)
+        fs, local = get_filesystem(self.spill_dir)
+        fs.mkdirs(local)
+        prefix = (self.spill_dir.split("://", 1)[0] + "://"
+                  if "://" in self.spill_dir else "")
         while self._host_bytes > self.host_max_bytes and self._host:
             ns, entry = next(iter(self._host.items()))
+            buf = io.BytesIO()
+            np.savez(buf, **entry)
             self._seq += 1
-            path = os.path.join(self.spill_dir, f"ns-{ns}-{self._seq}.npz")
-            with open(path, "wb") as f:
-                np.savez(f, **entry)
-            self._fs[ns] = path
+            path = f"{local.rstrip('/')}/ns-{ns}-{self._seq}.npz"
+            with fs.open(path, "wb") as f:
+                f.write(buf.getvalue())
+            self._fs[ns] = prefix + path
             self._host_bytes -= self._entry_bytes(entry)
             del self._host[ns]
 
     @staticmethod
     def _load(path: str) -> Dict[str, np.ndarray]:
-        with np.load(path) as loaded:
+        fs, local = get_filesystem(path)
+        with fs.open(local, "rb") as f, np.load(f) as loaded:
             return {k: loaded[k] for k in loaded.files}
+
+    @staticmethod
+    def _delete(path: str) -> None:
+        fs, local = get_filesystem(path)
+        fs.delete(local)
 
     def pop(self, ns: int) -> Optional[Dict[str, np.ndarray]]:
         """Remove and return a spilled namespace (reload or free)."""
@@ -656,7 +661,7 @@ class SpillTier:
         elif ns in self._fs:
             path = self._fs.pop(ns)
             entry = self._load(path)
-            os.remove(path)
+            self._delete(path)
         was_dirty = ns in self._dirty
         self._dirty.discard(ns)
         self._rows.pop(ns, None)
@@ -685,7 +690,7 @@ class SpillTier:
         if entry is not None:
             self._host_bytes -= self._entry_bytes(entry)
         elif ns in self._fs:
-            os.remove(self._fs.pop(ns))
+            self._delete(self._fs.pop(ns))
         self._dirty.discard(ns)
         self._rows.pop(ns, None)
 

@@ -1216,3 +1216,84 @@ def test_batch_mode_and_row1_on_card():
     assert [r["sum_value"] for r in out["cuda"]
             if r["key"] == 0 and r["window_start"] == 0] == [44.0]
     assert wordcount.run(20_000, "cuda")["oracle_ok"]
+
+
+@pytest.mark.cuda
+def test_device_value_state_put_is_last_wins_on_card():
+    """200,000 lanes into 1,000 slots on the card: ``put_last_wins`` and
+    ``DeviceValueState.put`` equal NumPy's ``a[s] = x`` bit for bit (the
+    lane last in array order wins), repeated to catch a varying winner."""
+    _need_card()
+    from flink_tpu_torch.state.async_state import (
+        DeviceValueStateDescriptor,
+        put_last_wins,
+    )
+    from flink_tpu_torch.state.keyed_state import KeyedStateStore
+
+    rng = np.random.default_rng(11)
+    s = rng.integers(0, 1000, 200_000)
+    x = rng.normal(size=200_000).astype(np.float32)
+    want = np.zeros(1000, dtype=np.float32)
+    want[s] = x
+    for _ in range(5):
+        t = torch.zeros(1000, dtype=torch.float32, device="cuda")
+        put_last_wins(t, torch.from_numpy(s).cuda(),
+                      torch.from_numpy(x).cuda())
+        assert np.array_equal(t.cpu().numpy().view(np.uint32),
+                              want.view(np.uint32))
+    st = KeyedStateStore(64, device="cuda").get_state(
+        DeviceValueStateDescriptor("v", np.float32, 0.0))
+    keys = np.arange(1000) * 7
+    st.get(keys)
+    st.put(keys[s], x)
+    assert st._dvals.is_cuda
+    assert np.array_equal(st.get(keys).view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_device_value_state_gather_and_grow_on_card():
+    """The clamped gather at negative and too-large slots, growth of the
+    index past its capacity, and async waves: card == CPU."""
+    _need_card()
+    from flink_tpu_torch.benchmarks import async_state as bench
+    from flink_tpu_torch.state.async_state import (
+        DeviceValueStateDescriptor,
+        gather_clip,
+    )
+    from flink_tpu_torch.state.keyed_state import KeyedStateStore
+
+    v = np.arange(10, dtype=np.float32) * 1.5
+    s = np.array([-3, -1, 0, 4, 9, 10, 12, 1 << 20])
+    got = gather_clip(torch.from_numpy(v).cuda(), torch.from_numpy(s).cuda())
+    assert got.is_cuda and got.cpu().numpy().tolist() == \
+        gather_clip(torch.from_numpy(v), torch.from_numpy(s)).numpy().tolist()
+    out = {}
+    for device in ("cuda", "cpu"):
+        store = KeyedStateStore(8, device=device)
+        st = store.get_state(DeviceValueStateDescriptor("v", np.int64, -1))
+        keys = np.arange(5000)
+        st.put(keys, keys * 3)
+        out[device] = (st.get(keys), store.capacity, st.snapshot()["values"])
+        assert st._dvals.device.type == device
+    assert out["cuda"][1] == out["cpu"][1] == 8192
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a, b)
+    card = bench.run("cuda", "async", rounds=50)
+    cpu = bench.run("cpu", "async", rounds=50)
+    assert card["digest"] == cpu["digest"]
+    assert card["kernel_calls"] == cpu["kernel_calls"] == 100
+
+
+@pytest.mark.cuda
+def test_count_with_timeout_card_equals_cpu():
+    """Phase 19(a)'s job at a cut size, sync and async: the card's rows
+    equal the CPU's in emission order and the NumPy oracle's."""
+    _need_card()
+    from flink_tpu_torch.benchmarks import process_timeout as pt
+
+    want = pt.oracle(20_000, 5_000, 512, 200)
+    for use_async in (False, True):
+        rows = {d: pt.run(d, 20_000, 5_000, 512, use_async=use_async,
+                          rate=200)["rows"] for d in ("cuda", "cpu")}
+        assert pt.rows_equal(rows["cuda"], want)
+        assert pt.rows_equal(rows["cpu"], want)

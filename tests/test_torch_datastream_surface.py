@@ -221,8 +221,15 @@ def test_json_lines_sink_appends_across_runs(tmp_path):
 
 
 def test_non_local_filesystem_scheme_raises_naming_8b():
-    sink = tsinks.JsonLinesFileSink("mem://bucket/x.jsonl")
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    """The filesystem SPI is ported (item 8b): ``mem://`` writes and reads
+    back as in the reference, and a scheme no filesystem is registered for
+    raises the reference's ``ValueError``."""
+    _sink_job("port", tsinks.JsonLinesFileSink("mem://bucket/x.jsonl"))
+    _sink_job("ref", jsinks.JsonLinesFileSink("mem://bucket/x.jsonl"))
+    assert tsinks.JsonLinesFileSink.read_rows("mem://bucket/x.jsonl") == \
+        jsinks.JsonLinesFileSink.read_rows("mem://bucket/x.jsonl") != []
+    sink = tsinks.JsonLinesFileSink("s3://bucket/x.jsonl")
+    with pytest.raises(ValueError, match="no filesystem registered"):
         sink.open()
 
 

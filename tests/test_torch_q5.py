@@ -119,17 +119,27 @@ def test_bid_source_matches_reference_stream():
 ])
 def test_parallelism_one_is_not_ported_yet(key, value, item):
     """What parallelism 1 does not run yet raises, naming its ROADMAP
-    item: a spill directory on a remote filesystem and the placement
-    backends."""
+    item: the placement backends. A spill directory on another filesystem
+    scheme is ported since item 8b's filesystem SPI: as in the reference,
+    the job runs and gives the rows it gives without the key (the tier
+    resolves the scheme only when it writes a file)."""
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
 
-    env = StreamExecutionEnvironment(Configuration(
-        {"execution.device": "cpu", key: value}))
-    build_q5(env, BidSource(total_records=100)).sink_to(CollectSink())
-    with pytest.raises(NotImplementedError, match=item):
+    def job(extra):
+        env = StreamExecutionEnvironment(Configuration(
+            {"execution.device": "cpu", **extra}))
+        sink = CollectSink()
+        build_q5(env, BidSource(total_records=100)).sink_to(sink)
         env.execute()
+        return sink.rows()
+
+    if item == "Queue A item 8b":
+        assert job({key: value}) == job({})
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        job({key: value})
 
 
 def test_placement_backend_is_refused_on_the_mesh():

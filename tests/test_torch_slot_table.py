@@ -457,9 +457,13 @@ def test_unported_parts_raise_naming_their_item(call, item):
                   spill_layout="pages")._paged
     with pytest.raises(ValueError, match="spill_layout"):
         TTable(tagg.SumAggregate("v"), device="cpu", spill_layout="rows")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        TTable(tagg.SumAggregate("v"), device="cpu", max_device_slots=1024,
-               spill_dir="s3://bucket/spill")
+    # the spill directory resolves through the filesystem SPI (item 8b),
+    # as the reference's: an unregistered scheme raises when the tier
+    # first writes a file there
+    t = TTable(tagg.SumAggregate("v"), device="cpu", max_device_slots=1024,
+               spill_dir="s3://bucket/spill", spill_host_max_bytes=1)
+    with pytest.raises(ValueError, match="no filesystem registered"):
+        t.spill.put(1, {"key_id": np.arange(3)}, dirty=False)
 
 
 def test_float_leaves_fold_through_the_ordered_fold(monkeypatch):

@@ -88,3 +88,64 @@ def test_debloater_keys_are_read_not_rejected():
     want = _run({})
     assert _run({"execution.micro-batch.latency-target-ms": 50,
                  "execution.micro-batch.min-size": 16}) == want
+
+
+def _process_job(extra):
+    """A keyed process job whose state carries TTL (a descriptor's
+    ``StateTtlConfig``, the DataStream user's way to TTL: the reference's
+    one TTL key, ``table.exec.state.ttl``, is read only by its Table
+    layer, ROADMAP item 11c) and a device value state."""
+    import numpy as np
+
+    from flink_tpu_torch import (
+        KeyedProcessFunction,
+        RecordBatch,
+        ReducingStateDescriptor,
+    )
+    from flink_tpu_torch.state.async_state import DeviceValueStateDescriptor
+    from flink_tpu_torch.state.ttl import StateTtlConfig
+
+    class Fn(KeyedProcessFunction):
+        N = ReducingStateDescriptor("n", np.add, np.int64, 0,
+                                    ttl=StateTtlConfig(10 ** 9))
+        LAST = DeviceValueStateDescriptor("last", np.float64, 0.0)
+
+        def process_batch(self, batch, ctx):
+            ctx.async_state(self.N).add(batch.key_ids,
+                                        np.ones(len(batch), np.int64))
+            ctx.async_state(self.LAST).put(batch.key_ids, batch["value"])
+            ctx.timer_service().register_event_time_timers(
+                batch.key_ids, batch.timestamps // 1000 * 1000 + 999)
+
+        def on_timer(self, key_ids, timestamps, ctx):
+            ctx.collect(RecordBatch.from_pydict(
+                {"k": key_ids, "n": ctx.state(self.N).get(key_ids),
+                 "last": ctx.state(self.LAST).get(key_ids)},
+                timestamps=timestamps))
+
+    env = StreamExecutionEnvironment(Configuration(
+        {"execution.device": "cpu", "execution.micro-batch.size": 7,
+         **extra}))
+    sink = CollectSink()
+    env.from_collection(ROWS, timestamp_field="ts",
+                        watermark_strategy=WatermarkStrategy
+                        .for_bounded_out_of_orderness(0)) \
+        .key_by("key").process(Fn()).sink_to(sink)
+    env.execute("process")
+    return sink.rows()
+
+
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_unread_keys_raise_for_process_jobs_too(key):
+    """The slice's process functions, TTL'd state and device value state
+    honour no reference key of ``UNREAD_KEYS``: each still raises at
+    ``execute()`` for a process job, and at the values the port behaves
+    as the job runs and gives the rows it gives without the key."""
+    want = _process_job({})
+    assert len(want) == 9  # 3 keys x 3 seconds
+    for value in CASES[key][0]:
+        with pytest.raises(NotImplementedError) as e:
+            _process_job({key: value})
+        _item(str(e.value))
+    for value in CASES[key][1]:
+        assert _process_job({key: value}) == want
