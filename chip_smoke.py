@@ -295,6 +295,38 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_process(torch)'`` runs phase 19 alone
     (``phase_process(torch, "cpu", small=True)`` rehearses it without a
     card).
+20. SQL over Kafka and the retraction path (after phase 19): (20a)
+    BASELINE row 4 as ``tools/bench_suite.py:136-190`` runs it: 8,000,000
+    events into the port's ``FakeBroker`` (4 partitions, keys over 10,000
+    and values from ``default_rng(1)``, 100,000 events/s of event time),
+    ``CREATE TABLE ... WITH ('connector'='kafka', ...)`` and the HOP(2 s,
+    10 s) ``SUM(value)`` query through ``StreamTableEnvironment`` at
+    micro-batches of 1<<16, once warm and once measured
+    (``execute_sql(...).collect()``): every (key, window) sum equal bit for
+    bit to a NumPy oracle that folds each slice in the source's arrival
+    order in float32 (SQL ``SUM`` folds a float32 leaf) and each window's
+    five slices left to right, events/s and fire p50/p99 printed; the card
+    equal to the CPU bit for bit over the first 1,000,000 events; (20b)
+    ``SELECT cnt, COUNT(*), SUM(total) FROM (SELECT key, COUNT(*) AS cnt,
+    SUM(value) AS total FROM t GROUP BY key) GROUP BY cnt`` over the
+    ``datagen`` connector (4,000,000 records, 1,000,000 keys, batches of
+    1<<16): the upsert-materialized counts equal a NumPy oracle exactly and
+    the sums within 1e-3 of its float64 sums (float32 accumulators over
+    ~4M signed adds); over 1,000,000 records the final rows and the raw
+    changelog (emission order) card == CPU bit for bit, and a DataStream
+    ``key_by("key").sum("value")`` job card == CPU; (20c) the Q5 Top-N
+    pattern in SQL (HOP COUNT per auction, ``ROW_NUMBER() OVER (PARTITION
+    BY window_end ORDER BY num DESC)``, ``rownum <= 1``) over 10M bids at
+    ``parallelism.default: 8``, so the windows run on the mesh engine with
+    the rank kernel: each window's winner is one of phase 5's oracle's
+    tied winners with its count; (20d) the ordered fold's signed routes
+    (``flat_scatter_signed``'s float leaves) in float64 and float32 held
+    bit for bit to their plain version and timed at row 4's batch (1<<16
+    lanes into ~60k live slots of a 1<<17 plane) and 20(b)'s second level
+    (130,000 lanes of both signs into a few dozen slots), with both
+    bounds. ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_sql(torch)'`` runs phase 20 alone
+    (``phase_sql(torch, "cpu", small=True)`` rehearses it without a card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -302,13 +334,15 @@ The launch counts of both kernels are set to 0 just before each of phases
 16(b), the card run of 16(d), the card runs of 9(b), 17(a), 17(b), 17(c)
 and 17(d), 18(a) and 18(b) (from the harness's first engine on: the
 oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
-18(e)'s card engines, 19(a), 19(b)'s card run and each card run of
-19(c), and read just after; each phase fails if a kernel of
+18(e)'s card engines, 19(a), 19(b)'s card run, each card run of
+19(c), 20(a)'s measured and card runs, each card run of 20(b) and 20(c),
+and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
-15(e), 17(b), 17(c), 18(a), 18(b), 18(c) and 19(b) — row 1's `.sum`
-keeps a float32 leaf —, Count being an integer fold). 19(a) and 19(d)
+15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a) and 20(b) — row
+1's `.sum` keeps a float32 leaf —, Count being an integer fold; the rank
+in 20(c)). 19(a) and 19(d)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put are torch ops.
 
@@ -650,7 +684,8 @@ def sm_clock_hz() -> float:
 FADD_CYCLES = 4   # dependent FP32/FP64 add latency assumed for the chain
 
 
-def fold_case(torch, name, acc, slots, v, clock_hz, stages=True):
+def fold_case(torch, name, acc, slots, v, clock_hz, stages=True,
+              phase="4b"):
     """Hold the fold's grouping and its fold on the card against their
     plain versions on the CPU (bit for bit), and time them: the wrapper
     call, device µs per stage, torch.sort(stable=True) alone on the
@@ -725,7 +760,7 @@ def fold_case(torch, name, acc, slots, v, clock_hz, stages=True):
            "bound_ms": max(bytes_ms, chain_ms),
            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
            "max_abs_err": err}
-    print(f"phase 4b {name}: P={P} cap={cap} {slots.numel()} lanes ({real} "
+    print(f"phase {phase} {name}: P={P} cap={cap} {slots.numel()} lanes ({real} "
           f"kept, {touched} targets, longest run {longest}, "
           f"{out['dtype']}): grouping and fold bit-identical to their "
           f"plain versions; wrapper {ms:.4f} ms, torch.sort(stable) of the "
@@ -4307,6 +4342,379 @@ def phase_process(torch, device: str = "cuda", small: bool = False) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------- phase 20
+
+ROW4_EVENTS, ROW4_KEYS, ROW4_PARTS = 8_000_000, 10_000, 4
+ROW4_DDL = ("CREATE TABLE bench_bids (key BIGINT, value DOUBLE, "
+            "ts BIGINT, WATERMARK FOR ts AS ts) "
+            "WITH ('connector'='kafka', 'topic'='bench_bids', "
+            "'broker'='bench')")
+ROW4_SQL = """
+    SELECT key, window_end, SUM(value) AS total
+    FROM TABLE(HOP(TABLE bench_bids, DESCRIPTOR(ts),
+                   INTERVAL '2' SECOND, INTERVAL '10' SECONDS))
+    GROUP BY key, window_start, window_end
+"""
+TWO_LEVEL_SQL = ("SELECT cnt, COUNT(*) AS n, SUM(total) AS s FROM "
+                 "(SELECT key, COUNT(*) AS cnt, SUM(value) AS total FROM t "
+                 "GROUP BY key) GROUP BY cnt")
+SQL_Q5_VIEW = ("CREATE VIEW AuctionBids AS SELECT auction, COUNT(*) AS num,"
+               " window_start, window_end FROM TABLE(HOP(TABLE bid, "
+               "DESCRIPTOR(ts), INTERVAL '2' SECOND, INTERVAL '10' SECOND)) "
+               "GROUP BY auction, window_start, window_end")
+SQL_Q5 = ("SELECT auction, num, window_end FROM (SELECT auction, num, "
+          "window_end, ROW_NUMBER() OVER (PARTITION BY window_end ORDER BY "
+          "num DESC) AS rownum FROM AuctionBids) WHERE rownum <= 1")
+
+
+def _tenv(device, **cfg):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.table import StreamTableEnvironment
+
+    env = StreamExecutionEnvironment(Configuration(
+        {"execution.device": device, **cfg}))
+    return env, StreamTableEnvironment(env)
+
+
+def row4_produce(total: int, chunk: int = 1 << 18) -> None:
+    """``tools/bench_suite.py``'s row-4 topic on the port's FakeBroker
+    ('bench', 4 partitions): keys over 10,000 and values from
+    ``default_rng(1)``, 100,000 events/s of event time."""
+    from flink_tpu_torch.connectors.kafka import FakeBroker
+    from flink_tpu_torch.core.records import RecordBatch
+
+    FakeBroker.reset()
+    broker = FakeBroker.get("bench")
+    broker.create_topic("bench_bids", ROW4_PARTS)
+    rng = np.random.default_rng(1)
+    produced = 0
+    while produced < total:
+        n = min(chunk, total - produced)
+        ks = rng.integers(0, ROW4_KEYS, n).astype(np.int64)
+        vs = rng.random(n)
+        ts = (np.arange(produced, produced + n, dtype=np.int64)
+              * 1000) // RATE
+        for p in range(ROW4_PARTS):
+            m = ks % ROW4_PARTS == p
+            broker.append("bench_bids", p, RecordBatch.from_pydict(
+                {"key": ks[m], "value": vs[m], "ts": ts[m]},
+                timestamps=ts[m]))
+        produced += n
+
+
+def row4_job(torch, device: str):
+    """Row 4's query over the produced topic, timed as the bench times it
+    (``execute_sql(...).collect()``): (result batch, rows, seconds,
+    launches, fire latency)."""
+    env, tenv = _tenv(device, **{"execution.micro-batch.size": 1 << 16})
+    tenv.execute_sql(ROW4_DDL)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tenv.execute_sql(ROW4_SQL)
+    rows = res.collect()
+    _sync(torch, device)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    lat = env.last_execution_result.metrics.get("window_fire_latency_ms",
+                                                {})
+    return res.to_batch(), len(rows), dt, counts, lat
+
+
+def row4_oracle(total: int):
+    """(sums [windows, keys] float32, counts) of HOP(10 s, 2 s) SUM(value):
+    per-(slice, key) float32 sums by np.add.at in the order the records
+    arrive (a KafkaSource over the topic at the job's batch size — the
+    order the CPU tests hold equal to the reference's), then each window's
+    five slices folded left to right from 0, as the engine merges them."""
+    from flink_tpu_torch.connectors.kafka import KafkaSource
+
+    src = KafkaSource("bench_bids", broker_name="bench",
+                      timestamp_field="ts")
+    src.open(0, 1)
+    k = SIZE // SLIDE
+    n_slices = ((total - 1) * 1000 // RATE) // SLIDE + 1
+    sums = np.zeros((n_slices + 2 * (k - 1), ROW4_KEYS), np.float32)
+    counts = np.zeros(sums.shape, np.int64)
+    flat_s, flat_c = sums.reshape(-1), counts.reshape(-1)
+    while (b := src.poll_batch(1 << 16)) is not None:
+        if not len(b):
+            continue
+        idx = ((b.timestamps // SLIDE) + (k - 1)) * ROW4_KEYS + b["key"]
+        np.add.at(flat_s, idx, b["value"].astype(np.float32))
+        flat_c += np.bincount(idx, minlength=flat_c.size)
+    n_windows = n_slices + k - 1
+    win = np.zeros((n_windows, ROW4_KEYS), np.float32)
+    cnt = np.zeros((n_windows, ROW4_KEYS), np.int64)
+    for j in range(k):
+        win = win + sums[j:j + n_windows]
+        cnt += counts[j:j + n_windows]
+    return win, cnt
+
+
+def row4_check(batch, total: int) -> int:
+    """Every fired (key, window) sum equal to the stream-order oracle bit
+    for bit, and exactly the oracle's (key, window) set; returns rows."""
+    want, cnt = row4_oracle(total)
+    e = np.asarray(batch["window_end"]) // SLIDE - 1
+    key = np.asarray(batch["key"]).astype(np.int64)
+    s = np.asarray(batch["total"])
+    if s.dtype != np.float32:
+        raise AssertionError(f"row 4: SUM came out {s.dtype}")
+    if e.min() < 0 or e.max() >= len(want):
+        raise AssertionError("row 4 fired a window the oracle lacks")
+    pair = e * ROW4_KEYS + key
+    present = cnt > 0
+    if len(np.unique(pair)) != len(pair) or len(pair) != int(
+            present.sum()) or not present.reshape(-1)[pair].all():
+        raise AssertionError(f"row 4 fired {len(pair)} (key, window) rows, "
+                             f"oracle {int(present.sum())}")
+    bad = int((want[e, key].view(np.int32) != s.view(np.int32)).sum())
+    if bad:
+        raise AssertionError(f"row 4: {bad} of {len(s)} sums differ from "
+                             "the stream-order oracle")
+    return len(s)
+
+
+def sql_row4(torch, events: int = ROW4_EVENTS, equal_events: int = 1_000_000,
+             device: str = "cuda") -> dict:
+    """20(a): BASELINE row 4 (``tools/bench_suite.py:136-190``)."""
+    row4_produce(events)
+    row4_job(torch, device)                       # warm
+    batch, n_rows, dt, counts, lat = row4_job(torch, device)
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("row 4 ran without launching the ordered fold")
+    t1 = time.perf_counter()
+    checked = row4_check(batch, events)
+    oracle_s = time.perf_counter() - t1
+    row4_produce(equal_events)
+    card, _, _, eq_counts, _ = row4_job(torch, device)
+    cpu, _, _, _, _ = row4_job(torch, "cpu")
+    _batches_equal("row 4 card vs CPU", [card], [cpu])
+    row4_check(card, equal_events)
+    launches = {k: counts[k] + eq_counts[k] for k in counts}
+    out = {"events": events, "seconds": dt, "events_per_s": events / dt,
+           "rows": n_rows, "rows_checked": checked,
+           "fire_latency_ms": lat, "oracle_s": oracle_s,
+           "equal_events": equal_events, "launches": launches}
+    print(f"phase 20(a): row 4 (SQL HOP 10 s / 2 s SUM over a 4-partition "
+          f"Kafka topic) {events} events in {dt:.3f} s = {events / dt:.0f} "
+          f"events/s; fire p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms; "
+          f"all {checked} (key, window) sums equal the stream-order oracle "
+          f"bit for bit; card == CPU bit for bit over {equal_events} events;"
+          f" launches {launches}")
+    return out
+
+
+def _datagen_ddl(tenv, records: int, keys: int) -> None:
+    tenv.execute_sql(
+        "CREATE TABLE t (key BIGINT, value DOUBLE) WITH ("
+        f"'connector'='datagen', 'number-of-rows'='{records}', "
+        f"'number-of-keys'='{keys}', 'rows-per-second'='100000')")
+
+
+def two_level_job(torch, device: str, records: int, keys: int,
+                  changelog: bool = False):
+    """20(b)'s query through the datagen connector: (materialized final
+    rows, or the raw changelog in emission order; seconds; launches)."""
+    env, tenv = _tenv(device, **{"execution.micro-batch.size": 1 << 16})
+    _datagen_ddl(tenv, records, keys)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = (tenv.sql_query(TWO_LEVEL_SQL).stream.execute_and_collect()
+           if changelog else tenv.execute_sql(TWO_LEVEL_SQL).to_batch())
+    _sync(torch, device)
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def two_level_oracle(records: int, keys: int):
+    """{cnt: (keys with that count, float64 sum of their float32 values)}"""
+    from flink_tpu_torch.connectors.sources import DataGenSource
+
+    src = DataGenSource(total_records=records, num_keys=keys,
+                        events_per_second_of_eventtime=100_000)
+    src.open()
+    count = np.zeros(keys, np.int64)
+    total = np.zeros(keys, np.float64)
+    while (b := src.poll_batch(1 << 20)) is not None:
+        count += np.bincount(b["key"], minlength=keys)
+        total += np.bincount(b["key"], weights=b["value"].astype(np.float64),
+                             minlength=keys)
+    live = count > 0
+    n = np.bincount(count[live])
+    s = np.bincount(count[live], weights=total[live])
+    return {c: (int(n[c]), float(s[c])) for c in np.nonzero(n)[0].tolist()}
+
+
+def sql_two_level(torch, records: int = 4_000_000, keys: int = 1_000_000,
+                  equal_records: int = 1_000_000, device: str = "cuda"
+                  ) -> dict:
+    """20(b): the retraction path — a GROUP BY over an updating GROUP BY."""
+    final, dt, counts = two_level_job(torch, device, records, keys)
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("20(b) ran without launching the ordered fold")
+    want = two_level_oracle(records, keys)
+    got = {int(c): (int(n), float(s)) for c, n, s in
+           zip(final["cnt"], final["n"], final["s"])}
+    if sorted(got) != sorted(want) or any(
+            got[c][0] != want[c][0] for c in want):
+        raise AssertionError(f"20(b): counts differ from the oracle: "
+                             f"{sorted(got.items())[:4]} vs "
+                             f"{sorted(want.items())[:4]}")
+    rel = max(abs(got[c][1] - want[c][1]) / max(abs(want[c][1]), 1.0)
+              for c in want)
+    # float32 accumulators over ~records signed adds (every update
+    # retracts the key's previous total and adds the new one)
+    if rel > 1e-3:
+        raise AssertionError(f"20(b): sums off the float64 oracle by {rel}")
+    eq = {}
+    for dev in (device, "cpu"):
+        eq[dev] = (two_level_job(torch, dev, equal_records, keys),
+                   two_level_job(torch, dev, equal_records, keys,
+                                 changelog=True))
+    _batches_equal("20(b) final rows card vs CPU", [eq[device][0][0]],
+                   [eq["cpu"][0][0]])
+    _batches_equal("20(b) changelog card vs CPU", [eq[device][1][0]],
+                   [eq["cpu"][1][0]])
+    ks_card, ks_counts = keyed_sum_job(torch, device, equal_records, keys)
+    ks_cpu, _ = keyed_sum_job(torch, "cpu", equal_records, keys)
+    _batches_equal("20(b) key_by().sum() card vs CPU", [ks_card], [ks_cpu])
+    if device == "cuda" and ks_counts["ordered_fold"] <= 0:
+        raise AssertionError("key_by().sum() ran without the ordered fold")
+    launches = {k: counts[k] + eq[device][0][2][k] + eq[device][1][2][k]
+                + ks_counts[k] for k in counts}
+    out = {"records": records, "keys": keys, "seconds": dt,
+           "events_per_s": records / dt, "groups": len(got),
+           "max_rel_err_vs_f64_oracle": rel,
+           "changelog_rows_equal": len(eq["cpu"][1][0]),
+           "keyed_sum_rows_equal": len(ks_cpu), "launches": launches}
+    print(f"phase 20(b): two-level SQL (count of counts with sums) over "
+          f"{records} datagen records, {keys} keys, in {dt:.3f} s = "
+          f"{records / dt:.0f} events/s; {len(got)} groups, counts equal the "
+          f"oracle, sums within {rel:.3g} of the float64 oracle; over "
+          f"{equal_records}: final rows and the {len(eq['cpu'][1][0])}-row "
+          f"changelog card == CPU bit for bit in emission order, "
+          f"key_by().sum() {len(ks_cpu)} rows card == CPU; launches "
+          f"{launches}")
+    return out
+
+
+def keyed_sum_job(torch, device: str, records: int, keys: int):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.device": device, "execution.micro-batch.size": 1 << 16}))
+    src = DataGenSource(total_records=records, num_keys=keys,
+                        events_per_second_of_eventtime=100_000)
+    stream = env.from_source(
+        src, WatermarkStrategy.for_bounded_out_of_orderness(0)) \
+        .key_by("key").sum("value")
+    reset_counts()
+    out = stream.execute_and_collect()
+    _sync(torch, device)
+    return out, read_counts()
+
+
+def sql_q5(torch, records: int = 10_000_000, parallelism: int = 8,
+           device: str = "cuda") -> dict:
+    """20(c): Top-N over HOP in SQL (the Q5 pattern) at P=8."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    env, tenv = _tenv(device, **{"parallelism.default": parallelism,
+                                 "execution.micro-batch.size": 1 << 20})
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    tenv.create_temporary_view(
+        "bid", env.from_source(
+            src, WatermarkStrategy.for_bounded_out_of_orderness(0)),
+        columns=["auction", "bidder", "price"], time_field="ts")
+    tenv.execute_sql(SQL_Q5_VIEW)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tenv.execute_sql(SQL_Q5).to_batch()
+    _sync(torch, device)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    if device == "cuda" and parallelism > 1 and counts["exchange_rank"] <= 0:
+        raise AssertionError("SQL Q5 ran without launching the rank kernel")
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    got = {int(w): (int(n), int(a)) for w, n, a in
+           zip(out["window_end"], out["num"], out["auction"])}
+    if sorted(got) != sorted(want) or len(got) != len(out):
+        raise AssertionError(f"SQL Q5: {len(out)} rows over {len(got)} "
+                             f"windows, oracle {len(want)} windows")
+    for w, (best, winners) in want.items():
+        if got[w][0] != best or got[w][1] not in winners:
+            raise AssertionError(f"SQL Q5 window {w}: got {got[w]}, oracle "
+                                 f"({best}, {sorted(winners)[:5]}...)")
+    res = {"records": records, "parallelism": parallelism, "seconds": dt,
+           "events_per_s": records / dt, "windows": len(got),
+           "launches": counts}
+    print(f"phase 20(c): SQL Top-N over HOP (Q5) at P={parallelism}, "
+          f"{records} bids in {dt:.3f} s = {records / dt:.0f} events/s; "
+          f"each of {len(got)} windows' winner equals phase 5's oracle; "
+          f"launches {counts}")
+    return res
+
+
+def sql_fold_cases(torch) -> dict:
+    """20(d): the ordered fold's signed routes (``flat_scatter_signed``'s
+    float leaves) against their plain version, bit for bit, timed at row
+    4's batch (1<<16 lanes into ~60k live slots of a 1<<17 plane) and
+    20(b)'s second level (~130k lanes of both signs into a few dozen
+    slots), in float64 and in float32 (the leaf SQL SUM folds)."""
+    clock = sm_clock_hz()
+    rng = np.random.default_rng(20)
+    shapes = {
+        "row4": (1 << 17, 1 << 16,
+                 lambda n: rng.integers(1, 60_001, n)),
+        "second_level": (1 << 10, 130_000,
+                         lambda n: np.minimum(rng.poisson(4.0, n), 40) + 1),
+    }
+    out = {}
+    for shape, (cap, n, draw) in shapes.items():
+        slots = torch.from_numpy(draw(n).astype(np.int32)).cuda()[None]
+        signs = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        for dt in (np.float64, np.float32):
+            v = torch.from_numpy((rng.random(n) * signs).astype(dt)).cuda()
+            name = f"{shape}_{np.dtype(dt).name}_signed"
+            out[name] = fold_case(
+                torch, name, torch.zeros(1, cap, dtype=v.dtype,
+                                         device="cuda"),
+                slots, v[None], clock, phase="20(d)")
+    return out
+
+
+def phase_sql(torch, device: str = "cuda", small: bool = False) -> dict:
+    """Phase 20: SQL over Kafka (row 4), the retraction path, SQL Top-N
+    at P=8 and the fold's signed routes. ``device="cpu", small=True``
+    rehearses it at a cut size without a card (the card-vs-CPU checks
+    then compare the CPU with itself, and 20(d) is skipped)."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        print(card_line())
+        cuda_build.build_all()
+    cut = ({"row4": {"events": 400_000, "equal_events": 200_000},
+            "two": {"records": 300_000, "keys": 60_000,
+                    "equal_records": 100_000},
+            "q5": {"records": 600_000}} if small else
+           {"row4": {}, "two": {}, "q5": {}})
+    t0 = time.perf_counter()
+    parts = {"row4": sql_row4(torch, device=device, **cut["row4"]),
+             "two_level": sql_two_level(torch, device=device, **cut["two"]),
+             "top_n": sql_q5(torch, device=device, **cut["q5"])}
+    folds = sql_fold_cases(torch) if device == "cuda" else {}
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("exchange_rank", "ordered_fold")}
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    print("sql " + json.dumps({**parts, "folds": folds}, default=str))
+    return {**parts, "folds": folds, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -4369,9 +4777,10 @@ def main() -> int:
     slice11 = phase_slice11(torch)
     shard_loss = phase_shard_loss(torch)
     process = phase_process(torch)
+    sql = phase_sql(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values(), shard_loss, process)
+            *slice11.values(), shard_loss, process, sql)
 
     kernels = [{
         "name": "exchange_rank",

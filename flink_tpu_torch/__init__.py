@@ -31,7 +31,13 @@ BASELINE row 1 (socket WordCount over processing-time windows,
 states with TTL, and ``DeviceValueState`` on the operator's device),
 timers, side outputs, ``connect``/``broadcast`` and async I/O; the
 changelog backend, the columnar serializers with the binary file sink
-and source, and stop-with-savepoint carry the rest of durability. The package imports neither ``jax`` nor anything of
+and source, and stop-with-savepoint carry the rest of durability.
+Unwindowed GROUP BY and ``KeyedStream.reduce/sum/max/min`` emit changelogs
+(``runtime/group_agg.py``; retractions fold signed, float leaves on the
+ordered fold), and the SQL/Table front end (``table/``) plans window TVFs,
+GROUP BY, Top-N, the interval and temporal joins and MATCH_RECOGNIZE onto
+these operators over the Kafka, datagen and collect connectors
+(BASELINE row 4). The package imports neither ``jax`` nor anything of
 ``flink_tpu`` (importing ``flink_tpu`` loads jax).
 """
 

@@ -1,8 +1,9 @@
 """Carry state across from the JAX engine: a ``MeshWindowEngine``'s
 ``[P, capacity]`` accumulator planes (read back from ``flink_tpu`` as
-numpy arrays) become the port's planes on a given device, and a process
+numpy arrays) become the port's planes on a given device, a process
 operator's snapshot (timers and keyed state) becomes the port's with its
-device value states as tensors on a given device."""
+device value states as tensors on a given device, and a
+``GroupAggOperator`` snapshot becomes one the port's operator restores."""
 
 from __future__ import annotations
 
@@ -60,4 +61,30 @@ def from_jax_keyed_state(snapshot: Dict[str, Any], device: DeviceLike = None,
         out["keyed_state"] = {"keys": np.array(ks["keys"], copy=True),
                               "slots": np.array(ks["slots"], copy=True),
                               "states": states}
+    return out
+
+
+def from_jax_group_agg(snapshot: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference ``GroupAggOperator`` snapshot (``snapshot_state``,
+    ``snapshot_state_delta`` or ``snapshot_state_savepoint``) as the
+    port's. The accumulators are the slot table's LOGICAL rows (key id,
+    namespace, key group and one value array per leaf, not ``[P,
+    capacity]`` planes): they are copied in their dtypes and land on the
+    operator's device in one put when ``restore_state`` runs. The row
+    counts, the emitted mask, the pending (dirty) marks, the TTL stamps
+    and the last-emitted images are carried as they are."""
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, np.ndarray) or hasattr(v, "__array__"):
+            return np.array(v, copy=True)
+        return v
+
+    missing = {"table", "changelog"} - set(snapshot)
+    if missing:
+        raise KeyError(f"not a GroupAggOperator snapshot: no "
+                       f"{sorted(missing)} (has {sorted(snapshot)})")
+    out = {k: copy(v) for k, v in snapshot.items()
+           if k not in ("key_values",)}
+    out["key_values"] = dict(snapshot.get("key_values", {}))
     return out

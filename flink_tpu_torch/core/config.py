@@ -146,9 +146,23 @@ class DeploymentOptions:
         "a banded probe program gathers each batch's candidates "
         "(flink_tpu_torch/joins/). A failure on the device path fails the "
         "job; it never continues on the host operator.")
+    CEP_MODE = ConfigOption(
+        "cep.mode", default="host", type=str,
+        description="Execution plane for SQL MATCH_RECOGNIZE: 'host' "
+        "(default) runs each key's NFA on the host operator "
+        "(cep/operator.py); 'device' runs the pattern on the device NFA "
+        "engine (MeshCepOperator) when it compiles to the device, and "
+        "otherwise plans the host operator with a counted "
+        "record_host_fallback.")
 
 
 class StateOptions:
+    TABLE_EXEC_STATE_TTL = ConfigOption(
+        "table.exec.state.ttl", default=0, type=int,
+        description="Idle-state retention for SQL operators, in ms: a "
+        "GROUP BY accumulator or upsert-materializer key untouched this "
+        "long is dropped (slot freed, snapshots shrink); a later arrival "
+        "re-INSERTs. 0 (default) keeps state forever.")
     SLOT_CAPACITY = ConfigOption(
         "state.slot-table.capacity", default=1 << 20, type=int,
         description="Slot capacity per key-group shard of the keyed "

@@ -1,8 +1,8 @@
 """Columnar record batches — the unit of data flow (port of
 ``flink_tpu/core/records.py``).
 
-A batch is a dict of NumPy columns plus the reserved timestamp and key-id
-columns. Batches stay on the host; only the keyed engine's state and its
+A batch is a dict of NumPy columns plus the reserved timestamp, key-id
+and changelog row-kind columns. Batches stay on the host; only the keyed engine's state and its
 per-batch staging columns live on the device. Immutable by convention
 (every transform returns a new batch).
 """
@@ -10,12 +10,29 @@ per-batch staging columns live on the device. Immutable by convention
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, List, Mapping, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 
 TIMESTAMP_FIELD = "__ts__"  # event-time, int64 epoch millis
 KEY_ID_FIELD = "__key_id__"  # int64 key identity (set by key_by)
+
+#: Changelog row kind (Flink's RowKind: the UPDATE_BEFORE/UPDATE_AFTER
+#: retraction pairs of an unwindowed GROUP BY). A batch without the
+#: column is append-only (every row an INSERT).
+ROWKIND_FIELD = "__rowkind__"
+ROWKIND_INSERT = 0
+ROWKIND_UPDATE_BEFORE = 1
+ROWKIND_UPDATE_AFTER = 2
+ROWKIND_DELETE = 3
+
+
+def rowkind_signs(kinds: np.ndarray) -> np.ndarray:
+    """+1 for accumulate rows (INSERT/UPDATE_AFTER), -1 for retraction rows
+    (UPDATE_BEFORE/DELETE) — the changelog fold direction."""
+    return np.where(
+        (kinds == ROWKIND_UPDATE_BEFORE) | (kinds == ROWKIND_DELETE),
+        np.int8(-1), np.int8(1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +136,11 @@ class RecordBatch:
     @property
     def is_keyed(self) -> bool:
         return KEY_ID_FIELD in self.columns
+
+    @property
+    def row_kinds(self) -> Optional[np.ndarray]:
+        """Changelog kinds column, or None for an append-only batch."""
+        return self.columns.get(ROWKIND_FIELD)
 
     def with_column(self, name: str, values) -> "RecordBatch":
         cols = dict(self.columns)

@@ -6,8 +6,9 @@ processing time) or merging (sessions) —, aggregate and its shorthands
 (``interval_join().between()``), process functions (``process``,
 ``KeyedStream.process``, ``get_side_output``, ``connect`` with
 ``ConnectedStreams``, ``broadcast`` with ``BroadcastConnectedStream``),
-async I/O (``AsyncDataStream``), sinks, ``print`` and
-``execute_and_collect``. Each method builds ``Transformation`` nodes that
+async I/O (``AsyncDataStream``), the running keyed aggregates
+(``KeyedStream.reduce``/``sum``/``max``/``min``, changelog emission by
+``GroupAggOperator``), sinks, ``print`` and ``execute_and_collect``. Each method builds ``Transformation`` nodes that
 the executor turns into batched operators. User functions are vectorized:
 a map takes and returns a RecordBatch, a filter returns a mask, a flat_map
 a list of batches."""
@@ -81,12 +82,15 @@ class DataStream:
         return DataStream(self.env, self._one_input(
             name, lambda: FlatMapOperator(fn)))
 
-    def union(self, *others: "DataStream") -> "DataStream":
+    def union(self, *others: "DataStream",
+              _require_consistent_time: bool = False) -> "DataStream":
         """Merge streams; the watermark is the minimum over the inputs.
         Timed and untimed inputs may mix when nothing downstream uses
-        event time."""
+        event time; SQL UNION ALL passes the strict flag."""
         t = Transformation(
-            name="union", kind="union", operator_factory=UnionOperator,
+            name="union", kind="union",
+            operator_factory=lambda: UnionOperator(
+                require_consistent_time=_require_consistent_time),
             inputs=[self.transformation] + [o.transformation for o in others])
         return DataStream(self.env, t)
 
@@ -187,6 +191,28 @@ class KeyedStream(DataStream):
             name, lambda: ProcessOperator(fn, keyed=True,
                                           state_capacity=capacity),
             keyed=True, key_field=self.key_field))
+
+    # -- running (unwindowed) keyed aggregates: upsert emission by the
+    # -- slot-table GroupAggOperator the SQL layer uses -------------------
+
+    def reduce(self, agg: AggregateFunction, name: str = None) -> DataStream:
+        from flink_tpu_torch.runtime.group_agg import GroupAggOperator
+
+        capacity = self.env.state_slot_capacity
+        key_field = self.key_field
+        return DataStream(self.env, self._one_input(
+            name or f"keyed_reduce({type(agg).__name__})",
+            lambda: GroupAggOperator(agg, key_field, capacity=capacity),
+            keyed=True, key_field=key_field))
+
+    def sum(self, field: str) -> DataStream:
+        return self.reduce(SumAggregate(field))
+
+    def max(self, field: str) -> DataStream:
+        return self.reduce(MaxAggregate(field))
+
+    def min(self, field: str) -> DataStream:
+        return self.reduce(MinAggregate(field))
 
 
 class ConnectedStreams:

@@ -135,12 +135,28 @@ class FlatMapOperator(Operator):
 
 class UnionOperator(Operator):
     """Pass-through merge of several inputs; the watermark is the minimum
-    over the inputs (the executor's valve). Timed and untimed inputs may
-    mix: nothing checks event time until a window does."""
+    over the inputs (the executor's valve). In the DataStream API timed
+    and untimed inputs may mix: nothing checks event time until a window
+    does. SQL UNION ALL sets ``require_consistent_time``: its output feeds
+    relational operators, so a timed/untimed mix fails here with the
+    cause."""
 
     name = "union"
 
+    def __init__(self, require_consistent_time: bool = False):
+        self._require_consistent_time = require_consistent_time
+        self._timed: Optional[bool] = None
+
     def process_batch(self, batch, input_index=0):
+        if self._require_consistent_time:
+            timed = batch.has_timestamps
+            if self._timed is None:
+                self._timed = timed
+            elif timed != self._timed:
+                raise RuntimeError(
+                    "union inputs disagree on event time: some carry "
+                    "timestamps and some do not — assign timestamps on "
+                    "every branch (or none)")
         return [batch]
 
 

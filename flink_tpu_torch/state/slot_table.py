@@ -1136,6 +1136,16 @@ class SlotTable:
                        values: Tuple[np.ndarray, ...]) -> None:
         """Merge pre-aggregated partials: every leaf valued, each folded
         by its own reduce; pad lanes carry the identity into slot 0."""
+        self._scatter_every_leaf(slots, values, self.agg._scatter_valued_jit)
+
+    def scatter_signed(self, slots: np.ndarray,
+                       values: Tuple[np.ndarray, ...]) -> None:
+        """Changelog fold: values carry their sign (+accumulate /
+        -retract), every leaf valued (``AggregateFunction.map_input_signed``);
+        pad lanes add the sum identity 0 into slot 0."""
+        self._scatter_every_leaf(slots, values, self.agg._scatter_signed_jit)
+
+    def _scatter_every_leaf(self, slots, values, program) -> None:
         n = len(slots)
         if n == 0:
             return
@@ -1146,7 +1156,7 @@ class SlotTable:
             self._to_device(pad_values(np.asarray(v, dtype=l.dtype), size,
                                        l.identity))
             for v, l in zip(values, self.agg.leaves))
-        self.accs = self.agg._scatter_valued_jit(
+        self.accs = program(
             self.accs, self._to_device(pad_i32(slots, size, fill=0)), padded)
 
     def make_fence(self) -> Fence:

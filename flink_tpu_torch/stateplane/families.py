@@ -19,9 +19,7 @@ reduce kinds, identities, dtypes, the aggregate's ``cache_key`` — and
 kept in one table, so two tables with the same layout share a program.
 
 The pane layout's programs are ``stateplane/pane.py``'s (the
-``delta-harvest`` kind of this table), with :func:`pane_fence` here. Not
-in this slice: ``flat_scatter_signed`` (retractions, ROADMAP.md Queue A
-item 11).
+``delta-harvest`` kind of this table), with :func:`pane_fence` here.
 """
 
 from __future__ import annotations
@@ -121,6 +119,16 @@ def _build_scatter_valued(leaves):
         return _fold_flat(accs, leaves, tds, folds, slots, values)
 
     return scatter_valued
+
+
+def flat_scatter_signed(leaves):
+    """``(accs, slots, values) -> accs``: the retraction fold. Every leaf
+    takes a sign-applied value tensor (+v accumulates, -v retracts); only
+    additive layouts are retractable, so this is the valued scatter of
+    sum leaves (pad lanes add 0 into slot 0): float leaves through the
+    ordered fold, the reference's stream-order ``.at[].add``, integer
+    leaves through ``scatter_add_``."""
+    return flat_scatter_valued(leaves)
 
 
 # ------------------------------------------------------------- segment-reduce

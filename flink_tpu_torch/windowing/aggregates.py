@@ -106,6 +106,20 @@ class AggregateFunction:
                 out.append(np.asarray(next(vit), dtype=leaf.dtype))
         return tuple(out)
 
+    @property
+    def retractable(self) -> bool:
+        """True when every accumulator leaf folds by addition: a changelog
+        retraction is then the scatter of the row's negated contribution.
+        MAX/MIN leaves are not retractable."""
+        return all(l.reduce == "sum" for l in self.leaves)
+
+    def map_input_signed(self, batch: RecordBatch,
+                         signs: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """One SIGNED value array per leaf (const leaves materialized):
+        +v for accumulate rows, -v for retraction rows."""
+        return tuple(v * signs.astype(v.dtype)
+                     for v in self.map_input_valued(batch))
+
     def pad_input_values(self, values: Sequence[np.ndarray], size: int
                          ) -> Tuple[np.ndarray, ...]:
         """Pad the value arrays of the input leaves to ``size`` with each
@@ -123,6 +137,16 @@ class AggregateFunction:
     @property
     def _scatter_valued_jit(self):
         return _families.flat_scatter_valued(self.leaves)
+
+    @property
+    def _scatter_signed_jit(self):
+        """The retraction fold (every leaf valued and sign-applied); only
+        retractable aggregates have one."""
+        if not self.retractable:
+            raise TypeError(
+                f"{type(self).__name__} is not retractable (non-additive "
+                "accumulator leaf); an updating input cannot be folded")
+        return _families.flat_scatter_signed(self.leaves)
 
     @property
     def _fire_jit(self):

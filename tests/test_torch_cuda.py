@@ -1297,3 +1297,111 @@ def test_count_with_timeout_card_equals_cpu():
                           rate=200)["rows"] for d in ("cuda", "cpu")}
         assert pt.rows_equal(rows["cuda"], want)
         assert pt.rows_equal(rows["cpu"], want)
+
+
+def _signed_lanes(rng, n, cap, dtype):
+    slots = rng.integers(1, cap, n).astype(np.int32)
+    signs = np.where(rng.random(n) < 0.4, -1, 1)
+    special = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0], dtype)
+    vals = np.where(rng.random(n) < 0.05, special[rng.integers(0, 6, n)],
+                    rng.standard_normal(n)).astype(dtype)
+    return slots, vals * signs.astype(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_flat_scatter_signed_card_equals_cpu(dtype):
+    """The retraction fold's float leaf goes through the ordered fold on
+    the card (one launch a call) and its int leaf through scatter_add_:
+    both equal the CPU bit for bit, specials and signed lanes included."""
+    _need_card()
+    from flink_tpu_torch.stateplane.families import flat_scatter_signed
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.windowing.aggregates import AccLeaf
+
+    leaves = (AccLeaf("s", dtype, "sum"), AccLeaf("n", np.int32, "sum"))
+    rng = np.random.default_rng(14)
+    for n, cap in [(1, 8), (5000, 64), (1 << 16, 1 << 17), (130_000, 48)]:
+        slots, vals = _signed_lanes(rng, n, cap, dtype)
+        counts = np.where(vals < 0, -1, 1).astype(np.int32)
+        out = {}
+        for device in ("cuda", "cpu"):
+            accs = (torch.zeros(cap, dtype=torch.from_numpy(vals).dtype,
+                                device=device),
+                    torch.zeros(cap, dtype=torch.int32, device=device))
+            before = ordered_fold_planes.launches
+            got = flat_scatter_signed(leaves)(
+                accs, torch.from_numpy(slots).to(device),
+                (torch.from_numpy(vals).to(device),
+                 torch.from_numpy(counts).to(device)))
+            if device == "cuda":
+                assert ordered_fold_planes.launches == before + 1
+            out[device] = [g.cpu().numpy() for g in got]
+        u = np.uint32 if dtype == np.float32 else np.uint64
+        assert np.array_equal(out["cuda"][0].view(u), out["cpu"][0].view(u))
+        assert np.array_equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_group_agg_changelog_card_equals_cpu():
+    """GroupAggOperator over a changelog with retractions on the card:
+    every emitted batch equals the CPU's in order, bit for bit."""
+    _need_card()
+    from flink_tpu_torch.core.records import RecordBatch
+    from flink_tpu_torch.runtime.group_agg import GroupAggOperator
+    from flink_tpu_torch.windowing.aggregates import (
+        AvgAggregate,
+        CountAggregate,
+        MultiAggregate,
+        SumAggregate,
+    )
+
+    class Ctx:
+        parallelism, max_parallelism = 1, 128
+
+    rng = np.random.default_rng(7)
+    batches = []
+    for b in range(6):
+        n = 5000
+        keys = rng.integers(0, 700, n).astype(np.int64)
+        kinds = np.where(rng.random(n) < 0.3 * (b > 0), 1, 0).astype(np.int8)
+        kinds[(kinds == 1) & (rng.random(n) < 0.5)] = 3
+        batches.append(RecordBatch({
+            "__key_id__": keys, "k": keys,
+            "__ts__": np.full(n, b, np.int64),
+            "v": rng.standard_normal(n).astype(np.float64),
+            "__rowkind__": kinds}))
+    out = {}
+    for device in ("cuda", "cpu"):
+        Ctx.device = device
+        op = GroupAggOperator(MultiAggregate([
+            SumAggregate("v", dtype=np.float64, output="s"),
+            CountAggregate(output="n"), AvgAggregate("v", output="a")]), "k")
+        op.open(Ctx())
+        out[device] = [o for b in batches for o in op.process_batch(b)]
+    assert len(out["cuda"]) == len(out["cpu"]) == 6
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert list(g.columns) == list(w.columns)
+        for c in w.columns:
+            assert g[c].dtype == w[c].dtype
+            assert g[c].tobytes() == w[c].tobytes(), c
+
+
+@pytest.mark.cuda
+def test_sql_row4_and_two_level_card_equal_cpu():
+    """Phase 20's SQL jobs at a cut size: row 4 over Kafka and the
+    two-level GROUP BY, card == CPU bit for bit (the row-4 sums also
+    equal the stream-order oracle)."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.row4_produce(200_000)
+    card = chip_smoke.row4_job(torch, "cuda")[0]
+    cpu = chip_smoke.row4_job(torch, "cpu")[0]
+    chip_smoke._batches_equal("row 4", [card], [cpu])
+    chip_smoke.row4_check(card, 200_000)
+    for changelog in (False, True):
+        got = [chip_smoke.two_level_job(torch, d, 200_000, 50_000,
+                                        changelog=changelog)[0]
+               for d in ("cuda", "cpu")]
+        chip_smoke._batches_equal("two-level", [got[0]], [got[1]])

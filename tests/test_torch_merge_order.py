@@ -4,7 +4,7 @@ reference's, in both of its fire programs: the single-device
 fire step of ``build_mesh_steps`` (8 virtual CPU devices). Past 27 slices
 XLA's CPU reduce adds the slice axis in vector lanes and chunks, not left
 to right; ``_merge_sum`` emulates the order ``tests/reference_fire_order.py``
-measured (ROADMAP Queue C item 7).
+measured (ROADMAP Queue C item 7), also past 300 slices (item 4).
 
 The pane layout's two merges of a window's ring rows — a reduce over the
 LEADING axis of ``[k, C]`` — against the reference's ``pane_programs``:
@@ -41,9 +41,11 @@ from flink_tpu_torch.windowing import aggregates as tagg
 P, CAP, ROWS = 8, 256, 64
 
 #: every k from 28 (vector lanes) to 64, then the chunk layouts past it:
-#: three chunks (65-96), four (97-128), five and more
+#: three chunks (65-96), four (97-128), five and more; past 300 slices
+#: (ROADMAP Queue C item 4, measured with ``--ks 301,320,512`` for both
+#: programs and all three kinds: 0 rows differing from the port)
 KS = list(range(28, 65)) + [65, 80, 94, 95, 96, 97, 113, 126, 127, 128,
-                            129, 160, 200]
+                            129, 160, 200, 301, 320, 512]
 
 KINDS = {
     "sum_f32": (lambda: jagg.SumAggregate("v"),

@@ -1,0 +1,766 @@
+"""The SQL/Table front end of the port against the reference, on the CPU.
+
+Every case runs the same statements over the same seeded rows through
+both packages' ``StreamTableEnvironment`` (the port on
+``execution.device: cpu``) and compares the materialized rows in order,
+every column bit for bit; an updating query also compares its raw
+changelog stream (row kinds in emission order). The cases are those of
+``tests/test_sql.py``, the two-level queries of ``tests/test_retraction.py``
+and the MATCH_RECOGNIZE queries of ``tests/test_match_recognize.py``; a
+BASELINE row-4 job (HOP over a four-partition Kafka topic) runs at 200k
+events over 1k keys. Each part of the SQL surface the port does not carry
+yet raises ``NotImplementedError`` naming its ROADMAP item.
+
+SQL ``SUM``/``AVG`` fold float32 leaves and ``COUNT`` an int32 leaf in
+both packages (``planner.py`` maps them onto ``SumAggregate``'s default
+dtype), so no case needs the reference under x64.
+"""
+
+import importlib
+import subprocess
+import sys
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+from tests.test_torch_mesh_sessions import _bits
+
+_ROADMAP = (pathlib.Path(__file__).resolve().parent.parent
+            / "ROADMAP.md").read_text()
+
+
+class Pkg:
+    """One package's table surface: ``reference`` (flink_tpu) or ``port``
+    (flink_tpu_torch on the CPU)."""
+
+    def __init__(self, name):
+        root = "flink_tpu" if name == "reference" else "flink_tpu_torch"
+        m = lambda s: importlib.import_module(f"{root}.{s}")  # noqa: E731
+        self.name = name
+        self.Configuration = m("core.config").Configuration
+        self.Env = m("datastream.environment").StreamExecutionEnvironment
+        self.TEnv = m("table.environment").StreamTableEnvironment
+        self.PlanError = m("table.planner").PlanError
+        self.RecordBatch = m("core.records").RecordBatch
+        self.records = m("core.records")
+        self.FakeBroker = m("connectors.kafka").FakeBroker
+        self.kafka = m("connectors.kafka")
+        self.CollectSink = m("connectors.sinks").CollectSink
+        self.fluent = m("table.fluent")
+        self.parser = m("table.sql_parser")
+        self.optimizer = m("table.optimizer")
+        self.base = {} if name == "reference" else {"execution.device": "cpu"}
+
+    def mod(self, name):
+        """This package's module ``name`` (e.g. ``"connectors.sources"``)."""
+        root = "flink_tpu" if self.name == "reference" else "flink_tpu_torch"
+        return importlib.import_module(f"{root}.{name}")
+
+    def config(self, **cfg):
+        return self.Configuration({**self.base, **cfg})
+
+    def tenv(self, cfg=None):
+        return self.TEnv(self.Env(self.config(**(cfg or {}))))
+
+
+PKGS = {n: Pkg(n) for n in ("reference", "port")}
+
+
+@pytest.fixture(autouse=True)
+def fresh_brokers():
+    for p in PKGS.values():
+        p.FakeBroker.reset()
+    yield
+    for p in PKGS.values():
+        p.FakeBroker.reset()
+
+
+def assert_batches_equal(got, want):
+    """Same columns in the same order, dtypes and bits."""
+    assert list(got.columns) == list(want.columns)
+    for name in want.columns:
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        assert a.dtype == b.dtype, name
+        if a.dtype == object:
+            assert a.tolist() == b.tolist(), name
+        else:
+            np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=name)
+
+
+def run_both(setup, run, cfg=None):
+    """``setup(pkg, tenv)`` then ``run(pkg, tenv)`` in each package;
+    returns {package name: result}."""
+    out = {}
+    for name, p in PKGS.items():
+        tenv = p.tenv(cfg)
+        if setup is not None:
+            setup(p, tenv)
+        out[name] = run(p, tenv)
+    return out
+
+
+def _row_sorted(batch):
+    order = np.lexsort([_bits(np.asarray(batch[c])) for c in
+                        reversed(list(batch.columns))])
+    return batch.take(order)
+
+
+def both_results(setup, query, cfg=None, ordered=True):
+    """The materialized result batch of ``query`` in both packages, held
+    bit for bit and in order (as a multiset of rows when not
+    ``ordered``); returns the port's."""
+    out = run_both(setup, lambda p, t: t.execute_sql(query).to_batch(), cfg)
+    if ordered:
+        assert_batches_equal(out["port"], out["reference"])
+    else:
+        assert_batches_equal(_row_sorted(out["port"]),
+                             _row_sorted(out["reference"]))
+    return out["port"]
+
+
+def both_changelogs(setup, query, cfg=None):
+    """The raw (un-materialized) stream of ``query``: the changelog rows
+    in emission order, bit for bit."""
+    out = run_both(setup, lambda p, t: t.sql_query(query).stream
+                   .execute_and_collect(), cfg)
+    assert_batches_equal(out["port"], out["reference"])
+    return out["port"]
+
+
+def _views(*specs):
+    """setup registering (name, rows, timestamp_field) views."""
+    def setup(p, tenv):
+        for name, rows, ts in specs:
+            tenv.create_temporary_view(
+                name, tenv.from_collection(rows, timestamp_field=ts))
+    return setup
+
+
+def _bids(rows):
+    return [{"auction": a, "price": float(p), "ts": t} for a, p, t in rows]
+
+
+_BID = _bids([(1, 10, 1_000), (1, 20, 2_000), (2, 5, 3_000),
+              (1, 7, 11_000), (2, 9, 12_000)])
+_T10 = [{"a": i, "b": 10 * i} for i in range(10)]
+_COUNTS = _bids([(a, 1, i * 100) for i, a in enumerate(
+    [1, 2, 3, 1, 2, 1, 4, 4, 4, 4])])
+
+
+def _rng_bids(n, keys, seed):
+    rng = np.random.default_rng(seed)
+    return [{"auction": int(a), "price": float(p), "ts": int(t)}
+            for a, p, t in zip(rng.integers(0, keys, n),
+                               rng.integers(1, 100, n) + rng.random(n),
+                               np.sort(rng.integers(0, 60_000, n)))]
+
+
+# ---------------------------------------------------------------- parser
+
+PARSE_SQL = [
+    "SELECT a, b + 1 AS c FROM t WHERE a > 2",
+    "SELECT auction, COUNT(*) AS num, window_start, window_end "
+    "FROM TABLE(TUMBLE(TABLE bid, DESCRIPTOR(ts), INTERVAL '10' SECOND)) "
+    "GROUP BY auction, window_start, window_end",
+    "SELECT COUNT(*) FROM TABLE(HOP(TABLE bid, DESCRIPTOR(ts), "
+    "INTERVAL '2' SECOND, INTERVAL '10' SECOND)) "
+    "GROUP BY window_start, window_end",
+    "SELECT * FROM (SELECT a FROM t1) x JOIN t2 ON x.a = t2.b",
+    "CREATE VIEW v AS SELECT a FROM t",
+    "SELECT auction, ROW_NUMBER() OVER (PARTITION BY window_end "
+    "ORDER BY num DESC) AS rownum FROM ab",
+    "SELECT CASE WHEN a > 1 THEN 'x' ELSE 'y' END, MOD(a, 3), "
+    "CAST(a AS BIGINT) FROM t",
+    "CREATE TABLE k (key BIGINT, value DOUBLE, ts BIGINT, "
+    "WATERMARK FOR ts AS ts - INTERVAL '1' SECOND) WITH "
+    "('connector'='kafka', 'topic'='x', 'format'='json')",
+    "INSERT INTO out SELECT k, v * 2 AS doubled FROM src WHERE v > 50",
+    "SELECT a FROM t UNION ALL SELECT a FROM u ORDER BY a DESC LIMIT 3",
+    "SELECT sym, x FROM t MATCH_RECOGNIZE (PARTITION BY sym ORDER BY ts "
+    "MEASURES FIRST(A.price) AS x AFTER MATCH SKIP PAST LAST ROW "
+    "PATTERN (A B+? C{2}) WITHIN INTERVAL '1' SECOND "
+    "DEFINE A AS A.price < 2, B AS B.price > A.price) AS m",
+    "SELECT k, SUM(v) OVER (PARTITION BY k ORDER BY ts ROWS BETWEEN 2 "
+    "PRECEDING AND CURRENT ROW) AS s FROM t",
+    "EXPLAIN SELECT a FROM t",
+    "SHOW TABLES",
+    "DESCRIBE t",
+    "SELECT a FROM t WHERE a BETWEEN 1 AND 9 AND NOT b = 2 "
+    "AND d = 'x'",
+]
+
+
+@pytest.mark.parametrize("i", range(len(PARSE_SQL)))
+def test_parse_equals_reference(i):
+    sql = PARSE_SQL[i]
+    got = PKGS["port"].parser.parse(sql)
+    want = PKGS["reference"].parser.parse(sql)
+    assert repr(got) == repr(want)
+    if type(want).__name__ in ("SelectStmt", "UnionAll"):
+        assert repr(PKGS["port"].optimizer.optimize(got)) == repr(
+            PKGS["reference"].optimizer.optimize(want))
+
+
+def test_parse_errors_equal_reference():
+    for sql in ("SELECT a FROM t UNION SELECT a FROM u", "SELEC a FROM t",
+                "SELECT FROM t", "SELECT a FROM t WHERE"):
+        msgs = []
+        for p in PKGS.values():
+            with pytest.raises(p.parser.SqlParseError) as e:
+                p.parser.parse(sql)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+
+
+# -------------------------------------------------------------- execution
+
+#: name -> (setup, query); the materialized rows equal the reference's
+SQL_CASES = {
+    "projection_and_where": (
+        _views(("t", _T10, None)),
+        "SELECT a, b * 2 AS b2 FROM t WHERE a >= 5"),
+    "tumble_count_sum": (
+        _views(("bid", _BID, "ts")),
+        "SELECT auction, COUNT(*) AS num, SUM(price) AS total, window_end "
+        "FROM TABLE(TUMBLE(TABLE bid, DESCRIPTOR(ts), INTERVAL '10' SECOND)) "
+        "GROUP BY auction, window_start, window_end"),
+    "hop_window_agg": (
+        _views(("bid", _bids([(1, 1, 1_000), (1, 1, 5_000), (1, 1, 9_000)]),
+                "ts")),
+        "SELECT auction, COUNT(*) AS num, window_end FROM "
+        "TABLE(HOP(TABLE bid, DESCRIPTOR(ts), INTERVAL '5' SECOND, "
+        "INTERVAL '10' SECOND)) GROUP BY auction, window_start, window_end"),
+    "group_by_no_window_upsert": (
+        _views(("bid", _bids([(1, 10, 1_000), (2, 20, 2_000),
+                              (1, 30, 3_000)]), "ts")),
+        "SELECT auction, SUM(price) AS total FROM bid GROUP BY auction"),
+    "global_aggregate": (
+        _views(("bid", _bids([(1, 10, 1_000), (2, 20, 2_000),
+                              (1, 30, 3_000)]), "ts")),
+        "SELECT COUNT(*) AS n, MAX(price) AS top FROM bid"),
+    "having": (
+        _views(("bid", _bids([(1, 10, 1_000), (1, 20, 2_000),
+                              (2, 5, 3_000)]), "ts")),
+        "SELECT auction, COUNT(*) AS num, window_end FROM "
+        "TABLE(TUMBLE(TABLE bid, DESCRIPTOR(ts), INTERVAL '10' SECOND)) "
+        "GROUP BY auction, window_start, window_end HAVING COUNT(*) > 1"),
+    "order_by_limit": (
+        _views(("t", [{"a": i, "b": (7 * i) % 10} for i in range(10)],
+                None)),
+        "SELECT a, b FROM t ORDER BY b DESC LIMIT 3"),
+    "session_window_sql": (
+        _views(("bid", _bids([(1, 1, 1_000), (1, 1, 2_000), (1, 1, 30_000)]),
+                "ts")),
+        "SELECT auction, COUNT(*) AS num, window_start, window_end "
+        "FROM TABLE(SESSION(TABLE bid, DESCRIPTOR(ts), INTERVAL '5' SECOND)) "
+        "GROUP BY auction, window_start, window_end"),
+    "cumulate_window_sql": (
+        _views(("bid", _rng_bids(400, 7, 2), "ts")),
+        "SELECT auction, SUM(price) AS s, AVG(price) AS a, MIN(price) AS lo, "
+        "window_end FROM TABLE(CUMULATE(TABLE bid, DESCRIPTOR(ts), "
+        "INTERVAL '2' SECOND, INTERVAL '10' SECOND)) "
+        "GROUP BY auction, window_start, window_end"),
+    "case_expression": (
+        _views(("t", [{"a": i} for i in range(6)], None)),
+        "SELECT a, CASE WHEN a < 3 THEN 0 ELSE 1 END AS bucket FROM t"),
+    "distinct": (
+        _views(("t", [{"a": x} for x in [1, 2, 2, 3, 3, 3]], None)),
+        "SELECT DISTINCT a FROM t"),
+    "count_of_counts": (
+        _views(("bid", _COUNTS, "ts")),
+        "SELECT c, COUNT(*) AS n FROM "
+        "(SELECT auction, COUNT(*) AS c FROM bid GROUP BY auction) "
+        "GROUP BY c"),
+    "sum_over_updating_counts": (
+        _views(("bid", _bids([(a, 1, i * 100) for i, a in
+                              enumerate([1, 1, 2, 2, 2])]), "ts")),
+        "SELECT SUM(c) AS total, AVG(c) AS mean FROM "
+        "(SELECT auction, COUNT(*) AS c FROM bid GROUP BY auction)"),
+    "single_level_unchanged": (
+        _views(("bid", _bids([(1, 10, 1000), (2, 20, 2000), (1, 30, 3000)]),
+                "ts")),
+        "SELECT auction, SUM(price) AS total FROM bid GROUP BY auction"),
+    "two_level_sum_of_sums": (
+        _views(("bid", _rng_bids(300, 9, 5), "ts")),
+        "SELECT c, COUNT(*) AS n, SUM(total) AS s FROM "
+        "(SELECT auction, COUNT(*) AS c, SUM(price) AS total FROM bid "
+        "GROUP BY auction) GROUP BY c"),
+    "composite_key_group_by": (
+        _views(("bid", [dict(r, m=r["auction"] % 3) for r in
+                        _rng_bids(200, 5, 8)], "ts")),
+        "SELECT auction, m, COUNT(*) AS n, SUM(price) AS s FROM bid "
+        "GROUP BY auction, m"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SQL_CASES))
+@pytest.mark.parametrize("batch", [4, 64])
+def test_sql_case_equals_reference(case, batch):
+    setup, query = SQL_CASES[case]
+    out = both_results(setup, query, {"execution.micro-batch.size": batch})
+    assert len(out) > 0
+
+
+UPDATING = ["group_by_no_window_upsert", "global_aggregate", "distinct",
+            "count_of_counts", "sum_over_updating_counts",
+            "two_level_sum_of_sums", "composite_key_group_by"]
+
+
+@pytest.mark.parametrize("case", UPDATING)
+def test_sql_changelog_equals_reference(case):
+    setup, query = SQL_CASES[case]
+    log = both_changelogs(setup, query, {"execution.micro-batch.size": 4})
+    kinds = log[PKGS["port"].records.ROWKIND_FIELD]
+    assert (kinds == PKGS["port"].records.ROWKIND_INSERT).any()
+
+
+def test_reference_answers_hold_on_the_port():
+    """The values ``tests/test_sql.py`` and ``tests/test_retraction.py``
+    assert, on the port."""
+    def rows(case, batch=4):
+        setup, query = SQL_CASES[case]
+        t = PKGS["port"].tenv({"execution.micro-batch.size": batch})
+        setup(PKGS["port"], t)
+        return t.execute_sql(query).collect()
+
+    got = {(r["auction"], r["window_end"]): (r["num"], r["total"])
+           for r in rows("tumble_count_sum")}
+    assert got[(1, 10_000)] == (2, 30.0) and got[(2, 20_000)] == (1, 9.0)
+    assert {r["c"]: r["n"] for r in rows("count_of_counts")} == \
+        {3: 1, 2: 1, 1: 1, 4: 1}
+    (r,) = rows("sum_over_updating_counts")
+    assert r["total"] == 5 and r["mean"] == 2.5
+    assert [r["b"] for r in rows("order_by_limit")] == [9, 8, 7]
+    assert sorted(r["num"] for r in rows("session_window_sql")) == [1, 2]
+    assert {r["window_end"]: r["num"] for r in rows("hop_window_agg")} == \
+        {5_000: 1, 10_000: 3, 15_000: 2}
+
+
+def test_top_n_hot_items_q5_pattern_equals_reference():
+    rows = _bids([(1, 1, 1_000), (1, 1, 2_000), (2, 1, 3_000),
+                  (2, 1, 11_000), (2, 1, 12_000), (1, 1, 13_000)])
+
+    def setup(p, tenv):
+        _views(("bid", rows, "ts"))(p, tenv)
+        tenv.execute_sql(
+            "CREATE VIEW AuctionBids AS "
+            "SELECT auction, COUNT(*) AS num, window_start, window_end "
+            "FROM TABLE(TUMBLE(TABLE bid, DESCRIPTOR(ts), "
+            "INTERVAL '10' SECOND)) GROUP BY auction, window_start, "
+            "window_end")
+
+    out = both_results(setup, (
+        "SELECT auction, num, window_end FROM ("
+        "  SELECT auction, num, window_end, ROW_NUMBER() OVER ("
+        "    PARTITION BY window_end ORDER BY num DESC) AS rownum"
+        "  FROM AuctionBids) WHERE rownum <= 1"))
+    assert dict(zip(out["window_end"].tolist(), out["auction"].tolist())) \
+        == {10_000: 1, 20_000: 2}
+
+
+@pytest.mark.parametrize("kind", ["ROW_NUMBER", "RANK"])
+def test_top_n_rank_kinds_over_hop_equal_reference(kind):
+    bids = _rng_bids(600, 12, 3)
+    for r in bids:
+        r["price"] = float(int(r["price"]) % 5)  # ties
+    out = both_results(_views(("bid", bids, "ts")), (
+        "SELECT auction, num, window_end, rk FROM ("
+        "  SELECT auction, num, window_end, " + kind + "() OVER ("
+        "    PARTITION BY window_end ORDER BY num DESC) AS rk FROM ("
+        "    SELECT auction, COUNT(*) AS num, window_start, window_end "
+        "    FROM TABLE(HOP(TABLE bid, DESCRIPTOR(ts), INTERVAL '2' SECOND, "
+        "    INTERVAL '10' SECOND)) "
+        "    GROUP BY auction, window_start, window_end)) WHERE rk <= 3"),
+        {"execution.micro-batch.size": 64})
+    assert len(out) > 0
+
+
+#: The streaming joins' rows are compared as multisets: where a join
+#: emits a matched row relative to the other input's rows follows when
+#: the reference's asynchronously dispatched work lands (one run in ~10
+#: reordered 12 of 87 LEFT-join rows), so the order is not a function
+#: of the data.
+JOIN_CASES = {
+    "interval_join_q7_pattern": (
+        _views(("bid", _bids([(1, 10, 1_000), (2, 99, 2_000), (3, 50, 3_000),
+                              (4, 80, 11_000), (5, 70, 12_000)]), "ts")),
+        "SELECT B.auction, B.price FROM bid B JOIN ("
+        "SELECT MAX(price) AS maxprice, window_end "
+        "FROM TABLE(TUMBLE(TABLE bid, DESCRIPTOR(ts), "
+        "INTERVAL '10' SECOND)) GROUP BY window_start, window_end) M "
+        "ON B.price = M.maxprice AND B.ts BETWEEN "
+        "M.window_end - INTERVAL '10' SECOND AND M.window_end"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JOIN_CASES))
+def test_sql_join_case_equals_reference(case):
+    setup, query = JOIN_CASES[case]
+    out = both_results(setup, query, ordered=False)
+    got = dict(zip(out["auction"].tolist(), out["price"].tolist()))
+    assert got == {2: 99.0, 4: 80.0}
+
+
+def test_temporal_join_equals_reference():
+    rates = [{"cur": c, "rate": float(r), "ts": t} for c, r, t in
+             [(1, 1.0, 0), (2, 2.0, 0), (1, 1.5, 5_000), (2, 2.5, 7_000)]]
+    orders = [{"cur": 1 + i % 2, "amount": float(i), "ts": 1_000 * i}
+              for i in range(12)]
+    out = both_results(
+        _views(("orders", orders, "ts"), ("rates", rates, "ts")),
+        "SELECT o.amount, r.rate FROM orders o JOIN rates "
+        "FOR SYSTEM_TIME AS OF o.ts AS r ON o.cur = r.cur", ordered=False)
+    assert len(out) > 0
+
+
+def test_left_interval_join_equals_reference():
+    left = _rng_bids(80, 6, 1)
+    right = _rng_bids(80, 6, 2)
+    both_results(_views(("L", left, "ts"), ("R", right, "ts")), (
+        "SELECT L.auction, L.price, R.price FROM L LEFT JOIN R "
+        "ON L.auction = R.auction AND L.ts BETWEEN R.ts - INTERVAL '1' SECOND"
+        " AND R.ts + INTERVAL '1' SECOND"),
+        {"execution.micro-batch.size": 16}, ordered=False)
+
+
+def test_plan_errors_equal_reference():
+    setup = _views(("bid", _bids([(1, 1, 0)]), "ts"))
+    cases = [
+        ("SELECT MAX(c) AS m FROM (SELECT auction, COUNT(*) AS c FROM bid "
+         "GROUP BY auction)", "retractable"),
+        ("SELECT * FROM missing", "not registered"),
+    ]
+    for sql, match in cases:
+        msgs = []
+        for p in PKGS.values():
+            tenv = p.tenv()
+            setup(p, tenv)
+            with pytest.raises(Exception) as e:
+                tenv.execute_sql(sql)
+            msgs.append((type(e.value).__name__, str(e.value)))
+        assert msgs[0] == msgs[1], sql
+        if match:
+            assert match in msgs[1][1]
+
+
+def test_window_over_updating_view_rejected_as_reference():
+    for p in PKGS.values():
+        tenv = p.tenv()
+        _views(("bid", _bids([(1, 1, 0)]), "ts"))(p, tenv)
+        tenv.execute_sql("CREATE VIEW counts AS SELECT auction, COUNT(*) AS "
+                         "c FROM bid GROUP BY auction")
+        with pytest.raises(p.PlanError, match="updating"):
+            tenv.execute_sql(
+                "SELECT window_end, COUNT(*) AS n FROM TABLE(TUMBLE(TABLE "
+                "counts, DESCRIPTOR(ts), INTERVAL '10' SECOND)) "
+                "GROUP BY window_start, window_end")
+
+
+def test_batch_mode_group_by_equals_reference():
+    out = both_changelogs(_views(("bid", _rng_bids(200, 7, 4), "ts")),
+                          "SELECT auction, SUM(price) AS s, COUNT(*) AS n "
+                          "FROM bid GROUP BY auction",
+                          {"execution.runtime-mode": "batch",
+                           "execution.micro-batch.size": 16})
+    kinds = out[PKGS["port"].records.ROWKIND_FIELD]
+    assert (kinds == PKGS["port"].records.ROWKIND_INSERT).all()
+
+
+def test_state_ttl_is_read_and_equal_to_reference():
+    cfg = {"table.exec.state.ttl": 3_600_000,
+           "execution.micro-batch.size": 8}
+    both_changelogs(_views(("bid", _rng_bids(100, 5, 6), "ts")),
+                    "SELECT auction, COUNT(*) AS n FROM bid GROUP BY auction",
+                    cfg)
+
+
+# ------------------------------------------------------ MATCH_RECOGNIZE
+
+
+def _ticks(p, topic, prices, syms=None):
+    broker = p.FakeBroker.get("default")
+    broker.create_topic(topic, 1)
+    n = len(prices)
+    ts = np.arange(n, dtype=np.int64) * 1000
+    broker.append(topic, 0, p.RecordBatch.from_pydict(
+        {"sym": np.asarray(syms if syms is not None else np.zeros(n),
+                           dtype=np.int64),
+         "price": np.asarray(prices, dtype=np.float64), "ts": ts},
+        timestamps=ts))
+
+
+MR_CASES = {
+    "v_shape": ([10, 9, 8, 7, 8, 9, 12, 11, 10, 13, 14], None, """
+        SELECT sym, start_p, bottom_p, end_p FROM {t} MATCH_RECOGNIZE (
+          PARTITION BY sym ORDER BY ts
+          MEASURES FIRST(A.price) AS start_p, LAST(B.price) AS bottom_p,
+                   LAST(C.price) AS end_p
+          AFTER MATCH SKIP PAST LAST ROW
+          PATTERN (A B+ C+)
+          DEFINE B AS B.price < A.price, C AS C.price > B.price) AS m"""),
+    "partitioned_quantified": (
+        [1, 5, 6, 2, 1, 5, 6, 7, 2], [0, 0, 0, 0, 1, 1, 1, 1, 1], """
+        SELECT sym, n_up, total FROM {t} MATCH_RECOGNIZE (
+          PARTITION BY sym ORDER BY ts
+          MEASURES COUNT(UP.price) AS n_up, SUM(UP.price) AS total
+          AFTER MATCH SKIP PAST LAST ROW
+          PATTERN (LO UP{{2}})
+          DEFINE LO AS LO.price < 2, UP AS UP.price > 4) AS m"""),
+    "reluctant": ([1, 5, 6, 9, 1, 5, 9], None, """
+        SELECT sym, cnt FROM {t} MATCH_RECOGNIZE (
+          PARTITION BY sym ORDER BY ts
+          MEASURES COUNT(UP.price) AS cnt
+          PATTERN (LO UP+? HI)
+          DEFINE LO AS LO.price < 2, UP AS UP.price > 4 AND UP.price < 9,
+                 HI AS HI.price >= 9) AS m"""),
+}
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+@pytest.mark.parametrize("case", sorted(MR_CASES))
+def test_match_recognize_equals_reference(case, mode):
+    prices, syms, query = MR_CASES[case]
+    out = both_results(
+        lambda p, tenv: (_ticks(p, "mr", prices, syms), tenv.execute_sql(
+            "CREATE TABLE mr (sym BIGINT, price DOUBLE, ts BIGINT, "
+            "WATERMARK FOR ts AS ts) WITH ('connector'='kafka', "
+            "'topic'='mr')")),
+        query.format(t="mr"),
+        {"execution.micro-batch.size": 4, "cep.mode": mode})
+    assert len(out) > 0
+
+
+def test_match_recognize_device_fallback_is_counted():
+    from flink_tpu_torch.cep import mesh_engine
+
+    prices, syms, query = MR_CASES["v_shape"]  # greedy B+: host only
+    before = mesh_engine.host_fallbacks()
+    p = PKGS["port"]
+    tenv = p.tenv({"execution.micro-batch.size": 4, "cep.mode": "device"})
+    _ticks(p, "mr", prices, syms)
+    tenv.execute_sql("CREATE TABLE mr (sym BIGINT, price DOUBLE, ts BIGINT, "
+                     "WATERMARK FOR ts AS ts) WITH ('connector'='kafka', "
+                     "'topic'='mr')")
+    rows = tenv.execute_sql(query.format(t="mr")).collect()
+    assert mesh_engine.host_fallbacks() == before + 1
+    assert rows == [
+        {"sym": 0, "start_p": 8.0, "bottom_p": 7.0, "end_p": 8.0},
+        {"sym": 0, "start_p": 12.0, "bottom_p": 10.0, "end_p": 13.0}]
+
+
+# ------------------------------------------------ BASELINE row 4, cut
+
+
+ROW4_SQL = """
+    SELECT key, window_end, SUM(value) AS total
+    FROM TABLE(HOP(TABLE bench_bids, DESCRIPTOR(ts),
+                   INTERVAL '2' SECOND, INTERVAL '10' SECONDS))
+    GROUP BY key, window_start, window_end
+"""
+ROW4_DDL = ("CREATE TABLE bench_bids (key BIGINT, value DOUBLE, "
+            "ts BIGINT, WATERMARK FOR ts AS ts) "
+            "WITH ('connector'='kafka', 'topic'='bench_bids', "
+            "'broker'='bench')")
+
+
+def row4_produce(p, total, keys=10_000, parts=4, chunk=1 << 18, seed=1):
+    """``tools/bench_suite.py``'s row-4 topic: ``default_rng(seed)`` keys
+    and values, 100,000 events/s of event time, keyed onto ``parts``."""
+    broker = p.FakeBroker.get("bench")
+    broker.create_topic("bench_bids", parts)
+    rng = np.random.default_rng(seed)
+    produced = 0
+    while produced < total:
+        n = min(chunk, total - produced)
+        ks = rng.integers(0, keys, n).astype(np.int64)
+        vs = rng.random(n)
+        ts = (np.arange(produced, produced + n, dtype=np.int64)
+              * 1000) // 100_000
+        for part in range(parts):
+            m = ks % parts == part
+            broker.append("bench_bids", part, p.RecordBatch.from_pydict(
+                {"key": ks[m], "value": vs[m], "ts": ts[m]},
+                timestamps=ts[m]))
+        produced += n
+
+
+def row4_oracle(total, keys, seed=1, chunk=1 << 18):
+    """{(key, window_end): float64 sum} of HOP(2 s, 10 s) over the same
+    stream."""
+    rng = np.random.default_rng(seed)
+    k_all, v_all, t_all = [], [], []
+    produced = 0
+    while produced < total:
+        n = min(chunk, total - produced)
+        k_all.append(rng.integers(0, keys, n).astype(np.int64))
+        v_all.append(rng.random(n))
+        t_all.append((np.arange(produced, produced + n, dtype=np.int64)
+                      * 1000) // 100_000)
+        produced += n
+    k, v, t = map(np.concatenate, (k_all, v_all, t_all))
+    # float32 inputs, as the SUM leaf folds them
+    v = v.astype(np.float32).astype(np.float64)
+    out = {}
+    first_end = (t // 2000 + 1) * 2000
+    for j in range(5):
+        end = first_end + 2000 * j
+        ids = k * (1 << 32) + end
+        u, inv = np.unique(ids, return_inverse=True)
+        s = np.bincount(inv, weights=v)
+        for uid, sv in zip(u.tolist(), s.tolist()):
+            out[(uid >> 32, uid & 0xFFFFFFFF)] = sv
+    return out
+
+
+def test_row4_kafka_arrival_order_equals_reference():
+    """The split source interleaves the four partitions' batches in the
+    reference's order (before any sum is compared)."""
+    orders = {}
+    for name, p in PKGS.items():
+        row4_produce(p, 50_000, keys=1_000, chunk=1 << 14)
+        src = p.kafka.KafkaSource("bench_bids", broker_name="bench",
+                                  timestamp_field="ts")
+        src.open(0, 1)
+        seen = []
+        while True:
+            b = src.poll_batch(1 << 12)
+            if b is None:
+                break
+            if len(b):
+                seen.append((b["key"].copy(), b["value"].copy(),
+                             b.timestamps.copy()))
+        orders[name] = seen
+    assert len(orders["port"]) == len(orders["reference"]) > 8
+    for g, w in zip(orders["port"], orders["reference"]):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_row4_sql_hop_over_kafka_equals_reference_and_oracle():
+    total, keys = 200_000, 1_000
+    out = both_results(
+        lambda p, tenv: (row4_produce(p, total, keys=keys, chunk=1 << 16),
+                         tenv.execute_sql(ROW4_DDL)),
+        ROW4_SQL, {"execution.micro-batch.size": 1 << 14})
+    oracle = row4_oracle(total, keys, chunk=1 << 16)
+    got = {(int(k), int(w)): float(s) for k, w, s in
+           zip(out["key"], out["window_end"], out["total"])}
+    # the fires past the last watermark: the job's end flushes every window
+    assert set(got) == set(oracle)
+    want = np.array([oracle[k] for k in got])
+    # float32 accumulators against a float64 oracle: about 100 adds of
+    # values in [0, 1) per (key, window), so relative error well below 1e-5
+    np.testing.assert_allclose(np.array(list(got.values())), want,
+                               rtol=1e-5)
+    assert out["total"].dtype == np.float32
+
+
+# ---------------------------------------------- what raises, and why
+
+
+def _item(message):
+    m = re.search(r"Queue A item (\w+(?:-\d+)?)", message)
+    assert m, message
+    assert f"**Item {m.group(1)} " in _ROADMAP or \
+        f"**{m.group(1)}, " in _ROADMAP or \
+        f"**{m.group(1)} " in _ROADMAP, m.group(1)
+    return m.group(1)
+
+
+def _port_tenv():
+    p = PKGS["port"]
+    tenv = p.tenv()
+    tenv.create_temporary_view("t", tenv.from_collection(
+        [{"k": i % 3, "v": float(i), "ts": 10 * i} for i in range(20)],
+        timestamp_field="ts"))
+    return tenv
+
+
+NOT_PORTED = {
+    "over_aggregate": ("11c-2", lambda t: t.execute_sql(
+        "SELECT k, SUM(v) OVER (PARTITION BY k ORDER BY ts ROWS BETWEEN 2 "
+        "PRECEDING AND CURRENT ROW) AS s FROM t")),
+    "over_aggregate_device_engine": ("11c-2", lambda t: t.sql_query(
+        "SELECT k, COUNT(*) OVER (PARTITION BY k ORDER BY ts RANGE BETWEEN "
+        "INTERVAL '1' SECOND PRECEDING AND CURRENT ROW) AS n FROM t")),
+    "lookup_table": ("11c-2", lambda t: t.create_lookup_table(
+        "dim", object(), ["k", "name"])),
+    "filesystem_connector": ("11c-2", lambda t: t.execute_sql(
+        "CREATE TABLE fs (a BIGINT) WITH ('connector'='filesystem', "
+        "'path'='/nonexistent')")),
+    "explain_statement": ("11c-2", lambda t: t.execute_sql(
+        "EXPLAIN SELECT k FROM t")),
+    "explain_sql": ("11c-2", lambda t: t.explain_sql("SELECT k FROM t")),
+    "explain_sql_statement": ("11c-2", lambda t: t.explain_sql_statement(
+        PKGS["port"].parser.parse("EXPLAIN SELECT k FROM t"))),
+    "create_temporary_model": ("11d", lambda t: t.create_temporary_model(
+        "m", object())),
+    "create_model": ("11d", lambda t: t.execute_sql(
+        "CREATE MODEL m WITH ('provider'='x')")),
+    "ml_predict": ("11d", lambda t: t.execute_sql(
+        "SELECT * FROM ML_PREDICT(TABLE t, MODEL m, DESCRIPTOR(v))")),
+    "avro_format": ("12", lambda t: t.execute_sql(
+        "CREATE TABLE av (a BIGINT) WITH ('connector'='kafka', "
+        "'topic'='x', 'format'='avro')")),
+}
+
+
+@pytest.mark.parametrize("site", sorted(NOT_PORTED))
+def test_not_ported_site_raises_naming_its_item(site):
+    item, call = NOT_PORTED[site]
+    with pytest.raises(NotImplementedError) as e:
+        call(_port_tenv())
+    assert _item(str(e.value)) == item
+
+
+def test_importing_the_table_package_loads_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "import flink_tpu_torch.table, flink_tpu_torch.table.planner\n"
+        "import flink_tpu_torch.table.upsert_materializer\n"
+        "import flink_tpu_torch.connectors.kafka\n"
+        "import flink_tpu_torch.runtime.group_agg\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_tpu' or m.startswith('flink_tpu.')]\n"
+        "assert not bad, bad\n")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_sql_windows_at_parallelism_8_plan_onto_the_mesh_engine(
+        monkeypatch):
+    """``parallelism.default: 8`` puts the SQL window aggregation on the
+    mesh window engine in both packages (so on the card the rank kernel
+    runs under SQL), and the Top-N rows equal the reference's."""
+    import importlib
+
+    opened = {}
+    for name, root in (("reference", "flink_tpu"), ("port", "flink_tpu_torch")):
+        mod = importlib.import_module(f"{root}.parallel.sharded_windower")
+        init = mod.MeshWindowEngine.__init__
+
+        def counting(self, *a, _init=init, _name=name, **k):
+            opened[_name] = opened.get(_name, 0) + 1
+            _init(self, *a, **k)
+
+        monkeypatch.setattr(mod.MeshWindowEngine, "__init__", counting)
+
+    def setup(p, tenv):
+        _views(("bid", _rng_bids(3000, 40, 9), "ts"))(p, tenv)
+        tenv.execute_sql(
+            "CREATE VIEW AuctionBids AS SELECT auction, COUNT(*) AS num, "
+            "window_start, window_end FROM TABLE(HOP(TABLE bid, "
+            "DESCRIPTOR(ts), INTERVAL '2' SECOND, INTERVAL '10' SECOND)) "
+            "GROUP BY auction, window_start, window_end")
+
+    out = both_results(setup, (
+        "SELECT auction, num, window_end FROM (SELECT auction, num, "
+        "window_end, ROW_NUMBER() OVER (PARTITION BY window_end ORDER BY "
+        "num DESC) AS rownum FROM AuctionBids) WHERE rownum <= 1"),
+        {"parallelism.default": 8, "execution.micro-batch.size": 512})
+    assert opened == {"reference": 1, "port": 1}
+    assert len(out) == len(set(out["window_end"].tolist())) > 20
