@@ -157,7 +157,8 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_checkpoints(torch)'`` runs phase 14 alone.
 15. streaming joins: (a) the Q8 shape of ``tools/bench_joins.py``
     (100k sellers, band [0, 10 s], 200k events/s of event time per side,
-    4M records in batches of 1<<15 alternating sides, 1<<18 slots a shard
+    2M records — the bench's 4M, cut to keep the script's time — in
+    batches of 1<<15 alternating sides, 1<<18 slots a shard
     a side, P=8) through ``flink_tpu_torch/benchmarks/joins.py`` on the
     card, then the same stream through the same engine with
     ``backend="host"``: every emitted batch equal in order, bit for bit
@@ -181,11 +182,12 @@ Phases, each fatal on failure (no result line is printed then):
     runs phase 15 alone.
 16. CEP: (a) the ``cep_patterns_10m_keys`` row of ``tools/bench_cep.py``
     (a 2-stage within-2 s sequence over 10M keys at 400k events/s of
-    event time, 4M records in batches of 1<<15, P=8, 1<<14 slots a shard
+    event time, 2M records — the bench's 4M, cut to keep the script's
+    time — in batches of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
     ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<19
     records equal, batch for batch (by digest), to the same engine with
-    ``backend="host"``; every match of the 4M records equal, as a sorted
+    ``backend="host"``; every match of the 2M records equal, as a sorted
     multiset, to a NumPy oracle written here; rows evicted and reloaded
     > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
     the host backend's events/s, and the NFA advance per fire (calls,
@@ -327,6 +329,47 @@ Phases, each fatal on failure (no result line is printed then):
     bounds. ``python3 -c 'import torch, chip_smoke;
     chip_smoke.phase_sql(torch)'`` runs phase 20 alone
     (``phase_sql(torch, "cpu", small=True)`` rehearses it without a card).
+21. OVER, the lookup join into a filesystem table, EXPLAIN and 11d
+    (after phase 20): (21a) both OVER engines at ``tools/bench_over.py``'s
+    shape (ROWS 16 PRECEDING, SUM/AVG/MIN/MAX, batches of 50,000 rows, 3
+    warm fires then 20 timed, at 100, 2,000 and 50,000 keys; the host
+    engine at 50,000 keys times 2 fires, its per-key loop taking ~2 s a
+    fire): rows/s of each, the device program's kernel and copy ms, its
+    launches a fire and its share of the fire's wall (torch.profiler over
+    4 more fires); the device rows equal the host rows over every fire
+    both ran (keys, timestamps, values, MIN and MAX exactly; SUM and AVG
+    within rtol 2e-4, atol 1e-5, the reference's own tolerance), 0
+    degrades; then row 4's stream (4 partitions, 10,000 keys, 100,000
+    events/s) cut to 2,000,000 events through SQL ``SUM`` and ``COUNT``
+    OVER a RANGE 10 s frame on the device engine, every row against a
+    float64 NumPy oracle (counts exactly, sums within that tolerance);
+    (21b) phase 5's bids cut to 2,000,000 (JSON encoding of the ~1.3M
+    result rows sets the pace), enriched with their auction's category by
+    a lookup join (``TableLookupFunction`` over 100,000 auction rows from
+    ``default_rng(21)``, an LRU cache of 1<<17), HOP(2 s, 10 s)
+    ``SUM(price) GROUP BY auction, category`` at ``parallelism.default:
+    8`` (the mesh engine, the rank kernel and the ordered fold), ``INSERT
+    INTO`` a 'filesystem' table, batches of 1<<17, a checkpoint every 4:
+    the first run fails after checkpoint 2, a fresh job resumes from the
+    checkpoints; the committed rows hold each (auction, window) exactly
+    once with its auction's category, every sum equal to phase 6's
+    stream-order float32 oracle bit for bit; events/s, the cache hit
+    rate, the parts committed and the restore ms printed; (21c) the
+    ``EXPLAIN`` text of row 4's query, 20(c)'s SQL Q5 at P=8 and 21(a)'s
+    OVER query; (21d) ``ML_PREDICT`` with a ``TorchModel`` (an MLP of 2
+    layers, width 64, float32, weights from a seed) on the card feeding a
+    tumbling ``SUM`` over 1,000,000 records: its predictions within rtol
+    1e-5, atol 1e-5 of the same module on the CPU and the window sums
+    within rtol 1e-4, atol 1e-3 of the CPU job's; ``state.backend:
+    host-heap`` on Q5-revenue at P=1 over 2,000,000 bids equal to the
+    card's state bit for bit; ``SavepointReader`` over 19(c)'s stop
+    savepoint: its keyed rows and count sums equal the state restored on
+    the card; a DataStream V2 keyed process job (a ``DeviceValueState``
+    count per key over 1,000,000 records) card == CPU == ``np.bincount``.
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_slice21(torch)'`` runs phase 21 alone without the
+    savepoint reader (``phase_slice21(torch, "cpu", small=True)``
+    rehearses it without a card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -336,15 +379,16 @@ and 17(d), 18(a) and 18(b) (from the harness's first engine on: the
 oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
 18(e)'s card engines, 19(a), 19(b)'s card run, each card run of
 19(c), 20(a)'s measured and card runs, each card run of 20(b) and 20(c),
+each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs,
 and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
-15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a) and 20(b) — row
-1's `.sum` keeps a float32 leaf —, Count being an integer fold; the rank
-in 20(c)). 19(a) and 19(d)
+15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b)
+and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
+an integer fold; the rank in 20(c) and 21(b)). 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
-stream-ordered put are torch ops.
+stream-ordered put and the OVER device program are torch ops.
 
 Prints the card's name and power limit early, one JSON line describing
 every kernel, and as the last line
@@ -357,8 +401,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4158,7 +4204,7 @@ def _read_windows(*paths) -> dict:
 
 def stop_with_savepoint(torch, tmp: str, records: int = 10_000_000,
                         after: int = 5, device: str = "cuda",
-                        batch: int = 1 << 20) -> dict:
+                        batch: int = 1 << 20, keep: str = None) -> dict:
     """19(c): Q5 at P=8 into a BinaryFileSink, stopped with a savepoint
     after batch ``after`` and resumed from it to the end; both files read
     back through BinaryFileSource equal an uninterrupted run's windows
@@ -4190,6 +4236,8 @@ def stop_with_savepoint(torch, tmp: str, records: int = 10_000_000,
         path = req.wait(timeout=60)
         if result.metrics.get("savepoint") != path:
             fails.append(f"{tag}: the job did not stop at the savepoint")
+        if keep is not None and not drain:   # 21(d) reads it
+            shutil.copytree(path, keep)
         launches[tag] = {"before_stop": before}
         parts[tag] = [_read_windows(p1)]
         if not drain:
@@ -4309,11 +4357,13 @@ def async_waves(torch, device: str = "cuda", rounds: int = 2000) -> dict:
     return row
 
 
-def phase_process(torch, device: str = "cuda", small: bool = False) -> dict:
+def phase_process(torch, device: str = "cuda", small: bool = False,
+                  keep_savepoint: str = None) -> dict:
     """Phase 19: process functions with device state, the changelog
     backend, stop-with-savepoint with the binary file sink, async waves.
     ``device="cpu", small=True`` rehearses it at a cut size without a
-    card (the card-vs-CPU checks then compare the CPU with itself)."""
+    card (the card-vs-CPU checks then compare the CPU with itself).
+    ``keep_savepoint``: a directory to copy 19(c)'s stop savepoint to."""
     import tempfile
 
     if device == "cuda":
@@ -4332,7 +4382,8 @@ def phase_process(torch, device: str = "cuda", small: bool = False) -> dict:
                  "changelog": changelog_backend(torch, tmp, device=device,
                                                 **cut["changelog"]),
                  "stop_with_savepoint": stop_with_savepoint(
-                     torch, tmp, device=device, **cut["stop"]),
+                     torch, tmp, device=device, keep=keep_savepoint,
+                     **cut["stop"]),
                  "async": async_waves(torch, device, **cut["async"])}
     launches = {k: sum(p["launches"][k] for p in parts.values())
                 for k in ("exchange_rank", "ordered_fold")}
@@ -4715,6 +4766,758 @@ def phase_sql(torch, device: str = "cuda", small: bool = False) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------- phase 21
+
+OVER_SPECS = [("SUM", "x", "__s__"), ("AVG", "x", "__a__"),
+              ("MIN", "x", "__mn__"), ("MAX", "x", "__mx__")]
+#: the reference's tolerance for the device OVER engine against the host
+#: engine (tests/test_over_device.py:68-71), for SUM and AVG
+OVER_RTOL, OVER_ATOL = 2e-4, 1e-5
+ROW4_OVER_SQL = (
+    "SELECT key, ts, SUM(value) OVER (PARTITION BY key ORDER BY ts RANGE "
+    "BETWEEN INTERVAL '10' SECOND PRECEDING AND CURRENT ROW) AS s, "
+    "COUNT(*) OVER (PARTITION BY key ORDER BY ts RANGE BETWEEN INTERVAL "
+    "'10' SECOND PRECEDING AND CURRENT ROW) AS n FROM bench_bids")
+
+
+def over_batches(rng, n_batches, rows, keys, wm=0):
+    """``tools/bench_over.py``'s batches: sorted timestamps above the last
+    watermark, ``keys`` uniform keys, normal values."""
+    from flink_tpu_torch.core.records import (
+        KEY_ID_FIELD,
+        TIMESTAMP_FIELD,
+        RecordBatch,
+    )
+
+    batches, wms = [], []
+    for _ in range(n_batches):
+        new_wm = wm + rows
+        ts = np.sort(rng.integers(wm + 1, new_wm + 1, size=rows))
+        batches.append(RecordBatch({
+            KEY_ID_FIELD: rng.integers(0, keys, rows).astype(np.int64),
+            "x": rng.normal(size=rows), TIMESTAMP_FIELD: ts.astype(np.int64)}))
+        wms.append(new_wm)
+        wm = new_wm
+    return batches, wms
+
+
+class _OverCtx:
+    max_parallelism = 128
+
+    def __init__(self, device):
+        self.device = device
+
+
+def over_bench_run(torch, engine: str, keys: int, device: str, timed: int,
+                   warm: int = 3, rows: int = 50_000, preceding: int = 16,
+                   profiled: int = 4) -> dict:
+    """One engine over ``tools/bench_over.py``'s shape: ``warm`` fires,
+    then ``timed`` fires timed on the wall clock (rows/s), then (device
+    engine) ``profiled`` more fires under torch.profiler for the program's
+    device ms and launches a fire. Returns the numbers and every fire's
+    output."""
+    from flink_tpu_torch.runtime.over_agg import OverAggOperator
+    from flink_tpu_torch.runtime.over_device import DeviceOverAggOperator
+
+    cls = DeviceOverAggOperator if engine == "device" else OverAggOperator
+    op = cls("k", OVER_SPECS, mode="ROWS", preceding=preceding)
+    op.open(_OverCtx(device))
+    rng = np.random.default_rng(1)
+    wb, wwm = over_batches(rng, warm, rows, keys)
+    tb, twm = over_batches(rng, timed + profiled, rows, keys, wm=wwm[-1])
+    outs = []
+    for b, wm in zip(wb, wwm):
+        op.process_batch(b)
+        outs.extend(op.process_watermark(wm))
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for b, wm in zip(tb[:timed], twm[:timed]):
+        op.process_batch(b)
+        outs.extend(op.process_watermark(wm))
+    _sync(torch, device)
+    dt = time.perf_counter() - t0
+    row = {"engine": engine, "keys": keys, "timed_fires": timed,
+           "rows_per_s": timed * rows / dt, "fire_ms": dt * 1e3 / timed}
+    if engine == "device":
+        row.update(over_device_profile(torch, op, tb[timed:], twm[timed:],
+                                       device, outs))
+        row["counters"] = op.counters()
+    return row, outs
+
+
+def over_device_profile(torch, op, batches, wms, device, outs) -> dict:
+    """The device program's ms and launches a fire over ``batches``: CUDA
+    kernel time and memcpy time by torch.profiler, kernels counted as
+    launches; its share of the same fires' wall."""
+    if device != "cuda" or not batches:
+        for b, wm in zip(batches, wms):
+            op.process_batch(b)
+            outs.extend(op.process_watermark(wm))
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b, wm in zip(batches, wms):
+            op.process_batch(b)
+            outs.extend(op.process_watermark(wm))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern_us = copy_us = 0.0
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        if "Memcpy" in ev.name or "Memset" in ev.name:
+            copy_us += us
+        else:
+            kern_us += us
+            launches += 1
+    n = len(batches)
+    return {"device_kernel_ms_per_fire": kern_us / 1e3 / n,
+            "device_copy_ms_per_fire": copy_us / 1e3 / n,
+            "launches_per_fire": launches / n,
+            "profiled_fire_wall_ms": wall * 1e3 / n,
+            "device_share_of_fire_wall":
+                (kern_us + copy_us) / 1e3 / (wall * 1e3) if wall else None}
+
+
+def _over_equal(what, host_outs, dev_outs) -> float:
+    """The device engine's fires against the host engine's: keys,
+    timestamps, values and MIN/MAX exactly, SUM/AVG to the reference's
+    tolerance; returns the largest SUM/AVG error."""
+    from flink_tpu_torch.core.records import KEY_ID_FIELD
+
+    if len(host_outs) > len(dev_outs):
+        raise AssertionError(f"{what}: {len(dev_outs)} device fires, "
+                             f"{len(host_outs)} host fires")
+    worst = 0.0
+    for i, (h, d) in enumerate(zip(host_outs, dev_outs)):
+        if len(h) != len(d):
+            raise AssertionError(f"{what} fire {i}: {len(d)} rows, host "
+                                 f"{len(h)}")
+        for c in (KEY_ID_FIELD, "x"):
+            if not np.array_equal(np.asarray(h[c]), np.asarray(d[c])):
+                raise AssertionError(f"{what} fire {i}: column {c} differs")
+        if not np.array_equal(h.timestamps, d.timestamps):
+            raise AssertionError(f"{what} fire {i}: timestamps differ")
+        for func, _, name in OVER_SPECS:
+            a, b = np.asarray(d[name]), np.asarray(h[name])
+            if func in ("MIN", "MAX"):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{what} fire {i}: {func} differs")
+                continue
+            err = np.abs(a - b)
+            if (err > OVER_ATOL + OVER_RTOL * np.abs(b)).any():
+                raise AssertionError(f"{what} fire {i}: {func} off by "
+                                     f"{err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+    return worst
+
+
+def over_bench(torch, device: str = "cuda", timed: int = 20,
+               host_timed_at_50k: int = 2, key_counts=(100, 2_000, 50_000)
+               ) -> dict:
+    """21(a), first half: both engines at ``tools/bench_over.py``'s shape
+    (ROWS 16 PRECEDING, SUM/AVG/MIN/MAX, batches of 50,000 rows, 3 warm
+    fires, then 20 timed) at 100, 2,000 and 50,000 keys. The host engine
+    at 50,000 keys (its per-key loop: ~2.8 s a fire on a CPU) times only
+    ``host_timed_at_50k`` fires; the device rows are held to the host rows
+    over every fire both ran."""
+    rows, fails = {}, []
+    for keys in key_counts:
+        h_timed = host_timed_at_50k if keys >= 50_000 else timed
+        host, h_outs = over_bench_run(torch, "host", keys, device, h_timed,
+                                      profiled=0)
+        dev, d_outs = over_bench_run(torch, "device", keys, device, timed)
+        dev["max_abs_err_sum_avg"] = _over_equal(
+            f"21(a) {keys} keys", h_outs, d_outs)
+        dev["fires_compared"] = len(h_outs)
+        if dev["counters"]["over_degrades"] != 0:
+            fails.append(f"{keys} keys: {dev['counters']} degrades")
+        if device == "cuda" and dev["counters"]["over_device_fires"] < timed:
+            fails.append(f"{keys} keys: the device program did not run")
+        dev["speedup_vs_host"] = dev["rows_per_s"] / host["rows_per_s"]
+        rows[keys] = {"host": host, "device": dev}
+        print(f"phase 21(a) OVER ROWS 16 at {keys:,} keys: host "
+              f"{host['rows_per_s']:,.0f} rows/s ({h_timed} fires), device "
+              f"{dev['rows_per_s']:,.0f} rows/s; device program "
+              f"{dev.get('device_kernel_ms_per_fire')} ms kernels + "
+              f"{dev.get('device_copy_ms_per_fire')} ms copies, "
+              f"{dev.get('launches_per_fire')} launches a fire, "
+              f"{dev.get('device_share_of_fire_wall')} of the fire's wall; "
+              f"{dev['fires_compared']} fires == host (SUM/AVG within "
+              f"{dev['max_abs_err_sum_avg']:.3g}), degrades "
+              f"{dev['counters']['over_degrades']}")
+    _gate("phase 21(a)", fails)
+    return rows
+
+
+def over_oracle(keys, ts, vals, preceding: int):
+    """Per-(key, ts) RANGE frame sums (float64) and counts over the whole
+    stream: frames [ts - preceding, ts] with rowtime peers."""
+    order = np.lexsort((ts, keys))
+    k, t, v = keys[order], ts[order], vals[order].astype(np.float64)
+    g = k * (np.int64(1) << 42) + t
+    ends = np.searchsorted(g, g, side="right")
+    starts = np.searchsorted(g, g - preceding, side="left")
+    cs = np.r_[0.0, np.cumsum(v)]
+    return k, t, cs[ends] - cs[starts], ends - starts
+
+
+def row4_over_sql(torch, device: str = "cuda", events: int = 2_000_000
+                  ) -> dict:
+    """21(a), second half: row 4's stream (4 partitions, 10,000 keys,
+    100,000 events/s) cut to ``events``, through SQL SUM and COUNT OVER a
+    RANGE 10 s frame on the device engine (about 1M context rows live);
+    every output row against a float64 NumPy oracle: counts exactly, sums
+    to the reference's tolerance."""
+    row4_produce(events)
+    env, tenv = _tenv(device, **{"execution.micro-batch.size": 1 << 16,
+                                 "table.exec.over.engine": "device"})
+    tenv.execute_sql(ROW4_DDL)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tenv.execute_sql(ROW4_OVER_SQL).to_batch()
+    _sync(torch, device)
+    dt = time.perf_counter() - t0
+    per_op = env.last_execution_result.metrics["per_operator"]
+    counters = [v for k, v in per_op.items()
+                if k.startswith("sql_over_agg")][0]
+    fails = []
+    if counters["over_degrades"] or counters["over_host_fires"] or \
+            counters["over_late_records_dropped"]:
+        fails.append(f"counters {counters}")
+    if len(out) != events:
+        fails.append(f"{len(out)} rows out of {events}")
+    # the oracle over the produced stream (row4_produce's draws)
+    ks, vs = _row4_draws(events)
+    ts = (np.arange(events, dtype=np.int64) * 1000) // RATE
+    k, t, want_s, want_n = over_oracle(ks, ts, vs, 10_000)
+    o = np.lexsort((np.asarray(out["ts"]), np.asarray(out["key"])))
+    got_k = np.asarray(out["key"])[o]
+    got_t = np.asarray(out["ts"])[o]
+    got_s = np.asarray(out["s"], dtype=np.float64)[o]
+    got_n = np.asarray(out["n"])[o]
+    if not (np.array_equal(got_k, k) and np.array_equal(got_t, t)):
+        fails.append("the (key, ts) rows differ from the stream's")
+    elif not np.array_equal(got_n, want_n):
+        fails.append(f"{int((got_n != want_n).sum())} counts differ")
+    err = np.abs(got_s - want_s) if len(got_s) == len(want_s) else None
+    if err is not None and (err > OVER_ATOL + OVER_RTOL
+                            * np.abs(want_s)).any():
+        fails.append(f"sums off the float64 oracle by {err.max()}")
+    _gate("phase 21(a) SQL", fails)
+    row = {"events": events, "seconds": dt, "events_per_s": events / dt,
+           "counters": counters, "max_abs_err_sum": float(err.max()),
+           "launches": read_counts()}
+    print(f"phase 21(a) SQL: row 4's stream, {events:,} events, SUM and "
+          f"COUNT OVER RANGE 10 s on the device engine in {dt:.3f} s = "
+          f"{events / dt:,.0f} events/s; every row against the float64 "
+          f"oracle (counts exact, sums within {row['max_abs_err_sum']:.3g});"
+          f" counters {counters}")
+    return row
+
+
+def _row4_draws(events: int, chunk: int = 1 << 18):
+    """The keys and values ``row4_produce`` draws, chunk by chunk."""
+    rng = np.random.default_rng(1)
+    ks, vs = [], []
+    done = 0
+    while done < events:
+        n = min(chunk, events - done)
+        ks.append(rng.integers(0, ROW4_KEYS, n).astype(np.int64))
+        vs.append(rng.random(n))
+        done += n
+    return np.concatenate(ks), np.concatenate(vs)
+
+
+def _auction_categories(num_auctions: int = AUCTIONS):
+    return np.random.default_rng(21).integers(0, 10, num_auctions)
+
+
+def lookup_fs_job(torch, device, tmp, bids, fail_after=None, restore=False,
+                  batch=1 << 17):
+    """21(b)'s job: bids enriched with their auction's category by a
+    lookup join (LRU cache on), HOP(2 s, 10 s) SUM(price) GROUP BY
+    auction, category at P=8, INSERT INTO a 'filesystem' table,
+    checkpointing every 4 batches."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.connectors.lookup import TableLookupFunction
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    env, tenv = _tenv(device, **{
+        "parallelism.default": 8, "execution.micro-batch.size": batch,
+        "state.checkpoints.dir": os.path.join(tmp, "ck"),
+        "execution.checkpointing.every-n-source-batches": 4})
+    src = BidSource(total_records=bids, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    stream = env.from_source(
+        src, WatermarkStrategy.for_bounded_out_of_orderness(0))
+    fail = FailingMap(fail_after) if fail_after else (lambda b: b)
+    stream = stream.map(lambda b: fail(b.with_column("ts", b.timestamps)),
+                        name="fail")
+    tenv.create_temporary_view("bid", stream,
+                               columns=["auction", "bidder", "price", "ts"],
+                               time_field="ts")
+    cats = _auction_categories()
+    tenv.create_lookup_table(
+        "auctions", TableLookupFunction(
+            [{"id": i, "category": int(c)} for i, c in enumerate(cats)],
+            key_column="id"), ["id", "category"], cache_size=1 << 17)
+    path = os.path.join(tmp, "out")
+    tenv.execute_sql(
+        "CREATE TABLE revenue (auction BIGINT, category BIGINT, window_end "
+        f"BIGINT, total DOUBLE) WITH ('connector'='filesystem', 'path'="
+        f"'{path}', 'format'='json')")
+    tenv.execute_sql(
+        "CREATE VIEW enriched AS SELECT b.auction, b.price, b.ts, "
+        "a.category FROM bid AS b JOIN auctions FOR SYSTEM_TIME AS OF b.ts "
+        "AS a ON b.auction = a.id")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = err = None
+    if restore:   # how a user resumes a SQL job from its checkpoints
+        os.environ["FLINK_TPU_RESTORE_FROM"] = os.path.join(tmp, "ck")
+    try:
+        result = tenv.execute_sql(
+            "INSERT INTO revenue SELECT auction, category, window_end, "
+            "SUM(price) AS total FROM TABLE(HOP(TABLE enriched, "
+            "DESCRIPTOR(ts), INTERVAL '2' SECOND, INTERVAL '10' SECOND)) "
+            "GROUP BY auction, category, window_start, window_end")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+        err = e
+    finally:
+        os.environ.pop("FLINK_TPU_RESTORE_FROM", None)
+    _sync(torch, device)
+    return result, path, time.perf_counter() - t0, read_counts(), err
+
+
+def lookup_fs_exactly_once(torch, device: str = "cuda",
+                           bids: int = 2_000_000, batch: int = 1 << 17
+                           ) -> dict:
+    """21(b): the lookup join into a filesystem table, exactly once at
+    P=8. The first run fails after checkpoint 2 (a map in front of the
+    join raises past 9 batches); a fresh job resumes from the checkpoints.
+    The committed files hold each (auction, window) exactly once, with the
+    auction's category, and every sum equals the stream-order float32
+    oracle (phase 6's) bit for bit."""
+    import tempfile
+
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.connectors.filesystem import read_committed_rows
+
+    fails = []
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        _, path, s1, c1, err = lookup_fs_job(
+            torch, device, tmp, bids, fail_after=9 * batch, batch=batch)
+        if err is None:
+            fails.append("the first run did not fail")
+        parts_at_crash = len([f for f in os.listdir(path)
+                              if not f.endswith(".inprogress")])
+        result, _, s2, c2, _ = lookup_fs_job(torch, device, tmp, bids,
+                                             restore=True, batch=batch)
+        t1 = time.perf_counter()
+        raw = read_committed_rows(path)
+        parts = len([f for f in os.listdir(path)
+                     if not f.endswith(".inprogress")])
+        rows = [json.loads(r) for r in raw]
+        read_s = time.perf_counter() - t1
+    metrics = result.metrics
+    lookup = [v for k, v in metrics["per_operator"].items()
+              if k.startswith("sql_lookup_join")][0]
+    want, cnt = revenue_oracle(BidSource, bids, AUCTIONS, RATE, SIZE, SLIDE)
+    cats = _auction_categories()
+    a = np.asarray([r["auction"] for r in rows], np.int64)
+    e = np.asarray([r["window_end"] for r in rows], np.int64) // SLIDE - 1
+    c = np.asarray([r["category"] for r in rows], np.int64)
+    s = np.asarray([r["total"] for r in rows], np.float64).astype(np.float32)
+    pair = e * AUCTIONS + a
+    present = cnt > 0
+    if len(np.unique(pair)) != len(pair):
+        fails.append(f"{len(pair) - len(np.unique(pair))} (auction, window)"
+                     " rows committed more than once")
+    if len(pair) != int(present.sum()) or not present.reshape(-1)[pair].all():
+        fails.append(f"{len(pair)} rows committed, oracle "
+                     f"{int(present.sum())}")
+    if not np.array_equal(c, cats[a]):
+        fails.append("a row carries another auction's category")
+    bad = int((want[e, a].view(np.int32) != s.view(np.int32)).sum())
+    if bad:
+        fails.append(f"{bad} of {len(s)} sums differ from the float32 "
+                     "stream-order oracle")
+    if device == "cuda":
+        for k in ("exchange_rank", "ordered_fold"):
+            if c1[k] + c2[k] <= 0:
+                fails.append(f"{k} did not launch")
+    _gate("phase 21(b)", fails)
+    looked = lookup["cache_hits"] + lookup["cache_misses"]
+    row = {"bids": bids, "batch": batch, "first_run_s": s1,
+           "resumed_run_s": s2, "events_per_s": bids / (s1 + s2),
+           "rows": len(rows), "part_files": parts,
+           "part_files_at_crash": parts_at_crash,
+           "restore_ms": metrics.get("restore_ms"),
+           "cache_hit_rate_resumed_run": lookup["cache_hits"] / looked
+           if looked else None, "lookup_counters_resumed_run": lookup,
+           "read_back_s": read_s,
+           "launches": {k: c1[k] + c2[k] for k in c1}}
+    print(f"phase 21(b): lookup join + HOP SUM at P=8 INSERT INTO a "
+          f"filesystem table, {bids:,} bids: failed after checkpoint 2 "
+          f"({s1:.2f} s, {parts_at_crash} parts committed), resumed in "
+          f"{s2:.2f} s (restore {row['restore_ms']} ms) = "
+          f"{row['events_per_s']:,.0f} events/s over both; {len(rows):,} "
+          f"(auction, window) rows committed once each in {parts} parts, "
+          f"every sum == the float32 oracle bit for bit; cache hit rate "
+          f"{row['cache_hit_rate_resumed_run']}; launches {row['launches']}")
+    return row
+
+
+def explain_plans(torch, device: str = "cuda") -> dict:
+    """21(c): the EXPLAIN text of row 4's query, of 20(c)'s SQL Q5 at P=8
+    and of 21(a)'s OVER query."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    out = {}
+    _, tenv = _tenv(device)
+    tenv.execute_sql(ROW4_DDL)
+    out["row4"] = tenv.explain_sql(ROW4_SQL)
+    out["over"] = tenv.explain_sql(ROW4_OVER_SQL)
+    env, tenv = _tenv(device, **{"parallelism.default": 8})
+    tenv.create_temporary_view(
+        "bid", env.from_source(
+            BidSource(total_records=1000, num_auctions=AUCTIONS),
+            WatermarkStrategy.for_bounded_out_of_orderness(0)),
+        columns=["auction", "bidder", "price"], time_field="ts")
+    tenv.execute_sql(SQL_Q5_VIEW)
+    out["q5_p8"] = tenv.execute_sql("EXPLAIN " + SQL_Q5)
+    for name, text in out.items():
+        if "== Physical Plan (chained job graph) ==" not in text:
+            raise AssertionError(f"21(c): no physical plan for {name}")
+        print(f"phase 21(c) EXPLAIN {name}:")
+        for line in text.splitlines():
+            print("    " + line)
+    return {"plans": out, "launches": {"exchange_rank": 0,
+                                       "ordered_fold": 0}}
+
+
+class _MLP:
+    """The 2-layer MLP of 21(d) (width 64, float32), its weights from
+    ``default_rng(seed)``; ``module(device)`` builds the torch module."""
+
+    def __init__(self, d_in: int = 4, width: int = 64, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.w0 = (rng.normal(size=(width, d_in)) / 2).astype(np.float32)
+        self.b0 = rng.normal(size=width).astype(np.float32)
+        self.w1 = (rng.normal(size=(1, width)) / 8).astype(np.float32)
+        self.b1 = rng.normal(size=1).astype(np.float32)
+
+    def module(self, torch):
+        class Mlp(torch.nn.Module):
+            def __init__(s):
+                super().__init__()
+                s.l0 = torch.nn.Linear(self.w0.shape[1], self.w0.shape[0])
+                s.l1 = torch.nn.Linear(self.w0.shape[0], 1)
+
+            def forward(s, x):
+                return s.l1(torch.relu(s.l0(x)))[:, 0]
+
+        m = Mlp()
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in (
+            ("l0.weight", self.w0), ("l0.bias", self.b0),
+            ("l1.weight", self.w1), ("l1.bias", self.b1))})
+        return m
+
+
+def _ml_job(torch, device, feats, keys, ts, mlp, batch=1 << 16):
+    """ML_PREDICT(TorchModel) -> TUMBLE(1 s) SUM(y) GROUP BY k, the model
+    and the job on ``device``."""
+    from flink_tpu_torch.connectors.sources import CollectionSource
+    from flink_tpu_torch.core.records import RecordBatch
+    from flink_tpu_torch.ml import TorchModel
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    env, tenv = _tenv(device, **{"execution.micro-batch.size": batch})
+    batches = [RecordBatch.from_pydict(
+        {"k": keys[i:i + batch], "ts": ts[i:i + batch],
+         "x": feats[i:i + batch]}, timestamps=ts[i:i + batch])
+        for i in range(0, len(keys), batch)]
+    tenv.create_temporary_view(
+        "feats", env.from_source(
+            CollectionSource(batches),
+            WatermarkStrategy.for_bounded_out_of_orderness(0)),
+        columns=["k", "ts", "x"], time_field="ts")
+    tenv.create_temporary_model(
+        "mlp", TorchModel(mlp.module(torch), ["x"], ["y"], device=device))
+    tenv.execute_sql("CREATE VIEW scored AS SELECT k, ts, y FROM "
+                     "ML_PREDICT(TABLE feats, MODEL mlp, DESCRIPTOR(x))")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tenv.execute_sql(
+        "SELECT k, window_end, SUM(y) AS s FROM TABLE(TUMBLE(TABLE scored, "
+        "DESCRIPTOR(ts), INTERVAL '1' SECOND)) GROUP BY k, window_start, "
+        "window_end").to_batch()
+    _sync(torch, device)
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def ml_predict_card(torch, device: str = "cuda", records: int = 1_000_000
+                    ) -> dict:
+    """21(d) ML_PREDICT: the MLP as a TorchModel on the card feeding a
+    tumbling SUM over ``records``; its predictions held to the same module
+    on the CPU (rtol 1e-5, atol 1e-5: float32 matmuls that associate
+    differently), the job's window sums to the CPU job's (rtol 1e-4, atol
+    1e-3: ~1,000 such predictions a window)."""
+    from flink_tpu_torch.ml import TorchModel
+
+    rng = np.random.default_rng(31)
+    feats = rng.normal(size=(records, 4)).astype(np.float32)
+    keys = rng.integers(0, 100, records).astype(np.int64)
+    ts = (np.arange(records, dtype=np.int64) * 1000) // RATE
+    mlp = _MLP()
+    card = TorchModel(mlp.module(torch), ["x"], ["y"], device=device)
+    host = TorchModel(mlp.module(torch), ["x"], ["y"], device="cpu")
+    pc, ph = card.predict({"x": feats})["y"], host.predict({"x": feats})["y"]
+    err = np.abs(pc.astype(np.float64) - ph)
+    fails = []
+    if (err > 1e-5 + 1e-5 * np.abs(ph)).any():
+        fails.append(f"predictions off the CPU module by {err.max()}")
+    card_ms = cuda_ms(lambda: card.predict({"x": feats[:1 << 16]}), 20) \
+        if device == "cuda" else None
+    out, dt, counts = _ml_job(torch, device, feats, keys, ts, mlp)
+    ref, _, _ = _ml_job(torch, "cpu", feats, keys, ts, mlp)
+    if not (np.array_equal(out["k"], ref["k"])
+            and np.array_equal(out["window_end"], ref["window_end"])):
+        fails.append("the job's windows differ from the CPU job's")
+    s_err = np.abs(np.asarray(out["s"], np.float64) - np.asarray(ref["s"]))
+    if (s_err > 1e-3 + 1e-4 * np.abs(np.asarray(ref["s"]))).any():
+        fails.append(f"window sums off the CPU job's by {s_err.max()}")
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        fails.append("the tumbling SUM did not launch the ordered fold")
+    _gate("phase 21(d) ML_PREDICT", fails)
+    row = {"records": records, "seconds": dt, "events_per_s": records / dt,
+           "windows": len(out), "max_abs_err_prediction": float(err.max()),
+           "max_abs_err_window_sum": float(s_err.max()),
+           "predict_64k_rows_ms": card_ms, "launches": counts}
+    print(f"phase 21(d) ML_PREDICT: TorchModel MLP (2 x 64, float32) on the "
+          f"card -> TUMBLE SUM over {records:,} records in {dt:.3f} s = "
+          f"{records / dt:,.0f} events/s; predictions within "
+          f"{row['max_abs_err_prediction']:.3g} of the CPU module, "
+          f"{len(out)} window sums within {row['max_abs_err_window_sum']:.3g}"
+          f" of the CPU job; one 65,536-row predict {card_ms} ms; launches "
+          f"{counts}")
+    return row
+
+
+def host_heap_revenue(torch, records: int = 2_000_000) -> dict:
+    """21(d) state.backend: Q5-revenue at P=1 (bench.py's slot layout)
+    with the state on the CPU (host-heap) while execution.device is the
+    card, against the same job with the state on the card: rows equal in
+    order, bit for bit."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.benchmarks.q5_profile import P1_SETTINGS
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    runs = {}
+    for backend in ("tpu-slot-table", "host-heap"):
+        env = StreamExecutionEnvironment(Configuration({
+            "execution.micro-batch.size": 1 << 20,
+            "execution.device": "cuda", **P1_SETTINGS,
+            "state.window-layout": "slots", "state.backend": backend}))
+        sink = CollectSink()
+        build_revenue(env, BidSource(
+            total_records=records, num_auctions=AUCTIONS,
+            events_per_second_of_eventtime=RATE)).sink_to(sink)
+        reset_counts()
+        t0 = time.perf_counter()
+        env.execute()
+        torch.cuda.synchronize()
+        runs[backend] = (sink, time.perf_counter() - t0, read_counts())
+    card, host = runs["tpu-slot-table"], runs["host-heap"]
+    _batches_equal("21(d) host-heap vs card", [host[0].result()],
+                   [card[0].result()])
+    rows = len(card[0].result())
+    if card[2]["ordered_fold"] <= 0:
+        raise AssertionError("21(d): the card run did not launch the fold")
+    row = {"records": records, "rows": rows, "card_s": card[1],
+           "host_heap_s": host[1], "launches": card[2],
+           "host_heap_launches": host[2]}
+    print(f"phase 21(d) state.backend: Q5-revenue P=1 over {records:,} bids "
+          f"with host-heap state ({host[1]:.2f} s, launches {host[2]}) == "
+          f"the card's state ({card[1]:.2f} s) bit for bit, {rows:,} rows")
+    return row
+
+
+def savepoint_reader(torch, path: str) -> dict:
+    """21(d) State Processor API: ``SavepointReader`` reads 19(c)'s stop
+    savepoint (Q5 at P=8); the keyed table's rows and count sums equal
+    those of the live state: a P=8 window operator on the card restored
+    from the savepoint and snapshotted back from its planes."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.operators import OperatorContext
+    from flink_tpu_torch.state_processor import SavepointReader
+
+    reader = SavepointReader.load(path)
+    uids = [u for u in reader.operators() if reader.has_keyed_state(u)]
+    if len(uids) != 1:
+        raise AssertionError(f"21(d): keyed operators {uids}")
+    table = reader.read_keyed_state(uids[0])
+    env = StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8, "execution.device": "cuda"}))
+    build_q5(env, BidSource(total_records=10, num_auctions=AUCTIONS),
+             size_ms=SIZE, slide_ms=SLIDE,
+             device_top_k=TOP_K).sink_to(CollectSink())
+    graph = env.get_stream_graph()
+    node = [t for t in graph.nodes if graph.stable_id(t) == uids[0]][0]
+    op = node.operator_factory()
+    op.open(OperatorContext(parallelism=8, device="cuda"))
+    op.restore_state(reader.read_state(uids[0]))
+    live = op.snapshot_state()
+    from flink_tpu_torch.state_processor import _find_table
+
+    live_table = _find_table(live)
+    got = {"rows": len(table), "count_sum": int(np.asarray(
+        table["leaf_0"], np.int64).sum()), "key_groups": int(len(np.unique(
+            np.asarray(table["key_group"]))))}
+    want = {"rows": len(live_table["key_id"]),
+            "count_sum": int(np.asarray(live_table["leaf_0"],
+                                        np.int64).sum()),
+            "key_groups": int(len(np.unique(np.asarray(
+                live_table["key_group"]))))}
+    if got != want or got["rows"] == 0:
+        raise AssertionError(f"21(d) SavepointReader {got} vs live {want}")
+    print(f"phase 21(d) State Processor API: SavepointReader read 19(c)'s "
+          f"savepoint (operator {uids[0]}): {got['rows']:,} keyed rows, "
+          f"count sum {got['count_sum']:,} over {got['key_groups']} key "
+          f"groups == the state restored on the card")
+    return {**got, "operator": uids[0],
+            "launches": {"exchange_rank": 0, "ordered_fold": 0}}
+
+
+def v2_keyed_card(torch, device: str = "cuda", records: int = 1_000_000,
+                  keys: int = 10_000) -> dict:
+    """21(d) DataStream V2: a keyed process function counting per key in a
+    DeviceValueState (on the operator's device), emitting at an end timer;
+    card == CPU row for row and == np.bincount."""
+    from flink_tpu_torch import Configuration
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.connectors.sources import DataGenSource
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.datastream.v2 import (
+        ExecutionEnvironment,
+        OneInputStreamProcessFunction,
+    )
+    from flink_tpu_torch.state.async_state import DeviceValueStateDescriptor
+
+    desc = DeviceValueStateDescriptor("n", np.int64, 0)
+
+    class Count(OneInputStreamProcessFunction):
+        def process_batch(self, batch, out, ctx):
+            kid = np.asarray(batch[KEY_ID_FIELD])
+            uniq, occ = np.unique(kid, return_counts=True)
+            st = ctx.state(desc)
+            st.put(uniq, np.asarray(st.get(uniq)) + occ)
+            ctx.timer_service().register_event_time_timers(
+                uniq, np.full(len(uniq), 1 << 50))
+
+        def on_timer(self, key_ids, timestamps, out, ctx):
+            out.collect(RecordBatch({KEY_ID_FIELD: key_ids,
+                                     "count": ctx.state(desc).get(key_ids)}))
+
+    res = {}
+    for dev in (device, "cpu"):
+        env = ExecutionEnvironment.get_instance(Configuration({
+            "execution.device": dev, "execution.micro-batch.size": 1 << 16}))
+        sink = CollectSink()
+        env.from_source(DataGenSource(
+            total_records=records, num_keys=keys,
+            events_per_second_of_eventtime=RATE)).key_by("key").process(
+                Count()).to_sink(sink)
+        t0 = time.perf_counter()
+        env.execute("v2-count")
+        _sync(torch, dev)
+        res[dev] = (sink.result(), time.perf_counter() - t0)
+    _batches_equal("21(d) V2 card vs CPU", [res[device][0]], [res["cpu"][0]])
+    out = res[device][0]
+    src = DataGenSource(total_records=records, num_keys=keys,
+                        events_per_second_of_eventtime=RATE)
+    src.open()
+    want = np.zeros(keys, np.int64)
+    while (b := src.poll_batch(1 << 20)) is not None:
+        want += np.bincount(b["key"], minlength=keys)
+    got = np.zeros(keys, np.int64)
+    got[np.asarray(out[KEY_ID_FIELD])] = np.asarray(out["count"])
+    if not np.array_equal(got, want):
+        raise AssertionError("21(d) V2: counts differ from np.bincount")
+    dt = res[device][1]
+    print(f"phase 21(d) DataStream V2: keyed process with a DeviceValueState"
+          f" over {records:,} records, {keys:,} keys on the card in "
+          f"{dt:.3f} s = {records / dt:,.0f} events/s; card == CPU row for "
+          f"row == np.bincount")
+    return {"records": records, "keys": keys, "seconds": dt,
+            "events_per_s": records / dt,
+            "launches": {"exchange_rank": 0, "ordered_fold": 0}}
+
+
+def phase_slice21(torch, device: str = "cuda", savepoint: str = None,
+                  small: bool = False) -> dict:
+    """Phase 21: OVER on both engines and through SQL, the lookup join into
+    a filesystem table exactly once at P=8, EXPLAIN, and 11d on the card
+    (ML_PREDICT, host-heap, SavepointReader over 19(c)'s savepoint,
+    DataStream V2). ``device="cpu", small=True`` rehearses it at a cut size
+    without a card (the card-vs-CPU checks then compare the CPU with
+    itself; host-heap and the savepoint reader need the card)."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    cut = ({"over": {"timed": 4, "host_timed_at_50k": 1,
+                     "key_counts": (100, 2_000)},
+            "sql": {"events": 300_000}, "lookup": {"bids": 400_000,
+                                                   "batch": 1 << 14},
+            "ml": {"records": 100_000}, "v2": {"records": 100_000}}
+           if small else {k: {} for k in ("over", "sql", "lookup", "ml",
+                                          "v2")})
+    t0 = time.perf_counter()
+    parts = {}
+    times = {}
+
+    def part(name, fn, *a, **k):
+        t = time.perf_counter()
+        parts[name] = fn(*a, **k)
+        times[name] = time.perf_counter() - t
+
+    part("over_bench", lambda: {"rows": over_bench(torch, device,
+                                                   **cut["over"]),
+                                "launches": {"exchange_rank": 0,
+                                             "ordered_fold": 0}})
+    part("over_sql", row4_over_sql, torch, device, **cut["sql"])
+    part("lookup_fs", lookup_fs_exactly_once, torch, device,
+         **cut["lookup"])
+    part("explain", explain_plans, torch, device)
+    part("ml_predict", ml_predict_card, torch, device, **cut["ml"])
+    if device == "cuda":
+        part("host_heap", host_heap_revenue, torch)
+        if savepoint is not None:
+            part("savepoint_reader", savepoint_reader, torch, savepoint)
+    part("v2", v2_keyed_card, torch, device, **cut["v2"])
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("exchange_rank", "ordered_fold")}
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in times.items()} }); launches "
+          f"{launches}")
+    print("slice21 " + json.dumps({k: v for k, v in parts.items()
+                                   if k != "explain"}, default=str))
+    return {**parts, "launches": launches, "part_seconds": times,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -4723,14 +5526,15 @@ def main() -> int:
                     help="Q5-revenue records")
     ap.add_argument("--session-records", type=int, default=12_000_000,
                     help="BASELINE row 5 session records (12M: its size)")
-    ap.add_argument("--join-records", type=int, default=4_000_000,
-                    help="records of each join shape of phase 15 (4M: "
-                    "tools/bench_joins.py's size)")
+    ap.add_argument("--join-records", type=int, default=2_000_000,
+                    help="records of each join shape of phase 15 (2M, "
+                    "cut from tools/bench_joins.py's 4M to keep the "
+                    "script's time)")
     ap.add_argument("--q7-records", type=int, default=10_000_000,
                     help="Q7 bids (10M: BASELINE row 3's size)")
-    ap.add_argument("--cep-records", type=int, default=4_000_000,
-                    help="records of phase 16's CEP row (4M: "
-                    "tools/bench_cep.py's size)")
+    ap.add_argument("--cep-records", type=int, default=2_000_000,
+                    help="records of phase 16's CEP row (2M, cut from "
+                    "tools/bench_cep.py's 4M to keep the script's time)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -4776,11 +5580,14 @@ def main() -> int:
     cep = phase_cep(torch, args.cep_records)
     slice11 = phase_slice11(torch)
     shard_loss = phase_shard_loss(torch)
-    process = phase_process(torch)
-    sql = phase_sql(torch)
+    with tempfile.TemporaryDirectory(dir=".") as keep:
+        savepoint = os.path.join(keep, "q5-stop-savepoint")
+        process = phase_process(torch, keep_savepoint=savepoint)
+        sql = phase_sql(torch)
+        slice21 = phase_slice21(torch, savepoint=savepoint)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values(), shard_loss, process, sql)
+            *slice11.values(), shard_loss, process, sql, slice21)
 
     kernels = [{
         "name": "exchange_rank",

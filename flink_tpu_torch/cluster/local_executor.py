@@ -369,6 +369,14 @@ class LocalExecutor:
                         since_full = since_full + 1 if use_delta else 1
                         if claimed is not None:
                             claimed.on_checkpoint_complete(new_dir)
+                        # checkpoint durable -> two-phase sinks publish
+                        # (notifyCheckpointComplete -> commit)
+                        for node in nodes.values():
+                            op = node.operator
+                            if op is not None and hasattr(
+                                    op, "notify_checkpoint_complete"):
+                                op.notify_checkpoint_complete(
+                                    checkpoint_count)
                         storage.retain(cfg.get(StateOptions.NUM_RETAINED))
                         last_ckpt = time.time() * 1000
                         batches_since_ckpt = 0
@@ -418,7 +426,9 @@ class LocalExecutor:
             "per_operator": {
                 f"{n.transformation.name}#{uid}": {
                     "records_in": n.records_in,
-                    "records_out": n.records_out}
+                    "records_out": n.records_out,
+                    **(n.operator.counters()
+                       if hasattr(n.operator, "counters") else {})}
                 for uid, n in nodes.items()},
         }
         if watchdog is not None:

@@ -2,8 +2,9 @@
 ``[P, capacity]`` accumulator planes (read back from ``flink_tpu`` as
 numpy arrays) become the port's planes on a given device, a process
 operator's snapshot (timers and keyed state) becomes the port's with its
-device value states as tensors on a given device, and a
-``GroupAggOperator`` snapshot becomes one the port's operator restores."""
+device value states as tensors on a given device, a
+``GroupAggOperator`` or OVER snapshot becomes one the port's operator
+restores, and a model's parameter pytree becomes tensors on a device."""
 
 from __future__ import annotations
 
@@ -87,4 +88,71 @@ def from_jax_group_agg(snapshot: Dict[str, Any]) -> Dict[str, Any]:
     out = {k: copy(v) for k, v in snapshot.items()
            if k not in ("key_values",)}
     out["key_values"] = dict(snapshot.get("key_values", {}))
+    return out
+
+
+def _np_copy(v):
+    if isinstance(v, dict):
+        return {k: _np_copy(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_np_copy(x) for x in v)
+    if isinstance(v, np.ndarray) or hasattr(v, "__array__"):
+        return np.array(v, copy=True)
+    return v
+
+
+def from_jax_over_state(snapshot: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference OVER snapshot (``OverAggOperator`` or
+    ``DeviceOverAggOperator.snapshot_state()``, arrays read as numpy) as
+    the port's: the pending rows, the host engine's per-key context and
+    accumulators and the emitted watermark are copied as they are; the
+    device engine's flat context (``over_device_ctx``) keeps its key ids
+    and timestamps as int64 and takes its values and weights to float64,
+    the port's program dtype (the reference's program returns float32
+    running sums unless JAX runs with x64). Either port operator restores
+    it and continues with the reference's rows."""
+    if "over_emitted_wm" not in snapshot:
+        raise KeyError(f"not an OVER snapshot: no 'over_emitted_wm' (has "
+                       f"{sorted(snapshot)})")
+    out = {k: _np_copy(v) for k, v in snapshot.items()
+           if k != "over_device_ctx"}
+    out["over_emitted_wm"] = int(snapshot["over_emitted_wm"])
+    ctx = snapshot.get("over_device_ctx")
+    if ctx is not None:
+        out["over_device_ctx"] = {
+            "kid": np.array(ctx["kid"], dtype=np.int64, copy=True),
+            "ts": np.array(ctx["ts"], dtype=np.int64, copy=True),
+            "val": [np.array(v, dtype=np.float64, copy=True)
+                    for v in ctx["val"]],
+            "wt": [np.array(w, dtype=np.float64, copy=True)
+                   for w in ctx["wt"]],
+        }
+    return out
+
+
+def from_jax_model_params(params: Any, device: DeviceLike = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A pytree of arrays (nested dicts, lists and tuples, as a
+    ``JaxModel``'s params; read back as numpy) as a flat dict of tensors
+    on ``device`` (default: ``execution.device``, i.e. the card), keyed by
+    the leaf's path joined with dots (``{"l0": {"w": ...}}`` -> ``"l0.w"``;
+    list positions are numbers). Same dtypes and values; the caller maps
+    the keys onto its module's ``state_dict`` (a JAX dense kernel is
+    ``[in, out]``, ``nn.Linear.weight`` ``[out, in]``)."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            out[prefix] = torch.from_numpy(
+                np.array(np.asarray(node), copy=True)).to(dev)
+            return
+        for k, v in items:
+            walk(f"{prefix}.{k}" if prefix else str(k), v)
+
+    walk("", params)
     return out

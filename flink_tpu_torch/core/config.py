@@ -157,6 +157,16 @@ class DeploymentOptions:
 
 
 class StateOptions:
+    TABLE_EXEC_OVER_ENGINE = ConfigOption(
+        "table.exec.over.engine", default="auto", type=str,
+        description="Compute engine for OVER windowed aggregations: "
+        "'device' = one torch program on execution.device computes every "
+        "frame of every key per fire (float64 prefix sums, segmented "
+        "scans, one global searchsorted; runtime/over_device.py); 'host' "
+        "= per-key-segment NumPy prefix scans (runtime/over_agg.py); "
+        "'auto' (default) = device when the frame family supports it "
+        "(bounded RANGE MIN/MAX stays host). The port computes float64 on "
+        "every device, so its 'auto' is the reference's 'auto' under x64.")
     TABLE_EXEC_STATE_TTL = ConfigOption(
         "table.exec.state.ttl", default=0, type=int,
         description="Idle-state retention for SQL operators, in ms: a "
@@ -206,8 +216,9 @@ class StateOptions:
         "state.backend", default="tpu-slot-table", type=str,
         description="Keyed-state backend: 'tpu-slot-table' keeps the "
         "accumulators on execution.device (the card), with the spill "
-        "tier beyond it. The reference's placement backends (host-heap, "
-        "third-party placements) are not ported.")
+        "tier beyond it; 'host-heap' places them on the CPU "
+        "(torch.device('cpu')); state/backends.py register_state_backend "
+        "adds third-party placements. Placements apply at parallelism 1.")
 
 
 class MemoryOptions:

@@ -72,6 +72,28 @@ class DataStream:
         return DataStream(self.env, self._one_input(
             name, lambda: MapOperator(fn)))
 
+    def ml_predict(self, model, input_fields=None, output_prefix: str = "",
+                   asynchronous: bool = False, capacity: int = 4,
+                   name: str = "ml_predict") -> "DataStream":
+        """Batched model inference appending the model's output columns
+        (SQL ML_PREDICT's operator; a ``TorchModel`` runs on its own
+        device). With ``asynchronous=True``, inference overlaps upstream
+        work under a bounded in-flight budget (AsyncMLPredictRunner)."""
+        from flink_tpu_torch.ml.operators import (
+            AsyncMLPredictOperator,
+            MLPredictOperator,
+        )
+
+        if asynchronous:
+            factory = lambda: AsyncMLPredictOperator(  # noqa: E731
+                model, input_fields, output_prefix, capacity=capacity)
+        else:
+            factory = lambda: MLPredictOperator(  # noqa: E731
+                model, input_fields, output_prefix)
+        return DataStream(self.env, Transformation(
+            name=name, kind="one_input", operator_factory=factory,
+            inputs=[self.transformation]))
+
     def filter(self, predicate: Callable[[RecordBatch], np.ndarray],
                name: str = "filter") -> "DataStream":
         return DataStream(self.env, self._one_input(
@@ -138,8 +160,20 @@ class DataStream:
         return KeyedStream(self.env, t, key_field)
 
     def sink_to(self, sink: "Sink", name: str = "sink") -> "DataStreamSink":
+        """A ``TwoPhaseCommitSink`` runs under ``TwoPhaseSinkOperator``
+        (its transactions commit once a checkpoint is durable), any other
+        sink under ``SinkOperator``."""
+        from flink_tpu_torch.connectors.two_phase import (
+            TwoPhaseCommitSink,
+            TwoPhaseSinkOperator,
+        )
+
+        if isinstance(sink, TwoPhaseCommitSink):
+            factory = lambda: TwoPhaseSinkOperator(sink)  # noqa: E731
+        else:
+            factory = lambda: SinkOperator(sink)  # noqa: E731
         t = Transformation(name=name, kind="sink",
-                           operator_factory=lambda: SinkOperator(sink),
+                           operator_factory=factory,
                            inputs=[self.transformation])
         self.env._sinks.append(t)
         return DataStreamSink(self.env, t, sink)

@@ -27,6 +27,29 @@ from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 
 
+def _reject_backend_on_mesh(backend: str) -> None:
+    """The reference's refusal, with its message: a placement backend
+    cannot apply to mesh-sharded state."""
+    if backend not in ("tpu-slot-table",):
+        raise ValueError(
+            f"state.backend={backend!r} is not supported "
+            "at operator parallelism > 1: mesh-sharded state is "
+            "placed by the device mesh itself. Use the default "
+            "'tpu-slot-table' backend, or run placement-backed "
+            "state at parallelism 1 / stage-parallel subtasks "
+            "(execution.stage-parallelism), where each subtask owns "
+            "a single-device engine that honors the placement")
+
+
+def _placement(ctx):
+    """The device a parallelism-1 engine's state lives on: the
+    ``state.backend`` placement (state/backends.py) of the job's
+    ``execution.device``."""
+    from flink_tpu_torch.state.backends import resolve_placement
+
+    return resolve_placement(ctx.state_backend, ctx.device)
+
+
 class Operator:
     """Base operator. Subclasses override the hooks they need."""
 
@@ -213,11 +236,7 @@ class WindowAggOperator(Operator):
 
     def open(self, ctx):
         if ctx.parallelism > 1:
-            if ctx.state_backend != "tpu-slot-table":
-                raise ValueError(
-                    f"state.backend={ctx.state_backend!r} is not supported "
-                    "at operator parallelism > 1: mesh-sharded state is "
-                    "placed by the device mesh itself")
+            _reject_backend_on_mesh(ctx.state_backend)
             from flink_tpu_torch.parallel.mesh import make_mesh
             from flink_tpu_torch.parallel.sharded_windower import (
                 MeshWindowEngine,
@@ -269,25 +288,19 @@ class WindowAggOperator(Operator):
             if ctx.state_backend != "tpu-slot-table":
                 raise ValueError(
                     "state.window-layout=panes supports only the default "
-                    "placement; state.backend placements use the slot "
-                    "layout")
+                    "placement; state.backend placements (host-heap) use "
+                    "the slot layout")
             return PaneWindower(
                 self.assigner, self.agg, capacity=self.capacity,
                 max_parallelism=ctx.max_parallelism,
                 allowed_lateness=self.allowed_lateness,
                 fire_projector=self.fire_projector,
                 preagg=ctx.pane_preagg, device=ctx.device)
-        if ctx.state_backend != "tpu-slot-table":
-            raise NotImplementedError(
-                f"state.backend={ctx.state_backend!r}: placement backends "
-                "are not ported to flink_tpu_torch yet (ROADMAP.md, Queue A "
-                "item 11); the default 'tpu-slot-table' keeps the state on "
-                "execution.device")
         return SliceSharedWindower(
             self.assigner, self.agg, capacity=self.capacity,
             max_parallelism=ctx.max_parallelism,
             allowed_lateness=self.allowed_lateness,
-            spill={**ctx.spill, "device": ctx.device},
+            spill={**ctx.spill, "device": _placement(ctx)},
             fire_projector=self.fire_projector)
 
     def spill_counters(self) -> Optional[Dict[str, int]]:
@@ -450,16 +463,11 @@ class SessionWindowAggOperator(WindowAggOperator):
         else:
             from flink_tpu_torch.windowing.sessions import SessionWindower
 
-            if ctx.state_backend != "tpu-slot-table":
-                raise NotImplementedError(
-                    f"state.backend={ctx.state_backend!r}: placement "
-                    "backends are not ported to flink_tpu_torch yet "
-                    "(ROADMAP.md, Queue A item 11)")
             self.windower = SessionWindower(
                 self.gap, self.agg, capacity=self.capacity,
                 max_parallelism=ctx.max_parallelism,
                 allowed_lateness=self.allowed_lateness,
-                spill={**ctx.spill, "device": ctx.device})
+                spill={**ctx.spill, "device": _placement(ctx)})
         self._attach_watchdog(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
@@ -471,11 +479,7 @@ class SessionWindowAggOperator(WindowAggOperator):
         has its own, as ``tools/bench_mesh_sessions.py`` passes it); a
         budget selects the paged spill tier. Dispatch-ahead follows
         ``execution.pipeline.max-dispatch-batches``."""
-        if ctx.state_backend != "tpu-slot-table":
-            raise ValueError(
-                f"state.backend={ctx.state_backend!r} is not supported at "
-                "operator parallelism > 1: mesh-sharded state is placed "
-                "by the device mesh itself")
+        _reject_backend_on_mesh(ctx.state_backend)
         from flink_tpu_torch.parallel.mesh import make_mesh
         from flink_tpu_torch.parallel.sharded_sessions import (
             MeshSessionEngine,

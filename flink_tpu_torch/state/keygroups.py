@@ -8,6 +8,7 @@ they decide which shard owns a key).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import numpy as np
@@ -83,3 +84,29 @@ def shard_key_group_ranges(parallelism: int, max_parallelism: int,
     P = int(parallelism)
     return [(first + (p * span + P - 1) // P,
              first + ((p + 1) * span - 1) // P) for p in range(P)]
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyGroupRange:
+    """Inclusive [start, end] range of key groups owned by one subtask
+    (flink-runtime's KeyGroupRange)."""
+
+    start: int
+    end: int  # inclusive
+
+    @property
+    def num_key_groups(self) -> int:
+        return self.end - self.start + 1
+
+    def __contains__(self, group: int) -> bool:
+        return self.start <= group <= self.end
+
+
+def compute_key_group_range(max_parallelism: int, parallelism: int,
+                            operator_index: int) -> KeyGroupRange:
+    """The contiguous group range owned by subtask ``operator_index``
+    (KeyGroupRangeAssignment.computeKeyGroupRangeForOperatorIndex)."""
+    start = (operator_index * max_parallelism + parallelism - 1) \
+        // parallelism
+    end = ((operator_index + 1) * max_parallelism - 1) // parallelism
+    return KeyGroupRange(start, end)

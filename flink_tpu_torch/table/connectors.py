@@ -129,10 +129,70 @@ def _collect_factory(tenv, stmt) -> None:
 
 
 def _filesystem_factory(tenv, stmt) -> None:
-    raise NotImplementedError(
-        f"CREATE TABLE {stmt.name}: the 'filesystem' table connector (the "
-        "bucketed FileSink and FileSource, two-phase commit) is not ported "
-        "to flink_tpu_torch yet (ROADMAP.md, Queue A item 11c-2)")
+    """'filesystem': bucketed exactly-once FileSink AND a bounded
+    committed-files scan under the same table name (reference: the
+    filesystem table connector — readable and writable, partitioned
+    directories, 'format' option through the (De)SerializationSchema
+    seam). Options:
+
+    - ``path`` (required), ``format`` (default 'json')
+    - ``sink.bucket-by``: column name, or ``sink.bucket-datetime``:
+      strftime pattern over event time (partitioned directories)
+    - ``sink.rolling-policy.max-part-bytes`` / ``.max-part-records`` /
+      ``.rollover-interval-ms``
+    """
+    from flink_tpu_torch.connectors.filesystem import (
+        ColumnBucketAssigner,
+        DateTimeBucketAssigner,
+        FileSink,
+        FileSource,
+        RollingPolicy,
+    )
+    from flink_tpu_torch.connectors.formats import resolve_format
+    from flink_tpu_torch.table.environment import PlanError
+
+    opts = stmt.options
+    path = opts.get("path")
+    if not path:
+        raise PlanError(f"CREATE TABLE {stmt.name}: filesystem connector "
+                        "requires a 'path' option")
+    cols = [c for c, _ in stmt.columns]
+    col_types = [t for _, t in stmt.columns]
+    fmt = opts.get("format", "json")
+    deser, ser = resolve_format(fmt, cols, col_types, opts)
+
+    assigner = None
+    if opts.get("sink.bucket-by"):
+        bucket_col = opts["sink.bucket-by"]
+        if bucket_col not in cols:
+            raise PlanError(
+                f"CREATE TABLE {stmt.name}: sink.bucket-by column "
+                f"{bucket_col!r} is not a table column {cols}")
+        assigner = ColumnBucketAssigner(bucket_col)
+    elif opts.get("sink.bucket-datetime"):
+        assigner = DateTimeBucketAssigner(opts["sink.bucket-datetime"])
+    policy = RollingPolicy(
+        max_part_bytes=int(opts.get(
+            "sink.rolling-policy.max-part-bytes", 128 << 20)),
+        max_part_records=int(opts.get(
+            "sink.rolling-policy.max-part-records", 0)),
+        rollover_interval_ms=int(opts.get(
+            "sink.rolling-policy.rollover-interval-ms", 0)))
+    tenv.create_sink_table(
+        stmt.name,
+        FileSink(path, cols, fmt=ser, bucket_assigner=assigner,
+                 rolling_policy=policy),
+        columns=cols)
+
+    wm_field = stmt.watermark_field
+    source = FileSource(path, deser, timestamp_field=wm_field)
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+    strategy = WatermarkStrategy.for_bounded_out_of_orderness(
+        stmt.watermark_delay_ms or 0)
+    stream = tenv.env.from_source(source, strategy)
+    tenv.create_temporary_view(stmt.name, stream, columns=cols,
+                               time_field=wm_field)
 
 
 register_connector("kafka", _kafka_factory)

@@ -235,37 +235,38 @@ class TableResult:
         return batch
 
 
-def _explain_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "EXPLAIN (explain_sql, the job graph it prints) is not ported to "
-        "flink_tpu_torch yet (ROADMAP.md, Queue A item 11c-2)")
-
-
-def _models_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "models (CREATE MODEL, create_temporary_model, ML_PREDICT) are not "
-        "ported to flink_tpu_torch yet (ROADMAP.md, Queue A item 11d)")
-
-
 @public_evolving
 class StreamTableEnvironment:
     def __init__(self, env: Optional[StreamExecutionEnvironment] = None):
+        from flink_tpu_torch.ml.models import ModelRegistry
+
         self.env = env or StreamExecutionEnvironment.get_execution_environment()
         self._catalog: Dict[str, Table] = {}
         #: INSERT INTO targets: name -> (sink, declared columns or None)
         self._sink_tables: Dict[str, tuple] = {}
+        #: lookup (dimension) tables: name -> (LookupFunction, columns)
+        #: joined via FOR SYSTEM_TIME AS OF (reference: LookupTableSource)
+        self._lookup_tables: Dict[str, tuple] = {}
+        #: CREATE MODEL / ML_PREDICT catalog (reference: CatalogModel)
+        self.models = ModelRegistry()
 
     def create_lookup_table(self, name: str, lookup_fn,
                             columns: Sequence[str],
                             cache_size: int = 0,
                             cache_ttl_ms=None) -> None:
-        raise NotImplementedError(
-            "lookup tables and the lookup join (JOIN dim FOR SYSTEM_TIME "
-            "AS OF ...) are not ported to flink_tpu_torch yet (ROADMAP.md, "
-            "Queue A item 11c-2)")
+        """Register a LookupFunction as a dimension table for lookup
+        joins: ``JOIN name FOR SYSTEM_TIME AS OF o.rowtime ON ...``
+        (reference: a LookupTableSource-backed catalog table; the cache
+        maps FLIP-221 'lookup.cache' — opt-in like the reference, with
+        ``cache_ttl_ms`` as expireAfterWrite so live dimension updates
+        are eventually observed)."""
+        self._lookup_tables[name] = (lookup_fn, list(columns),
+                                     int(cache_size), cache_ttl_ms)
 
     def create_temporary_model(self, name: str, model) -> None:
-        raise _models_not_ported()
+        """Register a Model object for ML_PREDICT (the programmatic form
+        of CREATE MODEL; reference: createTemporaryModel)."""
+        self.models.register(name, model)
 
     @staticmethod
     def create(env: Optional[StreamExecutionEnvironment] = None
@@ -335,10 +336,24 @@ class StreamTableEnvironment:
     # ----------------------------------------------------------------- SQL
 
     def explain_sql(self, sql: str) -> str:
-        raise _explain_not_ported()
+        """The optimized logical + chained physical plan of a query
+        (reference: TableEnvironment.explainSql)."""
+        stmt = sql_parser.parse(sql)
+        if isinstance(stmt, sql_parser.Explain):
+            stmt = stmt.query
+        if not isinstance(stmt, (sql_parser.SelectStmt,
+                                 sql_parser.UnionAll)):
+            raise PlanError(
+                "EXPLAIN supports queries (SELECT / UNION ALL), not "
+                f"{type(stmt).__name__}")
+        return self.explain_sql_statement(sql_parser.Explain(stmt))
 
     def explain_sql_statement(self, stmt: "sql_parser.Explain") -> str:
-        raise _explain_not_ported()
+        from flink_tpu_torch.table.explain import explain
+
+        optimized = optimize(stmt.query)
+        planned = Planner(self).plan_select(optimized)
+        return explain(self, optimized, planned)
 
     def sql_query(self, sql: str) -> Table:
         stmt = sql_parser.parse(sql)
@@ -356,7 +371,7 @@ class StreamTableEnvironment:
         DESCRIBE -> schema dict; CREATE VIEW / CREATE MODEL -> None."""
         stmt = sql_parser.parse(sql)
         if isinstance(stmt, sql_parser.Explain):
-            raise _explain_not_ported()
+            return self.explain_sql_statement(stmt)
         if isinstance(stmt, sql_parser.ShowTables):
             return sorted(self._catalog)
         if isinstance(stmt, sql_parser.Describe):
@@ -370,7 +385,8 @@ class StreamTableEnvironment:
                    if t.upsert_keys else {}),
             }
         if isinstance(stmt, sql_parser.CreateModel):
-            raise _models_not_ported()
+            self.models.create_from_options(stmt.name, stmt.options)
+            return None
         if isinstance(stmt, sql_parser.CreateTable):
             self._create_connector_table(stmt)
             return None

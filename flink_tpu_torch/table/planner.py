@@ -16,8 +16,9 @@ the supported SQL shapes map 1:1 onto the vectorized operators —
 
 The aggregations run as the port's torch programs on ``execution.device``;
 scalar expressions run as NumPy array ops on the host columns
-(flink_tpu_torch.table.expressions). OVER aggregates, the lookup join and
-ML_PREDICT raise ``NotImplementedError`` naming their ROADMAP item.
+(flink_tpu_torch.table.expressions). OVER aggregates run on the host or
+the device engine (``table.exec.over.engine``), ML_PREDICT through a
+registered model (a ``TorchModel`` runs on its own device).
 """
 
 from __future__ import annotations
@@ -145,11 +146,8 @@ class Planner:
                 raise PlanError(
                     "OVER aggregates cannot mix with GROUP BY or "
                     "ROW_NUMBER in one SELECT; use a subquery")
-            raise NotImplementedError(
-                "OVER aggregates (agg(x) OVER (PARTITION BY ... ORDER BY "
-                "rowtime ...), the host and device engines behind "
-                "table.exec.over.engine) are not ported to flink_tpu_torch "
-                "yet (ROADMAP.md, Queue A item 11c-2)")
+            return self._plan_over_agg(stream, source, items, over_aggs,
+                                       stmt)
         if over_calls:
             if has_aggs:
                 raise PlanError("OVER and GROUP BY in one SELECT "
@@ -240,9 +238,7 @@ class Planner:
             raise PlanError("window TVF only supported directly in FROM of "
                             "an aggregating SELECT")
         if isinstance(ref, ast.MLPredictTVF):
-            raise NotImplementedError(
-                "ML_PREDICT (model inference from SQL) is not ported to "
-                "flink_tpu_torch yet (ROADMAP.md, Queue A item 11d)")
+            return self._plan_ml_predict(ref)
         if isinstance(ref, ast.Join):
             return self._plan_join(ref)
         if isinstance(ref, ast.MatchRecognize):
@@ -432,6 +428,38 @@ class Planner:
             return bool(np.asarray(e2.eval(batch))[0])
 
         return pat.where_iterative(icond)
+
+    def _plan_ml_predict(self, ref: "ast.MLPredictTVF") -> PlannedTable:
+        """ML_PREDICT(TABLE t, MODEL m, DESCRIPTOR(...)) — one batched
+        inference per micro-batch appending the model's output columns
+        (reference: MLPredictRunner invoked from SQL; flink-models)."""
+        from flink_tpu_torch.ml.operators import MLPredictOperator
+
+        inner = self._plan_table_ref(ref.table)
+        if inner.upsert_keys is not None:
+            raise PlanError("ML_PREDICT over an updating (changelog) "
+                            "input is not supported")
+        model = self.t_env.models.get(ref.model)
+        missing = [f for f in ref.fields if f not in inner.columns]
+        if missing:
+            raise PlanError(
+                f"ML_PREDICT descriptor columns {missing} not in input "
+                f"columns {inner.columns}")
+        if len(ref.fields) != len(model.input_names):
+            raise PlanError(
+                f"model {ref.model!r} expects "
+                f"{len(model.input_names)} inputs "
+                f"{tuple(model.input_names)}, the DESCRIPTOR names "
+                f"{len(ref.fields)}: {tuple(ref.fields)}")
+        t = Transformation(
+            name=f"ml_predict({ref.model})", kind="one_input",
+            operator_factory=lambda: MLPredictOperator(
+                model, input_fields=ref.fields),
+            inputs=[inner.stream.transformation])
+        out_cols = list(inner.columns) + [
+            n for n in model.output_names if n not in inner.columns]
+        return PlannedTable(DataStream(self.env, t), out_cols,
+                            ref.alias or inner.alias, inner.time_field)
 
     def _collect_aliases(self, ref: ast.TableRef,
                          side: str = "") -> Dict[str, str]:
@@ -784,6 +812,133 @@ class Planner:
         out = ranked.map(project, name="sql_rank_project")
         return self._finish(out, names, source, stmt)
 
+    # ----------------------------------------------------- OVER aggregates
+
+    def _plan_over_agg(self, stream: DataStream, source: PlannedTable,
+                       items: List[SelectItem],
+                       over_items: List[SelectItem],
+                       stmt: ast.SelectStmt) -> PlannedTable:
+        """agg(x) OVER (PARTITION BY k ORDER BY rowtime frame) —
+        reference: StreamExecOverAggregate. Every OVER call in one
+        SELECT must share one window spec (the reference's
+        single-over-window-per-operator restriction)."""
+        from flink_tpu_torch.runtime.over_agg import OverAggOperator
+
+        if source.upsert_keys is not None:
+            raise PlanError(
+                "OVER aggregation over an updating (changelog) input is "
+                "not supported — inputs must be insert-only")
+        first: OverAgg = over_items[0].expr
+        for i in over_items[1:]:
+            o: OverAgg = i.expr
+            if (o.partition_by, o.order_by, o.mode, o.preceding) != (
+                    first.partition_by, first.order_by, first.mode,
+                    first.preceding):
+                raise PlanError(
+                    "all OVER aggregates in one SELECT must share the "
+                    "same window (PARTITION BY / ORDER BY / frame)")
+        if len(first.partition_by) != 1 or not isinstance(
+                first.partition_by[0], Column):
+            raise PlanError(
+                "OVER requires PARTITION BY exactly one column")
+        key_col = first.partition_by[0].name
+        if len(first.order_by) != 1 or first.order_by[0][1]:
+            raise PlanError(
+                "OVER requires ORDER BY the event-time column ASC")
+        order_col = first.order_by[0][0]
+        if source.time_field is None:
+            # the operator orders frames by the rows' event time — with
+            # no declared time attribute an arbitrary ORDER BY column
+            # would be silently ignored (reference: streaming OVER
+            # requires a time attribute order)
+            raise PlanError(
+                "OVER requires the table to declare an event-time "
+                "column (WATERMARK FOR ...) and ORDER BY it")
+        if not isinstance(order_col, Column) or \
+                order_col.name != source.time_field:
+            raise PlanError(
+                "OVER must ORDER BY the table's event-time column "
+                f"({source.time_field!r}); got "
+                f"{order_col.output_name()!r} (reference: streaming OVER "
+                "windows are rowtime-ordered)")
+
+        # materialize non-column arguments as temp columns first; the
+        # operator writes INTERNAL output names so a user alias can
+        # never clobber a source column another select item still reads
+        specs = []
+        out_names: Dict[int, str] = {}
+        pre_cols: List[Tuple[str, Expr]] = []
+        for j, item in enumerate(over_items):
+            o: OverAgg = item.expr
+            internal = f"__over_out_{j}__"
+            out_names[id(item)] = internal
+            if o.arg is None:
+                specs.append((o.func, None, internal))
+            elif isinstance(o.arg, Column):
+                specs.append((o.func, o.arg.name, internal))
+            else:
+                tmp = f"__over_arg_{j}__"
+                pre_cols.append((tmp, o.arg))
+                specs.append((o.func, tmp, internal))
+        if pre_cols:
+            def add_args(batch, pre=tuple(pre_cols)):
+                for name, e in pre:
+                    batch = batch.with_column(
+                        name, np.asarray(e.eval(batch)))
+                return batch
+
+            stream = stream.map(add_args, name="sql_over_args")
+        mode, preceding = first.mode, first.preceding
+        from flink_tpu_torch.core.config import StateOptions
+
+        engine = self.env.config.get(StateOptions.TABLE_EXEC_OVER_ENGINE)
+        from flink_tpu_torch.runtime.over_device import (
+            DeviceOverAggOperator, device_supported)
+
+        if engine not in ("auto", "device", "host"):
+            raise PlanError(
+                f"table.exec.over.engine must be auto/device/host, got "
+                f"{engine!r}")
+        # the device program computes float64 on every device, so auto
+        # picks it wherever the frame family has a device form (the
+        # reference's auto does so only under JAX x64: without it its
+        # program would fold SQL DOUBLE in float32)
+        use_device = (engine == "device"
+                      or (engine == "auto" and device_supported(
+                          specs, mode, preceding)))
+        if engine == "device" and not device_supported(
+                specs, mode, preceding):
+            raise PlanError(
+                "table.exec.over.engine=device: bounded RANGE MIN/MAX "
+                "frames have no device form — use engine=host or auto")
+        op_cls = DeviceOverAggOperator if use_device else OverAggOperator
+        t = Transformation(
+            name="sql_over_agg", kind="one_input",
+            operator_factory=lambda key_col=key_col, specs=tuple(specs),
+            mode=mode, preceding=preceding, op_cls=op_cls: op_cls(
+                key_col, list(specs), mode=mode, preceding=preceding),
+            inputs=[stream.key_by(key_col).transformation])
+        over_stream = DataStream(self.env, t)
+
+        names, exprs = [], []
+        for i in items:
+            if i in over_items:
+                names.append(i.alias or i.expr.output_name())
+                exprs.append(Column(out_names[id(i)]))
+            else:
+                names.append(i.name)
+                exprs.append(i.expr)
+
+        def project(batch, exprs=tuple(exprs), names=tuple(names)):
+            cols = {n: np.asarray(e.eval(batch))
+                    for n, e in zip(names, exprs)}
+            if batch.has_timestamps:
+                cols[TIMESTAMP_FIELD] = batch.timestamps
+            return RecordBatch(cols)
+
+        out = over_stream.map(project, name="sql_over_project")
+        return self._finish(out, names, source, stmt)
+
     # --------------------------------------------------------------- joins
 
     def _plan_join(self, join: ast.Join) -> PlannedTable:
@@ -854,6 +1009,93 @@ class Planner:
                 right_columns=list(pad_cols)),
             "sql_join")
 
+    def _plan_lookup_join(self, join: ast.Join) -> PlannedTable:
+        """JOIN dim FOR SYSTEM_TIME AS OF o.rowtime ON o.k = dim.k where
+        ``dim`` is a registered lookup table — the enrichment pattern
+        (reference: StreamExecLookupJoin -> LookupJoinRunner; the
+        reference's AS OF proctime instant maps to lookup-at-arrival
+        here, with the left rowtime column naming the stream side)."""
+        from flink_tpu_torch.connectors.lookup import LookupJoinOperator
+
+        fn, r_columns, cache_size, cache_ttl_ms = \
+            self.t_env._lookup_tables[join.right.name]
+        left = self._plan_table_ref(join.left)
+        if left.upsert_keys is not None:
+            raise PlanError(
+                "lookup join over an updating (changelog) input is not "
+                "supported — the stream side must be insert-only")
+        l_aliases = self._collect_aliases(join.left)
+        r_alias = join.right.alias or join.right.name
+        left_outer = join.kind == "LEFT"
+        # the AS OF instant must be the stream side's time attribute
+        # (the reference requires a proctime attribute; here the left
+        # rowtime column names the lookup-at-arrival instant)
+        as_of = self._strip(join.temporal, left, l_aliases)
+        if left.time_field is None or not isinstance(as_of, Column) \
+                or as_of.name != left.time_field:
+            raise PlanError(
+                "lookup join FOR SYSTEM_TIME AS OF must reference the "
+                "stream side's event-time column "
+                f"({left.time_field!r})")
+        # the ON clause: exactly one equality between a left column and
+        # the lookup table's key column
+        conjuncts = _split_conjuncts(join.condition)
+        if len(conjuncts) != 1 or not (
+                isinstance(conjuncts[0], BinaryOp)
+                and conjuncts[0].op == "="):
+            raise PlanError(
+                "lookup join requires exactly one equality predicate "
+                "(left_col = dim_key)")
+        eq = conjuncts[0]
+
+        def _unqualify(e: Expr) -> Optional[Column]:
+            if not isinstance(e, Column):
+                return None
+            return Column(e.name)
+
+        sides = {}
+        for e in (eq.left, eq.right):
+            c = _unqualify(e)
+            if c is None:
+                raise PlanError(
+                    "lookup join ON sides must be plain columns")
+            q = e.table
+            if q == r_alias or (q is None and c.name in r_columns
+                                and c.name not in left.columns):
+                sides["r"] = c
+            else:
+                sides["l"] = c
+        if set(sides) != {"l", "r"}:
+            raise PlanError(
+                "lookup join ON must equate a stream column with the "
+                "lookup table's key column")
+        if sides["r"].name != fn.key_column:
+            raise PlanError(
+                f"lookup table {join.right.name!r} is keyed by "
+                f"{fn.key_column!r}; ON references {sides['r'].name!r}")
+        key_field = sides["l"].name
+        if key_field not in left.columns:
+            raise PlanError(
+                f"lookup join key {key_field!r} is not a column of the "
+                "stream side")
+        t = Transformation(
+            name="sql_lookup_join", kind="one_input",
+            operator_factory=lambda: LookupJoinOperator(
+                fn, key_field, right_columns=r_columns,
+                suffixes=("_l", "_r"),
+                cache_size=cache_size, cache_ttl_ms=cache_ttl_ms,
+                left_outer=left_outer),
+            inputs=[left.stream.transformation])
+        joined = DataStream(self.env, t)
+        out_cols: List[str] = []
+        for c in left.columns:
+            out_cols.append(c + "_l" if c in r_columns else c)
+        for c in r_columns:
+            out_cols.append(c + "_r" if c in left.columns else c)
+        return PlannedTable(joined, out_cols, None,
+                            left.time_field
+                            if left.time_field in out_cols else None)
+
     def _lower_keyed_join(self, left: PlannedTable, right: PlannedTable,
                           l_aliases, r_aliases,
                           equi: List[Tuple[Expr, Expr]],
@@ -901,6 +1143,9 @@ class Planner:
         by their rowtime)."""
         from flink_tpu_torch.runtime.join_operators import TemporalJoinOperator
 
+        if isinstance(join.right, ast.NamedTable) and \
+                join.right.name in self.t_env._lookup_tables:
+            return self._plan_lookup_join(join)
         if join.kind != "INNER":
             raise PlanError(
                 "temporal join supports INNER only (the reference "

@@ -1405,3 +1405,53 @@ def test_sql_row4_and_two_level_card_equal_cpu():
                                         changelog=changelog)[0]
                for d in ("cuda", "cpu")]
         chip_smoke._batches_equal("two-level", [got[0]], [got[1]])
+
+
+@pytest.mark.cuda
+def test_over_engines_on_card_at_a_cut_size():
+    """``chip_smoke.py`` 21(a) at a cut size: the device OVER engine on
+    the card against the host engine (SUM/AVG within rtol 2e-4, atol 1e-5,
+    the rest exactly), no degrade; row 4's stream through SQL OVER RANGE
+    10 s against the float64 oracle."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.over_bench(torch, "cuda", timed=4, host_timed_at_50k=1,
+                                 key_counts=(100, 2_000))
+    for r in rows.values():
+        assert r["device"]["counters"]["over_degrades"] == 0
+        assert r["device"]["launches_per_fire"] > 0
+    sql = chip_smoke.row4_over_sql(torch, "cuda", events=300_000)
+    assert sql["counters"]["over_device_fires"] > 0
+
+
+@pytest.mark.cuda
+def test_lookup_join_into_filesystem_exactly_once_on_card(tmp_path,
+                                                          monkeypatch):
+    """21(b) at a cut size (400k bids, batches of 1<<14, P=8): the crash
+    after checkpoint 2 and the resumed run commit every (auction, window)
+    once, every sum equal to the float32 oracle bit for bit, with the
+    rank kernel and the ordered fold launched."""
+    _need_card()
+    import chip_smoke
+
+    monkeypatch.chdir(tmp_path)
+    row = chip_smoke.lookup_fs_exactly_once(torch, "cuda", bids=400_000,
+                                            batch=1 << 14)
+    assert row["launches"]["exchange_rank"] > 0
+    assert row["launches"]["ordered_fold"] > 0
+
+
+@pytest.mark.cuda
+def test_slice21_d_on_card_at_a_cut_size():
+    """21(d) at a cut size: ML_PREDICT with a TorchModel on the card
+    against the CPU module (rtol 1e-5, atol 1e-5), host-heap == the card
+    bit for bit on Q5-revenue at P=1, and a V2 keyed process job card ==
+    CPU."""
+    _need_card()
+    import chip_smoke
+
+    ml = chip_smoke.ml_predict_card(torch, "cuda", records=100_000)
+    assert ml["launches"]["ordered_fold"] > 0
+    chip_smoke.host_heap_revenue(torch, records=300_000)
+    chip_smoke.v2_keyed_card(torch, "cuda", records=100_000)

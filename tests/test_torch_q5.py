@@ -118,11 +118,12 @@ def test_bid_source_matches_reference_stream():
     ("state.backend", "host-heap", "Queue A item 11"),
 ])
 def test_parallelism_one_is_not_ported_yet(key, value, item):
-    """What parallelism 1 does not run yet raises, naming its ROADMAP
-    item: the placement backends. A spill directory on another filesystem
-    scheme is ported since item 8b's filesystem SPI: as in the reference,
-    the job runs and gives the rows it gives without the key (the tier
-    resolves the scheme only when it writes a file)."""
+    """Both keys that once raised here, naming their ROADMAP item, are
+    ported: a spill directory on another filesystem scheme since item
+    8b's filesystem SPI (the tier resolves the scheme only when it writes
+    a file), and the state.backend placements since item 11d (host-heap
+    keeps the state on the CPU). As in the reference, the job runs and
+    gives the rows it gives without the key."""
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
     from flink_tpu_torch.connectors.sinks import CollectSink
@@ -135,11 +136,7 @@ def test_parallelism_one_is_not_ported_yet(key, value, item):
         env.execute()
         return sink.rows()
 
-    if item == "Queue A item 8b":
-        assert job({key: value}) == job({})
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        job({key: value})
+    assert job({key: value}) == job({})
 
 
 def test_placement_backend_is_refused_on_the_mesh():

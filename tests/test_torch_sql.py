@@ -679,28 +679,6 @@ def _port_tenv():
 
 
 NOT_PORTED = {
-    "over_aggregate": ("11c-2", lambda t: t.execute_sql(
-        "SELECT k, SUM(v) OVER (PARTITION BY k ORDER BY ts ROWS BETWEEN 2 "
-        "PRECEDING AND CURRENT ROW) AS s FROM t")),
-    "over_aggregate_device_engine": ("11c-2", lambda t: t.sql_query(
-        "SELECT k, COUNT(*) OVER (PARTITION BY k ORDER BY ts RANGE BETWEEN "
-        "INTERVAL '1' SECOND PRECEDING AND CURRENT ROW) AS n FROM t")),
-    "lookup_table": ("11c-2", lambda t: t.create_lookup_table(
-        "dim", object(), ["k", "name"])),
-    "filesystem_connector": ("11c-2", lambda t: t.execute_sql(
-        "CREATE TABLE fs (a BIGINT) WITH ('connector'='filesystem', "
-        "'path'='/nonexistent')")),
-    "explain_statement": ("11c-2", lambda t: t.execute_sql(
-        "EXPLAIN SELECT k FROM t")),
-    "explain_sql": ("11c-2", lambda t: t.explain_sql("SELECT k FROM t")),
-    "explain_sql_statement": ("11c-2", lambda t: t.explain_sql_statement(
-        PKGS["port"].parser.parse("EXPLAIN SELECT k FROM t"))),
-    "create_temporary_model": ("11d", lambda t: t.create_temporary_model(
-        "m", object())),
-    "create_model": ("11d", lambda t: t.execute_sql(
-        "CREATE MODEL m WITH ('provider'='x')")),
-    "ml_predict": ("11d", lambda t: t.execute_sql(
-        "SELECT * FROM ML_PREDICT(TABLE t, MODEL m, DESCRIPTOR(v))")),
     "avro_format": ("12", lambda t: t.execute_sql(
         "CREATE TABLE av (a BIGINT) WITH ('connector'='kafka', "
         "'topic'='x', 'format'='avro')")),
@@ -722,6 +700,19 @@ def test_importing_the_table_package_loads_neither_jax_nor_the_reference():
         "import flink_tpu_torch.table.upsert_materializer\n"
         "import flink_tpu_torch.connectors.kafka\n"
         "import flink_tpu_torch.runtime.group_agg\n"
+        "import flink_tpu_torch.runtime.over_agg\n"
+        "import flink_tpu_torch.runtime.over_device\n"
+        "import flink_tpu_torch.connectors.lookup\n"
+        "import flink_tpu_torch.connectors.two_phase\n"
+        "import flink_tpu_torch.connectors.filesystem\n"
+        "import flink_tpu_torch.graph.job_graph\n"
+        "import flink_tpu_torch.table.explain\n"
+        "import flink_tpu_torch.state.backends\n"
+        "import flink_tpu_torch.ml, flink_tpu_torch.ml.models\n"
+        "import flink_tpu_torch.ml.operators\n"
+        "import flink_tpu_torch.state_processor\n"
+        "import flink_tpu_torch.datastream.v2\n"
+        "import flink_tpu_torch.convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flink_tpu' or m.startswith('flink_tpu.')]\n"
         "assert not bad, bad\n")
