@@ -284,8 +284,9 @@ Phases, each fatal on failure (no result line is printed then):
     bit for bit; a checkpoint truncated past its offset is refused; the
     ordered fold launched; checkpoint, materialize and restore ms printed;
     (19c) phase 5's Q5 at P=8 over 10M bids into a ``BinaryFileSink``,
-    stopped by a ``SavepointRequest(stop=True)`` served after batch 5 and
-    resumed from the savepoint: both files read back through
+    stopped by a ``SavepointRequest(stop=True)`` served after batch 5
+    (its source polled inline, without the pump thread, so that the
+    request lands right after that batch) and resumed from the savepoint: both files read back through
     ``BinaryFileSource`` equal an uninterrupted run's windows (k of the
     tied winners where more than k tie, as phase 5), the drained stop
     fires every window up to the cut, and the rank kernel launched
@@ -370,6 +371,44 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_slice21(torch)'`` runs phase 21 alone without the
     savepoint reader (``phase_slice21(torch, "cpu", small=True)``
     rehearses it without a card).
+22. the stage executor, the metric tree and the flight recorder (after
+    phase 21): (22a) phase 6's Q5-revenue job (HOP 10 s / 2 s, float32
+    ``.sum("price")``, 100k auctions, 10M bids) under
+    ``execution.stage-parallelism: 4``, ``source-parallelism: 1`` and
+    ``execution.local-agg: false`` (four keyed subtask threads, each a
+    single-device engine on the card): every (auction, window) sum equal
+    bit for bit to phase 6's stream-order oracle (which phase 8's
+    single-slot card run equals too); events/s and the ordered fold's
+    launches printed; (22b) phase 5's Q5 under ``stage-parallelism: 2`` x
+    ``stage-mesh-devices: 4`` (each subtask a 4-shard mesh engine over its
+    key-group range) on 10M bids: the largest count of every window
+    across the subtasks' arg-max rows, and its winners, equal phase 5's
+    oracle; the rank's launches (> 0) and events/s printed; (22c)
+    22(a)'s job in batches of 1<<19 with a checkpoint every 2 source
+    batches crashes at 4 subtasks (an injected failure past 4M records
+    once checkpoint 2 is durable; past 4M the failing map holds each
+    batch 0.2 s until then), and resumes from the newest checkpoint at 2
+    subtasks and again single-slot; then once more with unaligned
+    checkpoints, resumed at 4 subtasks: every row of every run equal to
+    the oracle bit for bit, and each run pair covering every (auction,
+    window) of the oracle; checkpoint bytes, restore ms and records
+    replayed printed; (22d) 22(a)'s job in batch mode over
+    ``shuffle.service: sort-merge`` (the native codec's runs, checked to
+    be built), cut to 2M bids, under ``memory.device.size`` of 8 GiB: rows equal to the oracle
+    of 2M bids; the bytes spilled, the pool's reservations and
+    ``torch.cuda.max_memory_allocated`` printed; (22e) phase 5's Q5 at
+    P=8 on 10M bids with the flight recorder on (the default, in this
+    warm process) and off (``FLINK_TPU_FLIGHT_RECORDER=0``, read at
+    import, in a fresh process warmed by an untimed run over 2M bids):
+    events/s of both runs and the on-run's spans by kind (the off-run
+    records none and fires the same rows); its
+    Perfetto JSON loads and holds the executor's and the engine's kinds;
+    ``result.registry`` holds the window operator's ``window`` gauges and
+    ``numLateRecordsDropped``, which equals the engine's count (0).
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_stage(torch)'`` runs phase 22 alone
+    (``phase_stage(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -379,14 +418,15 @@ and 17(d), 18(a) and 18(b) (from the harness's first engine on: the
 oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
 18(e)'s card engines, 19(a), 19(b)'s card run, each card run of
 19(c), 20(a)'s measured and card runs, each card run of 20(b) and 20(c),
-each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs,
+each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs, each
+run of 22(a) to 22(e) (22(e)'s recorder-off run in its subprocess),
 and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
-15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b)
-and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
-an integer fold; the rank in 20(c) and 21(b)). 19(a), 19(d) and 21(a)
+15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
+22(a), 22(c), 22(d) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
+an integer fold; the rank in 20(c), 21(b), 22(b) and 22(e)). 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
 
@@ -1086,6 +1126,44 @@ def revenue_oracle(source_cls, total, num_auctions, rate, size_ms,
     return win, cnt
 
 
+#: records -> the revenue oracle's (sums, counts): phases 6, 8 and 22
+#: check against the same arrays
+_REVENUE_ORACLES = {}
+
+
+def revenue_oracle_cached(records: int):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    if records not in _REVENUE_ORACLES:
+        _REVENUE_ORACLES[records] = revenue_oracle(
+            BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    return _REVENUE_ORACLES[records]
+
+
+def check_revenue_rows(res, want, cnt, label: str, full: bool = True):
+    """Every fired (window, auction) sum of ``res`` equal to the oracle's
+    bit for bit, each pair once; with ``full`` every pair the oracle has
+    fired. Returns (rows, windows)."""
+    e = np.asarray(res["window_end"]) // SLIDE - 1
+    a = np.asarray(res["auction"]).astype(np.int64)
+    s = np.asarray(res["sum_price"], dtype=np.float32)
+    if len(s) and (e.min() < 0 or e.max() >= len(want)):
+        raise AssertionError(f"{label} fired a window the oracle lacks")
+    pair = e * AUCTIONS + a
+    if len(np.unique(pair)) != len(pair):
+        raise AssertionError(f"{label} fired a (window, auction) twice")
+    present = cnt > 0
+    if not present.reshape(-1)[pair].all() or (
+            full and len(pair) != int(present.sum())):
+        raise AssertionError(f"{label} fired {len(pair)} rows, oracle "
+                             f"{int(present.sum())}")
+    bad = int((want[e, a].view(np.int32) != s.view(np.int32)).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} of {len(s)} fired sums "
+                             "differ from the stream-order oracle")
+    return len(s), int(present.any(axis=1).sum())
+
+
 def phase_revenue(torch, records: int, parallelism: int = 8):
     from flink_tpu_torch.benchmarks.nexmark import BidSource
 
@@ -1099,34 +1177,17 @@ def phase_revenue(torch, records: int, parallelism: int = 8):
     for name in path:
         if counts[name] <= 0:
             raise AssertionError(f"Q5-revenue ran without launching {name}")
-    res = sink.result()
     t1 = time.perf_counter()
-    want, cnt = revenue_oracle(BidSource, records, AUCTIONS, RATE, SIZE,
-                               SLIDE)
+    want, cnt = revenue_oracle_cached(records)
     oracle_s = time.perf_counter() - t1
-    e = np.asarray(res["window_end"]) // SLIDE - 1
-    a = np.asarray(res["auction"]).astype(np.int64)
-    s = np.asarray(res["sum_price"], dtype=np.float32)
-    if e.min() < 0 or e.max() >= len(want):
-        raise AssertionError("Q5-revenue fired a window the oracle lacks")
-    pair = e * AUCTIONS + a
-    if len(np.unique(pair)) != len(pair):
-        raise AssertionError("Q5-revenue fired a (window, auction) twice")
-    present = cnt > 0
-    if len(pair) != int(present.sum()) or not present.reshape(-1)[pair].all():
-        raise AssertionError(f"Q5-revenue fired {len(pair)} rows, oracle "
-                             f"{int(present.sum())}")
-    bad = int((want[e, a].view(np.int32) != s.view(np.int32)).sum())
-    if bad:
-        raise AssertionError(f"Q5-revenue: {bad} of {len(s)} fired sums "
-                             "differ from the stream-order oracle")
-    windows = int(present.any(axis=1).sum())
+    rows, windows = check_revenue_rows(sink.result(), want, cnt,
+                                       "Q5-revenue")
     rev = {"parallelism": parallelism, "records": records,
            "elapsed_s": elapsed, "events_per_s": records / elapsed,
-           "windows": windows, "rows": len(s), "rows_differing": bad,
+           "windows": windows, "rows": rows, "rows_differing": 0,
            "launches": counts, "fire_latency_ms": lat, "oracle_s": oracle_s}
     print(f"phase {phase}: Q5-revenue P={parallelism} {records} records in "
-          f"{elapsed:.3f} s = {records / elapsed:.0f} events/s; all {len(s)} "
+          f"{elapsed:.3f} s = {records / elapsed:.0f} events/s; all {rows} "
           f"fired (window, auction) sums over {windows} windows equal the "
           f"stream-order oracle bit for bit; launches {counts}; fire "
           f"latency p50 {lat.get('p50')} ms p99 {lat.get('p99')} ms")
@@ -1222,8 +1283,7 @@ def phase_revenue_panes(torch, records: int, equal_records: int = 2_000_000):
     if counts["ordered_fold"] <= 0:
         raise AssertionError("Q5-revenue panes ran without the ordered fold")
     res = sink.result()
-    want, cnt = revenue_oracle(BidSource, records, AUCTIONS, RATE, SIZE,
-                               SLIDE)
+    want, cnt = revenue_oracle_cached(records)
     e = np.asarray(res["window_end"]) // SLIDE - 1
     a = np.asarray(res["auction"]).astype(np.int64)
     s = np.asarray(res["sum_price"], dtype=np.float32)
@@ -4163,7 +4223,9 @@ def _stop_after(records, control=None, request=None, after=0):
 def _q5_binary(torch, source, path, restore_from=None, control=None,
                device="cuda", batch=1 << 20):
     """Phase 5's Q5 at P=8 into a BinaryFileSink; returns the result and
-    the launches."""
+    the launches. The source is polled inline (no pump thread), so that
+    a request its batch ``after`` queues is served right after that
+    batch."""
     from flink_tpu_torch import Configuration, StreamExecutionEnvironment
     from flink_tpu_torch.benchmarks.nexmark import build_q5
     from flink_tpu_torch.cluster.local_executor import LocalExecutor
@@ -4171,6 +4233,7 @@ def _q5_binary(torch, source, path, restore_from=None, control=None,
 
     env = StreamExecutionEnvironment(Configuration({
         "parallelism.default": 8, "execution.micro-batch.size": batch,
+        "execution.pipeline.in-flight-batches": 0,
         "execution.device": device}))
     build_q5(env, source, size_ms=SIZE, slide_ms=SLIDE,
              device_top_k=TOP_K).sink_to(BinaryFileSink(path))
@@ -5129,7 +5192,7 @@ def lookup_fs_exactly_once(torch, device: str = "cuda",
     metrics = result.metrics
     lookup = [v for k, v in metrics["per_operator"].items()
               if k.startswith("sql_lookup_join")][0]
-    want, cnt = revenue_oracle(BidSource, bids, AUCTIONS, RATE, SIZE, SLIDE)
+    want, cnt = revenue_oracle_cached(bids)
     cats = _auction_categories()
     a = np.asarray([r["auction"] for r in rows], np.int64)
     e = np.asarray([r["window_end"] for r in rows], np.int64) // SLIDE - 1
@@ -5518,6 +5581,426 @@ def phase_slice21(torch, device: str = "cuda", savepoint: str = None,
             "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------- phase 22
+
+
+class _FailAfter:
+    """A stateless map that raises once ``n`` records went through it and
+    ``root`` holds checkpoint 2 (22(c)'s crash, after checkpoint 2 however
+    the checkpoints' trigger falls); past ``n`` records it holds each
+    batch 0.2 s until then, so that the coordinator's barriers overtake
+    the source. ``seen`` counts the records."""
+
+    def __init__(self, n: int, root: str = None):
+        self.n, self.root, self.seen = n, root, 0
+
+    def __call__(self, batch):
+        if self.seen > self.n:
+            if self.root is None or self._checkpoints() >= 2:
+                raise RuntimeError("injected failure (22c)")
+            time.sleep(0.2)
+        self.seen += len(batch)
+        return batch
+
+    def _checkpoints(self) -> int:
+        """The newest complete checkpoint's id (retention prunes the
+        older ones)."""
+        from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+
+        return CheckpointStorage(self.root).latest_checkpoint_id() or 0
+
+
+def _stage_run(torch, build, device, conf, records, executor=None,
+               sink=None, restore_from=None):
+    """One job through the public API (or ``executor(config)``'s ``run``)
+    with the launch counts set to 0 just before it; returns (sink,
+    result, elapsed s, launches). A caller that expects the job to fail
+    passes its own ``sink``."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.micro-batch.size": 1 << 20, "execution.device": device,
+        **conf}))
+    sink = sink if sink is not None else CollectSink()
+    build(env, records).sink_to(sink)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = (executor(env.config).run(env.get_stream_graph())
+              if executor is not None
+              else env.execute(restore_from=restore_from))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return sink, result, time.perf_counter() - t0, read_counts()
+
+
+def _revenue_job(fail_after=None):
+    """Q5-revenue (phase 6's job), with 22(c)'s map after the source (the
+    same name in the crashed and the resumed graph)."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def build(env, records):
+        ds = env.from_source(
+            BidSource(total_records=records, num_auctions=AUCTIONS,
+                      events_per_second_of_eventtime=RATE),
+            WatermarkStrategy.for_bounded_out_of_orderness(0))
+        if fail_after is not None:
+            ds = ds.map(fail_after, name="maybe_fail")
+        return (ds.key_by("auction")
+                .window(SlidingEventTimeWindows.of(SIZE, SLIDE))
+                .sum("price"))
+
+    return build
+
+
+def _q5_job(env, records):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+
+    return build_q5(env, BidSource(total_records=records,
+                                   num_auctions=AUCTIONS,
+                                   events_per_second_of_eventtime=RATE),
+                    size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K)
+
+
+def _stage_check_q5(sink, records, label):
+    """The largest count of every window across the subtasks' arg-max
+    rows, and the auctions with it, against phase 5's oracle."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    best = {}
+    for r in sink.rows():
+        c = int(r["count"])
+        b, ws = best.get(r["window_end"], (-1, set()))
+        if c > b:
+            best[r["window_end"]] = (c, {int(r["auction"])})
+        elif c == b:
+            ws.add(int(r["auction"]))
+    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    if set(best) != set(want):
+        raise AssertionError(f"{label}: {len(best)} windows, oracle "
+                             f"{len(want)}")
+    for w, (b, winners) in want.items():
+        g_b, g_w = best[w]
+        if g_b != b or not g_w <= winners:
+            raise AssertionError(f"{label} window {w}: got ({g_b}, "
+                                 f"{sorted(g_w)[:5]}), oracle ({b}, "
+                                 f"{sorted(winners)[:5]})")
+    return len(best)
+
+
+def phase_stage(torch, device: str = "cuda", small: bool = False,
+                records: int = 10_000_000, batch_records: int = 2_000_000
+                ) -> dict:
+    """Phase 22: the stage executor (22a-22d) and the flight recorder
+    (22e). ``device="cpu", small=True`` rehearses it at a cut size without
+    a card."""
+    from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+    from flink_tpu_torch.cluster.stage_executor import StageParallelExecutor
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.sort_merge_shuffle import (
+        SortMergeShuffleService,
+    )
+
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    if small:
+        records, batch_records = 1_500_000, 200_000
+    batch = (1 << 20) if not small else (1 << 14)
+    base = {"execution.micro-batch.size": batch,
+            "execution.local-agg": False,
+            "state.slot-table.capacity": 1 << 20 if not small else 1 << 16}
+    t_phase = time.perf_counter()
+    launches = {"exchange_rank": 0, "ordered_fold": 0}
+    out = {}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # (22a) Q5-revenue at 4 subtasks
+    want, cnt = revenue_oracle_cached(records)
+    sink, res, dt, counts = _stage_run(
+        torch, _revenue_job(), device,
+        {**base, "execution.stage-parallelism": 4}, records)
+    add(counts)
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("22(a) ran without launching the ordered fold")
+    rows, windows = check_revenue_rows(sink.result(), want, cnt, "22(a)")
+    out["a"] = {"records": records, "elapsed_s": dt,
+                "events_per_s": records / dt, "rows": rows,
+                "windows": windows, "launches": counts,
+                "subtask_records_in": res.metrics["subtask_records_in"]}
+    print(f"phase 22(a): Q5-revenue at 4 subtasks, {records} bids in "
+          f"{dt:.3f} s = {records / dt:.0f} events/s; all {rows} sums over "
+          f"{windows} windows equal phase 6's oracle bit for bit; "
+          f"launches {counts}")
+
+    # (22b) Q5 at 2 subtasks x 4 shards
+    sink, res, dt, counts = _stage_run(
+        torch, _q5_job, device,
+        {"execution.micro-batch.size": batch,
+         "execution.stage-parallelism": 2,
+         "execution.stage-mesh-devices": 4}, records)
+    add(counts)
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError("22(b) ran without launching the rank kernel")
+    n_windows = _stage_check_q5(sink, records, "22(b)")
+    out["b"] = {"records": records, "elapsed_s": dt,
+                "events_per_s": records / dt, "windows": n_windows,
+                "launches": counts}
+    print(f"phase 22(b): Q5 at 2 subtasks x 4 shards, {records} bids in "
+          f"{dt:.3f} s = {records / dt:.0f} events/s; {n_windows} windows' "
+          f"winners equal phase 5's oracle; launches {counts}")
+
+    # (22c) crash at 4 subtasks, resume at 2 and single-slot; unaligned
+    out["c"] = []
+    for unaligned, resumes in ((False, (2, 0)), (True, (4,))):
+        with tempfile.TemporaryDirectory(dir=".") as ckpt:
+            every = {"state.checkpoints.dir": ckpt,
+                     "execution.checkpointing.every-n-source-batches": 2,
+                     "execution.checkpointing.unaligned": unaligned}
+            crash = _FailAfter(records * 2 // 5, ckpt)
+            c_sink = CollectSink()
+            t0 = time.perf_counter()
+            try:
+                _stage_run(torch, _revenue_job(crash), device,
+                           {**base, **every,
+                            "execution.micro-batch.size": batch // 2,
+                            "execution.stage-parallelism": 4},
+                           records, sink=c_sink)
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                raise AssertionError("22(c): the job did not crash")
+            crashed_s = time.perf_counter() - t0
+            storage = CheckpointStorage(ckpt)
+            newest = storage.latest_checkpoint_id()
+            if newest is None or newest < 2:
+                raise AssertionError(f"22(c): crashed after checkpoint "
+                                     f"{newest}, not after 2")
+            ck_bytes = sum(
+                e.stat().st_size for e in os.scandir(
+                    os.path.join(ckpt, f"chk-{newest}")) if e.is_file())
+            for par in resumes:
+                conf = {**base, "execution.stage-parallelism": par,
+                        "execution.checkpointing.unaligned": unaligned}
+                r_sink, r_res, dt, counts = _stage_run(
+                    torch, _revenue_job(_FailAfter(1 << 62)), device, conf,
+                    records, restore_from=ckpt)
+                add(counts)
+                if device == "cuda" and counts["ordered_fold"] <= 0:
+                    raise AssertionError("22(c) resumed without the "
+                                         "ordered fold")
+                crashed_rows = c_sink.result()
+                rows_r, _ = check_revenue_rows(r_sink.result(), want, cnt,
+                                               "22(c) resumed", full=False)
+                rows_c, _ = check_revenue_rows(crashed_rows, want, cnt,
+                                               "22(c) crashed", full=False)
+                covered = _pairs(crashed_rows) | _pairs(r_sink.result())
+                if len(covered) != int((cnt > 0).sum()):
+                    raise AssertionError("22(c): the two runs miss "
+                                         f"{int((cnt > 0).sum()) - len(covered)}"
+                                         " (auction, window) rows")
+                read = r_res.metrics.get(
+                    "records", r_res.metrics.get("records_emitted_by_sources"))
+                replayed = crash.seen - (records - read)
+                item = {"unaligned": unaligned, "crashed_at": crash.seen,
+                        "checkpoint": newest, "checkpoint_bytes": ck_bytes,
+                        "resumed_at": par or "single-slot",
+                        "restore_ms": r_res.metrics["restore_ms"],
+                        "records_replayed": replayed,
+                        "resumed_records": read,
+                        "resumed_s": dt, "crashed_run_s": crashed_s,
+                        "launches": counts}
+                out["c"].append(item)
+                print(f"phase 22(c): {'unaligned' if unaligned else 'aligned'}"
+                      f" crash after {crash.seen} records at 4 subtasks "
+                      f"(checkpoint {newest}, {ck_bytes} bytes), resumed at "
+                      f"{par or 'single-slot'}: restore "
+                      f"{r_res.metrics['restore_ms']:.2f} ms, {replayed} "
+                      f"records replayed; {rows_c} + {rows_r} rows equal the "
+                      f"oracle and cover it; launches {counts}")
+
+    # (22d) batch mode over the sort-merge shuffle, managed memory; its
+    # runs go through the native codec, which falls back to pickle
+    # silently where it did not build
+    from flink_tpu_torch.native.codec import codec_available
+
+    if not codec_available():
+        raise AssertionError("22(d): the native codec did not build")
+    want_b, cnt_b = revenue_oracle_cached(batch_records)
+    svc = SortMergeShuffleService()
+    spilled = {}
+
+    def with_service(cfg):
+        ex = StageParallelExecutor(cfg, shuffle_service=svc)
+        spilled["ex"] = ex
+        return ex
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        sink, res, dt, counts = _stage_run(
+            torch, _revenue_job(), device,
+            {**base, "execution.stage-parallelism": 4,
+             "execution.runtime-mode": "batch",
+             "memory.device.size": 8 << 30}, batch_records,
+            executor=with_service)
+        spill_bytes = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(svc.directory) for f in fs)
+    finally:
+        svc.close()
+    add(counts)
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("22(d) ran without the ordered fold")
+    rows, windows = check_revenue_rows(sink.result(), want_b, cnt_b, "22(d)")
+    mm = spilled["ex"].memory_manager
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    out["d"] = {"records": batch_records, "elapsed_s": dt,
+                "events_per_s": batch_records / dt, "rows": rows,
+                "spilled_bytes": spill_bytes,
+                "reserved_bytes": mm.reserved_bytes,
+                "reservations": len(mm.usage()),
+                "max_memory_allocated": peak, "launches": counts}
+    print(f"phase 22(d): batch mode over sort-merge (native codec), "
+          f"{batch_records} bids in "
+          f"{dt:.3f} s; {rows} rows equal the oracle; {spill_bytes} bytes "
+          f"spilled; memory.device.size reservations {mm.reserved_bytes} "
+          f"bytes over {len(mm.usage())} owners against "
+          f"max_memory_allocated {peak}; launches {counts}")
+
+    # (22e) the flight recorder on and off
+    out["e"] = _flight_on_off(torch, device, records, batch)
+    add(out["e"]["launches"])
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 22: {seconds:.1f} s; launches {launches}")
+    print("stage " + json.dumps(out, default=str))
+    return {**out, "launches": launches, "seconds": seconds}
+
+
+def _pairs(res):
+    e = np.asarray(res["window_end"]) // SLIDE - 1
+    a = np.asarray(res["auction"]).astype(np.int64)
+    return set((e * AUCTIONS + a).tolist())
+
+
+def q5_flight_rate(device: str, records: int, batch: int,
+                   warmup: int = 0) -> dict:
+    """Phase 5's job at P=8 once, with the recorder as this process has it
+    (``FLINK_TPU_FLIGHT_RECORDER`` is read at import): events/s, the spans
+    of the job by kind, and the registry's window gauges. ``warmup`` > 0
+    runs the job over that many bids first, untimed (a fresh process's
+    first job pays the allocator's and the kernels' first calls)."""
+    import torch
+
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.observe import flight_recorder as flight
+
+    def job(n):
+        env = StreamExecutionEnvironment(Configuration({
+            "parallelism.default": 8, "execution.micro-batch.size": batch,
+            "execution.device": device}))
+        sink = CollectSink()
+        _q5_job(env, n).sink_to(sink)
+        return env, sink
+
+    if warmup:
+        env, _ = job(warmup)
+        env.execute("q5-warmup")
+    env, sink = job(records)
+    flight.recorder().clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = env.execute("q5-flight")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    kinds = {}
+    for r in flight.recorder().snapshot():
+        if r.job == "q5-flight":
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    snap = result.registry.snapshot()
+    return {"enabled": flight.enabled(), "records": records,
+            "elapsed_s": dt, "events_per_s": records / dt,
+            "spans_by_kind": kinds, "launches": read_counts(),
+            "window_gauges": {k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]:
+                              v for k, v in snap.items()
+                              if ".window." in k},
+            "late_dropped": [v for k, v in snap.items()
+                             if k.endswith("numLateRecordsDropped")],
+            "fired_rows": len(sink.rows())}
+
+
+def _flight_on_off(torch, device, records, batch) -> dict:
+    from flink_tpu_torch.observe import KNOWN_SPAN_KINDS
+    from flink_tpu_torch.observe.export import (
+        validate_trace_schema,
+        write_chrome_trace,
+    )
+
+    on = q5_flight_rate(device, records, batch)
+    if not on["enabled"] or not on["spans_by_kind"]:
+        raise AssertionError("22(e): the recorder-on run recorded nothing")
+    if device == "cuda" and on["launches"]["exchange_rank"] <= 0:
+        raise AssertionError("22(e) ran without launching the rank kernel")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "phase22e_trace.json")
+    events = write_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    names = {e["name"] for e in trace["traceEvents"] if e["ph"] != "M"}
+    problems = validate_trace_schema(trace, KNOWN_SPAN_KINDS)
+    need = {"op.process", "op.watermark", "batch.ingest", "fire.dispatch"}
+    if not need <= names or problems:
+        raise AssertionError(f"22(e): the trace lacks {need - names} "
+                             f"or fails its schema: {problems[:3]}")
+    if len(on["late_dropped"]) != 1 or on["late_dropped"][0] != 0:
+        raise AssertionError(f"22(e): numLateRecordsDropped "
+                             f"{on['late_dropped']}, the job drops none")
+    if not {"window.fireCount", "window.fireLatencyP99Ms"} <= set(
+            on["window_gauges"]):
+        raise AssertionError("22(e): the registry lacks the window gauges")
+    # off: a fresh process with FLINK_TPU_FLIGHT_RECORDER=0 (read at
+    # import), warmed first, records nothing and fires the same rows
+    code = ("import json, chip_smoke; print('FLIGHT ' + json.dumps("
+            f"chip_smoke.q5_flight_rate({device!r}, {records}, {batch}, "
+            f"warmup={max(records // 5, 1)})))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=900, env={**os.environ, "FLINK_TPU_FLIGHT_RECORDER": "0"})
+    line = [x for x in proc.stdout.splitlines() if x.startswith("FLIGHT ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"22(e) recorder-off process failed: "
+                             f"{proc.stderr[-2000:]}")
+    off_proc = json.loads(line[-1][len("FLIGHT "):])
+    if off_proc["enabled"] or off_proc["spans_by_kind"] or \
+            off_proc["fired_rows"] != on["fired_rows"]:
+        raise AssertionError(f"22(e): the FLINK_TPU_FLIGHT_RECORDER=0 "
+                             f"process recorded {off_proc['spans_by_kind']}"
+                             f" or fired {off_proc['fired_rows']} rows")
+    ratio = on["events_per_s"] / off_proc["events_per_s"]
+    print(f"phase 22(e): Q5 P=8 {records} bids, recorder on "
+          f"{on['events_per_s']:.0f} events/s (this process), off "
+          f"{off_proc['events_per_s']:.0f} events/s "
+          f"(FLINK_TPU_FLIGHT_RECORDER=0 in a fresh process, 0 spans); "
+          f"on/off {ratio:.4f}; spans by kind {on['spans_by_kind']}; trace "
+          f"{events} events in {path}; window gauges {on['window_gauges']};"
+          f" numLateRecordsDropped 0; launches {on['launches']} (+ "
+          f"{off_proc['launches']} in the fresh process)")
+    launches = {k: on["launches"][k] + off_proc["launches"][k]
+                for k in on["launches"]}
+    return {"in_process": on, "off_process": off_proc,
+            "on_over_off": ratio, "trace_events": events,
+            "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -5585,9 +6068,10 @@ def main() -> int:
         process = phase_process(torch, keep_savepoint=savepoint)
         sql = phase_sql(torch)
         slice21 = phase_slice21(torch, savepoint=savepoint)
+    stage = phase_stage(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values(), shard_loss, process, sql, slice21)
+            *slice11.values(), shard_loss, process, sql, slice21, stage)
 
     kernels = [{
         "name": "exchange_rank",

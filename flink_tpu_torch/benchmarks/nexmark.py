@@ -49,6 +49,9 @@ class BidSource(Source):
         self._stride = 1
         self._offset = 0
 
+    def estimate_records(self):
+        return self.total
+
     def open(self, subtask_index=0, parallelism=1):
         # strided split of the global index space: event time is a
         # function of the global index, so subtasks advance together

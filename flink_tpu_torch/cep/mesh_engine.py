@@ -40,10 +40,11 @@ Shard-granular units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
 the mesh window engines. Not ported, each raising
 ``NotImplementedError`` naming its ROADMAP item: ``shuffle_mode="host"``
-on the device backend, the matched-pattern replica
-(``arm_match_replica``), live ``reshard`` and the metric group (item
-12). The reference's flight-recorder spans are not carried: the
-port's profile wraps the engine's methods in host timers instead
+on the device backend (item 12h), the matched-pattern replica
+(``arm_match_replica``, 12f) and live ``reshard`` (12g). The ``cep``
+metric group registers (``register_metrics``), and each ingest and fire
+is a flight-recorder span; the port's profile also wraps the engine's
+methods in host timers
 (``benchmarks/cep.py --profile``).
 """
 
@@ -60,6 +61,7 @@ from flink_tpu_torch.cep.nfa import Match
 from flink_tpu_torch.cep.operator import CepOperator, default_select
 from flink_tpu_torch.cep.pattern import Pattern
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.core.device import DeviceLike
 from flink_tpu_torch.core.records import RecordBatch
 from flink_tpu_torch.ops.segment_ops import pad_bucket_size, sticky_bucket
@@ -206,7 +208,7 @@ class MeshCepEngine(WatchdogHooks):
             self._layout = kernels.compile_device_pattern(self.pattern)
             if shuffle_mode == "host":
                 raise _not_ported(
-                    "shuffle.mode='host' for the CEP engine", 12)
+                    "shuffle.mode='host' for the CEP engine", "12h")
             if mesh is None:
                 mesh = make_mesh(num_shards, device)
             self.mesh = mesh
@@ -301,16 +303,37 @@ class MeshCepEngine(WatchdogHooks):
             with self._wd_section("fence_drain"):
                 self._fences.pop(0).block_until_ready()
 
+    def register_metrics(self, group) -> None:
+        """The engine's counters as gauges under ``<scope>.cep``."""
+        g = group.add_group("cep")
+        g.gauge("matches_emitted",
+                lambda: int(self.matches_emitted))
+        g.gauge("live_partials", self._live_partials)
+        g.gauge("partials_pruned_within",
+                lambda: int(self.partials_pruned_within))
+        g.gauge("late_dropped", lambda: int(self.late_dropped))
+        g.gauge("host_fallbacks", lambda: int(HOST_FALLBACKS))
+
+    def _live_partials(self) -> int:
+        if self.backend == "host":
+            return sum(len(n.partials) for n in self._op._nfas.values())
+        Q = self._layout.n_states
+        total = 0
+        for sh in self._st:
+            if not sh.slot_of:
+                continue
+            slots = np.fromiter(sh.slot_of.values(), dtype=np.int64,
+                                count=len(sh.slot_of))
+            total += int(self._popcount(sh.alive[slots], Q).sum())
+        return total
+
     # -------------------------------------------------------- not ported
 
-    def register_metrics(self, group) -> None:
-        raise _not_ported("the cep metric group", 12)
-
     def arm_match_replica(self, serving: bool = False):
-        raise _not_ported("the matched-pattern read replica", 12)
+        raise _not_ported("the matched-pattern read replica", "12f")
 
     def reshard(self, new_shards: int, devices=None):
-        raise _not_ported("live reshard", 12)
+        raise _not_ported("live reshard", "12g")
 
     # --------------------------------------------------------------- ingest
 
@@ -337,10 +360,18 @@ class MeshCepEngine(WatchdogHooks):
             c += (x >> q) & 1
         return c
 
+    #: the flight recorder's per-engine batch sequence
+    _flight_batch = 0
+
     def process_batch(self, batch: RecordBatch, input_index: int = 0
                       ) -> List[RecordBatch]:
         if len(batch) == 0:
             return []
+        self._flight_batch += 1
+        with flight.ingest_span(self._flight_batch):
+            return self._process_batch_inner(batch)
+
+    def _process_batch_inner(self, batch: RecordBatch) -> List[RecordBatch]:
         # late-drop policy (both backends, BEFORE stage evaluation):
         # events at-or-before the last fired watermark are dropped — the
         # oracle has already advanced past them
@@ -464,7 +495,10 @@ class MeshCepEngine(WatchdogHooks):
 
     def on_watermark(self, watermark: int, input_index: int = 0
                      ) -> List[RecordBatch]:
-        watermark = int(watermark)
+        with flight.fire_span(watermark):
+            return self._on_watermark_inner(int(watermark))
+
+    def _on_watermark_inner(self, watermark: int) -> List[RecordBatch]:
         self._wd_boundary()
         if self.backend == "host":
             out = self._op.process_watermark(watermark)

@@ -96,3 +96,6 @@ class MeshCepOperator(Operator):
 
     def spill_counters(self):
         return self.engine.spill_counters()
+
+    def register_metrics(self, group) -> None:
+        self.engine.register_metrics(group)

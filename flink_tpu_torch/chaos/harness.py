@@ -19,9 +19,12 @@ any lost, duplicated or corrupted record as a wrong final value.
 :func:`run_shard_loss_verify` is the partial-failover form: the unit of
 failure and recovery is the SHARD (key-group range), not the job.
 
+``ChaosReport.register_metrics`` puts the report's restore-path counters
+on a job metric tree, and each shard failover is a ``failover.replay``
+span in the flight recorder's timeline.
+
 Not carried: ``rebalances=`` and ``run_crash_restore_verify_multi`` (live
-rebalance and the tenancy schedule, ROADMAP item 12), the report's metric
-gauges and the trace spans (item 12).
+rebalance, ROADMAP Queue A item 12g, and the tenancy schedule, item 12f).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.chaos.injection import FaultPlan, InjectedFault
 
 #: end-of-stream watermark (the test-suite flush convention)
@@ -70,7 +74,7 @@ class ChaosReport:
     shard_restores: int = 0
     records_replayed: int = 0
     shard_loss_recovery_ms: float = 0.0
-    #: host-granular failovers (item 12): 0, the signature's key kept
+    #: host-granular failovers (item 12h): 0, the signature's key kept
     hosts_lost: int = 0
     divergences: List[str] = dataclasses.field(default_factory=list)
     #: measurements, not part of the signature: events fed again after
@@ -97,6 +101,17 @@ class ChaosReport:
     @property
     def diverged(self) -> bool:
         return bool(self.divergences)
+
+    def register_metrics(self, group) -> None:
+        """The restore-path counters on a job metric tree
+        (``<scope>.chaos.*``): gauges read the live report, so a group
+        registered before the run sees every later restore."""
+        g = group.add_group("chaos")
+        for name in ("restores", "cold_restarts",
+                     "corrupt_checkpoints_skipped", "crashes",
+                     "shards_lost", "hosts_lost", "shard_restores",
+                     "records_replayed", "checkpoints_written"):
+            g.gauge(name, lambda self=self, n=name: getattr(self, n))
 
     def signature(self) -> Dict[str, Any]:
         """The determinism fingerprint: two runs with the same (plan, seed,
@@ -474,73 +489,76 @@ def run_shard_loss_verify(
                 if pending_loss is not None:
                     dead_shards, at_phase = pending_loss
                     t0 = time.perf_counter()
-                    g0, g1 = engine.lose_shards(list(dead_shards))
-                    loss = engine.last_shard_loss
-                    _part("evacuate", loss["evacuate_seconds"])
-                    _part("rebuild", loss["rebuild_seconds"])
-                    _part("land", loss["land_seconds"])
-                    groups = range(g0, g1 + 1)
-                    # gates SPLIT around the dead range: its overlap is
-                    # rebuilt from its unit, but a partly overlapping
-                    # gate's outside sub-ranges are still ahead of pos
-                    split: List[Tuple[int, int, int]] = []
-                    for a, b, p_r in gates:
-                        if b < g0 or a > g1:
-                            split.append((a, b, p_r))
-                            continue
-                        if a < g0:
-                            split.append((a, g0 - 1, p_r))
-                        if b > g1:
-                            split.append((g1 + 1, b, p_r))
-                    gates = split
-                    t1 = time.perf_counter()
-                    found = storage.latest_units_for_groups(groups)
-                    t2 = time.perf_counter()
-                    if found is None:
-                        unit_pos = 0
-                        # a cold range: its guards roll back to the start
-                        engine.restore_key_groups({"table": {}}, groups)
-                    else:
-                        _ucid, states, unit_pos = found
-                        engine.restore_key_groups(
-                            engine.merge_unit_snapshots(states), groups)
-                        report.shard_restores += 1
-                    t3 = time.perf_counter()
-                    _part("unit_read", t2 - t1)
-                    _part("unit_restore", t3 - t2)
-                    # the range's uncommitted output rolls back with its
-                    # state; the replay produces it again
-                    if epoch:
-                        ekeys = np.asarray([k[0] for k in epoch],
-                                           dtype=np.int64)
-                        drop = _range_mask(ekeys, g0, g1)
-                        epoch = {k: v for k, v, d in zip(
-                            epoch, epoch.values(), drop) if not d}
-                    # bounded replay: ONLY the range's records, from the
-                    # unit's position; a step interrupted mid-watermark
-                    # (at_phase=1) already absorbed pos's batch on the
-                    # survivors, so the range absorbs through pos
-                    # INCLUSIVE and the main flow fires pos's watermark
-                    # for everyone. The watchdog is detached for the
-                    # replay: a second loss declared mid-replay would
-                    # abandon this range's rebuild (a dead second shard
-                    # is declared at the next main-loop boundary)
-                    wd_held = engine._watchdog
-                    engine.attach_watchdog(None)
-                    try:
-                        upto = pos + (1 if at_phase == 1 else 0)
-                        for rpos in range(unit_pos, min(upto, n_steps)):
-                            keys, vals, ts, _wm = steps[rpos]
-                            mask = _range_mask(keys, g0, g1)
-                            if mask.any():
-                                engine.process_batch(_keyed_batch(
-                                    keys[mask], vals[mask], ts[mask]))
-                                report.records_replayed += int(mask.sum())
-                            if rpos < pos:
-                                _collect(engine.on_watermark(
-                                    int(steps[rpos][3])), epoch)
-                    finally:
-                        engine._watchdog = wd_held
+                    # the recovery in the flight recorder's timeline
+                    with flight.span("failover.replay",
+                                     shard=int(dead_shards[0])):
+                        g0, g1 = engine.lose_shards(list(dead_shards))
+                        loss = engine.last_shard_loss
+                        _part("evacuate", loss["evacuate_seconds"])
+                        _part("rebuild", loss["rebuild_seconds"])
+                        _part("land", loss["land_seconds"])
+                        groups = range(g0, g1 + 1)
+                        # gates SPLIT around the dead range: its overlap is
+                        # rebuilt from its unit, but a partly overlapping
+                        # gate's outside sub-ranges are still ahead of pos
+                        split: List[Tuple[int, int, int]] = []
+                        for a, b, p_r in gates:
+                            if b < g0 or a > g1:
+                                split.append((a, b, p_r))
+                                continue
+                            if a < g0:
+                                split.append((a, g0 - 1, p_r))
+                            if b > g1:
+                                split.append((g1 + 1, b, p_r))
+                        gates = split
+                        t1 = time.perf_counter()
+                        found = storage.latest_units_for_groups(groups)
+                        t2 = time.perf_counter()
+                        if found is None:
+                            unit_pos = 0
+                            # a cold range: its guards roll back to the start
+                            engine.restore_key_groups({"table": {}}, groups)
+                        else:
+                            _ucid, states, unit_pos = found
+                            engine.restore_key_groups(
+                                engine.merge_unit_snapshots(states), groups)
+                            report.shard_restores += 1
+                        t3 = time.perf_counter()
+                        _part("unit_read", t2 - t1)
+                        _part("unit_restore", t3 - t2)
+                        # the range's uncommitted output rolls back with its
+                        # state; the replay produces it again
+                        if epoch:
+                            ekeys = np.asarray([k[0] for k in epoch],
+                                               dtype=np.int64)
+                            drop = _range_mask(ekeys, g0, g1)
+                            epoch = {k: v for k, v, d in zip(
+                                epoch, epoch.values(), drop) if not d}
+                        # bounded replay: ONLY the range's records, from the
+                        # unit's position; a step interrupted mid-watermark
+                        # (at_phase=1) already absorbed pos's batch on the
+                        # survivors, so the range absorbs through pos
+                        # INCLUSIVE and the main flow fires pos's watermark
+                        # for everyone. The watchdog is detached for the
+                        # replay: a second loss declared mid-replay would
+                        # abandon this range's rebuild (a dead second shard
+                        # is declared at the next main-loop boundary)
+                        wd_held = engine._watchdog
+                        engine.attach_watchdog(None)
+                        try:
+                            upto = pos + (1 if at_phase == 1 else 0)
+                            for rpos in range(unit_pos, min(upto, n_steps)):
+                                keys, vals, ts, _wm = steps[rpos]
+                                mask = _range_mask(keys, g0, g1)
+                                if mask.any():
+                                    engine.process_batch(_keyed_batch(
+                                        keys[mask], vals[mask], ts[mask]))
+                                    report.records_replayed += int(mask.sum())
+                                if rpos < pos:
+                                    _collect(engine.on_watermark(
+                                        int(steps[rpos][3])), epoch)
+                        finally:
+                            engine._watchdog = wd_held
                     t4 = time.perf_counter()
                     _part("replay", t4 - t3)
                     report.shard_loss_recovery_ms += (t4 - t0) * 1e3

@@ -19,9 +19,9 @@
   ``InjectedFault``s with the reference's exponential backoff and counts
   ``retries`` / ``recoveries``.
 
-Not carried: ``register_chaos_metrics`` (the port has no metrics registry
-yet, ROADMAP.md Queue A item 12) and the flight-recorder instant of each
-injection (no tracing yet, item 12).
+``register_chaos_metrics`` puts the armed controller's counters on a
+job's metric tree (``job.<name>.chaos``), and every injection lands a
+``chaos.inject`` instant in the flight recorder's timeline.
 """
 
 from __future__ import annotations
@@ -241,6 +241,16 @@ class ChaosController:
                     self._injections[i] += 1
                     self.faults_injected[point] = \
                         self.faults_injected.get(point, 0) + 1
+                    # the injection in the flight recorder's timeline,
+                    # under the span that was open when it fired
+                    from flink_tpu_torch.observe import (
+                        flight_recorder as flight,
+                    )
+
+                    flight.instant(
+                        "chaos.inject",
+                        shard=int(ctx.get("shard", -1))
+                        if isinstance(ctx.get("shard"), int) else -1)
                     return rule
             return None
 
@@ -417,7 +427,17 @@ def io_point(point: str, **ctx) -> None:
 
 
 def register_chaos_metrics(group) -> None:
-    """The controller's counters as gauges of a job metric group."""
-    raise NotImplementedError(
-        "register_chaos_metrics is not ported to flink_tpu_torch yet "
-        "(ROADMAP.md, Queue A item 12: the metrics registry)")
+    """Register the armed controller's counters as gauges on an
+    existing MetricGroup (job -> chaos scope). Values are read live at
+    report time, so gauges registered at job start see every later
+    injection. No-op when disarmed."""
+    c = _controller
+    if c is None:
+        return
+    g = group.add_group("chaos")
+    g.gauge("faults_injected",
+            lambda c=c: sum(c.faults_injected.values()))
+    g.gauge("retries", lambda c=c: c.retries)
+    g.gauge("recoveries", lambda c=c: c.recoveries)
+    g.gauge("points_hit", lambda c=c: sum(c.points_hit.values()))
+    g.gauge("retry_budget_exhausted", lambda c=c: c.budget_exhausted)

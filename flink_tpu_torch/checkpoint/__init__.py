@@ -1,7 +1,7 @@
 """Checkpoints (port of ``flink_tpu/checkpoint``): storage with manifests
 and CRCs, full and incremental checkpoints, savepoints and restore modes,
-and shard-granular units (``sharded.py``). The changelog is ROADMAP item
-8b."""
+shard-granular units (``sharded.py``) and the changelog backend
+(``changelog.py``)."""
 
 from flink_tpu_torch.checkpoint.storage import (
     CheckpointMetadata,

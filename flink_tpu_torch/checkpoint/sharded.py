@@ -22,8 +22,10 @@ A delta unit materializes over its base through the port's
 (ROADMAP.md Queue C item R2): a session fired between a base unit and its
 delta does not come back. The reference's merge recurses into them.
 
-Not carried: the trace and flight-recorder spans of writes and restores
-(tracing, ROADMAP.md Queue A item 12).
+A write is a ``checkpoint.write`` span and a range's restore lookup a
+``checkpoint.restore`` span in the flight recorder's timeline, and each
+is a span of the storage's ``TraceCollector`` (``traces=``, the process
+default otherwise) with the checkpoint's id.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from flink_tpu_torch.checkpoint.storage import (
     verify_snapshot_files,
     write_snapshot_dir,
 )
+from flink_tpu_torch.observe import flight_recorder as flight
 
 GroupRange = Tuple[int, int]
 
@@ -61,9 +64,14 @@ class ShardedCheckpointStorage:
     of corruption, fallback and restore is the RANGE, never the whole
     checkpoint."""
 
-    def __init__(self, root: str, compress: bool = True):
+    def __init__(self, root: str, compress: bool = True, traces=None):
+        from flink_tpu_torch.metrics.traces import default_collector
+
         self.root = root
         self.compress = compress
+        #: the TraceCollector of write and restore spans: the process
+        #: default unless the owner threads its own
+        self.traces = traces or default_collector()
         #: ids whose every unit passed a full CRC verification in this
         #: process (units are immutable after the atomic rename)
         self._verified_ids: set = set()
@@ -80,6 +88,17 @@ class ShardedCheckpointStorage:
         partial failover; restore replays each range from its own).
         ``incremental_base``: record each unit as a delta over the same
         range's unit in chk-<base>."""
+        with flight.span("checkpoint.write"), \
+                self.traces.span("checkpoint", "sharded-write") as sp:
+            sp.set_attribute("checkpointId", int(checkpoint_id))
+            sp.set_attribute("units", len(units))
+            sp.set_attribute("incremental", incremental_base is not None)
+            return self._write_checkpoint_inner(
+                checkpoint_id, job_name, units, positions, incremental_base)
+
+    def _write_checkpoint_inner(self, checkpoint_id: int, job_name: str,
+                                units, positions,
+                                incremental_base: Optional[int]) -> str:
         final_dir = self._dir(checkpoint_id)
         parent = os.path.dirname(os.path.abspath(final_dir)) or "."
         os.makedirs(parent, exist_ok=True)
@@ -185,6 +204,16 @@ class ShardedCheckpointStorage:
         unit fails THIS checkpoint for this range only — the search falls
         back to the previous checkpoint's covering units. None when no
         checkpoint covers the groups (a cold start for that range)."""
+        gset = [int(g) for g in groups]
+        with flight.span("checkpoint.restore"), \
+                self.traces.span("recovery", "restore-units") as sp:
+            sp.set_attribute("key_groups", [min(gset), max(gset)])
+            found = self._latest_units_for_groups(gset)
+            sp.set_attribute("checkpointId",
+                             found[0] if found is not None else None)
+            return found
+
+    def _latest_units_for_groups(self, groups):
         gset = set(int(g) for g in groups)
         lo, hi = min(gset), max(gset)
         for cid in reversed(self.checkpoint_ids()):

@@ -47,13 +47,28 @@ firing what is open (the operators are disposed: those windows resume
 from the savepoint), and with ``drain=True`` as well every source first
 advances to ``MAX_WATERMARK`` so every window and timer fires before the
 snapshot. ``result.metrics["savepoint"]`` names a stop's savepoint. A
-state query or rescale request fails its future (item 12); requests
+state query (item 12e) or rescale request (12g) fails its future; requests
 still queued when the job ends fail too.
 
-Not in this slice: source pump threads (sources are polled inline),
-state queries and rescale requests, restart strategies, autoscale,
-managed memory, the metrics registry and tracing — see ROADMAP.md
-(item 12).
+Source pumps: with ``execution.pipeline.in-flight-batches`` > 0 (default
+2) each source is polled and timestamped by a thread of its own, a
+bounded queue of that many batches ahead of the loop; each entry carries
+the position after its batch, so a checkpoint cut covers exactly the
+consumed prefix.
+
+Observability: every job builds a ``MetricRegistry`` and a
+``TraceCollector`` (``result.registry``, ``result.traces``): per operator
+``numRecordsIn/Out``, ``currentInputWatermark``, ``busyTimeMsTotal``,
+event-time latency markers and watermark lag, the ``state`` group from
+``spill_counters()``, the ``window`` group's fire-latency percentiles and
+``numLateRecordsDropped`` where an operator counts late records; the
+chaos and watchdog groups when armed, and the flight recorder's per-kind
+aggregates at the registry root. ``memory.device.size`` > 0 makes one
+``MemoryManager`` the pool every stateful operator reserves from.
+
+Not in this slice: state queries (ROADMAP.md Queue A item 12e), rescale
+requests and autoscale (12g), restart strategies (12c), and the
+``key_imbalance`` gauge (12g).
 """
 
 from __future__ import annotations
@@ -76,10 +91,13 @@ from flink_tpu_torch.core.config import (
     ExecutionModeOptions,
     ExecutionOptions,
     LatencyOptions,
+    MemoryOptions,
     StateOptions,
     check_unread_keys,
 )
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
+from flink_tpu_torch.metrics.core import quantile_sorted
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
 from flink_tpu_torch.runtime.operators import Operator, OperatorContext
 from flink_tpu_torch.runtime.process import TaggedBatch
@@ -89,7 +107,8 @@ from flink_tpu_torch.runtime.watermarks import WatermarkValve
 
 class _Node:
     __slots__ = ("transformation", "operator", "valve", "children",
-                 "child_input_idx", "records_in", "records_out", "held_wm")
+                 "child_input_idx", "records_in", "records_out", "held_wm",
+                 "busy_s", "marker_hist")
 
     def __init__(self, transformation: Transformation,
                  operator: Optional[Operator]):
@@ -102,6 +121,10 @@ class _Node:
         self.records_out = 0
         #: watermark held back while the operator has in-flight fires
         self.held_wm: Optional[int] = None
+        #: wall seconds inside this operator's hooks (busyTimeMsTotal)
+        self.busy_s = 0.0
+        #: the operator's latency-marker histogram
+        self.marker_hist = None
 
 
 class _ControlRequest:
@@ -131,7 +154,7 @@ class _ControlRequest:
 
 class StateQueryRequest(_ControlRequest):
     """A point lookup of an operator's state (served by the reference;
-    refused here, item 12)."""
+    refused here, item 12e)."""
 
     timeout_message = "state query not served"
 
@@ -144,7 +167,7 @@ class StateQueryRequest(_ControlRequest):
 
 class RescaleRequest(_ControlRequest):
     """A live rescale of the job's mesh engine (served by the reference;
-    refused here, item 12)."""
+    refused here, item 12g)."""
 
     timeout_message = "rescale not served"
 
@@ -169,10 +192,136 @@ class SavepointRequest(_ControlRequest):
         return self.result
 
 
-def _quantile_sorted(data: List[float], q: float) -> float:
-    if not data:
-        return 0.0
-    return data[min(len(data) - 1, int(q * len(data)))]
+class _SourcePump:
+    """Bounded-prefetch source reader: a thread that polls one source,
+    assigns timestamps and watermarks, and hands (batch, watermark,
+    position) entries to the task loop through a bounded queue.
+
+    The queue bound IS the backpressure (credit-based flow control,
+    reference: RemoteInputChannel.java:114 unannouncedCredit — here a
+    credit is a queue slot). Each entry carries the source position taken
+    AFTER that batch, so a checkpoint cut at batch boundary N snapshots
+    exactly the consumed prefix — prefetched-but-unprocessed batches are
+    re-read after restore.
+
+    The pump owns the source object while running (single-owner
+    discipline); the task loop touches the source only after ``stop()``.
+    """
+
+    _EOS = object()
+
+    def __init__(self, transformation, batch_size: int, in_flight: int):
+        self.t = transformation
+        self.batch_size = batch_size
+        self.queue: "queue.Queue" = queue.Queue(maxsize=max(in_flight, 1))
+        self.wm_gen = transformation.watermark_strategy.create()
+        self._stop = threading.Event()    # stop reading new batches
+        self._abort = threading.Event()   # discard mode: puts give up
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name=f"source-pump-{transformation.name}",
+            daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        # an already-polled batch advanced the source position, so it must
+        # reach the consumer unless the job is abandoning data outright
+        # (_abort); a mere stop_filling keeps trying while the drain path
+        # consumes
+        while not self._abort.is_set():
+            try:
+                self.queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self) -> None:
+        src = self.t.source
+        strategy = self.t.watermark_strategy
+        try:
+            while not self._stop.is_set():
+                # batch_size is re-read each poll: the adaptive controller
+                # on the task loop may resize it (benign cross-thread read)
+                batch = src.poll_batch(self.batch_size)
+                if batch is None:
+                    self._put((self._EOS, None, src.snapshot_position()))
+                    return
+                if len(batch) == 0:
+                    continue
+                batch = strategy.assign_timestamps(batch)
+                wm = self.wm_gen.on_batch(batch)
+                pos = src.snapshot_position()
+                if not self._put((batch, wm, pos)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - surfaced to task loop
+            self.error = e
+            self._put((self._EOS, None, None))
+
+    def poll(self, timeout: float = 0.0):
+        """One queue entry or None. Raises the pump's error, if any."""
+        try:
+            entry = self.queue.get(timeout=timeout) if timeout \
+                else self.queue.get_nowait()
+        except queue.Empty:
+            return None
+        if entry[0] is self._EOS and self.error is not None:
+            raise self.error
+        return entry
+
+    def stop_filling(self) -> None:
+        """Stop reading new batches; already-queued entries stay consumable
+        (the drain path processes them before the final snapshot)."""
+        self._stop.set()
+
+    def consume_remaining(self):
+        """Yield the queued entries after ``stop_filling`` until the pump
+        thread has exited and the queue is empty."""
+        while self._thread.is_alive() or not self.queue.empty():
+            try:
+                yield self.queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+
+    def stop(self) -> None:
+        """Hard stop: discard prefetched entries (no-drain paths — the
+        consumed-prefix position makes dropped entries re-readable)."""
+        self._stop.set()
+        self._abort.set()
+        try:
+            while True:
+                self.queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5)
+
+
+def operator_context(cfg: Configuration, parallelism: int,
+                     async_fires: Optional[bool] = None,
+                     **kwargs) -> OperatorContext:
+    """The context an operator opens with, from the job's configuration
+    (``kwargs``: ``operator_index``, ``watchdog``, ``memory_manager``,
+    ``key_group_range``)."""
+    return OperatorContext(
+        parallelism=parallelism,
+        max_parallelism=cfg.get(CoreOptions.MAX_PARALLELISM),
+        async_fires=(cfg.get(BatchOptions.ASYNC_FIRES)
+                     if async_fires is None else async_fires),
+        max_dispatch_ahead=cfg.get(BatchOptions.MAX_DISPATCH_AHEAD),
+        shuffle_mode=cfg.get(DeploymentOptions.SHUFFLE_MODE),
+        device=cfg.get(ExecutionOptions.DEVICE),
+        window_layout=cfg.get(StateOptions.WINDOW_LAYOUT),
+        state_backend=cfg.get(StateOptions.BACKEND),
+        spill={
+            "max_device_slots": cfg.get(StateOptions.MAX_DEVICE_SLOTS),
+            "spill_dir": cfg.get(StateOptions.SPILL_DIR),
+            "spill_host_max_bytes": cfg.get(
+                StateOptions.SPILL_HOST_MAX_BYTES),
+        },
+        pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG),
+        **kwargs)
 
 
 class LocalExecutor:
@@ -225,37 +374,53 @@ class LocalExecutor:
         # ShardFailedError it raises leaves execute() (the shard-granular
         # recovery protocol is chaos.harness.run_shard_loss_verify)
         watchdog = watchdog_from_config(cfg, default_par)
+        # metrics and traces: the job's metric tree, its checkpoint and
+        # recovery spans, and the flight recorder named for this job
+        from flink_tpu_torch.metrics import MetricRegistry, TraceCollector
+        from flink_tpu_torch.observe.export import (
+            LatencyMarkerPlane,
+            register_flight_metrics,
+        )
+
+        registry = MetricRegistry()
+        traces = TraceCollector()
+        job_group = registry.root_group("job", job_name)
+        chaos.register_chaos_metrics(job_group)
+        flight.set_job(job_name)
+        # the flight aggregates are process-global (one recorder for
+        # every job of the process): they sit at the registry root
+        register_flight_metrics(registry.root_group())
+        # each source batch is the latency marker
+        lat_plane = self._lat_plane = LatencyMarkerPlane()
+        if watchdog is not None:
+            watchdog.register_metrics(job_group)
+        memory_manager = None
+        if cfg.get(MemoryOptions.DEVICE_MEMORY_BUDGET) > 0:
+            from flink_tpu_torch.core.memory import MemoryManager
+
+            # one pool per job: every stateful operator's device state
+            # reserves from it
+            memory_manager = MemoryManager(
+                cfg.get(MemoryOptions.DEVICE_MEMORY_BUDGET))
+        self.memory_manager = memory_manager
         nodes: Dict[int, _Node] = {}
         sources = [(t, None) for t in graph.sources]
+        pumps: Dict[int, _SourcePump] = {}
         try:
             for t in graph.nodes:
                 op = t.operator_factory() if t.operator_factory else None
                 node = _Node(t, op)
                 nodes[t.uid] = node
+                self._register_node_metrics(job_group, lat_plane, node)
                 if op is not None:
                     # explicit set_parallelism wins; otherwise keyed
                     # operators pick up parallelism.default
                     par = t.parallelism if t.parallelism else (
                         default_par if t.keyed else 1)
-                    op.open(OperatorContext(
-                        parallelism=par,
-                        max_parallelism=cfg.get(CoreOptions.MAX_PARALLELISM),
-                        async_fires=cfg.get(BatchOptions.ASYNC_FIRES),
-                        max_dispatch_ahead=cfg.get(
-                            BatchOptions.MAX_DISPATCH_AHEAD),
-                        shuffle_mode=cfg.get(DeploymentOptions.SHUFFLE_MODE),
-                        device=cfg.get(ExecutionOptions.DEVICE),
-                        window_layout=cfg.get(StateOptions.WINDOW_LAYOUT),
-                        state_backend=cfg.get(StateOptions.BACKEND),
-                        spill={
-                            "max_device_slots": cfg.get(
-                                StateOptions.MAX_DEVICE_SLOTS),
-                            "spill_dir": cfg.get(StateOptions.SPILL_DIR),
-                            "spill_host_max_bytes": cfg.get(
-                                StateOptions.SPILL_HOST_MAX_BYTES),
-                        },
-                        pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG),
-                        watchdog=watchdog))
+                    op.open(operator_context(
+                        cfg, par, watchdog=watchdog,
+                        memory_manager=memory_manager))
+                    self._register_operator_metrics(job_group, node)
             for t in graph.nodes:
                 n = nodes[t.uid]
                 for child_t in graph.children(t):
@@ -274,11 +439,27 @@ class LocalExecutor:
             # its id would alias a sibling checkpoint)
             last_written_id = None
             if restore_from is not None:
-                checkpoint_count, claimed, last_written_id = self._restore(
-                    graph, nodes, restore_from, restore_mode, ckpt_dir,
-                    storage)
+                with flight.span("checkpoint.restore"), \
+                        traces.span("recovery", "restore") as rsp:
+                    checkpoint_count, claimed, last_written_id = \
+                        self._restore(graph, nodes, restore_from,
+                                      restore_mode, ckpt_dir, storage)
+                    rsp.set_attribute("checkpointId", checkpoint_count)
             source_positions: Dict[int, Any] = {
                 t.uid: t.source.snapshot_position() for t, _ in sources}
+            # host/device overlap: pump threads poll and timestamp the
+            # next batches while this loop drives the current one
+            in_flight = cfg.get(BatchOptions.IN_FLIGHT_BATCHES)
+            if in_flight > 0:
+                for t, _ in sources:
+                    pumps[t.uid] = _SourcePump(t, batch_size, in_flight)
+                for pump in pumps.values():
+                    pump.start()
+            # records prefetched but not yet processed (the backlog)
+            job_group.gauge(
+                "sourceBacklogRecordsEstimate",
+                lambda: sum(pump.queue.qsize() * pump.batch_size
+                            for pump in pumps.values()))
             batches_since_ckpt = 0
             last_ckpt = time.time() * 1000
             incremental = cfg.get(CheckpointOptions.INCREMENTAL)
@@ -323,31 +504,59 @@ class LocalExecutor:
                 for t, node in sources:
                     if t.uid not in active:
                         continue
-                    batch = t.source.poll_batch(batch_size)
-                    if batch is None:
-                        active.discard(t.uid)
-                        self._emit_watermark(node, MAX_WATERMARK)
-                        t.source.close()
-                        continue
-                    if len(batch) == 0:
-                        continue
+                    if pumps:
+                        entry = pumps[t.uid].poll(
+                            timeout=0.002 if not progressed else 0.0)
+                        if entry is None:
+                            continue
+                        batch, wm, pos = entry
+                        if batch is _SourcePump._EOS:
+                            active.discard(t.uid)
+                            if pos is not None:
+                                source_positions[t.uid] = pos
+                            self._emit_watermark(node, MAX_WATERMARK)
+                            t.source.close()
+                            continue
+                    else:
+                        batch = t.source.poll_batch(batch_size)
+                        if batch is None:
+                            active.discard(t.uid)
+                            self._emit_watermark(node, MAX_WATERMARK)
+                            t.source.close()
+                            continue
+                        if len(batch) == 0:
+                            continue
+                        batch = t.watermark_strategy.assign_timestamps(
+                            batch)
+                        wm = generators[t.uid].on_batch(batch)
+                        pos = t.source.snapshot_position()
                     progressed = True
-                    batch = t.watermark_strategy.assign_timestamps(batch)
-                    wm = generators[t.uid].on_batch(batch)
-                    source_positions[t.uid] = t.source.snapshot_position()
+                    source_positions[t.uid] = pos
                     batches_since_ckpt += 1
                     total_records += len(batch)
                     tb = time.perf_counter() if debloater else 0.0
-                    if self._fire_deadline_ms > 0 and not batch_mode:
-                        self._emit_deadline_split(node, batch, nodes, wm)
-                    else:
-                        self._emit_batch(node, batch)
-                        if wm is not None and not batch_mode:
-                            self._emit_watermark(node, wm)
+                    # this batch IS the latency marker; it dies with the
+                    # synchronous push (later drains are not its latency)
+                    lat_plane.stamp_source()
+                    if wm is not None and not batch_mode:
+                        lat_plane.note_source_watermark(int(wm),
+                                                        source=t.uid)
+                    try:
+                        if self._fire_deadline_ms > 0 and not batch_mode:
+                            self._emit_deadline_split(node, batch, nodes,
+                                                      wm)
+                        else:
+                            self._emit_batch(node, batch)
+                            if wm is not None and not batch_mode:
+                                self._emit_watermark(node, wm)
+                    finally:
+                        lat_plane.end_marker()
                     if debloater is not None:
                         batch_size = debloater.observe(
                             len(batch), time.perf_counter() - tb)
-                if not progressed and active:
+                        for pump in pumps.values():
+                            pump.batch_size = batch_size
+                if not progressed and active and not pumps:
                     # an idle source (a socket without data): do not spin
                     time.sleep(0.001)
                 if storage is not None:
@@ -361,10 +570,19 @@ class LocalExecutor:
                         use_delta = (incremental
                                      and last_written_id is not None
                                      and since_full < full_every)
-                        new_dir = self._write_checkpoint(
-                            graph, nodes, storage, checkpoint_count,
-                            job_name, source_positions, use_delta,
-                            last_written_id)
+                        with flight.span("checkpoint.write"), traces.span(
+                                "checkpoint",
+                                f"checkpoint-{checkpoint_count}") as sp:
+                            new_dir = self._write_checkpoint(
+                                graph, nodes, storage, checkpoint_count,
+                                job_name, source_positions, use_delta,
+                                last_written_id)
+                            sp.set_attribute("checkpointId",
+                                             checkpoint_count)
+                            sp.set_attribute("incremental", use_delta)
+                            sp.set_attribute(
+                                "stateSizeBytes",
+                                self.checkpoints[-1]["bytes"])
                         last_written_id = checkpoint_count
                         since_full = since_full + 1 if use_delta else 1
                         if claimed is not None:
@@ -383,7 +601,8 @@ class LocalExecutor:
                 if control_queue is not None:
                     stopped = self._serve_control(
                         control_queue, graph, nodes, sources, active,
-                        job_name, checkpoint_count, source_positions)
+                        job_name, checkpoint_count, source_positions,
+                        pumps)
                     if stopped is not None:
                         savepoint_path = stopped.result_path
                         suppress_final_drain = not stopped.drain
@@ -405,6 +624,8 @@ class LocalExecutor:
                 control_queue, f"job {job_name!r} already terminated")
         except BaseException:
             # failure path: release resources without emitting
+            for pump in pumps.values():
+                pump.stop()
             for t, _ in sources:
                 t.source.close()
             for node in nodes.values():
@@ -431,6 +652,10 @@ class LocalExecutor:
                        if hasattr(n.operator, "counters") else {})}
                 for uid, n in nodes.items()},
         }
+        if getattr(self, "fallback_reason", None):
+            # execution.stage-parallelism was asked for and the graph could
+            # not be expanded (execution.stage-fallback)
+            metrics["stage_fallback"] = self.fallback_reason
         if watchdog is not None:
             # the numbers the reference's job.<name>.watchdog gauges read
             metrics["watchdog"] = watchdog.counters()
@@ -442,18 +667,72 @@ class LocalExecutor:
         if fire_latencies:
             fire_latencies.sort()
             metrics["window_fire_latency_ms"] = {
-                "p50": _quantile_sorted(fire_latencies, 0.5),
-                "p99": _quantile_sorted(fire_latencies, 0.99),
+                "p50": quantile_sorted(fire_latencies, 0.5),
+                "p99": quantile_sorted(fire_latencies, 0.99),
                 "max": fire_latencies[-1],
                 "count": len(fire_latencies),
             }
-        return JobExecutionResult(job_name, metrics)
+        result = JobExecutionResult(job_name, metrics)
+        result.registry = registry
+        result.traces = traces
+        return result
+
+    # -------------------------------------------------------------- metrics
+
+    @staticmethod
+    def _register_node_metrics(job_group, lat_plane, node: _Node) -> None:
+        """Every node's task I/O gauges under ``job.<name>.<op>#<uid>``."""
+        t = node.transformation
+        g = job_group.add_group(f"{t.name}#{t.uid}")
+        g.gauge("numRecordsIn", lambda n=node: n.records_in)
+        g.gauge("numRecordsOut", lambda n=node: n.records_out)
+        g.gauge("currentInputWatermark", lambda n=node: n.valve.combined)
+        g.gauge("busyTimeMsTotal", lambda n=node: n.busy_s * 1000.0)
+        if node.operator is not None:
+            # the marker histogram and the watermark lag behind the
+            # sources' frontier, under <op>.latency
+            node.marker_hist = lat_plane.operator_group(
+                g, f"{t.name}#{t.uid}", lambda n=node: n.valve.combined)
+
+    @staticmethod
+    def _register_operator_metrics(job_group, node: _Node) -> None:
+        """An opened operator's ``state`` and ``window`` groups and its
+        late-record count, where it has them."""
+        op = node.operator
+        t = node.transformation
+        g = job_group.add_group(f"{t.name}#{t.uid}")
+        if hasattr(op, "spill_counters"):
+            counters = op.spill_counters()
+            if counters is not None:
+                sg = g.add_group("state")
+                for cname in counters:
+                    sg.gauge(cname,
+                             lambda o=op, c=cname:
+                             (o.spill_counters() or {}).get(c, 0))
+                sg.gauge("resident_rows_per_shard",
+                         lambda o=op: list(o.shard_resident_rows()))
+                sg.gauge("resident_rows",
+                         lambda o=op: sum(o.shard_resident_rows()))
+        if hasattr(op, "fire_latencies_ms"):
+            wg = g.add_group("window")
+            wg.gauge("fireLatencyP50Ms",
+                     lambda o=op: quantile_sorted(
+                         sorted(o.fire_latencies_ms), 0.5))
+            wg.gauge("fireLatencyP99Ms",
+                     lambda o=op: quantile_sorted(
+                         sorted(o.fire_latencies_ms), 0.99))
+            wg.gauge("fireCount",
+                     lambda o=op: getattr(o, "fires_total",
+                                          len(o.fire_latencies_ms)))
+        if hasattr(op, "late_records_dropped"):
+            g.gauge("numLateRecordsDropped",
+                    lambda o=op: o.late_records_dropped)
 
     # -------------------------------------------------------------- control
 
     def _serve_control(self, control_queue, graph, nodes, sources, active,
                        job_name: str, checkpoint_id: int,
-                       source_positions) -> Optional[SavepointRequest]:
+                       source_positions, pumps) -> Optional[SavepointRequest]:
         """Serve the requests queued at this batch boundary; returns the
         savepoint request that stops the job, else None."""
         from flink_tpu_torch.checkpoint.savepoint import (
@@ -462,8 +741,11 @@ class LocalExecutor:
         )
 
         def stop_sources():
+            # a pump owns its source while it runs: stop it, then close
             for t, _ in sources:
                 if t.uid in active:
+                    if t.uid in pumps:
+                        pumps[t.uid].stop()
                     t.source.close()
             active.clear()
 
@@ -475,20 +757,36 @@ class LocalExecutor:
             except queue.Empty:
                 return None
             if not isinstance(req, SavepointRequest):
+                item = "12g" if isinstance(req, RescaleRequest) else "12e"
                 req.finish(None, NotImplementedError(
                     f"{type(req).__name__}: state queries and live rescale "
                     "are not ported to flink_tpu_torch yet (ROADMAP.md, "
-                    "Queue A item 12); the port serves SavepointRequest"))
+                    f"Queue A item {item}); the port serves "
+                    "SavepointRequest"))
                 continue
             try:
                 # a bad target fails before anything irreversible: the job
                 # keeps running
                 check_savepoint_target(req.path)
                 if req.stop and req.drain:
-                    # fire every window and timer before the snapshot
+                    # the pumps' prefetched batches first (their positions
+                    # are consumed from the source), then fire every
+                    # window and timer before the snapshot
                     for t, node in sources:
-                        if t.uid in active:
-                            self._emit_watermark(node, MAX_WATERMARK)
+                        if t.uid not in active:
+                            continue
+                        pump = pumps.get(t.uid)
+                        if pump is not None:
+                            pump.stop_filling()
+                            for batch, _wm, pos in pump.consume_remaining():
+                                if pos is not None:
+                                    source_positions[t.uid] = pos
+                                if batch is not _SourcePump._EOS:
+                                    self._emit_batch(node, batch)
+                            if pump.error is not None:
+                                # a failed source is no clean end of input
+                                raise pump.error
+                        self._emit_watermark(node, MAX_WATERMARK)
                     stop_sources()
                 self._drain_pending(nodes, wait=True)
                 snap = self.snapshot_all(graph, nodes, source_positions,
@@ -692,7 +990,13 @@ class LocalExecutor:
         chaos.fault_point("task.batch", op=node.transformation.name,
                           job=getattr(self, "_chaos_job", None))
         node.records_in += len(batch)
-        for out in node.operator.process_batch(batch, input_idx):
+        t0 = time.perf_counter()
+        with flight.span("op.process"):
+            outs = node.operator.process_batch(batch, input_idx)
+        node.busy_s += time.perf_counter() - t0
+        if node.marker_hist is not None:
+            self._lat_plane.observe(node.marker_hist)
+        for out in outs:
             self._forward(node, out)
 
     def _process_watermark(self, node: _Node, wm: int,
@@ -700,7 +1004,11 @@ class LocalExecutor:
         advanced = node.valve.advance(input_idx, wm)
         if advanced is None:
             return
-        for out in node.operator.process_watermark(advanced):
+        t0 = time.perf_counter()
+        with flight.span("op.watermark", watermark=int(advanced)):
+            outs = node.operator.process_watermark(advanced)
+        node.busy_s += time.perf_counter() - t0
+        for out in outs:
             self._forward(node, out)
         if node.operator.has_pending_output():
             # fires in flight: hold the watermark until they land
@@ -737,4 +1045,7 @@ class LocalExecutor:
     def _forward(self, node: _Node, batch) -> None:
         node.records_out += len(batch.batch if isinstance(batch, TaggedBatch)
                                 else batch)
+        # an instant: the push below recurses through the whole subtree,
+        # whose time the operators' own spans hold
+        flight.instant("emit")
         self._emit_batch(node, batch)

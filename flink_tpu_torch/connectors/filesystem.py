@@ -13,7 +13,7 @@ sub-batches with one lexsort, so a million rows crossing a day boundary
 cost two gathers, not a per-record router. Row encoding goes through
 the SerializationSchema seam (connectors/formats.py), so every
 registered format — jsonl, csv, any binary format (``binary = True``,
-length-prefixed) — writes files; 'avro' raises naming ROADMAP item 12.
+length-prefixed) — writes files; 'avro' raises naming ROADMAP item 12d.
 
 Lifecycle (exactly the reference's):
 - rows append to a bucket's ``.inprogress`` part file;
@@ -163,7 +163,7 @@ class FileSink(TwoPhaseCommitSink):
     """Bucketed rolling exactly-once file sink (reference: FileSink).
 
     ``fmt`` is a format name resolved through the DDL format seam
-    ('json', 'csv', ...; 'avro' raises naming ROADMAP item 12) or a
+    ('json', 'csv', ...; 'avro' raises naming ROADMAP item 12d) or a
     SerializationSchema instance.
     """
 

@@ -42,7 +42,7 @@ def resolve_format(name: str, columns: Sequence[str],
     if name.lower() == "avro" and "avro" not in _FORMATS:
         raise NotImplementedError(
             "the 'avro' format (connectors/avro.py) is not ported to "
-            "flink_tpu_torch yet (ROADMAP.md, Queue A item 12)")
+            "flink_tpu_torch yet (ROADMAP.md, Queue A item 12d)")
     factory = _FORMATS.get(name.lower())
     if factory is None:
         raise ValueError(

@@ -23,6 +23,12 @@ class Source:
 
     bounded: bool = True
 
+    def estimate_records(self) -> Optional[int]:
+        """Best-effort size for adaptive batch parallelism (the stage
+        executor's fallback when a source cannot be metered). None =
+        unknown."""
+        return None
+
     def open(self, subtask_index: int = 0, parallelism: int = 1) -> None:
         pass
 
@@ -48,6 +54,9 @@ class CollectionSource(Source):
     def __init__(self, batches: Sequence[RecordBatch]):
         self.batches = list(batches)
         self._i = 0
+
+    def estimate_records(self) -> Optional[int]:
+        return sum(len(b) for b in self.batches)
 
     @staticmethod
     def of_rows(rows: Iterable[dict],
@@ -109,6 +118,9 @@ class DataGenSource(Source):
         self._emitted = 0  # within this subtask's range
         self._start = 0
         self._end = self.total
+
+    def estimate_records(self) -> Optional[int]:
+        return self.total
 
     def open(self, subtask_index=0, parallelism=1):
         # a contiguous split of the global index space; the position resets

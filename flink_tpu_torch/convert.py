@@ -4,7 +4,9 @@ numpy arrays) become the port's planes on a given device, a process
 operator's snapshot (timers and keyed state) becomes the port's with its
 device value states as tensors on a given device, a
 ``GroupAggOperator`` or OVER snapshot becomes one the port's operator
-restores, and a model's parameter pytree becomes tensors on a device."""
+restores, a checkpoint's operator states (as the reference's storage
+reads them) become the port's, and a model's parameter pytree becomes
+tensors on a device."""
 
 from __future__ import annotations
 
@@ -156,3 +158,19 @@ def from_jax_model_params(params: Any, device: DeviceLike = None
 
     walk("", params)
     return out
+
+
+def from_jax_checkpoint_state(states: Dict[str, Any]) -> Dict[str, Any]:
+    """A checkpoint's ``{operator id: state}`` as the reference's
+    ``CheckpointStorage.read_checkpoint`` returns it, as the port's
+    storage returns it: the on-disk format is shared, so every array
+    becomes a numpy copy and every container is rebuilt; nothing else
+    changes. The stage executors of both packages merge their subtasks'
+    states into this single-slot format."""
+    if isinstance(states, dict):
+        return {k: from_jax_checkpoint_state(v) for k, v in states.items()}
+    if isinstance(states, (list, tuple)):
+        return type(states)(from_jax_checkpoint_state(v) for v in states)
+    if hasattr(states, "__array__") and not np.isscalar(states):
+        return np.array(states, copy=True)
+    return states

@@ -25,6 +25,9 @@ class ConfigOption(Generic[T]):
     type: type = str
     description: str = ""
 
+    def with_default(self, default: T) -> "ConfigOption[T]":
+        return dataclasses.replace(self, default=default)
+
 
 def _coerce(value: Any, typ: type) -> Any:
     if value is None or isinstance(value, typ):
@@ -35,28 +38,61 @@ def _coerce(value: Any, typ: type) -> Any:
 
 
 class Configuration:
-    """Key/value store with typed access through ConfigOptions (the
-    reference's layering and fallback keys are not needed by this slice)."""
+    """Layered key/value store with typed access through ConfigOptions:
+    a configuration's own entries override its fallback's
+    (``with_fallback``)."""
 
     def __init__(self, data: Optional[Dict[str, Any]] = None) -> None:
         self._data: Dict[str, Any] = dict(data or {})
+        self._fallback: Optional[Configuration] = None
 
     def get(self, option: ConfigOption[T]) -> Optional[T]:
-        if option.key in self._data:
-            return _coerce(self._data[option.key], option.type)
-        return option.default
+        found, value = self._lookup(option.key)
+        return _coerce(value, option.type) if found else option.default
 
     def set(self, option: "ConfigOption[T] | str", value: T) -> "Configuration":
         key = option.key if isinstance(option, ConfigOption) else option
         self._data[key] = value
         return self
 
+    def contains(self, option: "ConfigOption | str") -> bool:
+        key = option.key if isinstance(option, ConfigOption) else option
+        return self._lookup(key)[0]
+
+    def get_raw(self, key: str, default: Any = None) -> Any:
+        found, value = self._lookup(key)
+        return value if found else default
+
+    def _lookup(self, key: str):
+        if key in self._data:
+            return True, self._data[key]
+        if self._fallback is not None:
+            return self._fallback._lookup(key)
+        return False, None
+
+    def with_fallback(self, other: "Configuration") -> "Configuration":
+        """A new Configuration: self's entries override ``other``'s."""
+        merged = Configuration(self._data)
+        merged._fallback = other
+        return merged
+
+    def to_dict(self) -> Dict[str, Any]:
+        base = self._fallback.to_dict() if self._fallback else {}
+        base.update(self._data)
+        return base
+
+    def copy(self) -> "Configuration":
+        c = Configuration(dict(self._data))
+        c._fallback = self._fallback
+        return c
+
     def keys(self):
-        """The keys set on this configuration."""
-        return list(self._data)
+        """Every key visible through this configuration (own layer and
+        the fallback chain)."""
+        return list(self.to_dict())
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
-        return f"Configuration({self._data!r})"
+        return f"Configuration({self.to_dict()!r})"
 
 
 class CoreOptions:
@@ -98,13 +134,12 @@ class BatchOptions:
         "execution.micro-batch.min-size", default=256, type=int,
         description="Lower bound for adaptive batch sizing.")
     IN_FLIGHT_BATCHES = ConfigOption(
-        "execution.pipeline.in-flight-batches", default=0, type=int,
-        description="Prefetch depth of the reference's source pump "
-        "threads. The port polls its sources synchronously in the task "
-        "loop, which is the reference's behaviour for values <= 0; those "
-        "are the values it accepts (default 0; the reference's default "
-        "is 2). A positive value raises at execute(): the pump threads "
-        "are ROADMAP Queue A item 12.")
+        "execution.pipeline.in-flight-batches", default=2, type=int,
+        description="Prefetch depth of the source pump threads: each "
+        "source is polled and timestamped by a thread of its own while "
+        "the task loop drives the previous batches, through a queue of "
+        "this many batches (the backpressure bound). <= 0 polls the "
+        "sources synchronously in the task loop.")
     ASYNC_FIRES = ConfigOption(
         "execution.window.async-fires", default=True, type=bool,
         description="Dispatch window fires asynchronously: the fire "
@@ -121,6 +156,12 @@ class ExecutionModeOptions:
         "no intermediate watermark and no fire-deadline split: every "
         "window fires once, at the end of input, when the source's "
         "MAX_WATERMARK arrives.")
+    TARGET_RECORDS_PER_SUBTASK = ConfigOption(
+        "execution.batch.target-records-per-subtask", default=1_000_000,
+        type=int,
+        description="Adaptive batch parallelism: with "
+        "execution.stage-parallelism=-1 in batch mode, each keyed stage "
+        "runs ceil(source records / this target) subtasks.")
 
 
 class DeploymentOptions:
@@ -134,7 +175,45 @@ class DeploymentOptions:
         "shuffle.hosts", default=0, type=int,
         description="Hosts the key-group mesh spans (the reference's "
         "two-level exchange). The port runs one flat logical mesh on one "
-        "device; a value > 0 raises at execute() (ROADMAP item 12).")
+        "device; a value > 0 raises at execute() (ROADMAP item 12h).")
+    STAGE_PARALLELISM = ConfigOption(
+        "execution.stage-parallelism", default=0, type=int,
+        description="Subtask count of each keyed stage. 0 (default) runs "
+        "the whole pipeline in one task; N > 0 expands the job into "
+        "source subtasks and N keyed subtasks per keyed stage, threads "
+        "connected through the shuffle service with key-group routing "
+        "and checkpoint barriers (cluster/stage_executor.py); -1 sizes N "
+        "from the data in batch mode.")
+    STAGE_FALLBACK = ConfigOption(
+        "execution.stage-fallback", default=False, type=bool,
+        description="When execution.stage-parallelism is set but the "
+        "graph shape cannot be expanded, run single-slot instead of "
+        "failing the submission.")
+    SOURCE_PARALLELISM = ConfigOption(
+        "execution.source-parallelism", default=1, type=int,
+        description="Subtask count of the source stage in stage mode. "
+        "Each source subtask receives open(subtask_index, parallelism) "
+        "and reads its split.")
+    STAGE_MESH_DEVICES = ConfigOption(
+        "execution.stage-mesh-devices", default=0, type=int,
+        description="Mesh x stage composition: each keyed subtask opens "
+        "its engine over this many logical shards of its own key-group "
+        "range on the job's device. 0 (default) = one shard.")
+    SHUFFLE_SERVICE = ConfigOption(
+        "shuffle.service", default="local", type=str,
+        description="Registered ShuffleService connecting subtasks: "
+        "'local' (in-process bounded queues, credit-based) or "
+        "'sort-merge' (batch mode: partitions spill as encoded runs).")
+    SHUFFLE_CREDITS = ConfigOption(
+        "shuffle.credits-per-channel", default=2, type=int,
+        description="In-flight batches allowed per (producer, consumer) "
+        "channel before the producer blocks.")
+    LOCAL_AGG = ConfigOption(
+        "execution.local-agg", default=True, type=bool,
+        description="Two-phase aggregation in stage mode: pre-aggregate "
+        "window contributions on the source stage before the keyed "
+        "shuffle (at most one row per (key, slice) per batch). Applies "
+        "when the keyed stage is an aligned window aggregation.")
     JOIN_MODE = ConfigOption(
         "join.mode", default="host", type=str,
         description="Execution plane for the DataStream interval join "
@@ -224,17 +303,18 @@ class StateOptions:
 class MemoryOptions:
     DEVICE_MEMORY_BUDGET = ConfigOption(
         "memory.device.size", default=0, type=int,
-        description="The reference's managed device-memory budget in "
-        "bytes. Not ported: a value > 0 raises at execute() (ROADMAP "
-        "item 12); bound the state with "
-        "state.slot-table.max-device-slots instead.")
+        description="Managed device-memory budget in bytes (0: "
+        "unlimited). Every stateful operator's device state reserves its "
+        "footprint from one pool per job at creation and growth; a "
+        "reservation past the budget fails naming every owner "
+        "(core/memory.py).")
 
 
 class AutoscaleOptions:
     ENABLED = ConfigOption(
         "autoscale.enabled", default=False, type=bool,
         description="The reference's live rescaling of mesh operators. "
-        "Not ported: true raises at execute() (ROADMAP item 12).")
+        "Not ported: true raises at execute() (ROADMAP item 12g).")
 
 
 class LatencyOptions:
@@ -279,6 +359,12 @@ class CheckpointOptions:
         type=int,
         description="Consolidate: every Nth checkpoint is a full snapshot, "
         "bounding restore-chain length.")
+    UNALIGNED = ConfigOption(
+        "execution.checkpointing.unaligned", default=False, type=bool,
+        description="Barriers overtake in-flight data; overtaken batches "
+        "are persisted as channel state, so a checkpoint completes in "
+        "bounded time under backpressure. Savepoints stay aligned. Stage "
+        "executor only.")
 
 
 
@@ -308,16 +394,9 @@ class WatchdogOptions:
 #: ``check_unread_keys`` raises at execute() for any other value, so no
 #: such key is dropped without a word.
 UNREAD_KEYS = (
-    (MemoryOptions.DEVICE_MEMORY_BUDGET, lambda v: v <= 0,
-     "managed device memory", 12),
-    (AutoscaleOptions.ENABLED, lambda v: not v, "live autoscaling", 12),
+    (AutoscaleOptions.ENABLED, lambda v: not v, "live autoscaling", "12g"),
     (DeploymentOptions.SHUFFLE_HOSTS, lambda v: v <= 0,
-     "the two-level exchange", 12),
-    (BatchOptions.IN_FLIGHT_BATCHES, lambda v: v <= 0,
-     "the source pump threads (the port polls synchronously, as the "
-     "reference does for values <= 0)", 12),
-    (ConfigOption("execution.stage-parallelism", default=0, type=int),
-     lambda v: v <= 0, "the stage executor", 12),
+     "the two-level exchange", "12h"),
 )
 
 #: ``stateplane.backend.<family>`` picks the reference's Pallas or XLA
@@ -335,7 +414,7 @@ def check_unread_keys(config: Configuration) -> None:
                 "hand-written kernel on the card, its plain PyTorch "
                 "version on the CPU), so the reference's per-family "
                 "Pallas/XLA switch is rejected (ROADMAP.md, Queue A item "
-                "12 and Queue B)")
+                "12h and Queue B)")
     for option, honoured, feature, item in UNREAD_KEYS:
         if option.key in config.keys() and not honoured(config.get(option)):
             raise NotImplementedError(

@@ -155,6 +155,14 @@ class RecordBatch:
         return RecordBatch({k: v for k, v in self.columns.items()
                             if k not in names})
 
+    @staticmethod
+    def empty_like(other: "RecordBatch") -> "RecordBatch":
+        return RecordBatch({k: v[:0] for k, v in other.columns.items()})
+
+    def rename(self, mapping: Mapping[str, str]) -> "RecordBatch":
+        return RecordBatch({mapping.get(k, k): v
+                            for k, v in self.columns.items()})
+
     def select(self, *names: str) -> "RecordBatch":
         return RecordBatch({k: self.columns[k] for k in names})
 

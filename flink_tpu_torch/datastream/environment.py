@@ -16,6 +16,7 @@ from flink_tpu_torch.core.config import (
     CheckpointOptions,
     Configuration,
     CoreOptions,
+    DeploymentOptions,
     StateOptions,
 )
 from flink_tpu_torch.core.records import RecordBatch
@@ -48,6 +49,22 @@ class StreamExecutionEnvironment:
     @property
     def max_parallelism(self) -> int:
         return self.config.get(CoreOptions.MAX_PARALLELISM)
+
+    @property
+    def window_layout(self) -> str:
+        """state.window-layout: 'slots' | 'panes' | 'auto'."""
+        return self.config.get(StateOptions.WINDOW_LAYOUT)
+
+    @property
+    def shuffle_mode(self) -> str:
+        """shuffle.mode: 'device' (in-program keyBy exchange, default)
+        | 'host' (the reference's bucketing fallback, ROADMAP item 12h)."""
+        return self.config.get(DeploymentOptions.SHUFFLE_MODE)
+
+    @property
+    def state_backend(self) -> str:
+        """state.backend: keyed-state placement (state/backends.py)."""
+        return self.config.get(StateOptions.BACKEND)
 
     def enable_checkpointing(self, interval_ms: int
                              ) -> "StreamExecutionEnvironment":
@@ -128,14 +145,16 @@ class StreamExecutionEnvironment:
         variables are honored, as in the reference."""
         import os
 
-        from flink_tpu_torch.cluster.local_executor import LocalExecutor
+        from flink_tpu_torch.cluster.stage_executor import make_executor
 
         if restore_from is None:
             restore_from = os.environ.get("FLINK_TPU_RESTORE_FROM") or None
             restore_mode = os.environ.get("FLINK_TPU_RESTORE_MODE",
                                           restore_mode)
         graph = self.get_stream_graph()
-        result = LocalExecutor(self.config).run(
+        # execution.stage-parallelism expands the graph into source and
+        # keyed subtasks wired by the shuffle SPI (cluster/stage_executor)
+        result = make_executor(self.config, graph).run(
             graph, job_name=job_name, restore_from=restore_from,
             restore_mode=restore_mode)
         self._sinks = []
@@ -148,6 +167,10 @@ class JobExecutionResult:
     def __init__(self, job_name: str, metrics: dict):
         self.job_name = job_name
         self.metrics = metrics
+        #: MetricRegistry with the job's operator-scoped metrics
+        self.registry = None
+        #: TraceCollector with checkpoint/recovery spans
+        self.traces = None
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"JobExecutionResult({self.job_name}, {self.metrics})"

@@ -129,6 +129,12 @@ class DataStream:
         return DataStream(self.env, self._one_input(
             name, lambda: ProcessOperator(fn)))
 
+    def slot_sharing_group(self, name: str) -> "DataStream":
+        """Put this transformation (and, by inheritance, its downstream
+        chain) into slot sharing group ``name``."""
+        self.transformation.slot_group = name
+        return self
+
     def get_side_output(self, tag) -> "DataStream":
         """The batches this stream's operator emitted under ``tag`` (an
         ``OutputTag`` or its name)."""

@@ -31,6 +31,9 @@ class Transformation:
     side_tag: Optional[str] = None
     #: broadcast edge: every parallel instance sees every record
     broadcast: bool = False
+    #: slot sharing group (DataStream.slot_sharing_group); None inherits
+    #: the first input's
+    slot_group: Optional[str] = None
     uid: int = dataclasses.field(default_factory=lambda: next(_ids))
 
     def __hash__(self):
@@ -46,6 +49,26 @@ class StreamGraph:
         for t in self.nodes:
             for inp in t.inputs:
                 self.downstream.setdefault(inp.uid, []).append(t)
+
+    def slot_groups(self) -> Dict[int, str]:
+        """uid -> resolved slot sharing group: an unset group inherits
+        the (first) input's, sources default to "default"."""
+        out: Dict[int, str] = {}
+        for t in self.nodes:
+            if t.slot_group is not None:
+                out[t.uid] = t.slot_group
+            elif t.inputs:
+                out[t.uid] = out[t.inputs[0].uid]
+            else:
+                out[t.uid] = "default"
+        return out
+
+    def distinct_slot_groups(self) -> List[str]:
+        seen: List[str] = []
+        for g in self.slot_groups().values():
+            if g not in seen:
+                seen.append(g)
+        return seen
 
     @staticmethod
     def _topo_sort(sinks: Sequence[Transformation]) -> List[Transformation]:

@@ -25,8 +25,9 @@ emission order, value movement in host arrays; the device backend must
 equal it bit for bit.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-the two-level exchange and ``shuffle_mode="host"``, the side replicas and
-``query_side_batch``, and live ``reshard`` (item 12). Shard-granular
+the two-level exchange and ``shuffle_mode="host"`` (item 12h), the side
+replicas (12f), ``query_side_batch`` (12e) and live ``reshard`` (12g).
+Each ingest and watermark is a flight-recorder span. Shard-granular
 units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
 the mesh window engines. The reference's flight-recorder spans are not carried: the port's profiles
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.core.device import DeviceLike
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
@@ -118,10 +120,10 @@ class JoinEngineBase(WatchdogHooks):
                 f"shuffle_mode must be 'device' or 'host', got "
                 f"{shuffle_mode!r}")
         if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", 12)
+            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
         if backend == "device" and shuffle_mode == "host":
             raise _not_ported("shuffle.mode='host' for the join engines",
-                              12)
+                              "12h")
         self.backend = backend
         self.mesh: Optional[LogicalMesh] = None
         self.device = torch.device("cpu")
@@ -164,16 +166,16 @@ class JoinEngineBase(WatchdogHooks):
     # -------------------------------------------------------- not ported
 
     def exchange2_traffic(self) -> Dict[str, int]:
-        raise _not_ported("the two-level exchange (shuffle.hosts)", 12)
+        raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
 
     def reshard(self, new_shards: int, devices=None):
-        raise _not_ported("live reshard", 12)
+        raise _not_ported("live reshard", "12g")
 
     def arm_side_replica(self, side_idx: int):
-        raise _not_ported("the serving read replica", 12)
+        raise _not_ported("the serving read replica", "12f")
 
     def query_side_batch(self, side_idx: int, key_ids):
-        raise _not_ported("join side-table queries (query_side_batch)", 12)
+        raise _not_ported("join side-table queries (query_side_batch)", "12e")
 
     # ----------------------------------------------------------- data plane
 
@@ -781,6 +783,24 @@ class JoinEngineBase(WatchdogHooks):
                 out[k] = out.get(k, 0) + v
         return out
 
+    #: the flight recorder's per-engine batch sequence
+    _flight_batch = 0
+
+    def process_batch(self, batch: RecordBatch,
+                      input_index: int = 0) -> List[RecordBatch]:
+        """One side's batch, in a ``batch.ingest`` span."""
+        if len(batch) == 0:
+            return []
+        self._flight_batch += 1
+        with flight.ingest_span(self._flight_batch):
+            return self._process_batch_inner(batch, int(input_index))
+
+    def on_watermark(self, watermark: int) -> List[RecordBatch]:
+        """Fires and prunes of one watermark, in a ``fire.dispatch``
+        span."""
+        with flight.fire_span(watermark):
+            return self._on_watermark_inner(watermark)
+
 
 class MeshIntervalJoinEngine(JoinEngineBase):
     """Keyed interval join over the dual row tables (INNER)."""
@@ -811,10 +831,8 @@ class MeshIntervalJoinEngine(JoinEngineBase):
 
         return band
 
-    def process_batch(self, batch: RecordBatch,
-                      input_index: int = 0) -> List[RecordBatch]:
-        if len(batch) == 0:
-            return []
+    def _process_batch_inner(self, batch: RecordBatch,
+                             input_index: int) -> List[RecordBatch]:
         self._wd_boundary()
         side_idx = int(input_index)
         side = self._ensure_side(side_idx, batch)
@@ -847,7 +865,7 @@ class MeshIntervalJoinEngine(JoinEngineBase):
         self._ingest(side_idx, keys, ts, values, shards=shards)
         return out
 
-    def on_watermark(self, watermark: int) -> List[RecordBatch]:
+    def _on_watermark_inner(self, watermark: int) -> List[RecordBatch]:
         """Prune expired rows: a left row at t is dead once the watermark
         passes ``t + upper``; a right row at t once it passes ``t -
         lower``."""
@@ -878,10 +896,8 @@ class MeshTemporalJoinEngine(JoinEngineBase):
         self._emitted_wm = _NEG
         self.late_left_dropped = 0
 
-    def process_batch(self, batch: RecordBatch,
-                      input_index: int = 0) -> List[RecordBatch]:
-        if len(batch) == 0:
-            return []
+    def _process_batch_inner(self, batch: RecordBatch,
+                             input_index: int) -> List[RecordBatch]:
         self._wd_boundary()
         if int(input_index) == 0:
             late = np.asarray(batch.timestamps,
@@ -909,7 +925,7 @@ class MeshTemporalJoinEngine(JoinEngineBase):
         ok[ok] &= m.key[pos[ok]] == pk[ok]
         return np.maximum(pos, 0), ok.astype(np.int64)
 
-    def on_watermark(self, watermark: int) -> List[RecordBatch]:
+    def _on_watermark_inner(self, watermark: int) -> List[RecordBatch]:
         self._wd_boundary()
         watermark = int(watermark)
         out: List[RecordBatch] = []

@@ -33,7 +33,7 @@ def _engine_kwargs(ctx, capacity: int, max_device_slots: int,
     from flink_tpu_torch.parallel.mesh import make_mesh
 
     if getattr(ctx, "shuffle_mode", "device") != "device":
-        raise _not_ported(f"shuffle.mode={ctx.shuffle_mode!r}", 12)
+        raise _not_ported(f"shuffle.mode={ctx.shuffle_mode!r}", "12h")
     return dict(
         mesh=make_mesh(max(int(getattr(ctx, "parallelism", 1)), 1),
                        getattr(ctx, "device", None)),

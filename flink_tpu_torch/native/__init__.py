@@ -244,7 +244,7 @@ def _declare_sessions(lib) -> None:
     lib.sx_pop_fetch.argtypes = [vp, P(i64), P(i64), P(i64), P(i64), P(i32)]
     lib.sx_pop_fetch_rest.restype = None
     lib.sx_pop_fetch_rest.argtypes = [vp, P(i64), P(i64), P(i64)]
-    # the mesh session engine's sweeps (ROADMAP Queue A item 7b): declared
+    # the mesh session engine's sweeps (the mesh session engine): declared
     # with the rest of the library, called by nothing yet
     lib.sx_shard_group.restype = i64
     lib.sx_shard_group.argtypes = [i64, P(i64), P(i64), P(u8), P(i32),

@@ -175,10 +175,11 @@ def _merge_sum(x: torch.Tensor, lanes_from: int = 28,
       from 0.
 
     That is the reference's sum bit for bit at every k measured, 1 to 300
-    (ROADMAP Queue C items 7 and 9). A NaN sum takes the NaN of the add
+    (closed ROADMAP Queue C entries; pinned by
+    ``tests/test_torch_merge_order.py``). A NaN sum takes the NaN of the add
     where it first appeared, the earlier operand's when both are NaN
     (where one add meets two NaNs the reference's compiled loops keep
-    either: Queue C item 6) — ``pane``: the pane fire's operand order in
+    either) — ``pane``: the pane fire's operand order in
     the lanes form (:func:`_lanes`). Integer sums are exact in any
     order."""
     k = x.shape[-1]
@@ -244,8 +245,8 @@ def _merge_extreme(x: torch.Tensor, reduce: str,
 def _extreme_order(k: int, width: int, lanes_from: int):
     """The order in which a fire's max/min — XLA's CPU reduce of k slices —
     meets them, where it is not 0, 1, ..., k - 1 (None): from
-    ``lanes_from`` to 32 slices the reduce runs in vector lanes (ROADMAP
-    Queue C items 8 and 9, measured by ``tests/reference_fire_order.py``).
+    ``lanes_from`` to 32 slices the reduce runs in vector lanes (measured
+    by ``tests/reference_fire_order.py``).
     ``lanes_from`` is 25 in the slot layout's fires (a reduce of the last
     axis) and 23 in the pane fire (the leading axis of ``[k, C]``, which
     meets 23 rows in a tree of its own: :func:`_merge_pane_extreme_23`);
@@ -318,7 +319,8 @@ def _rows(merge: Callable, **kw) -> Callable:
 #: merge across the LEADING axis of a pane ring's gathered rows ``[k, C]``
 #: (the pane fire, ``fire_rows``): XLA's CPU reduce takes the vector
 #: lanes form from k = 25 there for sums, and meets 23 to 32 rows out of
-#: order for max/min (ROADMAP Queue C item 9). The emulation follows XLA's
+#: order for max/min (measured by
+#: ``tests/reference_fire_order.py``). The emulation follows XLA's
 #: CPU vector width (256 bits): a host with other vectors orders the
 #: reference's reduce otherwise.
 MERGE_ROWS_FN: Dict[str, Callable] = {

@@ -33,9 +33,12 @@ on the whole mesh at once:
   merged per key group (``SessionIntervalSet.drop_key_groups`` and
   ``merge_restore``).
 
+``memory=(manager, owner)`` reserves the planes from the job's managed
+pool (``core/memory.py``, shared with the window engine).
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-hot-key salting, the read replica, point queries, host shuffle mode, the
-two-level exchange and managed memory (item 12).
+hot-key salting (item 12g), the read replica (12f), point queries (12e),
+host shuffle mode and the two-level exchange (12h).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
     TIMESTAMP_FIELD,
@@ -153,11 +157,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 f"shuffle_mode must be 'host' or 'device', got "
                 f"{shuffle_mode!r}")
         if shuffle_mode != "device":
-            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", 12)
+            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", "12h")
         if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", 12)
-        if memory is not None:
-            raise _not_ported("managed-memory accounting", 12)
+            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
+        self._memory = memory
         self.gap = int(gap)
         self.agg = agg
         self.mesh = mesh
@@ -224,9 +227,13 @@ class MeshSessionEngine(MeshPagedSpillSupport):
     # --------------------------------------------------------------- ingest
 
     def process_batch(self, batch: RecordBatch) -> None:
-        n = len(batch)
-        if n == 0:
+        if len(batch) == 0:
             return
+        with self._flight_ingest():
+            self._process_batch_inner(batch)
+
+    def _process_batch_inner(self, batch: RecordBatch) -> None:
+        n = len(batch)
         # batch boundary: the engine is consistent at a known source
         # position — the one point the watchdog may declare a shard dead
         self._wd_boundary()
@@ -260,15 +267,17 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                         self._ingest_subbatch(batch.filter(~half))
                         return
 
-        try:
-            res = self.meta.absorb_batch_ex(keys, ts,
-                                            want_fresh=self._paged)
-        except NativePlaneError as e:
-            # the absorb is the batch's first mutation (no device state
-            # touched yet), so the batch re-runs on the Python plane
-            self._meta_fallback(e)
-            res = self.meta.absorb_batch_ex(keys, ts,
-                                            want_fresh=self._paged)
+        with flight.span("prep.meta_sweep"):
+            try:
+                res = self.meta.absorb_batch_ex(keys, ts,
+                                                want_fresh=self._paged)
+            except NativePlaneError as e:
+                # the absorb is the batch's first mutation (no device
+                # state touched yet), so the batch re-runs on the Python
+                # plane
+                self._meta_fallback(e)
+                res = self.meta.absorb_batch_ex(keys, ts,
+                                                want_fresh=self._paged)
         sess_key, sess_sid = res.sess_key, res.sess_sid
         rec_to_sess, order = res.rec_to_sess, res.order
         for g in res.groups:
@@ -369,9 +378,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                        for v, l in zip(values, in_leaves)]],
             fills=[0, *[l.identity for l in in_leaves]],
             pool=self._shuffle_pool)
-        cols = [self._to_device(c) for c in (dst, *staged)]
-        self.accs = self._exchange_scatter_step(
-            self.accs, cols[0], cols[1], tuple(cols[2:]), width)
+        with self._device_span():
+            cols = [self._to_device(c) for c in (dst, *staged)]
+            self.accs = self._exchange_scatter_step(
+                self.accs, cols[0], cols[1], tuple(cols[2:]), width)
         # chaos: "crash mid-batch after the fused dispatch" — the scatter
         # is queued on the device, the host dies before the fence
         chaos.fault_point("shuffle.device_exchange", records=n)
@@ -464,6 +474,11 @@ class MeshSessionEngine(MeshPagedSpillSupport):
     def on_watermark(self, watermark: int,
                      async_ok: bool = False) -> List[object]:
         self._wd_boundary()
+        with flight.fire_span(watermark):
+            return self._on_watermark_inner(watermark, async_ok)
+
+    def _on_watermark_inner(self, watermark: int,
+                            async_ok: bool) -> List[object]:
         pop = self.meta.pop_fired_ex(watermark)
         keys, starts, ends, sids = pop.keys, pop.starts, pop.ends, pop.sids
         hint = pop.slot_hint
@@ -753,13 +768,13 @@ class MeshSessionEngine(MeshPagedSpillSupport):
 
     def register_hot_key(self, key_id: int, salts: int = 8,
                          allow_inexact: bool = False) -> int:
-        raise _not_ported("hot-key splitting", 12)
+        raise _not_ported("hot-key splitting", "12g")
 
     def query_sessions(self, key_id: int):
-        raise _not_ported("MeshSessionEngine.query_sessions", 12)
+        raise _not_ported("MeshSessionEngine.query_sessions", "12e")
 
     def query_batch(self, key_ids):
-        raise _not_ported("MeshSessionEngine.query_batch", 12)
+        raise _not_ported("MeshSessionEngine.query_batch", "12e")
 
 
 def route_records_plain(n: int, order: np.ndarray, rec_to_sess: np.ndarray,

@@ -45,10 +45,16 @@ snapshot by the shards' key-group ranges (``checkpoint/sharded.py``). An
 attached ``runtime/watchdog.py`` watchdog times the synchronising device
 interactions and probes shard health at batch boundaries.
 
+With ``memory=(manager, owner)`` the planes reserve their footprint from
+the job's managed pool at creation, growth and reshard
+(``core/memory.py``). Each ingest is a ``batch.ingest`` span and each
+watermark a ``fire.dispatch`` span in the flight recorder.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
-where a user would select it: host shuffle mode, the two-level exchange,
-managed memory, the read replica, rebalance, point queries over spilled
-state and ``enforce_resident_budget`` (item 12).
+where a user would select it: host shuffle mode and the two-level
+exchange (item 12h), the read replica (12f), rebalance and
+``enforce_resident_budget`` (12g), point queries over spilled state
+(12e).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
     TIMESTAMP_FIELD,
@@ -80,6 +87,10 @@ from flink_tpu_torch.parallel.shuffle import (
     build_exchange_scatter,
     shard_records,
     stage_device_exchange,
+)
+from flink_tpu_torch.runtime.local_agg import (
+    is_partial_batch,
+    partial_leaf_values,
 )
 from flink_tpu_torch.runtime.pending import (
     Fence,
@@ -117,6 +128,26 @@ from flink_tpu_torch.windowing.windower import (
 )
 
 
+class _DeviceSpan:
+    """Times one inline device interaction on the ingest path into
+    ``device_inline_s`` and the flight recorder's ``device.dispatch``
+    instant: one measurement, two readers."""
+
+    __slots__ = ("_owner", "_t0")
+
+    def __init__(self, owner) -> None:
+        self._owner = owner
+
+    def __enter__(self) -> "_DeviceSpan":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self._t0
+        self._owner.device_inline_s += dt
+        flight.instant("device.dispatch", duration_s=dt)
+
+
 class MeshSpillSupport(WatchdogHooks):
     """What both mesh engines share: key-group routing, host-to-device
     staging, the dispatch-ahead pipeline, one spill tier per shard, and
@@ -129,6 +160,22 @@ class MeshSpillSupport(WatchdogHooks):
     max_device_slots: int = 0
     #: the paged (cohort) layout is on; the namespace layout otherwise
     _paged: bool = False
+    #: (MemoryManager, owner): the ``[P, capacity]`` footprint reserves
+    #: from the job's managed pool (core/memory.py); None = unmanaged
+    _memory = None
+    #: wall seconds inside inline device interactions on the ingest path
+    device_inline_s: float = 0.0
+    #: the flight recorder's per-engine batch sequence
+    _flight_batch: int = 0
+
+    def _flight_ingest(self):
+        """Open the ``batch.ingest`` span of one ``process_batch`` and
+        advance the batch sequence (spans below inherit the batch id)."""
+        self._flight_batch += 1
+        return flight.ingest_span(self._flight_batch)
+
+    def _device_span(self) -> _DeviceSpan:
+        return _DeviceSpan(self)
 
     def _route(self, key_ids) -> np.ndarray:
         """key id -> owning shard (the contiguous key-group formula)."""
@@ -149,6 +196,7 @@ class MeshSpillSupport(WatchdogHooks):
         if new_capacity <= self.capacity:
             return
         old = self.capacity
+        self._reserve_rows(self.P * (new_capacity - old))
         self.capacity = new_capacity
         grown = []
         for a, leaf in zip(self.accs, self.agg.leaves):
@@ -227,7 +275,9 @@ class MeshSpillSupport(WatchdogHooks):
         with self._wd_section("fence_drain"):
             while len(self._dispatch_fences) >= self._pipeline_depth:
                 self._dispatch_fences.popleft().block_until_ready()
-        self.pipeline_wait_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.pipeline_wait_s += dt
+        flight.instant("device.fence_wait", duration_s=dt)
 
     def _push_dispatch_fence(self) -> None:
         # chaos: a fence failure mid-dispatch-ahead — the batch's device
@@ -664,8 +714,27 @@ class MeshSpillSupport(WatchdogHooks):
             for _ in range(self.P)
         ]
 
+    def _reserve_rows(self, rows: int) -> None:
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.reserve(owner, rows * sum(
+                np.dtype(leaf.dtype).itemsize for leaf in self.agg.leaves))
+
+    def release_memory(self) -> None:
+        """Return the planes' reservation to the pool (dispose path)."""
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.release_all(owner)
+
+    def shard_resident_rows(self) -> List[int]:
+        """Device-resident rows per shard."""
+        return [int(idx.slot_used.sum()) for idx in self.indexes]
+
     def _fresh_planes(self) -> Tuple[torch.Tensor, ...]:
-        """``[P, capacity]`` identity planes, one per accumulator leaf."""
+        """``[P, capacity]`` identity planes, one per accumulator leaf
+        (their footprint replaces any earlier reservation)."""
+        self.release_memory()
+        self._reserve_rows(self.P * self.capacity)
         return tuple(
             torch.full((self.P, self.capacity),
                        np.asarray(leaf.identity).item(),
@@ -713,17 +782,18 @@ class MeshSpillSupport(WatchdogHooks):
                     f"owns only {span} key groups "
                     f"[{int(first)}, {int(last)}]")
         t0 = time.perf_counter()
-        self._quiesce()
-        chaos.fault_point("rescale.handoff", stage="drain",
-                          from_shards=self.P, to_shards=new_shards)
-        rows = self._collect_handoff()
-        old_p = self.P
-        self._shard_id_list = None
-        self._rebuild_mesh_plane(new_shards)
-        # the hardest crash point: old state lifted, new planes empty
-        chaos.fault_point("rescale.handoff", stage="commit",
-                          from_shards=old_p, to_shards=new_shards)
-        resident_rows, spilled_rows = self._redistribute_handoff(rows)
+        with flight.span("reshard.handoff"):
+            self._quiesce()
+            chaos.fault_point("rescale.handoff", stage="drain",
+                              from_shards=self.P, to_shards=new_shards)
+            rows = self._collect_handoff()
+            old_p = self.P
+            self._shard_id_list = None
+            self._rebuild_mesh_plane(new_shards)
+            # the hardest crash point: old state lifted, new planes empty
+            chaos.fault_point("rescale.handoff", stage="commit",
+                              from_shards=old_p, to_shards=new_shards)
+            resident_rows, spilled_rows = self._redistribute_handoff(rows)
         if self._watchdog is not None:
             self._watchdog.rebind(self.P, self._shard_ids())
         self.reshards_completed += 1
@@ -998,7 +1068,7 @@ class MeshSpillSupport(WatchdogHooks):
     def shard_key_group_runs(self) -> List[Tuple[int, int, int]]:
         """GLOBAL ``(first, last, shard)`` maximal same-shard runs in
         key-group order: one run per shard (the contiguous layout; a
-        rebalanced assignment is ROADMAP item 12)."""
+        rebalanced assignment is ROADMAP item 12g)."""
         return [(g0, g1, p) for p, (g0, g1)
                 in enumerate(self.shard_key_groups())]
 
@@ -1213,10 +1283,10 @@ class MeshSpillSupport(WatchdogHooks):
     # ------------------------------------------------ not in this slice
 
     def arm_replica(self, plane=None):
-        raise _not_ported("the serving read replica", 12)
+        raise _not_ported("the serving read replica", "12f")
 
     def reassign_key_groups(self, assignment):
-        raise _not_ported("hot key-group rebalance", 12)
+        raise _not_ported("hot key-group rebalance", "12g")
 
 
 class MeshPagedSpillSupport(MeshSpillSupport):
@@ -1484,11 +1554,13 @@ class MeshWindowEngine(MeshSpillSupport):
         max_dispatch_ahead: int = 2,
         shuffle_mode: str = "device",
         host_topology=None,
+        memory=None,
     ) -> None:
         if shuffle_mode != "device":
-            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", 12)
+            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", "12h")
         if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", 12)
+            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
+        self._memory = memory
         self.assigner = assigner
         self.agg = agg
         self.mesh = mesh
@@ -1534,6 +1606,10 @@ class MeshWindowEngine(MeshSpillSupport):
                                                               self.agg)
         self._exchange_scatter_step = build_exchange_scatter(self.mesh,
                                                              self.agg)
+        # explicit per-accumulator-leaf partials (the two-phase agg's
+        # global half, runtime/local_agg.py)
+        self._exchange_valued_step = build_exchange_scatter(
+            self.mesh, self.agg, valued=True)
 
     # --------------------------------------------------------------- ingest
 
@@ -1577,9 +1653,17 @@ class MeshWindowEngine(MeshSpillSupport):
         groups.append(cur)
         return groups if len(groups) > 1 else None
 
+    @property
+    def late_records_dropped(self) -> int:
+        return self.book.late_records_dropped
+
     def process_batch(self, batch: RecordBatch) -> None:
         if len(batch) == 0:
             return
+        with self._flight_ingest():
+            self._process_batch_inner(batch)
+
+    def _process_batch_inner(self, batch: RecordBatch) -> None:
         # batch boundary: the engine is consistent at a known source
         # position — the one point the watchdog may declare a shard dead
         self._wd_boundary()
@@ -1601,12 +1685,20 @@ class MeshWindowEngine(MeshSpillSupport):
                 return
         self.book.register_slices(slice_ends)
         shards = self._route(key_ids)
+        if is_partial_batch(batch):
+            # locally pre-aggregated rows: one explicit value per
+            # accumulator leaf, folded with the valued scatter
+            self._process_batch_device(
+                key_ids, slice_ends, shards,
+                partial_leaf_values(batch, self.agg), self.agg.leaves,
+                partial=True)
+            return
         self._process_batch_device(key_ids, slice_ends, shards,
                                    self.agg.map_input(batch),
                                    self.agg.input_leaves)
 
     def _process_batch_device(self, key_ids, slice_ends, shards, values,
-                              leaves) -> None:
+                              leaves, partial: bool = False) -> None:
         """The host resolves slots (the index is host state) but never
         sorts or blocks the record columns: flat padded columns go to the
         device and the exchange+scatter step routes them to their shards."""
@@ -1648,9 +1740,12 @@ class MeshWindowEngine(MeshSpillSupport):
                        for v, l in zip(values, leaves)]],
             fills=[0, *[l.identity for l in leaves]],
             pool=self._shuffle_pool)
-        cols = [self._to_device(c) for c in (dst, *staged)]
-        self.accs = self._exchange_scatter_step(
-            self.accs, cols[0], cols[1], tuple(cols[2:]), width)
+        step = (self._exchange_valued_step if partial
+                else self._exchange_scatter_step)
+        with self._device_span():
+            cols = [self._to_device(c) for c in (dst, *staged)]
+            self.accs = step(self.accs, cols[0], cols[1], tuple(cols[2:]),
+                             width)
         # chaos: "crash mid-batch after the fused dispatch" — the scatter
         # is queued on the device, the host dies before the fence
         chaos.fault_point("shuffle.device_exchange", records=n)
@@ -1661,6 +1756,11 @@ class MeshWindowEngine(MeshSpillSupport):
     def on_watermark(self, watermark: int,
                      async_ok: bool = False) -> List[object]:
         self._wd_boundary()
+        with flight.fire_span(watermark):
+            return self._on_watermark_inner(watermark, async_ok)
+
+    def _on_watermark_inner(self, watermark: int,
+                            async_ok: bool) -> List[object]:
         out: List[object] = []
         while True:
             w_end = self.book.next_window(watermark)

@@ -91,9 +91,15 @@ class GroupAggOperator(Operator):
         self._last_update = np.zeros(0, dtype=np.int64)
 
     def open(self, ctx):
+        mm = getattr(ctx, "memory_manager", None)
         self.table = SlotTable(
             self.agg, capacity=self.capacity,
-            max_parallelism=ctx.max_parallelism, device=ctx.device)
+            max_parallelism=ctx.max_parallelism, device=ctx.device,
+            memory=(mm, f"{self.name}#{id(self):x}") if mm else None)
+
+    def dispose(self):
+        if self.table is not None:
+            self.table.release_memory()
 
     # ------------------------------------------------------------- host state
 

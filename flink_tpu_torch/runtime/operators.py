@@ -95,7 +95,8 @@ class OperatorContext:
                  operator_index: int = 0, window_layout: str = "auto",
                  state_backend: str = "tpu-slot-table",
                  spill: Optional[dict] = None, pane_preagg: bool = True,
-                 watchdog=None):
+                 watchdog=None, memory_manager=None,
+                 key_group_range: Optional[tuple] = None):
         self.operator_index = operator_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -121,6 +122,11 @@ class OperatorContext:
         #: the job's DeviceWatchdog (watchdog.enabled), attached to every
         #: mesh engine the operators open; None when disabled
         self.watchdog = watchdog
+        #: the job's managed device-memory pool (memory.device.size > 0)
+        self.memory_manager = memory_manager
+        #: (first, last) key groups a stage subtask owns: its mesh engine
+        #: spreads them over its shards; None = all of them
+        self.key_group_range = key_group_range
 
 
 class MapOperator(Operator):
@@ -253,13 +259,33 @@ class WindowAggOperator(Operator):
                 spill_dir=ctx.spill.get("spill_dir"),
                 spill_host_max_bytes=ctx.spill.get(
                     "spill_host_max_bytes", 0),
+                key_group_range=ctx.key_group_range,
                 max_dispatch_ahead=ctx.max_dispatch_ahead,
-                shuffle_mode=ctx.shuffle_mode)
+                shuffle_mode=ctx.shuffle_mode,
+                memory=self._managed_memory(ctx))
         else:
             self.windower = self._open_single_device(ctx)
         self._attach_watchdog(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
+
+    def _managed_memory(self, ctx):
+        """(MemoryManager, unique owner) for device-state accounting, or
+        None when no budget is configured (core/memory.py)."""
+        mm = ctx.memory_manager
+        return None if mm is None else (mm, f"{self.name}#{id(self):x}")
+
+    def _table_spill(self, ctx) -> dict:
+        """The P=1 slot table's keyword arguments."""
+        spill = {**ctx.spill, "device": _placement(ctx)}
+        if ctx.memory_manager is not None:
+            spill["memory"] = self._managed_memory(ctx)
+        return spill
+
+    @property
+    def late_records_dropped(self) -> int:
+        """Records dropped as late (the numLateRecordsDropped gauge)."""
+        return self.windower.late_records_dropped
 
     def _attach_watchdog(self, ctx) -> None:
         """watchdog.enabled: the job's watchdog times the mesh engine's
@@ -295,18 +321,28 @@ class WindowAggOperator(Operator):
                 max_parallelism=ctx.max_parallelism,
                 allowed_lateness=self.allowed_lateness,
                 fire_projector=self.fire_projector,
-                preagg=ctx.pane_preagg, device=ctx.device)
+                preagg=ctx.pane_preagg, device=ctx.device,
+                memory=self._managed_memory(ctx))
         return SliceSharedWindower(
             self.assigner, self.agg, capacity=self.capacity,
             max_parallelism=ctx.max_parallelism,
             allowed_lateness=self.allowed_lateness,
-            spill={**ctx.spill, "device": _placement(ctx)},
+            spill=self._table_spill(ctx),
             fire_projector=self.fire_projector)
 
     def spill_counters(self) -> Optional[Dict[str, int]]:
         """The engine's spill traffic counters (None when it has none)."""
         fn = getattr(self.windower, "spill_counters", None)
         return fn() if fn is not None else None
+
+    def shard_resident_rows(self) -> List[int]:
+        """Resident rows per shard (one entry for single-device engines)."""
+        fn = getattr(self.windower, "shard_resident_rows", None)
+        if fn is not None:
+            return fn()
+        index = getattr(getattr(self.windower, "table", None), "index",
+                        None)
+        return [int(index.slot_used.sum())] if index is not None else []
 
     def process_batch(self, batch, input_index=0):
         keys = batch[self.key_field]
@@ -398,6 +434,12 @@ class WindowAggOperator(Operator):
     def dispose(self):
         self._pending.clear()
         self._fences.clear()
+        release = getattr(self.windower, "release_memory", None)
+        if release is None:
+            release = getattr(getattr(self.windower, "table", None),
+                              "release_memory", None)
+        if release is not None:
+            release()
 
     # ---------------------------------------------------------- checkpoints
 
@@ -467,7 +509,7 @@ class SessionWindowAggOperator(WindowAggOperator):
                 self.gap, self.agg, capacity=self.capacity,
                 max_parallelism=ctx.max_parallelism,
                 allowed_lateness=self.allowed_lateness,
-                spill={**ctx.spill, "device": _placement(ctx)})
+                spill=self._table_spill(ctx))
         self._attach_watchdog(ctx)
         self._async_fires = bool(ctx.async_fires)
         self._max_dispatch_ahead = int(ctx.max_dispatch_ahead)
@@ -493,6 +535,8 @@ class SessionWindowAggOperator(WindowAggOperator):
             max_device_slots=ctx.spill.get("max_device_slots", 0),
             spill_dir=ctx.spill.get("spill_dir"),
             spill_host_max_bytes=ctx.spill.get("spill_host_max_bytes", 0),
+            key_group_range=ctx.key_group_range,
+            memory=self._managed_memory(ctx),
             max_dispatch_ahead=ctx.max_dispatch_ahead,
             shuffle_mode=ctx.shuffle_mode)
 

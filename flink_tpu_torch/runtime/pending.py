@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 
 
 class _NullSection:
@@ -86,11 +87,12 @@ class PendingFire:
         # chaos: a harvest failure — the fire was dispatched but its
         # device-to-host results never land
         chaos.fault_point("harvest.pending_fire", arrays=len(self.host))
-        if self.fence is not None:
-            with (self.watchdog.section("pending_harvest")
-                  if self.watchdog is not None else NULL_SECTION):
-                self.fence.block_until_ready()
-        return self.build([h.numpy() for h in self.host])
+        with flight.span("fire.harvest"):
+            if self.fence is not None:
+                with (self.watchdog.section("pending_harvest")
+                      if self.watchdog is not None else NULL_SECTION):
+                    self.fence.block_until_ready()
+            return self.build([h.numpy() for h in self.host])
 
 
 def harvest_to_host(tensors) -> List[np.ndarray]:

@@ -24,10 +24,13 @@ the card's ordinal: every loss would otherwise collapse into one.
   dead, which quarantines it and raises :class:`ShardFailedError` — the
   signal ``chaos.harness.run_shard_loss_verify`` consumes.
 
+The heartbeat gauges sit under ``<scope>.watchdog``
+(``register_metrics``), and every missed section lands a
+``watchdog.miss`` instant in the flight recorder's timeline.
+
 Not carried: the pod's host topology (``set_topology`` with a topology,
-``HostFailedError`` escalation, the ``host.lost`` point), the heartbeat
-gauges (``register_metrics``; both ROADMAP.md Queue A item 12), and the
-flight-recorder instant of a miss (tracing, item 12).
+``HostFailedError`` escalation, the ``host.lost`` point; ROADMAP.md
+Queue A item 12h), so ``hosts_declared_dead`` reads 0.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.runtime.pending import NULL_SECTION, harvest_to_host
 from flink_tpu_torch.state.slot_table import _not_ported
 
@@ -135,7 +139,7 @@ class DeviceWatchdog:
         """Host-granular escalation needs the pod's host topology; a
         single-card mesh has none (``None`` is accepted and ignored)."""
         if topology is not None:
-            raise _not_ported("host-granular failover (HostTopology)", 12)
+            raise _not_ported("host-granular failover (HostTopology)", "12h")
 
     # ------------------------------------------------------------ sections
 
@@ -159,6 +163,12 @@ class DeviceWatchdog:
             elif not failed:
                 self._misses[p] = 0
                 self._last_beat[p] = now
+        if missed:
+            # one instant per missed section, beside the batch and fire
+            # spans that were open when the device went quiet
+            flight.instant("watchdog.miss",
+                           shard=shard if 0 <= shard < self.num_shards
+                           else -1)
 
     # ------------------------------------------------------------- boundary
 
@@ -226,7 +236,15 @@ class DeviceWatchdog:
                 "heartbeat_age_s": self.heartbeat_age_s()}
 
     def register_metrics(self, group) -> None:
-        raise _not_ported("the watchdog's metric gauges", 12)
+        """Heartbeat/health gauges under ``<scope>.watchdog``."""
+        g = group.add_group("watchdog")
+        g.gauge("sections_timed", lambda: self.sections_timed)
+        g.gauge("deadline_misses", lambda: self.deadline_misses)
+        g.gauge("shards_quarantined", lambda: len(self.quarantined))
+        g.gauge("declared_dead", lambda: self.declared_dead)
+        # no host topology in the port (item 12h): no host is declared
+        g.gauge("hosts_declared_dead", lambda: 0)
+        g.gauge("heartbeat_age_s", lambda: self.heartbeat_age_s())
 
 
 class WatchdogHooks:
@@ -267,7 +285,7 @@ class WatchdogHooks:
                      ) -> List[np.ndarray]:
         """``harvest_to_host`` (one device-to-host copy) as a section: the
         copy synchronises, so the section times the device."""
-        with self._wd_section(op):
+        with flight.span("fire.harvest"), self._wd_section(op):
             return harvest_to_host(tensors)
 
 

@@ -79,16 +79,29 @@ class WatermarkStrategy:
 
 class WatermarkValve:
     """Min-merge of per-input watermarks; emits the combined watermark only
-    when it advances."""
+    when it advances. An idle channel (``mark_idle``) is left out of the
+    min until it produces a watermark again."""
 
     def __init__(self, num_inputs: int):
         self._wms = [MIN_WATERMARK] * max(num_inputs, 1)
+        self._idle = [False] * max(num_inputs, 1)
         self._combined = MIN_WATERMARK
 
     def advance(self, input_index: int, value: int) -> Optional[int]:
+        self._idle[input_index] = False  # a watermark reactivates it
         if value > self._wms[input_index]:
             self._wms[input_index] = value
-        combined = min(self._wms)
+        return self._recompute()
+
+    def mark_idle(self, input_index: int) -> Optional[int]:
+        self._idle[input_index] = True
+        return self._recompute()
+
+    def _recompute(self) -> Optional[int]:
+        active = [w for w, idle in zip(self._wms, self._idle) if not idle]
+        if not active:
+            return None  # all idle: hold the last combined value
+        combined = min(active)
         if combined > self._combined:
             self._combined = combined
             return combined

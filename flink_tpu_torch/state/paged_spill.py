@@ -356,7 +356,7 @@ def read_spilled_rows(spill, pmap: Optional[PagedSpillMap], paged: bool,
     ``on_row(tag, entry, src_row)`` for each row found. Read-only: no
     residency change, no membership mutation. The ONE copy of the
     miss-scan for both spill layouts: the point queries (ROADMAP.md Queue
-    A item 12) and the mesh session engine (item 7b) read through it."""
+    A item 12e) and the mesh session engine read through it."""
     by_entry: Dict[int, list] = {}
     for tag, key_id, ns in wants:
         ek = (pmap.page_of(int(ns)) if paged

@@ -27,8 +27,11 @@ Snapshots carry the reference's logical rows (``key_id``, ``namespace``,
 ``key_group``, ``leaf_i``), so a snapshot moves between the two packages
 and between the two layouts.
 
+With ``memory=(manager, owner)`` the ring's cells reserve from the job's
+managed pool at creation and every growth (``core/memory.py``).
+
 Not in this slice: point queries (``query_windows``, ROADMAP Queue A item
-12) and the managed-memory accounting (``memory=``).
+12e).
 """
 
 from __future__ import annotations
@@ -61,8 +64,11 @@ class PaneTable:
 
     def __init__(self, agg: AggregateFunction, capacity: int = 1 << 16,
                  max_parallelism: int = 128, fire_projector=None,
-                 slices_for_window=None, device=None):
+                 slices_for_window=None, device=None, memory=None):
         self.agg = agg
+        #: (MemoryManager, owner) or None: the dense ring is the layout
+        #: most likely to exhaust device memory
+        self._memory = memory
         self.max_parallelism = max_parallelism
         self.fire_projector = fire_projector
         self.device = resolve_device(device)
@@ -74,6 +80,7 @@ class PaneTable:
         self.index = make_slot_index(capacity, on_grow=self._grow_cols)
         self.capacity = self.index.capacity
         self.R = _INITIAL_RING
+        self._reserve_cells(self.R * self.capacity)
         self.accs = self._identity_rows(self.R, self.capacity)
         #: slice_end -> ring row (row 0 reserved identity)
         self.slice_row: Dict[int, int] = {}
@@ -103,7 +110,22 @@ class PaneTable:
             for i, td in zip(self._idents, self._tds)
         ) + (torch.zeros((rows, cols), dtype=torch.int8, device=self.device),)
 
+    def _cell_bytes(self) -> int:
+        return sum(np.dtype(l.dtype).itemsize
+                   for l in self.agg.leaves) + 1  # + presence plane
+
+    def _reserve_cells(self, cells: int) -> None:
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.reserve(owner, cells * self._cell_bytes())
+
+    def release_memory(self) -> None:
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.release_all(owner)
+
     def _grow_cols(self, old: int, new: int) -> None:
+        self._reserve_cells(self.R * (new - old))
         self.capacity = new
         pad = self._identity_rows(self.R, new - old)
         self.accs = tuple(torch.cat([a, p], dim=1)
@@ -112,6 +134,7 @@ class PaneTable:
     def _take_row(self) -> int:
         if not self._free_rows:
             old = self.R
+            self._reserve_cells(old * self.capacity)  # doubling the ring
             self.R = old * 2
             pad = self._identity_rows(old, self.capacity)
             self.accs = tuple(torch.cat([a, p], dim=0)
@@ -465,7 +488,7 @@ class PaneTable:
     # ------------------------------------------------------------ point query
 
     def query_windows(self, key_id: int, assigner):
-        raise _not_ported("PaneTable.query_windows", 12)
+        raise _not_ported("PaneTable.query_windows", "12e")
 
     # -------------------------------------------------------------- snapshot
 

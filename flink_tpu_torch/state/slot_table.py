@@ -25,7 +25,9 @@ snapshot carries the rows dirtied since the last snapshot plus tombstones
 of the freed namespaces and pairs (the reference's format).
 
 Not in this slice, raising ``NotImplementedError`` naming its ROADMAP
-item (Queue A): point queries (item 12).
+item (Queue A): point queries (item 12e). ``memory=(manager, owner)``
+reserves the device footprint from the job's managed pool
+(``core/memory.py``).
 """
 
 from __future__ import annotations
@@ -725,6 +727,7 @@ class SlotTable:
         spill_host_max_bytes: int = 0,
         spill_layout: str = "namespaces",
         track_namespaces: bool = True,
+        memory=None,
     ) -> None:
         if spill_layout not in ("namespaces", "pages"):
             raise ValueError(
@@ -751,6 +754,10 @@ class SlotTable:
                        "state.slot-table.max-device-slots"
                        if self.max_device_slots
                        else "raise state.slot-table.capacity"))
+        #: (MemoryManager, owner): the device footprint reserves from the
+        #: job's pool (core/memory.py); None = unmanaged
+        self._memory = memory
+        self._reserve_rows(self.index.capacity)
         if self._paged:
             # sized after the index, which clamps capacity up (>= 1024):
             # the touch clock covers every slot
@@ -1104,7 +1111,23 @@ class SlotTable:
         self.accs = self.agg._reset_jit(
             self.accs, self._to_device(pad_i32(all_slots, rsize, fill=0)))
 
+    def _row_bytes(self) -> int:
+        return sum(np.dtype(leaf.dtype).itemsize
+                   for leaf in self.agg.leaves)
+
+    def _reserve_rows(self, rows: int) -> None:
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.reserve(owner, rows * self._row_bytes())
+
+    def release_memory(self) -> None:
+        """Return this table's reservation to the pool (dispose path)."""
+        if self._memory is not None:
+            manager, owner = self._memory
+            manager.release(owner, self.index.capacity * self._row_bytes())
+
     def _grow_device(self, old: int, new: int) -> None:
+        self._reserve_rows(new - old)
         self.accs = tuple(
             torch.cat([a, torch.full((new - old,),
                                      np.asarray(leaf.identity).item(),
@@ -1504,10 +1527,10 @@ class SlotTable:
     # ------------------------------------------------------ not in this slice
 
     def query(self, key_id: int, namespace: Optional[int] = None):
-        raise _not_ported("SlotTable.query", 12)
+        raise _not_ported("SlotTable.query", "12e")
 
     def query_batch_pairs(self, key_ids, namespaces):
-        raise _not_ported("SlotTable.query_batch_pairs", 12)
+        raise _not_ported("SlotTable.query_batch_pairs", "12e")
 
     def query_windows(self, key_id: int, assigner):
-        raise _not_ported("SlotTable.query_windows", 12)
+        raise _not_ported("SlotTable.query_windows", "12e")

@@ -38,7 +38,7 @@ import functools
 import torch
 
 from flink_tpu_torch.stateplane import cuda_build
-from flink_tpu_torch.stateplane.rank import claim_status
+from flink_tpu_torch.stateplane.rank import _count_lock, claim_status
 
 _SOURCE = "ordered_fold.cu"
 _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -260,7 +260,8 @@ def ordered_fold_planes(acc: torch.Tensor, slots: torch.Tensor,
                          f"{tuple(slots.shape)}, {tuple(values.shape)}")
     if _launch(acc, slots, values, reduce, acc.shape[1],
                fold=True) is not None:
-        ordered_fold_planes.launches += 1
+        with _count_lock:  # stage subtasks launch from several threads
+            ordered_fold_planes.launches += 1
     return acc
 
 

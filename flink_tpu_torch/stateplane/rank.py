@@ -88,6 +88,8 @@ class _StatusBuffer:
 
 
 _status_lock = threading.Lock()
+#: guards the wrappers' launch counters (read-modify-write)
+_count_lock = threading.Lock()
 _status: Dict[Tuple[int, int], _StatusBuffer] = {}
 
 
@@ -165,7 +167,8 @@ def _launch(d: torch.Tensor, num_dests: int, width: int,
                          1 if flat else 0, dev, stream)
     if rc != 0:
         raise RuntimeError(f"rank kernel launch failed: cudaError_t {rc}")
-    rank.launches += 1
+    with _count_lock:  # stage subtasks launch from several threads
+        rank.launches += 1
     return out
 
 

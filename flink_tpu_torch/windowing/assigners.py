@@ -33,6 +33,10 @@ class WindowAssigner:
     def slices_per_window(self) -> int:
         return self.size // self.slice_width
 
+    @property
+    def is_merging(self) -> bool:
+        return False
+
     def assign_slice_ends(self, timestamps: np.ndarray) -> np.ndarray:
         """Each record -> exclusive end of its slice. Vectorized."""
         ts = np.asarray(timestamps, dtype=np.int64)
@@ -72,6 +76,10 @@ class WindowAssigner:
         """The slices making up window (window_end - size, window_end]."""
         first = window_end - self.size + self.slice_width
         return list(range(first, window_end + 1, self.slice_width))
+
+    def last_window_end_for_slice(self, slice_end: int) -> int:
+        """After this window fires (plus lateness), the slice can be freed."""
+        return self.window_ends_for_slice(slice_end)[-1]
 
     def last_window_ends(self, slice_ends: np.ndarray) -> np.ndarray:
         """Vectorized last participating window end per slice (must agree

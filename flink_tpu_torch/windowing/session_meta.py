@@ -44,8 +44,8 @@ _NEG_INF = -(1 << 62)
 class NativePlaneError(RuntimeError):
     """A native (C) metadata sweep failed at runtime (its store is full).
     The single-device engine lets it end the job; the reference's mesh
-    engine falls back to the Python plane there (ROADMAP.md Queue A item
-    7b)."""
+    engine falls back to the Python plane there (as the port's mesh
+    session engine does)."""
 
 
 @dataclasses.dataclass

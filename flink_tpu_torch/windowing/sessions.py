@@ -21,7 +21,7 @@ is the table's logical rows plus the metadata's interval lists (the
 reference's format); merged and fired sessions leave tombstones for
 incremental snapshots.
 
-Not in this slice: the point queries (ROADMAP.md Queue A item 12),
+Not in this slice: the point queries (ROADMAP.md Queue A item 12e),
 raising ``NotImplementedError``.
 """
 
@@ -256,8 +256,8 @@ class SessionWindower:
     # ---------------------------------------------------- not in this slice
 
     def query_sessions_batch(self, key_ids):
-        raise _not_ported("SessionWindower.query_sessions_batch", 12)
+        raise _not_ported("SessionWindower.query_sessions_batch", "12e")
 
     def query_sessions(self, key_id: int):
-        raise _not_ported("SessionWindower.query_sessions", 12)
+        raise _not_ported("SessionWindower.query_sessions", "12e")
 

@@ -16,7 +16,7 @@ mesh engine). ``PaneWindower`` runs the same contract over the pane layout
 (``state/pane_table.py``). ``snapshot``/``restore`` carry the table's
 logical rows and the bookkeeping in the reference's format. Not in this
 slice: ``compose_windows`` and the point queries (ROADMAP.md Queue A item
-12).
+12e).
 """
 
 from __future__ import annotations
@@ -276,6 +276,7 @@ class PaneWindower(SliceSharedWindower):
         fire_projector=None,
         preagg: bool = True,
         device=None,
+        memory=None,
     ) -> None:
         from flink_tpu_torch.state.pane_table import PaneTable
 
@@ -284,7 +285,7 @@ class PaneWindower(SliceSharedWindower):
         self._preagg = bool(preagg) and assigner.slices_per_window > 1
         self.table = PaneTable(
             agg, capacity=capacity, max_parallelism=max_parallelism,
-            fire_projector=fire_projector, device=device,
+            fire_projector=fire_projector, device=device, memory=memory,
             slices_for_window=(assigner.slice_ends_for_window
                                if self._preagg else None))
         self.book = SliceBookkeeper(assigner, allowed_lateness)

@@ -166,8 +166,29 @@ def test_disarmed_is_noop_and_validation(pkg):
 
 
 def test_chaos_metrics_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tchaos.register_chaos_metrics(None)
+    """``register_chaos_metrics`` (ROADMAP item 12a, once raising naming
+    it): a no-op when disarmed, and under an armed plan the reference's
+    gauges under ``<scope>.chaos``, reading the controller live."""
+    from flink_tpu_torch.metrics import MetricRegistry
+
+    reg = MetricRegistry()
+    tchaos.register_chaos_metrics(reg.root_group("job", "j"))
+    assert reg.snapshot() == {}
+    plan = tchaos.FaultPlan.from_spec([{"pattern": "a", "nth": 2}])
+    with tchaos.chaos_active(plan, 0):
+        tchaos.register_chaos_metrics(reg.root_group("job", "j"))
+        for _ in range(3):
+            try:
+                tchaos.fault_point("a")
+            except tchaos.InjectedFault:
+                pass
+        snap = reg.snapshot()
+    assert sorted(snap) == sorted(
+        f"job.j.chaos.{n}" for n in (
+            "faults_injected", "retries", "recoveries", "points_hit",
+            "retry_budget_exhausted"))
+    assert snap["job.j.chaos.faults_injected"] == 1
+    assert snap["job.j.chaos.points_hit"] == 3
 
 
 # ------------------------------------------------------- the fault sites

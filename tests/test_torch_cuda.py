@@ -1455,3 +1455,137 @@ def test_slice21_d_on_card_at_a_cut_size():
     assert ml["launches"]["ordered_fold"] > 0
     chip_smoke.host_heap_revenue(torch, records=300_000)
     chip_smoke.v2_keyed_card(torch, "cuda", records=100_000)
+
+
+@pytest.mark.cuda
+def test_fold_drops_the_lanes_of_slot_zero():
+    """Slot 0 is each plane's identity slot: the kernel drops its lanes,
+    the plain version folds them. With values other than the identity
+    there, the two agree bit for bit on every other slot and differ at
+    slot 0 only, which the kernel leaves as it was. (Inputs for a
+    card-against-CPU comparison therefore put the identity at slot 0.)"""
+    _need_card()
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+
+    rng = np.random.default_rng(21)
+    t = torch.from_numpy(
+        rng.integers(0, 5_000, size=(2, 50_000)).astype(np.int32))
+    v = torch.from_numpy((rng.standard_normal((2, 50_000))
+                          * np.exp(rng.uniform(-8, 8, (2, 50_000))))
+                         .astype(np.float32))
+    assert bool((t == 0).any())
+    want = ordered_fold_planes(torch.zeros(2, 5_000), t, v, "sum")
+    got = ordered_fold_planes(torch.zeros(2, 5_000, device="cuda"),
+                              t.cuda(), v.cuda(), "sum").cpu()
+    assert torch.equal(_bits(got[:, 1:]), _bits(want[:, 1:]))
+    assert torch.equal(got[:, 0], torch.zeros(2))
+    assert bool((want[:, 0] != 0).all())
+
+
+@pytest.mark.cuda
+def test_subtask_threads_fold_and_rank_equal_the_cpu():
+    """Eight threads launch the ordered fold and the rank on one card at
+    once, as the stage executor's keyed subtasks do (one default stream,
+    one status buffer with an epoch per launch): every result equals its
+    plain version on the CPU bit for bit, and every launch is counted."""
+    _need_card()
+    import threading
+
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.stateplane.rank import (
+        exchange_rank_flat,
+        exchange_rank_flat_plain,
+        rank,
+    )
+
+    n_threads, rounds = 8, 20
+    rng = np.random.default_rng(21)
+    inputs = []
+    for _ in range(n_threads):
+        d = rng.integers(-1, 9, size=(8, 20_000)).astype(np.int32)
+        t = rng.integers(0, 5_000, size=(2, 50_000)).astype(np.int32)
+        v = (rng.standard_normal((2, 50_000))
+             * np.exp(rng.uniform(-8, 8, (2, 50_000)))).astype(np.float32)
+        v[t == 0] = 0.0  # slot 0's lanes carry the identity
+        inputs.append((d, t, v))
+    wants = [(exchange_rank_flat_plain(torch.from_numpy(d), 8, 4096),
+              ordered_fold_planes(torch.zeros(2, 5_000),
+                                  torch.from_numpy(t), torch.from_numpy(v),
+                                  "sum"))
+             for d, t, v in inputs]
+    bad, errors = [], []
+    r0, f0 = rank.launches, ordered_fold_planes.launches
+
+    def subtask(i):
+        try:
+            d, t, v = (torch.from_numpy(a).cuda() for a in inputs[i])
+            for _ in range(rounds):
+                got_r = exchange_rank_flat(d, 8, 4096)
+                got_f = ordered_fold_planes(
+                    torch.zeros(2, 5_000, device="cuda"), t, v, "sum")
+                if not torch.equal(got_r.cpu(), wants[i][0]) or \
+                        not torch.equal(_bits(got_f.cpu()),
+                                        _bits(wants[i][1])):
+                    bad.append(i)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=subtask, args=(i,))
+               for i in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert not bad, bad
+    assert rank.launches - r0 == n_threads * rounds
+    assert ordered_fold_planes.launches - f0 == n_threads * rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["revenue", "q5-mesh"])
+def test_stage_parallel_on_card_equals_cpu_run(job):
+    """The stage executor's subtasks on the card: Q5-revenue at 4
+    subtasks (float32 sums bit for bit, through the ordered fold) and Q5
+    at 2 subtasks x 4 shards each (through the rank), equal to the same
+    stage-parallel run on the CPU."""
+    _need_card()
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.stateplane.rank import rank
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def run(device):
+        conf = {"execution.micro-batch.size": 1 << 14,
+                "execution.device": device, "execution.local-agg": False}
+        if job == "revenue":
+            conf["execution.stage-parallelism"] = 4
+        else:
+            conf.update({"execution.stage-parallelism": 2,
+                         "execution.stage-mesh-devices": 4})
+        env = StreamExecutionEnvironment(Configuration(conf))
+        sink = CollectSink()
+        src = BidSource(total_records=150_000, num_auctions=3_000,
+                        events_per_second_of_eventtime=100_000)
+        if job == "revenue":
+            (env.from_source(src,
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .key_by("auction")
+             .window(SlidingEventTimeWindows.of(10_000, 2_000))
+             .sum("price").sink_to(sink))
+        else:
+            build_q5(env, src).sink_to(sink)
+        env.execute()
+        return sorted(tuple(sorted((k, np.asarray(v).tobytes())
+                                   for k, v in r.items()))
+                      for r in sink.rows())
+
+    counter = ordered_fold_planes if job == "revenue" else rank
+    before = counter.launches
+    on_card = run("cuda")
+    assert counter.launches > before
+    assert on_card and on_card == run("cpu")

@@ -31,7 +31,8 @@ PKGS = {
     "ref": (flink_tpu, jsinks, JBatch, JWS, jagg, jasg,
             {"execution.pipeline.in-flight-batches": 0}),
     "port": (flink_tpu_torch, tsinks, TBatch, TWS, tagg, tasg,
-             {"execution.device": "cpu"}),
+             {"execution.device": "cpu",
+              "execution.pipeline.in-flight-batches": 0}),
 }
 
 ROWS = [{"key": i % 5, "value": float(i % 7) - 2.5, "ts": 37 * i,

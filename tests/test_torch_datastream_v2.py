@@ -239,7 +239,10 @@ def test_keyed_connect_and_process_shares_state():
         a.connect_and_process(b, f["KeyedZip"]()).to_sink(sink)
         return [sink]
 
-    (b,) = run_both(build)
+    # the tally depends on how the two sources interleave: with source
+    # pump threads (in-flight batches > 0, in both packages) that is
+    # thread timing; polled inline, both take turns batch by batch
+    (b,) = run_both(build, **{"execution.pipeline.in-flight-batches": 0})
     assert len(b) == 4000 and int(np.asarray(b["tally"]).max()) > 1
 
 

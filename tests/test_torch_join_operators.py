@@ -303,7 +303,8 @@ def _run_interval(mode, parallelism, reference=False):
         _interval_job(env, sink, JSideSource)
     else:
         env = StreamExecutionEnvironment(Configuration(
-            {**settings, "execution.device": "cpu"}))
+            {**settings, "execution.device": "cpu",
+             "execution.pipeline.in-flight-batches": 0}))
         sink = CollectSink()
         _interval_job(env, sink, SideSource)
     env.execute("ij-" + mode)

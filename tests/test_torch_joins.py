@@ -586,8 +586,8 @@ def _item(exc) -> str:
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"shuffle_mode": "host"}, "12"),
-    ({"host_topology": object()}, "12"),
+    ({"shuffle_mode": "host"}, "12h"),
+    ({"host_topology": object()}, "12h"),
 ])
 def test_unported_options_raise_naming_their_item(kwargs, item):
     with pytest.raises(NotImplementedError) as e:
@@ -596,10 +596,10 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.reshard(2), "12"),
-    (lambda e: e.arm_side_replica(0), "12"),
-    (lambda e: e.query_side_batch(0, [1]), "12"),
-    (lambda e: e.exchange2_traffic(), "12"),
+    (lambda e: e.reshard(2), "12g"),
+    (lambda e: e.arm_side_replica(0), "12f"),
+    (lambda e: e.query_side_batch(0, [1]), "12e"),
+    (lambda e: e.exchange2_traffic(), "12h"),
 ])
 def test_unported_features_raise_naming_their_item(call, item):
     eng = port(MeshIntervalJoinEngine, -1, 1)

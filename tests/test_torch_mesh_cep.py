@@ -421,16 +421,37 @@ def _item(exc) -> str:
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.reshard(2), "12"),
-    (lambda e: e.arm_match_replica(), "12"),
-    (lambda e: e.register_metrics(object()), "12"),
+    (lambda e: e.reshard(2), "12g"),
+    (lambda e: e.arm_match_replica(), "12f"),
     (lambda e: MeshCepEngine(seq3(Pattern, Skip), num_shards=2,
-                             device="cpu", shuffle_mode="host"), "12"),
+                             device="cpu", shuffle_mode="host"), "12h"),
 ])
 def test_unported_features_raise_naming_their_item(call, item):
     with pytest.raises(NotImplementedError) as e:
         call(port(seq3))
     assert _item(e) == item
+
+
+def test_cep_metric_group_equals_the_references():
+    """``register_metrics`` (ROADMAP item 12a): the ``cep`` group's gauges
+    read the same names and, after the same steps, the same values as the
+    reference engine's (``host_fallbacks`` is each package's process-wide
+    count, so only its presence is compared)."""
+    from flink_tpu.metrics import MetricRegistry as JRegistry
+    from flink_tpu_torch.metrics import MetricRegistry
+
+    snaps = []
+    for eng, reg, cls in ((ref(seq3), JRegistry(), JRecordBatch),
+                          (port(seq3), MetricRegistry(), RecordBatch)):
+        eng.register_metrics(reg.root_group("job", "j"))
+        for keys, vals, tss, wm in gen_steps(11, n_steps=6):
+            eng.process_batch(mk_batch(cls, keys, vals, tss))
+            eng.on_watermark(wm)
+        snap = reg.snapshot()
+        snap.pop("job.j.cep.host_fallbacks")
+        snaps.append(snap)
+    assert snaps[0] == snaps[1]
+    assert snaps[1]["job.j.cep.matches_emitted"] > 0
 
 
 def test_host_backend_takes_host_shuffle():

@@ -726,10 +726,9 @@ def _item(exc) -> str:
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"spill_layout": "namespaces", "shuffle_mode": "host"}, "12"),
-    ({"shuffle_mode": "host"}, "12"),
-    ({"host_topology": object()}, "12"),
-    ({"memory": object()}, "12"),
+    ({"spill_layout": "namespaces", "shuffle_mode": "host"}, "12h"),
+    ({"shuffle_mode": "host"}, "12h"),
+    ({"host_topology": object()}, "12h"),
 ])
 def test_unported_options_raise_naming_their_item(kwargs, item):
     with pytest.raises(NotImplementedError) as e:
@@ -738,12 +737,34 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
     assert _item(e) == item
 
 
+def test_managed_memory_reserves_like_the_reference():
+    """``memory=(manager, owner)`` (ROADMAP item 12b, once raising): the
+    engine reserves its ``[P, capacity]`` planes from the pool, the same
+    bytes as the reference's engine, and a release returns them."""
+    import jax
+
+    from flink_tpu.core.memory import MemoryManager as JMemory
+    from flink_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from flink_tpu_torch.core.memory import MemoryManager
+
+    jm, tm = JMemory(), MemoryManager()
+    JEngine(50, jagg.SumAggregate("v"), jmake_mesh(P),
+            capacity_per_shard=4096, memory=(jm, "s"))
+    eng = MeshSessionEngine(50, tagg.SumAggregate("v"), make_mesh(P, "cpu"),
+                            capacity_per_shard=4096, memory=(tm, "s"))
+    assert tm.usage() == jm.usage()
+    assert tm.reserved_bytes > 0
+    eng.release_memory()
+    assert tm.reserved_bytes == 0
+    assert len(jax.devices()) >= P
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.register_hot_key(1), "12"),
-    (lambda e: e.query_sessions(1), "12"),
-    (lambda e: e.query_batch([1]), "12"),
-    (lambda e: e.arm_replica(), "12"),
-    (lambda e: e.reassign_key_groups(None), "12"),
+    (lambda e: e.register_hot_key(1), "12g"),
+    (lambda e: e.query_sessions(1), "12e"),
+    (lambda e: e.query_batch([1]), "12e"),
+    (lambda e: e.arm_replica(), "12f"),
+    (lambda e: e.reassign_key_groups(None), "12g"),
 ])
 def test_unported_calls_raise_naming_their_item(call, item):
     eng = MeshSessionEngine(50, tagg.SumAggregate("v"), make_mesh(P, "cpu"),

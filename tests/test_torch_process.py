@@ -41,7 +41,8 @@ PKG = {
     "port": dict(mod=flink_tpu_torch, sinks=tsinks, Batch=TBatch,
                  proc=tproc, ks=tks, asy=tasync,
                  Ctx=lambda: TCtx(device="cpu"),
-                 conf={"execution.device": "cpu"}),
+                 conf={"execution.device": "cpu",
+                       "execution.pipeline.in-flight-batches": 0}),
 }
 
 

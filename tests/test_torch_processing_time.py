@@ -82,7 +82,8 @@ class _TimedSink:
 PACKAGES = {
     "port": (StreamExecutionEnvironment, Configuration, CollectSink,
              _paced(Source, RecordBatch), WatermarkStrategy, tasg,
-             {"execution.device": "cpu"}),
+             {"execution.device": "cpu",
+              "execution.pipeline.in-flight-batches": 0}),
     "reference": (JEnv, JConfiguration, JCollectSink,
                   _paced(JSource, JBatch), JWS, jasg,
                   {"execution.pipeline.in-flight-batches": 0}),

@@ -256,7 +256,9 @@ def test_binary_file_job_through_both_packages(tmp_path):
     import flink_tpu_torch
 
     mods = {"ref": (flink_tpu, {"execution.pipeline.in-flight-batches": 0}),
-            "port": (flink_tpu_torch, {"execution.device": "cpu"})}
+            "port": (flink_tpu_torch, {"execution.device": "cpu",
+                                       "execution.pipeline.in-flight-batches":
+                                       0})}
     rows = [{"k": i % 3, "v": float(i) / 3, "ts": 10 * i} for i in range(50)]
     for pkg, (mod, conf) in mods.items():
         env = mod.StreamExecutionEnvironment(mod.Configuration(

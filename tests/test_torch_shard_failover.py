@@ -271,10 +271,19 @@ def test_watchdog_from_config_and_topology():
         "watchdog.max-misses": 5}), 8)
     assert (wd.num_shards, wd.deadline_ms, wd.max_misses) == (8, 7.0, 5)
     wd.set_topology(None)
-    for call in (lambda: wd.set_topology(object()),
-                 lambda: wd.register_metrics(object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    with pytest.raises(NotImplementedError, match="item 12h"):
+        wd.set_topology(object())
+    # the heartbeat gauges (item 12a) read the watchdog live
+    from flink_tpu_torch.metrics import MetricRegistry
+
+    reg = MetricRegistry()
+    wd.register_metrics(reg.root_group("job", "j"))
+    snap = reg.snapshot()
+    assert snap["job.j.watchdog.sections_timed"] == 0
+    assert snap["job.j.watchdog.hosts_declared_dead"] == 0
+    assert sorted(snap) == sorted(f"job.j.watchdog.{n}" for n in (
+        "sections_timed", "deadline_misses", "shards_quarantined",
+        "declared_dead", "hosts_declared_dead", "heartbeat_age_s"))
 
 
 # ------------------------------------------------- sharded checkpoint store

@@ -679,7 +679,7 @@ def _port_tenv():
 
 
 NOT_PORTED = {
-    "avro_format": ("12", lambda t: t.execute_sql(
+    "avro_format": ("12d", lambda t: t.execute_sql(
         "CREATE TABLE av (a BIGINT) WITH ('connector'='kafka', "
         "'topic'='x', 'format'='avro')")),
 }

@@ -34,7 +34,8 @@ PKGS = {
                 conf={"execution.pipeline.in-flight-batches": 0}),
     "port": dict(mod=flink_tpu_torch, le=tle, sinks=tsinks,
                  sources=tsources, WS=TWS, Tumble=TTumble,
-                 conf={"execution.device": "cpu"}),
+                 conf={"execution.device": "cpu",
+                       "execution.pipeline.in-flight-batches": 0}),
 }
 TOTAL, KEYS, RATE, BATCH = 20_000, 50, 2_000, 512
 
