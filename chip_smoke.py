@@ -185,8 +185,9 @@ Phases, each fatal on failure (no result line is printed then):
     event time, 2M records — the bench's 4M, cut to keep the script's
     time — in batches of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
-    ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<19
-    records equal, batch for batch (by digest), to the same engine with
+    ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<18
+    records (cut from 1<<19 when phase 23 came, to keep the script inside
+    its time) equal, batch for batch (by digest), to the same engine with
     ``backend="host"``; every match of the 2M records equal, as a sorted
     multiset, to a NumPy oracle written here; rows evicted and reloaded
     > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
@@ -216,8 +217,9 @@ Phases, each fatal on failure (no result line is printed then):
     spilled are touched again, through ``MeshWindowEngine`` at P=8 under
     1<<14 rows a shard on the card and on the CPU: every fired batch and
     the spill counters equal bit for bit, rows evicted and reloaded > 0,
-    at least one hybrid fire; (17a) Q5 at P=8 through ``env.execute()`` at
-    phase 5's size (40M bids, micro-batches of 1<<20) under
+    at least one hybrid fire; (17a) Q5 at P=8 through ``env.execute()``
+    over 20M bids (cut from phase 5's 40M when phase 23 came, to keep the
+    script inside its time; micro-batches of 1<<20) under
     ``state.slot-table.max-device-slots`` 1<<16 a shard: every window's
     winners equal ``q5_oracle``, rows evicted > 0; events/s, fire p50/p99,
     the spill counters, hybrid fires and the state's bytes on the card
@@ -273,7 +275,10 @@ Phases, each fatal on failure (no result line is printed then):
     each batch's states written with one put whose duplicate keys the
     newest lane wins: the card's rows equal the same job on the CPU and a
     NumPy oracle in emission order, and so does the async variant
-    (``ctx.async_state``); events/s, fire p50/p99, timers registered and
+    (``ctx.async_state``) — those two comparison runs over the first 1M
+    records (cut from 4M when phase 23 came, to keep the script inside its
+    time; the card's own run keeps all 4M against the oracle); events/s,
+    fire p50/p99, timers registered and
     fired, and the host seconds of the timer heap and the state ops
     printed; (19b) the changelog backend (``checkpoint/changelog.py``) on
     the card over Q5-revenue's first 2M bids (float32 Sum of the price
@@ -409,6 +414,50 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_stage(torch)'`` runs phase 22 alone
     (``phase_stage(torch, "cpu", small=True)`` rehearses it without a
     card).
+23. the control plane and the Avro format (after phase 22): (23a) phase
+    5's Q5 at P=8 on 10M bids (cut from 40M, as 19(c) and 22(b) cut it)
+    through a MiniCluster of two in-process TaskExecutors
+    (``heartbeat.interval-ms: 100``) into a ``JsonLinesFileSink`` (the
+    graph is shipped to the TaskExecutor): the windows' winners equal
+    phase 5's oracle; events/s beside the same job run directly; REST
+    ``/overview``, ``/jobs``, ``/jobs/<id>``, the job's flamegraph route
+    and ``/ui`` read while it runs; its archive read back through the
+    history server; ``cli list`` and ``cli info`` against the REST port;
+    (23b) the same job with a checkpoint every 2 source batches and a map
+    that raises once after checkpoint 2 (a flag file), ``fixed-delay``,
+    3 attempts, 10 ms: FINISHED at attempt 1, winners (last row per
+    window) equal the oracle, the restore ms printed; then the
+    TaskExecutor running attempt 0 killed after a checkpoint
+    (``heartbeat.timeout-ms: 1000``, a 500 ms backoff so the killed
+    attempt's thread winds down first): FINISHED, winners equal the
+    oracle, the detection ms printed; (23c) ``JobClient.trigger_savepoint``
+    while the job runs, ``stop_with_savepoint`` after about 5 batches,
+    resumed through ``execute(restore_from=)`` on the card: the two parts'
+    windows disjoint and their union equal to the oracle; (23d) two
+    MiniClusters over one ``high-availability.storageDir``
+    (``filesystem``): Q5 at P=8 on 2M bids submitted to the leader, the
+    leader released after a checkpoint; the standby recovers the job from
+    the ``JobGraphStore`` and finishes it on the card, winners equal to
+    the 2M-bid oracle, the takeover ms printed; (23e) this script hosts a
+    standalone JobManager (``cluster.task-executors: 0`` on a pinned
+    ``rpc.port``) and a subprocess runs ``python3 -m flink_tpu_torch.cli
+    taskexecutor`` on the card; ``remote_submit`` runs Q5 at P=8 on 2M
+    bids there: winners equal the oracle, the subprocess reports its
+    device and is stopped whatever the outcome; its rank launches come
+    back in the job's metric snapshot (``kernels.*``); (23f) 22(a)'s
+    Q5-revenue at 4 subtasks on 2M bids with subtasks 2-3 behind a second
+    ``RpcService``: all 1,282,788 sums equal 22(d)'s 2M-bid oracle bit for
+    bit; events/s, the bytes that crossed the socket and the fold's
+    launches printed; (23g) BASELINE row 4's topic cut from 8M to 1M
+    events (the codec runs per record in Python), each event encoded
+    under a v1 writer schema and read under an evolved v2 (an added field
+    with a default) through ``'format'='avro'`` into HOP(2 s, 10 s)
+    ``SUM(value)``: every sum equal to the raw format's run (and the
+    oracle) bit for bit; events/s of both formats and the fold's launches
+    printed. ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_cluster(torch)'`` runs phase 23 alone
+    (``phase_cluster(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -420,13 +469,15 @@ oracle runs before it), the card runs of 18(c), 18(d)'s watchdog run and
 19(c), 20(a)'s measured and card runs, each card run of 20(b) and 20(c),
 each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs, each
 run of 22(a) to 22(e) (22(e)'s recorder-off run in its subprocess),
-and read just after; each phase fails if a kernel of
+each run of 23(a) to 23(g) (23(e)'s in the TaskExecutor process, whose
+counters start at 0 with it and come back through the job's metric
+snapshot), and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
 15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
-22(a), 22(c), 22(d) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
-an integer fold; the rank in 20(c), 21(b), 22(b) and 22(e)). 19(a), 19(d) and 21(a)
+22(a), 22(c), 22(d), 23(f), 23(g) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
+an integer fold; the rank in 20(c), 21(b), 22(b), 22(e) and 23(a)-(e)). 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
 
@@ -3119,6 +3170,12 @@ def device_profile_per_call(fn, iters: int) -> dict:
             "kernels": len(evs) / iters if evs else None}
 
 
+#: 16(a)'s records compared with the host backend (cut from the
+#: benchmark's 1<<19 when phase 23 came: the host backend runs ~15k
+#: events/s)
+CEP_CHECK_RECORDS = 1 << 18
+
+
 def cep_bench(torch, records: int, device: str) -> dict:
     """16(a): ``benchmarks/cep.py``'s row on ``device``, every match of
     the run against :func:`cep_oracle`, the advance timed per fire in the
@@ -3156,7 +3213,7 @@ def cep_bench(torch, records: int, device: str) -> dict:
         r = cep.run(records, device, matches_out=got, host_records=0)
     finally:
         kernels.cep_advance = plain
-    r["check"] = cep.check(records, device)
+    r["check"] = cep.check(min(records, CEP_CHECK_RECORDS), device)
     r["launches"] = read_counts()
     if not r["check"]["equal_to_host_backend"]:
         raise AssertionError(
@@ -3502,7 +3559,7 @@ def phase_mesh_spill(torch, records: int = 3_000_000,
     return out
 
 
-def phase_mesh_budget_q5(torch, records: int = 40_000_000,
+def phase_mesh_budget_q5(torch, records: int = 20_000_000,
                          budget: int = 1 << 16):
     """Phase 17(a): Q5 at P=8 through ``env.execute()`` under
     ``state.slot-table.max-device-slots`` a shard, against its oracle."""
@@ -4025,6 +4082,10 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
+#: 19(a)'s records in the async and CPU comparison runs
+PROCESS_CHECK_RECORDS = 1_000_000
+
+
 def process_job(torch, device: str = "cuda", shape=None) -> dict:
     """19(a): the CountWithTimeout job (benchmarks/process_timeout.py) at
     its full shape on the card, the same job on the CPU and the async
@@ -4033,6 +4094,8 @@ def process_job(torch, device: str = "cuda", shape=None) -> dict:
     from flink_tpu_torch.benchmarks import process_timeout as pt
 
     shape = shape or {k: pt.SHAPE[k] for k in ("records", "keys", "batch")}
+    # the async and CPU comparison runs take the first 1M records
+    cut = {**shape, "records": min(shape["records"], PROCESS_CHECK_RECORDS)}
     reset_counts()
     card = pt.run(device, **shape)
     _sync(torch, device)
@@ -4043,13 +4106,16 @@ def process_job(torch, device: str = "cuda", shape=None) -> dict:
         fails.append(f"the device states are not on {device}")
     state_bytes = sum(st._dvals.numel() * st._dvals.element_size()
                       for st in states)
-    asy = pt.run(device, use_async=True, **shape)
-    cpu = pt.run("cpu", **shape)
+    asy = pt.run(device, use_async=True, **cut)
+    cpu = pt.run("cpu", **cut)
     t0 = time.perf_counter()
     want = pt.oracle(**shape)
     oracle_s = time.perf_counter() - t0
-    for name, out in (("card", card), ("card async", asy), ("CPU", cpu)):
-        if not pt.rows_equal(out["rows"], want):
+    want_cut = want if cut == shape else pt.oracle(**cut)
+    for name, out, rows in (("card", card, want), ("card async", asy,
+                                                   want_cut),
+                            ("CPU", cpu, want_cut)):
+        if not pt.rows_equal(out["rows"], rows):
             fails.append(f"the {name} run's rows differ from the oracle")
     _gate("phase 19(a)", fails)
     row = {**pt.summary(card), "async": pt.summary(asy),
@@ -4057,8 +4123,10 @@ def process_job(torch, device: str = "cuda", shape=None) -> dict:
            "capacity": int(states[0]._dvals.numel()), "oracle_s": oracle_s,
            "launches": counts}
     print(f"phase 19(a): CountWithTimeout over {row['records']:,} records, "
-          f"{row['rows']:,} rows equal to the CPU's and the oracle's in "
-          f"emission order (async too); {row['events_per_s']:,.0f} events/s "
+          f"{row['rows']:,} rows equal to the oracle's in emission order "
+          f"(the CPU's and the async run's over the first "
+          f"{cut['records']:,} records too); "
+          f"{row['events_per_s']:,.0f} events/s "
           f"(async {row['async']['events_per_s']:,.0f}, CPU "
           f"{row['cpu']['events_per_s']:,.0f}); fire p50 "
           f"{row['fire_p50_ms']:.2f} ms p99 {row['fire_p99_ms']:.2f} ms over "
@@ -5677,7 +5745,7 @@ def _stage_check_q5(sink, records, label):
             best[r["window_end"]] = (c, {int(r["auction"])})
         elif c == b:
             ws.add(int(r["auction"]))
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     if set(best) != set(want):
         raise AssertionError(f"{label}: {len(best)} windows, oracle "
                              f"{len(want)}")
@@ -6001,6 +6069,725 @@ def _flight_on_off(torch, device, records, batch) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the control plane (MiniCluster, failover, savepoints, HA, the
+# standalone cluster, the RPC shuffle) and the Avro format
+# ---------------------------------------------------------------------------
+
+#: records -> phase 5's Q5 oracle ({window_end: (max, winners)})
+_Q5_ORACLES = {}
+
+
+def q5_oracle_cached(records: int):
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    if records not in _Q5_ORACLES:
+        _Q5_ORACLES[records] = q5_oracle(BidSource, records, AUCTIONS, RATE,
+                                         SIZE, SLIDE)
+    return _Q5_ORACLES[records]
+
+
+class _Rows:
+    """Rows read back from a JSON-lines file, as a sink's ``rows()``."""
+
+    def __init__(self, path: str):
+        from flink_tpu_torch.connectors.sinks import JsonLinesFileSink
+
+        self._rows = JsonLinesFileSink.read_rows(path)
+
+    def rows(self):
+        return self._rows
+
+
+def _progress_map(path: str, fail_after: int = 0, flag: str = ""):
+    """A map for Q5's ``failmap`` slot: it appends a line per batch to
+    ``path``; with ``fail_after`` it raises once, past that many batches,
+    leaving ``flag`` (each deployment attempt unpickles its own copy, so
+    the once-only flag lives in a file). A function of this script: the
+    RPC serializer ships it by value."""
+
+    def progress(batch):
+        import os as _os
+
+        with open(path, "a") as fh:
+            fh.write(f"{len(batch)}\n")
+        if fail_after:
+            with open(path) as fh:
+                seen = sum(1 for _ in fh)
+            if seen > fail_after and not _os.path.exists(flag):
+                with open(flag, "w") as fh:
+                    fh.write("x")
+                raise RuntimeError("injected UDF failure (23b)")
+        return batch
+
+    return progress
+
+
+def _batches_seen(path: str) -> int:
+    try:
+        with open(path) as fh:
+            return sum(1 for _ in fh)
+    except FileNotFoundError:
+        return 0
+
+
+def _q5_env(device: str, batch: int, extra=None):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+
+    return StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8, "execution.micro-batch.size": batch,
+        "execution.device": device, **(extra or {})}))
+
+
+def _until(pred, timeout: float, what: str, step: float = 0.005):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(step)
+    raise AssertionError(f"23: timed out after {timeout} s waiting for "
+                         f"{what}")
+
+
+def _mc_q5(torch, device, tmp, records, batch, cluster_conf, job_conf=None,
+           fn=None, during=None, name="q5-mc"):
+    """Q5 at P=8 through a MiniCluster into a JSON-lines file: (status,
+    client, cluster-side master, rows view, s, launches, what ``during``
+    returned). ``during(cluster, client, master)`` runs while the job
+    runs."""
+    from flink_tpu_torch import Configuration
+    from flink_tpu_torch.cluster.minicluster import MiniCluster
+    from flink_tpu_torch.connectors.sinks import JsonLinesFileSink
+
+    out = os.path.join(tmp, f"{name}.jsonl")
+    env = _q5_env(device, batch, job_conf)
+    if fn is None:
+        _q5_job(env, records).sink_to(JsonLinesFileSink(out))
+    else:
+        _q5_with_map(env, records, fn).sink_to(JsonLinesFileSink(out))
+    cluster = MiniCluster(Configuration(cluster_conf))
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        client = cluster.submit(env, name)
+        master = cluster.dispatcher.master(client.job_id)
+        seen = during(cluster, client, master) if during else None
+        st = client.wait(timeout=600)
+        _sync(torch, device)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        cluster.shutdown()
+    return st, client, master, _Rows(out), dt, counts, seen
+
+
+def mc_rest_reads(cluster, client, master) -> dict:
+    """23(a)'s reads while the job runs: the REST routes, the flamegraph
+    and the dashboard."""
+    import urllib.request
+
+    _until(lambda: master.status == "RUNNING", 60, "the job to run")
+    base = f"http://127.0.0.1:{cluster.rest_port}"
+
+    def get(path, timeout=30):
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            return r.headers["Content-Type"], r.read()
+
+    ov = json.loads(get("/overview")[1])
+    jobs = json.loads(get("/jobs")[1])["jobs"]
+    job = json.loads(get(f"/jobs/{client.job_id}")[1])
+    fg = json.loads(get(f"/jobs/{client.job_id}/flamegraph?duration_ms=100"
+                        )[1])
+    ctype, html = get("/ui")
+    if ov["taskexecutors"] != 2 or len(jobs) != 1 or \
+            job["status"] not in ("RUNNING", "FINISHED") or \
+            "root" not in fg or "text/html" not in ctype or \
+            b"dashboard" not in html:
+        raise AssertionError(f"23(a): REST reads {ov}, {jobs}, {job}")
+    return {"overview": ov, "job_status_while_running": job["status"],
+            "flamegraph_samples": fg["samples"], "ui_bytes": len(html)}
+
+
+def mc_cli(rest_port: int, job_id: str) -> dict:
+    """``cli list`` and ``cli info`` against the REST port, in process."""
+    import contextlib
+    import io
+
+    from flink_tpu_torch.cli import main as cli_main
+
+    outs = []
+    for argv in (["list", "--rest", f"127.0.0.1:{rest_port}"],
+                 ["info", job_id, "--rest", f"127.0.0.1:{rest_port}"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli_main(argv) != 0:
+                raise AssertionError(f"23(a): cli {argv[0]} failed")
+        outs.append(buf.getvalue())
+    info = json.loads(outs[1])
+    if job_id not in outs[0] or info["status"] != "FINISHED":
+        raise AssertionError(f"23(a): cli printed {outs}")
+    return {"list": outs[0].strip(), "info_status": info["status"]}
+
+
+def minicluster_q5(torch, tmp: str, device: str = "cuda",
+                   records: int = 10_000_000, batch: int = 1 << 20) -> dict:
+    """23(a): phase 5's Q5 at P=8 through a MiniCluster of two in-process
+    TaskExecutors, against the same job run directly."""
+    import urllib.request
+
+    from flink_tpu_torch.cluster.history_server import HistoryServer
+
+    archive = os.path.join(tmp, "history")
+    direct_sink, direct_s, direct_counts, _ = _run_job(
+        torch, lambda env: _q5_job(env, records), device)
+    _stage_check_q5(direct_sink, records, "23(a) direct")
+
+    reads = {}
+
+    def during_and_cli(cluster, client, master):
+        reads.update(mc_rest_reads(cluster, client, master))
+        client.wait(timeout=600)
+        reads["cli"] = mc_cli(cluster.rest_port, client.job_id)
+        return reads
+
+    st, client, master, rows, dt, counts, _ = _mc_q5(
+        torch, device, tmp, records, batch,
+        {"rest.port": 0, "cluster.task-executors": 2,
+         "heartbeat.interval-ms": 100, "jobmanager.archive.dir": archive},
+        during=during_and_cli)
+    if st["status"] != "FINISHED" or st["attempt"] != 0:
+        raise AssertionError(f"23(a): {st}")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError("23(a) ran without launching the rank kernel")
+    windows = _stage_check_q5(rows, records, "23(a)")
+    hs = HistoryServer(archive)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{hs.port}/jobs/{client.job_id}",
+                timeout=30) as r:
+            archived = json.loads(r.read())
+    finally:
+        hs.close()
+    if archived["status"] != "FINISHED" or archived["metrics"][
+            "records_emitted_by_sources"] != records:
+        raise AssertionError(f"23(a): archive {archived.get('status')}")
+    out = {"records": records, "elapsed_s": dt, "events_per_s": records / dt,
+           "direct_events_per_s": records / direct_s, "windows": windows,
+           "launches": {k: counts[k] + direct_counts[k] for k in counts},
+           "mc_launches": counts, "direct_launches": direct_counts,
+           "reads": reads, "archived_keys": sorted(archived)}
+    print(f"phase 23(a): Q5 P=8 through a MiniCluster (2 TaskExecutors), "
+          f"{records} bids in {dt:.3f} s = {records / dt:.0f} events/s "
+          f"(direct {records / direct_s:.0f} events/s in the same call); "
+          f"{windows} windows' winners equal phase 5's oracle; REST "
+          f"/overview, /jobs, /jobs/<id> ({reads['job_status_while_running']}"
+          f"), the flamegraph ({reads['flamegraph_samples']} samples) and "
+          f"/ui read while it ran; the history server served its archive; "
+          f"cli list / info read it; launches {counts} (direct "
+          f"{direct_counts})")
+    return out
+
+
+def failover_q5(torch, tmp: str, device: str = "cuda",
+                records: int = 10_000_000, batch: int = 1 << 20) -> dict:
+    """23(b): the UDF crash after checkpoint 2, then the lost
+    TaskExecutor."""
+    from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+
+    out = {}
+    # the UDF crash
+    ck = os.path.join(tmp, "ck-udf")
+    fn = _progress_map(os.path.join(tmp, "udf.progress"), fail_after=4,
+                       flag=os.path.join(tmp, "udf.flag"))
+    st, client, master, rows, dt, counts, _ = _mc_q5(
+        torch, device, tmp, records, batch,
+        {"rest.port": -1, "cluster.task-executors": 2,
+         "heartbeat.interval-ms": 100},
+        {"state.checkpoints.dir": ck,
+         "execution.checkpointing.every-n-source-batches": 2,
+         "restart-strategy.type": "fixed-delay",
+         "restart-strategy.max-attempts": 3,
+         "restart-strategy.delay-ms": 10}, fn=fn, name="q5-udf")
+    if st["status"] != "FINISHED" or st["attempt"] != 1:
+        raise AssertionError(f"23(b) UDF crash: {st}")
+    windows = _stage_check_q5(rows, records, "23(b) UDF crash")
+    restore_ms = client.result().metrics.get("restore_ms")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError("23(b) ran without launching the rank kernel")
+    out["udf"] = {"attempt": st["attempt"], "restore_ms": restore_ms,
+                  "elapsed_s": dt, "windows": windows, "launches": counts}
+    print(f"phase 23(b): a UDF crash once after checkpoint 2 "
+          f"(fixed-delay, 3 attempts, 10 ms): FINISHED at attempt "
+          f"{st['attempt']} in {dt:.3f} s, restore {restore_ms} ms; "
+          f"{windows} windows' winners (last row per window) equal the "
+          f"oracle; launches {counts}")
+
+    # the lost TaskExecutor
+    ck = os.path.join(tmp, "ck-kill")
+    timing = {}
+
+    def kill(cluster, client, master):
+        exec_id = f"{client.job_id}-0"
+        victim = []
+
+        def running():
+            for te in cluster.executors:
+                if te.task_status(exec_id)["status"] == "RUNNING":
+                    victim[:] = [te.endpoint_id]
+                    return True
+            return False
+
+        _until(running, 60, "attempt 0 to run")
+        _until(lambda: (CheckpointStorage(ck).latest_checkpoint_id() or 0)
+               >= 1, 60, "a checkpoint")
+        t0 = time.perf_counter()
+        cluster.kill_task_executor(victim[0])
+        _until(lambda: master.status != "RUNNING" or master.attempt > 0,
+               30, "the loss to be detected", step=0.001)
+        timing["detection_ms"] = (time.perf_counter() - t0) * 1e3
+        timing["victim"] = victim[0]
+        timing["error"] = repr(master.error)
+        return timing
+
+    st, client, master, rows, dt, counts, _ = _mc_q5(
+        torch, device, tmp, records, batch,
+        {"rest.port": -1, "cluster.task-executors": 2,
+         "heartbeat.interval-ms": 100},
+        {"state.checkpoints.dir": ck,
+         "execution.checkpointing.every-n-source-batches": 2,
+         "heartbeat.timeout-ms": 1000,
+         "restart-strategy.max-attempts": 3,
+         "restart-strategy.delay-ms": 500}, during=kill, name="q5-kill")
+    if st["status"] != "FINISHED" or st["attempt"] < 1:
+        raise AssertionError(f"23(b) lost TaskExecutor: {st}")
+    windows = _stage_check_q5(rows, records, "23(b) lost TaskExecutor")
+    out["kill"] = {"attempt": st["attempt"], "elapsed_s": dt,
+                   "detection_ms": timing["detection_ms"],
+                   "error": timing["error"], "windows": windows,
+                   "launches": counts}
+    print(f"phase 23(b): {timing['victim']} killed while attempt 0 ran: "
+          f"loss detected in {timing['detection_ms']:.1f} ms "
+          f"({timing['error']}), FINISHED at attempt {st['attempt']} in "
+          f"{dt:.3f} s; {windows} windows' winners equal the oracle; "
+          f"launches {counts}")
+    out["launches"] = {k: out["udf"]["launches"][k]
+                       + out["kill"]["launches"][k] for k in counts}
+    return out
+
+
+def savepoints_q5(torch, tmp: str, device: str = "cuda",
+                  records: int = 10_000_000, batch: int = 1 << 20) -> dict:
+    """23(c): ``trigger_savepoint`` while the job runs, then
+    ``stop_with_savepoint`` after about 5 batches, resumed through
+    ``execute(restore_from=)``."""
+    from flink_tpu_torch.checkpoint.savepoint import is_savepoint
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    progress = os.path.join(tmp, "sp.progress")
+    sp1, sp2 = os.path.join(tmp, "sp-live"), os.path.join(tmp, "sp-stop")
+    got = {}
+
+    def savepoints(cluster, client, master):
+        _until(lambda: _batches_seen(progress) >= 2, 120, "two batches")
+        t0 = time.perf_counter()
+        got["live"] = client.trigger_savepoint(sp1)
+        got["live_ms"] = (time.perf_counter() - t0) * 1e3
+        _until(lambda: _batches_seen(progress) >= 5, 120, "five batches")
+        t0 = time.perf_counter()
+        got["stop"] = client.stop_with_savepoint(sp2)
+        got["stop_ms"] = (time.perf_counter() - t0) * 1e3
+        got["batches_at_stop"] = _batches_seen(progress)
+        return got
+
+    st, client, master, rows1, dt1, counts1, _ = _mc_q5(
+        torch, device, tmp, records, batch,
+        {"rest.port": -1, "cluster.task-executors": 1},
+        fn=_progress_map(progress), during=savepoints, name="q5-sp")
+    if st["status"] != "FINISHED" or got["live"] != sp1 or \
+            got["stop"] != sp2 or not (is_savepoint(sp1)
+                                       and is_savepoint(sp2)):
+        raise AssertionError(f"23(c): {st}, {got}")
+    env = _q5_env(device, batch)
+    sink2 = CollectSink()
+    _q5_with_map(env, records, _progress_map(
+        os.path.join(tmp, "sp2.progress"))).sink_to(sink2)
+    reset_counts()
+    t0 = time.perf_counter()
+    env.execute("q5-resume", restore_from=sp2)
+    _sync(torch, device)
+    dt2 = time.perf_counter() - t0
+    counts2 = read_counts()
+    part1 = {int(r["window_end"]) for r in rows1.rows()}
+    part2 = {int(r["window_end"]) for r in sink2.rows()}
+    if not part1 or not part2 or part1 & part2:
+        raise AssertionError(f"23(c): parts of {len(part1)} and "
+                             f"{len(part2)} windows, {len(part1 & part2)} "
+                             "in both")
+
+    class Both:
+        def rows(self):
+            return rows1.rows() + sink2.rows()
+
+    windows = _stage_check_q5(Both(), records, "23(c)")
+    if device == "cuda" and (counts1["exchange_rank"] <= 0
+                             or counts2["exchange_rank"] <= 0):
+        raise AssertionError("23(c) ran without launching the rank kernel")
+    launches = {k: counts1[k] + counts2[k] for k in counts1}
+    out = {"batches_at_stop": got["batches_at_stop"],
+           "trigger_ms": got["live_ms"], "stop_ms": got["stop_ms"],
+           "part1_windows": len(part1), "part2_windows": len(part2),
+           "resume_s": dt2, "windows": windows, "launches": launches}
+    print(f"phase 23(c): JobClient.trigger_savepoint while running "
+          f"({got['live_ms']:.1f} ms), stop_with_savepoint after "
+          f"{got['batches_at_stop']} batches ({got['stop_ms']:.1f} ms); "
+          f"resumed on the card in {dt2:.3f} s; {len(part1)} + "
+          f"{len(part2)} windows, disjoint, their union equals the oracle "
+          f"({windows} windows); launches {launches}")
+    return out
+
+
+def ha_q5(torch, tmp: str, device: str = "cuda", records: int = 2_000_000,
+          batch: int = 1 << 18) -> dict:
+    """23(d): two MiniClusters over one HA storage dir; the leader is
+    released while Q5 runs and the standby recovers and finishes it."""
+    from flink_tpu_torch import Configuration
+    from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+    from flink_tpu_torch.cluster.minicluster import MiniCluster
+    from flink_tpu_torch.connectors.sinks import JsonLinesFileSink
+
+    ha_dir, ck = os.path.join(tmp, "ha"), os.path.join(tmp, "ck-ha")
+    out_path = os.path.join(tmp, "q5-ha.jsonl")
+    conf = Configuration({
+        "rest.port": -1, "high-availability.type": "filesystem",
+        "high-availability.storageDir": ha_dir,
+        "high-availability.lease-timeout-ms": 1000})
+    leader = MiniCluster(conf)
+    standby = None
+    try:
+        _until(lambda: leader._leader_election.is_leader, 30,
+               "the first cluster to lead")
+        standby = MiniCluster(conf)
+        env = _q5_env(device, batch, {
+            "state.checkpoints.dir": ck,
+            "execution.checkpointing.every-n-source-batches": 2})
+        _q5_job(env, records).sink_to(JsonLinesFileSink(out_path))
+        reset_counts()
+        t0 = time.perf_counter()
+        job_id = leader.submit(env, "q5-ha").job_id
+        master = leader.dispatcher.master(job_id)
+        _until(lambda: master.status == "RUNNING", 60, "the job to run")
+        _until(lambda: (CheckpointStorage(ck).latest_checkpoint_id() or 0)
+               >= 1, 60, "a checkpoint")
+        t_release = time.perf_counter()
+        leader.shutdown()
+        leader = None
+        found = []
+        _until(lambda: found.append(standby.dispatcher.master(job_id))
+               or (found[-1] is not None and found[-1].status == "RUNNING"),
+               60, "the standby to run the job", step=0.002)
+        takeover_ms = (time.perf_counter() - t_release) * 1e3
+        status = found[-1].wait(timeout=600)
+        _sync(torch, device)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        if leader is not None:
+            leader.shutdown()
+        if standby is not None:
+            standby.shutdown()
+    if status != "FINISHED":
+        raise AssertionError(f"23(d): the standby's job is {status}")
+    windows = _stage_check_q5(_Rows(out_path), records, "23(d)")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError("23(d) ran without launching the rank kernel")
+    out = {"records": records, "takeover_ms": takeover_ms, "elapsed_s": dt,
+           "windows": windows, "launches": counts}
+    print(f"phase 23(d): HA, the leader released while Q5 ran ({records} "
+          f"bids): the standby took over in {takeover_ms:.1f} ms, recovered "
+          f"the job from the JobGraphStore and finished it on the card; "
+          f"{windows} windows' winners equal the oracle; launches {counts}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def standalone_q5(torch, tmp: str, device: str = "cuda",
+                  records: int = 2_000_000, batch: int = 1 << 18) -> dict:
+    """23(e): this script hosts a standalone JobManager; a subprocess runs
+    ``python3 -m flink_tpu_torch.cli taskexecutor`` on the card; Q5 runs
+    there through ``remote_submit``. The subprocess's launches come back
+    in the job's metric snapshot (``kernels.*``: its own counters, from
+    0 at its start)."""
+    import queue as _queue
+    import threading
+
+    from flink_tpu_torch import Configuration
+    from flink_tpu_torch.cluster.minicluster import MiniCluster
+    from flink_tpu_torch.cluster.standalone import remote_submit
+    from flink_tpu_torch.connectors.sinks import JsonLinesFileSink
+
+    port = _free_port()
+    jm = MiniCluster(Configuration({
+        "cluster.task-executors": 0, "rpc.port": port, "rest.port": -1,
+        "heartbeat.interval-ms": 100}))
+    proc = None
+    lines: "_queue.Queue" = _queue.Queue()
+    try:
+        t_spawn = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "flink_tpu_torch.cli", "taskexecutor",
+             "--jobmanager", jm.service.address,
+             "-D", "heartbeat.interval-ms=100"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                         daemon=True).start()
+        said, line = [], ""
+        deadline = time.monotonic() + 120
+        while not line.startswith("taskexecutor "):
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(),
+                                             0.01))
+            except _queue.Empty:
+                raise AssertionError(
+                    f"23(e): the TaskExecutor process did not come up in "
+                    f"120 s; it said {said[-5:]}") from None
+            said.append(line)
+        if device == "cuda" and "device cuda" not in line:
+            raise AssertionError(f"23(e): the TaskExecutor process said "
+                                 f"{line!r}")
+        _until(lambda: len(jm.rm_gateway().executor_registry()) == 1, 60,
+               "the TaskExecutor process to register")
+        up_s = time.perf_counter() - t_spawn
+        out_path = os.path.join(tmp, "q5-standalone.jsonl")
+        env = _q5_env(device, batch)
+        _q5_job(env, records).sink_to(JsonLinesFileSink(out_path))
+        t0 = time.perf_counter()
+        job_id, dispatcher = remote_submit(jm.service.address, env,
+                                           "q5-standalone")
+        _until(lambda: dispatcher.job_status(job_id)["status"] in
+               ("FINISHED", "FAILED", "CANCELED"), 600, "the remote job",
+               step=0.02)
+        dt = time.perf_counter() - t0
+        st = dispatcher.job_status(job_id)
+        if st["status"] != "FINISHED":
+            raise AssertionError(f"23(e): {st}")
+        snap = jm.dispatcher.master(job_id).result.metric_snapshot
+        counts = {"exchange_rank": int(snap["kernels.exchange_rank_launches"]),
+                  "ordered_fold": int(snap["kernels.ordered_fold_launches"])}
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        jm.shutdown()
+    windows = _stage_check_q5(_Rows(out_path), records, "23(e)")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError("23(e) ran without launching the rank kernel")
+    out = {"records": records, "process_up_s": up_s, "elapsed_s": dt,
+           "events_per_s": records / dt, "device_line": line.strip(),
+           "windows": windows, "launches": counts}
+    print(f"phase 23(e): a standalone JobManager here and `python3 -m "
+          f"flink_tpu_torch.cli taskexecutor` in a process of its own "
+          f"(up and registered in {up_s:.1f} s; it said "
+          f"{line.strip()!r}); Q5 P=8 over {records} bids through "
+          f"remote_submit in {dt:.3f} s; {windows} windows' winners equal "
+          f"the oracle; launches in that process {counts}; the process "
+          f"stopped")
+    return out
+
+
+class _SplitGates:
+    """The stage executor's shuffle service with keyed subtasks 2 and 3
+    behind a second RPC service (their batches cross a socket)."""
+
+    def __init__(self, svc_a, svc_b):
+        self.a, self.b = svc_a, svc_b
+
+    def create_partition(self, pid, n, credits=2):
+        return self.a.create_partition(pid, n, credits)
+
+    def create_gate(self, pids, sub):
+        return (self.a if sub < 2 else self.b).create_gate(pids, sub)
+
+    def close(self):
+        pass
+
+
+def grpc_shuffle_revenue(torch, device: str = "cuda",
+                         records: int = 2_000_000,
+                         batch: int = 1 << 19) -> dict:
+    """23(f): 22(a)'s Q5-revenue at 4 subtasks over the RPC shuffle
+    service (``shuffle.service: grpc``'s transport), subtasks 2-3 behind a
+    second ``RpcService``."""
+    from flink_tpu_torch.cluster.rpc import RpcService
+    from flink_tpu_torch.cluster.rpc_shuffle import RpcShuffleService
+    from flink_tpu_torch.cluster.stage_executor import StageParallelExecutor
+
+    rpc_a, rpc_b = RpcService(), RpcService()
+    try:
+        svc_b = RpcShuffleService(rpc_b, route=lambda pid, sub: None)
+        svc_a = RpcShuffleService(
+            rpc_a, route=lambda pid, sub: None if sub < 2 else rpc_b.address)
+        sink, res, dt, counts = _stage_run(
+            torch, _revenue_job(), device,
+            {"execution.micro-batch.size": batch,
+             "execution.local-agg": False,
+             "state.slot-table.capacity": 1 << 20,
+             "execution.stage-parallelism": 4}, records,
+            executor=lambda cfg: StageParallelExecutor(
+                cfg, shuffle_service=_SplitGates(svc_a, svc_b)))
+        sent = svc_a.bytes_sent
+    finally:
+        rpc_a.stop()
+        rpc_b.stop()
+    want, cnt = revenue_oracle_cached(records)
+    rows, windows = check_revenue_rows(sink.result(), want, cnt, "23(f)")
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("23(f) ran without launching the ordered fold")
+    if sent <= 0:
+        raise AssertionError("23(f): no batch crossed the socket")
+    out = {"records": records, "elapsed_s": dt, "events_per_s": records / dt,
+           "rows": rows, "windows": windows, "bytes_over_socket": sent,
+           "subtask_records_in": res.metrics["subtask_records_in"],
+           "launches": counts}
+    print(f"phase 23(f): Q5-revenue at 4 subtasks over the RPC shuffle "
+          f"(subtasks 2-3 behind a second RpcService), {records} bids in "
+          f"{dt:.3f} s = {records / dt:.0f} events/s; {sent} bytes crossed "
+          f"the socket; all {rows} sums equal the {records}-bid oracle bit "
+          f"for bit; launches {counts}")
+    return out
+
+
+#: 23(g)'s schemas: the writer's (v1) and an evolved reader's (v2: an
+#: added field with a default)
+ROW4_AVRO_V1 = {"type": "record", "name": "Bid", "fields": [
+    {"name": "key", "type": "long"}, {"name": "value", "type": "double"},
+    {"name": "ts", "type": "long"}]}
+ROW4_AVRO_V2 = {"type": "record", "name": "Bid", "fields": [
+    {"name": "key", "type": "long"}, {"name": "value", "type": "double"},
+    {"name": "ts", "type": "long"},
+    {"name": "region", "type": "string", "default": "emea"}]}
+
+
+def row4_produce_avro(total: int, chunk: int = 1 << 18) -> float:
+    """Row 4's events (``row4_produce``'s draws, partitions and order) as
+    Avro records under ``ROW4_AVRO_V1`` on topic ``bench_avro``; returns
+    the encode seconds."""
+    from flink_tpu_torch.connectors.avro import encode_record, parse_schema
+    from flink_tpu_torch.connectors.kafka import FakeBroker
+
+    writer = parse_schema(json.dumps(ROW4_AVRO_V1))
+    broker = FakeBroker.get("bench")
+    broker.create_topic("bench_avro", ROW4_PARTS)
+    rng = np.random.default_rng(1)
+    produced, enc_s = 0, 0.0
+    while produced < total:
+        n = min(chunk, total - produced)
+        ks = rng.integers(0, ROW4_KEYS, n).astype(np.int64)
+        vs = rng.random(n)
+        ts = (np.arange(produced, produced + n, dtype=np.int64)
+              * 1000) // RATE
+        for p in range(ROW4_PARTS):
+            m = ks % ROW4_PARTS == p
+            t0 = time.perf_counter()
+            recs = [encode_record(writer, {"key": k, "value": v, "ts": t})
+                    for k, v, t in zip(ks[m].tolist(), vs[m].tolist(),
+                                       ts[m].tolist())]
+            enc_s += time.perf_counter() - t0
+            broker.append_raw("bench_avro", p, recs, timestamps=ts[m])
+        produced += n
+    return enc_s
+
+
+def _row4_avro_job(torch, device: str, fmt: str):
+    env, tenv = _tenv(device, **{"execution.micro-batch.size": 1 << 16})
+    if fmt == "avro":
+        tenv.execute_sql(
+            "CREATE TABLE bench_avro (key BIGINT, value DOUBLE, ts BIGINT, "
+            "WATERMARK FOR ts AS ts) WITH ('connector'='kafka', "
+            "'topic'='bench_avro', 'broker'='bench', 'format'='avro', "
+            f"'avro.schema'='{json.dumps(ROW4_AVRO_V2)}', "
+            f"'avro.writer-schema'='{json.dumps(ROW4_AVRO_V1)}')")
+        sql = ROW4_SQL.replace("bench_bids", "bench_avro")
+    else:
+        tenv.execute_sql(ROW4_DDL)
+        sql = ROW4_SQL
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = tenv.execute_sql(sql).to_batch()
+    _sync(torch, device)
+    return batch, time.perf_counter() - t0, read_counts()
+
+
+def avro_row4(torch, device: str = "cuda", events: int = 1_000_000) -> dict:
+    """23(g): BASELINE row 4's topic as Avro (v1 writer) read under an
+    evolved v2 reader through ``'format'='avro'`` into HOP(2 s, 10 s)
+    ``SUM(value)``: every sum equal to the same events through the raw
+    format bit for bit."""
+    row4_produce(events)
+    enc_s = row4_produce_avro(events)
+    raw, raw_s, raw_counts = _row4_avro_job(torch, device, "raw")
+    avro, avro_s, avro_counts = _row4_avro_job(torch, device, "avro")
+    _batches_equal("23(g) avro vs raw", [avro], [raw])
+    checked = row4_check(avro, events)
+    if device == "cuda" and avro_counts["ordered_fold"] <= 0:
+        raise AssertionError("23(g) ran without launching the ordered fold")
+    launches = {k: raw_counts[k] + avro_counts[k] for k in raw_counts}
+    out = {"events": events, "encode_s": enc_s,
+           "raw_events_per_s": events / raw_s,
+           "avro_events_per_s": events / avro_s, "rows": checked,
+           "launches": launches, "avro_launches": avro_counts}
+    print(f"phase 23(g): row 4's topic as Avro ({events} events encoded "
+          f"under v1 in {enc_s:.2f} s) read under the evolved v2 through "
+          f"'format'='avro': {events / avro_s:.0f} events/s against "
+          f"{events / raw_s:.0f} through the raw format; all {checked} "
+          f"HOP(2 s, 10 s) sums equal the raw run's (and the oracle) bit "
+          f"for bit; launches {avro_counts} (raw {raw_counts})")
+    return out
+
+
+def phase_cluster(torch, device: str = "cuda", small: bool = False) -> dict:
+    """Phase 23: the control plane and the Avro format. ``device="cpu",
+    small=True`` rehearses it at a cut size without a card."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    big, mid = (10_000_000, 2_000_000) if not small else (600_000, 300_000)
+    batch = (1 << 20) if not small else (1 << 16)
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        tmp = os.path.abspath(tmp)
+        out["a"] = minicluster_q5(torch, tmp, device, big, batch)
+        out["b"] = failover_q5(torch, tmp, device, big, batch)
+        out["c"] = savepoints_q5(torch, tmp, device, big, batch)
+        out["d"] = ha_q5(torch, tmp, device, mid, batch // 4)
+        out["e"] = standalone_q5(torch, tmp, device, mid, batch // 4)
+    out["f"] = grpc_shuffle_revenue(torch, device, mid, batch // 2)
+    out["g"] = avro_row4(torch, device, 1_000_000 if not small else 100_000)
+    launches = {"exchange_rank": 0, "ordered_fold": 0}
+    for part in out.values():
+        for k in launches:
+            launches[k] += part["launches"][k]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 23: {seconds:.1f} s; launches {launches}")
+    print("cluster " + json.dumps(out, default=str))
+    return {**out, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -6069,9 +6856,11 @@ def main() -> int:
         sql = phase_sql(torch)
         slice21 = phase_slice21(torch, savepoint=savepoint)
     stage = phase_stage(torch)
+    cluster = phase_cluster(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
-            *slice11.values(), shard_loss, process, sql, slice21, stage)
+            *slice11.values(), shard_loss, process, sql, slice21, stage,
+            cluster)
 
     kernels = [{
         "name": "exchange_rank",

@@ -58,6 +58,7 @@ from flink_tpu_torch.state.keyed_state import (
     ReducingStateDescriptor,
     ValueStateDescriptor,
 )
+from flink_tpu_torch.version import __version__
 
 __all__ = [
     "AsyncDataStream",
@@ -74,4 +75,5 @@ __all__ = [
     "ReducingStateDescriptor",
     "StreamExecutionEnvironment",
     "ValueStateDescriptor",
+    "__version__",
 ]

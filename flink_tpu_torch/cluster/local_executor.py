@@ -66,9 +66,12 @@ chaos and watchdog groups when armed, and the flight recorder's per-kind
 aggregates at the registry root. ``memory.device.size`` > 0 makes one
 ``MemoryManager`` the pool every stateful operator reserves from.
 
+``cancel_event`` cancels the job from outside (the MiniCluster's task
+threads): the loop checks it before every source poll and raises
+``JobCancelledError``.
+
 Not in this slice: state queries (ROADMAP.md Queue A item 12e), rescale
-requests and autoscale (12g), restart strategies (12c), and the
-``key_imbalance`` gauge (12g).
+requests and autoscale (12g), and the ``key_imbalance`` gauge (12g).
 """
 
 from __future__ import annotations
@@ -125,6 +128,10 @@ class _Node:
         self.busy_s = 0.0
         #: the operator's latency-marker histogram
         self.marker_hist = None
+
+
+class JobCancelledError(RuntimeError):
+    """Raised inside the task loop when the job is cancelled externally."""
 
 
 class _ControlRequest:
@@ -329,15 +336,16 @@ class LocalExecutor:
         self.config = config or Configuration()
 
     def run(self, graph: StreamGraph, job_name: str = "job",
-            restore_from: Optional[str] = None,
+            restore_from: Optional[str] = None, cancel_event=None,
             restore_mode: str = "no-claim",
             control_queue: Optional["queue.Queue"] = None):
         """Execute the graph to completion; returns a JobExecutionResult
         with throughput, fire-latency and checkpoint metrics.
         ``restore_from``: a checkpoint root (its newest checkpoint) or one
-        snapshot directory; ``restore_mode``: "no-claim" or "claim";
-        ``control_queue``: a queue of ``SavepointRequest``s served between
-        source batches."""
+        snapshot directory; ``cancel_event``: a ``threading.Event`` whose
+        setting ends the job with ``JobCancelledError``; ``restore_mode``:
+        "no-claim" or "claim"; ``control_queue``: a queue of
+        ``SavepointRequest``s served between source batches."""
         from flink_tpu_torch.datastream.environment import JobExecutionResult
 
         cfg = self.config
@@ -380,6 +388,7 @@ class LocalExecutor:
         from flink_tpu_torch.observe.export import (
             LatencyMarkerPlane,
             register_flight_metrics,
+            register_kernel_metrics,
         )
 
         registry = MetricRegistry()
@@ -387,9 +396,11 @@ class LocalExecutor:
         job_group = registry.root_group("job", job_name)
         chaos.register_chaos_metrics(job_group)
         flight.set_job(job_name)
-        # the flight aggregates are process-global (one recorder for
-        # every job of the process): they sit at the registry root
+        # the flight aggregates and the kernels' launch counters are
+        # process-global (one recorder, one counter per kernel for every
+        # job of the process): they sit at the registry root
         register_flight_metrics(registry.root_group())
+        register_kernel_metrics(registry.root_group())
         # each source batch is the latency marker
         lat_plane = self._lat_plane = LatencyMarkerPlane()
         if watchdog is not None:
@@ -494,6 +505,8 @@ class LocalExecutor:
             suppress_final_drain = False
             active = {t.uid for t, _ in sources}
             while active:
+                if cancel_event is not None and cancel_event.is_set():
+                    raise JobCancelledError(job_name)
                 self._drain_pending(nodes)
                 if pt_nodes:
                     now_ms = int(time.time() * 1000)

@@ -37,9 +37,12 @@ as ``[D, cap]`` planes on the job's device (the reference's sub-mesh of D
 chips; the port does not clamp D to a device count). The subtasks' device
 programs run from their threads on one card, each on the current stream.
 
+``run(cancel_event=)`` cancels the job from outside: the coordinator's
+``cancelled`` event stops every subtask, and ``run`` raises
+``JobCancelledError`` (also from a checkpoint's wait).
+
 Not here: point queries against the subtasks (a ``StateQueryRequest``
-fails naming ROADMAP.md Queue A item 12e) and job cancellation from
-outside.
+fails naming ROADMAP.md Queue A item 12e).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from flink_tpu_torch.core.config import (
 )
 from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.cluster.local_executor import (
+    JobCancelledError,
     LocalExecutor,
     operator_context,
 )
@@ -1427,15 +1431,20 @@ class StageParallelExecutor:
                  shuffle_service=None):
         self.config = config or Configuration()
         self._shuffle = shuffle_service
+        self._cancel_event = None
 
     def run(self, graph: StreamGraph, job_name: str = "job",
-            restore_from: Optional[str] = None,
+            restore_from: Optional[str] = None, cancel_event=None,
             restore_mode: str = "no-claim", control_queue=None):
         """Execute the graph to completion; the same contract as
         ``LocalExecutor.run``."""
+        self._cancel_event = cancel_event
         from flink_tpu_torch.datastream.environment import JobExecutionResult
         from flink_tpu_torch.metrics import MetricRegistry, TraceCollector
-        from flink_tpu_torch.observe.export import register_flight_metrics
+        from flink_tpu_torch.observe.export import (
+            register_flight_metrics,
+            register_kernel_metrics,
+        )
 
         check_unread_keys(self.config)
         plan = plan_stages(graph)
@@ -1445,6 +1454,7 @@ class StageParallelExecutor:
         chaos.register_chaos_metrics(job_group)
         flight.set_job(job_name)
         register_flight_metrics(registry.root_group())
+        register_kernel_metrics(registry.root_group())
         #: per checkpoint written: id, bytes, write ms
         self.checkpoints: List[Dict[str, Any]] = []
         self.restore_ms = 0.0
@@ -1713,6 +1723,8 @@ class StageParallelExecutor:
         last_batches = 0
         try:
             while any(t.is_alive() for t in sources + keyed):
+                if cancel_event is not None and cancel_event.is_set():
+                    raise JobCancelledError(job_name)
                 if coordinator.failure is not None:
                     raise coordinator.failure
                 # user control: savepoints / queries
@@ -1881,6 +1893,9 @@ class StageParallelExecutor:
             # checkpoint, not wait out the full deadline
             if coordinator.failure is not None:
                 raise coordinator.failure
+            if self._cancel_event is not None \
+                    and self._cancel_event.is_set():
+                raise JobCancelledError("cancelled during checkpoint")
             if coordinator.cancelled.is_set():
                 raise RuntimeError(
                     f"checkpoint {checkpoint_id} aborted: the job was "

@@ -12,8 +12,8 @@ whole RecordBatch to bucket ids and the batch splits into per-bucket
 sub-batches with one lexsort, so a million rows crossing a day boundary
 cost two gathers, not a per-record router. Row encoding goes through
 the SerializationSchema seam (connectors/formats.py), so every
-registered format — jsonl, csv, any binary format (``binary = True``,
-length-prefixed) — writes files; 'avro' raises naming ROADMAP item 12d.
+registered format — jsonl, csv, avro, any binary format (``binary =
+True``, length-prefixed) — writes files.
 
 Lifecycle (exactly the reference's):
 - rows append to a bucket's ``.inprogress`` part file;
@@ -163,7 +163,7 @@ class FileSink(TwoPhaseCommitSink):
     """Bucketed rolling exactly-once file sink (reference: FileSink).
 
     ``fmt`` is a format name resolved through the DDL format seam
-    ('json', 'csv', ...; 'avro' raises naming ROADMAP item 12d) or a
+    ('json', 'csv', 'avro', ...) or a
     SerializationSchema instance.
     """
 

@@ -40,9 +40,9 @@ def resolve_format(name: str, columns: Sequence[str],
                    ) -> Tuple["DeserializationSchema",
                               "SerializationSchema"]:
     if name.lower() == "avro" and "avro" not in _FORMATS:
-        raise NotImplementedError(
-            "the 'avro' format (connectors/avro.py) is not ported to "
-            "flink_tpu_torch yet (ROADMAP.md, Queue A item 12d)")
+        # self-registers on import; 'format' = 'avro' in DDL must not
+        # require a user-level import (same pattern as shuffle.service)
+        import flink_tpu_torch.connectors.avro  # noqa: F401
     factory = _FORMATS.get(name.lower())
     if factory is None:
         raise ValueError(

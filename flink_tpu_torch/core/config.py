@@ -202,8 +202,9 @@ class DeploymentOptions:
     SHUFFLE_SERVICE = ConfigOption(
         "shuffle.service", default="local", type=str,
         description="Registered ShuffleService connecting subtasks: "
-        "'local' (in-process bounded queues, credit-based) or "
-        "'sort-merge' (batch mode: partitions spill as encoded runs).")
+        "'local' (in-process bounded queues, credit-based), "
+        "'sort-merge' (batch mode: partitions spill as encoded runs) or "
+        "'grpc' (batches over the cluster RPC, cluster/rpc_shuffle.py).")
     SHUFFLE_CREDITS = ConfigOption(
         "shuffle.credits-per-channel", default=2, type=int,
         description="In-flight batches allowed per (producer, consumer) "
@@ -387,6 +388,103 @@ class WatchdogOptions:
         "watchdog.max-misses", default=3, type=int,
         description="Consecutive deadline misses a shard survives before "
         "it is declared dead.")
+
+
+class RestartOptions:
+    """reference: RestartStrategyOptions (restart-strategy.* keys)."""
+
+    STRATEGY = ConfigOption(
+        "restart-strategy.type", default="fixed-delay", type=str,
+        description="none | fixed-delay | exponential-delay | failure-rate.")
+    MAX_ATTEMPTS = ConfigOption(
+        "restart-strategy.max-attempts", default=3, type=int)
+    DELAY_MS = ConfigOption(
+        "restart-strategy.delay-ms", default=100, type=int)
+    MAX_BACKOFF_MS = ConfigOption(
+        "restart-strategy.exponential-delay.max-backoff-ms",
+        default=60_000, type=int,
+        description="Backoff ceiling for exponential-delay.")
+    BACKOFF_MULTIPLIER = ConfigOption(
+        "restart-strategy.exponential-delay.backoff-multiplier",
+        default=2.0, type=float)
+    JITTER_FACTOR = ConfigOption(
+        "restart-strategy.exponential-delay.jitter-factor",
+        default=0.0, type=float,
+        description="Spread each backoff by +/- this fraction "
+        "(thundering-herd protection across concurrent restarts).")
+    RESET_BACKOFF_THRESHOLD_MS = ConfigOption(
+        "restart-strategy.exponential-delay.reset-backoff-threshold-ms",
+        default=0, type=int,
+        description="After this long without failures the backoff and "
+        "attempt budget reset to initial (0 = never reset).")
+    FAILURE_RATE_INTERVAL_MS = ConfigOption(
+        "restart-strategy.failure-rate.failure-rate-interval-ms",
+        default=60_000, type=int,
+        description="Sliding window for failure-rate counting.")
+
+
+class ClusterOptions:
+    NUM_TASK_EXECUTORS = ConfigOption(
+        "cluster.task-executors", default=1, type=int)
+    SLOTS_PER_EXECUTOR = ConfigOption(
+        "taskmanager.numberOfTaskSlots", default=1, type=int)
+    HEARTBEAT_INTERVAL_MS = ConfigOption(
+        "heartbeat.interval-ms", default=500, type=int)
+    HEARTBEAT_TIMEOUT_MS = ConfigOption(
+        "heartbeat.timeout-ms", default=5000, type=int)
+    REST_PORT = ConfigOption(
+        "rest.port", default=0, type=int,
+        description="REST status endpoint port; 0 = ephemeral, -1 = off.")
+    RPC_PORT = ConfigOption(
+        "rpc.port", default=0, type=int,
+        description="Control-plane RPC port (0 = ephemeral). Standalone "
+        "deployments pin it so TaskExecutor processes can join "
+        "(reference: jobmanager.rpc.port).")
+    RPC_BIND_ADDRESS = ConfigOption(
+        "rpc.bind-address", default="127.0.0.1", type=str,
+        description="Address the control-plane RPC server binds; use "
+        "0.0.0.0 for cross-host standalone clusters.")
+    RPC_ADVERTISED_ADDRESS = ConfigOption(
+        "rpc.advertised-address", default="", type=str,
+        description="Address peers use to CONNECT to this process "
+        "(registered with the ResourceManager, returned in slot offers). "
+        "Empty = the bind address, or the host's resolved IP when binding "
+        "0.0.0.0 (reference: taskmanager.host).")
+
+
+class SchedulerOptions:
+    """reference: JobManagerOptions.SCHEDULER + adaptive scheduler knobs."""
+
+    MODE = ConfigOption(
+        "jobmanager.scheduler", default="default", type=str,
+        description="'default' (fail fast when no resources) or 'adaptive' "
+        "(wait for resources, rescale reactively on resource change).")
+    RESOURCE_WAIT_TIMEOUT_MS = ConfigOption(
+        "jobmanager.adaptive-scheduler.resource-wait-timeout-ms",
+        default=30_000, type=int,
+        description="How long WaitingForResources waits for a slot before "
+        "the job fails.")
+    RESOURCE_STABILIZATION_MS = ConfigOption(
+        "jobmanager.adaptive-scheduler.resource-stabilization-timeout-ms",
+        default=100, type=int,
+        description="Settle time after a resource change before (re)acting "
+        "on it.")
+
+
+class HighAvailabilityOptions:
+    """reference: HighAvailabilityOptions (high-availability.* keys)."""
+
+    MODE = ConfigOption(
+        "high-availability.type", default="none", type=str,
+        description="'none' or 'filesystem' (file-lock leader election + "
+        "persisted job graph store).")
+    STORAGE_DIR = ConfigOption(
+        "high-availability.storageDir", default=None, type=str,
+        description="Directory for leader locks, job graph store and blobs.")
+    LEASE_TIMEOUT_MS = ConfigOption(
+        "high-availability.lease-timeout-ms", default=3000, type=int,
+        description="Leader lease considered stale after this long without "
+        "renewal.")
 
 
 #: Reference keys the port does not read, each with the values the port

@@ -32,6 +32,24 @@ class StreamExecutionEnvironment:
         #: JobExecutionResult of the most recent execute()
         self.last_execution_result = None
 
+    def _effective_config(self) -> Configuration:
+        """The CLI's ``-D`` dynamic properties (``FLINK_TPU_DYNAMIC_PROPS``,
+        set by ``cli run``) override the programmatic configuration —
+        applied at execute() time, so they win over any mutator the script
+        called after building the environment (reference: CliFrontend
+        dynamic properties > user Configuration)."""
+        import json
+        import os
+
+        raw = os.environ.get("FLINK_TPU_DYNAMIC_PROPS")
+        if not raw:
+            return self.config
+        try:
+            props = json.loads(raw)
+        except ValueError:
+            return self.config
+        return Configuration(props).with_fallback(self.config)
+
     @staticmethod
     def get_execution_environment(
         config: Optional[Configuration] = None,
@@ -40,7 +58,7 @@ class StreamExecutionEnvironment:
 
     @property
     def parallelism(self) -> int:
-        return self.config.get(CoreOptions.DEFAULT_PARALLELISM)
+        return self._effective_config().get(CoreOptions.DEFAULT_PARALLELISM)
 
     def set_parallelism(self, p: int) -> "StreamExecutionEnvironment":
         self.config.set(CoreOptions.DEFAULT_PARALLELISM, p)
@@ -73,7 +91,7 @@ class StreamExecutionEnvironment:
 
     @property
     def batch_size(self) -> int:
-        return self.config.get(BatchOptions.BATCH_SIZE)
+        return self._effective_config().get(BatchOptions.BATCH_SIZE)
 
     @property
     def state_slot_capacity(self) -> int:
@@ -154,7 +172,7 @@ class StreamExecutionEnvironment:
         graph = self.get_stream_graph()
         # execution.stage-parallelism expands the graph into source and
         # keyed subtasks wired by the shuffle SPI (cluster/stage_executor)
-        result = make_executor(self.config, graph).run(
+        result = make_executor(self._effective_config(), graph).run(
             graph, job_name=job_name, restore_from=restore_from,
             restore_mode=restore_mode)
         self._sinks = []
@@ -171,6 +189,11 @@ class JobExecutionResult:
         self.registry = None
         #: TraceCollector with checkpoint/recovery spans
         self.traces = None
+        #: a result that came back from a cluster carries the registry's
+        #: snapshot and the spans as plain data instead
+        #: (``cluster/minicluster.py`` ``_result_from_wire``)
+        self.metric_snapshot = None
+        self.spans = None
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"JobExecutionResult({self.job_name}, {self.metrics})"

@@ -15,6 +15,10 @@ Perfetto timeline can never disagree about where the time went:
 - :func:`register_flight_metrics` — per-span-kind duration aggregates
   (count / total ms / p50 / p99) as gauges on a ``flight`` metric
   group, rendered by the existing PrometheusReporter.
+- :func:`register_kernel_metrics` — the hand-written kernels' launch
+  counts (the wrappers' process-wide counters) as gauges on a ``kernels``
+  group, so a job run in another process (a standalone TaskExecutor)
+  reports them through its metric snapshot.
 - :class:`LatencyMarkerPlane` — the Flink LatencyMarker shape for the
   micro-batch design: each source batch is the marker (stamped with
   its ingest wall time), every operator it flows through records
@@ -235,6 +239,22 @@ def register_flight_metrics(group,
         fg.gauge(f"{base}_p99_ms", _stat(kind, "p99_ms"))
     fg.gauge("records_dropped", lambda: rec.dropped())
     return fg
+
+
+def register_kernel_metrics(group):
+    """``kernels.exchange_rank_launches`` and
+    ``kernels.ordered_fold_launches``: the launch counters of the two
+    hand-written kernels' wrappers (``stateplane/rank.py`` ``rank``,
+    ``stateplane/fold.py`` ``ordered_fold_planes``). They are
+    PROCESS-GLOBAL, like the flight aggregates: register them at a
+    registry root."""
+    from flink_tpu_torch.stateplane.fold import ordered_fold_planes
+    from flink_tpu_torch.stateplane.rank import rank
+
+    kg = group.add_group("kernels")
+    kg.gauge("exchange_rank_launches", lambda: rank.launches)
+    kg.gauge("ordered_fold_launches", lambda: ordered_fold_planes.launches)
+    return kg
 
 
 class LatencyMarkerPlane:

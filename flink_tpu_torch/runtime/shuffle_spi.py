@@ -16,9 +16,8 @@ a "buffer" of credit is one batch. Built-in transports:
   process). The credit IS the queue bound.
 - ``sort-merge`` (``runtime/sort_merge_shuffle.py``) — the batch data
   plane: partitions spill as encoded runs.
-
-The reference's ``grpc`` transport (``cluster/rpc_shuffle.py``) is ROADMAP
-Queue A item 12c; selecting it raises naming the item.
+- ``grpc`` (``cluster/rpc_shuffle.py``, the reference's key) — batches
+  travel over the port's TCP RPC between task executors.
 
 Within one keyed mesh operator the data plane is NOT this module: records
 reach their shards through the device exchange (``parallel/shuffle.py``).
@@ -432,14 +431,11 @@ def register_shuffle_service(name: str,
 #: shuffle.service must not require the user to import the module
 _LAZY_MODULES = {
     "sort-merge": "flink_tpu_torch.runtime.sort_merge_shuffle",
+    "grpc": "flink_tpu_torch.cluster.rpc_shuffle",
 }
 
 
 def create_shuffle_service(name: str = "local") -> ShuffleService:
-    if name == "grpc" and name not in _FACTORIES:
-        raise NotImplementedError(
-            "shuffle.service 'grpc' (cluster/rpc_shuffle.py) is not ported "
-            "to flink_tpu_torch yet (ROADMAP.md, Queue A item 12c)")
     if name not in _FACTORIES and name in _LAZY_MODULES:
         import importlib
 

@@ -1589,3 +1589,63 @@ def test_stage_parallel_on_card_equals_cpu_run(job):
     on_card = run("cuda")
     assert counter.launches > before
     assert on_card and on_card == run("cpu")
+
+
+def _cluster_rows(rows):
+    return sorted((int(r["window_end"]), int(r["auction"]), int(r["count"]))
+                  for r in rows.rows())
+
+
+@pytest.mark.cuda
+def test_q5_through_a_minicluster_on_card_equals_cpu(tmp_path):
+    """Q5 at P=8 deployed to a MiniCluster's TaskExecutor thread on the
+    card (the job's ``execution.device``) gives the CPU deployment's rows;
+    the rank kernel launched from the task thread."""
+    _need_card()
+    import chip_smoke
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        d.mkdir()
+        st, _, _, rows, _, counts, _ = chip_smoke._mc_q5(
+            torch, device, str(d), 300_000, 1 << 16,
+            {"rest.port": -1, "cluster.task-executors": 2,
+             "heartbeat.interval-ms": 100})
+        assert st["status"] == "FINISHED"
+        got[device] = (_cluster_rows(rows), counts)
+    assert got["cuda"][1]["exchange_rank"] > 0
+    assert got["cuda"][0] and got["cuda"][0] == got["cpu"][0]
+
+
+@pytest.mark.cuda
+def test_avro_sql_on_card_equals_cpu():
+    """23(g)'s job at 100k events: the Avro topic read under the evolved
+    schema into HOP ``SUM(value)`` on the card equals the CPU bit for bit
+    and the raw format's run; the sums fold on the ordered fold."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.row4_produce(100_000)
+    chip_smoke.row4_produce_avro(100_000)
+    card, _, counts = chip_smoke._row4_avro_job(torch, "cuda", "avro")
+    cpu, _, _ = chip_smoke._row4_avro_job(torch, "cpu", "avro")
+    raw, _, _ = chip_smoke._row4_avro_job(torch, "cpu", "raw")
+    assert counts["ordered_fold"] > 0
+    chip_smoke._batches_equal("avro card vs cpu", [card], [cpu])
+    chip_smoke._batches_equal("avro vs raw", [cpu], [raw])
+
+
+@pytest.mark.cuda
+def test_grpc_shuffle_stage_job_on_card_equals_cpu():
+    """22(a)'s Q5-revenue at 4 subtasks with subtasks 2-3 behind a second
+    RPC service, on the card and on the CPU: every sum equal to the
+    stream-order oracle bit for bit in both, so the two runs are equal."""
+    _need_card()
+    import chip_smoke
+
+    card = chip_smoke.grpc_shuffle_revenue(torch, "cuda", 300_000, 1 << 16)
+    cpu = chip_smoke.grpc_shuffle_revenue(torch, "cpu", 300_000, 1 << 16)
+    assert card["launches"]["ordered_fold"] > 0
+    assert card["rows"] == cpu["rows"] > 0
+    assert card["bytes_over_socket"] > 0

@@ -390,8 +390,7 @@ class _U16Le:
 
 def test_binary_framing_roundtrips_through_sink_and_source(tmp_path):
     """Binary rows use the u32 length-prefixed framing in both packages
-    (the reference's avro cases; the port's avro format is ROADMAP item
-    12, so a two-byte format stands in for it)."""
+    (a two-byte format here; the Avro round trip is the next test)."""
     def run(p, d):
         fmt = _U16Le(p)
         sink = _fs(p).FileSink(d, ["v"], fmt=fmt)
@@ -408,10 +407,25 @@ def test_binary_framing_roundtrips_through_sink_and_source(tmp_path):
     assert len(raw) == 4 and got == [10, 7, 1000, 2570] and tail is None
 
 
-def test_avro_format_raises_naming_its_item_in_the_port(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _fs(PKGS["port"]).FileSink(str(tmp_path), ["v"], fmt="avro",
-                                   types=["BIGINT"])
+def test_avro_format_roundtrips_through_sink_and_source(tmp_path):
+    """'avro' through the format seam: the committed files hold the
+    reference's Avro bytes (u32-framed), and a ``FileSource`` reads them
+    back as the reference's does."""
+    def run(p, d):
+        from_fmt = p.mod("connectors.formats").resolve_format
+        sink = _fs(p).FileSink(d, ["v"], fmt="avro", types=["BIGINT"])
+        sink.open(0)
+        sink.write(_batch(p, [10, -7, 1000, 2570]))
+        sink.commit(sink.prepare_commit())
+        raw = _fs(p).read_committed_rows(d, binary=True)
+        de, _ = from_fmt("avro", ["v"], ["BIGINT"], {})
+        src = _fs(p).FileSource(d, de)
+        src.open()
+        got = src.poll_batch(100)["v"].tolist()
+        return raw, got, src.poll_batch(100)
+
+    raw, got, tail = _same(both(tmp_path, run))
+    assert len(raw) == 4 and got == [10, -7, 1000, 2570] and tail is None
 
 
 def test_csv_format_through_the_seam(tmp_path):

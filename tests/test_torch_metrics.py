@@ -141,7 +141,8 @@ def test_q5_registry_names_equal_the_references():
     operator's ``numLateRecordsDropped`` (the port's window operator
     exposes its engine's late-record count; the reference's registers the
     gauge only for operators that have the attribute, and its window
-    operator has none)."""
+    operator has none), and the port's ``kernels`` group (the
+    hand-written kernels' process-wide launch counters)."""
     import re
 
     def names(result):
@@ -155,7 +156,8 @@ def test_q5_registry_names_equal_the_references():
     win = next(k.rsplit(".state.", 1)[0] for k in want
                if k.endswith(".state.key_imbalance"))
     assert got == (want - {f"{win}.state.key_imbalance"}) | {
-        f"{win}.numLateRecordsDropped"}
+        f"{win}.numLateRecordsDropped",
+        "kernels.exchange_rank_launches", "kernels.ordered_fold_launches"}
     snap = {re.sub(r"#\d+", "#", k): v
             for k, v in port.registry.snapshot().items()}
     assert snap[f"{win}.window.fireCount"] == len(sink.rows()) > 0

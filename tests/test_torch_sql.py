@@ -20,16 +20,11 @@ import importlib
 import subprocess
 import sys
 import pathlib
-import re
 
 import numpy as np
 import pytest
 
 from tests.test_torch_mesh_sessions import _bits
-
-_ROADMAP = (pathlib.Path(__file__).resolve().parent.parent
-            / "ROADMAP.md").read_text()
-
 
 class Pkg:
     """One package's table surface: ``reference`` (flink_tpu) or ``port``
@@ -657,40 +652,7 @@ def test_row4_sql_hop_over_kafka_equals_reference_and_oracle():
     assert out["total"].dtype == np.float32
 
 
-# ---------------------------------------------- what raises, and why
-
-
-def _item(message):
-    m = re.search(r"Queue A item (\w+(?:-\d+)?)", message)
-    assert m, message
-    assert f"**Item {m.group(1)} " in _ROADMAP or \
-        f"**{m.group(1)}, " in _ROADMAP or \
-        f"**{m.group(1)} " in _ROADMAP, m.group(1)
-    return m.group(1)
-
-
-def _port_tenv():
-    p = PKGS["port"]
-    tenv = p.tenv()
-    tenv.create_temporary_view("t", tenv.from_collection(
-        [{"k": i % 3, "v": float(i), "ts": 10 * i} for i in range(20)],
-        timestamp_field="ts"))
-    return tenv
-
-
-NOT_PORTED = {
-    "avro_format": ("12d", lambda t: t.execute_sql(
-        "CREATE TABLE av (a BIGINT) WITH ('connector'='kafka', "
-        "'topic'='x', 'format'='avro')")),
-}
-
-
-@pytest.mark.parametrize("site", sorted(NOT_PORTED))
-def test_not_ported_site_raises_naming_its_item(site):
-    item, call = NOT_PORTED[site]
-    with pytest.raises(NotImplementedError) as e:
-        call(_port_tenv())
-    assert _item(str(e.value)) == item
+# ------------------------------------------------- package hygiene
 
 
 def test_importing_the_table_package_loads_neither_jax_nor_the_reference():

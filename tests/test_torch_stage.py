@@ -152,13 +152,37 @@ def test_events_ride_credit_free():
 
 @pytest.mark.parametrize("name,exc,match", [
     ("netty", ValueError, "unknown shuffle.service"),
-    ("grpc", NotImplementedError, "Queue A item 12c"),
 ])
 def test_unknown_and_unported_services_raise(name, exc, match):
     from flink_tpu_torch.runtime.shuffle_spi import create_shuffle_service
 
     with pytest.raises(exc, match=match):
         create_shuffle_service(name)
+
+
+def test_grpc_service_is_created_and_carries_a_batch():
+    """``shuffle.service: grpc`` (the reference's key) builds the port's
+    RPC shuffle service; its loopback topology carries batches and
+    events like the reference's, and ``close`` stops the RPC service it
+    made."""
+    from flink_tpu_torch.core.records import RecordBatch
+    from flink_tpu_torch.runtime.shuffle_spi import (
+        END_OF_PARTITION,
+        create_shuffle_service,
+    )
+
+    svc = create_shuffle_service("grpc")
+    assert type(svc).__name__ == "RpcShuffleService"
+    w = svc.create_partition("g1", 2)
+    gate = svc.create_gate(["g1"], 1)
+    w.emit(1, RecordBatch.from_pydict({"x": np.arange(5)}))
+    w.broadcast_event(77)
+    w.close()
+    assert gate.poll(timeout=5)[1]["x"].tolist() == list(range(5))
+    assert gate.poll(timeout=5)[1] == 77
+    assert gate.poll(timeout=5)[1] is END_OF_PARTITION
+    svc.close()
+    assert svc.rpc._stopped.is_set()
 
 
 PARTITIONERS = {
