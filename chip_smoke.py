@@ -182,13 +182,14 @@ Phases, each fatal on failure (no result line is printed then):
     runs phase 15 alone.
 16. CEP: (a) the ``cep_patterns_10m_keys`` row of ``tools/bench_cep.py``
     (a 2-stage within-2 s sequence over 10M keys at 400k events/s of
-    event time, 2M records — the bench's 4M, cut to keep the script's
-    time — in batches of 1<<15, P=8, 1<<14 slots a shard
+    event time, 1M records — the bench's 4M, cut to 2M when phase 21 came
+    and to 1M when phase 24 came, to keep the script's time — in batches
+    of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
     ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<18
     records (cut from 1<<19 when phase 23 came, to keep the script inside
     its time) equal, batch for batch (by digest), to the same engine with
-    ``backend="host"``; every match of the 2M records equal, as a sorted
+    ``backend="host"``; every match of the 1M records equal, as a sorted
     multiset, to a NumPy oracle written here; rows evicted and reloaded
     > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
     the host backend's events/s, and the NFA advance per fire (calls,
@@ -218,8 +219,9 @@ Phases, each fatal on failure (no result line is printed then):
     1<<14 rows a shard on the card and on the CPU: every fired batch and
     the spill counters equal bit for bit, rows evicted and reloaded > 0,
     at least one hybrid fire; (17a) Q5 at P=8 through ``env.execute()``
-    over 20M bids (cut from phase 5's 40M when phase 23 came, to keep the
-    script inside its time; micro-batches of 1<<20) under
+    over 10M bids (cut from phase 5's 40M: to 20M when phase 23 came, to
+    10M when phase 24 came, to keep the script inside its time;
+    micro-batches of 1<<20) under
     ``state.slot-table.max-device-slots`` 1<<16 a shard: every window's
     winners equal ``q5_oracle``, rows evicted > 0; events/s, fire p50/p99,
     the spill counters, hybrid fires and the state's bytes on the card
@@ -349,13 +351,14 @@ Phases, each fatal on failure (no result line is printed then):
     events/s) cut to 2,000,000 events through SQL ``SUM`` and ``COUNT``
     OVER a RANGE 10 s frame on the device engine, every row against a
     float64 NumPy oracle (counts exactly, sums within that tolerance);
-    (21b) phase 5's bids cut to 2,000,000 (JSON encoding of the ~1.3M
-    result rows sets the pace), enriched with their auction's category by
+    (21b) phase 5's bids cut to 1,000,000 (JSON encoding of the result
+    rows sets the pace; 2,000,000 until phase 24 came), enriched with
+    their auction's category by
     a lookup join (``TableLookupFunction`` over 100,000 auction rows from
     ``default_rng(21)``, an LRU cache of 1<<17), HOP(2 s, 10 s)
     ``SUM(price) GROUP BY auction, category`` at ``parallelism.default:
     8`` (the mesh engine, the rank kernel and the ordered fold), ``INSERT
-    INTO`` a 'filesystem' table, batches of 1<<17, a checkpoint every 4:
+    INTO`` a 'filesystem' table, batches of 1<<16, a checkpoint every 4:
     the first run fails after checkpoint 2, a fresh job resumes from the
     checkpoints; the committed rows hold each (auction, window) exactly
     once with its auction's category, every sum equal to phase 6's
@@ -458,6 +461,47 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_cluster(torch)'`` runs phase 23 alone
     (``phase_cluster(torch, "cpu", small=True)`` rehearses it without a
     card).
+24. point queries and the serving plane (after phase 23). Every run holds
+    its end of stream (``flink_tpu_torch/benchmarks/held.py``) until the
+    queries at the cut are done, then is released and fires as usual:
+    (24a) phase 5's Q5 at P=8 on 10M bids through ``LocalExecutor`` with a
+    ``ServingPlane`` bound to the job's control queue and 16 client
+    threads issuing ``lookup_batch`` of 256 auctions from
+    ``default_rng(24)`` with a 2 ms pause, from the first batch to the
+    release (the reference's row-6 client shape,
+    ``tools/bench_suite.py:303-325``): at the cut every one of the 100k
+    auctions' ``{window_end: count}`` through the plane equals a NumPy
+    oracle of the live slices composed in ``slice_ends_for_window`` order;
+    after the release the windows' winners equal phase 5's oracle; the
+    same job without the clients beside it; events/s to the cut with and
+    without the clients, lookups/s, lookup p50/p99 ms and lookups per
+    device batch printed; (24b) Q5-revenue (float32 ``.sum("price")``) at
+    P=8 on the first 2M bids: every auction's ``{window_end: sum}`` at the
+    cut on the card equals the port on the CPU at the same cut bit for
+    bit, and the live-slice oracle (per-slice ``np.add.at`` in stream
+    order, left-folded); the fired rows equal 22(d)'s oracle; (24c) 23(a)'s
+    job (10M bids, two in-process TaskExecutors): ``QueryableStateClient``
+    reads every auction in 256-key batches, equal to 24(a); one key
+    through ``GET /jobs/<id>/state/<op>`` and ``cli query`` agrees with the
+    client; lookups/s and p99 printed; (24d) 22(a)'s Q5-revenue at 4
+    subtasks (one source subtask, no local combiner) on 2M bids: one
+    ``StateQueryBatchRequest`` of every auction fans out to its owning
+    subtasks, equal to 24(b) bit for bit; (24e) card == CPU bit for bit on
+    4,096 keys from ``default_rng(24)`` at the cut: Q5-revenue at P=1 on
+    2M bids in the slot layout under a 1<<17-slot budget (slices spilled)
+    and in the pane layout (no spill tier), each also equal to the
+    live-slice oracle; row 5's sessions at P=1 (1<<19 rows) and on the
+    mesh engine at P=8 (1<<16 rows a shard), cut to 1M records, the paged
+    tier evicting; the resident, spilled and paged shares of the pairs
+    answered printed; (24f) host only: the native and the Python hot-row
+    cache planes primed with 24(b)'s answers under one generation
+    (``prime_batch``, re-primed until the native table has grown to hold
+    every key): ``get_many`` and ``get_many_packed`` on all 100k auctions
+    give the same values in both planes; probe lookups/s of each.
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_serving(torch)'`` runs phase 24 alone
+    (``phase_serving(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -471,13 +515,14 @@ each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs, each
 run of 22(a) to 22(e) (22(e)'s recorder-off run in its subprocess),
 each run of 23(a) to 23(g) (23(e)'s in the TaskExecutor process, whose
 counters start at 0 with it and come back through the job's metric
-snapshot), and read just after; each phase fails if a kernel of
+snapshot) and each run of 24(a) to 24(e), and read just after; each phase fails if a kernel of
 its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
 15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
-22(a), 22(c), 22(d), 23(f), 23(g) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count being
-an integer fold; the rank in 20(c), 21(b), 22(b), 22(e) and 23(a)-(e)). 19(a), 19(d) and 21(a)
+22(a), 22(c), 22(d), 23(f), 23(g), 24(b), 24(d), 24(e) and 21(d)'s ML
+job — row 1's `.sum` keeps a float32 leaf —, Count being an integer
+fold; the rank in 20(c), 21(b), 22(b), 22(e), 23(a)-(e) and 24(a)-(c)). 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
 
@@ -1105,7 +1150,7 @@ def phase_q5(torch, records: int, parallelism: int = 8, layout="slots"):
         got.setdefault(r["window_end"], (r["count"], set()))[1].add(
             int(r["auction"]))
     t1 = time.perf_counter()
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     oracle_s = time.perf_counter() - t1
     if set(got) != set(want):
         raise AssertionError(f"Q5 fired {len(got)} windows, oracle "
@@ -2214,7 +2259,7 @@ def ckpt_q5_crash(torch, records: int, tmp: str,
             per.setdefault(r["window_end"], (r["count"], set()))[1].add(
                 int(r["auction"]))
         got.update(per)
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     if set(got) != set(want):
         raise AssertionError(f"phase 14(a): {len(got)} windows, the oracle "
                              f"{len(want)}")
@@ -3559,7 +3604,7 @@ def phase_mesh_spill(torch, records: int = 3_000_000,
     return out
 
 
-def phase_mesh_budget_q5(torch, records: int = 20_000_000,
+def phase_mesh_budget_q5(torch, records: int = 10_000_000,
                          budget: int = 1 << 16):
     """Phase 17(a): Q5 at P=8 through ``env.execute()`` under
     ``state.slot-table.max-device-slots`` a shard, against its oracle."""
@@ -3596,7 +3641,7 @@ def phase_mesh_budget_q5(torch, records: int = 20_000_000,
     for r in sink.rows():
         got.setdefault(r["window_end"], (r["count"], set()))[1].add(
             int(r["auction"]))
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     if set(got) != set(want):
         raise AssertionError(f"phase 17(a): {len(got)} windows, oracle "
                              f"{len(want)}")
@@ -4381,7 +4426,7 @@ def stop_with_savepoint(torch, tmp: str, records: int = 10_000_000,
     if set(first) & set(second):
         fails.append("a window fired before the stop and after the resume")
     union = {**first, **second}
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     tied = 0
     for w, (best, winners) in want.items():
         for name, got in (("stop + resume", union), ("uninterrupted", clean)):
@@ -4821,7 +4866,7 @@ def sql_q5(torch, records: int = 10_000_000, parallelism: int = 8,
     counts = read_counts()
     if device == "cuda" and parallelism > 1 and counts["exchange_rank"] <= 0:
         raise AssertionError("SQL Q5 ran without launching the rank kernel")
-    want = q5_oracle(BidSource, records, AUCTIONS, RATE, SIZE, SLIDE)
+    want = q5_oracle_cached(records)
     got = {int(w): (int(n), int(a)) for w, n, a in
            zip(out["window_end"], out["num"], out["auction"])}
     if sorted(got) != sorted(want) or len(got) != len(out):
@@ -5613,8 +5658,10 @@ def phase_slice21(torch, device: str = "cuda", savepoint: str = None,
             "sql": {"events": 300_000}, "lookup": {"bids": 400_000,
                                                    "batch": 1 << 14},
             "ml": {"records": 100_000}, "v2": {"records": 100_000}}
-           if small else {k: {} for k in ("over", "sql", "lookup", "ml",
-                                          "v2")})
+           if small else {**{k: {} for k in ("over", "sql", "ml", "v2")},
+                          # cut from 2M when phase 24 came (the script's
+                          # time): 15 batches, the failure past 9
+                          "lookup": {"bids": 1_000_000, "batch": 1 << 16}})
     t0 = time.perf_counter()
     parts = {}
     times = {}
@@ -6150,18 +6197,29 @@ def _until(pred, timeout: float, what: str, step: float = 0.005):
 
 
 def _mc_q5(torch, device, tmp, records, batch, cluster_conf, job_conf=None,
-           fn=None, during=None, name="q5-mc"):
+           fn=None, during=None, name="q5-mc", hold=None, started=None):
     """Q5 at P=8 through a MiniCluster into a JSON-lines file: (status,
     client, cluster-side master, rows view, s, launches, what ``during``
     returned). ``during(cluster, client, master)`` runs while the job
-    runs."""
+    runs; with ``hold`` the source holds its end of stream in that
+    directory until released (``benchmarks/held.py``); ``started`` (a
+    dict) gets the submit's time as ``"t0"``."""
     from flink_tpu_torch import Configuration
     from flink_tpu_torch.cluster.minicluster import MiniCluster
     from flink_tpu_torch.connectors.sinks import JsonLinesFileSink
 
     out = os.path.join(tmp, f"{name}.jsonl")
     env = _q5_env(device, batch, job_conf)
-    if fn is None:
+    if hold is not None:
+        from flink_tpu_torch.benchmarks.held import HeldBidSource
+        from flink_tpu_torch.benchmarks.nexmark import build_q5
+
+        build_q5(env, HeldBidSource(hold, total_records=records,
+                                    num_auctions=AUCTIONS,
+                                    events_per_second_of_eventtime=RATE),
+                 size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K
+                 ).sink_to(JsonLinesFileSink(out))
+    elif fn is None:
         _q5_job(env, records).sink_to(JsonLinesFileSink(out))
     else:
         _q5_with_map(env, records, fn).sink_to(JsonLinesFileSink(out))
@@ -6169,6 +6227,8 @@ def _mc_q5(torch, device, tmp, records, batch, cluster_conf, job_conf=None,
     try:
         reset_counts()
         t0 = time.perf_counter()
+        if started is not None:
+            started["t0"] = t0
         client = cluster.submit(env, name)
         master = cluster.dispatcher.master(client.job_id)
         seen = during(cluster, client, master) if during else None
@@ -6229,10 +6289,62 @@ def mc_cli(rest_port: int, job_id: str) -> dict:
     return {"list": outs[0].strip(), "info_status": info["status"]}
 
 
+def mc_queries(cluster, client, hold: str, t0: float) -> dict:
+    """24(c)'s reads at the held cut of a MiniCluster job: every auction
+    through ``QueryableStateClient`` in 256-key batches, one key through
+    the REST state route and ``cli query``; then the release. Returns the
+    answers, the time to the cut and the client's numbers."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from flink_tpu_torch.benchmarks.held import release, settle, wait_held
+    from flink_tpu_torch.cli import main as cli_main
+    from flink_tpu_torch.cluster.queryable_state import QueryableStateClient
+
+    try:
+        wait_held(hold, timeout_s=600)
+        qs = QueryableStateClient(cluster)
+        settle(lambda: qs.get_state_batch(client.job_id, Q5_OP,
+                                          list(range(256))))
+        to_cut = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ans = []
+        for i in range(0, AUCTIONS, 256):
+            ans.extend(qs.get_state_batch(
+                client.job_id, Q5_OP,
+                list(range(i, min(i + 256, AUCTIONS)))))
+        dt = time.perf_counter() - t1
+        stats = qs.stats()
+        key = 7
+        url = (f"http://127.0.0.1:{cluster.rest_port}/jobs/{client.job_id}"
+               f"/state/{Q5_OP}?key={key}")
+        with urllib.request.urlopen(url, timeout=30) as r:
+            rest = json.loads(r.read())["state"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli_main(["query", client.job_id, Q5_OP, str(key), "--rest",
+                         f"127.0.0.1:{cluster.rest_port}"]) != 0:
+                raise AssertionError("24(c): cli query failed")
+        cli = json.loads(buf.getvalue())["state"]
+    finally:
+        release(hold)
+    as_json = {str(w): v for w, v in ans[key].items()}
+    if rest != as_json or cli != as_json:
+        raise AssertionError(f"24(c): key {key}: client {ans[key]}, REST "
+                             f"{rest}, cli {cli}")
+    return {"answers": ans, "to_cut_s": to_cut, "read_s": dt,
+            "lookups_per_s": AUCTIONS / dt, "client_stats": stats,
+            "key": key}
+
+
 def minicluster_q5(torch, tmp: str, device: str = "cuda",
                    records: int = 10_000_000, batch: int = 1 << 20) -> dict:
     """23(a): phase 5's Q5 at P=8 through a MiniCluster of two in-process
-    TaskExecutors, against the same job run directly."""
+    TaskExecutors, against the same job run directly. The cluster's
+    source holds its end of stream: at the cut 24(c)'s reads run
+    (``mc_queries``; phase 24 checks their answers), then it is released;
+    events/s count to the cut, the reads excluded."""
     import urllib.request
 
     from flink_tpu_torch.cluster.history_server import HistoryServer
@@ -6243,18 +6355,22 @@ def minicluster_q5(torch, tmp: str, device: str = "cuda",
     _stage_check_q5(direct_sink, records, "23(a) direct")
 
     reads = {}
+    hold = os.path.join(tmp, "q5-mc-hold")
+    started = {}
 
     def during_and_cli(cluster, client, master):
         reads.update(mc_rest_reads(cluster, client, master))
+        reads["queries"] = mc_queries(cluster, client, hold, started["t0"])
         client.wait(timeout=600)
         reads["cli"] = mc_cli(cluster.rest_port, client.job_id)
         return reads
 
-    st, client, master, rows, dt, counts, _ = _mc_q5(
+    st, client, master, rows, _, counts, _ = _mc_q5(
         torch, device, tmp, records, batch,
         {"rest.port": 0, "cluster.task-executors": 2,
          "heartbeat.interval-ms": 100, "jobmanager.archive.dir": archive},
-        during=during_and_cli)
+        during=during_and_cli, hold=hold, started=started)
+    dt = reads["queries"]["to_cut_s"]
     if st["status"] != "FINISHED" or st["attempt"] != 0:
         raise AssertionError(f"23(a): {st}")
     if device == "cuda" and counts["exchange_rank"] <= 0:
@@ -6275,9 +6391,12 @@ def minicluster_q5(torch, tmp: str, device: str = "cuda",
            "direct_events_per_s": records / direct_s, "windows": windows,
            "launches": {k: counts[k] + direct_counts[k] for k in counts},
            "mc_launches": counts, "direct_launches": direct_counts,
-           "reads": reads, "archived_keys": sorted(archived)}
+           "reads": {k: v for k, v in reads.items() if k != "queries"},
+           "queries": reads["queries"], "archived_keys": sorted(archived)}
     print(f"phase 23(a): Q5 P=8 through a MiniCluster (2 TaskExecutors), "
-          f"{records} bids in {dt:.3f} s = {records / dt:.0f} events/s "
+          f"{records} bids to the held end of stream in {dt:.3f} s = "
+          f"{records / dt:.0f} events/s (24(c)'s reads then ran at the "
+          f"cut) "
           f"(direct {records / direct_s:.0f} events/s in the same call); "
           f"{windows} windows' winners equal phase 5's oracle; REST "
           f"/overview, /jobs, /jobs/<id> ({reads['job_status_while_running']}"
@@ -6784,7 +6903,802 @@ def phase_cluster(torch, device: str = "cuda", small: bool = False) -> dict:
             launches[k] += part["launches"][k]
     seconds = time.perf_counter() - t_phase
     print(f"phase 23: {seconds:.1f} s; launches {launches}")
-    print("cluster " + json.dumps(out, default=str))
+    shown = {**out, "a": {**out["a"], "queries": {
+        k: v for k, v in out["a"]["queries"].items() if k != "answers"}}}
+    print("cluster " + json.dumps(shown, default=str))
+    return {**out, "launches": launches, "seconds": seconds}
+
+
+#: phase 24's seeds: the clients' keys and the queried keys of 24(e)
+SERVE_SEED = 24
+
+
+def _answers_equal(got, want, what: str) -> int:
+    """Answers equal as structures, floats on their raw bits (NaN-aware),
+    every scalar of the same Python type; returns the values compared."""
+    import struct
+
+    n = 0
+
+    def walk(g, w, path):
+        nonlocal n
+        if type(g) is not type(w):
+            raise AssertionError(f"{what} {path}: {type(g).__name__} vs "
+                                 f"{type(w).__name__}")
+        if isinstance(w, dict):
+            if sorted(g) != sorted(w):
+                raise AssertionError(f"{what} {path}: keys {sorted(g)[:6]} "
+                                     f"vs {sorted(w)[:6]}")
+            for k in w:
+                walk(g[k], w[k], f"{path}[{k!r}]")
+        elif isinstance(w, (list, tuple)):
+            if len(g) != len(w):
+                raise AssertionError(f"{what} {path}: {len(g)} vs {len(w)}")
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}[{i}]")
+        elif isinstance(w, float):
+            n += 1
+            if struct.pack("<d", g) != struct.pack("<d", w):
+                raise AssertionError(f"{what} {path}: {g!r} vs {w!r}")
+        else:
+            n += 1
+            if g != w:
+                raise AssertionError(f"{what} {path}: {g!r} vs {w!r}")
+
+    walk(got, want, "")
+    return n
+
+
+def q5_slices(records: int):
+    """Per-slice (count, float32 price sum in stream order) of the first
+    ``records`` bids: ``[n_slices, AUCTIONS]`` each, slice j ending at
+    (j + 1) * SLIDE (``np.add.at`` folds each slice's prices in stream
+    order, as the engine's ordered fold does)."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    n_slices = ((records - 1) * 1000 // RATE) // SLIDE + 1
+    counts = np.zeros((n_slices, AUCTIONS), np.int64)
+    sums = np.zeros((n_slices, AUCTIONS), np.float32)
+    max_ts = 0
+    while (b := src.poll_batch(1 << 22)) is not None:
+        idx = (b.timestamps // SLIDE) * AUCTIONS + b["auction"]
+        counts.reshape(-1)[:] += np.bincount(idx, minlength=counts.size)
+        np.add.at(sums.reshape(-1), idx, b["price"])
+        max_ts = max(max_ts, int(b.timestamps.max()))
+    return counts, sums, max_ts
+
+
+_Q5_SLICES = {}
+
+
+def q5_slices_cached(records: int):
+    if records not in _Q5_SLICES:
+        _Q5_SLICES[records] = q5_slices(records)
+    return _Q5_SLICES[records]
+
+
+def live_windows_oracle(records: int, column: str, keys=None):
+    """What a point query answers for each auction at the held cut after
+    ``records`` bids, by NumPy: the slices still live (their last window,
+    ``end + SIZE - SLIDE``, not yet fired by the watermark ``max_ts - 1``),
+    each window touching a live slice with the key's bids, its value the
+    left fold of those slices in ``slice_ends_for_window`` order (counts:
+    an int sum; ``sum_price``: float32 ``((0 + s0) + s1) + ...``). One
+    ``{window_end: {column: value}}`` per auction of ``keys`` (default
+    every auction)."""
+    counts, sums, max_ts = q5_slices_cached(records)
+    k = SIZE // SLIDE
+    keys = np.arange(AUCTIONS) if keys is None else np.asarray(keys)
+    live = [j for j in range(len(counts))
+            if (j + 1) * SLIDE + SIZE - SLIDE > max_ts]
+    vals = counts if column == "count" else sums
+    out = [dict() for _ in range(len(keys))]
+    for e in range(min(live), max(live) + k):
+        acc = np.zeros(len(keys), vals.dtype)
+        hit = np.zeros(len(keys), bool)
+        for j in range(e - k + 1, e + 1):
+            if j in live:
+                m = counts[j, keys] > 0
+                acc = np.where(m, acc + vals[j, keys], acc)
+                hit |= m
+        end = (e + 1) * SLIDE
+        cast = int if column == "count" else float
+        for i in np.nonzero(hit)[0].tolist():
+            out[i][end] = {column: cast(acc[i])}
+    return out
+
+
+def _held_run(torch, env, hold: str, at_cut, device: str, control=None):
+    """Run ``env``'s job on a LocalExecutor thread with a control queue
+    (``at_cut(control, t0)`` runs once the held source holds); then the
+    stream is released and the job finishes. Returns (what ``at_cut``
+    returned, the JobExecutionResult, wall s of the whole run)."""
+    import queue
+    import threading
+
+    from flink_tpu_torch.benchmarks.held import release, wait_held
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+
+    control = queue.Queue() if control is None else control
+    out = {}
+    graph = env.get_stream_graph()
+
+    def run():
+        try:
+            out["result"] = LocalExecutor(env.config).run(
+                graph, "serve", control_queue=control)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out["error"] = e
+
+    t0 = time.perf_counter()
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        while True:
+            try:
+                wait_held(hold, timeout_s=1.0)
+                break
+            except TimeoutError:
+                if not t.is_alive():
+                    raise out.get("error") or AssertionError(
+                        "the job ended before its source held")
+                if time.perf_counter() - t0 > 600:
+                    raise
+        got = at_cut(control, t0)
+    finally:
+        release(hold)
+        t.join(timeout=600)
+    _sync(torch, device)
+    if "error" in out:
+        raise out["error"]
+    return got, out["result"], time.perf_counter() - t0
+
+
+def _ask(control, req, timeout: float = 120.0):
+    control.put(req)
+    return req.wait(timeout)
+
+
+def _query_all(control, op: str, keys, batch: int = 8192):
+    """Every key through ``StateQueryBatchRequest``s of ``batch`` keys."""
+    from flink_tpu_torch.cluster.local_executor import StateQueryBatchRequest
+
+    keys = list(keys)
+    out = []
+    for i in range(0, len(keys), batch):
+        out.extend(_ask(control, StateQueryBatchRequest(
+            op, keys[i:i + batch])))
+    return out
+
+
+def _cut(control, op: str, probe):
+    """Settle at the held cut (``benchmarks/held.py``'s ``settle``)."""
+    from flink_tpu_torch.benchmarks.held import settle
+    from flink_tpu_torch.cluster.local_executor import StateQueryBatchRequest
+
+    return settle(lambda: _ask(control, StateQueryBatchRequest(op, probe)))
+
+
+Q5_OP, REV_OP = "window_agg(CountAggregate)", "window_agg(SumAggregate)"
+
+
+def _held_q5_env(device, hold, records, batch, extra=None):
+    from flink_tpu_torch.benchmarks.held import HeldBidSource
+    from flink_tpu_torch.benchmarks.nexmark import build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    env = _q5_env(device, batch, extra)
+    sink = CollectSink()
+    build_q5(env, HeldBidSource(hold, total_records=records,
+                                num_auctions=AUCTIONS,
+                                events_per_second_of_eventtime=RATE),
+             size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K).sink_to(sink)
+    return env, sink
+
+
+def _held_revenue_env(device, hold, records, batch, conf):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.held import HeldBidSource
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.micro-batch.size": batch, "execution.device": device,
+        **conf}))
+    sink = CollectSink()
+    build_revenue(env, HeldBidSource(
+        hold, total_records=records, num_auctions=AUCTIONS,
+        events_per_second_of_eventtime=RATE)).sink_to(sink)
+    return env, sink
+
+
+def serving_q5(torch, tmp: str, device: str, records: int, batch: int,
+               clients: int = 16) -> dict:
+    """24(a): phase 5's Q5 at P=8 through ``LocalExecutor`` with a
+    ``ServingPlane`` bound to the job's control queue and ``clients``
+    threads issuing ``lookup_batch`` of 256 auctions (``default_rng(24)``)
+    with a 2 ms pause from the first batch to the release (the client
+    shape of the reference's row 6, ``tools/bench_suite.py:303-325``);
+    the same job without them beside it."""
+    import queue
+    import threading
+
+    from flink_tpu_torch.metrics.core import quantile_sorted
+    from flink_tpu_torch.tenancy.serving import ServingPlane
+
+    def one(with_clients: bool):
+        hold = os.path.join(tmp, f"a-{with_clients}")
+        env, sink = _held_q5_env(device, hold, records, batch)
+        plane = ServingPlane(window_ms=1.0)
+        stop = threading.Event()
+        errors = []
+        lat = {}
+
+        def client(i):
+            rng = np.random.default_rng(SERVE_SEED + i)
+            while not stop.is_set():
+                try:
+                    plane.lookup_batch("serve", Q5_OP, rng.integers(
+                        0, AUCTIONS, 256).tolist())
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+                    return
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(clients if with_clients else 0)]
+
+        def at_cut(control, t0):
+            from flink_tpu_torch.benchmarks.held import settle
+
+            cut = settle(lambda: plane.lookup_batch(
+                "serve", Q5_OP, list(range(256))))
+            ingest_s = time.perf_counter() - t0
+            lat["clients_s"] = time.perf_counter() - lat.get("start", t0)
+            ans = []
+            for i in range(0, AUCTIONS, 8192):
+                ans.extend(plane.lookup_batch(
+                    "serve", Q5_OP, list(range(i, min(i + 8192, AUCTIONS)))))
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+            return ans, ingest_s, cut
+
+        control = queue.Queue()
+        plane.bind_job("serve", control)
+        reset_counts()
+        lat["start"] = time.perf_counter()
+        try:
+            for t in threads:
+                t.start()
+            (ans, ingest_s, _), result, wall = _held_run(
+                torch, env, hold, at_cut, device, control)
+        finally:
+            stop.set()
+        counts = read_counts()
+        plane.unbind_job("serve")
+        if errors:
+            raise AssertionError(f"24(a): a client failed: {errors[0]!r}")
+        m = plane.metrics()
+        lats = sorted(plane._pool.latencies())
+        return {"answers": ans, "ingest_s": ingest_s, "wall_s": wall,
+                "sink": sink, "counts": counts, "metrics": m,
+                "p50_ms": quantile_sorted(lats, 0.5) if lats else 0.0,
+                "clients_s": lat["clients_s"]}
+
+    quiet = one(False)
+    served = one(True)
+    t1 = time.perf_counter()
+    want = live_windows_oracle(records, "count")
+    oracle_s = time.perf_counter() - t1
+    compared = _answers_equal(served["answers"], want, "24(a) at the cut")
+    _answers_equal(quiet["answers"], want, "24(a) without clients")
+    windows = _stage_check_q5(served["sink"], records, "24(a) after release")
+    _stage_check_q5(quiet["sink"], records, "24(a) without clients")
+    for run in (served, quiet):
+        if device == "cuda" and run["counts"]["exchange_rank"] <= 0:
+            raise AssertionError("24(a) ran without launching the rank")
+    m = served["metrics"]
+    client_lookups = m["lookups_total"]
+    out = {"records": records, "clients": clients,
+           "events_per_s": records / served["ingest_s"],
+           "events_per_s_without_clients": records / quiet["ingest_s"],
+           "ratio": quiet["ingest_s"] / served["ingest_s"],
+           "lookups_total": client_lookups,
+           "lookups_per_s": client_lookups / served["clients_s"],
+           "lookup_p50_ms": served["p50_ms"],
+           "lookup_p99_ms": m["lookup_p99_ms"],
+           "lookups_per_device_batch": m["avg_batch_size"],
+           "answered_auctions": sum(1 for a in want if a),
+           "values_compared": compared, "windows": windows,
+           "oracle_s": oracle_s,
+           "launches": {k: served["counts"][k] + quiet["counts"][k]
+                        for k in served["counts"]},
+           "answers": served["answers"]}
+    print(f"phase 24(a): Q5 P=8, {records} bids with {clients} query "
+          f"clients: {out['events_per_s']:.0f} events/s to the held cut "
+          f"(without clients {out['events_per_s_without_clients']:.0f}, "
+          f"ratio {out['ratio']:.3f}); {client_lookups} lookups at "
+          f"{out['lookups_per_s']:.0f}/s, p50 {served['p50_ms']:.3f} ms "
+          f"p99 {m['lookup_p99_ms']:.3f} ms, {m['avg_batch_size']:.1f} "
+          f"lookups per device batch; all {AUCTIONS} auctions' "
+          f"{{window_end: count}} at the cut equal the live-slice oracle "
+          f"({compared} values); after the release {windows} windows' "
+          f"winners equal phase 5's oracle; launches {out['launches']}")
+    return out
+
+
+def _revenue_at_cut(torch, tmp, tag, device, records, batch, conf, keys):
+    """Q5-revenue with a held end of stream: (the answers for ``keys`` at
+    the cut, the sink, the launches, the answered pairs' residency
+    shares, wall s)."""
+    from flink_tpu_torch.runtime.operators import WindowAggOperator
+
+    hold = os.path.join(tmp, tag)
+    env, sink = _held_revenue_env(device, hold, records, batch, conf)
+    rec = EngineRecorder(WindowAggOperator)
+
+    def at_cut(control, t0):
+        _cut(control, REV_OP, list(range(64)))
+        return _query_all(control, REV_OP, keys), _shares(rec.engines, keys)
+
+    reset_counts()
+    try:
+        (ans, shares), _, wall = _held_run(torch, env, hold, at_cut, device)
+    finally:
+        rec.close()
+    return ans, sink, read_counts(), shares, wall
+
+
+def _shares(ops, keys) -> dict:
+    """Of the (key, live slice) pairs the engines answer for ``keys``: how
+    many were resident on the device, spilled to the host tier, or paged
+    out (read at the held cut, read-only)."""
+    out = {"resident": 0, "spilled": 0, "paged": 0}
+    keys = np.asarray(keys, dtype=np.int64)
+    for op in ops:
+        w = getattr(op, "windower", None)
+        table = getattr(w, "table", None)
+        if table is None or not hasattr(table, "query_batch_pairs"):
+            continue
+        from flink_tpu_torch.state.keygroups import hash_keys_to_i64
+
+        kid = hash_keys_to_i64(keys)
+        if hasattr(w, "meta"):
+            pairs = [(int(k), int(iv[2])) for k in kid
+                     for iv in w.meta.sessions.get(int(k), ())]
+            if not pairs:
+                continue
+            pk = np.asarray([p[0] for p in pairs], dtype=np.int64)
+            pn = np.asarray([p[1] for p in pairs], dtype=np.int64)
+        else:
+            live = np.asarray(table.namespaces, dtype=np.int64)
+            pk, pn = np.repeat(kid, len(live)), np.tile(live, len(kid))
+        hit = table.index.lookup(pk, pn) >= 0
+        found, _ = table.query_batch_pairs(pk, pn)
+        out["resident"] += int(hit.sum())
+        cold = int((found & ~hit).sum())
+        out["paged" if getattr(table, "_paged", False) else "spilled"] += \
+            cold
+    return out
+
+
+def serving_revenue(torch, tmp: str, device: str, records: int, batch: int
+                    ) -> dict:
+    """24(b): Q5-revenue at P=8 (float32 ``.sum("price")``) on the first
+    ``records`` bids: every auction's answer at the held cut on the card
+    equals the port on the CPU at the same cut bit for bit, and the
+    live-slice oracle."""
+    keys = list(range(AUCTIONS))
+    conf = {"parallelism.default": 8}
+    card, sink, counts, _, wall = _revenue_at_cut(
+        torch, tmp, "b-card", device, records, batch, conf, keys)
+    cpu, _, _, _, cpu_wall = _revenue_at_cut(
+        torch, tmp, "b-cpu", "cpu", records, batch, conf, keys)
+    compared = _answers_equal(card, cpu, "24(b) card vs CPU")
+    _answers_equal(card, live_windows_oracle(records, "sum_price"),
+                   "24(b) vs the oracle")
+    want, cnt = revenue_oracle_cached(records)
+    rows, _ = check_revenue_rows(sink.result(), want, cnt,
+                                 "24(b) after release")
+    if device == "cuda" and (counts["exchange_rank"] <= 0
+                             or counts["ordered_fold"] <= 0):
+        raise AssertionError(f"24(b): launches {counts}")
+    out = {"records": records, "values_compared": compared, "rows": rows,
+           "wall_s": wall, "cpu_wall_s": cpu_wall, "launches": counts,
+           "answers": card}
+    print(f"phase 24(b): Q5-revenue P=8 on {records} bids: all {AUCTIONS} "
+          f"auctions' {{window_end: sum_price}} at the held cut equal on "
+          f"the card and the CPU bit for bit and the live-slice oracle "
+          f"({compared} values); after the release {rows} fired sums "
+          f"equal 22(d)'s oracle; launches {counts}")
+    return out
+
+
+def serving_minicluster(torch, tmp: str, device: str, records: int,
+                        batch: int, want, reads=None) -> dict:
+    """24(c): 23(a)'s job (two in-process TaskExecutors) with a held end
+    of stream, read through ``QueryableStateClient`` in 256-key batches,
+    one key through the REST state route and ``cli query``
+    (``mc_queries``): the answers equal 24(a)'s. ``reads``: 23(a)'s run's
+    (phase 23 runs them at its cut); without them the job runs here."""
+    if reads is None:
+        from flink_tpu_torch import Configuration
+        from flink_tpu_torch.cluster.minicluster import MiniCluster
+
+        hold = os.path.join(tmp, "c")
+        env, _ = _held_q5_env(device, hold, records, batch)
+        cluster = MiniCluster(Configuration({"rest.port": 0,
+                                             "cluster.task-executors": 2,
+                                             "heartbeat.interval-ms": 100}))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            client = cluster.submit(env, "q5-serve")
+            reads = mc_queries(cluster, client, hold, t0)
+            st = client.wait(timeout=600)
+            _sync(torch, device)
+            counts = read_counts()
+        finally:
+            cluster.shutdown()
+        if st["status"] != "FINISHED":
+            raise AssertionError(f"24(c): {st}")
+        if device == "cuda" and counts["exchange_rank"] <= 0:
+            raise AssertionError("24(c) ran without launching the rank")
+        run = "its own run"
+    else:
+        counts = {"exchange_rank": 0, "ordered_fold": 0}   # 23(a)'s count
+        run = "23(a)'s run"
+    compared = _answers_equal(reads["answers"], want, "24(c) vs 24(a)")
+    stats = reads["client_stats"]
+    out = {"records": records, "values_compared": compared,
+           "lookups_per_s": reads["lookups_per_s"], "client_stats": stats,
+           "run": run, "launches": counts}
+    print(f"phase 24(c): Q5 P=8 through a MiniCluster ({run}), {records} "
+          f"bids: QueryableStateClient read all {AUCTIONS} auctions in "
+          f"256-key batches at {reads['lookups_per_s']:.0f} lookups/s (p99 "
+          f"{stats['lookup_p99_ms']:.3f} ms a batch), equal to 24(a) "
+          f"({compared} values); REST and cli query agree on key "
+          f"{reads['key']}; launches {counts}")
+    return out
+
+
+def serving_stage(torch, tmp: str, device: str, records: int, batch: int,
+                  want) -> dict:
+    """24(d): 22(a)'s Q5-revenue at 4 subtasks (one source subtask, no
+    local combiner) with a held end of stream: one
+    ``StateQueryBatchRequest`` of every auction fans out to its owning
+    subtasks; the answers equal 24(b)'s bit for bit."""
+    from flink_tpu_torch.benchmarks.held import release, settle, wait_held
+    from flink_tpu_torch.cluster.local_executor import StateQueryBatchRequest
+    from flink_tpu_torch.cluster.stage_executor import StageParallelExecutor
+    import queue
+    import threading
+
+    hold = os.path.join(tmp, "d")
+    env, sink = _held_revenue_env(device, hold, records, batch, {
+        "execution.stage-parallelism": 4, "execution.local-agg": False,
+        "state.slot-table.capacity": 1 << 20})
+    control = queue.Queue()
+    done = {}
+    reset_counts()
+    t = threading.Thread(target=lambda: done.setdefault(
+        "r", StageParallelExecutor(env.config).run(
+            env.get_stream_graph(), "stage-serve", control_queue=control)),
+        daemon=True)
+    t.start()
+    try:
+        wait_held(hold, timeout_s=600)
+        settle(lambda: _ask(control, StateQueryBatchRequest(
+            REV_OP, list(range(256)))), rounds=6)
+        t0 = time.perf_counter()
+        ans = _ask(control, StateQueryBatchRequest(
+            REV_OP, list(range(AUCTIONS))))
+        dt = time.perf_counter() - t0
+    finally:
+        release(hold)
+        t.join(timeout=600)
+    _sync(torch, device)
+    counts = read_counts()
+    if "r" not in done:
+        raise AssertionError("24(d): the stage job did not finish")
+    compared = _answers_equal(ans, want, "24(d) vs 24(b)")
+    if device == "cuda" and counts["ordered_fold"] <= 0:
+        raise AssertionError("24(d) ran without launching the ordered fold")
+    out = {"records": records, "values_compared": compared,
+           "query_s": dt, "launches": counts}
+    print(f"phase 24(d): Q5-revenue at 4 subtasks, {records} bids: one "
+          f"request of all {AUCTIONS} auctions fanned out to the owning "
+          f"subtasks in {dt * 1e3:.1f} ms; equal to 24(b) bit for bit "
+          f"({compared} values); launches {counts}")
+    return out
+
+
+def _session_at_cut(torch, tmp, tag, device, records, conf, keys):
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.held import HeldDataGenSource
+    from flink_tpu_torch.benchmarks.session_profile import (
+        ROW5_GAP,
+        ROW5_KEYS,
+        ROW5_RATE,
+        ROW5_SEED,
+        ROW5_SETTINGS,
+    )
+    from flink_tpu_torch.connectors.sinks import DiscardingSink
+    from flink_tpu_torch.runtime.operators import WindowAggOperator
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+
+    hold = os.path.join(tmp, tag)
+    env = StreamExecutionEnvironment(Configuration({
+        **ROW5_SETTINGS, **conf, "execution.device": device}))
+    (env.from_source(HeldDataGenSource(hold, records, ROW5_KEYS, ROW5_RATE,
+                                       seed=ROW5_SEED),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by("key").window(EventTimeSessionWindows.with_gap(ROW5_GAP))
+     .sum("value").sink_to(DiscardingSink()))
+    op = "window_agg(SumAggregate)"
+    rec = EngineRecorder(WindowAggOperator)
+    mesh = conf.get("parallelism.default", 1) > 1
+
+    def at_cut(control, t0):
+        _cut(control, op, keys[:256])
+        return _query_all(control, op, keys), (
+            _mesh_shares if mesh else _shares)(rec.engines, keys)
+
+    reset_counts()
+    try:
+        (ans, shares), _, _ = _held_run(torch, env, hold, at_cut, device)
+    finally:
+        rec.close()
+    return ans, shares, read_counts()
+
+
+def _mesh_shares(ops, keys) -> dict:
+    """The mesh session engine's (key, session) pairs for ``keys``:
+    resident on the planes or paged out."""
+    from flink_tpu_torch.state.keygroups import hash_keys_to_i64
+
+    out = {"resident": 0, "spilled": 0, "paged": 0}
+    for op in ops:
+        w = getattr(op, "windower", None)
+        if w is None or not hasattr(w, "indexes"):
+            continue
+        kid = hash_keys_to_i64(np.asarray(keys))
+        pairs = [(int(k), int(iv[2])) for k in kid
+                 for iv in w.meta.sessions.get(int(k), ())]
+        if not pairs:
+            continue
+        pk = np.asarray([p[0] for p in pairs], dtype=np.int64)
+        pn = np.asarray([p[1] for p in pairs], dtype=np.int64)
+        shards = w._route(pk)
+        for p in range(w.P):
+            sel = shards == p
+            hit = int((w.indexes[p].lookup(pk[sel], pn[sel]) >= 0).sum())
+            out["resident"] += hit
+            out["paged"] += int(sel.sum()) - hit
+    return out
+
+
+def serving_engines(torch, tmp: str, device: str, records: int,
+                    session_records: int, batch: int,
+                    budget: int = 1 << 17, small: bool = False) -> dict:
+    """24(e): the single-device and session engines, card against CPU at
+    the held cut, 4,096 keys from ``default_rng(24)``: Q5-revenue at P=1
+    in the slot layout under a 1<<17-slot budget (slices spill), then in
+    the pane layout (no spill tier there); row 5's sessions at P=1 and
+    on the mesh engine at P=8, cut to ``session_records`` records, the
+    paged tier evicting."""
+    from flink_tpu_torch.benchmarks.session_profile import (
+        ROW5_KEYS,
+        ROW5_RATE,
+        ROW5_SEED,
+    )
+    from flink_tpu_torch.connectors.sources import DataGenSource
+
+    rng = np.random.default_rng(SERVE_SEED)
+    auctions = rng.integers(0, AUCTIONS, 4096).tolist()
+    src = DataGenSource(session_records, ROW5_KEYS, ROW5_RATE,
+                        seed=ROW5_SEED)
+    src.open()
+    seen = np.concatenate([np.asarray(b["key"]) for b in iter(
+        lambda: src.poll_batch(1 << 20), None)])
+    session_keys = rng.choice(seen, 4096, replace=False).tolist()
+    out = {"launches": {"exchange_rank": 0, "ordered_fold": 0}}
+    cases = [
+        ("slots", "revenue", {"parallelism.default": 1,
+                              "state.window-layout": "slots",
+                              "state.slot-table.capacity": budget,
+                              "state.slot-table.max-device-slots": budget}),
+        ("panes", "revenue", {"parallelism.default": 1,
+                              "state.window-layout": "panes",
+                              "state.slot-table.capacity": 1 << 17}),
+        ("sessions-p1", "sessions", {}),
+        ("sessions-p8", "sessions", {
+            "parallelism.default": 8,
+            "state.slot-table.capacity": 1 << 16,
+            "state.slot-table.max-device-slots": 1 << 16}),
+    ]
+    for name, kind, conf in cases:
+        res = {}
+        for i, dev in enumerate((device, "cpu")):
+            if kind == "revenue":
+                ans, _, counts, shares, _ = _revenue_at_cut(
+                    torch, tmp, f"e-{name}-{i}", dev, records, batch, conf,
+                    auctions)
+            else:
+                ans, shares, counts = _session_at_cut(
+                    torch, tmp, f"e-{name}-{i}", dev, session_records,
+                    conf, session_keys)
+            res[i] = (ans, shares, counts)
+        ans, shares, counts = res[0]
+        compared = _answers_equal(ans, res[1][0],
+                                  f"24(e) {name} card vs CPU")
+        if shares != res[1][1]:
+            raise AssertionError(f"24(e) {name}: shares {shares} vs "
+                                 f"{res[1][1]}")
+        if kind == "revenue":
+            _answers_equal(ans, live_windows_oracle(records, "sum_price",
+                                                    auctions),
+                           f"24(e) {name} vs the oracle")
+        if name == "panes":
+            shares = {"resident": None}     # the ring has no spill tier
+        total = sum(v for v in shares.values() if v)
+        # a rehearsal's cut size may leave nothing cold at the cut
+        if not small and name == "slots" and not shares["spilled"]:
+            raise AssertionError("24(e) slots: nothing spilled")
+        if not small and name.startswith("sessions") and \
+                not shares["paged"]:
+            raise AssertionError(f"24(e) {name}: nothing paged out")
+        if device == "cuda" and counts["ordered_fold"] <= 0:
+            raise AssertionError(f"24(e) {name}: no ordered-fold launch")
+        for k in out["launches"]:
+            out["launches"][k] += counts[k]
+        out[name] = {"values_compared": compared, "pairs": total,
+                     "shares": {k: (v / total if total and v is not None
+                                    else v) for k, v in shares.items()},
+                     "launches": counts}
+        print(f"phase 24(e) {name}: 4096 keys at the held cut equal on the "
+              f"card and the CPU bit for bit ({compared} values); of "
+              f"{total} pairs answered {shares}; launches {counts}")
+    return out
+
+
+def serving_hot_cache(answers) -> dict:
+    """24(f), host only: prime the native and the Python hot-row cache
+    planes with 24(b)'s answers under one generation (``prime_batch``),
+    then ``get_many`` / ``get_many_packed`` on every auction: the same
+    values in both planes; probe lookups/s of each."""
+    from flink_tpu_torch.native import hotcache_available
+    from flink_tpu_torch.tenancy.hot_cache import HotRowCache, PrimeDelta
+    from flink_tpu_torch.tenancy.hot_cache_native import NativeHotRowCache
+
+    if not hotcache_available():
+        raise AssertionError("24(f): the native hotcache did not build")
+    kids, uoff, u_ns, u_val = [], [0], [], []
+    for kid, ans in enumerate(answers):
+        if not ans:
+            continue            # no state: a miss in both planes
+        kids.append(kid)
+        for w, cols in sorted(ans.items()):
+            u_ns.append(w)
+            u_val.append(cols["sum_price"])
+        uoff.append(len(u_ns))
+    delta = PrimeDelta(
+        keys=np.asarray(kids, np.int64), uoff=np.asarray(uoff, np.int64),
+        u_ns=np.asarray(u_ns, np.int64),
+        u_cols=[("sum_price", np.asarray(u_val, np.float64))],
+        roff=np.zeros(len(kids) + 1, np.int64), r_ns=np.zeros(0, np.int64),
+        flags=np.ones(len(kids), np.uint8))
+    n = len(answers)
+    keys = np.arange(n, dtype=np.int64)
+    res, rates, prime_rounds = {}, {}, {}
+    from flink_tpu_torch.tenancy.hot_cache_native import ENTRY_CAP as cap
+    fitting = {"native": sum(1 for a in answers if a and len(a) <= cap),
+               "python": len(kids)}
+    for name, make in (("native", lambda: NativeHotRowCache(1 << 18)),
+                       ("python", lambda: HotRowCache(1 << 18))):
+        c = make()
+        # a native table starts small and grows under pressure (a grown
+        # table starts empty): re-prime the same generation until it
+        # holds every key, as the next publishes would
+        for rounds in range(1, 9):
+            c.prime_batch("serve", "rev", 1, delta)
+            if c.stats()["hot_row_entries"] >= fitting[name]:
+                break
+        prime_rounds[name] = rounds
+        out, miss = [None] * n, []
+        t0 = time.perf_counter()
+        hits = c.get_many("serve", "rev", keys, 1, out, miss, exact=False)
+        dt = time.perf_counter() - t0
+        rates[name] = n / dt
+        packed = getattr(c, "get_many_packed", None)
+        if packed is not None:
+            pout, pmiss = [None] * n, []
+            t0 = time.perf_counter()
+            _, probe = packed("serve", "rev", keys, 1, pout, pmiss,
+                              exact=False)
+            rates[name + "_packed"] = n / (time.perf_counter() - t0)
+            missing = {i for i, _ in pmiss}
+            got = [pout[i] if pout[i] is not None or i in missing
+                   else probe.materialize(i) for i in range(n)]
+            _answers_equal(got, out, f"24(f) {name} packed vs dict")
+        res[name] = (out, hits, sorted(i for i, _ in miss))
+        if hasattr(c, "close"):
+            c.close()
+    # the native plane packs at most ENTRY_CAP windows a key: a longer
+    # composition is dropped there (counted), a miss, as in the reference
+    from flink_tpu_torch.tenancy.hot_cache_native import ENTRY_CAP
+
+    want = [a if a else None for a in answers]
+    _answers_equal(res["python"][0], want, "24(f) Python plane vs 24(b)")
+    fits = [a if a is not None and len(a) <= ENTRY_CAP else None
+            for a in want]
+    _answers_equal(res["native"][0], fits, "24(f) native plane vs 24(b)")
+    oversize = sum(1 for a in want if a is not None and len(a) > ENTRY_CAP)
+    out = {"keys": n, "hits": res["native"][1],
+           "python_hits": res["python"][1], "oversize": oversize,
+           "prime_rounds": prime_rounds,
+           "native_lookups_per_s": rates["native"],
+           "native_packed_lookups_per_s": rates.get("native_packed"),
+           "python_lookups_per_s": rates["python"]}
+    print(f"phase 24(f) (host only): both hot-row cache planes primed with "
+          f"24(b)'s answers give 24(b)'s values for all {n} auctions "
+          f"(Python plane {res['python'][1]} hits; native "
+          f"{res['native'][1]}, the {oversize} compositions of more than "
+          f"{ENTRY_CAP} windows dropped there as the reference drops "
+          f"them); get_many {rates['native']:.0f} "
+          f"lookups/s native ({rates.get('native_packed', 0):.0f} packed), "
+          f"{rates['python']:.0f} Python")
+    return out
+
+
+def phase_serving(torch, device: str = "cuda", small: bool = False,
+                  mc_reads=None) -> dict:
+    """Phase 24: point queries and the serving plane. ``device="cpu",
+    small=True`` rehearses it at a cut size without a card. ``mc_reads``:
+    23(a)'s reads at its held cut (24(c) checks them in place of a run of
+    its own)."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    big, mid, sess = ((10_000_000, 2_000_000, 1_000_000) if not small
+                      else (600_000, 300_000, 200_000))
+    batch = (1 << 20) if not small else (1 << 16)
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        tmp = os.path.abspath(tmp)
+        a = serving_q5(torch, tmp, device, big, batch)
+        b = serving_revenue(torch, tmp, device, mid, batch // 2)
+        c = serving_minicluster(torch, tmp, device, big, batch,
+                                a.pop("answers"), mc_reads)
+        d = serving_stage(torch, tmp, device, mid, batch // 2,
+                          b["answers"])
+        e = serving_engines(torch, tmp, device, mid, sess, batch // 4,
+                            small=small)
+        f = serving_hot_cache(b.pop("answers"))
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f}
+    launches = {"exchange_rank": 0, "ordered_fold": 0}
+    for part in (a, b, c, d, e):
+        for k in launches:
+            launches[k] += part["launches"][k]
+    if device == "cuda":
+        for part, names in (("a", ("exchange_rank",)),
+                            ("b", ("exchange_rank", "ordered_fold")),
+                            ("c", ("exchange_rank",) if mc_reads is None
+                             else ()),
+                            ("d", ("ordered_fold",)),
+                            ("e", ("ordered_fold",))):
+            for k in names:
+                if out[part]["launches"][k] <= 0:
+                    raise AssertionError(f"24({part}): no {k} launch")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 24: {seconds:.1f} s; launches {launches}")
+    print("serving " + json.dumps(out, default=str))
     return {**out, "launches": launches, "seconds": seconds}
 
 
@@ -6802,8 +7716,8 @@ def main() -> int:
                     "script's time)")
     ap.add_argument("--q7-records", type=int, default=10_000_000,
                     help="Q7 bids (10M: BASELINE row 3's size)")
-    ap.add_argument("--cep-records", type=int, default=2_000_000,
-                    help="records of phase 16's CEP row (2M, cut from "
+    ap.add_argument("--cep-records", type=int, default=1_000_000,
+                    help="records of phase 16's CEP row (1M, cut from "
                     "tools/bench_cep.py's 4M to keep the script's time)")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -6857,10 +7771,11 @@ def main() -> int:
         slice21 = phase_slice21(torch, savepoint=savepoint)
     stage = phase_stage(torch)
     cluster = phase_cluster(torch)
+    serving = phase_serving(torch, mc_reads=cluster["a"].pop("queries"))
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
             *slice11.values(), shard_loss, process, sql, slice21, stage,
-            cluster)
+            cluster, serving)
 
     kernels = [{
         "name": "exchange_rank",

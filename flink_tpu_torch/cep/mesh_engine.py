@@ -952,8 +952,9 @@ class MeshCepEngine(WatchdogHooks):
             for j, s in enumerate(slots):
                 block[p, j] = s
                 at[(p, s)] = j
-        vals = self._harvest_get(kernels.cep_gather(
-            self._match_planes, self._to_device(block)), "match_harvest")
+        vals = self._harvest_get(
+            kernels.cep_gather(self._match_planes, self._to_device(block)),
+            "match_query_harvest")
         for qi, kid in enumerate(key_ids.tolist()):
             got = []
             for ri, s in want.get(int(kid), ()):

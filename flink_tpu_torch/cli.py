@@ -21,8 +21,7 @@ same way); cluster actions talk to the MiniCluster REST API.
 The device comes from the configuration: a job runs on the card unless
 ``-D execution.device=cpu`` (or its own configuration) says otherwise;
 the JobManager and TaskExecutor processes select no platform. ``query``
-reaches the executors, which refuse point queries naming ROADMAP.md
-Queue A item 12e.
+prints a running job's state for one key through the REST state route.
 """
 
 from __future__ import annotations
@@ -330,8 +329,7 @@ def main(argv=None) -> int:
     ps.add_argument("--rest", default="127.0.0.1:8081")
     ps.set_defaults(fn=cmd_savepoint)
 
-    ps = sub.add_parser("query", help="queryable-state lookup (refused "
-                        "by the executors: ROADMAP.md Queue A item 12e)")
+    ps = sub.add_parser("query", help="queryable-state lookup")
     ps.add_argument("job_id")
     ps.add_argument("operator")
     ps.add_argument("key")

@@ -46,9 +46,13 @@ state and source position is written with ``write_savepoint``; with
 firing what is open (the operators are disposed: those windows resume
 from the savepoint), and with ``drain=True`` as well every source first
 advances to ``MAX_WATERMARK`` so every window and timer fires before the
-snapshot. ``result.metrics["savepoint"]`` names a stop's savepoint. A
-state query (item 12e) or rescale request (12g) fails its future; requests
-still queued when the job ends fail too.
+snapshot. ``result.metrics["savepoint"]`` names a stop's savepoint.
+``StateQueryBatchRequest`` (and ``StateQueryRequest``, a batch of one)
+answers a queryable-state lookup at the same boundary, on the task thread,
+so no read races the data path: the operator's ``query_state_batch``
+serves the whole batch with one gather and one device-to-host copy. Each
+boundary serves at most the requests already queued. A rescale request
+(12g) fails its future; requests still queued when the job ends fail too.
 
 Source pumps: with ``execution.pipeline.in-flight-batches`` > 0 (default
 2) each source is polled and timestamped by a thread of its own, a
@@ -70,8 +74,8 @@ aggregates at the registry root. ``memory.device.size`` > 0 makes one
 threads): the loop checks it before every source poll and raises
 ``JobCancelledError``.
 
-Not in this slice: state queries (ROADMAP.md Queue A item 12e), rescale
-requests and autoscale (12g), and the ``key_imbalance`` gauge (12g).
+Not in this slice: rescale requests and autoscale (ROADMAP.md Queue A
+item 12g), and the ``key_imbalance`` gauge (12g).
 """
 
 from __future__ import annotations
@@ -160,8 +164,9 @@ class _ControlRequest:
 
 
 class StateQueryRequest(_ControlRequest):
-    """A point lookup of an operator's state (served by the reference;
-    refused here, item 12e)."""
+    """A point lookup of one key's state, served at a batch boundary as a
+    batch of one (reference ``flink_tpu/cluster/local_executor.py:103``):
+    the single-owner loop means reads never race the task thread."""
 
     timeout_message = "state query not served"
 
@@ -169,6 +174,20 @@ class StateQueryRequest(_ControlRequest):
         super().__init__()
         self.operator_name = operator_name
         self.key = key
+        self.namespace = namespace
+
+
+class StateQueryBatchRequest(_ControlRequest):
+    """A batched lookup (reference ``:118``): every key served in one
+    pass, one gather and ONE device-to-host copy for the whole batch; the
+    result is one answer per key, in request order."""
+
+    timeout_message = "state query batch not served"
+
+    def __init__(self, operator_name: str, keys, namespace=None):
+        super().__init__()
+        self.operator_name = operator_name
+        self.keys = list(keys)
         self.namespace = namespace
 
 
@@ -769,13 +788,17 @@ class LocalExecutor:
                 req = control_queue.get_nowait()
             except queue.Empty:
                 return None
+            if isinstance(req, (StateQueryRequest, StateQueryBatchRequest)):
+                try:
+                    req.finish(self._serve_query(graph, nodes, req))
+                except BaseException as e:  # noqa: BLE001 - to the client
+                    req.finish(None, e)
+                continue
             if not isinstance(req, SavepointRequest):
-                item = "12g" if isinstance(req, RescaleRequest) else "12e"
                 req.finish(None, NotImplementedError(
-                    f"{type(req).__name__}: state queries and live rescale "
-                    "are not ported to flink_tpu_torch yet (ROADMAP.md, "
-                    f"Queue A item {item}); the port serves "
-                    "SavepointRequest"))
+                    f"{type(req).__name__}: live rescale is not ported to "
+                    "flink_tpu_torch yet (ROADMAP.md, Queue A item 12g); "
+                    "the port serves SavepointRequest and state queries"))
                 continue
             try:
                 # a bad target fails before anything irreversible: the job
@@ -815,6 +838,43 @@ class LocalExecutor:
             if req.stop:
                 return req
         return None
+
+    def _serve_query(self, graph, nodes, req):
+        """Serve a single-key or batched state lookup (reference
+        ``flink_tpu/cluster/local_executor.py:1120``): every read goes
+        through the operator's batched path, one gather and one
+        device-to-host copy per request. An injected ``serving.lookup``
+        fault retries in place (``chaos.run_recoverable``): a lookup is
+        read-only, so a retry cannot corrupt state. An unknown operator
+        raises ``KeyError`` naming the operators that exist."""
+        keys = (req.keys if isinstance(req, StateQueryBatchRequest)
+                else [req.key])
+        for node in nodes.values():
+            t = node.transformation
+            if req.operator_name not in (t.name, graph.stable_id(t)):
+                continue
+            op = node.operator
+            if op is None or not (hasattr(op, "query_state_batch")
+                                  or hasattr(op, "query_state")):
+                raise RuntimeError(
+                    f"operator {req.operator_name!r} has no queryable "
+                    "state")
+
+            def _lookup(op=op):
+                chaos.fault_point("serving.lookup",
+                                  operator=req.operator_name,
+                                  keys=len(keys),
+                                  job=getattr(self, "_chaos_job", None))
+                if hasattr(op, "query_state_batch"):
+                    return op.query_state_batch(keys, req.namespace)
+                return [op.query_state(k, req.namespace) for k in keys]
+
+            out = chaos.run_recoverable("serving.lookup", _lookup)
+            return (out if isinstance(req, StateQueryBatchRequest)
+                    else out[0])
+        raise KeyError(
+            f"no operator named {req.operator_name!r}; available: "
+            f"{sorted(n.transformation.name for n in nodes.values())}")
 
     @staticmethod
     def _fail_pending_controls(control_queue, reason: str) -> None:

@@ -19,8 +19,10 @@ serializer (the user's lambdas and closures by value), like the reference
 ships serialized JobGraphs through Pekko. A TaskExecutor runs each
 deployment with the job's own configuration, so the job's
 ``execution.device`` (the card unless it says ``cpu``) is where its state
-lives. Point queries (``query_state(_batch)``) reach the executors, which
-refuse them naming ROADMAP.md Queue A item 12e.
+lives. Point queries (``query_state(_batch)``) travel Dispatcher ->
+JobMaster -> TaskExecutor -> the task's control queue, where the executor
+answers them at its next batch boundary; the answers cross the RPC frame
+as plain Python scalars.
 """
 
 from __future__ import annotations
@@ -216,17 +218,19 @@ class TaskExecutorEndpoint(RpcEndpoint):
 
     def query_state_batch(self, execution_id: str, operator_name: str,
                           keys, namespace=None, timeout_s: float = 10.0):
-        """Batched lookup of the whole key list at the task's next batch
-        boundary (the executors refuse it naming ROADMAP.md Queue A item
-        12e)."""
-        from flink_tpu_torch.cluster.local_executor import StateQueryRequest
+        """Batched lookup: the whole key list served in one pass at the
+        task's next batch boundary, one gather and one device-to-host copy
+        (``LocalExecutor._serve_query``)."""
+        from flink_tpu_torch.cluster.local_executor import (
+            StateQueryBatchRequest,
+        )
 
         self._touch_master()
         rec = self._tasks.get(execution_id)
         if rec is None or rec["status"] != RUNNING:
             raise RuntimeError(
                 f"no running task {execution_id!r} to query")
-        req = StateQueryRequest(operator_name, keys, namespace)
+        req = StateQueryBatchRequest(operator_name, keys, namespace)
         rec["control"].put(req)
         return req.wait(timeout_s)
 

@@ -13,9 +13,7 @@ GET  /overview               cluster totals
 GET  /jobs                   job summaries
 GET  /jobs/<id>              one job's status
 GET  /jobs/<id>/metrics      metric registry snapshot of the running attempt
-GET  /jobs/<id>/state/<op>   queryable-state lookup (?key=K[&namespace=N]);
-                             the executors refuse it naming ROADMAP.md
-                             Queue A item 12e (a 500 carrying the message)
+GET  /jobs/<id>/state/<op>   queryable-state lookup (?key=K[&namespace=N])
 GET  /jobs/<id>/flamegraph   sample the job's task threads (?duration_ms=N)
 GET  /flamegraph             sample task threads cluster-wide (&all=1: every
                              thread incl. control plane)

@@ -41,8 +41,10 @@ programs run from their threads on one card, each on the current stream.
 ``cancelled`` event stops every subtask, and ``run`` raises
 ``JobCancelledError`` (also from a checkpoint's wait).
 
-Not here: point queries against the subtasks (a ``StateQueryRequest``
-fails naming ROADMAP.md Queue A item 12e).
+Point queries: a ``StateQueryBatchRequest`` is routed to the owning keyed
+subtasks by key group, one control message per owner; each owner serves
+its part on its own thread between batches, through its operator's
+``query_state_batch`` (one gather, one device-to-host copy).
 """
 
 from __future__ import annotations
@@ -1082,6 +1084,8 @@ class _KeyedSubtask(threading.Thread):
         self.config = config
         rng = compute_key_group_range(max_parallelism, parallelism, index)
         self.key_groups = range(rng.start, rng.end + 1)
+        #: state queries routed here by the job loop (``_serve_queries``)
+        self.control: _q.Queue = _q.Queue()
         self.error: Optional[BaseException] = None
         self.chain: Optional[_OperatorChain] = None
         self.records_in = 0
@@ -1269,6 +1273,7 @@ class _KeyedSubtask(threading.Thread):
 
         ticks_pt = self.chain.uses_processing_time
         while True:
+            self._serve_queries()
             if self.coordinator.cancelled.is_set():
                 return
             if ticks_pt:
@@ -1370,6 +1375,41 @@ class _KeyedSubtask(threading.Thread):
                 # covered by the already-taken operator snapshot)
                 ua_chan_state.setdefault(slot, []).append(item)
             process(item, gi, slot)
+
+
+    def _serve_queries(self) -> None:
+        """Answer the state queries the job loop routed to this subtask
+        (reference ``flink_tpu/cluster/stage_executor.py:1379``), on this
+        subtask's thread between batches: ``(operator, keys, namespace,
+        reply)``, keys a list (one batched read) or a single key."""
+        while True:
+            try:
+                req = self.control.get_nowait()
+            except _q.Empty:
+                return
+            op_name, key, namespace, reply = req
+            try:
+                result = None
+                for t, op in zip(self.chain.transformations,
+                                 self.chain.operators):
+                    if t.name != op_name:
+                        continue
+                    if op is None or not hasattr(op, "query_state"):
+                        raise RuntimeError(
+                            f"operator {op_name!r} has no queryable "
+                            "state")
+                    if isinstance(key, list):
+                        if hasattr(op, "query_state_batch"):
+                            result = op.query_state_batch(key, namespace)
+                        else:
+                            result = [op.query_state(k, namespace)
+                                      for k in key]
+                    else:
+                        result = op.query_state(key, namespace)
+                    break
+                reply.put((result, None))
+            except BaseException as e:  # noqa: BLE001 - to the client
+                reply.put((None, e))
 
 
 class _Coordinator:
@@ -1832,23 +1872,31 @@ class StageParallelExecutor:
                        coordinator, storage, ckpt_dir, job_name,
                        checkpoint_id):
         """Serve one queued control request: a savepoint (or stop-with-
-        savepoint) through the barrier machinery; state queries and
-        rescales fail naming their ROADMAP item."""
+        savepoint) through the barrier machinery, or a state query routed
+        to its owning keyed subtasks (reference
+        ``flink_tpu/cluster/stage_executor.py:1839``); a rescale fails
+        naming ROADMAP Queue A item 12g."""
         from flink_tpu_torch.cluster.local_executor import (
-            RescaleRequest,
             SavepointRequest,
+            StateQueryBatchRequest,
+            StateQueryRequest,
         )
 
         try:
             req = control_queue.get_nowait()
         except _q.Empty:
             return None
+        if isinstance(req, (StateQueryRequest, StateQueryBatchRequest)):
+            try:
+                req.finish(self._route_query(req, plan, keyed))
+            except BaseException as e:  # noqa: BLE001 - to the client
+                req.finish(None, e)
+            return None
         if not isinstance(req, SavepointRequest):
-            item = "12g" if isinstance(req, RescaleRequest) else "12e"
             req.finish(None, NotImplementedError(
-                f"{type(req).__name__}: state queries and live rescale are "
-                "not ported to flink_tpu_torch yet (ROADMAP.md, Queue A "
-                f"item {item}); the stage executor serves SavepointRequest"))
+                f"{type(req).__name__}: live rescale is not ported to "
+                "flink_tpu_torch yet (ROADMAP.md, Queue A item 12g); the "
+                "stage executor serves SavepointRequest and state queries"))
             return None
         try:
             new_id = checkpoint_id + 1
@@ -1861,6 +1909,58 @@ class StageParallelExecutor:
         except Exception as e:  # reported to the requester
             req.finish(None, e)
             return None
+
+    def _route_query(self, req, plan, keyed):
+        """One control message per OWNING keyed subtask of the operator's
+        stage (key group -> operator index, the data path's formula); the
+        owners answer on their threads and the parts are put back in
+        request order. An unknown operator raises ``KeyError`` naming what
+        exists, as ``LocalExecutor._serve_query`` does."""
+        from flink_tpu_torch.cluster.local_executor import (
+            StateQueryBatchRequest,
+        )
+        from flink_tpu_torch.state.keygroups import hash_keys_to_i64
+
+        stage_index = None
+        for m, stage in enumerate(plan.stages):
+            if any(t.name == req.operator_name
+                   for t in stage.operator_transformations):
+                stage_index = m
+                break
+        if stage_index is None:
+            raise KeyError(
+                f"no operator named {req.operator_name!r}; available: "
+                f"{sorted(t.name for stage in plan.stages for t in stage.operator_transformations)}")
+        batched = isinstance(req, StateQueryBatchRequest)
+        keys = req.keys if batched else [req.key]
+        N = sum(1 for k in keyed if k.stage_index == stage_index)
+        mp = self.config.get(CoreOptions.MAX_PARALLELISM)
+        owners = key_group_to_operator_index(
+            assign_key_groups(hash_keys_to_i64(np.asarray(keys)), mp),
+            mp, N)
+        results: list = [None] * len(keys)
+        pending = []
+        for owner in sorted(set(int(o) for o in owners)):
+            sel = [i for i, o in enumerate(owners) if int(o) == owner]
+            reply: _q.Queue = _q.Queue()
+            part = [keys[i] for i in sel] if batched else keys[0]
+            # keyed is stage-major: m * N + j
+            keyed[stage_index * N + owner].control.put(
+                (req.operator_name, part, req.namespace, reply))
+            pending.append((sel, reply))
+        err = None
+        for sel, reply in pending:
+            part, e = reply.get(timeout=30)
+            if e is not None:
+                err = err or e
+                continue
+            if not batched:
+                return part
+            for i, r in zip(sel, part or []):
+                results[i] = r
+        if err is not None:
+            raise err
+        return results
 
     # ---------------------------------------------------------- checkpoint
 

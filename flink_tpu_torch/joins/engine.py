@@ -26,7 +26,9 @@ equal it bit for bit.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
 the two-level exchange and ``shuffle_mode="host"`` (item 12h), the side
-replicas (12f), ``query_side_batch`` (12e) and live ``reshard`` (12g).
+replicas (12f) and live ``reshard`` (12g). ``query_side_batch`` reads a
+side's buffered rows per key: resident values through one gather and one
+copy back, cold rows from the page tiers.
 Each ingest and watermark is a flight-recorder span. Shard-granular
 units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
@@ -173,9 +175,6 @@ class JoinEngineBase(WatchdogHooks):
 
     def arm_side_replica(self, side_idx: int):
         raise _not_ported("the serving read replica", "12f")
-
-    def query_side_batch(self, side_idx: int, key_ids):
-        raise _not_ported("join side-table queries (query_side_batch)", "12e")
 
     # ----------------------------------------------------------- data plane
 
@@ -395,6 +394,78 @@ class JoinEngineBase(WatchdogHooks):
                                 self._to_device(block)), "evict_harvest")
         return {p: [h[p][:len(slots)] for h in host]
                 for p, slots in per_shard_slots.items()}
+
+    def query_side_batch(self, side_idx: int, key_ids
+                         ) -> List[List[dict]]:
+        """Live point lookup against one side table (reference
+        ``flink_tpu/joins/engine.py:1171``): per requested key, the side's
+        buffered rows as ``[{"ts", "rid", <col>: v}, ...]`` sorted by
+        (ts, rid), values as Python scalars. Resident rows through ONE
+        gather and ONE device-to-host copy for all shards (the host
+        backend reads its shadow store), cold rows from their shards' page
+        tiers (``cold_rows_served`` counts them). No row moves."""
+        side_idx = int(side_idx)
+        side = self.sides[side_idx]
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        n = len(key_ids)
+        results: List[List[dict]] = [[] for _ in range(n)]
+        if side is None or n == 0:
+            return results
+        shards = self._shards_of(key_ids)
+        #: (request row, meta position) per matched row, per shard
+        rows_of: Dict[int, List[Tuple[int, int]]] = {}
+        for p in np.unique(shards).tolist():
+            m = side.meta[p]
+            if not len(m):
+                continue
+            sel = np.nonzero(shards == p)[0]
+            lo = pair_lower_bound(m.key, m.ts, key_ids[sel],
+                                  np.full(len(sel), -(1 << 62)))
+            hi = pair_lower_bound(m.key, m.ts, key_ids[sel],
+                                  np.full(len(sel), (1 << 62)))
+            lanes = []
+            for j, r in enumerate(sel.tolist()):
+                for pos in range(int(lo[j]), int(hi[j])):
+                    lanes.append((r, pos))
+            if lanes:
+                rows_of[int(p)] = lanes
+        per_shard_slots = {
+            p: np.clip(side.meta[p].slot[[pos for _, pos in lanes]],
+                       0, None)
+            for p, lanes in rows_of.items()}
+        if not rows_of:
+            gathered = {}
+        elif self.backend == "host" or not side.device_cols:
+            gathered = {p: [side.shadow[i][p][sc] for i in side.device_cols]
+                        for p, sc in per_shard_slots.items()}
+        else:
+            gathered = self._gather_rows(side_idx, per_shard_slots)
+        names = [nm for nm, _ in side.schema]
+        for p, lanes in rows_of.items():
+            m = side.meta[p]
+            cold_wants: List[Tuple[int, int, int]] = []
+            sinks = [np.zeros(len(lanes), dtype=dt)
+                     for _, dt in side.schema]
+            rows_arr = np.arange(len(lanes))
+            for j, (r, pos) in enumerate(lanes):
+                if m.slot[pos] < 0:
+                    cold_wants.append((j, int(m.key[pos]),
+                                       int(m.rid[pos])))
+                else:
+                    for i in side.shadow:
+                        sinks[i][j] = side.shadow[i][p][m.slot[pos]]
+                    for gi, i in enumerate(side.device_cols):
+                        sinks[i][j] = gathered[p][gi][j]
+            if cold_wants:
+                side.fill_cold(p, cold_wants, sinks, rows_arr)
+            for j, (r, pos) in enumerate(lanes):
+                row = {"ts": int(m.ts[pos]), "rid": int(m.rid[pos])}
+                for i, nm in enumerate(names):
+                    row[nm] = sinks[i][j].item()
+                results[r].append(row)
+        for r in range(n):
+            results[r].sort(key=lambda d: (d["ts"], d["rid"]))
+        return results
 
     def _grow_side(self, side_idx: int, new_capacity: int) -> None:
         side = self.sides[side_idx]

@@ -272,6 +272,115 @@ def load_sessions() -> Optional[ctypes.CDLL]:
                       _declare_sessions)
 
 
+def native_disabled() -> bool:
+    """The reference's blanket opt-outs (``FLINK_TPU_NO_NATIVE=1`` or
+    ``FLINK_TPU_NATIVE=0``); the hot-row cache's selection reads them
+    (``tenancy/hot_cache.py``)."""
+    return (os.environ.get("FLINK_TPU_NO_NATIVE") == "1"
+            or os.environ.get("FLINK_TPU_NATIVE") == "0")
+
+
+#: hc_stat counter indices (must match the Stat enum in hotcache.cpp)
+HC_STAT_HITS = 0
+HC_STAT_MISSES = 1
+HC_STAT_EVICTIONS = 2
+HC_STAT_PRIMES = 3
+HC_STAT_PUTS = 4
+HC_STAT_TORN_RETRIES = 5
+HC_STAT_TORN_MISSES = 6
+HC_STAT_OVERSIZE_DROPS = 7
+
+#: per-frontend counter indices (must match the FeStat enum in
+#: hotcache.cpp) — accumulated IN the shared arena header by attached
+#: frontend processes (hc_fe_note), read owner-side without IPC
+HC_FE_STAT_PROBES = 0
+HC_FE_STAT_HITS = 1
+HC_FE_STAT_TORN_RETRIES = 2
+HC_FE_STAT_MISS_CROSSINGS = 3
+HC_FE_STAT_NAMES = ("probes", "hits", "torn_retries", "miss_crossings")
+#: fe_stats rows reserved in the arena header (kMaxFrontends)
+HC_MAX_FRONTENDS = 64
+
+
+def _declare_hotcache(lib) -> None:
+    c = ctypes
+    i64, i32, u8, u64, vp = (c.c_int64, c.c_int32, c.c_uint8,
+                             c.c_uint64, c.c_void_p)
+    P = c.POINTER
+    lib.hc_create.restype = vp
+    lib.hc_create.argtypes = [i64, i64, i64]
+    # shared-memory arena family (r21): the owner creates the table
+    # as a MAP_SHARED file arena; frontend processes attach the SAME
+    # table and probe it lock-free (seqlock readers are address-free)
+    lib.hc_create_shared.restype = vp
+    lib.hc_create_shared.argtypes = [c.c_char_p, i64, i64, i64]
+    lib.hc_attach.restype = vp
+    lib.hc_attach.argtypes = [c.c_char_p]
+    lib.hc_epoch.restype = i64
+    lib.hc_epoch.argtypes = [vp]
+    lib.hc_arena_bytes.restype = i64
+    lib.hc_arena_bytes.argtypes = [vp]
+    lib.hc_is_attached.restype = i64
+    lib.hc_is_attached.argtypes = [vp]
+    lib.hc_fe_note.restype = None
+    lib.hc_fe_note.argtypes = [vp, i32, i64, i64, i64, i64]
+    lib.hc_fe_stat.restype = i64
+    lib.hc_fe_stat.argtypes = [vp, i32, i32]
+    lib.hc_destroy.restype = None
+    lib.hc_destroy.argtypes = [vp]
+    lib.hc_len.restype = i64
+    lib.hc_len.argtypes = [vp]
+    lib.hc_capacity.restype = i64
+    lib.hc_capacity.argtypes = [vp]
+    lib.hc_stat.restype = i64
+    lib.hc_stat.argtypes = [vp, i32]
+    lib.hc_add_stat.restype = None
+    lib.hc_add_stat.argtypes = [vp, i32, i64]
+    lib.hc_clear.restype = None
+    lib.hc_clear.argtypes = [vp]
+    lib.hc_get_batch.restype = i64
+    lib.hc_get_batch.argtypes = [vp, i64, P(i64), i64, P(u8),
+                                 P(i32), P(i64), P(i64), P(i64),
+                                 P(u64)]
+    # the frontend variant: same probe + per-frontend attribution
+    # folded in the same GIL-released call
+    lib.hc_get_batch_fe.restype = i64
+    lib.hc_get_batch_fe.argtypes = [vp, i32, i64, P(i64), i64,
+                                    P(u8), P(i32), P(i64), P(i64),
+                                    P(i64), P(u64)]
+    lib.hc_put_batch.restype = i64
+    lib.hc_put_batch.argtypes = [vp, i64, P(i64), P(i64), P(i64),
+                                 P(i64), P(i64), P(u64)]
+    lib.hc_prime_batch.restype = i64
+    lib.hc_prime_batch.argtypes = [vp, i64, P(i64), i64, P(i64),
+                                   P(i64), P(i64), P(u64), P(i64),
+                                   P(i64), P(u8)]
+    lib.hc_drop.restype = None
+    lib.hc_drop.argtypes = [vp, i64]
+    lib.hc_migrate.restype = i64
+    lib.hc_migrate.argtypes = [vp, vp]
+    # test-only: freeze/unfreeze a slot's seqlock stamp so the
+    # torn-read retry path is deterministically coverable
+    lib.hc_debug_lock_slot.restype = i64
+    lib.hc_debug_lock_slot.argtypes = [vp, i64]
+    lib.hc_debug_unlock_slot.restype = i64
+    lib.hc_debug_unlock_slot.argtypes = [vp, i64]
+
+
+def load_hotcache() -> Optional[ctypes.CDLL]:
+    """The native hot-row probe table (native/hotcache.cpp), or None: one
+    GIL-released C call probes or primes a whole key batch against an
+    open-addressing, seqlock-stamped table of packed composed results
+    (``tenancy/hot_cache_native.py``; ``tenancy/hot_cache.py`` is the
+    bit-identical Python plane)."""
+    return _load_once("hotcache", "hotcache.cpp", "_hotcache.so",
+                      _declare_hotcache)
+
+
+def hotcache_available() -> bool:
+    return load_hotcache() is not None
+
+
 #: degradations from a wanted native plane to its Python counterpart
 #: (a build or load failure): 0 on a healthy host
 _fallbacks = 0

@@ -5,11 +5,15 @@ plane the whole batch lifecycle reports into, exported to Perfetto/Chrome
 traces, Prometheus histograms and event-time latency markers by
 :mod:`~flink_tpu_torch.observe.export`.
 
+
+:mod:`~flink_tpu_torch.observe.lock_sentinel` gives the serving plane its
+named locks and the tests their lock-order checker (the reference's
+names, re-exported here as there).
+
 Not here: the reference's ``recompile_sentinel`` (it counts XLA backend
 compiles and device-to-host materializations through ``jax.monitoring``;
 the port has no compiled programs to count and no transfer hook, ROADMAP
-Queue A item 12h) and ``lock_sentinel`` (the serving plane's lock-order
-checker, item 12e). Their names raise ``NotImplementedError`` naming the
+Queue A item 12h). Its names raise ``NotImplementedError`` naming the
 item.
 """
 
@@ -60,13 +64,18 @@ from flink_tpu_torch.observe.flight_recorder import (  # noqa: E402,F401
     recorder,
 )
 
+from flink_tpu_torch.observe.lock_sentinel import (  # noqa: E402,F401
+    LockOrderViolation,
+    LockSentinel,
+    NamedLock,
+    named_lock,
+)
+
 #: name -> (reference module, ROADMAP item)
 _NOT_PORTED = {
     **{n: ("recompile_sentinel", "12h") for n in (
         "RecompileSentinel", "SteadyStateViolation", "compile_count",
         "transfer_count", "install_probes")},
-    **{n: ("lock_sentinel", "12e") for n in (
-        "LockOrderViolation", "LockSentinel", "NamedLock", "named_lock")},
 }
 
 

@@ -36,9 +36,14 @@ on the whole mesh at once:
 ``memory=(manager, owner)`` reserves the planes from the job's managed
 pool (``core/memory.py``, shared with the window engine).
 
+Point queries (``query_sessions``, ``query_batch``) read the keys' live
+sessions from the metadata, every resident accumulator of the batch in one
+``[P, G]`` gather and one copy back, and paged-out sessions from their
+shards' page tiers without a reload.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-hot-key salting (item 12g), the read replica (12f), point queries (12e),
-host shuffle mode and the two-level exchange (12h).
+hot-key salting (item 12g), the read replica (12f), host shuffle mode and
+the two-level exchange (12h).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from flink_tpu_torch.core.records import (
 )
 from flink_tpu_torch.ops.segment_ops import (
     fold_slots,
+    pad_bucket_size,
     scatter_fold,
     sticky_bucket,
     torch_dtype,
@@ -72,7 +78,11 @@ from flink_tpu_torch.parallel.shuffle import (
     stage_device_exchange,
 )
 from flink_tpu_torch.runtime.pending import PendingFire
-from flink_tpu_torch.state.paged_spill import reload_rows_for, sorted_match
+from flink_tpu_torch.state.paged_spill import (
+    read_spilled_rows,
+    reload_rows_for,
+    sorted_match,
+)
 from flink_tpu_torch.state.slot_table import (
     _not_ported,
     resolve_slot_hints,
@@ -770,11 +780,91 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                          allow_inexact: bool = False) -> int:
         raise _not_ported("hot-key splitting", "12g")
 
-    def query_sessions(self, key_id: int):
-        raise _not_ported("MeshSessionEngine.query_sessions", "12e")
+    # ---------------------------------------------------------- point query
 
-    def query_batch(self, key_ids):
-        raise _not_ported("MeshSessionEngine.query_batch", "12e")
+    def query_sessions(self, key_id: int) -> Dict[int, Dict[str, float]]:
+        """{session_end -> result columns} for a key's live sessions: a
+        batch of one (reference
+        ``flink_tpu/parallel/sharded_sessions.py:1252``)."""
+        return self.query_batch(np.asarray([key_id], dtype=np.int64))[0]
+
+    def query_batch(self, key_ids) -> List[Dict[int, Dict[str, float]]]:
+        """One ``{session_end -> result columns}`` dict per requested key,
+        in request order (reference ``:1258``). The keys' live sessions
+        come from the host metadata; every resident accumulator of the
+        batch comes back through ONE ``[P, G]`` gather and ONE
+        device-to-host copy (``_harvest_get(..., "serving_lookup")``);
+        paged-out sessions answer from their shards' page tiers
+        (``read_spilled_rows``: a peek per page, no reload). Read-only.
+        Without hot-key splitting (item 12g) every logical row is one
+        physical row."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        n = len(key_ids)
+        results: List[Dict[int, Dict[str, float]]] = [{} for _ in range(n)]
+        if n == 0:
+            return results
+        rows: List[Tuple[int, int, int]] = []  # (request row, sid, end)
+        for r in range(n):
+            for iv in self.meta.sessions.get(int(key_ids[r]), ()):
+                rows.append((r, int(iv[2]), int(iv[1])))
+        if not rows:
+            return results
+        rr = np.asarray([t[0] for t in rows], dtype=np.int64)
+        pn = np.asarray([t[1] for t in rows], dtype=np.int64)
+        pk = key_ids[rr]
+        mp = len(pk)
+        shards = self._route(pk)
+        leaves = self.agg.leaves
+        leaf_rows = [np.full(mp, l.identity, dtype=l.dtype) for l in leaves]
+        have = np.zeros(mp, dtype=bool)
+        lanes: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        g_max = 0
+        cold: Dict[int, np.ndarray] = {}
+        for p in range(self.P):
+            sel = np.nonzero(shards == p)[0]
+            if not len(sel):
+                continue
+            slots = self.indexes[p].lookup(pk[sel], pn[sel])
+            hit = slots >= 0
+            if hit.any():
+                lanes[p] = (sel[hit], slots[hit].astype(np.int32))
+                g_max = max(g_max, int(hit.sum()))
+            if (~hit).any() and self._spill_active:
+                cold[p] = sel[~hit]
+        if g_max:
+            G = pad_bucket_size(g_max, minimum=64)
+            block = np.zeros((self.P, G), dtype=np.int32)
+            for p, (_, hs) in lanes.items():
+                block[p, : len(hs)] = hs
+            g_host = self._harvest_get(
+                self._gather_step(self.accs, self._to_device(block)),
+                "serving_lookup")
+            for p, (sel_hit, hs) in lanes.items():
+                for i in range(len(leaves)):
+                    leaf_rows[i][sel_hit] = g_host[i][p][: len(hs)]
+                have[sel_hit] = True
+
+        def _take_row(j, entry, src):
+            for i, l in enumerate(leaves):
+                leaf_rows[i][j] = np.asarray(
+                    entry[f"leaf_{i}"], dtype=l.dtype)[src]
+            have[j] = True
+
+        for p, sel_cold in cold.items():
+            read_spilled_rows(
+                self.spills[p], self._pmaps[p] if self._paged else None,
+                self._paged,
+                [(j, int(pk[j]), int(pn[j])) for j in sel_cold.tolist()],
+                _take_row)
+        # one host finish over every row at once
+        finished = self.agg.finish(tuple(torch.from_numpy(l)
+                                         for l in leaf_rows))
+        cols = {name: col.numpy() for name, col in finished.items()}
+        for j, (r, _sid, end) in enumerate(rows):
+            if have[j]:
+                results[r][end] = {name: col[j].item()
+                                   for name, col in cols.items()}
+        return results
 
 
 def route_records_plain(n: int, order: np.ndarray, rec_to_sess: np.ndarray,

@@ -53,8 +53,9 @@ watermark a ``fire.dispatch`` span in the flight recorder.
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
 where a user would select it: host shuffle mode and the two-level
 exchange (item 12h), the read replica (12f), rebalance and
-``enforce_resident_budget`` (12g), point queries over spilled state
-(12e).
+``enforce_resident_budget`` (12g). Point queries (``query_batch``)
+gather every shard's hits in one ``[P, G]`` block with one copy back, and
+read spilled slices from the shards' host tiers.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ from flink_tpu_torch.ops.segment_ops import (
     HOST_COMBINE,
     MERGE_FN,
     fold_slots,
+    pad_bucket_size,
     scatter_fold,
     sticky_bucket,
     torch_dtype,
@@ -125,6 +127,7 @@ from flink_tpu_torch.windowing.bookkeeping import SliceBookkeeper
 from flink_tpu_torch.windowing.windower import (
     WINDOW_END_FIELD,
     WINDOW_START_FIELD,
+    compose_windows_pairs,
 )
 
 
@@ -1951,6 +1954,103 @@ class MeshWindowEngine(MeshSpillSupport):
             if slots is not None:
                 block[p, : len(slots)] = slots
         self.accs = self._reset_step(self.accs, self._to_device(block))
+
+    # ---------------------------------------------------------- point query
+
+    def query_windows(self, key_id: int) -> Dict[int, Dict[str, float]]:
+        """{window_end -> result columns} for one key: a batch of one
+        (reference ``flink_tpu/parallel/sharded_windower.py:2656``)."""
+        return self.query_batch(np.asarray([key_id], dtype=np.int64))[0]
+
+    def query_batch(self, key_ids) -> List[Dict[int, Dict[str, float]]]:
+        """One ``{window_end -> columns}`` dict per requested key, in
+        request order (reference ``:2662``). Each key routes to its owning
+        shard (``_route``, the data path's formula); every shard's resident
+        hits go into one ``[P, G]`` block, one ``_gather_step`` and ONE
+        device-to-host copy (``_harvest_get(..., "serving_lookup")``, a
+        watchdog section); slices spilled under a device budget answer
+        from their shard's host tier (``peek``: no residency change); the
+        windows compose on the host (``compose_windows_pairs``).
+        Read-only: no sticky bucket moves."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        n = len(key_ids)
+        if n == 0:
+            return []
+        leaves = self.agg.leaves
+        shards = self._route(key_ids)
+        #: the answered (request row, slice end) pairs and their leaves,
+        #: resident first, then spilled (a later pair wins)
+        p_rows: List[np.ndarray] = []
+        p_ns: List[np.ndarray] = []
+        p_leaves: List[List[np.ndarray]] = [[] for _ in leaves]
+        lanes: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        g_max = 0
+        for p in range(self.P):
+            rows_p = np.nonzero(shards == p)[0]
+            if not len(rows_p):
+                continue
+            idx = self.indexes[p]
+            live_ns = np.asarray([int(x) for x in idx.namespaces],
+                                 dtype=np.int64)
+            if not len(live_ns):
+                continue
+            pk = np.repeat(key_ids[rows_p], len(live_ns))
+            pn = np.tile(live_ns, len(rows_p))
+            prow = np.repeat(rows_p, len(live_ns))
+            slots = idx.lookup(pk, pn)
+            hit = slots >= 0
+            if hit.any():
+                lanes[p] = (slots[hit].astype(np.int32), prow[hit],
+                            pn[hit])
+                g_max = max(g_max, int(hit.sum()))
+        if lanes:
+            G = pad_bucket_size(g_max, minimum=64)
+            block = np.zeros((self.P, G), dtype=np.int32)
+            for p, (hs, _, _) in lanes.items():
+                block[p, : len(hs)] = hs
+            g_host = self._harvest_get(
+                self._gather_step(self.accs, self._to_device(block)),
+                "serving_lookup")
+            for p, (hs, prow, pn) in lanes.items():
+                p_rows.append(prow)
+                p_ns.append(pn)
+                for i, g in enumerate(g_host):
+                    p_leaves[i].append(g[p][: len(hs)])
+        if self._spill_active:
+            for p in range(self.P):
+                rows_p = np.nonzero(shards == p)[0]
+                if not len(rows_p):
+                    continue
+                sp = self.spills[p]
+                if len(sp) == 0:
+                    continue
+                want = key_ids[rows_p]
+                for ns in sp.namespaces:
+                    entry = sp.peek(int(ns))
+                    if entry is None:
+                        continue
+                    ek = np.asarray(entry["key_id"], dtype=np.int64)
+                    if not len(ek):
+                        continue
+                    order = np.argsort(ek, kind="stable")
+                    pos = np.searchsorted(ek[order], want)
+                    pos = np.minimum(pos, len(ek) - 1)
+                    ok = ek[order][pos] == want
+                    if not ok.any():
+                        continue
+                    src = order[pos[ok]]
+                    p_rows.append(rows_p[ok])
+                    p_ns.append(np.full(int(ok.sum()), int(ns),
+                                        dtype=np.int64))
+                    for i, l in enumerate(leaves):
+                        p_leaves[i].append(np.asarray(
+                            entry[f"leaf_{i}"], dtype=l.dtype)[src])
+        if not p_rows:
+            return [{} for _ in range(n)]
+        return compose_windows_pairs(
+            self.assigner, self.agg, np.concatenate(p_rows),
+            np.concatenate(p_ns),
+            [np.concatenate(c) for c in p_leaves], n)
 
     # ------------------------------------------------------------- snapshot
 

@@ -481,6 +481,31 @@ class WindowAggOperator(Operator):
         self._key_values = dict(state.get("key_values", {}))
         self._keys_hashed = state.get("keys_hashed", False)
 
+    # ---------------------------------------------------------- point query
+
+    def query_state(self, key_value, namespace=None):
+        """{window_end -> result columns} for one key: a batch of one
+        (reference ``flink_tpu/runtime/operators.py:606``)."""
+        return self.query_state_batch([key_value], namespace)[0]
+
+    def query_state_batch(self, key_values, namespace=None):
+        """One {window_end -> result columns} dict per requested key, in
+        request order (reference ``:613``): keys hashed with
+        ``hash_keys_to_i64`` as at ingest, the whole batch through one
+        gather and one device-to-host copy of the engine, window values
+        composed from the slices. Served on the task thread at a batch
+        boundary, so no read races the data path. ``namespace`` restricts
+        every key to one window end."""
+        key_ids = hash_keys_to_i64(np.asarray(key_values))
+        w = self.windower
+        if hasattr(w, "query_batch"):            # mesh engines
+            outs = w.query_batch(key_ids)
+        elif hasattr(w, "query_windows_batch"):  # slot and pane layouts
+            outs = w.query_windows_batch(key_ids)
+        else:
+            outs = [w.query_windows(int(k)) for k in key_ids]
+        return _restrict_namespace(outs, namespace)
+
 
 class SessionWindowAggOperator(WindowAggOperator):
     """Merging session windows: the key reattachment, fire latency and
@@ -539,6 +564,26 @@ class SessionWindowAggOperator(WindowAggOperator):
             memory=self._managed_memory(ctx),
             max_dispatch_ahead=ctx.max_dispatch_ahead,
             shuffle_mode=ctx.shuffle_mode)
+
+    def query_state_batch(self, key_values, namespace=None):
+        """The session variant (reference
+        ``flink_tpu/runtime/operators.py:808``): one {session_end -> result
+        columns} dict per key, the keys' live sessions read through one
+        gather and one device-to-host copy."""
+        key_ids = hash_keys_to_i64(np.asarray(key_values))
+        w = self.windower
+        if hasattr(w, "query_batch"):              # mesh engine
+            outs = w.query_batch(key_ids)
+        else:                                      # single-device engine
+            outs = w.query_sessions_batch(key_ids)
+        return _restrict_namespace(outs, namespace)
+
+
+def _restrict_namespace(outs, namespace):
+    if namespace is None:
+        return outs
+    ns = int(namespace)
+    return [({ns: out[ns]} if ns in out else {}) for out in outs]
 
 
 class SinkOperator(Operator):

@@ -30,8 +30,8 @@ and between the two layouts.
 With ``memory=(manager, owner)`` the ring's cells reserve from the job's
 managed pool at creation and every growth (``core/memory.py``).
 
-Not in this slice: point queries (``query_windows``, ROADMAP Queue A item
-12e).
+``query_windows`` answers a key's live windows from its column of the
+ring (one gather of the live rows, one device-to-host copy), read-only.
 """
 
 from __future__ import annotations
@@ -48,9 +48,13 @@ from flink_tpu_torch.ops.segment_ops import (
     sticky_bucket,
     torch_dtype,
 )
-from flink_tpu_torch.runtime.pending import Fence, PendingFire
+from flink_tpu_torch.runtime.pending import (
+    Fence,
+    PendingFire,
+    harvest_to_host,
+)
 from flink_tpu_torch.state.keygroups import assign_key_groups
-from flink_tpu_torch.state.slot_table import _not_ported, make_slot_index
+from flink_tpu_torch.state.slot_table import make_slot_index
 from flink_tpu_torch.stateplane.families import _idents, pane_fence
 from flink_tpu_torch.stateplane.pane import pane_programs
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
@@ -487,8 +491,54 @@ class PaneTable:
 
     # ------------------------------------------------------------ point query
 
-    def query_windows(self, key_id: int, assigner):
-        raise _not_ported("PaneTable.query_windows", "12e")
+    def query_windows(self, key_id: int, assigner) -> Dict[int, dict]:
+        """{window_end -> result columns} for one key (reference
+        ``flink_tpu/state/pane_table.py:560``): the key's column at every
+        live slice row, every leaf and the presence plane in ONE
+        device-to-host copy, then each window folded on the host in
+        ``slice_ends_for_window`` order. Read-only."""
+        col = self.index.lookup(np.asarray([key_id], dtype=np.int64),
+                                np.zeros(1, dtype=np.int64))[0]
+        if col < 0:
+            return {}
+        live = sorted(self.slice_row)
+        if not live:
+            return {}
+        rows = torch.from_numpy(np.asarray(
+            [self.slice_row[se] for se in live], dtype=np.int64)).to(
+                self.device)
+        picked = harvest_to_host([a[rows, int(col)] for a in self.accs])
+        per_leaf, present = picked[:-1], picked[-1] > 0
+        slice_vals = {
+            se: tuple(pl[i] for pl in per_leaf)
+            for i, se in enumerate(live) if present[i]
+        }
+        if not slice_vals:
+            return {}
+        windows = sorted({
+            int(w) for se in slice_vals
+            for w in assigner.window_ends_for_slice(se)})
+        out = {}
+        idents = tuple(l.identity for l in self.agg.leaves)
+        host_merge = {"sum": np.add, "max": np.maximum, "min": np.minimum}
+        with np.errstate(invalid="ignore", over="ignore"):
+            for w in windows:
+                acc = list(idents)
+                hit = False
+                for se in assigner.slice_ends_for_window(w):
+                    sv = slice_vals.get(int(se))
+                    if sv is None:
+                        continue
+                    hit = True
+                    for i, l in enumerate(self.agg.leaves):
+                        acc[i] = host_merge[l.reduce](acc[i], sv[i])
+                if not hit:
+                    continue
+                merged = tuple(torch.from_numpy(np.asarray([v]))
+                               for v in acc)
+                finished = self.agg.finish(merged)
+                out[w] = {name: v[0].item() for name, v in finished.items()}
+        return out
 
     # -------------------------------------------------------------- snapshot
 

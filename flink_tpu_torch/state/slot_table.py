@@ -24,10 +24,11 @@ rows and spilled rows alike), so a restore re-shards by key group; a delta
 snapshot carries the rows dirtied since the last snapshot plus tombstones
 of the freed namespaces and pairs (the reference's format).
 
-Not in this slice, raising ``NotImplementedError`` naming its ROADMAP
-item (Queue A): point queries (item 12e). ``memory=(manager, owner)``
-reserves the device footprint from the job's managed pool
-(``core/memory.py``).
+Point queries (``query``, ``query_batch_pairs``, ``query_windows``) read
+the table without changing it: resident pairs through one gather and one
+device-to-host copy, spilled pairs from the host tiers.
+``memory=(manager, owner)`` reserves the device footprint from the job's
+managed pool (``core/memory.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from flink_tpu_torch.core.fs import get_filesystem
 from flink_tpu_torch.native import group_matrix
 from flink_tpu_torch.ops.segment_ops import (
     HOST_COMBINE,
+    pad_bucket_size,
     pad_i32,
     pad_values,
     sticky_bucket,
@@ -57,6 +59,7 @@ from flink_tpu_torch.state.keygroups import assign_key_groups
 from flink_tpu_torch.state.paged_spill import (
     PagedSpillMap,
     drop_spilled_sessions,
+    read_spilled_rows,
     reload_rows_for,
     restore_into_pages,
     spill_page,
@@ -1524,13 +1527,94 @@ class SlotTable:
         # restored state IS the new incremental base
         self._clear_tracking()
 
-    # ------------------------------------------------------ not in this slice
+    # ------------------------------------------------------------ point query
 
-    def query(self, key_id: int, namespace: Optional[int] = None):
-        raise _not_ported("SlotTable.query", "12e")
+    def query(self, key_id: int, namespace: Optional[int] = None
+              ) -> Dict[int, Dict[str, float]]:
+        """Point lookup for queryable state (reference
+        ``flink_tpu/state/slot_table.py:1617``): finished result columns
+        for the key, per namespace (every live one, or ``namespace``), as
+        Python scalars, through ``query_batch_pairs``. Read-only — no key
+        is inserted, no residency changes, and no sticky bucket moves
+        (the fire's bucket belongs to the hot path)."""
+        nss, found, leaves = self._key_pairs(key_id, namespace)
+        if not found.any():
+            return {}
+        finished = self.agg.finish(tuple(torch.from_numpy(l[found])
+                                         for l in leaves))
+        cols = [(name, col.tolist()) for name, col in finished.items()]
+        return {int(ns): {name: vals[j] for name, vals in cols}
+                for j, ns in enumerate(nss[found].tolist())}
 
-    def query_batch_pairs(self, key_ids, namespaces):
-        raise _not_ported("SlotTable.query_batch_pairs", "12e")
+    def _key_pairs(self, key_id: int, namespace: Optional[int] = None):
+        """(namespaces, found, leaves) of one key over every live
+        namespace (or ``namespace``): ``query_batch_pairs`` of the key."""
+        nss = np.asarray([int(namespace)] if namespace is not None
+                         else [int(n) for n in self.namespaces],
+                         dtype=np.int64)
+        found, leaves = self.query_batch_pairs(
+            np.full(len(nss), int(key_id), dtype=np.int64), nss)
+        return nss, found, leaves
 
-    def query_windows(self, key_id: int, assigner):
-        raise _not_ported("SlotTable.query_windows", "12e")
+    def _gather_rows(self, slots: np.ndarray) -> List[np.ndarray]:
+        """The query's device read: one ``flat_gather`` of ``slots``
+        (padded to ``pad_bucket_size(n, minimum=64)`` with slot 0, not the
+        sticky gather bucket) and ONE device-to-host copy of every leaf."""
+        n = len(slots)
+        size = pad_bucket_size(n, minimum=64)
+        gathered = self.agg._gather_jit(
+            self.accs,
+            self._to_device(pad_i32(slots.astype(np.int32), size, fill=0)))
+        return [g[:n] for g in harvest_to_host(gathered)]
+
+    def query_batch_pairs(
+            self, key_ids: np.ndarray, namespaces: np.ndarray
+    ) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Raw accumulator leaves for N ``(key, namespace)`` pairs, the
+        serving plane's primitive (reference ``:1692``): resident pairs
+        through ONE gather and ONE device-to-host copy for the whole
+        batch, spilled pairs from the host tiers
+        (``paged_spill.read_spilled_rows``, both layouts). Returns
+        ``(found, leaves)``: the per-pair hit mask and ``[N]`` leaf arrays
+        (identity where not found). Read-only."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        namespaces = np.asarray(namespaces, dtype=np.int64)
+        n = len(key_ids)
+        leaves_out = [np.full(n, l.identity, dtype=l.dtype)
+                      for l in self.agg.leaves]
+        found = np.zeros(n, dtype=bool)
+        if n == 0:
+            return found, leaves_out
+        slots = self.index.lookup(key_ids, namespaces)
+        hit = slots >= 0
+        if hit.any():
+            for i, g in enumerate(self._gather_rows(slots[hit])):
+                leaves_out[i][hit] = g
+            found |= hit
+        miss = np.nonzero(~hit)[0]
+        if len(miss) and (self._paged or len(self.spill)):
+            def _take_row(j, entry, src):
+                for i, l in enumerate(self.agg.leaves):
+                    leaves_out[i][j] = np.asarray(
+                        entry[f"leaf_{i}"], dtype=l.dtype)[src]
+                found[j] = True
+
+            read_spilled_rows(
+                self.spill, self._pmap if self._paged else None,
+                self._paged,
+                [(j, int(key_ids[j]), int(namespaces[j]))
+                 for j in miss.tolist()],
+                _take_row)
+        return found, leaves_out
+
+    def query_windows(self, key_id: int, assigner
+                      ) -> Dict[int, Dict[str, float]]:
+        """{window_end -> finished result columns} for the key, each
+        window the left fold of its live slices in the assigner's
+        ``slice_ends_for_window`` order (reference ``:1748``). Read-only."""
+        from flink_tpu_torch.windowing.windower import compose_windows_pairs
+
+        nss, found, leaves = self._key_pairs(key_id)
+        return compose_windows_pairs(
+            assigner, self.agg, np.zeros(int(found.sum()), dtype=np.int64),
+            nss[found], [l[found] for l in leaves], 1)[0]

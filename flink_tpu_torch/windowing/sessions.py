@@ -21,15 +21,18 @@ is the table's logical rows plus the metadata's interval lists (the
 reference's format); merged and fired sessions leave tombstones for
 incremental snapshots.
 
-Not in this slice: the point queries (ROADMAP.md Queue A item 12e),
-raising ``NotImplementedError``.
+Point queries (``query_sessions``, ``query_sessions_batch``) read a key's
+live sessions from the metadata and their accumulators through one gather
+and one device-to-host copy; paged-out sessions answer from their pages
+without a reload.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
@@ -37,7 +40,7 @@ from flink_tpu_torch.core.records import (
     RecordBatch,
 )
 from flink_tpu_torch.ops.segment_ops import pad_bucket_size, pad_i32
-from flink_tpu_torch.state.slot_table import SlotTable, _not_ported
+from flink_tpu_torch.state.slot_table import SlotTable
 from flink_tpu_torch.stateplane.families import flat_merge_pairs
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.session_meta import MergeGroup, make_session_meta
@@ -253,11 +256,38 @@ class SessionWindower:
         self.meta.restore(snap, key_group_filter=key_group_filter,
                           max_parallelism=self.table.max_parallelism)
 
-    # ---------------------------------------------------- not in this slice
+    # ---------------------------------------------------------- point query
 
     def query_sessions_batch(self, key_ids):
-        raise _not_ported("SessionWindower.query_sessions_batch", "12e")
+        """{session_end -> result columns} per requested key (reference
+        ``flink_tpu/windowing/sessions.py:102``): the keys' live sessions
+        from the host metadata, their accumulators through ONE gather and
+        ONE device-to-host copy (``SlotTable.query_batch_pairs``);
+        paged-out sessions answer from the page tier, read-only."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        n = len(key_ids)
+        results = [dict() for _ in range(n)]
+        rows: List[Tuple[int, int, int]] = []  # (request row, sid, end)
+        for r in range(n):
+            for _start, end, sid in self.meta.sessions.get(
+                    int(key_ids[r]), []):
+                rows.append((r, int(sid), int(end)))
+        if not rows:
+            return results
+        rr = np.asarray([t[0] for t in rows], dtype=np.int64)
+        sids = np.asarray([t[1] for t in rows], dtype=np.int64)
+        found, leaves = self.table.query_batch_pairs(key_ids[rr], sids)
+        finished = self.agg.finish(tuple(torch.from_numpy(l)
+                                         for l in leaves))
+        cols = {name: col.numpy() for name, col in finished.items()}
+        for j, (r, _sid, end) in enumerate(rows):
+            if found[j]:
+                results[r][end] = {name: col[j].item()
+                                   for name, col in cols.items()}
+        return results
 
     def query_sessions(self, key_id: int):
-        raise _not_ported("SessionWindower.query_sessions", "12e")
+        """A batch of one (reference ``:130``)."""
+        return self.query_sessions_batch(
+            np.asarray([key_id], dtype=np.int64))[0]
 

@@ -14,9 +14,13 @@ A ``WindowAssigner`` maps timestamps to slices and windows to slices; a
 Window lifecycle metadata lives in ``SliceBookkeeper`` (shared with the
 mesh engine). ``PaneWindower`` runs the same contract over the pane layout
 (``state/pane_table.py``). ``snapshot``/``restore`` carry the table's
-logical rows and the bookkeeping in the reference's format. Not in this
-slice: ``compose_windows`` and the point queries (ROADMAP.md Queue A item
-12e).
+logical rows and the bookkeeping in the reference's format.
+
+Point queries: ``query_windows`` / ``query_windows_batch`` answer
+{window_end -> result columns} for live keys through
+``compose_windows_pairs``, the one copy of the serving path's
+slice-to-window composition (``compose_windows`` and the mesh engine read
+through it too).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
@@ -34,12 +39,115 @@ from flink_tpu_torch.runtime.local_agg import (
     is_partial_batch,
     partial_leaf_values,
 )
+from flink_tpu_torch.ops.segment_ops import HOST_COMBINE
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.bookkeeping import SliceBookkeeper
 
 WINDOW_START_FIELD = "window_start"
 WINDOW_END_FIELD = "window_end"
+
+
+def compose_windows(assigner, agg, slice_vals: Dict[int, tuple]
+                    ) -> Dict[int, Dict[str, float]]:
+    """Slice sharing on the host (reference
+    ``flink_tpu/windowing/windower.py:40``): one key's ``{slice_end ->
+    per-leaf 1-element raw accumulator arrays}`` composed into
+    ``{window_end -> finished result columns}``: ``compose_windows_pairs``
+    for a batch of one key."""
+    if not slice_vals:
+        return {}
+    ns = np.fromiter(slice_vals, dtype=np.int64, count=len(slice_vals))
+    leaves = [np.concatenate([slice_vals[int(se)][i] for se in ns])
+              for i in range(len(agg.leaves))]
+    return compose_windows_pairs(assigner, agg,
+                                 np.zeros(len(ns), dtype=np.int64), ns,
+                                 leaves, 1)[0]
+
+
+#: the quiet bit of a float's NaN, by width
+_QUIET = {4: (np.uint32, np.uint32(0x00400000)),
+          8: (np.uint64, np.uint64(0x0008000000000000))}
+
+
+def _combine_elementwise(reduce: str, a: np.ndarray, b: np.ndarray
+                         ) -> np.ndarray:
+    """``HOST_COMBINE[reduce](a, b)`` elementwise with the NaN each pair
+    gets from a ONE-element call, the reference's composition: NumPy's
+    vector loops may return the other operand's NaN when both are NaN.
+    Sums: a NaN ``a`` comes out quieted, else a NaN ``b`` quieted (the
+    CPU's scalar add); max/min: a NaN ``a``, else a NaN ``b``, unchanged
+    (NumPy's scalar rule)."""
+    out = HOST_COMBINE[reduce](a, b)
+    if a.dtype.kind != "f":
+        return out
+    na, nb = np.isnan(a), np.isnan(b)
+    if not (na.any() or nb.any()):
+        return out
+    if reduce == "sum":
+        u, q = _QUIET[a.dtype.itemsize]
+        qa = (a.view(u) | q).view(a.dtype)
+        qb = (b.view(u) | q).view(b.dtype)
+        return np.where(na, qa, np.where(nb, qb, out))
+    return np.where(na, a, np.where(nb, b, out))
+
+
+def compose_windows_pairs(assigner, agg, rows: np.ndarray, ns: np.ndarray,
+                          leaves, n: int) -> List[Dict[int, Dict[str, float]]]:
+    """The serving path's composition for a whole batch: ``(rows[j],
+    ns[j])`` pairs (request row, slice end) with their raw leaf values
+    ``leaves[i][j]`` become one ``{window_end -> finished result columns}``
+    per request row (``n`` rows; a pair given twice keeps its later
+    values). Each window touching a row's slices is the left fold of that
+    row's slices in ``slice_ends_for_window`` order with ``HOST_COMBINE``
+    (absent slices skipped), as the reference folds it key by key, so
+    float sums keep its bits; here every (row, window) folds at once,
+    elementwise, and finishes in one call. Result columns are Python
+    scalars."""
+    out: List[Dict[int, Dict[str, float]]] = [{} for _ in range(n)]
+    if len(ns) == 0:
+        return out
+    rows = np.asarray(rows, dtype=np.int64)
+    ns = np.asarray(ns, dtype=np.int64)
+    uniq, sidx = np.unique(ns, return_inverse=True)
+    at = {int(se): i for i, se in enumerate(uniq.tolist())}
+    pair_at = np.full((n, len(uniq)), -1, dtype=np.int64)
+    pair_at[rows, sidx] = np.arange(len(ns))
+    # the (row, window) combinations: every window of every present slice
+    wins_of = [assigner.window_ends_for_slice(int(se)) for se in uniq]
+    windows = sorted({int(w) for ws in wins_of for w in ws})
+    w_at = {w: i for i, w in enumerate(windows)}
+    has = np.zeros((n, len(windows)), dtype=bool)
+    for s, ws in enumerate(wins_of):
+        present = pair_at[:, s] >= 0
+        for w in ws:
+            has[:, w_at[int(w)]] |= present
+    c_row, c_win = np.nonzero(has)            # row-major: rows ascending
+    accs = [np.full(len(c_row), l.identity, dtype=l.dtype)
+            for l in agg.leaves]
+    # inf + -inf is NaN in any order: no warning for the data's specials
+    with np.errstate(invalid="ignore", over="ignore"):
+        for wi, w in enumerate(windows):
+            sel = np.nonzero(c_win == wi)[0]
+            r = c_row[sel]
+            for se in assigner.slice_ends_for_window(w):
+                s = at.get(int(se))
+                if s is None:
+                    continue
+                pj = pair_at[r, s]
+                m = pj >= 0
+                if not m.any():
+                    continue
+                for i, l in enumerate(agg.leaves):
+                    cur = accs[i][sel]
+                    accs[i][sel] = np.where(m, _combine_elementwise(
+                        l.reduce, cur,
+                        np.asarray(leaves[i])[np.maximum(pj, 0)]), cur)
+    finished = agg.finish(tuple(torch.from_numpy(a) for a in accs))
+    cols = [(name, col.tolist()) for name, col in finished.items()]
+    for j, (r, wi) in enumerate(zip(c_row.tolist(), c_win.tolist())):
+        out[r][windows[wi]] = {name: vals[j] for name, vals in cols}
+    return out
 
 
 class SliceSharedWindower:
@@ -229,6 +337,37 @@ class SliceSharedWindower:
                     self.table.fire_async(matrix, keys), window_end)
             results = self.table.fire(matrix)
         return self._columns(window_end, keys, results)
+
+    # ---------------------------------------------------------- point query
+
+    def query_windows(self, key_id: int) -> Dict[int, Dict[str, float]]:
+        """{window_end -> result columns} for one key (reference
+        ``flink_tpu/windowing/windower.py:275``)."""
+        return self.table.query_windows(key_id, self.assigner)
+
+    def query_windows_batch(self, key_ids
+                            ) -> List[Dict[int, Dict[str, float]]]:
+        """One result dict per requested key (reference ``:280``): the
+        whole batch through ONE gather and ONE device-to-host copy
+        (``SlotTable.query_batch_pairs`` over keys x live slices); the pane
+        layout, with no pair gather, answers key by key."""
+        key_ids = np.asarray(key_ids, dtype=np.int64)
+        n = len(key_ids)
+        if n == 0:
+            return []
+        if not hasattr(self.table, "query_batch_pairs"):
+            return [self.query_windows(int(k)) for k in key_ids]
+        live_ns = np.asarray([int(x) for x in self.table.namespaces],
+                             dtype=np.int64)
+        if len(live_ns) == 0:
+            return [{} for _ in range(n)]
+        pair_keys = np.repeat(key_ids, len(live_ns))
+        pair_ns = np.tile(live_ns, n)
+        found, leaves = self.table.query_batch_pairs(pair_keys, pair_ns)
+        rows = np.repeat(np.arange(n, dtype=np.int64), len(live_ns))
+        return compose_windows_pairs(self.assigner, self.agg, rows[found],
+                                     pair_ns[found],
+                                     [l[found] for l in leaves], n)
 
     # ------------------------------------------------------------- snapshot
 

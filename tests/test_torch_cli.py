@@ -1,7 +1,7 @@
 """The port's CLI (``flink_tpu_torch/cli.py``) against the reference's
 (``flink_tpu/cli.py``): the same commands on the same jobs print the same
 things. Counterparts of the CLI half of ``tests/test_fs_and_cli.py``, plus
-``query`` (refused naming ROADMAP item 12e) and the device taken from
+``query`` at a held end of stream and the device taken from
 ``-D execution.device``. Every wait is bounded."""
 
 import json
@@ -134,21 +134,42 @@ def test_rest_actions(tmp_path, capsys):
     assert [k for _, k in outputs["port"][5]] == ["source", "keyed state"]
 
 
-def test_query_fails_naming_item_12e(capsys):
-    ns = _ns("port")
-    cluster = _cluster(ns, **{"rest.port": 0})
-    try:
-        env = _env(ns, {"execution.micro-batch.size": 256})
-        _count_job(ns, env, ns.sinks.DiscardingSink(), 2_000_000, slow=True)
-        client = cluster.submit(env, "q")
-        assert _wait_for(lambda: _task_running(cluster, client))
-        with pytest.raises(RuntimeError, match="12e"):
-            port_main(["query", client.job_id, "window", "3",
-                       "--rest", f"127.0.0.1:{cluster.rest_port}"])
-        client.cancel()
-        client.wait(timeout=30)
-    finally:
-        cluster.shutdown()
+def test_query_fails_naming_item_12e(capsys, tmp_path):
+    """``query`` (item 12e, served now) prints what the reference's prints
+    for the same key of the same job at a held end of stream."""
+    from flink_tpu_torch.benchmarks.held import release, settle, wait_held
+
+    def run(pkg):
+        ns = _ns(pkg)
+        cluster = _cluster(ns, **{"rest.port": 0})
+        hold = str(tmp_path / pkg)
+        try:
+            env = _env(ns, {"execution.micro-batch.size": 256})
+            _count_job(ns, env, ns.sinks.DiscardingSink(), 20_000, keys=40,
+                       window=2000, hold_dir=hold)
+            client = cluster.submit(env, "q")
+            wait_held(hold)
+
+            def query():
+                capsys.readouterr()
+                assert MAIN[pkg](["query", client.job_id,
+                                  "window_agg(CountAggregate)", "3",
+                                  "--rest",
+                                  f"127.0.0.1:{cluster.rest_port}"]) == 0
+                out = json.loads(capsys.readouterr().out)
+                out.pop("job_id")
+                return out
+
+            out = settle(query)
+            release(hold)
+            client.wait(timeout=60)
+            return out
+        finally:
+            cluster.shutdown()
+
+    got = {pkg: run(pkg) for pkg in PKGS}
+    assert got["port"] == got["reference"]
+    assert got["port"]["state"] and got["port"]["key"] == 3
 
 
 def test_help_lists_every_command():

@@ -1649,3 +1649,66 @@ def test_grpc_shuffle_stage_job_on_card_equals_cpu():
     assert card["launches"]["ordered_fold"] > 0
     assert card["rows"] == cpu["rows"] > 0
     assert card["bytes_over_socket"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["mesh", "slots"])
+def test_query_between_a_fire_dispatch_and_its_harvest(engine):
+    """A point query served while a fire's device-to-host copy is in
+    flight: the fire's slice resets are queued on the same stream before
+    the query's gather, so the card answers what the CPU answers at that
+    point (bit for bit, float32 Sum), and the harvested fires equal the
+    CPU's afterwards."""
+    _need_card()
+    import struct
+
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.runtime.pending import PendingFire
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.windowing.windower import SliceSharedWindower
+
+    def make(device):
+        asg = SlidingEventTimeWindows.of(5000, 1000)
+        if engine == "mesh":
+            return MeshWindowEngine(asg, SumAggregate("v"),
+                                    make_mesh(8, device),
+                                    capacity_per_shard=1 << 14)
+        return SliceSharedWindower(asg, SumAggregate("v"), capacity=1 << 16,
+                                   spill={"device": device})
+
+    def query(e, keys):
+        return (e.query_batch(keys) if engine == "mesh"
+                else e.query_windows_batch(keys))
+
+    def bits(x):
+        if isinstance(x, dict):
+            return {k: bits(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [bits(v) for v in x]
+        return struct.pack("<d", x) if isinstance(x, float) else x
+
+    rng = np.random.default_rng(11)
+    card, cpu = make("cuda"), make("cpu")
+    keys = np.arange(0, 5000, 7, dtype=np.int64)
+    for step in range(8):
+        k = rng.integers(0, 5000, 60_000).astype(np.int64)
+        v = rng.standard_normal(60_000).astype(np.float32)
+        ts = rng.integers(step * 1000, step * 1000 + 2500, 60_000)
+        for e in (card, cpu):
+            e.process_batch(RecordBatch.from_pydict(
+                {KEY_ID_FIELD: k, "v": v}, timestamps=ts))
+        pending = card.on_watermark(step * 1000 - 1, async_ok=True)
+        want_fired = cpu.on_watermark(step * 1000 - 1)
+        # the fire's copy may still be in flight here
+        assert bits(query(card, keys)) == bits(query(cpu, keys))
+        got_fired = [p.harvest() if isinstance(p, PendingFire) else p
+                     for p in pending]
+        got_fired = [b for b in got_fired if b is not None]
+        assert len(got_fired) == len(want_fired)
+        for g, w in zip(got_fired, want_fired):
+            for name in w.columns:
+                a, b = np.asarray(g[name]), np.asarray(w[name])
+                assert a.tobytes() == b.tobytes(), name

@@ -17,7 +17,9 @@ The counterparts of ``tests/test_device_joins.py``'s classes:
 - pair-set semantics against the port's host operators;
 - the fault points ``join.exchange`` (with its drop / duplicate payload
   rule) and ``join.versioned_lookup`` acting as the reference's do;
-- each feature that is not ported raising and naming its ROADMAP item.
+- each feature that is not ported raising and naming its ROADMAP item
+  (``query_side_batch``, item 12e, now answering as the reference's;
+  ``tests/test_torch_queries_mesh.py`` holds it at size).
 
 Tolerance: none. Every comparison is exact: the same batches in the same
 order, every column equal bit for bit (floats compared on their bits),
@@ -604,6 +606,12 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
 def test_unported_features_raise_naming_their_item(call, item):
     eng = port(MeshIntervalJoinEngine, -1, 1)
     eng.process_batch(RecordBatch(cols([1], [1.0], [0])), 0)
+    if item == "12e":
+        # item 12e is ported: the side query answers as the reference's
+        want = ref(JInterval, -1, 1)
+        want.process_batch(JRecordBatch(cols([1], [1.0], [0])), 0)
+        assert call(eng) == call(want) == [[{"ts": 0, "rid": 1, "v": 1.0}]]
+        return
     with pytest.raises(NotImplementedError) as e:
         call(eng)
     assert _item(e) == item

@@ -769,6 +769,20 @@ def test_managed_memory_reserves_like_the_reference():
 def test_unported_calls_raise_naming_their_item(call, item):
     eng = MeshSessionEngine(50, tagg.SumAggregate("v"), make_mesh(P, "cpu"),
                             max_device_slots=1024)
+    if item == "12e":
+        # item 12e is ported: the point queries answer as the
+        # reference's (tests/test_torch_queries_mesh.py holds them at
+        # size)
+        from flink_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+        want = JEngine(50, jagg.SumAggregate("v"), jmake_mesh(P),
+                       max_device_slots=1024)
+        for e, mk in ((eng, _tbatch), (want, _jbatch)):
+            e.process_batch(mk([1, 1, 2], [0.5, 0.25, 2.0], [10, 20, 30]))
+        assert call(eng) == call(want)
+        assert eng.query_batch([1, 2, 3]) == [{70: {"sum_v": 0.75}},
+                                               {80: {"sum_v": 2.0}}, {}]
+        return
     with pytest.raises(NotImplementedError) as e:
         call(eng)
     assert _item(e) == item

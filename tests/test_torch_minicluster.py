@@ -5,8 +5,9 @@ accounting and the rows the jobs write, compared package to package.
 Counterparts of the MiniCluster cases of ``tests/test_cluster.py``,
 ``test_multi_slot_cluster.py``, ``test_savepoints.py``,
 ``test_two_phase.py``, ``test_file_sink.py`` and ``test_pipelining.py``,
-plus cancellation in both executor modes, the cold rescale, the refused
-point query and a reference savepoint resumed on the port's cluster.
+plus cancellation in both executor modes, the cold rescale, point queries
+at a held end of stream and a reference savepoint resumed on the port's
+cluster.
 Port jobs run with ``execution.device: cpu``. The graph is shipped to the
 TaskExecutor, so jobs write through files; a crash-once flag lives in a
 file because each deployment attempt unpickles the graph anew. Every wait
@@ -70,7 +71,21 @@ from flink_tpu_torch.connectors.sources import (  # noqa: E402
 )
 
 
+from flink_tpu_torch.benchmarks.held import (  # noqa: E402
+    HeldDataGenSource as _PortHeld,
+    _HoldEnd,
+)
+
+
 class Ref:
+    class HeldDataGen(_HoldEnd, _RefGen):
+        """The reference's DataGen holding its end of stream until
+        released (``flink_tpu_torch/benchmarks/held.py``'s hold)."""
+
+        def __init__(self, hold_dir, **kw):
+            _RefGen.__init__(self, **kw)
+            self._init_hold(hold_dir)
+
     class SlowDataGen(_RefGen):
         sleep_s = 0.01
 
@@ -86,6 +101,8 @@ class Port:
     part of its operator's stable id, so a savepoint moves between the
     packages only between equal names."""
 
+    HeldDataGen = _PortHeld
+
     class SlowDataGen(_PortGen):
         sleep_s = 0.01
 
@@ -96,16 +113,19 @@ class Port:
             return b
 
 
-def _gen(ns, slow=False, **kw):
+def _gen(ns, slow=False, hold_dir=None, **kw):
+    pkg = Ref if ns.pkg == "reference" else Port
+    if hold_dir is not None:
+        return pkg.HeldDataGen(hold_dir, **kw)
     if slow:
-        return (Ref if ns.pkg == "reference" else Port).SlowDataGen(**kw)
+        return pkg.SlowDataGen(**kw)
     return ns.sources.DataGenSource(**kw)
 
 
 def _count_job(ns, env, sink, total, slow=False, window=500, keys=5,
-               rate=4000, mapper=None):
+               rate=4000, mapper=None, hold_dir=None):
     ds = env.add_source(
-        _gen(ns, slow, total_records=total, num_keys=keys,
+        _gen(ns, slow, hold_dir, total_records=total, num_keys=keys,
              events_per_second_of_eventtime=rate),
         ns.wm.WatermarkStrategy.for_bounded_out_of_orderness(0))
     if mapper is not None:
@@ -848,23 +868,43 @@ def test_request_rescale_redeploys_from_the_checkpoint(tmp_path):
 
 
 def test_point_queries_reach_the_executors_refusal(tmp_path):
-    ns = _ns("port")
-    cluster = _cluster(ns)
-    try:
-        env = _env(ns, {"execution.micro-batch.size": 256})
-        _count_job(ns, env, ns.sinks.DiscardingSink(), 2_000_000, slow=True)
-        client = cluster.submit(env, "query-me")
-        assert _wait_for(lambda: _task_running(cluster, client))
-        with pytest.raises(NotImplementedError, match="item 12e"):
-            cluster.dispatcher_gateway().query_state(
-                client.job_id, "window", 1)
-        with pytest.raises(NotImplementedError, match="item 12e"):
-            cluster.dispatcher_gateway().query_state_batch(
-                client.job_id, "window", [1, 2])
-        client.cancel()
-        assert client.wait(timeout=30)["status"] == "CANCELED"
-    finally:
-        cluster.shutdown()
+    """Point queries (item 12e, served now) through the Dispatcher, the
+    JobMaster and the TaskExecutor to the task's next batch boundary: at
+    the held end of stream both packages answer the same dicts, as plain
+    Python scalars after the RPC frame."""
+    from flink_tpu_torch.benchmarks.held import release, settle, wait_held
+
+    def run(ns):
+        cluster = _cluster(ns)
+        hold = str(tmp_path / ns.pkg)
+        try:
+            env = _env(ns, {"execution.micro-batch.size": 256})
+            _count_job(ns, env, ns.sinks.DiscardingSink(), 20_000, keys=40,
+                       window=2000, hold_dir=hold)
+            client = cluster.submit(env, "query-me")
+            wait_held(hold)
+            gw = cluster.dispatcher_gateway()
+            op = "window_agg(CountAggregate)"
+            batch = settle(lambda: gw.query_state_batch(
+                client.job_id, op, list(range(45))))
+            one = gw.query_state(client.job_id, op, 3)
+            ns_one = gw.query_state_batch(client.job_id, op, [3, 4],
+                                          max(one))
+            with pytest.raises(KeyError, match="available"):
+                gw.query_state_batch(client.job_id, "window", [1, 2])
+            release(hold)
+            assert client.wait(timeout=60)["status"] == "FINISHED"
+            return batch, one, ns_one
+        finally:
+            cluster.shutdown()
+
+    got = _both(run)
+    assert got["port"] == got["reference"]
+    batch, one, ns_one = got["port"]
+    assert batch[3] == one and len(ns_one[0]) == 1
+    assert sum(1 for a in batch if a) == 40
+    assert all(type(c) is int for a in batch for w in a.values()
+               for c in w.values())
 
 
 # ----------------------- a reference savepoint resumed on the port

@@ -633,9 +633,17 @@ def test_layout_selection():
 
 
 def test_query_windows_names_its_roadmap_item():
-    w = _pane("flink_tpu_torch")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        w.table.query_windows(1, w.assigner)
+    """``PaneTable.query_windows`` (item 12e, ported since): a live key's
+    {window_end: columns} equal to the reference's, a missing key {}
+    (``tests/test_torch_queries.py`` holds it at size)."""
+    got = {}
+    for pkg in PKGS:
+        w = _pane(pkg, "cumulative")
+        w.process_batch(_events(pkg, n=1500, keys=90))
+        got[pkg] = [w.table.query_windows(k, w.assigner)
+                    for k in (1, 2, 10_000)]
+    assert got["flink_tpu_torch"] == got["flink_tpu"]
+    assert got["flink_tpu_torch"][0] and got["flink_tpu_torch"][2] == {}
 
 
 def test_panes_without_a_device_raise_without_a_card():

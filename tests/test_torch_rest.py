@@ -3,8 +3,9 @@ dashboard (``flink_tpu_torch/web/``) and the history server
 (``cluster/history_server.py``) against the reference's: the same routes
 answer with the same keys and values on the same jobs. Counterparts of
 ``tests/test_history_server.py``, the REST case of ``test_cluster.py`` and
-the MiniCluster cases of ``test_annotations_flamegraph.py``. Port jobs run
-with ``execution.device: cpu``; every request has a timeout."""
+the MiniCluster cases of ``test_annotations_flamegraph.py``, and the state
+route at a held end of stream. Port jobs run with ``execution.device:
+cpu``; every request has a timeout."""
 
 import json
 import time
@@ -260,18 +261,38 @@ def test_post_savepoint_and_cancel(tmp_path):
         202, True, 202, "cancelling", "CANCELED", 404)
 
 
-def test_query_route_fails_naming_item_12e():
-    ns = _ns("port")
-    cluster = _cluster(ns, **{"rest.port": 0})
-    try:
-        env = _env(ns, {"execution.micro-batch.size": 256})
-        _count_job(ns, env, ns.sinks.DiscardingSink(), 2_000_000, slow=True)
-        client = cluster.submit(env, "q")
-        assert _wait_for(lambda: _task_running(cluster, client))
-        code, body = _status_of(cluster.rest_port,
-                                f"/jobs/{client.job_id}/state/window?key=3")
-        assert code == 500 and b"12e" in body
-        client.cancel()
-        assert client.wait(timeout=30)["status"] == "CANCELED"
-    finally:
-        cluster.shutdown()
+def test_query_route_fails_naming_item_12e(tmp_path):
+    """The state route (item 12e, served now): at a held end of stream the
+    port's ``GET /jobs/<id>/state/<op>?key=K`` answers what the
+    reference's does (JSON, window ends as strings), and an unknown
+    operator is a 404 in both."""
+    from flink_tpu_torch.benchmarks.held import release, settle, wait_held
+
+    def run(ns):
+        cluster = _cluster(ns, **{"rest.port": 0})
+        hold = str(tmp_path / ns.pkg)
+        try:
+            env = _env(ns, {"execution.micro-batch.size": 256})
+            _count_job(ns, env, ns.sinks.DiscardingSink(), 20_000, keys=40,
+                       window=2000, hold_dir=hold)
+            client = cluster.submit(env, "q")
+            wait_held(hold)
+            op = "window_agg(CountAggregate)"
+            url = f"/jobs/{client.job_id}/state/{op}?key=3"
+            body = settle(lambda: _get(cluster.rest_port, url))
+            ns_body = _get(cluster.rest_port, url + "&namespace=" + max(
+                body["state"], key=int))
+            missing = _status_of(cluster.rest_port,
+                                 f"/jobs/{client.job_id}/state/window?key=3")
+            release(hold)
+            assert client.wait(timeout=60)["status"] == "FINISHED"
+            body.pop("job_id")
+            ns_body.pop("job_id")
+            return body, ns_body, missing[0]
+        finally:
+            cluster.shutdown()
+
+    got = _both(run)
+    assert got["port"] == got["reference"]
+    body, ns_body, missing = got["port"]
+    assert body["state"] and len(ns_body["state"]) == 1 and missing == 404

@@ -1,7 +1,7 @@
 """Every ROADMAP item the port cites exists in ROADMAP.md.
 
 The port's ``NotImplementedError`` messages and docstrings name the
-ROADMAP item that will honour what they leave out ("Queue A item 12e",
+ROADMAP item that will honour what they leave out ("Queue A item 12f",
 "Queue C item R2"), and the tests of each raise check that label. A
 re-anchor that renames or splits an item must keep every cited anchor;
 this test names the first one it dropped, in one place.
@@ -16,7 +16,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 ROADMAP = (ROOT / "ROADMAP.md").read_text()
 PACKAGE = ROOT / "flink_tpu_torch"
 
-#: "Queue A item 12e" / "Queue C item R2", across a line break too
+#: "Queue A item 12f" / "Queue C item R2", across a line break too
 CITE = re.compile(r"Queue\s+([AC])\s+item\s+(\w+(?:-\d+)?)")
 
 
@@ -45,7 +45,7 @@ CITED = _citations()
 
 
 def test_the_package_cites_roadmap_items():
-    assert ("A", "12e") in CITED
+    assert ("A", "12f") in CITED
     assert ("C", "R2") in CITED
 
 

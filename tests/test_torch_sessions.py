@@ -567,10 +567,14 @@ def test_fire_projector_on_sessions_raises():
 
 def test_queries_and_snapshots_name_their_items():
     w = SessionWindower(10, tagg.CountAggregate(), spill={"device": "cpu"})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        w.query_sessions(1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        w.query_sessions_batch([1])
+    # the point queries (item 12e) are ported: they answer as the
+    # reference's (tests/test_torch_queries.py holds them at size)
+    j = JSessionWindower(10, jagg.CountAggregate())
+    w.process_batch(_tbatch([1, 1, 2], [0, 0, 0], [5, 9, 30]))
+    j.process_batch(_jbatch([1, 1, 2], [0, 0, 0], [5, 9, 30]))
+    assert w.query_sessions(1) == j.query_sessions(1) == {19: {"count": 2}}
+    assert w.query_sessions_batch([1, 2, 3]) == \
+        j.query_sessions_batch([1, 2, 3])
     # snapshots are ported (item 8a): the table and the interval lists
     snap = w.snapshot()
     assert set(snap) == {"table", "sessions", "next_sid",

@@ -443,15 +443,37 @@ def test_growth_and_const_leaf_keep_slot0_identity():
     assert int(tt.accs[0][0]) == 0
 
 
+def _sliding(t):
+    if isinstance(t, TTable):
+        from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    else:
+        from flink_tpu.windowing.assigners import SlidingEventTimeWindows
+    return SlidingEventTimeWindows.of(2000, 1000)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda t: t.query_batch_pairs([1], [1]), "item 12"),
-    (lambda t: t.query_windows(1, None), "item 12"),
+    (lambda t: t.query_batch_pairs([1, 1, 3], [1000, 5000, 1000]),
+     "item 12"),
+    (lambda t: t.query_windows(1, _sliding(t)), "item 12"),
     (lambda t: t.query(1), "item 12"),
 ])
 def test_unported_parts_raise_naming_their_item(call, item):
+    # the point queries (item 12e) are ported: each answers as the
+    # reference's table on the same rows (tests/test_torch_queries.py
+    # holds them at size)
     t = TTable(tagg.SumAggregate("v"), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        call(t)
+    j = JTable(jagg.SumAggregate("v"), capacity=1024)
+    for tab in (t, j):
+        slots = tab.lookup_or_insert(np.array([1, 1, 2], np.int64),
+                                     np.array([1000, 2000, 1000], np.int64))
+        tab.scatter(slots, (np.array([0.5, 2.0, 4.0], np.float32),))
+    got, want = call(t), call(j)
+    if isinstance(want, tuple):
+        np.testing.assert_array_equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    else:
+        assert got == want and got
     # the paged layout (item 7a) is ported: it builds; an unknown raises
     assert TTable(tagg.SumAggregate("v"), device="cpu", max_device_slots=1024,
                   spill_layout="pages")._paged
