@@ -78,9 +78,10 @@ Phases, each fatal on failure (no result line is printed then):
     time one call of the ordered fold at the run's [1, R*C] shape with the
     lanes of its largest combined scatter, against its plain version;
 12. run BASELINE row 5 through the public API at parallelism 1 (sessions
-    with a 2 s gap over DataGenSource's 12M records and 10M keys, float32
+    with a 2 s gap over DataGenSource's records and 10M keys, float32
     ``.sum("value")``, micro-batches of 1<<16, a 1<<19-row device budget:
-    the paged spill tier evicts and reloads), not cut: (a) the sessions'
+    the paged spill tier evicts and reloads), cut from the row's 12M
+    records to 8M when phase 25 came (the script's time): (a) the sessions'
     (key, start, end) multiset equals a NumPy oracle's exactly and every
     sum is within 2 (n - 1) 2^-24 of its stream-order float32 sum; 0 late
     records; the native session plane ran; print events/s, fire latency,
@@ -183,7 +184,8 @@ Phases, each fatal on failure (no result line is printed then):
 16. CEP: (a) the ``cep_patterns_10m_keys`` row of ``tools/bench_cep.py``
     (a 2-stage within-2 s sequence over 10M keys at 400k events/s of
     event time, 1M records — the bench's 4M, cut to 2M when phase 21 came
-    and to 1M when phase 24 came, to keep the script's time — in batches
+    and to 1M when phase 24 came, to keep the script's time (250k no
+    longer evicts) — in batches
     of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
     ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<18
@@ -256,7 +258,8 @@ Phases, each fatal on failure (no result line is printed then):
     rank kernel launched at D=8 before the loss and at D=7 after it, the
     ordered fold launched; (18c) card == CPU bit for bit (the committed
     windows, the report's signature, the final engine snapshot) for (a)
-    at 60,000 keys and for (b)'s job over its first 2M bids in steps of
+    at 60,000 keys and for (b)'s job over its first 1M bids (cut from 2M
+    when phase 25 came) in steps of
     1<<18 with a live reshard 8 -> 5 -> 8 (``run_crash_restore_verify``'s
     ``rescales``) in place of the loss; (18d) Q5 at P=8 through
     ``env.execute()`` over 3M bids with ``watchdog.enabled``: the rows
@@ -271,8 +274,9 @@ Phases, each fatal on failure (no result line is printed then):
 19. process functions and durability (after phase 18): (19a) the
     ``CountWithTimeout`` job of Flink's Process Function documentation
     (``flink_tpu_torch/benchmarks/process_timeout.py``) over
-    ``DataGenSource(4M records, 10M keys, 20k events/s of event time,
-    seed 7)`` in batches of 1<<16 at P=1, its count and lastModified in
+    ``DataGenSource(2M records, 10M keys, 20k events/s of event time,
+    seed 7)`` (cut from the job's 4M when phase 25 came) in batches of
+    1<<16 at P=1, its count and lastModified in
     int64 ``DeviceValueState``s on the card (~3.30M keys, 1<<22 slots),
     each batch's states written with one put whose duplicate keys the
     newest lane wins: the card's rows equal the same job on the CPU and a
@@ -340,7 +344,8 @@ Phases, each fatal on failure (no result line is printed then):
 21. OVER, the lookup join into a filesystem table, EXPLAIN and 11d
     (after phase 20): (21a) both OVER engines at ``tools/bench_over.py``'s
     shape (ROWS 16 PRECEDING, SUM/AVG/MIN/MAX, batches of 50,000 rows, 3
-    warm fires then 20 timed, at 100, 2,000 and 50,000 keys; the host
+    warm fires then 10 timed — 20 in ``tools/bench_over.py``, cut when
+    phase 25 came —, at 100, 2,000 and 50,000 keys; the host
     engine at 50,000 keys times 2 fires, its per-key loop taking ~2 s a
     fire): rows/s of each, the device program's kernel and copy ms, its
     launches a fire and its share of the fire's wall (torch.profiler over
@@ -395,7 +400,9 @@ Phases, each fatal on failure (no result line is printed then):
     22(a)'s job in batches of 1<<19 with a checkpoint every 2 source
     batches crashes at 4 subtasks (an injected failure past 4M records
     once checkpoint 2 is durable; past 4M the failing map holds each
-    batch 0.2 s until then), and resumes from the newest checkpoint at 2
+    batch 0.5 s until then — 0.2 s until phase 25 came: on a slow host the
+    unaligned run's stream ended before checkpoint 2 was durable), and
+    resumes from the newest checkpoint at 2
     subtasks and again single-slot; then once more with unaligned
     checkpoints, resumed at 4 subtasks: every row of every run equal to
     the oracle bit for bit, and each run pair covering every (auction,
@@ -502,6 +509,53 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_serving(torch)'`` runs phase 24 alone
     (``phase_serving(torch, "cpu", small=True)`` rehearses it without a
     card).
+25. multi-tenancy (after phase 24): (25a) one ``SessionCluster`` runs two
+    tenants at P=8 with ``serving.replica`` on and a 1<<22-row quota
+    each: phase 5's Q5 (HOP 10 s / 2 s, top-k 16, batches of 1<<20) on 10M
+    bids (cut from phase 5's 40M: ten boundaries, each an incremental
+    publish of a ~500k-row delta) and phase 6's Q5-revenue on 2M (cut from
+    its 10M: 24(b)'s cut, whose card == CPU answers it reuses; batches of
+    1<<19, four boundaries), while 16 client threads issue
+    ``lookup_batch_packed`` of 256
+    auctions with a 2 ms pause; at the held cut every auction's answer off
+    the sealed generation equals the live engine's (``StateQueryBatch
+    Request`` on the job's control queue) and the CPU port's (24(b)'s
+    card == CPU answers for the revenue; the live-slice oracle for the
+    counts), bit for bit, and a twelfth of them through the serving plane
+    (hot cache and workers) too; after the release the Q5 winners and
+    every revenue sum equal the oracles; the same pair again, fresh, on
+    the warm cluster without clients (its cut checked on that twelfth
+    only, to keep the script's time): 0 program-cache misses and a hit for
+    each job; gates: >= 2 generations, a hot-cache hit, 0 quota
+    violations; events/s with and without clients, lookups/s, lookup
+    p50/p99 and each tenant's replica staleness p99 (sampled from its
+    start to its cut, while it ingests) printed, 24(a)'s legacy-path p99
+    beside them for the record; (25b) BASELINE row 6 with the reference's
+    settings but cut in depth (``flink_tpu_torch/benchmarks/
+    serving.py``: a warm job, then two fresh jobs at P=4, 4,096 keys,
+    seed 13, tumbling 60 s ``.sum("value")``, batches of 4,096,
+    ``latency.fire-deadline-ms`` 25, an 8,192-row quota, 16 clients of
+    256 keys with a 2 ms pause, a 25 ms publish interval) on 40,000
+    records a job, 10 % of the row's 400,000 (the clients' Python holds
+    the GIL the one scheduler thread needs between its torch calls: 400k
+    took 476.7 s on the card with the card idle): ten batches a job, each
+    boundary an incremental publish; at the row's 50k events/s of event
+    time its 60 s windows fire only at the end of the stream at any depth
+    up to 3M records, the row's own 400k included: the sinks equal the same jobs
+    on the CPU bit for bit, the packed answers the dict answers; the
+    reference's 350k lookups/s floor and 25 ms p99 printed beside the
+    card's, not gated; (25c) BASELINE row 9 (``benchmarks/serving_mp.py``):
+    2 spawned frontend processes over the owner's shared-memory arena,
+    4,096 keys, 256-key batches, 2,000 batches each, priming every 25 ms:
+    hit rate >= 0.98, no torn read surfaced, parity with the owner's dict
+    oracle; (25d) ``run_crash_restore_verify_multi`` with two mesh window
+    jobs at P=8 (tumbling 2 s float32 Sum, 16 steps of 1<<16 records),
+    job a crashed at its 5th serving burst: each job's committed windows
+    equal its fault-free oracle exactly and job b is never restored.
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_tenancy(torch)'`` runs phase 25 alone
+    (``phase_tenancy(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -515,14 +569,17 @@ each run of 21(a)'s SQL job and 21(b), 21(d)'s card jobs, each
 run of 22(a) to 22(e) (22(e)'s recorder-off run in its subprocess),
 each run of 23(a) to 23(g) (23(e)'s in the TaskExecutor process, whose
 counters start at 0 with it and come back through the job's metric
-snapshot) and each run of 24(a) to 24(e), and read just after; each phase fails if a kernel of
-its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
+snapshot), each run of 24(a) to 24(e), each of 25(a)'s two cluster runs
+and 25(b)'s and 25(d)'s runs, and read just after; each phase fails if
+a kernel of its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
 15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
-22(a), 22(c), 22(d), 23(f), 23(g), 24(b), 24(d), 24(e) and 21(d)'s ML
-job — row 1's `.sum` keeps a float32 leaf —, Count being an integer
-fold; the rank in 20(c), 21(b), 22(b), 22(e), 23(a)-(e) and 24(a)-(c)). 19(a), 19(d) and 21(a)
+22(a), 22(c), 22(d), 23(f), 23(g), 24(b), 24(d), 24(e), 25(a), 25(b),
+25(d) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count
+being an integer fold; the rank in 20(c), 21(b), 22(b), 22(e), 23(a)-(e),
+24(a)-(c), 25(a), 25(b) and 25(d)). 25(c) runs no kernel: its frontends
+read the hot cache's shared memory on the host. 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
 
@@ -3887,7 +3944,7 @@ def _reshard_run(device: str, steps, schedule) -> dict:
 
 
 def shard_loss_card_equals_cpu(torch, row7_keys: int = 60_000,
-                               reshard_records: int = 2_000_000) -> dict:
+                               reshard_records: int = 1_000_000) -> dict:
     """18(c): (a)'s scenario at ``row7_keys`` keys, and (b)'s job over its
     first ``reshard_records`` bids in steps of 1<<18 with a live reshard
     8 -> 5 -> 8 in place of the loss, on the card and on the CPU: the
@@ -3918,7 +3975,7 @@ def shard_loss_card_equals_cpu(torch, row7_keys: int = 60_000,
                    "signature": loss["cuda"]["report"].signature(),
                    "launches": loss["cuda"]["row"]["launches"]}
     steps = sl.q5rev_steps(reshard_records, step=1 << 18)
-    schedule = {3: 5, 6: 8}
+    schedule = {1: 5, 3: 8}   # before steps 1 and 3 of the 4 at 1M bids
     rs = {d: _reshard_run(d, steps, schedule) for d in ("cuda", "cpu")}
     for what, got, want in (
             ("signature", rs["cuda"]["report"].signature(),
@@ -4131,14 +4188,17 @@ def _sync(torch, device):
 PROCESS_CHECK_RECORDS = 1_000_000
 
 
-def process_job(torch, device: str = "cuda", shape=None) -> dict:
+def process_job(torch, device: str = "cuda", shape=None,
+                records: int = 2_000_000) -> dict:
     """19(a): the CountWithTimeout job (benchmarks/process_timeout.py) at
-    its full shape on the card, the same job on the CPU and the async
-    variant on the card: rows equal in emission order, and equal to the
-    NumPy oracle; the two device states on the card."""
+    its shape on the card — ``records`` cut from its 4M when phase 25 came
+    (the script's time) —, the same job on the CPU and the async variant
+    on the card: rows equal in emission order, and equal to the NumPy
+    oracle; the two device states on the card."""
     from flink_tpu_torch.benchmarks import process_timeout as pt
 
-    shape = shape or {k: pt.SHAPE[k] for k in ("records", "keys", "batch")}
+    shape = shape or {"records": records,
+                      **{k: pt.SHAPE[k] for k in ("keys", "batch")}}
     # the async and CPU comparison runs take the first 1M records
     cut = {**shape, "records": min(shape["records"], PROCESS_CHECK_RECORDS)}
     reset_counts()
@@ -5658,7 +5718,8 @@ def phase_slice21(torch, device: str = "cuda", savepoint: str = None,
             "sql": {"events": 300_000}, "lookup": {"bids": 400_000,
                                                    "batch": 1 << 14},
             "ml": {"records": 100_000}, "v2": {"records": 100_000}}
-           if small else {**{k: {} for k in ("over", "sql", "ml", "v2")},
+           if small else {"over": {"timed": 10},
+                          **{k: {} for k in ("sql", "ml", "v2")},
                           # cut from 2M when phase 24 came (the script's
                           # time): 15 batches, the failure past 9
                           "lookup": {"bids": 1_000_000, "batch": 1 << 16}})
@@ -5703,7 +5764,7 @@ class _FailAfter:
     """A stateless map that raises once ``n`` records went through it and
     ``root`` holds checkpoint 2 (22(c)'s crash, after checkpoint 2 however
     the checkpoints' trigger falls); past ``n`` records it holds each
-    batch 0.2 s until then, so that the coordinator's barriers overtake
+    batch 0.5 s until then, so that the coordinator's barriers overtake
     the source. ``seen`` counts the records."""
 
     def __init__(self, n: int, root: str = None):
@@ -5713,7 +5774,7 @@ class _FailAfter:
         if self.seen > self.n:
             if self.root is None or self._checkpoints() >= 2:
                 raise RuntimeError("injected failure (22c)")
-            time.sleep(0.2)
+            time.sleep(0.5)
         self.seen += len(batch)
         return batch
 
@@ -7680,7 +7741,8 @@ def phase_serving(torch, device: str = "cuda", small: bool = False,
                           b["answers"])
         e = serving_engines(torch, tmp, device, mid, sess, batch // 4,
                             small=small)
-        f = serving_hot_cache(b.pop("answers"))
+        rev_answers = b.pop("answers")
+        f = serving_hot_cache(rev_answers)
     out = {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f}
     launches = {"exchange_rank": 0, "ordered_fold": 0}
     for part in (a, b, c, d, e):
@@ -7699,6 +7761,551 @@ def phase_serving(torch, device: str = "cuda", small: bool = False,
     seconds = time.perf_counter() - t_phase
     print(f"phase 24: {seconds:.1f} s; launches {launches}")
     print("serving " + json.dumps(out, default=str))
+    # 24(b)'s answers at its cut (card == CPU): 25(a) reads them
+    return {**out, "launches": launches, "seconds": seconds,
+            "rev_answers": rev_answers, "rev_records": mid}
+
+
+# ------------------------------------------------------------ phase 25
+
+TENANT_QUOTA_ROWS = 1 << 22     # 25(a): above both tenants' resident rows
+#: 25(b)'s records a job, cut from the reference's 400,000: the 16 client
+#: threads GIL-starve the one scheduler thread (400k took 476.7 s on the
+#: card, the card idle); 40,000 is ten batches of 4,096 a job
+ROW6_RECORDS = 40_000
+TENANCY_CLIENTS = 16
+
+
+def _publish_totals() -> dict:
+    """The flight recorder's ``serving.replica_publish`` spans so far
+    (count, total s): every boundary publish of every engine."""
+    from flink_tpu_torch.observe import flight_recorder as flight
+
+    return flight.recorder().kind_totals().get(
+        "serving.replica_publish", {"count": 0, "total_s": 0.0})
+
+
+def replica_step_timing(torch, device: str) -> dict:
+    """The replica's two torch-op steps (``tenancy/replica.py``
+    ``build_replica_steps``) at 25(a)'s Q5 shapes, by CUDA events: the
+    publish (clone each ``[8, 1<<17]`` leaf and copy a delta of 1<<16
+    slots a shard in) and the gather of a 4,096-lane miss batch a shard;
+    the bytes bound beside each (each byte read and written once at
+    3.35 TB/s). Not kernels: the times are for the record."""
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.tenancy.replica import build_replica_steps
+
+    P, cap, D, G = 8, 1 << 17, 1 << 16, 4096
+    pub, gather = build_replica_steps(make_mesh(P, device), ("int32",))
+    rng = np.random.default_rng(25)
+    rep = (torch.zeros((P, cap), dtype=torch.int32, device=device),)
+    live = (torch.from_numpy(rng.integers(0, 99, (P, cap)).astype(np.int32)
+                             ).to(device),)
+    slots = torch.from_numpy(np.stack([
+        rng.choice(cap, D, replace=False) for _ in range(P)])).to(device)
+    gs = torch.from_numpy(rng.integers(0, cap, (P, G))).to(device)
+    out = pub(rep, live, slots)
+    if not torch.equal(out[0].gather(1, slots), live[0].gather(1, slots)) \
+            or not torch.equal(rep[0], torch.zeros_like(rep[0])):
+        raise AssertionError("25: the publish step wrote its input or "
+                             "dropped a delta row")
+    if device != "cuda":
+        return {"publish_ms": None, "gather_ms": None}
+    pub_ms = cuda_ms(lambda: pub(rep, live, slots), 50)
+    gather_ms = cuda_ms(lambda: gather(out, gs), 200)
+    pub_bytes = 2 * P * cap * 4 + P * D * (8 + 4 + 4)
+    gather_bytes = P * G * (8 + 4 + 4)
+    return {"publish_ms": pub_ms,
+            "publish_bound_ms": pub_bytes / HBM_BYTES_PER_S * 1e3,
+            "gather_ms": gather_ms,
+            "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _tenant_jobs(device, tmp, tag, q5_records, rev_records, batch):
+    """25(a)'s two tenants with held ends of stream: phase 5's Q5 and
+    phase 6's Q5-revenue at P=8, ``serving.replica`` on."""
+    rep = {"serving.replica": True}
+    hq, hr = os.path.join(tmp, f"{tag}-q5"), os.path.join(tmp, f"{tag}-rev")
+    env_q5, sink_q5 = _held_q5_env(device, hq, q5_records, batch, rep)
+    env_rev, sink_rev = _held_revenue_env(
+        device, hr, rev_records, batch // 2,
+        {"parallelism.default": 8, **rep})
+    return {"q5": (env_q5, sink_q5, hq, Q5_OP, q5_records),
+            "rev": (env_rev, sink_rev, hr, REV_OP, rev_records)}
+
+
+def _cluster_in_thread(cluster):
+    import threading
+
+    out = {}
+
+    def run():
+        c0 = time.thread_time()
+        try:
+            out["results"] = cluster.run(timeout_s=900)
+        except BaseException as e:  # noqa: BLE001 - raised by the caller
+            out["error"] = e
+        finally:
+            # the scheduler thread's CPU time: the rest of its wall it
+            # waited (the GIL, with clients)
+            out["scheduler_cpu_s"] = time.thread_time() - c0
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def tenancy_pair(torch, cluster, device, tmp, tag, q5_records, rev_records,
+                 batch, clients: int, full: bool = True) -> dict:
+    """One run of 25(a)'s two tenants on ``cluster``: ``clients`` threads
+    issue ``lookup_batch_packed`` of 256 auctions (2 ms pause) until the
+    cut; at the cut every auction's replica answer and the live engine's
+    (``StateQueryBatchRequest`` on the job's control queue) are taken
+    (``full=False``: a twelfth of the auctions, through the serving
+    plane); then the holds are released and the jobs finish."""
+    import threading
+
+    from flink_tpu_torch.benchmarks.held import release
+    from flink_tpu_torch.metrics.core import quantile_sorted
+    from flink_tpu_torch.tenancy.quotas import TenantQuota
+
+    jobs = _tenant_jobs(device, tmp, tag, q5_records, rev_records, batch)
+    for name, (env, _, _, _, _) in jobs.items():
+        cluster.submit(env, f"{tag}-{name}",
+                       quota=TenantQuota(max_resident_rows=TENANT_QUOTA_ROWS))
+    names = [f"{tag}-{n}" for n in jobs]
+    ops = {f"{tag}-{n}": jobs[n][3] for n in jobs}
+    stop = threading.Event()
+    errors, lat, gens = [], [], [0]
+    # replica staleness per tenant, sampled only while it ingests: from
+    # the start to its cut (a source holding its end of stream for the
+    # other tenant's cut is idle, not lagging)
+    stale = {n: [] for n in jobs}
+    ingesting = set(jobs)
+
+    def client(i):
+        rng = np.random.default_rng(SERVE_SEED + i)
+        while not stop.is_set():
+            job = names[i % 2]
+            try:
+                t0 = time.perf_counter()
+                cluster.lookup_batch_packed(
+                    job, ops[job], rng.integers(0, AUCTIONS, 256).tolist())
+                lat.append((time.perf_counter() - t0) * 1e3)
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+                return
+            time.sleep(0.002)
+
+    def sampler():
+        while not stop.is_set():
+            gens[0] = max(gens[0], cluster.serving.replica_generations())
+            for n in list(ingesting):
+                ad = cluster.serving._replicas.get((f"{tag}-{n}", ops[
+                    f"{tag}-{n}"]))
+                if ad is not None and ad.ready():
+                    stale[n].append(ad.plane.staleness_ms())
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    threads.append(threading.Thread(target=sampler, daemon=True))
+    pub0 = _publish_totals()
+    reset_counts()
+    t0 = time.perf_counter()
+    th, out = _cluster_in_thread(cluster)
+    for t in threads:
+        t.start()
+    ingest_s, replica, live = {}, {}, {}
+    try:
+        # each tenant's cut as soon as its source holds (the other keeps
+        # its quanta meanwhile): ingest time = start to settled cut
+        pending = dict(jobs)
+        while pending:
+            for name in list(pending):
+                hold, op = pending[name][2], pending[name][3]
+                if not os.path.exists(os.path.join(hold, "held")):
+                    continue
+                ingesting.discard(name)
+                _cut(cluster.jobs[f"{tag}-{name}"].control, op,
+                     list(range(64)))
+                ingest_s[name] = time.perf_counter() - t0
+                del pending[name]
+            if not th.is_alive():
+                raise out.get("error") or AssertionError(
+                    f"25(a) {tag}: the cluster ended before the cut")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"25(a) {tag}: no cut in 600 s")
+            time.sleep(0.005)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        clients_s = time.perf_counter() - t0
+        lookups = cluster.serving.lookups_total()
+        hit_rate = cluster.serving.hot_row_hit_rate()
+        keys = list(range(AUCTIONS))
+        plane_keys = keys[::12]
+        for name, (_, _, hold, op, _) in jobs.items():
+            job = f"{tag}-{name}"
+            # every auction off the sealed generation (the bound adapter:
+            # one gather and one copy back a batch), then a twelfth of
+            # them through the serving plane (hot cache and workers)
+            if full:
+                ad = cluster.serving._replicas[(job, op)]
+                t1 = time.perf_counter()
+                rep = []
+                for i in range(0, AUCTIONS, 1 << 15):
+                    rep.extend(ad.lookup_batch(keys[i:i + (1 << 15)])[0])
+                replica[name] = rep
+                replica[name + "_s"] = time.perf_counter() - t1
+            replica[name + "_plane"] = (
+                plane_keys, cluster.lookup_batch(job, op, plane_keys))
+            live[name] = dict(zip(
+                keys if full else plane_keys,
+                _query_all(cluster.jobs[job].control, op,
+                           keys if full else plane_keys)))
+    finally:
+        stop.set()
+        for _, _, hold, _, _ in jobs.values():
+            release(hold)
+        th.join(timeout=600)
+    _sync(torch, device)
+    counts = read_counts()
+    if "error" in out:
+        raise out["error"]
+    if errors:
+        raise AssertionError(f"25(a) {tag}: a client failed: {errors[0]!r}")
+    for job, res in out["results"].items():
+        if isinstance(res, BaseException):
+            raise AssertionError(f"25(a) {job} failed: {res!r}")
+    lat.sort()
+    for s in stale.values():
+        s.sort()
+    pub1 = _publish_totals()
+    publishes = pub1["count"] - pub0["count"]
+    return {"publishes": publishes,
+            "scheduler_cpu_s": out.get("scheduler_cpu_s"),
+            "scheduler_wall_s": time.perf_counter() - t0,
+            "publish_ms_mean": ((pub1["total_s"] - pub0["total_s"]) * 1e3
+                                / publishes if publishes else 0.0),
+            "jobs": jobs, "ingest_s": ingest_s, "replica": replica,
+            "live": live, "counts": counts, "lookups": lookups,
+            "clients_s": clients_s, "hit_rate": hit_rate,
+            "generations": gens[0],
+            "p50_ms": quantile_sorted(lat, 0.5) if lat else 0.0,
+            "p99_ms": quantile_sorted(lat, 0.99) if lat else 0.0,
+            "staleness_p99_ms": {n: (quantile_sorted(s, 0.99) if s
+                                     else 0.0) for n, s in stale.items()},
+            "staleness_samples": {n: len(s) for n, s in stale.items()},
+            "violations": {j: cluster.jobs[j].ledger.quota_violations
+                           for j in names}}
+
+
+def tenancy_slice(torch, tmp: str, device: str, q5_records: int,
+                  rev_records: int, batch: int, prior=None) -> dict:
+    """25(a): the slice at full width (see the module doc). ``prior``:
+    phase 24's results (24(a)'s legacy-path p99 and 24(b)'s card == CPU
+    answers at the same 2M-bid cut), else the CPU answers are made here."""
+    from flink_tpu_torch.tenancy.program_cache import PROGRAM_CACHE
+    from flink_tpu_torch.tenancy.session_cluster import SessionCluster
+
+    cluster = SessionCluster(serving_workers=2)
+    served = tenancy_pair(torch, cluster, device, tmp, "a", q5_records,
+                          rev_records, batch, TENANCY_CLIENTS)
+    # the second pair: fresh jobs on the warm cluster, no clients
+    PROGRAM_CACHE.reset_stats()
+    quiet = tenancy_pair(torch, cluster, device, tmp, "w", q5_records,
+                         rev_records, batch, 0, full=False)
+    warm = {j: PROGRAM_CACHE.stats_for(j) for j in ("w-q5", "w-rev")}
+    misses = {j: s["misses"] for j, s in warm.items()}
+    if any(misses.values()) or not all(s["hits"] for s in warm.values()):
+        # hits > 0 too: a job whose builds escaped its job_scope would
+        # read zeros and pass the miss gate vacuously
+        raise AssertionError(f"25(a): program cache on the warm cluster "
+                             f"{warm} (want 0 misses and a hit a job)")
+    if served["generations"] < 2:
+        raise AssertionError(f"25(a): replica generations "
+                             f"{served['generations']} < 2")
+    if served["hit_rate"] <= 0.0:
+        raise AssertionError("25(a): the hot-row cache served no hit")
+    for run in (served, quiet):
+        if any(run["violations"].values()):
+            raise AssertionError(f"25(a): quota violations "
+                                 f"{run['violations']}")
+    # the CPU port at the same cut
+    if prior is not None and prior.get("rev_records") == rev_records:
+        # 24(b)'s answers at the same cut, equal on the card and the CPU
+        cpu_rev = prior["rev_answers"]
+    else:
+        cpu_rev, _, _, _, _ = _revenue_at_cut(
+            torch, tmp, "a-cpu", "cpu", rev_records, batch // 2,
+            {"parallelism.default": 8}, list(range(AUCTIONS)))
+    cpu_q5 = live_windows_oracle(q5_records, "count")
+    compared = 0
+    keys = list(range(AUCTIONS))
+    for n, cpu in (("q5", cpu_q5), ("rev", cpu_rev)):
+        rep = served["replica"][n]
+        compared += _answers_equal(rep, [served["live"][n][k] for k in keys],
+                                   f"25(a) {n} replica vs live")
+        compared += _answers_equal(rep, cpu, f"25(a) {n} replica vs the "
+                                   "CPU port")
+    for run, label in ((served, "with clients"), (quiet, "without")):
+        for n, cpu in (("q5", cpu_q5), ("rev", cpu_rev)):
+            ks, got = run["replica"][n + "_plane"]
+            want = [run["live"][n][k] for k in ks]
+            compared += _answers_equal(
+                got, want, f"25(a) {n} through the serving plane vs live, "
+                f"{label}")
+            compared += _answers_equal(
+                want, [cpu[k] for k in ks],
+                f"25(a) {n} live vs the CPU port, {label}")
+        _stage_check_q5(run["jobs"]["q5"][1], q5_records,
+                        f"25(a) Q5 sink, {label}")
+        want, cnt = revenue_oracle_cached(rev_records)
+        check_revenue_rows(run["jobs"]["rev"][1].result(), want, cnt,
+                           f"25(a) revenue sink, {label}")
+        if device == "cuda" and (run["counts"]["exchange_rank"] <= 0
+                                 or run["counts"]["ordered_fold"] <= 0):
+            raise AssertionError(f"25(a) {label}: launches {run['counts']}")
+    legacy_p99 = None
+    if prior is not None and "a" in prior:
+        legacy_p99 = prior["a"].get("lookup_p99_ms")
+    out = {
+        "q5_records": q5_records, "rev_records": rev_records,
+        "clients": TENANCY_CLIENTS,
+        "events_per_s": {n: served["jobs"][n][4] / served["ingest_s"][n]
+                         for n in ("q5", "rev")},
+        "events_per_s_without_clients": {
+            n: quiet["jobs"][n][4] / quiet["ingest_s"][n]
+            for n in ("q5", "rev")},
+        "lookups": served["lookups"],
+        "lookups_per_s": served["lookups"] / served["clients_s"],
+        "lookup_p50_ms": served["p50_ms"],
+        "lookup_p99_ms": served["p99_ms"],
+        "legacy_p99_ms_24a": legacy_p99,
+        "staleness_p99_ms": served["staleness_p99_ms"],
+        "hot_row_hit_rate": served["hit_rate"],
+        "generations": served["generations"],
+        "cache_warm": warm,
+        "staleness_samples": served["staleness_samples"],
+        "replica_read_s": {n: served["replica"][n + "_s"]
+                           for n in ("q5", "rev")},
+        "serving_plane_keys": len(served["replica"]["q5_plane"][0]),
+        "values_compared": compared,
+        "publishes": {"with_clients": served["publishes"],
+                      "without": quiet["publishes"]},
+        "scheduler_cpu_wall_s": {
+            "with_clients": (served["scheduler_cpu_s"],
+                             served["scheduler_wall_s"]),
+            "without": (quiet["scheduler_cpu_s"],
+                        quiet["scheduler_wall_s"])},
+        "publish_ms_mean": {"with_clients": served["publish_ms_mean"],
+                            "without": quiet["publish_ms_mean"]},
+        "steps": replica_step_timing(torch, device),
+        "launches": {k: served["counts"][k] + quiet["counts"][k]
+                     for k in served["counts"]},
+    }
+    print(f"phase 25(a): Q5 ({q5_records} bids) and Q5-revenue "
+          f"({rev_records} bids) at P=8 on one SessionCluster with "
+          f"{TENANCY_CLIENTS} clients: events/s {out['events_per_s']} "
+          f"(without clients {out['events_per_s_without_clients']}); "
+          f"{served['lookups']} lookups at {out['lookups_per_s']:.0f}/s, "
+          f"p50 {served['p50_ms']:.3f} ms p99 {served['p99_ms']:.3f} ms "
+          f"(24(a)'s legacy path p99 {legacy_p99} ms, for the record), "
+          f"replica staleness p99 while ingesting "
+          f"{served['staleness_p99_ms']} ms, "
+          f"{served['generations']} generations, hit rate "
+          f"{served['hit_rate']:.4f}; every auction's replica answer at "
+          f"the cut equals the live engine and the CPU port ({compared} "
+          f"values); sinks equal the oracles; program cache on the warm "
+          f"cluster {warm}; {out['publishes']} boundary publishes, "
+          f"{out['publish_ms_mean']} ms each on average; the scheduler "
+          f"thread's CPU and wall s {out['scheduler_cpu_wall_s']}; "
+          f"replica steps "
+          f"{out['steps']}; launches {out['launches']}")
+    return out
+
+
+def _sorted_rows(rows):
+    return sorted(rows, key=lambda r: (r.get("key"), r.get("window_end")))
+
+
+def tenancy_row6(torch, device: str, records: int = ROW6_RECORDS) -> dict:
+    """25(b): BASELINE row 6 at the reference's settings
+    (``flink_tpu_torch/benchmarks/serving.py``); the measured jobs' sinks
+    equal the same jobs on the CPU bit for bit."""
+    from flink_tpu_torch.benchmarks import serving
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.tenancy.session_cluster import SessionCluster
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = serving.row6(device, records=records, clients=TENANCY_CLIENTS)
+    wall = time.perf_counter() - t0
+    _sync(torch, device)
+    counts = read_counts()
+    if r["failures"]:
+        raise AssertionError(f"25(b): {r['failures']}")
+    cpu = SessionCluster()
+    sinks = {j: CollectSink() for j in ("job-2", "job-3")}
+    for j, s in sinks.items():
+        cpu.submit(serving.pipeline(s, "cpu", records), j)
+    cpu.run(timeout_s=600)
+    compared = 0
+    for j, s in sinks.items():
+        compared += _answers_equal(_sorted_rows(r["rows"][j]),
+                                   _sorted_rows(s.rows()),
+                                   f"25(b) {j} card vs CPU")
+    if device == "cuda" and (counts["exchange_rank"] <= 0
+                             or counts["ordered_fold"] <= 0):
+        raise AssertionError(f"25(b): launches {counts}")
+    r.pop("rows")
+    out = {**r, "wall_s": wall, "values_compared": compared,
+           "launches": counts}
+    print(f"phase 25(b): BASELINE row 6 ({records} records a job, "
+          f"{TENANCY_CLIENTS} clients x 256 keys, 2 ms pause): "
+          f"{r['lookups_per_s']:.0f} lookups/s (the reference's floor "
+          f"{serving.REF_MIN_LOOKUPS_PER_S:.0f}, set on other hardware), "
+          f"call p50 {r['call_p50_ms']:.3f} ms p99 {r['call_p99_ms']:.3f} "
+          f"ms (the reference's budget {serving.REF_P99_BUDGET_MS} ms), "
+          f"staleness p99 {r['staleness_p99_ms']:.1f} ms, hit rate "
+          f"{r['hot_row_hit_rate']:.4f}, {r['replica_generations']} "
+          f"generations, program-cache misses {r['program_cache_misses']}, "
+          f"the scheduler thread {r['scheduler_cpu_s']:.2f} s CPU of "
+          f"{r['elapsed_s']:.2f} s; "
+          f"sinks equal the CPU bit for bit ({compared} values) in "
+          f"{wall:.1f} s; launches {counts}")
+    return out
+
+
+def tenancy_row9(tmp: str) -> dict:
+    """25(c): BASELINE row 9 (``flink_tpu_torch/benchmarks/serving_mp.py``):
+    2 frontend processes, 4,096 keys, 256-key batches, 2,000 batches
+    each, priming every 25 ms."""
+    from flink_tpu_torch.benchmarks import serving_mp
+
+    t0 = time.perf_counter()
+    r = serving_mp.row9(frontends=2, keys=4096, batch=256, batches=2000,
+                        prime_interval_ms=25.0, root=tmp)
+    if r["failures"]:
+        raise AssertionError(f"25(c): {r['failures']}")
+    print(f"phase 25(c): BASELINE row 9: 2 frontends "
+          f"{r['lookups_per_s']:.0f} lookups/s aggregate, one frontend "
+          f"{r['one_frontend_lookups_per_s']:.0f}/s, the owner's one-process "
+          f"loop {r['single_proc_lookups_per_s']:.0f}/s; hit rate "
+          f"{r['hit_rate']:.4f}, {r['torn_retries']} torn retries, "
+          f"{r['torn_surfaced']} surfaced, parity mismatches "
+          f"{r['parity_mismatches']}, {r['generations']} generations, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {**r, "launches": {"exchange_rank": 0, "ordered_fold": 0}}
+
+
+def tenancy_chaos(torch, tmp: str, device: str, steps: int = 16,
+                  per_step: int = 1 << 16, keys: int = 20_000) -> dict:
+    """25(d): ``run_crash_restore_verify_multi`` with two mesh window jobs
+    at P=8 (tumbling 2 s float32 Sum) serving 256 keys after every step;
+    job a crashes at its 5th serving burst (a non-recoverable
+    ``serving.lookup`` fault, mid-burst) and restores from its own
+    checkpoints; job b is never restored."""
+    from flink_tpu_torch.chaos import harness
+    from flink_tpu_torch.chaos.injection import FaultPlan, FaultRule
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.windowing.windower import SliceSharedWindower
+
+    def stream(seed):
+        rng = np.random.default_rng(seed)
+        out, t = [], 0
+        for _ in range(steps):
+            k = rng.integers(0, keys, per_step).astype(np.int64)
+            v = rng.random(per_step).astype(np.float32)
+            ts = t + np.sort(rng.integers(0, 1000, per_step))
+            t += 1000
+            out.append((k, v, ts, t - 1500))
+        return out
+
+    mesh = make_mesh(8, device)
+    asg = TumblingEventTimeWindows.of(2000)
+    oracle_counts = {}
+
+    def mk_engine():
+        if not oracle_counts:
+            oracle_counts.update(read_counts())
+            reset_counts()
+        return MeshWindowEngine(asg, SumAggregate("v"), mesh,
+                                capacity_per_shard=1 << 14)
+
+    def mk_oracle():
+        return SliceSharedWindower(asg, SumAggregate("v"), capacity=1 << 17,
+                                   spill={"device": "cpu"})
+
+    plan = FaultPlan(rules=[FaultRule(pattern="serving.lookup", nth=5,
+                                      where={"job": "a"})])
+    serve = np.random.default_rng(SERVE_SEED).integers(0, keys, 256)
+    reset_counts()
+    t0 = time.perf_counter()
+    reports = harness.run_crash_restore_verify_multi(
+        make_engines={"a": mk_engine, "b": mk_engine},
+        make_oracles={"a": mk_oracle, "b": mk_oracle},
+        steps_by_job={"a": stream(1), "b": stream(2)}, plan=plan, seed=25,
+        ckpt_root=os.path.join(tmp, "d-chaos"), checkpoint_every=2,
+        serve_keys={"a": serve.tolist(), "b": serve.tolist()},
+        rel_tol=0.0, abs_tol=0.0)
+    wall = time.perf_counter() - t0
+    _sync(torch, device)
+    counts = read_counts()
+    ra, rb = reports["a"], reports["b"]
+    if ra.crashes != 1 or ra.restores < 1 or rb.crashes or rb.restores:
+        raise AssertionError(f"25(d): a {ra.signature()}, b "
+                             f"{rb.signature()}")
+    if ra.diverged or rb.diverged:
+        raise AssertionError("25(d): committed output diverged")
+    if device == "cuda" and (counts["exchange_rank"] <= 0
+                             or counts["ordered_fold"] <= 0):
+        raise AssertionError(f"25(d): launches {counts}")
+    out = {"steps": steps, "records_per_job": steps * per_step,
+           "a": ra.signature(), "b": rb.signature(),
+           "windows": {"a": ra.windows, "b": rb.windows},
+           "restore_ms": ra.restore_ms, "wall_s": wall, "launches": counts}
+    print(f"phase 25(d): two mesh window jobs at P=8, {steps} steps of "
+          f"{per_step} records each; job a crashed mid-serving-burst and "
+          f"restored ({ra.restores} restore, {ra.restore_ms} ms), job b "
+          f"never restored; committed windows equal each job's fault-free "
+          f"oracle ({ra.windows} and {rb.windows}); {wall:.1f} s; "
+          f"launches {counts}")
+    return out
+
+
+def phase_tenancy(torch, device: str = "cuda", small: bool = False,
+                  prior=None) -> dict:
+    """Phase 25: multi-tenancy (see the module doc). ``device="cpu",
+    small=True`` rehearses it at a cut size without a card; ``prior``:
+    phase 24's results."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    q5, rev, row6 = ((10_000_000, 2_000_000, ROW6_RECORDS) if not small
+                     else (600_000, 300_000, 20_000))
+    batch = (1 << 20) if not small else (1 << 16)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        tmp = os.path.abspath(tmp)
+        a = tenancy_slice(torch, tmp, device, q5, rev, batch, prior)
+        b = tenancy_row6(torch, device, row6)
+        c = tenancy_row9(tmp)
+        d = tenancy_chaos(torch, tmp, device,
+                          per_step=(1 << 16) if not small else (1 << 12))
+    out = {"a": a, "b": b, "c": c, "d": d}
+    launches = {"exchange_rank": 0, "ordered_fold": 0}
+    for part in (a, b, c, d):
+        for k in launches:
+            launches[k] += part["launches"][k]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 25: {seconds:.1f} s; launches {launches}")
+    print("tenancy " + json.dumps(out, default=str))
     return {**out, "launches": launches, "seconds": seconds}
 
 
@@ -7708,8 +8315,9 @@ def main() -> int:
                     help="Q5 records (40M: the size of bench.py's run)")
     ap.add_argument("--revenue-records", type=int, default=10_000_000,
                     help="Q5-revenue records")
-    ap.add_argument("--session-records", type=int, default=12_000_000,
-                    help="BASELINE row 5 session records (12M: its size)")
+    ap.add_argument("--session-records", type=int, default=8_000_000,
+                    help="BASELINE row 5 session records (8M, cut from "
+                    "its 12M to keep the script's time)")
     ap.add_argument("--join-records", type=int, default=2_000_000,
                     help="records of each join shape of phase 15 (2M, "
                     "cut from tools/bench_joins.py's 4M to keep the "
@@ -7772,10 +8380,11 @@ def main() -> int:
     stage = phase_stage(torch)
     cluster = phase_cluster(torch)
     serving = phase_serving(torch, mc_reads=cluster["a"].pop("queries"))
+    tenancy = phase_tenancy(torch, prior=serving)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
             *slice11.values(), shard_loss, process, sql, slice21, stage,
-            cluster, serving)
+            cluster, serving, tenancy)
 
     kernels = [{
         "name": "exchange_rank",

@@ -40,8 +40,11 @@ Shard-granular units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
 the mesh window engines. Not ported, each raising
 ``NotImplementedError`` naming its ROADMAP item: ``shuffle_mode="host"``
-on the device backend (item 12h), the matched-pattern replica
-(``arm_match_replica``, 12f) and live ``reshard`` (12g). The ``cep``
+on the device backend (item 12h) and live ``reshard`` (12g). The
+matched-pattern read replica (``arm_match_replica``) publishes the match
+store's churn at every fire: :class:`CepMatchReplicaAdapter` composes the
+live ``query_match_batch`` shape, :class:`CepMatchServingAdapter` the
+``{rid -> columns}`` shape the shared-memory hot cache packs. The ``cep``
 metric group registers (``register_metrics``), and each ingest and fire
 is a flight-recorder span; the port's profile also wraps the engine's
 methods in host timers
@@ -262,6 +265,12 @@ class MeshCepEngine(WatchdogHooks):
         self._pend_width = pad_bucket_size(1, minimum=1024)
         self._pend = self._zeros(self._pend_width, 2)
         self._match_planes = self._zeros(self.match_capacity, 3)
+        # the matched-pattern read replica (arm_match_replica): the slots
+        # stored and the rows overwritten since the last publish
+        self._match_replica = None
+        self._rep_full = False
+        self._rep_up: List[set] = [set() for _ in range(self.P)]
+        self._rep_freed: List[list] = [[] for _ in range(self.P)]
         self._schema: Optional[List[Tuple[str, np.dtype]]] = None
         self._next_seq = 1
         self._next_rid = 1
@@ -328,9 +337,6 @@ class MeshCepEngine(WatchdogHooks):
         return total
 
     # -------------------------------------------------------- not ported
-
-    def arm_match_replica(self, serving: bool = False):
-        raise _not_ported("the matched-pattern read replica", "12f")
 
     def reshard(self, new_shards: int, devices=None):
         raise _not_ported("live reshard", "12g")
@@ -663,6 +669,8 @@ class MeshCepEngine(WatchdogHooks):
                 continue
             self._key_values.pop(k, None)
         self.matches_emitted += len(out_rows)
+        if self._match_replica is not None:
+            self._publish_matches(wm)
         if not out_rows:
             return []
         return [RecordBatch.from_rows(out_rows).with_timestamps(out_ts)]
@@ -887,6 +895,9 @@ class MeshCepEngine(WatchdogHooks):
         M = self.match_capacity
         slot = 1 + (sh.m_count % (M - 1))
         sh.m_count += 1
+        if sh.m_used[slot] and self._match_replica is not None:
+            self._rep_freed[p].append(
+                (int(sh.m_key[slot]), int(sh.m_rid[slot])))
         rid = self._next_rid
         self._next_rid += 1
         sh.m_used[slot] = True
@@ -901,6 +912,8 @@ class MeshCepEngine(WatchdogHooks):
         # wrap within one fire; a duplicate scatter index would be
         # order-undefined on the device)
         store_rows.setdefault(p, {})[slot] = (depth, fseq, lseq)
+        if self._match_replica is not None:
+            self._rep_up[p].add(slot)
 
     def _put_matches(self, store_rows: Dict[int, dict]) -> None:
         B = sticky_bucket(max(len(r) for r in store_rows.values()),
@@ -916,6 +929,69 @@ class MeshCepEngine(WatchdogHooks):
                     val_bs[i][p, j] = vals[i]
         put = [self._to_device(a) for a in (slot_b, *val_bs)]
         kernels.cep_put(self._match_planes, put[0], put[1:])
+
+    def arm_match_replica(self, serving: bool = False):
+        """Arm the matched-pattern read replica: completed matches
+        become queryable state on the serving path — the replica plane
+        double-buffers the match planes and seals a generation per
+        boundary publish. Returns a :class:`CepMatchReplicaAdapter`
+        (bindable to a ServingPlane like any other adapter), or — with
+        ``serving=True`` — a :class:`CepMatchServingAdapter`, whose
+        composed results pack into the native shm hot cache so frontend
+        processes serve match lookups without crossing to the owner."""
+        if self.backend != "device":
+            raise RuntimeError(
+                "the matched-pattern replica rides the device match "
+                "planes; the host oracle serves reads directly")
+        from flink_tpu_torch.tenancy.replica import ReplicaPlane
+
+        class _Leaf:
+            def __init__(self, dtype):
+                self.dtype = dtype
+                self.identity = np.dtype(dtype).type(0)
+
+        plane = ReplicaPlane(self.mesh, [_Leaf(np.int32)] * 3,
+                             self.match_capacity)
+        self._match_replica = plane
+        self._rep_full = True
+        self._rep_up = [set() for _ in range(self.P)]
+        self._rep_freed = [[] for _ in range(self.P)]
+        cls = CepMatchServingAdapter if serving else \
+            CepMatchReplicaAdapter
+        return cls(plane)
+
+    def _publish_matches(self, watermark: int) -> None:
+        rep = self._match_replica
+        with flight.span("serving.replica_publish",
+                         watermark=int(watermark)):
+            if rep.needs_rebuild(self.P, self.match_capacity):
+                rep.rebuild(self.mesh, self.match_capacity)
+                self._rep_full = True
+            per_shard = {}
+            for p, sh in enumerate(self._st):
+                if self._rep_full:
+                    up = np.nonzero(sh.m_used)[0].astype(np.int32)
+                else:
+                    up = np.asarray(sorted(self._rep_up[p]),
+                                    dtype=np.int32)
+                extra = ([(int(sh.m_start[s]), int(sh.m_end[s]))
+                          for s in up.tolist()]
+                         if len(up) else None)
+                freed = list(self._rep_freed[p])
+                per_shard[p] = {
+                    "resident": (sh.m_used, sh.m_key, sh.m_rid),
+                    "up_slots": up,
+                    "up_keys": sh.m_key[up].copy(),
+                    "up_ns": sh.m_rid[up].copy(),
+                    "up_extra": extra,
+                    "cold": [],
+                    "freed": freed,
+                    "fresh": bool(len(up) or freed),
+                }
+            rep.publish(self._match_planes, per_shard, int(watermark))
+            self._rep_full = False
+            self._rep_up = [set() for _ in range(self.P)]
+            self._rep_freed = [[] for _ in range(self.P)]
 
     def query_match_batch(self, key_ids) -> List[List[dict]]:
         """LIVE point lookup against the match store: per requested key,
@@ -1352,6 +1428,11 @@ class MeshCepEngine(WatchdogHooks):
         for name, v in sc.items():
             if hasattr(pm, name):
                 setattr(pm, name, getattr(pm, name) + int(v))
+        if self._match_replica is not None:
+            # restored matches bypass the store hooks: republish them all
+            self._rep_full = True
+            self._rep_up = [set() for _ in range(self.P)]
+            self._rep_freed = [[] for _ in range(self.P)]
 
     # ---------------------------------------------- shard-granular units
 
@@ -1472,3 +1553,103 @@ def _norm(x):
     if isinstance(x, (list, tuple)):
         return tuple(_norm(i) for i in x)
     return x
+
+
+from flink_tpu_torch.tenancy.replica import ReplicaAdapter  # noqa: E402
+
+
+class CepMatchReplicaAdapter(ReplicaAdapter):
+    """Replica-plane view of the matched-pattern store: an index entry
+    is ``key -> {rid -> (shard, slot, (start_ts, end_ts))}``, a key's
+    result is the live ``query_match_batch`` shape — matches sorted by
+    (end_ts, rid). Retained matches are immutable (the FIFO only
+    inserts and overwrites-oldest), so the boundary delta is pure
+    identity churn, like the join side tables."""
+
+    def __init__(self, plane):
+        super().__init__(plane, None)
+
+    def compose(self, entries, vals, cold_entries, cold_result
+                ) -> list:
+        rows: List[dict] = []
+        for rid, j, extra in entries:
+            start, end = extra
+            rows.append({
+                "rid": int(rid),
+                "start_ts": int(start),
+                "end_ts": int(end),
+                "depth": int(np.asarray(vals[j][0]).item()),
+                "first_seq": int(np.asarray(vals[j][1]).item()),
+                "last_seq": int(np.asarray(vals[j][2]).item()),
+            })
+        rows.sort(key=lambda d: (d["end_ts"], d["rid"]))
+        return rows
+
+
+class CepMatchServingAdapter(CepMatchReplicaAdapter):
+    """The ServingPlane/frontend-tier variant: composes each key's
+    matches as ``{rid -> {start_ts, end_ts, depth, first_seq,
+    last_seq}}`` — the ``{int namespace -> {column -> int}}`` shape the
+    native hot cache packs into its shm arenas, so FRONTEND processes
+    serve match lookups straight off the shared table (the list shape
+    the base adapter returns rides the owner-side overflow store, which
+    frontends cannot map). :meth:`match_rows` decodes a composed result
+    back to the live ``query_match_batch`` row list, bit-identically.
+
+    The publish feed is KILL-ONLY: retained matches are immutable (the
+    FIFO inserts and overwrites-oldest, never edits), so a boundary's
+    delta for a key is pure identity churn — dropping the key's cached
+    entry (PrimeDelta flags bit1) is both correct and complete, and the
+    base class's value-column finish (which needs an aggregate the
+    match store does not have) never runs."""
+
+    def compose(self, entries, vals, cold_entries, cold_result
+                ) -> dict:
+        out: Dict[int, dict] = {}
+        for rid, j, extra in entries:
+            start, end = extra
+            out[int(rid)] = {
+                "start_ts": int(start),
+                "end_ts": int(end),
+                "depth": int(np.asarray(vals[j][0]).item()),
+                "first_seq": int(np.asarray(vals[j][1]).item()),
+                "last_seq": int(np.asarray(vals[j][2]).item()),
+            }
+        return out
+
+    @staticmethod
+    def match_rows(result) -> List[dict]:
+        """Decode one composed/served result back to the live
+        ``query_match_batch`` shape: rows sorted by (end_ts, rid)."""
+        rows = [{"rid": int(rid),
+                 "start_ts": int(cols["start_ts"]),
+                 "end_ts": int(cols["end_ts"]),
+                 "depth": int(cols["depth"]),
+                 "first_seq": int(cols["first_seq"]),
+                 "last_seq": int(cols["last_seq"])}
+                for rid, cols in (result or {}).items()]
+        rows.sort(key=lambda d: (d["end_ts"], d["rid"]))
+        return rows
+
+    def _on_publish(self, gen: int, per_shard: Dict[int, dict],
+                    harvest, prev_index) -> None:
+        cache = self._cache
+        if cache is None:
+            return
+        from flink_tpu_torch.tenancy.hot_cache import PrimeDelta
+
+        touched: set = set()
+        for d in per_shard.values():
+            touched.update(
+                int(k) for k in np.asarray(d["up_keys"]).tolist())
+            touched.update(int(k) for k, _ns in d["freed"])
+        if not touched:
+            return
+        kids = np.asarray(sorted(touched), dtype=np.int64)
+        zeros = np.zeros(len(kids) + 1, dtype=np.int64)
+        empty = np.zeros(0, dtype=np.int64)
+        cache.prime_batch(
+            self._cache_job, self._cache_op, gen,
+            PrimeDelta(keys=kids, uoff=zeros, u_ns=empty, u_cols=[],
+                       roff=zeros, r_ns=empty,
+                       flags=np.full(len(kids), 2, dtype=np.uint8)))

@@ -23,8 +23,11 @@ failure and recovery is the SHARD (key-group range), not the job.
 on a job metric tree, and each shard failover is a ``failover.replay``
 span in the flight recorder's timeline.
 
-Not carried: ``rebalances=`` and ``run_crash_restore_verify_multi`` (live
-rebalance, ROADMAP Queue A item 12g, and the tenancy schedule, item 12f).
+:func:`run_crash_restore_verify_multi` is the multi-tenant form: N jobs'
+engines advance interleaved, one step each per round, and a crash in one
+job restores THAT job only.
+
+Not carried: ``rebalances=`` (live rebalance, ROADMAP Queue A item 12g).
 """
 
 from __future__ import annotations
@@ -357,6 +360,176 @@ def run_crash_restore_verify(
             f"({len(report.divergences)} differences):\n  "
             + "\n  ".join(report.divergences))
     return report
+
+
+def run_crash_restore_verify_multi(
+    make_engines: Dict[str, Callable[[], Any]],
+    make_oracles: Dict[str, Callable[[], Any]],
+    steps_by_job: Dict[str, Sequence[Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, int]]],
+    plan: FaultPlan,
+    seed: int,
+    ckpt_root: str,
+    checkpoint_every: int = 2,
+    max_crashes: int = 32,
+    serve_keys: Optional[Dict[str, Sequence[int]]] = None,
+    rel_tol: float = 1e-4,
+    abs_tol: float = 1e-3,
+    check: bool = True,
+) -> Dict[str, ChaosReport]:
+    """Multi-tenant form of :func:`run_crash_restore_verify`: N jobs'
+    engines share the process (and the mesh, and the compiled-program
+    cache) and advance INTERLEAVED, one step per job per round — the
+    tenancy session cluster's schedule, collapsed to its essence. Each
+    job checkpoints into its own subdirectory of ``ckpt_root``; a crash
+    in one job's step kills and restores THAT job only, its siblings'
+    engines untouched (independent failure domains — the claim under
+    test). Each job's committed output is diffed against its own
+    fault-free oracle.
+
+    ``serve_keys``: {job -> key ids} — after every step the job serves a
+    batched queryable-state lookup (``engine.query_batch``) through the
+    ``serving.lookup`` fault point with the site-local retry wrapper, so
+    a plan can (a) inject transient serving faults that must retry
+    without corrupting engine state, and (b) crash a job MID-SERVING-
+    BURST and still restore oracle-identical."""
+    from flink_tpu_torch.checkpoint.storage import CheckpointStorage
+
+    if chaos.armed():
+        raise RuntimeError(
+            "run_crash_restore_verify_multi arms its own controller — "
+            "disarm the ambient one first (oracles must run fault-free)")
+    jobs = list(make_engines)
+    reports = {j: ChaosReport() for j in jobs}
+    expected: Dict[str, Dict[_WindowKey, Dict[str, float]]] = {}
+    for j in jobs:
+        reports[j].events = int(sum(len(s[0]) for s in steps_by_job[j]))
+        exp: Dict[_WindowKey, Dict[str, float]] = {}
+        oracle = make_oracles[j]()
+        for keys, vals, ts, wm in steps_by_job[j]:
+            oracle.process_batch(_keyed_batch(keys, vals, ts))
+            _collect(oracle.on_watermark(int(wm)), exp)
+        _collect(oracle.on_watermark(FINAL_WATERMARK), exp)
+        expected[j] = exp
+
+    storages = {j: CheckpointStorage(os.path.join(ckpt_root, j))
+                for j in jobs}
+    committed: Dict[str, Dict[_WindowKey, Dict[str, float]]] = {
+        j: {} for j in jobs}
+    epoch: Dict[str, Dict[_WindowKey, Dict[str, float]]] = {
+        j: {} for j in jobs}
+    state = {j: {"pos": 0, "cid": 0, "restore": False, "done": False}
+             for j in jobs}
+
+    def _serve(job: str, engine) -> None:
+        if not serve_keys or job not in serve_keys:
+            return
+
+        def _lookup():
+            chaos.fault_point("serving.lookup", job=job,
+                              keys=len(serve_keys[job]))
+            return engine.query_batch(
+                np.asarray(serve_keys[job], dtype=np.int64))
+
+        chaos.run_recoverable("serving.lookup", _lookup)
+
+    #: per-job deltas of the controller-global counters, taken around
+    #: each job's step — a plan targeting one tenant must show up in
+    #: THAT job's report only
+    job_faults: Dict[str, Dict[str, int]] = {j: {} for j in jobs}
+    job_hits: Dict[str, Dict[str, int]] = {j: {} for j in jobs}
+    job_retries = {j: 0 for j in jobs}
+    job_recoveries = {j: 0 for j in jobs}
+    with chaos.chaos_active(plan, seed) as ctl:
+        engines = {j: make_engines[j]() for j in jobs}
+        while not all(state[j]["done"] for j in jobs):
+            for j in jobs:
+                st = state[j]
+                if st["done"]:
+                    continue
+                steps = steps_by_job[j]
+                n_steps = len(steps)
+                storage = storages[j]
+                pre_faults = dict(ctl.faults_injected)
+                pre_hits = dict(ctl.points_hit)
+                pre_retries, pre_recoveries = ctl.retries, ctl.recoveries
+                try:
+                    if st["restore"]:
+                        engines[j] = make_engines[j]()
+                        restored = _restore_latest(
+                            storage, os.path.join(ckpt_root, j),
+                            engines[j], reports[j])
+                        if restored is None:
+                            committed[j] = {}
+                            st["pos"] = 0
+                        else:
+                            st["pos"] = restored
+                        st["restore"] = False
+                        continue
+                    pos = st["pos"]
+                    if pos == n_steps:
+                        _collect(engines[j].on_watermark(FINAL_WATERMARK),
+                                 epoch[j])
+                    else:
+                        keys, vals, ts, wm = steps[pos]
+                        engines[j].process_batch(
+                            _keyed_batch(keys, vals, ts))
+                        _collect(engines[j].on_watermark(int(wm)),
+                                 epoch[j])
+                    _serve(j, engines[j])
+                    next_pos = pos + 1
+                    if next_pos % checkpoint_every == 0 \
+                            or next_pos > n_steps:
+                        st["cid"] += 1
+                        storage.write_checkpoint(
+                            st["cid"], j,
+                            {"engine": engines[j].snapshot()},
+                            extra={"source_pos": next_pos})
+                        reports[j].checkpoints_written += 1
+                        committed[j].update(epoch[j])
+                        epoch[j] = {}
+                    st["pos"] = next_pos
+                    if next_pos > n_steps:
+                        st["done"] = True
+                except InjectedFault:
+                    reports[j].crashes += 1
+                    if reports[j].crashes > max_crashes:
+                        raise
+                    epoch[j] = {}
+                    st["restore"] = True
+                finally:
+                    for point, count in ctl.faults_injected.items():
+                        d = count - pre_faults.get(point, 0)
+                        if d:
+                            job_faults[j][point] = \
+                                job_faults[j].get(point, 0) + d
+                    # points_hit attributed per job like the fault
+                    # counters — a global copy claimed other tenants'
+                    # hits in every report
+                    for point, count in ctl.points_hit.items():
+                        d = count - pre_hits.get(point, 0)
+                        if d:
+                            job_hits[j][point] = \
+                                job_hits[j].get(point, 0) + d
+                    job_retries[j] += ctl.retries - pre_retries
+                    job_recoveries[j] += ctl.recoveries - pre_recoveries
+        for j in jobs:
+            reports[j].faults_injected = job_faults[j]
+            reports[j].points_hit = job_hits[j]
+            reports[j].retries = job_retries[j]
+            reports[j].recoveries = job_recoveries[j]
+
+    for j in jobs:
+        reports[j].windows = len(committed[j])
+        reports[j].divergences = _diff(expected[j], committed[j],
+                                       rel_tol, abs_tol)
+        if check and reports[j].divergences:
+            raise ChaosDivergenceError(
+                f"job {j!r}: crash-restore output diverged from its "
+                f"fault-free oracle ({len(reports[j].divergences)} "
+                "differences):\n  "
+                + "\n  ".join(reports[j].divergences))
+    return reports
 
 
 def run_shard_loss_verify(

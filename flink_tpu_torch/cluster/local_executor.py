@@ -74,6 +74,11 @@ aggregates at the registry root. ``memory.device.size`` > 0 makes one
 threads): the loop checks it before every source poll and raises
 ``JobCancelledError``.
 
+``run`` drives :meth:`LocalExecutor.run_stepwise`, a generator that
+yields a :class:`JobHandle` and then the records of each loop iteration:
+the tenancy session cluster (``tenancy/session_cluster.py``) interleaves
+several jobs' generators on one scheduler thread.
+
 Not in this slice: rescale requests and autoscale (ROADMAP.md Queue A
 item 12g), and the ``key_imbalance`` gauge (12g).
 """
@@ -350,6 +355,50 @@ def operator_context(cfg: Configuration, parallelism: int,
         **kwargs)
 
 
+class JobHandle:
+    """Setup artifacts of one stepwise job run — the first value yielded
+    by :meth:`LocalExecutor.run_stepwise`. The tenancy session cluster
+    uses it to bind per-job quotas and read replicas to the stateful
+    operators, register the job's row in the ``tenancy`` metric group,
+    and read the fairness signals (busy time, backlog, resident rows)."""
+
+    def __init__(self, job_name, graph, nodes, registry, traces,
+                 job_group, pumps, sources, watchdog=None):
+        self.job_name = job_name
+        self.graph = graph
+        self.nodes = nodes
+        self.registry = registry
+        self.traces = traces
+        self.job_group = job_group
+        self.pumps = pumps
+        self.sources = sources
+        #: the job's DeviceWatchdog when watchdog.enabled (None otherwise)
+        self.watchdog = watchdog
+
+    def stateful_operators(self):
+        """Operators owning keyed device state (``spill_counters`` is the
+        capability marker the metric tree already keys on)."""
+        return [n.operator for n in self.nodes.values()
+                if n.operator is not None
+                and hasattr(n.operator, "spill_counters")]
+
+    def busy_ms(self) -> float:
+        """Wall time spent inside this job's operator hooks — the per-job
+        ``busyTimeMsTotal`` the deficit-round-robin scheduler reports."""
+        return sum(n.busy_s for n in self.nodes.values()) * 1000.0
+
+    def backlog_records(self) -> int:
+        """Prefetched-but-unprocessed records in the job's pump queues."""
+        return sum(p.queue.qsize() * p.batch_size
+                   for p in self.pumps.values())
+
+    def resident_rows(self) -> int:
+        """Device-resident state rows across the job's engines."""
+        return sum(sum(op.shard_resident_rows())
+                   for op in self.stateful_operators()
+                   if hasattr(op, "shard_resident_rows"))
+
+
 class LocalExecutor:
     def __init__(self, config: Optional[Configuration] = None):
         self.config = config or Configuration()
@@ -364,7 +413,32 @@ class LocalExecutor:
         snapshot directory; ``cancel_event``: a ``threading.Event`` whose
         setting ends the job with ``JobCancelledError``; ``restore_mode``:
         "no-claim" or "claim"; ``control_queue``: a queue of
-        ``SavepointRequest``s served between source batches."""
+        ``SavepointRequest``s served between source batches. Drives
+        :meth:`run_stepwise` to its end."""
+        gen = self.run_stepwise(graph, job_name, restore_from,
+                                cancel_event, restore_mode, control_queue)
+        try:
+            while True:
+                next(gen)
+        except StopIteration as done:
+            return done.value
+
+    def run_stepwise(self, graph: StreamGraph, job_name: str = "job",
+                     restore_from: Optional[str] = None, cancel_event=None,
+                     restore_mode: str = "no-claim",
+                     control_queue: Optional["queue.Queue"] = None,
+                     cooperative: bool = False):
+        """Generator form of :meth:`run` — the multi-tenant scheduling
+        surface. First yields a :class:`JobHandle` (the tenancy session
+        cluster binds quotas, replicas and gauges through it), then the
+        number of source records processed per loop iteration (the
+        deficit-round-robin accounting unit); the StopIteration value is
+        the JobExecutionResult.
+
+        ``cooperative=True`` skips the idle 1 ms sleep: the hosting
+        scheduler owns pacing, and one starved job must not stall its
+        siblings' quanta. Closing or throwing into the generator runs the
+        same resource-release path an in-loop failure does."""
         from flink_tpu_torch.datastream.environment import JobExecutionResult
 
         cfg = self.config
@@ -518,12 +592,17 @@ class LocalExecutor:
                         if n.operator is not None
                         and getattr(n.operator, "uses_processing_time",
                                     False)]
+            yield JobHandle(job_name=job_name, graph=graph, nodes=nodes,
+                            registry=registry, traces=traces,
+                            job_group=job_group, pumps=pumps,
+                            sources=sources, watchdog=watchdog)
             t0 = time.perf_counter()
             total_records = 0
             savepoint_path = None
             suppress_final_drain = False
             active = {t.uid for t, _ in sources}
             while active:
+                step_records = 0
                 if cancel_event is not None and cancel_event.is_set():
                     raise JobCancelledError(job_name)
                 self._drain_pending(nodes)
@@ -566,6 +645,7 @@ class LocalExecutor:
                     source_positions[t.uid] = pos
                     batches_since_ckpt += 1
                     total_records += len(batch)
+                    step_records += len(batch)
                     tb = time.perf_counter() if debloater else 0.0
                     # this batch IS the latency marker; it dies with the
                     # synchronous push (later drains are not its latency)
@@ -588,7 +668,8 @@ class LocalExecutor:
                             len(batch), time.perf_counter() - tb)
                         for pump in pumps.values():
                             pump.batch_size = batch_size
-                if not progressed and active and not pumps:
+                if not progressed and active and not pumps \
+                        and not cooperative:
                     # an idle source (a socket without data): do not spin
                     time.sleep(0.001)
                 if storage is not None:
@@ -639,6 +720,7 @@ class LocalExecutor:
                         savepoint_path = stopped.result_path
                         suppress_final_drain = not stopped.drain
                         break
+                yield step_records
             self._drain_pending(nodes, wait=True)
             if suppress_final_drain:
                 # a stop without drain: the savepoint holds what is open;

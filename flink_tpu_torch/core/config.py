@@ -340,6 +340,31 @@ class LatencyOptions:
         "results can differ from the full harvest in the last ulp.")
 
 
+class ServingOptions:
+    """The queryable-state read path (``tenancy/serving.py``). The read
+    replica decouples lookups from ingest: mesh engines publish a bounded
+    delta at watermark boundaries into a double-buffered device-resident
+    replica (``tenancy/replica.py``), serving workers resolve misses
+    against the SEALED generation off the task loop, and the host hot-row
+    cache absorbs repeat traffic without touching the device."""
+
+    REPLICA = ConfigOption(
+        "serving.replica", default=True, type=bool,
+        description="Arm the read replica for jobs submitted to a "
+        "tenancy session cluster: mesh engines publish a boundary delta "
+        "per watermark (one device-to-device copy, no device-to-host "
+        "copy) and lookups resolve against the sealed generation. false "
+        "= every lookup takes the control-queue path, served behind the "
+        "owning job's batch boundaries. Plain LocalExecutor runs never "
+        "arm a replica.")
+    PUBLISH_INTERVAL_MS = ConfigOption(
+        "serving.replica.publish-interval-ms", default=0, type=int,
+        description="Minimum milliseconds between replica publishes. 0 "
+        "publishes at every watermark boundary; > 0 batches boundaries "
+        "under one publish (lookup staleness stays <= the interval plus "
+        "one boundary).")
+
+
 class CheckpointOptions:
     INTERVAL_MS = ConfigOption(
         "execution.checkpointing.interval-ms", default=0, type=int,

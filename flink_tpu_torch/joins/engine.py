@@ -24,9 +24,14 @@ budget pressure, one eviction gather.
 emission order, value movement in host arrays; the device backend must
 equal it bit for bit.
 
+Side replicas (``arm_side_replica``, ``tenancy/replica.py``): after every
+watermark's prunes each armed side publishes its identity churn (inserts,
+evictions, prunes — rows never change after insert) into the next sealed
+generation.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-the two-level exchange and ``shuffle_mode="host"`` (item 12h), the side
-replicas (12f) and live ``reshard`` (12g). ``query_side_batch`` reads a
+the two-level exchange and ``shuffle_mode="host"`` (item 12h) and live
+``reshard`` (12g). ``query_side_batch`` reads a
 side's buffered rows per key: resident values through one gather and one
 copy back, cold rows from the page tiers.
 Each ingest and watermark is a flight-recorder span. Shard-granular
@@ -172,9 +177,6 @@ class JoinEngineBase(WatchdogHooks):
 
     def reshard(self, new_shards: int, devices=None):
         raise _not_ported("live reshard", "12g")
-
-    def arm_side_replica(self, side_idx: int):
-        raise _not_ported("the serving read replica", "12f")
 
     # ----------------------------------------------------------- data plane
 
@@ -394,6 +396,149 @@ class JoinEngineBase(WatchdogHooks):
                                 self._to_device(block)), "evict_harvest")
         return {p: [h[p][:len(slots)] for h in host]
                 for p, slots in per_shard_slots.items()}
+
+    # --------------------------------------------------- read replica
+    # (tenancy/replica.py — publish hooks for the join side tables;
+    # rows are immutable after insert, so the boundary delta is pure
+    # identity churn: inserts, evictions, prunes)
+
+    #: per-side ReplicaPlane (armed by arm_side_replica)
+    _side_replicas = (None, None)
+
+    def arm_side_replica(self, side_idx: int):
+        """Arm a read replica over one side table (device backend; the
+        side must have seen its first batch — the value schema is
+        late-bound). Returns a
+        :class:`~flink_tpu_torch.tenancy.replica.JoinSideReplicaAdapter`."""
+        from flink_tpu_torch.tenancy.replica import (
+            JoinSideReplicaAdapter,
+            ReplicaPlane,
+        )
+
+        side = self.sides[side_idx]
+        if side is None:
+            raise RuntimeError(
+                "side table not initialized yet — the value schema is "
+                "observed at the side's first batch")
+        if self.backend != "device":
+            raise RuntimeError(
+                "side replicas ride the device value planes; the host "
+                "oracle backend serves reads directly")
+
+        class _Leaf:
+            def __init__(self, dtype):
+                self.dtype = dtype
+                self.identity = np.dtype(dtype).type(0)
+
+        plane = ReplicaPlane(
+            self.mesh, [_Leaf(side.schema[i][1])
+                        for i in side.device_cols], side.capacity)
+        reps = list(self._side_replicas)
+        reps[side_idx] = plane
+        self._side_replicas = tuple(reps)
+        return JoinSideReplicaAdapter(plane, side)
+
+    def _publish_side_replicas(self, watermark: int) -> None:
+        for side_idx in (0, 1):
+            rep = self._side_replicas[side_idx]
+            side = self.sides[side_idx]
+            if rep is None or side is None:
+                continue
+            with flight.span("serving.replica_publish",
+                             watermark=int(watermark)):
+                self._publish_one_side(rep, side, side_idx,
+                                       int(watermark))
+
+    def _publish_one_side(self, rep, side, side_idx: int,
+                          watermark: int) -> None:
+        """The join form of the boundary publish: derive per-slot
+        metadata from the sorted row metadata, diff against the
+        replica's shadow (rows are immutable — identity changes ARE
+        the delta), split disappeared rows into cold (still mapped in
+        the page tier) vs pruned, and hand the changed slots to the
+        shared publish program."""
+        if not hasattr(self, "_rep_last_rid"):
+            self._rep_last_rid = [0, 0]
+        if rep.needs_rebuild(self.P, side.capacity):
+            rep.rebuild(self.mesh, side.capacity)
+            # a rebuild's republish covers resident rows; resetting the
+            # rid watermark makes every COLD row re-enter the index too
+            self._rep_last_rid[side_idx] = 0
+        last_rid = self._rep_last_rid[side_idx]
+        per_shard = {}
+        for p in range(self.P):
+            m = side.meta[p]
+            cap = side.capacity
+            cur_used = np.zeros(cap, dtype=bool)
+            cur_key = np.zeros(cap, dtype=np.int64)
+            cur_rid = np.zeros(cap, dtype=np.int64)
+            cur_ts = np.zeros(cap, dtype=np.int64)
+            res = np.nonzero(m.slot >= 0)[0]
+            slots_res = m.slot[res]
+            cur_used[slots_res] = True
+            cur_key[slots_res] = m.key[res]
+            cur_rid[slots_res] = m.rid[res]
+            cur_ts[slots_res] = m.ts[res]
+            r_used = rep.rep_used[p]
+            r_key = rep.rep_key[p]
+            r_rid = rep.rep_ns[p]
+            moved = (cur_key != r_key) | (cur_rid != r_rid)
+            ident_change = cur_used & (~r_used | moved)
+            up = np.nonzero(ident_change)[0]
+            gone = np.nonzero(r_used & (~cur_used | moved))[0]
+            cold: List[Tuple[int, int]] = []
+            freed: List[Tuple[int, int]] = []
+            if len(gone):
+                from flink_tpu_torch.joins.side_table import _rid_positions
+
+                g_keys = r_key[gone].copy()
+                g_rids = r_rid[gone].copy()
+                # still resident at another slot? covered by its upsert
+                found, src = _rid_positions(m.rid, g_rids)
+                still = np.zeros(len(g_rids), dtype=bool)
+                still[found] = m.slot[src] >= 0
+                miss = ~still
+                if miss.any():
+                    mk, mr = g_keys[miss], g_rids[miss]
+                    is_cold = side.pmaps[p].spilled_mask(
+                        np.asarray(mr, dtype=np.int64))
+                    for j in range(len(mk)):
+                        if is_cold[j]:
+                            cold.append((int(mk[j]), int(mr[j]), None))
+                        else:
+                            freed.append((int(mk[j]), int(mr[j])))
+            # rows created AND evicted since the last publish (never
+            # resident at a boundary): rids are allocation-monotonic,
+            # so "new" is one vectorized compare
+            new_cold = np.nonzero((m.slot < 0) & (m.rid > last_rid))[0]
+            for pos in new_cold.tolist():
+                cold.append((int(m.key[pos]), int(m.rid[pos]),
+                             (int(m.ts[pos]), None)))
+            # extra payload: (ts, host-shadow column values) per row —
+            # device-ineligible columns never ride the device plane
+            extra = None
+            if len(up):
+                host_cols = [side.shadow[i][p][up]
+                             for i in side.host_cols]
+                extra = [
+                    (int(cur_ts[s]),
+                     tuple(hc[j] for hc in host_cols))
+                    for j, s in enumerate(up)]
+            per_shard[p] = {
+                "resident": (cur_used, cur_key, cur_rid),
+                "up_slots": up.astype(np.int32),
+                "up_keys": cur_key[up].copy(),
+                "up_ns": cur_rid[up].copy(),
+                "up_extra": extra,
+                "cold": cold,
+                "freed": freed,
+                "fresh": bool(ident_change.any()),
+            }
+        # the shadow (the published index's slot metadata) and the rid
+        # watermark move ONLY when the publish succeeds (a torn publish
+        # must leave the delta re-derivable)
+        rep.publish(self._planes[side_idx] or (), per_shard, watermark)
+        self._rep_last_rid[side_idx] = self._next_rid - 1
 
     def query_side_batch(self, side_idx: int, key_ids
                          ) -> List[List[dict]]:
@@ -868,9 +1013,11 @@ class JoinEngineBase(WatchdogHooks):
 
     def on_watermark(self, watermark: int) -> List[RecordBatch]:
         """Fires and prunes of one watermark, in a ``fire.dispatch``
-        span."""
+        span; then the side replicas' publish of this boundary."""
         with flight.fire_span(watermark):
-            return self._on_watermark_inner(watermark)
+            out = self._on_watermark_inner(watermark)
+        self._publish_side_replicas(int(watermark))
+        return out
 
 
 class MeshIntervalJoinEngine(JoinEngineBase):

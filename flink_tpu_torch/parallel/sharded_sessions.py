@@ -41,9 +41,14 @@ sessions from the metadata, every resident accumulator of the batch in one
 ``[P, G]`` gather and one copy back, and paged-out sessions from their
 shards' page tiers without a reload.
 
+The read replica (``arm_replica``, shared with the window engine): the
+scatter and merge sites mark their rows, each published row carries its
+session END (``_rep_extra``), and the end of every ``on_watermark``
+publishes the boundary delta.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-hot-key salting (item 12g), the read replica (12f), host shuffle mode and
-the two-level exchange (12h).
+hot-key salting (item 12g), host shuffle mode and the two-level exchange
+(12h).
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ from flink_tpu_torch.state.slot_table import (
     _not_ported,
     resolve_slot_hints,
 )
+from flink_tpu_torch.tenancy.program_cache import PROGRAM_CACHE
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.session_meta import (
     MergeGroup,
@@ -101,6 +107,15 @@ from flink_tpu_torch.windowing.windower import (
 
 
 def build_session_merge_step(mesh: LogicalMesh, agg: AggregateFunction):
+    """Shared through ``PROGRAM_CACHE`` (kind ``session-merge``) per
+    (device, shards, aggregate layout): jobs and rebuilt
+    engines reuse one family of steps (see ``_build_session_merge_step``)."""
+    key = (str(mesh.device), int(mesh.size), agg.cache_key())
+    return PROGRAM_CACHE.get_or_build(
+        "session-merge", key, lambda: _build_session_merge_step(mesh, agg))
+
+
+def _build_session_merge_step(mesh: LogicalMesh, agg: AggregateFunction):
     """``(accs, dst [P, M], src [P, M]) -> accs``: per shard p,
     ``acc[p, dst] op= acc[p, src]`` then ``acc[p, src] = identity``, in
     place. Destinations repeat within a shard: every moved value is
@@ -345,6 +360,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             for p, (a, b) in shard_slices.items():
                 slot_sorted[a:b] = resolved[p]
                 self._dirty[p, resolved[p]] = True
+                self._rep_mark(p, resolved[p])
             # fold the slots into the metadata rows so the next batch's
             # resolve skips the probe (native plane only)
             self.meta.note_slots(key_sorted, sid_sorted, slot_sorted,
@@ -364,6 +380,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                     key_sorted[a:b], sid_sorted[a:b])
                 slot_sorted[a:b] = slots
                 self._dirty[p, slots] = True
+                self._rep_mark(p, slots)
 
         # each record scatters into its session's slot on its session's
         # shard; records of stale sessions keep slot 0 (the identity slot)
@@ -434,6 +451,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             d_slots = both[:c].astype(np.int32)
             s_slots = both[c:].astype(np.int32)
             self._dirty[p, d_slots] = True
+            self._rep_mark(p, d_slots)
             per_shard[p] = (d_slots, s_slots)
             m_max = max(m_max, c)
         if m_max == 0:
@@ -485,7 +503,42 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                      async_ok: bool = False) -> List[object]:
         self._wd_boundary()
         with flight.fire_span(watermark):
-            return self._on_watermark_inner(watermark, async_ok)
+            out = self._on_watermark_inner(watermark, async_ok)
+        # replica publish AFTER this boundary's fires and frees (outside
+        # the fire span, under its own serving.replica_publish span)
+        self._publish_replica(watermark)
+        return out
+
+    # -------------------------------------------------- replica hooks
+
+    def _rep_extra(self, p: int, keys: np.ndarray, nss: np.ndarray):
+        """The session END per published (key, sid) row — the result key
+        of the serving composition ({session_end -> columns}). One
+        interval-list scan per KEY, not per row."""
+        out = np.zeros(len(keys), dtype=np.int64)
+        sessions = self.meta.sessions
+        by_key: Dict[int, List[int]] = {}
+        for j in range(len(keys)):
+            by_key.setdefault(int(keys[j]), []).append(j)
+        for key, idxs in by_key.items():
+            ivs = sessions.get(key, ())
+            if not ivs:
+                continue
+            end_of = {int(iv[2]): int(iv[1]) for iv in ivs}
+            for j in idxs:
+                out[j] = end_of.get(int(nss[j]), 0)
+        return out
+
+    def _rep_probe_cold(self, p: int, keys: np.ndarray,
+                        nss: np.ndarray) -> np.ndarray:
+        """A session that left the resident set is COLD iff its sid is
+        still mapped in the shard's page tier (paged layout) or its
+        namespace is spilled (namespace layout); otherwise it fired or
+        merged away and the index entry drops."""
+        if self._paged:
+            return self._pmaps[p].spilled_mask(
+                np.asarray(nss, dtype=np.int64))
+        return super()._rep_probe_cold(p, keys, nss)
 
     def _on_watermark_inner(self, watermark: int,
                             async_ok: bool) -> List[object]:

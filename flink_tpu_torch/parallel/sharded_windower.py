@@ -50,10 +50,17 @@ the job's managed pool at creation, growth and reshard
 (``core/memory.py``). Each ingest is a ``batch.ingest`` span and each
 watermark a ``fire.dispatch`` span in the flight recorder.
 
+The read replica (``arm_replica``, ``tenancy/replica.py``): the scatter
+sites mark the rows whose values changed, the evictions note rows going
+cold, and the end of every ``on_watermark`` publishes the boundary delta
+(the metadata diff against the replica's shadow plus the marks) into the
+next sealed generation. ``enforce_resident_budget`` is the tenant
+quota's backstop (``tenancy/quotas.py``): it sheds the engine's own
+coldest rows into its spill tier.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
 where a user would select it: host shuffle mode and the two-level
-exchange (item 12h), the read replica (12f), rebalance and
-``enforce_resident_budget`` (12g). Point queries (``query_batch``)
+exchange (item 12h), rebalance (12g). Point queries (``query_batch``)
 gather every shard's hits in one ``[P, G]`` block with one copy back, and
 read spilled slices from the shards' host tiers.
 """
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from itertools import repeat
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -121,6 +129,7 @@ from flink_tpu_torch.state.slot_table import (
     resolve_slot_hints,
     unique_pairs,
 )
+from flink_tpu_torch.tenancy.program_cache import PROGRAM_CACHE
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.bookkeeping import SliceBookkeeper
@@ -149,6 +158,14 @@ class _DeviceSpan:
         dt = time.perf_counter() - self._t0
         self._owner.device_inline_s += dt
         flight.instant("device.dispatch", duration_s=dt)
+
+
+def _rows(keys: np.ndarray, nss: np.ndarray, extra) -> zip:
+    """``(key, ns, extra)`` entries of a replica publish's cold list: the
+    ids as Python ints, ``extra`` per row (None for every row when
+    None)."""
+    return zip(keys.tolist(), nss.tolist(),
+               repeat(None) if extra is None else list(extra))
 
 
 class MeshSpillSupport(WatchdogHooks):
@@ -422,6 +439,10 @@ class MeshSpillSupport(WatchdogHooks):
             }
             self.spills[p].put(ns, entry,
                                dirty=bool(self._dirty[p, slots].any()))
+            # replica: never-published rows going cold (see
+            # _evict_cohorts)
+            self._rep_note_cold(p, entry["key_id"],
+                                np.full(m, int(ns), dtype=np.int64))
             off += m
             touch.pop(ns, None)
         self._ns_counters["pages_evicted"] += len(chosen)
@@ -665,6 +686,9 @@ class MeshSpillSupport(WatchdogHooks):
         entry per namespace) and reload on access; otherwise every
         shard's rows go onto the planes in ONE ``[P, B]`` put (the index
         allocates from slot 1, so slot 0 is never written with state)."""
+        # restored values bypass the scatter sites: the replica shadow is
+        # stale wholesale — republish everything at the next boundary
+        self._rep_rebuild = True
         key_ids = np.asarray(table.get("key_id", []), dtype=np.int64)
         namespaces = np.asarray(table.get("namespace", []), dtype=np.int64)
         leaves = [np.asarray(table[f"leaf_{i}"]) if len(key_ids) else None
@@ -730,8 +754,9 @@ class MeshSpillSupport(WatchdogHooks):
             manager.release_all(owner)
 
     def shard_resident_rows(self) -> List[int]:
-        """Device-resident rows per shard."""
-        return [int(idx.slot_used.sum()) for idx in self.indexes]
+        """Device-resident rows per shard (the indexes' used counters:
+        the quota ledger reads this every scheduler quantum)."""
+        return [int(idx.num_used) for idx in self.indexes]
 
     def _fresh_planes(self) -> Tuple[torch.Tensor, ...]:
         """``[P, capacity]`` identity planes, one per accumulator leaf
@@ -912,6 +937,9 @@ class MeshSpillSupport(WatchdogHooks):
         would route rows into the wrong plane without an error.
         Job-lifetime state survives: the recency clock, the spill
         counters and the delta tombstones."""
+        # the replica's metadata shadow describes the OLD plane — the
+        # next boundary publish rebuilds it over the new mesh
+        self._rep_rebuild = True
         self.mesh = LogicalMesh(int(new_shards), self.device)
         self.P = int(new_shards)
         clock = self._touch_clock
@@ -1150,6 +1178,8 @@ class MeshSpillSupport(WatchdogHooks):
         checkpoint, so the range's replayed records are accepted).
         Restored rows are CLEAN — they are in the checkpoint; survivors
         keep their dirtiness. Returns rows restored."""
+        # restored values bypass the scatter sites — republish wholesale
+        self._rep_rebuild = True
         table = snap.get("table", {}) or {}
         key_ids = np.asarray(table.get("key_id", []), dtype=np.int64)
         gset = np.asarray(sorted(int(g) for g in groups), dtype=np.int64)
@@ -1283,10 +1313,224 @@ class MeshSpillSupport(WatchdogHooks):
                                  else np.empty(0, dtype=np.int64))
         return {"table": merged, **self._merge_meta_snapshots(units)}
 
-    # ------------------------------------------------ not in this slice
+    # ------------------------------------------------------ read replica
+    # (tenancy/replica.py — the boundary-published serving plane)
+
+    #: armed by the tenancy layer (session cluster / tests); None keeps
+    #: every hook a single attribute check on the ingest path
+    _replica = None
+    #: set where the replica's shadow of the slot metadata goes stale
+    #: wholesale (restore, reshard, shard loss) — the next publish
+    #: rebuilds the plane and republishes every resident row
+    _rep_rebuild = False
 
     def arm_replica(self, plane=None):
-        raise _not_ported("the serving read replica", "12f")
+        """Attach (or build) the read-replica plane this engine
+        publishes into at watermark boundaries. Must run on the task
+        thread (single-owner), before or between batches."""
+        from flink_tpu_torch.tenancy.replica import ReplicaPlane
+
+        if plane is None:
+            plane = ReplicaPlane(self.mesh, self.agg.leaves,
+                                 self.capacity)
+        self._replica = plane
+        self._rep_cold_pending: Dict[int, list] = {}
+        self._rep_rebuild = True
+        return plane
+
+    def _rep_note_cold(self, p: int, keys, nss) -> None:
+        """Record rows leaving residency (evictions) so a row created
+        AND evicted within one publish interval still reaches the
+        replica index as a cold entry at the next boundary."""
+        if self._replica is not None:
+            self._rep_cold_pending.setdefault(p, []).append(
+                (np.asarray(keys, dtype=np.int64).copy(),
+                 np.asarray(nss, dtype=np.int64).copy()))
+
+    def _rep_mark(self, p: int, slots) -> None:
+        """Note value-changing scatters for the next publish delta
+        (residency/identity changes are derived by the publish diff
+        instead — see _publish_replica). While a rebuild is pending
+        (reshard/restore/growth changed the plane shape under the
+        shadow) marks are moot — the rebuild republishes everything."""
+        rep = self._replica
+        if rep is not None and not self._rep_rebuild \
+                and not rep.needs_rebuild(self.P, self.capacity):
+            rep.mark_dirty(p, slots)
+
+    def _rep_extra(self, p: int, keys: np.ndarray,
+                   nss: np.ndarray):
+        """Per-row adapter payload published with the index entries
+        (sessions: the session END; windows: none — the namespace IS
+        the slice end)."""
+        return None
+
+    def _rep_probe_cold(self, p: int, keys: np.ndarray,
+                        nss: np.ndarray) -> np.ndarray:
+        """For pairs that left the resident set since the last publish:
+        True = the row serves from the page tier (evicted), False =
+        freed (fired/expired — drop from the index). Namespace-layout
+        default: a namespace present in the shard's spill tier is cold
+        (eviction moves whole namespaces)."""
+        if not self._spill_active:
+            return np.zeros(len(nss), dtype=bool)
+        spilled = np.fromiter((int(x) for x in self.spills[p].namespaces),
+                              dtype=np.int64)
+        return np.isin(np.asarray(nss, dtype=np.int64), spilled)
+
+    def _publish_replica(self, watermark: int) -> None:
+        """Publish the boundary delta into the replica plane: diff the
+        engine's per-shard slot metadata against the replica's shadow
+        (plus the scatter-site dirty marks), hand the changed slots to
+        ONE device-to-device copy program, and seal the next
+        generation. Runs at the END of on_watermark — the fires and
+        frees of this boundary are already applied, so the sealed view
+        is exactly the engine state a checkpoint cut here would
+        capture."""
+        rep = self._replica
+        if rep is None:
+            return
+        if rep.min_interval_s and not self._rep_rebuild:
+            s = rep.sealed
+            if s is not None and (time.monotonic() - s.published_at
+                                  < rep.min_interval_s):
+                # batch this boundary into the next publish: the dirty
+                # marks keep accumulating, the diff/copy cost is paid
+                # once per interval, and the cache invalidation rate is
+                # bounded (staleness <= the interval, by construction)
+                return
+        with flight.span("serving.replica_publish",
+                         watermark=int(watermark)):
+            include_spilled = False
+            if self._rep_rebuild or rep.needs_rebuild(self.P,
+                                                      self.capacity):
+                rep.rebuild(self.mesh, self.capacity)
+                self._rep_cold_pending = {}
+                self._rep_rebuild = False
+                # the rebuild's full republish covers resident rows;
+                # rows already cold (restored/re-homed pages) must
+                # re-enter the index too — enumerated below
+                include_spilled = self._spill_active
+            per_shard = {}
+            for p in range(self.P):
+                idx = self.indexes[p]
+                used = idx.slot_used
+                L = len(used)
+                cur_used = np.asarray(used[:L], dtype=bool)
+                cur_key = np.asarray(idx.slot_key[:L])
+                cur_ns = np.asarray(idx.slot_ns[:L])
+                r_used = rep.rep_used[p][:L]
+                r_key = rep.rep_key[p][:L]
+                r_ns = rep.rep_ns[p][:L]
+                moved = (cur_key != r_key) | (cur_ns != r_ns)
+                ident_change = cur_used & (~r_used | moved)
+                up = np.nonzero(ident_change
+                                | (rep.rep_dirty[p][:L] & cur_used))[0]
+                gone = np.nonzero(r_used & (~cur_used | moved))[0]
+                cold: List[Tuple[int, int]] = []
+                freed = np.zeros((0, 2), dtype=np.int64)
+                if len(gone):
+                    g_keys = r_key[gone].copy()
+                    g_ns = r_ns[gone].copy()
+                    # a pair re-homed to a NEW slot is covered by its
+                    # upsert there; only pairs no longer resident at
+                    # all need the cold/freed split
+                    miss = idx.lookup(g_keys, g_ns) < 0
+                    if miss.any():
+                        mk, mn = g_keys[miss], g_ns[miss]
+                        is_cold = self._rep_probe_cold(p, mk, mn)
+                        cold.extend(_rows(mk[is_cold], mn[is_cold], None))
+                        freed = np.stack([mk[~is_cold], mn[~is_cold]], 1)
+                # rows created AND evicted since the last publish were
+                # never resident at a boundary — the eviction sites
+                # recorded them; enter them cold (skipping any that
+                # reloaded back to residency, covered by the diff)
+                pend = self._rep_cold_pending.get(p)
+                if pend:
+                    pk = np.concatenate([a for a, _ in pend])
+                    pn = np.concatenate([b for _, b in pend])
+                    nonres = idx.lookup(pk, pn) < 0
+                    if nonres.any():
+                        ck, cn = pk[nonres], pn[nonres]
+                        still = self._rep_probe_cold(p, ck, cn)
+                        cx = self._rep_extra(p, ck, cn)
+                        cold.extend(_rows(ck[still], cn[still],
+                                          None if cx is None else cx[still]))
+                    # cleared after the publish SUCCEEDS (torn-publish
+                    # re-derivability — see below)
+                up_keys = cur_key[up].copy()
+                up_ns = cur_ns[up].copy()
+                per_shard[p] = {
+                    "resident": (cur_used, cur_key, cur_ns),
+                    "up_slots": up.astype(np.int32),
+                    "up_keys": up_keys,
+                    "up_ns": up_ns,
+                    "up_extra": self._rep_extra(p, up_keys, up_ns),
+                    "cold": cold,
+                    "freed": freed,
+                    "fresh": bool(ident_change.any()),
+                }
+            if include_spilled:
+                cold0 = per_shard[0]["cold"]
+                for part in self._spill_snapshot_parts():
+                    ck = np.asarray(part["key_id"], dtype=np.int64)
+                    cn = np.asarray(part["namespace"], dtype=np.int64)
+                    cold0.extend(_rows(ck, cn, self._rep_extra(0, ck, cn)))
+                if cold0:
+                    per_shard[0]["fresh"] = True
+            # the metadata shadow (the published index's slot metadata),
+            # dirty marks and pending cold events move ONLY when the
+            # publish succeeds: a fault inside the publish
+            # (serving.replica_publish chaos, a device error) must leave
+            # the delta re-derivable — otherwise the torn boundary's rows
+            # silently never reach the replica
+            rep.publish(self.accs, per_shard, int(watermark))
+            rep.rep_dirty[:] = False
+            self._rep_cold_pending = {}
+
+    # ---------------------------------------------------- tenant quota
+
+    def enforce_resident_budget(self, max_total_rows: int) -> int:
+        """Quota backstop (``tenancy/quotas.py``): evict this engine's OWN
+        coldest rows until its device-resident total is at most
+        ``max_total_rows`` — rows land in the engine's private spill
+        tier, exactly like steady-state eviction. The method only walks
+        ``self``'s shards, so one job's enforcement can never reclaim
+        another job's rows. Returns rows shed; raises when no spill tier
+        is configured (the ledger counts a quota violation)."""
+        if not self._spill_active:
+            raise RuntimeError(
+                "engine has no spill tier — a resident-row quota needs "
+                "state.slot-table.max-device-slots (+ spill dir) so "
+                "over-budget rows have somewhere to go")
+        max_total_rows = max(int(max_total_rows), 0)
+        if self._paged:
+            # the current batch's rows carry the live clock; the backstop
+            # runs between scheduling quanta, so advancing it makes every
+            # resident row evictable
+            self._touch_clock += 1
+        per = self.shard_resident_rows()
+        shed = 0
+        while sum(per) > max_total_rows:
+            p = int(np.argmax(np.asarray(per)))
+            if per[p] <= 0:
+                break
+            try:
+                if self._paged:
+                    self._evict_cohorts({p: self._choose_eviction_cohort(p)})
+                else:
+                    self._evict_cold(p, protect=set())
+            except SlotTableFullError:
+                break
+            new = self.shard_resident_rows()
+            freed = sum(per) - sum(new)
+            if freed <= 0:
+                break
+            shed += freed
+            per = new
+        return shed
+
+    # ------------------------------------------------ not in this slice
 
     def reassign_key_groups(self, assignment):
         raise _not_ported("hot key-group rebalance", "12g")
@@ -1491,6 +1735,10 @@ class MeshPagedSpillSupport(MeshSpillSupport):
                 "dirty": self._dirty[p, chosen].copy(),
                 **{f"leaf_{i}": g[p][:n] for i, g in enumerate(gathered)},
             }
+            # replica: a row evicted before it was ever published
+            # resident must still enter the index cold at the next
+            # boundary (the publish drains these events)
+            self._rep_note_cold(p, entry["key_id"], entry["ns"])
             spill_page(self.spills[p], self._pmaps[p], entry)
             idx.free_slots(chosen)
             self._dirty[p, chosen] = False
@@ -1731,6 +1979,7 @@ class MeshWindowEngine(MeshSpillSupport):
                                                      s_ns[a:b])
             slots_sorted[a:b] = slots
             self._dirty[p, slots] = True
+            self._rep_mark(p, slots)
         rec_slots = np.empty(n, dtype=np.int32)
         rec_slots[order] = slots_sorted
         # claim a dispatch slot BEFORE rewriting the pooled buffers
@@ -1760,7 +2009,12 @@ class MeshWindowEngine(MeshSpillSupport):
                      async_ok: bool = False) -> List[object]:
         self._wd_boundary()
         with flight.fire_span(watermark):
-            return self._on_watermark_inner(watermark, async_ok)
+            out = self._on_watermark_inner(watermark, async_ok)
+        # replica publish AFTER the fires and frees of this boundary (and
+        # outside the fire span: serving-plane work, under its own
+        # serving.replica_publish span)
+        self._publish_replica(watermark)
+        return out
 
     def _on_watermark_inner(self, watermark: int,
                             async_ok: bool) -> List[object]:
@@ -2129,6 +2383,15 @@ class MeshWindowEngine(MeshSpillSupport):
 
 
 def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
+    """Shared through ``PROGRAM_CACHE`` (kind ``mesh-steps``) per
+    (device, shards, aggregate layout): jobs and rebuilt
+    engines reuse one family of steps (see ``_build_mesh_steps``)."""
+    key = (str(mesh.device), int(mesh.size), agg.cache_key())
+    return PROGRAM_CACHE.get_or_build(
+        "mesh-steps", key, lambda: _build_mesh_steps(mesh, agg))
+
+
+def _build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
     """(scatter, fire, reset, gather, put, merge) steps over ``[P, capacity]``
     planes. The planes are updated IN PLACE where the reference donated
     them.
@@ -2201,6 +2464,15 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
 
 
 def build_delta_fire_step(mesh: LogicalMesh, agg: AggregateFunction):
+    """Shared through ``PROGRAM_CACHE`` (kind ``delta-fire``) per
+    (device, shards, aggregate layout): jobs and rebuilt
+    engines reuse one family of steps (see ``_build_delta_fire_step``)."""
+    key = (str(mesh.device), int(mesh.size), agg.cache_key())
+    return PROGRAM_CACHE.get_or_build(
+        "delta-fire", key, lambda: _build_delta_fire_step(mesh, agg))
+
+
+def _build_delta_fire_step(mesh: LogicalMesh, agg: AggregateFunction):
     """``(accs, slot_matrix [P, W, k], reset_slots [P, W]) -> (accs,
     {name: [P, W]})``: merge and finish each row's slots, then reset
     ``reset_slots`` to identity, in one call. The results are fresh

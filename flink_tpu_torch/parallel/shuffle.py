@@ -42,6 +42,7 @@ from flink_tpu_torch.state.keygroups import (
     key_group_to_operator_index,
 )
 from flink_tpu_torch.stateplane.rank import exchange_rank_flat
+from flink_tpu_torch.tenancy.program_cache import PROGRAM_CACHE
 
 
 class ShuffleBufferPool:
@@ -165,6 +166,16 @@ def stage_device_exchange(
 
 
 def build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
+    """Shared through ``PROGRAM_CACHE`` (kind ``exchange-scatter``) per
+    (device, shards, aggregate layout, valued): jobs and rebuilt
+    engines reuse one family of steps (see ``_build_exchange_scatter``)."""
+    key = (str(mesh.device), int(mesh.size), agg.cache_key(), bool(valued))
+    return PROGRAM_CACHE.get_or_build(
+        "exchange-scatter", key,
+        lambda: _build_exchange_scatter(mesh, agg, valued))
+
+
+def _build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
     """The fused exchange+scatter step over the ``[P, capacity]`` planes:
     ``(accs, dst, slots, values, bucket_width) -> accs``.
 

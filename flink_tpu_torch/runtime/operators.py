@@ -330,6 +330,21 @@ class WindowAggOperator(Operator):
             spill=self._table_spill(ctx),
             fire_projector=self.fire_projector)
 
+    def arm_serving_replica(self, publish_interval_ms: float = 0.0):
+        """Arm the engine's read replica (``tenancy/replica.py``) and
+        return its serving adapter, or None when the engine cannot host
+        one (single-device layouts serve through the control-queue path).
+        Runs on the task thread before or between batches — the session
+        cluster calls it at submit and restart."""
+        w = self.windower
+        if not hasattr(w, "arm_replica"):
+            return None
+        from flink_tpu_torch.tenancy.replica import WindowReplicaAdapter
+
+        plane = w.arm_replica()
+        plane.min_interval_s = float(publish_interval_ms) / 1e3
+        return WindowReplicaAdapter(plane, w.agg, w.assigner)
+
     def spill_counters(self) -> Optional[Dict[str, int]]:
         """The engine's spill traffic counters (None when it has none)."""
         fn = getattr(self.windower, "spill_counters", None)
@@ -342,7 +357,7 @@ class WindowAggOperator(Operator):
             return fn()
         index = getattr(getattr(self.windower, "table", None), "index",
                         None)
-        return [int(index.slot_used.sum())] if index is not None else []
+        return [int(index.num_used)] if index is not None else []
 
     def process_batch(self, batch, input_index=0):
         keys = batch[self.key_field]
@@ -564,6 +579,18 @@ class SessionWindowAggOperator(WindowAggOperator):
             memory=self._managed_memory(ctx),
             max_dispatch_ahead=ctx.max_dispatch_ahead,
             shuffle_mode=ctx.shuffle_mode)
+
+    def arm_serving_replica(self, publish_interval_ms: float = 0.0):
+        """Session form: the adapter composes {session_end -> columns}
+        from the published (key, sid) rows' END payloads."""
+        w = self.windower
+        if not hasattr(w, "arm_replica"):
+            return None
+        from flink_tpu_torch.tenancy.replica import SessionReplicaAdapter
+
+        plane = w.arm_replica()
+        plane.min_interval_s = float(publish_interval_ms) / 1e3
+        return SessionReplicaAdapter(plane, w.agg)
 
     def query_state_batch(self, key_values, namespace=None):
         """The session variant (reference

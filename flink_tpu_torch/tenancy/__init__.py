@@ -1,52 +1,54 @@
-"""Queryable-state serving (port of ``flink_tpu/tenancy/``, the serving
-half).
+"""Multi-tenancy and queryable-state serving (port of
+``flink_tpu/tenancy/``): N jobs multiplexed over ONE device.
 
-- :mod:`serving`: ``LookupCoalescer``, ``CoalescerPool``,
-  ``PackedLookupResult`` and ``ServingPlane``. Its legacy path coalesces
-  lookups into ``StateQueryBatchRequest``s on a job's control queue (one
-  gather and one device-to-host copy per batch, served on the task thread
-  at a batch boundary); its replica path serves a bound adapter's sealed
-  generations through a worker pool and the hot-row cache.
-- :mod:`hot_cache` (``HotRowCache``, ``PrimeDelta``,
-  ``make_hot_row_cache``) and :mod:`hot_cache_native` (the native probe
-  table over ``native/hotcache.cpp``): composed results tagged with the
-  generation that produced them; a whole key batch probes in one
-  GIL-released C call.
+- :mod:`session_cluster` (``SessionCluster``, ``TenantJob``): every job a
+  stepwise ``LocalExecutor`` run, interleaved on one scheduler thread by
+  :mod:`fairness` (``DeficitRoundRobin``), each bounded by a
+  :mod:`quotas` budget (``TenantQuota``, ``QuotaLedger``); crash
+  containment restarts only the failed job.
+- :mod:`program_cache` (``PROGRAM_CACHE``, ``SharedProgramCache``): the
+  engines' step families shared across jobs, with per-job hit/miss stats.
+- :mod:`replica` (``ReplicaPlane`` and the window, session and join-side
+  adapters): the read replica every mesh engine publishes at watermark
+  boundaries; lookups resolve against a sealed generation off the task
+  loop.
+- :mod:`serving` (``ServingPlane``, ``LookupCoalescer``,
+  ``CoalescerPool``, ``PackedLookupResult``), :mod:`hot_cache` and
+  :mod:`hot_cache_native`: the lookup path, its worker pool and the
+  hot-row cache the publishes prime.
+- :mod:`frontend` (``FrontendPool``): frontend processes serving the hit
+  path off the hot cache's shared-memory arenas.
+- :mod:`arbiter` (``ShardArbiter``, ``JobDemand``): the cross-job shard
+  policy (acting on it is ROADMAP.md Queue A item 12g).
 
-The names stay lazy, as in the reference. Those whose modules are the
-multi-tenant cluster's (the session cluster, quotas, fairness, the
-arbiter, the program cache, the read replicas and the frontends) raise
-``NotImplementedError`` naming ROADMAP.md Queue A item 12f.
+The names stay lazy, as in the reference: the lowest engine layers import
+:mod:`program_cache` without pulling in the cluster. ``LookupRouter``
+raises ``NotImplementedError`` naming ROADMAP.md Queue A item 12h.
 """
 
 _LAZY = {
+    "PROGRAM_CACHE": "flink_tpu_torch.tenancy.program_cache",
+    "SharedProgramCache": "flink_tpu_torch.tenancy.program_cache",
+    "TenantQuota": "flink_tpu_torch.tenancy.quotas",
+    "QuotaLedger": "flink_tpu_torch.tenancy.quotas",
+    "DeficitRoundRobin": "flink_tpu_torch.tenancy.fairness",
     "ServingPlane": "flink_tpu_torch.tenancy.serving",
     "LookupCoalescer": "flink_tpu_torch.tenancy.serving",
     "CoalescerPool": "flink_tpu_torch.tenancy.serving",
     "PackedLookupResult": "flink_tpu_torch.tenancy.serving",
+    "ReplicaPlane": "flink_tpu_torch.tenancy.replica",
+    "SessionReplicaAdapter": "flink_tpu_torch.tenancy.replica",
+    "WindowReplicaAdapter": "flink_tpu_torch.tenancy.replica",
+    "JoinSideReplicaAdapter": "flink_tpu_torch.tenancy.replica",
     "HotRowCache": "flink_tpu_torch.tenancy.hot_cache",
     "PrimeDelta": "flink_tpu_torch.tenancy.hot_cache",
     "make_hot_row_cache": "flink_tpu_torch.tenancy.hot_cache",
     "NativeHotRowCache": "flink_tpu_torch.tenancy.hot_cache_native",
-}
-
-#: the reference's names whose modules come with item 12f
-_NOT_PORTED = {
-    "PROGRAM_CACHE": "program_cache",
-    "SharedProgramCache": "program_cache",
-    "TenantQuota": "quotas",
-    "QuotaLedger": "quotas",
-    "DeficitRoundRobin": "fairness",
-    "ReplicaPlane": "replica",
-    "SessionReplicaAdapter": "replica",
-    "WindowReplicaAdapter": "replica",
-    "JoinSideReplicaAdapter": "replica",
-    "ShardArbiter": "arbiter",
-    "JobDemand": "arbiter",
-    "SessionCluster": "session_cluster",
-    "TenantJob": "session_cluster",
-    "FrontendPool": "frontend",
-    "LookupRouter": "frontend",
+    "ShardArbiter": "flink_tpu_torch.tenancy.arbiter",
+    "JobDemand": "flink_tpu_torch.tenancy.arbiter",
+    "SessionCluster": "flink_tpu_torch.tenancy.session_cluster",
+    "TenantJob": "flink_tpu_torch.tenancy.session_cluster",
+    "FrontendPool": "flink_tpu_torch.tenancy.frontend",
 }
 
 
@@ -56,9 +58,10 @@ def __getattr__(name):
         import importlib
 
         return getattr(importlib.import_module(mod), name)
-    if name in _NOT_PORTED:
+    if name == "LookupRouter":
         raise NotImplementedError(
-            f"tenancy.{name} (the reference's tenancy/{_NOT_PORTED[name]}"
-            ".py) is not ported to flink_tpu_torch yet (ROADMAP.md, "
-            "Queue A item 12f)")
+            "tenancy.LookupRouter (the reference's tenancy/frontend.py) "
+            "routes lookups to the host owning a key-group range and is "
+            "not ported to flink_tpu_torch yet (ROADMAP.md, Queue A item "
+            "12h)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -66,7 +66,7 @@ def make_hot_row_cache(max_entries: int = 1 << 18,
     ``shm_dir`` arms the multi-process serving tier: the native tables
     allocate as MAP_SHARED file arenas under it (plus an attach
     manifest), so frontend processes probe the SAME table over shared
-    memory (the frontends are ROADMAP Queue A item 12f). The Python plane
+    memory (the frontends: ``tenancy/frontend.py``). The Python plane
     cannot shm-map — requesting ``shm_dir`` without the native plane
     raises rather than silently serving a frontendless cache.
 

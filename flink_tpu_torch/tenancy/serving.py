@@ -17,8 +17,8 @@ trip, not N. That is this module:
   to the job's control queue (served on the task loop at a batch
   boundary, race-free), plus the serving metrics (lookups/s, batch
   sizes, p99). Its replica path (``bind_replica``, the worker pool, the
-  hot-row cache probe) serves an adapter's sealed generations; the read
-  replicas that supply such adapters are ROADMAP Queue A item 12f.
+  hot-row cache probe) serves the sealed generations of a read replica's
+  adapter (``tenancy/replica.py``; the session cluster binds them).
 
 Reference: flink-queryable-state's KvStateClientProxy pipelines requests
 per TaskManager connection; here the pipeline depth becomes an explicit
@@ -519,7 +519,7 @@ class ServingPlane:
         self.n_workers = max(int(workers), 1)
         #: when set, the hot cache allocates MAP_SHARED arenas under
         #: this directory and frontend processes may attach (the
-        #: multi-process serving tier, ROADMAP Queue A item 12f)
+        #: multi-process serving tier — tenancy/frontend.py)
         self.shm_dir = shm_dir
 
         def make_flush(key):

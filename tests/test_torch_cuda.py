@@ -1712,3 +1712,166 @@ def test_query_between_a_fire_dispatch_and_its_harvest(engine):
             for name in w.columns:
                 a, b = np.asarray(g[name]), np.asarray(w[name])
                 assert a.tobytes() == b.tobytes(), name
+
+
+def _answer_bits(x):
+    import struct
+
+    if isinstance(x, dict):
+        return {k: _answer_bits(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_answer_bits(v) for v in x]
+    return struct.pack("<d", x) if isinstance(x, float) else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "session"])
+def test_replica_on_card_equals_cpu_at_every_boundary(kind):
+    """The read replica at P=8 (float32 Sum through the ordered fold, the
+    rank in every ingest): at every boundary the card's replica answers
+    equal the CPU's bit for bit, and a sealed generation keeps its values
+    while the next batch is scattered into the live planes."""
+    _need_card()
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.tenancy.replica import (
+        SessionReplicaAdapter,
+        WindowReplicaAdapter,
+    )
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+
+    def make(device):
+        if kind == "session":
+            eng = MeshSessionEngine(400, SumAggregate("v"),
+                                    make_mesh(8, device),
+                                    capacity_per_shard=1 << 14)
+            ad = SessionReplicaAdapter(eng.arm_replica(), eng.agg)
+        else:
+            eng = MeshWindowEngine(SlidingEventTimeWindows.of(5000, 1000),
+                                   SumAggregate("v"), make_mesh(8, device),
+                                   capacity_per_shard=1 << 14)
+            ad = WindowReplicaAdapter(eng.arm_replica(), eng.agg,
+                                      eng.assigner)
+        ad.cold_fetch = lambda ks: eng.query_batch(np.asarray(ks))
+        return eng, ad
+
+    (card, cad), (cpu, pad) = make("cuda"), make("cpu")
+    rng = np.random.default_rng(19)
+    keys = list(range(0, 4000, 3))
+    for step in range(8):
+        k = rng.integers(0, 4000, 50_000).astype(np.int64)
+        v = rng.standard_normal(50_000).astype(np.float32)
+        ts = rng.integers(step * 300, step * 300 + 600, 50_000)
+        b = RecordBatch.from_pydict({KEY_ID_FIELD: k, "v": v},
+                                    timestamps=ts)
+        sealed = cad.plane.sealed
+        held = ([a.clone() for a in sealed.accs]
+                if sealed is not None else None)
+        for e in (card, cpu):
+            e.process_batch(b)
+        if held is not None:
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, h) for a, h in zip(sealed.accs, held))
+        for e in (card, cpu):
+            e.on_watermark(step * 300 - 400)
+        got, gen = cad.lookup_batch(keys)
+        want, pgen = pad.lookup_batch(keys)
+        assert gen == pgen >= step
+        assert _answer_bits(got) == _answer_bits(want)
+        assert _answer_bits(got) == _answer_bits(
+            card.query_batch(np.asarray(keys)))
+
+
+@pytest.mark.cuda
+def test_replica_gathers_from_threads_during_ingest_on_card():
+    """Serving threads gather a sealed generation while the task thread
+    keeps scattering and publishing on the card: every gather of a
+    generation returns that generation's values (one stream, so neither
+    the next scatter nor a reused allocation reaches a gather in
+    flight)."""
+    _need_card()
+    import threading
+
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+    from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+
+    eng = MeshWindowEngine(TumblingEventTimeWindows.of(10_000),
+                           SumAggregate("v"), make_mesh(8, "cuda"),
+                           capacity_per_shard=1 << 14)
+    plane = eng.arm_replica()
+    rng = np.random.default_rng(23)
+    rows = [(p, s) for p in range(8) for s in range(1, 400)]
+    bad, stop = [], threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            gen = plane.sealed
+            if gen is None:
+                continue
+            want = [tuple(a[p, s].item() for a in gen.accs)
+                    for p, s in rows[:64]]
+            got = plane.gather_rows(gen, rows[:64])
+            if [tuple(float(x) for x in r) for r in got] != want:
+                bad.append(gen.gen)
+
+    threads = [threading.Thread(target=reader) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for step in range(30):
+            k = rng.integers(0, 6000, 100_000).astype(np.int64)
+            eng.process_batch(RecordBatch.from_pydict(
+                {KEY_ID_FIELD: k,
+                 "v": rng.standard_normal(100_000).astype(np.float32)},
+                timestamps=np.full(100_000, 100, np.int64)))
+            eng.on_watermark(50)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    assert not bad and plane.generation() >= 30
+
+
+@pytest.mark.cuda
+def test_session_cluster_two_jobs_on_card_equal_cpu():
+    """Two window jobs at P=8 on one SessionCluster on the card and the
+    same two on the CPU: every sink row equal (float32 sums bit for bit),
+    lookups answered off the replicas while they run."""
+    _need_card()
+    from flink_tpu_torch.benchmarks.serving import pipeline
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.tenancy.session_cluster import SessionCluster
+
+    rows = {}
+    for device in ("cuda", "cpu"):
+        cluster = SessionCluster()
+        sinks = {j: CollectSink() for j in ("a", "b")}
+        for i, (j, s) in enumerate(sinks.items()):
+            cluster.submit(pipeline(s, device, 100_000, seed=13 + i), j)
+        got = []
+
+        def client():
+            for _ in range(50):
+                try:
+                    got.append(cluster.lookup_batch_packed(
+                        "a", "window_agg(SumAggregate)", list(range(256))))
+                except RuntimeError:
+                    return
+
+        import threading
+
+        t = threading.Thread(target=client)
+        t.start()
+        cluster.run(timeout_s=300)
+        t.join(timeout=60)
+        rows[device] = {j: sorted(s.rows(), key=lambda r: (r["key"],
+                                                           r["window_end"]))
+                        for j, s in sinks.items()}
+    assert _answer_bits(rows["cuda"]) == _answer_bits(rows["cpu"])
+    assert rows["cuda"]["a"]

@@ -612,6 +612,17 @@ def test_unported_features_raise_naming_their_item(call, item):
         want.process_batch(JRecordBatch(cols([1], [1.0], [0])), 0)
         assert call(eng) == call(want) == [[{"ts": 0, "rid": 1, "v": 1.0}]]
         return
+    if item == "12f":
+        # item 12f is ported: the side replica answers as the reference's
+        # at the next boundary (tests/test_torch_replica.py at size)
+        want = ref(JInterval, -1, 1)
+        want.process_batch(JRecordBatch(cols([1], [1.0], [0])), 0)
+        ta, ja = call(eng), call(want)
+        eng.on_watermark(0)
+        want.on_watermark(0)
+        assert ta.lookup_batch([1, 2]) == ja.lookup_batch([1, 2]) == (
+            [[{"ts": 0, "rid": 1, "v": 1.0}], []], 1)
+        return
     with pytest.raises(NotImplementedError) as e:
         call(eng)
     assert _item(e) == item

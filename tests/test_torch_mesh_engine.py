@@ -172,7 +172,10 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="shuffle.mode"):
         TEngine(asg, agg, mesh, shuffle_mode="host")
     eng = TEngine(asg, agg, mesh)
-    for call in (lambda: eng.reassign_key_groups({}),
-                 lambda: eng.arm_replica()):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        eng.reassign_key_groups({})
+    # the read replica is ported (tests/test_torch_replica.py)
+    from flink_tpu_torch.tenancy.replica import ReplicaPlane
+
+    plane = eng.arm_replica()
+    assert isinstance(plane, ReplicaPlane) and eng._replica is plane

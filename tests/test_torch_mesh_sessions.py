@@ -783,6 +783,26 @@ def test_unported_calls_raise_naming_their_item(call, item):
         assert eng.query_batch([1, 2, 3]) == [{70: {"sum_v": 0.75}},
                                                {80: {"sum_v": 2.0}}, {}]
         return
+    if item == "12f":
+        # item 12f is ported: the replica's index and answers at the next
+        # boundary equal the reference's (tests/test_torch_replica.py at
+        # size)
+        from flink_tpu.parallel.mesh import make_mesh as jmake_mesh
+        from flink_tpu.tenancy.replica import (
+            SessionReplicaAdapter as JAdapter,
+        )
+        from flink_tpu_torch.tenancy.replica import SessionReplicaAdapter
+
+        want = JEngine(50, jagg.SumAggregate("v"), jmake_mesh(P),
+                       max_device_slots=1024)
+        tp, jp = call(eng), call(want)
+        for e, mk in ((eng, _tbatch), (want, _jbatch)):
+            e.process_batch(mk([1, 1, 2], [0.5, 0.25, 2.0], [10, 20, 30]))
+            e.on_watermark(0)
+        ta, ja = SessionReplicaAdapter(tp, eng.agg), JAdapter(jp, want.agg)
+        assert ta.lookup_batch([1, 2, 3]) == ja.lookup_batch([1, 2, 3]) == (
+            [{70: {"sum_v": 0.75}}, {80: {"sum_v": 2.0}}, {}], 1)
+        return
     with pytest.raises(NotImplementedError) as e:
         call(eng)
     assert _item(e) == item

@@ -15,8 +15,8 @@ against the reference's (``flink_tpu/tenancy/serving.py``) on the CPU.
 - The replica path (``bind_replica``, the worker pool, the hot-row cache
   probe, ``_flush_replica``) driven by one stub adapter, the same class
   for both packages: the same sequence of lookups, publishes and probes
-  gives the same answers and counters. Real adapters are ROADMAP Queue A
-  item 12f's.
+  gives the same answers and counters. The real adapters are held in
+  ``tests/test_torch_replica.py`` and ``tests/test_torch_tenancy.py``.
 Tolerance: none; answers compared with ``same_answers``.
 """
 
