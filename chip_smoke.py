@@ -128,7 +128,8 @@ Phases, each fatal on failure (no result line is printed then):
     union of both sinks equals phase 5's oracle in every window, and the
     rank kernel launched in both runs (Count has no float leaf: no
     ordered fold); (b) the mesh session engine at phase 13(a)'s shape
-    (4M records, batches of 1<<16, 1<<16 rows a shard, dispatch-ahead 2,
+    (2M of its 4M records — the script's time —, batches of 1<<16, 1<<16
+    rows a shard, dispatch-ahead 2,
     async fires, each batch's watermark its last timestamp: the deadline
     split off) through the port's ``run_crash_restore_verify`` with
     ``tools/chaos_smoke.py``'s fault plan spread over the run (a
@@ -188,9 +189,9 @@ Phases, each fatal on failure (no result line is printed then):
     longer evicts) — in batches
     of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
-    ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<18
-    records (cut from 1<<19 when phase 23 came, to keep the script inside
-    its time) equal, batch for batch (by digest), to the same engine with
+    ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<17
+    records (cut from 1<<19 when phase 23 came and from 1<<18 when phase
+    26 came, to keep the script inside its time) equal, batch for batch (by digest), to the same engine with
     ``backend="host"``; every match of the 1M records equal, as a sorted
     multiset, to a NumPy oracle written here; rows evicted and reloaded
     > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
@@ -556,6 +557,41 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_tenancy(torch)'`` runs phase 25 alone
     (``phase_tenancy(torch, "cpu", small=True)`` rehearses it without a
     card).
+26. Scale-out and skew (ROADMAP item 12g): (26a) BASELINE row 5c
+    (``benchmarks/mesh_sessions.py --zipf``): 2M records (of the row's
+    4M: the script's time), keys Zipf(1.1)
+    over the 10M-key space, 400k events/s of event time, 2 s gap, P=8,
+    1<<16 rows a shard (paged spill), the skew ladder live
+    (``ShardLoadAccountant`` -> ``RebalancePolicy`` -> ``SkewResponder``:
+    live key-group moves and hot-key splitting), and a uniform control
+    of the same shape: Zipf and uniform events/s and their ratio, the
+    rebalances, groups moved, keys split, salted records and fires, the
+    imbalance on the contiguous layout and on the live table; fails as
+    vacuous without a live move or a salted record; the Zipf run's exact
+    splits and watermarks replayed without the ladder give every fired
+    (key, start, end, sum) bit for bit (ones: integer-valued float32);
+    (26b) Q5 at P=8 through ``LocalExecutor`` on 4M bids, a
+    ``RescaleRequest`` to 4 shards after batch 4 and back to 8 after
+    batch 10: rows bit-identical to the uninterrupted run and phase 5's
+    oracle, each handoff's ms and rows moved printed; then
+    ``autoscale.enabled`` on tools/autoscale_smoke.py's load ramp with
+    the executor's controller on a fake clock and scripted signals: 2 ->
+    4 -> 2 logical shards, two live handoffs, rows equal to the run
+    without the autoscaler; (26c) the interval join (16 steps of two
+    sides of 32,768 rows) and the mesh CEP engine (16 steps of 32,768
+    events, the 3-stage within-50 pattern) at P=8, each resharded 8 -> 4
+    mid-stream: outputs equal the runs without a reshard; (26d) a
+    ``SessionCluster`` with two held Q5 jobs (1M bids, P=2, the replica
+    on) and the arbiter ticking every 5 ms: at least one live rescale
+    served, no rescale error, replica answers at the held cut equal the
+    live engine's, each job's rows equal its solo run; (26e) the rank
+    kernel against ``exchange_rank_flat_plain`` at D in {2, 3, 4, 7, 8}
+    on Zipf-skewed destination columns routed by a rebalanced
+    ``KeyGroupAssignment`` (R=8, C=131072): max abs err 0.
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_scaleout(torch)'`` runs phase 26 alone
+    (``phase_scaleout(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -570,15 +606,18 @@ run of 22(a) to 22(e) (22(e)'s recorder-off run in its subprocess),
 each run of 23(a) to 23(g) (23(e)'s in the TaskExecutor process, whose
 counters start at 0 with it and come back through the job's metric
 snapshot), each run of 24(a) to 24(e), each of 25(a)'s two cluster runs
-and 25(b)'s and 25(d)'s runs, and read just after; each phase fails if
+and 25(b)'s and 25(d)'s runs, 26(a)'s three runs, 26(b)'s rescaled Q5
+and autoscaled ramp, 26(c)'s resharded join and CEP runs and 26(d)'s
+cluster run, and read just after; each phase fails if
 a kernel of its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
 15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
 22(a), 22(c), 22(d), 23(f), 23(g), 24(b), 24(d), 24(e), 25(a), 25(b),
-25(d) and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count
+25(d), 26(a), 26(b)'s ramp and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count
 being an integer fold; the rank in 20(c), 21(b), 22(b), 22(e), 23(a)-(e),
-24(a)-(c), 25(a), 25(b) and 25(d)). 25(c) runs no kernel: its frontends
+24(a)-(c), 25(a), 25(b), 25(d) and 26(a)-(d); 26(e)'s comparison
+launches are not counted). 25(c) runs no kernel: its frontends
 read the hot cache's shared memory on the host. 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
@@ -2358,17 +2397,19 @@ def _chaos_plan(chaos):
     ])
 
 
-# phase 14(b)'s schedule over its 62 batches, a checkpoint after every
-# 12th (the run is deterministic: a CPU run of this phase gave these
-# places): the fence crash in batch 15 (restore to 12); a page reload
-# crash two batches later (a restored engine holds every row in pages, so
-# it reads pages fast: batch 14); the second checkpoint written (batch 24)
-# torn; the exchange crash at the run's 38th batch, batch 31 of the third
-# incarnation, which restores past the torn checkpoint to 12
-CHAOS_CHECKPOINT_EVERY = 12
-CHAOS_FENCE_NTH = 16
+# phase 14(b)'s records (13(a)'s 4M cut to 2M — 31 batches — to keep the
+# whole script under 950 s) and its schedule, a checkpoint after every
+# 8th batch (the run is deterministic: a CPU run of this phase gave these
+# places and 3 crashes, 3 restores, 5 checkpoints, the torn one skipped):
+# the fence crash at the 10th fence (restore to batch 8); a page reload
+# broken past its retries at the 400th reload; the second checkpoint
+# written torn; the exchange crash at the run's 24th batch, restored past
+# the torn checkpoint
+CHAOS_RECORDS = 2_000_000
+CHAOS_CHECKPOINT_EVERY = 8
+CHAOS_FENCE_NTH = 10
 CHAOS_RELOAD_NTH = 400
-CHAOS_EXCHANGE_NTH = 38
+CHAOS_EXCHANGE_NTH = 24
 
 
 def ckpt_mesh_chaos(torch, tmp: str, records: int, device: str = "cuda"):
@@ -2639,8 +2680,8 @@ def phase_checkpoints(torch, q5_records: int = 40_000_000,
     ms.load_libraries(device)
     with tempfile.TemporaryDirectory(prefix="ckpt-") as tmp:
         a = ckpt_q5_crash(torch, q5_records, tmp, device)
-        # the fault schedule (CHAOS_*) is placed for 13(a)'s 4M records
-        b = ckpt_mesh_chaos(torch, tmp, ms.RECORDS, device)
+        # the fault schedule (CHAOS_*) is placed for CHAOS_RECORDS
+        b = ckpt_mesh_chaos(torch, tmp, CHAOS_RECORDS, device)
         c = [
             ckpt_card_equals_cpu(
                 torch, tmp, "revenue_slots_spill", _revenue_build(3_000_000),
@@ -3273,9 +3314,10 @@ def device_profile_per_call(fn, iters: int) -> dict:
 
 
 #: 16(a)'s records compared with the host backend (cut from the
-#: benchmark's 1<<19 when phase 23 came: the host backend runs ~15k
-#: events/s)
-CEP_CHECK_RECORDS = 1 << 18
+#: benchmark's 1<<19 when phase 23 came, and to 1<<17 when phase 26 came:
+#: the host backend runs ~15k events/s; every match of the run is held
+#: to the NumPy oracle all the same)
+CEP_CHECK_RECORDS = 1 << 17
 
 
 def cep_bench(torch, records: int, device: str) -> dict:
@@ -8309,6 +8351,562 @@ def phase_tenancy(torch, device: str = "cuda", small: bool = False,
     return {**out, "launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 26
+
+#: 26(a)'s records: row 5c at 2M of its 4M (the reference's mesh-session
+#: depth), cut to keep the whole script under 950 s
+ZIPF_RECORDS = 2_000_000
+#: 26(b)'s Q5 bids, micro-batch, and the batches after which a rescale
+#: request is queued (to 4 shards, then back to 8)
+SCALE_Q5_RECORDS, SCALE_Q5_BATCH, SCALE_Q5_PLAN = 4_000_000, 1 << 18, \
+    {4: 4, 10: 8}
+#: 26(e)'s destination counts (what a reshard or a rebalance gives D)
+SCALE_RANK_DS = (2, 3, 4, 7, 8)
+
+
+def _row_key(r):
+    return tuple(sorted((k, v.item() if hasattr(v, "item") else v)
+                        for k, v in r.items()))
+
+
+def _batch_rows(batches):
+    """Every row of fired batches as a sorted list of tuples, floats by
+    their bits (``np.float32`` columns viewed as uint32)."""
+    out = []
+    for b in batches:
+        names = sorted(b.names())
+        cols = []
+        for n in names:
+            c = np.asarray(b[n])
+            if c.dtype == np.float32:
+                c = c.view(np.uint32)
+            elif c.dtype == np.float64:
+                c = c.view(np.uint64)
+            cols.append(c.tolist())
+        out.extend(zip(*cols))
+    out.sort()
+    return out
+
+
+def scaleout_zipf(torch, device: str, records: int) -> dict:
+    """26(a): BASELINE row 5c (``benchmarks/mesh_sessions.py --zipf``):
+    the uniform control, the Zipf(1.1) run with the skew ladder live, and
+    the Zipf run's exact splits and watermarks replayed without the
+    ladder: every fired (key, start, end, sum) bit-identical."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+
+    ms.load_libraries(device)  # builds outside the timed runs
+    reset_counts()
+    t0 = time.perf_counter()
+    line = ms.run_zipf_row(records, device, check=True)
+    wall = time.perf_counter() - t0
+    _sync(torch, device)
+    counts = read_counts()
+    skew = line["skew"]
+    if not line["bit_identical_to_unsplit"]:
+        raise AssertionError("26(a): the Zipf run's fires differ from the "
+                             "unsplit, unrebalanced run")
+    if device == "cuda" and (counts["exchange_rank"] <= 0
+                             or counts["ordered_fold"] <= 0):
+        raise AssertionError(f"26(a): launches {counts}")
+    print(f"phase 26(a): row 5c, {records} records, Zipf(1.1) keys: "
+          f"{line['events_per_s']:.0f} events/s against the uniform "
+          f"control's {line['uniform_events_per_s']:.0f} (ratio "
+          f"{line['skew_recovery_fraction']:.3f}) and the same Zipf splits "
+          f"without the ladder's {line['zipf_unsplit_events_per_s']:.0f}; "
+          f"{skew['rebalances']} "
+          f"live rebalances moving {skew['groups_moved']} key groups (the "
+          f"last handoff {skew['handoff_s'] * 1e3:.1f} ms), "
+          f"{skew['keys_split']} keys split {skew['hot_keys']}, "
+          f"{skew['salted_records']} salted records, "
+          f"{skew['salted_fires']} salted fires; load imbalance "
+          f"{skew['imbalance_contiguous']:.3f} on the contiguous layout, "
+          f"{skew['imbalance_live']:.3f} on the live table; "
+          f"{line['fired_rows']} fired rows bit-identical to the unsplit "
+          f"run; fire p99 {line['fire_latency_ms']['p99']:.1f} ms; "
+          f"{wall:.1f} s for the three runs; launches {counts}")
+    return {**line, "wall_s": wall, "launches": counts}
+
+
+def _q5_rescaled(device: str, records: int, batch: int, plan: dict):
+    """Q5 at P=8 through ``LocalExecutor`` (source pumps off, so a
+    request queued as the source hands out batch k is served at the
+    boundary after it): ``plan`` = {batch -> new shard count}. Returns
+    (sink, handoff reports, wall s)."""
+    import queue
+
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.cluster.local_executor import (
+        LocalExecutor,
+        RescaleRequest,
+    )
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    control = queue.Queue()
+    reqs = []
+
+    class Queueing(BidSource):
+        polled = 0
+
+        def poll_batch(self, n):
+            b = super().poll_batch(n)
+            self.polled += 1
+            if self.polled in plan:
+                reqs.append(RescaleRequest(plan[self.polled]))
+                control.put(reqs[-1])
+            return b
+
+    env = _q5_env(device, batch, {"execution.pipeline.in-flight-batches": 0})
+    sink = CollectSink()
+    build_q5(env, Queueing(total_records=records, num_auctions=AUCTIONS,
+                           events_per_second_of_eventtime=RATE),
+             size_ms=SIZE, slide_ms=SLIDE, device_top_k=TOP_K).sink_to(sink)
+    t0 = time.perf_counter()
+    LocalExecutor(env.config).run(env.get_stream_graph(), "q5-rescale",
+                                  control_queue=control)
+    wall = time.perf_counter() - t0
+    return sink, [r.wait(timeout=60) for r in reqs], wall
+
+
+def _ramp_source():
+    """tools/autoscale_smoke.py's load ramp as a source: steps of 1,500 /
+    6,000 / 1,500 records over 6,000 keys (gap-100 sessions), one step a
+    poll, integer-valued float32 values."""
+    from flink_tpu_torch.connectors.sources import Source
+    from flink_tpu_torch.core.records import RecordBatch
+
+    class Ramp(Source):
+        PHASES = [1500] * 3 + [6000] * 4 + [1500] * 4
+
+        def __init__(self):
+            rng = np.random.default_rng(23)
+            self.steps = []
+            for s, n in enumerate(self.PHASES):
+                keys = rng.integers(0, 6000, n).astype(np.int64)
+                vals = rng.integers(1, 6, n).astype(np.float32)
+                ts = np.sort(rng.integers(s * 80, s * 80 + 60, n)).astype(
+                    np.int64)
+                self.steps.append((keys, vals, ts))
+            self.pos = 0
+
+        def snapshot_position(self):
+            return {"pos": self.pos}
+
+        def restore_position(self, pos):
+            self.pos = int(pos["pos"])
+
+        def poll_batch(self, max_records):
+            if self.pos >= len(self.steps):
+                return None
+            keys, vals, ts = self.steps[self.pos]
+            self.pos += 1
+            return RecordBatch.from_pydict({"key": keys, "v": vals},
+                                           timestamps=ts)
+
+    return Ramp()
+
+
+def _ramp_job(device: str, autoscale: bool):
+    """The ramp's session job at P=2 (gap 100, float32 Sum, 1,024 rows a
+    shard: the paged tier); with ``autoscale`` the executor's controller
+    runs on a FAKE clock with scripted signals (one second and the ramp's
+    busy share — load / peak — a batch), as tools/autoscale_smoke.py
+    drives it: 2 -> 4 on the ramp-up, 4 -> 2 on the ramp-down."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.autoscale.controller import SignalSample
+    from flink_tpu_torch.cluster.local_executor import LocalExecutor
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+
+    conf = {"parallelism.default": 2, "execution.device": device,
+            "execution.micro-batch.size": 8192,
+            "execution.pipeline.in-flight-batches": 0,
+            "state.slot-table.capacity": 1 << 14,
+            "state.slot-table.max-device-slots": 1024}
+    if autoscale:
+        conf.update({"autoscale.enabled": True, "autoscale.interval-ms": 0,
+                     "autoscale.cooldown-ms": 2000,
+                     "autoscale.utilization-target": 0.5,
+                     "autoscale.hysteresis": 0.25,
+                     "autoscale.min-shards": 2, "autoscale.max-shards": 4})
+    env = StreamExecutionEnvironment(Configuration(conf))
+    src = _ramp_source()
+    sink = CollectSink()
+    (env.from_source(src, WatermarkStrategy.for_bounded_out_of_orderness(20))
+     .key_by("key").window(EventTimeSessionWindows.with_gap(100)).sum("v")
+     .sink_to(sink))
+    holder = {}
+
+    class Scripted(LocalExecutor):
+        def _setup_autoscale(self, nodes, job_group, pumps, watchdog=None):
+            ctl = super()._setup_autoscale(nodes, job_group, pumps,
+                                           watchdog)
+            if ctl is None:
+                return None
+
+            def clock():
+                return float(src.pos)
+
+            def sample():
+                seen = src.steps[:src.pos]
+                return SignalSample(
+                    records_total=float(sum(len(s[0]) for s in seen)),
+                    busy_ms_total=sum(min(len(s[0]) / 6000.0, 1.0) * 1000.0
+                                      for s in seen),
+                    shard_resident_rows=ctl.engine_rows())
+
+            target = next(n.operator for n in nodes.values()
+                          if n.operator is not None and getattr(
+                              n.operator, "supports_live_rescale", False))
+            ctl.engine_rows = target.shard_resident_rows
+            ctl._clock = ctl.policy._clock = clock
+            ctl.sample_fn = sample
+            holder["ctl"] = ctl
+            return ctl
+
+    t0 = time.perf_counter()
+    res = Scripted(env.config).run(env.get_stream_graph(), "ramp")
+    return sink, res, holder.get("ctl"), time.perf_counter() - t0
+
+
+def scaleout_q5(torch, device: str, records: int, batch: int) -> dict:
+    """26(b): Q5 at P=8 rescaled live by ``RescaleRequest`` to 4 shards
+    and back to 8, bit-identical to the uninterrupted run (and to phase
+    5's oracle); then the load ramp with ``autoscale.enabled``: 2 -> 4 ->
+    2 logical shards, at least two live handoffs, rows equal the run
+    without the autoscaler (exact: integer-valued float32)."""
+    reset_counts()
+    sink, reps, wall = _q5_rescaled(device, records, batch, SCALE_Q5_PLAN)
+    _sync(torch, device)
+    counts = read_counts()
+    clean, _, clean_wall = _q5_rescaled(device, records, batch, {})
+    got = sorted(_row_key(r) for r in sink.rows())
+    if got != sorted(_row_key(r) for r in clean.rows()):
+        raise AssertionError("26(b): the rescaled Q5 differs from the "
+                             "uninterrupted run")
+    windows = _stage_check_q5(sink, records, "26(b) Q5 rescaled")
+    path = [(r["from"], r["to"]) for r in reps]
+    if path != [(8, 4), (4, 8)] or not all(r["rows_moved"] for r in reps):
+        raise AssertionError(f"26(b): handoffs {reps}")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError(f"26(b): launches {counts}")
+    reset_counts()
+    ramp_sink, ramp_res, ctl, ramp_wall = _ramp_job(device, True)
+    _sync(torch, device)
+    ramp_counts = read_counts()
+    plain_sink, _, _, _ = _ramp_job(device, False)
+    auto = ramp_res.metrics.get("autoscale") or {}
+    ramp_path = auto.get("path", [])
+    if (2, 4) not in ramp_path or (4, 2) not in ramp_path \
+            or auto.get("live_handoffs", 0) < 2:
+        raise AssertionError(f"26(b): the ramp's autoscale {auto}")
+    if _batch_rows(ramp_sink.batches) != _batch_rows(plain_sink.batches):
+        raise AssertionError("26(b): the autoscaled ramp's rows differ from "
+                             "the run without the autoscaler")
+    if device == "cuda" and (ramp_counts["exchange_rank"] <= 0
+                             or ramp_counts["ordered_fold"] <= 0):
+        raise AssertionError(f"26(b) ramp: launches {ramp_counts}")
+    out = {"q5_records": records, "handoffs": reps, "q5_wall_s": wall,
+           "q5_uninterrupted_wall_s": clean_wall,
+           "q5_events_per_s": records / wall,
+           "q5_uninterrupted_events_per_s": records / clean_wall,
+           "windows": windows, "ramp_path": ramp_path,
+           "ramp_handoff_ms": auto.get("handoff_ms"),
+           "ramp_rows": len(ramp_sink.rows()), "ramp_wall_s": ramp_wall,
+           "launches": {k: counts[k] + ramp_counts[k] for k in counts}}
+    print(f"phase 26(b): Q5 at P=8 on {records} bids, RescaleRequest 8 -> 4 "
+          f"after batch {min(SCALE_Q5_PLAN)} and 4 -> 8 after batch "
+          f"{max(SCALE_Q5_PLAN)}: handoffs "
+          + ", ".join(f"{r['from']}->{r['to']} {r['seconds'] * 1e3:.1f} ms "
+                      f"({r['rows_moved']} rows moved)" for r in reps)
+          + f"; {records / wall:.0f} events/s against "
+          f"{records / clean_wall:.0f} uninterrupted; rows bit-identical "
+          f"to the uninterrupted run, {windows} windows equal the oracle; "
+          f"autoscale.enabled on the fake-clock ramp: path {ramp_path}, "
+          f"{auto.get('live_handoffs')} live handoffs "
+          f"({auto.get('handoff_ms')} ms), {out['ramp_rows']} rows equal "
+          f"the run without the autoscaler; launches {out['launches']}")
+    return out
+
+
+def _interval_stream(steps: int, n: int, keys: int, seed: int = 4):
+    rng = np.random.default_rng(seed)
+    out = []
+    for step in range(steps):
+        for side in (0, 1):
+            ks = rng.integers(0, keys, n).astype(np.int64)
+            ts = step * 100 + rng.integers(0, 100, n).astype(np.int64)
+            vs = rng.integers(0, 1000, n).astype(np.float32)
+            out.append((side, {"__key_id__": ks, "v" if side == 0 else "w":
+                               vs, "__ts__": ts}, step * 100 - 200))
+    return out
+
+
+def scaleout_joins_cep(torch, device: str, small: bool) -> dict:
+    """26(c): the interval join (16 steps of two sides) and the mesh CEP
+    engine (tools/cep_smoke.py's 3-stage pattern) at P=8, each resharded
+    8 -> 4 mid-stream: their outputs equal their runs without a reshard
+    (as sorted rows, bit for bit: a reshard changes the shard order rows
+    leave in)."""
+    from flink_tpu_torch.cep.mesh_engine import MeshCepEngine
+    from flink_tpu_torch.core.records import RecordBatch
+    from flink_tpu_torch.joins import MeshIntervalJoinEngine
+
+    n, keys = (1 << 15, 50_000) if not small else (2048, 5000)
+    stream = _interval_stream(16, n, keys)
+    out = {"launches": {"exchange_rank": 0, "ordered_fold": 0}}
+    joined = {}
+    for resh in (True, False):
+        eng = MeshIntervalJoinEngine(-20, 20, num_shards=8, device=device)
+        rows = []
+        if resh:
+            reset_counts()
+        t0 = time.perf_counter()
+        for i, (side, c, wm) in enumerate(stream):
+            if resh and i == len(stream) // 2:
+                rep = eng.reshard(4)
+                out["join_handoff"] = rep
+            rows += eng.process_batch(RecordBatch(c), side)
+            rows += eng.on_watermark(wm)
+        rows += eng.on_watermark(1 << 40)
+        _sync(torch, device)
+        if resh:
+            out["join_wall_s"] = time.perf_counter() - t0
+            c1 = read_counts()
+            for k in c1:
+                out["launches"][k] += c1[k]
+        joined[resh] = _batch_rows(rows)
+    if joined[True] != joined[False] or not joined[True]:
+        raise AssertionError("26(c): the resharded join differs from the "
+                             "run without a reshard")
+    cep_n, cep_keys = (1 << 15, 20_000) if not small else (2048, 2000)
+    pattern = _cep_patterns()["seq3_skip_past"]
+    rng = np.random.default_rng(11)
+    steps, ts = [], 0
+    for _ in range(16):
+        k = rng.integers(0, cep_keys, cep_n).astype(np.int64)
+        v = rng.integers(0, 9, cep_n).astype(np.int64)
+        tss = ts + np.sort(rng.integers(0, 30, cep_n)).astype(np.int64)
+        ts += 25
+        steps.append((k, v, tss, ts - 5))
+    matched = {}
+    for resh in (True, False):
+        eng = MeshCepEngine(pattern, key_field="k", num_shards=8,
+                            device=device, capacity_per_shard=1 << 16)
+        rows = []
+        if resh:
+            reset_counts()
+        t0 = time.perf_counter()
+        for i, (k, v, tss, wm) in enumerate(steps):
+            if resh and i == len(steps) // 2:
+                out["cep_handoff"] = eng.reshard(4)
+            rows += eng.process_batch(RecordBatch.from_pydict(
+                {"k": k, "v": v, "__key_id__": k}, timestamps=tss))
+            rows += eng.on_watermark(wm)
+        rows += eng.on_watermark(1 << 40)
+        _sync(torch, device)
+        if resh:
+            out["cep_wall_s"] = time.perf_counter() - t0
+            c1 = read_counts()
+            for kk in c1:
+                out["launches"][kk] += c1[kk]
+        matched[resh] = _batch_rows(rows)
+    if matched[True] != matched[False] or not matched[True]:
+        raise AssertionError("26(c): the resharded CEP differs from the run "
+                             "without a reshard")
+    if device == "cuda" and out["launches"]["exchange_rank"] <= 0:
+        raise AssertionError(f"26(c): launches {out['launches']}")
+    out.update(join_rows=len(joined[True]), cep_matches=len(matched[True]))
+    jh, ch = out["join_handoff"], out["cep_handoff"]
+    print(f"phase 26(c): interval join at P=8 ({16 * 2 * n} rows) resharded "
+          f"8 -> 4 mid-stream in {jh['seconds'] * 1e3:.1f} ms "
+          f"({jh['rows_moved']} rows moved): {len(joined[True])} joined "
+          f"rows equal the run without a reshard; mesh CEP at P=8 "
+          f"({16 * cep_n} events) resharded 8 -> 4 in "
+          f"{ch['seconds'] * 1e3:.1f} ms ({ch['rows_moved']} rows moved): "
+          f"{len(matched[True])} matches equal; launches {out['launches']}")
+    return out
+
+
+def scaleout_tenancy(torch, tmp: str, device: str, records: int) -> dict:
+    """26(d): a ``SessionCluster`` with two held Q5 jobs at P=2 (the
+    replica on) and the arbiter ticking every 5 ms: at least one live
+    rescale served, no rescale error; at the held cut every auction's
+    replica answer equals the live engine's; each job's rows equal its
+    solo run (exact: counts)."""
+    from flink_tpu_torch.benchmarks.held import release
+    from flink_tpu_torch.benchmarks.nexmark import BidSource, build_q5
+    from flink_tpu_torch.connectors.sinks import CollectSink
+    from flink_tpu_torch.tenancy.arbiter import ShardArbiter
+    from flink_tpu_torch.tenancy.session_cluster import SessionCluster
+
+    conf = {"parallelism.default": 2, "serving.replica": True}
+    batch = 1 << 17
+    cluster = SessionCluster(arbiter=ShardArbiter(8),
+                             arbitrate_every_s=0.005)
+    jobs = {}
+    for name in ("x", "y"):
+        hold = os.path.join(tmp, f"scale-{name}")
+        env, sink = _held_q5_env(device, hold, records, batch, conf)
+        cluster.submit(env, name)
+        jobs[name] = (sink, hold)
+    reset_counts()
+    t0 = time.perf_counter()
+    th, out = _cluster_in_thread(cluster)
+    keys = list(range(0, AUCTIONS, 7))
+    compared = 0
+    try:
+        _until(lambda: all(os.path.exists(os.path.join(h, "held"))
+                           for _, h in jobs.values())
+               or not th.is_alive(), 600, "26(d)'s holds")
+        _until(lambda: sum(j.rescales_served for j in cluster.jobs.values())
+               >= 1 or not th.is_alive(), 120, "26(d)'s first rescale")
+        for name in jobs:
+            job = cluster.jobs[name]
+            _cut(job.control, Q5_OP, list(range(64)))
+            live = _query_all(job.control, Q5_OP, keys)
+            rep = cluster.lookup_batch(name, Q5_OP, keys)
+            compared += _answers_equal(rep, live,
+                                       f"26(d) {name} replica vs live")
+        # the arbiter stops before the streams end: a request it posts
+        # as a job terminates would be failed by the ending job
+        cluster.arbitrate_every_s = 0.0
+        time.sleep(0.05)
+        _until(lambda: all(j._pending_rescale is None
+                           or j._pending_rescale._done.is_set()
+                           for j in cluster.jobs.values()), 120,
+               "26(d)'s last rescale")
+    finally:
+        for _, h in jobs.values():
+            release(h)
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    _sync(torch, device)
+    counts = read_counts()
+    if "error" in out:
+        raise out["error"]
+    served = {n: j.rescales_served for n, j in cluster.jobs.items()}
+    errors = {n: j.rescale_errors for n, j in cluster.jobs.items()}
+    if sum(served.values()) < 1 or any(errors.values()):
+        raise AssertionError(
+            f"26(d): rescales served {served}, errors {errors} "
+            + repr({n: j.last_rescale_error
+                    for n, j in cluster.jobs.items()}))
+    for name, (sink, _) in jobs.items():
+        env = _q5_env(device, batch, {"parallelism.default": 2})
+        solo = CollectSink()
+        build_q5(env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                                events_per_second_of_eventtime=RATE),
+                 size_ms=SIZE, slide_ms=SLIDE,
+                 device_top_k=TOP_K).sink_to(solo)
+        env.execute("solo")
+        if sorted(_row_key(r) for r in sink.rows()) != \
+                sorted(_row_key(r) for r in solo.rows()):
+            raise AssertionError(f"26(d): job {name}'s rows differ from its "
+                                 "solo run")
+    if device == "cuda" and counts["exchange_rank"] <= 0:
+        raise AssertionError(f"26(d): launches {counts}")
+    shards = {n: int(j.handle.stateful_operators()[0].windower.P)
+              if j.handle is not None else None
+              for n, j in cluster.jobs.items()}
+    print(f"phase 26(d): SessionCluster with two Q5 jobs ({records} bids "
+          f"each, P=2 at submit) and the arbiter ticking every 5 ms: "
+          f"rescales served {served}, errors {errors}; replica answers at "
+          f"the held cut equal the live engine's ({compared} values); each "
+          f"job's rows equal its solo run; {wall:.1f} s; launches {counts}")
+    return {"served": served, "errors": errors, "values_compared": compared,
+            "final_shards": shards, "wall_s": wall, "launches": counts}
+
+
+def scaleout_rank(torch, device: str, small: bool) -> dict:
+    """26(e): the rank kernel against ``exchange_rank_flat_plain`` on the
+    destination columns a rebalanced plane gives it: R=8 source chunks of
+    C=131,072 Zipf(1.1) keys, routed by a ``KeyGroupAssignment`` that the
+    ``RebalancePolicy`` moved off the contiguous layout at each D (so the
+    destinations are skewed and non-contiguous), the padded lanes at D.
+    Max abs err must be 0 at every D. These comparison launches are not
+    counted."""
+    from flink_tpu_torch.autoscale import RebalancePolicy
+    from flink_tpu_torch.parallel.load import ShardLoadAccountant
+    from flink_tpu_torch.state.keygroups import KeyGroupAssignment
+    from flink_tpu_torch.stateplane.rank import (
+        exchange_rank_flat,
+        exchange_rank_flat_plain,
+        rank,
+    )
+
+    R, C = (8, 131072) if not small else (8, 4096)
+    rng = np.random.default_rng(26)
+    keys = ((rng.zipf(1.1, R * C) - 1) % 10_000_000).astype(np.int64)
+    rows = []
+    before = rank.launches
+    for D in SCALE_RANK_DS:
+        acc = ShardLoadAccountant(D, 128, top_k=64)
+        acc.note_batch(keys)
+        cur = KeyGroupAssignment.contiguous(D, 128)
+        plan = RebalancePolicy(imbalance_trigger=1.0, hysteresis=0.0,
+                               cooldown_s=0.0, max_moves=32).plan(acc, cur)
+        asg = plan.assignment or cur
+        dst = asg.shard_of_keys(keys, 128).astype(np.int32).reshape(R, C)
+        dst[:, C - C // 16:] = D  # the padded tail of each chunk
+        counts = np.stack([np.bincount(r, minlength=D + 1)[:D]
+                           for r in dst])
+        W = int(counts.max())
+        d = torch.from_numpy(dst).to(device)
+        got = exchange_rank_flat(d, D, W)
+        want = exchange_rank_flat_plain(d, D, W)
+        err = float((got - want).abs().max().item())
+        if err != 0.0:
+            raise AssertionError(f"26(e): rank kernel differs at D={D}: "
+                                 f"max abs err {err}")
+        ms = cuda_ms(lambda: exchange_rank_flat(d, D, W), 50) \
+            if device == "cuda" else None
+        rows.append({"D": D, "W": W, "moves": len(plan.moves),
+                     "contiguous": asg.is_contiguous,
+                     "imbalance": [plan.imbalance_before,
+                                   plan.imbalance_after],
+                     "max_abs_err": err, "ms": ms})
+    print("phase 26(e): the rank kernel on rebalanced Zipf destinations at "
+          f"R={R} C={C}: "
+          + "; ".join(f"D={r['D']} W={r['W']} ({r['moves']} moves, "
+                      f"imbalance {r['imbalance'][0]:.2f} -> "
+                      f"{r['imbalance'][1]:.2f}) err {r['max_abs_err']}"
+                      + (f" {r['ms']:.4f} ms" if r["ms"] is not None
+                         else "") for r in rows)
+          + f"; {rank.launches - before} comparison launches (not counted)")
+    return {"cases": rows}
+
+
+def phase_scaleout(torch, device: str = "cuda", small: bool = False) -> dict:
+    """Phase 26: scale-out and skew (see the module doc).
+    ``device="cpu", small=True`` rehearses it at a cut size without a
+    card."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    t_phase = time.perf_counter()
+    a = scaleout_zipf(torch, device, ZIPF_RECORDS if not small else 200_000)
+    b = scaleout_q5(torch, device,
+                    SCALE_Q5_RECORDS if not small else 300_000,
+                    SCALE_Q5_BATCH if not small else 1 << 14)
+    c = scaleout_joins_cep(torch, device, small)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        d = scaleout_tenancy(torch, os.path.abspath(tmp), device,
+                             1_000_000 if not small else 100_000)
+    e = scaleout_rank(torch, device, small)
+    launches = {"exchange_rank": 0, "ordered_fold": 0}
+    for part in (a, b, c, d):
+        for k in launches:
+            launches[k] += part["launches"][k]
+    seconds = time.perf_counter() - t_phase
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e}
+    print(f"phase 26: {seconds:.1f} s; launches {launches}")
+    print("scaleout " + json.dumps(out, default=str))
+    return {**out, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
@@ -8381,10 +8979,11 @@ def main() -> int:
     cluster = phase_cluster(torch)
     serving = phase_serving(torch, mc_reads=cluster["a"].pop("queries"))
     tenancy = phase_tenancy(torch, prior=serving)
+    scaleout = phase_scaleout(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
             *slice11.values(), shard_loss, process, sql, slice21, stage,
-            cluster, serving, tenancy)
+            cluster, serving, tenancy, scaleout)
 
     kernels = [{
         "name": "exchange_rank",

@@ -1,8 +1,9 @@
 """BASELINE row 5 on the mesh session engine: the uniform-key mode of
-``tools/bench_mesh_sessions.py`` on the port.
+``tools/bench_mesh_sessions.py`` on the port, and its Zipf mode (row 5c).
 
     python3 -m flink_tpu_torch.benchmarks.mesh_sessions [--records N]
         [--reps N] [--device cuda|cpu] [--deadline-ms MS]
+        [--zipf [--zipf-s S] [--check]]
 
 Drives ``MeshSessionEngine`` directly at the reference's thrashing shape:
 P=8, gap 2,000 ms, float32 Sum of ``v`` (ones), keys uniform over 10M
@@ -24,6 +25,19 @@ Prints one JSON line: events/s (the median rep), fire p50/p99, the spill
 counters, the page-rewrite amplification ``(rows_split_on_reload +
 rows_compacted) / rows_reloaded`` and a host breakdown. The device
 defaults to the card.
+
+Zipf mode (``--zipf``, BASELINE row 5c ``mesh_sessions_zipf``): the same
+shape with the key column drawn Zipf(``--zipf-s``, default 1.1) over the
+10M-key space (``(rng.zipf(s) - 1) % 10M``), and the skew ladder live:
+``parallel/load.ShardLoadAccountant`` -> ``autoscale/rebalance.
+RebalancePolicy`` -> ``SkewResponder`` moves hot key groups between
+shards at batch boundaries (``reassign_key_groups``) and splits dominant
+keys (``register_hot_key``, 16 salts). A uniform control run of the same
+shape is the denominator of ``skew_recovery_fraction``. The row fails as
+VACUOUS when no live move happened or nothing was salted. ``--check``
+replays the Zipf run's exact ingest splits and watermarks on an engine
+without the ladder and requires every fired (key, start, end, sum) to be
+bit-identical (the values are ones: integer-valued float32).
 """
 
 from __future__ import annotations
@@ -46,17 +60,26 @@ BATCH = 1 << 16
 DEADLINE_MS = 25.0
 PARALLELISM = 8
 SEED = 3
+ZIPF_S = 1.1
+#: the skew ladder's settings (``tools/bench_mesh_sessions.py`` defaults)
+SKEW_TOPK = 64
+SKEW_TRIGGER = 1.25
+SKEW_SALTS = 16
 
 
-def stream_batches(total: int):
+def stream_batches(total: int, zipf: float = 0.0):
     """The bench's records, batch by batch: ``(keys, timestamps)`` with
-    keys uniform over ``NUM_KEYS`` from ``default_rng(SEED)`` and
-    timestamps rising at ``EVENTS_PER_S_OF_EVENTTIME``."""
+    keys uniform over ``NUM_KEYS`` (or Zipf(``zipf``) ranks folded into
+    it) from ``default_rng(SEED)`` and timestamps rising at
+    ``EVENTS_PER_S_OF_EVENTTIME``."""
     rng = np.random.default_rng(SEED)
     produced = 0
     while produced < total:
         b = min(BATCH, total - produced)
-        keys = rng.integers(0, NUM_KEYS, b).astype(np.int64)
+        if zipf > 0:
+            keys = ((rng.zipf(zipf, b) - 1) % NUM_KEYS).astype(np.int64)
+        else:
+            keys = rng.integers(0, NUM_KEYS, b).astype(np.int64)
         ts = ((produced + np.arange(b, dtype=np.int64)) * 1000
               // EVENTS_PER_S_OF_EVENTTIME)
         yield keys, ts
@@ -69,13 +92,33 @@ def amplification(counters) -> float:
             / max(counters["rows_reloaded"], 1))
 
 
+def make_responder(eng):
+    """The skew ladder on ``eng``: load accounting -> live key-group
+    moves -> hot-key splitting (a 64-counter sketch keeps the dominant
+    keys' shares above the split threshold under a 10M-key tail)."""
+    from flink_tpu_torch.autoscale import RebalancePolicy, SkewResponder
+    from flink_tpu_torch.parallel.load import ShardLoadAccountant
+
+    acc = ShardLoadAccountant(eng.P, eng.max_parallelism, ewma_alpha=0.5,
+                              top_k=SKEW_TOPK)
+    return SkewResponder(
+        eng, acc, policy=RebalancePolicy(imbalance_trigger=SKEW_TRIGGER,
+                                         hysteresis=0.05, cooldown_s=2.0,
+                                         max_moves=16),
+        salts=SKEW_SALTS, hot_key_share=0.5, allow_inexact=True)
+
+
 def run(total: int, device: str = "cuda", deadline_ms: float = DEADLINE_MS,
-        collect: bool = False) -> dict:
+        collect: bool = False, zipf: float = 0.0, respond: bool = False,
+        schedule=None) -> dict:
     """One pass; returns events/s, sessions fired, fire latency, spill
     counters, a host breakdown and the engine. ``collect`` keeps every
-    fired batch and the record index each ingest split started at (the
+    fired batch, the record index each ingest split started at (the
     watermark before a split is the last timestamp before it: what an
-    oracle needs to place sessions exactly)."""
+    oracle needs to place sessions exactly) and the ``schedule`` — per
+    split ``(batch, a, z, watermarks)`` — that ``schedule=`` replays
+    exactly. ``zipf`` > 0 draws Zipf keys; ``respond`` runs the skew
+    ladder at every batch boundary (``skew`` in the result)."""
     from flink_tpu_torch.core.records import (
         KEY_ID_FIELD,
         TIMESTAMP_FIELD,
@@ -90,6 +133,13 @@ def run(total: int, device: str = "cuda", deadline_ms: float = DEADLINE_MS,
                             capacity_per_shard=BUDGET_PER_SHARD,
                             max_device_slots=BUDGET_PER_SHARD)
     deadline_s = deadline_ms / 1000.0
+    responder = make_responder(eng) if respond else None
+    plan = None
+    if schedule is not None:
+        plan = {}
+        for bi, a, z, wms in schedule:
+            plan.setdefault(bi, []).append((a, z, wms))
+    taken = []          # the schedule this pass ran
     pending = deque()   # (PendingFire, watermark-advance start time)
     lat = []            # fire latency, ms
     batches = []
@@ -116,25 +166,38 @@ def run(total: int, device: str = "cuda", deadline_ms: float = DEADLINE_MS,
     try:
         t0 = time.perf_counter()
         produced = 0
-        for keys, ts in stream_batches(total):
+        for bi, (keys, ts) in enumerate(stream_batches(total, zipf)):
             b = len(keys)
-            if deadline_s <= 0:
-                chunk = b
-            elif rate <= 0:
-                chunk = 16384  # seed until the rate EMA settles
+            if plan is not None:
+                splits = plan.get(bi, [])
             else:
-                chunk = 1 << max(int(rate * deadline_s) * 4,
-                                 8192).bit_length()
-            for a in range(0, b, chunk):
-                z = min(a + chunk, b)
+                splits = []
                 if deadline_s <= 0:
-                    quanta = 1
+                    chunk = b
+                elif rate <= 0:
+                    chunk = 16384  # seed until the rate EMA settles
                 else:
-                    per_q = 1 << max(int(rate * deadline_s),
-                                     2048).bit_length()
-                    quanta = min(max((z - a + per_q - 1) // per_q, 1), 32)
+                    chunk = 1 << max(int(rate * deadline_s) * 4,
+                                     8192).bit_length()
+                a = 0
+                while a < b:
+                    splits.append((a, min(a + chunk, b), None))
+                    a += chunk
+            for a, z, wms in splits:
+                if wms is None:
+                    if deadline_s <= 0:
+                        quanta = 1
+                    else:
+                        per_q = 1 << max(int(rate * deadline_s),
+                                         2048).bit_length()
+                        quanta = min(max((z - a + per_q - 1) // per_q, 1),
+                                     32)
+                    wms = [int(ts[w - 1]) for w in
+                           (a + (z - a) * (j + 1) // quanta
+                            for j in range(quanta)) if w > a]
                 if collect:
                     split_starts.append(produced + a)
+                    taken.append((bi, a, z, wms))
                 t1 = time.perf_counter()
                 eng.process_batch(RecordBatch({
                     KEY_ID_FIELD: keys[a:z],
@@ -142,19 +205,24 @@ def run(total: int, device: str = "cuda", deadline_ms: float = DEADLINE_MS,
                     TIMESTAMP_FIELD: ts[a:z]}))
                 t2 = time.perf_counter()
                 host["ingest_s"] += t2 - t1
-                for j in range(quanta):
-                    w = a + (z - a) * (j + 1) // quanta
-                    if w <= a:
-                        continue
+                for wm in wms:
                     t_wm = time.perf_counter()
-                    for pf in eng.on_watermark(int(ts[w - 1]),
-                                               async_ok=True):
+                    for pf in eng.on_watermark(wm, async_ok=True):
                         pending.append((pf, t_wm))
                     host["fire_dispatch_s"] += time.perf_counter() - t_wm
                     harvest()
                 step_rate = (z - a) / max(t2 - t1, 1e-9)
                 rate = step_rate if rate <= 0 else 0.7 * rate + 0.3 * step_rate
+                if responder is not None:
+                    responder.note_batch(keys[a:z])
             produced += b
+            if responder is not None:
+                # batch boundary: tick the accountant, maybe move hot
+                # groups and register splits (the cooldown bounds churn)
+                t_r = time.perf_counter()
+                responder.maybe_respond()
+                host["respond_s"] = host.get("respond_s", 0.0) + (
+                    time.perf_counter() - t_r)
         harvest(bound=0)
         # end of input: flush every live session (a shutdown drain, kept
         # out of the fire percentiles)
@@ -192,10 +260,100 @@ def run(total: int, device: str = "cuda", deadline_ms: float = DEADLINE_MS,
                                                 0.0)},
         "engine": eng,
     }
+    if responder is not None:
+        hot = eng.hot_key_stats()
+        out["skew"] = {
+            "rebalances": responder.rebalances,
+            "groups_moved": responder.groups_moved,
+            "keys_split": responder.keys_split,
+            "hot_keys": hot["keys"],
+            "salted_records": hot["salted_records"],
+            "salted_fires": hot["salted_fires"],
+            # the measured load imbalance under the live table, and what
+            # the contiguous layout would have concentrated
+            "imbalance_live": responder.accountant.imbalance(
+                eng.key_group_assignment),
+            "imbalance_contiguous": responder.accountant.imbalance(),
+            "assignment_contiguous": eng.key_group_assignment.is_contiguous,
+            "handoff_s": (eng.last_rebalance or {}).get("seconds", 0.0),
+        }
     if collect:
         out["batches"] = batches
         out["split_starts"] = split_starts
+        out["schedule"] = taken
     return out
+
+
+def fired_rows(batches) -> list:
+    """Every fired ``(key, start, end, sum bits)``, sorted."""
+    from flink_tpu_torch.core.records import KEY_ID_FIELD
+
+    rows = []
+    for b in batches:
+        for out in (b if isinstance(b, list) else [b]):
+            rows.extend(zip(
+                np.asarray(out[KEY_ID_FIELD]).tolist(),
+                np.asarray(out["window_start"]).tolist(),
+                np.asarray(out["window_end"]).tolist(),
+                np.asarray(out["sum_v"], dtype=np.float32).view(
+                    np.uint32).tolist()))
+    rows.sort()
+    return rows
+
+
+class VacuousSkewRun(RuntimeError):
+    """The Zipf row never moved a key group or never salted a record."""
+
+
+def run_zipf_row(total: int, device: str = "cuda",
+                 deadline_ms: float = DEADLINE_MS, zipf_s: float = ZIPF_S,
+                 check: bool = False) -> dict:
+    """BASELINE row 5c: the uniform control, then the Zipf run with the
+    skew ladder live; with ``check`` the Zipf run's exact schedule is
+    replayed without the ladder and every fired row must be
+    bit-identical. Raises :class:`VacuousSkewRun` when the ladder never
+    engaged (no live move, nothing salted)."""
+    uni = run(total, device, deadline_ms=deadline_ms)
+    uni.pop("engine")
+    z = run(total, device, deadline_ms=deadline_ms, zipf=zipf_s,
+            respond=True, collect=check)
+    eng = z.pop("engine")
+    skew = z["skew"]
+    line = {
+        "metric": "mesh_sessions_zipf_events_per_sec",
+        "events_per_s": z["events_per_s"],
+        "uniform_events_per_s": uni["events_per_s"],
+        "skew_recovery_fraction": z["events_per_s"] / max(
+            uni["events_per_s"], 1e-9),
+        "zipf_s": zipf_s,
+        "mesh_shards": eng.P,
+        "sessions_fired": z["sessions_fired"],
+        "uniform_sessions_fired": uni["sessions_fired"],
+        "skew": skew,
+        "fire_latency_ms": z["fire_latency_ms"],
+        "uniform_fire_latency_ms": uni["fire_latency_ms"],
+        "spill": z["spill"],
+        "breakdown": z["breakdown"],
+        "shape": (f"{total} records, Zipf({zipf_s}) keys over the 10M-key "
+                  f"space, 400k ev/s event time, 2 s gap, {eng.P}x"
+                  f"{BUDGET_PER_SHARD} device rows (paged spill), the skew "
+                  "ladder live; recovery = zipf/uniform events/s"),
+    }
+    if check:
+        plain = run(total, device, deadline_ms=deadline_ms, zipf=zipf_s,
+                    collect=True, schedule=z["schedule"])
+        plain.pop("engine")
+        got, want = fired_rows(z["batches"]), fired_rows(plain["batches"])
+        # the same Zipf splits without the ladder: its effect alone
+        line["zipf_unsplit_events_per_s"] = plain["events_per_s"]
+        line["fired_rows"] = len(got)
+        line["bit_identical_to_unsplit"] = got == want
+    if skew["rebalances"] < 1 or skew["salted_records"] == 0:
+        raise VacuousSkewRun(
+            f"skew row is VACUOUS: rebalances={skew['rebalances']}, "
+            f"salted_records={skew['salted_records']} — the skew ladder "
+            "never engaged on the Zipf shape")
+    return line
 
 
 def load_libraries(device: str) -> None:
@@ -219,8 +377,22 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--deadline-ms", type=float, default=DEADLINE_MS)
+    ap.add_argument("--zipf", action="store_true",
+                    help="BASELINE row 5c: Zipf keys, the skew ladder live")
+    ap.add_argument("--zipf-s", type=float, default=ZIPF_S)
+    ap.add_argument("--check", action="store_true",
+                    help="with --zipf: replay without the ladder and "
+                    "require bit-identical fires")
     args = ap.parse_args()
     load_libraries(args.device)
+    if args.zipf:
+        line = run_zipf_row(args.records, args.device, args.deadline_ms,
+                            args.zipf_s, check=args.check)
+        line["device"] = args.device
+        print(json.dumps(line, default=str))
+        if args.check and not line["bit_identical_to_unsplit"]:
+            raise SystemExit("zipf fires differ from the unsplit run")
+        return
     reps = [run(args.records, args.device, deadline_ms=args.deadline_ms)
             for _ in range(max(args.reps, 1))]
     by_rate = sorted(reps, key=lambda r: r["events_per_s"])

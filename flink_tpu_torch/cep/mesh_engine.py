@@ -38,9 +38,10 @@ Documented deviations from the oracle, none visible in emitted rows:
 
 Shard-granular units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
-the mesh window engines. Not ported, each raising
+the mesh window engines; live ``reshard`` lifts every row through the
+snapshot onto a rebuilt logical mesh. Not ported, raising
 ``NotImplementedError`` naming its ROADMAP item: ``shuffle_mode="host"``
-on the device backend (item 12h) and live ``reshard`` (12g). The
+on the device backend (item 12h). The
 matched-pattern read replica (``arm_match_replica``) publishes the match
 store's churn at every fire: :class:`CepMatchReplicaAdapter` composes the
 live ``query_match_batch`` shape, :class:`CepMatchServingAdapter` the
@@ -54,6 +55,7 @@ methods in host timers
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -336,10 +338,49 @@ class MeshCepEngine(WatchdogHooks):
             total += int(self._popcount(sh.alive[slots], Q).sum())
         return total
 
-    # -------------------------------------------------------- not ported
+    # ------------------------------------------------------------- reshard
 
-    def reshard(self, new_shards: int, devices=None):
-        raise _not_ported("live reshard", "12g")
+    def reshard(self, new_shards: int, devices=None) -> Dict[str, object]:
+        """LIVE key-group migration to ``new_shards`` logical shards: every
+        logical row (resident, paged, pending and retained matches) lifts
+        through the snapshot, the mesh rebuilds, and the rows land on
+        their new owners through the restore path; the counters survive
+        and the watchdog rebinds. ``devices``: only None (the logical
+        shards of one card have no device list)."""
+        if devices is not None:
+            raise ValueError(
+                "devices=: the logical shards of one card have no device "
+                "list (LogicalMesh)")
+        new_shards = int(new_shards)
+        if new_shards < 1:
+            raise ValueError("new_shards must be >= 1")
+        t0 = time.perf_counter()
+        self._drain_fences()
+        chaos.fault_point("rescale.handoff", stage="drain",
+                          shards=new_shards)
+        if self.backend == "host":
+            self.P = new_shards
+            chaos.fault_point("rescale.handoff", stage="commit",
+                              shards=new_shards)
+            return {"shards": self.P, "rows_moved": 0,
+                    "seconds": time.perf_counter() - t0}
+        snap = self.snapshot()
+        rows_moved = sum(len(np.asarray(snap[t]["key_id"]))
+                         for t in ("state", "pending", "matches"))
+        self.mesh = LogicalMesh(new_shards, self.device)
+        self.P = new_shards
+        if self.max_parallelism < self.P:
+            raise ValueError(
+                f"cannot reshard to {new_shards}: max_parallelism "
+                f"{self.max_parallelism}")
+        chaos.fault_point("rescale.handoff", stage="commit",
+                          shards=new_shards)
+        self._pool = ShuffleBufferPool(generations=2)
+        self.restore(snap)
+        if self._watchdog is not None:
+            self._watchdog.rebind(self.P, self._shard_ids())
+        return {"shards": self.P, "rows_moved": rows_moved,
+                "seconds": time.perf_counter() - t0}
 
     # --------------------------------------------------------------- ingest
 

@@ -26,8 +26,6 @@ span in the flight recorder's timeline.
 :func:`run_crash_restore_verify_multi` is the multi-tenant form: N jobs'
 engines advance interleaved, one step each per round, and a crash in one
 job restores THAT job only.
-
-Not carried: ``rebalances=`` (live rebalance, ROADMAP Queue A item 12g).
 """
 
 from __future__ import annotations
@@ -242,6 +240,7 @@ def run_crash_restore_verify(
     abs_tol: float = 1e-3,
     check: bool = True,
     rescales: Optional[Dict[int, int]] = None,
+    rebalances: Optional[Dict[int, Any]] = None,
 ) -> ChaosReport:
     """Run ``steps`` (a list of ``(keys, values, timestamps, watermark)``)
     through a chaotic engine with periodic checkpoints and through a
@@ -253,7 +252,15 @@ def run_crash_restore_verify(
     ``rescales``: {step position -> shard count} — before that step the
     engine LIVE-migrates its key groups (``engine.reshard``), optionally
     crashed by a ``rescale.handoff`` fault; after a restore the replayed
-    engine reshards again when it reaches a scheduled position."""
+    engine reshards again when it reaches a scheduled position.
+
+    ``rebalances``: {step position -> ``KeyGroupAssignment``, or a
+    callable ``engine -> assignment``} — before that step the engine
+    live-MOVES key groups between shards at unchanged P
+    (``engine.reassign_key_groups``), optionally crashed by a
+    ``rebalance.handoff`` fault. The assignment is routing state, not
+    checkpointed: a restored engine comes back contiguous and re-applies
+    the move when the replay reaches the position again."""
     from flink_tpu_torch.checkpoint.storage import CheckpointStorage
 
     if chaos.armed():
@@ -304,6 +311,13 @@ def run_crash_restore_verify(
                         int(getattr(engine, "P", 0)) != rescales[pos]:
                     engine.reshard(rescales[pos])
                     report.live_handoffs += 1
+                if rebalances and pos in rebalances:
+                    target = rebalances[pos]
+                    if callable(target):
+                        target = target(engine)
+                    rep = engine.reassign_key_groups(target)
+                    if rep.get("groups_moved", 0):
+                        report.live_handoffs += 1
                 if pos == n_steps:
                     # end of input: flush every remaining window
                     _collect(engine.on_watermark(

@@ -51,8 +51,8 @@ snapshot. ``result.metrics["savepoint"]`` names a stop's savepoint.
 answers a queryable-state lookup at the same boundary, on the task thread,
 so no read races the data path: the operator's ``query_state_batch``
 serves the whole batch with one gather and one device-to-host copy. Each
-boundary serves at most the requests already queued. A rescale request
-(12g) fails its future; requests still queued when the job ends fail too.
+boundary serves at most the requests already queued (a rescale request
+too, below); requests still queued when the job ends fail.
 
 Source pumps: with ``execution.pipeline.in-flight-batches`` > 0 (default
 2) each source is polled and timestamped by a thread of its own, a
@@ -79,8 +79,16 @@ yields a :class:`JobHandle` and then the records of each loop iteration:
 the tenancy session cluster (``tenancy/session_cluster.py``) interleaves
 several jobs' generators on one scheduler thread.
 
-Not in this slice: rescale requests and autoscale (ROADMAP.md Queue A
-item 12g), and the ``key_imbalance`` gauge (12g).
+Elastic rescale (ROADMAP.md Queue A item 12g): a
+:class:`RescaleRequest` on the control queue is served at a batch
+boundary after the in-flight fires drain, by the first operator whose
+engine migrates key groups live (``supports_live_rescale``); with ``autoscale.enabled`` an
+``AutoscaleController`` ticks in the batch loop and live-rescales that
+operator between logical shard counts, under the ceiling of
+``parallel/mesh.py`` ``logical_shard_ceiling`` (a watchdog-quarantined
+shard lowers it). ``result.metrics["autoscale"]`` summarises the
+rescales; each stateful operator's ``state`` group carries
+``key_imbalance``.
 """
 
 from __future__ import annotations
@@ -196,9 +204,18 @@ class StateQueryBatchRequest(_ControlRequest):
         self.namespace = namespace
 
 
+def _live_rescale_node(nodes):
+    """The first node whose operator migrates key groups live (a mesh
+    engine), or None."""
+    return next((n for n in nodes.values() if n.operator is not None
+                 and getattr(n.operator, "supports_live_rescale", False)),
+                None)
+
+
 class RescaleRequest(_ControlRequest):
-    """A live rescale of the job's mesh engine (served by the reference;
-    refused here, item 12g)."""
+    """A live rescale of the job's mesh engine to ``new_shards`` logical
+    shards, served at a batch boundary; the result is the engine's
+    handoff report."""
 
     timeout_message = "rescale not served"
 
@@ -564,6 +581,8 @@ class LocalExecutor:
                 "sourceBacklogRecordsEstimate",
                 lambda: sum(pump.queue.qsize() * pump.batch_size
                             for pump in pumps.values()))
+            autoscale = self._setup_autoscale(nodes, job_group, pumps,
+                                              watchdog=watchdog)
             batches_since_ckpt = 0
             last_ckpt = time.time() * 1000
             incremental = cfg.get(CheckpointOptions.INCREMENTAL)
@@ -606,6 +625,8 @@ class LocalExecutor:
                 if cancel_event is not None and cancel_event.is_set():
                     raise JobCancelledError(job_name)
                 self._drain_pending(nodes)
+                if autoscale is not None:
+                    autoscale.tick()
                 if pt_nodes:
                     now_ms = int(time.time() * 1000)
                     for n in pt_nodes:
@@ -770,6 +791,15 @@ class LocalExecutor:
             # execution.stage-parallelism was asked for and the graph could
             # not be expanded (execution.stage-fallback)
             metrics["stage_fallback"] = self.fallback_reason
+        if autoscale is not None and autoscale.events:
+            metrics["autoscale"] = {
+                "rescales": len(autoscale.events),
+                "live_handoffs": autoscale.live_handoffs,
+                "path": [(e.source, e.target) for e in autoscale.events],
+                "handoff_ms": [round(e.handoff_s * 1e3, 3)
+                               for e in autoscale.events
+                               if e.mode == "live"],
+            }
         if watchdog is not None:
             # the numbers the reference's job.<name>.watchdog gauges read
             metrics["watchdog"] = watchdog.counters()
@@ -827,6 +857,7 @@ class LocalExecutor:
                          lambda o=op: list(o.shard_resident_rows()))
                 sg.gauge("resident_rows",
                          lambda o=op: sum(o.shard_resident_rows()))
+                sg.gauge("key_imbalance", lambda o=op: o.key_imbalance())
         if hasattr(op, "fire_latencies_ms"):
             wg = g.add_group("window")
             wg.gauge("fireLatencyP50Ms",
@@ -841,6 +872,83 @@ class LocalExecutor:
         if hasattr(op, "late_records_dropped"):
             g.gauge("numLateRecordsDropped",
                     lambda o=op: o.late_records_dropped)
+
+    # ------------------------------------------------------------ autoscale
+
+    def _setup_autoscale(self, nodes, job_group, pumps, watchdog=None):
+        """The in-loop autoscale controller of the first keyed operator
+        whose engine rescales LIVE, when ``autoscale.enabled``. It ticks
+        at batch boundaries on the task loop, the single-owner point
+        where moving device state is race-free. The shard ceiling is
+        logical (``logical_shard_ceiling``); a watchdog-quarantined shard
+        lowers it."""
+        from flink_tpu_torch.core.config import AutoscaleOptions
+
+        cfg = self.config
+        if not cfg.get(AutoscaleOptions.ENABLED):
+            return None
+        target = _live_rescale_node(nodes)
+        if target is None:
+            return None
+        from flink_tpu_torch.autoscale.controller import (
+            AutoscaleController,
+            SignalSample,
+        )
+        from flink_tpu_torch.autoscale.policy import ScalingPolicy
+        from flink_tpu_torch.parallel.mesh import logical_shard_ceiling
+
+        engine = target.operator.windower
+        # the policy never targets what reshard() cannot do (a ValueError
+        # on the task loop would fail the job)
+        max_shards = logical_shard_ceiling(
+            engine, cfg.get(AutoscaleOptions.MAX_SHARDS))
+        min_shards = min(cfg.get(AutoscaleOptions.MIN_SHARDS), max_shards)
+        policy = ScalingPolicy(
+            utilization_target=cfg.get(AutoscaleOptions.UTILIZATION_TARGET),
+            hysteresis=cfg.get(AutoscaleOptions.HYSTERESIS),
+            cooldown_s=cfg.get(AutoscaleOptions.COOLDOWN_MS) / 1000.0,
+            min_shards=min_shards,
+            max_shards=max_shards,
+            imbalance_limit=cfg.get(AutoscaleOptions.IMBALANCE_LIMIT),
+            fire_deadline_ms=cfg.get(LatencyOptions.FIRE_DEADLINE_MS),
+            fire_breach_ticks=cfg.get(AutoscaleOptions.FIRE_BREACH_TICKS))
+        fire_seen = [0]  # fires_total at the previous sample
+
+        def fire_p99(node=target):
+            lat = getattr(node.operator, "fire_latencies_ms", None)
+            if not lat:
+                return 0.0
+            # no NEW fires since the last sample: no deadline miss now
+            total = getattr(node.operator, "fires_total", len(lat))
+            if total == fire_seen[0]:
+                return 0.0
+            fire_seen[0] = total
+            return quantile_sorted(sorted(list(lat)[-256:]), 0.99)
+
+        def sample(node=target):
+            return SignalSample(
+                records_total=node.records_in,
+                busy_ms_total=node.busy_s * 1000.0,
+                backlog=sum(p.queue.qsize() * p.batch_size
+                            for p in pumps.values()),
+                shard_resident_rows=node.operator.shard_resident_rows(),
+                fire_latency_p99_ms=fire_p99())
+
+        def apply(new_shards, node=target):
+            # in-flight fires reference the old planes: the drain
+            # boundary checkpoints use
+            self._drain_pending(nodes, wait=True)
+            if watchdog is not None:
+                # never scale onto a quarantined shard
+                new_shards = min(new_shards,
+                                 watchdog.available(max_shards))
+            return node.operator.reshard(new_shards)
+
+        return AutoscaleController(
+            policy, sample_fn=sample, apply_fn=apply,
+            current_shards_fn=lambda: int(target.operator.windower.P),
+            interval_s=cfg.get(AutoscaleOptions.INTERVAL_MS) / 1000.0,
+            metrics_group=job_group)
 
     # -------------------------------------------------------------- control
 
@@ -876,11 +984,19 @@ class LocalExecutor:
                 except BaseException as e:  # noqa: BLE001 - to the client
                     req.finish(None, e)
                 continue
-            if not isinstance(req, SavepointRequest):
-                req.finish(None, NotImplementedError(
-                    f"{type(req).__name__}: live rescale is not ported to "
-                    "flink_tpu_torch yet (ROADMAP.md, Queue A item 12g); "
-                    "the port serves SavepointRequest and state queries"))
+            if isinstance(req, RescaleRequest):
+                # in-flight fires reference the old planes: drain them,
+                # then migrate live — the boundary checkpoints use
+                try:
+                    self._drain_pending(nodes, wait=True)
+                    target = _live_rescale_node(nodes)
+                    if target is None:
+                        raise RuntimeError(
+                            f"job {job_name!r} has no live-rescalable "
+                            "operator (mesh engine required)")
+                    req.finish(target.operator.reshard(req.new_shards))
+                except BaseException as e:  # noqa: BLE001 - to the client
+                    req.finish(None, e)
                 continue
             try:
                 # a bad target fails before anything irreversible: the job

@@ -1874,8 +1874,8 @@ class StageParallelExecutor:
         """Serve one queued control request: a savepoint (or stop-with-
         savepoint) through the barrier machinery, or a state query routed
         to its owning keyed subtasks (reference
-        ``flink_tpu/cluster/stage_executor.py:1839``); a rescale fails
-        naming ROADMAP Queue A item 12g."""
+        ``flink_tpu/cluster/stage_executor.py:1839``); any other request
+        (a live rescale included) fails as the reference's does."""
         from flink_tpu_torch.cluster.local_executor import (
             SavepointRequest,
             StateQueryBatchRequest,
@@ -1893,10 +1893,9 @@ class StageParallelExecutor:
                 req.finish(None, e)
             return None
         if not isinstance(req, SavepointRequest):
-            req.finish(None, NotImplementedError(
-                f"{type(req).__name__}: live rescale is not ported to "
-                "flink_tpu_torch yet (ROADMAP.md, Queue A item 12g); the "
-                "stage executor serves SavepointRequest and state queries"))
+            # the reference's answer to any other request (a live rescale
+            # included: a stage job's subtasks each own their engine)
+            req.finish(None, RuntimeError(f"unsupported control {req!r}"))
             return None
         try:
             new_id = checkpoint_id + 1

@@ -312,10 +312,49 @@ class MemoryOptions:
 
 
 class AutoscaleOptions:
+    """Elastic rescaling of mesh-sharded keyed operators: a DS2-style
+    policy ticking inside the task loop, LIVE key-group migration between
+    logical shard counts (``autoscale/``)."""
+
     ENABLED = ConfigOption(
         "autoscale.enabled", default=False, type=bool,
-        description="The reference's live rescaling of mesh operators. "
-        "Not ported: true raises at execute() (ROADMAP item 12g).")
+        description="Tick a scaling policy inside the task loop and "
+        "LIVE-rescale mesh-sharded keyed operators (no stop-redeploy). "
+        "Requires an operator running a mesh engine (parallelism > 1).")
+    INTERVAL_MS = ConfigOption(
+        "autoscale.interval-ms", default=1000, type=int,
+        description="Policy sampling/decision interval.")
+    UTILIZATION_TARGET = ConfigOption(
+        "autoscale.utilization-target", default=0.7, type=float,
+        description="Size the operator so busy fraction lands here; the "
+        "headroom absorbs bursts without rescaling (DS2 utilization).")
+    MIN_SHARDS = ConfigOption(
+        "autoscale.min-shards", default=1, type=int,
+        description="Lower bound on the logical shard count.")
+    MAX_SHARDS = ConfigOption(
+        "autoscale.max-shards", default=0, type=int,
+        description="Upper bound on the logical shard count; 0 = the "
+        "stated default (parallel/mesh.py logical_shard_ceiling: 8, or "
+        "the engine's shard count if larger). Always bounded by "
+        "max_parallelism and the engine's key-group range; never by the "
+        "number of cards.")
+    COOLDOWN_MS = ConfigOption(
+        "autoscale.cooldown-ms", default=30_000, type=int,
+        description="Minimum time between rescales.")
+    HYSTERESIS = ConfigOption(
+        "autoscale.hysteresis", default=0.25, type=float,
+        description="Relative dead band: targets within this fraction of "
+        "the current size are noise and ignored.")
+    IMBALANCE_LIMIT = ConfigOption(
+        "autoscale.imbalance-limit", default=2.0, type=float,
+        description="Refuse to scale DOWN while max/mean resident rows "
+        "per shard exceeds this — a hot shard under key skew is not "
+        "spare capacity.")
+    FIRE_BREACH_TICKS = ConfigOption(
+        "autoscale.fire-breach-ticks", default=3, type=int,
+        description="Consecutive policy ticks the fire-latency p99 must "
+        "exceed latency.fire-deadline-ms before the fire-latency signal "
+        "triggers a scale-up.")
 
 
 class LatencyOptions:
@@ -517,7 +556,6 @@ class HighAvailabilityOptions:
 #: ``check_unread_keys`` raises at execute() for any other value, so no
 #: such key is dropped without a word.
 UNREAD_KEYS = (
-    (AutoscaleOptions.ENABLED, lambda v: not v, "live autoscaling", "12g"),
     (DeploymentOptions.SHUFFLE_HOSTS, lambda v: v <= 0,
      "the two-level exchange", "12h"),
 )

@@ -29,9 +29,10 @@ watermark's prunes each armed side publishes its identity churn (inserts,
 evictions, prunes — rows never change after insert) into the next sealed
 generation.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-the two-level exchange and ``shuffle_mode="host"`` (item 12h) and live
-``reshard`` (12g). ``query_side_batch`` reads a
+Live ``reshard`` lifts both sides through their snapshots onto a
+rebuilt logical mesh. Not ported, each raising ``NotImplementedError``
+naming its ROADMAP item: the two-level exchange and
+``shuffle_mode="host"`` (item 12h). ``query_side_batch`` reads a
 side's buffered rows per key: resident values through one gather and one
 copy back, cold rows from the page tiers.
 Each ingest and watermark is a flight-recorder span. Shard-granular
@@ -44,6 +45,7 @@ wrap the engine's methods in host timers instead
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -175,8 +177,6 @@ class JoinEngineBase(WatchdogHooks):
     def exchange2_traffic(self) -> Dict[str, int]:
         raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
 
-    def reshard(self, new_shards: int, devices=None):
-        raise _not_ported("live reshard", "12g")
 
     # ----------------------------------------------------------- data plane
 
@@ -987,6 +987,66 @@ class JoinEngineBase(WatchdogHooks):
 
     def _merge_meta_units(self, units) -> Dict[str, object]:
         return {}
+
+    # ------------------------------------------------------------- reshard
+
+    def reshard(self, new_shards: int, devices=None) -> Dict[str, object]:
+        """LIVE key-group migration to ``new_shards`` logical shards: both
+        sides' logical rows (resident and paged, dirtiness kept) lift
+        through their snapshots, the mesh and the side tables rebuild,
+        and the rows land on their new owners. The job-lifetime spill
+        counters survive. ``devices``: the logical shards of one card
+        have no device list; only None is accepted. (The two-level
+        exchange's host topology, which the reference drops here when it
+        no longer covers P, is item 12h: this engine never has one.)"""
+        if devices is not None:
+            raise ValueError(
+                "devices=: the logical shards of one card have no device "
+                "list (LogicalMesh)")
+        new_shards = int(new_shards)
+        if new_shards < 1:
+            raise ValueError("new_shards must be >= 1")
+        t0 = time.perf_counter()
+        self._drain_fences()
+        chaos.fault_point("rescale.handoff", stage="drain",
+                          shards=new_shards)
+        snaps = [self._side_snapshot(i) for i in (0, 1)]
+        rows_moved = sum(
+            len(np.asarray((s.get("table") or {}).get("key_id", ())))
+            for s in snaps)
+        if self.backend == "device":
+            self.mesh = LogicalMesh(new_shards, self.device)
+        self.P = new_shards
+        if self.max_parallelism < self.P:
+            raise ValueError(
+                f"cannot reshard to {new_shards}: max_parallelism "
+                f"{self.max_parallelism}")
+        chaos.fault_point("rescale.handoff", stage="commit",
+                          shards=new_shards)
+        old_counters = [side.spill_counters() if side else None
+                        for side in self.sides]
+        for side_idx, snap in enumerate(snaps):
+            schema = [(n, np.dtype(d)) for n, d in snap.get("schema", [])]
+            self.sides[side_idx] = None
+            self._planes[side_idx] = None
+            if not schema:
+                continue
+            self._init_side(side_idx, schema)
+            c = old_counters[side_idx]
+            if c:
+                side = self.sides[side_idx]
+                pm = side.pmaps[0]
+                for name in ("pages_evicted", "rows_evicted",
+                             "pages_reloaded", "rows_reloaded",
+                             "rows_compacted"):
+                    setattr(pm, name, getattr(pm, name) + c[name])
+                side.cold_rows_served = c["cold_rows_served"]
+            # lifted rows keep their dirtiness (the snapshot's column)
+            self._restore_rows(side_idx, snap.get("table") or {}, None)
+        if self._watchdog is not None:
+            self._watchdog.rebind(self.P, self._shard_ids())
+        return {"shards": self.P, "rows_moved": rows_moved,
+                "seconds": time.perf_counter() - t0}
 
     # ------------------------------------------------------------ counters
 

@@ -87,6 +87,12 @@ class _DeviceJoinOperator(Operator):
     def restore_state(self, state, key_group_filter=None):
         self.engine.restore(state, key_group_filter=key_group_filter)
 
+    def supports_live_rescale(self) -> bool:
+        return True
+
+    def reshard(self, new_shards: int):
+        return self.engine.reshard(new_shards)
+
     def spill_counters(self):
         return self.engine.spill_counters()
 

@@ -46,9 +46,21 @@ scatter and merge sites mark their rows, each published row carries its
 session END (``_rep_extra``), and the end of every ``on_watermark``
 publishes the boundary delta.
 
+Live rebalance (``reassign_key_groups``, shared with the window engine)
+routes every site through the assignment's table; the native sweeps
+that hard-code the contiguous formula (``shard_group``,
+``rec_shard_max``) step aside while a table is live.
+
+Hot-key splitting (``register_hot_key``, paged layout only): a dominant
+key's records are salted (splitmix64 of the record timestamp) into
+sub-keys whose partials live as ordinary (salted key, negative
+namespace) rows of the same planes — the exchange, the ordered fold,
+spill, checkpoints and reshard see nothing special. Merges carry the
+salted sub-rows along; fires and queries fold them back on the host in
+the fixed order "main row, then salts ascending".
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-hot-key salting (item 12g), host shuffle mode and the two-level exchange
-(12h).
+host shuffle mode and the two-level exchange (12h).
 """
 
 from __future__ import annotations
@@ -66,6 +78,7 @@ from flink_tpu_torch.core.records import (
     RecordBatch,
 )
 from flink_tpu_torch.ops.segment_ops import (
+    HOST_COMBINE,
     fold_slots,
     pad_bucket_size,
     scatter_fold,
@@ -83,6 +96,7 @@ from flink_tpu_torch.parallel.shuffle import (
     stage_device_exchange,
 )
 from flink_tpu_torch.runtime.pending import PendingFire
+from flink_tpu_torch.state.keygroups import _splitmix64
 from flink_tpu_torch.state.paged_spill import (
     read_spilled_rows,
     reload_rows_for,
@@ -104,6 +118,29 @@ from flink_tpu_torch.windowing.windower import (
     WINDOW_END_FIELD,
     WINDOW_START_FIELD,
 )
+
+#: hot-key splitting: the most sub-keys a split key gets. Salted sub-rows
+#: live in the same planes as real sessions, addressed by (salted key,
+#: salted namespace) with ``ssid = -(sid * MAX_SALTS + salt + 1)``:
+#: negative, so never a real session id, and unique per (sid, salt).
+MAX_SALTS = 64
+
+_SALT_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+
+def _salted_keys(key_ids: np.ndarray, salts: np.ndarray) -> np.ndarray:
+    """The synthetic key id of (key, salt): splitmix64 over the XOR-folded
+    pair, so every sub-key lands in its own key group."""
+    x = (np.asarray(key_ids, dtype=np.int64).astype(np.uint64)
+         ^ ((np.asarray(salts, dtype=np.uint64) + np.uint64(1))
+            * _SALT_GOLDEN))
+    return _splitmix64(x).astype(np.int64)
+
+
+def _salted_ns(sids: np.ndarray, salts: np.ndarray) -> np.ndarray:
+    """(sid, salt) -> its unique negative namespace (see MAX_SALTS)."""
+    return -(np.asarray(sids, dtype=np.int64) * MAX_SALTS
+             + np.asarray(salts, dtype=np.int64) + 1)
 
 
 def build_session_merge_step(mesh: LogicalMesh, agg: AggregateFunction):
@@ -223,6 +260,12 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         #: else the Python plane (bit-identical fires)
         self.meta = make_session_meta(self.gap, self.allowed_lateness)
         self._init_tracking()
+        #: hot-key splitting: key id -> salts (see register_hot_key)
+        self._hot_keys: Dict[int, int] = {}
+        #: records diverted through the salting path, and fires that
+        #: folded salted sub-rows (the skew gauges)
+        self._hot_salted_records = 0
+        self._hot_salted_fires = 0
         self._merge_bucket = 0
         self._fire_bucket = 0
         self._reset_bucket = 0
@@ -276,6 +319,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             budget = max(self.max_device_slots // 2, 1024)
             if n > budget:
                 rsm = getattr(self.meta, "rec_shard_max", None)
+                if self._assignment is not None:
+                    # the native sweep hard-codes the contiguous formula
+                    rsm = None
                 if rsm is not None:
                     rec_max = rsm(keys, self.P, self.max_parallelism,
                                   self.key_group_range)
@@ -321,6 +367,11 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         m = len(sess_key)
         shard_slices: Dict[int, Tuple[int, int]] = {}
         sg = getattr(self.meta, "shard_group", None)
+        if self._assignment is not None:
+            # sx_shard_group applies the contiguous formula in C; a live
+            # table takes the NumPy path (route_records stays valid: it
+            # consumes the sess_shard handed to it)
+            sg = None
         if sg is not None:
             (sess_shard, counts, sorted_idx, key_sorted, sid_sorted,
              fresh_sorted, hint_sorted, row_sorted) = sg(
@@ -392,6 +443,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             rec_slots, rec_shards = route_records_plain(
                 n, order, rec_to_sess, m, sorted_idx, slot_sorted,
                 sess_shard)
+        if self._hot_keys:
+            rec_slots, rec_shards = self._salt_hot_records(
+                keys, ts, sess_key, sess_sid, rec_to_sess, order,
+                rec_slots, rec_shards)
         values = self.agg.map_input(batch)
         in_leaves = self.agg.input_leaves
         # claim a dispatch slot BEFORE rewriting the pooled staging
@@ -422,6 +477,8 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         gk = np.asarray(g.keys_dst, dtype=np.int64)
         ds = np.asarray(g.sids_dst, dtype=np.int64)
         ss = np.asarray(g.sids_src, dtype=np.int64)
+        if self._hot_keys:
+            gk, ds, ss = self._expand_hot_merges(gk, ds, ss)
         shards = self._route(gk)
         pairs: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         for p in range(self.P):
@@ -473,9 +530,15 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             fk, fs, fl = [], [], []
             for p, (d_slots, _) in per_shard.items():
                 c = len(d_slots)
-                if c:
-                    fk.append(pairs[p][0][:c])
-                    fs.append(pairs[p][1][:c])
+                pk2, ps2 = pairs[p][0][:c], pairs[p][1][:c]
+                if self._hot_keys:
+                    # salted sub-rows (negative sids) have no metadata
+                    # row to fold a slot into
+                    keep2 = ps2 >= 0
+                    pk2, ps2, d_slots = pk2[keep2], ps2[keep2], d_slots[keep2]
+                if len(pk2):
+                    fk.append(pk2)
+                    fs.append(ps2)
                     fl.append(d_slots)
             if fk:
                 self.meta.note_slots(np.concatenate(fk),
@@ -496,6 +559,217 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             else:
                 self.indexes[p].free_slots(s_slots)
                 self._dirty[p, s_slots] = False
+
+    # ---------------------------------------------------- hot-key splitting
+
+    def register_hot_key(self, key_id: int, salts: int = 8,
+                         allow_inexact: bool = False) -> int:
+        """Two-stage aggregation for one dominating key: its records are
+        salted into ``salts`` sub-keys, pre-aggregated on their OWN
+        shards as ordinary (salted key, negative namespace) rows, and
+        folded back at fire and query time in a fixed order (main row,
+        then salts ascending).
+
+        Min/max and integer sums are bit-identical to the unsplit run;
+        a float sum reassociates, so it needs ``allow_inexact=True``
+        (integer-valued floats below the mantissa limit stay exact).
+        Paged spill layout only. Returns the salt count applied, clamped
+        to ``[2, MAX_SALTS]``."""
+        if not self._paged:
+            raise ValueError(
+                "hot-key splitting requires the paged spill layout "
+                "(spill_layout='pages' with max_device_slots > 0)")
+        salts = max(2, min(int(salts), MAX_SALTS))
+        exact = all(
+            l.reduce in ("min", "max") or np.dtype(l.dtype).kind in "iub"
+            for l in self.agg.leaves)
+        if not exact and not allow_inexact:
+            raise ValueError(
+                "splitting a float sum reassociates the fold; pass "
+                "allow_inexact=True if the stream tolerates it (exact "
+                "for integer-valued floats below the mantissa limit)")
+        self._hot_keys[int(key_id)] = salts
+        # the serving shadow re-routes the split key through the live
+        # combined fold (one lookup answers main + salts)
+        self._rep_rebuild = True
+        return salts
+
+    def hot_key_stats(self) -> Dict[str, object]:
+        return {
+            "keys": dict(self._hot_keys),
+            "salted_records": int(self._hot_salted_records),
+            "salted_fires": int(self._hot_salted_fires),
+        }
+
+    def _hot_key_array(self) -> np.ndarray:
+        return np.fromiter(self._hot_keys, dtype=np.int64,
+                           count=len(self._hot_keys))
+
+    def _salt_hot_records(self, keys, ts, sess_key, sess_sid,
+                          rec_to_sess, order, rec_slots, rec_shards):
+        """Ingest diversion: re-point the hot keys' records at their
+        salted sub-rows. The salt is splitmix64 of the record TIMESTAMP
+        modulo the key's salts, so a replay salts identically."""
+        hot = self._hot_key_array()
+        hot_sess = np.isin(sess_key, hot) & (sess_sid >= 0)
+        j = np.nonzero(hot_sess[rec_to_sess])[0]
+        if not len(j):
+            return rec_slots, rec_shards
+        ridx = order[j]  # raw record positions
+        rk = keys[ridx]
+        rs = sess_sid[rec_to_sess[j]]
+        nsalts = np.zeros(len(ridx), dtype=np.uint64)
+        for hk, hv in self._hot_keys.items():
+            nsalts[rk == hk] = np.uint64(hv)
+        salt = (_splitmix64(ts[ridx].astype(np.uint64))
+                % nsalts).astype(np.int64)
+        skey = _salted_keys(rk, salt)
+        sns = _salted_ns(rs, salt)
+        # sids are globally unique, so the salted namespace alone names
+        # the (session, salt) row: resolve each once, scatter the slot
+        uns, inv = np.unique(sns, return_inverse=True)
+        first_pos = np.zeros(len(uns), dtype=np.int64)
+        first_pos[inv[::-1]] = np.arange(len(sns) - 1, -1, -1)
+        ukey = skey[first_pos]
+        shards_u = self._route(ukey)
+        per = {}
+        for p in np.unique(shards_u).tolist():
+            selp = np.nonzero(shards_u == p)[0]
+            per[p] = (ukey[selp], uns[selp])
+        resolved = self._resolve_slots_paged(per)
+        slots_u = np.zeros(len(uns), dtype=np.int32)
+        for p in per:
+            selp = np.nonzero(shards_u == p)[0]
+            slots_u[selp] = resolved[p]
+            self._dirty[p, resolved[p]] = True
+        rec_slots = np.array(rec_slots, dtype=np.int32)
+        rec_shards = np.array(rec_shards, dtype=np.int64)
+        rec_slots[ridx] = slots_u[inv]
+        rec_shards[ridx] = shards_u[inv]
+        self._hot_salted_records += len(ridx)
+        return rec_slots, rec_shards
+
+    def _expand_hot_merges(self, gk, ds, ss):
+        """A split key's session merge carries its salted sub-rows:
+        (skey(k,t), ssid(src,t)) folds into (skey(k,t), ssid(dst,t)) —
+        the same salted key, hence the same shard. Missing sub-rows
+        resolve to identity (a no-op merge)."""
+        sel = np.nonzero(np.isin(gk, self._hot_key_array()))[0]
+        if not len(sel):
+            return gk, ds, ss
+        ek, ed, es = [gk], [ds], [ss]
+        freed = []
+        for i in sel.tolist():
+            k = int(gk[i])
+            n = self._hot_keys[k]
+            salts = np.arange(n, dtype=np.int64)
+            ek.append(_salted_keys(np.full(n, k, dtype=np.int64), salts))
+            ed.append(_salted_ns(np.full(n, int(ds[i]), dtype=np.int64),
+                                 salts))
+            sns = _salted_ns(np.full(n, int(ss[i]), dtype=np.int64), salts)
+            es.append(sns)
+            freed.append(sns)
+        # absorbed sub-rows die with their session: delta tombstones
+        self._freed_ns.append(np.concatenate(freed))
+        return (np.concatenate(ek), np.concatenate(ed), np.concatenate(es))
+
+    def _hot_rows(self, hk, hs):
+        """Physical rows of split logical rows ``(hk[i], hs[i])``: main
+        first, then its salts ascending; ``gid`` names the logical row."""
+        pks, pns, gids = [], [], []
+        for i in range(len(hk)):
+            k, s = int(hk[i]), int(hs[i])
+            pks.append(k)
+            pns.append(s)
+            gids.append(i)
+            n = self._hot_keys.get(k)
+            if n and s >= 0:
+                salts = np.arange(n, dtype=np.int64)
+                pks.extend(_salted_keys(
+                    np.full(n, k, dtype=np.int64), salts).tolist())
+                pns.extend(_salted_ns(
+                    np.full(n, s, dtype=np.int64), salts).tolist())
+                gids.extend([i] * n)
+        return (np.asarray(pks, dtype=np.int64),
+                np.asarray(pns, dtype=np.int64),
+                np.asarray(gids, dtype=np.int64))
+
+    def _fire_hot_fold(self, hk, hs) -> List[np.ndarray]:
+        """RAW folded leaves of fired split sessions: the delta fire
+        finishes on the device, so a split session's sub-rows fold
+        BEFORE the finish, here. Resident rows come back through one
+        gather and one reset (their slots return to identity), paged rows
+        extract from the page tier, absent rows are identity; each leaf
+        folds with the exchange's combine op in array order — main row
+        first, salts ascending."""
+        leaves = self.agg.leaves
+        leaf_dtypes = [l.dtype for l in leaves]
+        pk, pn, gid = self._hot_rows(hk, hs)
+        vals = [np.full(len(pk), l.identity, dtype=l.dtype) for l in leaves]
+        shards = self._route(pk)
+        lanes: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        g_max = 0
+        for p in range(self.P):
+            selp = np.nonzero(shards == p)[0]
+            if not len(selp):
+                continue
+            idx = self.indexes[p]
+            ks, ns = pk[selp], pn[selp]
+            slots = idx.lookup(ks, ns)
+            hit = slots >= 0
+            if hit.any():
+                rslots = slots[hit].astype(np.int32)
+                lanes[p] = (selp[hit], rslots)
+                g_max = max(g_max, len(rslots))
+                idx.free_slots(rslots, keys=ks[hit], nss=ns[hit])
+                self._dirty[p, rslots] = False
+            miss = ~hit
+            if miss.any() and len(self._pmaps[p]):
+                rl = reload_rows_for(self.spills[p], self._pmaps[p],
+                                     ns[miss], leaf_dtypes)
+                if rl is not None:
+                    _, rns, _, rvals = rl
+                    ro = np.argsort(rns)
+                    found, pos = sorted_match(rns[ro], ns[miss])
+                    src = ro[pos[found]]
+                    dstp = selp[miss][found]
+                    for i in range(len(leaves)):
+                        vals[i][dstp] = rvals[i][src]
+        if g_max:
+            G = pad_bucket_size(g_max, minimum=64)
+            block = np.zeros((self.P, G), dtype=np.int32)
+            for p, (_, rslots) in lanes.items():
+                block[p, : len(rslots)] = rslots
+            dev_block = self._to_device(block)
+            g_host = self._harvest_get(
+                self._gather_step(self.accs, dev_block), "hot_fire")
+            # freed slots hold identity before reuse (padded lanes hit
+            # the reserved slot 0: harmless)
+            self.accs = self._reset_step(self.accs, dev_block)
+            for p, (selp_hit, rslots) in lanes.items():
+                for i in range(len(leaves)):
+                    vals[i][selp_hit] = g_host[i][p][: len(rslots)]
+        # salted namespaces die with the fire: delta tombstones
+        self._freed_ns.append(pn[pn < 0])
+        out = [np.full(len(hk), l.identity, dtype=l.dtype) for l in leaves]
+        for i, l in enumerate(leaves):
+            # ufunc.at is unbuffered: repeated gids fold in ARRAY order
+            HOST_COMBINE[l.reduce].at(out[i], gid, vals[i])
+        return out
+
+    def _rep_hidden(self, keys: np.ndarray, nss: np.ndarray):
+        """Serving-plane filter over resident rows: ``(salted, hot_main)``
+        masks, or None without split keys. Salted sub-rows never publish
+        (a partial alone means nothing); a split key's MAIN rows enter
+        the index COLD, so a replica lookup goes through the live
+        engine's combined fold and still answers in one lookup."""
+        if not self._hot_keys:
+            return None
+        nss = np.asarray(nss, dtype=np.int64)
+        salted = nss < 0
+        hot_main = np.isin(np.asarray(keys, dtype=np.int64),
+                           self._hot_key_array()) & ~salted
+        return salted, hot_main
 
     # ----------------------------------------------------------------- fire
 
@@ -652,6 +926,19 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         n = len(k_arr)
         self._freed_ns.append(sid_arr)
         leaf_dtypes = [l.dtype for l in leaves]
+        # split sessions cannot finish on the device: their physical rows
+        # fold on the host first and finish with the paged-out rows (the
+        # original per-shard selection keeps the output order)
+        out_sel = per_shard_sel
+        hot_pos = hot_vals = None
+        if self._hot_keys:
+            hmask = np.isin(k_arr, self._hot_key_array())
+            if hmask.any():
+                hot_pos = np.nonzero(hmask)[0]
+                hot_vals = self._fire_hot_fold(k_arr[hot_pos],
+                                               sid_arr[hot_pos])
+                self._hot_salted_fires += len(hot_pos)
+                per_shard_sel = [sel[~hmask[sel]] for sel in per_shard_sel]
         res_pos: List[np.ndarray] = []   # positions fired on the device
         res_slots: List[np.ndarray] = []
         cold_chunks: List[np.ndarray] = []  # positions fired from pages
@@ -717,6 +1004,10 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 self.accs, self._to_device(sm), self._to_device(rb))
         # host finish of the paged-out positions only
         names = sorted(self.agg.output_names)
+        if hot_pos is not None:
+            cold_chunks.append(hot_pos)
+            for i in range(len(leaves)):
+                cold_vals[i].append(hot_vals[i])
         if cold_chunks:
             cold_pos = np.concatenate(cold_chunks)
             finished = self.agg.finish(tuple(
@@ -725,7 +1016,7 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         else:
             cold_pos = None
             cold_out = {}
-        out_idx = np.concatenate([s for s in per_shard_sel if len(s)])
+        out_idx = np.concatenate([s for s in out_sel if len(s)])
         cols = {
             KEY_ID_FIELD: k_arr[out_idx],
             WINDOW_START_FIELD: st_arr[out_idx],
@@ -785,13 +1076,22 @@ class MeshSessionEngine(MeshPagedSpillSupport):
 
     def snapshot(self, mode: str = "full") -> Dict[str, object]:
         """``SessionWindower.snapshot``'s logical format — restorable across
-        engines and mesh sizes (re-sharded by key group)."""
-        return {"table": self._snapshot_table(mode), **self.meta.snapshot()}
+        engines and mesh sizes (re-sharded by key group). The split-key
+        registry travels with the salted rows it folds."""
+        out = {"table": self._snapshot_table(mode), **self.meta.snapshot()}
+        if self._hot_keys:
+            out["hot_keys"] = {int(k): int(v)
+                               for k, v in self._hot_keys.items()}
+        return out
 
     def restore(self, snap: Dict[str, object],
                 key_group_filter=None) -> None:
         """Restore, re-sharding by key group: single-device
         ``SessionWindower`` snapshots and mesh snapshots of any size."""
+        # the registry is live BEFORE any fire or query folds the
+        # snapshot's salted rows
+        for k, v in (snap.get("hot_keys") or {}).items():
+            self._hot_keys[int(k)] = int(v)
         self._restore_table(snap.get("table", {}), key_group_filter)
         self.meta.restore(snap, key_group_filter=key_group_filter,
                           max_parallelism=self.max_parallelism)
@@ -807,16 +1107,24 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         self.meta.merge_restore(snap, groups, self.max_parallelism)
 
     def _filter_meta_snapshot(self, snap, groups):
-        return SessionIntervalSet.filter_snapshot(snap, groups,
-                                                  self.max_parallelism)
+        out = SessionIntervalSet.filter_snapshot(snap, groups,
+                                                 self.max_parallelism)
+        if snap.get("hot_keys"):
+            # every unit carries the whole (tiny) split registry, so any
+            # subset of units restores with its folds intact
+            out["hot_keys"] = dict(snap["hot_keys"])
+        return out
 
     def _merge_meta_snapshots(self, units):
         _NEG = -(1 << 62)
         sessions: Dict[int, list] = {}
+        hot: Dict[int, int] = {}
         for u in units:
             for k, ivs in u.get("sessions", {}).items():
                 sessions[int(k)] = list(ivs)  # the ranges are disjoint
-        return {
+            for k, v in (u.get("hot_keys") or {}).items():
+                hot[int(k)] = max(hot.get(int(k), 0), int(v))
+        out = {
             "sessions": sessions,
             "next_sid": max((int(u.get("next_sid", 1)) for u in units),
                             default=1),
@@ -826,12 +1134,9 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 (u.get("max_fired_watermark", _NEG) for u in units),
                 default=_NEG),
         }
-
-    # ---------------------------------------------------- not in this slice
-
-    def register_hot_key(self, key_id: int, salts: int = 8,
-                         allow_inexact: bool = False) -> int:
-        raise _not_ported("hot-key splitting", "12g")
+        if hot:
+            out["hot_keys"] = hot
+        return out
 
     # ---------------------------------------------------------- point query
 
@@ -849,8 +1154,8 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         device-to-host copy (``_harvest_get(..., "serving_lookup")``);
         paged-out sessions answer from their shards' page tiers
         (``read_spilled_rows``: a peek per page, no reload). Read-only.
-        Without hot-key splitting (item 12g) every logical row is one
-        physical row."""
+        A split key's logical row reads its main row and every salted
+        sub-row, folded main first, salts ascending."""
         key_ids = np.asarray(key_ids, dtype=np.int64)
         n = len(key_ids)
         results: List[Dict[int, Dict[str, float]]] = [{} for _ in range(n)]
@@ -862,9 +1167,13 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 rows.append((r, int(iv[2]), int(iv[1])))
         if not rows:
             return results
+        m = len(rows)
         rr = np.asarray([t[0] for t in rows], dtype=np.int64)
         pn = np.asarray([t[1] for t in rows], dtype=np.int64)
         pk = key_ids[rr]
+        gid = None
+        if self._hot_keys:
+            pk, pn, gid = self._hot_rows(pk, pn)
         mp = len(pk)
         shards = self._route(pk)
         leaves = self.agg.leaves
@@ -909,6 +1218,15 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 self._paged,
                 [(j, int(pk[j]), int(pn[j])) for j in sel_cold.tolist()],
                 _take_row)
+        if gid is not None:
+            # physical rows fold into their logical row in array order
+            # (main first, salts ascending); misses are identity
+            folded = [np.full(m, l.identity, dtype=l.dtype) for l in leaves]
+            for i, l in enumerate(leaves):
+                HOST_COMBINE[l.reduce].at(folded[i], gid, leaf_rows[i])
+            hv = np.zeros(m, dtype=bool)
+            np.logical_or.at(hv, gid, have)
+            leaf_rows, have = folded, hv
         # one host finish over every row at once
         finished = self.agg.finish(tuple(torch.from_numpy(l)
                                          for l in leaf_rows))

@@ -58,9 +58,17 @@ next sealed generation. ``enforce_resident_budget`` is the tenant
 quota's backstop (``tenancy/quotas.py``): it sheds the engine's own
 coldest rows into its spill tier.
 
+Live rebalance (``reassign_key_groups``): an explicit
+``KeyGroupAssignment`` moves key groups between shards at a batch
+boundary with the reshard's drain -> lift -> rebuild -> redistribute
+handoff; every routing site goes through ``_route``, so the installed
+table re-routes ingest, merges, fires, queries, restores and the device
+exchange's destination column at once. ``reshard`` resets it to the
+contiguous layout.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item
 where a user would select it: host shuffle mode and the two-level
-exchange (item 12h), rebalance (12g). Point queries (``query_batch``)
+exchange (item 12h). Point queries (``query_batch``)
 gather every shard's hits in one ``[P, G]`` block with one copy back, and
 read spilled slices from the shards' host tiers.
 """
@@ -197,10 +205,20 @@ class MeshSpillSupport(WatchdogHooks):
     def _device_span(self) -> _DeviceSpan:
         return _DeviceSpan(self)
 
+    #: live non-contiguous key-group -> shard table installed by
+    #: reassign_key_groups(); None = the contiguous formula
+    _assignment = None
+    #: live rebalances applied, and the report of the latest
+    rebalances_completed: int = 0
+    last_rebalance: Optional[Dict[str, object]] = None
+
     def _route(self, key_ids) -> np.ndarray:
-        """key id -> owning shard (the contiguous key-group formula)."""
+        """key id -> owning shard: the contiguous key-group formula, or
+        the live assignment's table after a rebalance (every routing
+        site goes through here)."""
         return shard_records(key_ids, self.P, self.max_parallelism,
-                             self.key_group_range)
+                             self.key_group_range,
+                             assignment=self._assignment)
 
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
         # an async copy from PAGEABLE host memory has staged `host` when
@@ -758,6 +776,14 @@ class MeshSpillSupport(WatchdogHooks):
         the quota ledger reads this every scheduler quantum)."""
         return [int(idx.num_used) for idx in self.indexes]
 
+    def key_imbalance(self) -> float:
+        """max/mean resident rows per shard (1.0 = balanced): the one
+        definition the ``state.key_imbalance`` gauge and the scaling
+        policy's skew guard share (``autoscale.policy.key_imbalance``)."""
+        from flink_tpu_torch.autoscale.policy import key_imbalance
+
+        return key_imbalance(self.shard_resident_rows())
+
     def _fresh_planes(self) -> Tuple[torch.Tensor, ...]:
         """``[P, capacity]`` identity planes, one per accumulator leaf
         (their footprint replaces any earlier reservation)."""
@@ -817,6 +843,10 @@ class MeshSpillSupport(WatchdogHooks):
             rows = self._collect_handoff()
             old_p = self.P
             self._shard_id_list = None
+            # a rebalanced table is defined over the OLD shard count: the
+            # lifted rows re-route by the contiguous formula (the
+            # rebalancer re-detects on the new mesh if the skew persists)
+            self._assignment = None
             self._rebuild_mesh_plane(new_shards)
             # the hardest crash point: old state lifted, new planes empty
             chaos.fault_point("rescale.handoff", stage="commit",
@@ -833,6 +863,77 @@ class MeshSpillSupport(WatchdogHooks):
             "seconds": time.perf_counter() - t0,
         }
         return self.last_reshard
+
+    def reassign_key_groups(self, assignment) -> Dict[str, object]:
+        """LIVE hot-range rebalance: move key groups BETWEEN shards at a
+        batch boundary without changing P. The reshard's handoff (drain
+        the fences -> lift every row -> rebuild the planes ->
+        redistribute by the NEW routing), with the chaos point
+        ``rebalance.handoff`` at ``drain`` and at ``commit``. Not
+        exception-atomic: a crash mid-handoff recovers by checkpoint
+        restore (snapshots are key-id addressed and carry no assignment,
+        so the restoring engine routes by its own)."""
+        from flink_tpu_torch.state.keygroups import KeyGroupAssignment
+
+        if not isinstance(assignment, KeyGroupAssignment):
+            raise TypeError(
+                f"expected KeyGroupAssignment, got {type(assignment).__name__}")
+        if assignment.num_shards != self.P:
+            raise ValueError(
+                f"assignment is for {assignment.num_shards} shards, "
+                f"engine has {self.P} — rebalance moves groups, "
+                "reshard() changes P")
+        if self.key_group_range is not None:
+            first = int(self.key_group_range[0])
+            span = int(self.key_group_range[1]) - first + 1
+        else:
+            first, span = 0, self.max_parallelism
+        if assignment.first != first or assignment.span != span:
+            raise ValueError(
+                f"assignment covers groups [{assignment.first}, "
+                f"{assignment.first + assignment.span - 1}], engine owns "
+                f"[{first}, {first + span - 1}]")
+        moved = np.nonzero(
+            assignment.table != self.key_group_assignment.table)[0]
+        if len(moved) == 0:
+            return {"groups_moved": 0, "rows_moved": 0,
+                    "resident_rows": 0, "spilled_rows": 0,
+                    "seconds": 0.0, "noop": True}
+        t0 = time.perf_counter()
+        with flight.span("reshard.handoff"):
+            self._quiesce()
+            chaos.fault_point("rebalance.handoff", stage="drain",
+                              groups_moved=len(moved))
+            rows = self._collect_handoff()
+            # the table goes in BEFORE the redistribution: _route sends
+            # the lifted rows to their NEW owners
+            self._assignment = (None if assignment.is_contiguous
+                                else assignment)
+            self._rebuild_mesh_plane(self.P)
+            chaos.fault_point("rebalance.handoff", stage="commit",
+                              groups_moved=len(moved))
+            resident_rows, spilled_rows = self._redistribute_handoff(rows)
+        self.rebalances_completed += 1
+        self.last_rebalance = {
+            "groups_moved": int(len(moved)),
+            "rows_moved": int(len(rows["key_id"])),
+            "resident_rows": resident_rows,
+            "spilled_rows": spilled_rows,
+            "seconds": time.perf_counter() - t0,
+        }
+        return self.last_rebalance
+
+    @property
+    def key_group_assignment(self):
+        """The EFFECTIVE assignment (the live table, or the contiguous
+        default): what serving-side ``host_of_key_group`` routing
+        follows after a rebalance."""
+        from flink_tpu_torch.state.keygroups import KeyGroupAssignment
+
+        if self._assignment is not None:
+            return self._assignment
+        return KeyGroupAssignment.contiguous(
+            self.P, self.max_parallelism, self.key_group_range)
 
     def _collect_handoff(self, skip_shards=()) -> Dict[str, np.ndarray]:
         """Lift every logical row off the current mesh: key, namespace and
@@ -1092,14 +1193,24 @@ class MeshSpillSupport(WatchdogHooks):
     def shard_key_groups(self) -> List[Tuple[int, int]]:
         """GLOBAL ``(first, last)`` inclusive key groups per shard — the
         unit of failure and recovery, and the split shard-granular
-        checkpoints key their units by (the inverse of ``_route``)."""
+        checkpoints key their units by (the inverse of ``_route``).
+        Undefined under a live rebalanced assignment (a shard's groups
+        are no longer one range): :meth:`shard_key_group_runs` there."""
+        if self._assignment is not None:
+            raise ValueError(
+                "shard->key-group ownership is non-contiguous under a "
+                "live rebalanced assignment — shard_key_group_runs() "
+                "gives the per-run decomposition")
         return shard_key_group_ranges(self.P, self.max_parallelism,
                                       self.key_group_range)
 
     def shard_key_group_runs(self) -> List[Tuple[int, int, int]]:
         """GLOBAL ``(first, last, shard)`` maximal same-shard runs in
-        key-group order: one run per shard (the contiguous layout; a
-        rebalanced assignment is ROADMAP item 12g)."""
+        key-group order — the checkpoint-unit granularity (one run per
+        shard on the contiguous layout, the table's runs under a live
+        assignment)."""
+        if self._assignment is not None:
+            return self._assignment.runs()
         return [(g0, g1, p) for p, (g0, g1)
                 in enumerate(self.shard_key_groups())]
 
@@ -1118,7 +1229,15 @@ class MeshSpillSupport(WatchdogHooks):
         """Loss of a CONTIGUOUS set of shards in one evacuation (their
         merged key-group span is one range, so the bounded replay is one
         contiguous range). Not exception-atomic: a failure mid-evacuation
-        falls back to a whole-job restore."""
+        falls back to a whole-job restore. Refused under a live
+        rebalanced assignment: a dead shard's groups are no longer one
+        range, so the bounded contiguous replay does not hold."""
+        if self._assignment is not None:
+            raise ValueError(
+                "partial failover under a live rebalanced assignment is "
+                "not supported: a dead shard's groups are no longer one "
+                "contiguous range, so the bounded contiguous replay "
+                "contract does not hold — whole-job restore applies")
         dead_set = sorted({int(d) for d in dead})
         if not dead_set:
             raise ValueError("no shards to lose")
@@ -1365,6 +1484,13 @@ class MeshSpillSupport(WatchdogHooks):
         the slice end)."""
         return None
 
+    def _rep_hidden(self, keys: np.ndarray, nss: np.ndarray):
+        """Hook: ``(drop_mask, cold_mask)`` over resident rows the index
+        must not serve as they are, or None (the default: serve every
+        resident row). The session engine's hot-key splitting drops its
+        salted sub-rows and enters a split key's main rows cold."""
+        return None
+
     def _rep_probe_cold(self, p: int, keys: np.ndarray,
                         nss: np.ndarray) -> np.ndarray:
         """For pairs that left the resident set since the last publish:
@@ -1458,10 +1584,23 @@ class MeshSpillSupport(WatchdogHooks):
                                           None if cx is None else cx[still]))
                     # cleared after the publish SUCCEEDS (torn-publish
                     # re-derivability — see below)
+                hidden = None
+                split = self._rep_hidden(cur_key, cur_ns)
+                if split is not None:
+                    drop, coldm = split
+                    hidden = (drop | coldm) & cur_used
+                    # a split key's main rows serve cold (the live
+                    # combined fold); its salted rows never serve
+                    hc = up[coldm[up]]
+                    if len(hc):
+                        cx = self._rep_extra(p, cur_key[hc], cur_ns[hc])
+                        cold.extend(_rows(cur_key[hc], cur_ns[hc], cx))
+                    up = up[~hidden[up]]
                 up_keys = cur_key[up].copy()
                 up_ns = cur_ns[up].copy()
                 per_shard[p] = {
                     "resident": (cur_used, cur_key, cur_ns),
+                    "hidden": hidden,
                     "up_slots": up.astype(np.int32),
                     "up_keys": up_keys,
                     "up_ns": up_ns,
@@ -1475,6 +1614,10 @@ class MeshSpillSupport(WatchdogHooks):
                 for part in self._spill_snapshot_parts():
                     ck = np.asarray(part["key_id"], dtype=np.int64)
                     cn = np.asarray(part["namespace"], dtype=np.int64)
+                    split = self._rep_hidden(ck, cn)
+                    if split is not None:
+                        keep = ~split[0]  # spilled rows are cold already
+                        ck, cn = ck[keep], cn[keep]
                     cold0.extend(_rows(ck, cn, self._rep_extra(0, ck, cn)))
                 if cold0:
                     per_shard[0]["fresh"] = True
@@ -1529,11 +1672,6 @@ class MeshSpillSupport(WatchdogHooks):
             shed += freed
             per = new
         return shed
-
-    # ------------------------------------------------ not in this slice
-
-    def reassign_key_groups(self, assignment):
-        raise _not_ported("hot key-group rebalance", "12g")
 
 
 class MeshPagedSpillSupport(MeshSpillSupport):

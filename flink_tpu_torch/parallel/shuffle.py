@@ -74,11 +74,16 @@ class ShuffleBufferPool:
 
 
 def shard_records(key_ids: np.ndarray, num_shards: int,
-                  max_parallelism: int, key_group_range=None) -> np.ndarray:
+                  max_parallelism: int, key_group_range=None,
+                  assignment=None) -> np.ndarray:
     """key id -> owning shard (the keyBy routing decision). With
     ``key_group_range`` = (first, last) the formula applies to the local
-    group space of that range."""
+    group space of that range; an ``assignment``
+    (``state.keygroups.KeyGroupAssignment``, a rebalanced plane's table)
+    replaces the formula and carries its own range."""
     groups = assign_key_groups(key_ids, max_parallelism)
+    if assignment is not None:
+        return assignment.shard_of_groups(groups).astype(np.int64)
     if key_group_range is not None:
         first, last = key_group_range
         local = np.asarray(groups, dtype=np.int64) - int(first)

@@ -359,6 +359,41 @@ class WindowAggOperator(Operator):
                         None)
         return [int(index.num_used)] if index is not None else []
 
+    def key_imbalance(self) -> float:
+        """max/mean resident rows per shard (1.0 for single-device)."""
+        fn = getattr(self.windower, "key_imbalance", None)
+        return float(fn()) if fn is not None else 1.0
+
+    # ------------------------------------------------------ elastic rescale
+
+    @property
+    def supports_live_rescale(self) -> bool:
+        """True when the engine migrates key groups in place (the mesh
+        engines); False means the cold path — checkpoint restore at the
+        new parallelism (``restore_state(key_group_filter=...)``)."""
+        return hasattr(self.windower, "reshard")
+
+    def reshard(self, new_shards: int) -> Dict[str, Any]:
+        """Live rescale of the mesh engine to ``new_shards`` logical
+        shards. In-flight async fires must be drained FIRST (their device
+        buffers belong to the old planes): the executor's
+        ``_drain_pending(wait=True)`` boundary does that."""
+        if not self.supports_live_rescale:
+            raise RuntimeError(
+                f"operator {self.name!r} runs a single-device engine — "
+                "live reshard needs the mesh engine (parallelism > 1); "
+                "rescale it cold via checkpoint-restore-at-new-"
+                "parallelism")
+        if self._pending:
+            raise RuntimeError(
+                "reshard with in-flight async fires; the executor must "
+                "drain pending outputs (poll_pending_output(wait=True)) "
+                "before rescaling")
+        # the operator's fences reference the old planes; the engine
+        # drains its own dispatch fences (a superset) inside reshard
+        self._fences.clear()
+        return self.windower.reshard(new_shards)
+
     def process_batch(self, batch, input_index=0):
         keys = batch[self.key_field]
         if keys.dtype.kind not in "iu":

@@ -3,13 +3,15 @@
 they decide which shard owns a key).
 
 - ``key_group(key) = murmur(fold64to32(key_id)) % max_parallelism``
-- owning shard of a group: ``group * parallelism // max_parallelism``
+- owning shard of a group: ``group * parallelism // max_parallelism``,
+  or an explicit :class:`KeyGroupAssignment` table once a live rebalance
+  moved groups off that layout
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -23,6 +25,19 @@ def murmur_fmix32(h: np.ndarray) -> np.ndarray:
     h *= np.uint32(0xC2B2AE35)
     h ^= h >> np.uint32(16)
     return h
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 — the stable 64-bit mixer of the hot-key
+    salts (bit for bit the reference's, so a replay salts the same)."""
+    x = np.asarray(x, dtype=np.uint64).copy()
+    x += np.uint64(0x9E3779B97F4A7C15)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
 
 
 def _fnv1a_64_bytes(data: bytes) -> int:
@@ -110,3 +125,110 @@ def compute_key_group_range(max_parallelism: int, parallelism: int,
         // parallelism
     end = ((operator_index + 1) * max_parallelism - 1) // parallelism
     return KeyGroupRange(start, end)
+
+
+def host_of_key_group(key_groups: np.ndarray, num_hosts: int,
+                      local_devices: int, max_parallelism: int,
+                      assignment: "KeyGroupAssignment" = None
+                      ) -> np.ndarray:
+    """key group -> owning host: the shard formula (or a live
+    ``assignment``'s table, which serving-side routing must follow after
+    a rebalance) composed with the host-major shard layout
+    (``shard // local_devices``)."""
+    if assignment is not None:
+        shard = assignment.shard_of_groups(key_groups)
+    else:
+        shard = key_group_to_operator_index(
+            key_groups, max_parallelism,
+            int(num_hosts) * int(local_devices))
+    return (np.asarray(shard, dtype=np.int64)
+            // int(local_devices)).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KeyGroupAssignment:
+    """Explicit (possibly non-contiguous) key-group -> shard table:
+    ``table[local_group]`` owns global group ``first + local_group``. A
+    live rebalance installs one to move hot groups between shards
+    without changing the shard count. :meth:`contiguous` reproduces
+    ``shard_records``' formula bit for bit. Frozen and compared by
+    identity; mutators return new instances."""
+
+    first: int
+    num_shards: int
+    table: np.ndarray  # int32 [span]: local group -> shard
+
+    def __post_init__(self):
+        t = np.ascontiguousarray(self.table, dtype=np.int32)
+        if t.ndim != 1 or len(t) == 0:
+            raise ValueError("assignment table must be a non-empty 1-D array")
+        if int(self.num_shards) <= 0:
+            raise ValueError(
+                f"num_shards must be positive, got {self.num_shards}")
+        if t.min() < 0 or t.max() >= int(self.num_shards):
+            raise ValueError(
+                f"assignment table values must be in [0, {self.num_shards}), "
+                f"got range [{t.min()}, {t.max()}]")
+        object.__setattr__(self, "table", t)
+        object.__setattr__(self, "first", int(self.first))
+        object.__setattr__(self, "num_shards", int(self.num_shards))
+
+    @classmethod
+    def contiguous(cls, parallelism: int, max_parallelism: int,
+                   key_group_range=None) -> "KeyGroupAssignment":
+        """The default layout (with a sub-range engine's local remap)."""
+        if key_group_range is None:
+            first, span = 0, int(max_parallelism)
+        else:
+            first = int(key_group_range[0])
+            span = int(key_group_range[1]) - first + 1
+        local = np.arange(span, dtype=np.int64)
+        table = (local * int(parallelism) // span).astype(np.int32)
+        return cls(first=first, num_shards=int(parallelism), table=table)
+
+    def move(self, groups: Sequence, dst_shard: int) -> "KeyGroupAssignment":
+        """A new assignment with GLOBAL ``groups`` on ``dst_shard``."""
+        g = np.asarray(groups, dtype=np.int64) - self.first
+        if len(g) and (g.min() < 0 or g.max() >= len(self.table)):
+            raise ValueError(f"groups out of range [{self.first}, "
+                             f"{self.first + len(self.table) - 1}]")
+        table = self.table.copy()
+        table[g] = np.int32(dst_shard)
+        return KeyGroupAssignment(self.first, self.num_shards, table)
+
+    def shard_of_groups(self, key_groups: np.ndarray) -> np.ndarray:
+        """GLOBAL key group -> owning shard."""
+        return self.table[np.asarray(key_groups, dtype=np.int64) - self.first]
+
+    def shard_of_keys(self, key_ids: np.ndarray,
+                      max_parallelism: int) -> np.ndarray:
+        """key id -> owning shard (the group spread, then the table)."""
+        return self.shard_of_groups(
+            assign_key_groups(key_ids, max_parallelism))
+
+    def groups_of_shard(self, shard: int) -> np.ndarray:
+        """GLOBAL key groups owned by ``shard``, ascending."""
+        return (np.nonzero(self.table == np.int32(shard))[0]
+                + self.first).astype(np.int64)
+
+    @property
+    def span(self) -> int:
+        return len(self.table)
+
+    @property
+    def is_contiguous(self) -> bool:
+        """True iff the table equals the default contiguous layout."""
+        local = np.arange(len(self.table), dtype=np.int64)
+        expect = (local * self.num_shards // len(self.table)).astype(np.int32)
+        return bool(np.array_equal(self.table, expect))
+
+    def runs(self) -> List[tuple]:
+        """Maximal GLOBAL ``(first, last, shard)`` same-shard runs in
+        group order: the checkpoint-unit granularity under a
+        non-contiguous layout."""
+        t = self.table
+        cuts = np.nonzero(t[1:] != t[:-1])[0] + 1
+        starts = np.concatenate(([0], cuts))
+        ends = np.concatenate((cuts - 1, [len(t) - 1]))
+        return [(int(s) + self.first, int(e) + self.first, int(t[s]))
+                for s, e in zip(starts, ends)]

@@ -19,7 +19,7 @@
 - :mod:`frontend` (``FrontendPool``): frontend processes serving the hit
   path off the hot cache's shared-memory arenas.
 - :mod:`arbiter` (``ShardArbiter``, ``JobDemand``): the cross-job shard
-  policy (acting on it is ROADMAP.md Queue A item 12g).
+  policy, acted on through live rescale requests.
 
 The names stay lazy, as in the reference: the lowest engine layers import
 :mod:`program_cache` without pulling in the cluster. ``LookupRouter``

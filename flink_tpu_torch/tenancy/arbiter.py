@@ -11,10 +11,9 @@ keeps the total at the budget. A hysteresis band suppresses one-shard
 flapping and a cooldown bounds migration churn.
 
 The arbiter only decides WHO gets shards. Acting on a decision is a live
-``reshard`` posted as a ``RescaleRequest``, which the port's executor
-refuses (ROADMAP.md, Queue A item 12g): ``SessionCluster`` therefore
-rejects ``arbiter=`` with ``arbitrate_every_s > 0`` at construction.
-The port's shards are logical (``parallel/mesh.py``), so the budget is a
+``reshard`` posted as a ``RescaleRequest`` that the job's executor serves
+at its next batch boundary (``SessionCluster(arbiter=...,
+arbitrate_every_s > 0)``). The port's shards are logical (``parallel/mesh.py``), so the budget is a
 count of logical shards, never ``torch.cuda.device_count()``.
 """
 

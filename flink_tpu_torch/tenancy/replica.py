@@ -128,16 +128,21 @@ class ReplicaIndex:
     adapters' per-row payloads in the object plane ``extra``), searched
     through their keys sorted once, on first use. Rows serving from the
     page tier sit in ``cold`` (``key -> {ns -> (shard, extra)}``: only
-    evicted rows, so small). Never mutated once sealed."""
+    evicted rows, so small). ``hidden`` (or None) masks resident rows the
+    index does not serve — a split key's partial rows, whose main rows
+    sit in ``cold`` — while ``used`` stays the publish diff's shadow.
+    Never mutated once sealed."""
 
-    __slots__ = ("used", "key", "ns", "extra", "cold", "_by_key", "_lock")
+    __slots__ = ("used", "key", "ns", "extra", "cold", "hidden", "_by_key",
+                 "_lock")
 
-    def __init__(self, used, key, ns, extra, cold) -> None:
+    def __init__(self, used, key, ns, extra, cold, hidden=None) -> None:
         self.used = used
         self.key = key
         self.ns = ns
         self.extra = extra
         self.cold = cold
+        self.hidden = hidden
         self._by_key = None
         self._lock = threading.Lock()
 
@@ -153,7 +158,9 @@ class ReplicaIndex:
             with self._lock:
                 s = self._by_key
                 if s is None:
-                    flat = np.flatnonzero(self.used)
+                    flat = np.flatnonzero(
+                        self.used if self.hidden is None
+                        else self.used & ~self.hidden)
                     keys = self.key.ravel()[flat]
                     order = np.argsort(keys)
                     s = self._by_key = (keys[order], flat[order])
@@ -355,6 +362,8 @@ class ReplicaPlane:
 
             resident   (used, keys, ns): the shard's slot metadata at
                        this boundary (slots 0..L-1, L <= capacity)
+            hidden     optional [L] mask of resident rows the index does
+                       not serve (see ``ReplicaIndex``)
             up_slots   int32 slots to (re)publish on shard p
             up_keys    their key ids
             up_ns      their namespaces
@@ -443,19 +452,24 @@ class ReplicaPlane:
         key = np.zeros((P, cap), dtype=np.int64)
         ns = np.zeros((P, cap), dtype=np.int64)
         extra = prev.extra.copy() if prev.extra is not None else None
+        hidden = None
         for p, d in per_shard.items():
             r_used, r_key, r_ns = d["resident"]
             L = len(r_used)
             used[p, :L] = r_used
             key[p, :L] = r_key
             ns[p, :L] = r_ns
+            if d.get("hidden") is not None:
+                if hidden is None:
+                    hidden = np.zeros((P, cap), dtype=bool)
+                hidden[p, :L] = d["hidden"]
             if d["up_extra"] is not None and len(d["up_slots"]):
                 if extra is None:
                     extra = np.empty((P, cap), dtype=object)
                 extra[p, np.asarray(d["up_slots"], dtype=np.int64)] = \
                     _objects(d["up_extra"])
         return ReplicaIndex(used, key, ns, extra,
-                            self._next_cold(prev, per_shard))
+                            self._next_cold(prev, per_shard), hidden)
 
     def _next_cold(self, prev: ReplicaIndex,
                    per_shard: Dict[int, dict]) -> dict:

@@ -28,10 +28,10 @@ failed job restarts from its latest complete checkpoint (bounded
 attempts, cold restart when none exists) while the others keep their
 quanta.
 
-The cross-job shard arbiter (:mod:`arbiter`) acts through LIVE rescale
-requests, which the port's executor refuses (ROADMAP.md, Queue A item
-12g): ``arbiter=`` with ``arbitrate_every_s > 0`` raises at construction
-rather than posting requests bound to fail.
+The cross-job shard arbiter (:mod:`arbiter`), ticking every
+``arbitrate_every_s``, acts through LIVE rescale requests that each job's
+executor serves at its next batch boundary; shard ceilings are logical
+(``parallel/mesh.py`` ``logical_shard_ceiling``).
 """
 
 from __future__ import annotations
@@ -72,6 +72,25 @@ class TenantJob:
         #: last error is kept so the operator can see WHY)
         self.rescale_errors = 0
         self.last_rescale_error: Optional[BaseException] = None
+        #: arbiter-driven rescales the executor served (harvested each
+        #: tick and when the job ends)
+        self.rescales_served = 0
+
+    def harvest_rescale(self, ending: bool = False) -> None:
+        """Account a finished arbiter rescale request: a refused or
+        failed reshard comes back through ``finish(None, e)``. When the
+        job is ``ending``, a request its executor failed because the job
+        terminated first is dropped, not counted as an error (the
+        arbiter's tick skips finished jobs)."""
+        pending = self._pending_rescale
+        if pending is None or not pending._done.is_set():
+            return
+        self._pending_rescale = None
+        if pending.error is None:
+            self.rescales_served += 1
+        elif not ending:
+            self.rescale_errors += 1
+            self.last_rescale_error = pending.error
 
     @property
     def busy_ms(self) -> float:
@@ -101,11 +120,6 @@ class SessionCluster:
                  serving_workers: int = 2,
                  serving_cache_entries: int = 1 << 18,
                  serving_shm_dir: Optional[str] = None):
-        if arbiter is not None and arbitrate_every_s > 0:
-            raise NotImplementedError(
-                "cross-job shard arbitration drives live rescales, which "
-                "are not ported to flink_tpu_torch yet (ROADMAP.md, Queue "
-                "A item 12g)")
         self.jobs: Dict[str, TenantJob] = {}
         self.drr = DeficitRoundRobin(quantum=quantum_records)
         #: serving_workers — threads draining the per-(job, operator,
@@ -344,6 +358,7 @@ class SessionCluster:
         restarts, ledger violation totals) stay on the TenantJob for
         the results mapping; the per-job gauge subtree is unregistered
         so scrapes stop reading dead engines."""
+        job.harvest_rescale(ending=True)
         job.gen = None
         job.handle = None
         job.ledger.engines.clear()
@@ -413,13 +428,14 @@ class SessionCluster:
 
     def _arbitrate(self) -> None:
         """One arbitration tick: demands -> allocations -> LIVE rescale
-        requests on the affected jobs' control queues (served at their
-        next batch boundary — by the reference; the port's executor
-        refuses them, ROADMAP.md Queue A item 12g, and each refusal is
-        harvested into ``rescale_errors``). A job's shard ceiling is its
-        quota's ``max_shards``, else its engine's LOGICAL mesh size
-        (``parallel/mesh.py``), never the number of cards."""
+        requests on the affected jobs' control queues, served at their
+        next batch boundary after the in-flight fires drain; a failed
+        reshard is harvested into ``rescale_errors``. A job's shard
+        ceiling is logical (``parallel/mesh.py``
+        ``logical_shard_ceiling``): its quota's ``max_shards``, else the
+        stated default — never the number of cards."""
         from flink_tpu_torch.cluster.local_executor import RescaleRequest
+        from flink_tpu_torch.parallel.mesh import logical_shard_ceiling
         from flink_tpu_torch.tenancy.arbiter import JobDemand
 
         demands = []
@@ -427,25 +443,14 @@ class SessionCluster:
         for job in self.jobs.values():
             if job.finished or job.handle is None:
                 continue
-            pending = job._pending_rescale
-            if pending is not None and pending._done.is_set():
-                # harvest the finished request: a refused or failed
-                # reshard comes back through finish(None, e)
-                job._pending_rescale = None
-                if pending.error is not None:
-                    job.rescale_errors += 1
-                    job.last_rescale_error = pending.error
+            job.harvest_rescale()
             op = next((o for o in job.handle.stateful_operators()
-                       if hasattr(getattr(o, "windower", None), "P")),
+                       if getattr(o, "supports_live_rescale", False)),
                       None)
             if op is None:
                 continue
             eng = op.windower
-            hi = job.quota.max_shards or int(eng.P)
-            hi = min(hi, int(eng.max_parallelism))
-            kgr = getattr(eng, "key_group_range", None)
-            if kgr is not None:
-                hi = min(hi, int(kgr[1]) - int(kgr[0]) + 1)
+            hi = logical_shard_ceiling(eng, job.quota.max_shards)
             targets[job.name] = (job, op, hi)
             demands.append(JobDemand(
                 job=job.name, current_shards=int(eng.P),

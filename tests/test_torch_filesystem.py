@@ -604,7 +604,16 @@ def test_insert_into_filesystem_then_select_back(tmp_path, parallelism):
         order = np.lexsort((back["window_end"], back["key"]))
         return buckets, rows, back.take(order), (ks, vs, ts)
 
-    out = both(tmp_path, run)
+    def run_and_reset(p, d):
+        # the brokers are process-wide: leave no topic behind for a later
+        # test file on this worker (the reference's
+        # tests/test_filesystem_sql.py seeds a topic of the same name)
+        try:
+            return run(p, d)
+        finally:
+            p.FakeBroker.reset()
+
+    out = both(tmp_path, run_and_reset)
     assert out["port"][:2] == out["reference"][:2]
     assert_batches_equal(out["port"][2], out["reference"][2])
     buckets, rows, back, (ks, vs, ts) = out["port"]

@@ -606,6 +606,19 @@ def test_unported_options_raise_naming_their_item(kwargs, item):
 def test_unported_features_raise_naming_their_item(call, item):
     eng = port(MeshIntervalJoinEngine, -1, 1)
     eng.process_batch(RecordBatch(cols([1], [1.0], [0])), 0)
+    if item == "12g":
+        # item 12g is ported: the live reshard lifts both sides onto the
+        # new mesh as the reference's does, and the join goes on equal
+        want = ref(JInterval, -1, 1)
+        want.process_batch(JRecordBatch(cols([1], [1.0], [0])), 0)
+        got_rep, want_rep = call(eng), call(want)
+        assert got_rep["shards"] == want_rep["shards"] == 2 == eng.P
+        assert got_rep["rows_moved"] == want_rep["rows_moved"] == 1
+        for e, cls in ((eng, RecordBatch), (want, JRecordBatch)):
+            e.process_batch(cls(cols([1, 2], [2.0, 3.0], [1, 1])), 1)
+        assert_batches_equal(eng.on_watermark(10), want.on_watermark(10))
+        assert_snapshots_equal(eng.snapshot(), want.snapshot())
+        return
     if item == "12e":
         # item 12e is ported: the side query answers as the reference's
         want = ref(JInterval, -1, 1)

@@ -172,8 +172,26 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="shuffle.mode"):
         TEngine(asg, agg, mesh, shuffle_mode="host")
     eng = TEngine(asg, agg, mesh)
-    with pytest.raises(NotImplementedError):
-        eng.reassign_key_groups({})
+    # live rebalance is ported (item 12g, tests/test_torch_skew.py at
+    # size): a non-assignment is refused as the reference's engine refuses
+    # it, and a move of half of shard 0's groups reports as the
+    # reference's on the same (empty) engine
+    from flink_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    jeng = JEngine(jasg.TumblingEventTimeWindows.of(100),
+                   jagg.CountAggregate(), jmake_mesh(P))
+    errs = []
+    for e in (eng, jeng):
+        with pytest.raises(TypeError) as err:
+            e.reassign_key_groups({})
+        errs.append(str(err.value))
+    assert errs[0] == errs[1]
+    reps = []
+    for e in (eng, jeng):
+        cur = e.key_group_assignment
+        reps.append(e.reassign_key_groups(
+            cur.move(cur.groups_of_shard(0)[:8], 1)))
+    assert reps[0]["groups_moved"] == reps[1]["groups_moved"] == 8
     # the read replica is ported (tests/test_torch_replica.py)
     from flink_tpu_torch.tenancy.replica import ReplicaPlane
 

@@ -803,6 +803,33 @@ def test_unported_calls_raise_naming_their_item(call, item):
         assert ta.lookup_batch([1, 2, 3]) == ja.lookup_batch([1, 2, 3]) == (
             [{70: {"sum_v": 0.75}}, {80: {"sum_v": 2.0}}, {}], 1)
         return
+    if item == "12g":
+        # item 12g is ported: both calls refuse these arguments exactly as
+        # the reference's do (a float Sum split needs allow_inexact; a
+        # rebalance needs a KeyGroupAssignment), and a permitted split
+        # salts, folds and answers like the reference's
+        # (tests/test_torch_skew.py at size)
+        from flink_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+        want = JEngine(50, jagg.SumAggregate("v"), jmake_mesh(P),
+                       max_device_slots=1024)
+        errs = []
+        for e in (eng, want):
+            with pytest.raises((TypeError, ValueError)) as err:
+                call(e)
+            errs.append((type(err.value), str(err.value)))
+        assert errs[0] == errs[1]
+        for e, mk in ((eng, _tbatch), (want, _jbatch)):
+            assert e.register_hot_key(1, allow_inexact=True) == 8
+            for t0 in (10, 20, 200):
+                e.process_batch(mk([1, 1, 2], [0.5, 0.25, 2.0],
+                                   [t0, t0 + 5, t0]))
+        assert eng.hot_key_stats() == want.hot_key_stats()
+        assert eng.hot_key_stats()["salted_records"] == 6
+        assert eng.query_batch([1, 2]) == want.query_batch([1, 2])
+        assert_batches_equal(eng.on_watermark(1 << 40),
+                             want.on_watermark(1 << 40))
+        return
     with pytest.raises(NotImplementedError) as e:
         call(eng)
     assert _item(e) == item

@@ -45,7 +45,7 @@ CITED = _citations()
 
 
 def test_the_package_cites_roadmap_items():
-    assert ("A", "12g") in CITED
+    assert ("A", "12h") in CITED
     assert ("C", "R2") in CITED
 
 

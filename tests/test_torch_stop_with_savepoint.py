@@ -225,9 +225,30 @@ def test_query_and_rescale_requests_fail_naming_item_12(make):
     control = queue.Queue()
     req = make()
     sink = tsinks.CollectSink()
-    env = _job("port", _source("port", control, req, 2), sink)
+    # a rescale needs a mesh engine: that case runs at parallelism 8
+    par = 8 if isinstance(req, tle.RescaleRequest) else 1
+    env = _job("port", _source("port", control, req, 2), sink, par)
     tle.LocalExecutor(env.config).run(env.get_stream_graph(), "j",
                                       control_queue=control)
+    if isinstance(req, tle.RescaleRequest):
+        # live rescale (item 12g) is served now: at the same boundary the
+        # reference's executor moves the same rows from 8 to 4 shards, and
+        # the rescaled job's rows equal the uninterrupted job's
+        jcontrol = queue.Queue()
+        jreq = jle.RescaleRequest(4)
+        jsink = jsinks.CollectSink()
+        jenv = _job("ref", _source("ref", jcontrol, jreq, 2), jsink, 8)
+        jle.LocalExecutor(jenv._effective_config()).run(
+            jenv.get_stream_graph(), "j", control_queue=jcontrol)
+        got, want = req.wait(timeout=5), jreq.wait(timeout=5)
+        assert (got["from"], got["to"]) == (want["from"], want["to"]) \
+            == (8, 4)
+        assert got["rows_moved"] == want["rows_moved"] > 0
+        assert sorted(_rows(sink)) == sorted(_rows(jsink))
+        clean = tsinks.CollectSink()
+        _job("port", _source("port"), clean, 8).execute("clean")
+        assert sorted(_rows(sink)) == sorted(_rows(clean))
+        return
     if isinstance(req, tle.StateQueryRequest):
         # state queries (item 12e) are served now: at the same boundary
         # the reference answers the same {window_end: {column: value}}
@@ -239,9 +260,6 @@ def test_query_and_rescale_requests_fail_naming_item_12(make):
             jenv.get_stream_graph(), "j", control_queue=jcontrol)
         got, want = req.wait(timeout=5), jreq.wait(timeout=5)
         assert got == want and got
-    else:
-        with pytest.raises(NotImplementedError, match="Queue A item 12g"):
-            req.wait(timeout=5)
     assert sorted(_rows(sink)) == sorted(_uninterrupted("port"))
 
 

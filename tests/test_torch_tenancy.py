@@ -894,50 +894,75 @@ def test_replica_answers_at_held_cut_equal_live_and_reference(tmp_path):
 
 
 def test_arbiter_rejected_at_construction_naming_12g():
-    from tests.test_torch_roadmap_items import ROADMAP
-
-    with pytest.raises(NotImplementedError, match="Queue A item 12g") as e:
-        SessionCluster(arbiter=ShardArbiter(8), arbitrate_every_s=0.01)
-    assert "**Item 12g " in ROADMAP, str(e.value)
+    """Item 12g is ported: ``arbiter=`` with ``arbitrate_every_s > 0`` is
+    built (it used to raise naming 12g), and two jobs run under a live
+    arbitration tick — the arbiter grows the backlogged job's logical
+    shards, every served rescale succeeds (``rescale_errors`` 0), and
+    each job's rows equal its solo run (exact: integer sums)."""
+    solos, sinks = [], []
+    cluster = SessionCluster(quantum_records=1024,
+                             arbiter=ShardArbiter(8),
+                             arbitrate_every_s=0.001)
+    for name, seed in (("a", 5), ("b", 9)):
+        solo = CollectSink()
+        _pipeline("t", solo, n=40_000, seed=seed).execute("solo")
+        solos.append(solo)
+        sinks.append(CollectSink())
+        cluster.submit(_pipeline("t", sinks[-1], n=40_000, seed=seed), name)
+    cluster.run(timeout_s=180)
+    for sink, solo in zip(sinks, solos):
+        assert _rows(sink) == _rows(solo)
+    assert all(j.rescale_errors == 0 for j in cluster.jobs.values())
+    assert sum(j.rescales_served for j in cluster.jobs.values()) >= 1
     # without a tick the arbiter is held, never consulted
     SessionCluster(arbiter=ShardArbiter(8))
 
 
 def test_arbitrate_tick_posts_rescale_and_harvests_refusal():
-    """One ``_arbitrate`` tick on running jobs: each job's shard ceiling is
-    its LOGICAL mesh size (P=2, never the card count), the decision posts
-    a ``RescaleRequest`` on the job's control queue, the executor refuses
-    it (item 12g), and the next tick harvests the refusal into
-    ``rescale_errors``; the jobs still finish equal to their solo runs."""
+    """One ``_arbitrate`` tick on running jobs in both packages: the
+    job's shard ceiling is LOGICAL (the stated default 8, as the
+    reference's 8 virtual devices give), the decision posts a
+    ``RescaleRequest`` on the job's control queue, the executor SERVES it
+    at the next batch boundary (2 -> 1 shards, the same rows moved as the
+    reference's), the next tick harvests it with ``rescale_errors`` 0,
+    and the job finishes equal to its solo run."""
     class Fixed:
-        calls = []
+        def __init__(self):
+            self.calls = []
 
         def decide(self, demands, dead_shards=0):
-            Fixed.calls.append([(d.job, d.current_shards, d.max_shards)
-                                for d in demands])
+            self.calls.append([(d.job, d.current_shards, d.max_shards)
+                               for d in demands])
             return {d.job: 1 for d in demands}
 
     solo = CollectSink()
     _pipeline("t", solo, n=60_000).execute("solo")
-    sa = CollectSink()
-    cluster = SessionCluster(quantum_records=1024)
-    cluster.submit(_pipeline("t", sa, n=60_000), "grow")
-    cluster.arbiter = Fixed()
-    cluster.step_round()
-    cluster._arbitrate()
-    assert Fixed.calls[0] == [("grow", 2, 2)]
-    req = cluster.jobs["grow"]._pending_rescale
-    assert req is not None and req.new_shards == 1
-    for _ in range(50):  # a round may leave the job no DRR credit
+    reports = []
+    for pkg, make, sink_cls in (("t", SessionCluster, CollectSink),
+                                ("j", JCluster, JCollectSink)):
+        sink = sink_cls()
+        cluster = make(quantum_records=1024)
+        cluster.submit(_pipeline(pkg, sink, n=60_000), "grow")
+        cluster.arbiter = Fixed()
         cluster.step_round()
-        if req._done.is_set():
-            break
-    with pytest.raises(NotImplementedError, match="12g"):
-        req.wait(5)
-    cluster._arbitrate()
-    assert cluster.jobs["grow"].rescale_errors == 1
-    cluster.run(timeout_s=120)
-    assert _rows(sa) == _rows(solo)
+        cluster._arbitrate()
+        assert cluster.arbiter.calls[0] == [("grow", 2, 8)]
+        req = cluster.jobs["grow"]._pending_rescale
+        assert req is not None and req.new_shards == 1
+        for _ in range(50):  # a round may leave the job no DRR credit
+            cluster.step_round()
+            if req._done.is_set():
+                break
+        reports.append(req.wait(5))
+        cluster._arbitrate()
+        assert cluster.jobs["grow"].rescale_errors == 0
+        if pkg == "t":
+            assert cluster.jobs["grow"].rescales_served == 1
+        cluster.run(timeout_s=120)
+        assert _rows(sink) == _rows(solo)
+    got, want = reports
+    assert (got["from"], got["to"]) == (want["from"], want["to"]) == (2, 1)
+    assert got["rows_moved"] == want["rows_moved"]
 
 
 # ------------------------------------------------- run_stepwise / JobHandle

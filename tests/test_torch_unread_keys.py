@@ -58,13 +58,13 @@ def _run(extra, pkg="port"):
 
 #: key -> (values that raise, values that run)
 CASES = {
-    "autoscale.enabled": ([True, "true"], [False]),
     "shuffle.hosts": ([1, 2], [0]),
 }
 
 #: keys the port reads now -> (the values that raised before it did, the
 #: values that ran)
 HONOURED = {
+    "autoscale.enabled": ([True, "true"], [False]),
     "memory.device.size": ([1 << 30], [0]),
     "execution.pipeline.in-flight-batches": ([1, 2], [0, -1]),
     "execution.stage-parallelism": ([2, 4], [0]),
@@ -177,7 +177,7 @@ def test_unread_keys_raise_for_process_jobs_too(key):
 
 @pytest.mark.parametrize("key", sorted(HONOURED))
 def test_honoured_key_gives_the_references_window_rows(key):
-    """A key that used to raise (ROADMAP items 12a/12b) runs at those
+    """A key that used to raise (ROADMAP items 12a/12b/12g) runs at those
     values and gives the reference's rows."""
     for value in HONOURED[key][0]:
         got = _sorted(_run({key: value}))
