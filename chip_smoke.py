@@ -81,7 +81,8 @@ Phases, each fatal on failure (no result line is printed then):
     with a 2 s gap over DataGenSource's records and 10M keys, float32
     ``.sum("value")``, micro-batches of 1<<16, a 1<<19-row device budget:
     the paged spill tier evicts and reloads), cut from the row's 12M
-    records to 8M when phase 25 came (the script's time): (a) the sessions'
+    records to 8M when phase 25 came and to 4M when phase 27 came (the
+    script's time): (a) the sessions'
     (key, start, end) multiset equals a NumPy oracle's exactly and every
     sum is within 2 (n - 1) 2^-24 of its stream-order float32 sum; 0 late
     records; the native session plane ran; print events/s, fire latency,
@@ -184,15 +185,16 @@ Phases, each fatal on failure (no result line is printed then):
     runs phase 15 alone.
 16. CEP: (a) the ``cep_patterns_10m_keys`` row of ``tools/bench_cep.py``
     (a 2-stage within-2 s sequence over 10M keys at 400k events/s of
-    event time, 1M records — the bench's 4M, cut to 2M when phase 21 came
-    and to 1M when phase 24 came, to keep the script's time (250k no
-    longer evicts) — in batches
+    event time, 500k records — the bench's 4M, cut to 2M when phase 21
+    came, to 1M when phase 24 came and to 500k when phase 27 came, to
+    keep the script's time (500k still evicts and reloads, 250k does not)
+    — in batches
     of 1<<15, P=8, 1<<14 slots a shard
     against ~260k live partials, spill to a temp dir) through
     ``flink_tpu_torch/benchmarks/cep.py`` on the card: its first 1<<17
     records (cut from 1<<19 when phase 23 came and from 1<<18 when phase
     26 came, to keep the script inside its time) equal, batch for batch (by digest), to the same engine with
-    ``backend="host"``; every match of the 1M records equal, as a sorted
+    ``backend="host"``; every match of the 500k records equal, as a sorted
     multiset, to a NumPy oracle written here; rows evicted and reloaded
     > 0; one rank launch per ingest batch; events/s, emit latency p50/p99,
     the host backend's events/s, and the NFA advance per fire (calls,
@@ -251,7 +253,8 @@ Phases, each fatal on failure (no result line is printed then):
     divergence, one shard lost, one unit restored, 0 < records replayed
     <= events/4, rows evicted > 0; the recovery ms and its parts, the
     survivors' rows moved, events/s and the launches before and after the
-    loss printed; (18b) Q5-revenue at P=8 (10M bids in steps of 1<<20, HOP
+    loss printed; (18b) Q5-revenue at P=8 (6M bids in steps of 1<<20, cut
+    from the benchmark's 10M when phase 27 came; HOP
     10 s / 2 s, float32 Sum of the price) through
     ``run_shard_loss_verify``, shard 3 lost at step 5's watermark (after
     the second checkpoint), against ``SliceSharedWindower``: the same
@@ -460,7 +463,8 @@ Phases, each fatal on failure (no result line is printed then):
     ``RpcService``: all 1,282,788 sums equal 22(d)'s 2M-bid oracle bit for
     bit; events/s, the bytes that crossed the socket and the fold's
     launches printed; (23g) BASELINE row 4's topic cut from 8M to 1M
-    events (the codec runs per record in Python), each event encoded
+    events and to 500k when phase 27 came (the codec runs per record in
+    Python), each event encoded
     under a v1 writer schema and read under an evolved v2 (an added field
     with a default) through ``'format'='avro'`` into HOP(2 s, 10 s)
     ``SUM(value)``: every sum equal to the raw format's run (and the
@@ -512,9 +516,10 @@ Phases, each fatal on failure (no result line is printed then):
     card).
 25. multi-tenancy (after phase 24): (25a) one ``SessionCluster`` runs two
     tenants at P=8 with ``serving.replica`` on and a 1<<22-row quota
-    each: phase 5's Q5 (HOP 10 s / 2 s, top-k 16, batches of 1<<20) on 10M
-    bids (cut from phase 5's 40M: ten boundaries, each an incremental
-    publish of a ~500k-row delta) and phase 6's Q5-revenue on 2M (cut from
+    each: phase 5's Q5 (HOP 10 s / 2 s, top-k 16, batches of 1<<20) on 2M
+    bids (cut from phase 5's 40M: 10M until phase 27 came, when the whole
+    script passed 1,000 s; two boundaries, each an incremental publish of
+    a ~500k-row delta) and phase 6's Q5-revenue on 2M (cut from
     its 10M: 24(b)'s cut, whose card == CPU answers it reuses; batches of
     1<<19, four boundaries), while 16 client threads issue
     ``lookup_batch_packed`` of 256
@@ -536,11 +541,12 @@ Phases, each fatal on failure (no result line is printed then):
     serving.py``: a warm job, then two fresh jobs at P=4, 4,096 keys,
     seed 13, tumbling 60 s ``.sum("value")``, batches of 4,096,
     ``latency.fire-deadline-ms`` 25, an 8,192-row quota, 16 clients of
-    256 keys with a 2 ms pause, a 25 ms publish interval) on 40,000
-    records a job, 10 % of the row's 400,000 (the clients' Python holds
+    256 keys with a 2 ms pause, a 25 ms publish interval) on 20,000
+    records a job, 5 % of the row's 400,000 (the clients' Python holds
     the GIL the one scheduler thread needs between its torch calls: 400k
-    took 476.7 s on the card with the card idle): ten batches a job, each
-    boundary an incremental publish; at the row's 50k events/s of event
+    took 476.7 s on the card with the card idle; 40,000 until phase 27
+    came): five batches a job, each boundary an incremental publish; at
+    the row's 50k events/s of event
     time its 60 s windows fire only at the end of the stream at any depth
     up to 3M records, the row's own 400k included: the sinks equal the same jobs
     on the CPU bit for bit, the packed answers the dict answers; the
@@ -592,6 +598,34 @@ Phases, each fatal on failure (no result line is printed then):
     chip_smoke.phase_scaleout(torch)'`` runs phase 26 alone
     (``phase_scaleout(torch, "cpu", small=True)`` rehearses it without a
     card).
+27. The pod (ROADMAP item 12h): (27a) phase 5's Q5 at P=8 with
+    ``shuffle.hosts: 2`` (the two-level exchange, 2x4 in one process) on
+    4M bids: every window's winners equal the Q5 oracle; then Q5-revenue
+    (float32 ``.sum("price")``) at 2x4 on 2M bids, every row equal bit
+    for bit to the flat run of the same bids (stage 2 folds the float
+    leaf in stream order through the ordered fold); the traffic split
+    (rows within and across hosts) and the rank and fold launches of each
+    stage printed; (27b) ``shuffle.mode: host`` on Q5 at P=8 (4M bids),
+    rows equal 27(a)'s, and on the mesh session engine at P=8 (row 5's
+    stream, 1M records, 1<<16 rows a shard), every fired session equal
+    bit for bit to the device-mode run; (27c) BASELINE row 8 through
+    ``benchmarks/multiproc.py`` at 1,048,576 records (4x the bench row):
+    two processes on the card, 4 logical shards each, exchanging over
+    gloo; the union equals the one-process run, rows cross, and the
+    kill-1-of-2 leg restores only the dead host's ranges and ends equal;
+    aggregate and one-process events/s, rows crossed, bytes through gloo
+    and the route's ms a batch printed; (27d) the ``host.lost`` point at
+    2x4 on the mesh window engine (8 batches of 65,536 records): one host
+    declared dead, its ranges restored from their units, the committed
+    rows equal the fault-free run's; then ``LookupRouter`` over the two
+    hosts of a held 2x4 Q5 count engine (524,288 bids): its answers equal
+    the engine's ``query_batch``, local and remote key counts printed; (27e)
+    the rank kernel against ``exchange_rank_flat_plain`` at the stage-1
+    (D = 4) and stage-2 (D = 2) shapes of Q5's first 1<<20 bids, 27(a)'s
+    widths: max abs err 0. ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_pod(torch)'`` runs phase 27 alone
+    (``phase_pod(torch, "cpu", small=True)`` rehearses it without a
+    card).
 
 The launch counts of both kernels are set to 0 just before each of phases
 5 to 8, 10, 11, 12(a), 13(a), 13(b), 13(c), both runs of 14(a) and 14(b),
@@ -608,16 +642,21 @@ counters start at 0 with it and come back through the job's metric
 snapshot), each run of 24(a) to 24(e), each of 25(a)'s two cluster runs
 and 25(b)'s and 25(d)'s runs, 26(a)'s three runs, 26(b)'s rescaled Q5
 and autoscaled ramp, 26(c)'s resharded join and CEP runs and 26(d)'s
-cluster run, and read just after; each phase fails if
+cluster run, each run of 27(a) and 27(b), 27(d)'s held engine and its
+host-loss and fault-free runs (from the harness's first engine on: the
+oracle runs before it) (27(c)'s kernels launch in its child processes
+and are not read), and read just after; each phase
+fails if
 a kernel of its path did not launch (the rank at parallelism 8 — in 18(b) at D=8
 before the loss and at D=7 after it, in 19(c) before the stop and after
 the resume —; the ordered fold in phases 6, 8, 9(b), 11, 12, 13, 14(b),
 15(e), 17(b), 17(c), 18(a), 18(b), 18(c), 19(b), 20(a), 20(b), 21(b),
 22(a), 22(c), 22(d), 23(f), 23(g), 24(b), 24(d), 24(e), 25(a), 25(b),
-25(d), 26(a), 26(b)'s ramp and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count
+25(d), 26(a), 26(b)'s ramp, 27(a)'s revenue (its stage 2), 27(b)'s
+sessions and 21(d)'s ML job — row 1's `.sum` keeps a float32 leaf —, Count
 being an integer fold; the rank in 20(c), 21(b), 22(b), 22(e), 23(a)-(e),
-24(a)-(c), 25(a), 25(b), 25(d) and 26(a)-(d); 26(e)'s comparison
-launches are not counted). 25(c) runs no kernel: its frontends
+24(a)-(c), 25(a), 25(b), 25(d), 26(a)-(d), 27(a) and 27(b); 26(e)'s
+and 27(e)'s comparison launches are not counted). 25(c) runs no kernel: its frontends
 read the hot cache's shared memory on the host. 19(a), 19(d) and 21(a)
 run no kernel of the two: the device value state's gather and its
 stream-ordered put and the OVER device program are torch ops.
@@ -3942,12 +3981,17 @@ def shard_loss_row7(torch) -> dict:
     return row
 
 
+#: 18(b)'s bids: 6 steps of 1<<20, cut from the benchmark's 10M to keep
+#: the script's time (shard 3 is still lost at step 5's watermark)
+SHARD_LOSS_Q5REV_RECORDS = 6_000_000
+
+
 def shard_loss_q5rev(torch) -> dict:
     """18(b): Q5-revenue at P=8 through run_shard_loss_verify on the card;
     the rank kernel launches at D=8 before the loss and at D=7 after it."""
     from flink_tpu_torch.benchmarks import shard_loss as sl
 
-    row = sl.run("q5rev", "cuda")["row"]
+    row = sl.run("q5rev", "cuda", records=SHARD_LOSS_Q5REV_RECORDS)["row"]
     fails = list(row["failures"])
     if (row["P_at_loss"], row["P_after_loss"]) != (8, 7):
         fails.append(f"mesh {row['P_at_loss']} -> {row['P_after_loss']}")
@@ -6999,7 +7043,7 @@ def phase_cluster(torch, device: str = "cuda", small: bool = False) -> dict:
         out["d"] = ha_q5(torch, tmp, device, mid, batch // 4)
         out["e"] = standalone_q5(torch, tmp, device, mid, batch // 4)
     out["f"] = grpc_shuffle_revenue(torch, device, mid, batch // 2)
-    out["g"] = avro_row4(torch, device, 1_000_000 if not small else 100_000)
+    out["g"] = avro_row4(torch, device, 500_000 if not small else 100_000)
     launches = {"exchange_rank": 0, "ordered_fold": 0}
     for part in out.values():
         for k in launches:
@@ -7813,8 +7857,9 @@ def phase_serving(torch, device: str = "cuda", small: bool = False,
 TENANT_QUOTA_ROWS = 1 << 22     # 25(a): above both tenants' resident rows
 #: 25(b)'s records a job, cut from the reference's 400,000: the 16 client
 #: threads GIL-starve the one scheduler thread (400k took 476.7 s on the
-#: card, the card idle); 40,000 is ten batches of 4,096 a job
-ROW6_RECORDS = 40_000
+#: card, the card idle); 20,000 is five batches of 4,096 a job (40,000, ten
+#: batches, until phase 27 came: 48.6 s of the script)
+ROW6_RECORDS = 20_000
 TENANCY_CLIENTS = 16
 
 
@@ -8329,7 +8374,9 @@ def phase_tenancy(torch, device: str = "cuda", small: bool = False,
         from flink_tpu_torch.stateplane import cuda_build
 
         cuda_build.build_all()
-    q5, rev, row6 = ((10_000_000, 2_000_000, ROW6_RECORDS) if not small
+    # 25(a)'s Q5 at 2M bids (10M until phase 27 came: the whole script
+    # passed 1,000 s, and its runs with 16 clients took ~45 s of it)
+    q5, rev, row6 = ((2_000_000, 2_000_000, ROW6_RECORDS) if not small
                      else (600_000, 300_000, 20_000))
     batch = (1 << 20) if not small else (1 << 16)
     t_phase = time.perf_counter()
@@ -8907,24 +8954,452 @@ def phase_scaleout(torch, device: str = "cuda", small: bool = False) -> dict:
     return {**out, "launches": launches, "seconds": seconds}
 
 
+# --------------------------------------------------------------- phase 27
+
+#: 27(a)/(b)'s Q5 bids, 27(a)'s Q5-revenue bids, 27(b)'s session records,
+#: 27(c)'s row-8 records (4x the bench row's 262,144)
+POD_Q5_RECORDS = 4_000_000
+POD_REVENUE_RECORDS = 2_000_000
+POD_SESSION_RECORDS = 1_000_000
+ROW8_RECORDS = 1 << 20
+#: 27(d)'s host-loss stream (8 batches of 65,536) and held Q5 bids
+POD_LOSS_RECORDS = 1 << 19
+
+
+class _EngineLog:
+    """Records the mesh window engines a run opens (to read their
+    two-level traffic after ``env.execute()``)."""
+
+    def __init__(self):
+        from flink_tpu_torch.parallel.sharded_windower import (
+            MeshWindowEngine,
+        )
+
+        self.cls, self.engines = MeshWindowEngine, []
+        self._init = MeshWindowEngine.__init__
+        log = self
+
+        def init(eng, *a, **k):
+            log._init(eng, *a, **k)
+            log.engines.append(eng)
+
+        MeshWindowEngine.__init__ = init
+
+    def close(self):
+        self.cls.__init__ = self._init
+
+    def traffic(self) -> dict:
+        out = {"rows_intra_host": 0, "rows_cross_host": 0,
+               "exchange2_batches": 0, "stage1_rank": 0, "stage2_rank": 0,
+               "stage2_fold": 0}
+        for e in self.engines:
+            tr = e._exchange2_traffic
+            if tr is None:
+                continue
+            for k, v in {**tr.as_dict(), **tr.launches}.items():
+                out[k] += v
+        return out
+
+
+def _pod_job(torch, build, device, extra, records):
+    """``build`` at P=8 through ``env.execute()`` with ``extra`` keys:
+    (sink rows, seconds, launches, the engines' two-level traffic)."""
+    from flink_tpu_torch import Configuration, StreamExecutionEnvironment
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.connectors.sinks import CollectSink
+
+    env = StreamExecutionEnvironment(Configuration({
+        "parallelism.default": 8, "execution.micro-batch.size": 1 << 20,
+        "execution.device": device, **extra}))
+    sink = CollectSink()
+    build(env, BidSource(total_records=records, num_auctions=AUCTIONS,
+                         events_per_second_of_eventtime=RATE)).sink_to(sink)
+    log = _EngineLog()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        env.execute()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        log.close()
+    return sink.result(), seconds, counts, log.traffic()
+
+
+def _q5_build(env, src):
+    from flink_tpu_torch.benchmarks.nexmark import build_q5
+
+    return build_q5(env, src, size_ms=SIZE, slide_ms=SLIDE,
+                    device_top_k=TOP_K)
+
+
+def _sorted_bits(batch) -> dict:
+    """A sink's result as {column: array}, every column on its bits and
+    the rows in one order (a lexsort over all columns): two results are
+    the same rows, bit for bit, when these are equal."""
+    cols = {}
+    for name in sorted(batch.names()):
+        a = np.asarray(batch[name])
+        cols[name] = a.view(f"u{a.dtype.itemsize}") if a.dtype.kind == "f" \
+            else a
+    order = np.lexsort(tuple(cols.values())) if cols else []
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _same_rows(a, b) -> bool:
+    x, y = _sorted_bits(a), _sorted_bits(b)
+    return x.keys() == y.keys() and all(
+        np.array_equal(x[k], y[k]) for k in x)
+
+
+def pod_two_level(torch, device: str, q5_records: int,
+                  rev_records: int) -> dict:
+    """27(a): Q5 and Q5-revenue at P=8 with ``shuffle.hosts=2``."""
+    q5_res, q5_s, q5_counts, q5_tr = _pod_job(
+        torch, _q5_build, device, {"shuffle.hosts": 2}, q5_records)
+
+    class _S:
+        def rows(self):
+            return q5_res.to_rows()
+
+    windows = _stage_check_q5(_S(), q5_records, "phase 27(a) Q5 2x4")
+    if q5_tr["exchange2_batches"] <= 0 or q5_tr["rows_cross_host"] <= 0:
+        raise AssertionError(f"phase 27(a): Q5 did not run the two-level "
+                             f"exchange ({q5_tr})")
+    rev, rev_s, rev_counts, rev_tr = _pod_job(
+        torch, build_revenue, device, {"shuffle.hosts": 2}, rev_records)
+    flat, flat_s, flat_counts, _ = _pod_job(torch, build_revenue, device,
+                                            {}, rev_records)
+    if not _same_rows(rev, flat):
+        raise AssertionError("phase 27(a): Q5-revenue at 2x4 differs from "
+                             "the flat run")
+    if device == "cuda":
+        for what, c, stage_fold in (("Q5", q5_counts, None),
+                                    ("revenue", rev_counts,
+                                     rev_tr["stage2_fold"])):
+            if c["exchange_rank"] <= 0 or (stage_fold is not None
+                                           and stage_fold <= 0):
+                raise AssertionError(f"phase 27(a): {what} launches {c}, "
+                                     "the stage-2 fold did not launch")
+    out = {"q5": {"records": q5_records, "seconds": q5_s,
+                  "events_per_s": q5_records / q5_s, "windows": windows,
+                  "traffic": q5_tr, "launches": q5_counts},
+           "revenue": {"records": rev_records, "seconds": rev_s,
+                       "flat_seconds": flat_s, "rows": len(rev),
+                       "traffic": rev_tr, "launches": rev_counts,
+                       "flat_launches": flat_counts}}
+    print(f"phase 27(a): Q5 at 2x4 over {q5_records} bids in {q5_s:.3f} s "
+          f"= {q5_records / q5_s:.0f} events/s, {windows} windows equal "
+          f"the oracle; traffic {q5_tr}; Q5-revenue at 2x4 over "
+          f"{rev_records} bids in {rev_s:.3f} s (flat {flat_s:.3f} s), "
+          f"{len(rev)} rows equal the flat run bit for bit; traffic "
+          f"{rev_tr}")
+    out["launches"] = {k: q5_counts[k] + rev_counts[k] + flat_counts[k]
+                       for k in q5_counts}
+    out["q5_rows"] = q5_res
+    return out
+
+
+def _session_modes(torch, device: str, records: int, mode: str):
+    """Row 5's stream (``benchmarks/mesh_sessions.py``: uniform keys over
+    10M, 400k events/s, gap 2 s, 1<<16 rows a shard) on the P=8 session
+    engine in ``mode``, a watermark after every batch: the fired batches
+    and the launches."""
+    from flink_tpu_torch.benchmarks import mesh_sessions as ms
+    from flink_tpu_torch.core.records import KEY_ID_FIELD, RecordBatch
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.sharded_sessions import MeshSessionEngine
+    from flink_tpu_torch.windowing.aggregates import SumAggregate
+
+    eng = MeshSessionEngine(ms.GAP_MS, SumAggregate("v"),
+                            make_mesh(8, device),
+                            capacity_per_shard=ms.BUDGET_PER_SHARD,
+                            max_device_slots=ms.BUDGET_PER_SHARD,
+                            shuffle_mode=mode)
+    fired = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for keys, ts in ms.stream_batches(records):
+        eng.process_batch(RecordBatch.from_pydict(
+            {KEY_ID_FIELD: keys, "v": np.ones(len(keys), np.float32)},
+            timestamps=ts))
+        fired.extend(eng.on_watermark(int(ts[-1]) - ms.GAP_MS))
+    fired.extend(eng.on_watermark(1 << 60))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return fired, time.perf_counter() - t0, read_counts(), eng
+
+
+def pod_host_mode(torch, device: str, q5_records: int, sess_records: int,
+                  q5_rows) -> dict:
+    """27(b): ``shuffle.mode=host`` on Q5 and on mesh sessions at P=8,
+    each equal to its device-mode run."""
+    rows, q5_s, q5_counts, _ = _pod_job(
+        torch, _q5_build, device, {"shuffle.mode": "host"}, q5_records)
+    if not _same_rows(rows, q5_rows):
+        raise AssertionError("phase 27(b): Q5 in host mode differs from "
+                             "27(a)'s device-mode rows")
+    host, host_s, host_counts, heng = _session_modes(
+        torch, device, sess_records, "host")
+    dev, dev_s, dev_counts, deng = _session_modes(
+        torch, device, sess_records, "device")
+    n = _batches_equal("phase 27(b) sessions host vs device", host, dev)
+    if heng.spill_counters() != deng.spill_counters():
+        raise AssertionError("phase 27(b): spill counters differ")
+    if device == "cuda" and (host_counts["ordered_fold"] <= 0
+                             or dev_counts["exchange_rank"] <= 0):
+        raise AssertionError(f"phase 27(b): launches host {host_counts}, "
+                             f"device {dev_counts}")
+    print(f"phase 27(b): Q5 in host mode over {q5_records} bids in "
+          f"{q5_s:.3f} s = {q5_records / q5_s:.0f} events/s, rows equal "
+          f"27(a)'s; mesh sessions P=8 over {sess_records} records: host "
+          f"mode {host_s:.3f} s, device mode {dev_s:.3f} s, {n} sessions "
+          f"equal bit for bit; spill {heng.spill_counters()}")
+    return {"q5_seconds": q5_s, "sessions": n, "host_seconds": host_s,
+            "device_seconds": dev_s,
+            "launches": {k: q5_counts[k] + host_counts[k] + dev_counts[k]
+                         for k in q5_counts}}
+
+
+def pod_row8(torch, device: str, records: int) -> dict:
+    """27(c): BASELINE row 8 through ``benchmarks/multiproc.py``: two
+    processes on the one card, exchanging over gloo, and the kill leg.
+    Their kernels launch in the child processes, whose counts are not
+    read here."""
+    from flink_tpu_torch.benchmarks.multiproc import Shape, run_row8
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        row = run_row8(Shape(records), device=device, kill=True,
+                       timeout=300, workdir=tmp)
+    row.pop("artifacts")
+    row["seconds"] = time.perf_counter() - t0
+    print(f"phase 27(c): row 8, {records} records, 2 processes x 4 "
+          f"shards on one card over gloo: {row['value']:.0f} events/s "
+          f"(one process {row['single_proc_events_per_s']:.0f}), "
+          f"{row['cross_host_rows']} rows crossed, "
+          f"{row['gloo_bytes_sent']} bytes through gloo, route "
+          f"{row['route_ms_per_batch']:.3f} ms a batch; kill leg "
+          f"restored {row['kill_restored_units']} units "
+          f"{row['kill_restored_ranges']}, replayed "
+          f"{row['kill_replayed']} records; union bit-identical; "
+          f"{row['seconds']:.1f} s")
+    print("row8 " + json.dumps(row))
+    return row
+
+
+def pod_host_loss(torch, device: str, records: int) -> dict:
+    """27(d): ``host.lost`` at 2x4 on the mesh window engine (rows equal
+    the fault-free run's), then ``LookupRouter`` over the two hosts of a
+    held Q5 window engine."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.benchmarks.shard_loss import watched
+    from flink_tpu_torch.chaos.harness import run_shard_loss_verify
+    from flink_tpu_torch.chaos.injection import FaultPlan, FaultRule
+    from flink_tpu_torch.parallel.mesh import HostTopology, make_mesh
+    from flink_tpu_torch.parallel.sharded_windower import MeshWindowEngine
+    from flink_tpu_torch.tenancy.frontend import LookupRouter
+    from flink_tpu_torch.windowing.aggregates import (
+        CountAggregate,
+        SumAggregate,
+    )
+    from flink_tpu_torch.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.windowing.windower import SliceSharedWindower
+
+    rng = np.random.default_rng(27)
+    steps = []
+    per = 1 << 16
+    for s in range(max(records // per, 4)):
+        steps.append((rng.integers(0, 1 << 20, per).astype(np.int64),
+                      rng.random(per).astype(np.float32),
+                      rng.integers(s * 80, s * 80 + 60, per).astype(np.int64),
+                      (s - 1) * 80))
+
+    def engine():
+        return MeshWindowEngine(TumblingEventTimeWindows.of(160),
+                                SumAggregate("v"), make_mesh(8, device),
+                                capacity_per_shard=1 << 18,
+                                host_topology=HostTopology(2, 4))
+
+    def oracle():
+        return SliceSharedWindower(TumblingEventTimeWindows.of(160),
+                                   SumAggregate("v"), capacity=1 << 21,
+                                   spill={"device": device})
+
+    reports = {}
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        for tag, rules in (("clean", []),
+                           ("lost", [FaultRule(pattern="host.lost", nth=6,
+                                               where={"host": 1})])):
+            # the counts go to 0 when the first 2x4 engine is built, after
+            # the oracle's run: they are the engine's launches alone
+            reports[tag] = run_shard_loss_verify(
+                watched(engine, {}), oracle, steps, FaultPlan(rules=rules),
+                seed=7, ckpt_root=os.path.join(tmp, tag), checkpoint_every=2)
+            reports[tag + "_counts"] = read_counts()
+    lost, clean = reports["lost"], reports["clean"]
+    if lost.diverged or lost.hosts_lost != 1 or lost.shards_lost != 4:
+        raise AssertionError(f"phase 27(d): host loss {lost.signature()}")
+    if lost.committed != clean.committed:
+        raise AssertionError("phase 27(d): the host-loss run's rows differ "
+                             "from the fault-free run's")
+    # LookupRouter over a held Q5 count engine at 2x4: both hosts' state
+    # is on this card, so each host's entry point is the engine's own
+    # query_batch, and the router's answers must equal it key for key
+    held = MeshWindowEngine(SlidingEventTimeWindows.of(SIZE, SLIDE),
+                            CountAggregate(), make_mesh(8, device),
+                            capacity_per_shard=1 << 17,
+                            host_topology=HostTopology(2, 4))
+    src = BidSource(total_records=records, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    from flink_tpu_torch.core.records import KEY_ID_FIELD
+
+    reset_counts()
+    while (b := src.poll_batch(1 << 18)) is not None:
+        held.process_batch(b.with_column(
+            KEY_ID_FIELD, np.asarray(b["auction"], np.int64)))
+    router_counts = read_counts()
+    router = LookupRouter(2, 4, held.max_parallelism, local_host=0,
+                          lookup_fns={h: (lambda job, op, keys:
+                                          held.query_batch(keys))
+                                      for h in (0, 1)},
+                          key_id_fn=lambda k: np.asarray(k, np.int64))
+    keys = np.arange(0, AUCTIONS, 7, dtype=np.int64)
+    got = router.lookup_batch("q5", "count", keys.tolist())
+    want = held.query_batch(keys)
+    if got != want or not any(got):
+        raise AssertionError("phase 27(d): LookupRouter answers differ "
+                             "from the engine's query_batch")
+    m = router.metrics()
+    if m["router_local_keys"] <= 0 or m["router_remote_keys"] <= 0:
+        raise AssertionError(f"phase 27(d): router {m}")
+    print(f"phase 27(d): host.lost at 2x4 on the window engine over "
+          f"{len(steps)} batches: {lost.signature()}, rows equal the "
+          f"fault-free run's; LookupRouter over {len(keys)} Q5 keys of a "
+          f"held 2x4 engine equal its query_batch: {m}")
+    launches = {k: reports["lost_counts"][k] + reports["clean_counts"][k]
+                + router_counts[k] for k in router_counts}
+    return {"signature": lost.signature(), "router": m,
+            "recovery_ms": lost.shard_loss_recovery_ms,
+            "launches": launches}
+
+
+def pod_rank(torch, device: str) -> dict:
+    """27(e): the rank kernel against its plain version at the two-level
+    exchange's shapes: stage 1 (D = 4 local indices) and stage 2 (D = 2
+    hosts) on Q5's first 1<<20 bids staged at 2x4, 27(a)'s widths."""
+    from flink_tpu_torch.benchmarks.nexmark import BidSource
+    from flink_tpu_torch.parallel.exchange2 import (
+        stage1_route,
+        stage_two_level_exchange,
+    )
+    from flink_tpu_torch.parallel.mesh import HostTopology
+    from flink_tpu_torch.parallel.shuffle import shard_records
+    from flink_tpu_torch.stateplane.rank import (
+        exchange_rank_flat,
+        exchange_rank_flat_plain,
+        rank,
+    )
+
+    topo = HostTopology(2, 4)
+    src = BidSource(total_records=1 << 20, num_auctions=AUCTIONS,
+                    events_per_second_of_eventtime=RATE)
+    src.open()
+    b = src.poll_batch(1 << 20)
+    shards = shard_records(np.asarray(b["auction"], np.int64), 8, 128)
+    dst, (slots,), w1, w2 = stage_two_level_exchange(
+        shards, topo, columns=[np.arange(len(shards), dtype=np.int32)],
+        fills=[0])
+    before = rank.launches
+    d = torch.from_numpy(dst).to(device).view(8, -1)
+    dl = torch.where(d < 8, d % 4, torch.full_like(d, 4)).contiguous()
+    d2 = stage1_route(topo, torch.from_numpy(dst).to(device),
+                      [torch.from_numpy(slots).to(device)], [0], w1)[0]
+    dh = torch.where(d2 < 8, d2 // 4, torch.full_like(d2, 2)).contiguous()
+    rows = []
+    for stage, col, D, W in ((1, dl, 4, w1), (2, dh, 2, w2)):
+        got = exchange_rank_flat(col, D, W)
+        want = exchange_rank_flat_plain(col, D, W)
+        err = float((got - want).abs().max().item())
+        if err != 0.0:
+            raise AssertionError(f"27(e): stage {stage} rank differs: "
+                                 f"max abs err {err}")
+        ms = cuda_ms(lambda: exchange_rank_flat(col, D, W), 50) \
+            if device == "cuda" else None
+        rows.append({"stage": stage, "R": col.shape[0], "C": col.shape[1],
+                     "D": D, "W": W, "max_abs_err": err, "ms": ms})
+    print("phase 27(e): the rank kernel at the two-level shapes: "
+          + "; ".join(f"stage {r['stage']} R={r['R']} C={r['C']} D={r['D']}"
+                      f" W={r['W']} err {r['max_abs_err']}"
+                      + (f" {r['ms']:.4f} ms" if r["ms"] is not None
+                         else "") for r in rows)
+          + f"; {rank.launches - before} comparison launches (not counted)")
+    return {"cases": rows}
+
+
+def phase_pod(torch, device: str = "cuda", small: bool = False) -> dict:
+    """Phase 27: the pod (see the module doc). ``device="cpu",
+    small=True`` rehearses it at a cut size without a card."""
+    if device == "cuda":
+        from flink_tpu_torch.stateplane import cuda_build
+
+        cuda_build.build_all()
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    q5_n = POD_Q5_RECORDS if not small else 300_000
+    a = timed("a", pod_two_level, torch, device, q5_n,
+              POD_REVENUE_RECORDS if not small else 200_000)
+    b = timed("b", pod_host_mode, torch, device, q5_n,
+              POD_SESSION_RECORDS if not small else 100_000,
+              a.pop("q5_rows"))
+    c = timed("c", pod_row8, torch, device,
+              ROW8_RECORDS if not small else 1 << 15)
+    d = timed("d", pod_host_loss, torch, device,
+              POD_LOSS_RECORDS if not small else 1 << 17)
+    e = timed("e", pod_rank, torch, device)
+    launches = {k: a["launches"][k] + b["launches"][k] + d["launches"][k]
+                for k in a["launches"]}
+    seconds = time.perf_counter() - t_phase
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "part_seconds": parts}
+    print(f"phase 27: {seconds:.1f} s (parts {parts}); launches "
+          f"{launches}")
+    print("pod " + json.dumps(out, default=str))
+    return {**out, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=40_000_000,
                     help="Q5 records (40M: the size of bench.py's run)")
     ap.add_argument("--revenue-records", type=int, default=10_000_000,
                     help="Q5-revenue records")
-    ap.add_argument("--session-records", type=int, default=8_000_000,
-                    help="BASELINE row 5 session records (8M, cut from "
-                    "its 12M to keep the script's time)")
+    ap.add_argument("--session-records", type=int, default=4_000_000,
+                    help="BASELINE row 5 session records (4M, cut from "
+                    "its 12M to keep the script's time; the paged tier "
+                    "evicts from ~1M on)")
     ap.add_argument("--join-records", type=int, default=2_000_000,
                     help="records of each join shape of phase 15 (2M, "
                     "cut from tools/bench_joins.py's 4M to keep the "
                     "script's time)")
     ap.add_argument("--q7-records", type=int, default=10_000_000,
                     help="Q7 bids (10M: BASELINE row 3's size)")
-    ap.add_argument("--cep-records", type=int, default=1_000_000,
-                    help="records of phase 16's CEP row (1M, cut from "
-                    "tools/bench_cep.py's 4M to keep the script's time)")
+    ap.add_argument("--cep-records", type=int, default=500_000,
+                    help="records of phase 16's CEP row (500k, cut from "
+                    "tools/bench_cep.py's 4M to keep the script's time; "
+                    "250k no longer evicts)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -8980,10 +9455,11 @@ def main() -> int:
     serving = phase_serving(torch, mc_reads=cluster["a"].pop("queries"))
     tenancy = phase_tenancy(torch, prior=serving)
     scaleout = phase_scaleout(torch)
+    pod = phase_pod(torch)
     runs = (q5, rev, q5_p1, rev_p1, q5_panes, rev_panes, sessions,
             mesh_sessions, checkpoints, joins, cep,
             *slice11.values(), shard_loss, process, sql, slice21, stage,
-            cluster, serving, tenancy, scaleout)
+            cluster, serving, tenancy, scaleout, pod)
 
     kernels = [{
         "name": "exchange_rank",

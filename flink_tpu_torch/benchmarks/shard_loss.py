@@ -171,10 +171,10 @@ def watched(make_engine: Callable, seen: dict) -> Callable:
 
 
 def run(shape: str = "row7", device=None, keys: Optional[int] = None,
-        check: bool = True) -> dict:
-    """One shard-loss run of ``shape`` (``keys`` cuts row 7's key space);
-    returns the JSON row (gates in ``failures``), the report and the final
-    engine."""
+        check: bool = True, records: Optional[int] = None) -> dict:
+    """One shard-loss run of ``shape`` (``keys`` cuts row 7's key space,
+    ``records`` Q5-revenue's bids); returns the JSON row (gates in
+    ``failures``), the report and the final engine."""
     from flink_tpu_torch.chaos.harness import run_shard_loss_verify
     from flink_tpu_torch.chaos.injection import FaultPlan, FaultRule
     from flink_tpu_torch.core.device import resolve_device
@@ -187,7 +187,7 @@ def run(shape: str = "row7", device=None, keys: Optional[int] = None,
         make_engine, make_oracle = row7_makers(device, keys)
     else:
         cfg = Q5REV
-        steps = q5rev_steps(cfg["records"])
+        steps = q5rev_steps(cfg["records"] if records is None else records)
         make_engine, make_oracle = q5rev_makers(device)
     plan = FaultPlan(rules=[FaultRule(
         pattern="device.lost", nth=cfg["nth"],

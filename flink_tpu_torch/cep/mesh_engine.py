@@ -39,9 +39,9 @@ Documented deviations from the oracle, none visible in emitted rows:
 Shard-granular units (``snapshot_sharded``, ``merge_unit_snapshots``,
 ``restore(key_group_filter=)``) and the device watchdog's hooks are as in
 the mesh window engines; live ``reshard`` lifts every row through the
-snapshot onto a rebuilt logical mesh. Not ported, raising
-``NotImplementedError`` naming its ROADMAP item: ``shuffle_mode="host"``
-on the device backend (item 12h). The
+snapshot onto a rebuilt logical mesh. ``shuffle_mode="host"`` buckets
+the pending rows into ``[P, B]`` blocks on the host
+(``bucket_by_shard``) instead of the device exchange. The
 matched-pattern read replica (``arm_match_replica``) publishes the match
 store's churn at every fire: :class:`CepMatchReplicaAdapter` composes the
 live ``query_match_batch`` shape, :class:`CepMatchServingAdapter` the
@@ -73,6 +73,7 @@ from flink_tpu_torch.ops.segment_ops import pad_bucket_size, sticky_bucket
 from flink_tpu_torch.parallel.mesh import LogicalMesh, make_mesh
 from flink_tpu_torch.parallel.shuffle import (
     ShuffleBufferPool,
+    bucket_by_shard,
     shard_records,
     stage_device_exchange,
 )
@@ -89,7 +90,7 @@ from flink_tpu_torch.state.paged_spill import (
     run_deferred_sweeps,
     spill_page,
 )
-from flink_tpu_torch.state.slot_table import SpillTier, _not_ported
+from flink_tpu_torch.state.slot_table import SpillTier
 
 _log = logging.getLogger(__name__)
 
@@ -211,9 +212,6 @@ class MeshCepEngine(WatchdogHooks):
             # raises UnsupportedCepPattern for the ineligible class —
             # the caller's cue to fall back (loudly) to the host path
             self._layout = kernels.compile_device_pattern(self.pattern)
-            if shuffle_mode == "host":
-                raise _not_ported(
-                    "shuffle.mode='host' for the CEP engine", "12h")
             if mesh is None:
                 mesh = make_mesh(num_shards, device)
             self.mesh = mesh
@@ -502,12 +500,19 @@ class MeshCepEngine(WatchdogHooks):
         # its partials die on the device while the host oracle matches —
         # the designed DIVERGENT negative control.
         self._pool.flip()
-        dst, staged, width = stage_device_exchange(
-            shards, self.P, columns=[pos, hits, seqs],
-            fills=[0, 0, 0], pool=self._pool)
-        put = [self._to_device(c) for c in (dst, *staged)]
-        kernels.cep_exchange_put(self._pend, put[0], put[1], put[2:],
-                                 width)
+        if self.shuffle_mode == "device":
+            dst, staged, width = stage_device_exchange(
+                shards, self.P, columns=[pos, hits, seqs],
+                fills=[0, 0, 0], pool=self._pool)
+            put = [self._to_device(c) for c in (dst, *staged)]
+            kernels.cep_exchange_put(self._pend, put[0], put[1], put[2:],
+                                     width)
+        else:
+            _, blocked = bucket_by_shard(
+                shards, self.P, columns=[pos, hits, seqs],
+                fills=[0, 0, 0], pool=self._pool)
+            put = [self._to_device(b) for b in blocked]
+            kernels.cep_put(self._pend, put[0], put[1:])
         # raise/delay at the post-dispatch site: a crash lands with the
         # pending scatter already on the device queue
         chaos.fault_point("cep.advance", records=int(n))

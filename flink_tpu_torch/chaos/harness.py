@@ -75,7 +75,7 @@ class ChaosReport:
     shard_restores: int = 0
     records_replayed: int = 0
     shard_loss_recovery_ms: float = 0.0
-    #: host-granular failovers (item 12h): 0, the signature's key kept
+    #: host-granular failovers (a HostFailedError: one per lost host)
     hosts_lost: int = 0
     divergences: List[str] = dataclasses.field(default_factory=list)
     #: measurements, not part of the signature: events fed again after
@@ -590,6 +590,7 @@ def run_shard_loss_verify(
     from flink_tpu_torch.checkpoint.sharded import ShardedCheckpointStorage
     from flink_tpu_torch.runtime.watchdog import (
         DeviceWatchdog,
+        HostFailedError,
         MeshStalledError,
         ShardFailedError,
     )
@@ -803,10 +804,15 @@ def run_shard_loss_verify(
                 pos = next_pos
                 phase = 0
             except ShardFailedError as sf:
-                report.shards_lost += 1
+                # a HostFailedError carries the host's whole slice: every
+                # member counts toward the loss budget
+                shards = tuple(getattr(sf, "shards", ()) or (sf.shard,))
+                report.shards_lost += len(shards)
+                if isinstance(sf, HostFailedError):
+                    report.hosts_lost += 1
                 if report.shards_lost > max_shard_losses:
                     raise
-                pending_loss = ((sf.shard,), phase)
+                pending_loss = (shards, phase)
             except (InjectedFault, MeshStalledError):
                 # an unattributable mesh-wide stall takes the whole-job
                 # path a crash does

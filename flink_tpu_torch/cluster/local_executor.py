@@ -17,9 +17,9 @@ processing-time windows get a wall-clock tick every loop iteration.
 
 ``execution.runtime-mode=batch`` rejects unbounded sources at submit and
 emits no intermediate watermark and no deadline split: every window fires
-once, on the MAX_WATERMARK at source exhaustion. A reference key the port
-does not read raises at submit when set to a value the port cannot honour
-(``core/config.py`` ``check_unread_keys``).
+once, on the MAX_WATERMARK at source exhaustion. The reference's
+``stateplane.backend.*`` keys raise at submit (``core/config.py``
+``check_unread_keys``).
 
 Checkpoints: with ``state.checkpoints.dir`` and an every-n-batches or
 interval trigger the loop cuts a checkpoint between source batches — in-
@@ -114,6 +114,7 @@ from flink_tpu_torch.core.config import (
     MemoryOptions,
     StateOptions,
     check_unread_keys,
+    retained_checkpoints,
 )
 from flink_tpu_torch.graph.transformations import StreamGraph, Transformation
 from flink_tpu_torch.metrics.core import quantile_sorted
@@ -369,6 +370,7 @@ def operator_context(cfg: Configuration, parallelism: int,
                 StateOptions.SPILL_HOST_MAX_BYTES),
         },
         pane_preagg=cfg.get(LatencyOptions.PANE_PREAGG),
+        host_topology=cfg.get(DeploymentOptions.SHUFFLE_HOSTS) or None,
         **kwargs)
 
 
@@ -729,7 +731,7 @@ class LocalExecutor:
                                     op, "notify_checkpoint_complete"):
                                 op.notify_checkpoint_complete(
                                     checkpoint_count)
-                        storage.retain(cfg.get(StateOptions.NUM_RETAINED))
+                        storage.retain(retained_checkpoints(cfg))
                         last_ckpt = time.time() * 1000
                         batches_since_ckpt = 0
                 if control_queue is not None:

@@ -67,6 +67,7 @@ from flink_tpu_torch.core.config import (
     MemoryOptions,
     StateOptions,
     check_unread_keys,
+    retained_checkpoints,
 )
 from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.cluster.local_executor import (
@@ -482,9 +483,19 @@ def _merge_changelog(values: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def _merge_values(key: str, values: List[Any]):
-    """Merge one state field across subtasks by its semantic kind."""
-    if key in ("watermark", "max_fired_end", "max_ts", "next_sid",
-               "max_fired_watermark"):
+    """Merge one state field across subtasks by its semantic kind.
+
+    Event-time progress merges to the LEAST subtask's: an unaligned
+    barrier overtakes queued watermarks, so subtasks snapshot at
+    different watermarks, and the channel state of the one behind holds
+    records of windows that the others have fired. Restored at the
+    greatest watermark those records would replay late and be dropped;
+    at the least, a subtask that had fired a window re-fires it over no
+    rows (its slices were freed). Aligned barriers cut every subtask at
+    the same watermark, where least and greatest agree."""
+    if key in ("watermark", "max_fired_end", "max_fired_watermark"):
+        return min(values)
+    if key in ("max_ts", "next_sid"):
         return max(values)
     if key == "late_records_dropped":
         return sum(values)
@@ -529,7 +540,8 @@ def _merge_values(key: str, values: List[Any]):
 def merge_subtask_states(states: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Union the per-subtask snapshots of ONE operator into the logical
     single-slot format. Table rows (key-group disjoint across subtasks)
-    concatenate; metadata merges by kind (max watermarks, union dicts)."""
+    concatenate; metadata merges by kind (least watermarks, union
+    dicts)."""
     states = [s for s in states if s]
     if not states:
         return {}
@@ -941,6 +953,10 @@ class _SourceSubtask(threading.Thread):
         #: position at exit — checkpoints after this subtask drains its
         #: split still record where it ended (restore must not replay it)
         self.final_position = None
+        #: execution.checkpointing.every-n-source-batches when this is the
+        #: job's only source subtask: hold after every N-th batch until the
+        #: checkpoint trigger arrives (0: never hold)
+        self.hold_every = 0
 
     @property
     def records_out(self) -> int:
@@ -995,6 +1011,11 @@ class _SourceSubtask(threading.Thread):
                 if wm is not None and not self.batch_mode:
                     for r in self.routes:
                         r.broadcast(int(wm))
+                if self.hold_every and \
+                        self.batches_polled % self.hold_every == 0:
+                    while self.control.empty() and \
+                            not self.coordinator.cancelled.is_set():
+                        time.sleep(0.001)
         finally:
             self.final_position = self.source.snapshot_position()
             self.source.close()
@@ -1754,6 +1775,11 @@ class StageParallelExecutor:
             cs = restore_channel_state.get((k.stage_index, k.index))
             if cs:
                 k._restore_channel_state = cs
+        if storage is not None and ckpt_every_n and len(sources) == 1:
+            # one source subtask: the every-N trigger is exact — the
+            # source holds after each N-th batch until its barrier comes,
+            # so a thread that outruns this loop cannot skip a checkpoint
+            sources[0].hold_every = ckpt_every_n
         for t in keyed + sources:
             t.start()
 
@@ -2076,7 +2102,7 @@ class StageParallelExecutor:
             # executor (state.checkpoints.num-retained; retention
             # anchors on VERIFIED checkpoints, so a torn newest never
             # strands the fallback chain)
-            storage.retain(self.config.get(StateOptions.NUM_RETAINED))
+            storage.retain(retained_checkpoints(self.config))
         return None
 
 

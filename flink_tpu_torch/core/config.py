@@ -2,10 +2,10 @@
 
 The options the ported paths read are carried under the reference's keys
 and defaults, plus the port's own ``execution.device``. Reference keys the
-port does not read are listed in ``UNREAD_KEYS`` with the values the port
-already behaves as: ``check_unread_keys`` (called at ``execute()``)
-raises for any other value, naming the ROADMAP item, so no such key is
-ignored without a word.
+port does not declare are the ones the reference declares and never
+reads (``REFERENCE_KEYS_NEVER_READ``), and ``check_unread_keys`` (called
+at ``execute()``) rejects the reference's ``stateplane.backend.*`` keys,
+so no key the reference reads is ignored without a word.
 """
 
 from __future__ import annotations
@@ -169,13 +169,15 @@ class DeploymentOptions:
         "shuffle.mode", default="device", type=str,
         description="keyBy data plane for the mesh engine: 'device' "
         "(default) ranks, exchanges and scatters the records on the "
-        "device (flink_tpu_torch/parallel/shuffle.py). 'host' is not "
-        "ported yet.")
+        "device (flink_tpu_torch/parallel/shuffle.py); 'host' buckets "
+        "them into [P, B] blocks on the host (bucket_by_shard).")
     SHUFFLE_HOSTS = ConfigOption(
         "shuffle.hosts", default=0, type=int,
-        description="Hosts the key-group mesh spans (the reference's "
-        "two-level exchange). The port runs one flat logical mesh on one "
-        "device; a value > 0 raises at execute() (ROADMAP item 12h).")
+        description="Hosts the key-group mesh spans: the (hosts, local) "
+        "factorization of the shard axis. 0/1 (the default) keeps the "
+        "flat exchange; > 1 routes device-mode keyBy through the "
+        "two-level exchange (parallel/exchange2.py) when it divides the "
+        "engine's shard count, else the flat one.")
     STAGE_PARALLELISM = ConfigOption(
         "execution.stage-parallelism", default=0, type=int,
         description="Subtask count of each keyed stage. 0 (default) runs "
@@ -411,7 +413,15 @@ class CheckpointOptions:
     EVERY_N_BATCHES = ConfigOption(
         "execution.checkpointing.every-n-source-batches", default=0, type=int,
         description="Deterministic trigger: checkpoint every N source "
-        "batches (tests/benchmarks; 0 = use the time interval).")
+        "batches (tests/benchmarks; 0 = use the time interval). The stage "
+        "executor cuts at exactly every N-th batch only when the job has "
+        "one source subtask; with several it polls their summed batch "
+        "count every 10 ms, so a checkpoint may come later than its N-th "
+        "batch or not at all before the sources end.")
+    RETAINED = ConfigOption(
+        "execution.checkpointing.retained", default=3, type=int,
+        description="How many completed checkpoints to keep (the legacy "
+        "key: state.checkpoints.num-retained wins when set).")
     COMPRESSION = ConfigOption(
         "execution.checkpointing.compression", default=True, type=bool,
         description="Compress snapshot arrays (zlib inside .npz).")
@@ -431,6 +441,16 @@ class CheckpointOptions:
         "bounded time under backpressure. Savepoints stay aligned. Stage "
         "executor only.")
 
+
+def retained_checkpoints(config) -> int:
+    """Checkpoints to keep on disk: ``state.checkpoints.num-retained``
+    wins when set; else the legacy ``execution.checkpointing.retained``
+    holds. The one copy of the precedence rule, read by both
+    executors."""
+    if config.contains(StateOptions.NUM_RETAINED) or \
+            not config.contains(CheckpointOptions.RETAINED):
+        return config.get(StateOptions.NUM_RETAINED)
+    return config.get(CheckpointOptions.RETAINED)
 
 
 class WatchdogOptions:
@@ -551,14 +571,19 @@ class HighAvailabilityOptions:
         "renewal.")
 
 
-#: Reference keys the port does not read, each with the values the port
-#: already behaves as and the ROADMAP item that would honour the rest.
-#: ``check_unread_keys`` raises at execute() for any other value, so no
-#: such key is dropped without a word.
-UNREAD_KEYS = (
-    (DeploymentOptions.SHUFFLE_HOSTS, lambda v: v <= 0,
-     "the two-level exchange", "12h"),
-)
+#: Keys the reference declares and never reads (they change nothing
+#: there), so the port leaves them undeclared too: key -> why. Every key
+#: the reference reads, the port reads too.
+REFERENCE_KEYS_NEVER_READ = {
+    "execution.checkpointing.mode":
+        "the reference's checkpoints are exactly-once whatever the value",
+    "execution.micro-batch.timeout-ms":
+        "the reference's batches close on size or end of input only",
+    "pipeline.auto-watermark-interval-ms":
+        "the reference's watermarks advance once per batch",
+    "pipeline.object-reuse":
+        "the reference's operators never copy a batch's columns",
+}
 
 #: ``stateplane.backend.<family>`` picks the reference's Pallas or XLA
 #: program per family; the port has one route per tensor device.
@@ -566,19 +591,13 @@ STATEPLANE_BACKEND_PREFIX = "stateplane.backend."
 
 
 def check_unread_keys(config: Configuration) -> None:
-    """Raise ``NotImplementedError`` for every reference key in ``config``
-    set to a value the port cannot honour, naming its ROADMAP item."""
+    """Raise ``NotImplementedError`` for a ``stateplane.backend.*`` key,
+    naming ROADMAP item 12h's by-design note."""
     for key in config.keys():
         if key.startswith(STATEPLANE_BACKEND_PREFIX):
             raise NotImplementedError(
                 f"{key}: the port has one route per tensor device (the "
                 "hand-written kernel on the card, its plain PyTorch "
                 "version on the CPU), so the reference's per-family "
-                "Pallas/XLA switch is rejected (ROADMAP.md, Queue A item "
-                "12h and Queue B)")
-    for option, honoured, feature, item in UNREAD_KEYS:
-        if option.key in config.keys() and not honoured(config.get(option)):
-            raise NotImplementedError(
-                f"{option.key}={config.get(option)!r}: {feature} is not "
-                f"ported to flink_tpu_torch yet (ROADMAP.md, Queue A item "
-                f"{item})")
+                "Pallas/XLA switch stays unported by design (ROADMAP.md, "
+                "Queue A item 12h)")

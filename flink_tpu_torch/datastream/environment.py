@@ -76,7 +76,8 @@ class StreamExecutionEnvironment:
     @property
     def shuffle_mode(self) -> str:
         """shuffle.mode: 'device' (in-program keyBy exchange, default)
-        | 'host' (the reference's bucketing fallback, ROADMAP item 12h)."""
+        | 'host' (the reference's bucketing into [P, B] blocks on the
+        host)."""
         return self.config.get(DeploymentOptions.SHUFFLE_MODE)
 
     @property

@@ -30,9 +30,10 @@ evictions, prunes — rows never change after insert) into the next sealed
 generation.
 
 Live ``reshard`` lifts both sides through their snapshots onto a
-rebuilt logical mesh. Not ported, each raising ``NotImplementedError``
-naming its ROADMAP item: the two-level exchange and
-``shuffle_mode="host"`` (item 12h). ``query_side_batch`` reads a
+rebuilt logical mesh. The device-backend ingest runs the flat device
+exchange, its two-level form under a multi-host ``host_topology``
+(``parallel/exchange2.py``), or host bucketing into ``[P, B]`` blocks
+(``shuffle_mode="host"``). ``query_side_batch`` reads a
 side's buffered rows per key: resident values through one gather and one
 copy back, cold rows from the page tiers.
 Each ingest and watermark is a flight-recorder span. Shard-granular
@@ -66,9 +67,16 @@ from flink_tpu_torch.ops.segment_ops import (
     sticky_bucket,
     torch_dtype,
 )
+from flink_tpu_torch.parallel.exchange2 import (
+    ExchangeTraffic,
+    build_join_exchange2_steps,
+    stage_two_level_exchange,
+    two_level_active,
+)
 from flink_tpu_torch.parallel.mesh import LogicalMesh, make_mesh
 from flink_tpu_torch.parallel.shuffle import (
     ShuffleBufferPool,
+    bucket_by_shard,
     shard_records,
     stage_device_exchange,
 )
@@ -79,7 +87,6 @@ from flink_tpu_torch.state.keygroups import (
     shard_key_group_ranges,
 )
 from flink_tpu_torch.state.paged_spill import restore_into_pages
-from flink_tpu_torch.state.slot_table import _not_ported
 
 _NEG = -(1 << 62)
 
@@ -128,12 +135,8 @@ class JoinEngineBase(WatchdogHooks):
             raise ValueError(
                 f"shuffle_mode must be 'device' or 'host', got "
                 f"{shuffle_mode!r}")
-        if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
-        if backend == "device" and shuffle_mode == "host":
-            raise _not_ported("shuffle.mode='host' for the join engines",
-                              "12h")
         self.backend = backend
+        self.shuffle_mode = shuffle_mode
         self.mesh: Optional[LogicalMesh] = None
         self.device = torch.device("cpu")
         if backend == "device":
@@ -171,11 +174,24 @@ class JoinEngineBase(WatchdogHooks):
         if backend == "device":
             self._pool = ShuffleBufferPool(generations=2)
             self._fences: List[Fence] = []
+        #: (hosts, local) factorization of the mesh: device-mode ingest
+        #: then runs the two-level exchange
+        self.host_topology = None
+        self._exchange2_traffic = None
+        if host_topology is not None:
+            if backend != "device":
+                raise ValueError(
+                    "host_topology requires the device backend")
+            host_topology.check_covers(self.P)
+            self.host_topology = host_topology
+            self._exchange2_traffic = ExchangeTraffic()
 
-    # -------------------------------------------------------- not ported
+    def _two_level_active(self) -> bool:
+        return two_level_active(self.host_topology, self.shuffle_mode)
 
     def exchange2_traffic(self) -> Dict[str, int]:
-        raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
+        """The two-level exchange's traffic split (zeros when flat)."""
+        return ExchangeTraffic.dict_of(self._exchange2_traffic)
 
 
     # ----------------------------------------------------------- data plane
@@ -348,11 +364,30 @@ class JoinEngineBase(WatchdogHooks):
         fills = [0] + [side.schema[i][1].type(0)
                        for i in side.device_cols]
         self._pool.flip()
-        dst, staged, width = stage_device_exchange(
-            shards, self.P, columns=cols, fills=fills, pool=self._pool)
-        put = [self._to_device(c) for c in (dst, *staged)]
-        kernels.join_exchange_put(self._planes[side_idx], put[0], put[1],
-                                  put[2:], width)
+        planes = self._planes[side_idx]
+        if self._two_level_active():
+            # the two-level exchange, then the plane write: stream order
+            # is kept, so the last write wins as in the flat exchange
+            dst, staged, w1, w2 = stage_two_level_exchange(
+                shards, self.host_topology, columns=cols, fills=fills,
+                pool=self._pool, traffic=self._exchange2_traffic)
+            s1, s2 = build_join_exchange2_steps(
+                self.mesh, self.host_topology,
+                tuple(side.schema[i][1].name for i in side.device_cols))
+            put = [self._to_device(c) for c in (dst, *staged)]
+            inter = s1(put[0], put[1], tuple(put[2:]), w1)
+            s2(planes, inter[0], inter[1], tuple(inter[2:]), w2)
+        elif self.shuffle_mode == "device":
+            dst, staged, width = stage_device_exchange(
+                shards, self.P, columns=cols, fills=fills, pool=self._pool)
+            put = [self._to_device(c) for c in (dst, *staged)]
+            kernels.join_exchange_put(planes, put[0], put[1], put[2:],
+                                      width)
+        else:
+            _, blocked = bucket_by_shard(
+                shards, self.P, columns=cols, fills=fills, pool=self._pool)
+            put = [self._to_device(b) for b in blocked]
+            kernels.join_put(planes, put[0], put[1:])
         self._push_fence()
 
     # ------------------------------------------------------------- eviction
@@ -997,8 +1032,7 @@ class JoinEngineBase(WatchdogHooks):
         and the rows land on their new owners. The job-lifetime spill
         counters survive. ``devices``: the logical shards of one card
         have no device list; only None is accepted. (The two-level
-        exchange's host topology, which the reference drops here when it
-        no longer covers P, is item 12h: this engine never has one.)"""
+        exchange's host topology drops when it no longer covers P.)"""
         if devices is not None:
             raise ValueError(
                 "devices=: the logical shards of one card have no device "
@@ -1017,6 +1051,11 @@ class JoinEngineBase(WatchdogHooks):
         if self.backend == "device":
             self.mesh = LogicalMesh(new_shards, self.device)
         self.P = new_shards
+        t = self.host_topology
+        if t is not None and t.num_shards != self.P:
+            # the factorization no longer covers the resized mesh: the
+            # flat exchange takes over
+            self.host_topology = None
         if self.max_parallelism < self.P:
             raise ValueError(
                 f"cannot reshard to {new_shards}: max_parallelism "

@@ -24,7 +24,6 @@ from flink_tpu_torch.joins.engine import (
 )
 from flink_tpu_torch.runtime.elements import MAX_WATERMARK
 from flink_tpu_torch.runtime.operators import Operator
-from flink_tpu_torch.state.slot_table import _not_ported
 
 
 def _engine_kwargs(ctx, capacity: int, max_device_slots: int,
@@ -32,8 +31,6 @@ def _engine_kwargs(ctx, capacity: int, max_device_slots: int,
                    spill_host_max_bytes: int = 0):
     from flink_tpu_torch.parallel.mesh import make_mesh
 
-    if getattr(ctx, "shuffle_mode", "device") != "device":
-        raise _not_ported(f"shuffle.mode={ctx.shuffle_mode!r}", "12h")
     return dict(
         mesh=make_mesh(max(int(getattr(ctx, "parallelism", 1)), 1),
                        getattr(ctx, "device", None)),
@@ -43,6 +40,7 @@ def _engine_kwargs(ctx, capacity: int, max_device_slots: int,
         spill_dir=spill_dir,
         spill_host_max_bytes=spill_host_max_bytes,
         backend="device",
+        shuffle_mode=getattr(ctx, "shuffle_mode", "device"),
     )
 
 

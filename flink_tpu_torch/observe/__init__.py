@@ -10,11 +10,11 @@ traces, Prometheus histograms and event-time latency markers by
 named locks and the tests their lock-order checker (the reference's
 names, re-exported here as there).
 
-Not here: the reference's ``recompile_sentinel`` (it counts XLA backend
-compiles and device-to-host materializations through ``jax.monitoring``;
-the port has no compiled programs to count and no transfer hook, ROADMAP
-Queue A item 12h). Its names raise ``NotImplementedError`` naming the
-item.
+Not here, by design: the reference's ``recompile_sentinel`` (it counts
+XLA backend compiles and device-to-host materializations through
+``jax.monitoring``; the port has no compiled programs to count and no
+transfer hook). ROADMAP Queue A item 12h records why it stays unported;
+its names raise ``NotImplementedError`` citing that note.
 """
 
 #: Canonical span-kind inventory — the reference's tuple, whole. The
@@ -83,6 +83,7 @@ def __getattr__(name):
     if name in _NOT_PORTED:
         module, item = _NOT_PORTED[name]
         raise NotImplementedError(
-            f"observe.{name} (the reference's observe/{module}.py) is not "
-            f"ported to flink_tpu_torch (ROADMAP.md, Queue A item {item})")
+            f"observe.{name} (the reference's observe/{module}.py) counts "
+            "XLA compiles through jax.monitoring and stays unported by "
+            f"design in flink_tpu_torch (ROADMAP.md, Queue A item {item})")
     raise AttributeError(name)

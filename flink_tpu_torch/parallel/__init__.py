@@ -1,2 +1,3 @@
-"""Key-group parallelism: the logical mesh, the keyed exchange, and the
-mesh window engine."""
+"""Key-group parallelism: the logical mesh and its host topology, the
+keyed exchange (flat, two-level and host bucketing), the mesh engines, and
+the pod's routing between processes."""

@@ -59,8 +59,10 @@ spill, checkpoints and reshard see nothing special. Merges carry the
 salted sub-rows along; fires and queries fold them back on the host in
 the fixed order "main row, then salts ascending".
 
-Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-host shuffle mode and the two-level exchange (12h).
+The data plane is the window engine's (``MeshSpillSupport.
+_dispatch_exchange``): the flat device exchange, its two-level form under
+a multi-host ``host_topology``, or host bucketing (``shuffle_mode="host"``),
+all three folding each slot's records in stream order.
 """
 
 from __future__ import annotations
@@ -85,16 +87,14 @@ from flink_tpu_torch.ops.segment_ops import (
     sticky_bucket,
     torch_dtype,
 )
+from flink_tpu_torch.parallel.exchange2 import build_exchange2_steps
 from flink_tpu_torch.parallel.mesh import LogicalMesh
 from flink_tpu_torch.parallel.sharded_windower import (
     MeshPagedSpillSupport,
     build_delta_fire_step,
     build_mesh_steps,
 )
-from flink_tpu_torch.parallel.shuffle import (
-    build_exchange_scatter,
-    stage_device_exchange,
-)
+from flink_tpu_torch.parallel.shuffle import build_exchange_scatter
 from flink_tpu_torch.runtime.pending import PendingFire
 from flink_tpu_torch.state.keygroups import _splitmix64
 from flink_tpu_torch.state.paged_spill import (
@@ -102,10 +102,7 @@ from flink_tpu_torch.state.paged_spill import (
     reload_rows_for,
     sorted_match,
 )
-from flink_tpu_torch.state.slot_table import (
-    _not_ported,
-    resolve_slot_hints,
-)
+from flink_tpu_torch.state.slot_table import resolve_slot_hints
 from flink_tpu_torch.tenancy.program_cache import PROGRAM_CACHE
 from flink_tpu_torch.windowing.aggregates import AggregateFunction
 from flink_tpu_torch.windowing.session_meta import (
@@ -214,20 +211,14 @@ class MeshSessionEngine(MeshPagedSpillSupport):
             raise ValueError(
                 f"spill_layout must be 'namespaces' or 'pages', got "
                 f"{spill_layout!r}")
-        if shuffle_mode not in ("host", "device"):
-            raise ValueError(
-                f"shuffle_mode must be 'host' or 'device', got "
-                f"{shuffle_mode!r}")
-        if shuffle_mode != "device":
-            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", "12h")
-        if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
+        self.shuffle_mode = self._check_shuffle_mode(shuffle_mode)
         self._memory = memory
         self.gap = int(gap)
         self.agg = agg
         self.mesh = mesh
         self.P = int(mesh.size)
         self.device = mesh.device
+        self._set_host_topology(host_topology)
         #: batches of device work in flight while the host preps the next
         self.max_dispatch_ahead = max(int(max_dispatch_ahead or 1), 1)
         self.spill_layout = spill_layout
@@ -278,12 +269,16 @@ class MeshSessionEngine(MeshPagedSpillSupport):
         return self.meta.late_records_dropped
 
     def _build_steps(self) -> None:
-        (_, _, self._reset_step, self._gather_step,
-         self._put_step, _) = build_mesh_steps(self.mesh, self.agg)
+        # the [P, B] scatter step serves host shuffle mode
+        (self._scatter_step, _, self._reset_step, self._gather_step,
+         self._put_step, _, _) = build_mesh_steps(self.mesh, self.agg)
         self._merge_step = build_session_merge_step(self.mesh, self.agg)
         self._delta_fire_step = build_delta_fire_step(self.mesh, self.agg)
         self._exchange_scatter_step = build_exchange_scatter(
             self.mesh, self.agg)
+        self._exchange2_steps = (
+            build_exchange2_steps(self.mesh, self.host_topology, self.agg)
+            if self._two_level_active() else None)
 
     def _shard_index_grew(self, new_capacity: int) -> None:
         """Widen the planes and dirty bits (``MeshSpillSupport``) and, when
@@ -449,25 +444,14 @@ class MeshSessionEngine(MeshPagedSpillSupport):
                 rec_slots, rec_shards)
         values = self.agg.map_input(batch)
         in_leaves = self.agg.input_leaves
-        # claim a dispatch slot BEFORE rewriting the pooled staging
-        # buffers: their previous reader must have finished
-        self._await_dispatch_slot()
-        self._shuffle_pool.flip()
-        dst, staged, width = stage_device_exchange(
-            rec_shards, self.P,
-            columns=[np.asarray(rec_slots, dtype=np.int32),
-                     *[np.asarray(v, dtype=l.dtype)
-                       for v, l in zip(values, in_leaves)]],
-            fills=[0, *[l.identity for l in in_leaves]],
-            pool=self._shuffle_pool)
-        with self._device_span():
-            cols = [self._to_device(c) for c in (dst, *staged)]
-            self.accs = self._exchange_scatter_step(
-                self.accs, cols[0], cols[1], tuple(cols[2:]), width)
-        # chaos: "crash mid-batch after the fused dispatch" — the scatter
-        # is queued on the device, the host dies before the fence
-        chaos.fault_point("shuffle.device_exchange", records=n)
-        self._push_dispatch_fence()
+        self._dispatch_exchange(
+            rec_shards,
+            [np.asarray(rec_slots, dtype=np.int32),
+             *[np.asarray(v, dtype=l.dtype)
+               for v, l in zip(values, in_leaves)]],
+            [0, *[l.identity for l in in_leaves]],
+            self._exchange_scatter_step, self._exchange2_steps,
+            self._scatter_step, n)
 
     def _run_merge_group(self, g: MergeGroup) -> None:
         """Resolve a chain-free merge group's rows per shard (dst and src

@@ -24,7 +24,8 @@ resets are shard-local.
   coldest rows leave as one page (``state/paged_spill.py``), every
   shard's cohort in ONE ``[P, G]`` gather, ONE device-to-host copy and
   ONE reset; reloads of all shards land in ONE ``[P, B]`` put.
-- :func:`build_mesh_steps` (scatter, fire, reset, gather, put, merge) and
+- :func:`build_mesh_steps` (scatter, fire, reset, gather, put, merge,
+  valued scatter) and
   :func:`build_delta_fire_step` (fire and reset in one call).
 
 Both engines snapshot in the single-device engines' logical format (rows
@@ -66,9 +67,12 @@ table re-routes ingest, merges, fires, queries, restores and the device
 exchange's destination column at once. ``reshard`` resets it to the
 contiguous layout.
 
-Left out, each raising ``NotImplementedError`` naming its ROADMAP item
-where a user would select it: host shuffle mode and the two-level
-exchange (item 12h). Point queries (``query_batch``)
+The data plane: ``shuffle_mode="device"`` (the default) ranks, buckets
+and exchanges flat staged columns on the device; under a multi-host
+``host_topology`` that exchange runs in two levels
+(``parallel/exchange2.py``, bit for bit the flat one's folds);
+``shuffle_mode="host"`` buckets records into ``[P, B]`` blocks on the host
+(``bucket_by_shard``). Point queries (``query_batch``)
 gather every shard's hits in one ``[P, G]`` block with one copy back, and
 read spilled slices from the shards' host tiers.
 """
@@ -99,9 +103,16 @@ from flink_tpu_torch.ops.segment_ops import (
     sticky_bucket,
     torch_dtype,
 )
+from flink_tpu_torch.parallel.exchange2 import (
+    ExchangeTraffic,
+    build_exchange2_steps,
+    stage_two_level_exchange,
+    two_level_active,
+)
 from flink_tpu_torch.parallel.mesh import LogicalMesh
 from flink_tpu_torch.parallel.shuffle import (
     ShuffleBufferPool,
+    bucket_by_shard,
     build_exchange_scatter,
     shard_records,
     stage_device_exchange,
@@ -132,7 +143,6 @@ from flink_tpu_torch.state.paged_spill import (
 from flink_tpu_torch.state.slot_table import (
     SlotTableFullError,
     SpillTier,
-    _not_ported,
     make_slot_index,
     resolve_slot_hints,
     unique_pairs,
@@ -211,6 +221,89 @@ class MeshSpillSupport(WatchdogHooks):
     #: live rebalances applied, and the report of the latest
     rebalances_completed: int = 0
     last_rebalance: Optional[Dict[str, object]] = None
+
+    #: the ingest data plane: "device" ranks, buckets and exchanges the
+    #: flat staged columns on the device; "host" buckets the records into
+    #: [P, B] blocks on the host (bucket_by_shard)
+    shuffle_mode: str = "device"
+    #: the (hosts, local) factorization of the mesh: device-mode ingest
+    #: then runs the two-level exchange (parallel/exchange2.py); None (or
+    #: one host) keeps the flat exchange
+    host_topology = None
+    #: intra- vs cross-host rows of the two-level exchange
+    _exchange2_traffic = None
+
+    @staticmethod
+    def _check_shuffle_mode(mode: str) -> str:
+        if mode not in ("host", "device"):
+            raise ValueError(
+                f"shuffle_mode must be 'host' or 'device', got {mode!r}")
+        return mode
+
+    def _set_host_topology(self, topology) -> None:
+        if topology is not None:
+            topology.check_covers(self.P)
+        self.host_topology = topology
+        if topology is not None and self._exchange2_traffic is None:
+            self._exchange2_traffic = ExchangeTraffic()
+
+    def _two_level_active(self) -> bool:
+        return two_level_active(self.host_topology, self.shuffle_mode)
+
+    def exchange2_traffic(self) -> Dict[str, int]:
+        """The two-level exchange's traffic split (zeros when flat)."""
+        return ExchangeTraffic.dict_of(self._exchange2_traffic)
+
+    def _dispatch_exchange(self, shards: np.ndarray, columns, fills,
+                           flat_step, steps2, host_step, n: int) -> None:
+        """Fold one batch's records into the planes through the engine's
+        data plane: ``columns`` are the record slots and the value
+        columns, ``fills`` their padding. The two-level pair ``steps2``
+        on a multi-host topology, the flat exchange+scatter
+        ``flat_step`` in device mode, else host bucketing into ``[P, B]``
+        blocks and ``host_step``. Claims a dispatch slot first: the
+        pooled staging buffers are rewritten here."""
+        self._await_dispatch_slot()
+        self._shuffle_pool.flip()
+        if self._two_level_active():
+            with flight.span("prep.stage"):
+                dst, staged, w1, w2 = stage_two_level_exchange(
+                    shards, self.host_topology, columns=columns,
+                    fills=fills, pool=self._shuffle_pool,
+                    traffic=self._exchange2_traffic)
+            s1, s2 = steps2
+            tr = self._exchange2_traffic
+            with self._device_span():
+                cols = [self._to_device(c) for c in (dst, *staged)]
+                with flight.span("exchange.stage1"):
+                    inter = tr.count_launches(
+                        1, s1, cols[0], cols[1], tuple(cols[2:]), w1)
+                with flight.span("exchange.stage2"):
+                    self.accs = tr.count_launches(
+                        2, s2, self.accs, inter[0], inter[1],
+                        tuple(inter[2:]), w2)
+        elif self.shuffle_mode == "device":
+            dst, staged, width = stage_device_exchange(
+                shards, self.P, columns=columns, fills=fills,
+                pool=self._shuffle_pool)
+            with self._device_span():
+                cols = [self._to_device(c) for c in (dst, *staged)]
+                self.accs = flat_step(self.accs, cols[0], cols[1],
+                                      tuple(cols[2:]), width)
+        else:
+            _, blocked = bucket_by_shard(
+                shards, self.P, columns=columns, fills=fills,
+                pool=self._shuffle_pool)
+            with self._device_span():
+                blocks = [self._to_device(b) for b in blocked]
+                self.accs = host_step(self.accs, blocks[0],
+                                      tuple(blocks[1:]))
+        if self.shuffle_mode == "device":
+            # chaos: "crash mid-batch after the fused dispatch" — the
+            # scatter is queued on the device, the host dies before the
+            # fence
+            chaos.fault_point("shuffle.device_exchange", records=n)
+        self._push_dispatch_fence()
 
     def _route(self, key_ids) -> np.ndarray:
         """key id -> owning shard: the contiguous key-group formula, or
@@ -1043,6 +1136,12 @@ class MeshSpillSupport(WatchdogHooks):
         self._rep_rebuild = True
         self.mesh = LogicalMesh(int(new_shards), self.device)
         self.P = int(new_shards)
+        t = self.host_topology
+        if t is not None and t.num_shards != self.P:
+            # a reshard or a partial failover changed the shard count:
+            # the (hosts, local) factorization no longer describes the
+            # mesh, so ingest falls back to the flat exchange
+            self.host_topology = None
         clock = self._touch_clock
         # the old tiers' file-backed entries would be orphaned on disk
         # (the collect only peeks): reclaim them before the rebuild
@@ -1945,16 +2044,14 @@ class MeshWindowEngine(MeshSpillSupport):
         host_topology=None,
         memory=None,
     ) -> None:
-        if shuffle_mode != "device":
-            raise _not_ported(f"shuffle.mode={shuffle_mode!r}", "12h")
-        if host_topology is not None:
-            raise _not_ported("the two-level exchange (shuffle.hosts)", "12h")
+        self.shuffle_mode = self._check_shuffle_mode(shuffle_mode)
         self._memory = memory
         self.assigner = assigner
         self.agg = agg
         self.mesh = mesh
         self.P = int(mesh.size)
         self.device = mesh.device
+        self._set_host_topology(host_topology)
         self.fire_projector = fire_projector
         self.key_group_range = key_group_range
         self.max_dispatch_ahead = max(int(max_dispatch_ahead or 1), 1)
@@ -1989,16 +2086,21 @@ class MeshWindowEngine(MeshSpillSupport):
         self._refire_groups: Dict[int, set] = {}
 
     def _build_steps(self) -> None:
-        # the [P, B] scatter step serves host shuffle mode (not ported)
-        (_, self._fire_step, self._reset_step, self._gather_step,
-         self._put_step, self._merge_step) = build_mesh_steps(self.mesh,
-                                                              self.agg)
+        # the [P, B] scatter steps serve host shuffle mode
+        (self._scatter_step, self._fire_step, self._reset_step,
+         self._gather_step, self._put_step, self._merge_step,
+         self._valued_scatter_step) = build_mesh_steps(self.mesh, self.agg)
         self._exchange_scatter_step = build_exchange_scatter(self.mesh,
                                                              self.agg)
         # explicit per-accumulator-leaf partials (the two-phase agg's
         # global half, runtime/local_agg.py)
         self._exchange_valued_step = build_exchange_scatter(
             self.mesh, self.agg, valued=True)
+        if self._two_level_active():
+            self._exchange2_steps = build_exchange2_steps(
+                self.mesh, self.host_topology, self.agg, valued=False)
+            self._exchange2_valued = build_exchange2_steps(
+                self.mesh, self.host_topology, self.agg, valued=True)
 
     # --------------------------------------------------------------- ingest
 
@@ -2074,17 +2176,61 @@ class MeshWindowEngine(MeshSpillSupport):
                 return
         self.book.register_slices(slice_ends)
         shards = self._route(key_ids)
-        if is_partial_batch(batch):
+        partial = is_partial_batch(batch)
+        if partial:
             # locally pre-aggregated rows: one explicit value per
             # accumulator leaf, folded with the valued scatter
-            self._process_batch_device(
-                key_ids, slice_ends, shards,
-                partial_leaf_values(batch, self.agg), self.agg.leaves,
-                partial=True)
-            return
-        self._process_batch_device(key_ids, slice_ends, shards,
-                                   self.agg.map_input(batch),
-                                   self.agg.input_leaves)
+            values = partial_leaf_values(batch, self.agg)
+            leaves = self.agg.leaves
+        else:
+            values = self.agg.map_input(batch)
+            leaves = self.agg.input_leaves
+        if self.shuffle_mode == "host":
+            self._process_batch_host(key_ids, slice_ends, shards, values,
+                                     leaves, partial)
+        else:
+            self._process_batch_device(key_ids, slice_ends, shards,
+                                       values, leaves, partial)
+
+    def _process_batch_host(self, key_ids, slice_ends, shards, values,
+                            leaves, partial: bool) -> None:
+        """Host shuffle mode: bucket the records into ``[P, B]`` blocks on
+        the host (``bucket_by_shard``, whose chaos points may drop or
+        duplicate a shard's bucket before its slots resolve), resolve
+        each block's slots, and fold the blocks with the ``[P, B]``
+        scatter step."""
+        self._await_dispatch_slot()
+        self._shuffle_pool.flip()
+        counts, blocked = bucket_by_shard(
+            shards, self.P,
+            columns=[key_ids, slice_ends,
+                     *[np.asarray(v, dtype=l.dtype)
+                       for v, l in zip(values, leaves)]],
+            fills=[0, 0, *[l.identity for l in leaves]],
+            pool=self._shuffle_pool)
+        key_block, ns_block = blocked[0], blocked[1]
+        if self._spill_active:
+            touched = {p: np.unique(ns_block[p, :int(counts[p])])
+                       for p in range(self.P) if int(counts[p])}
+            self._ensure_resident(touched)
+            for p, nss in touched.items():
+                self._touch(p, nss.tolist())
+        slot_block = np.zeros(key_block.shape, dtype=np.int32)
+        for p in range(self.P):
+            c = int(counts[p])
+            if not c:
+                continue
+            self._reserve(p, key_block[p, :c], ns_block[p, :c])
+            slot_block[p, :c] = self.indexes[p].lookup_or_insert(
+                key_block[p, :c], ns_block[p, :c])
+            self._dirty[p, slot_block[p, :c]] = True
+            self._rep_mark(p, slot_block[p, :c])
+        step = self._valued_scatter_step if partial else self._scatter_step
+        with self._device_span():
+            self.accs = step(
+                self.accs, self._to_device(slot_block),
+                tuple(self._to_device(v) for v in blocked[2:]))
+        self._push_dispatch_fence()
 
     def _process_batch_device(self, key_ids, slice_ends, shards, values,
                               leaves, partial: bool = False) -> None:
@@ -2120,26 +2266,18 @@ class MeshWindowEngine(MeshSpillSupport):
             self._rep_mark(p, slots)
         rec_slots = np.empty(n, dtype=np.int32)
         rec_slots[order] = slots_sorted
-        # claim a dispatch slot BEFORE rewriting the pooled buffers
-        self._await_dispatch_slot()
-        self._shuffle_pool.flip()
-        dst, staged, width = stage_device_exchange(
-            shards, self.P,
-            columns=[rec_slots,
-                     *[np.asarray(v, dtype=l.dtype)
-                       for v, l in zip(values, leaves)]],
-            fills=[0, *[l.identity for l in leaves]],
-            pool=self._shuffle_pool)
-        step = (self._exchange_valued_step if partial
-                else self._exchange_scatter_step)
-        with self._device_span():
-            cols = [self._to_device(c) for c in (dst, *staged)]
-            self.accs = step(self.accs, cols[0], cols[1], tuple(cols[2:]),
-                             width)
-        # chaos: "crash mid-batch after the fused dispatch" — the scatter
-        # is queued on the device, the host dies before the fence
-        chaos.fault_point("shuffle.device_exchange", records=n)
-        self._push_dispatch_fence()
+        self._dispatch_exchange(
+            shards,
+            [rec_slots, *[np.asarray(v, dtype=l.dtype)
+                          for v, l in zip(values, leaves)]],
+            [0, *[l.identity for l in leaves]],
+            self._exchange_valued_step if partial
+            else self._exchange_scatter_step,
+            (self._exchange2_valued if partial
+             else self._exchange2_steps) if self._two_level_active()
+            else None,
+            self._valued_scatter_step if partial else self._scatter_step,
+            n)
 
     # ----------------------------------------------------------------- fire
 
@@ -2530,7 +2668,8 @@ def build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
 
 
 def _build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
-    """(scatter, fire, reset, gather, put, merge) steps over ``[P, capacity]``
+    """(scatter, fire, reset, gather, put, merge, valued scatter) steps
+    over ``[P, capacity]``
     planes. The planes are updated IN PLACE where the reference donated
     them.
 
@@ -2545,6 +2684,9 @@ def _build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
     - ``put(accs, slots [P, B], values)``: overwrite the slots with one
       ``[P, B]`` block per leaf (the reload); padded lanes target slot 0
       with the identity.
+    - ``valued_scatter(accs, slots [P, B], values)``: fold one explicit
+      ``[P, B]`` block per accumulator leaf (host shuffle mode's
+      two-phase partials).
     - ``merge(accs, slot_matrix [P, W, k]) -> per-leaf [P, W]``: fire
       without the finish — the raw merged accumulators a hybrid fire
       combines with spilled slices on the host.
@@ -2569,6 +2711,14 @@ def _build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
                 v.masked_fill_(slots == 0, ident)
             else:
                 v = next(vals)
+            m(a, idx, v)
+        return accs
+
+    def valued_scatter_step(accs, slots, values):
+        # one explicit [P, B] block per accumulator leaf (locally
+        # pre-aggregated partials); padded lanes fold identities into 0
+        for a, m, idx, v in zip(accs, methods, fold_slots(slots, tdtypes),
+                                values):
             m(a, idx, v)
         return accs
 
@@ -2598,7 +2748,7 @@ def _build_mesh_steps(mesh: LogicalMesh, agg: AggregateFunction):
         return accs
 
     return (scatter_step, fire_step, reset_step, gather_step, put_step,
-            merge_step)
+            merge_step, valued_scatter_step)
 
 
 def build_delta_fire_step(mesh: LogicalMesh, agg: AggregateFunction):

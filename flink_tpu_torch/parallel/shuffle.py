@@ -17,9 +17,15 @@ the reference folds in. Float leaves fold in that order on the card too
 
 The chaos payload point ``shuffle.device_exchange`` (drop or duplicate one
 shard's records) sits in :func:`stage_device_exchange`, as in the
-reference. Not in this slice: the host-bucketing data plane
-(``shuffle.mode=host``) with its ``shuffle.bucket_*`` points, and the
-repartition/combine collectives.
+reference.
+
+The host-bucketing data plane (``shuffle.mode=host``):
+:func:`bucket_by_shard` groups the records into a dense ``[P, B]`` block
+per column on the host (its chaos points ``shuffle.bucket_prep`` and
+``shuffle.bucket_send``), and the engines fold the blocks with their
+``[P, B]`` scatter step. :func:`make_all_to_all_repartition` and
+:func:`make_global_combine` are the reference's collectives on the
+logical mesh: a transpose and a reduction over the leading shard axis.
 """
 
 from __future__ import annotations
@@ -71,6 +77,76 @@ class ShuffleBufferPool:
             self._bufs[key] = buf
         buf.fill(fill)
         return buf
+
+
+def bucket_by_shard(
+    shard_of_record: np.ndarray,
+    num_shards: int,
+    columns: Sequence[np.ndarray],
+    fills: Sequence,
+    min_bucket: int = 256,
+    pool: Optional[ShuffleBufferPool] = None,
+    want_order: bool = False,
+):
+    """Group records into a dense ``[num_shards, B]`` block per column on
+    the host: ``(counts[num_shards], blocks)``, the records of shard p at
+    ``block[p, :counts[p]]`` in stream order (with ``want_order`` the
+    applied permutation too). One stable argsort, then one fancy scatter
+    per column through a flat index.
+
+    Chaos (armed only): ``shuffle.bucket_prep`` fires once; per non-empty
+    shard ``shuffle.bucket_send`` may drop its bucket (its rows refill
+    with the fills, so they fold identities into slot 0 and vanish) or
+    duplicate it (``B`` is padded to hold the copy)."""
+    shard_of_record = np.asarray(shard_of_record)
+    n = len(shard_of_record)
+    counts = np.bincount(shard_of_record, minlength=num_shards)
+    mutations: Dict[int, str] = {}
+    if chaos.armed():
+        chaos.fault_point("shuffle.bucket_prep", num_shards=num_shards)
+        for p in np.nonzero(counts)[0].tolist():
+            rule = chaos.payload_action("shuffle.bucket_send", shard=p)
+            if rule is not None and rule.kind in ("drop", "duplicate"):
+                mutations[p] = rule.kind
+    eff_counts = counts
+    if mutations:
+        eff_counts = counts.copy()
+        for p, kind in mutations.items():
+            if kind == "duplicate":
+                eff_counts[p] = counts[p] * 2
+    B = pad_bucket_size(int(eff_counts.max()) if n else 0,
+                        minimum=min_bucket)
+    order = np.argsort(shard_of_record, kind="stable")
+    offsets = np.zeros(num_shards + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    sorted_shard = shard_of_record[order]
+    # sorted record j lands at its shard's row, column j - offsets[shard]
+    flat_dst = (sorted_shard * B
+                + np.arange(n, dtype=np.int64) - offsets[sorted_shard])
+    blocked = []
+    for ci, (col, fill) in enumerate(zip(columns, fills)):
+        col = np.asarray(col)
+        shape = (num_shards, B) + col.shape[1:]
+        if pool is not None:
+            block = pool.get(shape, col.dtype, fill, tag=("bucket", ci))
+        else:
+            block = np.full(shape, fill, dtype=col.dtype)
+        block.reshape((num_shards * B,) + col.shape[1:])[flat_dst] = \
+            col[order]
+        blocked.append(block)
+    if mutations:
+        for p, kind in mutations.items():
+            c = int(counts[p])
+            for block, fill in zip(blocked, fills):
+                if kind == "drop":
+                    block[p, :c] = fill
+                else:  # duplicate: replay the bucket's rows
+                    block[p, c:2 * c] = block[p, :c]
+            eff_counts[p] = 0 if kind == "drop" else 2 * c
+        counts = eff_counts
+    if want_order:
+        return counts, blocked, order
+    return counts, blocked
 
 
 def shard_records(key_ids: np.ndarray, num_shards: int,
@@ -234,3 +310,43 @@ def _build_exchange_scatter(mesh: LogicalMesh, agg, valued: bool = False):
         return accs
 
     return exchange_scatter
+
+
+# ---------------------------------------------------------------------------
+# collectives over the leading shard axis
+# ---------------------------------------------------------------------------
+
+
+def make_all_to_all_repartition(mesh: LogicalMesh):
+    """``[P, P, B, ...]`` (dim 0 the source shard, dim 1 the destination)
+    -> each shard's rows destined to it, dim 1 then indexed by SOURCE
+    shard: the reference's ``all_to_all`` between two keyed stages, on one
+    device a transpose of the two shard axes."""
+    P = int(mesh.size)
+
+    def repartition(block: torch.Tensor) -> torch.Tensor:
+        if block.shape[0] != P or block.shape[1] != P:
+            raise ValueError(
+                f"repartition: a [{P}, {P}, ...] block, got "
+                f"{tuple(block.shape)}")
+        return block.transpose(0, 1).contiguous()
+
+    return repartition
+
+
+def make_global_combine(mesh: LogicalMesh, reduce: str = "sum"):
+    """Two-phase aggregation: per-shard partials ``[P, ...]`` -> their
+    reduction over the shard axis (the reference's ``psum``/``pmax``/
+    ``pmin``, replicated on every shard; here one tensor)."""
+    fn = {"sum": lambda x: x.sum(dim=0),
+          "max": lambda x: x.amax(dim=0),
+          "min": lambda x: x.amin(dim=0)}[reduce]
+    P = int(mesh.size)
+
+    def combine(partials: torch.Tensor) -> torch.Tensor:
+        if partials.shape[0] != P:
+            raise ValueError(
+                f"combine: {P} shard partials, got {partials.shape[0]}")
+        return fn(partials)
+
+    return combine

@@ -96,7 +96,8 @@ class OperatorContext:
                  state_backend: str = "tpu-slot-table",
                  spill: Optional[dict] = None, pane_preagg: bool = True,
                  watchdog=None, memory_manager=None,
-                 key_group_range: Optional[tuple] = None):
+                 key_group_range: Optional[tuple] = None,
+                 host_topology=None):
         self.operator_index = operator_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -127,6 +128,29 @@ class OperatorContext:
         #: (first, last) key groups a stage subtask owns: its mesh engine
         #: spreads them over its shards; None = all of them
         self.key_group_range = key_group_range
+        #: (hosts, local) factorization of the mesh (shuffle.hosts): an
+        #: int host count or a HostTopology; the mesh engines then run
+        #: the two-level exchange (parallel/exchange2.py)
+        self.host_topology = host_topology
+
+
+def _ctx_topology(ctx, num_shards: int):
+    """The context's host-topology declaration against the engine's
+    shard count: an int (``shuffle.hosts``) factors it; a
+    ``HostTopology`` is used when it covers. A declaration that cannot
+    factor THIS mesh (a stage sub-mesh of another size) falls back to the
+    flat exchange rather than failing the job."""
+    decl = getattr(ctx, "host_topology", None)
+    if decl is None:
+        return None
+    size = int(num_shards)
+    if isinstance(decl, int):
+        if decl > 1 and size % decl == 0:
+            from flink_tpu_torch.parallel.mesh import HostTopology
+
+            return HostTopology(decl, size // decl)
+        return None
+    return decl if decl.num_shards == size else None
 
 
 class MapOperator(Operator):
@@ -262,6 +286,7 @@ class WindowAggOperator(Operator):
                 key_group_range=ctx.key_group_range,
                 max_dispatch_ahead=ctx.max_dispatch_ahead,
                 shuffle_mode=ctx.shuffle_mode,
+                host_topology=_ctx_topology(ctx, ctx.parallelism),
                 memory=self._managed_memory(ctx))
         else:
             self.windower = self._open_single_device(ctx)
@@ -613,7 +638,8 @@ class SessionWindowAggOperator(WindowAggOperator):
             key_group_range=ctx.key_group_range,
             memory=self._managed_memory(ctx),
             max_dispatch_ahead=ctx.max_dispatch_ahead,
-            shuffle_mode=ctx.shuffle_mode)
+            shuffle_mode=ctx.shuffle_mode,
+            host_topology=_ctx_topology(ctx, ctx.parallelism))
 
     def arm_serving_replica(self, publish_interval_ms: float = 0.0):
         """Session form: the adapter composes {session_end -> columns}

@@ -24,13 +24,15 @@ the card's ordinal: every loss would otherwise collapse into one.
   dead, which quarantines it and raises :class:`ShardFailedError` — the
   signal ``chaos.harness.run_shard_loss_verify`` consumes.
 
+- **Hosts** (:meth:`DeviceWatchdog.set_topology`): given the mesh's
+  ``(hosts, local)`` factorization, the probe also fires the chaos
+  ``host.lost`` point once per live host, and escalates a miss streak
+  that covers exactly one host's live shards (and nothing else) to
+  :class:`HostFailedError`: a lost process, recovered host-granular.
+
 The heartbeat gauges sit under ``<scope>.watchdog``
 (``register_metrics``), and every missed section lands a
 ``watchdog.miss`` instant in the flight recorder's timeline.
-
-Not carried: the pod's host topology (``set_topology`` with a topology,
-``HostFailedError`` escalation, the ``host.lost`` point; ROADMAP.md
-Queue A item 12h), so ``hosts_declared_dead`` reads 0.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ import numpy as np
 from flink_tpu_torch.chaos import injection as chaos
 from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.runtime.pending import NULL_SECTION, harvest_to_host
-from flink_tpu_torch.state.slot_table import _not_ported
 
 
 class ShardFailedError(RuntimeError):
@@ -58,6 +59,27 @@ class ShardFailedError(RuntimeError):
             "(restore only that shard's key groups, replay only its "
             "range)")
         self.shard = int(shard)
+        self.reason = reason
+
+
+class HostFailedError(ShardFailedError):
+    """A whole host (one process's slice of the mesh: ``local_devices``
+    shards, one contiguous key-group range) was declared dead: the chaos
+    ``host.lost`` point fired, or every one of its shards ran past the
+    miss budget while the other hosts stayed healthy. Recovery is
+    host-granular: the survivors evacuate, the host's shard units
+    restore, and its contiguous range replays."""
+
+    def __init__(self, host: int, shards, reason: str) -> None:
+        self.host = int(host)
+        self.shards = tuple(int(s) for s in shards)
+        RuntimeError.__init__(
+            self,
+            f"host {host} declared dead (shards "
+            f"{list(self.shards)}): {reason} — host failover (restore "
+            "that host's key-group ranges, replay only its span)")
+        # a shard-granular consumer still reads one member
+        self.shard = self.shards[0] if self.shards else -1
         self.reason = reason
 
 
@@ -134,12 +156,25 @@ class DeviceWatchdog:
         self._device_ids = (list(device_ids)
                             if device_ids is not None else None)
         self.quarantined = set()
+        t = self._topology
+        if t is not None and t.num_shards != self.num_shards:
+            # a failover or reshard renumbered the shards: the (hosts,
+            # local) map no longer applies until an engine declares one
+            self._topology = None
+
+    #: HostTopology for host-granular escalation (None: shards only)
+    _topology = None
+    #: hosts declared dead over the watchdog's lifetime
+    hosts_declared_dead = 0
 
     def set_topology(self, topology) -> None:
-        """Host-granular escalation needs the pod's host topology; a
-        single-card mesh has none (``None`` is accepted and ignored)."""
+        """Teach the watchdog the mesh's ``(hosts, local)``
+        factorization: the boundary probe then fires ``host.lost`` once
+        per live host and escalates a miss streak that uniformly covers
+        exactly one host's shards to :class:`HostFailedError`."""
         if topology is not None:
-            raise _not_ported("host-granular failover (HostTopology)", "12h")
+            topology.check_covers(self.num_shards)
+        self._topology = topology
 
     # ------------------------------------------------------------ sections
 
@@ -176,7 +211,19 @@ class DeviceWatchdog:
         """The batch-boundary health check — the ONLY place a shard is
         declared dead, so the raise always leaves an engine consistent at
         a known source position."""
+        topo = self._topology
         if chaos.armed():
+            if topo is not None:
+                for h in range(topo.num_hosts):
+                    members = [p for p in topo.shards_of_host(h)
+                               if p not in self.quarantined]
+                    if not members:
+                        continue
+                    try:
+                        chaos.fault_point("host.lost", host=h)
+                    except chaos.InjectedFault as f:
+                        self.declare_host_dead(
+                            h, members, f"host.lost injected ({f})")
             for p in range(self.num_shards):
                 if p in self.quarantined:
                     continue
@@ -196,6 +243,20 @@ class DeviceWatchdog:
                 f"miss budget ({self.max_misses} misses at "
                 f"{self.deadline_ms} ms) — mesh-wide stall, no shard "
                 "attribution: whole-job restart")
+        if topo is not None:
+            # a streak that covers EXACTLY one host's live shards, and no
+            # other shard, is a lost process: declare the host. A streak
+            # that spills outside one host stays shard-granular below.
+            off = set(offenders)
+            for h in range(topo.num_hosts):
+                members = {p for p in topo.shards_of_host(h) if p in live}
+                if members and off == members:
+                    self.declare_host_dead(
+                        h, sorted(members),
+                        f"uniform deadline-miss streak across all "
+                        f"{len(members)} live shards of host {h} "
+                        f"(budget {self.max_misses}, deadline "
+                        f"{self.deadline_ms} ms)")
         p = offenders[0]
         self.declare_dead(
             p, f"{self._misses[p]} consecutive deadline misses "
@@ -209,6 +270,18 @@ class DeviceWatchdog:
             self.quarantined_devices.add(self._device_ids[int(shard)])
         self.declared_dead += 1
         raise ShardFailedError(int(shard), reason)
+
+    def declare_host_dead(self, host: int, shards, reason: str) -> None:
+        """Quarantine every shard of ``host`` at once and raise the
+        host-granular failure."""
+        for p in shards:
+            self.quarantined.add(int(p))
+            if self._device_ids is not None \
+                    and 0 <= int(p) < len(self._device_ids):
+                self.quarantined_devices.add(self._device_ids[int(p)])
+        self.declared_dead += 1
+        self.hosts_declared_dead += 1
+        raise HostFailedError(int(host), shards, reason)
 
     # -------------------------------------------------------------- signals
 
@@ -233,6 +306,7 @@ class DeviceWatchdog:
                 "deadline_misses": self.deadline_misses,
                 "shards_quarantined": len(self.quarantined),
                 "declared_dead": self.declared_dead,
+                "hosts_declared_dead": self.hosts_declared_dead,
                 "heartbeat_age_s": self.heartbeat_age_s()}
 
     def register_metrics(self, group) -> None:
@@ -242,8 +316,7 @@ class DeviceWatchdog:
         g.gauge("deadline_misses", lambda: self.deadline_misses)
         g.gauge("shards_quarantined", lambda: len(self.quarantined))
         g.gauge("declared_dead", lambda: self.declared_dead)
-        # no host topology in the port (item 12h): no host is declared
-        g.gauge("hosts_declared_dead", lambda: 0)
+        g.gauge("hosts_declared_dead", lambda: self.hosts_declared_dead)
         g.gauge("heartbeat_age_s", lambda: self.heartbeat_age_s())
 
 
@@ -265,7 +338,8 @@ class WatchdogHooks:
         self._watchdog = wd
         if wd is not None:
             wd.rebind(self.P, self._shard_ids())
-            wd.set_topology(None)
+            # host-granular escalation needs the (hosts, local) map
+            wd.set_topology(getattr(self, "host_topology", None))
 
     def _wd_section(self, op: str, shard: int = -1):
         wd = self._watchdog

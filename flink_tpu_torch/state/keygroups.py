@@ -116,6 +116,14 @@ class KeyGroupRange:
     def __contains__(self, group: int) -> bool:
         return self.start <= group <= self.end
 
+    def intersect(self, other: "KeyGroupRange") -> "KeyGroupRange":
+        return KeyGroupRange(max(self.start, other.start),
+                             min(self.end, other.end))
+
+    @property
+    def empty(self) -> bool:
+        return self.end < self.start
+
 
 def compute_key_group_range(max_parallelism: int, parallelism: int,
                             operator_index: int) -> KeyGroupRange:
@@ -125,6 +133,30 @@ def compute_key_group_range(max_parallelism: int, parallelism: int,
         // parallelism
     end = ((operator_index + 1) * max_parallelism - 1) // parallelism
     return KeyGroupRange(start, end)
+
+
+def all_ranges(max_parallelism: int, parallelism: int
+               ) -> List[KeyGroupRange]:
+    """Every subtask's range, in operator-index order."""
+    return [compute_key_group_range(max_parallelism, parallelism, i)
+            for i in range(parallelism)]
+
+
+def host_key_group_ranges(num_hosts: int, local_devices: int,
+                          max_parallelism: int,
+                          key_group_range=None) -> List[tuple]:
+    """GLOBAL ``(first, last)`` inclusive key groups owned by each host
+    of a ``num_hosts x local_devices`` mesh: the stable host ->
+    key-group-range map. Host ``h`` owns the union of its local shards'
+    ranges, contiguous because shard ranges are contiguous and
+    host-major adjacent, so a lost host is "lose ``local_devices`` shard
+    units, restore them, replay one contiguous range"."""
+    shard_ranges = shard_key_group_ranges(
+        int(num_hosts) * int(local_devices), max_parallelism,
+        key_group_range)
+    L = int(local_devices)
+    return [(shard_ranges[h * L][0], shard_ranges[h * L + L - 1][1])
+            for h in range(int(num_hosts))]
 
 
 def host_of_key_group(key_groups: np.ndarray, num_hosts: int,
@@ -232,3 +264,9 @@ class KeyGroupAssignment:
         ends = np.concatenate((cuts - 1, [len(t) - 1]))
         return [(int(s) + self.first, int(e) + self.first, int(t[s]))
                 for s, e in zip(starts, ends)]
+
+
+def validate_max_parallelism(max_parallelism: int) -> None:
+    if not (1 <= max_parallelism <= (1 << 15)):
+        raise ValueError(
+            f"max_parallelism must be in [1, 32768], got {max_parallelism}")

@@ -22,8 +22,7 @@
   policy, acted on through live rescale requests.
 
 The names stay lazy, as in the reference: the lowest engine layers import
-:mod:`program_cache` without pulling in the cluster. ``LookupRouter``
-raises ``NotImplementedError`` naming ROADMAP.md Queue A item 12h.
+:mod:`program_cache` without pulling in the cluster.
 """
 
 _LAZY = {
@@ -49,6 +48,7 @@ _LAZY = {
     "SessionCluster": "flink_tpu_torch.tenancy.session_cluster",
     "TenantJob": "flink_tpu_torch.tenancy.session_cluster",
     "FrontendPool": "flink_tpu_torch.tenancy.frontend",
+    "LookupRouter": "flink_tpu_torch.tenancy.frontend",
 }
 
 
@@ -58,10 +58,4 @@ def __getattr__(name):
         import importlib
 
         return getattr(importlib.import_module(mod), name)
-    if name == "LookupRouter":
-        raise NotImplementedError(
-            "tenancy.LookupRouter (the reference's tenancy/frontend.py) "
-            "routes lookups to the host owning a key-group range and is "
-            "not ported to flink_tpu_torch yet (ROADMAP.md, Queue A item "
-            "12h)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

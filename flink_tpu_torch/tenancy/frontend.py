@@ -31,9 +31,9 @@ on a live sibling; with none left it fails fast. The ``serving.frontend``
 chaos point injects exactly that death at the dispatch site (its ``drop``
 kind kills the chosen frontend process).
 
-Not ported: the reference's ``LookupRouter`` (routing a key batch to the
-host owning its key-group range) needs the pod's hosts and key-group
-assignment (ROADMAP.md, Queue A item 12h).
+:class:`LookupRouter` splits a key batch by the host that owns each key's
+key-group range (under the live ``KeyGroupAssignment`` after a rebalance)
+and sends each part to that host's lookup entry point.
 """
 
 from __future__ import annotations
@@ -469,3 +469,90 @@ def default_shm_dir(tag: str = "serving") -> str:
 
     return os.path.join(tempfile.gettempdir(),
                         f"flink_tpu_torch_hc_{tag}_{os.getpid()}")
+
+
+# ------------------------------------------------------------------ router
+
+
+class LookupRouter:
+    """Lookup routing over the pod: each key goes to the HOST owning its
+    key-group range, so a multi-host deployment probes its own frontends
+    instead of crossing hosts per key.
+
+    ``lookup_fns[host]`` is that host's serving entry point: locally the
+    :class:`FrontendPool` (or the plane itself), remotely whatever reaches
+    that host's owner. Ownership follows the LIVE ``KeyGroupAssignment``
+    after a rebalance (:meth:`set_assignment`), the table the data plane
+    routes by."""
+
+    def __init__(self, num_hosts: int, local_devices: int,
+                 max_parallelism: int, local_host: int,
+                 lookup_fns: Dict[int, Callable],
+                 assignment=None,
+                 key_id_fn: Optional[Callable] = None) -> None:
+        self.num_hosts = int(num_hosts)
+        self.local_devices = int(local_devices)
+        self.max_parallelism = int(max_parallelism)
+        self.local_host = int(local_host)
+        self.lookup_fns = dict(lookup_fns)
+        self.assignment = assignment
+        self.key_id_fn = key_id_fn
+        self.local_keys = 0
+        self.remote_keys = 0
+        self.remote_batches = 0
+
+    def set_assignment(self, assignment) -> None:
+        """Follow a live key-group rebalance: ownership moves with the
+        groups."""
+        self.assignment = assignment
+
+    def plan(self, keys) -> np.ndarray:
+        """The owning host of every key (the routing decision)."""
+        from flink_tpu_torch.state.keygroups import (
+            assign_key_groups,
+            hash_keys_to_i64,
+            host_of_key_group,
+        )
+
+        arr = np.asarray(keys)
+        kids = (self.key_id_fn(arr) if self.key_id_fn is not None
+                else hash_keys_to_i64(arr))
+        groups = assign_key_groups(np.asarray(kids, dtype=np.int64),
+                                   self.max_parallelism)
+        return host_of_key_group(
+            groups, self.num_hosts, self.local_devices,
+            self.max_parallelism, assignment=self.assignment)
+
+    def lookup_batch(self, job: str, operator: str,
+                     keys: Sequence[Any]) -> List[Any]:
+        """Split the batch by owning host, send each part to that host's
+        entry point, and compose the answers back in input order."""
+        keys = list(keys)
+        hosts = self.plan(keys)
+        out: List[Any] = [None] * len(keys)
+        for host in np.unique(hosts).tolist():
+            idx = np.nonzero(hosts == host)[0].tolist()
+            fn = self.lookup_fns.get(int(host))
+            if fn is None:
+                raise KeyError(
+                    f"no serving endpoint for host {host} "
+                    f"({len(idx)} keys routed there)")
+            res = fn(job, operator, [keys[i] for i in idx])
+            for i, val in zip(idx, res):
+                out[i] = val
+            if int(host) == self.local_host:
+                self.local_keys += len(idx)
+            else:
+                self.remote_keys += len(idx)
+                self.remote_batches += 1
+        return out
+
+    def metrics(self) -> Dict[str, float]:
+        total = self.local_keys + self.remote_keys
+        return {
+            "router_local_keys": float(self.local_keys),
+            "router_remote_keys": float(self.remote_keys),
+            "router_remote_batches": float(self.remote_batches),
+            "router_local_fraction": (
+                self.local_keys / total if total else 0.0),
+        }

@@ -24,8 +24,10 @@ plain functions over tensors that build nothing — the flat families
 ``stateplane/pane.py``), ``exchange-rank`` (``stateplane/rank.py``, whose
 kernel is built once per process), the joins' ``join-*`` programs
 (``joins/kernels.py``) and CEP's ``cep-*`` (``cep/kernels.py``) — so
-they have nothing to cache. ``exchange2-stage*`` and ``pod-*`` come with
-ROADMAP Queue A item 12h.
+they have nothing to cache. The two-level exchange's families
+(``exchange2-stage1``/``-stage2`` and the joins' ``join-exchange2-*``,
+``parallel/exchange2.py``) are cached like ``exchange-scatter``; the pod
+route (``parallel/pod.py``) builds nothing and is not cached.
 
 Job attribution is per thread: the session cluster brackets each job's
 scheduling quantum with :meth:`SharedProgramCache.job_scope`. No engine

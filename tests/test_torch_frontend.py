@@ -1,7 +1,6 @@
 """The port's multi-process serving tier (``flink_tpu_torch/tenancy/
 frontend.py`` over the shared-memory arenas of ``native/hotcache.cpp``) on
-the CPU, mirroring ``tests/test_serving_frontend.py`` without the
-``LookupRouter`` (ROADMAP.md Queue A item 12h):
+the CPU, mirroring ``tests/test_serving_frontend.py``:
 
 - an ATTACHED mapping refuses every write; the owner's epoch lets a
   frontend follow an owner restart; the manifest lists and cleans up;
@@ -13,7 +12,10 @@ the CPU, mirroring ``tests/test_serving_frontend.py`` without the
 - a session cluster with ``serving_shm_dir`` armed: frontends serve a
   running job's replica-primed entries, equal to the cluster's lookups;
 - the counters folded into the serving stats equal the reference's
-  ``aggregate_lookup_stats`` on the same rows.
+  ``aggregate_lookup_stats`` on the same rows;
+- ``LookupRouter`` plans every key to the reference router's host (under
+  a live ``KeyGroupAssignment`` too), answers in input order and counts
+  local and remote keys as the reference's.
 
 The frontends are spawned (never forked) and import no JAX: the reference
 package is only used in process, for its pure functions. Tolerance: none
@@ -517,3 +519,57 @@ def test_row9_gates_pass_at_a_cut_size(tmp_path):
     assert r["failures"] == [], r["failures"]
     assert r["hit_rate"] >= 0.98 and r["torn_surfaced"] == 0
     assert r["parity_mismatches"] == 0 and r["generations"] >= 3
+
+
+# ------------------------------------------------------------- routing
+
+
+def _routers(fns=None, assignment=None):
+    """The port's and the reference's LookupRouter over 4 hosts x 2
+    shards, host 0 local, each host answering ``{host, key}``."""
+    from flink_tpu.tenancy.frontend import LookupRouter as JRouter
+    from flink_tpu_torch.tenancy.frontend import LookupRouter
+
+    fns = fns if fns is not None else {
+        h: (lambda job, op, ks, h=h: [{"host": h, "key": int(k)}
+                                      for k in ks])
+        for h in range(4)}
+    return [cls(num_hosts=4, local_devices=2, max_parallelism=128,
+                local_host=0, lookup_fns=fns, assignment=a)
+            for cls, a in ((LookupRouter, assignment[0] if assignment
+                            else None),
+                           (JRouter, assignment[1] if assignment
+                            else None))]
+
+
+def test_lookup_router_routes_by_owning_host_in_input_order():
+    port, ref = _routers()
+    keys = list(range(64))
+    hosts = port.plan(keys)
+    assert (hosts == ref.plan(keys)).all()
+    assert len(set(hosts.tolist())) > 1
+    out = port.lookup_batch("j", "op", keys)
+    assert out == ref.lookup_batch("j", "op", keys)
+    assert out == [{"host": int(h), "key": k} for h, k in zip(hosts, keys)]
+    assert port.metrics() == ref.metrics()
+    assert port.metrics()["router_remote_keys"] > 0
+
+
+def test_lookup_router_follows_the_live_assignment():
+    from flink_tpu.state.keygroups import KeyGroupAssignment as JAsg
+    from flink_tpu_torch.state.keygroups import KeyGroupAssignment
+
+    table = np.full(128, 7, dtype=np.int32)   # every group on shard 7
+    port, ref = _routers()
+    port.set_assignment(KeyGroupAssignment(0, 8, table))
+    ref.set_assignment(JAsg(0, 8, table))
+    keys = list(range(32))
+    assert (port.plan(keys) == 3).all() and (ref.plan(keys) == 3).all()
+    assert port.lookup_batch("j", "op", keys[:8]) == \
+        ref.lookup_batch("j", "op", keys[:8])
+
+
+def test_lookup_router_missing_endpoint_raises():
+    for r in _routers(fns={0: lambda job, op, ks: [None] * len(ks)}):
+        with pytest.raises(KeyError, match="host"):
+            r.lookup_batch("j", "op", list(range(64)))

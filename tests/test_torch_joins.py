@@ -589,12 +589,31 @@ def _item(exc) -> str:
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"shuffle_mode": "host"}, "12h"),
-    ({"host_topology": object()}, "12h"),
+    ({"host_topology": (2, 2)}, "12h"),
 ])
 def test_unported_options_raise_naming_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError) as e:
-        port(MeshIntervalJoinEngine, -1, 1, **kwargs)
-    assert _item(e) == item
+    """Item 12h is ported: host bucketing (``shuffle_mode="host"``) and
+    the two-level exchange (a 2x2 ``host_topology``) give the reference's
+    join rows with the same option, bit for bit, and the port's flat
+    device exchange's rows."""
+    import flink_tpu.parallel.mesh as jmesh
+    import flink_tpu_torch.parallel.mesh as tmesh
+
+    assert item == "12h"
+    tkw, jkw = dict(kwargs), dict(kwargs)
+    if "host_topology" in kwargs:
+        tkw["host_topology"] = tmesh.HostTopology(*kwargs["host_topology"])
+        jkw["host_topology"] = jmesh.HostTopology(*kwargs["host_topology"])
+    stream = interval_stream(steps=4, n=300)
+    got = drive_interval(port(MeshIntervalJoinEngine, -30, 20, **tkw),
+                         stream, RecordBatch)
+    want = drive_interval(ref(JInterval, -30, 20, **jkw), stream,
+                          JRecordBatch)
+    flat = drive_interval(port(MeshIntervalJoinEngine, -30, 20), stream,
+                          RecordBatch)
+    assert sum(len(b) for b in got) > 0
+    assert_batches_equal(got, want)
+    assert_batches_equal(got, flat)
 
 
 @pytest.mark.parametrize("call,item", [
@@ -635,6 +654,14 @@ def test_unported_features_raise_naming_their_item(call, item):
         want.on_watermark(0)
         assert ta.lookup_batch([1, 2]) == ja.lookup_batch([1, 2]) == (
             [[{"ts": 0, "rid": 1, "v": 1.0}], []], 1)
+        return
+    if item == "12h":
+        # item 12h is ported: an engine on the flat exchange reports the
+        # zero traffic split, as the reference's does
+        want = ref(JInterval, -1, 1)
+        assert call(eng) == call(want) == {
+            "rows_intra_host": 0, "rows_cross_host": 0,
+            "exchange2_batches": 0}
         return
     with pytest.raises(NotImplementedError) as e:
         call(eng)

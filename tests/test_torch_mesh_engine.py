@@ -167,10 +167,28 @@ def test_mesh_steps_match_reference(eight_device_mesh):
 def test_unported_features_raise():
     asg, agg = tasg.TumblingEventTimeWindows.of(100), tagg.CountAggregate()
     mesh = make_mesh(P, "cpu")
-    with pytest.raises(NotImplementedError, match="two-level"):
-        TEngine(asg, agg, mesh, host_topology=object())
-    with pytest.raises(NotImplementedError, match="shuffle.mode"):
-        TEngine(asg, agg, mesh, shuffle_mode="host")
+    # the two-level exchange and host bucketing are ported (item 12h,
+    # tests/test_torch_pod_exchange.py at size): a factorization that does
+    # not cover the mesh and an unknown mode are refused as the
+    # reference's engine refuses them, and both options build
+    import flink_tpu.parallel.mesh as jmesh
+    from flink_tpu_torch.parallel.mesh import HostTopology
+
+    errs = []
+    for build, topo in ((lambda **k: TEngine(asg, agg, mesh, **k),
+                         HostTopology),
+                        (lambda **k: JEngine(
+                            jasg.TumblingEventTimeWindows.of(100),
+                            jagg.CountAggregate(), jmesh.make_mesh(P), **k),
+                         jmesh.HostTopology)):
+        with pytest.raises(ValueError) as e1:
+            build(host_topology=topo(2, 3))
+        with pytest.raises(ValueError) as e2:
+            build(shuffle_mode="magic")
+        errs.append((str(e1.value), str(e2.value)))
+        assert build(host_topology=topo(2, 4))._two_level_active()
+        assert build(shuffle_mode="host").shuffle_mode == "host"
+    assert errs[0] == errs[1]
     eng = TEngine(asg, agg, mesh)
     # live rebalance is ported (item 12g, tests/test_torch_skew.py at
     # size): a non-assignment is refused as the reference's engine refuses

@@ -728,13 +728,36 @@ def _item(exc) -> str:
 @pytest.mark.parametrize("kwargs,item", [
     ({"spill_layout": "namespaces", "shuffle_mode": "host"}, "12h"),
     ({"shuffle_mode": "host"}, "12h"),
-    ({"host_topology": object()}, "12h"),
+    ({"host_topology": (2, 4)}, "12h"),
 ])
-def test_unported_options_raise_naming_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError) as e:
-        MeshSessionEngine(50, tagg.SumAggregate("v"), make_mesh(P, "cpu"),
-                          **kwargs)
-    assert _item(e) == item
+def test_unported_options_raise_naming_their_item(kwargs, item,
+                                                  eight_device_mesh):
+    """Item 12h is ported: host bucketing (``shuffle_mode="host"``) and the
+    two-level exchange (a 2x4 ``host_topology``) fire as the reference's
+    engine with the same option, every fire bit for bit, and as the
+    port's flat device exchange."""
+    import flink_tpu.parallel.mesh as jmesh
+    import flink_tpu_torch.parallel.mesh as tmesh
+
+    assert item == "12h"
+    kw = dict(kwargs, capacity_per_shard=4096)
+    topo = kw.pop("host_topology", None)
+    pair = Pair(eight_device_mesh, 100, **kw)
+    if topo is not None:
+        pair.j = JEngine(100, jagg.SumAggregate("v"), eight_device_mesh,
+                         host_topology=jmesh.HostTopology(*topo), **kw)
+        pair.t = MeshSessionEngine(100, tagg.SumAggregate("v"),
+                                   make_mesh(P, "cpu"),
+                                   host_topology=tmesh.HostTopology(*topo),
+                                   **kw)
+    events = random_events(n=3000)
+    fired = fired_to_dict(drive(pair, events))
+    flat = Pair(eight_device_mesh, 100, capacity_per_shard=4096)
+    assert fired == fired_to_dict(drive(flat, events))
+    if topo is not None:
+        traffic = pair.t.exchange2_traffic()
+        assert traffic == pair.j.exchange2_traffic()
+        assert traffic["rows_cross_host"] > 0
 
 
 def test_managed_memory_reserves_like_the_reference():

@@ -537,12 +537,19 @@ def test_session_api_with_string_keys():
 def test_session_job_above_parallelism_one_raises():
     """Above parallelism 1 a session job runs on the mesh session engine
     (``tests/test_torch_mesh_sessions.py``), never at parallelism 1
-    instead: an option that engine does not port yet raises naming its
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _row5_job("port", 10_000, 100, 1 << 12, 1 << 11,
-                  {"execution.device": "cpu", "parallelism.default": 2,
-                   "shuffle.mode": "host"})
+    instead. Its host shuffle mode (item 12h, once raising) gives the
+    reference's rows with the same option, and the device mode's."""
+    extra = {"parallelism.default": 2, "shuffle.mode": "host"}
+
+    def rows(pkg, conf):
+        return sorted(tuple(sorted(r.items())) for r in _row5_job(
+            pkg, 10_000, 100, 1 << 12, 1 << 11, conf).rows())
+
+    got = rows("port", {**extra, "execution.device": "cpu"})
+    assert got == rows("ref", extra)
+    assert got == rows("port", {"parallelism.default": 2,
+                                "execution.device": "cpu"})
+    assert len(got) > 0
 
 
 def test_session_job_on_the_default_device_raises_without_a_card():

@@ -271,8 +271,14 @@ def test_watchdog_from_config_and_topology():
         "watchdog.max-misses": 5}), 8)
     assert (wd.num_shards, wd.deadline_ms, wd.max_misses) == (8, 7.0, 5)
     wd.set_topology(None)
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        wd.set_topology(object())
+    # item 12h is ported: a covering (hosts, local) factorization arms the
+    # host escalation, one that does not cover raises as the reference's
+    from flink_tpu_torch.parallel.mesh import HostTopology
+
+    wd.set_topology(HostTopology(2, 4))
+    assert wd._topology == HostTopology(2, 4)
+    with pytest.raises(ValueError, match="does not cover"):
+        wd.set_topology(HostTopology(2, 2))
     # the heartbeat gauges (item 12a) read the watchdog live
     from flink_tpu_torch.metrics import MetricRegistry
 

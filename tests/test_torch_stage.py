@@ -14,6 +14,7 @@ write in thread order. A merged checkpoint is compared with the
 reference's through ``convert.py``.
 """
 
+import contextlib
 import importlib
 import queue
 import threading
@@ -440,13 +441,14 @@ def _by_window(*sinks):
     return {k: tuple(sorted(v.items())) for k, v in out.items()}
 
 
-def _crash(pkg, ckpt, stage_par, build=_window_job, extra=None, **kw):
+def _crash(pkg, ckpt, stage_par, build=_window_job, extra=None,
+           fail_after=14_000, **kw):
     conf = {"state.checkpoints.dir": ckpt,
             "execution.checkpointing.every-n-source-batches": 5,
             **NO_COMBINE, **(extra or {})}
     env = _env(pkg, stage_par, conf)
     sink = _sink(pkg)
-    build(pkg, env, sink, fail_after=14_000, **kw)
+    build(pkg, env, sink, fail_after=fail_after, **kw)
     with pytest.raises(RuntimeError, match="injected failure"):
         env.execute("crashing")
     return sink
@@ -592,6 +594,17 @@ def _assert_state_equal(a, b, path="state"):
         assert a == b, path
 
 
+def _rows_lost_only(got, want):
+    """The reference's unaligned restore against the clean rows (ROADMAP
+    Queue C item R9): it may lose records of a window that only some
+    subtasks had fired when the barrier overtook, never gain any — every
+    (key, window) is absent or sums to at most the clean value, and no
+    window is new."""
+    assert set(got) <= set(want)
+    for k, row in got.items():
+        assert dict(row)["sum_value"] <= dict(want[k])["sum_value"], k
+
+
 def test_unaligned_checkpoint_restores_rows_once_each(tmp_path):
     """Unaligned barriers overtake queued batches; the overtaken batches
     are channel state and replay on restore. Both packages crash and
@@ -604,6 +617,87 @@ def test_unaligned_checkpoint_restores_rows_once_each(tmp_path):
         crashed = _crash(pkg, ckpt, 4, extra=extra)
         got[pkg] = _by_window(crashed, _restore(pkg, ckpt, 4, extra)[0])
     assert got["port"] == got["ref"] == _clean("ref") == _clean("port")
+
+
+@contextlib.contextmanager
+def _slow_first_channel(pkg, delay=0.02):
+    """Subtask 0's input channel drains ``delay`` s a batch: its backlog
+    fills the channel's credits while the other subtasks keep up, so an
+    unaligned barrier overtakes window-0 batches (and the watermark that
+    closes window 0) on channel 0 only."""
+    spi = mod(pkg, "runtime.shuffle_spi")
+    batch_cls = mod(pkg, "core.records").RecordBatch
+    slow = []
+    init0, get0 = spi._LocalPartition.__init__, spi._Subpartition.get
+
+    def init(self, *a, **k):
+        init0(self, *a, **k)
+        slow.append(self.subpartitions[0])
+
+    def get(self, timeout):
+        item = get0(self, timeout)
+        if self in slow and isinstance(item, batch_cls):
+            time.sleep(delay)
+        return item
+
+    spi._LocalPartition.__init__, spi._Subpartition.get = init, get
+    try:
+        yield
+    finally:
+        spi._LocalPartition.__init__, spi._Subpartition.get = init0, get0
+
+
+def _crash_slow(pkg, ckpt, extra):
+    """A crash after 16 of 20 batches with a checkpoint every 6: the
+    second one cuts the subtasks at different watermarks, window 0 fired
+    on subtasks 1-3 and still open on subtask 0."""
+    with _slow_first_channel(pkg):
+        return _crash(pkg, ckpt, 4, extra={
+            **extra, "execution.checkpointing.every-n-source-batches": 6},
+            fail_after=16_000)
+
+
+def test_unaligned_restore_with_subtasks_at_different_watermarks(tmp_path):
+    """The forced interleaving of Queue C item 17: the port restores each
+    subtask at the least watermark of the checkpoint, so subtask 0's
+    replayed window-0 batches are not late, and the restore gives the
+    reference's clean rows once each. The reference under the same
+    interleaving loses rows only (item R9)."""
+    extra = {"execution.checkpointing.unaligned": True,
+             "shuffle.credits-per-channel": 4}
+    want = _clean("ref")
+    got = {}
+    for pkg in PKGS:
+        ckpt = str(tmp_path / pkg)
+        crashed = _crash_slow(pkg, ckpt, extra)
+        if pkg == "port":
+            # the every-N trigger is exact in the port: batches 6 and 12
+            assert mod(pkg, "checkpoint.storage").CheckpointStorage(
+                ckpt).latest_checkpoint_id() == 2
+        got[pkg] = _by_window(crashed, _restore(pkg, ckpt, 4, extra)[0])
+    assert got["port"] == want
+    _rows_lost_only(got["ref"], want)
+
+
+def test_subtask_watermarks_merge_to_the_least():
+    """The merge under the restore: subtasks cut at different
+    watermarks merge to the least (the reference takes the greatest,
+    item R9); session ids and timestamps keep the greatest."""
+    from flink_tpu.cluster.stage_executor import (
+        merge_subtask_states as jmerge,
+    )
+    from flink_tpu_torch.cluster.stage_executor import merge_subtask_states
+
+    states = [{"watermark": 598, "max_fired_end": -(1 << 62),
+               "max_fired_watermark": 500, "next_sid": 7, "max_ts": 900},
+              {"watermark": 1198, "max_fired_end": 1000,
+               "max_fired_watermark": 1100, "next_sid": 3, "max_ts": 1250}]
+    assert merge_subtask_states(states) == {
+        "watermark": 598, "max_fired_end": -(1 << 62),
+        "max_fired_watermark": 500, "next_sid": 7, "max_ts": 1250}
+    assert jmerge(states)["watermark"] == 1198
+    same = [{"watermark": 5, "max_fired_end": 4}] * 2
+    assert merge_subtask_states(same) == jmerge(same)
 
 
 def _stop_and_resume(pkg, path):

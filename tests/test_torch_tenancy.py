@@ -1151,7 +1151,9 @@ def test_every_tenancy_name_resolves_lookup_router_names_12h():
 
     for name in ten._LAZY:
         assert getattr(ten, name) is not None, name
-    with pytest.raises(NotImplementedError, match="Queue A item 12h"):
-        ten.LookupRouter
+    # item 12h is ported: LookupRouter resolves like the other names
+    from flink_tpu_torch.tenancy.frontend import LookupRouter
+
+    assert ten.LookupRouter is LookupRouter
     with pytest.raises(AttributeError):
         ten.NoSuchName

@@ -5,10 +5,16 @@ the port already behaves as) the job runs and gives the rows it gives
 without the key.
 
 The keys the port has since come to read (``HONOURED``: the stage
-executor, the source pumps and managed device memory) give the
-reference's rows at the values that used to raise, on a window job and a
-process job through both packages (sorted: the stage executor's subtasks
-share one sink; float values compared exactly).
+executor, the source pumps, managed device memory, the autoscaler and
+the two-level exchange) give the reference's rows at the values that
+used to raise, on a window job and a process job through both packages
+(sorted: the stage executor's subtasks share one sink; float values
+compared exactly). Every key the reference reads, the port reads.
+
+The guard: every ``ConfigOption`` key the reference's
+``core/config.py`` declares is declared by the port or named in
+``REFERENCE_KEYS_NEVER_READ`` (the keys the reference declares and never
+reads, each with its reason).
 """
 
 import importlib
@@ -19,7 +25,6 @@ import pytest
 
 import flink_tpu
 import flink_tpu_torch
-from flink_tpu_torch.core.config import UNREAD_KEYS
 
 _ROADMAP = (pathlib.Path(__file__).resolve().parent.parent
             / "ROADMAP.md").read_text()
@@ -56,11 +61,6 @@ def _run(extra, pkg="port"):
     return sink.rows()
 
 
-#: key -> (values that raise, values that run)
-CASES = {
-    "shuffle.hosts": ([1, 2], [0]),
-}
-
 #: keys the port reads now -> (the values that raised before it did, the
 #: values that ran)
 HONOURED = {
@@ -68,6 +68,7 @@ HONOURED = {
     "memory.device.size": ([1 << 30], [0]),
     "execution.pipeline.in-flight-batches": ([1, 2], [0, -1]),
     "execution.stage-parallelism": ([2, 4], [0]),
+    "shuffle.hosts": ([1, 2], [0]),
 }
 
 
@@ -81,26 +82,6 @@ def _item(message: str) -> str:
     assert m, message
     assert f"**Item {m.group(1)} " in _ROADMAP, m.group(1)
     return m.group(1)
-
-
-def test_every_unread_key_has_a_case():
-    assert sorted(o.key for o, *_ in UNREAD_KEYS) == sorted(CASES)
-
-
-@pytest.mark.parametrize("key", sorted(CASES))
-def test_unread_key_raises_naming_its_item(key):
-    for value in CASES[key][0]:
-        with pytest.raises(NotImplementedError) as e:
-            _run({key: value})
-        assert key in str(e.value)
-        _item(str(e.value))
-
-
-@pytest.mark.parametrize("key", sorted(CASES))
-def test_unread_key_at_its_default_runs(key):
-    want = _run({})
-    for value in CASES[key][1]:
-        assert _run({key: value}) == want
 
 
 @pytest.mark.parametrize("family", ["scatter", "fire", "rank"])
@@ -159,22 +140,6 @@ def _process_job(extra, pkg="port"):
     return sink.rows()
 
 
-@pytest.mark.parametrize("key", sorted(CASES))
-def test_unread_keys_raise_for_process_jobs_too(key):
-    """The slice's process functions, TTL'd state and device value state
-    honour no reference key of ``UNREAD_KEYS``: each still raises at
-    ``execute()`` for a process job, and at the values the port behaves
-    as the job runs and gives the rows it gives without the key."""
-    want = _process_job({})
-    assert len(want) == 9  # 3 keys x 3 seconds
-    for value in CASES[key][0]:
-        with pytest.raises(NotImplementedError) as e:
-            _process_job({key: value})
-        _item(str(e.value))
-    for value in CASES[key][1]:
-        assert _process_job({key: value}) == want
-
-
 @pytest.mark.parametrize("key", sorted(HONOURED))
 def test_honoured_key_gives_the_references_window_rows(key):
     """A key that used to raise (ROADMAP items 12a/12b/12g) runs at those
@@ -200,3 +165,38 @@ def test_honoured_key_at_the_values_that_ran_is_unchanged(key):
         assert _run({key: value}) == want
         assert _sorted(_process_job({key: value})) == \
             _sorted(_process_job({}))
+
+
+def _declared_keys(module):
+    """Every ``ConfigOption`` key a package's ``core/config.py``
+    declares."""
+    out = set()
+    for cls in vars(module).values():
+        if isinstance(cls, type):
+            for v in vars(cls).values():
+                if isinstance(v, module.ConfigOption):
+                    out.add(v.key)
+    return out
+
+
+def test_every_reference_key_is_declared_or_never_read():
+    import flink_tpu.core.config as jconfig
+    import flink_tpu_torch.core.config as tconfig
+
+    port_keys = _declared_keys(tconfig)
+    never = tconfig.REFERENCE_KEYS_NEVER_READ
+    missing = sorted(k for k in _declared_keys(jconfig)
+                     if k not in port_keys and k not in never)
+    assert not missing, missing
+    assert "execution.checkpointing.retained" in port_keys
+
+
+def test_never_read_keys_are_reference_keys_the_port_leaves_out():
+    """Each key of ``REFERENCE_KEYS_NEVER_READ`` is declared by the
+    reference, not by the port, and carries its reason."""
+    import flink_tpu.core.config as jconfig
+    import flink_tpu_torch.core.config as tconfig
+
+    never = tconfig.REFERENCE_KEYS_NEVER_READ
+    assert set(never) <= _declared_keys(jconfig) - _declared_keys(tconfig)
+    assert all(isinstance(r, str) and r for r in never.values())
