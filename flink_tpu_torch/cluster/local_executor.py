@@ -58,7 +58,8 @@ Source pumps: with ``execution.pipeline.in-flight-batches`` > 0 (default
 2) each source is polled and timestamped by a thread of its own, a
 bounded queue of that many batches ahead of the loop; each entry carries
 the position after its batch, so a checkpoint cut covers exactly the
-consumed prefix.
+consumed prefix, and the flight recorder's clock at its put, so its time
+in the queue is a ``source.queue`` wait record when the loop takes it.
 
 Observability: every job builds a ``MetricRegistry`` and a
 ``TraceCollector`` (``result.registry``, ``result.traces``): per operator
@@ -129,7 +130,7 @@ from flink_tpu_torch.runtime.watermarks import WatermarkValve
 class _Node:
     __slots__ = ("transformation", "operator", "valve", "children",
                  "child_input_idx", "records_in", "records_out", "held_wm",
-                 "busy_s", "marker_hist")
+                 "busy_s", "marker_hist", "flight_op")
 
     def __init__(self, transformation: Transformation,
                  operator: Optional[Operator]):
@@ -146,6 +147,9 @@ class _Node:
         self.busy_s = 0.0
         #: the operator's latency-marker histogram
         self.marker_hist = None
+        #: the flight recorder's id of ``<name>#<uid>`` (its metric scope)
+        self.flight_op = flight.intern(
+            f"{transformation.name}#{transformation.uid}")
 
 
 class JobCancelledError(RuntimeError):
@@ -241,6 +245,15 @@ class SavepointRequest(_ControlRequest):
         return self.result
 
 
+class _StampedQueue(queue.Queue):
+    """A queue whose entries gain the flight recorder's clock at the
+    moment they enter it (``Queue._put`` runs under the queue's lock,
+    once there is room)."""
+
+    def _put(self, item) -> None:
+        self.queue.append((*item, flight.clock()))
+
+
 class _SourcePump:
     """Bounded-prefetch source reader: a thread that polls one source,
     assigns timestamps and watermarks, and hands (batch, watermark,
@@ -262,7 +275,7 @@ class _SourcePump:
     def __init__(self, transformation, batch_size: int, in_flight: int):
         self.t = transformation
         self.batch_size = batch_size
-        self.queue: "queue.Queue" = queue.Queue(maxsize=max(in_flight, 1))
+        self.queue: "queue.Queue" = _StampedQueue(maxsize=max(in_flight, 1))
         self.wm_gen = transformation.watermark_strategy.create()
         self._stop = threading.Event()    # stop reading new batches
         self._abort = threading.Event()   # discard mode: puts give up
@@ -310,12 +323,18 @@ class _SourcePump:
             self._put((self._EOS, None, None))
 
     def poll(self, timeout: float = 0.0):
-        """One queue entry or None. Raises the pump's error, if any."""
+        """One queue entry ``(batch, wm, pos, put_at)`` or None. Raises
+        the pump's error, if any. A poll that may block is a
+        ``source.wait`` span."""
         try:
-            entry = self.queue.get(timeout=timeout) if timeout \
-                else self.queue.get_nowait()
+            if timeout:
+                with flight.span("source.wait"):
+                    entry = self.queue.get(timeout=timeout)
+            else:
+                entry = self.queue.get_nowait()
         except queue.Empty:
             return None
+        flight.waited("source.queue", entry[3])
         if entry[0] is self._EOS and self.error is not None:
             raise self.error
         return entry
@@ -330,9 +349,11 @@ class _SourcePump:
         thread has exited and the queue is empty."""
         while self._thread.is_alive() or not self.queue.empty():
             try:
-                yield self.queue.get(timeout=0.05)
+                entry = self.queue.get(timeout=0.05)
             except queue.Empty:
                 continue
+            flight.waited("source.queue", entry[3])
+            yield entry
 
     def stop(self) -> None:
         """Hard stop: discard prefetched entries (no-drain paths — the
@@ -643,7 +664,7 @@ class LocalExecutor:
                             timeout=0.002 if not progressed else 0.0)
                         if entry is None:
                             continue
-                        batch, wm, pos = entry
+                        batch, wm, pos, _ = entry
                         if batch is _SourcePump._EOS:
                             active.discard(t.uid)
                             if pos is not None:
@@ -1014,7 +1035,8 @@ class LocalExecutor:
                         pump = pumps.get(t.uid)
                         if pump is not None:
                             pump.stop_filling()
-                            for batch, _wm, pos in pump.consume_remaining():
+                            for batch, _wm, pos, _ in \
+                                    pump.consume_remaining():
                                 if pos is not None:
                                     source_positions[t.uid] = pos
                                 if batch is not _SourcePump._EOS:
@@ -1264,7 +1286,7 @@ class LocalExecutor:
                           job=getattr(self, "_chaos_job", None))
         node.records_in += len(batch)
         t0 = time.perf_counter()
-        with flight.span("op.process"):
+        with flight.span("op.process", op=node.flight_op):
             outs = node.operator.process_batch(batch, input_idx)
         node.busy_s += time.perf_counter() - t0
         if node.marker_hist is not None:
@@ -1278,7 +1300,8 @@ class LocalExecutor:
         if advanced is None:
             return
         t0 = time.perf_counter()
-        with flight.span("op.watermark", watermark=int(advanced)):
+        with flight.span("op.watermark", watermark=int(advanced),
+                         op=node.flight_op):
             outs = node.operator.process_watermark(advanced)
         node.busy_s += time.perf_counter() - t0
         for out in outs:
@@ -1318,7 +1341,4 @@ class LocalExecutor:
     def _forward(self, node: _Node, batch) -> None:
         node.records_out += len(batch.batch if isinstance(batch, TaggedBatch)
                                 else batch)
-        # an instant: the push below recurses through the whole subtree,
-        # whose time the operators' own spans hold
-        flight.instant("emit")
         self._emit_batch(node, batch)

@@ -17,29 +17,36 @@ transfer hook). ROADMAP Queue A item 12h records why it stays unported;
 its names raise ``NotImplementedError`` citing that note.
 """
 
-#: Canonical span-kind inventory — the reference's tuple, whole. The
-#: flight recorder raises on an unregistered kind, and the exporters'
-#: category mapping derives from this tuple. ``xla.compile`` and
-#: ``d2h.transfer`` stay listed but the port never records them (see
-#: ``flight_recorder``'s docstring).
+#: Canonical span-kind inventory. The flight recorder raises on an
+#: unregistered kind, and the exporters' category mapping derives from
+#: this tuple. Against the reference's tuple: the ingest and fire
+#: splits (``prep.route``, ``prep.slots``), the task loop's source wait
+#: and the two wait records (``source.wait``, ``source.queue``,
+#: ``fire.pending``) are added; ``emit`` (read by nothing) and the
+#: JAX-only probes ``xla.compile`` and ``d2h.transfer`` are not here.
 KNOWN_SPAN_KINDS = (
     # per-batch lifecycle (the engines' ingest -> emit pipeline)
     "batch.ingest",        # one engine process_batch (host prep + dispatch)
+    "prep.route",          # slice assignment, live mask, key-group route,
+                           # the records grouped by shard
+    "prep.slots",          # one shard's slot lookup/insert and its marks
     "prep.meta_sweep",     # session-metadata absorb (native C or Python)
     "prep.stage",          # shuffle staging / bucketing into [P, B] blocks
-    "device.dispatch",     # inline device interactions on the ingest path
+    "device.dispatch",     # inline device interactions (H2D + launch)
     "device.fence_wait",   # host blocked on dispatch-ahead fences
     "exchange.stage1",     # two-level exchange: intra-host (ICI) route
     "exchange.stage2",     # two-level exchange: cross-host (DCN) hop +
                            # the stream-order scatter
     "fire.dispatch",       # watermark advance -> fire programs enqueued
     "fire.shard",          # one shard's fire-path host work (resolve,
-                           # cold page extraction) — the per-shard track
+                           # slice frees, cold page extraction) — the
+                           # per-shard track
+    "fire.pending",        # wait record: a fire's dispatch -> its harvest
     "fire.harvest",        # D2H materialization of fire/query results
     "op.process",          # executor: one operator's process_batch
     "op.watermark",        # executor: one operator's process_watermark
-    "emit",                # executor: one output left its operator
-                           # (instant — durations belong to op.process)
+    "source.wait",         # executor: the task loop blocked on a pump
+    "source.queue",        # wait record: a pump's put -> the loop's take
     # control plane
     "checkpoint.write",
     "checkpoint.restore",
@@ -52,11 +59,16 @@ KNOWN_SPAN_KINDS = (
                            # touching the device (instant; batch field
                            # carries the generation the hits were tagged)
     # instants correlated into the same timeline
-    "xla.compile",         # real XLA backend compile (jax.monitoring)
-    "d2h.transfer",        # device->host materialization (__array__)
     "watchdog.miss",       # a deadline-tracked section ran past budget
     "chaos.inject",        # an armed fault plan fired at a fault point
 )
+
+#: the kinds whose spans hold their thread CPU seconds (``cpu_s``). A read
+#: of the thread CPU clock is a system call: 30-70 us inside a job on the
+#: card's host (its tail to 10 ms), where it steps in 10 ms ticks. So only
+#: the engines' whole-batch ingest span reads it, at most once in
+#: ``flight_recorder.CPU_EVERY_S`` a thread.
+CPU_TIMED_KINDS = frozenset({"batch.ingest"})
 
 from flink_tpu_torch.observe.flight_recorder import (  # noqa: E402,F401
     FlightRecorder,

@@ -10,8 +10,9 @@ Perfetto timeline can never disagree about where the time went:
   event JSON format (load the file at https://ui.perfetto.dev or
   chrome://tracing). One *pid* per job, one *tid* per shard (shard -1
   lands on the per-thread "host" track), durations as complete
-  (``ph=X``) events, compiles/misses/injections as instants on the
-  same clock.
+  (``ph=X``) events carrying their operator and, where read, their
+  thread CPU time, wait records as complete events on a track per
+  kind, misses and injections as instants on the same clock.
 - :func:`register_flight_metrics` — per-span-kind duration aggregates
   (count / total ms / p50 / p99) as gauges on a ``flight`` metric
   group, rendered by the existing PrometheusReporter.
@@ -62,7 +63,13 @@ def chrome_trace(records: List[SpanRecord],
     seen_tids = {}
     for r in records:
         pid = jobs.setdefault(r.job, len(jobs) + 1)
-        if r.shard >= 0:
+        if r.waited:
+            # a wait overlaps the work of the threads around it: its
+            # own track per kind, so no span nests under it
+            tid = host_tids.setdefault(
+                "wait:" + r.kind, HOST_TID_BASE + len(host_tids))
+            seen_tids[(pid, tid)] = "wait:" + r.kind
+        elif r.shard >= 0:
             tid = r.shard + 1
             seen_tids[(pid, tid)] = f"shard-{r.shard}"
         else:
@@ -78,6 +85,8 @@ def chrome_trace(records: List[SpanRecord],
             args["watermark"] = r.watermark
         if r.shard >= 0:
             args["shard"] = r.shard
+        if r.op is not None:
+            args["op"] = r.op
         ev: Dict[str, Any] = {
             "name": r.kind,
             "cat": r.kind.split(".", 1)[0],
@@ -86,12 +95,14 @@ def chrome_trace(records: List[SpanRecord],
             "ts": round((r.t0 - base) * 1e6, 3),
             "args": args,
         }
-        if r.instant:
+        if r.instant and not r.waited:
             ev["ph"] = "i"
             ev["s"] = "t"  # thread-scoped instant marker
         else:
             ev["ph"] = "X"
             ev["dur"] = round((r.t1 - r.t0) * 1e6, 3)
+            if r.cpu_s:
+                args["cpu_ms"] = round(r.cpu_s * 1e3, 3)
         events.append(ev)
     for job, pid in jobs.items():
         events.append({"ph": "M", "pid": pid, "tid": 0,
@@ -141,71 +152,6 @@ def validate_trace_schema(trace: Dict[str, Any],
         if ph == "X" and ev.get("dur", 0) < 0:
             problems.append(f"negative duration on {name!r}")
     return problems
-
-
-def span_rollup(kind_totals: Dict[str, Dict[str, float]],
-                wall_s: float,
-                buckets: Dict[str, Any]) -> Dict[str, float]:
-    """Sum per-kind span totals into named wall-time buckets — THE
-    bench drivers' rollup primitive. ``buckets`` maps an output field
-    to one span kind or a sequence of kinds; absent kinds contribute
-    0.0 (a driver may name kinds its engine doesn't emit yet). Always
-    appends ``total_s`` (the measured wall clock) so every driver's
-    breakdown dict carries the same denominator. Buckets may overlap
-    (a kind can appear in several) and are not guaranteed to sum to
-    ``total_s`` — they attribute, they don't partition."""
-
-    def total(kind: str) -> float:
-        return kind_totals.get(kind, {}).get("total_s", 0.0)
-
-    out: Dict[str, float] = {}
-    for name, kinds in buckets.items():
-        if isinstance(kinds, str):
-            kinds = (kinds,)
-        out[name] = round(sum(total(k) for k in kinds), 3)
-    out["total_s"] = round(wall_s, 3)
-    return out
-
-
-def breakdown_from_kind_totals(kind_totals: Dict[str, Dict[str, float]],
-                               wall_s: float) -> Dict[str, float]:
-    """The canonical host-prep / device / harvest wall-time breakdown,
-    derived from flight-recorder span aggregates — the bench drivers
-    report THIS dict, so their gates and a captured trace read the same
-    numbers from the same spans by construction.
-
-    ``host_prep_s`` approximates genuine host work on the ingest path:
-    ``batch.ingest`` total minus ALL inline device interactions
-    (``device.dispatch``) and fence blocks (``device.fence_wait``).
-    The subtraction uses the process totals, and some device spans
-    open on the FIRE path (cold-page reloads, eviction gathers), so
-    host prep can be slightly UNDER-stated at spill-heavy shapes —
-    the same approximation the pre-recorder engine counters
-    (``device_inline_s`` accumulated on both paths, subtracted from
-    an ingest-only timer) made, so gate budgets calibrated against
-    them carry over unchanged. ``device_step_s`` is the device spans
-    plus the fire dispatches; ``harvest_s`` is ALL D2H
-    materializations (``fire.harvest``), including ones nested inside
-    device interactions or synchronous fires — buckets may overlap
-    and are not guaranteed to sum to ``total_s``."""
-
-    def total(kind: str) -> float:
-        return kind_totals.get(kind, {}).get("total_s", 0.0)
-
-    host_prep = max(total("batch.ingest") - total("device.dispatch")
-                    - total("device.fence_wait"), 0.0)
-    out = {"host_prep_s": round(host_prep, 3)}
-    out.update(span_rollup(kind_totals, wall_s, {
-        "meta_sweep_s": "prep.meta_sweep",
-        "stage_s": "prep.stage",
-        "device_step_s": ("fire.dispatch", "device.dispatch",
-                          "device.fence_wait"),
-        "harvest_s": "fire.harvest",
-        "device_in_prep_s": ("device.dispatch", "device.fence_wait"),
-    }))
-    out["host_prep_fraction"] = round(host_prep / wall_s, 4) \
-        if wall_s > 0 else 0.0
-    return out
 
 
 def register_flight_metrics(group,

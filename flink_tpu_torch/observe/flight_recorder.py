@@ -3,7 +3,7 @@ always-on, bounded-overhead per-batch pipeline tracing.
 
 A process-global recorder the hot paths write into unconditionally,
 cheap enough to leave on. Its cost on the card is measured by phase
-22(e) of ``chip_smoke.py``.
+22(e) of ``chip_smoke.py`` and in ``PERF.md``.
 
 Design constraints, in order:
 
@@ -12,30 +12,46 @@ Design constraints, in order:
   a reusable stack of span context managers — recording one span is a
   handful of scalar stores, no objects, no locks (per-thread rings;
   the registry lock is taken once per thread lifetime).
-- **Monotonic clock.** Spans time with ``time.perf_counter``; one
-  ``(wall, perf)`` anchor pair taken at recorder creation maps records
-  onto the wall clock for export.
+- **One clock.** Every record's ``t0`` and ``t1`` are
+  ``time.perf_counter`` seconds (:func:`clock`), the clock another
+  thread stamps a wait record's start with; one ``(wall, perf)`` anchor
+  pair taken at recorder creation maps records onto the wall clock for
+  export.
 - **Correlated attribution.** Every record carries ``(job, shard,
   batch_id, watermark)``. Call sites pass what they know; the rest is
   inherited from an ambient per-thread context (``set_job`` /
   ``set_batch`` / ``set_watermark``) so the executor names the job
   once, the engine names the batch once, and a harvest three layers
-  down still lands attributed.
-- **One timeline.** Durations (batch lifecycle, fires, harvests,
-  checkpoints) and instants (watchdog deadline misses, armed chaos
-  injections) interleave in the same ring.
+  down still lands attributed. The executor's operator spans also
+  carry the operator (``op``: the node's ``<name>#<uid>``, its metric
+  scope), interned once per node like the job (:func:`intern`).
+- **One timeline.** Three forms of record interleave in the same ring:
+
+  - *spans* (:func:`span`): a thread's work, ``[enter, exit]``. A span
+    of a kind in :data:`~flink_tpu_torch.observe.CPU_TIMED_KINDS` also
+    holds the thread CPU seconds spent inside (``cpu_s``, from
+    ``time.thread_time``): wall minus CPU is the time the thread was not
+    running (waiting on the GIL, a lock, the device, or descheduled).
+    The thread CPU clock is a system call, on some hosts a dear one with
+    a long tail, so a thread reads it for at most one span in
+    :data:`CPU_EVERY_S` seconds; ``cpu_s`` is None where it was not
+    read (other kinds, spans between readings, and
+    ``instant(..., duration_s=d)``, an externally timed span).
+  - *instants* (:func:`instant`): watchdog deadline misses, armed chaos
+    injections; ``instant`` is true, no duration.
+  - *wait records* (:func:`waited`): an interval in which no thread
+    worked on the thing the kind names — a source batch between the
+    pump's put and the task loop's take (``source.queue``), a
+    dispatched fire between its dispatch and its harvest
+    (``fire.pending``). Their start may be stamped on another thread
+    (with :func:`clock`). They read ``instant=True`` and
+    ``waited=True``, so readers that skip instants (they attribute a
+    thread's time to its innermost span) skip them, and they count in
+    :meth:`FlightRecorder.kind_totals`' durations and quantiles like
+    spans; their ``cpu_s`` is 0, as an instant's.
 
 Span kinds are a closed registry (:data:`flink_tpu_torch.observe.
-KNOWN_SPAN_KINDS`, the reference's tuple whole): an unregistered kind
-raises at the call site.
-
-Two of those kinds are never recorded by the port: ``xla.compile`` and
-``d2h.transfer``. The reference records them from ``jax.monitoring``'s
-backend-compile events and a hook on ``ArrayImpl.__array__``
-(``install_probes``). The port's device programs are eager torch ops and
-hand-written kernels that are built once per process, and torch has no
-hook on a device-to-host copy, so there is neither a compile to count
-nor a transfer to hook; ``install_probes`` has no counterpart.
+KNOWN_SPAN_KINDS`): an unregistered kind raises at the call site.
 
 Usage::
 
@@ -45,6 +61,8 @@ Usage::
     with flight.span("batch.ingest", shard=-1, batch=seq):
         ...
     flight.instant("watchdog.miss", shard=3)
+    put_at = flight.clock()          # on the producing thread
+    flight.waited("source.queue", put_at)   # on the consuming one
 
 Disable with ``FLINK_TPU_FLIGHT_RECORDER=0`` (read at import; spans
 become no-ops that cost one module-global check), or per-region with
@@ -64,6 +82,20 @@ import numpy as np
 #: a plausible timestamp; this is unmistakably absent)
 WM_NONE = -(1 << 62)
 
+#: the recorder's one clock (seconds): every record's t0 and t1
+clock = time.perf_counter
+_cpu_clock = time.thread_time
+#: a thread reads its CPU clock for at most one CPU-timed span a period
+#: (s): all of a host-bound batch's, about one in ten of a 2 ms one
+CPU_EVERY_S = 0.05
+_NO_CPU = float("nan")
+
+#: record flags: a span is 0; an instant sets INSTANT; a wait record
+#: sets INSTANT and WAITED (readers that skip instants skip it)
+INSTANT = 1
+WAITED = 2
+_WAIT_FLAGS = INSTANT | WAITED
+
 #: per-thread ring capacity (records); power of two so the drop-oldest
 #: wraparound is a mask, not a modulo
 _CAPACITY = 1 << int(os.environ.get(
@@ -79,7 +111,7 @@ class SpanRecord(NamedTuple):
     """One decoded record (``snapshot()`` output)."""
 
     kind: str
-    instant: bool
+    instant: bool      # true for instants and wait records
     t0: float          # perf_counter seconds
     t1: float
     job: Optional[str]
@@ -87,6 +119,9 @@ class SpanRecord(NamedTuple):
     batch_id: int
     watermark: Optional[int]
     thread: str
+    op: Optional[str] = None     # the operator, ``<name>#<uid>``
+    cpu_s: Optional[float] = None  # thread CPU seconds (None: not read)
+    waited: bool = False         # a wait record
 
     @property
     def duration_s(self) -> float:
@@ -98,19 +133,28 @@ class _SpanCtx:
     span allocates nothing once the pool is warm)."""
 
     __slots__ = ("_ring", "_kind", "_shard", "_batch", "_wm", "_job",
-                 "_t0")
+                 "_op", "_cpu", "_t0", "_c0")
 
     def __init__(self, ring: "_ThreadRing") -> None:
         self._ring = ring
 
     def __enter__(self) -> "_SpanCtx":
-        self._t0 = time.perf_counter()
+        # the CPU interval lies inside the wall one
+        self._t0 = t0 = clock()
+        if self._cpu:
+            ring = self._ring
+            if t0 >= ring.cpu_next:
+                ring.cpu_next = t0 + CPU_EVERY_S
+                self._c0 = _cpu_clock()
+            else:
+                self._cpu = False
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        cpu = _cpu_clock() - self._c0 if self._cpu else _NO_CPU
         r = self._ring
-        r.write(self._kind, 0, self._t0, time.perf_counter(),
-                self._job, self._shard, self._batch, self._wm)
+        r.write(self._kind, 0, self._t0, clock(), self._job, self._shard,
+                self._batch, self._wm, self._op, cpu)
         r.pool.append(self)
 
 
@@ -143,7 +187,9 @@ class _ThreadRing:
         self.flags = np.zeros(cap, dtype=np.int8)
         self.t0 = np.zeros(cap, dtype=np.float64)
         self.t1 = np.zeros(cap, dtype=np.float64)
+        self.cpu = np.zeros(cap, dtype=np.float64)
         self.job = np.full(cap, -1, dtype=np.int32)
+        self.op = np.full(cap, -1, dtype=np.int32)
         self.shard = np.full(cap, -1, dtype=np.int32)
         self.batch = np.full(cap, -1, dtype=np.int64)
         self.wm = np.full(cap, WM_NONE, dtype=np.int64)
@@ -157,25 +203,31 @@ class _ThreadRing:
         self.ctx_job = -1
         self.ctx_batch = -1
         self.ctx_wm = WM_NONE
+        #: the recorder's clock at which the thread next reads its CPU
+        #: clock for a span
+        self.cpu_next = 0.0
         self.pool: List[_SpanCtx] = [_SpanCtx(self) for _ in range(8)]
 
     def write(self, kind_id: int, flags: int, t0: float, t1: float,
-              job: int, shard: int, batch: int, wm: int) -> None:
+              job: int, shard: int, batch: int, wm: int, op: int = -1,
+              cpu: float = _NO_CPU) -> None:
         i = self.cursor & self.mask
         self.cursor += 1
         self.kind[i] = kind_id
         self.flags[i] = flags
         self.t0[i] = t0
         self.t1[i] = t1
+        self.cpu[i] = cpu
         self.job[i] = job
+        self.op[i] = op
         self.shard[i] = shard
         self.batch[i] = batch
         self.wm[i] = wm
         # counts aggregate for EVERY record (an operator reading
         # flight.chaos_inject_count must see armed injections);
-        # durations only for spans — instants' quantiles stay 0
+        # durations for spans and wait records — instants' stay 0
         self.k_count[kind_id] += 1
-        if not flags:
+        if flags != INSTANT:
             d = t1 - t0
             self.k_total[kind_id] += d
             if d > self.k_max[kind_id]:
@@ -186,21 +238,25 @@ class _ThreadRing:
 
 class FlightRecorder:
     """The process-global span plane (see module docstring). Normally
-    used through the module-level :func:`span` / :func:`instant`;
-    constructing private instances is for tests."""
+    used through the module-level :func:`span` / :func:`instant` /
+    :func:`waited`; constructing private instances is for tests."""
 
-    def __init__(self, kinds) -> None:
+    def __init__(self, kinds, cpu_kinds=()) -> None:
         self.kinds = tuple(kinds)
         self._kind_id = {k: i for i, k in enumerate(self.kinds)}
         if len(self._kind_id) != len(self.kinds):
             raise ValueError("duplicate span kinds")
+        #: per kind id: its spans read the thread CPU clock
+        self._cpu_kind = tuple(k in cpu_kinds for k in self.kinds)
         self._lock = threading.Lock()
         self._rings: List[_ThreadRing] = []
         self._tl = threading.local()
-        self._jobs: List[str] = []
-        self._job_id: Dict[str, int] = {}
-        #: (wall, perf) anchor: wall = anchor[0] + (t - anchor[1])
-        self.anchor = (time.time(), time.perf_counter())
+        #: interned names (jobs and operators share the table)
+        self._names: List[str] = []
+        self._name_id: Dict[str, int] = {}
+        #: (wall, perf) anchor for export only: wall = anchor[0] +
+        #: (t - anchor[1])
+        self.anchor = (time.time(), clock())
 
     # ------------------------------------------------------------ hot path
 
@@ -215,63 +271,93 @@ class FlightRecorder:
         return ring
 
     def span(self, kind: str, shard: int = -1, batch: int = -1,
-             watermark: int = WM_NONE, job: Optional[str] = None):
-        """Context manager timing one lifecycle section. Unspecified
-        attribution falls back to the thread's ambient context."""
+             watermark: int = WM_NONE, job: Optional[str] = None,
+             op: int = -1):
+        """Context manager timing one lifecycle section (wall, and thread
+        CPU for the recorder's CPU-timed kinds). Unspecified attribution
+        falls back to the thread's ambient context; ``op`` is an
+        :meth:`intern` id."""
         if not _enabled:
             return _NULL_SPAN
         ring = self._ring()
         pool = ring.pool
         ctx = pool.pop() if pool else _SpanCtx(ring)
-        ctx._kind = self._kind_id[kind]
+        ctx._kind = kid = self._kind_id[kind]
+        ctx._cpu = self._cpu_kind[kid]
         ctx._shard = shard
         ctx._batch = batch if batch >= 0 else ring.ctx_batch
         ctx._wm = watermark if watermark != WM_NONE else ring.ctx_wm
-        ctx._job = self.job_id(job) if job is not None else ring.ctx_job
+        ctx._job = self.intern(job) if job is not None else ring.ctx_job
+        ctx._op = op
         return ctx
 
     def instant(self, kind: str, shard: int = -1, batch: int = -1,
                 watermark: int = WM_NONE, job: Optional[str] = None,
                 t0: Optional[float] = None,
                 duration_s: float = 0.0) -> None:
-        """Record an instant event (or a short externally-timed span,
-        e.g. an XLA compile whose duration arrives via monitoring:
+        """Record an instant event (or a short externally-timed span:
         pass ``duration_s`` and it lands as ``[now - d, now]``)."""
         if not _enabled:
             return
         ring = self._ring()
-        now = time.perf_counter() if t0 is None else t0
+        now = clock() if t0 is None else t0
+        timed = duration_s > 0.0
         ring.write(
-            self._kind_id[kind], 0 if duration_s > 0.0 else 1,
+            self._kind_id[kind], 0 if timed else INSTANT,
             now - duration_s, now,
-            self.job_id(job) if job is not None else ring.ctx_job,
+            self.intern(job) if job is not None else ring.ctx_job,
             shard,
             batch if batch >= 0 else ring.ctx_batch,
-            watermark if watermark != WM_NONE else ring.ctx_wm)
+            watermark if watermark != WM_NONE else ring.ctx_wm,
+            cpu=_NO_CPU if timed else 0.0)
+
+    def waited(self, kind: str, t0: float, t1: Optional[float] = None,
+               shard: int = -1, batch: int = -1,
+               watermark: int = WM_NONE, job: Optional[str] = None) -> None:
+        """Record a wait record ``[t0, t1]`` (``t1`` now by default):
+        time in which the thing ``kind`` names waited and no thread
+        worked on it. ``t0`` is from :func:`clock`, stamped on any
+        thread."""
+        if not _enabled:
+            return
+        ring = self._ring()
+        ring.write(
+            self._kind_id[kind], _WAIT_FLAGS, t0,
+            clock() if t1 is None else t1,
+            self.intern(job) if job is not None else ring.ctx_job,
+            shard,
+            batch if batch >= 0 else ring.ctx_batch,
+            watermark if watermark != WM_NONE else ring.ctx_wm, cpu=0.0)
 
     # ------------------------------------------------------ ambient context
 
-    def job_id(self, name: str) -> int:
-        # a double-checked fast path on the per-span hot path: entries are insert-only and the
+    def intern(self, name: str) -> int:
+        """The id of a job or operator name (the same name, the same
+        id). Callers on a hot path intern once and keep the id."""
+        # a double-checked fast path: entries are insert-only and the
         # slow path re-checks under the lock before assigning
-        jid = self._job_id.get(name)
-        if jid is None:
+        nid = self._name_id.get(name)
+        if nid is None:
             with self._lock:
-                jid = self._job_id.get(name)
-                if jid is None:
-                    jid = len(self._jobs)
-                    self._jobs.append(name)
-                    self._job_id[name] = jid
-        return jid
+                nid = self._name_id.get(name)
+                if nid is None:
+                    nid = len(self._names)
+                    self._names.append(name)
+                    self._name_id[name] = nid
+        return nid
 
     def set_job(self, name: Optional[str]) -> None:
-        self._ring().ctx_job = -1 if name is None else self.job_id(name)
+        self._ring().ctx_job = -1 if name is None else self.intern(name)
 
     def set_batch(self, batch_id: int) -> None:
         self._ring().ctx_batch = int(batch_id)
 
     def set_watermark(self, wm: int) -> None:
         self._ring().ctx_wm = int(wm)
+
+    def watermark(self) -> int:
+        """The thread's ambient watermark (``WM_NONE`` when unset)."""
+        return self._ring().ctx_wm
 
     # ------------------------------------------------------------- reading
 
@@ -287,23 +373,28 @@ class FlightRecorder:
         the sort restores global time order)."""
         out: List[SpanRecord] = []
         with self._lock:
-            jobs = list(self._jobs)
+            names = list(self._names)
+
+        def name(i: int) -> Optional[str]:
+            return names[i] if 0 <= i < len(names) else None
+
         for ring in self._iter_rings():
             n = min(ring.cursor, ring.mask + 1)
             if n == 0:
                 continue
-            for i in range(n):
-                jid = int(ring.job[i])
-                wm = int(ring.wm[i])
+            cols = zip(*(a[:n].tolist() for a in (
+                ring.kind, ring.flags, ring.t0, ring.t1, ring.job,
+                ring.shard, ring.batch, ring.wm, ring.op, ring.cpu)))
+            for kind, flags, t0, t1, jid, shard, batch, wm, oid, cpu in cols:
                 out.append(SpanRecord(
-                    kind=self.kinds[int(ring.kind[i])],
-                    instant=bool(ring.flags[i]),
-                    t0=float(ring.t0[i]), t1=float(ring.t1[i]),
-                    job=jobs[jid] if 0 <= jid < len(jobs) else None,
-                    shard=int(ring.shard[i]),
-                    batch_id=int(ring.batch[i]),
+                    kind=self.kinds[kind],
+                    instant=bool(flags & INSTANT),
+                    t0=t0, t1=t1, job=name(jid), shard=shard,
+                    batch_id=batch,
                     watermark=None if wm == WM_NONE else wm,
-                    thread=ring.name))
+                    thread=ring.name, op=name(oid),
+                    cpu_s=None if cpu != cpu else cpu,
+                    waited=bool(flags & WAITED)))
         out.sort(key=lambda r: r.t0)
         return out
 
@@ -315,9 +406,10 @@ class FlightRecorder:
     def kind_totals(self) -> Dict[str, Dict[str, float]]:
         """Per-kind aggregates merged across threads: ``{kind: {count,
         total_s, max_s, p50_ms, p99_ms}}`` (quantiles over the bounded
-        recent-window reservoirs; instants contribute counts only).
-        Memoized on the rings' cursors: a metrics scrape reading many
-        gauges pays ONE merge, not one per gauge."""
+        recent-window reservoirs; spans and wait records contribute
+        durations, instants counts only). Memoized on the rings'
+        cursors: a metrics scrape reading many gauges pays ONE merge,
+        not one per gauge."""
         from flink_tpu_torch.metrics.core import quantile_sorted
 
         version = tuple(r.cursor for r in self._iter_rings())
@@ -354,12 +446,13 @@ class FlightRecorder:
 
     def clear(self) -> None:
         """Reset every ring and aggregate (keeps thread registrations
-        and job interning — cheap, called between bench reps)."""
+        and name interning — cheap, called between bench reps)."""
         # cursors reset below, and a later refill can land on the same
         # cursor tuple a cached merge was keyed on — drop it explicitly
         self._kt_cache = None
         for ring in self._iter_rings():
             ring.cursor = 0
+            ring.cpu_next = 0.0
             ring.k_count[:] = 0
             ring.k_total[:] = 0.0
             ring.k_max[:] = 0.0
@@ -380,18 +473,23 @@ def recorder() -> FlightRecorder:
     if _recorder is None:
         with _recorder_lock:
             if _recorder is None:
-                from flink_tpu_torch.observe import KNOWN_SPAN_KINDS
+                from flink_tpu_torch.observe import (
+                    CPU_TIMED_KINDS,
+                    KNOWN_SPAN_KINDS,
+                )
 
-                _recorder = FlightRecorder(KNOWN_SPAN_KINDS)
+                _recorder = FlightRecorder(KNOWN_SPAN_KINDS,
+                                           CPU_TIMED_KINDS)
     return _recorder
 
 
 def span(kind: str, shard: int = -1, batch: int = -1,
-         watermark: int = WM_NONE, job: Optional[str] = None):
+         watermark: int = WM_NONE, job: Optional[str] = None,
+         op: int = -1):
     if not _enabled:
         return _NULL_SPAN
     return recorder().span(kind, shard=shard, batch=batch,
-                           watermark=watermark, job=job)
+                           watermark=watermark, job=job, op=op)
 
 
 def instant(kind: str, shard: int = -1, batch: int = -1,
@@ -402,6 +500,20 @@ def instant(kind: str, shard: int = -1, batch: int = -1,
     recorder().instant(kind, shard=shard, batch=batch,
                        watermark=watermark, job=job, t0=t0,
                        duration_s=duration_s)
+
+
+def waited(kind: str, t0: float, t1: Optional[float] = None,
+           shard: int = -1, batch: int = -1, watermark: int = WM_NONE,
+           job: Optional[str] = None) -> None:
+    if not _enabled:
+        return
+    recorder().waited(kind, t0, t1, shard=shard, batch=batch,
+                      watermark=watermark, job=job)
+
+
+def intern(name: str) -> int:
+    """The recorder's id of an operator (or job) name, -1 when off."""
+    return recorder().intern(name) if _enabled else -1
 
 
 def set_job(name: Optional[str]) -> None:
@@ -417,6 +529,12 @@ def set_batch(batch_id: int) -> None:
 def set_watermark(wm: int) -> None:
     if _enabled:
         recorder().set_watermark(wm)
+
+
+def current_watermark() -> int:
+    """The thread's ambient watermark: that of the fire being
+    dispatched inside :func:`fire_span` (``WM_NONE`` when off)."""
+    return recorder().watermark() if _enabled else WM_NONE
 
 
 def ingest_span(seq: int):

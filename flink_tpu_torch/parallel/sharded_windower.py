@@ -158,26 +158,6 @@ from flink_tpu_torch.windowing.windower import (
 )
 
 
-class _DeviceSpan:
-    """Times one inline device interaction on the ingest path into
-    ``device_inline_s`` and the flight recorder's ``device.dispatch``
-    instant: one measurement, two readers."""
-
-    __slots__ = ("_owner", "_t0")
-
-    def __init__(self, owner) -> None:
-        self._owner = owner
-
-    def __enter__(self) -> "_DeviceSpan":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        dt = time.perf_counter() - self._t0
-        self._owner.device_inline_s += dt
-        flight.instant("device.dispatch", duration_s=dt)
-
-
 def _rows(keys: np.ndarray, nss: np.ndarray, extra) -> zip:
     """``(key, ns, extra)`` entries of a replica publish's cold list: the
     ids as Python ints, ``extra`` per row (None for every row when
@@ -201,8 +181,6 @@ class MeshSpillSupport(WatchdogHooks):
     #: (MemoryManager, owner): the ``[P, capacity]`` footprint reserves
     #: from the job's managed pool (core/memory.py); None = unmanaged
     _memory = None
-    #: wall seconds inside inline device interactions on the ingest path
-    device_inline_s: float = 0.0
     #: the flight recorder's per-engine batch sequence
     _flight_batch: int = 0
 
@@ -211,9 +189,6 @@ class MeshSpillSupport(WatchdogHooks):
         advance the batch sequence (spans below inherit the batch id)."""
         self._flight_batch += 1
         return flight.ingest_span(self._flight_batch)
-
-    def _device_span(self) -> _DeviceSpan:
-        return _DeviceSpan(self)
 
     #: live non-contiguous key-group -> shard table installed by
     #: reassign_key_groups(); None = the contiguous formula
@@ -273,7 +248,7 @@ class MeshSpillSupport(WatchdogHooks):
                     traffic=self._exchange2_traffic)
             s1, s2 = steps2
             tr = self._exchange2_traffic
-            with self._device_span():
+            with flight.span("device.dispatch"):
                 cols = [self._to_device(c) for c in (dst, *staged)]
                 with flight.span("exchange.stage1"):
                     inter = tr.count_launches(
@@ -283,18 +258,20 @@ class MeshSpillSupport(WatchdogHooks):
                         2, s2, self.accs, inter[0], inter[1],
                         tuple(inter[2:]), w2)
         elif self.shuffle_mode == "device":
-            dst, staged, width = stage_device_exchange(
-                shards, self.P, columns=columns, fills=fills,
-                pool=self._shuffle_pool)
-            with self._device_span():
+            with flight.span("prep.stage"):
+                dst, staged, width = stage_device_exchange(
+                    shards, self.P, columns=columns, fills=fills,
+                    pool=self._shuffle_pool)
+            with flight.span("device.dispatch"):
                 cols = [self._to_device(c) for c in (dst, *staged)]
                 self.accs = flat_step(self.accs, cols[0], cols[1],
                                       tuple(cols[2:]), width)
         else:
-            _, blocked = bucket_by_shard(
-                shards, self.P, columns=columns, fills=fills,
-                pool=self._shuffle_pool)
-            with self._device_span():
+            with flight.span("prep.stage"):
+                _, blocked = bucket_by_shard(
+                    shards, self.P, columns=columns, fills=fills,
+                    pool=self._shuffle_pool)
+            with flight.span("device.dispatch"):
                 blocks = [self._to_device(b) for b in blocked]
                 self.accs = host_step(self.accs, blocks[0],
                                       tuple(blocks[1:]))
@@ -2158,24 +2135,21 @@ class MeshWindowEngine(MeshSpillSupport):
         # batch boundary: the engine is consistent at a known source
         # position — the one point the watchdog may declare a shard dead
         self._wd_boundary()
-        key_ids = batch.key_ids
-        slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
-        if self._spill_active and len(batch) > 1:
-            groups = self._ns_group_plan(key_ids, slice_ends)
-            if groups is not None:
-                for g in groups:
-                    mask = np.isin(slice_ends, np.asarray(g))
-                    if mask.any():
-                        self._ingest_subbatch(batch.filter(mask))
-                return
-        live = self.book.live_mask(slice_ends)
-        if live is not None:
-            key_ids, slice_ends = key_ids[live], slice_ends[live]
-            batch = batch.filter(live)
-            if len(batch) == 0:
-                return
-        self.book.register_slices(slice_ends)
-        shards = self._route(key_ids)
+        with flight.span("prep.route"):
+            slice_ends = self.assigner.assign_slice_ends(batch.timestamps)
+            groups = (self._ns_group_plan(batch.key_ids, slice_ends)
+                      if self._spill_active and len(batch) > 1 else None)
+            routed = None if groups is not None else \
+                self._route_batch(batch, slice_ends)
+        if groups is not None:
+            for g in groups:
+                mask = np.isin(slice_ends, np.asarray(g))
+                if mask.any():
+                    self._ingest_subbatch(batch.filter(mask))
+            return
+        if routed is None:
+            return
+        batch, key_ids, slice_ends, shards, grouped = routed
         partial = is_partial_batch(batch)
         if partial:
             # locally pre-aggregated rows: one explicit value per
@@ -2189,8 +2163,32 @@ class MeshWindowEngine(MeshSpillSupport):
             self._process_batch_host(key_ids, slice_ends, shards, values,
                                      leaves, partial)
         else:
-            self._process_batch_device(key_ids, slice_ends, shards,
-                                       values, leaves, partial)
+            self._process_batch_device(grouped, shards, values, leaves,
+                                       partial)
+
+    def _route_batch(self, batch: RecordBatch, slice_ends: np.ndarray):
+        """The live mask, the slices' registration and the key-group
+        route of one batch; in device mode also its records grouped by
+        shard: ``(order, offsets, keys, namespaces)`` in shard order.
+        Returns ``(batch, key_ids, slice_ends, shards, grouped)``, or None
+        when no record is live."""
+        key_ids = batch.key_ids
+        live = self.book.live_mask(slice_ends)
+        if live is not None:
+            key_ids, slice_ends = key_ids[live], slice_ends[live]
+            batch = batch.filter(live)
+            if len(batch) == 0:
+                return None
+        self.book.register_slices(slice_ends)
+        shards = self._route(key_ids)
+        grouped = None
+        if self.shuffle_mode != "host":
+            order = np.argsort(shards, kind="stable")
+            offsets = np.zeros(self.P + 1, dtype=np.int64)
+            np.cumsum(np.bincount(shards, minlength=self.P),
+                      out=offsets[1:])
+            grouped = (order, offsets, key_ids[order], slice_ends[order])
+        return batch, key_ids, slice_ends, shards, grouped
 
     def _process_batch_host(self, key_ids, slice_ends, shards, values,
                             leaves, partial: bool) -> None:
@@ -2201,13 +2199,14 @@ class MeshWindowEngine(MeshSpillSupport):
         scatter step."""
         self._await_dispatch_slot()
         self._shuffle_pool.flip()
-        counts, blocked = bucket_by_shard(
-            shards, self.P,
-            columns=[key_ids, slice_ends,
-                     *[np.asarray(v, dtype=l.dtype)
-                       for v, l in zip(values, leaves)]],
-            fills=[0, 0, *[l.identity for l in leaves]],
-            pool=self._shuffle_pool)
+        with flight.span("prep.stage"):
+            counts, blocked = bucket_by_shard(
+                shards, self.P,
+                columns=[key_ids, slice_ends,
+                         *[np.asarray(v, dtype=l.dtype)
+                           for v, l in zip(values, leaves)]],
+                fills=[0, 0, *[l.identity for l in leaves]],
+                pool=self._shuffle_pool)
         key_block, ns_block = blocked[0], blocked[1]
         if self._spill_active:
             touched = {p: np.unique(ns_block[p, :int(counts[p])])
@@ -2220,36 +2219,33 @@ class MeshWindowEngine(MeshSpillSupport):
             c = int(counts[p])
             if not c:
                 continue
-            self._reserve(p, key_block[p, :c], ns_block[p, :c])
-            slot_block[p, :c] = self.indexes[p].lookup_or_insert(
-                key_block[p, :c], ns_block[p, :c])
-            self._dirty[p, slot_block[p, :c]] = True
-            self._rep_mark(p, slot_block[p, :c])
+            with flight.span("prep.slots", shard=p):
+                self._reserve(p, key_block[p, :c], ns_block[p, :c])
+                slot_block[p, :c] = self.indexes[p].lookup_or_insert(
+                    key_block[p, :c], ns_block[p, :c])
+                self._dirty[p, slot_block[p, :c]] = True
+                self._rep_mark(p, slot_block[p, :c])
         step = self._valued_scatter_step if partial else self._scatter_step
-        with self._device_span():
+        with flight.span("device.dispatch"):
             self.accs = step(
                 self.accs, self._to_device(slot_block),
                 tuple(self._to_device(v) for v in blocked[2:]))
         self._push_dispatch_fence()
 
-    def _process_batch_device(self, key_ids, slice_ends, shards, values,
-                              leaves, partial: bool = False) -> None:
+    def _process_batch_device(self, grouped, shards, values, leaves,
+                              partial: bool = False) -> None:
         """The host resolves slots (the index is host state) but never
         sorts or blocks the record columns: flat padded columns go to the
-        device and the exchange+scatter step routes them to their shards."""
-        n = len(key_ids)
-        order = np.argsort(shards, kind="stable")
-        counts = np.bincount(shards, minlength=self.P)
-        offsets = np.zeros(self.P + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        s_keys = key_ids[order]
-        s_ns = slice_ends[order]
+        device and the exchange+scatter step routes them to their shards.
+        ``grouped``: the batch's records by shard (``_route_batch``)."""
+        order, offsets, s_keys, s_ns = grouped
+        n = len(order)
         if self._spill_active:
             # reload this batch's spilled namespaces (all shards in one
             # put), then refresh their recency
             touched = {
                 p: np.unique(s_ns[offsets[p]:offsets[p + 1]])
-                for p in range(self.P) if counts[p]}
+                for p in range(self.P) if offsets[p + 1] > offsets[p]}
             self._ensure_resident(touched)
             for p, nss in touched.items():
                 self._touch(p, nss.tolist())
@@ -2258,12 +2254,13 @@ class MeshWindowEngine(MeshSpillSupport):
             a, b = int(offsets[p]), int(offsets[p + 1])
             if a == b:
                 continue
-            self._reserve(p, s_keys[a:b], s_ns[a:b])
-            slots = self.indexes[p].lookup_or_insert(s_keys[a:b],
-                                                     s_ns[a:b])
-            slots_sorted[a:b] = slots
-            self._dirty[p, slots] = True
-            self._rep_mark(p, slots)
+            with flight.span("prep.slots", shard=p):
+                self._reserve(p, s_keys[a:b], s_ns[a:b])
+                slots = self.indexes[p].lookup_or_insert(s_keys[a:b],
+                                                         s_ns[a:b])
+                slots_sorted[a:b] = slots
+                self._dirty[p, slots] = True
+                self._rep_mark(p, slots)
         rec_slots = np.empty(n, dtype=np.int32)
         rec_slots[order] = slots_sorted
         self._dispatch_exchange(
@@ -2324,7 +2321,8 @@ class MeshWindowEngine(MeshSpillSupport):
         per_shard_keys, sm = self._slice_matrices(slice_ends)
         if sm is None:
             return None
-        fire_out = self._fire_step(self.accs, self._to_device(sm))
+        with flight.span("device.dispatch"):
+            fire_out = self._fire_step(self.accs, self._to_device(sm))
         names = sorted(fire_out.keys())
         projector = self.fire_projector
         w_start = self.assigner.window_start(window_end)
@@ -2355,8 +2353,10 @@ class MeshWindowEngine(MeshSpillSupport):
             cols.update(merged)
             return RecordBatch(cols)
 
-        pending = PendingFire([fire_out[n] for n in names], build,
-                              watchdog=self._watchdog)
+        with flight.span("device.dispatch"):
+            # the device-to-host copies of the outputs start here
+            pending = PendingFire([fire_out[n] for n in names], build,
+                                  watchdog=self._watchdog)
         return pending if async_ok else pending.harvest()
 
     def _slice_matrices(self, slice_ends
@@ -2370,21 +2370,8 @@ class MeshWindowEngine(MeshSpillSupport):
         per_shard_keys: List[np.ndarray] = []
         w_max = 0
         for p in range(self.P):
-            idx = self.indexes[p]
-            chunks = [(i, idx.slots_for_namespace(int(se)))
-                      for i, se in enumerate(slice_ends)]
-            chunks = [(i, s) for i, s in chunks if len(s) > 0]
-            if not chunks:
-                per_shard_mats.append(np.zeros((0, k), dtype=np.int32))
-                per_shard_keys.append(np.empty(0, dtype=np.int64))
-                continue
-            all_slots = np.concatenate([s for _, s in chunks])
-            all_sidx = np.concatenate(
-                [np.full(len(s), i, dtype=np.int32) for i, s in chunks])
-            keys, inv = np.unique(idx.slot_key[all_slots],
-                                  return_inverse=True)
-            mat = np.zeros((len(keys), k), dtype=np.int32)
-            mat[inv, all_sidx] = all_slots
+            with flight.span("fire.shard", shard=p):
+                keys, mat = self._shard_slice_matrix(p, slice_ends)
             per_shard_mats.append(mat)
             per_shard_keys.append(keys)
             w_max = max(w_max, len(keys))
@@ -2396,6 +2383,26 @@ class MeshWindowEngine(MeshSpillSupport):
         for p, mat in enumerate(per_shard_mats):
             sm[p, : len(mat)] = mat
         return per_shard_keys, sm
+
+    def _shard_slice_matrix(self, p: int, slice_ends
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+        """Shard ``p``'s keys with a resident row in any of
+        ``slice_ends`` (ascending) and their ``[keys, k]`` slot matrix."""
+        k = len(slice_ends)
+        idx = self.indexes[p]
+        chunks = [(i, idx.slots_for_namespace(int(se)))
+                  for i, se in enumerate(slice_ends)]
+        chunks = [(i, s) for i, s in chunks if len(s) > 0]
+        if not chunks:
+            return (np.empty(0, dtype=np.int64),
+                    np.zeros((0, k), dtype=np.int32))
+        all_slots = np.concatenate([s for _, s in chunks])
+        all_sidx = np.concatenate(
+            [np.full(len(s), i, dtype=np.int32) for i, s in chunks])
+        keys, inv = np.unique(idx.slot_key[all_slots], return_inverse=True)
+        mat = np.zeros((len(keys), k), dtype=np.int32)
+        mat[inv, all_sidx] = all_slots
+        return keys, mat
 
     def _fire_window_hybrid(self, window_end: int,
                             slice_ends) -> Optional[RecordBatch]:
@@ -2470,10 +2477,13 @@ class MeshWindowEngine(MeshSpillSupport):
         self._freed_ns.append(np.asarray(list(ends), dtype=np.int64))
         self._drop_spilled(ends)
         for p in range(self.P):
-            slots = self.indexes[p].free_namespaces(ends)
+            # a shard's fire-path host work, like its resolve
+            with flight.span("fire.shard", shard=p):
+                slots = self.indexes[p].free_namespaces(ends)
+                if slots is not None:
+                    self._dirty[p, slots] = False
             freed.append(slots)
             if slots is not None:
-                self._dirty[p, slots] = False
                 f_max = max(f_max, len(slots))
         if f_max == 0:
             return
@@ -2483,7 +2493,8 @@ class MeshWindowEngine(MeshSpillSupport):
         for p, slots in enumerate(freed):
             if slots is not None:
                 block[p, : len(slots)] = slots
-        self.accs = self._reset_step(self.accs, self._to_device(block))
+        with flight.span("device.dispatch"):
+            self.accs = self._reset_step(self.accs, self._to_device(block))
 
     # ---------------------------------------------------------- point query
 

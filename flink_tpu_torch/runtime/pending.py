@@ -11,7 +11,6 @@ completion; on the CPU everything is ready at once.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -62,14 +61,18 @@ class Fence:
 class PendingFire:
     """A dispatched-but-unharvested fire: host copies of the device output
     tensors (in flight) plus a host-side finisher that assembles the result
-    batch once the bytes land."""
+    batch once the bytes land. It keeps its fire's watermark (the one
+    :func:`flight.fire_span` noted when it was dispatched), which its
+    ``fire.pending`` wait record and ``fire.harvest`` span carry."""
 
-    __slots__ = ("host", "fence", "build", "dispatched_at", "watchdog")
+    __slots__ = ("host", "fence", "build", "dispatched_at", "watchdog",
+                 "watermark")
 
     def __init__(self, tensors: Sequence[torch.Tensor],
                  build: Callable[[List[np.ndarray]], object],
                  watchdog=None):
-        self.dispatched_at = time.perf_counter()
+        self.dispatched_at = flight.clock()
+        self.watermark = flight.current_watermark()
         self.build = build
         #: an optional DeviceWatchdog: the wait for the copies is a
         #: deadline-tracked section (a fire whose copies never land is a
@@ -87,7 +90,9 @@ class PendingFire:
         # chaos: a harvest failure — the fire was dispatched but its
         # device-to-host results never land
         chaos.fault_point("harvest.pending_fire", arrays=len(self.host))
-        with flight.span("fire.harvest"):
+        flight.waited("fire.pending", self.dispatched_at,
+                      watermark=self.watermark)
+        with flight.span("fire.harvest", watermark=self.watermark):
             if self.fence is not None:
                 with (self.watchdog.section("pending_harvest")
                       if self.watchdog is not None else NULL_SECTION):

@@ -143,7 +143,10 @@ def test_q5_registry_names_equal_the_references():
     exposes its engine's late-record count; the reference's registers the
     gauge only for operators that have the attribute, and its window
     operator has none), and the port's ``kernels`` group (the
-    hand-written kernels' process-wide launch counters)."""
+    hand-written kernels' process-wide launch counters). The ``flight``
+    group has a gauge set per span kind: the reference's less its
+    ``emit``, ``xla.compile`` and ``d2h.transfer``, plus the port's
+    added kinds."""
     import re
 
     def names(result):
@@ -156,7 +159,19 @@ def test_q5_registry_names_equal_the_references():
     want, got = names(ref), names(port)
     win = next(k.rsplit(".state.", 1)[0] for k in want
                if k.endswith(".state.key_imbalance"))
-    assert got == want | {
+    from flink_tpu_torch.observe import KNOWN_SPAN_KINDS
+
+    def flight_gauges(kinds):
+        return {f"flight.{k.replace('.', '_')}_{stat}" for k in kinds
+                for stat in ("count", "total_s", "p50_ms", "p99_ms")}
+
+    from flink_tpu.observe import KNOWN_SPAN_KINDS as J_KINDS
+
+    removed = set(J_KINDS) - set(KNOWN_SPAN_KINDS)
+    added = set(KNOWN_SPAN_KINDS) - set(J_KINDS)
+    assert removed == {"emit", "xla.compile", "d2h.transfer"}
+    assert flight_gauges(removed) <= want
+    assert got == (want - flight_gauges(removed)) | flight_gauges(added) | {
         f"{win}.numLateRecordsDropped",
         "kernels.exchange_rank_launches", "kernels.ordered_fold_launches"}
     snap = {re.sub(r"#\d+", "#", k): v
