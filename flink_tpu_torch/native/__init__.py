@@ -272,6 +272,57 @@ def load_sessions() -> Optional[ctypes.CDLL]:
                       _declare_sessions)
 
 
+def _declare_route(lib) -> None:
+    c = ctypes
+    i64, i32 = c.c_int64, c.c_int32
+    P = c.POINTER
+    lib.rt_partition.restype = i64
+    lib.rt_partition.argtypes = [i64, P(i64), P(i64), i64, P(i32), i64,
+                                 P(i32), P(i64), P(i64), P(i64), P(i64)]
+
+
+def load_route() -> Optional[ctypes.CDLL]:
+    """The native shard partition (native/route.cpp), or None: a batch's
+    key-group hash, shard lookup and grouping by shard in one
+    GIL-released call (:func:`partition_by_shard`)."""
+    return _load_once("route", "route.cpp", "_route.so", _declare_route)
+
+
+def partition_by_shard(key_ids, namespaces, table, num_shards: int):
+    """``(shards, (order, offsets, keys[order], namespaces[order]))`` of a
+    batch routed through ``table`` (int32, key group -> shard, one entry
+    per key group) and grouped by shard in stream order, as
+    ``np.argsort(shards, kind="stable")`` orders it; None when the library
+    is missing or a record's entry lies outside ``[0, num_shards)``."""
+    import numpy as np
+
+    lib = load_route()
+    if lib is None:
+        return None
+    keys = np.ascontiguousarray(key_ids, dtype=np.int64)
+    nss = np.ascontiguousarray(namespaces, dtype=np.int64)
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    n = len(keys)
+    if len(nss) != n or keys.ndim != 1 or nss.ndim != 1 or table.ndim != 1:
+        raise ValueError(f"partition_by_shard: {n} keys, {len(nss)} "
+                         "namespaces and a table must be 1-D and match")
+    shards = np.empty(n, dtype=np.int32)
+    offsets = np.empty(num_shards + 1, dtype=np.int64)
+    order = np.empty(n, dtype=np.int64)
+    s_keys = np.empty(n, dtype=np.int64)
+    s_ns = np.empty(n, dtype=np.int64)
+    c = ctypes
+    p64, p32 = c.POINTER(c.c_int64), c.POINTER(c.c_int32)
+    rc = lib.rt_partition(
+        n, keys.ctypes.data_as(p64), nss.ctypes.data_as(p64), len(table),
+        table.ctypes.data_as(p32), num_shards, shards.ctypes.data_as(p32),
+        offsets.ctypes.data_as(p64), order.ctypes.data_as(p64),
+        s_keys.ctypes.data_as(p64), s_ns.ctypes.data_as(p64))
+    if rc != 0:
+        return None
+    return shards, (order, offsets, s_keys, s_ns)
+
+
 def native_disabled() -> bool:
     """The reference's blanket opt-outs (``FLINK_TPU_NO_NATIVE=1`` or
     ``FLINK_TPU_NATIVE=0``); the hot-row cache's selection reads them

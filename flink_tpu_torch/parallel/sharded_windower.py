@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.chaos import injection as chaos
+from flink_tpu_torch.native import partition_by_shard
 from flink_tpu_torch.observe import flight_recorder as flight
 from flink_tpu_torch.core.records import (
     KEY_ID_FIELD,
@@ -114,6 +115,7 @@ from flink_tpu_torch.parallel.shuffle import (
     ShuffleBufferPool,
     bucket_by_shard,
     build_exchange_scatter,
+    shard_of_key_groups,
     shard_records,
     stage_device_exchange,
 )
@@ -289,6 +291,22 @@ class MeshSpillSupport(WatchdogHooks):
         return shard_records(key_ids, self.P, self.max_parallelism,
                              self.key_group_range,
                              assignment=self._assignment)
+
+    def _route_table(self) -> np.ndarray:
+        """``_route``'s decision for every key group ``0 …
+        max_parallelism-1`` (int32; -1 for a group outside a live
+        assignment's table), read from the live routing each call."""
+        mp = self.max_parallelism
+        lo, hi = 0, mp
+        if self._assignment is not None:
+            first = int(self._assignment.first)
+            lo = max(first, 0)
+            hi = min(first + len(self._assignment.table), mp)
+        table = np.full(mp, -1, dtype=np.int32)
+        table[lo:hi] = shard_of_key_groups(
+            np.arange(lo, hi, dtype=np.int32), self.P, mp,
+            self.key_group_range, assignment=self._assignment)
+        return table
 
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
         # an async copy from PAGEABLE host memory has staged `host` when
@@ -2003,6 +2021,10 @@ class MeshWindowEngine(MeshSpillSupport):
     be dispatched async: ``on_watermark(async_ok=True)`` returns
     PendingFire handles, harvested once their host copies land."""
 
+    #: batches grouped by shard natively / by the NumPy fallback
+    route_native_batches: int = 0
+    route_fallback_batches: int = 0
+
     def __init__(
         self,
         assigner: WindowAssigner,
@@ -2180,15 +2202,31 @@ class MeshWindowEngine(MeshSpillSupport):
             if len(batch) == 0:
                 return None
         self.book.register_slices(slice_ends)
-        shards = self._route(key_ids)
-        grouped = None
-        if self.shuffle_mode != "host":
+        if self.shuffle_mode == "host":
+            return batch, key_ids, slice_ends, self._route(key_ids), None
+        # the native counting-sort pass gives the NumPy path's shards and
+        # grouping bit for bit; the NumPy path runs without the library or
+        # when a record's group has no shard in [0, P) in the table
+        routed = partition_by_shard(key_ids, slice_ends, self._route_table(),
+                                    self.P)
+        if routed is not None:
+            self.route_native_batches += 1
+            shards, grouped = routed
+        else:
+            self.route_fallback_batches += 1
+            shards = self._route(key_ids)
             order = np.argsort(shards, kind="stable")
             offsets = np.zeros(self.P + 1, dtype=np.int64)
             np.cumsum(np.bincount(shards, minlength=self.P),
                       out=offsets[1:])
             grouped = (order, offsets, key_ids[order], slice_ends[order])
         return batch, key_ids, slice_ends, shards, grouped
+
+    def route_counters(self) -> Dict[str, int]:
+        """Batches ``_route_batch`` grouped by shard through the native
+        partition and through the NumPy fallback (device shuffle mode)."""
+        return {"native_batches": self.route_native_batches,
+                "fallback_batches": self.route_fallback_batches}
 
     def _process_batch_host(self, key_ids, slice_ends, shards, values,
                             leaves, partial: bool) -> None:

@@ -157,7 +157,15 @@ def shard_records(key_ids: np.ndarray, num_shards: int,
     group space of that range; an ``assignment``
     (``state.keygroups.KeyGroupAssignment``, a rebalanced plane's table)
     replaces the formula and carries its own range."""
-    groups = assign_key_groups(key_ids, max_parallelism)
+    return shard_of_key_groups(assign_key_groups(key_ids, max_parallelism),
+                               num_shards, max_parallelism, key_group_range,
+                               assignment)
+
+
+def shard_of_key_groups(groups: np.ndarray, num_shards: int,
+                        max_parallelism: int, key_group_range=None,
+                        assignment=None) -> np.ndarray:
+    """key group -> owning shard: :func:`shard_records` after the hash."""
     if assignment is not None:
         return assignment.shard_of_groups(groups).astype(np.int64)
     if key_group_range is not None:
